@@ -1,0 +1,80 @@
+"""Distributed average-consensus (gossip) operators over stacked peers (the
+port's ``repro.core.consensus``, vmap-runtime half).
+
+Two forms of the same op out_k = sum_j W[k, j] x_j on a (K, N) flat buffer:
+
+1. **Dense** (``mix_stacked``): one (K, K) @ (K, N) product in float32 —
+   the reference round's form, kept here as the test oracle for the sparse
+   path.
+2. **Sparse padded-neighbor** (``sparse_mixing``): host-side (self_w,
+   nbr_idx, nbr_w) rows that feed the fused ``consensus_mix`` kernel, which
+   the port's round runs (``repro_torch.kernels.consensus_mix.ops``).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def mix_stacked(w_mat: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
+    """W @ flat over the leading peer axis, float32 accumulation, cast back."""
+    return (w_mat.to(torch.float32) @ flat.to(torch.float32)).to(flat.dtype)
+
+
+def mixing_degrees(w_mat: np.ndarray) -> np.ndarray:
+    """Per-peer neighbor count of a dense mixing matrix: off-diagonal nonzeros."""
+    off_diag = w_mat - np.diag(np.diag(w_mat))
+    return (off_diag != 0).sum(axis=1)
+
+
+def sparse_mixing(
+    w_mat: np.ndarray, *, dmax: int | None = None
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Convert a dense mixing matrix to padded (self_w, nbr_idx, nbr_w).
+
+    nbr_idx: (K, Dmax) int32, padded with the peer's own index (weight 0).
+    ``dmax`` overrides the padding width.
+    """
+    k = w_mat.shape[0]
+    off_diag = w_mat - np.diag(np.diag(w_mat))
+    deg = mixing_degrees(w_mat)
+    need = max(int(deg.max()), 1) if k else 1
+    if dmax is None:
+        dmax = need
+    elif dmax < need:
+        raise ValueError(f"dmax={dmax} below the actual max degree {need}")
+    nbr_idx = np.tile(np.arange(k, dtype=np.int32)[:, None], (1, dmax))
+    nbr_w = np.zeros((k, dmax), dtype=np.float32)
+    for i in range(k):
+        nbrs = np.nonzero(off_diag[i])[0]
+        nbr_idx[i, : len(nbrs)] = nbrs
+        nbr_w[i, : len(nbrs)] = off_diag[i, nbrs]
+    self_w = np.diag(w_mat).astype(np.float32)
+    return self_w, nbr_idx, nbr_w
+
+
+def max_norm_sync(stacked: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """All peers adopt, per leaf, the initialization with the largest L2 norm
+    (P2PL's initialization, Ref. [6]); ties go to the lowest peer index."""
+
+    def leaf(x):
+        k = x.shape[0]
+        norms = torch.sqrt(torch.sum(torch.square(x.to(torch.float32).reshape(k, -1)), dim=1))
+        return x[int(torch.argmax(norms))].expand_as(x).clone()
+
+    return {name: leaf(x) for name, x in stacked.items()}
+
+
+def consensus_error(flat: torch.Tensor) -> torch.Tensor:
+    """Model drift metric: mean_k ||w_k - w_bar||_2 (f32)."""
+    xf = flat.to(torch.float32)
+    return torch.sqrt(torch.sum(torch.square(xf - xf.mean(dim=0, keepdim=True)), dim=1)).mean()
+
+
+def pairwise_drift(flat: torch.Tensor) -> torch.Tensor:
+    """Max over peer pairs of ||w_i - w_j||_2 — the paper's drift/divergence."""
+    xf = flat.to(torch.float32)
+    # ||x_i - x_j||^2 = ||x_i||^2 + ||x_j||^2 - 2 x_i . x_j
+    n2 = torch.sum(xf * xf, dim=1)
+    sq = n2[:, None] + n2[None, :] - 2.0 * (xf @ xf.T)
+    return torch.sqrt(torch.clamp(sq, min=0.0)).max()

@@ -1,0 +1,413 @@
+"""The paper's algorithm family on stacked peers (the port's ``repro.core.p2p``,
+vmap runtime).
+
+P2PL with Affinity (Sec. IV-A) subsumes every baseline in the paper:
+
+    algorithm          T      S    momentum  max-norm-sync  d bias  b bias
+    -----------------  -----  ---  --------  -------------  ------  ------
+    dsgd               1      1    optional  no             0       0
+    local_dsgd         T > 1  1    optional  no             0       0
+    p2pl               T > 1  S    yes       yes            0       0
+    p2pl_affinity      T > 1  S    optional  yes            yes     optional
+    isolated           T > 1  0    optional  no             0       0
+
+Learning phase (Eq. 3):   w <- w - eta * grad F_k(w) + eta_d * d_k
+Consensus phase (Eq. 4):  w_k <- sum_j alpha_kj w_j + eta_b * b_k
+Affinity biases:          d_k <- (1/T) sum_j beta_kj (w_j - w_k)   (consensus)
+                          b_k <- (1/S) w_k                         (local phase)
+
+Layout.  Every state leaf is ONE (K, row) float32 tensor on the device: the K
+peers' parameters flattened into rows (``ParamLayout``; the leaves in the
+task's order, each row zero-padded to a multiple of 4 floats so rows stay
+16-byte aligned).  The local phase reads the leaves as (K, ...) views of that
+buffer and runs each layer as one batched matmul over the peers; one backward
+of the summed per-peer losses gives every peer its own gradient, and the SGD
+update is a few elementwise passes over the whole buffer.  The consensus
+phase hands the same buffer to the fused ``consensus_mix`` kernel, which
+writes the mixed parameters and the affinity bias d in one pass.
+
+Only the paper's setting is ported yet: gossip over a static schedule, no
+compression, synchronous rounds, the 2NN task.  Any other configuration
+raises ``NotImplementedError`` naming the ROADMAP.md item that ports it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import consensus as consensus_lib
+from repro_torch.core import graph as graph_lib
+from repro_torch.core import protocols as protocols_lib
+from repro_torch.core import task as task_lib
+from repro_torch.device import resolve_device
+from repro_torch.kernels.consensus_mix.ops import SparseOperands
+
+ALGORITHMS = ("dsgd", "local_dsgd", "p2pl", "p2pl_affinity", "isolated")
+STEPS_PROFILES = ("uniform", "straggler", "linear")
+COMPRESSORS = ("none", "topk", "qint8")
+ROW_ALIGN = 4  # floats: keeps every peer's row 16-byte aligned
+
+
+def _not_ported(what: str, item: int):
+    return NotImplementedError(f"{what} is not ported yet: ROADMAP.md queue 1 item {item}")
+
+
+@dataclasses.dataclass(frozen=True)
+class P2PConfig:
+    """Hyperparameters of the P2PL-with-Affinity family.
+
+    Field names and defaults equal ``repro.core.p2p.P2PConfig``'s.  Values
+    that select machinery this port does not run yet raise
+    ``NotImplementedError`` naming the ROADMAP.md item that ports it.
+    """
+
+    algorithm: str = "p2pl_affinity"
+    num_peers: int = 2
+    local_steps: int = 1  # T
+    consensus_steps: int = 1  # S
+    lr: float = 0.01  # eta
+    momentum: float = 0.0  # mu (PyTorch-default Polyak: buf = mu*buf + g; w -= lr*buf)
+    eta_d: float = 1.0  # learning-phase bias step size
+    eta_b: float = 0.0  # consensus-phase bias step size (paper's experiments: b = 0)
+    topology: str = "complete"
+    mixing: str = "data_weighted"
+    consensus_step_size: float = 1.0  # epsilon_k
+    max_norm_init: bool = False
+    erdos_renyi_p: float = 0.3
+    graph_seed: int = 0
+    protocol: str = "gossip"
+    # -- time-varying communication (item 8) ---------------------------------
+    schedule: str = "static"
+    schedule_rounds: int = 16
+    link_survival_prob: float = 0.8
+    peer_online_prob: float = 0.8
+    schedule_seed: int = 0
+    round_robin_topologies: tuple[str, ...] = ()
+    # -- adaptive partner selection (item 13) --------------------------------
+    partner_rule: str = "loss_proximity"
+    adaptive_eps: float = 0.1
+    adaptive_seed: int = 0
+    # -- consensus-payload compression (item 11) -----------------------------
+    compressor: str = "none"
+    topk_frac: float = 0.01
+    # -- asynchronous rounds (item 12) ---------------------------------------
+    steps_profile: str = "uniform"
+    staleness_bound: int = 0
+    staleness_decay: float = 0.5
+    straggler_frac: float = 0.25
+    straggler_period: int = 4
+    # -- training task (item 14 for anything but the 2NN) --------------------
+    model: str = "mnist_mlp"
+
+    def __post_init__(self):
+        """Validate the config; reject what this port does not run yet."""
+        if self.algorithm not in ALGORITHMS:
+            raise ValueError(f"unknown algorithm {self.algorithm!r}")
+        if self.algorithm == "dsgd" and (self.local_steps != 1 or self.consensus_steps != 1):
+            raise ValueError("dsgd fixes T = S = 1")
+        if self.algorithm == "isolated" and self.consensus_steps != 0:
+            raise ValueError("isolated fixes S = 0")
+        if self.local_steps < 1:
+            raise ValueError("need at least one local step per round")
+        protocols_lib.get_protocol(self.protocol)
+        if self.schedule == "adaptive":
+            raise _not_ported("schedule='adaptive'", 13)
+        if self.schedule not in graph_lib.SCHEDULES:
+            raise ValueError(f"unknown schedule {self.schedule!r}")
+        if self.schedule != "static":
+            raise _not_ported(f"schedule={self.schedule!r}", 8)
+        if self.topology not in graph_lib.TOPOLOGIES:
+            raise ValueError(f"unknown topology {self.topology!r}")
+        if self.topology == "directed_ring":
+            raise _not_ported("a directed topology", 8)
+        if self.compressor not in COMPRESSORS:
+            raise ValueError(f"unknown compressor {self.compressor!r}")
+        if self.compressor != "none":
+            raise _not_ported(f"compressor={self.compressor!r}", 11)
+        if self.steps_profile not in STEPS_PROFILES:
+            raise ValueError(f"unknown steps_profile {self.steps_profile!r}")
+        if self.staleness_bound < 0:
+            raise ValueError("staleness_bound must be >= 0 (0 = synchronous)")
+        if self.steps_profile != "uniform" or self.staleness_bound > 0:
+            raise _not_ported("asynchronous rounds", 12)
+        task_lib.get_task(self.model)
+        object.__setattr__(self, "round_robin_topologies", tuple(self.round_robin_topologies))
+
+    @property
+    def use_affinity_d(self) -> bool:
+        """Whether the learning-phase affinity bias d (Eq. 3) is active."""
+        return self.algorithm == "p2pl_affinity" and self.eta_d != 0.0
+
+    @property
+    def use_affinity_b(self) -> bool:
+        """Whether the consensus-phase affinity bias b (Eq. 4) is active."""
+        return self.algorithm == "p2pl_affinity" and self.eta_b != 0.0
+
+    @property
+    def use_max_norm_init(self) -> bool:
+        """Whether peers synchronize to the max-norm init (Sec. IV-A)."""
+        return self.max_norm_init or self.algorithm in ("p2pl", "p2pl_affinity")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ParamLayout:
+    """Where each named leaf lives in a peer's flat parameter row."""
+
+    shapes: dict[str, tuple[int, ...]]
+    offsets: dict[str, int]
+    size: int  # parameters per peer
+    row: int  # row length: ``size`` padded to a multiple of ROW_ALIGN
+
+    @classmethod
+    def of(cls, task: task_lib.TrainTask) -> "ParamLayout":
+        """The layout of ``task``'s leaves, in ``task.param_shapes`` order."""
+        offsets, off = {}, 0
+        for name, shape in task.param_shapes.items():
+            offsets[name] = off
+            off += int(np.prod(shape))
+        row = -(-off // ROW_ALIGN) * ROW_ALIGN
+        return cls(dict(task.param_shapes), offsets, off, row)
+
+    def views(self, flat: torch.Tensor) -> dict[str, torch.Tensor]:
+        """(K, ...) views of every leaf into a (K, row) buffer (no copies)."""
+        k = flat.shape[0]
+        return {
+            name: flat[:, off : off + int(np.prod(shape))].view(k, *shape)
+            for (name, shape), off in zip(self.shapes.items(), self.offsets.values())
+        }
+
+    def flatten(self, leaves: dict[str, torch.Tensor]) -> torch.Tensor:
+        """Named stacked (K, ...) leaves -> a fresh (K, row) buffer."""
+        rows = [leaves[name].reshape(leaves[name].shape[0], -1) for name in self.shapes]
+        pad = self.row - self.size
+        if pad:
+            rows.append(rows[0].new_zeros(rows[0].shape[0], pad))
+        return torch.cat(rows, dim=1)
+
+
+class P2PState(NamedTuple):
+    """Stacked peer state: every tensor is (K, row) float32 (see ``ParamLayout``).
+
+    ``protocol`` holds the consensus protocol's own state (``()`` for gossip).
+    ``round_idx`` counts completed consensus phases.
+    """
+
+    params: torch.Tensor
+    momentum: torch.Tensor
+    d_bias: torch.Tensor  # affinity learning-phase bias (Eq. 3)
+    b_bias: torch.Tensor  # affinity consensus-phase bias (Eq. 4)
+    round_idx: int
+    protocol: tuple = ()
+
+
+def build_schedule(cfg: P2PConfig) -> graph_lib.GraphSchedule:
+    """The config's communication-graph schedule (period 1: only "static" runs)."""
+    return graph_lib.static_schedule(
+        graph_lib.build_graph(
+            cfg.topology, cfg.num_peers, p=cfg.erdos_renyi_p, seed=cfg.graph_seed
+        )
+    )
+
+
+def protocol_constants(
+    cfg: P2PConfig, data_sizes: np.ndarray | None = None
+) -> tuple[protocols_lib.ProtocolConstants, graph_lib.GraphSchedule]:
+    """Stacked (R, K, K) float64 round constants of the config's protocol."""
+    sched = build_schedule(cfg)
+    consts = protocols_lib.get_protocol(cfg.protocol).constants(
+        sched, cfg.mixing, data_sizes=data_sizes,
+        consensus_step_size=cfg.consensus_step_size,
+    )
+    return consts, sched
+
+
+def init_state(
+    task: task_lib.TrainTask,
+    cfg: P2PConfig,
+    *,
+    seed: int = 0,
+    data_sizes: np.ndarray | None = None,
+    device: torch.device | str | None = None,
+    init_params: dict[str, torch.Tensor] | None = None,
+) -> P2PState:
+    """Independent per-peer init (PyTorch-style default), then optional max-norm sync.
+
+    ``init_params`` (stacked (K, ...) leaves, e.g. exported from the reference
+    through ``repro_torch.interop``) replaces the draw from ``seed``; max-norm
+    sync still applies to it, as in the reference.
+    """
+    device = resolve_device(device)
+    if init_params is None:
+        gen = torch.Generator().manual_seed(seed)
+        peers = [task.init_params(gen) for _ in range(cfg.num_peers)]
+        stacked = {name: torch.stack([p[name] for p in peers]) for name in task.param_shapes}
+    else:
+        stacked = {
+            name: torch.as_tensor(init_params[name], dtype=torch.float32)
+            for name in task.param_shapes
+        }
+        for name, shape in task.param_shapes.items():
+            if tuple(stacked[name].shape) != (cfg.num_peers, *shape):
+                raise ValueError(
+                    f"init_params[{name!r}] must be {(cfg.num_peers, *shape)}, "
+                    f"got {tuple(stacked[name].shape)}"
+                )
+    if cfg.use_max_norm_init:
+        stacked = consensus_lib.max_norm_sync(stacked)
+    params = ParamLayout.of(task).flatten(stacked).to(device)
+    return P2PState(
+        params=params,
+        momentum=torch.zeros_like(params),
+        d_bias=torch.zeros_like(params),
+        b_bias=torch.zeros_like(params),
+        round_idx=0,
+        protocol=protocols_lib.get_protocol(cfg.protocol).init_state(params, data_sizes),
+    )
+
+
+def local_phase(
+    state: P2PState,
+    task: task_lib.TrainTask,
+    batches: tuple[torch.Tensor, torch.Tensor],
+    cfg: P2PConfig,
+) -> tuple[P2PState, torch.Tensor]:
+    """Run T local SGD steps on every peer (Eq. 3).
+
+    ``batches`` = (x (T, K, B, ...), y (T, K, B)), step-major then peer.
+    Returns (new_state, per-step mean loss over peers (T,)).
+    """
+    layout = ParamLayout.of(task)
+    x, y = batches
+    params, mom = state.params, state.momentum
+    step_losses = []
+    for t in range(cfg.local_steps):
+        views = layout.views(params.detach().requires_grad_(True))
+        losses = task.loss_fn(views, (x[t], y[t]))  # (K,)
+        # the peers share no parameters, so the gradient of the summed loss
+        # is every peer's own gradient, stacked
+        grads = torch.autograd.grad(losses.sum(), list(views.values()))
+        grads = layout.flatten(dict(zip(views, grads)))
+        if cfg.momentum:
+            mom = cfg.momentum * mom + grads
+            update = mom
+        else:
+            update = grads
+        params = params - cfg.lr * update
+        if cfg.use_affinity_d:
+            params = params + cfg.eta_d * state.d_bias  # d fixed during the local phase
+        step_losses.append(losses.detach())
+    b_bias = state.b_bias
+    if cfg.use_affinity_b:
+        b_bias = params / max(cfg.consensus_steps, 1)
+    state = state._replace(params=params, momentum=mom, b_bias=b_bias)
+    return state, torch.stack(step_losses).mean(dim=1)
+
+
+def consensus_phase(state: P2PState, cfg: P2PConfig, ops: SparseOperands) -> P2PState:
+    """Run S consensus steps through the fused kernel; refreshes d en route.
+
+    ``ops`` are the round's sparse operands (``GossipProtocol.operands``).
+    Each step's d comes from the *incoming* neighbor parameters of that step
+    (Sec. IV-A); peers with an all-zero beta row keep d = 0.
+    """
+    if cfg.consensus_steps == 0:
+        return state._replace(round_idx=state.round_idx + 1)
+    proto = protocols_lib.get_protocol(cfg.protocol)
+    params, d_bias, proto_state = state.params, state.d_bias, state.protocol
+    for _ in range(cfg.consensus_steps):
+        proto_state, mixed, d_step = proto.mix(proto_state, params, ops, cfg.local_steps)
+        if cfg.use_affinity_d:
+            d_bias = d_step
+        if cfg.use_affinity_b:
+            mixed = mixed + cfg.eta_b * state.b_bias
+        params = mixed
+    return state._replace(
+        params=params, d_bias=d_bias, protocol=proto_state, round_idx=state.round_idx + 1
+    )
+
+
+def run_round(
+    state: P2PState,
+    task: task_lib.TrainTask,
+    batches: tuple[torch.Tensor, torch.Tensor],
+    cfg: P2PConfig,
+    ops: SparseOperands,
+) -> tuple[P2PState, P2PState, torch.Tensor]:
+    """One full round: (state_after_local, state_after_consensus, losses (T,))."""
+    after_local, losses = local_phase(state, task, batches, cfg)
+    return after_local, consensus_phase(after_local, cfg, ops), losses
+
+
+def make_round_fn(
+    task: task_lib.TrainTask,
+    cfg: P2PConfig,
+    data_sizes: np.ndarray | None = None,
+    *,
+    device: torch.device | str | None = None,
+) -> Callable[[P2PState, tuple], tuple[P2PState, P2PState, torch.Tensor]]:
+    """Round closure over the schedule: the sparse operands of every round of
+    the period are built from the float64 W/Beta and uploaded once, here;
+    round ``r`` uses those of ``r % R``."""
+    device = resolve_device(device)
+    consts, _ = protocol_constants(cfg, data_sizes)
+    proto = protocols_lib.get_protocol(cfg.protocol)
+    period = consts.w.shape[0]
+    ops = [proto.operands(protocols_lib.round_constants(consts, r), device) for r in range(period)]
+
+    def step(state: P2PState, batches):
+        return run_round(state, task, batches, cfg, ops[state.round_idx % period])
+
+    return step
+
+
+def param_views(state: P2PState, task: task_lib.TrainTask) -> dict[str, torch.Tensor]:
+    """The state's parameters as named (K, ...) leaves (views, no copies)."""
+    return ParamLayout.of(task).views(state.params)
+
+
+# ---------------------------------------------------------------------------
+# Evaluation helpers (stratified accuracy — the paper's seen/unseen split)
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def evaluate_stacked(apply_fn, params: dict, images: torch.Tensor, labels: torch.Tensor):
+    """Per-peer test accuracy: (K,) from stacked params on a shared test set."""
+    return (apply_fn(params, images).argmax(-1) == labels).float().mean(dim=-1)
+
+
+@torch.no_grad()
+def stratified_accuracy(
+    apply_fn,
+    params: dict,
+    images: torch.Tensor,
+    labels: torch.Tensor,
+    class_groups: dict[str, np.ndarray],
+) -> dict[str, torch.Tensor]:
+    """Accuracy per named class group (e.g. {"seen": [0,1], "unseen": [7,8]}).
+
+    Predictions are restricted to the union of all group classes, matching the
+    paper's K-class tasks (e.g. 4-class task over {0,1,7,8}).
+    """
+    all_classes = np.sort(np.concatenate(list(class_groups.values())))
+    logits = apply_fn(params, images)  # (K, N, C)
+    mask = torch.full((logits.shape[-1],), -1e9, dtype=torch.float32, device=logits.device)
+    mask[torch.as_tensor(all_classes, device=logits.device)] = 0.0
+    pred = torch.argmax(logits + mask, dim=-1)  # (K, N)
+    out = {}
+    for name, classes in class_groups.items():
+        sel = torch.isin(labels, torch.as_tensor(classes, device=labels.device))
+        denom = max(int(sel.sum()), 1)
+        out[name] = ((pred == labels[None, :]) & sel[None, :]).sum(dim=1).float() / denom
+    return out
+
+
+def oscillation_amplitude(after_local: np.ndarray, after_consensus: np.ndarray) -> np.ndarray:
+    """Mean |acc_after_consensus - acc_after_local| per round — the paper's
+    sawtooth size.  Inputs: (rounds,) or (rounds, K)."""
+    a = np.asarray(after_local, np.float64)
+    c = np.asarray(after_consensus, np.float64)
+    return np.abs(c - a).mean(axis=-1) if a.ndim > 1 else np.abs(c - a)

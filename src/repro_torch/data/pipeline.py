@@ -1,0 +1,75 @@
+"""Peer-stacked batch pipeline (the port's ``repro.data.pipeline.PeerBatcher``).
+
+Batches come per round as (T, K, B, ...) — step-major, then peer — the layout
+of ``repro_torch.core.p2p.local_phase``.  Each peer cycles through its own
+local dataset with per-peer reshuffling at epoch boundaries.
+
+The index stream stays on the host in numpy, with the reference's RNG streams
+(``seed + 7k``), cursors and reshuffles, so batch order matches the reference
+exactly.  Every peer's shard is uploaded to the device once; each round moves
+only its (T, K, B) index array and gathers the batches there.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+class PeerBatcher:
+    """Cyclic per-peer mini-batch sampler over heterogeneous local datasets."""
+
+    def __init__(self, parts: list[tuple[np.ndarray, np.ndarray]], batch_size: int, *,
+                 seed: int = 0):
+        self.parts = parts
+        self.b = batch_size
+        self.rngs = [np.random.default_rng(seed + 7 * k) for k in range(len(parts))]
+        self.orders = [rng.permutation(len(p[0])) for rng, p in zip(self.rngs, parts)]
+        self.cursors = [0] * len(parts)
+        # start row of each peer's shard in the concatenated device copy
+        sizes = np.asarray([len(p[0]) for p in parts], dtype=np.int64)
+        self.offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+        # (device key, images, labels) of the device copy, made on first use
+        self._resident: tuple[str, torch.Tensor, torch.Tensor] | None = None
+
+    @property
+    def num_peers(self) -> int:
+        return len(self.parts)
+
+    def _next_indices(self, k: int) -> np.ndarray:
+        n = len(self.parts[k][0])
+        if n < self.b:
+            # sample with replacement when the local set is tiny
+            return self.rngs[k].integers(0, n, size=self.b)
+        if self.cursors[k] + self.b > n:
+            self.cursors[k] = 0
+            self.orders[k] = self.rngs[k].permutation(n)
+        sel = self.orders[k][self.cursors[k] : self.cursors[k] + self.b]
+        self.cursors[k] += self.b
+        return sel
+
+    def round_indices(self, local_steps: int) -> np.ndarray:
+        """One round's sample indices, (T, K, B) int64, each into its own
+        peer's shard — drawn in the reference's order (step, then peer)."""
+        out = np.empty((local_steps, self.num_peers, self.b), np.int64)
+        for t in range(local_steps):
+            for k in range(self.num_peers):
+                out[t, k] = self._next_indices(k)
+        return out
+
+    def round_batches_on(
+        self, local_steps: int, device: torch.device
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """One round's batches on ``device``: (x (T,K,B,F) float32, y (T,K,B) int64),
+        the reference's ``round_batches`` values."""
+        if self._resident is None or self._resident[0] != str(device):
+            x_all = np.concatenate([p[0] for p in self.parts])
+            y_all = np.concatenate([p[1] for p in self.parts])
+            self._resident = (
+                str(device),
+                torch.as_tensor(x_all, dtype=torch.float32, device=device),
+                torch.as_tensor(y_all, dtype=torch.int64, device=device),
+            )
+        _, x_all, y_all = self._resident
+        idx = self.round_indices(local_steps) + self.offsets[None, :, None]
+        gidx = torch.as_tensor(idx, device=x_all.device)
+        return x_all[gidx], y_all[gidx]

@@ -1,0 +1,154 @@
+// Fused gossip mix + affinity bias for all K peers of a stacked parameter
+// buffer, on Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel repro/kernels/consensus_mix/consensus_mix.py
+// (`consensus_mix_2d`, body `_kernel`) as reached through
+// `ops.consensus_mix_stacked`.  For every peer k of the row-major (K, N)
+// float32 buffer x, with D padded neighbor slots:
+//
+//   mixed[k] = self_w[k] * x[k] + sum_s nbr_w[k, s] * x[nbr_idx[k, s]]
+//   d[k]     = (sum_s beta[k, s] * x[nbr_idx[k, s]] - x[k]) / T,
+//              and d[k] = 0 when sum_s beta[k, s] == 0 (isolated peer)
+//
+// Design (simple first):
+// - grid (K, tiles of N); blockIdx.x is the peer, so the K blocks that work
+//   on one tile of N run next to each other and find that tile's neighbor
+//   rows in L2.
+// - each block stages its peer's slot row (nbr_idx, nbr_w, beta) in shared
+//   memory once and reduces sum(beta) there, in slot order.
+// - each thread keeps float32 accumulators for both outputs and loops over
+//   the D slots, reading the neighbor rows by index: the (K, D, N) gather the
+//   TPU wrapper builds in HBM (ops.py:126) never exists.
+// - float4 loads and stores when N is a multiple of 4 and the buffers are
+//   16-byte aligned (the port pads each parameter row to a multiple of 4),
+//   scalar otherwise; the tail is masked by the loop bound.
+// - outputs go to buffers other than x: other blocks still read x[k] as a
+//   neighbor.
+// Padding slots carry the peer's own index with weight 0 and add exactly
+// +-0.0 to both sums.
+//
+// Bound on an H100: at the iid_k100 shape (K = 100, D = 99, N = 199,212) one
+// call must read 80 MB and write 160 MB (47 us at 3.35 TB/s) but does
+// 4 D + 3 = 399 float32 operations per output element, 7.9 GFLOP (119 us at
+// 67 TFLOP/s): it is bound by float32 FMA throughput.  What the simple design
+// leaves on the table: every peer re-reads each neighbor row (K * D row reads
+// per call, served from L2 at best), and nothing shares a loaded neighbor
+// value between the peers that need it; a tiled (K x K) @ (K x N) form would.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int64_t kMaxGridY = 65535;
+
+__device__ __forceinline__ float vscale(float a, float v) { return a * v; }
+__device__ __forceinline__ float4 vscale(float a, float4 v) {
+  return make_float4(a * v.x, a * v.y, a * v.z, a * v.w);
+}
+
+__device__ __forceinline__ float vfma(float a, float v, float acc) { return fmaf(a, v, acc); }
+__device__ __forceinline__ float4 vfma(float a, float4 v, float4 acc) {
+  return make_float4(fmaf(a, v.x, acc.x), fmaf(a, v.y, acc.y), fmaf(a, v.z, acc.z),
+                     fmaf(a, v.w, acc.w));
+}
+
+__device__ __forceinline__ void vzero(float& v) { v = 0.0f; }
+__device__ __forceinline__ void vzero(float4& v) { v = make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
+
+__device__ __forceinline__ float vbias(float sum, float x, float t, bool has) {
+  return has ? (sum - x) / t : 0.0f;
+}
+__device__ __forceinline__ float4 vbias(float4 sum, float4 x, float t, bool has) {
+  return make_float4(vbias(sum.x, x.x, t, has), vbias(sum.y, x.y, t, has),
+                     vbias(sum.z, x.z, t, has), vbias(sum.w, x.w, t, has));
+}
+
+// T is float (scalar path) or float4 (vector path); n_vec counts T elements
+// per row, and rows are n_vec T elements apart.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+consensus_mix_kernel(const float* __restrict__ x, int64_t n_vec,
+                     const float* __restrict__ self_w, const int32_t* __restrict__ nbr_idx,
+                     const float* __restrict__ nbr_w, const float* __restrict__ beta,
+                     int d_slots, float local_steps, float* __restrict__ mixed,
+                     float* __restrict__ d_out) {
+  extern __shared__ float smem[];  // [D] nbr_w | [D] beta | [D] nbr_idx
+  float* s_w = smem;
+  float* s_b = smem + d_slots;
+  int32_t* s_idx = reinterpret_cast<int32_t*>(smem + 2 * d_slots);
+  __shared__ int s_has_nbrs;
+
+  const int k = blockIdx.x;
+  const int64_t slot_row = static_cast<int64_t>(k) * d_slots;
+  for (int s = threadIdx.x; s < d_slots; s += blockDim.x) {
+    s_w[s] = nbr_w[slot_row + s];
+    s_b[s] = beta[slot_row + s];
+    s_idx[s] = nbr_idx[slot_row + s];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float sum = 0.0f;
+    for (int s = 0; s < d_slots; ++s) sum += s_b[s];
+    s_has_nbrs = sum > 0.0f;
+  }
+  __syncthreads();
+  const bool has_nbrs = s_has_nbrs != 0;
+  const float sw = self_w[k];
+
+  const T* xv = reinterpret_cast<const T*>(x);
+  T* mv = reinterpret_cast<T*>(mixed);
+  T* dv = reinterpret_cast<T*>(d_out);
+  const int64_t own = static_cast<int64_t>(k) * n_vec;
+  const int64_t stride = static_cast<int64_t>(gridDim.y) * blockDim.x;
+  for (int64_t e = static_cast<int64_t>(blockIdx.y) * blockDim.x + threadIdx.x; e < n_vec;
+       e += stride) {
+    const T self = xv[own + e];
+    T acc_mix = vscale(sw, self);
+    T acc_beta;
+    vzero(acc_beta);
+#pragma unroll 4
+    for (int s = 0; s < d_slots; ++s) {
+      const T v = xv[static_cast<int64_t>(s_idx[s]) * n_vec + e];
+      acc_mix = vfma(s_w[s], v, acc_mix);
+      acc_beta = vfma(s_b[s], v, acc_beta);
+    }
+    mv[own + e] = acc_mix;
+    dv[own + e] = vbias(acc_beta, self, local_steps, has_nbrs);
+  }
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+}  // namespace
+
+// x, mixed, d_out: (num_peers, n) row-major float32 on the device; self_w
+// (num_peers,); nbr_idx, nbr_w, beta (num_peers, d_slots).  Every nbr_idx
+// entry must lie in [0, num_peers) and d_slots * 12 bytes must fit the
+// default 48 KB of shared memory; the Python wrapper checks both.  Launches on
+// `stream` and returns the launch's cudaError_t (0 on success).
+extern "C" int consensus_mix_f32(const float* x, int64_t num_peers, int64_t n,
+                                 const float* self_w, const int32_t* nbr_idx,
+                                 const float* nbr_w, const float* beta, int64_t d_slots,
+                                 float local_steps, float* mixed, float* d_out,
+                                 void* stream) {
+  if (num_peers <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = static_cast<size_t>(d_slots) * 3 * sizeof(float);
+  const bool vec4 = n % 4 == 0 && aligned16(x) && aligned16(mixed) && aligned16(d_out);
+  const int64_t n_vec = vec4 ? n / 4 : n;
+  int64_t tiles = (n_vec + kThreads - 1) / kThreads;
+  if (tiles > kMaxGridY) tiles = kMaxGridY;
+  const dim3 grid(static_cast<unsigned>(num_peers), static_cast<unsigned>(tiles));
+  if (vec4) {
+    consensus_mix_kernel<float4><<<grid, kThreads, smem, s>>>(
+        x, n_vec, self_w, nbr_idx, nbr_w, beta, static_cast<int>(d_slots), local_steps, mixed,
+        d_out);
+  } else {
+    consensus_mix_kernel<float><<<grid, kThreads, smem, s>>>(
+        x, n_vec, self_w, nbr_idx, nbr_w, beta, static_cast<int>(d_slots), local_steps, mixed,
+        d_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

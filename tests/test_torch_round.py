@@ -1,0 +1,171 @@
+"""Port parity, the round: started from the same exported parameters and fed
+the same ``PeerBatcher`` batches, the port's rounds are allclose to
+``repro.core.p2p.make_round_fn`` after the local phase and after consensus,
+for every algorithm of the family at ``noniid_k2`` shapes.
+
+Tolerance: float32 atol 5e-5 / rtol 1e-4 (tests/test_kernels.py's float32
+tolerance).  TF32 is off; the packages differ only in summation order (BLAS
+vs XLA dots, slot loop vs HIGHEST einsum), which after 3 rounds of 10 SGD
+steps leaves ~1e-7 absolute differences.  Per-peer accuracies agree within
+one test sample (1 / N_eval).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs import p2pl_mnist as jconfigs  # noqa: E402
+from repro.core import p2p as jp2p  # noqa: E402
+from repro.core import task as jtask  # noqa: E402
+from repro.data import partition  # noqa: E402
+from repro.data import pipeline as jpipeline  # noqa: E402
+from repro.models import mlp as jmlp  # noqa: E402
+from repro_torch import interop  # noqa: E402
+from repro_torch.configs import p2pl_mnist as tconfigs  # noqa: E402
+from repro_torch.core import p2p as tp2p  # noqa: E402
+from repro_torch.core import task as ttask  # noqa: E402
+from repro_torch.data import pipeline as tpipeline  # noqa: E402
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+# one intra-op thread: the suite runs several workers on a few shared cores
+torch.set_num_threads(1)
+TOL = dict(atol=5e-5, rtol=1e-4)
+ROUNDS = 3
+
+
+def test_config_fields_match_reference():
+    want = [(f.name, f.default) for f in dataclasses.fields(jp2p.P2PConfig)]
+    got = [(f.name, f.default) for f in dataclasses.fields(tp2p.P2PConfig)]
+    assert got == want
+    assert tp2p.ALGORITHMS == jp2p.ALGORITHMS
+
+
+@pytest.mark.parametrize("field,value,item", [
+    ("protocol", "push_sum", 8),
+    ("schedule", "link_dropout", 8),
+    ("topology", "directed_ring", 8),
+    ("schedule", "adaptive", 13),
+    ("compressor", "topk", 11),
+    ("steps_profile", "straggler", 12),
+    ("staleness_bound", 2, 12),
+    ("model", "rwkv6_seqmnist", 14),
+])
+def test_unported_config_raises_with_roadmap_item(field, value, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 item {item}"):
+        tp2p.P2PConfig(**{field: value})
+
+
+@pytest.mark.parametrize("field,value", [
+    ("algorithm", "sgd"), ("protocol", "flood"), ("schedule", "weekly"),
+    ("compressor", "zip"), ("model", "resnet"), ("topology", "mesh3d"),
+])
+def test_unknown_config_values_raise_value_error(field, value):
+    with pytest.raises(ValueError):
+        tp2p.P2PConfig(**{field: value})
+
+
+def _configs(algorithm):
+    t = 1 if algorithm == "dsgd" else 10
+    return (jconfigs.noniid_k2(algorithm=algorithm, local_steps=t).p2p,
+            tconfigs.noniid_k2(algorithm=algorithm, local_steps=t).p2p)
+
+
+CASES = {algo: (lambda a=algo: _configs(a)) for algo in jp2p.ALGORITHMS}
+# both affinity biases, two consensus steps per round, and momentum
+CASES["p2pl_affinity_b_s2"] = lambda: tuple(
+    dataclasses.replace(c, eta_b=0.1, consensus_steps=2, momentum=0.5, eta_d=0.5)
+    for c in _configs("p2pl_affinity")
+)
+
+
+def _leaves(tree):
+    return {f"{layer}.{leaf}": np.asarray(tree[layer][leaf])
+            for layer in ("fc1", "fc2", "out") for leaf in ("w", "b")}
+
+
+def _assert_state_close(tstate, jstate, task, what):
+    layout = tp2p.ParamLayout.of(task)
+    for field in ("params", "momentum", "d_bias", "b_bias"):
+        got = layout.views(getattr(tstate, field))
+        want = _leaves(getattr(jstate, field))
+        for name in want:
+            np.testing.assert_allclose(
+                got[name].numpy(), want[name], **TOL, err_msg=f"{what} {field} {name}"
+            )
+    assert tstate.round_idx == int(jstate.round_idx)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_round_parity(case, mnist_small):
+    jcfg, tcfg = CASES[case]()
+    x, y, x_te, y_te = mnist_small
+    parts = partition.pathological_partition(x, y, [(0, 1), (7, 8)], samples_per_class=50)
+    sizes = partition.data_sizes(parts)
+    key = jax.random.PRNGKey(0)
+    exported = jax.tree.map(
+        np.asarray, jax.vmap(jmlp.init_2nn)(jax.random.split(key, jcfg.num_peers))
+    )
+    task = ttask.get_task("mnist_mlp")
+    jstate = jp2p.init_state(key, jtask.get_task("mnist_mlp"), jcfg, data_sizes=sizes)
+    tstate = tp2p.init_state(task, tcfg, data_sizes=sizes, device="cpu",
+                             init_params=interop.params_from_jax(exported))
+    _assert_state_close(tstate, jstate, task, "init")
+    jround = jp2p.make_round_fn(jmlp.loss_2nn, jcfg, data_sizes=sizes)
+    tround = tp2p.make_round_fn(task, tcfg, data_sizes=sizes, device="cpu")
+    jbatch = jpipeline.PeerBatcher(parts, 10, seed=0)
+    tbatch = tpipeline.PeerBatcher(parts, 10, seed=0)
+
+    groups = {"peer0_seen": np.array([0, 1]), "peer1_seen": np.array([7, 8]),
+              "all": np.array([0, 1, 7, 8])}
+    sel = np.isin(y_te, [0, 1, 7, 8])
+    x_eval, y_eval = x_te[sel], y_te[sel]
+    for r in range(ROUNDS):
+        bx, by = jbatch.round_batches(jcfg.local_steps)
+        tx, ty = tbatch.round_batches_on(tcfg.local_steps, torch.device("cpu"))
+        np.testing.assert_array_equal(tx.numpy(), bx)
+        jl, jc, jloss = jround(jstate, (jnp.asarray(bx), jnp.asarray(by)))
+        tl, tc, tloss = tround(tstate, (tx, ty))
+        np.testing.assert_allclose(tloss.numpy(), np.asarray(jloss), **TOL)
+        _assert_state_close(tl, jl, task, f"round {r} after local")
+        _assert_state_close(tc, jc, task, f"round {r} after consensus")
+        for tst, jst in ((tl, jl), (tc, jc)):
+            want = jp2p.stratified_accuracy(jmlp.apply_2nn, jst.params, jnp.asarray(x_eval),
+                                            jnp.asarray(y_eval), groups)
+            got = tp2p.stratified_accuracy(task.apply_fn, tp2p.param_views(tst, task),
+                                           torch.as_tensor(x_eval),
+                                           torch.as_tensor(y_eval, dtype=torch.int64), groups)
+            for name in groups:
+                np.testing.assert_allclose(got[name].numpy(), np.asarray(want[name]),
+                                           atol=1.0 / len(y_eval) + 1e-7, err_msg=name)
+        jstate, tstate = jc, tc
+
+
+def test_max_norm_init_matches_reference():
+    cfg_j = jconfigs.iid_k100().p2p
+    jcfg = dataclasses.replace(cfg_j, num_peers=6)
+    tcfg = dataclasses.replace(tconfigs.iid_k100().p2p, num_peers=6)
+    key = jax.random.PRNGKey(3)
+    exported = jax.tree.map(np.asarray, jax.vmap(jmlp.init_2nn)(jax.random.split(key, 6)))
+    jstate = jp2p.init_state(key, jmlp.init_2nn, jcfg)
+    task = ttask.get_task("mnist_mlp")
+    tstate = tp2p.init_state(task, tcfg, device="cpu",
+                             init_params=interop.params_from_jax(exported))
+    got = tp2p.param_views(tstate, task)
+    for name, want in _leaves(jstate.params).items():
+        np.testing.assert_array_equal(got[name].numpy(), want)
+    layout = tp2p.ParamLayout.of(task)
+    assert (layout.size, layout.row) == (199_210, 199_212)
+    assert torch.all(tstate.params[:, layout.size:] == 0)
+
+
+def test_isolated_round_skips_consensus():
+    _, tcfg = _configs("isolated")
+    task = ttask.get_task("mnist_mlp")
+    state = tp2p.init_state(task, tcfg, device="cpu")
+    after = tp2p.consensus_phase(state, tcfg, ops=None)
+    assert after.round_idx == 1 and after.params is state.params
