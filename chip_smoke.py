@@ -3,17 +3,25 @@
 
 In order:
 1. prints the card's name and power limit, the torch version and the TF32
-   flags (set off: the reference mixes at full float32 precision);
-2. builds every kernel of the port's main path from this checkout's sources;
+   flags (set off: the reference mixes at full float32 precision), and takes
+   the card's peak memory rate and float32 rate from its name;
+2. builds every kernel of the port's main paths from this checkout's sources,
+   one nvcc per source, all started together;
 3. holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes (atol 5e-5 / rtol 1e-4) and times kernel, plain
-   version and one PyTorch library call in turns with CUDA events;
-4. drives the paper's trainer through ``run_paper_experiment``:
-   ``noniid_affinity`` for 5 rounds and ``iid_k100`` for 2, with each
-   kernel's launch count reset just before and read just after each run,
-   and recomputes one consensus phase with the plain version;
-5. breaks one round of each configuration down by phase (synchronized host
-   timers) and profiles one more for the device's busy share;
+   main paths' shapes (atol 5e-5 / rtol 1e-4) and times kernel, plain
+   version and one PyTorch library call in turns with CUDA events:
+   ``consensus_mix`` at three shapes, ``dequant_mix`` at three (the vector
+   path at K=100, a padded star round, and the scalar path with odd leaf
+   boundaries, a zero beta row, a zero-scale leaf and a no-payload call);
+4. drives the trainer through ``run_paper_experiment``: uncompressed
+   ``noniid_affinity`` (5 rounds) and ``iid_k100`` (2), then compressed
+   ``timevarying_k8`` round robin with qint8 (5) and with top-k (3), and
+   ``iid_k100`` with qint8 (2), with every kernel's launch count reset just
+   before and read just after each run; after each of the first and the
+   compressed runs it recomputes one consensus phase with the plain version;
+5. breaks one round of ``noniid_affinity``, ``iid_k100`` and ``iid_k100``
+   with qint8 down by phase (synchronized host timers) and profiles one more
+   for the device's busy share;
 6. prints the ``kernels`` JSON line and, last, the contract line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -24,6 +32,8 @@ so does a run without a CUDA device or outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import dataclasses
 import json
 import math
 import subprocess
@@ -36,10 +46,37 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 TOL = dict(atol=5e-5, rtol=1e-4)  # float32, as tests/test_kernels.py
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# (memory bytes/s, float32 FLOP/s outside the tensor cores) by card, from
+# NVIDIA's H100 data sheet; the card's name, as nvidia-smi prints it, picks one
+PEAKS = {"H100 SXM": (3.35e12, 67e12), "H100 PCIe": (2.0e12, 51e12)}
 NONIID_ROUNDS = 5
 IID_ROUNDS = 2
+TV_QINT8_ROUNDS = 5
+TV_TOPK_ROUNDS = 3
+IID_QINT8_ROUNDS = 2
+
+
+class Card:
+    """The card's name and power limit (``nvidia-smi``), and its peaks."""
+
+    def __init__(self, line: str):
+        self.line = line
+        name = line.split(",")[0]
+        if "H100" in name and ("HBM3" in name or "SXM" in name):
+            self.part = "H100 SXM"
+        elif "H100" in name and "PCIe" in name:
+            self.part = "H100 PCIe"
+        else:
+            raise RuntimeError(f"no peak rates known for the card {line!r}")
+        self.bytes_per_s, self.flop_per_s = PEAKS[self.part]
+
+    def bound(self, nbytes: float, flops: float) -> dict:
+        """The least time for ``nbytes`` and ``flops`` on this card, and which bounds it."""
+        t_bytes, t_flops = nbytes / self.bytes_per_s * 1e3, flops / self.flop_per_s * 1e3
+        return {"bound_ms": max(t_bytes, t_flops),
+                "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+                "bound_card": f"{self.line} ({self.part} peaks: "
+                              f"{self.bytes_per_s / 1e12} TB/s, {self.flop_per_s / 1e12} TFLOP/s)"}
 
 
 def check(cond: bool, what: str) -> None:
@@ -75,7 +112,16 @@ def cuda_ms(fn, target_s: float = 0.25) -> float:
     return start.elapsed_time(end) / iters
 
 
-def consensus_case(name, graph, sizes, n, *, dmax=None, zero_beta_rows=(), seed=0):
+def in_turns(plain, kern, library) -> dict:
+    """Mean ms of each, timed in turns: plain, kernel, library, library, kernel, plain."""
+    t = {"plain_ms": [], "ms": [], "library_ms": []}
+    for fn, key in ((plain, "plain_ms"), (kern, "ms"), (library, "library_ms"),
+                    (library, "library_ms"), (kern, "ms"), (plain, "plain_ms")):
+        t[key].append(cuda_ms(fn))
+    return {key: sum(v) / len(v) for key, v in t.items()}
+
+
+def consensus_case(card, name, graph, sizes, n, *, dmax=None, zero_beta_rows=(), seed=0):
     """Kernel vs plain version (and the dense library product) at one shape."""
     from repro_torch.core import graph as graph_lib
     from repro_torch.kernels.consensus_mix import ops, ref
@@ -106,118 +152,210 @@ def consensus_case(name, graph, sizes, n, *, dmax=None, zero_beta_rows=(), seed=
     kern = lambda: ops.launch(x, sparse, local_steps, mixed, d_out)  # noqa: E731
     plain = lambda: ref.consensus_mix_stacked_ref(x, *sparse, local_steps)  # noqa: E731
     library = lambda: torch.matmul(dense, x, out=lib_out)  # noqa: E731
-    # in turns: plain, kernel, library, library, kernel, plain
-    t_plain, t_kern, t_lib = [], [], []
-    for fn, acc in ((plain, t_plain), (kern, t_kern), (library, t_lib),
-                    (library, t_lib), (kern, t_kern), (plain, t_plain)):
-        acc.append(cuda_ms(fn))
+    times = in_turns(plain, kern, library)
 
     # work this run's data needs: real (non-padding) slots only
     real = (sparse.nbr_idx != torch.arange(k, device=dev)[:, None]).sum().item()
     flops = n * (4 * real + 3 * k)  # 2 FMAs per real slot, self scale + d per row
     nbytes = 3 * k * n * 4 + k * 4 + 3 * k * d * 4  # x once, mixed + d, operands
-    t_bytes, t_flops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
-    return {
-        "case": name, "K": k, "D": d, "N": n,
-        "max_abs_err": err,
-        "ms": sum(t_kern) / 2, "plain_ms": sum(t_plain) / 2, "library_ms": sum(t_lib) / 2,
-        "bound_ms": max(t_bytes, t_flops),
-        "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-    }
+    return {"case": name, "K": k, "D": d, "N": n, "max_abs_err": err, **times,
+            **card.bound(nbytes, flops)}
 
 
-def check_kernels() -> list[dict]:
-    """Build the kernel and hold it against the plain version at three shapes."""
+def dequant_case(card, name, graph, sizes, leaf_offsets, n, *, dmax=None, zero_beta_rows=(),
+                 zero_scale_leaves=(), payload=True, want_vector=None, seed=0):
+    """dequant_mix kernel vs its plain version (and the dense library product
+    of the advanced estimates) at one shape.  ``leaf_offsets`` are the L + 1
+    leaf boundaries; columns from the last one to ``n`` are row padding, zero
+    in every input.  ``payload=False`` is top-k's call: no q, no scales."""
     from repro_torch.core import graph as graph_lib
-    from repro_torch.core.p2p import ParamLayout
-    from repro_torch.core.task import get_task
-    from repro_torch.kernels.consensus_mix import ops
+    from repro_torch.kernels.consensus_mix import dequant, ops, ref
+
+    dev = torch.device("cuda")
+    local_steps = 10
+    w = graph_lib.mixing_matrix(graph, "data_weighted", data_sizes=sizes)
+    beta = graph_lib.affinity_matrix(graph, data_sizes=sizes)
+    beta[list(zero_beta_rows)] = 0.0  # isolated for d: d must stay exactly 0
+    sparse = ops.sparse_from_matrices(w, beta, dmax=dmax, device=dev)
+    k, d = sparse.nbr_idx.shape
+    size, num_leaves = leaf_offsets[-1], len(leaf_offsets) - 1
+    rng = np.random.default_rng(seed)
+    x = torch.zeros(k, n, device=dev)
+    est = torch.zeros(k, n, device=dev)
+    x[:, :size] = torch.as_tensor(rng.normal(size=(k, size)).astype(np.float32), device=dev)
+    est[:, :size] = x[:, :size] + torch.as_tensor(
+        0.01 * rng.normal(size=(k, size)).astype(np.float32), device=dev)
+    q = scale = None
+    if payload:
+        q = torch.zeros(k, n, dtype=torch.int8, device=dev)
+        q[:, :size] = torch.as_tensor(rng.integers(-127, 128, (k, size)).astype(np.int8),
+                                      device=dev)
+        scale = torch.as_tensor(rng.uniform(0, 1e-4, (k, num_leaves)).astype(np.float32),
+                                device=dev)
+        scale[:, list(zero_scale_leaves)] = 0.0
+    vector = dequant.takes_vector_path(leaf_offsets if payload else (0, 0), x, est, q)
+    check(want_vector is None or vector == want_vector,
+          f"{name}: vector path {vector}, want {want_vector}")
+
+    got = dequant.dequant_mix_stacked(x, est, q, scale, sparse, leaf_offsets, local_steps)
+    want = ref.dequant_mix_stacked_ref(x, est, q, scale, leaf_offsets, *sparse, local_steps)
+    torch.cuda.synchronize()
+    err = 0.0
+    for g, r, what in zip(got, want, ("mixed", "d", "est'")):
+        torch.testing.assert_close(g, r, **TOL, msg=lambda m: f"{name} {what}: {m}")
+        err = max(err, float((g - r).abs().max()))
+        check(bool((g[:, size:] == 0).all()), f"{name} {what}: row padding stays exactly 0")
+    for row in zero_beta_rows:
+        check(bool((got[1][row] == 0).all()), f"{name}: zero beta row {row} gives d = 0")
+    check(payload or got[2] is est, f"{name}: a call with no payload leaves est as it is")
+
+    mixed, d_out = torch.empty_like(x), torch.empty_like(x)
+    est_out = torch.empty_like(x) if payload else None
+    adv = want[2]  # the advanced estimates, prepared outside the timed region
+    w_off = w - np.diag(np.diag(w))
+    dense = torch.as_tensor(np.concatenate([w_off, beta]), dtype=torch.float32, device=dev)
+    lib_out = torch.empty((2 * k, n), device=dev)
+    kern = lambda: dequant.launch(x, est, q, scale, sparse, leaf_offsets,  # noqa: E731
+                                  local_steps, mixed, d_out, est_out)
+    plain = lambda: ref.dequant_mix_stacked_ref(  # noqa: E731
+        x, est, q, scale, leaf_offsets, *sparse, local_steps)
+    library = lambda: torch.matmul(dense, adv, out=lib_out)  # noqa: E731
+    times = in_turns(plain, kern, library)
+
+    # work this run's data needs: real (non-padding) slots only; the own
+    # estimate's advance (2 operations) only with a payload
+    real = (sparse.nbr_idx != torch.arange(k, device=dev)[:, None]).sum().item()
+    flops = n * (4 * real + (5 if payload else 3) * k)
+    nbytes = (2 * k * n * 4 + 2 * k * n * 4  # x, est in; mixed, d out
+              + (k * n + k * num_leaves * 4 + k * n * 4 if payload else 0)  # q, scales; est'
+              + k * 4 + 3 * k * d * 4)  # slot operands
+    return {"case": name, "K": k, "D": d, "N": n, "leaves": num_leaves, "payload": payload,
+            "vector_path": vector, "max_abs_err": err, **times, **card.bound(nbytes, flops)}
+
+
+def build_kernels() -> None:
+    """Build every kernel library at once (one nvcc each, in parallel)."""
+    from repro_torch.kernels.consensus_mix import dequant, ops
 
     start = time.perf_counter()
-    kl = ops.load_kernel()
-    print(f"build: consensus_mix in {time.perf_counter() - start:.2f} s "
-          f"(nvcc {kl.build_seconds:.2f} s) -> {kl.path.relative_to(ROOT)}", flush=True)
-    for line in kl.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
-    row = ParamLayout.of(get_task("mnist_mlp")).row  # 199,210 parameters -> 199,212
-    cases = [
-        consensus_case("noniid_k2", graph_lib.build_graph("complete", 2),
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        libs = dict(zip(("consensus_mix", "dequant_mix"),
+                        pool.map(lambda mod: mod.load_kernel(), (ops, dequant))))
+    print(f"build: both kernels in {time.perf_counter() - start:.2f} s", flush=True)
+    for name, kl in libs.items():
+        print(f"  {name}: nvcc {kl.build_seconds:.2f} s -> {kl.path.relative_to(ROOT)}")
+        for line in kl.log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
+
+
+def _print_case(kernel: str, c: dict) -> None:
+    print(f"{kernel} {c['case']}: K={c['K']} D={c['D']} N={c['N']} "
+          f"max_abs_err={c['max_abs_err']:.3g} kernel={c['ms']:.4f} ms "
+          f"plain={c['plain_ms']:.4f} ms library={c['library_ms']:.4f} ms "
+          f"bound={c['bound_ms']:.4f} ms ({c['bound_by']}; {c['bound_card']})", flush=True)
+
+
+def check_kernels(card: Card) -> dict[str, list[dict]]:
+    """Build both kernels and hold each against its plain version at three shapes."""
+    from repro_torch.core import graph as graph_lib
+    from repro_torch.core.p2p import layout_of
+
+    build_kernels()
+    layout = layout_of("mnist_mlp")
+    row = layout.row  # 199,210 parameters -> 199,212
+    cases = {"consensus_mix": [
+        consensus_case(card, "noniid_k2", graph_lib.build_graph("complete", 2),
                        np.full(2, 100), row),
-        consensus_case("iid_k100", graph_lib.build_graph("complete", 100),
+        consensus_case(card, "iid_k100", graph_lib.build_graph("complete", 100),
                        np.full(100, 600), row),
-        consensus_case("ring_k8_padded", graph_lib.build_graph("ring", 8),
+        consensus_case(card, "ring_k8_padded", graph_lib.build_graph("ring", 8),
                        np.arange(1, 9) * 10, 1001, dmax=3, zero_beta_rows=(3,)),
-    ]
-    for c in cases:
-        print(f"consensus_mix {c['case']}: K={c['K']} D={c['D']} N={c['N']} "
-              f"max_abs_err={c['max_abs_err']:.3g} kernel={c['ms']:.4f} ms "
-              f"plain={c['plain_ms']:.4f} ms library={c['library_ms']:.4f} ms "
-              f"bound={c['bound_ms']:.4f} ms ({c['bound_by']})", flush=True)
+    ], "dequant_mix": [
+        dequant_case(card, "iid_k100_qint8", graph_lib.build_graph("complete", 100),
+                     np.full(100, 600), layout.leaf_offsets, row, want_vector=True),
+        dequant_case(card, "tv_k8_star", graph_lib.build_graph("star", 8),
+                     np.full(8, 100), layout.leaf_offsets, row, want_vector=True),
+        dequant_case(card, "ring_odd_leaves", graph_lib.build_graph("ring", 8),
+                     np.arange(1, 9) * 10, (0, 301, 302, 777, 999), 1001, dmax=3,
+                     zero_beta_rows=(3,), zero_scale_leaves=(1,), want_vector=False),
+        dequant_case(card, "ring_no_payload", graph_lib.build_graph("ring", 8),
+                     np.arange(1, 9) * 10, (0, 301, 302, 777, 999), 1001, dmax=3,
+                     zero_beta_rows=(3,), payload=False, seed=1),
+    ]}
+    for kernel, kcases in cases.items():
+        for c in kcases:
+            _print_case(kernel, c)
     return cases
 
 
-def run_noniid(data) -> int:
-    """noniid_affinity through the trainer; returns the kernel's launches."""
-    from repro_torch.configs.p2pl_mnist import noniid_k2
-    from repro_torch.core import p2p, protocols, task as task_lib
-    from repro_torch.kernels.consensus_mix import ops, ref
+def recheck_consensus(name: str, exp, state, data) -> None:
+    """One more round's consensus phase through the kernel, held against the
+    plain version on the same post-local state (S = 1)."""
+    from repro_torch import compression
+    from repro_torch.core import p2p, task as task_lib
+    from repro_torch.kernels.consensus_mix import ref
     from repro_torch.launch import train
 
-    exp = noniid_k2(algorithm="p2pl_affinity", local_steps=10)
     cfg = exp.p2p
-    print(f"main path: noniid_affinity, {NONIID_ROUNDS} rounds", flush=True)
-    ops.launches.reset()
-    log, state = train.run_paper_experiment(
-        exp, rounds=NONIID_ROUNDS, data=data, device="cuda", verbose=True, return_state=True
-    )
-    launches = ops.launches.count
-    check(launches == NONIID_ROUNDS * cfg.consensus_steps,
-          f"noniid_affinity launched the kernel {launches} times, "
-          f"want {NONIID_ROUNDS * cfg.consensus_steps}")
-    check(all(math.isfinite(v) for v in log.train_loss), "noniid_affinity losses finite")
-
-    # one more round's consensus, kernel vs plain version on the same state
+    check(cfg.consensus_steps == 1 and not cfg.use_affinity_b, f"{name}: one plain step")
     task = task_lib.get_task(cfg.model)
     parts = train.mnist_parts(exp, data[0], data[1])
     sizes = np.asarray([len(p[0]) for p in parts])
     batches = task.make_peer_batches(parts, exp.batch_size, seed=1).round_batches_on(
         cfg.local_steps, torch.device("cuda"))
     after_local, _ = p2p.local_phase(state, task, batches, cfg)
-    consts, _ = p2p.protocol_constants(cfg, sizes)
-    sparse = protocols.get_protocol(cfg.protocol).operands(
-        protocols.round_constants(consts, 0), "cuda")
+    ops = p2p.round_operands(cfg, sizes, device="cuda")
+    sparse = ops[after_local.round_idx % len(ops)]
     after_cons = p2p.consensus_phase(after_local, cfg, sparse)
-    mixed, d_bias = ref.consensus_mix_stacked_ref(after_local.params, *sparse, cfg.local_steps)
+    comp = compression.from_config(cfg)
+    if comp.identity:
+        mixed, d_bias = ref.consensus_mix_stacked_ref(after_local.params, *sparse,
+                                                      cfg.local_steps)
+    else:
+        layout = p2p.layout_of(cfg.model)
+        payload = comp.ef_flat(after_local.params, after_local.compression, layout)
+        mixed, d_bias, est = ref.dequant_mix_stacked_ref(
+            after_local.params, payload.est, payload.q, payload.scale, layout.leaf_offsets,
+            *sparse, cfg.local_steps)
+        torch.testing.assert_close(after_cons.compression, est, **TOL)
     torch.testing.assert_close(after_cons.params, mixed, **TOL)
-    torch.testing.assert_close(after_cons.d_bias, d_bias, **TOL)
-    print("noniid_affinity: consensus of one more round matches the plain version")
-    print(f"noniid_affinity: {launches} launches, seconds per round {log.seconds}")
-    return launches
+    if cfg.use_affinity_d:
+        torch.testing.assert_close(after_cons.d_bias, d_bias, **TOL)
+    print(f"{name}: consensus of one more round matches the plain version")
 
 
-def run_iid(data) -> tuple[int, float]:
-    """iid_k100 through the trainer; returns (launches, peak GB)."""
-    from repro_torch.configs.p2pl_mnist import iid_k100
-    from repro_torch.kernels.consensus_mix import ops
+def drive(name: str, exp, rounds: int, data, *, recheck: bool) -> dict:
+    """Train ``exp`` for ``rounds`` rounds through ``run_paper_experiment`` on
+    the card, every launch count set to 0 just before and read just after;
+    checks that the path's kernel launched rounds x S times and the other
+    none, and that the run's numbers are sane."""
+    from repro_torch.kernels.consensus_mix import dequant, ops
     from repro_torch.launch import train
 
-    exp = iid_k100()
-    print(f"main path: iid_k100, {IID_ROUNDS} rounds", flush=True)
+    counters = {"consensus_mix": ops.launches, "dequant_mix": dequant.launches}
+    kernel = "consensus_mix" if exp.p2p.compressor == "none" else "dequant_mix"
+    want = {key: 0 for key in counters}
+    want[kernel] = rounds * exp.p2p.consensus_steps
+    print(f"main path: {name}, {rounds} rounds", flush=True)
     torch.cuda.reset_peak_memory_stats()
-    ops.launches.reset()
-    log = train.run_paper_experiment(exp, rounds=IID_ROUNDS, data=data, device="cuda",
-                                     verbose=True)
-    launches = ops.launches.count
+    for counter in counters.values():
+        counter.reset()
+    log, state = train.run_paper_experiment(exp, rounds=rounds, data=data, device="cuda",
+                                            verbose=True, return_state=True)
+    launches = {key: counter.count for key, counter in counters.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    check(launches == IID_ROUNDS * exp.p2p.consensus_steps,
-          f"iid_k100 launched the kernel {launches} times, want {IID_ROUNDS}")
-    check(all(math.isfinite(v) for v in log.train_loss), "iid_k100 losses finite")
+    check(launches == want, f"{name} launched {launches}, want {want}")
+    check(all(math.isfinite(v) for v in log.train_loss), f"{name} losses finite")
     acc = log.series("all").mean(axis=1)
-    check(bool(np.all((acc >= 0) & (acc <= 1))), "iid_k100 accuracies in [0, 1]")
-    print(f"iid_k100: {launches} launches, seconds per round {log.seconds}, "
+    check(bool(np.all((acc >= 0) & (acc <= 1))), f"{name} accuracies in [0, 1]")
+    check(bool(torch.isfinite(state.params).all()), f"{name} parameters finite")
+    if recheck:
+        recheck_consensus(name, exp, state, data)
+    print(f"{name}: launches {launches}, seconds per round {log.seconds}, "
           f"peak memory {peak_gb:.3f} GB")
-    return launches, peak_gb
+    return {"launches": launches[kernel], "kernel": kernel, "peak_gb": peak_gb,
+            "seconds": log.seconds}
 
 
 def phase_breakdown(exp, data, rounds: int = 3) -> dict:
@@ -293,39 +431,62 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this smoke run needs a GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.p2pl_mnist import iid_k100, noniid_k2, timevarying_k8
     from repro_torch.data import synthetic
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(f"card: {card_line()}")
+    card = Card(card_line())
+    print(f"card: {card.line}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; tf32 matmul="
           f"{torch.backends.cuda.matmul.allow_tf32} cudnn={torch.backends.cudnn.allow_tf32}",
           flush=True)
 
-    cases = check_kernels()
+    cases = check_kernels(card)
     data = synthetic.mnist_like()
-    n_noniid = run_noniid(data)
-    n_iid, _ = run_iid(data)
-    from repro_torch.configs.p2pl_mnist import iid_k100, noniid_k2
-
-    for exp in (noniid_k2(algorithm="p2pl_affinity", local_steps=10), iid_k100()):
-        print(f"breakdown {exp.name}: {json.dumps(phase_breakdown(exp, data))}", flush=True)
-
-    main_case = next(c for c in cases if c["case"] == "iid_k100")
-    entry = {
-        "name": "consensus_mix",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/consensus_mix/csrc/consensus_mix.cu",
-        "replaces": "src/repro/kernels/consensus_mix/consensus_mix.py:72",
-        "launches": n_noniid + n_iid,
-        "launches_by_path": {"noniid_affinity": n_noniid, "iid_k100": n_iid},
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        **{key: main_case[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                            "library_ms")},
-        "shape": f"K={main_case['K']} D={main_case['D']} N={main_case['N']}",
-        "shapes": cases,
+    noniid = noniid_k2(algorithm="p2pl_affinity", local_steps=10)
+    iid = iid_k100()
+    iid_qint8 = dataclasses.replace(iid, p2p=dataclasses.replace(iid.p2p, compressor="qint8"))
+    paths = {
+        "noniid_affinity": drive("noniid_affinity", noniid, NONIID_ROUNDS, data, recheck=True),
+        "iid_k100": drive("iid_k100", iid, IID_ROUNDS, data, recheck=False),
+        "timevarying_k8_round_robin_qint8": drive(
+            "timevarying_k8_round_robin_qint8",
+            timevarying_k8(schedule="round_robin", compressor="qint8"), TV_QINT8_ROUNDS, data,
+            recheck=True),
+        "timevarying_k8_round_robin_topk": drive(
+            "timevarying_k8_round_robin_topk",
+            timevarying_k8(schedule="round_robin", compressor="topk"), TV_TOPK_ROUNDS, data,
+            recheck=True),
+        "iid_k100_qint8": drive("iid_k100_qint8", iid_qint8, IID_QINT8_ROUNDS, data,
+                                recheck=True),
     }
-    print(json.dumps({"kernels": [entry]}))
+    for label, exp in (("noniid_affinity", noniid), ("iid_k100", iid),
+                       ("iid_k100_qint8", iid_qint8)):
+        print(f"breakdown {label} ({card.line}): {json.dumps(phase_breakdown(exp, data))}",
+              flush=True)
+
+    entries = []
+    for kernel, source, replaces, main_case in (
+        ("consensus_mix", "consensus_mix.cu", "consensus_mix.py:72", "iid_k100"),
+        ("dequant_mix", "dequant_mix.cu", "dequant.py:117", "iid_k100_qint8"),
+    ):
+        main = next(c for c in cases[kernel] if c["case"] == main_case)
+        by_path = {name: p["launches"] for name, p in paths.items() if p["kernel"] == kernel}
+        entries.append({
+            "name": kernel,
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/consensus_mix/csrc/{source}",
+            "replaces": f"src/repro/kernels/consensus_mix/{replaces}",
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(c["max_abs_err"] for c in cases[kernel]),
+            **{key: main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms", "bound_card")},
+            "shape": f"K={main['K']} D={main['D']} N={main['N']}",
+            "shapes": cases[kernel],
+        })
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,5 +1,6 @@
 """The paper's own workload: 2NN MLP on (synthetic-)MNIST under P2PL (the
-port's ``repro.configs.p2pl_mnist``, the two experiments it runs).
+port's ``repro.configs.p2pl_mnist``: the paper's two experiments and the two
+time-varying ones).
 
 Sec. V hyperparameters: B=10, eta=0.01, mu=0.5 (IID) / 0 (non-IID),
 T=60 gradient steps per round (IID, n_k=600) — one epoch per round,
@@ -57,4 +58,108 @@ def noniid_k2(*, algorithm: str = "local_dsgd", local_steps: int = 10) -> PaperE
         samples_per_class=50,
         rounds=60,
         peer_classes=((0, 1), (7, 8)),
+    )
+
+
+def timevarying_k2(
+    *,
+    schedule: str = "link_dropout",
+    algorithm: str = "p2pl_affinity",
+    local_steps: int = 10,
+    schedule_rounds: int = 16,
+    link_survival_prob: float = 0.7,
+    peer_online_prob: float = 0.8,
+    schedule_seed: int = 0,
+    protocol: str = "gossip",
+    round_robin_topologies: tuple = ("complete", "disconnected"),
+    partner_rule: str = "loss_proximity",
+    adaptive_eps: float = 0.1,
+    adaptive_seed: int = 0,
+) -> PaperExperiment:
+    """Beyond-paper: the K=2 non-IID workload over a churning link.
+
+    With ``link_dropout`` the single A-B edge vanishes on ~(1-q) of rounds;
+    those rounds behave like isolated training.  eta_d=0.5 for the affinity
+    variant (1.0 is marginally stable at K=2 full averaging).
+    """
+    return PaperExperiment(
+        name=f"timevarying_k2_{schedule}_{algorithm}_T{local_steps}",
+        p2p=P2PConfig(
+            algorithm=algorithm,
+            num_peers=2,
+            local_steps=local_steps,
+            consensus_steps=1,
+            lr=0.01,
+            momentum=0.0,
+            eta_d=0.5,
+            topology="complete",
+            mixing="data_weighted",
+            schedule=schedule,
+            schedule_rounds=schedule_rounds,
+            link_survival_prob=link_survival_prob,
+            peer_online_prob=peer_online_prob,
+            schedule_seed=schedule_seed,
+            protocol=protocol,
+            round_robin_topologies=round_robin_topologies,
+            partner_rule=partner_rule,
+            adaptive_eps=adaptive_eps,
+            adaptive_seed=adaptive_seed,
+        ),
+        batch_size=10,
+        samples_per_class=50,
+        rounds=60,
+        peer_classes=((0, 1), (7, 8)),
+    )
+
+
+def timevarying_k8(
+    *,
+    schedule: str = "random_matching",
+    algorithm: str = "p2pl_affinity",
+    local_steps: int = 10,
+    schedule_rounds: int = 16,
+    link_survival_prob: float = 0.7,
+    peer_online_prob: float = 0.8,
+    schedule_seed: int = 0,
+    protocol: str = "gossip",
+    round_robin_topologies: tuple = ("ring", "star"),
+    partner_rule: str = "loss_proximity",
+    adaptive_eps: float = 0.1,
+    adaptive_seed: int = 0,
+    compressor: str = "none",
+    topk_frac: float = 0.01,
+) -> PaperExperiment:
+    """Beyond-paper: 8 peers, 2 classes each, gossiping over a time-varying
+    graph (pairwise random matchings, dropped links, peer churn on a ring, or
+    a round robin of topologies), optionally over a compressed wire."""
+    peer_classes = tuple(((2 * k) % 10, (2 * k + 1) % 10) for k in range(8))
+    return PaperExperiment(
+        name=f"timevarying_k8_{schedule}_{algorithm}_T{local_steps}",
+        p2p=P2PConfig(
+            algorithm=algorithm,
+            num_peers=8,
+            local_steps=local_steps,
+            consensus_steps=1,
+            lr=0.01,
+            momentum=0.0,
+            eta_d=0.5,
+            topology="ring",
+            mixing="data_weighted",
+            schedule=schedule,
+            schedule_rounds=schedule_rounds,
+            link_survival_prob=link_survival_prob,
+            peer_online_prob=peer_online_prob,
+            schedule_seed=schedule_seed,
+            protocol=protocol,
+            round_robin_topologies=round_robin_topologies,
+            partner_rule=partner_rule,
+            adaptive_eps=adaptive_eps,
+            adaptive_seed=adaptive_seed,
+            compressor=compressor,
+            topk_frac=topk_frac,
+        ),
+        batch_size=10,
+        samples_per_class=50,
+        rounds=60,
+        peer_classes=peer_classes,
     )

@@ -1,0 +1,91 @@
+"""The feature-compatibility table (the port's ``repro.core.features``).
+
+Every pairwise "feature A does not compose with feature B" rejection lives
+here and raises one formatted message, the reference's word for word, from
+whichever layer catches the combination.  Only the pair that the port's
+configuration can reach is ported: compression x staleness.  The reference's
+other pairs involve features the port does not run yet (adaptive partner
+selection, the hierarchical runtime, registry models: ROADMAP.md queue 1
+items 13, 15 and 14), which ``P2PConfig`` rejects before this table with
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+
+@dataclasses.dataclass(frozen=True)
+class FeatureContext:
+    """Plain-value snapshot of one run's feature axes."""
+
+    compressor: str = "none"
+    staleness_bound: int = 0
+
+
+def context_from_config(cfg) -> FeatureContext:
+    """Snapshot a ``P2PConfig``(-shaped) object into a ``FeatureContext``."""
+    return FeatureContext(compressor=cfg.compressor, staleness_bound=cfg.staleness_bound)
+
+
+@dataclasses.dataclass(frozen=True)
+class Feature:
+    """One composable axis: when is it on, and how is it named in errors."""
+
+    name: str
+    predicate: Callable[[FeatureContext], bool]
+    describe: Callable[[FeatureContext], str]
+
+
+@dataclasses.dataclass(frozen=True)
+class Incompatibility:
+    """An (a, b) feature pair that must never be active together."""
+
+    a: str
+    b: str
+    reason: str
+    workaround: str
+
+
+FEATURES: dict[str, Feature] = {
+    f.name: f
+    for f in (
+        Feature(
+            name="compression",
+            predicate=lambda c: c.compressor != "none",
+            describe=lambda c: f"compressor={c.compressor!r} (compressed gossip payloads)",
+        ),
+        Feature(
+            name="staleness",
+            predicate=lambda c: c.staleness_bound > 0,
+            describe=lambda c: f"staleness_bound={c.staleness_bound} (bounded-staleness gossip)",
+        ),
+    )
+}
+
+INCOMPATIBILITIES: tuple[Incompatibility, ...] = (
+    Incompatibility(
+        a="staleness",
+        b="compression",
+        reason="the staleness buffer stores raw sender snapshots while the "
+               "compressed wire stores payload-advanced estimates — composing "
+               "the two buffers is an open item",
+        workaround="run async rounds uncompressed, or compression "
+                   "synchronously (staleness_bound=0)",
+    ),
+)
+
+
+def format_violation(inc: Incompatibility, ctx: FeatureContext) -> str:
+    """The one formatter: every layer's composition error reads identically."""
+    a, b = FEATURES[inc.a], FEATURES[inc.b]
+    return (f"{a.describe(ctx)} is not supported with {b.describe(ctx)}: "
+            f"{inc.reason}; {inc.workaround}")
+
+
+def check_config(cfg) -> None:
+    """Raise ``ValueError`` on the first incompatible pair the config switches on."""
+    ctx = context_from_config(cfg)
+    for inc in INCOMPATIBILITIES:
+        if FEATURES[inc.a].predicate(ctx) and FEATURES[inc.b].predicate(ctx):
+            raise ValueError(format_violation(inc, ctx))

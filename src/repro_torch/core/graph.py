@@ -9,9 +9,10 @@ row-stochastic — the paper's choice is data-size weighted:
     alpha_kk = 1 - sum_j alpha_kj
 
 Everything here is float64 numpy and must equal the reference bit for bit.
-Time-varying schedules other than ``static``, column-stochastic (push-sum)
-matrices and the on-device adaptive matchings are still to be ported
-(ROADMAP.md, queue 1 items 8 and 13).
+The undirected time-varying schedules (link dropout, random matchings, peer
+churn, round robin) are ported; directed schedules and column-stochastic
+(push-sum) matrices are still to be ported (ROADMAP.md queue 1 item 8b), and
+so are the on-device adaptive matchings (item 13).
 """
 from __future__ import annotations
 
@@ -252,8 +253,11 @@ SCHEDULES = (
 class GraphSchedule:
     """A periodic sequence of communication graphs, one per round.
 
-    Round ``r`` communicates over ``graphs[r % period]``; a period-1 schedule
-    is the paper's fixed-topology setting, the only one this port runs yet.
+    Round ``r`` communicates over ``graphs[r % period]``.  A period-1 schedule
+    is the paper's fixed-topology setting; longer periods model churn (links
+    dropping, gossip pairs re-sampled every round, peers going offline).
+    Individual rounds may be disconnected: consensus then relies on the
+    union over one period being connected (B-connectivity).
     """
 
     graphs: tuple[CommGraph, ...]
@@ -279,10 +283,120 @@ class GraphSchedule:
         """K, shared by every graph in the schedule."""
         return self.graphs[0].num_peers
 
+    @property
+    def directed(self) -> bool:
+        """True iff any round's graph is directed."""
+        return any(g.directed for g in self.graphs)
+
+    def graph_at(self, round_idx: int) -> CommGraph:
+        """The round's graph: periodic indexing ``round_idx % period``."""
+        return self.graphs[round_idx % self.period]
+
+    def max_degree(self) -> int:
+        """Max (in-)degree over all rounds."""
+        return max(g.max_degree() for g in self.graphs)
+
+    def union_graph(self) -> CommGraph:
+        """OR of all adjacencies: the B-connectivity window of one period."""
+        adj = np.zeros((self.num_peers, self.num_peers), dtype=bool)
+        for g in self.graphs:
+            adj |= g.adjacency
+        return CommGraph(adj, directed=self.directed)
+
+    def union_is_connected(self) -> bool:
+        """Weak connectivity of the period union (B-connectivity check)."""
+        return self.union_graph().is_connected()
+
+
+def _directed_not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet: ROADMAP.md queue 1 item 8b")
+
 
 def static_schedule(graph: CommGraph) -> GraphSchedule:
     """Period-1 wrapper — the fixed topology."""
     return GraphSchedule((graph,), name="static")
+
+
+def link_dropout_schedule(
+    base: CommGraph, survival_prob: float, rounds: int, *, seed: int = 0
+) -> GraphSchedule:
+    """Each base link independently survives each round with prob ``survival_prob``.
+
+    Undirected bases only: dropping the directed edges of a directed base one
+    by one is the push-sum half of the schedule (queue 1 item 8b).
+    """
+    if not 0.0 < survival_prob <= 1.0:
+        raise ValueError("survival_prob must be in (0, 1]")
+    if rounds < 1:
+        raise ValueError("need at least one round")
+    if base.directed:
+        raise _directed_not_ported("link_dropout on a directed base graph")
+    rng = np.random.default_rng(seed)
+    k = base.num_peers
+    iu, ju = np.triu_indices(k, 1)
+    edge_mask = base.adjacency[iu, ju]
+    graphs = []
+    for _ in range(rounds):
+        keep = edge_mask & (rng.random(len(iu)) < survival_prob)
+        a = np.zeros((k, k), dtype=bool)
+        a[iu[keep], ju[keep]] = True
+        graphs.append(CommGraph(a | a.T))
+    return GraphSchedule(tuple(graphs), name="link_dropout")
+
+
+def random_matching_schedule(num_peers: int, rounds: int, *, seed: int = 0) -> GraphSchedule:
+    """One-peer pairwise gossip: a random perfect matching per round.
+
+    Every peer talks to at most one partner per round; with odd ``num_peers``
+    one peer idles (its row of W is the self-loop).
+    """
+    if num_peers < 2:
+        raise ValueError("matching needs at least two peers")
+    if rounds < 1:
+        raise ValueError("need at least one round")
+    rng = np.random.default_rng(seed)
+    graphs = []
+    for _ in range(rounds):
+        perm = rng.permutation(num_peers)
+        a = np.zeros((num_peers, num_peers), dtype=bool)
+        for p in range(0, num_peers - 1, 2):
+            i, j = perm[p], perm[p + 1]
+            a[i, j] = a[j, i] = True
+        graphs.append(CommGraph(a))
+    return GraphSchedule(tuple(graphs), name="random_matching")
+
+
+def peer_churn_schedule(
+    base: CommGraph, online_prob: float, rounds: int, *, seed: int = 0
+) -> GraphSchedule:
+    """Peers go offline/online per round; offline peers lose all their edges.
+
+    An offline peer keeps training locally but neither sends nor receives: its
+    row of W is the self-loop and its row of Beta is zero, so consensus leaves
+    its parameters and its d untouched.
+    """
+    if not 0.0 < online_prob <= 1.0:
+        raise ValueError("online_prob must be in (0, 1]")
+    if rounds < 1:
+        raise ValueError("need at least one round")
+    rng = np.random.default_rng(seed)
+    k = base.num_peers
+    graphs = []
+    for _ in range(rounds):
+        online = rng.random(k) < online_prob
+        a = base.adjacency & online[:, None] & online[None, :]
+        graphs.append(CommGraph(a))
+    return GraphSchedule(tuple(graphs), name="peer_churn")
+
+
+def one_way_matching_schedule(num_peers: int, rounds: int, *, seed: int = 0) -> GraphSchedule:
+    """Directed pairwise gossip: raises, push-sum and directed graphs are item 8b."""
+    raise _directed_not_ported("the one_way_matching schedule")
+
+
+def round_robin_schedule(graphs: Sequence[CommGraph]) -> GraphSchedule:
+    """Cycle deterministically over a fixed list of graphs."""
+    return GraphSchedule(tuple(graphs), name="round_robin")
 
 
 def schedule_matrices(
@@ -295,10 +409,7 @@ def schedule_matrices(
 ) -> tuple[np.ndarray, np.ndarray]:
     """Stacked per-round mixing/affinity matrices: (R, K, K) W and Beta."""
     if stochasticity == "column":
-        raise NotImplementedError(
-            "column-stochastic (push-sum) matrices are not ported yet: "
-            "ROADMAP.md queue 1 item 8"
-        )
+        raise _directed_not_ported("column-stochastic (push-sum) matrices")
     if stochasticity != "row":
         raise ValueError(f"unknown stochasticity {stochasticity!r}; 'row' or 'column'")
     w = np.stack(
@@ -311,3 +422,15 @@ def schedule_matrices(
     )
     beta = np.stack([affinity_matrix(g, data_sizes=data_sizes) for g in schedule.graphs])
     return w, beta
+
+
+def spectral_gap(w: np.ndarray) -> float:
+    """1 - |lambda_2| of the mixing matrix — the consensus rate.
+
+    For row-stochastic (not necessarily symmetric) W the eigenvalues are
+    ranked by magnitude; lambda_1 = 1 always.
+    """
+    eig = np.sort(np.abs(np.linalg.eigvals(w)))[::-1]
+    if len(eig) < 2:
+        return 1.0
+    return float(1.0 - eig[1])

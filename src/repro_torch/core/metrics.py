@@ -48,3 +48,16 @@ class RoundLog:
         """(rounds, ...) stacked accuracy series for a group and phase."""
         src = self.after_consensus if phase == "consensus" else self.after_local
         return np.stack(src[group])
+
+    def oscillation(self, group: str) -> np.ndarray:
+        """Per-round |after_consensus - after_local|, averaged over peers."""
+        a = np.stack(self.after_local[group])
+        c = np.stack(self.after_consensus[group])
+        d = np.abs(c - a)
+        return d.mean(axis=tuple(range(1, d.ndim))) if d.ndim > 1 else d
+
+    def final_accuracy(self, group: str, phase: str = "consensus", last_n: int = 5) -> float:
+        """Mean accuracy over the last ``last_n`` rounds (peer-averaged)."""
+        s = self.series(group, phase)
+        s = s.mean(axis=tuple(range(1, s.ndim))) if s.ndim > 1 else s
+        return float(s[-last_n:].mean())

@@ -24,21 +24,29 @@ buffer and runs each layer as one batched matmul over the peers; one backward
 of the summed per-peer losses gives every peer its own gradient, and the SGD
 update is a few elementwise passes over the whole buffer.  The consensus
 phase hands the same buffer to the fused ``consensus_mix`` kernel, which
-writes the mixed parameters and the affinity bias d in one pass.
+writes the mixed parameters and the affinity bias d in one pass.  With a
+compressed wire (``compressor`` = ``topk`` or ``qint8``) the round also
+carries the public-estimate stack (``P2PState.compression``, one more
+(K, row) buffer), and each consensus step goes through the fused
+``dequant_mix`` kernel instead.
 
-Only the paper's setting is ported yet: gossip over a static schedule, no
-compression, synchronous rounds, the 2NN task.  Any other configuration
-raises ``NotImplementedError`` naming the ROADMAP.md item that ports it.
+Ported: gossip over the static and the undirected time-varying schedules,
+uncompressed or compressed, synchronous rounds, the 2NN task.  Any other
+configuration raises ``NotImplementedError`` naming the ROADMAP.md item that
+ports it.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
+from repro_torch import compression as compression_lib
 from repro_torch.core import consensus as consensus_lib
+from repro_torch.core import features as features_lib
 from repro_torch.core import graph as graph_lib
 from repro_torch.core import protocols as protocols_lib
 from repro_torch.core import task as task_lib
@@ -47,11 +55,10 @@ from repro_torch.kernels.consensus_mix.ops import SparseOperands
 
 ALGORITHMS = ("dsgd", "local_dsgd", "p2pl", "p2pl_affinity", "isolated")
 STEPS_PROFILES = ("uniform", "straggler", "linear")
-COMPRESSORS = ("none", "topk", "qint8")
 ROW_ALIGN = 4  # floats: keeps every peer's row 16-byte aligned
 
 
-def _not_ported(what: str, item: int):
+def _not_ported(what: str, item) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet: ROADMAP.md queue 1 item {item}")
 
 
@@ -79,7 +86,7 @@ class P2PConfig:
     erdos_renyi_p: float = 0.3
     graph_seed: int = 0
     protocol: str = "gossip"
-    # -- time-varying communication (item 8) ---------------------------------
+    # -- time-varying communication (item 8; directed: item 8b) --------------
     schedule: str = "static"
     schedule_rounds: int = 16
     link_survival_prob: float = 0.8
@@ -117,24 +124,41 @@ class P2PConfig:
             raise _not_ported("schedule='adaptive'", 13)
         if self.schedule not in graph_lib.SCHEDULES:
             raise ValueError(f"unknown schedule {self.schedule!r}")
-        if self.schedule != "static":
-            raise _not_ported(f"schedule={self.schedule!r}", 8)
+        if self.schedule == "one_way_matching":
+            raise _not_ported("the directed schedule 'one_way_matching'", "8b")
+        if self.schedule_rounds < 1:
+            raise ValueError("schedule_rounds must be >= 1")
         if self.topology not in graph_lib.TOPOLOGIES:
             raise ValueError(f"unknown topology {self.topology!r}")
         if self.topology == "directed_ring":
-            raise _not_ported("a directed topology", 8)
-        if self.compressor not in COMPRESSORS:
-            raise ValueError(f"unknown compressor {self.compressor!r}")
-        if self.compressor != "none":
-            raise _not_ported(f"compressor={self.compressor!r}", 11)
+            raise _not_ported("a directed topology", "8b")
+        if self.compressor not in compression_lib.compressor_names():
+            raise ValueError(
+                f"unknown compressor {self.compressor!r}; one of "
+                f"{compression_lib.compressor_names()}"
+            )
+        if not 0.0 < self.topk_frac <= 1.0:
+            raise ValueError("topk_frac must be in (0, 1]")
         if self.steps_profile not in STEPS_PROFILES:
             raise ValueError(f"unknown steps_profile {self.steps_profile!r}")
         if self.staleness_bound < 0:
             raise ValueError("staleness_bound must be >= 0 (0 = synchronous)")
+        features_lib.check_config(self)
         if self.steps_profile != "uniform" or self.staleness_bound > 0:
             raise _not_ported("asynchronous rounds", 12)
         task_lib.get_task(self.model)
+        if self.schedule == "round_robin" and not self.round_robin_topologies:
+            raise ValueError("round_robin schedule needs round_robin_topologies")
         object.__setattr__(self, "round_robin_topologies", tuple(self.round_robin_topologies))
+        for topo in self.round_robin_topologies:
+            if not isinstance(topo, str):
+                raise ValueError(f"round_robin_topologies must be topology names, got {topo!r}")
+            if topo not in graph_lib.TOPOLOGIES:
+                raise ValueError(
+                    f"unknown round_robin topology {topo!r}; one of {graph_lib.TOPOLOGIES}"
+                )
+            if topo == "directed_ring":
+                raise _not_ported("a directed topology", "8b")
 
     @property
     def use_affinity_d(self) -> bool:
@@ -171,6 +195,12 @@ class ParamLayout:
         row = -(-off // ROW_ALIGN) * ROW_ALIGN
         return cls(dict(task.param_shapes), offsets, off, row)
 
+    @property
+    def leaf_offsets(self) -> tuple[int, ...]:
+        """The L + 1 leaf boundaries of a row: each leaf's first column, then
+        ``size`` (the columns from ``size`` to ``row`` are padding)."""
+        return (*self.offsets.values(), self.size)
+
     def views(self, flat: torch.Tensor) -> dict[str, torch.Tensor]:
         """(K, ...) views of every leaf into a (K, row) buffer (no copies)."""
         k = flat.shape[0]
@@ -192,6 +222,8 @@ class P2PState(NamedTuple):
     """Stacked peer state: every tensor is (K, row) float32 (see ``ParamLayout``).
 
     ``protocol`` holds the consensus protocol's own state (``()`` for gossip).
+    ``compression`` is the public-estimate stack of a compressed wire, (K, row)
+    like the parameters, or ``()`` for ``compressor="none"``.
     ``round_idx`` counts completed consensus phases.
     """
 
@@ -201,15 +233,38 @@ class P2PState(NamedTuple):
     b_bias: torch.Tensor  # affinity consensus-phase bias (Eq. 4)
     round_idx: int
     protocol: tuple = ()
+    compression: torch.Tensor | tuple = ()
+
+
+@functools.cache
+def layout_of(model: str) -> ParamLayout:
+    """The flat-row layout of the named task's parameters."""
+    return ParamLayout.of(task_lib.get_task(model))
 
 
 def build_schedule(cfg: P2PConfig) -> graph_lib.GraphSchedule:
-    """The config's communication-graph schedule (period 1: only "static" runs)."""
-    return graph_lib.static_schedule(
-        graph_lib.build_graph(
-            cfg.topology, cfg.num_peers, p=cfg.erdos_renyi_p, seed=cfg.graph_seed
-        )
+    """The config's communication-graph schedule (period 1 for "static")."""
+    build = lambda topo: graph_lib.build_graph(  # noqa: E731
+        topo, cfg.num_peers, p=cfg.erdos_renyi_p, seed=cfg.graph_seed
     )
+    if cfg.schedule == "static":
+        return graph_lib.static_schedule(build(cfg.topology))
+    if cfg.schedule == "link_dropout":
+        return graph_lib.link_dropout_schedule(
+            build(cfg.topology), cfg.link_survival_prob, cfg.schedule_rounds,
+            seed=cfg.schedule_seed,
+        )
+    if cfg.schedule == "random_matching":
+        return graph_lib.random_matching_schedule(
+            cfg.num_peers, cfg.schedule_rounds, seed=cfg.schedule_seed
+        )
+    if cfg.schedule == "peer_churn":
+        return graph_lib.peer_churn_schedule(
+            build(cfg.topology), cfg.peer_online_prob, cfg.schedule_rounds,
+            seed=cfg.schedule_seed,
+        )
+    # round_robin (the config admits no other name)
+    return graph_lib.round_robin_schedule([build(t) for t in cfg.round_robin_topologies])
 
 
 def protocol_constants(
@@ -237,7 +292,8 @@ def init_state(
 
     ``init_params`` (stacked (K, ...) leaves, e.g. exported from the reference
     through ``repro_torch.interop``) replaces the draw from ``seed``; max-norm
-    sync still applies to it, as in the reference.
+    sync still applies to it, as in the reference.  A compressed wire's
+    estimate stack starts as a copy of the parameters after the sync.
     """
     device = resolve_device(device)
     if init_params is None:
@@ -265,6 +321,7 @@ def init_state(
         b_bias=torch.zeros_like(params),
         round_idx=0,
         protocol=protocols_lib.get_protocol(cfg.protocol).init_state(params, data_sizes),
+        compression=compression_lib.from_config(cfg).init_estimate(params),
     )
 
 
@@ -311,11 +368,15 @@ def consensus_phase(state: P2PState, cfg: P2PConfig, ops: SparseOperands) -> P2P
 
     ``ops`` are the round's sparse operands (``GossipProtocol.operands``).
     Each step's d comes from the *incoming* neighbor parameters of that step
-    (Sec. IV-A); peers with an all-zero beta row keep d = 0.
+    (Sec. IV-A); peers with an all-zero beta row keep d = 0.  A compressed
+    wire takes ``_consensus_phase_compressed``.
     """
     if cfg.consensus_steps == 0:
         return state._replace(round_idx=state.round_idx + 1)
     proto = protocols_lib.get_protocol(cfg.protocol)
+    comp = compression_lib.from_config(cfg)
+    if not comp.identity:
+        return _consensus_phase_compressed(state, cfg, ops, proto, comp)
     params, d_bias, proto_state = state.params, state.d_bias, state.protocol
     for _ in range(cfg.consensus_steps):
         proto_state, mixed, d_step = proto.mix(proto_state, params, ops, cfg.local_steps)
@@ -326,6 +387,41 @@ def consensus_phase(state: P2PState, cfg: P2PConfig, ops: SparseOperands) -> P2P
         params = mixed
     return state._replace(
         params=params, d_bias=d_bias, protocol=proto_state, round_idx=state.round_idx + 1
+    )
+
+
+def _consensus_phase_compressed(
+    state: P2PState,
+    cfg: P2PConfig,
+    ops: SparseOperands,
+    proto: protocols_lib.GossipProtocol,
+    comp: compression_lib.Compressor,
+) -> P2PState:
+    """``consensus_phase`` when consensus messages cross a compressed wire.
+
+    Each step: compress the parameter-to-estimate difference ``x - x̂`` leaf by
+    leaf; advance the estimate stack by the payload (``x̂ <- x̂ + D(payload)``);
+    mix the convex form, self term on the true parameters and off-diagonal
+    terms on the advanced estimates; and take d from estimate differences,
+    ``d = (sum_j beta_kj x̂_j - x̂_k) / T`` (0 for a zero beta row).  qint8's
+    advance happens inside the ``dequant_mix`` kernel that mixes; top-k's is a
+    scatter before it.
+    """
+    layout = layout_of(cfg.model)
+    params, d_bias, proto_state, est = state.params, state.d_bias, state.protocol, state.compression
+    for _ in range(cfg.consensus_steps):
+        payload = comp.ef_flat(params, est, layout)
+        proto_state, mixed, d_step, est = proto.mix_compressed(
+            proto_state, params, payload, ops, layout.leaf_offsets, cfg.local_steps
+        )
+        if cfg.use_affinity_d:
+            d_bias = d_step
+        if cfg.use_affinity_b:
+            mixed = mixed + cfg.eta_b * state.b_bias
+        params = mixed
+    return state._replace(
+        params=params, d_bias=d_bias, protocol=proto_state, compression=est,
+        round_idx=state.round_idx + 1,
     )
 
 
@@ -341,6 +437,22 @@ def run_round(
     return after_local, consensus_phase(after_local, cfg, ops), losses
 
 
+def round_operands(
+    cfg: P2PConfig,
+    data_sizes: np.ndarray | None = None,
+    *,
+    device: torch.device | str | None = None,
+) -> list[SparseOperands]:
+    """The sparse operands of every round of the schedule's period, built
+    from the float64 W/Beta and uploaded to ``device``; round ``r`` of a run
+    uses entry ``r % period``."""
+    device = resolve_device(device)
+    consts, _ = protocol_constants(cfg, data_sizes)
+    proto = protocols_lib.get_protocol(cfg.protocol)
+    return [proto.operands(protocols_lib.round_constants(consts, r), device)
+            for r in range(consts.w.shape[0])]
+
+
 def make_round_fn(
     task: task_lib.TrainTask,
     cfg: P2PConfig,
@@ -348,14 +460,11 @@ def make_round_fn(
     *,
     device: torch.device | str | None = None,
 ) -> Callable[[P2PState, tuple], tuple[P2PState, P2PState, torch.Tensor]]:
-    """Round closure over the schedule: the sparse operands of every round of
-    the period are built from the float64 W/Beta and uploaded once, here;
-    round ``r`` uses those of ``r % R``."""
-    device = resolve_device(device)
-    consts, _ = protocol_constants(cfg, data_sizes)
-    proto = protocols_lib.get_protocol(cfg.protocol)
-    period = consts.w.shape[0]
-    ops = [proto.operands(protocols_lib.round_constants(consts, r), device) for r in range(period)]
+    """Round closure over the schedule: the operands of every round of the
+    period are built and uploaded once, here (``round_operands``); round
+    ``r`` uses those of ``r % R``."""
+    ops = round_operands(cfg, data_sizes, device=device)
+    period = len(ops)
 
     def step(state: P2PState, batches):
         return run_round(state, task, batches, cfg, ops[state.round_idx % period])

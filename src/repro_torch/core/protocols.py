@@ -3,7 +3,7 @@
 
 A protocol owns its per-run state, its stacked (R, K, K) round constants, and
 one consensus step.  ``gossip`` is the paper's row-stochastic Eq. 4 mix and is
-stateless.  Push-sum is still to be ported (ROADMAP.md queue 1 item 8).
+stateless.  Push-sum is still to be ported (ROADMAP.md queue 1 item 8b).
 
 The port's round does not mix with the dense constants: ``operands`` turns a
 round's (K, K) slice into the padded sparse operands of the fused kernel,
@@ -11,6 +11,8 @@ once per run, and ``mix`` runs one step through
 ``kernels.consensus_mix.ops.consensus_mix_stacked``, which returns the mixed
 parameters and the affinity bias d together.  The dense form of the same
 step, ``core.consensus.mix_stacked``, is the tests' reference.
+``mix_compressed`` is the step of a compressed wire, through
+``kernels.consensus_mix.dequant.dequant_mix_stacked``.
 """
 from __future__ import annotations
 
@@ -19,7 +21,9 @@ from typing import Any, NamedTuple, Sequence
 import numpy as np
 import torch
 
+from repro_torch.compression import FlatPayload
 from repro_torch.core import graph as graph_lib
+from repro_torch.kernels.consensus_mix import dequant as cm_dequant
 from repro_torch.kernels.consensus_mix import ops as cm_ops
 
 
@@ -76,6 +80,24 @@ class GossipProtocol:
         mixed, d_bias = cm_ops.consensus_mix_stacked(flat, ops, local_steps)
         return proto_state, mixed, d_bias
 
+    def mix_compressed(
+        self,
+        proto_state,
+        flat: torch.Tensor,
+        payload: FlatPayload,
+        ops: cm_ops.SparseOperands,
+        leaf_offsets: tuple[int, ...],
+        local_steps: int,
+    ) -> tuple[Any, torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Convex estimate-gossip, ``diag(W) x + (W - diag(W)) x̂``, with x̂ the
+        estimates advanced by this step's payload, and d from estimate
+        differences; one step through the fused dequantize-and-mix kernel.
+        Returns (proto_state, mixed, d_bias, advanced estimates)."""
+        mixed, d_bias, est = cm_dequant.dequant_mix_stacked(
+            flat, payload.est, payload.q, payload.scale, ops, leaf_offsets, local_steps
+        )
+        return proto_state, mixed, d_bias, est
+
 
 _PROTOCOLS = {"gossip": GossipProtocol()}
 # names the reference registers that this port does not run yet
@@ -91,7 +113,7 @@ def get_protocol(name: str) -> GossipProtocol:
     """The named protocol instance."""
     if name in UNPORTED_PROTOCOLS:
         raise NotImplementedError(
-            f"protocol {name!r} is not ported yet: ROADMAP.md queue 1 item 8"
+            f"protocol {name!r} is not ported yet: ROADMAP.md queue 1 item 8b"
         )
     if name not in _PROTOCOLS:
         raise ValueError(f"unknown protocol {name!r}; one of {protocol_names()}")

@@ -1,7 +1,8 @@
-"""Parameter exchange with the reference package, through numpy.
+"""Parameter and state exchange with the reference package, through numpy.
 
 ``jax.random``'s threefry stream cannot be reproduced in torch, so parity
-runs start both packages from the same exported parameters.  The reference
+runs start both packages from the same exported parameters, or from the
+same exported round state (``state_from_jax``).  The reference
 keeps nested dicts (``{"fc1": {"w": ..., "b": ...}, ...}``); the port keeps
 flat dicts with dotted names (``{"fc1.w": ..., "fc1.b": ...}``).  Nothing here
 imports jax: the caller converts jax arrays with ``numpy.asarray`` (for
@@ -11,6 +12,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.core import p2p
+from repro_torch.core import task as task_lib
 
 
 def params_from_jax(tree: dict, *, device: torch.device | str = "cpu") -> dict[str, torch.Tensor]:
@@ -38,3 +42,34 @@ def params_to_jax(params: dict[str, torch.Tensor]) -> dict:
             node = node.setdefault(key, {})
         node[leaf] = value.detach().cpu().numpy()
     return tree
+
+
+def state_from_jax(
+    jstate, task: task_lib.TrainTask, *, device: torch.device | str = "cpu"
+) -> p2p.P2PState:
+    """A reference ``P2PState`` whose arrays were converted to numpy
+    (``jax.tree.map(np.asarray, state)``) -> the port's ``P2PState``.
+
+    Every state tree becomes one (K, row) buffer in ``ParamLayout`` order,
+    the public-estimate tree of a compressed wire (``compression``) included,
+    so both packages can run a phase from one state.  Gossip only: a
+    protocol state (push-sum's mass) is queue 1 item 8b.
+    """
+    if jstate.protocol != ():
+        raise NotImplementedError(
+            "protocol state (push-sum) is not ported yet: ROADMAP.md queue 1 item 8b"
+        )
+    layout = p2p.ParamLayout.of(task)
+
+    def flat(tree):
+        return layout.flatten(params_from_jax(tree)).to(device)
+
+    comp = jstate.compression
+    return p2p.P2PState(
+        params=flat(jstate.params),
+        momentum=flat(jstate.momentum),
+        d_bias=flat(jstate.d_bias),
+        b_bias=flat(jstate.b_bias),
+        round_idx=int(jstate.round_idx),
+        compression=flat(comp) if isinstance(comp, dict) else (),
+    )

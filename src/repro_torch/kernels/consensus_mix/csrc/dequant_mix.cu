@@ -1,0 +1,257 @@
+// Fused int8 dequantize + gossip mix + affinity bias for all K peers of a
+// stacked parameter buffer, on Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel repro/kernels/consensus_mix/dequant.py
+// (`dequant_mix_2d`, body `_kernel`), the fused form of the compressed-gossip
+// consensus step (`p2p._consensus_phase_compressed`).  Every peer carries a
+// public estimate est of every peer's parameters; this step's payload of
+// sender j is an int8 row q[j] with one float32 scale per leaf of the
+// parameter row.  For every peer k and column n of leaf l(n), with D padded
+// neighbor slots j = nbr_idx[k, s]:
+//
+//   v_j      = est[j, n] + scale[j, l(n)] * q[j, n]      (advanced estimate)
+//   mixed[k] = self_w[k] * x[k, n] + sum_s nbr_w[k, s] * v_j
+//   d[k]     = (sum_s beta[k, s] * v_j - v_k) / T,  0 if sum_s beta[k, s] == 0
+//   est'[k]  = v_k                                         (written once)
+//
+// The self term of the mix stays on the true parameters x; the affinity d
+// runs on estimate differences, as the runtime computes it from the advanced
+// own estimate.  With no payload (q == nullptr: top-k, whose estimate was
+// advanced by a scatter beforehand) v_j = est[j, n] and est' is not written.
+//
+// Design (simple first, in the shape of consensus_mix.cu):
+// - grid (K, tiles of N); blockIdx.x is the peer, so the K blocks of one
+//   N-tile run together and find that tile's neighbor rows in L2.
+// - each block stages its peer's slot row (nbr_idx, nbr_w, beta), the
+//   senders' scales of every leaf (leaf-major, L * D floats) and its own L
+//   scales in shared memory, and reduces the RAW sum(beta) there for the
+//   no-neighbor guard (a scale-folded beta would read 0 for a zero scale).
+// - the leaf of a column comes from a scan of the L leaf starts (L = 6 for
+//   the 2NN), once per element, outside the slot loop.  Columns past the last
+//   leaf (the row's zero padding) take the last leaf's scale; q is 0 there.
+// - the advanced estimates are formed in registers and never stored for
+//   neighbors: only this peer's own est' is written, to a buffer other than
+//   est, since other blocks still read est[k] as a neighbor.
+// - float4 loads and stores (one 32-bit char4 of q per float4) when N and
+//   every leaf start are multiples of 4 and the buffers are aligned (16 bytes
+//   for float32, 4 for int8: a q row of 199,212 bytes is 4-byte aligned
+//   only); scalar otherwise.
+// - the advance is one fmaf (one rounding); the plain version multiplies and
+//   then adds (two roundings), which the card check's tolerance covers.
+// Padding slots carry the peer's own index with weight 0 and add exactly
+// +-0.0 to both sums.
+//
+// Bound on an H100 SXM: at iid_k100 with qint8 (K = 100, D = 99,
+// N = 199,212) one call must read x, est (79.7 MB each) and q (19.9 MB) and
+// write mixed, d and est' (239 MB): 418 MB, 0.125 ms at 3.35 TB/s; its least
+// arithmetic, 4 D + 5 operations per element, is 8.0 GFLOP, 0.119 ms at
+// 67 TFLOP/s.  It is balanced, barely bound by bytes.  The simple design
+// re-reads every neighbor row and payload once per peer that needs it and
+// dequantizes it again each time; shared neighbor tiles would not.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int64_t kMaxGridY = 65535;
+constexpr int kMaxLeaves = 64;
+
+struct LeafStarts {
+  int64_t start[kMaxLeaves];  // first column of each leaf; start[0] == 0
+};
+
+__device__ __forceinline__ float load_q(const int8_t* q, int64_t i) {
+  return static_cast<float>(q[i]);
+}
+__device__ __forceinline__ float4 load_q(const char4* q, int64_t i) {
+  const char4 c = q[i];
+  return make_float4(static_cast<float>(c.x), static_cast<float>(c.y),
+                     static_cast<float>(c.z), static_cast<float>(c.w));
+}
+
+__device__ __forceinline__ float vfma(float a, float v, float acc) { return fmaf(a, v, acc); }
+__device__ __forceinline__ float4 vfma(float a, float4 v, float4 acc) {
+  return make_float4(fmaf(a, v.x, acc.x), fmaf(a, v.y, acc.y), fmaf(a, v.z, acc.z),
+                     fmaf(a, v.w, acc.w));
+}
+
+__device__ __forceinline__ float vscale(float a, float v) { return a * v; }
+__device__ __forceinline__ float4 vscale(float a, float4 v) {
+  return make_float4(a * v.x, a * v.y, a * v.z, a * v.w);
+}
+
+__device__ __forceinline__ void vzero(float& v) { v = 0.0f; }
+__device__ __forceinline__ void vzero(float4& v) { v = make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
+
+__device__ __forceinline__ float vbias(float sum, float own, float t, bool has) {
+  return has ? (sum - own) / t : 0.0f;
+}
+__device__ __forceinline__ float4 vbias(float4 sum, float4 own, float t, bool has) {
+  return make_float4(vbias(sum.x, own.x, t, has), vbias(sum.y, own.y, t, has),
+                     vbias(sum.z, own.z, t, has), vbias(sum.w, own.w, t, has));
+}
+
+// T is float (scalar path, Q = int8_t) or float4 (vector path, Q = char4);
+// n_vec counts T elements per row.  kHasQ is false for the no-payload call.
+template <typename T, typename Q, bool kHasQ>
+__global__ void __launch_bounds__(kThreads)
+dequant_mix_kernel(const float* __restrict__ x, const float* __restrict__ est,
+                   const int8_t* __restrict__ q, const float* __restrict__ scale,
+                   LeafStarts leaves, int num_leaves, int64_t n_vec,
+                   const float* __restrict__ self_w, const int32_t* __restrict__ nbr_idx,
+                   const float* __restrict__ nbr_w, const float* __restrict__ beta,
+                   int d_slots, float local_steps, float* __restrict__ mixed,
+                   float* __restrict__ d_out, float* __restrict__ est_out) {
+  // [D] nbr_w | [D] beta | [D] nbr_idx | [L * D] sender scales | [L] own scales
+  extern __shared__ float smem[];
+  float* s_w = smem;
+  float* s_b = smem + d_slots;
+  int32_t* s_idx = reinterpret_cast<int32_t*>(smem + 2 * d_slots);
+  float* s_sc = smem + 3 * d_slots;
+  float* s_own = s_sc + num_leaves * d_slots;
+  __shared__ int64_t s_start[kMaxLeaves];
+  __shared__ int s_has_nbrs;
+
+  const int k = blockIdx.x;
+  const int64_t slot_row = static_cast<int64_t>(k) * d_slots;
+  for (int s = threadIdx.x; s < d_slots; s += blockDim.x) {
+    s_w[s] = nbr_w[slot_row + s];
+    s_b[s] = beta[slot_row + s];
+    s_idx[s] = nbr_idx[slot_row + s];
+  }
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int l = 0; l < kMaxLeaves; ++l) {
+      if (l < num_leaves) s_start[l] = leaves.start[l];
+    }
+  }
+  __syncthreads();
+  if (kHasQ) {
+    for (int i = threadIdx.x; i < num_leaves * d_slots; i += blockDim.x) {
+      const int l = i / d_slots, s = i - l * d_slots;
+      s_sc[i] = scale[static_cast<int64_t>(s_idx[s]) * num_leaves + l];
+    }
+    for (int l = threadIdx.x; l < num_leaves; l += blockDim.x) {
+      s_own[l] = scale[static_cast<int64_t>(k) * num_leaves + l];
+    }
+  }
+  if (threadIdx.x == 0) {
+    float sum = 0.0f;
+    for (int s = 0; s < d_slots; ++s) sum += s_b[s];
+    s_has_nbrs = sum > 0.0f;
+  }
+  __syncthreads();
+  const bool has_nbrs = s_has_nbrs != 0;
+  const float sw = self_w[k];
+  constexpr int kWidth = sizeof(T) / sizeof(float);
+
+  const T* xv = reinterpret_cast<const T*>(x);
+  const T* ev = reinterpret_cast<const T*>(est);
+  const Q* qv = reinterpret_cast<const Q*>(q);
+  T* mv = reinterpret_cast<T*>(mixed);
+  T* dv = reinterpret_cast<T*>(d_out);
+  T* eo = reinterpret_cast<T*>(est_out);
+  const int64_t own = static_cast<int64_t>(k) * n_vec;
+  const int64_t stride = static_cast<int64_t>(gridDim.y) * blockDim.x;
+  for (int64_t e = static_cast<int64_t>(blockIdx.y) * blockDim.x + threadIdx.x; e < n_vec;
+       e += stride) {
+    T self_est = ev[own + e];
+    const float* sc = s_sc;
+    if (kHasQ) {
+      const int64_t col = e * kWidth;
+      int l = 0;
+      while (l + 1 < num_leaves && col >= s_start[l + 1]) ++l;
+      sc = s_sc + l * d_slots;
+      self_est = vfma(s_own[l], load_q(qv, own + e), self_est);
+      eo[own + e] = self_est;
+    }
+    T acc_mix = vscale(sw, xv[own + e]);
+    T acc_beta;
+    vzero(acc_beta);
+#pragma unroll 4
+    for (int s = 0; s < d_slots; ++s) {
+      const int64_t nbr = static_cast<int64_t>(s_idx[s]) * n_vec + e;
+      T v = ev[nbr];
+      if (kHasQ) v = vfma(sc[s], load_q(qv, nbr), v);
+      acc_mix = vfma(s_w[s], v, acc_mix);
+      acc_beta = vfma(s_b[s], v, acc_beta);
+    }
+    mv[own + e] = acc_mix;
+    dv[own + e] = vbias(acc_beta, self_est, local_steps, has_nbrs);
+  }
+}
+
+bool aligned(const void* p, uintptr_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+template <typename T, typename Q>
+void launch(bool has_q, dim3 grid, size_t smem, cudaStream_t s, const float* x,
+            const float* est, const int8_t* q, const float* scale, const LeafStarts& leaves,
+            int num_leaves, int64_t n_vec, const float* self_w, const int32_t* nbr_idx,
+            const float* nbr_w, const float* beta, int d_slots, float local_steps,
+            float* mixed, float* d_out, float* est_out) {
+  if (has_q) {
+    dequant_mix_kernel<T, Q, true><<<grid, kThreads, smem, s>>>(
+        x, est, q, scale, leaves, num_leaves, n_vec, self_w, nbr_idx, nbr_w, beta, d_slots,
+        local_steps, mixed, d_out, est_out);
+  } else {
+    dequant_mix_kernel<T, Q, false><<<grid, kThreads, smem, s>>>(
+        x, est, q, scale, leaves, num_leaves, n_vec, self_w, nbr_idx, nbr_w, beta, d_slots,
+        local_steps, mixed, d_out, est_out);
+  }
+}
+
+}  // namespace
+
+// x, est, mixed, d_out, est_out: (num_peers, n) row-major float32 on the
+// device; q: (num_peers, n) int8 and scale: (num_peers, num_leaves) float32,
+// or both null for a call with no payload (est_out is then unused).
+// leaf_start: HOST array of the num_leaves first columns of the leaves
+// (leaf_start[0] == 0, increasing, below n).  self_w (num_peers,); nbr_idx,
+// nbr_w, beta (num_peers, d_slots).  vec4 != 0 asks for the float4 path,
+// which needs n and every leaf start to be multiples of 4 and the buffers
+// aligned.  Every nbr_idx entry must lie in [0, num_peers) and the staged
+// slot row must fit the default 48 KB of shared memory; the Python wrapper
+// checks both.  Launches on `stream` and returns a cudaError_t (0 on
+// success; cudaErrorInvalidValue for arguments it refuses).
+extern "C" int dequant_mix_f32(const float* x, const float* est, const int8_t* q,
+                               const float* scale, const int64_t* leaf_start,
+                               int64_t num_leaves, int64_t num_peers, int64_t n,
+                               const float* self_w, const int32_t* nbr_idx, const float* nbr_w,
+                               const float* beta, int64_t d_slots, float local_steps, int vec4,
+                               float* mixed, float* d_out, float* est_out, void* stream) {
+  if (num_peers <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
+  const bool has_q = q != nullptr;
+  if (num_leaves < 1 || num_leaves > kMaxLeaves ||
+      (has_q && (scale == nullptr || est_out == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  LeafStarts leaves = {};
+  for (int64_t l = 0; l < num_leaves; ++l) {
+    leaves.start[l] = leaf_start[l];
+    if (vec4 && leaf_start[l] % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (vec4 && !(n % 4 == 0 && aligned(x, 16) && aligned(est, 16) && aligned(mixed, 16) &&
+                aligned(d_out, 16) && (!has_q || (aligned(q, 4) && aligned(est_out, 16)))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nl = static_cast<int>(num_leaves);
+  const int ds = static_cast<int>(d_slots);
+  const size_t smem =
+      (static_cast<size_t>(d_slots) * (3 + (has_q ? num_leaves : 0)) + (has_q ? num_leaves : 0)) *
+      sizeof(float);
+  const int64_t n_vec = vec4 ? n / 4 : n;
+  int64_t tiles = (n_vec + kThreads - 1) / kThreads;
+  if (tiles > kMaxGridY) tiles = kMaxGridY;
+  const dim3 grid(static_cast<unsigned>(num_peers), static_cast<unsigned>(tiles));
+  if (vec4) {
+    launch<float4, char4>(has_q, grid, smem, s, x, est, q, scale, leaves, nl, n_vec, self_w,
+                          nbr_idx, nbr_w, beta, ds, local_steps, mixed, d_out, est_out);
+  } else {
+    launch<float, int8_t>(has_q, grid, smem, s, x, est, q, scale, leaves, nl, n_vec, self_w,
+                          nbr_idx, nbr_w, beta, ds, local_steps, mixed, d_out, est_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

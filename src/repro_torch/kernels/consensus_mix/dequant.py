@@ -1,0 +1,164 @@
+"""Public API of the fused dequantize-and-mix kernel (the port's
+``repro.kernels.consensus_mix.dequant``).
+
+``dequant_mix_stacked`` runs one compressed-gossip step plus the affinity-d
+update for all K peers of a (K, N) float32 flat parameter buffer: it advances
+every peer's public estimate by its int8 payload (one float32 scale per peer
+and leaf of the row) and mixes the advanced estimates of the neighbors, in one
+pass.  It replaces the Pallas TPU kernel
+``repro/kernels/consensus_mix/dequant.py:dequant_mix_2d``.  Called with no
+payload (``q=None``: top-k, whose estimate the caller advanced with a
+scatter), it mixes the estimates as they stand.
+
+Dispatch is by the device of the buffer, and only by it:
+
+- a CPU tensor takes the plain PyTorch version (``ref.dequant_mix_stacked_ref``);
+- a CUDA tensor launches the hand-written kernel (``csrc/dequant_mix.cu``,
+  built for sm_90a and loaded with ctypes on first use) or raises — there is
+  no fallback;
+- any other device raises.
+
+Bound on an H100 SXM (see the note in the CUDA source): at K = 100 peers on
+the complete graph one qint8 call moves 418 MB (0.125 ms at 3.35 TB/s) and
+does 8.0 GFLOP (0.119 ms at 67 TFLOP/s): balanced, barely bound by bytes.
+
+``launches.count`` counts kernel launches (never plain-version calls).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.consensus_mix import ref
+from repro_torch.kernels.consensus_mix.ops import LaunchCounter, SparseOperands, check_operands
+
+SOURCES = [Path(__file__).resolve().parent / "csrc" / "dequant_mix.cu"]
+MAX_LEAVES = 64  # kMaxLeaves in the CUDA source
+# dynamic shared memory per block: the default 48 KB less the kernel's static
+# arrays (the leaf starts and a flag)
+_SMEM_BYTES = 48 * 1024 - 1024
+
+launches = LaunchCounter()
+
+
+def max_slots(num_leaves: int, with_payload: bool = True) -> int:
+    """Most neighbor slots a peer's staged slot row can hold: 3 floats per
+    slot, plus one scale per slot and leaf (and the peer's own L scales) when
+    there is a payload."""
+    per_slot = 3 + (num_leaves if with_payload else 0)
+    return (_SMEM_BYTES // 4 - (num_leaves if with_payload else 0)) // per_slot
+
+
+@functools.cache
+def load_kernel() -> build.KernelLibrary:
+    """Build (first call) and load the kernel library; declares its C signature."""
+    kl = build.load_library("dequant_mix", SOURCES)
+    fn = kl.lib.dequant_mix_f32
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, ptr, ptr, ptr, ptr, i64,
+                   ctypes.c_float, ctypes.c_int, ptr, ptr, ptr, ptr]
+    fn.restype = ctypes.c_int
+    return kl
+
+
+def _check(flat, est, q, scale, ops, leaf_offsets, local_steps) -> None:
+    offs = tuple(int(o) for o in leaf_offsets)
+    num_leaves = len(offs) - 1
+    if not 1 <= num_leaves <= MAX_LEAVES:
+        raise ValueError(f"need 1 to {MAX_LEAVES} leaves, got {num_leaves}")
+    if offs[0] != 0 or any(b <= a for a, b in zip(offs, offs[1:])) or offs[-1] > flat.shape[-1]:
+        raise ValueError(f"leaf_offsets {offs} must rise from 0 to at most N={flat.shape[-1]}")
+    check_operands(flat, ops, local_steps, max_slots(num_leaves, q is not None), "dequant_mix")
+    tensors = {"est": (est, torch.float32, tuple(flat.shape))}
+    if (q is None) != (scale is None):
+        raise ValueError("q and scale come together, or both are None")
+    if q is not None:
+        tensors["q"] = (q, torch.int8, tuple(flat.shape))
+        tensors["scale"] = (scale, torch.float32, (flat.shape[0], num_leaves))
+    for name, (t, dtype, shape) in tensors.items():
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name} must be {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
+        if t.device != flat.device:
+            raise ValueError(f"{name} is on {t.device}, the buffer on {flat.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"dequant_mix needs a contiguous {name}")
+
+
+def takes_vector_path(leaf_offsets, *tensors: torch.Tensor) -> bool:
+    """Whether a launch on these tensors runs the float4 path: N and every
+    leaf start a multiple of 4, float32 buffers 16-byte aligned, int8 ones
+    4-byte aligned.  Otherwise the kernel runs its scalar path."""
+    n = tensors[0].shape[-1]
+    aligned = all(
+        t.data_ptr() % (4 if t.dtype == torch.int8 else 16) == 0 for t in tensors if t is not None
+    )
+    return n % 4 == 0 and all(int(o) % 4 == 0 for o in leaf_offsets[:-1]) and aligned
+
+
+def launch(
+    flat: torch.Tensor,
+    est: torch.Tensor,
+    q: torch.Tensor | None,
+    scale: torch.Tensor | None,
+    ops: SparseOperands,
+    leaf_offsets,
+    local_steps: int,
+    mixed: torch.Tensor,
+    d_bias: torch.Tensor,
+    est_out: torch.Tensor | None,
+) -> None:
+    """Launch the kernel on the current stream into ``mixed`` / ``d_bias`` /
+    ``est_out`` (unused without a payload).
+
+    No checks: callers pass what ``dequant_mix_stacked`` validated.  Counts
+    the launch and raises if CUDA refused it.
+    """
+    fn = load_kernel().lib.dequant_mix_f32
+    starts = [int(o) for o in leaf_offsets[:-1]] if q is not None else [0]
+    vec4 = takes_vector_path(leaf_offsets if q is not None else (0, 0),
+                             flat, est, q, mixed, d_bias, est_out)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = fn(
+        flat.data_ptr(), est.data_ptr(), ptr(q), ptr(scale),
+        (ctypes.c_int64 * len(starts))(*starts), len(starts),
+        flat.shape[0], flat.shape[1],
+        ops.self_w.data_ptr(), ops.nbr_idx.data_ptr(), ops.nbr_w.data_ptr(),
+        ops.beta.data_ptr(), ops.nbr_idx.shape[1], float(local_steps), int(vec4),
+        mixed.data_ptr(), d_bias.data_ptr(), ptr(est_out),
+        torch.cuda.current_stream(flat.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"dequant_mix launch failed with cudaError_t {err}")
+    launches.count += 1
+
+
+def dequant_mix_stacked(
+    flat: torch.Tensor,  # (K, N) float32 — every peer's TRUE parameters
+    est: torch.Tensor,  # (K, N) float32 — public estimates
+    q: torch.Tensor | None,  # (K, N) int8 payloads, or None
+    scale: torch.Tensor | None,  # (K, L) float32 per-leaf scales, or None
+    ops: SparseOperands,
+    leaf_offsets,  # L + 1 leaf boundaries of the row (``ParamLayout.leaf_offsets``)
+    local_steps: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One compressed gossip step + affinity d for all peers.
+
+    Returns (mixed, d_bias, est_new), each (K, N).  With a payload, est_new is
+    a fresh buffer holding ``est + scale * q`` (never ``est`` itself, which
+    other peers' blocks still read); without one it is ``est``.
+    """
+    if flat.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"dequant_mix runs on cpu or cuda tensors, got {flat.device}")
+    _check(flat, est, q, scale, ops, leaf_offsets, local_steps)
+    if flat.device.type == "cpu":
+        return ref.dequant_mix_stacked_ref(flat, est, q, scale, tuple(leaf_offsets), *ops,
+                                           local_steps)
+    mixed = torch.empty_like(flat)
+    d_bias = torch.empty_like(flat)
+    est_out = torch.empty_like(est) if q is not None else None
+    launch(flat, est, q, scale, ops, leaf_offsets, local_steps, mixed, d_bias, est_out)
+    return mixed, d_bias, est if est_out is None else est_out

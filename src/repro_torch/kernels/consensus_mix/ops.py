@@ -77,6 +77,10 @@ def sparse_from_matrices(
     nothing to either output."""
     self_w, nbr_idx, nbr_w = consensus_lib.sparse_mixing(w_mat, dmax=dmax)
     k = nbr_idx.shape[0]
+    # the one range check of the indices: the wrapper does not read a CUDA
+    # tensor back to the host on every launch
+    if ((nbr_idx < 0) | (nbr_idx >= k)).any():
+        raise ValueError(f"nbr_idx entries must index peers in [0, {k})")
     beta_p = beta_mat[np.arange(k)[:, None], nbr_idx].astype(np.float32)
     return SparseOperands(
         *(torch.as_tensor(a, device=device) for a in (self_w, nbr_idx, nbr_w, beta_p))
@@ -94,11 +98,19 @@ def load_kernel() -> build.KernelLibrary:
     return kl
 
 
-def _check(flat: torch.Tensor, ops: SparseOperands, local_steps: int) -> None:
+def check_operands(flat: torch.Tensor, ops: SparseOperands, local_steps: int,
+                   max_slots: int, what: str = "consensus_mix") -> None:
+    """Validate a (K, N) float32 buffer and its sparse operands for a kernel
+    that stages up to ``max_slots`` slots per peer.
+
+    The range of ``nbr_idx`` is checked here for CPU tensors only: for CUDA
+    tensors ``sparse_from_matrices`` checked it once, from numpy, and reading
+    it back here would synchronize the host with the device on every launch.
+    """
     if flat.dim() != 2:
         raise ValueError(f"flat must be (K, N), got shape {tuple(flat.shape)}")
     if flat.dtype != torch.float32:
-        raise TypeError(f"consensus_mix takes float32 only, got {flat.dtype}")
+        raise TypeError(f"{what} takes float32 only, got {flat.dtype}")
     k = flat.shape[0]
     d = ops.nbr_idx.shape[-1]
     want = {"self_w": ((k,), torch.float32), "nbr_idx": ((k, d), torch.int32),
@@ -112,12 +124,12 @@ def _check(flat: torch.Tensor, ops: SparseOperands, local_steps: int) -> None:
         if t.device != flat.device:
             raise ValueError(f"{name} is on {t.device}, the buffer on {flat.device}")
     if not all(t.is_contiguous() for t in (flat, *ops)):
-        raise ValueError("consensus_mix needs contiguous tensors")
-    if not 1 <= d <= MAX_SLOTS:
-        raise ValueError(f"neighbor slots D={d} outside [1, {MAX_SLOTS}]")
+        raise ValueError(f"{what} needs contiguous tensors")
+    if not 1 <= d <= max_slots:
+        raise ValueError(f"neighbor slots D={d} outside [1, {max_slots}]")
     if int(local_steps) < 1:
         raise ValueError(f"local_steps must be >= 1, got {local_steps}")
-    if bool(((ops.nbr_idx < 0) | (ops.nbr_idx >= k)).any()):
+    if flat.device.type == "cpu" and bool(((ops.nbr_idx < 0) | (ops.nbr_idx >= k)).any()):
         raise ValueError(f"nbr_idx entries must index peers in [0, {k})")
 
 
@@ -130,7 +142,7 @@ def launch(
 ) -> None:
     """Launch the kernel on the current stream into ``mixed`` / ``d_bias``.
 
-    No checks: callers pass what ``consensus_mix_stacked`` validated.  Counts
+    No checks: callers pass what ``check_operands`` validated.  Counts
     the launch and raises if CUDA refused it.
     """
     fn = load_kernel().lib.consensus_mix_f32
@@ -155,7 +167,7 @@ def consensus_mix_stacked(
     both (K, N) in fresh buffers."""
     if flat.device.type not in ("cpu", "cuda"):
         raise ValueError(f"consensus_mix runs on cpu or cuda tensors, got {flat.device}")
-    _check(flat, ops, local_steps)
+    check_operands(flat, ops, local_steps, MAX_SLOTS)
     if flat.device.type == "cpu":
         return ref.consensus_mix_stacked_ref(flat, *ops, local_steps)
     mixed = torch.empty_like(flat)

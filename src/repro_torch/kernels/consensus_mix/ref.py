@@ -1,4 +1,6 @@
-"""Plain PyTorch version of the fused gossip + affinity update, stacked form.
+"""Plain PyTorch versions of the fused gossip + affinity updates, stacked form:
+``consensus_mix_stacked_ref`` (below) and, for a compressed wire,
+``dequant_mix_stacked_ref`` (at the end).
 
 For every peer k of a (K, N) flat parameter buffer, with D padded neighbor
 slots ``nbr_idx[k]``:
@@ -38,3 +40,57 @@ def consensus_mix_stacked_ref(
     has_nbrs = beta.sum(dim=1) > 0.0
     d = torch.where(has_nbrs[:, None], (nbr_sum - xf) / local_steps, torch.zeros_like(xf))
     return mixed.to(flat.dtype), d.to(flat.dtype)
+
+
+def leaf_scale_columns(
+    scale: torch.Tensor, leaf_offsets: tuple[int, ...], n: int
+) -> torch.Tensor:
+    """(K, L) per-leaf scales -> (K, n), each column carrying its leaf's scale;
+    columns past the last leaf (the row's zero padding) take the last leaf's."""
+    starts = torch.as_tensor(leaf_offsets[:-1], dtype=torch.int64, device=scale.device)
+    cols = torch.arange(n, dtype=torch.int64, device=scale.device)
+    leaf = torch.searchsorted(starts, cols, right=True) - 1
+    return scale.to(torch.float32)[:, leaf]
+
+
+def dequant_mix_stacked_ref(
+    flat: torch.Tensor,  # (K, N) float32 — every peer's TRUE parameters
+    est: torch.Tensor,  # (K, N) float32 — public estimates before this step's advance
+    q: torch.Tensor | None,  # (K, N) int8 payloads, or None (estimates already advanced)
+    scale: torch.Tensor | None,  # (K, L) float32 per-leaf payload scales
+    leaf_offsets: tuple[int, ...],  # L + 1 leaf boundaries of the row
+    self_w: torch.Tensor,  # (K,)
+    nbr_idx: torch.Tensor,  # (K, D) int
+    nbr_w: torch.Tensor,  # (K, D)
+    beta: torch.Tensor,  # (K, D)
+    local_steps: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the fused dequantize-and-mix step, stacked form (the
+    counterpart of the reference's ``ref.dequant_mix_ref``).
+
+    Builds what the kernel exists to avoid, the advanced estimate of every
+    peer ``v = est + q * scale`` (a multiply, then an add), then mixes:
+
+        mixed_k = self_w[k] * x_k + sum_d nbr_w[k, d] * v[nbr_idx[k, d]]
+        d_k     = (sum_d beta[k, d] * v[nbr_idx[k, d]] - v_k) / T
+
+    with d_k = 0 when sum_d beta[k, d] == 0.  Returns (mixed, d, v); with no
+    payload v is ``est`` itself.  This is the CPU path of
+    ``dequant.dequant_mix_stacked`` and the oracle the CUDA kernel is held to.
+    """
+    xf = flat.to(torch.float32)
+    adv = est.to(torch.float32)
+    if q is not None:
+        adv = adv + q.to(torch.float32) * leaf_scale_columns(scale, leaf_offsets, xf.shape[1])
+    nbr_idx = nbr_idx.long()
+    nbr_w = nbr_w.to(torch.float32)
+    beta = beta.to(torch.float32)
+    mixed = self_w.to(torch.float32)[:, None] * xf
+    nbr_sum = torch.zeros_like(xf)
+    for slot in range(nbr_idx.shape[1]):
+        nbr = adv[nbr_idx[:, slot]]  # (K, N): every peer's slot-th advanced neighbor
+        mixed = mixed + nbr_w[:, slot, None] * nbr
+        nbr_sum = nbr_sum + beta[:, slot, None] * nbr
+    has_nbrs = beta.sum(dim=1) > 0.0
+    d = torch.where(has_nbrs[:, None], (nbr_sum - adv) / local_steps, torch.zeros_like(xf))
+    return mixed.to(flat.dtype), d.to(flat.dtype), adv if q is not None else est

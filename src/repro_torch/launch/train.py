@@ -7,17 +7,27 @@ accuracy after BOTH phases of every evaluated round (the paper's
 instrument).  Runs on the GPU unless ``device="cpu"``.
 
 CLI:  python -m repro_torch.launch.train --experiment noniid_affinity --rounds 40
+      python -m repro_torch.launch.train --experiment timevarying_k8 \
+          --schedule round_robin --compressor qint8
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from repro_torch.configs.p2pl_mnist import PaperExperiment, iid_k100, noniid_k2
+from repro_torch.compression import compressor_names
+from repro_torch.configs.p2pl_mnist import (
+    PaperExperiment,
+    iid_k100,
+    noniid_k2,
+    timevarying_k2,
+    timevarying_k8,
+)
 from repro_torch.core import consensus as consensus_lib
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.core import p2p
@@ -120,12 +130,35 @@ def run_paper_experiment(
     return log
 
 
+def _timevarying(builder):
+    def build(args) -> PaperExperiment:
+        return builder(
+            schedule=args.schedule or "link_dropout",
+            algorithm=args.algorithm,
+            local_steps=args.local_steps or 10,
+            schedule_rounds=args.schedule_rounds,
+            link_survival_prob=args.link_survival_prob,
+            peer_online_prob=args.peer_online_prob,
+            round_robin_topologies=tuple(t for t in args.round_robin_topologies.split(",") if t),
+        )
+
+    return build
+
+
+# experiment name -> builder from the parsed CLI arguments (the reference
+# CLI's, src/repro/launch/train.py, for the experiments the port runs)
 EXPERIMENTS = {
-    "iid_k100": iid_k100,
-    "noniid_local_dsgd": lambda: noniid_k2(algorithm="local_dsgd", local_steps=10),
-    "noniid_dsgd": lambda: noniid_k2(algorithm="dsgd", local_steps=1),
-    "noniid_affinity": lambda: noniid_k2(algorithm="p2pl_affinity", local_steps=10),
+    "iid_k100": lambda a: iid_k100(topology=a.topology),
+    "noniid_local_dsgd": lambda a: noniid_k2(algorithm="local_dsgd",
+                                             local_steps=a.local_steps or 10),
+    "noniid_dsgd": lambda a: noniid_k2(algorithm="dsgd", local_steps=1),
+    "noniid_affinity": lambda a: noniid_k2(algorithm="p2pl_affinity",
+                                           local_steps=a.local_steps or 10),
+    "timevarying_k2": _timevarying(timevarying_k2),
+    "timevarying_k8": _timevarying(timevarying_k8),
 }
+# the undirected schedules; one_way_matching and adaptive are items 8b and 13
+SCHEDULE_CHOICES = ["static", "link_dropout", "random_matching", "peer_churn", "round_robin"]
 
 
 def main(argv=None):
@@ -135,11 +168,41 @@ def main(argv=None):
                     help="default: the experiment's own (40-100)")
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help="default cuda; cpu runs each kernel's plain PyTorch version")
+    ap.add_argument("--topology", default="complete", help="graph of iid_k100")
+    ap.add_argument("--local-steps", type=int, default=None,
+                    help="T local SGD steps per round (default: the experiment's own, 10)")
+    ap.add_argument("--algorithm", default="p2pl_affinity",
+                    help="algorithm for timevarying_* experiments")
+    ap.add_argument("--schedule", default=None, choices=SCHEDULE_CHOICES,
+                    help="communication-graph schedule for timevarying_* experiments "
+                         "(default: link_dropout)")
+    ap.add_argument("--schedule-rounds", type=int, default=16,
+                    help="period of the stochastic schedule (cycled)")
+    ap.add_argument("--link-survival-prob", type=float, default=0.7)
+    ap.add_argument("--peer-online-prob", type=float, default=0.8)
+    ap.add_argument("--round-robin-topologies", default="ring,star",
+                    help="comma-separated topology names cycled by --schedule round_robin")
+    ap.add_argument("--compressor", default=None, choices=sorted(compressor_names()),
+                    help="consensus-payload compression, for any experiment: 'none' "
+                         "ships raw float32, 'topk' keeps the --topk-frac largest-|h| "
+                         "entries per leaf, 'qint8' ships int8 + one float32 scale per "
+                         "leaf; both with error feedback")
+    ap.add_argument("--topk-frac", type=float, default=0.01,
+                    help="fraction of entries the 'topk' compressor keeps per leaf, in (0, 1]")
     args = ap.parse_args(argv)
+    if not 0.0 < args.topk_frac <= 1.0:
+        ap.error(f"--topk-frac must be in (0, 1], got {args.topk_frac}")
 
+    exp = EXPERIMENTS[args.experiment](args)
+    if args.compressor and (exp.p2p.compressor != args.compressor
+                            or exp.p2p.topk_frac != args.topk_frac):
+        try:
+            exp = dataclasses.replace(exp, p2p=dataclasses.replace(
+                exp.p2p, compressor=args.compressor, topk_frac=args.topk_frac))
+        except ValueError as e:
+            ap.error(str(e))
     t0 = time.time()
-    run_paper_experiment(EXPERIMENTS[args.experiment](), rounds=args.rounds, verbose=True,
-                         device=args.device)
+    run_paper_experiment(exp, rounds=args.rounds, verbose=True, device=args.device)
     print(f"done in {time.time() - t0:.1f}s")
 
 
