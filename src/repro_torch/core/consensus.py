@@ -1,7 +1,8 @@
 """Distributed average-consensus (gossip) operators over stacked peers (the
-port's ``repro.core.consensus``, vmap-runtime half).
+port's ``repro.core.consensus``: the vmap runtime's half, and the one-device
+case of the hierarchical runtime's slot forms).
 
-Two forms of the same op out_k = sum_j W[k, j] x_j on a (K, N) flat buffer:
+Three forms of the same op out_k = sum_j W[k, j] x_j on a (K, N) flat buffer:
 
 1. **Dense** (``mix_stacked``): one (K, K) @ (K, N) product in float32 —
    the reference round's form, kept here as the test oracle for the sparse
@@ -9,6 +10,10 @@ Two forms of the same op out_k = sum_j W[k, j] x_j on a (K, N) flat buffer:
 2. **Sparse padded-neighbor** (``sparse_mixing``): host-side (self_w,
    nbr_idx, nbr_w) rows that feed the fused ``consensus_mix`` kernel, which
    the port's round runs (``repro_torch.kernels.consensus_mix.ops``).
+3. **Slot sums** (``ring_gather_slots``, ``mix_slots``, ``slot_sum``): the
+   degree-bounded form of the hierarchical runtime's "segment" mode, the
+   plain version of the ``segment_mix`` kernel.  Each sums the D slots in
+   slot order, in float32, as the kernel does.
 """
 from __future__ import annotations
 
@@ -51,6 +56,44 @@ def sparse_mixing(
         nbr_w[i, : len(nbrs)] = off_diag[i, nbrs]
     self_w = np.diag(w_mat).astype(np.float32)
     return self_w, nbr_idx, nbr_w
+
+
+def ring_gather_slots(x_block: torch.Tensor, nbr_idx: torch.Tensor) -> torch.Tensor:
+    """Neighbor rows by global index: (p, D, ...) from a (p, ...) block and
+    (p, D) indices.
+
+    The one-device case of the reference's ring gather: the block is every
+    peer, so the gather is a local take ``x[nbr_idx]``.  Streaming the
+    blocks of several devices around a ring is ROADMAP.md queue 1 item 15.
+    """
+    return x_block[nbr_idx.long()]
+
+
+def mix_slots(
+    self_w: torch.Tensor,  # (p,)
+    nbr_w: torch.Tensor,  # (p, D)
+    x_block: torch.Tensor,  # (p, ...)
+    gathered: torch.Tensor,  # (p, D, ...) from ring_gather_slots
+) -> torch.Tensor:
+    """out_i = self_w[i] x_i + sum_d nbr_w[i, d] gathered[i, d], accumulated
+    from the self term through slots 0..D-1 in float32, cast back."""
+    feat = (1,) * (x_block.dim() - 1)
+    nbr_w = nbr_w.to(torch.float32)
+    out = self_w.to(torch.float32).reshape(-1, *feat) * x_block.to(torch.float32)
+    for slot in range(nbr_w.shape[1]):
+        out = out + nbr_w[:, slot].reshape(-1, *feat) * gathered[:, slot].to(torch.float32)
+    return out.to(x_block.dtype)
+
+
+def slot_sum(nbr_w: torch.Tensor, gathered: torch.Tensor) -> torch.Tensor:
+    """out_i = sum_d nbr_w[i, d] gathered[i, d] (the affinity-beta form, no
+    self term), accumulated through slots 0..D-1 in float32, cast back."""
+    feat = (1,) * (gathered.dim() - 2)
+    nbr_w = nbr_w.to(torch.float32)
+    out = torch.zeros(gathered[:, 0].shape, dtype=torch.float32, device=gathered.device)
+    for slot in range(nbr_w.shape[1]):
+        out = out + nbr_w[:, slot].reshape(-1, *feat) * gathered[:, slot].to(torch.float32)
+    return out.to(gathered.dtype)
 
 
 def max_norm_sync(stacked: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:

@@ -2,12 +2,12 @@
 
 Every pairwise "feature A does not compose with feature B" rejection lives
 here and raises one formatted message, the reference's word for word, from
-whichever layer catches the combination.  Only the pair that the port's
-configuration can reach is ported: compression x staleness.  The reference's
-other pairs involve features the port does not run yet (adaptive partner
-selection, the hierarchical runtime, registry models: ROADMAP.md queue 1
-items 13, 15 and 14), which ``P2PConfig`` rejects before this table with
-``NotImplementedError``.
+whichever layer catches the combination.  Only the pairs that the port can
+reach are ported: compression x staleness, and compression x the
+(one-slice) hierarchical runtime.  The reference's other pairs involve
+features the port does not run yet (adaptive partner selection, async
+rounds, registry models: ROADMAP.md queue 1 items 13, 12 and 14), which
+``P2PConfig`` rejects before this table with ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -21,11 +21,13 @@ class FeatureContext:
 
     compressor: str = "none"
     staleness_bound: int = 0
+    peers_per_device: int = 1  # a runtime axis a frozen config cannot know
 
 
-def context_from_config(cfg) -> FeatureContext:
+def context_from_config(cfg, *, peers_per_device: int = 1) -> FeatureContext:
     """Snapshot a ``P2PConfig``(-shaped) object into a ``FeatureContext``."""
-    return FeatureContext(compressor=cfg.compressor, staleness_bound=cfg.staleness_bound)
+    return FeatureContext(compressor=cfg.compressor, staleness_bound=cfg.staleness_bound,
+                          peers_per_device=peers_per_device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +62,12 @@ FEATURES: dict[str, Feature] = {
             predicate=lambda c: c.staleness_bound > 0,
             describe=lambda c: f"staleness_bound={c.staleness_bound} (bounded-staleness gossip)",
         ),
+        Feature(
+            name="hierarchical",
+            predicate=lambda c: c.peers_per_device > 1,
+            describe=lambda c: "the hierarchical runtime (peers_per_device "
+                               f"= {c.peers_per_device} > 1)",
+        ),
     )
 }
 
@@ -73,6 +81,14 @@ INCOMPATIBILITIES: tuple[Incompatibility, ...] = (
         workaround="run async rounds uncompressed, or compression "
                    "synchronously (staleness_bound=0)",
     ),
+    Incompatibility(
+        a="compression",
+        b="hierarchical",
+        reason="the hierarchical bridge/segment mixes stream raw fp32 blocks, "
+               "not payload-advanced estimates",
+        workaround="run compressed gossip with one peer per device "
+                   "(peers_per_device=1), or compressor='none' here",
+    ),
 )
 
 
@@ -83,9 +99,10 @@ def format_violation(inc: Incompatibility, ctx: FeatureContext) -> str:
             f"{inc.reason}; {inc.workaround}")
 
 
-def check_config(cfg) -> None:
-    """Raise ``ValueError`` on the first incompatible pair the config switches on."""
-    ctx = context_from_config(cfg)
+def check_config(cfg, *, peers_per_device: int = 1) -> None:
+    """Raise ``ValueError`` on the first incompatible pair the config (run
+    with ``peers_per_device`` peers per device) switches on."""
+    ctx = context_from_config(cfg, peers_per_device=peers_per_device)
     for inc in INCOMPATIBILITIES:
         if FEATURES[inc.a].predicate(ctx) and FEATURES[inc.b].predicate(ctx):
             raise ValueError(format_violation(inc, ctx))

@@ -10,7 +10,8 @@ row-stochastic — the paper's choice is data-size weighted:
 
 Everything here is float64 numpy and must equal the reference bit for bit.
 The undirected time-varying schedules (link dropout, random matchings, peer
-churn, round robin) are ported; directed schedules and column-stochastic
+churn, round robin) and their sparse degree-bounded form (``SparseSchedule``,
+row-stochastic) are ported; directed schedules and column-stochastic
 (push-sum) matrices are still to be ported (ROADMAP.md queue 1 item 8b), and
 so are the on-device adaptive matchings (item 13).
 """
@@ -422,6 +423,293 @@ def schedule_matrices(
     )
     beta = np.stack([affinity_matrix(g, data_sizes=data_sizes) for g in schedule.graphs])
     return w, beta
+
+
+# ---------------------------------------------------------------------------
+# Sparse degree-bounded schedules (large-K form of schedule_matrices)
+# ---------------------------------------------------------------------------
+
+
+def _padded_in_neighbors(
+    mask: np.ndarray, degree_bound: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """Padded neighbor lists from a row-oriented neighbor mask.
+
+    ``mask[i, j]`` = "j is a neighbor of row i".  Returns ``(idx, valid)``:
+    ``idx`` (K, D) int32 lists each row's neighbors in increasing index order
+    (the order ``np.nonzero`` yields, so weight sums reduce in the dense
+    builders' order), padded with the row's own index; ``valid`` marks the
+    real slots.
+    """
+    k = mask.shape[0]
+    d = int(degree_bound)
+    deg = mask.sum(axis=1)
+    if d < int(deg.max(initial=0)):
+        raise ValueError(
+            f"degree_bound={d} below the actual max degree {int(deg.max())}"
+        )
+    # a stable argsort of the negated mask puts the neighbor columns first,
+    # in increasing column order
+    order = np.argsort(~mask, axis=1, kind="stable")[:, :d].astype(np.int32)
+    # a bound past K: the slots past column K are padding (the reference
+    # fails to broadcast here)
+    order = np.pad(order, ((0, 0), (0, d - order.shape[1])))
+    valid = np.arange(d)[None, :] < deg[:, None]
+    own = np.arange(k, dtype=np.int32)[:, None]
+    return np.where(valid, order, own), valid
+
+
+def _slot_sum(vals: np.ndarray, valid: np.ndarray) -> np.ndarray:
+    """Per-row sum over the real slots, in slot (== increasing index) order:
+    the dense builders' accumulation order."""
+    return np.where(valid, vals, 0.0).sum(axis=1)
+
+
+def _check_data_sizes(n, k: int) -> np.ndarray:
+    if n is None:
+        n = np.ones(k)
+    n = np.asarray(n, dtype=np.float64)
+    if n.shape != (k,) or (n <= 0).any():
+        raise ValueError("data_sizes must be positive, one per peer")
+    return n
+
+
+def _check_eps(consensus_step_size, k: int) -> np.ndarray:
+    eps = np.asarray(consensus_step_size, dtype=np.float64)
+    if eps.ndim == 0:
+        eps = np.full(k, float(eps))
+    if eps.shape != (k,):
+        raise ValueError("consensus_step_size must be scalar or (K,)")
+    return eps
+
+
+def _sparse_row_weights(
+    graph: CommGraph,
+    mixing: str,
+    n: np.ndarray,
+    eps: np.ndarray,
+    nbr_idx: np.ndarray,
+    valid: np.ndarray,
+) -> tuple[np.ndarray, np.ndarray]:
+    """(self_w (K,), nbr_w (K, D)): the rows of ``mixing_matrix`` without
+    ever building (K, K), value for value: the same float64 expressions,
+    summed in the same order."""
+    k = graph.num_peers
+    if mixing == "identity":
+        nbr_w = np.zeros(nbr_idx.shape)
+        self_w = np.ones(k)
+    elif mixing == "data_weighted":
+        denom = n + _slot_sum(n[nbr_idx], valid)
+        nbr_w = np.where(valid, n[nbr_idx] / denom[:, None], 0.0)
+        self_w = 1.0 - _slot_sum(nbr_w, valid)
+    elif mixing == "metropolis":
+        deg = graph.in_degree().astype(np.float64)
+        nbr_w = np.where(
+            valid, 1.0 / (1.0 + np.maximum(deg[:, None], deg[nbr_idx])), 0.0
+        )
+        self_w = 1.0 - _slot_sum(nbr_w, valid)
+    elif mixing == "uniform_neighbor":
+        deg = graph.in_degree().astype(np.float64)
+        nbr_w = np.where(valid, 1.0 / (deg[:, None] + 1.0), 0.0)
+        self_w = 1.0 - _slot_sum(nbr_w, valid)
+    else:
+        raise ValueError(f"unknown mixing {mixing!r}; one of {MIXINGS}")
+    # consensus step size, row-wise: W_eps = (1 - eps) I + eps W
+    nbr_w = eps[:, None] * nbr_w
+    self_w = (1.0 - eps) + eps * self_w
+    return self_w, nbr_w
+
+
+def _sparse_beta(n: np.ndarray, nbr_idx: np.ndarray, valid: np.ndarray) -> np.ndarray:
+    """Padded rows of ``affinity_matrix``: beta[i, s] = n_j / sum_nbrs n,
+    zero rows for isolated peers."""
+    nsum = _slot_sum(n[nbr_idx], valid)
+    safe = np.where(nsum > 0, nsum, 1.0)
+    return np.where(valid & (nsum > 0)[:, None], n[nbr_idx] / safe[:, None], 0.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseSchedule:
+    """Degree-bounded sparse form of a schedule's per-round mixing constants.
+
+    The large-K counterpart of ``schedule_matrices``: instead of (R, K, K)
+    dense stacks (128 MB of float64 per matrix at K = 4096) each round is a
+    padded edge list with one degree bound D for the whole schedule:
+
+        self_w  (R, K)    retained self weight W[r, i, i]
+        nbr_idx (R, K, D) int32 indices of row i's in-neighbors, in
+                          increasing index order, padded with i's own index
+        nbr_w   (R, K, D) the off-diagonal weight per slot (0.0 at padding)
+        beta    (R, K, D) the affinity weight per slot (0.0 at padding)
+
+    All weights are float64, like the dense builders'; the runtime casts them
+    to float32 once, at upload, so a value built here and the same value
+    sliced from the dense stack become the same float32 bits.
+
+    ``to_dense(from_dense(w, beta)) == (w, beta)`` exactly.  ``from_schedule``
+    builds the same values straight from the graphs without any (K, K) float
+    array; its neighbor pattern is the adjacency itself, so a round whose
+    mixing weight is 0 on an edge ("identity" mixing, a step size of 0) keeps
+    that edge's slot and its affinity weight.
+    """
+
+    self_w: np.ndarray  # (R, K) float64
+    nbr_idx: np.ndarray  # (R, K, D) int32
+    nbr_w: np.ndarray  # (R, K, D) float64
+    beta: np.ndarray  # (R, K, D) float64
+    stochasticity: str = "row"
+    name: str = "static"
+
+    def __post_init__(self):
+        """Validate the padded (R, K, D) slot arrays and index bounds."""
+        self_w = np.asarray(self.self_w, dtype=np.float64)
+        nbr_idx = np.asarray(self.nbr_idx, dtype=np.int32)
+        nbr_w = np.asarray(self.nbr_w, dtype=np.float64)
+        beta = np.asarray(self.beta, dtype=np.float64)
+        if self_w.ndim != 2:
+            raise ValueError(f"self_w must be (R, K), got {self_w.shape}")
+        r, k = self_w.shape
+        for name, arr in (("nbr_idx", nbr_idx), ("nbr_w", nbr_w), ("beta", beta)):
+            if arr.ndim != 3 or arr.shape[:2] != (r, k):
+                raise ValueError(
+                    f"{name} must be (R, K, D) matching self_w {self_w.shape}, "
+                    f"got {arr.shape}"
+                )
+        if nbr_idx.shape != nbr_w.shape or nbr_w.shape != beta.shape:
+            raise ValueError("nbr_idx, nbr_w, beta must share one (R, K, D) shape")
+        if (nbr_idx < 0).any() or (nbr_idx >= k).any():
+            raise ValueError("nbr_idx entries must index peers in [0, K)")
+        if self.stochasticity not in ("row", "column"):
+            raise ValueError(
+                f"stochasticity must be 'row' or 'column', got {self.stochasticity!r}"
+            )
+        object.__setattr__(self, "self_w", self_w)
+        object.__setattr__(self, "nbr_idx", nbr_idx)
+        object.__setattr__(self, "nbr_w", nbr_w)
+        object.__setattr__(self, "beta", beta)
+
+    @property
+    def period(self) -> int:
+        """R, the number of rounds before the schedule repeats."""
+        return self.self_w.shape[0]
+
+    @property
+    def num_peers(self) -> int:
+        """K, the number of peers."""
+        return self.self_w.shape[1]
+
+    @property
+    def degree_bound(self) -> int:
+        """D, the padded per-peer neighbor-slot width."""
+        return self.nbr_idx.shape[2]
+
+    def round_edges(self, r: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Round ``r``'s edge list: (senders, receivers, weights) over the
+        real (non-padding) slots, j -> i for each weight W[i, j]."""
+        r = r % self.period
+        recv, slot = np.nonzero(self.nbr_idx[r] != np.arange(self.num_peers)[:, None])
+        send = self.nbr_idx[r, recv, slot]
+        return send, recv.astype(np.int64), self.nbr_w[r, recv, slot]
+
+    def to_dense(self) -> tuple[np.ndarray, np.ndarray]:
+        """Scatter back to dense (R, K, K) (w, beta) stacks.
+
+        Padding slots carry weight 0.0 and target the diagonal, so the
+        scatter-add leaves every dense entry exactly equal to the value it
+        was built from.  For the small-K tests: at K = 4096 this builds the
+        very arrays the sparse form avoids.
+        """
+        r, k, _ = self.nbr_idx.shape
+        rows = np.arange(k)[None, :, None]
+        rr = np.arange(r)[:, None, None]
+        w = np.zeros((r, k, k))
+        w[rr[..., 0], rows[..., 0], rows[..., 0]] = self.self_w
+        where = (np.broadcast_to(rr, self.nbr_idx.shape),
+                 np.broadcast_to(rows, self.nbr_idx.shape), self.nbr_idx)
+        np.add.at(w, where, self.nbr_w)
+        beta = np.zeros((r, k, k))
+        np.add.at(beta, where, self.beta)
+        return w, beta
+
+    @classmethod
+    def from_dense(
+        cls,
+        w_stack: np.ndarray,
+        beta_stack: np.ndarray,
+        *,
+        stochasticity: str = "row",
+        degree_bound: int | None = None,
+        name: str = "static",
+    ) -> "SparseSchedule":
+        """Verbatim extraction from dense (R, K, K) stacks.
+
+        The neighbor pattern of row i is the union of the nonzero off-diagonal
+        ``w`` and nonzero ``beta`` entries; values are copied bit for bit, so
+        the round trip through ``to_dense`` is exact.
+        """
+        w_stack = np.asarray(w_stack, dtype=np.float64)
+        beta_stack = np.asarray(beta_stack, dtype=np.float64)
+        if w_stack.ndim != 3 or w_stack.shape != beta_stack.shape:
+            raise ValueError(
+                "w/beta must be matching (R, K, K) stacks, got "
+                f"{w_stack.shape} and {beta_stack.shape}"
+            )
+        r, k, _ = w_stack.shape
+        pattern = ((w_stack != 0) | (beta_stack != 0)) & ~np.eye(k, dtype=bool)
+        if degree_bound is None:
+            degree_bound = max(1, int(pattern.sum(axis=2).max(initial=0)))
+        rows = np.arange(k)[:, None]
+        self_w = np.empty((r, k))
+        idx = np.empty((r, k, degree_bound), np.int32)
+        nbr_w = np.empty((r, k, degree_bound))
+        beta_p = np.empty((r, k, degree_bound))
+        for t in range(r):
+            ix, valid = _padded_in_neighbors(pattern[t], degree_bound)
+            self_w[t] = np.diagonal(w_stack[t])
+            idx[t] = ix
+            nbr_w[t] = np.where(valid, w_stack[t][rows, ix], 0.0)
+            beta_p[t] = np.where(valid, beta_stack[t][rows, ix], 0.0)
+        return cls(self_w, idx, nbr_w, beta_p, stochasticity=stochasticity, name=name)
+
+    @classmethod
+    def from_schedule(
+        cls,
+        schedule: GraphSchedule,
+        mixing: str = "data_weighted",
+        *,
+        data_sizes: Sequence[int] | None = None,
+        consensus_step_size: float | np.ndarray = 1.0,
+        stochasticity: str = "row",
+        degree_bound: int | None = None,
+    ) -> "SparseSchedule":
+        """Direct sparse build from the graphs, with no (K, K) float array.
+
+        The exact values of ``schedule_matrices`` + ``from_dense`` (the same
+        float64 expressions, the same summation order) at any K; the neighbor
+        pattern is the adjacency itself.  Row-stochastic (gossip) weights
+        only: the column-stochastic push-sum weights are queue 1 item 8b.
+        """
+        if stochasticity == "column":
+            raise _directed_not_ported("column-stochastic (push-sum) sparse weights")
+        if stochasticity != "row":
+            raise ValueError(f"unknown stochasticity {stochasticity!r}; 'row' or 'column'")
+        k = schedule.num_peers
+        n = _check_data_sizes(data_sizes, k)
+        eps = _check_eps(consensus_step_size, k)
+        if degree_bound is None:
+            degree_bound = max(1, schedule.max_degree())
+        self_w, idx, nbr_w, beta = [], [], [], []
+        for g in schedule.graphs:
+            ix, valid = _padded_in_neighbors(g.adjacency.T, degree_bound)
+            sw, nw = _sparse_row_weights(g, mixing, n, eps, ix, valid)
+            self_w.append(sw)
+            idx.append(ix)
+            nbr_w.append(nw)
+            beta.append(_sparse_beta(n, ix, valid))
+        return cls(
+            np.stack(self_w), np.stack(idx), np.stack(nbr_w), np.stack(beta),
+            stochasticity=stochasticity, name=schedule.name,
+        )
 
 
 def spectral_gap(w: np.ndarray) -> float:

@@ -30,10 +30,18 @@ carries the public-estimate stack (``P2PState.compression``, one more
 (K, row) buffer), and each consensus step goes through the fused
 ``dequant_mix`` kernel instead.
 
+The one-slice hierarchical runtime (``make_hier_round_fn``, the reference's
+``make_sharded_round_fn(..., peers_per_device=K)`` on a one-device mesh) runs
+the same local phase and mixes through ``consensus_phase_hier``: "bridge"
+(K <= 64 under "auto") is the vmap runtime's ``consensus_mix`` step, bit for
+bit; "segment" (larger K) is the ``segment_mix`` kernel over the round's
+slots of the degree-bounded schedule, which takes any degree bound and never
+builds a (K, K) array.  This is how one GPU trains K = 4096 peers of the 2NN.
+
 Ported: gossip over the static and the undirected time-varying schedules,
-uncompressed or compressed, synchronous rounds, the 2NN task.  Any other
-configuration raises ``NotImplementedError`` naming the ROADMAP.md item that
-ports it.
+uncompressed or compressed, synchronous rounds, the 2NN task, the vmap and
+one-slice hierarchical runtimes.  Any other configuration raises
+``NotImplementedError`` naming the ROADMAP.md item that ports it.
 """
 from __future__ import annotations
 
@@ -51,7 +59,8 @@ from repro_torch.core import graph as graph_lib
 from repro_torch.core import protocols as protocols_lib
 from repro_torch.core import task as task_lib
 from repro_torch.device import resolve_device
-from repro_torch.kernels.consensus_mix.ops import SparseOperands
+from repro_torch.core.protocols import SparseRoundOps
+from repro_torch.kernels.consensus_mix.ops import select_round
 
 ALGORITHMS = ("dsgd", "local_dsgd", "p2pl", "p2pl_affinity", "isolated")
 STEPS_PROFILES = ("uniform", "straggler", "linear")
@@ -363,23 +372,13 @@ def local_phase(
     return state, torch.stack(step_losses).mean(dim=1)
 
 
-def consensus_phase(state: P2PState, cfg: P2PConfig, ops: SparseOperands) -> P2PState:
-    """Run S consensus steps through the fused kernel; refreshes d en route.
-
-    ``ops`` are the round's sparse operands (``GossipProtocol.operands``).
-    Each step's d comes from the *incoming* neighbor parameters of that step
-    (Sec. IV-A); peers with an all-zero beta row keep d = 0.  A compressed
-    wire takes ``_consensus_phase_compressed``.
-    """
-    if cfg.consensus_steps == 0:
-        return state._replace(round_idx=state.round_idx + 1)
-    proto = protocols_lib.get_protocol(cfg.protocol)
-    comp = compression_lib.from_config(cfg)
-    if not comp.identity:
-        return _consensus_phase_compressed(state, cfg, ops, proto, comp)
+def _consensus_steps(state: P2PState, cfg: P2PConfig, mix) -> P2PState:
+    """S consensus steps of ``mix(proto_state, params) -> (proto_state,
+    mixed, d_step)``: d refreshed from each step's incoming neighbors (Eq. 3's
+    bias, Sec. IV-A), ``eta_b * b`` added after each mix (Eq. 4)."""
     params, d_bias, proto_state = state.params, state.d_bias, state.protocol
     for _ in range(cfg.consensus_steps):
-        proto_state, mixed, d_step = proto.mix(proto_state, params, ops, cfg.local_steps)
+        proto_state, mixed, d_step = mix(proto_state, params)
         if cfg.use_affinity_d:
             d_bias = d_step
         if cfg.use_affinity_b:
@@ -390,10 +389,29 @@ def consensus_phase(state: P2PState, cfg: P2PConfig, ops: SparseOperands) -> P2P
     )
 
 
+def consensus_phase(state: P2PState, cfg: P2PConfig, ops: SparseRoundOps) -> P2PState:
+    """Run S consensus steps through the fused kernel; refreshes d en route.
+
+    ``ops`` are the round's sparse operands (``round_operands``).  Each
+    step's d comes from the *incoming* neighbor parameters of that step
+    (Sec. IV-A); peers with an all-zero beta row keep d = 0.  A compressed
+    wire takes ``_consensus_phase_compressed``.
+    """
+    if cfg.consensus_steps == 0:
+        return state._replace(round_idx=state.round_idx + 1)
+    proto = protocols_lib.get_protocol(cfg.protocol)
+    comp = compression_lib.from_config(cfg)
+    if not comp.identity:
+        return _consensus_phase_compressed(state, cfg, ops, proto, comp)
+    return _consensus_steps(
+        state, cfg, lambda ps, x: proto.mix(ps, x, ops, cfg.local_steps)
+    )
+
+
 def _consensus_phase_compressed(
     state: P2PState,
     cfg: P2PConfig,
-    ops: SparseOperands,
+    ops: SparseRoundOps,
     proto: protocols_lib.GossipProtocol,
     comp: compression_lib.Compressor,
 ) -> P2PState:
@@ -430,11 +448,27 @@ def run_round(
     task: task_lib.TrainTask,
     batches: tuple[torch.Tensor, torch.Tensor],
     cfg: P2PConfig,
-    ops: SparseOperands,
+    ops: SparseRoundOps,
 ) -> tuple[P2PState, P2PState, torch.Tensor]:
     """One full round: (state_after_local, state_after_consensus, losses (T,))."""
     after_local, losses = local_phase(state, task, batches, cfg)
     return after_local, consensus_phase(after_local, cfg, ops), losses
+
+
+def schedule_operands(
+    cfg: P2PConfig,
+    data_sizes: np.ndarray | None = None,
+    *,
+    device: torch.device | str | None = None,
+) -> SparseRoundOps:
+    """The sparse operands of the schedule's whole period, stacked (R, K) /
+    (R, K, D), built from its graphs (``GossipProtocol.operands``) and
+    uploaded to ``device`` once; round ``r`` of a run uses ``r % R``."""
+    device = resolve_device(device)
+    return protocols_lib.get_protocol(cfg.protocol).operands(
+        build_schedule(cfg), cfg.mixing, data_sizes=data_sizes,
+        consensus_step_size=cfg.consensus_step_size, device=device,
+    )
 
 
 def round_operands(
@@ -442,15 +476,11 @@ def round_operands(
     data_sizes: np.ndarray | None = None,
     *,
     device: torch.device | str | None = None,
-) -> list[SparseOperands]:
-    """The sparse operands of every round of the schedule's period, built
-    from the float64 W/Beta and uploaded to ``device``; round ``r`` of a run
-    uses entry ``r % period``."""
-    device = resolve_device(device)
-    consts, _ = protocol_constants(cfg, data_sizes)
-    proto = protocols_lib.get_protocol(cfg.protocol)
-    return [proto.operands(protocols_lib.round_constants(consts, r), device)
-            for r in range(consts.w.shape[0])]
+) -> list[SparseRoundOps]:
+    """Every period round's operands, as views of one ``schedule_operands``
+    upload; round ``r`` of a run uses entry ``r % period``."""
+    stacked = schedule_operands(cfg, data_sizes, device=device)
+    return [select_round(stacked, r) for r in range(stacked.self_w.shape[0])]
 
 
 def make_round_fn(
@@ -468,6 +498,89 @@ def make_round_fn(
 
     def step(state: P2PState, batches):
         return run_round(state, task, batches, cfg, ops[state.round_idx % period])
+
+    return step
+
+
+MIX_MODES = ("auto", "bridge", "segment")
+_BRIDGE_MAX_PEERS = 64  # "auto" uses the bit-parity bridge mix up to here
+
+
+def check_hierarchical_layout(num_peers: int, peers_per_device: int) -> None:
+    """Validate a hierarchical layout of ``num_peers`` peers, block-major over
+    ``num_peers / peers_per_device`` devices (peer g on device g // p).  The
+    port runs one slice, all K peers on one GPU; more slices need the
+    multi-process runtime (ROADMAP.md queue 1 item 15)."""
+    if peers_per_device < 2:
+        raise ValueError(
+            "peers_per_device must be >= 2 for the hierarchical runtime "
+            "(peers_per_device=1 is the ordinary sharded runtime)"
+        )
+    if num_peers % peers_per_device:
+        raise ValueError(
+            f"peers_per_device={peers_per_device} does not divide num_peers={num_peers}"
+        )
+    if num_peers != peers_per_device:
+        raise _not_ported(
+            f"the hierarchical runtime over {num_peers // peers_per_device} slices "
+            f"(num_peers={num_peers} / peers_per_device={peers_per_device})", 15,
+        )
+
+
+def resolve_mix_mode(mix_mode: str, num_peers: int) -> str:
+    """The hierarchical mix a run uses: "auto" is "bridge" iff K <= 64."""
+    if mix_mode not in MIX_MODES:
+        raise ValueError(f"unknown mix_mode {mix_mode!r}; one of {MIX_MODES}")
+    if mix_mode == "auto":
+        return "bridge" if num_peers <= _BRIDGE_MAX_PEERS else "segment"
+    return mix_mode
+
+
+def consensus_phase_hier(
+    state: P2PState, cfg: P2PConfig, ops_s: SparseRoundOps, *, mix_mode: str
+) -> P2PState:
+    """``consensus_phase`` of the one-slice hierarchical runtime, over round
+    ``state.round_idx % R`` of the stacked (R, K) / (R, K, D) operands.
+
+    "bridge": the vmap runtime's ``consensus_mix`` step on the round's
+    operands, bit for bit.  "segment": the ``segment_mix`` kernel, with
+    ``d = where(has_nbrs, (sum_s beta x_nbr - x) / T, 0)`` and ``has_nbrs``
+    from the raw beta row; its slot-ordered sums are allclose to the dense
+    mix, not bit-identical.  Several slices are queue 1 item 15.
+    """
+    if cfg.consensus_steps == 0:
+        return state._replace(round_idx=state.round_idx + 1)
+    proto = protocols_lib.get_protocol(cfg.protocol)
+    return _consensus_steps(state, cfg, lambda ps, x: proto.mix_hier(
+        ps, x, ops_s, state.round_idx, cfg.local_steps, mode=mix_mode))
+
+
+def make_hier_round_fn(
+    task: task_lib.TrainTask,
+    cfg: P2PConfig,
+    data_sizes: np.ndarray | None = None,
+    *,
+    peers_per_device: int,
+    mix_mode: str = "auto",
+    device: torch.device | str | None = None,
+) -> Callable[[P2PState, tuple], tuple[P2PState, P2PState, torch.Tensor]]:
+    """Round closure of the one-slice hierarchical runtime: all K =
+    ``peers_per_device`` peers on one device, the same local phase as the
+    vmap runtime, consensus through ``consensus_phase_hier`` over the
+    degree-bounded schedule (the counterpart of the reference's
+    ``make_sharded_round_fn(..., peers_per_device=K, mix_mode=...)`` on a
+    one-device mesh).  The stacked (R, K, D) operands are uploaded once,
+    here; round ``r`` uses those of ``r % R``.
+    """
+    features_lib.check_config(cfg, peers_per_device=peers_per_device)
+    mode = resolve_mix_mode(mix_mode, cfg.num_peers)
+    check_hierarchical_layout(cfg.num_peers, peers_per_device)
+    ops_s = schedule_operands(cfg, data_sizes, device=device)
+
+    def step(state: P2PState, batches):
+        after_local, losses = local_phase(state, task, batches, cfg)
+        after_cons = consensus_phase_hier(after_local, cfg, ops_s, mix_mode=mode)
+        return after_local, after_cons, losses
 
     return step
 

@@ -5,14 +5,16 @@ A protocol owns its per-run state, its stacked (R, K, K) round constants, and
 one consensus step.  ``gossip`` is the paper's row-stochastic Eq. 4 mix and is
 stateless.  Push-sum is still to be ported (ROADMAP.md queue 1 item 8b).
 
-The port's round does not mix with the dense constants: ``operands`` turns a
-round's (K, K) slice into the padded sparse operands of the fused kernel,
-once per run, and ``mix`` runs one step through
+The port's round does not mix with the dense constants: ``operands`` builds
+the schedule's padded sparse operands straight from its graphs
+(``graph.SparseSchedule.from_schedule``, no (K, K) float array) and uploads
+them once per run, stacked over the period; ``mix`` runs one step through
 ``kernels.consensus_mix.ops.consensus_mix_stacked``, which returns the mixed
 parameters and the affinity bias d together.  The dense form of the same
 step, ``core.consensus.mix_stacked``, is the tests' reference.
 ``mix_compressed`` is the step of a compressed wire, through
-``kernels.consensus_mix.dequant.dequant_mix_stacked``.
+``kernels.consensus_mix.dequant.dequant_mix_stacked``, and ``mix_hier`` the
+step of the one-slice hierarchical runtime ("bridge" or "segment").
 """
 from __future__ import annotations
 
@@ -25,6 +27,12 @@ from repro_torch.compression import FlatPayload
 from repro_torch.core import graph as graph_lib
 from repro_torch.kernels.consensus_mix import dequant as cm_dequant
 from repro_torch.kernels.consensus_mix import ops as cm_ops
+from repro_torch.kernels.consensus_mix import segment as cm_segment
+
+# One round of a ``graph.SparseSchedule`` on the device, or the whole period
+# stacked along a leading axis R: the reference's ``SparseRoundOps``, which
+# is the type the kernels' wrappers take (``ops.SparseOperands``).
+SparseRoundOps = cm_ops.SparseOperands
 
 
 class ProtocolConstants(NamedTuple):
@@ -66,15 +74,27 @@ class GossipProtocol:
         return ProtocolConstants(w=w, beta=beta)
 
     def operands(
-        self, consts: ProtocolConstants, device: torch.device | str
-    ) -> cm_ops.SparseOperands:
-        """One round's (K, K) float64 slice -> the kernel's sparse operands."""
-        return cm_ops.sparse_from_matrices(
-            np.asarray(consts.w), np.asarray(consts.beta), device=device
+        self,
+        schedule: graph_lib.GraphSchedule,
+        mixing: str = "data_weighted",
+        *,
+        data_sizes: Sequence[int] | None = None,
+        consensus_step_size: float | np.ndarray = 1.0,
+        device: torch.device | str = "cpu",
+    ) -> SparseRoundOps:
+        """The schedule's stacked (R, K) / (R, K, D) sparse operands on
+        ``device``: the float64 values of ``constants``, built without any
+        (K, K) array and cast to float32 once.  A row's slots are its
+        in-neighbors in the graph, so an edge whose mixing weight is 0 keeps
+        its affinity weight."""
+        sparse = graph_lib.SparseSchedule.from_schedule(
+            schedule, mixing, data_sizes=data_sizes,
+            consensus_step_size=consensus_step_size, stochasticity=self.stochasticity,
         )
+        return cm_ops.upload_schedule(sparse, device)
 
     def mix(
-        self, proto_state, flat: torch.Tensor, ops: cm_ops.SparseOperands, local_steps: int
+        self, proto_state, flat: torch.Tensor, ops: SparseRoundOps, local_steps: int
     ) -> tuple[Any, torch.Tensor, torch.Tensor]:
         """One step through the fused kernel: (proto_state, mixed, d_bias)."""
         mixed, d_bias = cm_ops.consensus_mix_stacked(flat, ops, local_steps)
@@ -85,7 +105,7 @@ class GossipProtocol:
         proto_state,
         flat: torch.Tensor,
         payload: FlatPayload,
-        ops: cm_ops.SparseOperands,
+        ops: SparseRoundOps,
         leaf_offsets: tuple[int, ...],
         local_steps: int,
     ) -> tuple[Any, torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -97,6 +117,34 @@ class GossipProtocol:
             flat, payload.est, payload.q, payload.scale, ops, leaf_offsets, local_steps
         )
         return proto_state, mixed, d_bias, est
+
+    def mix_hier(
+        self,
+        proto_state,
+        flat: torch.Tensor,
+        ops_s: SparseRoundOps,
+        round_idx: int,
+        local_steps: int,
+        *,
+        mode: str,
+    ) -> tuple[Any, torch.Tensor, torch.Tensor]:
+        """One step of the one-slice hierarchical runtime over round
+        ``round_idx % R`` of the stacked operands: (proto_state, mixed, d_bias).
+
+        The counterpart of the reference's ``mix_hier_begin`` +
+        ``mix_hier_leaf`` with the whole fleet on one device and one flat
+        leaf.  "bridge" runs the vmap runtime's step (the ``consensus_mix``
+        kernel on the round's operands, so it equals that runtime bit for
+        bit); "segment" runs the ``segment_mix`` kernel, which selects the
+        round itself and takes any degree bound.
+        """
+        if mode == "bridge":
+            return self.mix(proto_state, flat, cm_ops.select_round(ops_s, round_idx),
+                            local_steps)
+        if mode == "segment":
+            mixed, d_bias = cm_segment.segment_mix_schedule(flat, round_idx, ops_s, local_steps)
+            return proto_state, mixed, d_bias
+        raise ValueError(f"unknown mix_mode {mode!r}; 'bridge' or 'segment'")
 
 
 _PROTOCOLS = {"gossip": GossipProtocol()}

@@ -4,9 +4,9 @@ Each kernel is a ``.cu`` file with a plain C interface, compiled by ``nvcc``
 for Hopper (``sm_90a``) into a shared library and loaded with ``ctypes``;
 nothing includes PyTorch's headers, so a build takes seconds.  Libraries are
 built at first use into ``build/repro_torch/`` at the repository root, under
-a name keyed by a hash of the sources and flags, so a changed source is
-rebuilt and an unchanged one is loaded as it is.  Nothing here runs when the
-module is imported.
+a name keyed by a hash of the sources, their headers and the flags, so a
+changed source is rebuilt and an unchanged one is loaded as it is.  Nothing
+here runs when the module is imported.
 """
 from __future__ import annotations
 
@@ -57,11 +57,13 @@ def find_nvcc() -> str:
 
 
 def load_library(name: str, sources: list[Path]) -> KernelLibrary:
-    """Build (if needed) and load ``lib<name>-<hash>.so`` from ``sources``."""
+    """Build (if needed) and load ``lib<name>-<hash>.so`` from ``sources``;
+    the hash also covers every ``*.cuh`` header beside them."""
     digest = hashlib.sha256()
     for flag in NVCC_FLAGS:
         digest.update(flag.encode())
-    for src in sources:
+    headers = sorted({h for src in sources for h in src.parent.glob("*.cuh")})
+    for src in [*sources, *headers]:
         digest.update(src.read_bytes())
     path = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     seconds, log = 0.0, ""

@@ -38,32 +38,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "vec_ops.cuh"
+
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int64_t kMaxGridY = 65535;
-
-__device__ __forceinline__ float vscale(float a, float v) { return a * v; }
-__device__ __forceinline__ float4 vscale(float a, float4 v) {
-  return make_float4(a * v.x, a * v.y, a * v.z, a * v.w);
-}
-
-__device__ __forceinline__ float vfma(float a, float v, float acc) { return fmaf(a, v, acc); }
-__device__ __forceinline__ float4 vfma(float a, float4 v, float4 acc) {
-  return make_float4(fmaf(a, v.x, acc.x), fmaf(a, v.y, acc.y), fmaf(a, v.z, acc.z),
-                     fmaf(a, v.w, acc.w));
-}
-
-__device__ __forceinline__ void vzero(float& v) { v = 0.0f; }
-__device__ __forceinline__ void vzero(float4& v) { v = make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
-
-__device__ __forceinline__ float vbias(float sum, float x, float t, bool has) {
-  return has ? (sum - x) / t : 0.0f;
-}
-__device__ __forceinline__ float4 vbias(float4 sum, float4 x, float t, bool has) {
-  return make_float4(vbias(sum.x, x.x, t, has), vbias(sum.y, x.y, t, has),
-                     vbias(sum.z, x.z, t, has), vbias(sum.w, x.w, t, has));
-}
 
 // T is float (scalar path) or float4 (vector path); n_vec counts T elements
 // per row, and rows are n_vec T elements apart.
@@ -118,8 +95,6 @@ consensus_mix_kernel(const float* __restrict__ x, int64_t n_vec,
     dv[own + e] = vbias(acc_beta, self, local_steps, has_nbrs);
   }
 }
-
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 

@@ -52,10 +52,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "vec_ops.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int64_t kMaxGridY = 65535;
 constexpr int kMaxLeaves = 64;
 
 struct LeafStarts {
@@ -69,28 +69,6 @@ __device__ __forceinline__ float4 load_q(const char4* q, int64_t i) {
   const char4 c = q[i];
   return make_float4(static_cast<float>(c.x), static_cast<float>(c.y),
                      static_cast<float>(c.z), static_cast<float>(c.w));
-}
-
-__device__ __forceinline__ float vfma(float a, float v, float acc) { return fmaf(a, v, acc); }
-__device__ __forceinline__ float4 vfma(float a, float4 v, float4 acc) {
-  return make_float4(fmaf(a, v.x, acc.x), fmaf(a, v.y, acc.y), fmaf(a, v.z, acc.z),
-                     fmaf(a, v.w, acc.w));
-}
-
-__device__ __forceinline__ float vscale(float a, float v) { return a * v; }
-__device__ __forceinline__ float4 vscale(float a, float4 v) {
-  return make_float4(a * v.x, a * v.y, a * v.z, a * v.w);
-}
-
-__device__ __forceinline__ void vzero(float& v) { v = 0.0f; }
-__device__ __forceinline__ void vzero(float4& v) { v = make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
-
-__device__ __forceinline__ float vbias(float sum, float own, float t, bool has) {
-  return has ? (sum - own) / t : 0.0f;
-}
-__device__ __forceinline__ float4 vbias(float4 sum, float4 own, float t, bool has) {
-  return make_float4(vbias(sum.x, own.x, t, has), vbias(sum.y, own.y, t, has),
-                     vbias(sum.z, own.z, t, has), vbias(sum.w, own.w, t, has));
 }
 
 // T is float (scalar path, Q = int8_t) or float4 (vector path, Q = char4);

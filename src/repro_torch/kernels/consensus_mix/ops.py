@@ -3,7 +3,7 @@
 
 ``consensus_mix_stacked`` runs one gossip step plus the affinity-d update for
 all K peers of a (K, N) float32 flat parameter buffer, from padded sparse
-operands built once per run by ``sparse_from_matrices``.  It replaces the
+operands uploaded once per run by ``upload_schedule``.  It replaces the
 Pallas TPU kernel ``repro/kernels/consensus_mix/consensus_mix.py:
 consensus_mix_2d`` (reached there through ``ops.consensus_mix_stacked``).
 
@@ -34,7 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core import consensus as consensus_lib
+from repro_torch.core import graph as graph_lib
 from repro_torch.kernels import build
 from repro_torch.kernels.consensus_mix import ref
 
@@ -57,12 +57,34 @@ launches = LaunchCounter()
 
 
 class SparseOperands(NamedTuple):
-    """One round's padded sparse mixing operands, on the compute device."""
+    """Padded sparse mixing operands on the compute device: one round's, or
+    a whole schedule's stacked along a leading period axis R (``(R, K)`` and
+    ``(R, K, D)``, from ``upload_schedule``).  The reference names this type
+    ``protocols.SparseRoundOps``; the port's ``protocols`` exports it under
+    that name too."""
 
     self_w: torch.Tensor  # (K,) float32 — diagonal of W
     nbr_idx: torch.Tensor  # (K, D) int32 — neighbor indices, padded with own index
     nbr_w: torch.Tensor  # (K, D) float32 — off-diagonal W weights (0 at padding)
     beta: torch.Tensor  # (K, D) float32 — affinity weights (0 at padding)
+
+
+def upload_schedule(
+    sparse: graph_lib.SparseSchedule, device: torch.device | str = "cpu"
+) -> SparseOperands:
+    """A sparse schedule's stacked (R, K[, D]) operands on ``device``: the
+    float64 weights cast to float32 once, here.  ``SparseSchedule`` has
+    checked the index range, once, on the host: the kernels' wrappers do not
+    read a CUDA tensor back on every launch."""
+    arrays = (sparse.self_w.astype(np.float32), sparse.nbr_idx,
+              sparse.nbr_w.astype(np.float32), sparse.beta.astype(np.float32))
+    return SparseOperands(*(torch.as_tensor(a, device=device) for a in arrays))
+
+
+def select_round(stacked: SparseOperands, round_idx: int) -> SparseOperands:
+    """Round ``round_idx % R`` of stacked operands: views, nothing copied."""
+    r = int(round_idx) % stacked.self_w.shape[0]
+    return SparseOperands(*(t[r] for t in stacked))
 
 
 def sparse_from_matrices(
@@ -72,19 +94,13 @@ def sparse_from_matrices(
     dmax: int | None = None,
     device: torch.device | str = "cpu",
 ) -> SparseOperands:
-    """(self_w, nbr_idx, nbr_w, beta) from dense float64 W and Beta, uploaded
-    to ``device`` once.  Padded slots read beta[i, i] = 0, so they contribute
-    nothing to either output."""
-    self_w, nbr_idx, nbr_w = consensus_lib.sparse_mixing(w_mat, dmax=dmax)
-    k = nbr_idx.shape[0]
-    # the one range check of the indices: the wrapper does not read a CUDA
-    # tensor back to the host on every launch
-    if ((nbr_idx < 0) | (nbr_idx >= k)).any():
-        raise ValueError(f"nbr_idx entries must index peers in [0, {k})")
-    beta_p = beta_mat[np.arange(k)[:, None], nbr_idx].astype(np.float32)
-    return SparseOperands(
-        *(torch.as_tensor(a, device=device) for a in (self_w, nbr_idx, nbr_w, beta_p))
-    )
+    """(self_w, nbr_idx, nbr_w, beta) from one round's dense float64 W and
+    Beta, uploaded to ``device`` once.  A row's slots are the union of its
+    nonzero off-diagonal W and Beta entries (``SparseSchedule.from_dense``),
+    so an affinity weight on an edge of mixing weight 0 is kept; padded
+    slots carry zero weights and add nothing to either output."""
+    sparse = graph_lib.SparseSchedule.from_dense(w_mat[None], beta_mat[None], degree_bound=dmax)
+    return select_round(upload_schedule(sparse, device), 0)
 
 
 @functools.cache
@@ -104,8 +120,8 @@ def check_operands(flat: torch.Tensor, ops: SparseOperands, local_steps: int,
     that stages up to ``max_slots`` slots per peer.
 
     The range of ``nbr_idx`` is checked here for CPU tensors only: for CUDA
-    tensors ``sparse_from_matrices`` checked it once, from numpy, and reading
-    it back here would synchronize the host with the device on every launch.
+    tensors ``SparseSchedule`` checked it once, from numpy, and reading it
+    back here would synchronize the host with the device on every launch.
     """
     if flat.dim() != 2:
         raise ValueError(f"flat must be (K, N), got shape {tuple(flat.shape)}")

@@ -1,6 +1,8 @@
 """Plain PyTorch versions of the fused gossip + affinity updates, stacked form:
-``consensus_mix_stacked_ref`` (below) and, for a compressed wire,
-``dequant_mix_stacked_ref`` (at the end).
+``consensus_mix_stacked_ref`` (below), for a compressed wire
+``dequant_mix_stacked_ref``, and for the hierarchical runtime's segment mode
+``segment_mix_stacked_ref`` with its dense oracle ``segment_mix_ref`` (at the
+end).
 
 For every peer k of a (K, N) flat parameter buffer, with D padded neighbor
 slots ``nbr_idx[k]``:
@@ -17,6 +19,8 @@ neighbor block at a time.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core import consensus as consensus_lib
 
 
 def consensus_mix_stacked_ref(
@@ -94,3 +98,45 @@ def dequant_mix_stacked_ref(
     has_nbrs = beta.sum(dim=1) > 0.0
     d = torch.where(has_nbrs[:, None], (nbr_sum - adv) / local_steps, torch.zeros_like(xf))
     return mixed.to(flat.dtype), d.to(flat.dtype), adv if q is not None else est
+
+
+def segment_mix_ref(
+    flat: torch.Tensor,  # (K, N)
+    w_mat: torch.Tensor,  # (K, K)
+    beta_mat: torch.Tensor,  # (K, K)
+    local_steps: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dense oracle of the segment kernel (the reference's
+    ``ref.segment_mix_ref``): the (K, K) products the kernel exists to avoid,
+
+        mixed = W x,   d = (Beta x - x) / T,   d_k = 0 where sum_j Beta[k, j] == 0.
+    """
+    xf = flat.to(torch.float32)
+    w = w_mat.to(torch.float32)
+    b = beta_mat.to(torch.float32)
+    has_nbrs = b.sum(dim=1) > 0.0
+    d = torch.where(has_nbrs[:, None], (b @ xf - xf) / local_steps, torch.zeros_like(xf))
+    return (w @ xf).to(flat.dtype), d.to(flat.dtype)
+
+
+def segment_mix_stacked_ref(
+    flat: torch.Tensor,  # (K, N)
+    self_w: torch.Tensor,  # (K,)
+    nbr_idx: torch.Tensor,  # (K, D) int
+    nbr_w: torch.Tensor,  # (K, D)
+    beta: torch.Tensor,  # (K, D)
+    local_steps: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the ``segment_mix`` kernel, float32: the one-device
+    slot forms of ``core.consensus`` (a (K, D, N) gather, then slot sums in
+    slot order, the mix from ``self_w * x``, as the Pallas grid's innermost
+    slot axis accumulates), and ``d = (slot_sum(beta) - x) / T``, 0 where
+    the raw beta row sums to 0.  This is the CPU path of
+    ``segment.segment_mix_stacked`` and the oracle the CUDA kernel is held
+    to."""
+    gathered = consensus_lib.ring_gather_slots(flat, nbr_idx)
+    mixed = consensus_lib.mix_slots(self_w, nbr_w, flat, gathered)
+    nbr_sum = consensus_lib.slot_sum(beta, gathered)
+    has_nbrs = beta.sum(dim=1) > 0.0
+    d = torch.where(has_nbrs[:, None], (nbr_sum - flat) / local_steps, torch.zeros_like(flat))
+    return mixed, d

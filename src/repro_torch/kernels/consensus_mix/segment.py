@@ -1,0 +1,134 @@
+"""Public API of the segment-sum consensus kernel (the port's
+``repro.kernels.consensus_mix.segment``).
+
+``segment_mix_schedule`` runs one gossip step plus the affinity-d update for
+all K peers of a (K, N) float32 flat parameter buffer over round
+``round_idx % R`` of a stacked sparse schedule (``ops.upload_schedule``:
+(R, K) and (R, K, D) operands, uploaded once per run); the kernel selects
+the round by offsetting its operand pointers.  ``segment_mix_stacked`` is the
+same step over one round's (K,) / (K, D) operands.  They replace the Pallas
+TPU kernel ``repro/kernels/consensus_mix/segment.py:segment_mix_2d``, reached
+there through the wrappers of the same names.  It is the hierarchical
+runtime's "segment" mix (``core.p2p.consensus_phase_hier``), the large-K form:
+the wrapper takes any degree bound D that a ``SparseSchedule`` produces (the
+kernel stages the slots in chunks), where ``ops.consensus_mix_stacked`` stops
+at 4,096 slots.
+
+Dispatch is by the device of the buffer, and only by it:
+
+- a CPU tensor takes the plain PyTorch version (``ref.segment_mix_stacked_ref``);
+- a CUDA tensor launches the hand-written kernel (``csrc/segment_mix.cu``,
+  built for sm_90a and loaded with ctypes on first use) or raises — there is
+  no fallback;
+- any other device raises.
+
+Bound on an H100 SXM (see the note in the CUDA source): at K = 4096 peers on
+a ring (D = 2) at the 2NN's width one call must move 9.8 GB (2.9 ms at
+3.35 TB/s) and is bound by bytes; at K = 100 on the complete graph it is
+bound by float32 FMA throughput, as ``consensus_mix`` is.
+
+``launches.count`` counts kernel launches (never plain-version calls).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.consensus_mix import ref
+from repro_torch.kernels.consensus_mix.ops import (
+    LaunchCounter,
+    SparseOperands,
+    check_operands,
+    select_round,
+)
+
+SOURCES = [Path(__file__).resolve().parent / "csrc" / "segment_mix.cu"]
+MAX_SLOTS = 2**31 - 1  # the kernel counts slots in an int
+
+launches = LaunchCounter()
+
+
+@functools.cache
+def load_kernel() -> build.KernelLibrary:
+    """Build (first call) and load the kernel library; declares its C signature."""
+    kl = build.load_library("segment_mix", SOURCES)
+    fn = kl.lib.segment_mix_f32
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    fn.argtypes = [ptr, i64, i64, ptr, ptr, ptr, ptr, i64, i64, i64, ctypes.c_float,
+                   ptr, ptr, ptr]
+    fn.restype = ctypes.c_int
+    return kl
+
+
+def check_schedule(flat: torch.Tensor, ops_s: SparseOperands, local_steps: int) -> None:
+    """Validate a (K, N) float32 buffer and stacked (R, K) / (R, K, D)
+    operands: shapes, types, device and contiguity of every round, and for
+    CPU tensors the index range (see ``ops.check_operands``)."""
+    if ops_s.self_w.dim() != 2 or any(t.dim() != 3 for t in ops_s[1:]):
+        raise ValueError("stacked operands must be (R, K) and (R, K, D)")
+    if len({t.shape[0] for t in ops_s}) != 1:
+        raise ValueError(f"operands disagree on the period R: {[tuple(t.shape) for t in ops_s]}")
+    if not all(t.is_contiguous() for t in ops_s):
+        raise ValueError("segment_mix needs contiguous tensors")
+    check_operands(flat, select_round(ops_s, 0), local_steps, MAX_SLOTS, what="segment_mix")
+    k = flat.shape[0]
+    if flat.device.type == "cpu" and bool(((ops_s.nbr_idx < 0) | (ops_s.nbr_idx >= k)).any()):
+        raise ValueError(f"nbr_idx entries must index peers in [0, {k})")
+
+
+def launch(
+    flat: torch.Tensor,
+    round_idx: int,
+    ops_s: SparseOperands,
+    local_steps: int,
+    mixed: torch.Tensor,
+    d_bias: torch.Tensor,
+) -> None:
+    """Launch the kernel on the current stream into ``mixed`` / ``d_bias``.
+
+    No checks: callers pass what ``check_schedule`` validated.  Counts the
+    launch and raises if CUDA refused it.
+    """
+    fn = load_kernel().lib.segment_mix_f32
+    err = fn(
+        flat.data_ptr(), flat.shape[0], flat.shape[1],
+        ops_s.self_w.data_ptr(), ops_s.nbr_idx.data_ptr(), ops_s.nbr_w.data_ptr(),
+        ops_s.beta.data_ptr(), ops_s.self_w.shape[0], int(round_idx),
+        ops_s.nbr_idx.shape[2], float(local_steps), mixed.data_ptr(), d_bias.data_ptr(),
+        torch.cuda.current_stream(flat.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"segment_mix launch failed with cudaError_t {err}")
+    launches.count += 1
+
+
+def segment_mix_schedule(
+    flat: torch.Tensor,  # (K, N) float32
+    round_idx: int,
+    ops_s: SparseOperands,  # stacked (R, K) / (R, K, D)
+    local_steps: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One gossip step + affinity d for all peers over round ``round_idx % R``:
+    returns (mixed, d_bias), both (K, N) in fresh buffers."""
+    if flat.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"segment_mix runs on cpu or cuda tensors, got {flat.device}")
+    check_schedule(flat, ops_s, local_steps)
+    if flat.device.type == "cpu":
+        return ref.segment_mix_stacked_ref(flat, *select_round(ops_s, round_idx), local_steps)
+    mixed = torch.empty_like(flat)
+    d_bias = torch.empty_like(flat)
+    launch(flat, round_idx, ops_s, local_steps, mixed, d_bias)
+    return mixed, d_bias
+
+
+def segment_mix_stacked(
+    flat: torch.Tensor,  # (K, N) float32
+    ops: SparseOperands,  # one round's (K,) / (K, D)
+    local_steps: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``segment_mix_schedule`` over one round's operands."""
+    return segment_mix_schedule(flat, 0, SparseOperands(*(t[None] for t in ops)), local_steps)

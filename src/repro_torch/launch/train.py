@@ -9,6 +9,8 @@ instrument).  Runs on the GPU unless ``device="cpu"``.
 CLI:  python -m repro_torch.launch.train --experiment noniid_affinity --rounds 40
       python -m repro_torch.launch.train --experiment timevarying_k8 \
           --schedule round_robin --compressor qint8
+      python -m repro_torch.launch.train --experiment timevarying_k8 \
+          --peer-axis pod --peers-per-device 8 --mix-mode segment
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from repro_torch.configs.p2pl_mnist import (
     timevarying_k8,
 )
 from repro_torch.core import consensus as consensus_lib
+from repro_torch.core import features as features_lib
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.core import p2p
 from repro_torch.core import task as task_lib
@@ -57,15 +60,44 @@ def run_paper_experiment(
     seed: int = 0,
     verbose: bool = False,
     device: torch.device | str | None = None,
+    peer_axis: str = "vmap",
+    peers_per_device: int = 1,
+    mix_mode: str = "auto",
     return_state: bool = False,
 ):
     """Train ``exp`` for ``rounds`` rounds, evaluating after both phases of
     every round; returns the ``RoundLog``.
 
+    ``peer_axis="vmap"`` stacks the K peers on one device.  ``"pod"`` with
+    ``peers_per_device == K`` is the reference's hierarchical runtime on a
+    one-slice mesh: the same stacked peers, consensus over the
+    degree-bounded sparse schedule, ``mix_mode`` "bridge" (the vmap
+    runtime's mix, bit for bit), "segment" (the ``segment_mix`` kernel, the
+    large-K form) or "auto" (bridge iff K <= 64).  Other pod layouts need
+    several devices (ROADMAP.md queue 1 item 15).
+
     The log's ``seconds`` hold each round's wall time from batch gather to
     the end of consensus, device work included (evaluation excluded).
     ``return_state=True`` returns ``(log, final_state)``.
     """
+    if peer_axis not in ("vmap", "pod"):
+        raise ValueError(f"peer_axis must be 'vmap' or 'pod', got {peer_axis!r}")
+    if peers_per_device < 1:
+        raise ValueError(f"peers_per_device must be >= 1, got {peers_per_device}")
+    if peers_per_device > 1 and peer_axis != "pod":
+        raise ValueError(
+            "peers_per_device > 1 is the hierarchical sharded runtime — "
+            "it needs peer_axis='pod' (the vmap runtime already holds every "
+            "peer on one device)"
+        )
+    features_lib.check_config(exp.p2p, peers_per_device=peers_per_device)
+    if peer_axis == "pod":
+        if peers_per_device == 1:
+            raise NotImplementedError(
+                "peer_axis='pod' with one peer per device (the sharded runtime) is not "
+                "ported yet: ROADMAP.md queue 1 item 15"
+            )
+        p2p.check_hierarchical_layout(exp.p2p.num_peers, peers_per_device)
     device = resolve_device(device)
     rounds = rounds or exp.rounds
     task = task_lib.get_task(exp.p2p.model)
@@ -78,7 +110,11 @@ def run_paper_experiment(
 
     batcher = task.make_peer_batches(parts, exp.batch_size, seed=seed)
     state = p2p.init_state(task, cfg, seed=seed, data_sizes=sizes, device=device)
-    round_fn = p2p.make_round_fn(task, cfg, data_sizes=sizes, device=device)
+    if peer_axis == "pod":
+        round_fn = p2p.make_hier_round_fn(task, cfg, sizes, peers_per_device=peers_per_device,
+                                          mix_mode=mix_mode, device=device)
+    else:
+        round_fn = p2p.make_round_fn(task, cfg, data_sizes=sizes, device=device)
 
     # stratified eval groups: seen/unseen per the union of peer classes
     if exp.peer_classes:
@@ -189,6 +225,19 @@ def main(argv=None):
                          "leaf; both with error feedback")
     ap.add_argument("--topk-frac", type=float, default=0.01,
                     help="fraction of entries the 'topk' compressor keeps per leaf, in (0, 1]")
+    ap.add_argument("--peer-axis", default="vmap", choices=["vmap", "pod"],
+                    help="how the K peer axis executes: 'vmap' (stacked runtime) or 'pod' "
+                         "(the hierarchical runtime; the port runs it on one slice, "
+                         "--peers-per-device = K)")
+    ap.add_argument("--peers-per-device", type=int, default=1,
+                    help="with --peer-axis pod: peers per device; K runs the one-slice "
+                         "hierarchical runtime, consensus over the degree-bounded sparse "
+                         "schedule")
+    ap.add_argument("--mix-mode", default="auto", choices=sorted(p2p.MIX_MODES),
+                    help="hierarchical consensus form (only with --peers-per-device > 1): "
+                         "'bridge' is the vmap runtime's mix (bit-identical, K <= 64), "
+                         "'segment' the degree-bounded segment_mix kernel (allclose), "
+                         "'auto' picks bridge iff K <= 64")
     args = ap.parse_args(argv)
     if not 0.0 < args.topk_frac <= 1.0:
         ap.error(f"--topk-frac must be in (0, 1], got {args.topk_frac}")
@@ -201,8 +250,24 @@ def main(argv=None):
                 exp.p2p, compressor=args.compressor, topk_frac=args.topk_frac))
         except ValueError as e:
             ap.error(str(e))
+    if args.peers_per_device < 1:
+        ap.error(f"--peers-per-device must be >= 1, got {args.peers_per_device}")
+    if args.peers_per_device > 1 and args.peer_axis != "pod":
+        ap.error("--peers-per-device > 1 needs --peer-axis pod "
+                 "(the hierarchical sharded runtime)")
+    try:
+        features_lib.check_config(exp.p2p, peers_per_device=args.peers_per_device)
+    except ValueError as e:
+        ap.error(str(e))
+    if args.peer_axis == "pod" and exp.p2p.num_peers % args.peers_per_device:
+        ap.error(
+            f"--peers-per-device {args.peers_per_device} does not divide "
+            f"num_peers={exp.p2p.num_peers} of experiment {exp.name!r}"
+        )
     t0 = time.time()
-    run_paper_experiment(exp, rounds=args.rounds, verbose=True, device=args.device)
+    run_paper_experiment(exp, rounds=args.rounds, verbose=True, device=args.device,
+                         peer_axis=args.peer_axis, peers_per_device=args.peers_per_device,
+                         mix_mode=args.mix_mode)
     print(f"done in {time.time() - t0:.1f}s")
 
 

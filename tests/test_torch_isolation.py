@@ -18,7 +18,7 @@ from repro_torch.configs.p2pl_mnist import iid_k100, noniid_k2, timevarying_k8  
 from repro_torch.core import graph as tgraph  # noqa: E402
 from repro_torch.core import p2p  # noqa: E402
 from repro_torch.core import task as task_lib  # noqa: E402
-from repro_torch.kernels.consensus_mix import dequant, ops  # noqa: E402
+from repro_torch.kernels.consensus_mix import dequant, ops, segment  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -126,7 +126,7 @@ def test_wrapper_raises_off_cpu_and_cuda():
         ops.consensus_mix_stacked(flat, _ring_ops("meta"), 10)
 
 
-@pytest.mark.parametrize("module", [ops, dequant])
+@pytest.mark.parametrize("module", [ops, dequant, segment])
 def test_wrapper_has_no_fallback_around_the_kernel(module):
     tree = ast.parse(Path(module.__file__).read_text())
     assert not any(isinstance(node, ast.Try) for node in ast.walk(tree))

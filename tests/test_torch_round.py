@@ -90,6 +90,15 @@ CASES["p2pl_affinity_b_s2"] = lambda: tuple(
     dataclasses.replace(c, eta_b=0.1, consensus_steps=2, momentum=0.5, eta_d=0.5)
     for c in _configs("p2pl_affinity")
 )
+# no mixing weight on the edge, affinity weight kept: d still moves (the
+# port once built its operands from W's pattern and dropped beta here)
+ZERO_MIXING = {
+    "p2pl_affinity_identity": dict(mixing="identity"),
+    "p2pl_affinity_eps0": dict(consensus_step_size=0.0),
+}
+for _name, _rep in ZERO_MIXING.items():
+    CASES[_name] = lambda rep=_rep: tuple(
+        dataclasses.replace(c, **rep) for c in _configs("p2pl_affinity"))
 
 
 def _leaves(tree):
@@ -156,6 +165,30 @@ def test_round_parity(case, mnist_small):
                 np.testing.assert_allclose(got[name].numpy(), np.asarray(want[name]),
                                            atol=1.0 / len(y_eval) + 1e-7, err_msg=name)
         jstate, tstate = jc, tc
+
+
+@pytest.mark.parametrize("case", sorted(ZERO_MIXING))
+def test_affinity_d_kept_where_mixing_weight_is_zero(case, mnist_small):
+    """W = I, Beta = the affinity matrix: consensus leaves the parameters as
+    they are and sets every peer's d = (sum_j beta_kj x_j - x_k) / T, nonzero
+    wherever beta is, as the reference does (its round is compared with this
+    one's in ``test_round_parity``)."""
+    _, tcfg = CASES[case]()
+    x, y, _, _ = mnist_small
+    parts = partition.pathological_partition(x, y, [(0, 1), (7, 8)], samples_per_class=50)
+    sizes = partition.data_sizes(parts)
+    task = ttask.get_task("mnist_mlp")
+    state = tp2p.init_state(task, tcfg, data_sizes=sizes, device="cpu", seed=1)
+    batches = tpipeline.PeerBatcher(parts, 10, seed=0).round_batches_on(
+        tcfg.local_steps, torch.device("cpu"))
+    after_local, after_cons, _ = tp2p.make_round_fn(task, tcfg, sizes, device="cpu")(
+        state, batches)
+    assert torch.equal(after_cons.params, after_local.params)
+    x = after_local.params
+    want = (x.flip(0) - x) / tcfg.local_steps  # K = 2: each peer's only neighbor
+    torch.testing.assert_close(after_cons.d_bias, want, **TOL)
+    layout = tp2p.ParamLayout.of(task)
+    assert bool((after_cons.d_bias[:, :layout.size].abs().sum(dim=1) > 0).all())
 
 
 def test_max_norm_init_matches_reference():
