@@ -6,17 +6,30 @@ In order:
    flags (set off: the reference mixes at full float32 precision), and takes
    the card's peak memory rate and float32 rate from its name;
 2. builds every kernel of the port's main paths from this checkout's sources,
-   one nvcc per source, all started together;
+   one nvcc per source, all started together (four: ``consensus_mix``,
+   ``dequant_mix``, ``segment_mix``, ``wkv6``), and prints ptxas's report;
 3. holds each kernel against its plain PyTorch version on the card at the
-   main paths' shapes (atol 5e-5 / rtol 1e-4) and times kernel, plain
-   version and one PyTorch library call in turns with CUDA events:
-   ``consensus_mix`` at three shapes, ``dequant_mix`` at four (the vector
-   path at K=100, a padded star round, and the scalar path with odd leaf
-   boundaries, a zero beta row, a zero-scale leaf and a no-payload call),
-   ``segment_mix`` at five (K=100 complete, K=4096 ring, a padded star with
-   a zero beta row and ragged N on the scalar path, round 17 of a stacked
-   R=16 link-dropout schedule, and D=2047 slots staged in chunks);
-4. drives the trainer through ``run_paper_experiment``: uncompressed
+   main paths' shapes and times kernel, plain version and, where one exists,
+   one PyTorch library call in turns with CUDA events (atol 5e-5 / rtol 1e-4
+   for the consensus kernels, 1e-3 for ``wkv6``): ``consensus_mix`` at three
+   shapes, ``dequant_mix`` at four (the vector path at K=100, a padded star
+   round, and the scalar path with odd leaf boundaries, a zero beta row, a
+   zero-scale leaf and a no-payload call), ``segment_mix`` at five (K=100
+   complete, K=4096 ring, a padded star with a zero beta row and ragged N on
+   the scalar path, round 17 of a stacked R=16 link-dropout schedule, and
+   D=2047 slots staged in chunks), ``wkv6`` at nine (the prefill's
+   B 4, T 1024, 64 heads of 64, chunk 16, from a zero and from a random
+   state; T 1000, ragged; log-decay -50; T 5, under one chunk; B 1, T 4096;
+   and the reference's three sweep shapes at head widths 16, 32 and 64);
+4. serves RWKV6-7B at full width and depth (bf16, random init on the card)
+   through ``serve_batch``: batch 4, prompt 1024, first prefill only, then
+   prefill and 15 decode steps, asserting ``wkv6`` launched once per layer
+   in the prefill and never in the decode; reruns the time-mix of layers 0
+   and 31 on the hidden input the trunk gives them, the kernel against its
+   plain version; times a warm prefill and decode step and profiles each;
+   then serves the K = 2 fleet through ``serve_fleet`` (two stacked models,
+   one request group each), asserting 2 x 32 launches;
+5. drives the trainer through ``run_paper_experiment``: uncompressed
    ``noniid_affinity`` (5 rounds) and ``iid_k100`` (2), then compressed
    ``timevarying_k8`` round robin with qint8 (5) and with top-k (3),
    ``iid_k100`` with qint8 (2), and ``iid_k100`` on the one-slice
@@ -24,13 +37,13 @@ In order:
    reset just before and read just after each run; after each of the first,
    the compressed and the hierarchical runs it recomputes one consensus
    phase with the plain version;
-5. breaks one round of ``noniid_affinity``, ``iid_k100`` and ``iid_k100``
+6. breaks one round of ``noniid_affinity``, ``iid_k100`` and ``iid_k100``
    with qint8 down by phase (synchronized host timers) and profiles one more
    for the device's busy share;
-6. trains the 2NN at K=4096 peers on a ring at full width on the one-slice
+7. trains the 2NN at K=4096 peers on a ring at full width on the one-slice
    segment runtime, 2 rounds through the round function without evaluation,
    and prints its seconds per round and peak memory beside the state's size;
-7. prints the ``kernels`` JSON line and, last, the contract line
+8. prints the ``kernels`` JSON line and, last, the contract line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result;
@@ -124,12 +137,15 @@ def cuda_ms(fn, target_s: float = 0.25) -> float:
 
 
 def in_turns(plain, kern, library) -> dict:
-    """Mean ms of each, timed in turns: plain, kernel, library, library, kernel, plain."""
+    """Mean ms of each, timed in turns: plain, kernel, library, library, kernel,
+    plain; ``library`` None (no PyTorch call computes the function) gives
+    ``library_ms`` None."""
     t = {"plain_ms": [], "ms": [], "library_ms": []}
     for fn, key in ((plain, "plain_ms"), (kern, "ms"), (library, "library_ms"),
                     (library, "library_ms"), (kern, "ms"), (plain, "plain_ms")):
-        t[key].append(cuda_ms(fn))
-    return {key: sum(v) / len(v) for key, v in t.items()}
+        if fn is not None:
+            t[key].append(cuda_ms(fn))
+    return {key: sum(v) / len(v) if v else None for key, v in t.items()}
 
 
 def consensus_case(card, name, graph, sizes, n, *, dmax=None, zero_beta_rows=(), seed=0):
@@ -321,17 +337,22 @@ def segment_case(card, name, sparse, n, *, round_idx=0, zero_beta_rows=(), size=
 def build_kernels() -> None:
     """Build every kernel library at once (one nvcc each, in parallel)."""
     from repro_torch.kernels.consensus_mix import dequant, ops, segment
+    from repro_torch.kernels.rwkv6 import ops as wkv6_ops
 
     start = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:
-        libs = dict(zip(("consensus_mix", "dequant_mix", "segment_mix"),
-                        pool.map(lambda mod: mod.load_kernel(), (ops, dequant, segment))))
-    print(f"build: all three kernels in {time.perf_counter() - start:.2f} s", flush=True)
+        libs = dict(zip(("consensus_mix", "dequant_mix", "segment_mix", "wkv6"),
+                        pool.map(lambda mod: mod.load_kernel(),
+                                 (ops, dequant, segment, wkv6_ops))))
+    print(f"build: all four kernels in {time.perf_counter() - start:.2f} s", flush=True)
     for name, kl in libs.items():
         print(f"  {name}: nvcc {kl.build_seconds:.2f} s -> {kl.path.relative_to(ROOT)}")
         for line in kl.log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas: {line.strip()}")
+    smem = {f"dk={dk} chunk={q}": libs["wkv6"].lib.wkv6_smem_bytes(dk, q)
+            for dk, q in ((64, 16), (64, 48), (32, 16), (16, 8))}
+    print(f"  wkv6 dynamic shared memory per block, bytes: {smem}", flush=True)
 
 
 def _print_case(kernel: str, c: dict) -> None:
@@ -377,8 +398,101 @@ def segment_cases(card: Card) -> list[dict]:
     return cases
 
 
+WKV6_TOL = dict(atol=1e-3, rtol=1e-3)  # float32, the wkv6 tolerance of tests/test_kernels.py
+
+
+def wkv6_work(b: int, t: int, h: int, dk: int, q: int, *, state: bool, out_bytes: int = 4):
+    """(bytes, FLOP) one wkv6 call needs: four float32 inputs, u and the
+    state in (when given) read once, the output and the final state written
+    once; per (b, h) and chunk of n real tokens the operations of the chunk
+    form (an exp counts as one)."""
+    nbytes = 4 * b * t * h * dk * 4 + h * dk * 4 + b * t * h * dk * out_bytes
+    nbytes += (2 if state else 1) * b * h * dk * dk * 4
+    flops = 0
+    for start in range(0, t, q):
+        n = min(q, t - start)
+        flops += (5 * dk * n * (n - 1) // 2  # att below the diagonal: sub, exp, 3 FMA-ish
+                  + 3 * n * dk  # the bonus on the diagonal
+                  + 2 * n * dk + 5 * n * dk  # prefix sums; the decayed r and k
+                  + n * (n + 1) * dk  # sum_s att[t, s] v[s]
+                  + 2 * n * dk * dk  # (r * exp(cum_ex)) S
+                  + 2 * dk * dk + 2 * n * dk * dk)  # the state update
+    return nbytes, b * h * flops
+
+
+def wkv6_case(card, name, b, t, h, dk, chunk, *, state=False, ld=None, timed=False, seed=0):
+    """wkv6 kernel vs its plain version on the card at one shape; ``ld`` is
+    a constant log-decay, or (low, high) for a uniform draw of -ld."""
+    from repro_torch.kernels.rwkv6 import ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r, k, v = (torch.randn(b, t, h, dk, generator=gen, device=dev) for _ in range(3))
+    if isinstance(ld, float):
+        logd = torch.full((b, t, h, dk), ld, device=dev)
+    else:
+        low, high = ld or (0.01, 4.0)  # tests/test_kernels.py's draw
+        logd = -(low + (high - low) * torch.rand(b, t, h, dk, generator=gen, device=dev))
+    u = 0.5 * torch.randn(h, dk, generator=gen, device=dev)
+    s0 = torch.randn(b, h, dk, dk, generator=gen, device=dev) if state else None
+
+    got, got_s = ops.wkv6(r, k, v, logd, u, state=s0, chunk=chunk)
+    want, want_s = ref.wkv6_chunked_ref(r, k, v, logd, u, s0, chunk=chunk)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all() and torch.isfinite(got_s).all()), f"wkv6 {name} finite")
+    err = 0.0
+    for g, w, what in ((got, want, "out"), (got_s, want_s, "final state")):
+        torch.testing.assert_close(g, w, **WKV6_TOL, msg=lambda m: f"wkv6 {name} {what}: {m}")
+        err = max(err, float((g - w).abs().max()))
+    case = {"case": name, "B": b, "T": t, "H": h, "dk": dk, "chunk": min(chunk, t),
+            "state": state, "max_abs_err": err, "max_abs_out": float(want.abs().max())}
+    if state:  # the state in must matter here: a zero state gives another result
+        zero_s = ops.wkv6(r, k, v, logd, u, chunk=chunk)[1]
+        case["state_effect"] = float((zero_s - got_s).abs().max())
+        check(case["state_effect"] > 1e-2, f"wkv6 {name}: the initial state reaches the end")
+    if timed:
+        q = min(chunk, t)
+        out = torch.empty_like(r)
+        final = torch.empty(b, h, dk, dk, device=dev)
+        kern = lambda: ops.launch(r, k, v, logd, u, s0, q, out, final)  # noqa: E731
+        plain = lambda: ref.wkv6_chunked_ref(r, k, v, logd, u, s0, chunk=q)  # noqa: E731
+        case.update(in_turns(plain, kern, None))
+        case.update(card.bound(*wkv6_work(b, t, h, dk, q, state=state)))
+    return case
+
+
+def wkv6_cases(card: Card) -> list[dict]:
+    """``wkv6`` at the serving prefill's shape (B 4, T 1024, 64 heads of 64,
+    chunk 16) and at its edges."""
+    small = (1e-4, 2e-3)  # decays summing to ~1 over 1024 tokens: the state survives
+    cases = [
+        wkv6_case(card, "main_b4_t1024", 4, 1024, 64, 64, 16, timed=True),
+        wkv6_case(card, "main_b4_t1024_state", 4, 1024, 64, 64, 16, state=True, ld=small,
+                  seed=1),
+        wkv6_case(card, "ragged_t1000", 4, 1000, 64, 64, 16, state=True, ld=small, seed=2),
+        wkv6_case(card, "extreme_decay", 4, 1024, 64, 64, 16, ld=-50.0, seed=3),
+        wkv6_case(card, "short_t5", 4, 5, 64, 64, 16, state=True, ld=small, seed=4),
+        wkv6_case(card, "b1_t4096", 1, 4096, 64, 64, 16, timed=True, seed=5),
+    ]
+    for t, h, dk, chunk in ((64, 2, 32, 16), (32, 4, 16, 8), (48, 1, 64, 48)):
+        cases.append(wkv6_case(card, f"sweep_t{t}_h{h}_dk{dk}_q{chunk}", 2, t, h, dk, chunk,
+                               state=True, ld=small, seed=6))
+    torch.cuda.empty_cache()
+    return cases
+
+
+def _print_wkv6_case(c: dict) -> None:
+    times = ""
+    if "ms" in c:
+        times = (f" kernel={c['ms']:.4f} ms plain={c['plain_ms']:.4f} ms library=none "
+                 f"bound={c['bound_ms']:.4f} ms ({c['bound_by']}; {c['bound_card']})")
+    print(f"wkv6 {c['case']}: B={c['B']} T={c['T']} H={c['H']} dk={c['dk']} chunk={c['chunk']} "
+          f"state={c['state']} max_abs_err={c['max_abs_err']:.3g} "
+          f"(max |out| {c['max_abs_out']:.4g}){times}", flush=True)
+
+
 def check_kernels(card: Card) -> dict[str, list[dict]]:
-    """Build the three kernels and hold each against its plain version at its shapes."""
+    """Build the four kernels and hold each against its plain version at its shapes."""
     from repro_torch.core import graph as graph_lib
     from repro_torch.core.p2p import layout_of
 
@@ -403,10 +517,13 @@ def check_kernels(card: Card) -> dict[str, list[dict]]:
         dequant_case(card, "ring_no_payload", graph_lib.build_graph("ring", 8),
                      np.arange(1, 9) * 10, (0, 301, 302, 777, 999), 1001, dmax=3,
                      zero_beta_rows=(3,), payload=False, seed=1),
-    ], "segment_mix": segment_cases(card)}
+    ], "segment_mix": segment_cases(card), "wkv6": wkv6_cases(card)}
     for kernel, kcases in cases.items():
         for c in kcases:
-            _print_case(kernel, c)
+            if kernel == "wkv6":
+                _print_wkv6_case(c)
+            else:
+                _print_case(kernel, c)
     return cases
 
 
@@ -455,9 +572,10 @@ def recheck_consensus(name: str, exp, state, data, *, mix_mode=None) -> None:
 
 def launch_counters() -> dict:
     from repro_torch.kernels.consensus_mix import dequant, ops, segment
+    from repro_torch.kernels.rwkv6 import ops as wkv6_ops
 
     return {"consensus_mix": ops.launches, "dequant_mix": dequant.launches,
-            "segment_mix": segment.launches}
+            "segment_mix": segment.launches, "wkv6": wkv6_ops.launches}
 
 
 def drive(name: str, exp, rounds: int, data, *, recheck: bool, mix_mode: str | None = None,
@@ -605,7 +723,7 @@ def drive_large_k(exp, rounds: int, data) -> dict:
     launches = {key: counter.count for key, counter in counters.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     state_gb = 4 * state.params.numel() * 4 / 1e9
-    want = {"consensus_mix": 0, "dequant_mix": 0, "segment_mix": rounds * cfg.consensus_steps}
+    want = {key: 0 for key in counters} | {"segment_mix": rounds * cfg.consensus_steps}
     check(launches == want, f"K={k} launched {launches}, want {want}")
     check(all(math.isfinite(v) for v in losses), f"K={k} losses finite")
     for field in ("params", "momentum", "d_bias", "b_bias"):
@@ -616,6 +734,185 @@ def drive_large_k(exp, rounds: int, data) -> dict:
           f"four (K, {state.params.shape[1]}) state buffers", flush=True)
     return {"launches": launches["segment_mix"], "kernel": "segment_mix", "peak_gb": peak_gb,
             "state_gb": state_gb, "seconds": seconds, "setup_s": setup_s}
+
+
+SERVE_ARCH = "rwkv6-7b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 16
+FLEET_PEERS = 2
+
+
+def _serving_launches(counters: dict, want_wkv6: int, name: str) -> dict:
+    launches = {key: counter.count for key, counter in counters.items()}
+    want = {key: 0 for key in counters} | {"wkv6": want_wkv6}
+    check(launches == want, f"{name} launched {launches}, want {want}")
+    return launches
+
+
+def drive_serve_batch(card: Card) -> dict:
+    """``serve_batch`` of rwkv6-7b at full width and depth (bf16, random
+    init from seed 0 on the card), launch counts set to 0 just before and
+    read just after each call: first with ``gen_tokens=1`` (prefill only, the
+    explicit empty decode), where wkv6 launches once per layer; then prefill
+    plus 15 decode steps, where it launches the same number in all, so the
+    decode launched none."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    layers = get_config(SERVE_ARCH).num_layers
+    counters = launch_counters()
+    runs = {}
+    for label, gen in (("prefill_only", 1), ("prefill_decode", SERVE_GEN)):
+        print(f"main path: serve_batch {SERVE_ARCH} full, batch {SERVE_BATCH}, prompt "
+              f"{SERVE_PROMPT}, gen {gen}", flush=True)
+        torch.cuda.empty_cache()
+        for counter in counters.values():
+            counter.reset()
+        out = serve.serve_batch(SERVE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                                gen_tokens=gen, use_reduced=False, seed=0, verbose=True,
+                                device="cuda")
+        launches = _serving_launches(counters, layers, f"serve_batch gen={gen}")
+        tokens = out["tokens"]
+        check(tuple(tokens.shape) == (SERVE_BATCH, gen), f"serve_batch tokens {tokens.shape}")
+        check(bool(((tokens >= 0) & (tokens < 65536)).all()), "serve_batch tokens in the vocab")
+        for name, leaf in out["cache"].items():
+            check(bool(torch.isfinite(leaf.float()).all()), f"serve_batch state {name} finite")
+        runs[label] = {key: out[key] for key in ("prefill_s", "decode_steps",
+                                                 "decode_s_per_token", "tokens_per_s",
+                                                 "peak_memory_gb", "params_gb")}
+        runs[label]["launches"] = launches["wkv6"]
+        runs[label]["tokens"] = tokens[0].tolist()
+        del out
+    check(runs["prefill_only"]["tokens"][0] == runs["prefill_decode"]["tokens"][0],
+          "the prefill token does not depend on the decode length")
+    print(f"serve_batch ({card.line}): {json.dumps(runs)}", flush=True)
+    return {"launches": sum(r["launches"] for r in runs.values()), "kernel": "wkv6",
+            "runs": runs,
+            "launches_by_phase": {"prefill": runs["prefill_only"]["launches"],
+                                  "decode": runs["prefill_decode"]["launches"]
+                                  - runs["prefill_only"]["launches"]}}
+
+
+def recheck_and_break_down_serving(card: Card) -> dict:
+    """The served model again (seed 0: the same parameters and prompt as
+    ``serve_batch``): the time-mix of layers 0 and 31 rerun on the hidden
+    input the trunk gives them, the WKV through the kernel and through its
+    plain version, output and state compared; then one warm prefill and one
+    warm decode step timed, and each profiled for its kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rwkv6 import ops as wkv6_ops
+    from repro_torch.kernels.rwkv6 import ref as wkv6_ref
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model, common, ssm
+    from repro_torch.models import transformer as tf
+
+    dev = torch.device("cuda")
+    cfg = get_config(SERVE_ARCH)
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen)
+    prompt = model.make_batch(gen, SERVE_BATCH, SERVE_PROMPT)
+    out = {}
+    with torch.no_grad():
+        layers = common.sub(params, tf.LAYERS)
+        x = common.embed_lookup(params["embed"], prompt["tokens"], tf.compute_dtype(cfg))
+        x = common.layernorm(common.sub(params, "ln0."), x, cfg.norm_eps)
+        state0 = model.init_cache(SERVE_BATCH, SERVE_PROMPT, dev)
+        for i in range(cfg.num_layers):
+            layer = common.row(layers, i)
+            if i in (0, cfg.num_layers - 1):
+                tm = common.sub(layer, "time_mix.")
+                h_in = common.layernorm(common.sub(tm, "ln."), x)
+                r, k, v, _, logd, _ = ssm._tm_projections(tm, h_in, state0["tm_prev"][i])
+                dk = cfg.ssm.head_dim
+                rh, kh, vh = (ssm._heads(a, dk).float() for a in (r, k, v))
+                ld = ssm._heads(logd, dk)
+                got, got_s = wkv6_ops.wkv6(rh, kh, vh, ld, tm["bonus_u"], state=state0["wkv"][i],
+                                           chunk=cfg.ssm.chunk)
+                want, want_s = wkv6_ref.wkv6_chunked_ref(rh, kh, vh, ld, tm["bonus_u"],
+                                                         state0["wkv"][i], chunk=cfg.ssm.chunk)
+                torch.cuda.synchronize()
+                errs = []
+                for g, w, what in ((got, want, "o"), (got_s, want_s, "state")):
+                    torch.testing.assert_close(g, w, **WKV6_TOL,
+                                               msg=lambda m: f"layer {i} time-mix {what}: {m}")
+                    errs.append(float((g - w).abs().max()))
+                out[f"layer{i}"] = {"o_max_abs_err": errs[0], "state_max_abs_err": errs[1],
+                                    "o_max_abs": float(want.abs().max()),
+                                    "logdecay_range": [float(ld.min()), float(ld.max())]}
+                print(f"layer {i} time-mix at full width: kernel vs plain version "
+                      f"{json.dumps(out[f'layer{i}'])}", flush=True)
+            x, _ = ssm.rwkv6_block_apply(layer, cfg.ssm, x, common.row(state0, i), chunked=True)
+
+        prefill = steps.make_prefill_step(model)
+        decode = steps.make_serve_step(model)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        tok, state = prefill(params, prompt, state0)
+        torch.cuda.synchronize()
+        out["warm_prefill_s"] = time.perf_counter() - start
+        pos = torch.full((SERVE_BATCH,), SERVE_PROMPT, dtype=torch.int64, device=dev)
+        decode(params, state, tok, pos)  # warm-up step
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        decode(params, state, tok, pos)
+        torch.cuda.synchronize()
+        out["warm_decode_step_s"] = time.perf_counter() - start
+        for phase, fn in (("prefill", lambda: prefill(params, prompt, state0)),
+                          ("decode_step", lambda: decode(params, state, tok, pos))):
+            out[phase] = profile_once(fn)
+    print(f"serving breakdown ({card.line}): {json.dumps(out)}", flush=True)
+    del params, state, state0
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_once(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: wall seconds, device busy
+    seconds and share, and the kernels that took the most device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - start
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)
+    return {"wall_s": wall_s, "device_busy_s": device_s,
+            "device_busy_share": device_s / wall_s if device_s > 0 else None,
+            "top_kernels_ms": [(e.key[:70], e.count, e.self_device_time_total / 1e3)
+                               for e in top[:8]]}
+
+
+def drive_serve_fleet(card: Card) -> dict:
+    """``serve_fleet`` of rwkv6-7b at full width and depth, K = 2 peers of
+    different seeds stacked (bf16), one request group per peer, launch counts
+    set to 0 just before and read just after: wkv6 launches once per layer
+    and group."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    layers = get_config(SERVE_ARCH).num_layers
+    counters = launch_counters()
+    print(f"main path: serve_fleet {SERVE_ARCH} full, {FLEET_PEERS} peers, batch {SERVE_BATCH}, "
+          f"prompt {SERVE_PROMPT}, gen {SERVE_GEN}", flush=True)
+    torch.cuda.empty_cache()
+    for counter in counters.values():
+        counter.reset()
+    out = serve.serve_fleet(SERVE_ARCH, num_peers=FLEET_PEERS, batch=SERVE_BATCH,
+                            prompt_len=SERVE_PROMPT, gen_tokens=SERVE_GEN, use_reduced=False,
+                            seed=0, verbose=True, device="cuda")
+    launches = _serving_launches(counters, FLEET_PEERS * layers, "serve_fleet")
+    tokens = out["tokens"]
+    check(tuple(tokens.shape) == (FLEET_PEERS, SERVE_BATCH, SERVE_GEN), "fleet tokens shape")
+    check(bool(((tokens >= 0) & (tokens < 65536)).all()), "fleet tokens in the vocab")
+    check(not torch.equal(tokens[0], tokens[1]), "two peers' models answer differently")
+    run = {key: out[key] for key in ("serve_s", "tokens_per_s", "peak_memory_gb", "params_gb")}
+    print(f"serve_fleet ({card.line}): {json.dumps(run)}", flush=True)
+    del out
+    torch.cuda.empty_cache()
+    return {"launches": launches["wkv6"], "kernel": "wkv6", **run}
 
 
 def main() -> int:
@@ -635,11 +932,14 @@ def main() -> int:
           flush=True)
 
     cases = check_kernels(card)
+    paths = {"serve_batch": drive_serve_batch(card)}
+    serving = recheck_and_break_down_serving(card)
+    paths["serve_fleet_k2"] = drive_serve_fleet(card)
     data = synthetic.mnist_like()
     noniid = noniid_k2(algorithm="p2pl_affinity", local_steps=10)
     iid = iid_k100()
     iid_qint8 = dataclasses.replace(iid, p2p=dataclasses.replace(iid.p2p, compressor="qint8"))
-    paths = {
+    paths |= {
         "noniid_affinity": drive("noniid_affinity", noniid, NONIID_ROUNDS, data, recheck=True),
         "iid_k100": drive("iid_k100", iid, IID_ROUNDS, data, recheck=False),
         "timevarying_k8_round_robin_qint8": drive(
@@ -666,25 +966,34 @@ def main() -> int:
 
     entries = []
     for kernel, source, replaces, main_case in (
-        ("consensus_mix", "consensus_mix.cu", "consensus_mix.py:72", "iid_k100"),
-        ("dequant_mix", "dequant_mix.cu", "dequant.py:117", "iid_k100_qint8"),
-        ("segment_mix", "segment_mix.cu", "segment.py:124", f"ring_k{LARGE_K}"),
+        ("consensus_mix", "consensus_mix/csrc/consensus_mix.cu",
+         "consensus_mix/consensus_mix.py:72", "iid_k100"),
+        ("dequant_mix", "consensus_mix/csrc/dequant_mix.cu", "consensus_mix/dequant.py:117",
+         "iid_k100_qint8"),
+        ("segment_mix", "consensus_mix/csrc/segment_mix.cu", "consensus_mix/segment.py:124",
+         f"ring_k{LARGE_K}"),
+        ("wkv6", "rwkv6/csrc/wkv6.cu", "rwkv6/rwkv6.py:94", "main_b4_t1024"),
     ):
         main = next(c for c in cases[kernel] if c["case"] == main_case)
         by_path = {name: p["launches"] for name, p in paths.items() if p["kernel"] == kernel}
+        shape = (f"B={main['B']} T={main['T']} H={main['H']} dk={main['dk']} "
+                 f"chunk={main['chunk']}" if kernel == "wkv6"
+                 else f"K={main['K']} D={main['D']} N={main['N']}")
         entries.append({
             "name": kernel,
             "route": "cuda",
-            "source": f"src/repro_torch/kernels/consensus_mix/csrc/{source}",
-            "replaces": f"src/repro/kernels/consensus_mix/{replaces}",
+            "source": f"src/repro_torch/kernels/{source}",
+            "replaces": f"src/repro/kernels/{replaces}",
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(c["max_abs_err"] for c in cases[kernel]),
             **{key: main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                           "library_ms", "bound_card")},
-            "shape": f"K={main['K']} D={main['D']} N={main['N']}",
+            "shape": shape,
             "shapes": cases[kernel],
         })
+    entries[-1]["launches_by_phase"] = paths["serve_batch"]["launches_by_phase"]
+    entries[-1]["serving_recheck"] = {key: serving[key] for key in serving if key.startswith("layer")}
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

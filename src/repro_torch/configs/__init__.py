@@ -1,1 +1,122 @@
-"""Experiment configurations of the port."""
+"""Experiment and model configurations of the port.
+
+``p2pl_mnist`` holds the paper's experiments.  The model registry below is
+the port's ``repro.configs`` registry: ``get_config(name)`` and
+``reduced(cfg)``.  Only ``rwkv6-7b`` is registered; the reference's other
+architectures raise ``NotImplementedError`` (ROADMAP.md queue 1 item 16).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.configs import rwkv6_7b
+from repro_torch.configs.base import (
+    INPUT_SHAPES,
+    AttentionConfig,
+    ModelConfig,
+    MoEConfig,
+    ShapeConfig,
+    SSMConfig,
+)
+
+ARCHITECTURES = {
+    "rwkv6-7b": rwkv6_7b.config,
+}
+# names the reference registers whose families the port does not run yet
+UNPORTED_ARCHITECTURES = (
+    "deepseek-v2-236b",
+    "internvl2-2b",
+    "minitron-8b",
+    "phi4-mini-3.8b",
+    "qwen1.5-32b",
+    "qwen3-moe-235b-a22b",
+    "seamless-m4t-medium",
+    "smollm-135m",
+    "zamba2-2.7b",
+)
+
+
+def get_config(name: str) -> ModelConfig:
+    """The named architecture's full-size config."""
+    if name in UNPORTED_ARCHITECTURES:
+        raise NotImplementedError(
+            f"architecture {name!r} is not ported yet: ROADMAP.md queue 1 item 16"
+        )
+    if name not in ARCHITECTURES:
+        raise KeyError(f"unknown architecture {name!r}; one of {sorted(ARCHITECTURES)}")
+    return ARCHITECTURES[name]()
+
+
+def reduced(cfg: ModelConfig) -> ModelConfig:
+    """CPU-smoke variant of the same family: 2 layers, d_model<=256, <=4 experts."""
+    kw: dict = dict(
+        num_layers=2,
+        d_model=128,
+        d_ff=256,
+        vocab_size=512,
+        remat=False,
+        dtype="float32",
+    )
+    if cfg.attention is not None:
+        if cfg.attention.kind == "mla":
+            kw["attention"] = dataclasses.replace(
+                cfg.attention,
+                num_heads=4,
+                num_kv_heads=4,
+                head_dim=32,
+                kv_lora_rank=32,
+                q_lora_rank=48,
+                qk_nope_dim=32,
+                qk_rope_dim=16,
+                v_head_dim=32,
+            )
+        else:
+            kw["attention"] = dataclasses.replace(
+                cfg.attention, num_heads=4, num_kv_heads=2, head_dim=32
+            )
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe,
+            num_experts=4,
+            top_k=2,
+            expert_ff=64,
+            num_shared=min(cfg.moe.num_shared, 1),
+            first_dense_layers=min(cfg.moe.first_dense_layers, 1),
+            dense_ff=128,
+            # generous capacity: smoke tests check decode/prefill parity,
+            # which capacity dropping would perturb
+            capacity_factor=8.0,
+        )
+        kw["num_layers"] = 2 + kw["moe"].first_dense_layers
+    if cfg.ssm is not None:
+        if cfg.ssm.kind == "rwkv6":
+            kw["ssm"] = dataclasses.replace(cfg.ssm, head_dim=32, lora_rank=8, chunk=4)
+        else:
+            kw["ssm"] = dataclasses.replace(
+                cfg.ssm, state_dim=16, head_dim=32, expand=2, chunk=4
+            )
+    if cfg.family == "hybrid":
+        kw["num_layers"] = 4
+        kw["shared_block_period"] = 2
+    if cfg.encoder_layers:
+        kw["encoder_layers"] = 2
+    if cfg.num_prefix_embeddings:
+        kw["num_prefix_embeddings"] = 4
+        kw["frontend_dim"] = 32
+    if cfg.frontend_dim and not cfg.num_prefix_embeddings:
+        kw["frontend_dim"] = 32
+    return cfg.replace(**kw)
+
+
+__all__ = [
+    "ARCHITECTURES",
+    "AttentionConfig",
+    "INPUT_SHAPES",
+    "ModelConfig",
+    "MoEConfig",
+    "SSMConfig",
+    "ShapeConfig",
+    "UNPORTED_ARCHITECTURES",
+    "get_config",
+    "reduced",
+]

@@ -591,6 +591,49 @@ def param_views(state: P2PState, task: task_lib.TrainTask) -> dict[str, torch.Te
 
 
 # ---------------------------------------------------------------------------
+# Serving extraction (the trained fleet's artifacts)
+# ---------------------------------------------------------------------------
+
+
+def serving_params(state: P2PState, task: task_lib.TrainTask) -> dict[str, torch.Tensor]:
+    """Extract the personalized serving artifact from a trained state.
+
+    The stacked (K, ...) per-peer parameter leaves, detached from the
+    optimizer/consensus buffers: P2PL's product is K *divergent* models, and
+    this is the layout the stacked serving runtime consumes
+    (``repro_torch.launch.serve.make_fleet_classify_fn`` /
+    ``make_fleet_generate_fn``).  The reference returns ``state.params``, a
+    tree; the port's parameters are one (K, row) buffer, so this returns the
+    task's named leaves as views into it (``ParamLayout.views``, no copies).
+    """
+    return param_views(state, task)
+
+
+def consensus_averaged_params(
+    stacked_params: dict[str, torch.Tensor], data_sizes: np.ndarray | None = None
+) -> dict[str, torch.Tensor]:
+    """The ONE-model serving baseline: average the K peer rows, broadcast back.
+
+    Collapses every stacked leaf to its (data-weighted, else uniform) float32
+    average and broadcasts it to all K rows (``expand``: a view, no K
+    copies), so the averaged baseline routes through the IDENTICAL stacked
+    serving path as the personalized fleet.
+    """
+    k = next(iter(stacked_params.values())).shape[0]
+    if data_sizes is None:
+        w = torch.full((k,), 1.0 / k, dtype=torch.float32)
+    else:
+        sizes = torch.as_tensor(np.asarray(data_sizes), dtype=torch.float32)
+        w = sizes / sizes.sum()
+
+    def avg(p):
+        mean = torch.tensordot(w.to(p.device), p.float(), dims=1)
+        return mean.to(p.dtype).expand(p.shape)
+
+    return {name: avg(p) for name, p in stacked_params.items()}
+
+
+# ---------------------------------------------------------------------------
 # Evaluation helpers (stratified accuracy — the paper's seen/unseen split)
 # ---------------------------------------------------------------------------
 

@@ -17,8 +17,29 @@ from repro_torch.core import p2p
 from repro_torch.core import task as task_lib
 
 
+def _tensor_of(arr: np.ndarray) -> torch.Tensor:
+    """A numpy array as a tensor, bit for bit.  ``np.asarray`` of a jax bf16
+    array is an ``ml_dtypes.bfloat16`` array, which torch does not take: its
+    bits are carried through an int16 view."""
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.as_tensor(arr)
+
+
+def _array_of(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array, bit for bit (bf16 as ``ml_dtypes.bfloat16``)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # numpy's bf16 type, as jax uses it; needed only here
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
 def params_from_jax(tree: dict, *, device: torch.device | str = "cpu") -> dict[str, torch.Tensor]:
-    """Nested dict of numpy arrays -> flat dict of tensors, values copied exactly."""
+    """Nested dict of numpy arrays -> flat dict of tensors, values copied
+    exactly (bf16 included): ``{"layers": {"time_mix": {"w_r": ...}}}`` ->
+    ``{"layers.time_mix.w_r": ...}``, layer-stacked leaves as they are."""
     out: dict[str, torch.Tensor] = {}
 
     def walk(node, prefix):
@@ -26,7 +47,7 @@ def params_from_jax(tree: dict, *, device: torch.device | str = "cpu") -> dict[s
             for key, child in node.items():
                 walk(child, f"{prefix}{key}.")
         else:
-            out[prefix[:-1]] = torch.as_tensor(np.array(node), device=device)
+            out[prefix[:-1]] = _tensor_of(np.array(node)).to(device)
 
     walk(tree, "")
     return out
@@ -40,7 +61,7 @@ def params_to_jax(params: dict[str, torch.Tensor]) -> dict:
         node = tree
         for key in parents:
             node = node.setdefault(key, {})
-        node[leaf] = value.detach().cpu().numpy()
+        node[leaf] = _array_of(value)
     return tree
 
 

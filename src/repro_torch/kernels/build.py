@@ -28,6 +28,17 @@ NVCC_FLAGS = (
 )
 
 
+class LaunchCounter:
+    """Number of kernel launches since the last ``reset``; every wrapper
+    keeps one and adds 1 where it launches its kernel, and nowhere else."""
+
+    def __init__(self) -> None:
+        self.count = 0
+
+    def reset(self) -> None:
+        self.count = 0
+
+
 @dataclasses.dataclass(frozen=True)
 class KernelLibrary:
     """A loaded kernel library and how it was obtained."""

@@ -34,7 +34,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.consensus_mix import ref
-from repro_torch.kernels.consensus_mix.ops import LaunchCounter, SparseOperands, check_operands
+from repro_torch.kernels.build import LaunchCounter
+from repro_torch.kernels.consensus_mix.ops import SparseOperands, check_operands
 
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "dequant_mix.cu"]
 MAX_LEAVES = 64  # kMaxLeaves in the CUDA source

@@ -36,21 +36,12 @@ import torch
 
 from repro_torch.core import graph as graph_lib
 from repro_torch.kernels import build
+from repro_torch.kernels.build import LaunchCounter
 from repro_torch.kernels.consensus_mix import ref
 
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "consensus_mix.cu"]
 # the kernel stages one peer's slot row in the default 48 KB of shared memory
 MAX_SLOTS = 48 * 1024 // 12
-
-
-class LaunchCounter:
-    """Number of kernel launches since the last ``reset``."""
-
-    def __init__(self) -> None:
-        self.count = 0
-
-    def reset(self) -> None:
-        self.count = 0
 
 
 launches = LaunchCounter()

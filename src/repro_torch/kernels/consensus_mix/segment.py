@@ -39,8 +39,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.consensus_mix import ref
+from repro_torch.kernels.build import LaunchCounter
 from repro_torch.kernels.consensus_mix.ops import (
-    LaunchCounter,
     SparseOperands,
     check_operands,
     select_round,

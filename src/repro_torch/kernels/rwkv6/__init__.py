@@ -1,0 +1,2 @@
+"""Chunked RWKV6 WKV: CUDA kernel (``csrc/``), plain versions (``ref.py``) and
+the dispatching wrapper (``ops.py``)."""

@@ -1,0 +1,134 @@
+"""Public API of the chunked WKV6 kernel (the port's ``repro.kernels.rwkv6.ops``).
+
+``wkv6`` computes the RWKV6 (Finch) WKV recurrence over (B, T, H, dk)
+operands chunk by chunk, from a carried (B, H, dk, dk) float32 state, and
+returns the output and the final state.  It replaces the Pallas TPU kernel
+``repro/kernels/rwkv6/rwkv6.py:wkv6_chunked`` and, on the model's prefill
+path, the chunk scan of ``repro/models/ssm.py:rwkv6_time_mix_chunked``: with
+``state=None`` and ``T % chunk == 0`` its output is the Pallas kernel's, and
+it also takes the state in and gives the state out that the chunk scan
+carries, and masks a ragged last chunk as the chunk scan's padding does.
+
+Dispatch is by the device of the operands, and only by it:
+
+- CPU tensors take the plain PyTorch version (``ref.wkv6_chunked_ref``);
+- CUDA tensors launch the hand-written kernel (``csrc/wkv6.cu``, built for
+  sm_90a and loaded with ctypes on first use) or raise — there is no
+  fallback;
+- any other device raises.
+
+Bound on an H100 SXM (see the note in the CUDA source): at B = 4, T = 1024,
+H = 64, dk = 64 one call from a zero state moves 340 MB (0.10 ms at
+3.35 TB/s) and does about 5.5 GFLOP (0.08 ms at 67 TFLOP/s float32): it is
+bound by bytes.
+
+``launches.count`` counts kernel launches (never plain-version calls).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.build import LaunchCounter
+from repro_torch.kernels.rwkv6 import ref
+
+SOURCES = [Path(__file__).resolve().parent / "csrc" / "wkv6.cu"]
+HEAD_DIMS = (16, 32, 64)  # the head widths the kernel is instantiated for
+MAX_CHUNK = 64  # kMaxChunk in the CUDA source
+INPUT_TYPES = (torch.float32, torch.bfloat16)
+
+launches = LaunchCounter()
+
+
+@functools.cache
+def load_kernel() -> build.KernelLibrary:
+    """Build (first call) and load the kernel library; declares its C signature."""
+    kl = build.load_library("wkv6", SOURCES)
+    fn = kl.lib.wkv6_f32
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    fn.argtypes = [ptr] * 8 + [i64] * 5 + [ptr]
+    fn.restype = ctypes.c_int
+    kl.lib.wkv6_smem_bytes.argtypes = [i64, i64]
+    kl.lib.wkv6_smem_bytes.restype = i64
+    return kl
+
+
+def check_inputs(r, k, v, logdecay, u, state, chunk: int) -> int:
+    """Validate the operands; returns the chunk length used, ``min(chunk, T)``."""
+    if r.dim() != 4:
+        raise ValueError(f"r must be (B, T, H, dk), got shape {tuple(r.shape)}")
+    b, t, h, dk = r.shape
+    if v.shape[-1] != k.shape[-1]:
+        raise ValueError(f"wkv6 assumes dv == dk, got dv={v.shape[-1]}, dk={k.shape[-1]}")
+    for name, x in (("k", k), ("v", v), ("logdecay", logdecay)):
+        if x.shape != r.shape:
+            raise ValueError(f"{name} must have r's shape {tuple(r.shape)}, got {tuple(x.shape)}")
+    for name, x in (("r", r), ("k", k), ("v", v), ("logdecay", logdecay), ("u", u)):
+        if x.dtype not in INPUT_TYPES:
+            raise TypeError(f"wkv6 takes float32 or bfloat16 {name}, got {x.dtype}")
+    if tuple(u.shape) != (h, dk):
+        raise ValueError(f"u must be (H, dk) = {(h, dk)}, got {tuple(u.shape)}")
+    if state is not None:
+        if tuple(state.shape) != (b, h, dk, dk) or state.dtype != torch.float32:
+            raise ValueError(f"state must be (B, H, dk, dk) = {(b, h, dk, dk)} float32, "
+                             f"got {tuple(state.shape)} {state.dtype}")
+    for name, x in (("k", k), ("v", v), ("logdecay", logdecay), ("u", u), ("state", state)):
+        if x is not None and x.device != r.device:
+            raise ValueError(f"{name} is on {x.device}, r on {r.device}")
+    if dk not in HEAD_DIMS:
+        raise ValueError(f"the wkv6 kernel is built for head widths {HEAD_DIMS}, got dk={dk}")
+    if t < 1:
+        raise ValueError("wkv6 needs T >= 1")
+    q = min(int(chunk), t)
+    if not 1 <= q <= MAX_CHUNK:
+        raise ValueError(f"chunk must be in [1, {MAX_CHUNK}], got {chunk}")
+    return q
+
+
+def launch(r, k, v, logdecay, u, state, q: int, out, state_out) -> None:
+    """Launch the kernel on the current stream into ``out`` / ``state_out``.
+
+    No checks: callers pass contiguous float32 tensors that ``check_inputs``
+    validated.  Counts the launch and raises if CUDA refused it.
+    """
+    fn = load_kernel().lib.wkv6_f32
+    b, t, h, dk = r.shape
+    err = fn(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), logdecay.data_ptr(), u.data_ptr(),
+        None if state is None else state.data_ptr(), out.data_ptr(), state_out.data_ptr(),
+        b, t, h, dk, q, torch.cuda.current_stream(r.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"wkv6 launch failed with cudaError_t {err}")
+    launches.count += 1
+
+
+def wkv6(
+    r: torch.Tensor,  # (B, T, H, dk)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    logdecay: torch.Tensor,  # (B, T, H, dk), <= 0
+    u: torch.Tensor,  # (H, dk)
+    *,
+    state: torch.Tensor | None = None,  # (B, H, dk, dk) float32; None = zeros
+    chunk: int = 16,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chunked WKV: returns (out (B, T, H, dk) in r's type, final state
+    (B, H, dk, dk) float32).  bf16 operands are computed in float32."""
+    if r.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"wkv6 runs on cpu or cuda tensors, got {r.device}")
+    q = check_inputs(r, k, v, logdecay, u, state, chunk)
+    if r.device.type == "cpu":
+        out, final = ref.wkv6_chunked_ref(r, k, v, logdecay, u, state, chunk=q)
+        return out.to(r.dtype), final
+    rf, kf, vf, lf, uf = (x.float().contiguous() for x in (r, k, v, logdecay, u))
+    state = None if state is None else state.contiguous()
+    out = torch.empty(r.shape, dtype=torch.float32, device=r.device)
+    final = torch.empty((r.shape[0], r.shape[2], r.shape[3], r.shape[3]), dtype=torch.float32,
+                        device=r.device)
+    launch(rf, kf, vf, lf, uf, state, q, out, final)
+    return out.to(r.dtype), final

@@ -1,0 +1,84 @@
+"""Shared layer primitives of the language models (the port's
+``repro.models.common``, the parts the RWKV6 family needs).
+
+Parameters are flat dicts of tensors with dotted names in the reference's
+layouts: a dense kernel is (in, out) and is applied as ``x @ w``; a norm is
+``{"scale", "bias"}``.  ``sub(params, prefix)`` selects one module's leaves.
+Norms and the unembedding compute in float32, as the reference does.
+
+Initializers draw from an explicit ``torch.Generator`` on the device the
+parameters live on: at 7.6 B parameters a draw on the CPU would take minutes.
+``jax.random`` cannot be reproduced here, so parity tests load parameters
+exported from the reference instead (``repro_torch.interop``).
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+
+def sub(params: dict[str, torch.Tensor], prefix: str) -> dict[str, torch.Tensor]:
+    """The leaves under ``prefix`` (``"time_mix."``), with the prefix removed."""
+    n = len(prefix)
+    return {name[n:]: value for name, value in params.items() if name.startswith(prefix)}
+
+
+def row(tree: dict[str, torch.Tensor], i: int) -> dict[str, torch.Tensor]:
+    """Views of index ``i`` of every leaf: layer ``i`` of layer-stacked
+    leaves, or peer ``i`` of a stacked fleet (no copies)."""
+    return {name: t[i] for name, t in tree.items()}
+
+
+def truncated_normal_init(
+    generator: torch.Generator, shape: Sequence[int], scale: float, dtype: torch.dtype
+) -> torch.Tensor:
+    """A normal truncated at +-2, drawn in float32 on the generator's device,
+    times ``scale``, cast to ``dtype``."""
+    out = torch.empty(tuple(shape), dtype=torch.float32, device=generator.device)
+    torch.nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (out * scale).to(dtype)
+
+
+def dense_init(
+    generator: torch.Generator,
+    in_dim: int,
+    out_dims: Sequence[int] | int,
+    dtype: torch.dtype,
+    *,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Fan-in scaled init for a dense kernel (in_dim, *out_dims)."""
+    out_dims = (out_dims,) if isinstance(out_dims, int) else tuple(out_dims)
+    scale = scale if scale is not None else in_dim**-0.5
+    return truncated_normal_init(generator, (in_dim, *out_dims), scale, dtype)
+
+
+def embed_init(generator: torch.Generator, vocab: int, dim: int, dtype: torch.dtype):
+    # dim**-0.5 keeps tied-unembedding logits O(1) at init.
+    return truncated_normal_init(generator, (vocab, dim), dim**-0.5, dtype)
+
+
+def layernorm_init(dim: int, dtype: torch.dtype, device: torch.device) -> dict:
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device),
+            "bias": torch.zeros((dim,), dtype=dtype, device=device)}
+
+
+def layernorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis in float32, cast back to ``x``'s type."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype)
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
+    return table[tokens].to(compute_dtype)
+
+
+def unembed(table_or_head: torch.Tensor, x: torch.Tensor, *, transpose: bool) -> torch.Tensor:
+    """Logits in f32. transpose=True when sharing the embedding table (V, D)."""
+    head = table_or_head.float()
+    return x.float() @ (head.T if transpose else head)

@@ -1,0 +1,175 @@
+"""RWKV6 (Finch) layers with data-dependent decay (the port's
+``repro.models.ssm``, its RWKV6 half; the Mamba2 half is ROADMAP.md queue 1
+item 16).
+
+One layer's parameters are a flat dict with dotted names in the reference's
+layouts (``"time_mix.w_r"`` (d, d), ``"time_mix.mix_lora_a"`` (d, 5, r), ...),
+applied as ``x @ w``.  The casts are the reference's: the LoRA ``tanh`` runs
+in float32 and is cast back to the model type, the log-decay is
+``-exp(clip(w0 + dw, -12, 4))`` in float32, and r, k and v enter the WKV in
+float32.
+
+``rwkv6_time_mix_chunked`` (prefill) sends its WKV core through the
+hand-written kernel's wrapper ``kernels.rwkv6.ops.wkv6``;
+``rwkv6_time_mix_scan`` (decode, one token at a time) is the token-sequential
+recurrence and reaches no kernel, in the reference as here.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import SSMConfig
+from repro_torch.kernels.rwkv6 import ops as wkv6_ops
+from repro_torch.models import common
+
+_TM_MIX_NAMES = ("r", "k", "v", "g", "w")
+
+
+def rwkv6_init(
+    generator: torch.Generator, d_model: int, d_ff: int, cfg: SSMConfig, dtype: torch.dtype
+) -> dict[str, torch.Tensor]:
+    """One layer's parameters, drawn on the generator's device."""
+    dev = generator.device
+    d, r = d_model, cfg.lora_rank
+    h = d // cfg.head_dim
+    dense = lambda i, o: common.dense_init(generator, i, o, dtype)  # noqa: E731
+    tn = lambda shape, scale, dt=dtype: common.truncated_normal_init(  # noqa: E731
+        generator, shape, scale, dt)
+    full = lambda shape, value, dt=dtype: torch.full(shape, value, dtype=dt, device=dev)  # noqa: E731
+    tm = {
+        **{f"ln.{k}": t for k, t in common.layernorm_init(d, dtype, dev).items()},
+        "mu_base": full((d,), 0.5),
+        "mix_mu": full((5, d), 0.5),  # r,k,v,g,w
+        "mix_lora_a": dense(d, (5, r)),
+        "mix_lora_b": tn((5, r, d), 0.01),
+        "w_r": dense(d, d),
+        "w_k": dense(d, d),
+        "w_v": dense(d, d),
+        "w_g": dense(d, d),
+        "w_o": dense(d, d),
+        "decay_base": full((d,), -4.0, torch.float32),  # w0: decay ~ exp(-exp(-4+dx))
+        "decay_lora_a": dense(d, 2 * r),
+        "decay_lora_b": tn((2 * r, d), 0.01),
+        "bonus_u": tn((h, cfg.head_dim), 0.5, torch.float32),
+        # per-head groupnorm folded to LN
+        **{f"out_ln.{k}": t for k, t in common.layernorm_init(d, dtype, dev).items()},
+    }
+    cm = {
+        **{f"ln.{k}": t for k, t in common.layernorm_init(d, dtype, dev).items()},
+        "mu_k": full((d,), 0.5),
+        "mu_r": full((d,), 0.5),
+        "wk_ff": dense(d, d_ff),
+        "wv_ff": dense(d_ff, d),
+        "wr_gate": dense(d, d),
+    }
+    return {**{f"time_mix.{k}": t for k, t in tm.items()},
+            **{f"channel_mix.{k}": t for k, t in cm.items()}}
+
+
+def rwkv6_state(
+    d_model: int, cfg: SSMConfig, batch: int, dtype: torch.dtype, device: torch.device
+) -> dict[str, torch.Tensor]:
+    h = d_model // cfg.head_dim
+    return {
+        "tm_prev": torch.zeros((batch, d_model), dtype=dtype, device=device),
+        "cm_prev": torch.zeros((batch, d_model), dtype=dtype, device=device),
+        "wkv": torch.zeros((batch, h, cfg.head_dim, cfg.head_dim), dtype=torch.float32,
+                           device=device),
+    }
+
+
+def _token_shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
+    """xx_t = x_{t-1}; xx_0 = prev (carried across calls). x: (B, L, D)."""
+    return torch.cat([prev[:, None], x[:, :-1]], dim=1)
+
+
+def _tm_projections(tm: dict, x: torch.Tensor, prev: torch.Tensor):
+    """Data-dependent token-shift mixing (ddlerp) + projections + decay."""
+    b, l, d = x.shape
+    xx = _token_shift(x, prev)
+    sx = xx - x
+    base = x + sx * tm["mu_base"]
+    lora_a = tm["mix_lora_a"]  # (d, 5, r)
+    lora_mid = torch.tanh((base @ lora_a.reshape(d, -1)).float()).view(b, l, *lora_a.shape[1:])
+    lora_out = torch.einsum("blmr,mrd->blmd", lora_mid.to(x.dtype), tm["mix_lora_b"])
+    mixed = {}
+    for i, name in enumerate(_TM_MIX_NAMES):
+        m = tm["mix_mu"][i] + lora_out[:, :, i]
+        mixed[name] = x + sx * m
+    r = mixed["r"] @ tm["w_r"]
+    k = mixed["k"] @ tm["w_k"]
+    v = mixed["v"] @ tm["w_v"]
+    g = mixed["g"] @ tm["w_g"]
+    dlo = torch.tanh((mixed["w"] @ tm["decay_lora_a"]).float())
+    dw = dlo.to(x.dtype) @ tm["decay_lora_b"]
+    # log-decay per channel: logd = -exp(w0 + dw)  (always negative)
+    logd = -torch.exp(torch.clamp(tm["decay_base"] + dw.float(), -12.0, 4.0))
+    return r, k, v, g, logd, x[:, -1]
+
+
+def _heads(t: torch.Tensor, head_dim: int) -> torch.Tensor:
+    b, l, d = t.shape
+    return t.reshape(b, l, d // head_dim, head_dim)
+
+
+def _tm_output(tm: dict, o: torch.Tensor, g: torch.Tensor, dtype: torch.dtype):
+    b, l = o.shape[:2]
+    o = common.layernorm(common.sub(tm, "out_ln."), o.reshape(b, l, -1).to(dtype))
+    o = o * torch.nn.functional.silu(g.float()).to(dtype)
+    return o @ tm["w_o"]
+
+
+def rwkv6_time_mix_scan(tm: dict, cfg: SSMConfig, x, prev, wkv):
+    """Sequential WKV oracle / decode. Returns (out, new_prev, new_wkv)."""
+    r, k, v, g, logd, new_prev = _tm_projections(tm, x, prev)
+    dk = cfg.head_dim
+    rh, kh, vh = (_heads(t, dk).float() for t in (r, k, v))
+    ld = _heads(logd, dk)
+    u = tm["bonus_u"]  # (H, dk)
+    s = wkv
+    outs = []
+    for t in range(x.shape[1]):
+        rt, kt, vt = rh[:, t], kh[:, t], vh[:, t]  # (B, H, dk)
+        # o_t = r_t . (S_{t-1} + (u*k_t) v_t^T)
+        ot = (rt.unsqueeze(-2) @ s).squeeze(-2) + (rt * u * kt).sum(-1, keepdim=True) * vt
+        s = torch.exp(ld[:, t]).unsqueeze(-1) * s + kt.unsqueeze(-1) * vt.unsqueeze(-2)
+        outs.append(ot)
+    o = torch.stack(outs, dim=1)  # (B, L, H, dk)
+    return _tm_output(tm, o, g, x.dtype), new_prev, s
+
+
+def rwkv6_time_mix_chunked(tm: dict, cfg: SSMConfig, x, prev, wkv):
+    """Chunk-parallel WKV through the ``wkv6`` kernel's wrapper, from the
+    carried state; a ragged last chunk is masked (the reference pads it)."""
+    q = min(cfg.chunk, x.shape[1])
+    r, k, v, g, logd, new_prev = _tm_projections(tm, x, prev)
+    dk = cfg.head_dim
+    rh, kh, vh = (_heads(t, dk).float() for t in (r, k, v))
+    o, wkv_final = wkv6_ops.wkv6(rh, kh, vh, _heads(logd, dk), tm["bonus_u"], state=wkv,
+                                 chunk=q)
+    return _tm_output(tm, o, g, x.dtype), new_prev, wkv_final
+
+
+def rwkv6_channel_mix(cm: dict, x, prev):
+    xx = _token_shift(x, prev)
+    sx = xx - x
+    xk = x + sx * cm["mu_k"]
+    xr = x + sx * cm["mu_r"]
+    k = xk @ cm["wk_ff"]
+    k = torch.square(torch.relu(k.float())).to(x.dtype)
+    kv = k @ cm["wv_ff"]
+    rg = torch.sigmoid((xr @ cm["wr_gate"]).float())
+    return rg.to(x.dtype) * kv, x[:, -1]
+
+
+def rwkv6_block_apply(params: dict, cfg: SSMConfig, x, state: dict, *, chunked: bool):
+    """Full RWKV6 layer: time-mix + channel-mix with pre-LN residuals."""
+    tm, cm = common.sub(params, "time_mix."), common.sub(params, "channel_mix.")
+    h_in = common.layernorm(common.sub(tm, "ln."), x)
+    fn = rwkv6_time_mix_chunked if chunked else rwkv6_time_mix_scan
+    o, tm_prev, wkv = fn(tm, cfg, h_in, state["tm_prev"], state["wkv"])
+    x = x + o
+    c_in = common.layernorm(common.sub(cm, "ln."), x)
+    o2, cm_prev = rwkv6_channel_mix(cm, c_in, state["cm_prev"])
+    x = x + o2
+    return x, {"tm_prev": tm_prev, "cm_prev": cm_prev, "wkv": wkv}
