@@ -4,14 +4,18 @@
 In order:
 1. prints the card's name and power limit, the torch version and the TF32
    flags (set off: the reference mixes at full float32 precision), and takes
-   the card's peak memory rate and float32 rate from its name;
+   the card's peak memory rate, float32 rate and dense bf16 tensor rate from
+   its name;
 2. builds every kernel of the port's main paths from this checkout's sources,
-   one nvcc per source, all started together (four: ``consensus_mix``,
-   ``dequant_mix``, ``segment_mix``, ``wkv6``), and prints ptxas's report;
+   one nvcc per source, all started together (five: ``consensus_mix``,
+   ``dequant_mix``, ``segment_mix``, ``wkv6``, ``flash_attention``), and
+   prints ptxas's report;
 3. holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes and times kernel, plain version and, where one exists,
    one PyTorch library call in turns with CUDA events (atol 5e-5 / rtol 1e-4
-   for the consensus kernels, 1e-3 for ``wkv6``): ``consensus_mix`` at three
+   for the consensus kernels and float32 attention, 1e-3 for ``wkv6``,
+   atol = rtol = 1e-2 and a relative norm error under 1e-2 for bf16
+   attention): ``consensus_mix`` at three
    shapes, ``dequant_mix`` at four (the vector path at K=100, a padded star
    round, and the scalar path with odd leaf boundaries, a zero beta row, a
    zero-scale leaf and a no-payload call), ``segment_mix`` at five (K=100
@@ -20,7 +24,13 @@ In order:
    D=2047 slots staged in chunks), ``wkv6`` at nine (the prefill's
    B 4, T 1024, 64 heads of 64, chunk 16, from a zero and from a random
    state; T 1000, ragged; log-decay -50; T 5, under one chunk; B 1, T 4096;
-   and the reference's three sweep shapes at head widths 16, 32 and 64);
+   and the reference's three sweep shapes at head widths 16, 32 and 64),
+   ``flash_attention`` at 27 (minitron's prefill B 4, S 1024, H 32, Kh 8,
+   D 128, causal, bf16, timed against SDPA; phi4's group of 3; the
+   long-context B 1, S 8192, window 4096, timed against SDPA with a boolean
+   mask; S 1000 ragged; S 5; non-causal float32; smollm's 9 over 3 heads;
+   zamba2's D 80; the reduced configs' D 32 float32; and the reference
+   sweep's 9 (S, D, mask) shapes in both types);
 4. serves RWKV6-7B at full width and depth (bf16, random init on the card)
    through ``serve_batch``: batch 4, prompt 1024, first prefill only, then
    prefill and 15 decode steps, asserting ``wkv6`` launched once per layer
@@ -29,7 +39,15 @@ In order:
    plain version; times a warm prefill and decode step and profiles each;
    then serves the K = 2 fleet through ``serve_fleet`` (two stacked models,
    one request group each), asserting 2 x 32 launches;
-5. drives the trainer through ``run_paper_experiment``: uncompressed
+5. serves minitron-8b (9.88 B parameters) at full width and depth the same
+   way, asserting ``flash_attention`` launched once per layer in each
+   prefill and never in the decode; reruns the attention of layers 0 and 31
+   at full width, the kernel against its plain version; times and profiles
+   a warm prefill and decode step (device time by kernel category); then
+   runs its long-context variant (``for_shape(..., long_500k)``, a 4096-slot
+   ring) on a prompt of 8192 tokens and 3 decode steps, asserting 32
+   launches, finite logits and the ring's positions;
+6. drives the trainer through ``run_paper_experiment``: uncompressed
    ``noniid_affinity`` (5 rounds) and ``iid_k100`` (2), then compressed
    ``timevarying_k8`` round robin with qint8 (5) and with top-k (3),
    ``iid_k100`` with qint8 (2), and ``iid_k100`` on the one-slice
@@ -37,13 +55,13 @@ In order:
    reset just before and read just after each run; after each of the first,
    the compressed and the hierarchical runs it recomputes one consensus
    phase with the plain version;
-6. breaks one round of ``noniid_affinity``, ``iid_k100`` and ``iid_k100``
+7. breaks one round of ``noniid_affinity``, ``iid_k100`` and ``iid_k100``
    with qint8 down by phase (synchronized host timers) and profiles one more
    for the device's busy share;
-7. trains the 2NN at K=4096 peers on a ring at full width on the one-slice
+8. trains the 2NN at K=4096 peers on a ring at full width on the one-slice
    segment runtime, 2 rounds through the round function without evaluation,
    and prints its seconds per round and peak memory beside the state's size;
-8. prints the ``kernels`` JSON line and, last, the contract line
+9. prints the ``kernels`` JSON line and, last, the contract line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result;
@@ -67,9 +85,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 TOL = dict(atol=5e-5, rtol=1e-4)  # float32, as tests/test_kernels.py
-# (memory bytes/s, float32 FLOP/s outside the tensor cores) by card, from
-# NVIDIA's H100 data sheet; the card's name, as nvidia-smi prints it, picks one
-PEAKS = {"H100 SXM": (3.35e12, 67e12), "H100 PCIe": (2.0e12, 51e12)}
+# (memory bytes/s, float32 FLOP/s outside the tensor cores, dense bf16 tensor
+# FLOP/s) by card, from NVIDIA's H100 data sheet; the card's name, as
+# nvidia-smi prints it, picks one
+PEAKS = {"H100 SXM": (3.35e12, 67e12, 989e12), "H100 PCIe": (2.0e12, 51e12, 756e12)}
 NONIID_ROUNDS = 5
 IID_ROUNDS = 2
 TV_QINT8_ROUNDS = 5
@@ -92,15 +111,17 @@ class Card:
             self.part = "H100 PCIe"
         else:
             raise RuntimeError(f"no peak rates known for the card {line!r}")
-        self.bytes_per_s, self.flop_per_s = PEAKS[self.part]
+        self.bytes_per_s, self.flop_per_s, self.bf16_flop_per_s = PEAKS[self.part]
 
-    def bound(self, nbytes: float, flops: float) -> dict:
-        """The least time for ``nbytes`` and ``flops`` on this card, and which bounds it."""
-        t_bytes, t_flops = nbytes / self.bytes_per_s * 1e3, flops / self.flop_per_s * 1e3
+    def bound(self, nbytes: float, flops: float, *, bf16: bool = False) -> dict:
+        """The least time for ``nbytes`` and ``flops`` on this card, and which
+        bounds it; ``bf16`` takes the dense bf16 tensor rate, else float32's."""
+        rate = self.bf16_flop_per_s if bf16 else self.flop_per_s
+        t_bytes, t_flops = nbytes / self.bytes_per_s * 1e3, flops / rate * 1e3
         return {"bound_ms": max(t_bytes, t_flops),
                 "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-                "bound_card": f"{self.line} ({self.part} peaks: "
-                              f"{self.bytes_per_s / 1e12} TB/s, {self.flop_per_s / 1e12} TFLOP/s)"}
+                "bound_card": f"{self.line} ({self.part} peaks: {self.bytes_per_s / 1e12} TB/s, "
+                              f"{rate / 1e12} TFLOP/s {'bf16' if bf16 else 'float32'})"}
 
 
 def check(cond: bool, what: str) -> None:
@@ -337,14 +358,16 @@ def segment_case(card, name, sparse, n, *, round_idx=0, zero_beta_rows=(), size=
 def build_kernels() -> None:
     """Build every kernel library at once (one nvcc each, in parallel)."""
     from repro_torch.kernels.consensus_mix import dequant, ops, segment
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.rwkv6 import ops as wkv6_ops
 
     start = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:
-        libs = dict(zip(("consensus_mix", "dequant_mix", "segment_mix", "wkv6"),
+        libs = dict(zip(("consensus_mix", "dequant_mix", "segment_mix", "wkv6",
+                         "flash_attention"),
                         pool.map(lambda mod: mod.load_kernel(),
-                                 (ops, dequant, segment, wkv6_ops))))
-    print(f"build: all four kernels in {time.perf_counter() - start:.2f} s", flush=True)
+                                 (ops, dequant, segment, wkv6_ops, flash_ops))))
+    print(f"build: all five kernels in {time.perf_counter() - start:.2f} s", flush=True)
     for name, kl in libs.items():
         print(f"  {name}: nvcc {kl.build_seconds:.2f} s -> {kl.path.relative_to(ROOT)}")
         for line in kl.log.splitlines():
@@ -353,6 +376,9 @@ def build_kernels() -> None:
     smem = {f"dk={dk} chunk={q}": libs["wkv6"].lib.wkv6_smem_bytes(dk, q)
             for dk, q in ((64, 16), (64, 48), (32, 16), (16, 8))}
     print(f"  wkv6 dynamic shared memory per block, bytes: {smem}", flush=True)
+    smem = {f"{name} D={d}": libs["flash_attention"].lib.flash_attention_smem_bytes(code, d)
+            for name, code in (("float32", 0), ("bfloat16", 1)) for d in (32, 64, 80, 128)}
+    print(f"  flash_attention dynamic shared memory per block, bytes: {smem}", flush=True)
 
 
 def _print_case(kernel: str, c: dict) -> None:
@@ -491,8 +517,139 @@ def _print_wkv6_case(c: dict) -> None:
           f"(max |out| {c['max_abs_out']:.4g}){times}", flush=True)
 
 
+# bf16 kernel vs plain version.  An output row averages up to S value rows, so
+# at S = 1024..8192 its entries are about 0.02..0.06: the reference's test
+# tolerance (5e-2) would pass a kernel that drops a KV tile.  Here each entry
+# is held within 1e-2 + 1e-2 |want| (one bf16 step at |out| ~ 3 is 0.0156), and
+# the whole output within 1e-2 of the plain version's norm.
+FLASH_BF16_TOL = dict(atol=1e-2, rtol=1e-2)
+FLASH_REL_NORM = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+LIBRARY_BF16_TOL = dict(atol=5e-2, rtol=5e-2)  # SDPA, the yardstick, as tests/test_kernels.py
+
+
+def check_flash(got: torch.Tensor, want: torch.Tensor, what: str) -> dict:
+    """Hold a flash output to the plain version's: every entry (float32
+    ``TOL``, bf16 ``FLASH_BF16_TOL``) and the relative norm of the
+    difference (``FLASH_REL_NORM``).  Returns the errors."""
+    g, w = got.float(), want.float()
+    check(got.dtype == want.dtype and bool(torch.isfinite(g).all()), f"{what} finite")
+    tol = TOL if got.dtype == torch.float32 else FLASH_BF16_TOL
+    torch.testing.assert_close(g, w, **tol, msg=lambda m: f"{what}: {m}")
+    rel = float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w))
+    check(rel < FLASH_REL_NORM[got.dtype],
+          f"{what}: relative norm error {rel} >= {FLASH_REL_NORM[got.dtype]}")
+    return {"max_abs_err": float((g - w).abs().max()), "rel_norm_err": rel,
+            "max_abs": float(w.abs().max())}
+
+
+def flash_live_pairs(s: int, *, causal: bool, window: int | None) -> int:
+    """(q, k) pairs with key k visible to query q, for one (batch row, head)."""
+    q = np.arange(s)
+    lo = np.maximum(0, q - window + 1) if window else np.zeros(s, np.int64)
+    hi = q if causal else np.full(s, s - 1)
+    return int((hi - lo + 1).sum())
+
+
+def flash_work(b, s, h, kh, d, *, causal, window, elem_bytes):
+    """(bytes, FLOP) one flash call needs: q, k, v read once, o written once;
+    4 D operations (two multiply-adds of D) per live (q, k) pair."""
+    nbytes = (2 * b * s * h * d + 2 * b * s * kh * d) * elem_bytes
+    return nbytes, 4 * d * b * h * flash_live_pairs(s, causal=causal, window=window)
+
+
+def visible_mask(s: int, *, causal: bool, window: int | None, device) -> torch.Tensor:
+    """(S, S) bool, True where the key is visible: SDPA's ``attn_mask``."""
+    qi = torch.arange(s, device=device)[:, None]
+    ki = torch.arange(s, device=device)[None, :]
+    mask = (ki <= qi) if causal else torch.ones(s, s, dtype=torch.bool, device=device)
+    return mask & ((qi - ki) < window) if window else mask
+
+
+def flash_case(card, name, b, s, h, kh, d, *, causal=True, window=None, dtype=torch.bfloat16,
+               timed=False, seed=0):
+    """flash_attention kernel vs its plain version on the card at one shape
+    (q (B, S, H, D), k and v (B, S, Kh, D), normal draws); ``timed`` also
+    times kernel, plain version and SDPA (``is_causal`` without a window, a
+    boolean mask with one) in turns, SDPA's output checked first."""
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(b, s, kh, d, generator=gen, device=dev).to(dtype) for _ in range(2))
+    got = ops.gqa_flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.gqa_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    case = {"case": name, "B": b, "S": s, "H": h, "Kh": kh, "D": d, "causal": causal,
+            "window": window, "dtype": str(dtype).removeprefix("torch."),
+            **check_flash(got, want, f"flash {name}")}
+    if timed:
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        if window is None:
+            library = lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)  # noqa: E731
+        else:
+            mask = visible_mask(s, causal=causal, window=window, device=dev)
+            library = lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
+        lib_out = library().transpose(1, 2).float()
+        torch.testing.assert_close(lib_out, want.float(),
+                                   **(TOL if dtype == torch.float32 else LIBRARY_BF16_TOL),
+                                   msg=lambda m: f"flash {name} SDPA: {m}")
+        case["library_max_abs_err"] = float((lib_out - want.float()).abs().max())
+        del lib_out
+        out = torch.empty_like(q)
+        scale = d**-0.5
+        kern = lambda: ops.launch(q, k, v, out, causal=causal, window=window,  # noqa: E731
+                                  scale=scale)
+        plain = lambda: ref.gqa_attention_ref(q, k, v, causal=causal, window=window)  # noqa: E731
+        case.update(in_turns(plain, kern, library))
+        case.update(card.bound(*flash_work(b, s, h, kh, d, causal=causal, window=window,
+                                           elem_bytes=q.element_size()),
+                               bf16=dtype == torch.bfloat16))
+    del q, k, v, got, want
+    return case
+
+
+def flash_cases(card: Card) -> list[dict]:
+    """``flash_attention`` at the decoder prefill's shapes and at its edges."""
+    f32 = torch.float32
+    cases = [
+        flash_case(card, "main_minitron", 4, 1024, 32, 8, 128, timed=True),
+        flash_case(card, "phi4_group3", 1, 2048, 24, 8, 128, seed=1),
+        flash_case(card, "long_window4096", 1, 8192, 32, 8, 128, window=4096, timed=True,
+                   seed=2),
+        flash_case(card, "ragged_s1000", 2, 1000, 32, 8, 128, seed=3),
+        flash_case(card, "tiny_s5", 1, 5, 32, 8, 128, seed=4),
+        flash_case(card, "noncausal_f32", 2, 512, 4, 4, 64, causal=False, dtype=f32, seed=5),
+        flash_case(card, "smollm", 2, 512, 9, 3, 64, seed=6),
+        flash_case(card, "zamba2_d80", 1, 1024, 32, 32, 80, seed=7),
+        flash_case(card, "reduced_d32_f32", 2, 128, 4, 2, 32, dtype=f32, seed=8),
+    ]
+    for s, d in ((128, 32), (256, 64), (64, 128)):  # test_flash_attention_sweep's grid
+        for causal, window in ((True, None), (True, 64), (False, None)):
+            for dtype in (f32, torch.bfloat16):
+                mode = "noncausal" if not causal else f"window{window}" if window else "causal"
+                cases.append(flash_case(card, f"sweep_s{s}_d{d}_{mode}_{str(dtype)[6:]}", 1, s,
+                                        2, 2, d, causal=causal, window=window, dtype=dtype,
+                                        seed=9))
+    torch.cuda.empty_cache()
+    return cases
+
+
+def _print_flash_case(c: dict) -> None:
+    times = ""
+    if "ms" in c:
+        times = (f" kernel={c['ms']:.4f} ms plain={c['plain_ms']:.4f} ms "
+                 f"library(SDPA)={c['library_ms']:.4f} ms bound={c['bound_ms']:.4f} ms "
+                 f"({c['bound_by']}; {c['bound_card']})")
+    print(f"flash_attention {c['case']}: B={c['B']} S={c['S']} H={c['H']} Kh={c['Kh']} "
+          f"D={c['D']} causal={c['causal']} window={c['window']} {c['dtype']} "
+          f"max_abs_err={c['max_abs_err']:.3g} rel_norm_err={c['rel_norm_err']:.3g} "
+          f"(max |out| {c['max_abs']:.4g}){times}", flush=True)
+
+
 def check_kernels(card: Card) -> dict[str, list[dict]]:
-    """Build the four kernels and hold each against its plain version at its shapes."""
+    """Build the five kernels and hold each against its plain version at its shapes."""
     from repro_torch.core import graph as graph_lib
     from repro_torch.core.p2p import layout_of
 
@@ -517,11 +674,14 @@ def check_kernels(card: Card) -> dict[str, list[dict]]:
         dequant_case(card, "ring_no_payload", graph_lib.build_graph("ring", 8),
                      np.arange(1, 9) * 10, (0, 301, 302, 777, 999), 1001, dmax=3,
                      zero_beta_rows=(3,), payload=False, seed=1),
-    ], "segment_mix": segment_cases(card), "wkv6": wkv6_cases(card)}
+    ], "segment_mix": segment_cases(card), "wkv6": wkv6_cases(card),
+        "flash_attention": flash_cases(card)}
     for kernel, kcases in cases.items():
         for c in kcases:
             if kernel == "wkv6":
                 _print_wkv6_case(c)
+            elif kernel == "flash_attention":
+                _print_flash_case(c)
             else:
                 _print_case(kernel, c)
     return cases
@@ -572,10 +732,12 @@ def recheck_consensus(name: str, exp, state, data, *, mix_mode=None) -> None:
 
 def launch_counters() -> dict:
     from repro_torch.kernels.consensus_mix import dequant, ops, segment
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.rwkv6 import ops as wkv6_ops
 
     return {"consensus_mix": ops.launches, "dequant_mix": dequant.launches,
-            "segment_mix": segment.launches, "wkv6": wkv6_ops.launches}
+            "segment_mix": segment.launches, "wkv6": wkv6_ops.launches,
+            "flash_attention": flash_ops.launches}
 
 
 def drive(name: str, exp, rounds: int, data, *, recheck: bool, mix_mode: str | None = None,
@@ -737,55 +899,64 @@ def drive_large_k(exp, rounds: int, data) -> dict:
 
 
 SERVE_ARCH = "rwkv6-7b"
+DECODER_ARCH = "minitron-8b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 16
 FLEET_PEERS = 2
+LONG_PROMPT, LONG_GEN = 8192, 4
 
 
-def _serving_launches(counters: dict, want_wkv6: int, name: str) -> dict:
+def _serving_launches(counters: dict, want: dict, name: str) -> dict:
     launches = {key: counter.count for key, counter in counters.items()}
-    want = {key: 0 for key in counters} | {"wkv6": want_wkv6}
+    want = {key: 0 for key in counters} | want
     check(launches == want, f"{name} launched {launches}, want {want}")
     return launches
 
 
-def drive_serve_batch(card: Card) -> dict:
-    """``serve_batch`` of rwkv6-7b at full width and depth (bf16, random
-    init from seed 0 on the card), launch counts set to 0 just before and
-    read just after each call: first with ``gen_tokens=1`` (prefill only, the
-    explicit empty decode), where wkv6 launches once per layer; then prefill
-    plus 15 decode steps, where it launches the same number in all, so the
-    decode launched none."""
+def drive_serve_batch(card: Card, arch: str, kernel: str) -> dict:
+    """``serve_batch`` of ``arch`` at full width and depth (bf16, random init
+    from seed 0 on the card), launch counts set to 0 just before and read
+    just after each call: first with ``gen_tokens=1`` (prefill only, the
+    explicit empty decode), where ``kernel`` launches once per layer; then
+    prefill plus 15 decode steps, where it launches the same number in all,
+    so the decode launched none."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
 
-    layers = get_config(SERVE_ARCH).num_layers
+    cfg = get_config(arch)
     counters = launch_counters()
     runs = {}
     for label, gen in (("prefill_only", 1), ("prefill_decode", SERVE_GEN)):
-        print(f"main path: serve_batch {SERVE_ARCH} full, batch {SERVE_BATCH}, prompt "
+        print(f"main path: serve_batch {arch} full, batch {SERVE_BATCH}, prompt "
               f"{SERVE_PROMPT}, gen {gen}", flush=True)
         torch.cuda.empty_cache()
         for counter in counters.values():
             counter.reset()
-        out = serve.serve_batch(SERVE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+        out = serve.serve_batch(arch, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
                                 gen_tokens=gen, use_reduced=False, seed=0, verbose=True,
                                 device="cuda")
-        launches = _serving_launches(counters, layers, f"serve_batch gen={gen}")
+        launches = _serving_launches(counters, {kernel: cfg.num_layers},
+                                     f"serve_batch {arch} gen={gen}")
         tokens = out["tokens"]
         check(tuple(tokens.shape) == (SERVE_BATCH, gen), f"serve_batch tokens {tokens.shape}")
-        check(bool(((tokens >= 0) & (tokens < 65536)).all()), "serve_batch tokens in the vocab")
+        check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+              "serve_batch tokens in the vocab")
         for name, leaf in out["cache"].items():
-            check(bool(torch.isfinite(leaf.float()).all()), f"serve_batch state {name} finite")
+            check(bool(torch.isfinite(leaf.float()).all()), f"serve_batch cache {name} finite")
+        if "main.pos_ids" in out["cache"]:  # the KV cache holds positions 0 .. prompt + gen - 2
+            want_pos = torch.arange(SERVE_PROMPT + gen, device="cuda", dtype=torch.int32)
+            want_pos[SERVE_PROMPT + gen - 1:] = -1
+            check(bool((out["cache"]["main.pos_ids"] == want_pos).all()),
+                  "serve_batch cache positions")
         runs[label] = {key: out[key] for key in ("prefill_s", "decode_steps",
                                                  "decode_s_per_token", "tokens_per_s",
                                                  "peak_memory_gb", "params_gb")}
-        runs[label]["launches"] = launches["wkv6"]
+        runs[label]["launches"] = launches[kernel]
         runs[label]["tokens"] = tokens[0].tolist()
         del out
     check(runs["prefill_only"]["tokens"][0] == runs["prefill_decode"]["tokens"][0],
           "the prefill token does not depend on the decode length")
-    print(f"serve_batch ({card.line}): {json.dumps(runs)}", flush=True)
-    return {"launches": sum(r["launches"] for r in runs.values()), "kernel": "wkv6",
+    print(f"serve_batch {arch} ({card.line}): {json.dumps(runs)}", flush=True)
+    return {"launches": sum(r["launches"] for r in runs.values()), "kernel": kernel,
             "runs": runs,
             "launches_by_phase": {"prefill": runs["prefill_only"]["launches"],
                                   "decode": runs["prefill_decode"]["launches"]
@@ -793,7 +964,7 @@ def drive_serve_batch(card: Card) -> dict:
 
 
 def recheck_and_break_down_serving(card: Card) -> dict:
-    """The served model again (seed 0: the same parameters and prompt as
+    """The served RWKV6 model again (seed 0: the same parameters and prompt as
     ``serve_batch``): the time-mix of layers 0 and 31 rerun on the hidden
     input the trunk gives them, the WKV through the kernel and through its
     plain version, output and state compared; then one warm prefill and one
@@ -801,7 +972,6 @@ def recheck_and_break_down_serving(card: Card) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels.rwkv6 import ops as wkv6_ops
     from repro_torch.kernels.rwkv6 import ref as wkv6_ref
-    from repro_torch.launch import steps
     from repro_torch.models import build_model, common, ssm
     from repro_torch.models import transformer as tf
 
@@ -844,32 +1014,162 @@ def recheck_and_break_down_serving(card: Card) -> dict:
                       f"{json.dumps(out[f'layer{i}'])}", flush=True)
             x, _ = ssm.rwkv6_block_apply(layer, cfg.ssm, x, common.row(state0, i), chunked=True)
 
-        prefill = steps.make_prefill_step(model)
-        decode = steps.make_serve_step(model)
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        tok, state = prefill(params, prompt, state0)
-        torch.cuda.synchronize()
-        out["warm_prefill_s"] = time.perf_counter() - start
-        pos = torch.full((SERVE_BATCH,), SERVE_PROMPT, dtype=torch.int64, device=dev)
-        decode(params, state, tok, pos)  # warm-up step
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        decode(params, state, tok, pos)
-        torch.cuda.synchronize()
-        out["warm_decode_step_s"] = time.perf_counter() - start
-        for phase, fn in (("prefill", lambda: prefill(params, prompt, state0)),
-                          ("decode_step", lambda: decode(params, state, tok, pos))):
-            out[phase] = profile_once(fn)
+        out.update(time_and_profile_serving(model, params, prompt, state0))
     print(f"serving breakdown ({card.line}): {json.dumps(out)}", flush=True)
-    del params, state, state0
+    del params, state0
     torch.cuda.empty_cache()
     return out
 
 
+def time_and_profile_serving(model, params, prompt, cache0) -> dict:
+    """One warm prefill and one warm decode step (after a warm-up step),
+    timed by host clocks around device synchronizes, then each profiled."""
+    from repro_torch.launch import steps
+
+    prefill = steps.make_prefill_step(model)
+    decode = steps.make_serve_step(model)
+    out = {}
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    tok, cache = prefill(params, prompt, cache0)
+    torch.cuda.synchronize()
+    out["warm_prefill_s"] = time.perf_counter() - start
+    pos = torch.full((SERVE_BATCH,), SERVE_PROMPT, dtype=torch.int64, device="cuda")
+    decode(params, cache, tok, pos)  # warm-up step
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    decode(params, cache, tok, pos)
+    torch.cuda.synchronize()
+    out["warm_decode_step_s"] = time.perf_counter() - start
+    for phase, fn in (("prefill", lambda: prefill(params, prompt, cache0)),
+                      ("decode_step", lambda: decode(params, cache, tok, pos))):
+        out[phase] = profile_once(fn)
+    return out
+
+
+def recheck_and_break_down_decoder(card: Card) -> dict:
+    """The served decoder again (seed 0: the same parameters and prompt as
+    ``serve_batch``): the attention of layers 0 and 31 rerun at full width on
+    the q, k and v the trunk gives them, the kernel against its plain version
+    (``check_flash``); then one warm prefill and one warm decode step
+    timed, and each profiled for its kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.models import attention, build_model, common
+    from repro_torch.models import transformer as tf
+
+    dev = torch.device("cuda")
+    cfg = get_config(DECODER_ARCH)
+    att = cfg.attention
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen)
+    prompt = model.make_batch(gen, SERVE_BATCH, SERVE_PROMPT)
+    out = {}
+    with torch.no_grad():
+        layers = common.sub(params, tf.LAYERS)
+        x = tf._decoder_embed(params, cfg, prompt["tokens"])
+        positions = torch.arange(SERVE_PROMPT, device=dev).expand(SERVE_BATCH, SERVE_PROMPT)
+        for i in range(cfg.num_layers):
+            layer = common.row(layers, i)
+            if i in (0, cfg.num_layers - 1):
+                h_in = common.rmsnorm(common.sub(layer, "ln1."), x, cfg.norm_eps)
+                q, k, v = attention.project_qkv(common.sub(layer, "attn."), att, h_in, positions)
+                got = flash_ops.gqa_flash_attention(q, k, v, window=att.sliding_window)
+                want = flash_ref.gqa_attention_ref(q, k, v, window=att.sliding_window)
+                torch.cuda.synchronize()
+                out[f"layer{i}"] = {**check_flash(got, want, f"layer {i} attention"),
+                                    "q_max_abs": float(q.float().abs().max())}
+                print(f"layer {i} attention at full width: kernel vs plain version "
+                      f"{json.dumps(out[f'layer{i}'])}", flush=True)
+                del q, k, v, got, want
+            x, _ = tf._block_apply(layer, cfg, x, positions, None)
+        del x
+        cache0 = model.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_GEN, dev)
+        out.update(time_and_profile_serving(model, params, prompt, cache0))
+    print(f"serving breakdown {DECODER_ARCH} ({card.line}): {json.dumps(out)}", flush=True)
+    del params, cache0
+    torch.cuda.empty_cache()
+    return out
+
+
+def drive_long_context(card: Card) -> dict:
+    """minitron-8b's long-context variant (``for_shape(..., long_500k)``: a
+    4096-slot ring) at full width and depth through ``build_model`` and
+    ``launch/steps.py``: batch 1, a prompt of 8192 tokens, 4 tokens; launch
+    counts set to 0 just before and read just after: one flash launch per
+    layer in the prefill, none in decode."""
+    from repro_torch.configs import INPUT_SHAPES, for_shape, get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+
+    dev = torch.device("cuda")
+    cfg = for_shape(get_config(DECODER_ARCH), INPUT_SHAPES["long_500k"])
+    window = cfg.attention.sliding_window
+    check(window == 4096, f"long_500k window {window}")
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen)
+    prompt = model.make_batch(gen, 1, LONG_PROMPT)
+    cache = model.init_cache(1, LONG_PROMPT + LONG_GEN, dev)
+    check(cache["main.k"].shape[2] == window, f"a ring of {window} slots")
+    decode = steps.make_decode_loop(model, LONG_GEN - 1)
+    counters = launch_counters()
+    print(f"main path: {DECODER_ARCH} long_500k variant (window {window}), batch 1, prompt "
+          f"{LONG_PROMPT}, gen {LONG_GEN}", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for counter in counters.values():
+        counter.reset()
+    start = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = model.prefill(params, prompt, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - start
+    check(tuple(logits.shape) == (1, 1, cfg.vocab_size), f"long-context logits {logits.shape}")
+    check(bool(torch.isfinite(logits).all()), "long-context logits finite")
+    tok = torch.argmax(logits[:, -1], dim=-1)
+    pos = torch.full((1,), LONG_PROMPT, dtype=torch.int64, device=dev)
+    start = time.perf_counter()
+    toks, cache = decode(params, cache, tok, pos)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - start
+    launches = _serving_launches(counters, {"flash_attention": cfg.num_layers}, "long context")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "long-context tokens in the vocab")
+    last = LONG_PROMPT + LONG_GEN - 2  # the last position written
+    held = torch.sort(cache["main.pos_ids"][:, 0].long(), dim=-1).values
+    check(bool((held == torch.arange(last - window + 1, last + 1, device=dev)).all()),
+          "every layer's ring holds the last 4096 positions")
+    run = {"prefill_s": prefill_s, "decode_s_per_token": decode_s / (LONG_GEN - 1),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "params_gb": sum(t.numel() * t.element_size() for t in params.values()) / 1e9,
+           "launches": launches["flash_attention"], "tokens": [int(tok[0])] + toks[0].tolist()}
+    print(f"long context {DECODER_ARCH} ({card.line}): {json.dumps(run)}", flush=True)
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    return {"kernel": "flash_attention", **run}
+
+
+def kernel_category(name: str) -> str:
+    """The group a device kernel's time is reported under."""
+    if "flash_" in name:
+        return "flash_attention"
+    if "wkv6" in name:
+        return "wkv6"
+    if any(tag in name for tag in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas")):
+        return "matmul"
+    if "copy" in name:
+        return "copies and casts"
+    return "other elementwise and reductions"
+
+
 def profile_once(fn) -> dict:
     """One call of ``fn`` under torch.profiler: wall seconds, device busy
-    seconds and share, and the kernels that took the most device time."""
+    seconds and share, device milliseconds by kernel category, and the
+    kernels that took the most device time."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         start = time.perf_counter()
@@ -879,8 +1179,14 @@ def profile_once(fn) -> dict:
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     device_s = sum(e.self_device_time_total for e in kernels) / 1e6
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)
+    by_category: dict[str, list] = {}
+    for e in kernels:
+        entry = by_category.setdefault(kernel_category(e.key), [0, 0.0])
+        entry[0] += e.count
+        entry[1] += e.self_device_time_total / 1e3
     return {"wall_s": wall_s, "device_busy_s": device_s,
             "device_busy_share": device_s / wall_s if device_s > 0 else None,
+            "by_category_launches_ms": by_category,
             "top_kernels_ms": [(e.key[:70], e.count, e.self_device_time_total / 1e3)
                                for e in top[:8]]}
 
@@ -903,7 +1209,7 @@ def drive_serve_fleet(card: Card) -> dict:
     out = serve.serve_fleet(SERVE_ARCH, num_peers=FLEET_PEERS, batch=SERVE_BATCH,
                             prompt_len=SERVE_PROMPT, gen_tokens=SERVE_GEN, use_reduced=False,
                             seed=0, verbose=True, device="cuda")
-    launches = _serving_launches(counters, FLEET_PEERS * layers, "serve_fleet")
+    launches = _serving_launches(counters, {"wkv6": FLEET_PEERS * layers}, "serve_fleet")
     tokens = out["tokens"]
     check(tuple(tokens.shape) == (FLEET_PEERS, SERVE_BATCH, SERVE_GEN), "fleet tokens shape")
     check(bool(((tokens >= 0) & (tokens < 65536)).all()), "fleet tokens in the vocab")
@@ -932,9 +1238,12 @@ def main() -> int:
           flush=True)
 
     cases = check_kernels(card)
-    paths = {"serve_batch": drive_serve_batch(card)}
-    serving = recheck_and_break_down_serving(card)
+    paths = {"serve_batch": drive_serve_batch(card, SERVE_ARCH, "wkv6")}
+    serving = {"wkv6": recheck_and_break_down_serving(card)}
     paths["serve_fleet_k2"] = drive_serve_fleet(card)
+    paths["serve_batch_minitron"] = drive_serve_batch(card, DECODER_ARCH, "flash_attention")
+    serving["flash_attention"] = recheck_and_break_down_decoder(card)
+    paths["long_context_minitron"] = drive_long_context(card)
     data = synthetic.mnist_like()
     noniid = noniid_k2(algorithm="p2pl_affinity", local_steps=10)
     iid = iid_k100()
@@ -973,12 +1282,19 @@ def main() -> int:
         ("segment_mix", "consensus_mix/csrc/segment_mix.cu", "consensus_mix/segment.py:124",
          f"ring_k{LARGE_K}"),
         ("wkv6", "rwkv6/csrc/wkv6.cu", "rwkv6/rwkv6.py:94", "main_b4_t1024"),
+        ("flash_attention", "flash_attention/csrc/flash_attention.cu",
+         "flash_attention/flash_attention.py:124", "main_minitron"),
     ):
         main = next(c for c in cases[kernel] if c["case"] == main_case)
         by_path = {name: p["launches"] for name, p in paths.items() if p["kernel"] == kernel}
-        shape = (f"B={main['B']} T={main['T']} H={main['H']} dk={main['dk']} "
-                 f"chunk={main['chunk']}" if kernel == "wkv6"
-                 else f"K={main['K']} D={main['D']} N={main['N']}")
+        if kernel == "wkv6":
+            shape = (f"B={main['B']} T={main['T']} H={main['H']} dk={main['dk']} "
+                     f"chunk={main['chunk']}")
+        elif kernel == "flash_attention":
+            shape = (f"B={main['B']} S={main['S']} H={main['H']} Kh={main['Kh']} D={main['D']} "
+                     f"causal {main['dtype']}")
+        else:
+            shape = f"K={main['K']} D={main['D']} N={main['N']}"
         entries.append({
             "name": kernel,
             "route": "cuda",
@@ -992,8 +1308,14 @@ def main() -> int:
             "shape": shape,
             "shapes": cases[kernel],
         })
-    entries[-1]["launches_by_phase"] = paths["serve_batch"]["launches_by_phase"]
-    entries[-1]["serving_recheck"] = {key: serving[key] for key in serving if key.startswith("layer")}
+    for entry in entries:
+        kernel = entry["name"]
+        if kernel in serving:
+            path = next(p for p in paths.values()
+                        if p["kernel"] == kernel and "launches_by_phase" in p)
+            entry["launches_by_phase"] = path["launches_by_phase"]
+            entry["serving_recheck"] = {key: value for key, value in serving[kernel].items()
+                                        if key.startswith("layer")}
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

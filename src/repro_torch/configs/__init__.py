@@ -2,14 +2,22 @@
 
 ``p2pl_mnist`` holds the paper's experiments.  The model registry below is
 the port's ``repro.configs`` registry: ``get_config(name)`` and
-``reduced(cfg)``.  Only ``rwkv6-7b`` is registered; the reference's other
-architectures raise ``NotImplementedError`` (ROADMAP.md queue 1 item 16).
+``reduced(cfg)``, and ``for_shape(cfg, shape)`` (the long-context window
+variant).  The RWKV6 model and the four dense GQA decoders are registered;
+the reference's other architectures raise ``NotImplementedError`` (ROADMAP.md
+queue 1 item 16).
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import rwkv6_7b
+from repro_torch.configs import (
+    minitron_8b,
+    phi4_mini_3_8b,
+    qwen1_5_32b,
+    rwkv6_7b,
+    smollm_135m,
+)
 from repro_torch.configs.base import (
     INPUT_SHAPES,
     AttentionConfig,
@@ -21,19 +29,24 @@ from repro_torch.configs.base import (
 
 ARCHITECTURES = {
     "rwkv6-7b": rwkv6_7b.config,
+    "minitron-8b": minitron_8b.config,
+    "phi4-mini-3.8b": phi4_mini_3_8b.config,
+    "qwen1.5-32b": qwen1_5_32b.config,
+    "smollm-135m": smollm_135m.config,
 }
 # names the reference registers whose families the port does not run yet
 UNPORTED_ARCHITECTURES = (
     "deepseek-v2-236b",
     "internvl2-2b",
-    "minitron-8b",
-    "phi4-mini-3.8b",
-    "qwen1.5-32b",
     "qwen3-moe-235b-a22b",
     "seamless-m4t-medium",
-    "smollm-135m",
     "zamba2-2.7b",
 )
+
+# Sliding-window size for the long_500k variant of attention-bearing archs.
+LONG_CTX_WINDOW = 4096
+# Families whose long_500k decode is natively sub-quadratic.
+NATIVE_LONG_CTX_FAMILIES = ("rwkv6", "hybrid")
 
 
 def get_config(name: str) -> ModelConfig:
@@ -45,6 +58,15 @@ def get_config(name: str) -> ModelConfig:
     if name not in ARCHITECTURES:
         raise KeyError(f"unknown architecture {name!r}; one of {sorted(ARCHITECTURES)}")
     return ARCHITECTURES[name]()
+
+
+def for_shape(cfg: ModelConfig, shape: ShapeConfig) -> ModelConfig:
+    """Adapt a config to an input shape (long-context window variant)."""
+    if shape.name == "long_500k" and cfg.family not in NATIVE_LONG_CTX_FAMILIES:
+        if cfg.attention is not None:
+            att = dataclasses.replace(cfg.attention, sliding_window=LONG_CTX_WINDOW)
+            cfg = cfg.replace(attention=att)
+    return cfg
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
@@ -112,11 +134,14 @@ __all__ = [
     "ARCHITECTURES",
     "AttentionConfig",
     "INPUT_SHAPES",
+    "LONG_CTX_WINDOW",
     "ModelConfig",
     "MoEConfig",
+    "NATIVE_LONG_CTX_FAMILIES",
     "SSMConfig",
     "ShapeConfig",
     "UNPORTED_ARCHITECTURES",
+    "for_shape",
     "get_config",
     "reduced",
 ]

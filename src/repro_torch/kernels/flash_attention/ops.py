@@ -1,0 +1,158 @@
+"""Public API of the flash-attention kernel (the port's
+``repro.kernels.flash_attention.ops``).
+
+``gqa_flash_attention`` computes softmax attention over q (B, S, H, D) and
+grouped k, v (B, S, Kh, D) (query head h reads KV head h // (H // Kh)),
+causal, sliding-window or non-causal, with float32 scores and softmax, and
+returns (B, S, H, D) in q's type.  It replaces the Pallas TPU kernel
+``repro/kernels/flash_attention/flash_attention.py:flash_attention`` and its
+GQA wrapper ``ops.gqa_flash_attention``, which repeats the KV heads and
+transposes; here the kernel reads the model's layouts in place through their
+strides.  ``flash_attention`` takes the reference kernel's (B, H, S, D)
+layout (KV heads already expanded), through the same kernel.  Unlike the
+Pallas kernel, S need not be a multiple of the tile.
+
+Dispatch is by the device of the operands, and only by it:
+
+- CPU tensors take the plain PyTorch version (``ref.gqa_attention_ref``);
+- CUDA tensors launch the hand-written kernel (``csrc/flash_attention.cu``,
+  built for sm_90a and loaded with ctypes on first use) or raise — there is
+  no fallback;
+- any other device raises.
+
+The kernel takes float32 (computed in float32 on the float32 pipes) and
+bfloat16 (tensor cores, float32 accumulation) at head widths 32, 64, 80 and
+128.  Bound on an H100 SXM (see the note in the CUDA source): at the
+serving prefill's B 4, S 1024, H 32, Kh 8, D 128, causal, one call does
+34.4 GFLOP (0.0348 ms at 989 TFLOP/s bf16) against 83.9 MB (0.025 ms at
+3.35 TB/s): it is bound by operations.
+
+``launches.count`` counts kernel launches (never plain-version calls).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.build import LaunchCounter
+from repro_torch.kernels.flash_attention import ref
+
+SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"]
+HEAD_DIMS = (32, 64, 80, 128)  # the head widths the kernel is instantiated for
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # the kernel's dtype argument
+
+launches = LaunchCounter()
+
+
+@functools.cache
+def load_kernel() -> build.KernelLibrary:
+    """Build (first call) and load the kernel library; declares its C signature."""
+    kl = build.load_library("flash_attention", SOURCES)
+    fn = kl.lib.flash_attention_fwd
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    fn.argtypes = [ptr] * 4 + [i64] * 6 + [ctypes.POINTER(i64), i64, i64, ctypes.c_double, ptr]
+    fn.restype = ctypes.c_int
+    kl.lib.flash_attention_smem_bytes.argtypes = [i64, i64]
+    kl.lib.flash_attention_smem_bytes.restype = i64
+    return kl
+
+
+def check_inputs(q, k, v, window) -> None:
+    """Validate shapes, types and devices (every device)."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q, k, v must be 4-d, got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, s, h, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[1] != s or k.shape[3] != d:
+        raise ValueError(f"k and v must be (B, S, Kh, D) = ({b}, {s}, Kh, {d}), got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    if h % k.shape[2] != 0:
+        raise ValueError(f"query heads {h} must be a multiple of KV heads {k.shape[2]}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.dtype not in DTYPE_CODES:
+            raise TypeError(f"flash attention takes float32 or bfloat16 {name}, got {x.dtype}")
+        if x.dtype != q.dtype:
+            raise TypeError(f"{name} is {x.dtype}, q is {q.dtype}")
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+    if s < 1:
+        raise ValueError("flash attention needs S >= 1")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be None or >= 1, got {window}")
+
+
+def _kernel_operand(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the kernel reads it: unit stride on the last axis and, for
+    bf16 (16-byte loads), every stride a multiple of 8 elements and the data
+    16-byte aligned; anything else is copied to a contiguous tensor."""
+    aligned = x.stride(-1) == 1
+    if x.dtype == torch.bfloat16:
+        aligned = aligned and all(st % 8 == 0 for st in x.stride()[:-1]) \
+            and x.data_ptr() % 16 == 0
+    return x if aligned else x.contiguous()
+
+
+def launch(q, k, v, out, *, causal: bool, window: int | None, scale: float) -> None:
+    """Launch the kernel on the current stream into ``out`` (B, S, H, D).
+
+    No checks: callers pass CUDA operands that ``check_inputs`` validated,
+    with strides the kernel reads (``_kernel_operand``), and a contiguous
+    ``out``.  Counts the launch and raises if CUDA refused it.
+    """
+    fn = load_kernel().lib.flash_attention_fwd
+    b, s, h, d = q.shape
+    strides = (ctypes.c_int64 * 12)(*(st for x in (q, k, v, out) for st in x.stride()[:3]))
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), DTYPE_CODES[q.dtype],
+        b, s, h, k.shape[2], d, strides, int(causal), window or 0, scale,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed with cudaError_t {err}")
+    launches.count += 1
+
+
+def gqa_flash_attention(
+    q: torch.Tensor,  # (B, S, H, D)
+    k: torch.Tensor,  # (B, S, Kh, D)
+    v: torch.Tensor,  # (B, S, Kh, D)
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Attention of q over grouped k, v: (B, S, H, D) in q's type; ``scale``
+    defaults to D**-0.5."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash attention runs on cpu or cuda tensors, got {q.device}")
+    check_inputs(q, k, v, window)
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return ref.gqa_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"the flash attention kernel is built for head widths {HEAD_DIMS}, "
+                         f"got D={q.shape[-1]}")
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    launch(*(_kernel_operand(x) for x in (q, k, v)), out, causal=causal, window=window,
+           scale=scale)
+    return out
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, H, S, D)
+    k: torch.Tensor,  # (B, H, S, D)
+    v: torch.Tensor,  # (B, H, S, D)
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """The reference kernel's layout: (B, H, S, D) in, a (B, H, S, D) view
+    out.  The kernel reads the operands in place through transposed views."""
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    return gqa_flash_attention(qt, kt, vt, causal=causal, window=window,
+                               scale=scale).transpose(1, 2)

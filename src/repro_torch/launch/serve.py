@@ -3,9 +3,10 @@ port's ``repro.launch.serve``).
 
 ``serve_batch`` serves ONE model: prefill a prompt batch, then greedy-decode
 in a Python loop of decode steps (``launch/steps.py:make_decode_loop``, the
-reference's ``decode_impl="python"``).  Every prefill's chunked WKV runs
-through the hand-written ``wkv6`` kernel, one launch per layer; the decode
-steps run the token-sequential recurrence and launch no kernel.
+reference's ``decode_impl="python"``).  Every prefill runs one hand-written
+kernel per layer: the dense decoders' attention through ``flash_attention``,
+RWKV6's chunked WKV through ``wkv6``; the decode steps (attention over the
+KV cache, or the token-sequential recurrence) launch no kernel.
 
 ``serve_fleet`` is the personalized-fleet path: P2PL's product is K
 *divergent* models, stacked along a leading K axis as the trainer keeps them
@@ -13,7 +14,8 @@ steps run the token-sequential recurrence and launch no kernel.
 group g under peer ``peer_ids[g]``'s weights.  The reference gathers the
 groups' parameter rows and vmaps one generate over them; here the groups
 run in turn, each on views ``stacked[peer_id]`` of the stacked leaves, so no
-(G, ...) copy of the parameters is made (at RWKV6-7B a row is 15.2 GB).  The
+(G, ...) copy of the parameters is made (at RWKV6-7B a row is 15.2 GB, at
+minitron-8b 19.8 GB).  The
 result is the reference's invariant: the fleet is bit-identical to serving
 each peer's model separately.  The pod layout (one device per peer) is
 ROADMAP.md queue 1 item 15.
@@ -21,7 +23,7 @@ ROADMAP.md queue 1 item 15.
 Entry points run on ``cuda`` unless given ``device="cpu"``; times are taken
 after ``torch.cuda.synchronize()`` on the card.
 
-CLI:  python -m repro_torch.launch.serve --arch rwkv6-7b --batch 4 --gen 8
+CLI:  python -m repro_torch.launch.serve --arch smollm-135m --batch 4 --gen 8
       python -m repro_torch.launch.serve --peers 2        # the stacked fleet
       (add --device cpu to run the reduced model on the CPU, --full for the
       full-size model)
@@ -116,7 +118,7 @@ def _model_of(arch: str, use_reduced: bool):
 
 
 def serve_batch(
-    arch: str = "rwkv6-7b",
+    arch: str = "smollm-135m",
     *,
     batch: int = 4,
     prompt_len: int = 16,
@@ -206,7 +208,7 @@ def serve_batch(
 
 
 def serve_fleet(
-    arch: str = "rwkv6-7b",
+    arch: str = "smollm-135m",
     *,
     num_peers: int = 8,
     batch: int = 4,
@@ -272,7 +274,9 @@ def serve_fleet(
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="rwkv6-7b")
+    ap.add_argument("--arch", default="smollm-135m",
+                    help="a registered architecture: smollm-135m, minitron-8b, phi4-mini-3.8b, "
+                         "qwen1.5-32b or rwkv6-7b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=8)

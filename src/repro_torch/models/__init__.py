@@ -1,4 +1,5 @@
-"""Models of the port: the paper's 2NN MLP and the RWKV6 language model.
+"""Models of the port: the paper's 2NN MLP, the dense GQA decoders and the
+RWKV6 language model.
 
 ``build_model`` re-exports ``registry.build_model``, as the reference's
 ``repro.models`` does."""

@@ -1,0 +1,260 @@
+"""Attention with KV caches (the port's ``repro.models.attention``, its GQA
+half; MLA is ROADMAP.md queue 1 item 16).
+
+Parameters are the reference's: ``w_q`` (D, H, dh), ``w_k`` and ``w_v``
+(D, Kh, dh), ``w_o`` (H dh, D) and, with ``qkv_bias``, ``b_q`` / ``b_k`` /
+``b_v``.  Every cache carries ``pos_ids``, the absolute position stored in
+each slot (-1 = empty, int32 as in the reference).  Full-causal caches have
+``cache_len = max_seq``; sliding-window caches are rings of ``cache_len =
+window`` slots (write slot = pos % window).  ``cache_quant="int8"`` stores K
+and V as int8 with a float16 absmax scale per (slot, head).
+
+``gqa_apply`` has two paths, chosen by the caller:
+
+- **Prefill** (``cache is None``, or ``prefill=True``: the T tokens at
+  positions 0 .. T-1 written into an empty cache, which is how
+  ``decoder_prefill`` calls it) attends through
+  ``kernels.flash_attention.ops.gqa_flash_attention`` over the prompt's own
+  rotated q, k and v, causal with ``cfg.sliding_window``: one kernel launch
+  per layer on the card.  With an int8 cache it attends over the dequantized
+  k and v, with q, in float32, as the reference attends over the dequantized
+  cache.  The precondition (positions start at 0, the cache is empty) is
+  checked on CPU tensors only, so a CUDA launch never waits on the host.
+- **Cached** (a cache and ``prefill=False``: a decode step, or T > 1 tokens
+  appended to a written cache, as a chunked prefill does) writes the tokens
+  and runs the plain ``_attend`` over the whole cache, as the reference's
+  einsum does; no kernel.
+
+Under a sliding window the reference writes the whole prompt into the ring
+and then attends over the ring, so a prompt longer than the window
+overwrites early keys before early queries read them (ROADMAP.md §3).  Here
+the prefill attends over the prompt with the kernel's window mask, which is
+the reference's no-cache forward; and a write of T > cache_len positions
+writes only the last cache_len of them (``index_put_`` with repeated slots
+may keep any writer on CUDA), which leaves the ring the reference leaves.
+
+Caches are updated functionally, as in the reference: the returned cache is
+new and the one passed in is left as it was.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import AttentionConfig
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import NEG_INF
+from repro_torch.models import common
+
+
+def init(generator: torch.Generator, d_model: int, cfg: AttentionConfig,
+         dtype: torch.dtype) -> dict[str, torch.Tensor]:
+    if cfg.kind == "mla":
+        raise NotImplementedError(
+            "MLA (multi-head latent attention) is not ported yet: ROADMAP.md queue 1 item 16"
+        )
+    return _gqa_init(generator, d_model, cfg, dtype)
+
+
+def _gqa_init(generator: torch.Generator, d_model: int, cfg: AttentionConfig,
+              dtype: torch.dtype) -> dict[str, torch.Tensor]:
+    h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dev = generator.device
+    p = {
+        "w_q": common.dense_init(generator, d_model, (h, dh), dtype),
+        "w_k": common.dense_init(generator, d_model, (kh, dh), dtype),
+        "w_v": common.dense_init(generator, d_model, (kh, dh), dtype),
+        "w_o": common.dense_init(generator, h * dh, d_model, dtype),
+    }
+    if cfg.qkv_bias:
+        p["b_q"] = torch.zeros((h, dh), dtype=dtype, device=dev)
+        p["b_k"] = torch.zeros((kh, dh), dtype=dtype, device=dev)
+        p["b_v"] = torch.zeros((kh, dh), dtype=dtype, device=dev)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Caches
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: AttentionConfig, batch: int, max_seq: int, dtype: torch.dtype,
+               device) -> dict[str, torch.Tensor]:
+    """Decode cache; a ring of ``window`` slots under a sliding window."""
+    if cfg.kind == "mla":
+        raise NotImplementedError(
+            "the MLA latent cache is not ported yet: ROADMAP.md queue 1 item 16")
+    cache_len = min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
+    pos_ids = torch.full((batch, cache_len), -1, dtype=torch.int32, device=device)
+    kv_shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.cache_quant == "int8":
+        return {
+            "k": torch.zeros(kv_shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(kv_shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(kv_shape[:3], dtype=torch.float16, device=device),
+            "v_scale": torch.zeros(kv_shape[:3], dtype=torch.float16, device=device),
+            "pos_ids": pos_ids,
+        }
+    return {
+        "k": torch.zeros(kv_shape, dtype=dtype, device=device),
+        "v": torch.zeros(kv_shape, dtype=dtype, device=device),
+        "pos_ids": pos_ids,
+    }
+
+
+def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, T, Kh, D) -> (int8 values, float16 per-(token, head) scales)."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.float16)
+
+
+def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.float() * scale.float()[..., None]
+
+
+def cache_bytes(cfg: AttentionConfig, batch: int, max_seq: int, bytes_per_el: int = 2) -> int:
+    cache_len = min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
+    if cfg.kind == "mla":
+        return batch * cache_len * (cfg.kv_lora_rank + cfg.qk_rope_dim) * bytes_per_el
+    return batch * cache_len * 2 * cfg.num_kv_heads * cfg.head_dim * bytes_per_el
+
+
+def _write_slots(cache_len: int, positions: torch.Tensor) -> torch.Tensor:
+    """Ring-buffer slot for each absolute position (identity if the cache covers the sequence)."""
+    return positions % cache_len
+
+
+def _scatter_cache(buf: torch.Tensor, slots: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """A copy of buf (B, C, ...) with values (B, T, ...) at slots (B, T)."""
+    out = buf.clone()
+    bidx = torch.arange(buf.shape[0], device=buf.device)[:, None]
+    out[bidx, slots] = values.to(buf.dtype)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Core attend (decode)
+# ---------------------------------------------------------------------------
+
+
+def _attend(q, k, v, mask, scale):
+    """q: (B, T, Kh, G, dh) grouped query; k/v: (B, C, Kh, dh); mask:
+    (B, 1, 1, T, C) bool.  Float32 context (B, T, Kh, G, dh)."""
+    scores = torch.einsum("btkgd,bckd->bkgtc", q.float(), k.float())
+    scores = scores * scale + torch.where(mask, 0.0, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bkgtc,bckd->btkgd", probs, v.float())
+
+
+def _make_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, window: int | None) -> torch.Tensor:
+    """(B, T, C) bool: causal, slot-valid, and optionally windowed."""
+    m = (kv_pos[:, None, :] >= 0) & (kv_pos[:, None, :] <= q_pos[:, :, None])
+    if window:
+        m &= (q_pos[:, :, None] - kv_pos[:, None, :]) < window
+    return m
+
+
+def _check_prefill(positions: torch.Tensor, cache: dict | None) -> None:
+    """The prefill path's precondition, on CPU tensors only (a check of a
+    CUDA tensor would make the host wait for the device)."""
+    if positions.device.type != "cpu" or cache is None:
+        return
+    t = positions.shape[1]
+    want = torch.arange(t, dtype=positions.dtype)
+    if not bool((positions == want).all()) or not bool((cache["pos_ids"] == -1).all()):
+        raise ValueError(
+            "gqa_apply(prefill=True) writes positions 0 .. T-1 into an empty cache; "
+            "append to a written cache with prefill=False"
+        )
+
+
+def project_qkv(params: dict, cfg: AttentionConfig, x: torch.Tensor,
+                positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q (B, T, H, dh), k and v (B, T, Kh, dh): projected, biased, q and k rotated."""
+    b, t, d_model = x.shape
+    h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ params["w_q"].reshape(d_model, h * dh)).view(b, t, h, dh)
+    k = (x @ params["w_k"].reshape(d_model, kh * dh)).view(b, t, kh, dh)
+    v = (x @ params["w_v"].reshape(d_model, kh * dh)).view(b, t, kh, dh)
+    if "b_q" in params:
+        q, k, v = q + params["b_q"], k + params["b_k"], v + params["b_v"]
+    return (common.apply_rope(q, positions, cfg.rope_theta),
+            common.apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def gqa_apply(
+    params: dict,
+    cfg: AttentionConfig,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    cache: dict | None = None,
+    causal: bool = True,
+    prefill: bool = False,
+) -> tuple[torch.Tensor, dict | None]:
+    """x: (B, T, D); positions: (B, T) absolute.  Returns (out, new_cache).
+    ``prefill``: the tokens are a whole prompt written into an empty cache
+    (attended through the kernel); ignored without a cache."""
+    b, t, _ = x.shape
+    h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v = project_qkv(params, cfg, x, positions)
+    prefill = prefill or cache is None
+    if prefill:
+        _check_prefill(positions, cache)
+
+    kk = vv = kv_pos = None
+    if cache is not None:
+        cache_len = cache["k"].shape[1]
+        # a prompt longer than the ring: only its last cache_len positions stay
+        kw, vw, pw = (a[:, -cache_len:] for a in (k, v, positions)) if t > cache_len \
+            else (k, v, positions)
+        slots = _write_slots(cache_len, pw)
+        if "k_scale" in cache:  # int8-quantized cache
+            kq, ks = _quantize_kv(kw)
+            vq, vs = _quantize_kv(vw)
+            cache = {
+                "k": _scatter_cache(cache["k"], slots, kq),
+                "v": _scatter_cache(cache["v"], slots, vq),
+                "k_scale": _scatter_cache(cache["k_scale"], slots, ks),
+                "v_scale": _scatter_cache(cache["v_scale"], slots, vs),
+                "pos_ids": _scatter_cache(cache["pos_ids"], slots, pw),
+            }
+            if prefill:  # the prompt's own k and v as the reference reads them back
+                q = q.float()
+                k = _dequantize_kv(*_quantize_kv(k))
+                v = _dequantize_kv(*_quantize_kv(v))
+            else:
+                kk = _dequantize_kv(cache["k"], cache["k_scale"])
+                vv = _dequantize_kv(cache["v"], cache["v_scale"])
+        else:
+            cache = {
+                "k": _scatter_cache(cache["k"], slots, kw),
+                "v": _scatter_cache(cache["v"], slots, vw),
+                "pos_ids": _scatter_cache(cache["pos_ids"], slots, pw),
+            }
+            kk, vv = cache["k"], cache["v"]
+        kv_pos = cache["pos_ids"]
+
+    if prefill:
+        ctx = flash_ops.gqa_flash_attention(q, k, v, causal=causal,
+                                            window=cfg.sliding_window if causal else None,
+                                            scale=dh**-0.5)
+    else:
+        if causal:
+            mask = _make_mask(positions, kv_pos, cfg.sliding_window)
+        else:
+            mask = (kv_pos[:, None, :] >= 0) & torch.ones((b, t, 1), dtype=torch.bool,
+                                                           device=x.device)
+        ctx = _attend(q.view(b, t, kh, h // kh, dh), kk, vv, mask[:, None, None], dh**-0.5)
+    ctx = ctx.reshape(b, t, h * dh).to(x.dtype)
+    return ctx @ params["w_o"], cache
+
+
+def apply(params, cfg: AttentionConfig, x, positions, *, cache=None, causal=True,
+          prefill=False):
+    if cfg.kind == "mla":
+        raise NotImplementedError(
+            "MLA (multi-head latent attention) is not ported yet: ROADMAP.md queue 1 item 16"
+        )
+    return gqa_apply(params, cfg, x, positions, cache=cache, causal=causal, prefill=prefill)

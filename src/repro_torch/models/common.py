@@ -1,10 +1,11 @@
 """Shared layer primitives of the language models (the port's
-``repro.models.common``, the parts the RWKV6 family needs).
+``repro.models.common``, the parts the RWKV6 and dense decoder families need).
 
 Parameters are flat dicts of tensors with dotted names in the reference's
 layouts: a dense kernel is (in, out) and is applied as ``x @ w``; a norm is
 ``{"scale", "bias"}``.  ``sub(params, prefix)`` selects one module's leaves.
-Norms and the unembedding compute in float32, as the reference does.
+Norms, RoPE, the MLP's activation and the unembedding compute in float32,
+as the reference does, and cast back to the input's type.
 
 Initializers draw from an explicit ``torch.Generator`` on the device the
 parameters live on: at 7.6 B parameters a draw on the CPU would take minutes.
@@ -72,6 +73,66 @@ def layernorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     y = (xf - mean) * torch.rsqrt(var + eps)
     y = y * params["scale"].float() + params["bias"].float()
     return y.to(x.dtype)
+
+
+def rmsnorm_init(dim: int, dtype: torch.dtype, device: torch.device) -> dict:
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+
+
+def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm over the last axis in float32, cast back to ``x``'s type."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * params["scale"].float()).to(x.dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float = 10000.0, device=None) -> torch.Tensor:
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta**exponents)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
+    """Rotary embedding on split halves, in float32.  x: (..., S, H, D) or
+    (..., S, D); positions: (..., S) integer."""
+    freqs = rope_frequencies(x.shape[-1], theta, device=x.device)  # (D/2,)
+    angles = positions.float()[..., None] * freqs  # (..., S, D/2)
+    if x.dim() == angles.dim() + 1:  # head axis present
+        angles = angles[..., None, :]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def act_fn(name: str):
+    """The reference's activations (``jax.nn.gelu`` is the tanh form)."""
+    return {
+        "silu": torch.nn.functional.silu,
+        "gelu": lambda x: torch.nn.functional.gelu(x, approximate="tanh"),
+        "relu": torch.relu,
+        "relu2": lambda x: torch.relu(x).square(),
+    }[name]
+
+
+def mlp_init(generator: torch.Generator, d_model: int, d_ff: int, dtype: torch.dtype, *,
+             gated: bool = True) -> dict[str, torch.Tensor]:
+    p = {
+        "w_up": dense_init(generator, d_model, d_ff, dtype),
+        "w_down": dense_init(generator, d_ff, d_model, dtype),
+    }
+    if gated:
+        p["w_gate"] = dense_init(generator, d_model, d_ff, dtype)
+    return p
+
+
+def mlp_apply(params: dict, x: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
+    """SwiGLU when ``w_gate`` is present, a plain activation MLP otherwise;
+    the activation runs in float32 and is cast back.  x: (B, S, D)."""
+    up = x @ params["w_up"]
+    if "w_gate" in params:
+        h = act_fn(act)((x @ params["w_gate"]).float()).to(x.dtype) * up
+    else:
+        h = act_fn(act)(up.float()).to(x.dtype)
+    return h @ params["w_down"]
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:

@@ -1,9 +1,11 @@
 """A uniform Model interface from a ModelConfig (the port's
-``repro.models.registry``, for the ``rwkv6`` family).
+``repro.models.registry``, for the ``dense`` and ``rwkv6`` families; ``moe``,
+``vlm``, ``hybrid`` and ``encdec`` are ROADMAP.md queue 1 item 16).
 
 Every family exposes:
     init(generator) -> params                 (drawn on the generator's device)
-    loss_fn(params, batch) -> scalar          (training: ROADMAP.md queue 1 item 14)
+    loss_fn(params, batch) -> scalar          (training: ROADMAP.md queue 1
+                                               item 14 for rwkv6, item 18 for dense)
     init_cache(batch, seq_len, device) -> cache
     prefill(params, batch, cache) -> (logits, cache)
     decode_step(params, token, pos, cache) -> (logits, cache)
@@ -50,6 +52,16 @@ def build_sequence_classifier(cfg: ModelConfig, num_classes: int):
 
 
 def build_model(cfg: ModelConfig) -> Model:
+    if cfg.family == "dense":
+        return Model(
+            cfg=cfg,
+            init=lambda g: tf.decoder_init(g, cfg),
+            loss_fn=lambda p, b: tf.decoder_loss_fn(p, cfg, b),
+            init_cache=lambda b, s, device: tf.decoder_init_cache(cfg, b, s, device),
+            prefill=lambda p, batch, c: tf.decoder_prefill(p, cfg, batch, c),
+            decode_step=lambda p, t, pos, c: tf.decoder_decode_step(p, cfg, t, pos, c),
+            make_batch=lambda g, b, s: _token_batch(g, cfg, b, s),
+        )
     if cfg.family != "rwkv6":
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported yet: ROADMAP.md queue 1 item 16"

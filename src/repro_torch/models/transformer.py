@@ -1,15 +1,21 @@
-"""Model stacks of the port (the port's ``repro.models.transformer``, its
-RWKV6 stack; the decoder, hybrid and encoder-decoder families are ROADMAP.md
-queue 1 item 16).
+"""Model stacks of the port (the port's ``repro.models.transformer``: the
+dense decoder and the RWKV6 stack; MoE, vlm, the hybrid and the
+encoder-decoder families are ROADMAP.md queue 1 item 16).
 
 Parameters are a flat dict with dotted names in the reference's tree
-(``"embed"``, ``"ln0.scale"``, ``"layers.time_mix.w_r"``, ``"lm_head"``, ...).
-Layer-stacked leaves keep the reference's leading (L, ...) axis, and the
-trunk loops over L on views of them; the recurrent state is a dict of
-(L, ...) leaves (``"tm_prev"``, ``"cm_prev"``, ``"wkv"``).  The reference's
-``cfg.remat`` (``jax.checkpoint`` around each block) saves activations for a
-backward pass; this forward-only serving path keeps none, so it has no
-counterpart here.
+(``"embed"``, ``"layers.attn.w_q"``, ``"layers.time_mix.w_r"``,
+``"lm_head"``, ...).  Layer-stacked leaves keep the reference's leading
+(L, ...) axis, and the trunks loop over L on views of them; the decoder's
+KV cache is a dict of (L, ...) leaves under ``"main."`` (``"main.k"``,
+``"main.v"``, ``"main.pos_ids"``; the reference's ``{"main": {...}}``), the
+RWKV6 recurrent state one of (L, ...) leaves (``"tm_prev"``, ``"cm_prev"``,
+``"wkv"``).  The reference's ``cfg.remat`` (``jax.checkpoint`` around each
+block) saves activations for a backward pass; this forward-only serving path
+keeps none, so it has no counterpart here.
+
+Every decoder prefill runs each layer's attention through the hand-written
+flash-attention kernel (``models/attention.py``); decode steps attend over
+the cache in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -18,9 +24,10 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import common, ssm
+from repro_torch.models import attention, common, ssm
 
 LAYERS = "layers."
+MAIN_CACHE = "main."
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -46,6 +53,117 @@ def decoder_logits(params, cfg: ModelConfig, x):
     if "lm_head" in params:
         return common.unembed(params["lm_head"], x, transpose=False)
     return common.unembed(params["embed"], x, transpose=True)
+
+
+# ===========================================================================
+# Decoder block and the dense decoder
+# ===========================================================================
+
+
+def _block_init(generator: torch.Generator, cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """One dense decoder block: RMSNorm, GQA attention, RMSNorm, SwiGLU MLP."""
+    dtype, dev = compute_dtype(cfg), generator.device
+    p = {f"ln1.{k}": t for k, t in common.rmsnorm_init(cfg.d_model, dtype, dev).items()}
+    p.update({f"attn.{k}": t
+              for k, t in attention.init(generator, cfg.d_model, cfg.attention, dtype).items()})
+    p.update({f"ln2.{k}": t for k, t in common.rmsnorm_init(cfg.d_model, dtype, dev).items()})
+    p.update({f"mlp.{k}": t
+              for k, t in common.mlp_init(generator, cfg.d_model, cfg.d_ff, dtype).items()})
+    return p
+
+
+def _block_apply(p, cfg: ModelConfig, x, positions, cache, *, prefill=False):
+    """Returns (x, new_cache); ``prefill`` as in ``attention.gqa_apply``."""
+    h, cache = attention.apply(common.sub(p, "attn."), cfg.attention,
+                               common.rmsnorm(common.sub(p, "ln1."), x, cfg.norm_eps),
+                               positions, cache=cache, prefill=prefill)
+    x = x + h
+    h2 = common.rmsnorm(common.sub(p, "ln2."), x, cfg.norm_eps)
+    return x + common.mlp_apply(common.sub(p, "mlp."), h2, act=cfg.act), cache
+
+
+def _unported_decoder(cfg: ModelConfig) -> None:
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            "MoE decoders (expert layers, first_layers) are not ported yet: "
+            "ROADMAP.md queue 1 item 16"
+        )
+
+
+def decoder_init(generator: torch.Generator, cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """The whole decoder's parameters, drawn on the generator's device; the
+    layer-stacked leaves one layer's draw at a time."""
+    _unported_decoder(cfg)
+    if cfg.family == "vlm":
+        raise NotImplementedError(
+            "the vlm projector and image prefix are not ported yet: ROADMAP.md queue 1 item 16")
+    dtype, dev = compute_dtype(cfg), generator.device
+    p = {"embed": common.embed_init(generator, cfg.vocab_size, cfg.d_model, dtype)}
+    layers = stacked_init(cfg.num_layers, lambda _i: _block_init(generator, cfg))
+    p.update({LAYERS + name: t for name, t in layers.items()})
+    p.update({f"final_norm.{k}": t
+              for k, t in common.rmsnorm_init(cfg.d_model, dtype, dev).items()})
+    if not cfg.tie_embeddings:
+        p["lm_head"] = common.dense_init(generator, cfg.d_model, cfg.vocab_size, dtype)
+    return p
+
+
+def _decoder_embed(params, cfg: ModelConfig, tokens, patches=None):
+    if patches is not None:
+        raise NotImplementedError(
+            "vlm image patches (the projector prefix) are not ported yet: "
+            "ROADMAP.md queue 1 item 16"
+        )
+    return common.embed_lookup(params["embed"], tokens, compute_dtype(cfg))
+
+
+def _decoder_trunk(params, cfg: ModelConfig, x, positions, caches, *, prefill=False):
+    """caches: the ``"main."`` leaves stacked (L, ...), or None (no cache);
+    ``prefill``: x is the whole prompt, written into empty caches.
+    Returns (x after the final norm, new caches or None)."""
+    layers = common.sub(params, LAYERS)
+    main = None if caches is None else common.sub(caches, MAIN_CACHE)
+    new = []
+    for i in range(cfg.num_layers):
+        x, c = _block_apply(common.row(layers, i), cfg, x, positions,
+                            None if main is None else common.row(main, i), prefill=prefill)
+        new.append(c)
+    x = common.rmsnorm(common.sub(params, "final_norm."), x, cfg.norm_eps)
+    if caches is None:
+        return x, None
+    return x, {MAIN_CACHE + name: torch.stack([c[name] for c in new]) for name in main}
+
+
+def decoder_loss_fn(params, cfg: ModelConfig, batch):
+    raise NotImplementedError(
+        "training the decoder language model (run_p2p_lm) is not ported yet: "
+        "ROADMAP.md queue 1 item 18"
+    )
+
+
+def decoder_init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                       device) -> dict[str, torch.Tensor]:
+    _unported_decoder(cfg)
+    dtype, dev = compute_dtype(cfg), torch.device(device)
+    caches = stacked_init(
+        cfg.num_layers,
+        lambda _i: attention.init_cache(cfg.attention, batch, max_seq, dtype, dev))
+    return {MAIN_CACHE + name: t for name, t in caches.items()}
+
+
+def decoder_prefill(params, cfg: ModelConfig, batch, caches):
+    x = _decoder_embed(params, cfg, batch["tokens"], batch.get("patches"))
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    x, caches = _decoder_trunk(params, cfg, x, positions, caches, prefill=True)
+    return decoder_logits(params, cfg, x[:, -1:]), caches
+
+
+def decoder_decode_step(params, cfg: ModelConfig, token, pos, caches):
+    """token: (B,) int; pos: (B,) absolute position of this token."""
+    x = _decoder_embed(params, cfg, token[:, None])
+    x, caches = _decoder_trunk(params, cfg, x, pos[:, None], caches)
+    return decoder_logits(params, cfg, x), caches
 
 
 # ===========================================================================

@@ -1,0 +1,153 @@
+"""The port's flash attention (``repro_torch.kernels.flash_attention``) against
+the reference, on the CPU.
+
+On the CPU the wrappers take the kernel's plain versions; these tests hold
+them to the reference's oracle ``attention_ref`` and to its Pallas kernel
+(interpret mode on the CPU, as tests/test_kernels.py runs it, at S <= 256)
+over ``test_flash_attention_sweep``'s grid, the model-layout GQA form to the
+reference's ``ops.gqa_flash_attention`` (Pallas and ref) at groups 2, 3 and
+3 with 8 KV heads, and a ragged S = 100 (which the Pallas kernel does not
+take) to the oracle.  The CUDA kernel itself is held to the plain version on
+the card by ``chip_smoke.py``.
+
+Tolerances: tests/test_kernels.py's, float32 atol 5e-5 / rtol 1e-4 and bf16
+atol = rtol = 5e-2.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels.flash_attention.flash_attention import flash_attention as jflash  # noqa: E402
+from repro.kernels.flash_attention.ops import gqa_flash_attention as jgqa  # noqa: E402
+from repro.kernels.flash_attention.ref import attention_ref as jattention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops, ref  # noqa: E402
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+# one intra-op thread: the suite runs several workers on a few shared cores
+torch.set_num_threads(1)
+
+TOL = {"float32": dict(atol=5e-5, rtol=1e-4), "bfloat16": dict(atol=5e-2, rtol=5e-2)}
+SWEEP = [(128, 32, 32, 32), (256, 64, 64, 128), (64, 128, 64, 16)]  # (s, d, block_q, block_k)
+MASKS = [(True, None), (True, 64), (False, None)]
+
+
+def _draw(shape, seed):
+    return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+
+def _pair(a, dtype):
+    """The same numpy draw as a jax array and a torch tensor of ``dtype``."""
+    return jnp.asarray(a, getattr(jnp, dtype)), torch.as_tensor(a).to(getattr(torch, dtype))
+
+
+def _np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else x, np.float32)
+
+
+@pytest.mark.parametrize("s,d,bq,bk", SWEEP)
+@pytest.mark.parametrize("causal,window", MASKS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_version_matches_reference_oracle_and_pallas(s, d, bq, bk, causal, window, dtype):
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(_draw((1, 2, s, d), i), dtype) for i in range(3))
+    want = jattention_ref(jq, jk, jv, causal=causal, window=window)
+    pallas = jflash(jq, jk, jv, causal=causal, window=window, block_q=bq, block_k=bk)
+    got = ref.attention_ref(tq, tk, tv, causal=causal, window=window)
+    wrapped = ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    for out in (got, wrapped):
+        assert out.dtype == tq.dtype and out.shape == tq.shape
+        np.testing.assert_allclose(_np(out), _np(want), **TOL[dtype])
+        np.testing.assert_allclose(_np(out), _np(pallas), **TOL[dtype])
+
+
+@pytest.mark.parametrize("h,kh", [(4, 2), (9, 3), (24, 8)])
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_gqa_form_matches_reference_ops(h, kh, causal, window):
+    b, s, d = 2, 64, 32
+    jq, tq = _pair(_draw((b, s, h, d), 0), "float32")
+    (jk, tk), (jv, tv) = (_pair(_draw((b, s, kh, d), i), "float32") for i in (1, 2))
+    got = ops.gqa_flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert got.shape == (b, s, h, d) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), _np(jgqa(jq, jk, jv, causal=causal, window=window,
+                                                     impl="ref")), **TOL["float32"])
+    np.testing.assert_allclose(got.numpy(), _np(jgqa(jq, jk, jv, causal=causal, window=window,
+                                                     block_q=32, block_k=32)),
+                               **TOL["float32"])
+    # the per-KV-head loop equals the expanded oracle
+    expand = lambda x: x.repeat_interleave(h // kh, dim=2).transpose(1, 2)  # noqa: E731
+    want = ref.attention_ref(tq.transpose(1, 2), expand(tk), expand(tv), causal=causal,
+                             window=window).transpose(1, 2)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL["float32"])
+
+
+@pytest.mark.parametrize("causal,window", MASKS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ragged_length_matches_oracle(causal, window, dtype):
+    """S = 100 is no multiple of any tile; the Pallas kernel asserts
+    S % block == 0, the port's wrapper takes any S."""
+    s, h, kh, d = 100, 4, 2, 32
+    jq, tq = _pair(_draw((1, s, h, d), 3), dtype)
+    (jk, tk), (jv, tv) = (_pair(_draw((1, s, kh, d), i), dtype) for i in (4, 5))
+    got = ops.gqa_flash_attention(tq, tk, tv, causal=causal, window=window)
+    rep = lambda x: jnp.repeat(x.transpose(0, 2, 1, 3), h // kh, axis=1)  # noqa: E731
+    want = jattention_ref(jq.transpose(0, 2, 1, 3), rep(jk), rep(jv), causal=causal,
+                          window=window).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+
+
+def test_scale_and_tiny_lengths():
+    for s in (1, 5):
+        q, k, v = (torch.as_tensor(_draw((2, s, 4, 32), i)) for i in range(3))
+        for scale in (None, 0.3):
+            got = ops.gqa_flash_attention(q, k, v, scale=scale)
+            want = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                     scale=scale).transpose(1, 2)
+            np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL["float32"])
+    # one visible key: the first row's output is its own value
+    np.testing.assert_allclose(got[:, 0].numpy(), v[:, 0].numpy(), **TOL["float32"])
+
+
+def test_cpu_calls_count_no_launch():
+    ops.launches.reset()
+    q, k, v = (torch.as_tensor(_draw((1, 16, 2, 32), i)) for i in range(3))
+    ops.gqa_flash_attention(q, k, v)
+    ops.flash_attention(q, k, v, window=4)
+    assert ops.launches.count == 0
+
+
+def test_kernel_operand_layouts():
+    """What the kernel reads in place and what the wrapper copies first."""
+    x = torch.zeros(2, 8, 4, 32, dtype=torch.bfloat16)
+    assert ops._kernel_operand(x) is x
+    view = x.transpose(1, 2)  # (B, H, S, D) view: strides multiples of 8, unit last
+    assert ops._kernel_operand(view) is view
+    odd = x[..., 1:17]  # bf16 data 2 bytes past a 16-byte boundary
+    assert ops._kernel_operand(odd) is not odd and ops._kernel_operand(odd).is_contiguous()
+    f32 = torch.zeros(2, 8, 4, 32)[..., 1:17]  # float32 reads need only a unit last stride
+    assert ops._kernel_operand(f32) is f32
+    assert ops._kernel_operand(x.transpose(2, 3)).is_contiguous()
+
+
+@pytest.mark.parametrize("case,exc", [
+    (dict(q=(1, 8, 4, 32), k=(1, 8, 3, 32)), ValueError),  # heads not a multiple
+    (dict(q=(1, 8, 4, 32), k=(1, 9, 2, 32)), ValueError),  # lengths differ
+    (dict(q=(1, 8, 4, 32), k=(1, 8, 2, 16)), ValueError),  # widths differ
+    (dict(q=(8, 4, 32), k=(8, 2, 32)), ValueError),  # not 4-d
+    (dict(q=(1, 8, 4, 32), k=(1, 8, 2, 32), dtype=torch.float16), TypeError),
+    (dict(q=(1, 8, 4, 32), k=(1, 8, 2, 32), window=0), ValueError),
+    (dict(q=(1, 8, 4, 32), k=(1, 8, 2, 32), device="meta"), ValueError),
+])
+def test_bad_operands_raise(case, exc):
+    dtype, device = case.get("dtype", torch.float32), case.get("device", "cpu")
+    q = torch.zeros(case["q"], dtype=dtype, device=device)
+    k = torch.zeros(case["k"], dtype=dtype, device=device)
+    with pytest.raises(exc):
+        ops.gqa_flash_attention(q, k, k, window=case.get("window"))
+
+
+def test_mixed_types_raise():
+    q = torch.zeros(1, 8, 4, 32)
+    with pytest.raises(TypeError):
+        ops.gqa_flash_attention(q, q.bfloat16(), q.bfloat16())

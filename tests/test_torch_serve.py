@@ -1,14 +1,16 @@
 """The port's serving path (``repro_torch.launch.serve``, ``launch.steps``,
 ``core.p2p.serving_params``) against the reference, on the CPU.
 
-* Generation: on the same exported parameters and prompt, every step's
+* Generation, for the reduced RWKV6-7B and the reduced smollm-135m (the
+  reference's own tests/test_serve.py arch, a dense GQA decoder): on the
+  same exported parameters and prompt, every step's
   logits, teacher-forced with the reference's greedy tokens, are allclose
   (float32 atol = rtol = 1e-4; measured ~3e-6), and the port's own greedy
   tokens equal the reference's up to the first step whose top-2 logit margin
   is within twice that tolerance (where the argmax may flip).
 * The explicit empty decode at ``gen_tokens == 1`` and the ``ValueError``s.
 * The fleet is bit-identical to sequential per-peer generation
-  (``torch.equal``), under any routing.
+  (``torch.equal``), under any routing, for both families.
 * The 2NN fleet, ``serving_params`` and ``consensus_averaged_params`` on a
   state exported from the reference (``interop.state_from_jax``): serving
   rows bit-equal, logits and averages allclose at float32 atol 1e-6 /
@@ -35,6 +37,7 @@ from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.core import p2p as tp2p  # noqa: E402
 from repro_torch.core import task as ttask  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.rwkv6 import ops as wkv6_ops  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
@@ -48,19 +51,38 @@ torch.set_num_threads(1)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 ARCH = "rwkv6-7b"
+DENSE_ARCH = "smollm-135m"
 
 
-@pytest.fixture(scope="module")
-def models():
-    jmodel = jbuild_model(jconfigs.reduced(jconfigs.get_config(ARCH)))
-    tmodel = build_model(tconfigs.reduced(tconfigs.get_config(ARCH)))
+def _models(arch):
+    jmodel = jbuild_model(jconfigs.reduced(jconfigs.get_config(arch)))
+    tmodel = build_model(tconfigs.reduced(tconfigs.get_config(arch)))
     jparams = jax.jit(jmodel.init)(jax.random.PRNGKey(0))
     tparams = interop.params_from_jax(jax.tree.map(np.asarray, jparams))
     return jmodel, jparams, tmodel, tparams
 
 
+@pytest.fixture(scope="module")
+def models():
+    return _models(ARCH)
+
+
+@pytest.fixture(scope="module")
+def dense_models():
+    return _models(DENSE_ARCH)
+
+
 @pytest.mark.parametrize("prompt_len,gen", [(8, 6), (10, 5)])
 def test_generate_matches_reference(models, prompt_len, gen):
+    _check_generate(models, prompt_len, gen)
+
+
+@pytest.mark.parametrize("prompt_len,gen", [(8, 6), (10, 5)])
+def test_dense_generate_matches_reference(dense_models, prompt_len, gen):
+    _check_generate(dense_models, prompt_len, gen)
+
+
+def _check_generate(models, prompt_len, gen):
     jmodel, jparams, tmodel, tparams = models
     tokens = np.random.default_rng(prompt_len).integers(0, 512, (2, prompt_len))
     jbatch = {"tokens": jnp.asarray(tokens, jnp.int32)}
@@ -137,9 +159,17 @@ def test_prefill_on_cpu_counts_no_kernel_launch():
 
 @pytest.mark.parametrize("order", ["identity", "reversed"])
 def test_fleet_generate_bit_identical_to_sequential(models, order):
+    _check_fleet(models[2], order)
+
+
+@pytest.mark.parametrize("order", ["identity", "reversed"])
+def test_dense_fleet_generate_bit_identical_to_sequential(dense_models, order):
+    _check_fleet(dense_models[2], order)
+
+
+def _check_fleet(tmodel, order):
     """One fleet call == each group served separately on its peer's own
-    (separately drawn) parameters, token for token and state for state."""
-    _, _, tmodel, _ = models
+    (separately drawn) parameters, token for token and cache for cache."""
     k, gen = 3, 4
     draw = lambda p: tmodel.init(torch.Generator().manual_seed(10 + p))  # noqa: E731
     stacked = ttf.stacked_init(k, draw)
@@ -160,7 +190,25 @@ def test_fleet_generate_bit_identical_to_sequential(models, order):
 
 
 def test_stack_request_caches_layout(models):
-    _, _, tmodel, _ = models
+    _check_stack_request_caches(models[2])
+
+
+def test_dense_stack_request_caches_layout(dense_models):
+    """The decoder's KV cache (``main.k``, ``main.v``, ``main.pos_ids``)."""
+    assert set(dense_models[2].init_cache(2, 8, "cpu")) == {"main.k", "main.v", "main.pos_ids"}
+    _check_stack_request_caches(dense_models[2])
+
+
+def test_dense_serve_batch_on_cpu_counts_no_launch():
+    flash_ops.launches.reset()
+    out = serve.serve_batch("minitron-8b", batch=2, prompt_len=7, gen_tokens=3, device="cpu")
+    assert out["tokens"].shape == (2, 3) and out["decode_steps"] == 2
+    assert out["cache"]["main.pos_ids"].shape == (2, 2, 10)
+    assert bool((out["cache"]["main.pos_ids"][:, :, :9] >= 0).all())
+    assert flash_ops.launches.count == 0
+
+
+def _check_stack_request_caches(tmodel):
     cache = tmodel.init_cache(2, 8, "cpu")
     stacked = serve.stack_request_caches(cache, 3)
     for name, leaf in cache.items():
