@@ -7,15 +7,16 @@ In order:
    the card's peak memory rate, float32 rate and dense bf16 tensor rate from
    its name;
 2. builds every kernel of the port's main paths from this checkout's sources,
-   one nvcc per source, all started together (five: ``consensus_mix``,
-   ``dequant_mix``, ``segment_mix``, ``wkv6``, ``flash_attention``), and
-   prints ptxas's report;
+   one nvcc per source, all started together (six: ``consensus_mix``,
+   ``dequant_mix``, ``segment_mix``, ``wkv6``, ``flash_attention``,
+   ``ssd``), and prints ptxas's report;
 3. holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes and times kernel, plain version and, where one exists,
    one PyTorch library call in turns with CUDA events (atol 5e-5 / rtol 1e-4
-   for the consensus kernels and float32 attention, 1e-3 for ``wkv6``,
-   atol = rtol = 1e-2 and a relative norm error under 1e-2 for bf16
-   attention): ``consensus_mix`` at three
+   for the consensus kernels, float32 attention and ``ssd``, with a relative
+   norm error under 1e-5 for ``ssd``, 1e-3 for ``wkv6``, atol = rtol = 1e-2
+   and a relative norm error under 1e-2 for bf16 attention):
+   ``consensus_mix`` at three
    shapes, ``dequant_mix`` at four (the vector path at K=100, a padded star
    round, and the scalar path with odd leaf boundaries, a zero beta row, a
    zero-scale leaf and a no-payload call), ``segment_mix`` at five (K=100
@@ -29,25 +30,42 @@ In order:
    D 128, causal, bf16, timed against SDPA; phi4's group of 3; the
    long-context B 1, S 8192, window 4096, timed against SDPA with a boolean
    mask; S 1000 ragged; S 5; non-causal float32; smollm's 9 over 3 heads;
-   zamba2's D 80; the reduced configs' D 32 float32; and the reference
-   sweep's 9 (S, D, mask) shapes in both types);
+   zamba2's shared block at its prefill's B 4, S 1024, H = Kh = 32, D 80,
+   timed against SDPA; the reduced configs' D 32 float32; and the reference
+   sweep's 9 (S, D, mask) shapes in both types), ``ssd`` at 15, output and
+   final state (zamba2's prefill B 4, T 1024, 80 heads of P = N = 64, one
+   B/C group, chunk 64, from a zero and from a random state, and with bf16
+   x, B and C as the served path gives them, both timed; T 1000, ragged;
+   T 5 and T 1, under one chunk; B 1, T 8192, 128 chunks of carried state;
+   dt a = -50; G = 2 groups over H = 4; and the reference sweep's three
+   shapes in both types);
 4. serves RWKV6-7B at full width and depth (bf16, random init on the card)
    through ``serve_batch``: batch 4, prompt 1024, first prefill only, then
    prefill and 15 decode steps, asserting ``wkv6`` launched once per layer
-   in the prefill and never in the decode; reruns the time-mix of layers 0
-   and 31 on the hidden input the trunk gives them, the kernel against its
-   plain version; times a warm prefill and decode step and profiles each;
-   then serves the K = 2 fleet through ``serve_fleet`` (two stacked models,
-   one request group each), asserting 2 x 32 launches;
+   in the prefill and never in the decode; in one more prefill, reruns the
+   WKV calls of layers 0 and 31 on the operands the served path gives them,
+   through the plain version, and compares (``recheck_calls``); times a
+   warm prefill and decode step and profiles each; then serves the K = 2
+   fleet through ``serve_fleet`` (two stacked models, one request group
+   each), asserting 2 x 32 launches;
 5. serves minitron-8b (9.88 B parameters) at full width and depth the same
    way, asserting ``flash_attention`` launched once per layer in each
-   prefill and never in the decode; reruns the attention of layers 0 and 31
-   at full width, the kernel against its plain version; times and profiles
-   a warm prefill and decode step (device time by kernel category); then
+   prefill and never in the decode; reruns the attention calls of layers 0
+   and 31 of one more prefill through the plain version the same way;
+   times and profiles a warm prefill and decode step (device time by kernel
+   category); then
    runs its long-context variant (``for_shape(..., long_500k)``, a 4096-slot
    ring) on a prompt of 8192 tokens and 3 decode steps, asserting 32
    launches, finite logits and the ring's positions;
-6. drives the trainer through ``run_paper_experiment``: uncompressed
+6. serves zamba2-2.7b (2.35 B parameters: 54 Mamba2 layers and one shared
+   attention block applied 9 times) at full width and depth the same way,
+   asserting 54 ``ssd`` and 9 ``flash_attention`` launches in each prefill
+   and none in the decode, and printing the peak memory beside the
+   parameters; reruns the SSD calls of layers 0 and 53 and the attention
+   calls of the shared block's first and last application of one more
+   prefill through the plain version the same way; times and profiles a
+   warm prefill and decode step (device time by kernel category);
+7. drives the trainer through ``run_paper_experiment``: uncompressed
    ``noniid_affinity`` (5 rounds) and ``iid_k100`` (2), then compressed
    ``timevarying_k8`` round robin with qint8 (5) and with top-k (3),
    ``iid_k100`` with qint8 (2), and ``iid_k100`` on the one-slice
@@ -55,13 +73,13 @@ In order:
    reset just before and read just after each run; after each of the first,
    the compressed and the hierarchical runs it recomputes one consensus
    phase with the plain version;
-7. breaks one round of ``noniid_affinity``, ``iid_k100`` and ``iid_k100``
+8. breaks one round of ``noniid_affinity``, ``iid_k100`` and ``iid_k100``
    with qint8 down by phase (synchronized host timers) and profiles one more
    for the device's busy share;
-8. trains the 2NN at K=4096 peers on a ring at full width on the one-slice
+9. trains the 2NN at K=4096 peers on a ring at full width on the one-slice
    segment runtime, 2 rounds through the round function without evaluation,
    and prints its seconds per round and peak memory beside the state's size;
-9. prints the ``kernels`` JSON line and, last, the contract line
+10. prints the ``kernels`` JSON line and, last, the contract line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result;
@@ -72,7 +90,9 @@ so does a run without a CUDA device or outside a checkout of the repository.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import subprocess
@@ -359,15 +379,16 @@ def build_kernels() -> None:
     """Build every kernel library at once (one nvcc each, in parallel)."""
     from repro_torch.kernels.consensus_mix import dequant, ops, segment
     from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.mamba2 import ops as ssd_ops
     from repro_torch.kernels.rwkv6 import ops as wkv6_ops
 
     start = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:
         libs = dict(zip(("consensus_mix", "dequant_mix", "segment_mix", "wkv6",
-                         "flash_attention"),
+                         "flash_attention", "ssd"),
                         pool.map(lambda mod: mod.load_kernel(),
-                                 (ops, dequant, segment, wkv6_ops, flash_ops))))
-    print(f"build: all five kernels in {time.perf_counter() - start:.2f} s", flush=True)
+                                 (ops, dequant, segment, wkv6_ops, flash_ops, ssd_ops))))
+    print(f"build: all six kernels in {time.perf_counter() - start:.2f} s", flush=True)
     for name, kl in libs.items():
         print(f"  {name}: nvcc {kl.build_seconds:.2f} s -> {kl.path.relative_to(ROOT)}")
         for line in kl.log.splitlines():
@@ -622,7 +643,7 @@ def flash_cases(card: Card) -> list[dict]:
         flash_case(card, "tiny_s5", 1, 5, 32, 8, 128, seed=4),
         flash_case(card, "noncausal_f32", 2, 512, 4, 4, 64, causal=False, dtype=f32, seed=5),
         flash_case(card, "smollm", 2, 512, 9, 3, 64, seed=6),
-        flash_case(card, "zamba2_d80", 1, 1024, 32, 32, 80, seed=7),
+        flash_case(card, "zamba2_d80", 4, 1024, 32, 32, 80, timed=True, seed=7),
         flash_case(card, "reduced_d32_f32", 2, 128, 4, 2, 32, dtype=f32, seed=8),
     ]
     for s, d in ((128, 32), (256, 64), (64, 128)):  # test_flash_attention_sweep's grid
@@ -648,8 +669,124 @@ def _print_flash_case(c: dict) -> None:
           f"(max |out| {c['max_abs']:.4g}){times}", flush=True)
 
 
+# The kernel and its plain version compute in float32 from the same values
+# (bf16 x, B and C widened as they are read), so every ssd output is float32
+# and held at the float32 tolerance, and the difference's norm within 1e-5 of
+# the plain version's.
+SSD_REL_NORM = 1e-5
+
+
+def ssd_work(b, t, h, g, p, n, q, *, state: bool, in_bytes: int):
+    """(bytes, FLOP) one ssd call needs: x, B and C (in their type), dt, a
+    and the state in (when given) read once, y (float32) and the final state
+    written once; per (b, h) and chunk of m real steps the operations of the
+    chunk form (an exp counts as one): C B^T and att x below the diagonal,
+    C S^T and the state update in full."""
+    nbytes = (b * t * h * p + 2 * b * t * g * n) * in_bytes + b * t * h * 4 + h * 4
+    nbytes += b * t * h * p * 4 + (2 if state else 1) * b * h * p * n * 4
+    flops = 0
+    for start in range(0, t, q):
+        m = min(q, t - start)
+        pairs = m * (m + 1) // 2
+        flops += (2 * m  # dt * a and the prefix sum
+                  + pairs * (2 * n + 4)  # C . B, exp(cum_t - cum_s) times it and dt
+                  + pairs * 2 * p  # att x
+                  + 2 * m * n * p + 2 * m * p + 2 * m  # C S^T, times exp(cum) and added
+                  + p * n + 2 * m * n * p + 3 * m + m * n)  # the state update
+    return nbytes, b * h * flops
+
+
+def ssd_case(card, name, b, t, h, p, n, chunk, *, g=1, state=False, dt_range=(0.01, 1.0),
+             dt_a=None, dtype=torch.float32, timed=False, seed=0):
+    """ssd kernel vs its plain version on the card at one shape: x, B and C
+    normal, dt uniform in ``dt_range``, a = -U(0.5, 2) (tests/test_kernels.py's
+    draws; ``dt_a`` fixes dt = 1 and a = dt_a instead), B/C in ``g`` groups;
+    output and final state compared."""
+    from repro_torch.kernels.mamba2 import ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, t, h, p, generator=gen, device=dev).to(dtype)
+    bm, cm = (torch.randn(b, t, g, n, generator=gen, device=dev).to(dtype) for _ in range(2))
+    low, high = dt_range
+    dt = low + (high - low) * torch.rand(b, t, h, generator=gen, device=dev)
+    a = -(0.5 + 1.5 * torch.rand(h, generator=gen, device=dev))
+    if dt_a is not None:
+        dt, a = torch.ones(b, t, h, device=dev), torch.full((h,), dt_a, device=dev)
+    s0 = torch.randn(b, h, p, n, generator=gen, device=dev) if state else None
+
+    got, got_s = ops.ssd(x, bm, cm, dt, a, state=s0, chunk=chunk)
+    want, want_s = ref.ssd_chunked_ref(x, bm, cm, dt, a, state=s0, chunk=chunk)
+    torch.cuda.synchronize()
+    case = {"case": name, "B": b, "T": t, "H": h, "G": g, "P": p, "N": n, "chunk": min(chunk, t),
+            "state": state, "dtype": str(dtype).removeprefix("torch."),
+            "max_abs_out": float(want.abs().max())}
+    errs, rels = [], []
+    for gv, wv, what in ((got, want, "y"), (got_s, want_s, "final state")):
+        check(gv.dtype == torch.float32 and bool(torch.isfinite(gv).all()),
+              f"ssd {name} {what} float32 and finite")
+        torch.testing.assert_close(gv, wv, **TOL, msg=lambda m: f"ssd {name} {what}: {m}")
+        errs.append(float((gv - wv).abs().max()))
+        rels.append(float(torch.linalg.vector_norm(gv - wv) / torch.linalg.vector_norm(wv)))
+        check(rels[-1] < SSD_REL_NORM, f"ssd {name} {what}: relative norm error {rels[-1]}")
+    case.update(max_abs_err=max(errs), rel_norm_err=max(rels))
+    if state:  # the state in must matter here: a zero state gives another result
+        zero_s = ops.ssd(x, bm, cm, dt, a, chunk=chunk)[1]
+        case["state_effect"] = float((zero_s - got_s).abs().max())
+        check(case["state_effect"] > 1e-2, f"ssd {name}: the initial state reaches the end")
+    if timed:
+        q = min(chunk, t)
+        y = torch.empty(b, t, h, p, device=dev)
+        final = torch.empty(b, h, p, n, device=dev)
+        kern = lambda: ops.launch(x, bm, cm, dt, a, s0, q, y, final)  # noqa: E731
+        plain = lambda: ref.ssd_chunked_ref(x, bm, cm, dt, a, state=s0, chunk=q)  # noqa: E731
+        case.update(in_turns(plain, kern, None))
+        case.update(card.bound(*ssd_work(b, t, h, g, p, n, q, state=state,
+                                          in_bytes=x.element_size())))
+    del x, bm, cm, dt, got, got_s, want, want_s
+    return case
+
+
+def ssd_cases(card: Card) -> list[dict]:
+    """``ssd`` at the hybrid prefill's shape (B 4, T 1024, 80 heads of
+    P = N = 64, one B/C group, chunk 64) and at its edges."""
+    small = (1e-4, 2e-3)  # decays summing to about -1 over 1024 steps: the state survives
+    main = (4, 1024, 80, 64, 64, 64)
+    cases = [
+        ssd_case(card, "main_b4_t1024", *main, timed=True),
+        ssd_case(card, "main_b4_t1024_state", *main, state=True, dt_range=small, seed=1),
+        ssd_case(card, "main_b4_t1024_bf16", *main, dtype=torch.bfloat16, timed=True, seed=2),
+        ssd_case(card, "ragged_t1000", 4, 1000, 80, 64, 64, 64, state=True, dt_range=small,
+                 seed=3),
+        ssd_case(card, "short_t5", 4, 5, 80, 64, 64, 64, state=True, seed=4),
+        ssd_case(card, "short_t1", 4, 1, 80, 64, 64, 64, state=True, seed=5),
+        ssd_case(card, "b1_t8192", 1, 8192, 80, 64, 64, 64, state=True, dt_range=(1e-5, 2e-4),
+                 seed=6),
+        ssd_case(card, "strong_decay", 4, 1024, 80, 64, 64, 64, dt_a=-50.0, seed=7),
+        ssd_case(card, "groups_g2_h4", 2, 256, 4, 64, 64, 64, g=2, state=True, dt_range=small,
+                 seed=8),
+    ]
+    for t, h, p, n, chunk in ((64, 2, 32, 16, 16), (32, 3, 16, 8, 8), (48, 1, 64, 32, 48)):
+        for dtype in (torch.float32, torch.bfloat16):  # tests/test_kernels.py's sweep
+            cases.append(ssd_case(card, f"sweep_t{t}_h{h}_p{p}_n{n}_q{chunk}_{str(dtype)[6:]}",
+                                  2, t, h, p, n, chunk, g=h, seed=9, dtype=dtype))
+    torch.cuda.empty_cache()
+    return cases
+
+
+def _print_ssd_case(c: dict) -> None:
+    times = ""
+    if "ms" in c:
+        times = (f" kernel={c['ms']:.4f} ms plain={c['plain_ms']:.4f} ms library=none "
+                 f"bound={c['bound_ms']:.4f} ms ({c['bound_by']}; {c['bound_card']})")
+    print(f"ssd {c['case']}: B={c['B']} T={c['T']} H={c['H']} G={c['G']} P={c['P']} N={c['N']} "
+          f"chunk={c['chunk']} state={c['state']} {c['dtype']} max_abs_err={c['max_abs_err']:.3g} "
+          f"rel_norm_err={c['rel_norm_err']:.3g} (max |y| {c['max_abs_out']:.4g}){times}",
+          flush=True)
+
+
 def check_kernels(card: Card) -> dict[str, list[dict]]:
-    """Build the five kernels and hold each against its plain version at its shapes."""
+    """Build the six kernels and hold each against its plain version at its shapes."""
     from repro_torch.core import graph as graph_lib
     from repro_torch.core.p2p import layout_of
 
@@ -675,13 +812,15 @@ def check_kernels(card: Card) -> dict[str, list[dict]]:
                      np.arange(1, 9) * 10, (0, 301, 302, 777, 999), 1001, dmax=3,
                      zero_beta_rows=(3,), payload=False, seed=1),
     ], "segment_mix": segment_cases(card), "wkv6": wkv6_cases(card),
-        "flash_attention": flash_cases(card)}
+        "flash_attention": flash_cases(card), "ssd": ssd_cases(card)}
     for kernel, kcases in cases.items():
         for c in kcases:
             if kernel == "wkv6":
                 _print_wkv6_case(c)
             elif kernel == "flash_attention":
                 _print_flash_case(c)
+            elif kernel == "ssd":
+                _print_ssd_case(c)
             else:
                 _print_case(kernel, c)
     return cases
@@ -733,11 +872,12 @@ def recheck_consensus(name: str, exp, state, data, *, mix_mode=None) -> None:
 def launch_counters() -> dict:
     from repro_torch.kernels.consensus_mix import dequant, ops, segment
     from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.mamba2 import ops as ssd_ops
     from repro_torch.kernels.rwkv6 import ops as wkv6_ops
 
     return {"consensus_mix": ops.launches, "dequant_mix": dequant.launches,
             "segment_mix": segment.launches, "wkv6": wkv6_ops.launches,
-            "flash_attention": flash_ops.launches}
+            "flash_attention": flash_ops.launches, "ssd": ssd_ops.launches}
 
 
 def drive(name: str, exp, rounds: int, data, *, recheck: bool, mix_mode: str | None = None,
@@ -774,8 +914,7 @@ def drive(name: str, exp, rounds: int, data, *, recheck: bool, mix_mode: str | N
         recheck_consensus(name, exp, state, data, mix_mode=mix_mode)
     print(f"{name}: launches {launches}, seconds per round {log.seconds}, "
           f"peak memory {peak_gb:.3f} GB")
-    return {"launches": launches[kernel], "kernel": kernel, "peak_gb": peak_gb,
-            "seconds": log.seconds}
+    return {"launches": {kernel: launches[kernel]}, "peak_gb": peak_gb, "seconds": log.seconds}
 
 
 def phase_breakdown(exp, data, rounds: int = 3) -> dict:
@@ -894,12 +1033,13 @@ def drive_large_k(exp, rounds: int, data) -> dict:
     print(f"K={k}: launches {launches}, set-up {setup_s:.3f} s, seconds per round {seconds}, "
           f"losses {losses}, peak memory {peak_gb:.3f} GB against {state_gb:.3f} GB for the "
           f"four (K, {state.params.shape[1]}) state buffers", flush=True)
-    return {"launches": launches["segment_mix"], "kernel": "segment_mix", "peak_gb": peak_gb,
+    return {"launches": {"segment_mix": launches["segment_mix"]}, "peak_gb": peak_gb,
             "state_gb": state_gb, "seconds": seconds, "setup_s": setup_s}
 
 
 SERVE_ARCH = "rwkv6-7b"
 DECODER_ARCH = "minitron-8b"
+HYBRID_ARCH = "zamba2-2.7b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 16
 FLEET_PEERS = 2
 LONG_PROMPT, LONG_GEN = 8192, 4
@@ -912,13 +1052,14 @@ def _serving_launches(counters: dict, want: dict, name: str) -> dict:
     return launches
 
 
-def drive_serve_batch(card: Card, arch: str, kernel: str) -> dict:
+def drive_serve_batch(card: Card, arch: str, per_prefill: dict[str, int]) -> dict:
     """``serve_batch`` of ``arch`` at full width and depth (bf16, random init
     from seed 0 on the card), launch counts set to 0 just before and read
     just after each call: first with ``gen_tokens=1`` (prefill only, the
-    explicit empty decode), where ``kernel`` launches once per layer; then
-    prefill plus 15 decode steps, where it launches the same number in all,
-    so the decode launched none."""
+    explicit empty decode), where each kernel of ``per_prefill`` launches
+    the number given and every other kernel none; then prefill plus 15
+    decode steps, where they launch the same numbers in all, so the decode
+    launched none."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
 
@@ -934,91 +1075,36 @@ def drive_serve_batch(card: Card, arch: str, kernel: str) -> dict:
         out = serve.serve_batch(arch, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
                                 gen_tokens=gen, use_reduced=False, seed=0, verbose=True,
                                 device="cuda")
-        launches = _serving_launches(counters, {kernel: cfg.num_layers},
-                                     f"serve_batch {arch} gen={gen}")
+        launches = _serving_launches(counters, per_prefill, f"serve_batch {arch} gen={gen}")
         tokens = out["tokens"]
         check(tuple(tokens.shape) == (SERVE_BATCH, gen), f"serve_batch tokens {tokens.shape}")
         check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
               "serve_batch tokens in the vocab")
         for name, leaf in out["cache"].items():
             check(bool(torch.isfinite(leaf.float()).all()), f"serve_batch cache {name} finite")
-        if "main.pos_ids" in out["cache"]:  # the KV cache holds positions 0 .. prompt + gen - 2
-            want_pos = torch.arange(SERVE_PROMPT + gen, device="cuda", dtype=torch.int32)
-            want_pos[SERVE_PROMPT + gen - 1:] = -1
-            check(bool((out["cache"]["main.pos_ids"] == want_pos).all()),
-                  "serve_batch cache positions")
+        for name in ("main.pos_ids", "attn.pos_ids"):  # the KV caches hold positions
+            if name in out["cache"]:  # 0 .. prompt + gen - 2
+                want_pos = torch.arange(SERVE_PROMPT + gen, device="cuda", dtype=torch.int32)
+                want_pos[SERVE_PROMPT + gen - 1:] = -1
+                check(bool((out["cache"][name] == want_pos).all()),
+                      f"serve_batch cache positions {name}")
         runs[label] = {key: out[key] for key in ("prefill_s", "decode_steps",
                                                  "decode_s_per_token", "tokens_per_s",
                                                  "peak_memory_gb", "params_gb")}
-        runs[label]["launches"] = launches[kernel]
+        runs[label]["launches"] = {k: launches[k] for k in per_prefill}
         runs[label]["tokens"] = tokens[0].tolist()
         del out
     check(runs["prefill_only"]["tokens"][0] == runs["prefill_decode"]["tokens"][0],
           "the prefill token does not depend on the decode length")
     print(f"serve_batch {arch} ({card.line}): {json.dumps(runs)}", flush=True)
-    return {"launches": sum(r["launches"] for r in runs.values()), "kernel": kernel,
+    print(f"serve_batch {arch}: peak memory {runs['prefill_decode']['peak_memory_gb']:.3f} GB "
+          f"beside {runs['prefill_decode']['params_gb']:.3f} GB of parameters", flush=True)
+    return {"launches": {k: sum(r["launches"][k] for r in runs.values()) for k in per_prefill},
             "runs": runs,
-            "launches_by_phase": {"prefill": runs["prefill_only"]["launches"],
-                                  "decode": runs["prefill_decode"]["launches"]
-                                  - runs["prefill_only"]["launches"]}}
-
-
-def recheck_and_break_down_serving(card: Card) -> dict:
-    """The served RWKV6 model again (seed 0: the same parameters and prompt as
-    ``serve_batch``): the time-mix of layers 0 and 31 rerun on the hidden
-    input the trunk gives them, the WKV through the kernel and through its
-    plain version, output and state compared; then one warm prefill and one
-    warm decode step timed, and each profiled for its kernels."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.rwkv6 import ops as wkv6_ops
-    from repro_torch.kernels.rwkv6 import ref as wkv6_ref
-    from repro_torch.models import build_model, common, ssm
-    from repro_torch.models import transformer as tf
-
-    dev = torch.device("cuda")
-    cfg = get_config(SERVE_ARCH)
-    model = build_model(cfg)
-    torch.cuda.empty_cache()
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = model.init(gen)
-    prompt = model.make_batch(gen, SERVE_BATCH, SERVE_PROMPT)
-    out = {}
-    with torch.no_grad():
-        layers = common.sub(params, tf.LAYERS)
-        x = common.embed_lookup(params["embed"], prompt["tokens"], tf.compute_dtype(cfg))
-        x = common.layernorm(common.sub(params, "ln0."), x, cfg.norm_eps)
-        state0 = model.init_cache(SERVE_BATCH, SERVE_PROMPT, dev)
-        for i in range(cfg.num_layers):
-            layer = common.row(layers, i)
-            if i in (0, cfg.num_layers - 1):
-                tm = common.sub(layer, "time_mix.")
-                h_in = common.layernorm(common.sub(tm, "ln."), x)
-                r, k, v, _, logd, _ = ssm._tm_projections(tm, h_in, state0["tm_prev"][i])
-                dk = cfg.ssm.head_dim
-                rh, kh, vh = (ssm._heads(a, dk).float() for a in (r, k, v))
-                ld = ssm._heads(logd, dk)
-                got, got_s = wkv6_ops.wkv6(rh, kh, vh, ld, tm["bonus_u"], state=state0["wkv"][i],
-                                           chunk=cfg.ssm.chunk)
-                want, want_s = wkv6_ref.wkv6_chunked_ref(rh, kh, vh, ld, tm["bonus_u"],
-                                                         state0["wkv"][i], chunk=cfg.ssm.chunk)
-                torch.cuda.synchronize()
-                errs = []
-                for g, w, what in ((got, want, "o"), (got_s, want_s, "state")):
-                    torch.testing.assert_close(g, w, **WKV6_TOL,
-                                               msg=lambda m: f"layer {i} time-mix {what}: {m}")
-                    errs.append(float((g - w).abs().max()))
-                out[f"layer{i}"] = {"o_max_abs_err": errs[0], "state_max_abs_err": errs[1],
-                                    "o_max_abs": float(want.abs().max()),
-                                    "logdecay_range": [float(ld.min()), float(ld.max())]}
-                print(f"layer {i} time-mix at full width: kernel vs plain version "
-                      f"{json.dumps(out[f'layer{i}'])}", flush=True)
-            x, _ = ssm.rwkv6_block_apply(layer, cfg.ssm, x, common.row(state0, i), chunked=True)
-
-        out.update(time_and_profile_serving(model, params, prompt, state0))
-    print(f"serving breakdown ({card.line}): {json.dumps(out)}", flush=True)
-    del params, state0
-    torch.cuda.empty_cache()
-    return out
+            "launches_by_phase": {k: {"prefill": runs["prefill_only"]["launches"][k],
+                                      "decode": runs["prefill_decode"]["launches"][k]
+                                      - runs["prefill_only"]["launches"][k]}
+                                  for k in per_prefill}}
 
 
 def time_and_profile_serving(model, params, prompt, cache0) -> dict:
@@ -1047,49 +1133,115 @@ def time_and_profile_serving(model, params, prompt, cache0) -> dict:
     return out
 
 
-def recheck_and_break_down_decoder(card: Card) -> dict:
-    """The served decoder again (seed 0: the same parameters and prompt as
-    ``serve_batch``): the attention of layers 0 and 31 rerun at full width on
-    the q, k and v the trunk gives them, the kernel against its plain version
-    (``check_flash``); then one warm prefill and one warm decode step
-    timed, and each profiled for its kernels."""
-    from repro_torch.configs import get_config
+def _compare_wkv6(args, kwargs, got, want, what) -> dict:
+    rec = {"logdecay_range": [float(args[3].min()), float(args[3].max())],
+           "o_max_abs": float(want[0].abs().max())}
+    for g, w, part in ((got[0], want[0], "o"), (got[1], want[1], "state")):
+        torch.testing.assert_close(g, w, **WKV6_TOL, msg=lambda m: f"{what} {part}: {m}")
+        rec[f"{part}_max_abs_err"] = float((g - w).abs().max())
+    return rec
+
+
+def _compare_flash(args, kwargs, got, want, what) -> dict:
+    return {**check_flash(got, want, what), "q_max_abs": float(args[0].float().abs().max())}
+
+
+def _compare_ssd(args, kwargs, got, want, what) -> dict:
+    x, dt = args[0], args[3]
+    rec = {"x_dtype": str(x.dtype), "x_strides": list(x.stride()),
+           "y_max_abs": float(want[0].abs().max()),
+           "dt_range": [float(dt.min()), float(dt.max())]}
+    for g, w, part in ((got[0], want[0], "y"), (got[1], want[1], "state")):
+        torch.testing.assert_close(g, w, **TOL, msg=lambda m: f"{what} {part}: {m}")
+        rel = float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w))
+        check(rel < SSD_REL_NORM, f"{what} {part}: relative norm error {rel}")
+        rec[f"{part}_max_abs_err"] = float((g - w).abs().max())
+        rec[f"{part}_rel_norm_err"] = rel
+    return rec
+
+
+def _recheck_wrappers() -> dict:
+    """kernel -> (wrapper's module, wrapper's name, plain version with the
+    wrapper's signature, comparison)."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention import ref as flash_ref
-    from repro_torch.models import attention, build_model, common
-    from repro_torch.models import transformer as tf
+    from repro_torch.kernels.mamba2 import ops as ssd_ops
+    from repro_torch.kernels.mamba2 import ref as ssd_ref
+    from repro_torch.kernels.rwkv6 import ops as wkv6_ops
+    from repro_torch.kernels.rwkv6 import ref as wkv6_ref
+
+    def wkv6_plain(r, k, v, ld, u, *, state=None, chunk=16):
+        return wkv6_ref.wkv6_chunked_ref(r, k, v, ld, u, state, chunk=chunk)
+
+    return {"wkv6": (wkv6_ops, "wkv6", wkv6_plain, _compare_wkv6),
+            "flash_attention": (flash_ops, "gqa_flash_attention", flash_ref.gqa_attention_ref,
+                                _compare_flash),
+            "ssd": (ssd_ops, "ssd", ssd_ref.ssd_chunked_ref, _compare_ssd)}
+
+
+@contextlib.contextmanager
+def recheck_calls(picks: dict[str, tuple[int, ...]], log: dict):
+    """Wrap the kernel wrappers named in ``picks`` while the block runs: the
+    calls numbered there (in the order the block makes them) also go through
+    the plain version on the very same operands, views and strides as given,
+    and are compared; the readings go to ``log[kernel][f"call{i}"]``."""
+    wrappers = _recheck_wrappers()
+    saved = []
+    for kernel, numbers in picks.items():
+        module, name, plain, compare = wrappers[kernel]
+        real = getattr(module, name)
+        calls = itertools.count()
+        log[kernel] = {}
+
+        def wrapped(*args, _real=real, _plain=plain, _compare=compare, _kernel=kernel,
+                    _numbers=numbers, _calls=calls, **kwargs):
+            i = next(_calls)
+            got = _real(*args, **kwargs)
+            if i in _numbers:
+                want = _plain(*args, **kwargs)
+                torch.cuda.synchronize()
+                rec = _compare(args, kwargs, got, want, f"{_kernel} call {i}")
+                log[_kernel][f"call{i}"] = rec
+                print(f"{_kernel} call {i} of the prefill at full width: kernel vs plain "
+                      f"version {json.dumps(rec)}", flush=True)
+            return got
+
+        saved.append((module, name, real))
+        setattr(module, name, wrapped)
+    try:
+        yield log
+    finally:
+        for module, name, real in saved:
+            setattr(module, name, real)
+    for kernel, numbers in picks.items():
+        check(sorted(log[kernel]) == sorted(f"call{i}" for i in numbers),
+              f"{kernel}: rechecked {sorted(log[kernel])}, want calls {numbers}")
+
+
+def recheck_and_break_down(card: Card, arch: str, picks: dict[str, tuple[int, ...]]) -> dict:
+    """The served ``arch`` again (seed 0: the same parameters and prompt as
+    ``serve_batch``): one prefill through ``model.prefill`` in which the
+    kernel calls of ``picks`` (call i is layer i's, or the shared block's
+    i-th application) are rerun through the plain version on the operands
+    the served path gives them (``recheck_calls``); then one warm prefill
+    and one warm decode step timed, and each profiled for its kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
 
     dev = torch.device("cuda")
-    cfg = get_config(DECODER_ARCH)
-    att = cfg.attention
-    model = build_model(cfg)
+    model = build_model(get_config(arch))
     torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(0)
     params = model.init(gen)
     prompt = model.make_batch(gen, SERVE_BATCH, SERVE_PROMPT)
-    out = {}
+    out = {"recheck": {}}
     with torch.no_grad():
-        layers = common.sub(params, tf.LAYERS)
-        x = tf._decoder_embed(params, cfg, prompt["tokens"])
-        positions = torch.arange(SERVE_PROMPT, device=dev).expand(SERVE_BATCH, SERVE_PROMPT)
-        for i in range(cfg.num_layers):
-            layer = common.row(layers, i)
-            if i in (0, cfg.num_layers - 1):
-                h_in = common.rmsnorm(common.sub(layer, "ln1."), x, cfg.norm_eps)
-                q, k, v = attention.project_qkv(common.sub(layer, "attn."), att, h_in, positions)
-                got = flash_ops.gqa_flash_attention(q, k, v, window=att.sliding_window)
-                want = flash_ref.gqa_attention_ref(q, k, v, window=att.sliding_window)
-                torch.cuda.synchronize()
-                out[f"layer{i}"] = {**check_flash(got, want, f"layer {i} attention"),
-                                    "q_max_abs": float(q.float().abs().max())}
-                print(f"layer {i} attention at full width: kernel vs plain version "
-                      f"{json.dumps(out[f'layer{i}'])}", flush=True)
-                del q, k, v, got, want
-            x, _ = tf._block_apply(layer, cfg, x, positions, None)
-        del x
         cache0 = model.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_GEN, dev)
+        with recheck_calls(picks, out["recheck"]):
+            model.prefill(params, prompt, cache0)
+        torch.cuda.empty_cache()
         out.update(time_and_profile_serving(model, params, prompt, cache0))
-    print(f"serving breakdown {DECODER_ARCH} ({card.line}): {json.dumps(out)}", flush=True)
+    print(f"serving breakdown {arch} ({card.line}): {json.dumps(out)}", flush=True)
     del params, cache0
     torch.cuda.empty_cache()
     return out
@@ -1150,7 +1302,7 @@ def drive_long_context(card: Card) -> dict:
     print(f"long context {DECODER_ARCH} ({card.line}): {json.dumps(run)}", flush=True)
     del params, cache, logits
     torch.cuda.empty_cache()
-    return {"kernel": "flash_attention", **run}
+    return {**run, "launches": {"flash_attention": run["launches"]}}
 
 
 def kernel_category(name: str) -> str:
@@ -1159,6 +1311,8 @@ def kernel_category(name: str) -> str:
         return "flash_attention"
     if "wkv6" in name:
         return "wkv6"
+    if "ssd_kernel" in name:
+        return "ssd"
     if any(tag in name for tag in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas")):
         return "matmul"
     if "copy" in name:
@@ -1218,7 +1372,7 @@ def drive_serve_fleet(card: Card) -> dict:
     print(f"serve_fleet ({card.line}): {json.dumps(run)}", flush=True)
     del out
     torch.cuda.empty_cache()
-    return {"launches": launches["wkv6"], "kernel": "wkv6", **run}
+    return {"launches": {"wkv6": launches["wkv6"]}, **run}
 
 
 def main() -> int:
@@ -1238,12 +1392,20 @@ def main() -> int:
           flush=True)
 
     cases = check_kernels(card)
-    paths = {"serve_batch": drive_serve_batch(card, SERVE_ARCH, "wkv6")}
-    serving = {"wkv6": recheck_and_break_down_serving(card)}
+    paths = {"serve_batch": drive_serve_batch(card, SERVE_ARCH, {"wkv6": 32})}
+    serving = {SERVE_ARCH: recheck_and_break_down(card, SERVE_ARCH, {"wkv6": (0, 31)})}
     paths["serve_fleet_k2"] = drive_serve_fleet(card)
-    paths["serve_batch_minitron"] = drive_serve_batch(card, DECODER_ARCH, "flash_attention")
-    serving["flash_attention"] = recheck_and_break_down_decoder(card)
+    paths["serve_batch_minitron"] = drive_serve_batch(card, DECODER_ARCH,
+                                                      {"flash_attention": 32})
+    serving[DECODER_ARCH] = recheck_and_break_down(card, DECODER_ARCH,
+                                                   {"flash_attention": (0, 31)})
     paths["long_context_minitron"] = drive_long_context(card)
+    # zamba2: 54 Mamba2 layers through ssd, 9 shared-block applications through
+    # flash_attention in every prefill
+    paths["serve_batch_zamba2"] = drive_serve_batch(card, HYBRID_ARCH,
+                                                    {"ssd": 54, "flash_attention": 9})
+    serving[HYBRID_ARCH] = recheck_and_break_down(card, HYBRID_ARCH,
+                                                  {"ssd": (0, 53), "flash_attention": (0, 8)})
     data = synthetic.mnist_like()
     noniid = noniid_k2(algorithm="p2pl_affinity", local_steps=10)
     iid = iid_k100()
@@ -1284,15 +1446,20 @@ def main() -> int:
         ("wkv6", "rwkv6/csrc/wkv6.cu", "rwkv6/rwkv6.py:94", "main_b4_t1024"),
         ("flash_attention", "flash_attention/csrc/flash_attention.cu",
          "flash_attention/flash_attention.py:124", "main_minitron"),
+        ("ssd", "mamba2/csrc/ssd.cu", "mamba2/mamba2.py:98", "main_b4_t1024_bf16"),
     ):
         main = next(c for c in cases[kernel] if c["case"] == main_case)
-        by_path = {name: p["launches"] for name, p in paths.items() if p["kernel"] == kernel}
+        by_path = {name: p["launches"][kernel] for name, p in paths.items()
+                   if kernel in p["launches"]}
         if kernel == "wkv6":
             shape = (f"B={main['B']} T={main['T']} H={main['H']} dk={main['dk']} "
                      f"chunk={main['chunk']}")
         elif kernel == "flash_attention":
             shape = (f"B={main['B']} S={main['S']} H={main['H']} Kh={main['Kh']} D={main['D']} "
                      f"causal {main['dtype']}")
+        elif kernel == "ssd":
+            shape = (f"B={main['B']} T={main['T']} H={main['H']} G={main['G']} P={main['P']} "
+                     f"N={main['N']} chunk={main['chunk']} {main['dtype']}")
         else:
             shape = f"K={main['K']} D={main['D']} N={main['N']}"
         entries.append({
@@ -1310,12 +1477,13 @@ def main() -> int:
         })
     for entry in entries:
         kernel = entry["name"]
-        if kernel in serving:
-            path = next(p for p in paths.values()
-                        if p["kernel"] == kernel and "launches_by_phase" in p)
-            entry["launches_by_phase"] = path["launches_by_phase"]
-            entry["serving_recheck"] = {key: value for key, value in serving[kernel].items()
-                                        if key.startswith("layer")}
+        rechecks = {arch: out["recheck"][kernel] for arch, out in serving.items()
+                    if kernel in out["recheck"]}
+        if rechecks:
+            entry["launches_by_phase"] = {name: p["launches_by_phase"][kernel]
+                                          for name, p in paths.items()
+                                          if kernel in p.get("launches_by_phase", {})}
+            entry["serving_recheck"] = rechecks
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

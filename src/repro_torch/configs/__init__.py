@@ -3,9 +3,9 @@
 ``p2pl_mnist`` holds the paper's experiments.  The model registry below is
 the port's ``repro.configs`` registry: ``get_config(name)`` and
 ``reduced(cfg)``, and ``for_shape(cfg, shape)`` (the long-context window
-variant).  The RWKV6 model and the four dense GQA decoders are registered;
-the reference's other architectures raise ``NotImplementedError`` (ROADMAP.md
-queue 1 item 16).
+variant).  The RWKV6 model, the four dense GQA decoders and the zamba2
+hybrid are registered; the reference's other architectures raise
+``NotImplementedError`` (ROADMAP.md queue 1 item 16).
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ from repro_torch.configs import (
     qwen1_5_32b,
     rwkv6_7b,
     smollm_135m,
+    zamba2_2_7b,
 )
 from repro_torch.configs.base import (
     INPUT_SHAPES,
@@ -33,6 +34,7 @@ ARCHITECTURES = {
     "phi4-mini-3.8b": phi4_mini_3_8b.config,
     "qwen1.5-32b": qwen1_5_32b.config,
     "smollm-135m": smollm_135m.config,
+    "zamba2-2.7b": zamba2_2_7b.config,
 }
 # names the reference registers whose families the port does not run yet
 UNPORTED_ARCHITECTURES = (
@@ -40,7 +42,6 @@ UNPORTED_ARCHITECTURES = (
     "internvl2-2b",
     "qwen3-moe-235b-a22b",
     "seamless-m4t-medium",
-    "zamba2-2.7b",
 )
 
 # Sliding-window size for the long_500k variant of attention-bearing archs.

@@ -5,8 +5,10 @@ port's ``repro.launch.serve``).
 in a Python loop of decode steps (``launch/steps.py:make_decode_loop``, the
 reference's ``decode_impl="python"``).  Every prefill runs one hand-written
 kernel per layer: the dense decoders' attention through ``flash_attention``,
-RWKV6's chunked WKV through ``wkv6``; the decode steps (attention over the
-KV cache, or the token-sequential recurrence) launch no kernel.
+RWKV6's chunked WKV through ``wkv6``, the hybrid's Mamba2 SSD through
+``ssd`` and its shared block's attention through ``flash_attention``; the
+decode steps (attention over the KV cache, or the token-sequential
+recurrences) launch no kernel.
 
 ``serve_fleet`` is the personalized-fleet path: P2PL's product is K
 *divergent* models, stacked along a leading K axis as the trainer keeps them
@@ -15,7 +17,7 @@ group g under peer ``peer_ids[g]``'s weights.  The reference gathers the
 groups' parameter rows and vmaps one generate over them; here the groups
 run in turn, each on views ``stacked[peer_id]`` of the stacked leaves, so no
 (G, ...) copy of the parameters is made (at RWKV6-7B a row is 15.2 GB, at
-minitron-8b 19.8 GB).  The
+minitron-8b 19.8 GB, at zamba2-2.7b 4.7 GB).  The
 result is the reference's invariant: the fleet is bit-identical to serving
 each peer's model separately.  The pod layout (one device per peer) is
 ROADMAP.md queue 1 item 15.
@@ -25,6 +27,8 @@ after ``torch.cuda.synchronize()`` on the card.
 
 CLI:  python -m repro_torch.launch.serve --arch smollm-135m --batch 4 --gen 8
       python -m repro_torch.launch.serve --peers 2        # the stacked fleet
+      python -m repro_torch.launch.serve --arch zamba2-2.7b --full --batch 4 \
+          --prompt-len 1024 --gen 16                      # the hybrid, full size
       (add --device cpu to run the reduced model on the CPU, --full for the
       full-size model)
 """
@@ -89,7 +93,8 @@ def make_fleet_classify_fn(apply_fn: Callable) -> Callable:
 
 
 def stack_request_caches(cache: dict, num_groups: int) -> dict:
-    """Replicate one fresh decode cache into the (G, ...) group layout."""
+    """Replicate one fresh decode cache into the (G, ...) group layout: every
+    leaf, whatever the family's cache holds (KV caches, recurrent states)."""
     return {name: x.unsqueeze(0).repeat(num_groups, *([1] * x.dim()))
             for name, x in cache.items()}
 
@@ -276,7 +281,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m",
                     help="a registered architecture: smollm-135m, minitron-8b, phi4-mini-3.8b, "
-                         "qwen1.5-32b or rwkv6-7b")
+                         "qwen1.5-32b, rwkv6-7b or zamba2-2.7b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=8)

@@ -1,11 +1,12 @@
 """A uniform Model interface from a ModelConfig (the port's
-``repro.models.registry``, for the ``dense`` and ``rwkv6`` families; ``moe``,
-``vlm``, ``hybrid`` and ``encdec`` are ROADMAP.md queue 1 item 16).
+``repro.models.registry``, for the ``dense``, ``rwkv6`` and ``hybrid``
+families; ``moe``, ``vlm`` and ``encdec`` are ROADMAP.md queue 1 item 16).
 
 Every family exposes:
     init(generator) -> params                 (drawn on the generator's device)
     loss_fn(params, batch) -> scalar          (training: ROADMAP.md queue 1
-                                               item 14 for rwkv6, item 18 for dense)
+                                               item 14 for rwkv6, item 18 for
+                                               dense and hybrid)
     init_cache(batch, seq_len, device) -> cache
     prefill(params, batch, cache) -> (logits, cache)
     decode_step(params, token, pos, cache) -> (logits, cache)
@@ -60,6 +61,16 @@ def build_model(cfg: ModelConfig) -> Model:
             init_cache=lambda b, s, device: tf.decoder_init_cache(cfg, b, s, device),
             prefill=lambda p, batch, c: tf.decoder_prefill(p, cfg, batch, c),
             decode_step=lambda p, t, pos, c: tf.decoder_decode_step(p, cfg, t, pos, c),
+            make_batch=lambda g, b, s: _token_batch(g, cfg, b, s),
+        )
+    if cfg.family == "hybrid":
+        return Model(
+            cfg=cfg,
+            init=lambda g: tf.hybrid_init(g, cfg),
+            loss_fn=lambda p, b: tf.hybrid_loss_fn(p, cfg, b),
+            init_cache=lambda b, s, device: tf.hybrid_init_cache(cfg, b, s, device),
+            prefill=lambda p, batch, c: tf.hybrid_prefill(p, cfg, batch, c),
+            decode_step=lambda p, t, pos, c: tf.hybrid_decode_step(p, cfg, t, pos, c),
             make_batch=lambda g, b, s: _token_batch(g, cfg, b, s),
         )
     if cfg.family != "rwkv6":

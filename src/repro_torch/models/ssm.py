@@ -1,26 +1,151 @@
-"""RWKV6 (Finch) layers with data-dependent decay (the port's
-``repro.models.ssm``, its RWKV6 half; the Mamba2 half is ROADMAP.md queue 1
-item 16).
+"""State-space layers: Mamba2 (SSD) and RWKV6 (Finch) with data-dependent
+decay (the port's ``repro.models.ssm``).
 
 One layer's parameters are a flat dict with dotted names in the reference's
-layouts (``"time_mix.w_r"`` (d, d), ``"time_mix.mix_lora_a"`` (d, 5, r), ...),
-applied as ``x @ w``.  The casts are the reference's: the LoRA ``tanh`` runs
-in float32 and is cast back to the model type, the log-decay is
+layouts (``"in_proj"`` (d, d_proj), ``"time_mix.w_r"`` (d, d),
+``"time_mix.mix_lora_a"`` (d, 5, r), ...), applied as ``x @ w``.  The casts
+are the reference's.  Mamba2: in_proj and the causal depthwise convolution
+(the reference's explicit sum over its taps, plus ``conv_b``) in the
+parameter type, SiLU and softplus in float32, the SSD core in float32, the
+gate in float32 and the RMSNorm cast back.  RWKV6: the LoRA ``tanh`` runs in
+float32 and is cast back to the model type, the log-decay is
 ``-exp(clip(w0 + dw, -12, 4))`` in float32, and r, k and v enter the WKV in
 float32.
 
-``rwkv6_time_mix_chunked`` (prefill) sends its WKV core through the
-hand-written kernel's wrapper ``kernels.rwkv6.ops.wkv6``;
-``rwkv6_time_mix_scan`` (decode, one token at a time) is the token-sequential
-recurrence and reaches no kernel, in the reference as here.
+The chunked forms (prefill) send their core through the hand-written
+kernels' wrappers: ``mamba2_apply_chunked`` through
+``kernels.mamba2.ops.ssd``, ``rwkv6_time_mix_chunked`` through
+``kernels.rwkv6.ops.wkv6``.  The scans (``mamba2_apply_scan``,
+``rwkv6_time_mix_scan``: decode, one token at a time, and the oracles) are
+the token-sequential recurrences and reach no kernel, in the reference as
+here.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import SSMConfig
+from repro_torch.kernels.mamba2 import ops as ssd_ops
+from repro_torch.kernels.mamba2 import ref as ssd_ref
 from repro_torch.kernels.rwkv6 import ops as wkv6_ops
 from repro_torch.models import common
+
+# ===========================================================================
+# Mamba2 (SSD)
+# ===========================================================================
+
+
+def mamba2_dims(d_model: int, cfg: SSMConfig) -> dict:
+    d_inner = cfg.expand * d_model
+    nheads = d_inner // cfg.head_dim
+    conv_channels = d_inner + 2 * cfg.ngroups * cfg.state_dim
+    return dict(d_inner=d_inner, nheads=nheads, conv_channels=conv_channels)
+
+
+def mamba2_init(
+    generator: torch.Generator, d_model: int, cfg: SSMConfig, dtype: torch.dtype
+) -> dict[str, torch.Tensor]:
+    """One layer's parameters, drawn on the generator's device."""
+    dev = generator.device
+    dims = mamba2_dims(d_model, cfg)
+    d_in, h, cc = dims["d_inner"], dims["nheads"], dims["conv_channels"]
+    d_proj = 2 * d_in + 2 * cfg.ngroups * cfg.state_dim + h
+    return {
+        "in_proj": common.dense_init(generator, d_model, d_proj, dtype),
+        "conv_w": common.truncated_normal_init(generator, (cfg.conv_dim, cc),
+                                               cfg.conv_dim**-0.5, dtype),
+        "conv_b": torch.zeros((cc,), dtype=dtype, device=dev),
+        "dt_bias": torch.zeros((h,), dtype=torch.float32, device=dev),
+        "A_log": torch.zeros((h,), dtype=torch.float32, device=dev),  # A = -exp(A_log) = -1
+        "D": torch.ones((h,), dtype=torch.float32, device=dev),
+        **{f"norm.{k}": t for k, t in common.rmsnorm_init(d_in, dtype, dev).items()},
+        "out_proj": common.dense_init(generator, d_in, d_model, dtype),
+    }
+
+
+def mamba2_state(d_model: int, cfg: SSMConfig, batch: int, dtype: torch.dtype,
+                 device: torch.device) -> dict[str, torch.Tensor]:
+    dims = mamba2_dims(d_model, cfg)
+    return {
+        "conv": torch.zeros((batch, cfg.conv_dim - 1, dims["conv_channels"]), dtype=dtype,
+                            device=device),
+        "ssm": torch.zeros((batch, dims["nheads"], cfg.head_dim, cfg.state_dim),
+                           dtype=torch.float32, device=device),
+    }
+
+
+def _mamba2_preproc(params, cfg: SSMConfig, x, conv_state):
+    """in_proj + causal depthwise conv; returns (z, xh, bm, cm, dt, new_conv_state).
+    xh (B, L, H, P), bm and cm (B, L, G, N) are views of the convolution's
+    output; dt (B, L, H) is float32."""
+    b, l, d_model = x.shape
+    dims = mamba2_dims(d_model, cfg)
+    d_in, h, p, n, g = dims["d_inner"], dims["nheads"], cfg.head_dim, cfg.state_dim, cfg.ngroups
+
+    proj = x @ params["in_proj"]
+    z, xbc, dt = torch.split(proj, [d_in, dims["conv_channels"], h], dim=-1)
+
+    # causal depthwise conv over the sequence (kernel conv_dim); the new conv
+    # state is copied out, so it does not hold the padded input alive
+    xbc_pad = torch.cat([conv_state.to(xbc.dtype), xbc], dim=1)
+    new_conv_state = xbc_pad[:, -(cfg.conv_dim - 1):].clone() if cfg.conv_dim > 1 \
+        else conv_state
+    conv = sum(xbc_pad[:, i:i + l] * params["conv_w"][i] for i in range(cfg.conv_dim))
+    conv = conv + params["conv_b"]
+    conv = torch.nn.functional.silu(conv.float()).to(x.dtype)
+
+    xh = conv[..., :d_in].unflatten(-1, (h, p))
+    bm = conv[..., d_in:d_in + g * n].unflatten(-1, (g, n))
+    cm = conv[..., d_in + g * n:].unflatten(-1, (g, n))
+    dt = torch.nn.functional.softplus(dt.float() + params["dt_bias"])  # (B, L, H)
+    return z, xh, bm, cm, dt, new_conv_state
+
+
+def _mamba2_finish(params, z, y, x_dtype):
+    y = y.float() * torch.nn.functional.silu(z.float())
+    y = common.rmsnorm(common.sub(params, "norm."), y.to(x_dtype))
+    return y @ params["out_proj"]
+
+
+def mamba2_apply_scan(params, cfg: SSMConfig, x, state=None):
+    """Sequential oracle / decode path. x: (B, L, D). Returns (out, state)."""
+    b, l, d_model = x.shape
+    if state is None:
+        state = mamba2_state(d_model, cfg, b, x.dtype, x.device)
+    z, xh, bm, cm, dt, conv_state = _mamba2_preproc(params, cfg, x, state["conv"])
+    h = xh.shape[2]
+    a = -torch.exp(params["A_log"])  # (H,)
+    bm, cm = (ssd_ref.expand_groups(m, h).float() for m in (bm, cm))
+    xf = xh.float()
+    s = state["ssm"]
+    ys = []
+    for t in range(l):
+        decay = torch.exp(dt[:, t] * a)[..., None, None]  # (B, H, 1, 1)
+        s = s * decay + (dt[:, t, :, None] * xf[:, t])[..., None] * bm[:, t, :, None, :]
+        ys.append(torch.einsum("bhpn,bhn->bhp", s, cm[:, t]))
+    y = torch.stack(ys, dim=1) + params["D"][:, None] * xf
+    out = _mamba2_finish(params, z, y.reshape(b, l, -1), x.dtype)
+    return out, {"conv": conv_state, "ssm": s}
+
+
+def mamba2_apply_chunked(params, cfg: SSMConfig, x, state=None):
+    """Chunk-parallel SSD through the ``ssd`` kernel's wrapper, from the
+    carried state; a ragged last chunk is masked (the reference pads it with
+    dt = 0, which leaves the state unchanged)."""
+    b, l, d_model = x.shape
+    if state is None:
+        state = mamba2_state(d_model, cfg, b, x.dtype, x.device)
+    z, xh, bm, cm, dt, conv_state = _mamba2_preproc(params, cfg, x, state["conv"])
+    a = -torch.exp(params["A_log"])
+    y, s_final = ssd_ops.ssd(xh, bm, cm, dt, a, state=state["ssm"], chunk=cfg.chunk)
+    y = y + params["D"][:, None] * xh.float()
+    out = _mamba2_finish(params, z, y.reshape(b, l, -1), x.dtype)
+    return out, {"conv": conv_state, "ssm": s_final}
+
+
+# ===========================================================================
+# RWKV6 (Finch)
+# ===========================================================================
 
 _TM_MIX_NAMES = ("r", "k", "v", "g", "w")
 

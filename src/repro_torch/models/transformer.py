@@ -1,5 +1,5 @@
 """Model stacks of the port (the port's ``repro.models.transformer``: the
-dense decoder and the RWKV6 stack; MoE, vlm, the hybrid and the
+dense decoder, the RWKV6 stack and the zamba2 hybrid; MoE, vlm and the
 encoder-decoder families are ROADMAP.md queue 1 item 16).
 
 Parameters are a flat dict with dotted names in the reference's tree
@@ -9,13 +9,18 @@ Parameters are a flat dict with dotted names in the reference's tree
 KV cache is a dict of (L, ...) leaves under ``"main."`` (``"main.k"``,
 ``"main.v"``, ``"main.pos_ids"``; the reference's ``{"main": {...}}``), the
 RWKV6 recurrent state one of (L, ...) leaves (``"tm_prev"``, ``"cm_prev"``,
-``"wkv"``).  The reference's ``cfg.remat`` (``jax.checkpoint`` around each
-block) saves activations for a backward pass; this forward-only serving path
-keeps none, so it has no counterpart here.
+``"wkv"``), the hybrid's cache the Mamba2 states stacked over the layers
+(``"mamba.conv"``, ``"mamba.ssm"``) and one attention cache per application
+of the shared block (``"attn.k"``, ``"attn.v"``, ``"attn.pos_ids"``).  The
+reference's ``cfg.remat`` (``jax.checkpoint`` around each block) saves
+activations for a backward pass; this forward-only serving path keeps none,
+so it has no counterpart here.
 
-Every decoder prefill runs each layer's attention through the hand-written
-flash-attention kernel (``models/attention.py``); decode steps attend over
-the cache in plain PyTorch.
+Every prefill runs one hand-written kernel per layer: each decoder layer's
+and each shared-block application's attention through ``flash_attention``
+(``models/attention.py``), each Mamba2 layer's SSD through ``ssd``
+(``models/ssm.py``); decode steps attend over the cache and run the Mamba2
+recurrence in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -235,3 +240,128 @@ def rwkv6_decode_step(params, cfg: ModelConfig, token, pos, states):
     x = common.layernorm(common.sub(params, "ln0."), x, cfg.norm_eps)
     x, states = _rwkv6_trunk(params, cfg, x, states, chunked=False)
     return decoder_logits(params, cfg, x), states
+
+
+# ===========================================================================
+# Zamba2-style hybrid: Mamba2 backbone + weight-shared attention block
+# ===========================================================================
+
+MAMBA_CACHE = "mamba."
+ATTN_CACHE = "attn."
+
+
+def hybrid_init(generator: torch.Generator, cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """The whole model's parameters, drawn on the generator's device."""
+    dtype, dev = compute_dtype(cfg), generator.device
+
+    def mamba_layer(_i):
+        p = {f"ln.{k}": t for k, t in common.rmsnorm_init(cfg.d_model, dtype, dev).items()}
+        p.update({f"mamba.{k}": t
+                  for k, t in ssm.mamba2_init(generator, cfg.d_model, cfg.ssm, dtype).items()})
+        return p
+
+    p = {"embed": common.embed_init(generator, cfg.vocab_size, cfg.d_model, dtype)}
+    p.update({LAYERS + name: t for name, t in stacked_init(cfg.num_layers, mamba_layer).items()})
+    p.update({f"final_norm.{k}": t
+              for k, t in common.rmsnorm_init(cfg.d_model, dtype, dev).items()})
+    if cfg.shared_block_period:
+        p["shared_proj"] = common.dense_init(generator, 2 * cfg.d_model, cfg.d_model, dtype)
+        p.update({f"shared_block.{k}": t for k, t in _block_init(generator, cfg).items()})
+    if not cfg.tie_embeddings:
+        p["lm_head"] = common.dense_init(generator, cfg.d_model, cfg.vocab_size, dtype)
+    return p
+
+
+def hybrid_num_shared_applications(cfg: ModelConfig) -> int:
+    return cfg.num_layers // cfg.shared_block_period if cfg.shared_block_period else 0
+
+
+def hybrid_init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                      device) -> dict[str, torch.Tensor]:
+    """Every layer's Mamba2 state and one attention cache per application of
+    the shared block (one, unused, without a shared block), as the reference."""
+    dtype, dev = compute_dtype(cfg), torch.device(device)
+    mamba = stacked_init(cfg.num_layers,
+                         lambda _i: ssm.mamba2_state(cfg.d_model, cfg.ssm, batch, dtype, dev))
+    attn = stacked_init(max(hybrid_num_shared_applications(cfg), 1),
+                        lambda _i: attention.init_cache(cfg.attention, batch, max_seq, dtype, dev))
+    return {**{MAMBA_CACHE + k: t for k, t in mamba.items()},
+            **{ATTN_CACHE + k: t for k, t in attn.items()}}
+
+
+def _hybrid_layers(params, cfg: ModelConfig, x, positions, mamba_states, attn_caches, *,
+                   chunked: bool, prefill: bool):
+    """The trunk shared by the cached and the cache-free forms: the Mamba2
+    layers in groups of ``shared_block_period``, the shared block after each
+    group on ``concat(h, embedding) @ shared_proj``.  ``attn_caches`` None
+    runs the shared block without a cache.  Returns (x after the final norm,
+    the new Mamba2 states stacked, the new attention caches stacked or None)."""
+    period = cfg.shared_block_period
+    groups = hybrid_num_shared_applications(cfg) if period else 1
+    per = cfg.num_layers // groups
+    mamba_fn = ssm.mamba2_apply_chunked if chunked else ssm.mamba2_apply_scan
+    layers = common.sub(params, LAYERS)
+    shared = common.sub(params, "shared_block.")
+    x0 = x  # the embedding, concatenated into every shared-block input
+    new_mamba, new_attn = [], []
+    for gi in range(groups):
+        for i in range(gi * per, (gi + 1) * per):
+            lp = common.row(layers, i)
+            o, s = mamba_fn(common.sub(lp, "mamba."), cfg.ssm,
+                            common.rmsnorm(common.sub(lp, "ln."), x, cfg.norm_eps),
+                            common.row(mamba_states, i))
+            x = x + o
+            new_mamba.append(s)
+        cache = None if attn_caches is None else common.row(attn_caches, gi)
+        if period:
+            inp = torch.cat([x, x0], dim=-1) @ params["shared_proj"]
+            out, cache = _block_apply(shared, cfg, inp, positions, cache, prefill=prefill)
+            x = x + out
+        new_attn.append(cache)
+    x = common.rmsnorm(common.sub(params, "final_norm."), x, cfg.norm_eps)
+    mamba = {name: torch.stack([s[name] for s in new_mamba]) for name in mamba_states}
+    if attn_caches is None:
+        return x, mamba, None
+    return x, mamba, {name: torch.stack([c[name] for c in new_attn]) for name in attn_caches}
+
+
+def _hybrid_trunk(params, cfg: ModelConfig, x, positions, cache, *, chunked: bool):
+    """``chunked``: the prompt, written into empty caches (the SSD through the
+    kernel, the shared block's attention through ``flash_attention``);
+    otherwise decode steps (the Mamba2 recurrence, cached attention)."""
+    x, mamba, attn = _hybrid_layers(params, cfg, x, positions, common.sub(cache, MAMBA_CACHE),
+                                    common.sub(cache, ATTN_CACHE), chunked=chunked,
+                                    prefill=chunked)
+    return x, {**{MAMBA_CACHE + k: t for k, t in mamba.items()},
+               **{ATTN_CACHE + k: t for k, t in attn.items()}}
+
+
+def _hybrid_trunk_nocache(params, cfg: ModelConfig, x, positions, mamba_states):
+    """The training / cache-free form: chunked Mamba2 layers from
+    ``mamba_states`` (stacked over the layers), the shared block without an
+    attention cache.  Returns (x after the final norm, new Mamba2 states)."""
+    x, mamba, _ = _hybrid_layers(params, cfg, x, positions, mamba_states, None, chunked=True,
+                                 prefill=True)
+    return x, mamba
+
+
+def hybrid_loss_fn(params, cfg: ModelConfig, batch):
+    raise NotImplementedError(
+        "training the hybrid language model is not ported yet: ROADMAP.md queue 1 item 18"
+    )
+
+
+def hybrid_prefill(params, cfg: ModelConfig, batch, cache):
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = common.embed_lookup(params["embed"], tokens, compute_dtype(cfg))
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    x, cache = _hybrid_trunk(params, cfg, x, positions, cache, chunked=True)
+    return decoder_logits(params, cfg, x[:, -1:]), cache
+
+
+def hybrid_decode_step(params, cfg: ModelConfig, token, pos, cache):
+    """token: (B,) int; pos: (B,) absolute position of this token."""
+    x = common.embed_lookup(params["embed"], token[:, None], compute_dtype(cfg))
+    x, cache = _hybrid_trunk(params, cfg, x, pos[:, None], cache, chunked=False)
+    return decoder_logits(params, cfg, x), cache
