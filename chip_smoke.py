@@ -17,22 +17,31 @@ In order:
    norm error under 1e-5 for ``ssd``, 1e-3 for ``wkv6``, atol = rtol = 1e-2
    and a relative norm error under 1e-2 for bf16 attention):
    ``consensus_mix`` at three
-   shapes, ``dequant_mix`` at four (the vector path at K=100, a padded star
-   round, and the scalar path with odd leaf boundaries, a zero beta row, a
-   zero-scale leaf and a no-payload call), ``segment_mix`` at five (K=100
+   shapes, ``dequant_mix`` at nine, asserting the design each takes (the
+   column tile up to K = 128, the gather above): the vector path at K=100
+   (its N a ragged number of tiles), a padded star round, the scalar path
+   with odd leaf boundaries inside a tile, a zero beta row, a zero-scale
+   leaf and a no-payload call at K = 8 and K = 100, K = 2, and K = 128 and
+   129 on either side of the cap), ``segment_mix`` at five (K=100
    complete, K=4096 ring, a padded star with a zero beta row and ragged N on
    the scalar path, round 17 of a stacked R=16 link-dropout schedule, and
    D=2047 slots staged in chunks), ``wkv6`` at nine (the prefill's
    B 4, T 1024, 64 heads of 64, chunk 16, from a zero and from a random
    state; T 1000, ragged; log-decay -50; T 5, under one chunk; B 1, T 4096;
    and the reference's three sweep shapes at head widths 16, 32 and 64),
-   ``flash_attention`` at 27 (minitron's prefill B 4, S 1024, H 32, Kh 8,
+   ``flash_attention`` at 36, asserting the route each takes (``wgmma``
+   for bf16 at D = 80 and 128, ``mma_sync`` at D = 32 and 64, ``float32``)
+   (minitron's prefill B 4, S 1024, H 32, Kh 8,
    D 128, causal, bf16, timed against SDPA; phi4's group of 3; the
    long-context B 1, S 8192, window 4096, timed against SDPA with a boolean
    mask; S 1000 ragged; S 5; non-causal float32; smollm's 9 over 3 heads;
    zamba2's shared block at its prefill's B 4, S 1024, H = Kh = 32, D 80,
-   timed against SDPA; the reduced configs' D 32 float32; and the reference
-   sweep's 9 (S, D, mask) shapes in both types), ``ssd`` at 15, output and
+   timed against SDPA; the reduced configs' D 32 float32; the wgmma
+   design's edges: S 129 and 1000 against 128-row tiles, S 5 at D 80,
+   window 4000 at S 8192, group 3 at D 80, non-causal D 128, B 4 S 1024 at
+   both served widths, and the (B, H, S, D) entry read in place at both;
+   and the reference sweep's 9 (S, D, mask) shapes in both types), ``ssd``
+   at 15, output and
    final state (zamba2's prefill B 4, T 1024, 80 heads of P = N = 64, one
    B/C group, chunk 64, from a zero and from a random state, and with bf16
    x, B and C as the served path gives them, both timed; T 1000, ragged;
@@ -231,11 +240,14 @@ def consensus_case(card, name, graph, sizes, n, *, dmax=None, zero_beta_rows=(),
 
 
 def dequant_case(card, name, graph, sizes, leaf_offsets, n, *, dmax=None, zero_beta_rows=(),
-                 zero_scale_leaves=(), payload=True, want_vector=None, seed=0):
+                 zero_scale_leaves=(), payload=True, want_vector=None, want_path="tile",
+                 seed=0):
     """dequant_mix kernel vs its plain version (and the dense library product
     of the advanced estimates) at one shape.  ``leaf_offsets`` are the L + 1
     leaf boundaries; columns from the last one to ``n`` are row padding, zero
-    in every input.  ``payload=False`` is top-k's call: no q, no scales."""
+    in every input.  ``payload=False`` is top-k's call: no q, no scales.
+    ``want_path`` is the design the wrapper must pick: ``"tile"`` or
+    ``"gather"``."""
     from repro_torch.core import graph as graph_lib
     from repro_torch.kernels.consensus_mix import dequant, ops, ref
 
@@ -264,6 +276,8 @@ def dequant_case(card, name, graph, sizes, leaf_offsets, n, *, dmax=None, zero_b
     vector = dequant.takes_vector_path(leaf_offsets if payload else (0, 0), x, est, q)
     check(want_vector is None or vector == want_vector,
           f"{name}: vector path {vector}, want {want_vector}")
+    path = "tile" if dequant.takes_tile_path(k) else "gather"
+    check(path == want_path, f"{name}: {path} design, want {want_path}")
 
     got = dequant.dequant_mix_stacked(x, est, q, scale, sparse, leaf_offsets, local_steps)
     want = ref.dequant_mix_stacked_ref(x, est, q, scale, leaf_offsets, *sparse, local_steps)
@@ -280,8 +294,7 @@ def dequant_case(card, name, graph, sizes, leaf_offsets, n, *, dmax=None, zero_b
     mixed, d_out = torch.empty_like(x), torch.empty_like(x)
     est_out = torch.empty_like(x) if payload else None
     adv = want[2]  # the advanced estimates, prepared outside the timed region
-    w_off = w - np.diag(np.diag(w))
-    dense = torch.as_tensor(np.concatenate([w_off, beta]), dtype=torch.float32, device=dev)
+    dense = ref.dense_mix_operator(sparse.nbr_idx, sparse.nbr_w, sparse.beta)
     lib_out = torch.empty((2 * k, n), device=dev)
     kern = lambda: dequant.launch(x, est, q, scale, sparse, leaf_offsets,  # noqa: E731
                                   local_steps, mixed, d_out, est_out)
@@ -297,8 +310,53 @@ def dequant_case(card, name, graph, sizes, leaf_offsets, n, *, dmax=None, zero_b
     nbytes = (2 * k * n * 4 + 2 * k * n * 4  # x, est in; mixed, d out
               + (k * n + k * num_leaves * 4 + k * n * 4 if payload else 0)  # q, scales; est'
               + k * 4 + 3 * k * d * 4)  # slot operands
+    tile_cols = dequant.load_kernel().lib.dequant_mix_tile_columns(k) if path == "tile" else None
     return {"case": name, "K": k, "D": d, "N": n, "leaves": num_leaves, "payload": payload,
-            "vector_path": vector, "max_abs_err": err, **times, **card.bound(nbytes, flops)}
+            "vector_path": vector, "path": path, "tile_columns": tile_cols, "max_abs_err": err,
+            **times, **card.bound(nbytes, flops)}
+
+
+def dequant_cases(card: Card, layout) -> list[dict]:
+    """``dequant_mix`` at the main paths' shapes and at the edges of its two
+    designs: the column tile (K <= 128) and the gather (K > 128)."""
+    from repro_torch.core import graph as graph_lib
+    from repro_torch.kernels.consensus_mix import dequant
+
+    complete = lambda k: graph_lib.build_graph("complete", k)  # noqa: E731
+    cap = dequant.TILE_MAX_PEERS
+    # leaves of a 50,000-column row, every start a multiple of 4 (vector path)
+    mid_leaves, mid_n = (0, 12000, 12200, 40000, 40012, 49996), 50000
+    odd_leaves, odd_n = (0, 301, 302, 777, 999), 1001  # scalar path, leaves inside a tile
+    cases = [
+        dequant_case(card, "iid_k100_qint8", complete(100), np.full(100, 600),
+                     layout.leaf_offsets, layout.row, want_vector=True),
+        dequant_case(card, "tv_k8_star", graph_lib.build_graph("star", 8), np.full(8, 100),
+                     layout.leaf_offsets, layout.row, want_vector=True),
+        dequant_case(card, "ring_odd_leaves", graph_lib.build_graph("ring", 8),
+                     np.arange(1, 9) * 10, odd_leaves, odd_n, dmax=3, zero_beta_rows=(3,),
+                     zero_scale_leaves=(1,), want_vector=False),
+        dequant_case(card, "ring_no_payload", graph_lib.build_graph("ring", 8),
+                     np.arange(1, 9) * 10, odd_leaves, odd_n, dmax=3, zero_beta_rows=(3,),
+                     payload=False, seed=1),
+        dequant_case(card, "noniid_k2", complete(2), np.full(2, 100), layout.leaf_offsets,
+                     layout.row, want_vector=True, seed=2),
+        dequant_case(card, "k100_odd_leaves_zero_beta", complete(100), np.arange(1, 101) * 6,
+                     odd_leaves, odd_n, zero_beta_rows=(0, 57), zero_scale_leaves=(1,),
+                     want_vector=False, seed=3),
+        dequant_case(card, "k100_no_payload", complete(100), np.full(100, 600), mid_leaves,
+                     mid_n, payload=False, want_vector=True, seed=4),
+        dequant_case(card, f"cap_k{cap}", complete(cap), np.arange(1, cap + 1) * 5, mid_leaves,
+                     mid_n, zero_beta_rows=(5,), zero_scale_leaves=(2,), want_vector=True,
+                     seed=5),
+        dequant_case(card, f"gather_k{cap + 1}", complete(cap + 1),
+                     np.arange(1, cap + 2) * 5, mid_leaves, mid_n, zero_beta_rows=(5,),
+                     zero_scale_leaves=(2,), want_vector=True, want_path="gather", seed=6),
+    ]
+    main = cases[0]
+    check(main["N"] % main["tile_columns"] != 0,
+          f"iid_k100_qint8: N={main['N']} should leave a ragged last tile of "
+          f"{main['tile_columns']} columns")
+    return cases
 
 
 def library_operator(sparse, r: int, dev, *, as_csr: bool) -> torch.Tensor:
@@ -392,7 +450,8 @@ def build_kernels() -> None:
     for name, kl in libs.items():
         print(f"  {name}: nvcc {kl.build_seconds:.2f} s -> {kl.path.relative_to(ROOT)}")
         for line in kl.log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(w in line for w in ("Function properties", "registers", "spill", "smem",
+                                       "arning", "serialized")):
                 print(f"  ptxas: {line.strip()}")
     smem = {f"dk={dk} chunk={q}": libs["wkv6"].lib.wkv6_smem_bytes(dk, q)
             for dk, q in ((64, 16), (64, 48), (32, 16), (16, 8))}
@@ -403,7 +462,8 @@ def build_kernels() -> None:
 
 
 def _print_case(kernel: str, c: dict) -> None:
-    print(f"{kernel} {c['case']}: K={c['K']} D={c['D']} N={c['N']} "
+    path = f"path={c['path']} vector={c['vector_path']} " if "path" in c else ""
+    print(f"{kernel} {c['case']}: K={c['K']} D={c['D']} N={c['N']} {path}"
           f"max_abs_err={c['max_abs_err']:.3g} kernel={c['ms']:.4f} ms "
           f"plain={c['plain_ms']:.4f} ms library={c['library_ms']:.4f} ms "
           f"bound={c['bound_ms']:.4f} ms ({c['bound_by']}; {c['bound_card']})", flush=True)
@@ -587,22 +647,39 @@ def visible_mask(s: int, *, causal: bool, window: int | None, device) -> torch.T
 
 
 def flash_case(card, name, b, s, h, kh, d, *, causal=True, window=None, dtype=torch.bfloat16,
-               timed=False, seed=0):
+               timed=False, transposed=False, want_route=None, seed=0):
     """flash_attention kernel vs its plain version on the card at one shape
     (q (B, S, H, D), k and v (B, S, Kh, D), normal draws); ``timed`` also
     times kernel, plain version and SDPA (``is_causal`` without a window, a
-    boolean mask with one) in turns, SDPA's output checked first."""
+    boolean mask with one) in turns, SDPA's output checked first, and the
+    host's cost of one launch (the tensor maps included).  ``transposed``
+    enters through ``flash_attention``'s (B, H, S, D) layout.  The route
+    (``ops.kernel_route``) must be the kernel library's own, and
+    ``want_route`` where given."""
     from repro_torch.kernels.flash_attention import ops, ref
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
     k, v = (torch.randn(b, s, kh, d, generator=gen, device=dev).to(dtype) for _ in range(2))
-    got = ops.gqa_flash_attention(q, k, v, causal=causal, window=window)
+    route = ops.kernel_route(dtype, d)
+    check(route == ops.ROUTES[ops.load_kernel().lib.flash_attention_route(
+        ops.DTYPE_CODES[dtype], d)], f"flash {name}: the wrapper's route {route} is the kernel's")
+    check(want_route is None or route == want_route, f"flash {name}: route {route}, "
+          f"want {want_route}")
+    if transposed:  # the reference kernel's (B, H, S, D) entry, read in place
+        bhsd = [x.transpose(1, 2).contiguous() for x in (q, k, v)]
+        got = ops.flash_attention(*bhsd, causal=causal, window=window).transpose(1, 2)
+        views = [x.transpose(1, 2) for x in bhsd]
+        check(all(ops._kernel_operand(x) is x for x in views),
+              f"flash {name}: the transposed views are read in place, not copied")
+        del bhsd, views
+    else:
+        got = ops.gqa_flash_attention(q, k, v, causal=causal, window=window)
     want = ref.gqa_attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     case = {"case": name, "B": b, "S": s, "H": h, "Kh": kh, "D": d, "causal": causal,
-            "window": window, "dtype": str(dtype).removeprefix("torch."),
+            "window": window, "dtype": str(dtype).removeprefix("torch."), "route": route,
             **check_flash(got, want, f"flash {name}")}
     if timed:
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -624,6 +701,12 @@ def flash_case(card, name, b, s, h, kh, d, *, causal=True, window=None, dtype=to
                                   scale=scale)
         plain = lambda: ref.gqa_attention_ref(q, k, v, causal=causal, window=window)  # noqa: E731
         case.update(in_turns(plain, kern, library))
+        torch.cuda.synchronize()
+        start, reps = time.perf_counter(), 20
+        for _ in range(reps):
+            kern()
+        case["host_us_per_launch"] = (time.perf_counter() - start) / reps * 1e6
+        torch.cuda.synchronize()
         case.update(card.bound(*flash_work(b, s, h, kh, d, causal=causal, window=window,
                                            elem_bytes=q.element_size()),
                                bf16=dtype == torch.bfloat16))
@@ -634,17 +717,34 @@ def flash_case(card, name, b, s, h, kh, d, *, causal=True, window=None, dtype=to
 def flash_cases(card: Card) -> list[dict]:
     """``flash_attention`` at the decoder prefill's shapes and at its edges."""
     f32 = torch.float32
+    wg = "wgmma"
     cases = [
-        flash_case(card, "main_minitron", 4, 1024, 32, 8, 128, timed=True),
-        flash_case(card, "phi4_group3", 1, 2048, 24, 8, 128, seed=1),
+        flash_case(card, "main_minitron", 4, 1024, 32, 8, 128, timed=True, want_route=wg),
+        flash_case(card, "phi4_group3", 1, 2048, 24, 8, 128, want_route=wg, seed=1),
         flash_case(card, "long_window4096", 1, 8192, 32, 8, 128, window=4096, timed=True,
-                   seed=2),
-        flash_case(card, "ragged_s1000", 2, 1000, 32, 8, 128, seed=3),
-        flash_case(card, "tiny_s5", 1, 5, 32, 8, 128, seed=4),
+                   want_route=wg, seed=2),
+        flash_case(card, "ragged_s1000", 2, 1000, 32, 8, 128, want_route=wg, seed=3),
+        flash_case(card, "tiny_s5", 1, 5, 32, 8, 128, want_route=wg, seed=4),
         flash_case(card, "noncausal_f32", 2, 512, 4, 4, 64, causal=False, dtype=f32, seed=5),
-        flash_case(card, "smollm", 2, 512, 9, 3, 64, seed=6),
-        flash_case(card, "zamba2_d80", 4, 1024, 32, 32, 80, timed=True, seed=7),
+        flash_case(card, "smollm", 2, 512, 9, 3, 64, want_route="mma_sync", seed=6),
+        flash_case(card, "zamba2_d80", 4, 1024, 32, 32, 80, timed=True, want_route=wg, seed=7),
         flash_case(card, "reduced_d32_f32", 2, 128, 4, 2, 32, dtype=f32, seed=8),
+        # the wgmma design's edges: rows ragged against 128-row tiles, a
+        # window that is a multiple of no tile, both served widths at the
+        # prefill's shape, the (B, H, S, D) entry
+        flash_case(card, "ragged_s129", 2, 129, 32, 8, 128, want_route=wg, seed=10),
+        flash_case(card, "ragged_s1000_d80", 2, 1000, 32, 32, 80, want_route=wg, seed=11),
+        flash_case(card, "tiny_s5_d80", 1, 5, 32, 32, 80, want_route=wg, seed=12),
+        flash_case(card, "window4000_s8192", 1, 8192, 32, 8, 128, window=4000, want_route=wg,
+                   seed=13),
+        flash_case(card, "group3_d80", 1, 1024, 24, 8, 80, want_route=wg, seed=14),
+        flash_case(card, "noncausal_d128", 2, 1000, 8, 2, 128, causal=False, want_route=wg,
+                   seed=15),
+        flash_case(card, "d128_b4_s1024_mha", 4, 1024, 32, 32, 128, want_route=wg, seed=16),
+        flash_case(card, "transposed_bhsd_d128", 2, 1024, 32, 8, 128, transposed=True,
+                   want_route=wg, seed=17),
+        flash_case(card, "transposed_bhsd_d80", 2, 1000, 32, 32, 80, transposed=True,
+                   want_route=wg, seed=18),
     ]
     for s, d in ((128, 32), (256, 64), (64, 128)):  # test_flash_attention_sweep's grid
         for causal, window in ((True, None), (True, 64), (False, None)):
@@ -663,8 +763,11 @@ def _print_flash_case(c: dict) -> None:
         times = (f" kernel={c['ms']:.4f} ms plain={c['plain_ms']:.4f} ms "
                  f"library(SDPA)={c['library_ms']:.4f} ms bound={c['bound_ms']:.4f} ms "
                  f"({c['bound_by']}; {c['bound_card']})")
+    if "host_us_per_launch" in c:
+        times += f" host={c['host_us_per_launch']:.1f} us/launch"
     print(f"flash_attention {c['case']}: B={c['B']} S={c['S']} H={c['H']} Kh={c['Kh']} "
           f"D={c['D']} causal={c['causal']} window={c['window']} {c['dtype']} "
+          f"route={c['route']} "
           f"max_abs_err={c['max_abs_err']:.3g} rel_norm_err={c['rel_norm_err']:.3g} "
           f"(max |out| {c['max_abs']:.4g}){times}", flush=True)
 
@@ -800,18 +903,7 @@ def check_kernels(card: Card) -> dict[str, list[dict]]:
                        np.full(100, 600), row),
         consensus_case(card, "ring_k8_padded", graph_lib.build_graph("ring", 8),
                        np.arange(1, 9) * 10, 1001, dmax=3, zero_beta_rows=(3,)),
-    ], "dequant_mix": [
-        dequant_case(card, "iid_k100_qint8", graph_lib.build_graph("complete", 100),
-                     np.full(100, 600), layout.leaf_offsets, row, want_vector=True),
-        dequant_case(card, "tv_k8_star", graph_lib.build_graph("star", 8),
-                     np.full(8, 100), layout.leaf_offsets, row, want_vector=True),
-        dequant_case(card, "ring_odd_leaves", graph_lib.build_graph("ring", 8),
-                     np.arange(1, 9) * 10, (0, 301, 302, 777, 999), 1001, dmax=3,
-                     zero_beta_rows=(3,), zero_scale_leaves=(1,), want_vector=False),
-        dequant_case(card, "ring_no_payload", graph_lib.build_graph("ring", 8),
-                     np.arange(1, 9) * 10, (0, 301, 302, 777, 999), 1001, dmax=3,
-                     zero_beta_rows=(3,), payload=False, seed=1),
-    ], "segment_mix": segment_cases(card), "wkv6": wkv6_cases(card),
+    ], "dequant_mix": dequant_cases(card, layout), "segment_mix": segment_cases(card), "wkv6": wkv6_cases(card),
         "flash_attention": flash_cases(card), "ssd": ssd_cases(card)}
     for kernel, kcases in cases.items():
         for c in kcases:

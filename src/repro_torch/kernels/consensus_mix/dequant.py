@@ -18,6 +18,14 @@ Dispatch is by the device of the buffer, and only by it:
   no fallback;
 - any other device raises.
 
+The kernel has two designs, and the rule between them is on the number of
+peers K alone (``takes_tile_path``): up to ``TILE_MAX_PEERS`` (128, both
+main paths: K = 8 and K = 100) the column-tile design, in which a block
+stages a column tile of every sender once and computes the dense
+``[W_off; Beta]`` product from shared memory; above it the gather design,
+one block per peer reading its neighbors' rows.  Both take the payload and
+the no-payload call alike.
+
 Bound on an H100 SXM (see the note in the CUDA source): at K = 100 peers on
 the complete graph one qint8 call moves 418 MB (0.125 ms at 3.35 TB/s) and
 does 8.0 GFLOP (0.119 ms at 67 TFLOP/s): balanced, barely bound by bytes.
@@ -39,6 +47,7 @@ from repro_torch.kernels.consensus_mix.ops import SparseOperands, check_operands
 
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "dequant_mix.cu"]
 MAX_LEAVES = 64  # kMaxLeaves in the CUDA source
+TILE_MAX_PEERS = 128  # kTileMaxPeers in the CUDA source: its dense table fits shared memory
 # dynamic shared memory per block: the default 48 KB less the kernel's static
 # arrays (the leaf starts and a flag)
 _SMEM_BYTES = 48 * 1024 - 1024
@@ -58,12 +67,20 @@ def max_slots(num_leaves: int, with_payload: bool = True) -> int:
 def load_kernel() -> build.KernelLibrary:
     """Build (first call) and load the kernel library; declares its C signature."""
     kl = build.load_library("dequant_mix", SOURCES)
-    fn = kl.lib.dequant_mix_f32
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, ptr, ptr, ptr, ptr, i64,
-                   ctypes.c_float, ctypes.c_int, ptr, ptr, ptr, ptr]
-    fn.restype = ctypes.c_int
+    for fn in (kl.lib.dequant_mix_f32, kl.lib.dequant_mix_tile_f32):
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, ptr, ptr, ptr, ptr, i64,
+                       ctypes.c_float, ctypes.c_int, ptr, ptr, ptr, ptr]
+        fn.restype = ctypes.c_int
+    kl.lib.dequant_mix_tile_columns.argtypes = [i64]
+    kl.lib.dequant_mix_tile_columns.restype = i64
     return kl
+
+
+def takes_tile_path(num_peers: int) -> bool:
+    """Whether a launch for ``num_peers`` peers runs the column-tile design
+    (K <= ``TILE_MAX_PEERS``); otherwise it runs the gather design."""
+    return num_peers <= TILE_MAX_PEERS
 
 
 def _check(flat, est, q, scale, ops, leaf_offsets, local_steps) -> None:
@@ -118,7 +135,8 @@ def launch(
     No checks: callers pass what ``dequant_mix_stacked`` validated.  Counts
     the launch and raises if CUDA refused it.
     """
-    fn = load_kernel().lib.dequant_mix_f32
+    lib = load_kernel().lib
+    fn = lib.dequant_mix_tile_f32 if takes_tile_path(flat.shape[0]) else lib.dequant_mix_f32
     starts = [int(o) for o in leaf_offsets[:-1]] if q is not None else [0]
     vec4 = takes_vector_path(leaf_offsets if q is not None else (0, 0),
                              flat, est, q, mixed, d_bias, est_out)

@@ -100,6 +100,26 @@ def dequant_mix_stacked_ref(
     return mixed.to(flat.dtype), d.to(flat.dtype), adv if q is not None else est
 
 
+def dense_mix_operator(
+    nbr_idx: torch.Tensor,  # (K, D) int
+    nbr_w: torch.Tensor,  # (K, D)
+    beta: torch.Tensor,  # (K, D)
+) -> torch.Tensor:
+    """The (2K, K) float32 ``[W_off; Beta]`` of a padded slot table: row k of
+    the top half holds ``nbr_w[k, s]`` at column ``nbr_idx[k, s]`` (W without
+    its diagonal), the bottom half ``beta[k, s]``; padding slots (own index,
+    weight 0) add 0.  The table the ``dequant_mix`` column-tile kernel builds
+    in shared memory, and with the advanced estimates v the product
+    ``[W_off; Beta] v`` of its sums."""
+    k, d = nbr_idx.shape
+    rows = torch.arange(k, device=nbr_idx.device).repeat_interleave(d)
+    cols = nbr_idx.long().reshape(-1)
+    out = torch.zeros(2 * k, k, dtype=torch.float32, device=nbr_idx.device)
+    out.index_put_((rows, cols), nbr_w.to(torch.float32).reshape(-1), accumulate=True)
+    out.index_put_((rows + k, cols), beta.to(torch.float32).reshape(-1), accumulate=True)
+    return out
+
+
 def segment_mix_ref(
     flat: torch.Tensor,  # (K, N)
     w_mat: torch.Tensor,  # (K, K)

@@ -14,51 +14,64 @@
 // unnormalized float32 accumulator, rescaled as every KV tile arrives
 // (online softmax), and divides by max(l, 1e-30) at the end.
 //
-// Design (simple first):
-// - one block of 128 threads (4 warps) per (64-row query tile, head h,
-//   batch row b); the heaviest causal tiles are scheduled first.
-// - the block loops only over the KV tiles that hold a visible key, from the
-//   tile of max(0, q0 - window + 1) to the tile of the last query row
-//   (causal) or the last key; dead tiles are never visited, and only tiles
-//   that hold a dead (q, k) pair evaluate the mask.
-// - K and V tiles of 64 rows are staged in shared memory, Q once per block
-//   (bf16: two stages filled by cp.async, the next tile's copies in flight
-//   while this one is computed, Q staged in the second stage before the
-//   loop); query head h reads KV head h / group in place: q, k, v and o are read
-//   and written through their (batch, seq, head) strides, so the model's
-//   (B, S, H, D) / (B, S, Kh, D) layouts and the reference's (B, H, S, D)
-//   layout need no copy and no repeat of the KV heads.
-// - masked scores become the reference's finite NEG_INF (-0.7 FLT_MAX) and
-//   their probability is set to exactly 0, so no inf is ever formed (no
-//   inf - inf), keys past S contribute exactly 0 (their staged rows are
-//   zero too), and rows past S are never written: S need not be a multiple
-//   of the tile.
-// - bfloat16: tensor cores through mma.sync.m16n8k16 (bf16 in, float32
-//   accumulate), as in FlashAttention-2: a warp owns 16 query rows, holds
-//   its Q fragments in registers, computes its 16 x 64 score tile with the
-//   K tile as the B operand (fragments by ldmatrix), does the row max / row
-//   sum with two quad
-//   shuffles, and feeds the probabilities back as bf16 A fragments against V
-//   (read transposed by ldmatrix.trans).  Probabilities are rounded to bf16
-//   for the second product, the sum l is kept in float32.
-// - float32: the same tiling on the float32 pipes (no TF32, no bf16): thread
-//   (ty, tx) holds rows 4 ty .. 4 ty + 3 and columns tx + 8 j of the score
-//   tile and of the output; row statistics by shuffles over the 8 lanes of
-//   a row.
+// Three codes, chosen by (dtype, D) alone (`route`, and `kernel_route` in
+// ops.py): bf16 at the served widths D = 128 and 80 on wgmma + TMA; bf16 at
+// D = 32 and 64 on mma.sync; float32 on the float32 pipes.  All three:
+// - visit only the KV tiles that hold a visible key, from the tile of
+//   max(0, q0 - window + 1) to the tile of the last query row (causal) or
+//   the last key; dead tiles are never visited, and only tiles that hold a
+//   dead (q, k) pair evaluate the mask; the heaviest query tiles go first.
+// - read q, k, v and write o through their (batch, seq, head) strides, query
+//   head h reading KV head h / group in place, so the model's (B, S, H, D) /
+//   (B, S, Kh, D) layouts and the reference's (B, H, S, D) layout need no
+//   copy and no repeat of the KV heads.
+// - give a key that is not visible probability exactly 0, read keys past S
+//   as zeros and never write rows past S: S need not be a multiple of a tile.
+//
+// wgmma + TMA (bf16, D = 128 and 80; `flash_wgmma_kernel`):
+// - a persistent grid, one block of 384 threads an SM, walks the work items
+//   (128-row query tile, head, batch row), heaviest query tiles first.
+//   Warp 0 produces: TMA loads of Q (two buffers, so the next item's Q
+//   arrives during this one) and of 128-key K and V tiles through a ring of
+//   two stages with full / empty mbarriers; it keeps 40 registers
+//   (setmaxnreg), the consumers 232.
+// - two consumer warpgroups own 64 query rows each: S = Q K^T by wgmma
+//   m64n128k16 with Q and K in swizzled shared memory; the online softmax in
+//   float32 registers (max on the raw scores, the scale * log2(e) folded into
+//   one FFMA before ex2.approx, -inf for keys that are not visible, tested
+//   against each row's visible range); P converted to bf16 in registers as
+//   wgmma's A operand against V read MN-major (the transpose bit).  One
+//   reciprocal a row at the end.
+// - operands through 4-d tensor maps (D, heads, S, B) built on the host from
+//   the strides each call (cuTensorMapEncodeTiled, reached through the
+//   runtime's driver entry point): D = 128 as two 64-column chunks in the
+//   128-byte swizzle; D = 80 in three 32-column chunks in the 64-byte
+//   swizzle, its 160-byte rows fitting no swizzle, so TMA zero-fills
+//   columns 80..95 (20% more tensor work, no extra bytes read).
+//
+// mma.sync (bf16, D = 32 and 64; `flash_bf16_kernel`): one block of 128
+// threads per (64-row query tile, head, batch row); K and V tiles of 64 rows
+// in two cp.async stages; mma.sync.m16n8k16 as in FlashAttention-2, a warp
+// owning 16 query rows, K's fragments by ldmatrix, V's by ldmatrix.trans;
+// masked scores become the reference's finite NEG_INF (-0.7 FLT_MAX) and
+// their probability exactly 0.
+//
+// float32 (`flash_f32_kernel`): the same tiling on the float32 pipes (no
+// TF32, no bf16): thread (ty, tx) holds rows 4 ty .. 4 ty + 3 and columns
+// tx + 8 j of the score tile and of the output; row statistics by shuffles
+// over the 8 lanes of a row.
 //
 // Bound on an H100 SXM: the serving prefill's shape (B 4, S 1024, H 32,
 // Kh 8, D 128, causal) has 67,174,400 live (q, k) pairs; at 4 D operations a
 // pair that is 34.4 GFLOP, 0.0348 ms at 989 TFLOP/s (bf16 dense tensor
 // rate), against 83.9 MB of q, k, v and o (0.025 ms at 3.35 TB/s): it is
-// bound by operations, hence the tensor-core path for bf16.  What the simple
-// design leaves on the table: mma.sync instead of wgmma (and no TMA or
-// warp specialization), 64 query rows per block (each K and V tile is
-// staged once per 64 rows), 12 warps an SM, and a __syncthreads pair per
-// KV tile.
+// bound by operations, hence wgmma for the served widths.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -78,23 +91,27 @@ struct Params {
   // strides in elements: batch, sequence, head
   int64_t q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh;
   int S, group, causal, window;
+  int H, B;  // query heads and batch rows (the wgmma kernel's work items)
   float scale;  // float32 path: the softmax scale; bf16 path: scale * log2(e)
 };
 
-// First and last KV tile that hold a key visible to some row of the query
-// tile starting at q0.
+// First and last KV tile of BK keys that hold a key visible to some row of
+// the query tile of BQ rows starting at q0.
+template <int BQ = kBQ, int BK = kBK>
 __device__ __forceinline__ void kv_tiles(int q0, const Params& p, int& lo, int& hi) {
-  const int q_last = min(q0 + kBQ, p.S) - 1;
+  const int q_last = min(q0 + BQ, p.S) - 1;
   const int k_first = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
   const int k_last = p.causal ? q_last : p.S - 1;
-  lo = k_first / kBK;
-  hi = k_last / kBK;
+  lo = k_first / BK;
+  hi = k_last / BK;
 }
 
-// Whether the KV tile at k0 holds a (q, k) pair that is not visible.
+// Whether the KV tile of BK keys at k0 holds a (q, k) pair that is not
+// visible to the BQ query rows from q0.
+template <int BQ = kBQ, int BK = kBK>
 __device__ __forceinline__ bool tile_needs_mask(int q0, int k0, const Params& p) {
-  const int q_last = min(q0 + kBQ, p.S) - 1;
-  return k0 + kBK > p.S || (p.causal && k0 + kBK - 1 > q0) ||
+  const int q_last = min(q0 + BQ, p.S) - 1;
+  return k0 + BK > p.S || (p.causal && k0 + BK - 1 > q0) ||
          (p.window > 0 && q_last - k0 >= p.window);
 }
 
@@ -463,7 +480,516 @@ __global__ void __launch_bounds__(kThreads, 3) flash_bf16_kernel(Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 at D = 128 and D = 80: wgmma + TMA, warp-specialized
+// ---------------------------------------------------------------------------
+
+constexpr int kWgBM = 128;       // query rows a block: two consumer warpgroups of 64
+constexpr int kWgBN = 128;       // keys a staged K / V tile
+constexpr int kWgStages = 2;     // K / V tiles in flight
+constexpr int kWgThreads = 384;  // one producer warpgroup, two consumer warpgroups
+constexpr int kWgConsumers = 256;
+constexpr int kMaxDevices = 64;
+
+// How a head of width D is staged: kChunks chunks of kChunk columns, each a
+// [rows][kChunk] region of kRowBytes-byte rows in the swizzle of the same
+// width, which the TMA box and the wgmma descriptor (kDescLayout: 1 is
+// 128-byte, 2 is 64-byte swizzle) both name.  D = 128: two chunks of 64
+// (128-byte swizzle).  D = 80: 160-byte rows fit no swizzle, so three chunks
+// of 32 columns (64-byte swizzle) stage a width of 96, columns 80..95 zero-
+// filled by TMA: 20% more tensor work, no extra bytes read.
+template <int D>
+struct WgLayout;
+template <>
+struct WgLayout<128> {
+  static constexpr int kChunk = 64, kChunks = 2, kRowBytes = 128, kDescLayout = 1;
+  static constexpr CUtensorMapSwizzle kSwizzle = CU_TENSOR_MAP_SWIZZLE_128B;
+};
+template <>
+struct WgLayout<80> {
+  static constexpr int kChunk = 32, kChunks = 3, kRowBytes = 64, kDescLayout = 2;
+  static constexpr CUtensorMapSwizzle kSwizzle = CU_TENSOR_MAP_SWIZZLE_64B;
+};
+
+template <int D>
+constexpr size_t wg_smem_bytes() {
+  using L = WgLayout<D>;
+  constexpr size_t q_bytes = static_cast<size_t>(kWgBM) * L::kChunks * L::kRowBytes;
+  constexpr size_t tile_bytes = static_cast<size_t>(kWgBN) * L::kChunks * L::kRowBytes;
+  // two Q buffers, the K / V stages, the barriers, and slack to align the base to 1024
+  return 2 * q_bytes + kWgStages * 2 * tile_bytes + 8 * (4 + 3 * kWgStages) + 1024;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Spin until the phase of `bar` with this parity has completed.  A phase
+// that never completes (a fault in the pipeline) traps after 2^35 clock
+// cycles (some 17 s), so the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long start = clock64();
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (clock64() - start > (1LL << 35)) __trap();
+  }
+}
+
+// One TMA box of a 4-d map at coordinates (c0 innermost) into shared memory,
+// completing `bar`'s transaction bytes; out-of-range elements are zero.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (16-byte units) and the swizzle of the canonical layout.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                            uint32_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (static_cast<uint64_t>(layout) << 62);
+}
+
+// 2^x by the special-function unit (relative error about 2^-22); 2^-inf = 0.
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Orders the accumulator registers after (or before) the wgmma fences and
+// waits, which name no register themselves.
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 128, float32) (accumulate ? += : =) A (64 x 16) B (16 x 128), both from
+// shared memory, K-major, described by a and b
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 128, float32) += A (64 x 16, bf16 registers) B (16 x 128, shared memory,
+// MN-major: the transpose bit), described by b
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 96, float32) += A (64 x 16, bf16 registers) B (16 x 96, shared memory,
+// MN-major: the transpose bit), described by b
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48], const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t b) {
+  wgmma_rs_n128(d, a, b);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<96>(float (&d)[48], const uint32_t (&a)[4], uint64_t b) {
+  wgmma_rs_n96(d, a, b);
+}
+
+// Warp 0 of warpgroup 0 loads (Q once, then K and V tiles through a ring of
+// kWgStages stages with full / empty barriers); warpgroups 1 and 2 each own
+// 64 query rows: S = Q K^T by wgmma from shared memory, the online softmax
+// in registers, O += P V by wgmma with P as bf16 registers and V read
+// MN-major from shared memory.
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v, Params p) {
+  using L = WgLayout<D>;
+  constexpr int DP = L::kChunk * L::kChunks;  // staged width
+  constexpr int kStepsPerChunk = L::kChunk / 16;
+  constexpr uint32_t kQChunk = kWgBM * L::kRowBytes, kKVChunk = kWgBN * L::kRowBytes;
+  constexpr uint32_t kQBytes = kQChunk * L::kChunks, kTileBytes = kKVChunk * L::kChunks;
+  constexpr uint32_t kSbo = 8 * L::kRowBytes;  // 8 rows of a chunk
+  extern __shared__ unsigned char smem_wg[];
+  const uint32_t base = (smem_u32(smem_wg) + 1023) & ~1023u;  // the swizzle atoms' alignment
+  const uint32_t s_q = base;             // two Q buffers, kQBytes each
+  const uint32_t s_kv = base + 2 * kQBytes;  // stage s: K at s_kv + 2 s kTileBytes, V after it
+  const uint32_t bars = s_kv + kWgStages * 2 * kTileBytes;
+  auto q_full = [&](int qs) { return bars + 8 * qs; };
+  auto q_empty = [&](int qs) { return bars + 8 * (2 + qs); };
+  auto full_k = [&](int s) { return bars + 8 * (4 + s); };
+  auto full_v = [&](int s) { return bars + 8 * (4 + kWgStages + s); };
+  auto empty = [&](int s) { return bars + 8 * (4 + 2 * kWgStages + s); };
+
+  // Work items (query tile, head, batch row), the heaviest query tiles first
+  // across all heads; consecutive items share a KV head, so its K and V are
+  // read from L2.  Block x takes items x, x + gridDim.x, ...
+  const int n_q = (p.S + kWgBM - 1) / kWgBM;
+  const int heads = p.H, items = n_q * heads * p.B;
+  auto item_of = [&](int item, int& q0, int& h, int& b) {
+    const int hb = item % (heads * p.B);
+    q0 = (n_q - 1 - item / (heads * p.B)) * kWgBM;
+    h = hb % heads;
+    b = hb / heads;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int qs = 0; qs < 2; ++qs) {
+      mbar_init(q_full(qs), 1);
+      mbar_init(q_empty(qs), kWgConsumers);
+    }
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty(s), kWgConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int ring = 0, n = 0;  // K / V tiles and items loaded so far
+      for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+        int q0, h, b;
+        item_of(item, q0, h, b);
+        const int kh = h / p.group, qs = n & 1;
+        int t_lo, t_hi;
+        kv_tiles<kWgBM, kWgBN>(q0, p, t_lo, t_hi);
+        mbar_wait(q_empty(qs), ((n >> 1) & 1) ^ 1);
+        mbar_expect_tx(q_full(qs), kQBytes);
+        for (int c = 0; c < L::kChunks; ++c)
+          tma_load_4d(s_q + qs * kQBytes + c * kQChunk, &tm_q, c * L::kChunk, h, q0, b,
+                      q_full(qs));
+        for (int t = t_lo; t <= t_hi; ++t, ++ring) {
+          const int s = ring % kWgStages;
+          mbar_wait(empty(s), ((ring / kWgStages) & 1) ^ 1);
+          const uint32_t s_k = s_kv + 2 * s * kTileBytes, s_v = s_k + kTileBytes;
+          mbar_expect_tx(full_k(s), kTileBytes);
+          for (int c = 0; c < L::kChunks; ++c)
+            tma_load_4d(s_k + c * kKVChunk, &tm_k, c * L::kChunk, kh, t * kWgBN, b, full_k(s));
+          mbar_expect_tx(full_v(s), kTileBytes);
+          for (int c = 0; c < L::kChunks; ++c)
+            tma_load_4d(s_v + c * kKVChunk, &tm_v, c * L::kChunk, kh, t * kWgBN, b, full_v(s));
+        }
+      }
+    }
+  } else {  // consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int cw = wg - 1;  // rows q0 + 64 cw .. q0 + 64 cw + 63
+    const int ct = threadIdx.x - 128 * wg, warp = ct / 32, lane = ct % 32;
+    const int g = lane >> 2, tq = lane & 3;
+    int ring = 0, n = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+      int q0, h, b;
+      item_of(item, q0, h, b);
+      const int qs = n & 1;
+      const uint32_t s_qi = s_q + qs * kQBytes;
+      int t_lo, t_hi;
+      kv_tiles<kWgBM, kWgBN>(q0, p, t_lo, t_hi);
+      const int wq0 = q0 + 64 * cw;
+      const int qrow[2] = {wq0 + 16 * warp + g, wq0 + 16 * warp + g + 8};
+      float o[DP / 2];
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) o[i] = 0.0f;
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};  // raw score max, sum
+      mbar_wait(q_full(qs), (n >> 1) & 1);
+
+      for (int t = t_lo; t <= t_hi; ++t, ++ring) {
+        const int s = ring % kWgStages;
+        const uint32_t parity = (ring / kWgStages) & 1;
+        const int k0 = t * kWgBN;
+        const uint32_t s_k = s_kv + 2 * s * kTileBytes, s_v = s_k + kTileBytes;
+
+        // scores: sc[4 j + e] is row qrow[e / 2], key k0 + 8 j + 2 tq + e % 2
+        float sc[kWgBN / 2] = {};  // overwritten by the first k-step (accumulate 0)
+        mbar_wait(full_k(s), parity);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < DP / 16; ++ks) {
+          const uint32_t off = (ks % kStepsPerChunk) * 32;  // 16 columns a step
+          const uint64_t da = wg_desc(s_qi + (ks / kStepsPerChunk) * kQChunk +
+                                          64 * cw * L::kRowBytes + off,
+                                      16, kSbo, L::kDescLayout);
+          const uint64_t db =
+              wg_desc(s_k + (ks / kStepsPerChunk) * kKVChunk + off, 16, kSbo, L::kDescLayout);
+          wgmma_ss_n128(sc, da, db, ks > 0);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_operands(sc);
+
+        // online softmax in the log2 domain, two FA3 economies: the row max is
+        // taken on the raw scores (scale > 0) and the scale folds into the
+        // exponent's one FFMA; a key that is not visible scores -inf, so its
+        // probability is exactly 0 with no compare.  The mask, where a tile
+        // needs one, tests each column against the row's visible range.
+        if (tile_needs_mask<64, kWgBN>(wq0, k0, p)) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int hi = min(p.S - 1, p.causal ? qrow[r] : p.S - 1) - k0 - 2 * tq;
+            const int lo = (p.window > 0 ? qrow[r] - p.window + 1 : 0) - k0 - 2 * tq;
+#pragma unroll
+            for (int j = 0; j < kWgBN / 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int col = 8 * j + e;
+                if (col < lo || col > hi) sc[4 * j + 2 * r + e] = -INFINITY;
+              }
+          }
+        }
+        float mx[2] = {m[0], m[1]};
+#pragma unroll
+        for (int j = 0; j < kWgBN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * j + e]);
+        float alpha[2], bias[2], rs[2] = {0.0f, 0.0f};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          // a row with no visible key yet keeps max -inf: its p and alpha stay finite
+          alpha[r] = mx[r] == -INFINITY ? 1.0f : ex2_approx((m[r] - mx[r]) * p.scale);
+          bias[r] = mx[r] == -INFINITY ? 0.0f : mx[r] * p.scale;
+          m[r] = mx[r];
+        }
+        uint32_t pa[kWgBN / 16][4];  // P as the A fragments of the 16-key steps
+#pragma unroll
+        for (int j = 0; j < kWgBN / 8; ++j) {
+          float pe[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            pe[e] = ex2_approx(fmaf(sc[4 * j + e], p.scale, -bias[e >> 1]));
+            rs[e >> 1] += pe[e];
+          }
+          pa[j / 2][2 * (j & 1)] = pack_bf16(pe[0], pe[1]);
+          pa[j / 2][2 * (j & 1) + 1] = pack_bf16(pe[2], pe[3]);
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];  // quad-summed at the end
+#pragma unroll
+        for (int c = 0; c < DP / 8; ++c) {
+          o[4 * c] *= alpha[0];
+          o[4 * c + 1] *= alpha[0];
+          o[4 * c + 2] *= alpha[1];
+          o[4 * c + 3] *= alpha[1];
+        }
+
+        mbar_wait(full_v(s), parity);
+        fence_operands(o);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kWgBN / 16; ++kk)
+          wgmma_pv<DP>(o, pa[kk], wg_desc(s_v + kk * 16 * L::kRowBytes, kKVChunk, kSbo,
+                                          L::kDescLayout));
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_operands(o);
+        mbar_arrive(empty(s));
+      }
+      mbar_arrive(q_empty(qs));  // the producer may load the item after next's Q
+
+      __nv_bfloat16* op = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float lt = l[r];
+        lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+        lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+        if (qrow[r] < p.S) {
+          const float inv = 1.0f / fmaxf(lt, 1e-30f);  // one division a row
+          __nv_bfloat16* orow = op + qrow[r] * p.o_ss + 2 * tq;
+#pragma unroll
+          for (int c = 0; c < D / 8; ++c)  // staged columns past D are not written
+            *reinterpret_cast<uint32_t*>(orow + c * 8) =
+                pack_bf16(o[4 * c + 2 * r] * inv, o[4 * c + 2 * r + 1] * inv);
+        }
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda).
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr,
+                                                             12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// The 4-d map (D, heads, S, B) of a bf16 operand read through its element
+// strides, boxes of (chunk, 1, rows, 1); rows past S and columns past D
+// read as zero.
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int64_t d, int64_t heads, int64_t s,
+                     int64_t b, int64_t sh, int64_t ss, int64_t sb, int chunk, int rows,
+                     CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(s), static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2, static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(chunk), 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                            strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D>
+cudaError_t launch_wgmma(const Params& p, int B, int H, int KH, cudaStream_t stream) {
+  using L = WgLayout<D>;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err;
+  if ((err = make_map(&tq, p.q, D, H, p.S, B, p.q_sh, p.q_ss, p.q_sb, L::kChunk, kWgBM,
+                      L::kSwizzle)) != cudaSuccess ||
+      (err = make_map(&tk, p.k, D, KH, p.S, B, p.k_sh, p.k_ss, p.k_sb, L::kChunk, kWgBN,
+                      L::kSwizzle)) != cudaSuccess ||
+      (err = make_map(&tv, p.v, D, KH, p.S, B, p.v_sh, p.v_ss, p.v_sb, L::kChunk, kWgBN,
+                      L::kSwizzle)) != cudaSuccess)
+    return err;
+  // the persistent grid: one block an SM (the shared memory allows no more),
+  // at most one a work item.  The shared-memory limit and the SM count are
+  // set and asked once per device.
+  constexpr size_t smem = wg_smem_bytes<D>();
+  int dev = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  static int sms[kMaxDevices] = {};
+  if (sms[dev] == 0) {
+    if ((err = cudaFuncSetAttribute(flash_wgmma_kernel<D>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    static_cast<int>(smem))) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev)) !=
+            cudaSuccess)
+      return err;
+  }
+  const int64_t items = static_cast<int64_t>((p.S + kWgBM - 1) / kWgBM) * H * B;
+  if (items > 0x7fffffff) return cudaErrorInvalidValue;
+  const int grid = static_cast<int>(items < sms[dev] ? items : sms[dev]);
+  flash_wgmma_kernel<D><<<grid, kWgThreads, smem, stream>>>(tq, tk, tv, p);
+  return cudaGetLastError();
+}
+
+// Which code runs a call: 0 float32 (float32 pipes), 1 bf16 on mma.sync
+// (D = 32, 64), 2 bf16 on wgmma + TMA (D = 80, 128).
+int route(int dtype, int d) { return dtype == 0 ? 0 : (d == 80 || d == 128) ? 2 : 1; }
+
 size_t smem_bytes(int dtype, int d) {
+  if (route(dtype, d) == 2) return d == 128 ? wg_smem_bytes<128>() : wg_smem_bytes<80>();
   if (dtype == 0)
     return sizeof(float) * (static_cast<size_t>(kBQ + kBK) * (d + 1) +
                             static_cast<size_t>(kBK) * d + static_cast<size_t>(kBQ) * (kBK + 1));
@@ -481,10 +1007,15 @@ cudaError_t launch(Kernel kernel, size_t smem, const Params& p, int n_q, int H, 
 }
 
 template <int D>
-cudaError_t launch_d(int dtype, const Params& p, int n_q, int H, int B, cudaStream_t stream) {
+cudaError_t launch_d(int dtype, const Params& p, int n_q, int H, int B, int KH,
+                     cudaStream_t stream) {
   const size_t smem = smem_bytes(dtype, D);
   if (dtype == 0) return launch(flash_f32_kernel<D>, smem, p, n_q, H, B, stream);
-  return launch(flash_bf16_kernel<D>, smem, p, n_q, H, B, stream);
+  if constexpr (D == 80 || D == 128) {
+    return launch_wgmma<D>(p, B, H, KH, stream);
+  } else {
+    return launch(flash_bf16_kernel<D>, smem, p, n_q, H, B, stream);
+  }
 }
 
 }  // namespace
@@ -493,6 +1024,12 @@ cudaError_t launch_d(int dtype, const Params& p, int n_q, int H, int B, cudaStre
 // 1 bfloat16) at head width d (ptxas reports none for it).
 extern "C" int64_t flash_attention_smem_bytes(int64_t dtype, int64_t d) {
   return static_cast<int64_t>(smem_bytes(static_cast<int>(dtype), static_cast<int>(d)));
+}
+
+// The code a call of `dtype` at head width d runs: 0 float32, 1 bf16 on
+// mma.sync, 2 bf16 on wgmma + TMA.
+extern "C" int64_t flash_attention_route(int64_t dtype, int64_t d) {
+  return route(static_cast<int>(dtype), static_cast<int>(d));
 }
 
 // q, o: (B, S, H, D); k, v: (B, S, KH, D), all of one type (dtype 0 float32,
@@ -518,18 +1055,21 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   p.v_sb = strides[6], p.v_ss = strides[7], p.v_sh = strides[8];
   p.o_sb = strides[9], p.o_ss = strides[10], p.o_sh = strides[11];
   p.S = static_cast<int>(S);
+  p.H = static_cast<int>(H);
+  p.B = static_cast<int>(B);
   p.group = static_cast<int>(H / KH);
   p.causal = causal != 0;
   p.window = static_cast<int>(window);
   p.scale = static_cast<float>(dtype == 0 ? scale : scale * kLog2e);
   const int n_q = static_cast<int>((S + kBQ - 1) / kBQ);
   const int d = static_cast<int>(dtype), h = static_cast<int>(H), b = static_cast<int>(B);
+  const int kh = static_cast<int>(KH);
   auto s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return static_cast<int>(launch_d<32>(d, p, n_q, h, b, s));
-    case 64: return static_cast<int>(launch_d<64>(d, p, n_q, h, b, s));
-    case 80: return static_cast<int>(launch_d<80>(d, p, n_q, h, b, s));
-    case 128: return static_cast<int>(launch_d<128>(d, p, n_q, h, b, s));
+    case 32: return static_cast<int>(launch_d<32>(d, p, n_q, h, b, kh, s));
+    case 64: return static_cast<int>(launch_d<64>(d, p, n_q, h, b, kh, s));
+    case 80: return static_cast<int>(launch_d<80>(d, p, n_q, h, b, kh, s));
+    case 128: return static_cast<int>(launch_d<128>(d, p, n_q, h, b, kh, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

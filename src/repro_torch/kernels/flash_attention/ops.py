@@ -22,8 +22,18 @@ Dispatch is by the device of the operands, and only by it:
 
 The kernel takes float32 (computed in float32 on the float32 pipes) and
 bfloat16 (tensor cores, float32 accumulation) at head widths 32, 64, 80 and
-128.  Bound on an H100 SXM (see the note in the CUDA source): at the
-serving prefill's B 4, S 1024, H 32, Kh 8, D 128, causal, one call does
+128.  Which code runs is a rule on (dtype, D) alone (``kernel_route``):
+bf16 at D = 80 and 128, the served widths, on ``wgmma`` with TMA loads
+(128 query rows a block, a producer warp and two consumer warpgroups);
+bf16 at D = 32 and 64 on ``mma.sync``; float32 on the float32 pipes.  The
+TMA maps read the operands through their strides, so the rule for an
+operand the kernel takes in place is the same for every route: unit stride
+on the last axis and, for bf16, the other strides multiples of 8 elements
+(16 bytes) and the data 16-byte aligned; anything else is copied first
+(``_kernel_operand``).
+
+Bound on an H100 SXM (see the note in the CUDA source): at the serving
+prefill's B 4, S 1024, H 32, Kh 8, D 128, causal, one call does
 34.4 GFLOP (0.0348 ms at 989 TFLOP/s bf16) against 83.9 MB (0.025 ms at
 3.35 TB/s): it is bound by operations.
 
@@ -44,6 +54,8 @@ from repro_torch.kernels.flash_attention import ref
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"]
 HEAD_DIMS = (32, 64, 80, 128)  # the head widths the kernel is instantiated for
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # the kernel's dtype argument
+ROUTES = ("float32", "mma_sync", "wgmma")  # flash_attention_route's codes in the CUDA source
+WGMMA_HEAD_DIMS = (80, 128)
 
 launches = LaunchCounter()
 
@@ -56,9 +68,19 @@ def load_kernel() -> build.KernelLibrary:
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
     fn.argtypes = [ptr] * 4 + [i64] * 6 + [ctypes.POINTER(i64), i64, i64, ctypes.c_double, ptr]
     fn.restype = ctypes.c_int
-    kl.lib.flash_attention_smem_bytes.argtypes = [i64, i64]
-    kl.lib.flash_attention_smem_bytes.restype = i64
+    for name in ("flash_attention_smem_bytes", "flash_attention_route"):
+        getattr(kl.lib, name).argtypes = [i64, i64]
+        getattr(kl.lib, name).restype = i64
     return kl
+
+
+def kernel_route(dtype: torch.dtype, d: int) -> str:
+    """The code a CUDA call of ``dtype`` at head width ``d`` runs:
+    ``"wgmma"`` (bf16 at D = 80 and 128), ``"mma_sync"`` (bf16 at D = 32
+    and 64) or ``"float32"``; the CUDA source's ``route`` is the same rule."""
+    if dtype == torch.float32:
+        return "float32"
+    return "wgmma" if d in WGMMA_HEAD_DIMS else "mma_sync"
 
 
 def check_inputs(q, k, v, window) -> None:
@@ -87,13 +109,15 @@ def check_inputs(q, k, v, window) -> None:
 
 def _kernel_operand(x: torch.Tensor) -> torch.Tensor:
     """``x`` as the kernel reads it: unit stride on the last axis and, for
-    bf16 (16-byte loads), every stride a multiple of 8 elements and the data
+    bf16 (16-byte loads and TMA, whose strides and base must be multiples of
+    16 bytes), every other stride a multiple of 8 elements and the data
     16-byte aligned; anything else is copied to a contiguous tensor."""
     aligned = x.stride(-1) == 1
     if x.dtype == torch.bfloat16:
         aligned = aligned and all(st % 8 == 0 for st in x.stride()[:-1]) \
             and x.data_ptr() % 16 == 0
-    return x if aligned else x.contiguous()
+    # clone, not contiguous(): a contiguous view off alignment must be copied too
+    return x if aligned else x.clone(memory_format=torch.contiguous_format)
 
 
 def launch(q, k, v, out, *, causal: bool, window: int | None, scale: float) -> None:

@@ -30,6 +30,7 @@ from repro_torch.core import p2p as tp2p  # noqa: E402
 from repro_torch.core import task as ttask  # noqa: E402
 from repro_torch.kernels.consensus_mix import dequant as tdequant  # noqa: E402
 from repro_torch.kernels.consensus_mix import ops as tops  # noqa: E402
+from repro_torch.kernels.consensus_mix import ref as tref  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -220,3 +221,53 @@ def test_cpu_wrapper_counts_no_launch_and_has_no_fallback():
     tree = ast.parse(Path(tdequant.__file__).read_text())
     assert not any(isinstance(node, ast.Try) for node in ast.walk(tree))
     assert tdequant.max_slots(6) >= 99  # iid_k100's complete graph fits
+
+
+GRAPHS = [("complete", 100, None), ("star", 8, None), ("ring", 8, 3)]
+
+
+def _graph_operands(topology, k, dmax):
+    """A graph's float64 W and Beta, and its padded slot table."""
+    g = tgraph.build_graph(topology, k)
+    sizes = np.arange(1, k + 1) * 10
+    w = tgraph.mixing_matrix(g, "data_weighted", data_sizes=sizes)
+    beta = tgraph.affinity_matrix(g, data_sizes=sizes)
+    return w, beta, tops.sparse_from_matrices(w, beta, dmax=dmax)
+
+
+@pytest.mark.parametrize("topology,k,dmax", GRAPHS)
+def test_dense_operator_is_w_off_and_beta(topology, k, dmax):
+    """The column-tile kernel's table: [W_off; Beta] from the slot table, padding
+    slots (ring K=8 padded to 3 slots) adding nothing."""
+    w, beta, ops = _graph_operands(topology, k, dmax)
+    dense = tref.dense_mix_operator(ops.nbr_idx, ops.nbr_w, ops.beta).numpy()
+    want = np.concatenate([w - np.diag(np.diag(w)), beta]).astype(np.float32)
+    assert dense.shape == (2 * k, k)
+    np.testing.assert_array_equal(dense, want)
+
+
+@pytest.mark.parametrize("topology,k,dmax", GRAPHS)
+def test_dense_operator_product_matches_plain(topology, k, dmax):
+    """[W_off; Beta] times the advanced estimates gives the plain version's sums."""
+    _, _, ops = _graph_operands(topology, k, dmax)
+    n, offsets = 257, (0, 100, 101, 250)
+    rng = np.random.default_rng(k)
+    x, est = (torch.as_tensor(rng.normal(size=(k, n)).astype(np.float32)) for _ in range(2))
+    q = torch.as_tensor(rng.integers(-127, 128, size=(k, n)).astype(np.int8))
+    scale = torch.as_tensor(rng.uniform(0.0, 0.1, size=(k, 3)).astype(np.float32))
+    mixed, d, adv = tref.dequant_mix_stacked_ref(x, est, q, scale, offsets, *ops, T)
+    dense = tref.dense_mix_operator(ops.nbr_idx, ops.nbr_w, ops.beta)
+    sums = dense @ adv
+    torch.testing.assert_close(ops.self_w[:, None] * x + sums[:k], mixed, **TOL)
+    has = ops.beta.sum(dim=1) > 0
+    torch.testing.assert_close(torch.where(has[:, None], (sums[k:] - adv) / T, 0.0), d, **TOL)
+
+
+@pytest.mark.parametrize("k,tile", [(2, True), (8, True), (100, True), (128, True),
+                                    (129, False), (4096, False)])
+def test_tile_path_rule(k, tile):
+    """Up to the cap (128 peers) the column-tile design, above it the gather;
+    the CUDA source's cap is the wrapper's."""
+    assert tdequant.takes_tile_path(k) is tile
+    src = Path(tdequant.SOURCES[0]).read_text()
+    assert f"constexpr int kTileMaxPeers = {tdequant.TILE_MAX_PEERS};" in src

@@ -13,6 +13,8 @@ the card by ``chip_smoke.py``.
 Tolerances: tests/test_kernels.py's, float32 atol 5e-5 / rtol 1e-4 and bf16
 atol = rtol = 5e-2.
 """
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -151,3 +153,37 @@ def test_mixed_types_raise():
     q = torch.zeros(1, 8, 4, 32)
     with pytest.raises(TypeError):
         ops.gqa_flash_attention(q, q.bfloat16(), q.bfloat16())
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.float32, 32, "float32"), (torch.float32, 128, "float32"),
+    (torch.bfloat16, 32, "mma_sync"), (torch.bfloat16, 64, "mma_sync"),
+    (torch.bfloat16, 80, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+])
+def test_kernel_route(dtype, d, route):
+    """The served widths (bf16 at D = 80 and 128) take the wgmma + TMA code;
+    the CUDA source's route function is the same rule."""
+    assert ops.kernel_route(dtype, d) == route
+    src = Path(ops.SOURCES[0]).read_text()
+    assert "(d == 80 || d == 128) ? 2 : 1" in src
+    assert ops.ROUTES[2] == "wgmma" and set(ops.WGMMA_HEAD_DIMS) == {80, 128}
+
+
+@pytest.mark.parametrize("d", [80, 128])
+def test_tma_operand_rule(d):
+    """The TMA maps take any strides that are multiples of 16 bytes from a
+    16-byte-aligned base: the (B, H, S, D) entry's transposed views and the
+    model's layouts pass uncopied; a view off alignment or with a row stride
+    of an odd number of elements is copied, contiguous."""
+    bhsd = torch.zeros(2, 4, 16, d, dtype=torch.bfloat16)
+    view = bhsd.transpose(1, 2)  # (B, S, H, D) view of (B, H, S, D)
+    assert ops._kernel_operand(view) is view
+    model = torch.zeros(2, 16, 4, d, dtype=torch.bfloat16)
+    assert ops._kernel_operand(model) is model
+    flat = torch.zeros(2 * 16 * 4 * d + 1, dtype=torch.bfloat16)
+    shifted = flat[1:].view(2, 16, 4, d)  # 2 bytes past a 16-byte boundary
+    copied = ops._kernel_operand(shifted)
+    assert copied is not shifted and copied.is_contiguous() and copied.data_ptr() % 16 == 0
+    odd = torch.zeros(2, 16, 4, d + 1, dtype=torch.bfloat16)[..., :d]  # head stride d + 1
+    assert ops._kernel_operand(odd).is_contiguous()
+    torch.testing.assert_close(ops._kernel_operand(odd), odd)
