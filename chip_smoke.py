@@ -16,8 +16,13 @@ In order:
    for the consensus kernels, float32 attention and ``ssd``, with a relative
    norm error under 1e-5 for ``ssd``, 1e-3 for ``wkv6``, atol = rtol = 1e-2
    and a relative norm error under 1e-2 for bf16 attention):
-   ``consensus_mix`` at three
-   shapes, ``dequant_mix`` at nine, asserting the design each takes (the
+   ``consensus_mix`` at nine
+   shapes, asserting the design each takes (the column tile from K = 16 to
+   128, the gather below and above): the main paths' K = 2 and 100, a
+   padded ring, K = 15 and 16 on either side of the small-K rule, K = 100
+   with a ragged N and zero beta rows, K = 100 with W = I (d must survive),
+   and K = 128 and 129 on either side of the cap; ``dequant_mix`` at nine,
+   asserting the design each takes (the
    column tile up to K = 128, the gather above): the vector path at K=100
    (its N a ragged number of tiles), a padded star round, the scalar path
    with odd leaf boundaries inside a tile, a zero beta row, a zero-scale
@@ -25,10 +30,14 @@ In order:
    129 on either side of the cap), ``segment_mix`` at five (K=100
    complete, K=4096 ring, a padded star with a zero beta row and ragged N on
    the scalar path, round 17 of a stacked R=16 link-dropout schedule, and
-   D=2047 slots staged in chunks), ``wkv6`` at nine (the prefill's
+   D=2047 slots staged in chunks), ``wkv6`` at seventeen (the prefill's
    B 4, T 1024, 64 heads of 64, chunk 16, from a zero and from a random
-   state; T 1000, ragged; log-decay -50; T 5, under one chunk; B 1, T 4096;
-   and the reference's three sweep shapes at head widths 16, 32 and 64),
+   state, and with bf16 r, k and v as served, timed; T 1000, ragged;
+   log-decay -50; T 5, under one chunk; B 1, T 4096, timed; T 1001 ragged
+   at chunk 48 with a state in bf16; the reference's three sweep shapes at
+   head widths 16, 32 and 64; head widths 16 and 32 at chunks 1 and 64;
+   and chunk 64 at head width 64 in float32 at B 1 and 4; bf16 outputs
+   held within the float32 tolerance plus their one rounding),
    ``flash_attention`` at 36, asserting the route each takes (``wgmma``
    for bf16 at D = 80 and 128, ``mma_sync`` at D = 32 and 64, ``float32``)
    (minitron's prefill B 4, S 1024, H 32, Kh 8,
@@ -198,18 +207,26 @@ def in_turns(plain, kern, library) -> dict:
     return {key: sum(v) / len(v) if v else None for key, v in t.items()}
 
 
-def consensus_case(card, name, graph, sizes, n, *, dmax=None, zero_beta_rows=(), seed=0):
-    """Kernel vs plain version (and the dense library product) at one shape."""
+def consensus_case(card, name, graph, sizes, n, *, dmax=None, zero_beta_rows=(), self_only_w=False,
+                   want_path="tile", seed=0):
+    """Kernel vs plain version (and the dense library product) at one shape.
+    ``self_only_w`` mixes with W = I while Beta stays the graph's (the mix
+    is x, d must survive); ``want_path`` is the design the wrapper must
+    pick: ``"tile"`` or ``"gather"``."""
     from repro_torch.core import graph as graph_lib
     from repro_torch.kernels.consensus_mix import ops, ref
 
     dev = torch.device("cuda")
     local_steps = 10
     w = graph_lib.mixing_matrix(graph, "data_weighted", data_sizes=sizes)
+    if self_only_w:
+        w = np.eye(len(sizes))
     beta = graph_lib.affinity_matrix(graph, data_sizes=sizes)
     beta[list(zero_beta_rows)] = 0.0  # isolated for d: d must stay 0
     sparse = ops.sparse_from_matrices(w, beta, dmax=dmax, device=dev)
     k, d = sparse.nbr_idx.shape
+    path = "tile" if ops.takes_tile_path(k) else "gather"
+    check(path == want_path, f"{name}: {path} design, want {want_path}")
     rng = np.random.default_rng(seed)
     x = torch.as_tensor(rng.normal(size=(k, n)).astype(np.float32), device=dev)
 
@@ -222,6 +239,9 @@ def consensus_case(card, name, graph, sizes, n, *, dmax=None, zero_beta_rows=(),
         err = max(err, float((g - r).abs().max()))
     for row in zero_beta_rows:
         check(bool((got[1][row] == 0).all()), f"{name}: zero beta row {row} gives d = 0")
+    if self_only_w:
+        check(bool(torch.equal(got[0], x)), f"{name}: W = I mixes nothing")
+        check(float(got[1].abs().max()) > 0.0, f"{name}: d survives a W with no off-diagonal")
 
     mixed, d_out = torch.empty_like(x), torch.empty_like(x)
     dense = torch.as_tensor(np.concatenate([w, beta]), dtype=torch.float32, device=dev)
@@ -235,8 +255,40 @@ def consensus_case(card, name, graph, sizes, n, *, dmax=None, zero_beta_rows=(),
     real = (sparse.nbr_idx != torch.arange(k, device=dev)[:, None]).sum().item()
     flops = n * (4 * real + 3 * k)  # 2 FMAs per real slot, self scale + d per row
     nbytes = 3 * k * n * 4 + k * 4 + 3 * k * d * 4  # x once, mixed + d, operands
-    return {"case": name, "K": k, "D": d, "N": n, "max_abs_err": err, **times,
-            **card.bound(nbytes, flops)}
+    return {"case": name, "K": k, "D": d, "N": n, "path": path, "vector_path": n % 4 == 0,
+            "max_abs_err": err, **times, **card.bound(nbytes, flops)}
+
+
+def consensus_cases(card: Card, row: int) -> list[dict]:
+    """``consensus_mix`` at the main paths' shapes (K = 2 and 100 at the
+    2NN's row) and at the edges of its two designs: the column tile from
+    ``TILE_MIN_PEERS`` to ``TILE_MAX_PEERS`` peers, the gather elsewhere."""
+    from repro_torch.core import graph as graph_lib
+    from repro_torch.kernels.consensus_mix import ops
+
+    complete = lambda k: graph_lib.build_graph("complete", k)  # noqa: E731
+    lo, cap = ops.TILE_MIN_PEERS, ops.TILE_MAX_PEERS
+    design = lambda k: "tile" if lo <= k <= cap else "gather"  # noqa: E731
+    return [
+        consensus_case(card, "noniid_k2", complete(2), np.full(2, 100), row,
+                       want_path=design(2)),
+        consensus_case(card, "iid_k100", complete(100), np.full(100, 600), row),
+        consensus_case(card, "ring_k8_padded", graph_lib.build_graph("ring", 8),
+                       np.arange(1, 9) * 10, 1001, dmax=3, zero_beta_rows=(3,),
+                       want_path=design(8)),
+        consensus_case(card, f"edge_k{lo - 1}", complete(lo - 1), np.arange(1, lo) * 10, 5003,
+                       want_path="gather", seed=1),
+        consensus_case(card, f"edge_k{lo}", complete(lo), np.arange(1, lo + 1) * 10, 5003,
+                       zero_beta_rows=(0,), seed=2),
+        consensus_case(card, "k100_ragged_n", complete(100), np.arange(1, 101) * 6, 4099,
+                       zero_beta_rows=(0, 57), seed=3),
+        consensus_case(card, "k100_w_self_only", complete(100), np.full(100, 600), 20000,
+                       self_only_w=True, seed=4),
+        consensus_case(card, f"cap_k{cap}", complete(cap), np.arange(1, cap + 1) * 5, 50000,
+                       zero_beta_rows=(5,), seed=5),
+        consensus_case(card, f"gather_k{cap + 1}", complete(cap + 1), np.arange(1, cap + 2) * 5,
+                       50000, zero_beta_rows=(5,), want_path="gather", seed=6),
+    ]
 
 
 def dequant_case(card, name, graph, sizes, leaf_offsets, n, *, dmax=None, zero_beta_rows=(),
@@ -453,9 +505,6 @@ def build_kernels() -> None:
             if any(w in line for w in ("Function properties", "registers", "spill", "smem",
                                        "arning", "serialized")):
                 print(f"  ptxas: {line.strip()}")
-    smem = {f"dk={dk} chunk={q}": libs["wkv6"].lib.wkv6_smem_bytes(dk, q)
-            for dk, q in ((64, 16), (64, 48), (32, 16), (16, 8))}
-    print(f"  wkv6 dynamic shared memory per block, bytes: {smem}", flush=True)
     smem = {f"{name} D={d}": libs["flash_attention"].lib.flash_attention_smem_bytes(code, d)
             for name, code in (("float32", 0), ("bfloat16", 1)) for d in (32, 64, 80, 128)}
     print(f"  flash_attention dynamic shared memory per block, bytes: {smem}", flush=True)
@@ -506,14 +555,19 @@ def segment_cases(card: Card) -> list[dict]:
 
 
 WKV6_TOL = dict(atol=1e-3, rtol=1e-3)  # float32, the wkv6 tolerance of tests/test_kernels.py
+# bf16 r, k, v and output: both sides compute in float32 from the same bf16
+# values, and the kernel rounds its float32 output once to bf16 (at most 2^-9
+# of it), so each entry is held within WKV6_TOL plus that rounding
+WKV6_BF16_TOL = dict(atol=1e-3, rtol=1e-3 + 2**-8)
 
 
-def wkv6_work(b: int, t: int, h: int, dk: int, q: int, *, state: bool, out_bytes: int = 4):
-    """(bytes, FLOP) one wkv6 call needs: four float32 inputs, u and the
-    state in (when given) read once, the output and the final state written
-    once; per (b, h) and chunk of n real tokens the operations of the chunk
-    form (an exp counts as one)."""
-    nbytes = 4 * b * t * h * dk * 4 + h * dk * 4 + b * t * h * dk * out_bytes
+def wkv6_work(b: int, t: int, h: int, dk: int, q: int, *, state: bool, in_bytes: int = 4,
+              out_bytes: int = 4):
+    """(bytes, FLOP) one wkv6 call needs: r, k, v (``in_bytes`` each) and
+    the float32 log-decays, u and the state in (when given) read once, the
+    output and the final state written once; per (b, h) and chunk of n real
+    tokens the operations of the chunk form (an exp counts as one)."""
+    nbytes = (3 * in_bytes + 4) * b * t * h * dk + h * dk * 4 + b * t * h * dk * out_bytes
     nbytes += (2 if state else 1) * b * h * dk * dk * 4
     flops = 0
     for start in range(0, t, q):
@@ -527,14 +581,16 @@ def wkv6_work(b: int, t: int, h: int, dk: int, q: int, *, state: bool, out_bytes
     return nbytes, b * h * flops
 
 
-def wkv6_case(card, name, b, t, h, dk, chunk, *, state=False, ld=None, timed=False, seed=0):
+def wkv6_case(card, name, b, t, h, dk, chunk, *, state=False, ld=None, timed=False,
+              dtype=torch.float32, seed=0):
     """wkv6 kernel vs its plain version on the card at one shape; ``ld`` is
-    a constant log-decay, or (low, high) for a uniform draw of -ld."""
+    a constant log-decay, or (low, high) for a uniform draw of -ld; r, k
+    and v in ``dtype`` (bf16: the served type; the log-decays stay float32)."""
     from repro_torch.kernels.rwkv6 import ops, ref
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
-    r, k, v = (torch.randn(b, t, h, dk, generator=gen, device=dev) for _ in range(3))
+    r, k, v = (torch.randn(b, t, h, dk, generator=gen, device=dev).to(dtype) for _ in range(3))
     if isinstance(ld, float):
         logd = torch.full((b, t, h, dk), ld, device=dev)
     else:
@@ -546,13 +602,16 @@ def wkv6_case(card, name, b, t, h, dk, chunk, *, state=False, ld=None, timed=Fal
     got, got_s = ops.wkv6(r, k, v, logd, u, state=s0, chunk=chunk)
     want, want_s = ref.wkv6_chunked_ref(r, k, v, logd, u, s0, chunk=chunk)
     torch.cuda.synchronize()
+    check(got.dtype == dtype, f"wkv6 {name}: output in r's type {dtype}, got {got.dtype}")
     check(bool(torch.isfinite(got).all() and torch.isfinite(got_s).all()), f"wkv6 {name} finite")
     err = 0.0
-    for g, w, what in ((got, want, "out"), (got_s, want_s, "final state")):
-        torch.testing.assert_close(g, w, **WKV6_TOL, msg=lambda m: f"wkv6 {name} {what}: {m}")
-        err = max(err, float((g - w).abs().max()))
+    for g, w, what, tol in ((got, want, "out", WKV6_BF16_TOL if dtype == torch.bfloat16
+                             else WKV6_TOL), (got_s, want_s, "final state", WKV6_TOL)):
+        torch.testing.assert_close(g.float(), w, **tol, msg=lambda m: f"wkv6 {name} {what}: {m}")
+        err = max(err, float((g.float() - w).abs().max()))
     case = {"case": name, "B": b, "T": t, "H": h, "dk": dk, "chunk": min(chunk, t),
-            "state": state, "max_abs_err": err, "max_abs_out": float(want.abs().max())}
+            "state": state, "dtype": str(dtype).removeprefix("torch."), "max_abs_err": err,
+            "max_abs_out": float(want.abs().max())}
     if state:  # the state in must matter here: a zero state gives another result
         zero_s = ops.wkv6(r, k, v, logd, u, chunk=chunk)[1]
         case["state_effect"] = float((zero_s - got_s).abs().max())
@@ -564,7 +623,9 @@ def wkv6_case(card, name, b, t, h, dk, chunk, *, state=False, ld=None, timed=Fal
         kern = lambda: ops.launch(r, k, v, logd, u, s0, q, out, final)  # noqa: E731
         plain = lambda: ref.wkv6_chunked_ref(r, k, v, logd, u, s0, chunk=q)  # noqa: E731
         case.update(in_turns(plain, kern, None))
-        case.update(card.bound(*wkv6_work(b, t, h, dk, q, state=state)))
+        es = r.element_size()
+        case.update(card.bound(*wkv6_work(b, t, h, dk, q, state=state, in_bytes=es,
+                                          out_bytes=es)))
     return case
 
 
@@ -580,10 +641,24 @@ def wkv6_cases(card: Card) -> list[dict]:
         wkv6_case(card, "extreme_decay", 4, 1024, 64, 64, 16, ld=-50.0, seed=3),
         wkv6_case(card, "short_t5", 4, 5, 64, 64, 16, state=True, ld=small, seed=4),
         wkv6_case(card, "b1_t4096", 1, 4096, 64, 64, 16, timed=True, seed=5),
+        # the served type: bf16 r, k, v and output, float32 log-decays
+        wkv6_case(card, "main_b4_t1024_bf16", 4, 1024, 64, 64, 16, timed=True,
+                  dtype=torch.bfloat16, seed=7),
+        wkv6_case(card, "ragged_t1001_q48_state_bf16", 2, 1001, 8, 64, 48, state=True, ld=small,
+                  dtype=torch.bfloat16, seed=8),
     ]
     for t, h, dk, chunk in ((64, 2, 32, 16), (32, 4, 16, 8), (48, 1, 64, 48)):
         cases.append(wkv6_case(card, f"sweep_t{t}_h{h}_dk{dk}_q{chunk}", 2, t, h, dk, chunk,
                                state=True, ld=small, seed=6))
+    # the narrower heads' instantiations at the chunk's extremes
+    for dk, chunk in ((16, 1), (16, 64), (32, 1), (32, 64)):
+        cases.append(wkv6_case(card, f"dk{dk}_q{chunk}", 2, 200, 3, dk, chunk, state=True,
+                               ld=small, seed=9))
+    # the general form at the longest chunk in float32 (218 KB of shared
+    # memory), where the heads leave SMs free (B 1) and where they do not (B 4)
+    for b in (1, 4):
+        cases.append(wkv6_case(card, f"dk64_q64_b{b}", b, 300, 64, 64, 64, state=True,
+                               ld=small, seed=10))
     torch.cuda.empty_cache()
     return cases
 
@@ -594,7 +669,7 @@ def _print_wkv6_case(c: dict) -> None:
         times = (f" kernel={c['ms']:.4f} ms plain={c['plain_ms']:.4f} ms library=none "
                  f"bound={c['bound_ms']:.4f} ms ({c['bound_by']}; {c['bound_card']})")
     print(f"wkv6 {c['case']}: B={c['B']} T={c['T']} H={c['H']} dk={c['dk']} chunk={c['chunk']} "
-          f"state={c['state']} max_abs_err={c['max_abs_err']:.3g} "
+          f"state={c['state']} {c['dtype']} max_abs_err={c['max_abs_err']:.3g} "
           f"(max |out| {c['max_abs_out']:.4g}){times}", flush=True)
 
 
@@ -890,21 +965,15 @@ def _print_ssd_case(c: dict) -> None:
 
 def check_kernels(card: Card) -> dict[str, list[dict]]:
     """Build the six kernels and hold each against its plain version at its shapes."""
-    from repro_torch.core import graph as graph_lib
     from repro_torch.core.p2p import layout_of
 
     build_kernels()
     layout = layout_of("mnist_mlp")
     row = layout.row  # 199,210 parameters -> 199,212
-    cases = {"consensus_mix": [
-        consensus_case(card, "noniid_k2", graph_lib.build_graph("complete", 2),
-                       np.full(2, 100), row),
-        consensus_case(card, "iid_k100", graph_lib.build_graph("complete", 100),
-                       np.full(100, 600), row),
-        consensus_case(card, "ring_k8_padded", graph_lib.build_graph("ring", 8),
-                       np.arange(1, 9) * 10, 1001, dmax=3, zero_beta_rows=(3,)),
-    ], "dequant_mix": dequant_cases(card, layout), "segment_mix": segment_cases(card), "wkv6": wkv6_cases(card),
-        "flash_attention": flash_cases(card), "ssd": ssd_cases(card)}
+    cases = {"consensus_mix": consensus_cases(card, row),
+             "dequant_mix": dequant_cases(card, layout), "segment_mix": segment_cases(card),
+             "wkv6": wkv6_cases(card), "flash_attention": flash_cases(card),
+             "ssd": ssd_cases(card)}
     for kernel, kcases in cases.items():
         for c in kcases:
             if kernel == "wkv6":
@@ -1228,9 +1297,11 @@ def time_and_profile_serving(model, params, prompt, cache0) -> dict:
 def _compare_wkv6(args, kwargs, got, want, what) -> dict:
     rec = {"logdecay_range": [float(args[3].min()), float(args[3].max())],
            "o_max_abs": float(want[0].abs().max())}
+    rec["o_dtype"] = str(got[0].dtype).removeprefix("torch.")
     for g, w, part in ((got[0], want[0], "o"), (got[1], want[1], "state")):
-        torch.testing.assert_close(g, w, **WKV6_TOL, msg=lambda m: f"{what} {part}: {m}")
-        rec[f"{part}_max_abs_err"] = float((g - w).abs().max())
+        tol = WKV6_BF16_TOL if g.dtype == torch.bfloat16 else WKV6_TOL
+        torch.testing.assert_close(g.float(), w, **tol, msg=lambda m: f"{what} {part}: {m}")
+        rec[f"{part}_max_abs_err"] = float((g.float() - w).abs().max())
     return rec
 
 
@@ -1535,7 +1606,7 @@ def main() -> int:
          "iid_k100_qint8"),
         ("segment_mix", "consensus_mix/csrc/segment_mix.cu", "consensus_mix/segment.py:124",
          f"ring_k{LARGE_K}"),
-        ("wkv6", "rwkv6/csrc/wkv6.cu", "rwkv6/rwkv6.py:94", "main_b4_t1024"),
+        ("wkv6", "rwkv6/csrc/wkv6.cu", "rwkv6/rwkv6.py:94", "main_b4_t1024_bf16"),
         ("flash_attention", "flash_attention/csrc/flash_attention.cu",
          "flash_attention/flash_attention.py:124", "main_minitron"),
         ("ssd", "mamba2/csrc/ssd.cu", "mamba2/mamba2.py:98", "main_b4_t1024_bf16"),
@@ -1545,7 +1616,7 @@ def main() -> int:
                    if kernel in p["launches"]}
         if kernel == "wkv6":
             shape = (f"B={main['B']} T={main['T']} H={main['H']} dk={main['dk']} "
-                     f"chunk={main['chunk']}")
+                     f"chunk={main['chunk']} {main['dtype']}")
         elif kernel == "flash_attention":
             shape = (f"B={main['B']} S={main['S']} H={main['H']} Kh={main['Kh']} D={main['D']} "
                      f"causal {main['dtype']}")

@@ -10,7 +10,16 @@
 //   d[k]     = (sum_s beta[k, s] * x[nbr_idx[k, s]] - x[k]) / T,
 //              and d[k] = 0 when sum_s beta[k, s] == 0 (isolated peer)
 //
-// Design (simple first):
+// Two designs; the Python wrapper picks one by the number of peers K alone
+// (`ops.takes_tile_path`): the column-tile design (`consensus_mix_tile_f32`,
+// the code of tile_mix.cuh, shared with dequant_mix.cu) for K from
+// ops.TILE_MIN_PEERS (16: below it the gather design is faster) up to
+// kTileMaxPeers (128, whose dense table fits shared memory), the gather
+// design (`consensus_mix_f32`) elsewhere.  consensus_mix is dequant_mix with
+// no payload and est == x: the tile design stages each tile of x once, takes
+// the self term x_k from the staged tile, and writes mixed and d only.
+//
+// Gather design (`consensus_mix_f32`):
 // - grid (K, tiles of N); blockIdx.x is the peer, so the K blocks that work
 //   on one tile of N run next to each other and find that tile's neighbor
 //   rows in L2.
@@ -28,17 +37,22 @@
 // +-0.0 to both sums.
 //
 // Bound on an H100: at the iid_k100 shape (K = 100, D = 99, N = 199,212) one
-// call must read 80 MB and write 160 MB (47 us at 3.35 TB/s) but does
+// call must read 80 MB and write 160 MB (72 us at 3.35 TB/s) but does
 // 4 D + 3 = 399 float32 operations per output element, 7.9 GFLOP (119 us at
-// 67 TFLOP/s): it is bound by float32 FMA throughput.  What the simple design
-// leaves on the table: every peer re-reads each neighbor row (K * D row reads
-// per call, served from L2 at best), and nothing shares a loaded neighbor
-// value between the peers that need it; a tiled (K x K) @ (K x N) form would.
+// 67 TFLOP/s): it is bound by float32 FMA throughput.  The gather design
+// re-reads every neighbor row once per peer that needs it (K * D row reads
+// per call, served from L2 at best) and shares no loaded value between the
+// peers that need it; the tile design reads each row once and does the
+// (2K x K) @ (K x N) product from shared memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "vec_ops.cuh"
+namespace {
+constexpr int kTileMaxPeers = 128;
+}  // namespace
+
+#include "tile_mix.cuh"
 
 namespace {
 
@@ -126,4 +140,30 @@ extern "C" int consensus_mix_f32(const float* x, int64_t num_peers, int64_t n,
         d_out);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The column-tile design's entry point: the arguments and their contract are
+// consensus_mix_f32's, for num_peers <= kTileMaxPeers (else
+// cudaErrorInvalidValue).  Launches a persistent grid on `stream` and
+// returns a cudaError_t (0 on success).
+extern "C" int consensus_mix_tile_f32(const float* x, int64_t num_peers, int64_t n,
+                                      const float* self_w, const int32_t* nbr_idx,
+                                      const float* nbr_w, const float* beta, int64_t d_slots,
+                                      float local_steps, float* mixed, float* d_out,
+                                      void* stream) {
+  if (num_peers <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
+  if (num_peers > kTileMaxPeers || d_slots < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int k = static_cast<int>(num_peers), ds = static_cast<int>(d_slots);
+  const LeafStarts leaves = {};  // no payload: one leaf, unused
+  const size_t smem = tile_smem_bytes(k, false);
+  const bool vec4 = n % 4 == 0 && aligned16(x) && aligned16(mixed) && aligned16(d_out);
+  const cudaError_t err =
+      vec4 ? launch_tile<true, true>(false, smem, s, x, x, nullptr, nullptr, leaves, 1, n, k,
+                                     self_w, nbr_idx, nbr_w, beta, ds, local_steps, mixed,
+                                     d_out, nullptr)
+           : launch_tile<false, true>(false, smem, s, x, x, nullptr, nullptr, leaves, 1, n, k,
+                                      self_w, nbr_idx, nbr_w, beta, ds, local_steps, mixed,
+                                      d_out, nullptr);
+  return static_cast<int>(err);
 }

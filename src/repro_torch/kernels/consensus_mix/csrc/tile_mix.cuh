@@ -1,0 +1,391 @@
+// The column-tile design of the dense consensus kernels on Hopper (sm_90a),
+// shared by consensus_mix.cu and dequant_mix.cu: both compute, for every
+// peer k of a (K, N) float32 buffer and the dense (2K x K) operator
+// [W_off; Beta] that the padded slot table (nbr_idx, nbr_w, beta) stands for,
+//
+//   mixed[k] = self_w[k] * x[k] + sum_j W_off[k, j] v_j
+//   d[k]     = (sum_j Beta[k, j] v_j - v_k) / T,  0 if the raw beta row sums to 0
+//
+// with v = est (advanced in place by an int8 payload where there is one:
+// v_j = est[j] + scale[j, leaf] * q[j], written once to est').  Two template
+// switches choose what a caller needs: kHasQ (a payload to dequantize, est'
+// written) and kSelfStaged (x is est, so the self term is read from the
+// staged tile and not from device memory a second time: consensus_mix).
+//
+// - a block owns a tile of TN columns of ALL K peers; a persistent grid of
+//   as many blocks as fit on the SMs walks the tiles.  Every sender's tile is
+//   read from device memory once.
+// - each block first scatters the slot table into a dense (K x 2K)
+//   [W_off; Beta]^T table in shared memory (padding slots carry the row's
+//   own index with weight 0 and add +0.0), keeps self_w, and reduces the RAW
+//   beta row sums for the no-neighbor guard.
+// - two stages of tiles in shared memory, filled by cp.async (16 bytes of
+//   est, 4 of q a copy) on the vector path while the previous tile is
+//   computed; the scalar path (N or a leaf start not a multiple of 4, or a
+//   buffer off alignment) stages with plain loads.
+// - the 2K output rows of a tile come from shared memory with register
+//   tiling: a thread holds 8 rows x 4 columns, so each step over a sender j
+//   reads two float4s of the table and one of v for 32 FMAs.  float32 on the
+//   float32 pipes, no TF32.  Columns past N are neither read (zero-filled)
+//   nor written.
+//
+// The including source defines kTileMaxPeers, the most peers whose table
+// fits shared memory, before it includes this header.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "vec_ops.cuh"
+
+namespace {
+
+constexpr int kMaxLeaves = 64;
+
+struct LeafStarts {
+  int64_t start[kMaxLeaves];  // first column of each leaf; start[0] == 0
+};
+
+constexpr int kMaxDevices = 64;
+constexpr int kTileThreads = 512;  // most threads a block
+constexpr int kTileRows = 8;       // output rows a thread holds
+constexpr int kTileCols = 4;       // output columns a thread holds: one float4
+constexpr int kTileMaxGroups = 64;  // most column groups a tile: 256 columns
+
+// The tile's shape for K peers: RP = 2K output rows rounded up to 8, RG row
+// groups of 8, CG column groups of 4 (each thread one row group and one
+// column group), TN = 4 CG columns a tile, and the block's threads, RG x CG
+// rounded up to a warp.  Few peers give narrow tiles and small blocks, so
+// there are tiles for every SM and several blocks on each (K = 8: TN = 256,
+// 128 threads); K = 100: TN = 80, 512 threads; K = 128: TN = 64.
+struct TileShape {
+  int rp, rg, cg, tn, threads, block;
+};
+
+__host__ __device__ __forceinline__ TileShape tile_shape(int k) {
+  TileShape t;
+  t.rp = (2 * k + kTileRows - 1) / kTileRows * kTileRows;
+  t.rg = t.rp / kTileRows;
+  t.cg = min(kTileThreads / t.rg, kTileMaxGroups);
+  t.tn = kTileCols * t.cg;
+  t.threads = t.rg * t.cg;
+  t.block = (t.threads + 31) / 32 * 32;
+  return t;
+}
+
+// 16 (est) or 4 (q) bytes from global to shared memory without passing
+// through registers; `valid` false writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(addr), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ int leaf_of(int64_t col, const int64_t* starts, int num_leaves) {
+  int l = 0;
+  while (l + 1 < num_leaves && col >= starts[l + 1]) ++l;
+  return l;
+}
+
+// Stage the (est, q) tile starting at column col0 into sv ([K][TN] float32)
+// and sq ([K][TN] int8): thread tid takes the 4-column chunks tid, tid +
+// blockDim, ...; columns past n are zero.  kVec: cp.async (asynchronous);
+// else plain loads (synchronous).
+template <bool kVec, bool kHasQ>
+__device__ __forceinline__ void stage_tile(float* sv, int8_t* sq, const float* __restrict__ est,
+                                           const int8_t* __restrict__ q, int64_t col0, int64_t n,
+                                           int k_peers, int tn) {
+  const int c4 = tn / 4;
+  for (int e = threadIdx.x; e < k_peers * c4; e += blockDim.x) {
+    const int j = e / c4, c = e - j * c4;
+    const int64_t col = col0 + 4 * c;
+    const int64_t src = static_cast<int64_t>(j) * n + col;
+    float* dv = sv + j * tn + 4 * c;
+    int8_t* dq = sq + j * tn + 4 * c;
+    if (kVec) {
+      const bool ok = col < n;
+      cp_async16(dv, ok ? est + src : est, ok);
+      if (kHasQ) cp_async4(dq, ok ? q + src : q, ok);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool ok = col + i < n;
+        dv[i] = ok ? est[src + i] : 0.0f;
+        if (kHasQ) dq[i] = ok ? q[src + i] : static_cast<int8_t>(0);
+      }
+    }
+  }
+}
+
+// Advance the chunks this thread staged, in place (v = fmaf(scale, q, est),
+// one rounding), and write them to est'.  The chunk assignment is
+// stage_tile's, so each thread reads only its own copies, visible to it
+// after its cp.async wait.
+template <bool kVec>
+__device__ __forceinline__ void advance_tile(float* sv, const int8_t* sq,
+                                             const float* __restrict__ scale,
+                                             const int64_t* starts, int num_leaves,
+                                             float* __restrict__ est_out, int64_t col0,
+                                             int64_t n, int k_peers, int tn) {
+  const int c4 = tn / 4;
+  for (int e = threadIdx.x; e < k_peers * c4; e += blockDim.x) {
+    const int j = e / c4, c = e - j * c4;
+    const int64_t col = col0 + 4 * c;
+    float4 v = *reinterpret_cast<float4*>(sv + j * tn + 4 * c);
+    const char4 qq = *reinterpret_cast<const char4*>(sq + j * tn + 4 * c);
+    const float* sc = scale + static_cast<int64_t>(j) * num_leaves;
+    float s0, s1, s2, s3;
+    if (kVec) {  // every leaf start is a multiple of 4: one leaf a chunk
+      s0 = s1 = s2 = s3 = __ldg(sc + leaf_of(col, starts, num_leaves));
+    } else {
+      s0 = __ldg(sc + leaf_of(col, starts, num_leaves));
+      s1 = __ldg(sc + leaf_of(col + 1, starts, num_leaves));
+      s2 = __ldg(sc + leaf_of(col + 2, starts, num_leaves));
+      s3 = __ldg(sc + leaf_of(col + 3, starts, num_leaves));
+    }
+    v.x = fmaf(s0, static_cast<float>(qq.x), v.x);
+    v.y = fmaf(s1, static_cast<float>(qq.y), v.y);
+    v.z = fmaf(s2, static_cast<float>(qq.z), v.z);
+    v.w = fmaf(s3, static_cast<float>(qq.w), v.w);
+    *reinterpret_cast<float4*>(sv + j * tn + 4 * c) = v;
+    float* dst = est_out + static_cast<int64_t>(j) * n + col;
+    if (kVec) {
+      if (col < n) *reinterpret_cast<float4*>(dst) = v;
+    } else {
+      const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (col + i < n) dst[i] = vv[i];
+    }
+  }
+}
+
+// Four consecutive columns of `row` from `col`: whole on the vector path
+// (n is a multiple of 4 there), guarded per column on the scalar path.
+template <bool kVec>
+__device__ __forceinline__ float4 load4(const float* __restrict__ p, int64_t row, int64_t col,
+                                        int64_t n) {
+  if (kVec) {
+    return col < n ? __ldg(reinterpret_cast<const float4*>(p + row * n + col))
+                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  float v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = col + i < n ? __ldg(p + row * n + col + i) : 0.0f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+template <bool kVec>
+__device__ __forceinline__ void store4(float* __restrict__ p, int64_t row, int64_t col, int64_t n,
+                                       float4 v) {
+  if (kVec) {
+    if (col < n) *reinterpret_cast<float4*>(p + row * n + col) = v;
+    return;
+  }
+  const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (col + i < n) p[row * n + col + i] = vv[i];
+}
+
+// Dynamic shared memory: [K][RP] table | K4 self_w | K4 has-neighbor flags |
+// 2 stages of [K][TN] float32 est (advanced in place) | 2 of [K][TN] int8 q.
+size_t tile_smem_bytes(int k, bool has_q) {
+  const TileShape t = tile_shape(k);
+  const size_t k4 = static_cast<size_t>((k + 3) & ~3);
+  const size_t tile = static_cast<size_t>(k) * t.tn;
+  return sizeof(float) * (static_cast<size_t>(k) * t.rp + 2 * k4 + 2 * tile) +
+         (has_q ? 2 * tile : 0);
+}
+
+template <bool kVec, bool kHasQ, bool kSelfStaged>
+__global__ void __launch_bounds__(kTileThreads, 1)
+mix_tile_kernel(const float* __restrict__ x, const float* __restrict__ est,
+                        const int8_t* __restrict__ q, const float* __restrict__ scale,
+                        LeafStarts leaves, int num_leaves, int64_t n, int k_peers,
+                        const float* __restrict__ self_w, const int32_t* __restrict__ nbr_idx,
+                        const float* __restrict__ nbr_w, const float* __restrict__ beta,
+                        int d_slots, float local_steps, float* __restrict__ mixed,
+                        float* __restrict__ d_out, float* __restrict__ est_out) {
+  const TileShape ts = tile_shape(k_peers);
+  const int rp = ts.rp, tn = ts.tn;
+  const int k4 = (k_peers + 3) & ~3;
+  extern __shared__ __align__(16) float smem[];
+  float* table = smem;                 // table[j * rp + r] = [W_off; Beta][r, j]
+  float* s_sw = table + k_peers * rp;  // self_w
+  int* s_has = reinterpret_cast<int*>(s_sw + k4);
+  float* stage_v = s_sw + 2 * k4;      // 2 x [K][TN]
+  int8_t* stage_q = reinterpret_cast<int8_t*>(stage_v + 2 * k_peers * tn);  // 2 x [K][TN]
+  const int tile_elems = k_peers * tn;
+  __shared__ int64_t s_start[kMaxLeaves];
+
+  const int64_t n_tiles = (n + tn - 1) / tn;
+  for (int i = threadIdx.x; i < k_peers * rp; i += blockDim.x) table[i] = 0.0f;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int l = 0; l < kMaxLeaves; ++l) {
+      if (l < num_leaves) s_start[l] = leaves.start[l];
+    }
+  }
+  __syncthreads();
+  // scatter the slot table: a row's slots name distinct senders but for its
+  // padding slots (its own index, weight 0), so each entry receives at most
+  // one real weight onto +0.0, whatever the order of the atomics
+  for (int e = threadIdx.x; e < k_peers * d_slots; e += blockDim.x) {
+    const int k = e / d_slots;
+    const int j = nbr_idx[e];
+    atomicAdd(table + j * rp + k, nbr_w[e]);
+    atomicAdd(table + j * rp + k_peers + k, beta[e]);
+  }
+  // raw beta row sums, one warp a row
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int k = warp; k < k_peers; k += blockDim.x / 32) {
+    float sum = 0.0f;
+    for (int s = lane; s < d_slots; s += 32) sum += beta[static_cast<int64_t>(k) * d_slots + s];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (lane == 0) {
+      s_has[k] = sum > 0.0f;
+      s_sw[k] = self_w[k];
+    }
+  }
+  __syncthreads();
+
+  const int tid = threadIdx.x;
+  const bool computes = tid < ts.threads;
+  const int rg = tid / ts.cg, cgi = tid - rg * ts.cg;
+  const int r0 = rg * kTileRows;
+  const int ca = 4 * cgi;  // this thread's column group
+  int64_t tile = blockIdx.x;
+  stage_tile<kVec, kHasQ>(stage_v, stage_q, est, q, tile * tn, n, k_peers, tn);
+  cp_async_commit();
+  for (int it = 0; tile < n_tiles; ++it, tile += gridDim.x) {
+    const int64_t col0 = tile * tn;
+    float* sv = stage_v + (it & 1) * tile_elems;
+    const int8_t* sq = stage_q + (it & 1) * tile_elems;
+    const int64_t next = tile + gridDim.x;
+    if (next < n_tiles)  // the next tile's copies run while this one is computed
+      stage_tile<kVec, kHasQ>(stage_v + ((it + 1) & 1) * tile_elems,
+                              stage_q + ((it + 1) & 1) * tile_elems, est, q, next * tn, n,
+                              k_peers, tn);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's copies (all but the newest group) have landed
+    if (kHasQ)
+      advance_tile<kVec>(sv, sq, scale, s_start, num_leaves, est_out, col0, n, k_peers, tn);
+    __syncthreads();
+    if (computes) {
+      // x of this thread's mix rows, loads in flight during the sums (with
+      // kSelfStaged the staged tile is x and holds them already)
+      float xs[kTileRows][kTileCols];
+#pragma unroll
+      for (int i = 0; i < kTileRows; ++i) {
+        const float4 xa = !kSelfStaged && r0 + i < k_peers
+                              ? load4<kVec>(x, r0 + i, col0 + ca, n)
+                              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        xs[i][0] = xa.x, xs[i][1] = xa.y, xs[i][2] = xa.z, xs[i][3] = xa.w;
+      }
+      float acc[kTileRows][kTileCols];
+#pragma unroll
+      for (int i = 0; i < kTileRows; ++i)
+#pragma unroll
+        for (int c = 0; c < kTileCols; ++c) acc[i][c] = 0.0f;
+#pragma unroll 4
+      for (int j = 0; j < k_peers; ++j) {
+        const float4 a0 = *reinterpret_cast<const float4*>(table + j * rp + r0);
+        const float4 a1 = *reinterpret_cast<const float4*>(table + j * rp + r0 + 4);
+        const float4 v0 = *reinterpret_cast<const float4*>(sv + j * tn + ca);
+        const float a[kTileRows] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const float v[kTileCols] = {v0.x, v0.y, v0.z, v0.w};
+#pragma unroll
+        for (int i = 0; i < kTileRows; ++i)
+#pragma unroll
+          for (int c = 0; c < kTileCols; ++c) acc[i][c] = fmaf(a[i], v[c], acc[i][c]);
+      }
+#pragma unroll
+      for (int i = 0; i < kTileRows; ++i) {
+        const int r = r0 + i;
+        if (r < k_peers) {
+          const float sw = s_sw[r];
+          if (kSelfStaged) {
+            const float4 xa = *reinterpret_cast<const float4*>(sv + r * tn + ca);
+            xs[i][0] = xa.x, xs[i][1] = xa.y, xs[i][2] = xa.z, xs[i][3] = xa.w;
+          }
+#pragma unroll
+          for (int c = 0; c < kTileCols; ++c) acc[i][c] = fmaf(sw, xs[i][c], acc[i][c]);
+          store4<kVec>(mixed, r, col0 + ca, n,
+                       make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+        } else if (r < 2 * k_peers) {
+          const int k = r - k_peers;
+          const bool has = s_has[k] != 0;
+          const float4 va = *reinterpret_cast<const float4*>(sv + k * tn + ca);
+          const float4 sa = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+          store4<kVec>(d_out, k, col0 + ca, n, vbias(sa, va, local_steps, has));
+        }
+      }
+    }
+    __syncthreads();  // every thread is done with this stage before it is refilled
+  }
+  cp_async_wait<0>();
+}
+
+template <bool kVec, bool kSelfStaged>
+cudaError_t launch_tile(bool has_q, size_t smem, cudaStream_t s, const float* x,
+                        const float* est, const int8_t* q, const float* scale,
+                        const LeafStarts& leaves, int num_leaves, int64_t n, int k_peers,
+                        const float* self_w, const int32_t* nbr_idx, const float* nbr_w,
+                        const float* beta, int d_slots, float local_steps, float* mixed,
+                        float* d_out, float* est_out) {
+  auto kernel = has_q ? mix_tile_kernel<kVec, true, kSelfStaged>
+                      : mix_tile_kernel<kVec, false, kSelfStaged>;
+  const TileShape ts = tile_shape(k_peers);
+  const int64_t n_tiles = (n + ts.tn - 1) / ts.tn;
+  // the persistent grid: as many blocks as fit on the SMs, at most one a
+  // tile.  The shared-memory limit, the SM count and the occupancy are set
+  // and asked once per device, kernel and K: a launch at K = 8 is shorter
+  // than those calls.
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  static int sms[kMaxDevices] = {}, smem_set[kMaxDevices][2] = {};
+  static int per_sm[kMaxDevices][2][2][kTileMaxPeers + 1] = {};
+  int& limit = smem_set[dev][has_q];
+  if (static_cast<int>(smem) > limit) {
+    if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    static_cast<int>(smem))) != cudaSuccess)
+      return err;
+    limit = static_cast<int>(smem);
+  }
+  int& fit = per_sm[dev][kVec][has_q][k_peers];
+  if (fit == 0) {
+    if ((err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev)) !=
+        cudaSuccess)
+      return err;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, kernel, ts.block,
+                                                             smem)) != cudaSuccess)
+      return err;
+    if (fit < 1) return cudaErrorInvalidConfiguration;
+  }
+  const int64_t blocks = static_cast<int64_t>(sms[dev]) * fit;
+  const int grid = static_cast<int>(blocks < n_tiles ? blocks : n_tiles);
+  kernel<<<grid, ts.block, smem, s>>>(x, est, q, scale, leaves, num_leaves, n, k_peers, self_w,
+                                      nbr_idx, nbr_w, beta, d_slots, local_steps, mixed, d_out,
+                                      est_out);
+  return cudaGetLastError();
+}
+
+}  // namespace

@@ -10,16 +10,23 @@ consensus_mix_2d`` (reached there through ``ops.consensus_mix_stacked``).
 Dispatch is by the device of the buffer, and only by it:
 
 - a CPU tensor takes the plain PyTorch version (``ref.py``);
-- a CUDA tensor launches the hand-written kernel (``csrc/consensus_mix.cu``,
-  built for sm_90a and loaded with ctypes on first use) or raises — there is
-  no fallback;
+- a CUDA tensor launches the hand-written kernel (``csrc/consensus_mix.cu``
+  with ``csrc/tile_mix.cuh``, built for sm_90a and loaded with ctypes on
+  first use) or raises — there is no fallback;
 - any other device raises.
+
+The kernel has two designs, and the rule between them is on the number of
+peers K alone (``takes_tile_path``): from ``TILE_MIN_PEERS`` up to
+``TILE_MAX_PEERS`` (128) the column-tile design, in which a block stages a
+column tile of every peer once and computes the dense ``[W_off; Beta]``
+product from shared memory (``csrc/tile_mix.cuh``, shared with
+``dequant_mix``); elsewhere the gather design, one block per peer reading its
+neighbors' rows.
 
 Bound on an H100 (see the note in the CUDA source): at K = 100 peers on the
 complete graph one call reads 80 MB and writes 160 MB but does 7.9 GFLOP of
 float32 multiply-adds, so float32 FMA throughput (67 TFLOP/s, 119 us) bounds
-it, not memory (47 us).  The simple kernel re-reads every neighbor row once
-per peer that needs it.
+it, not memory (72 us).
 
 ``launches.count`` counts kernel launches (never plain-version calls), so a
 run can show that its consensus went through the kernel.
@@ -40,8 +47,14 @@ from repro_torch.kernels.build import LaunchCounter
 from repro_torch.kernels.consensus_mix import ref
 
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "consensus_mix.cu"]
-# the kernel stages one peer's slot row in the default 48 KB of shared memory
+# the gather design stages one peer's slot row in the default 48 KB of shared
+# memory
 MAX_SLOTS = 48 * 1024 // 12
+TILE_MAX_PEERS = 128  # kTileMaxPeers in the CUDA source: its dense table fits shared memory
+# below this the gather design is the faster one: at K = 2 (the noniid_k2
+# main path), 8 and 12 on the 2NN's row (tools/kernel_ab.py; PERF.md
+# section 6, NVIDIA H100 80GB HBM3, 700 W)
+TILE_MIN_PEERS = 16
 
 
 launches = LaunchCounter()
@@ -98,11 +111,18 @@ def sparse_from_matrices(
 def load_kernel() -> build.KernelLibrary:
     """Build (first call) and load the kernel library; declares its C signature."""
     kl = build.load_library("consensus_mix", SOURCES)
-    fn = kl.lib.consensus_mix_f32
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    fn.argtypes = [ptr, i64, i64, ptr, ptr, ptr, ptr, i64, ctypes.c_float, ptr, ptr, ptr]
-    fn.restype = ctypes.c_int
+    for fn in (kl.lib.consensus_mix_f32, kl.lib.consensus_mix_tile_f32):
+        fn.argtypes = [ptr, i64, i64, ptr, ptr, ptr, ptr, i64, ctypes.c_float, ptr, ptr, ptr]
+        fn.restype = ctypes.c_int
     return kl
+
+
+def takes_tile_path(num_peers: int) -> bool:
+    """Whether a launch for ``num_peers`` peers runs the column-tile design
+    (``TILE_MIN_PEERS`` <= K <= ``TILE_MAX_PEERS``); otherwise it runs the
+    gather design."""
+    return TILE_MIN_PEERS <= num_peers <= TILE_MAX_PEERS
 
 
 def check_operands(flat: torch.Tensor, ops: SparseOperands, local_steps: int,
@@ -152,7 +172,8 @@ def launch(
     No checks: callers pass what ``check_operands`` validated.  Counts
     the launch and raises if CUDA refused it.
     """
-    fn = load_kernel().lib.consensus_mix_f32
+    lib = load_kernel().lib
+    fn = lib.consensus_mix_tile_f32 if takes_tile_path(flat.shape[0]) else lib.consensus_mix_f32
     err = fn(
         flat.data_ptr(), flat.shape[0], flat.shape[1],
         ops.self_w.data_ptr(), ops.nbr_idx.data_ptr(), ops.nbr_w.data_ptr(),

@@ -17,10 +17,18 @@ Dispatch is by the device of the operands, and only by it:
   fallback;
 - any other device raises.
 
+The kernel reads r, k and v in the type they come in (bf16 as the served
+model computes them, or float32) and writes the output in r's type, rounded
+once to nearest even; ``logdecay``, ``u`` and the state are float32 (a bf16
+``logdecay``, or r, k and v of mixed types, are cast to float32 first).  One
+CTA walks the chunks of a head with the state in registers, the next chunk
+arriving by cp.async while one is computed (the note in the CUDA source).
+
 Bound on an H100 SXM (see the note in the CUDA source): at B = 4, T = 1024,
 H = 64, dk = 64 one call from a zero state moves 340 MB (0.10 ms at
 3.35 TB/s) and does about 5.5 GFLOP (0.08 ms at 67 TFLOP/s float32): it is
-bound by bytes.
+bound by bytes; with bf16 r, k, v and output it moves about 205 MB and is
+bound by operations.
 
 ``launches.count`` counts kernel launches (never plain-version calls).
 """
@@ -48,12 +56,10 @@ launches = LaunchCounter()
 def load_kernel() -> build.KernelLibrary:
     """Build (first call) and load the kernel library; declares its C signature."""
     kl = build.load_library("wkv6", SOURCES)
-    fn = kl.lib.wkv6_f32
+    fn = kl.lib.wkv6_fwd
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    fn.argtypes = [ptr] * 8 + [i64] * 5 + [ptr]
+    fn.argtypes = [ptr] * 8 + [i64] * 5 + [ctypes.c_int, ptr]
     fn.restype = ctypes.c_int
-    kl.lib.wkv6_smem_bytes.argtypes = [i64, i64]
-    kl.lib.wkv6_smem_bytes.restype = i64
     return kl
 
 
@@ -89,18 +95,27 @@ def check_inputs(r, k, v, logdecay, u, state, chunk: int) -> int:
     return q
 
 
+def kernel_operand(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` as the kernel reads it: ``dtype``, contiguous and 16-byte
+    aligned (a misaligned view is copied; anything else is passed as it is)."""
+    x = x.to(dtype).contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
+
+
 def launch(r, k, v, logdecay, u, state, q: int, out, state_out) -> None:
     """Launch the kernel on the current stream into ``out`` / ``state_out``.
 
-    No checks: callers pass contiguous float32 tensors that ``check_inputs``
-    validated.  Counts the launch and raises if CUDA refused it.
+    No checks: callers pass what ``kernel_operand`` gives for tensors that
+    ``check_inputs`` validated: r, k, v and out of one type (float32 or
+    bf16), the rest float32.  Counts the launch and raises if CUDA refused it.
     """
-    fn = load_kernel().lib.wkv6_f32
+    fn = load_kernel().lib.wkv6_fwd
     b, t, h, dk = r.shape
     err = fn(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logdecay.data_ptr(), u.data_ptr(),
         None if state is None else state.data_ptr(), out.data_ptr(), state_out.data_ptr(),
-        b, t, h, dk, q, torch.cuda.current_stream(r.device).cuda_stream,
+        b, t, h, dk, q, int(r.dtype == torch.bfloat16),
+        torch.cuda.current_stream(r.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"wkv6 launch failed with cudaError_t {err}")
@@ -125,10 +140,14 @@ def wkv6(
     if r.device.type == "cpu":
         out, final = ref.wkv6_chunked_ref(r, k, v, logdecay, u, state, chunk=q)
         return out.to(r.dtype), final
-    rf, kf, vf, lf, uf = (x.float().contiguous() for x in (r, k, v, logdecay, u))
+    # r, k and v as they come when they share a type; the output in r's
+    # type (the kernel rounds it to bf16 itself)
+    rkv_dtype = r.dtype if r.dtype == k.dtype == v.dtype else torch.float32
+    rk, kk, vk = (kernel_operand(x, rkv_dtype) for x in (r, k, v))
+    lk, uk = (kernel_operand(x, torch.float32) for x in (logdecay, u))
     state = None if state is None else state.contiguous()
-    out = torch.empty(r.shape, dtype=torch.float32, device=r.device)
+    out = torch.empty(r.shape, dtype=rkv_dtype, device=r.device)
     final = torch.empty((r.shape[0], r.shape[2], r.shape[3], r.shape[3]), dtype=torch.float32,
                         device=r.device)
-    launch(rf, kf, vf, lf, uf, state, q, out, final)
+    launch(rk, kk, vk, lk, uk, state, q, out, final)
     return out.to(r.dtype), final

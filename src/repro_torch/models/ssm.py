@@ -269,7 +269,9 @@ def rwkv6_time_mix_chunked(tm: dict, cfg: SSMConfig, x, prev, wkv):
     q = min(cfg.chunk, x.shape[1])
     r, k, v, g, logd, new_prev = _tm_projections(tm, x, prev)
     dk = cfg.head_dim
-    rh, kh, vh = (_heads(t, dk).float() for t in (r, k, v))
+    # r, k and v in the model's type: the kernel computes in float32 and
+    # returns the output in r's type, which _tm_output would cast it to
+    rh, kh, vh = (_heads(t, dk) for t in (r, k, v))
     o, wkv_final = wkv6_ops.wkv6(rh, kh, vh, _heads(logd, dk), tm["bonus_u"], state=wkv,
                                  chunk=q)
     return _tm_output(tm, o, g, x.dtype), new_prev, wkv_final

@@ -7,6 +7,8 @@ chip_smoke.py.
 
 Tolerance: float32 atol 5e-5 / rtol 1e-4, tests/test_kernels.py's.
 """
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +21,7 @@ from repro.kernels.consensus_mix import ref as jref  # noqa: E402
 from repro_torch.core import consensus as tconsensus  # noqa: E402
 from repro_torch.core import graph as tgraph  # noqa: E402
 from repro_torch.kernels.consensus_mix import ops as tops  # noqa: E402
+from repro_torch.kernels.consensus_mix import ref as tref  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -174,3 +177,36 @@ def test_wrapper_rejects_bad_operands():
         tops.consensus_mix_stacked(flat, ops._replace(nbr_idx=ops.nbr_idx + 4), T)
     with pytest.raises(ValueError, match="self_w"):
         tops.consensus_mix_stacked(torch.zeros(3, 16), ops, T)
+
+
+@pytest.mark.parametrize("k,tile", [(2, False), (8, False), (15, False), (16, True), (100, True),
+                                    (128, True), (129, False), (4096, False)])
+def test_tile_path_rule(k, tile):
+    """From 16 peers (below them the gather design is faster) up to the cap
+    (128, whose dense table fits shared memory) the column-tile design, the
+    gather elsewhere; the CUDA source's cap is the wrapper's."""
+    assert tops.takes_tile_path(k) is tile
+    src = Path(tops.SOURCES[0]).read_text()
+    assert f"constexpr int kTileMaxPeers = {tops.TILE_MAX_PEERS};" in src
+
+
+@pytest.mark.parametrize("topology,k,dmax,self_only_w", [
+    ("complete", 100, None, False), ("star", 8, None, False), ("ring", 8, 3, False),
+    ("complete", 100, None, True)])
+def test_dense_operator_product_matches_plain(topology, k, dmax, self_only_w):
+    """The column-tile kernel's sums: [W_off; Beta] times x gives the plain
+    version's mixed and d, on padded slot tables too; with W = I (no
+    off-diagonal weight) the mix is x and d survives."""
+    g = tgraph.build_graph(topology, k)
+    sizes = np.arange(1, k + 1) * 10
+    w = np.eye(k) if self_only_w else tgraph.mixing_matrix(g, "data_weighted", data_sizes=sizes)
+    beta = tgraph.affinity_matrix(g, data_sizes=sizes)
+    ops = tops.sparse_from_matrices(w, beta, dmax=dmax)
+    x = torch.as_tensor(np.random.default_rng(k).normal(size=(k, 257)).astype(np.float32))
+    mixed, d = tref.consensus_mix_stacked_ref(x, *ops, T)
+    sums = tref.dense_mix_operator(ops.nbr_idx, ops.nbr_w, ops.beta) @ x
+    torch.testing.assert_close(ops.self_w[:, None] * x + sums[:k], mixed, **TOL)
+    has = ops.beta.sum(dim=1) > 0
+    torch.testing.assert_close(torch.where(has[:, None], (sums[k:] - x) / T, 0.0), d, **TOL)
+    if self_only_w:
+        assert torch.equal(mixed, x) and float(d.abs().max()) > 0.0

@@ -49,6 +49,14 @@ def test_port_imports_neither_jax_nor_reference():
     assert bad == []
 
 
+def test_kernel_ab_imports_neither_jax_nor_reference():
+    """tools/kernel_ab.py runs on the card beside chip_smoke.py: no jax, no
+    reference package."""
+    path = ROOT / "tools" / "kernel_ab.py"
+    assert [mod for mod in _imported_modules(path)
+            if mod.split(".")[0] in ("jax", "jaxlib", "repro")] == []
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

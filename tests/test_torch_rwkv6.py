@@ -31,6 +31,7 @@ from repro.models import ssm as jssm  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs import base as tbase  # noqa: E402
+from repro_torch.kernels.rwkv6 import ops as wkv6_ops  # noqa: E402
 from repro_torch.models import build_model, common, registry  # noqa: E402
 from repro_torch.models import ssm as tssm  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
@@ -184,6 +185,26 @@ def _inputs(cfg, length, dtype, seed=0):
     tx = (torch.as_tensor(x).to(getattr(torch, dtype)), torch.as_tensor(prev).to(
         getattr(torch, dtype)), torch.as_tensor(wkv))
     return jx, tx
+
+
+@pytest.mark.parametrize("length", LENGTHS)
+def test_time_mix_chunked_hands_rkv_over_in_the_model_type(models, length):
+    """r, k and v reach the wkv6 wrapper in the model's type, uncast, and the
+    layer's outputs are, bit for bit, those of the former path, which cast
+    them to float32 first (bf16 -> float32 is exact and the output is
+    rounded to the model's type once either way)."""
+    dtype, (jcfg, _, jparams), (tcfg, _, tparams) = models
+    _, ttm = _layer0(jparams, tparams, "time_mix")
+    _, (x, prev, wkv) = _inputs(jcfg, length, dtype)
+    got = tssm.rwkv6_time_mix_chunked(ttm, tcfg.ssm, x, prev, wkv)
+    r, k, v, g, logd, new_prev = tssm._tm_projections(ttm, x, prev)
+    dk = tcfg.ssm.head_dim
+    o, wkv_final = wkv6_ops.wkv6(*(tssm._heads(t, dk).float() for t in (r, k, v)),
+                                 tssm._heads(logd, dk), ttm["bonus_u"], state=wkv,
+                                 chunk=min(tcfg.ssm.chunk, length))
+    want = (tssm._tm_output(ttm, o, g, x.dtype), new_prev, wkv_final)
+    for a, b, what in zip(got, want, ("out", "prev", "wkv")):
+        assert a.dtype == b.dtype and torch.equal(a, b), what
 
 
 @pytest.mark.parametrize("length", LENGTHS)

@@ -197,3 +197,18 @@ def test_wrapper_raises_off_cpu_and_cuda():
     x = torch.zeros(1, 4, 1, 16, device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         ops.wkv6(x, x, x, x, torch.zeros(1, 16, device="meta"))
+
+
+@pytest.mark.parametrize("state,chunk", [(False, 16), (True, 5)])
+def test_bf16_operands_give_the_float32_result_rounded_once(state, chunk):
+    """bf16 r, k, v (the served type) are computed in float32 and the output
+    comes back in bf16: exactly the wrapper's float32 result on the same
+    values, rounded to bf16 once; the state stays float32."""
+    r, k, v, ld, u, s0 = _inputs(2, 12, 2, 16, state=state, seed=3)
+    rb, kb, vb = (_t(a, torch.bfloat16) for a in (r, k, v))
+    out, final = ops.wkv6(rb, kb, vb, _t(ld), _t(u), state=_t(s0), chunk=chunk)
+    want, want_final = ops.wkv6(rb.float(), kb.float(), vb.float(), _t(ld), _t(u), state=_t(s0),
+                                chunk=chunk)
+    assert out.dtype == torch.bfloat16 and final.dtype == torch.float32
+    assert torch.equal(out, want.to(torch.bfloat16))
+    assert torch.equal(final, want_final)

@@ -1,13 +1,27 @@
 #!/usr/bin/env python3
-"""Time two versions of the port's ``dequant_mix`` and ``flash_attention``
-kernels in turns on one GPU: this checkout's and another tree's (an older
-commit unpacked beside it).
+"""Time two versions of the port's ``consensus_mix``, ``dequant_mix``,
+``wkv6`` and ``flash_attention`` kernels in turns on one GPU: this
+checkout's and another tree's (an older commit unpacked beside it).
 
 Both versions are built from their ``.cu`` sources with the port's nvcc flags
-into ``build/kernel_ab/``, called through the same C entry points on the same
-inputs, held to the plain PyTorch versions at chip_smoke.py's tolerances, and
-timed with CUDA events in turns (old, new, new, old) at the main paths'
-shapes, beside the library call and the bound chip_smoke.py computes.
+into ``build/kernel_ab/``, called through the C entry points their wrappers
+call on the same inputs, held to the plain PyTorch versions at
+chip_smoke.py's tolerances, and timed with CUDA events in turns (old, new,
+..., library, library, ..., new, old) at the main paths' shapes, beside the
+library call and the bound chip_smoke.py computes:
+
+- ``consensus_mix`` at K = 2, 8 (a ring padded to 3 slots) and 100, and
+  on complete graphs of 12 to 32 peers (where its designs cross), each of
+  the checkout's two designs (``new_tile_ms``, ``new_gather_ms``) beside
+  the old tree's and ``torch.matmul([W; Beta], X)``;
+- ``dequant_mix`` at K = 100 and 8;
+- ``wkv6`` at the serving prefill's B 4, T 1024 and at B 1, T 4096
+  (float32), with bf16 r, k, v as served (an old tree whose kernel takes
+  float32 only is timed as its wrapper ran it, casts included), and at a
+  log-decay of -50 a step, each with the largest difference between the
+  two versions' outputs;
+- ``flash_attention`` at minitron's prefill, its 4096-token window and
+  zamba2's D = 80.
 
     git archive <commit> src/repro_torch/kernels | tar -x -C build/parent
     python3 tools/kernel_ab.py --old build/parent
@@ -37,10 +51,13 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.consensus_mix import dequant, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
+from repro_torch.kernels.rwkv6 import ref as wkv6_ref  # noqa: E402
 
-KERNELS = {  # name: source below src/repro_torch/kernels, C entry point
-    "dequant_mix": ("consensus_mix/csrc/dequant_mix.cu", None),
-    "flash_attention": ("flash_attention/csrc/flash_attention.cu", "flash_attention_fwd"),
+KERNELS = {  # name: source below src/repro_torch/kernels
+    "consensus_mix": "consensus_mix/csrc/consensus_mix.cu",
+    "dequant_mix": "consensus_mix/csrc/dequant_mix.cu",
+    "wkv6": "rwkv6/csrc/wkv6.cu",
+    "flash_attention": "flash_attention/csrc/flash_attention.cu",
 }
 OUT = ROOT / "build" / "kernel_ab"
 
@@ -113,6 +130,130 @@ def ab_dequant(card, libs: dict, name: str, graph, k: int, seed: int = 0) -> dic
             **card.bound(nbytes, flops)}
 
 
+def consensus_fns(lib: ctypes.CDLL) -> dict:
+    """The consensus_mix entry points a library has: ``gather`` (every
+    version) and ``tile`` (from the column-tile design on)."""
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    fns = {"gather": lib.consensus_mix_f32}
+    if hasattr(lib, "consensus_mix_tile_f32"):
+        fns["tile"] = lib.consensus_mix_tile_f32
+    for fn in fns.values():
+        fn.argtypes = [ptr, i64, i64, ptr, ptr, ptr, ptr, i64, ctypes.c_float, ptr, ptr, ptr]
+        fn.restype = ctypes.c_int
+    return fns
+
+
+def ab_consensus(card, libs: dict, name: str, graph, sizes, n: int, *, dmax=None,
+                 seed=0) -> dict:
+    """consensus_mix: the old tree's design against both of this checkout's,
+    which the wrapper's rule (``ops.takes_tile_path``) chooses between."""
+    dev = torch.device("cuda")
+    w = graph_lib.mixing_matrix(graph, "data_weighted", data_sizes=sizes)
+    beta = graph_lib.affinity_matrix(graph, data_sizes=sizes)
+    sparse = ops.sparse_from_matrices(w, beta, dmax=dmax, device=dev)
+    k, d = sparse.nbr_idx.shape
+    t = 10
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.normal(size=(k, n)).astype(np.float32), device=dev)
+    want = ref.consensus_mix_stacked_ref(x, *sparse, t)
+    stream = torch.cuda.current_stream().cuda_stream
+    fns = {"old": consensus_fns(libs["old"])["gather"]}
+    fns |= {f"new_{design}": fn for design, fn in consensus_fns(libs["new"]).items()}
+    runs = {}
+    for tag, fn in fns.items():
+        outs = [torch.empty_like(x) for _ in range(2)]
+
+        def run(fn=fn, outs=outs, tag=tag):
+            err = fn(x.data_ptr(), k, n, sparse.self_w.data_ptr(), sparse.nbr_idx.data_ptr(),
+                     sparse.nbr_w.data_ptr(), sparse.beta.data_ptr(), d, float(t),
+                     *(o.data_ptr() for o in outs), stream)
+            chip_smoke.check(err == 0, f"consensus_mix {tag} launch: cudaError_t {err}")
+
+        run()
+        torch.cuda.synchronize()
+        for got, ref_out in zip(outs, want):
+            torch.testing.assert_close(got, ref_out, **chip_smoke.TOL)
+        runs[tag] = run
+    dense = torch.as_tensor(np.concatenate([w, beta]), dtype=torch.float32, device=dev)
+    lib_out = torch.empty(2 * k, n, device=dev)
+    times = in_turns(runs, lambda: torch.matmul(dense, x, out=lib_out))
+    rule = "tile" if ops.takes_tile_path(k) else "gather"
+    times["new_ms"] = times[f"new_{rule}_ms"]  # the design the wrapper takes at this K
+    real = (sparse.nbr_idx != torch.arange(k, device=dev)[:, None]).sum().item()
+    flops = n * (4 * real + 3 * k)
+    nbytes = 3 * k * n * 4 + k * 4 + 3 * k * d * 4
+    return {"kernel": "consensus_mix", "case": name, "K": k, "D": d, "N": n, "rule": rule,
+            **times, **card.bound(nbytes, flops)}
+
+
+def ab_wkv6(card, libs: dict, name: str, b, t, h, dk, q, *, dtype=torch.float32, ld=None,
+            seed=0) -> dict:
+    """wkv6 from a zero state, the old tree's kernel against this checkout's.
+    An old tree with the float32-only entry (``wkv6_f32``) is timed as its
+    wrapper ran it: with bf16 operands, casts to float32 and of the output
+    back included.  ``ld`` is a constant log-decay (else a uniform draw in
+    [-4, -0.01]); ``max_abs_diff_old`` is the largest difference between the
+    two versions' outputs."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r, k, v = (torch.randn(b, t, h, dk, generator=gen, device=dev).to(dtype) for _ in range(3))
+    if ld is None:
+        ld = -(0.01 + 3.99 * torch.rand(b, t, h, dk, generator=gen, device=dev))
+    else:
+        ld = torch.full((b, t, h, dk), ld, device=dev)
+    u = 0.5 * torch.randn(h, dk, generator=gen, device=dev)
+    want, want_s = wkv6_ref.wkv6_chunked_ref(r, k, v, ld, u, None, chunk=q)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    bf16 = dtype == torch.bfloat16
+    tol = chip_smoke.WKV6_BF16_TOL if bf16 else chip_smoke.WKV6_TOL
+    final = torch.empty(b, h, dk, dk, device=dev)
+    outs = {tag: torch.empty(b, t, h, dk, dtype=dtype, device=dev) for tag in libs}
+
+    def run_for(tag: str, lib: ctypes.CDLL):
+        out = outs[tag]
+        if hasattr(lib, "wkv6_fwd"):
+            fn = lib.wkv6_fwd
+            fn.argtypes, fn.restype = [ptr] * 8 + [i64] * 5 + [ctypes.c_int, ptr], ctypes.c_int
+
+            def run():
+                err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), ld.data_ptr(), u.data_ptr(),
+                         None, out.data_ptr(), final.data_ptr(), b, t, h, dk, q, int(bf16),
+                         stream)
+                chip_smoke.check(err == 0, f"wkv6 {tag} launch: cudaError_t {err}")
+            return run
+        fn = lib.wkv6_f32
+        fn.argtypes, fn.restype = [ptr] * 8 + [i64] * 5 + [ptr], ctypes.c_int
+        out_f32 = torch.empty(b, t, h, dk, device=dev)
+
+        def run_f32():
+            rf, kf, vf = (x.float() for x in (r, k, v))  # no copy for float32 operands
+            err = fn(rf.data_ptr(), kf.data_ptr(), vf.data_ptr(), ld.data_ptr(), u.data_ptr(),
+                     None, out_f32.data_ptr(), final.data_ptr(), b, t, h, dk, q, stream)
+            chip_smoke.check(err == 0, f"wkv6 {tag} launch: cudaError_t {err}")
+            out.copy_(out_f32)  # the old wrapper's cast to the output's type
+        return run_f32
+
+    runs, errs = {}, {}
+    for tag, lib in libs.items():
+        runs[tag] = run_for(tag, lib)
+        runs[tag]()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(outs[tag].float(), want, **tol,
+                                   msg=lambda m: f"wkv6 {tag} {name}: {m}")
+        torch.testing.assert_close(final, want_s, **chip_smoke.WKV6_TOL,
+                                   msg=lambda m: f"wkv6 {tag} {name} state: {m}")
+        errs[tag] = float((outs[tag].float() - want).abs().max())
+    diff = float((outs["new"].float() - outs["old"].float()).abs().max())
+    times = in_turns(runs, None)
+    es = r.element_size()
+    bound = card.bound(*chip_smoke.wkv6_work(b, t, h, dk, q, state=False, in_bytes=es,
+                                             out_bytes=es))
+    return {"kernel": "wkv6", "case": name, "B": b, "T": t, "H": h, "dk": dk, "chunk": q,
+            "dtype": str(dtype).removeprefix("torch."), "max_abs_err": errs,
+            "max_abs_diff_old": diff, **times, **bound}
+
+
 def ab_flash(card, libs: dict, name: str, b, s, h, kh, d, *, window=None, seed=0) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -155,19 +296,24 @@ def ab_flash(card, libs: dict, name: str, b, s, h, kh, d, *, window=None, seed=0
 
 
 def in_turns(runs: dict, library) -> dict:
-    """Mean ms of each version and of the library call: old, new, library,
-    library, new, old."""
-    t = {"old_ms": [], "new_ms": [], "library_ms": []}
-    for key, fn in (("old_ms", runs["old"]), ("new_ms", runs["new"]), ("library_ms", library),
-                    ("library_ms", library), ("new_ms", runs["new"]), ("old_ms", runs["old"])):
-        t[key].append(chip_smoke.cuda_ms(fn))
-    return {key: sum(v) / len(v) for key, v in t.items()}
+    """Mean ms of each version (``<tag>_ms``) and of the library call
+    (``library_ms``, None without one), in turns: each version in order,
+    the library call twice, each version in reverse order."""
+    order = [*runs.items(), ("library", library), ("library", library),
+             *reversed(runs.items())]
+    t: dict[str, list] = {}
+    for tag, fn in order:
+        if fn is not None:
+            t.setdefault(f"{tag}_ms", []).append(chip_smoke.cuda_ms(fn))
+    return {"library_ms": None} | {key: sum(v) / len(v) for key, v in t.items()}
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--old", type=Path, required=True,
                         help="root of the other tree (holds src/repro_torch/kernels)")
+    parser.add_argument("--only", nargs="*", choices=sorted(KERNELS), default=sorted(KERNELS),
+                        help="the kernels to time (default: all)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -175,21 +321,40 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = chip_smoke.Card(chip_smoke.card_line())
     with concurrent.futures.ThreadPoolExecutor() as pool:
-        jobs = {(kernel, tag): pool.submit(build_lib, tree, rel, tag)
-                for kernel, (rel, _) in KERNELS.items()
+        jobs = {(kernel, tag): pool.submit(build_lib, tree, KERNELS[kernel], tag)
+                for kernel in args.only
                 for tag, tree in (("old", args.old.resolve()), ("new", ROOT))}
         libs = {key: job.result() for key, job in jobs.items()}
-    dq = {tag: libs[("dequant_mix", tag)] for tag in ("old", "new")}
-    fl = {tag: libs[("flash_attention", tag)] for tag in ("old", "new")}
-    results = [
-        ab_dequant(card, dq, "iid_k100_qint8", graph_lib.build_graph("complete", 100), 100),
-        ab_dequant(card, dq, "tv_k8_star", graph_lib.build_graph("star", 8), 8),
-        ab_flash(card, fl, "main_minitron", 4, 1024, 32, 8, 128),
-        ab_flash(card, fl, "long_window4096", 1, 8192, 32, 8, 128, window=4096, seed=2),
-        ab_flash(card, fl, "zamba2_d80", 4, 1024, 32, 32, 80, seed=7),
-    ]
-    for r in results:
-        print(json.dumps(r), flush=True)
+    pick = lambda kernel: {tag: libs[(kernel, tag)] for tag in ("old", "new")}  # noqa: E731
+    complete = lambda k: graph_lib.build_graph("complete", k)  # noqa: E731
+    row = layout_of("mnist_mlp").row
+    cases = {
+        "consensus_mix": lambda libs: [
+            ab_consensus(card, libs, "iid_k100", complete(100), np.full(100, 600), row),
+            ab_consensus(card, libs, "noniid_k2", complete(2), np.full(2, 100), row),
+            ab_consensus(card, libs, "ring_k8_padded", graph_lib.build_graph("ring", 8),
+                         np.arange(1, 9) * 10, row, dmax=3),
+            # where the two designs cross: the rule's lower bound
+            *(ab_consensus(card, libs, f"complete_k{k}", complete(k), np.full(k, 600), row)
+              for k in (12, 16, 24, 32))],
+        "dequant_mix": lambda libs: [
+            ab_dequant(card, libs, "iid_k100_qint8", complete(100), 100),
+            ab_dequant(card, libs, "tv_k8_star", graph_lib.build_graph("star", 8), 8)],
+        "wkv6": lambda libs: [
+            ab_wkv6(card, libs, "main_b4_t1024", 4, 1024, 64, 64, 16),
+            ab_wkv6(card, libs, "b1_t4096", 1, 4096, 64, 64, 16, seed=5),
+            ab_wkv6(card, libs, "main_b4_t1024_bf16", 4, 1024, 64, 64, 16,
+                    dtype=torch.bfloat16, seed=7),
+            ab_wkv6(card, libs, "extreme_decay", 4, 1024, 64, 64, 16, ld=-50.0, seed=3)],
+        "flash_attention": lambda libs: [
+            ab_flash(card, libs, "main_minitron", 4, 1024, 32, 8, 128),
+            ab_flash(card, libs, "long_window4096", 1, 8192, 32, 8, 128, window=4096, seed=2),
+            ab_flash(card, libs, "zamba2_d80", 4, 1024, 32, 32, 80, seed=7)],
+    }
+    for kernel in args.only:
+        for result in cases[kernel](pick(kernel)):
+            print(json.dumps(result), flush=True)
+        torch.cuda.empty_cache()
     print(f"card: {card.line}")
     return 0
 
