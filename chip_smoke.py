@@ -4,8 +4,8 @@
 In order:
 1. prints the card's name and power limit, the torch version and the TF32
    flags (set off: the reference mixes at full float32 precision), and takes
-   the card's peak memory rate, float32 rate and dense bf16 tensor rate from
-   its name;
+   the card's peak memory rate, float32 rate and dense bf16 and TF32 tensor
+   rates from its name;
 2. builds every kernel of the port's main paths from this checkout's sources,
    one nvcc per source, all started together (six: ``consensus_mix``,
    ``dequant_mix``, ``segment_mix``, ``wkv6``, ``flash_attention``,
@@ -50,13 +50,19 @@ In order:
    window 4000 at S 8192, group 3 at D 80, non-causal D 128, B 4 S 1024 at
    both served widths, and the (B, H, S, D) entry read in place at both;
    and the reference sweep's 9 (S, D, mask) shapes in both types), ``ssd``
-   at 15, output and
-   final state (zamba2's prefill B 4, T 1024, 80 heads of P = N = 64, one
-   B/C group, chunk 64, from a zero and from a random state, and with bf16
-   x, B and C as the served path gives them, both timed; T 1000, ragged;
-   T 5 and T 1, under one chunk; B 1, T 8192, 128 chunks of carried state;
-   dt a = -50; G = 2 groups over H = 4; and the reference sweep's three
-   shapes in both types);
+   at 32, output and
+   final state, each asserting its route (``tf32x2`` for bf16 inputs,
+   ``tf32x3`` for float32) and its split of P (zamba2's prefill B 4, T 1024,
+   80 heads of P = N = 64, one B/C group, chunk 64, from a zero and from a
+   random state, and with bf16 x, B and C as the served path gives them,
+   both timed beside both bounds, on the float32 pipes and on the tensor
+   cores; T 1000, ragged; T 5 and T 1, under one chunk; B 1, T 8192, 128
+   chunks of carried state; dt a = -50; G = 2 groups over H = 4; the
+   reference sweep's three shapes in both types; then the tensor-core
+   design's edges: B * H on either side of each change of the split, in
+   bf16 and float32; B 1, H 80 in bf16 (split 4); P 64, N 32 split 4;
+   T 65, T 17, chunk 48 and chunk 1, and P 16, N 8 over 3 groups, in both
+   types);
 4. serves RWKV6-7B at full width and depth (bf16, random init on the card)
    through ``serve_batch``: batch 4, prompt 1024, first prefill only, then
    prefill and 15 decode steps, asserting ``wkv6`` launched once per layer
@@ -124,9 +130,10 @@ import torch
 ROOT = Path(__file__).resolve().parent
 TOL = dict(atol=5e-5, rtol=1e-4)  # float32, as tests/test_kernels.py
 # (memory bytes/s, float32 FLOP/s outside the tensor cores, dense bf16 tensor
-# FLOP/s) by card, from NVIDIA's H100 data sheet; the card's name, as
-# nvidia-smi prints it, picks one
-PEAKS = {"H100 SXM": (3.35e12, 67e12, 989e12), "H100 PCIe": (2.0e12, 51e12, 756e12)}
+# FLOP/s, dense TF32 tensor FLOP/s: half of bf16's) by card, from NVIDIA's
+# H100 data sheet; the card's name, as nvidia-smi prints it, picks one
+PEAKS = {"H100 SXM": (3.35e12, 67e12, 989e12, 495e12),
+         "H100 PCIe": (2.0e12, 51e12, 756e12, 378e12)}
 NONIID_ROUNDS = 5
 IID_ROUNDS = 2
 TV_QINT8_ROUNDS = 5
@@ -149,17 +156,21 @@ class Card:
             self.part = "H100 PCIe"
         else:
             raise RuntimeError(f"no peak rates known for the card {line!r}")
-        self.bytes_per_s, self.flop_per_s, self.bf16_flop_per_s = PEAKS[self.part]
+        (self.bytes_per_s, self.flop_per_s, self.bf16_flop_per_s,
+         self.tf32_flop_per_s) = PEAKS[self.part]
 
-    def bound(self, nbytes: float, flops: float, *, bf16: bool = False) -> dict:
+    def bound(self, nbytes: float, flops: float, *, bf16: bool = False,
+              tf32: bool = False) -> dict:
         """The least time for ``nbytes`` and ``flops`` on this card, and which
-        bounds it; ``bf16`` takes the dense bf16 tensor rate, else float32's."""
-        rate = self.bf16_flop_per_s if bf16 else self.flop_per_s
+        bounds it; ``bf16`` / ``tf32`` take the dense bf16 / TF32 tensor
+        rate, else float32's."""
+        rate, kind = ((self.bf16_flop_per_s, "bf16") if bf16 else
+                      (self.tf32_flop_per_s, "TF32") if tf32 else (self.flop_per_s, "float32"))
         t_bytes, t_flops = nbytes / self.bytes_per_s * 1e3, flops / rate * 1e3
         return {"bound_ms": max(t_bytes, t_flops),
                 "bound_by": "bytes" if t_bytes >= t_flops else "operations",
                 "bound_card": f"{self.line} ({self.part} peaks: {self.bytes_per_s / 1e12} TB/s, "
-                              f"{rate / 1e12} TFLOP/s {'bf16' if bf16 else 'float32'})"}
+                              f"{rate / 1e12} TFLOP/s {kind})"}
 
 
 def check(cond: bool, what: str) -> None:
@@ -855,14 +866,19 @@ SSD_REL_NORM = 1e-5
 
 
 def ssd_work(b, t, h, g, p, n, q, *, state: bool, in_bytes: int):
-    """(bytes, FLOP) one ssd call needs: x, B and C (in their type), dt, a
-    and the state in (when given) read once, y (float32) and the final state
-    written once; per (b, h) and chunk of m real steps the operations of the
-    chunk form (an exp counts as one): C B^T and att x below the diagonal,
-    C S^T and the state update in full."""
+    """(bytes, FLOP, TF32 FLOP) one ssd call needs: x, B and C (in their
+    type), dt, a and the state in (when given) read once, y (float32) and
+    the final state written once; per (b, h) and chunk of m real steps the
+    operations of the chunk form on the float32 pipes (an exp counts as
+    one): C B^T and att x below the diagonal, C S^T and the state update in
+    full; and the same four products as the kernel's TF32 passes make them
+    on the tensor cores: each float32 operand split in two parts, so C B^T
+    takes 1 pass with bf16 inputs and 3 with float32, the others 2 and 3
+    (the exps and scalings left on the float32 pipes are under 1% of it)."""
     nbytes = (b * t * h * p + 2 * b * t * g * n) * in_bytes + b * t * h * 4 + h * 4
     nbytes += b * t * h * p * 4 + (2 if state else 1) * b * h * p * n * 4
-    flops = 0
+    cbt_passes, passes = (1, 2) if in_bytes == 2 else (3, 3)
+    flops = tf32 = 0
     for start in range(0, t, q):
         m = min(q, t - start)
         pairs = m * (m + 1) // 2
@@ -871,18 +887,30 @@ def ssd_work(b, t, h, g, p, n, q, *, state: bool, in_bytes: int):
                   + pairs * 2 * p  # att x
                   + 2 * m * n * p + 2 * m * p + 2 * m  # C S^T, times exp(cum) and added
                   + p * n + 2 * m * n * p + 3 * m + m * n)  # the state update
-    return nbytes, b * h * flops
+        tf32 += (pairs * 2 * n * cbt_passes  # C B^T
+                 + (pairs * 2 * p + 2 * 2 * m * n * p) * passes)  # att x, C S^T, dS
+    return nbytes, b * h * flops, b * h * tf32
 
 
 def ssd_case(card, name, b, t, h, p, n, chunk, *, g=1, state=False, dt_range=(0.01, 1.0),
-             dt_a=None, dtype=torch.float32, timed=False, seed=0):
+             dt_a=None, dtype=torch.float32, timed=False, want_split=None, seed=0):
     """ssd kernel vs its plain version on the card at one shape: x, B and C
     normal, dt uniform in ``dt_range``, a = -U(0.5, 2) (tests/test_kernels.py's
     draws; ``dt_a`` fixes dt = 1 and a = dt_a instead), B/C in ``g`` groups;
-    output and final state compared."""
+    output and final state compared.  The route (``ops.kernel_route``) and
+    the split of P (``ops.kernel_split``) must be the kernel library's own,
+    and the split ``want_split`` where given."""
     from repro_torch.kernels.mamba2 import ops, ref
 
     dev = torch.device("cuda")
+    lib = ops.load_kernel().lib
+    code, sms = ops.DTYPE_CODES[dtype], torch.cuda.get_device_properties(dev).multi_processor_count
+    route, split = ops.kernel_route(dtype), ops.kernel_split(b * h, p, dtype, sms)
+    check(route == ops.ROUTES[lib.ssd_route(code)], f"ssd {name}: route {route} is the kernel's")
+    check(route == ("tf32x2" if dtype == torch.bfloat16 else "tf32x3"),
+          f"ssd {name}: {dtype} takes the tensor-core route, not {route}")
+    check(split == lib.ssd_split(b * h, p, code, sms), f"ssd {name}: split {split} is the kernel's")
+    check(want_split is None or split == want_split, f"ssd {name}: split {split}, want {want_split}")
     gen = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn(b, t, h, p, generator=gen, device=dev).to(dtype)
     bm, cm = (torch.randn(b, t, g, n, generator=gen, device=dev).to(dtype) for _ in range(2))
@@ -897,8 +925,8 @@ def ssd_case(card, name, b, t, h, p, n, chunk, *, g=1, state=False, dt_range=(0.
     want, want_s = ref.ssd_chunked_ref(x, bm, cm, dt, a, state=s0, chunk=chunk)
     torch.cuda.synchronize()
     case = {"case": name, "B": b, "T": t, "H": h, "G": g, "P": p, "N": n, "chunk": min(chunk, t),
-            "state": state, "dtype": str(dtype).removeprefix("torch."),
-            "max_abs_out": float(want.abs().max())}
+            "state": state, "dtype": str(dtype).removeprefix("torch."), "route": route,
+            "split": split, "max_abs_out": float(want.abs().max())}
     errs, rels = [], []
     for gv, wv, what in ((got, want, "y"), (got_s, want_s, "final state")):
         check(gv.dtype == torch.float32 and bool(torch.isfinite(gv).all()),
@@ -919,27 +947,43 @@ def ssd_case(card, name, b, t, h, p, n, chunk, *, g=1, state=False, dt_range=(0.
         kern = lambda: ops.launch(x, bm, cm, dt, a, s0, q, y, final)  # noqa: E731
         plain = lambda: ref.ssd_chunked_ref(x, bm, cm, dt, a, state=s0, chunk=q)  # noqa: E731
         case.update(in_turns(plain, kern, None))
-        case.update(card.bound(*ssd_work(b, t, h, g, p, n, q, state=state,
-                                          in_bytes=x.element_size())))
+        case.update(ssd_bounds(card, *ssd_work(b, t, h, g, p, n, q, state=state,
+                                               in_bytes=x.element_size())))
     del x, bm, cm, dt, got, got_s, want, want_s
     return case
 
 
+def ssd_bounds(card: Card, nbytes: float, flops: float, tf32: float) -> dict:
+    """Both bounds of an ssd call, on the float32 pipes and on the tensor
+    cores in the kernel's TF32 passes; the headline (``bound_ms``) is the
+    smaller, the least time the card could take."""
+    fma, tensor = card.bound(nbytes, flops), card.bound(nbytes, tf32, tf32=True)
+    return {**min(fma, tensor, key=lambda bd: bd["bound_ms"]),
+            **{f"{key}_{kind}": bd[key] for kind, bd in (("fma", fma), ("tensor", tensor))
+               for key in ("bound_ms", "bound_by")}}
+
+
 def ssd_cases(card: Card) -> list[dict]:
     """``ssd`` at the hybrid prefill's shape (B 4, T 1024, 80 heads of
-    P = N = 64, one B/C group, chunk 64) and at its edges."""
+    P = N = 64, one B/C group, chunk 64) and at its edges: the reference's,
+    then the tensor-core design's (each split of P and the B * H where the
+    rule changes, a row into a second chunk, chunks under 64 rows, one row,
+    the narrowest (P, N)), each asserting its route and split."""
     small = (1e-4, 2e-3)  # decays summing to about -1 over 1024 steps: the state survives
     main = (4, 1024, 80, 64, 64, 64)
+    bf16 = torch.bfloat16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [
-        ssd_case(card, "main_b4_t1024", *main, timed=True),
+        ssd_case(card, "main_b4_t1024", *main, timed=True, want_split=2),
         ssd_case(card, "main_b4_t1024_state", *main, state=True, dt_range=small, seed=1),
-        ssd_case(card, "main_b4_t1024_bf16", *main, dtype=torch.bfloat16, timed=True, seed=2),
+        ssd_case(card, "main_b4_t1024_bf16", *main, dtype=bf16, timed=True, want_split=1,
+                 seed=2),
         ssd_case(card, "ragged_t1000", 4, 1000, 80, 64, 64, 64, state=True, dt_range=small,
                  seed=3),
         ssd_case(card, "short_t5", 4, 5, 80, 64, 64, 64, state=True, seed=4),
         ssd_case(card, "short_t1", 4, 1, 80, 64, 64, 64, state=True, seed=5),
         ssd_case(card, "b1_t8192", 1, 8192, 80, 64, 64, 64, state=True, dt_range=(1e-5, 2e-4),
-                 seed=6),
+                 want_split=2, seed=6),
         ssd_case(card, "strong_decay", 4, 1024, 80, 64, 64, 64, dt_a=-50.0, seed=7),
         ssd_case(card, "groups_g2_h4", 2, 256, 4, 64, 64, 64, g=2, state=True, dt_range=small,
                  seed=8),
@@ -948,6 +992,33 @@ def ssd_cases(card: Card) -> list[dict]:
         for dtype in (torch.float32, torch.bfloat16):  # tests/test_kernels.py's sweep
             cases.append(ssd_case(card, f"sweep_t{t}_h{h}_p{p}_n{n}_q{chunk}_{str(dtype)[6:]}",
                                   2, t, h, p, n, chunk, g=h, seed=9, dtype=dtype))
+    # bf16 splits P in 1, 2 or 4 at B * H >= 2 SMs, >= 1 SM, below; float32 in 2
+    for bh, split in ((2 * sms - 1, 2), (2 * sms, 1), (sms - 1, 4), (sms, 2)):
+        cases.append(ssd_case(card, f"split{split}_bh{bh}_bf16", 1, 130, bh, 64, 64, 64,
+                              state=True, dt_range=small, dtype=bf16, want_split=split,
+                              seed=10))
+    cases += [
+        ssd_case(card, f"split2_bh{2 * sms}_f32", 1, 130, 2 * sms, 64, 64, 64, state=True,
+                 dt_range=small, want_split=2, seed=11),
+        ssd_case(card, "b1_h80_bf16", 1, 1024, 80, 64, 64, 64, state=True, dt_range=small,
+                 dtype=bf16, want_split=4, seed=12),
+        ssd_case(card, "p64_n32_split4_bf16", 1, 130, 4, 64, 32, 64, state=True,
+                 dt_range=small, dtype=bf16, want_split=4, seed=13),
+    ]
+    for dtype in (torch.float32, bf16):
+        tag = str(dtype)[6:]
+        cases += [
+            ssd_case(card, f"t65_{tag}", 2, 65, 8, 64, 64, 64, state=True, dt_range=small,
+                     dtype=dtype, seed=14),
+            ssd_case(card, f"t17_{tag}", 2, 17, 8, 64, 64, 64, state=True, dt_range=small,
+                     dtype=dtype, seed=15),
+            ssd_case(card, f"chunk48_t200_{tag}", 2, 200, 8, 64, 64, 48, state=True,
+                     dt_range=small, dtype=dtype, seed=16),
+            ssd_case(card, f"chunk1_t40_{tag}", 2, 40, 8, 64, 64, 1, state=True,
+                     dt_range=small, dtype=dtype, seed=17),
+            ssd_case(card, f"p16_n8_g3_{tag}", 2, 100, 6, 16, 8, 64, g=3, state=True,
+                     dt_range=small, dtype=dtype, want_split=1, seed=18),
+        ]
     torch.cuda.empty_cache()
     return cases
 
@@ -956,9 +1027,12 @@ def _print_ssd_case(c: dict) -> None:
     times = ""
     if "ms" in c:
         times = (f" kernel={c['ms']:.4f} ms plain={c['plain_ms']:.4f} ms library=none "
-                 f"bound={c['bound_ms']:.4f} ms ({c['bound_by']}; {c['bound_card']})")
+                 f"bound={c['bound_ms']:.4f} ms ({c['bound_by']}; {c['bound_card']}; "
+                 f"float32 pipes {c['bound_ms_fma']:.4f} ms by {c['bound_by_fma']}, "
+                 f"TF32 tensor cores {c['bound_ms_tensor']:.4f} ms by {c['bound_by_tensor']})")
     print(f"ssd {c['case']}: B={c['B']} T={c['T']} H={c['H']} G={c['G']} P={c['P']} N={c['N']} "
-          f"chunk={c['chunk']} state={c['state']} {c['dtype']} max_abs_err={c['max_abs_err']:.3g} "
+          f"chunk={c['chunk']} state={c['state']} {c['dtype']} route={c['route']} "
+          f"split={c['split']} max_abs_err={c['max_abs_err']:.3g} "
           f"rel_norm_err={c['rel_norm_err']:.3g} (max |y| {c['max_abs_out']:.4g}){times}",
           flush=True)
 
@@ -1636,6 +1710,9 @@ def main() -> int:
             **{key: main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                           "library_ms", "bound_card")},
             "shape": shape,
+            **({key: main[key] for key in ("bound_ms_fma", "bound_by_fma", "bound_ms_tensor",
+                                          "bound_by_tensor", "route", "split")}
+               if kernel == "ssd" else {}),
             "shapes": cases[kernel],
         })
     for entry in entries:

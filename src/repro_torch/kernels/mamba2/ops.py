@@ -23,10 +23,15 @@ Dispatch is by the device of the operands, and only by it:
 
 x, B and C are float32 or bfloat16 (one type; bf16 is widened in the
 kernel, so it computes what the reference's float32 cast computes); dt and
-a are float32.  Bound on an H100 SXM (see the note in the CUDA source): at
-B 4, T 1024, H 80, P = N = 64, G 1, chunk 64, float32, one call from a zero
-state moves 176 MB (0.053 ms at 3.35 TB/s) and does about 8 GFLOP
-(0.12 ms at 67 TFLOP/s float32): it is bound by operations.
+a are float32.  The kernel runs its chunk products on the tensor cores in
+TF32, each float32 operand split into two TF32 parts so that the products
+keep float32 accuracy: two passes a product with bf16 inputs (one for
+C B^T), three with float32 inputs (``kernel_route``).  A (b, h) is split
+over 1, 2 or 4 blocks of its P columns (``kernel_split``).  Bound on an
+H100 SXM (see the note in the CUDA source): at B 4, T 1024, H 80,
+P = N = 64, G 1, chunk 64, bf16 x, B and C as served, one call from a zero
+state moves 133 MB (0.040 ms at 3.35 TB/s) and does 14.8 GFLOP of TF32
+passes (0.030 ms at 495 TFLOP/s dense TF32): it is bound by bytes.
 
 ``launches.count`` counts kernel launches (never plain-version calls).
 """
@@ -48,6 +53,15 @@ SOURCES = [Path(__file__).resolve().parent / "csrc" / "ssd.cu"]
 SHAPES = ((64, 64), (64, 32), (32, 16), (16, 8))
 MAX_CHUNK = 64  # kMaxChunk in the CUDA source
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # the kernel's dtype argument
+BLOCKS_PER_SM = 2  # kBlocksPerSm: the blocks an SM the split aims for
+SPLITS = (1, 2, 4)
+# kWidest / kNarrowest: the columns of P a block owns at most / at least, by
+# input type (a float32 block of 64 columns leaves one block an SM, and
+# float32's three passes make the C B^T every block recomputes dear)
+SLICES = {torch.bfloat16: (16, 64), torch.float32: (32, 32)}
+# the TF32 passes of each product (ssd_route's code) by input type: bf16 x,
+# B and C are exact in TF32, so only the float32 operand of a product splits
+ROUTES = {2: "tf32x2", 3: "tf32x3"}
 
 launches = LaunchCounter()
 
@@ -60,6 +74,10 @@ def load_kernel() -> build.KernelLibrary:
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
     fn.argtypes = [ptr] * 8 + [i64] * 8 + [ctypes.POINTER(i64), ptr]
     fn.restype = ctypes.c_int
+    kl.lib.ssd_split.argtypes = [i64] * 4
+    kl.lib.ssd_split.restype = ctypes.c_int
+    kl.lib.ssd_route.argtypes = [i64]
+    kl.lib.ssd_route.restype = ctypes.c_int
     return kl
 
 
@@ -101,12 +119,37 @@ def check_inputs(x, b, c, dt, a, state, chunk: int) -> int:
     return q
 
 
+def kernel_split(bh: int, p: int, dtype: torch.dtype, sm_count: int) -> int:
+    """Blocks a (b, h) is split over, each owning P / split columns, for x,
+    B and C of ``dtype``: the smallest of ``SPLITS`` whose slices are at
+    most the type's widest (``SLICES``) and that gives ``BLOCKS_PER_SM``
+    blocks an SM over ``bh`` (b, h) pairs, else the largest whose slices are
+    at least the type's narrowest.  The CUDA source's ``ssd_split`` is the
+    same rule."""
+    narrowest, widest = SLICES[dtype]
+    split = p // widest if p > widest else 1
+    while split < SPLITS[-1] and p // (2 * split) >= narrowest \
+            and bh * split < BLOCKS_PER_SM * sm_count:
+        split *= 2
+    return split
+
+
+def kernel_route(dtype: torch.dtype) -> str:
+    """The kernel's route for inputs of ``dtype``: ``"tf32x2"`` (bf16: the
+    float32 operand of each product split in two TF32 parts) or
+    ``"tf32x3"`` (float32: both operands split, three passes)."""
+    return ROUTES[3 if dtype == torch.float32 else 2]
+
+
 def _kernel_operand(m: torch.Tensor) -> torch.Tensor:
     """``m`` (B, T, heads, width) as the kernel reads it: each token's
-    (heads, width) block contiguous, any (batch, token) strides; anything
-    else is copied to a contiguous tensor."""
+    (heads, width) block contiguous, any (batch, token) strides, its start
+    and strides 16-byte aligned (the kernel copies 16 bytes at a time);
+    anything else is copied to a contiguous tensor."""
     inner = m.stride(3) == 1 and (m.shape[2] == 1 or m.stride(2) == m.shape[3])
-    return m if inner else m.contiguous()
+    es = m.element_size()
+    aligned = m.data_ptr() % 16 == 0 and all(st * es % 16 == 0 for st in m.stride()[:2])
+    return m if inner and aligned else m.contiguous()
 
 
 def launch(x, b, c, dt, a, state, q: int, y, state_out) -> None:

@@ -240,3 +240,182 @@ def test_wrapper_raises_off_cpu_and_cuda():
     bc = torch.zeros(1, 4, 1, 8, device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         ops.ssd(x, bc, bc, torch.zeros(1, 4, 1, device="meta"), torch.zeros(1, device="meta"))
+
+
+# --- the CUDA kernel's numerics and its split of P, emulated on the CPU ---
+#
+# The kernel runs its four chunk products on the tensor cores in TF32, each
+# float32 operand split as hi = rna(v), lo = rna(v - hi) and the product
+# summed as lo * hi + hi * lo + hi * hi (bf16 operands are exact in TF32 and
+# are not split).  Emulated here with TF32 rounding done by masking bits and
+# each pass a float32 matmul (a product of two TF32 values is exact in
+# float32), and held to the plain version at the card's check: atol 5e-5 /
+# rtol 1e-4 and a relative norm error under 1e-5 (chip_smoke.py's).
+
+CARD_REL_NORM = 1e-5
+
+
+def _tf32(v: torch.Tensor) -> torch.Tensor:
+    """float32 v rounded to TF32, to nearest with ties away from zero."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _product(a, b, split_a: bool, split_b: bool, *, one_pass=False):
+    """a @ b as the kernel's TF32 passes compute it: an operand marked split
+    is a float32 value taken as hi + lo, else it is exact in TF32."""
+    if one_pass:
+        return _tf32(a) @ _tf32(b)
+    a_hi, b_hi = (_tf32(m) if split else m for m, split in ((a, split_a), (b, split_b)))
+    out = a_hi @ b_hi
+    if split_a:
+        out = out + _tf32(a - a_hi) @ b_hi
+    if split_b:
+        out = out + a_hi @ _tf32(b - b_hi)
+    return out
+
+
+def _emulated_ssd(x, b, c, dt, a, *, state=None, chunk=64, one_pass=False):
+    """ref.ssd_chunked_ref's chunk form with its four products in the
+    kernel's TF32 passes: C B^T in one pass for bf16 inputs, att x, C S^T and
+    x^T (B w) in two (their float32 operand split); every product in three
+    for float32 inputs.  ``one_pass`` rounds every operand to TF32 once."""
+    bs, t, h, p = x.shape
+    n = b.shape[3]
+    split_in = x.dtype == torch.float32
+    xf = x.float().transpose(1, 2)  # (B, H, T, P)
+    bf, cf = (ref.expand_groups(m, h).float().transpose(1, 2) for m in (b, c))
+    dtf = dt.float().transpose(1, 2)  # (B, H, T)
+    s = torch.zeros(bs, h, p, n) if state is None else state.float().clone()
+    ys = []
+    for start in range(0, t, chunk):
+        xq, bq, cq, dq = (m[:, :, start:start + chunk] for m in (xf, bf, cf, dtf))
+        rows = xq.shape[2]
+        cum = torch.cumsum(dq * a[:, None], dim=2)  # (B, H, rows)
+        g = _product(cq, bq.transpose(2, 3), split_in, split_in, one_pass=one_pass)
+        tri = torch.tril(torch.ones(rows, rows, dtype=torch.bool))
+        pair = torch.where(tri, cum[..., :, None] - cum[..., None, :], float("-inf"))
+        att = torch.exp(pair) * g * dq[..., None, :]
+        y = torch.exp(cum)[..., None] * _product(cq, s.transpose(2, 3), split_in, True,
+                                                 one_pass=one_pass)
+        y = y + _product(att, xq, True, split_in, one_pass=one_pass)
+        w = dq * torch.exp(cum[..., -1:] - cum)
+        s = torch.exp(cum[..., -1])[..., None, None] * s + _product(
+            xq.transpose(2, 3), bq * w[..., None], split_in, True, one_pass=one_pass)
+        ys.append(y)
+    return torch.cat(ys, dim=2).transpose(1, 2), s
+
+
+def _card_check(got, want):
+    torch.testing.assert_close(got, want, **F32_TOL)
+    rel = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+    assert rel < CARD_REL_NORM, rel
+    return rel
+
+
+def _emulation_inputs(dtype):
+    x, bm, cm, dt, a, s0 = _inputs(1, 256, 2, 64, 64, g=1, seed=20, state=True)
+    return (*(_t(v, dtype) for v in (x, bm, cm)), _t(dt), _t(a), _t(s0))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_split_tf32_products_hold_the_float32_check(dtype):
+    """The kernel's split-TF32 passes (two for bf16 inputs, three for
+    float32) stay within the card's float32 check of the plain version,
+    output and final state."""
+    x, bm, cm, dt, a, s0 = _emulation_inputs(dtype)
+    got, got_s = _emulated_ssd(x, bm, cm, dt, a, state=s0)
+    want, want_s = ref.ssd_chunked_ref(x, bm, cm, dt, a, state=s0, chunk=64)
+    assert _card_check(got, want) < 1e-6
+    _card_check(got_s, want_s)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_one_pass_tf32_fails_the_float32_check(dtype):
+    """Why the kernel splits its float32 operands: one TF32 pass a product
+    misses the card's relative norm check by more than tenfold."""
+    x, bm, cm, dt, a, s0 = _emulation_inputs(dtype)
+    got, _ = _emulated_ssd(x, bm, cm, dt, a, state=s0, one_pass=True)
+    want, _ = ref.ssd_chunked_ref(x, bm, cm, dt, a, state=s0, chunk=64)
+    rel = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+    assert rel > 10 * CARD_REL_NORM
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(got, want, **F32_TOL)
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    v = torch.tensor([1.0 + 2**-11, 1.0 + 2**-11 + 2**-20, -(1.0 + 2**-11), 1.0 + 2**-12, 3.0])
+    want = torch.tensor([1.0 + 2**-10, 1.0 + 2**-10, -(1.0 + 2**-10), 1.0, 3.0])
+    assert torch.equal(_tf32(v), want)
+    lo = _tf32(v - _tf32(v))
+    assert torch.equal(_tf32(v) + lo, v)  # these values fit hi + lo exactly
+
+
+def _cuda_constants() -> dict:
+    src = (Path(ops.__file__).parent / "csrc" / "ssd.cu").read_text()
+    consts = {name: int(val) for name, val in
+              re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    for name in ("kWidest", "kNarrowest"):
+        bf16, f32 = re.search(name + r" = sizeof\(T\) == 2 \? (\d+) : (\d+);", src).groups()
+        consts[name] = {torch.bfloat16: int(bf16), torch.float32: int(f32)}
+    return consts
+
+
+def test_split_rule_matches_the_cuda_source():
+    consts = _cuda_constants()
+    assert consts["kBlocksPerSm"] == ops.BLOCKS_PER_SM
+    assert consts["kMaxChunk"] == ops.MAX_CHUNK
+    for dtype, (narrowest, widest) in ops.SLICES.items():
+        assert consts["kNarrowest"][dtype] == narrowest and consts["kWidest"][dtype] == widest
+
+
+BHS = (1, 2, 79, 80, 131, 132, 133, 263, 264, 265, 320, 1000)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("p,n", ops.SHAPES)
+def test_split_covers_p_with_an_instantiated_slice(p, n, dtype):
+    """Every split the rule picks divides P into slices the CUDA source
+    instantiates for (P, N) and the type (``kTakes``: 16 <= slice <= the
+    type's widest, and at least its narrowest unless the slice is all of P)."""
+    narrowest, widest = ops.SLICES[dtype]
+    for sm_count in (114, 132):
+        for bh in BHS:
+            split = ops.kernel_split(bh, p, dtype, sm_count)
+            assert split in ops.SPLITS and p % split == 0
+            slice_ = p // split
+            assert 16 <= slice_ <= widest and (slice_ >= narrowest or slice_ == p)
+            bigger = ops.kernel_split(2 * bh, p, dtype, sm_count)
+            assert bigger <= split  # more (b, h) pairs never split P finer
+
+
+@pytest.mark.parametrize("bh,sm_count,dtype,want", [
+    (320, 132, torch.bfloat16, 1),  # zamba2's served prefill: B 4, H 80
+    (80, 132, torch.bfloat16, 4),  # B 1, H 80: the rule changes
+    (131, 132, torch.bfloat16, 4),
+    (132, 132, torch.bfloat16, 2),
+    (263, 132, torch.bfloat16, 2),
+    (264, 132, torch.bfloat16, 1),
+    (320, 132, torch.float32, 2),
+    (80, 132, torch.float32, 2),
+    (264, 114, torch.bfloat16, 1),
+])
+def test_split_rule_at_its_boundaries(bh, sm_count, dtype, want):
+    assert ops.kernel_split(bh, 64, dtype, sm_count) == want
+
+
+def test_served_shape_takes_the_tensor_core_route():
+    assert ops.kernel_route(torch.bfloat16) == "tf32x2"
+    assert ops.kernel_route(torch.float32) == "tf32x3"
+    assert set(ops.ROUTES.values()) == {"tf32x2", "tf32x3"}
+
+
+def test_misaligned_operands_are_copied():
+    """The kernel copies 16 bytes at a time: a view whose token stride is
+    not a multiple of 16 bytes is copied to a contiguous tensor."""
+    conv = torch.zeros(2, 9, 4 * 16 + 2 * 8 + 1)
+    xh = conv[..., :64].unflatten(-1, (4, 16))
+    got = ops._kernel_operand(xh)
+    assert got is not xh and got.is_contiguous()
+    bf = torch.zeros(2, 9, 72, dtype=torch.bfloat16)[..., 8:72].unflatten(-1, (1, 64))
+    assert ops._kernel_operand(bf) is bf  # 16-byte offset and strides: read in place

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Time two versions of the port's ``consensus_mix``, ``dequant_mix``,
-``wkv6`` and ``flash_attention`` kernels in turns on one GPU: this
+``wkv6``, ``flash_attention`` and ``ssd`` kernels in turns on one GPU: this
 checkout's and another tree's (an older commit unpacked beside it).
 
 Both versions are built from their ``.cu`` sources with the port's nvcc flags
@@ -21,10 +21,15 @@ library call and the bound chip_smoke.py computes:
   log-decay of -50 a step, each with the largest difference between the
   two versions' outputs;
 - ``flash_attention`` at minitron's prefill, its 4096-token window and
-  zamba2's D = 80.
+  zamba2's D = 80;
+- ``ssd`` at zamba2's prefill (B 4, T 1024, H 80, P = N = 64, one group,
+  chunk 64) with bf16 x, B and C as served, and in float32 from a zero and
+  from a random state, at B 1, T 8192 from a state (float32) and at a
+  ragged T 1000 (float32), each with both bounds and the largest
+  difference between the two versions' outputs.
 
     git archive <commit> src/repro_torch/kernels | tar -x -C build/parent
-    python3 tools/kernel_ab.py --old build/parent
+    python3 tools/kernel_ab.py --old build/parent [--only ssd]
 
 Prints one JSON object a shape and, last, the card line.
 """
@@ -51,6 +56,8 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.consensus_mix import dequant, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
+from repro_torch.kernels.mamba2 import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.mamba2 import ref as ssd_ref  # noqa: E402
 from repro_torch.kernels.rwkv6 import ref as wkv6_ref  # noqa: E402
 
 KERNELS = {  # name: source below src/repro_torch/kernels
@@ -58,6 +65,7 @@ KERNELS = {  # name: source below src/repro_torch/kernels
     "dequant_mix": "consensus_mix/csrc/dequant_mix.cu",
     "wkv6": "rwkv6/csrc/wkv6.cu",
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
+    "ssd": "mamba2/csrc/ssd.cu",
 }
 OUT = ROOT / "build" / "kernel_ab"
 
@@ -295,6 +303,60 @@ def ab_flash(card, libs: dict, name: str, b, s, h, kh, d, *, window=None, seed=0
             **bound}
 
 
+def ab_ssd(card, libs: dict, name: str, b, t, h, *, dtype=torch.float32, state=False,
+           dt_range=(0.01, 1.0), seed=0) -> dict:
+    """ssd at P = N = 64, one B/C group, chunk 64, both versions through
+    ``ssd_fwd`` (the same C entry in both) on chip_smoke.py's draws, each
+    held to the plain version at chip_smoke.py's tolerance and relative norm
+    error; ``max_abs_diff_old`` is the largest difference between the two
+    versions' outputs (y and final state)."""
+    p = n = q = 64
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, t, h, p, generator=gen, device=dev).to(dtype)
+    bm, cm = (torch.randn(b, t, 1, n, generator=gen, device=dev).to(dtype) for _ in range(2))
+    low, high = dt_range
+    dt = low + (high - low) * torch.rand(b, t, h, generator=gen, device=dev)
+    a = -(0.5 + 1.5 * torch.rand(h, generator=gen, device=dev))
+    s0 = torch.randn(b, h, p, n, generator=gen, device=dev) if state else None
+    want = ssd_ref.ssd_chunked_ref(x, bm, cm, dt, a, state=s0, chunk=q)
+    strides = (ctypes.c_int64 * 6)(*(st for m in (x, bm, cm) for st in m.stride()[:2]))
+    stream = torch.cuda.current_stream().cuda_stream
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    outs = {tag: (torch.empty(b, t, h, p, device=dev), torch.empty(b, h, p, n, device=dev))
+            for tag in libs}
+    runs, errs = {}, {}
+    for tag, lib in libs.items():
+        fn = lib.ssd_fwd
+        fn.argtypes, fn.restype = [ptr] * 8 + [i64] * 8 + [ctypes.POINTER(i64), ptr], ctypes.c_int
+
+        def run(fn=fn, tag=tag):
+            y, final = outs[tag]
+            err = fn(x.data_ptr(), bm.data_ptr(), cm.data_ptr(), dt.data_ptr(), a.data_ptr(),
+                     None if s0 is None else s0.data_ptr(), y.data_ptr(), final.data_ptr(),
+                     ssd_ops.DTYPE_CODES[dtype], b, t, h, 1, p, n, q, strides, stream)
+            chip_smoke.check(err == 0, f"ssd {tag} launch: cudaError_t {err}")
+
+        run()
+        torch.cuda.synchronize()
+        errs[tag] = chip_smoke._compare_ssd((x, bm, cm, dt), {}, outs[tag], want,
+                                            f"ssd {tag} {name}")
+        runs[tag] = run
+    diff = max(float((outs["new"][i] - outs["old"][i]).abs().max()) for i in range(2))
+    times = in_turns(runs, None)
+    bounds = chip_smoke.ssd_bounds(card, *chip_smoke.ssd_work(
+        b, t, h, 1, p, n, q, state=state, in_bytes=x.element_size()))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return {"kernel": "ssd", "case": name, "B": b, "T": t, "H": h, "P": p, "N": n, "chunk": q,
+            "dtype": str(dtype).removeprefix("torch."), "state": state,
+            "route_new": ssd_ops.kernel_route(dtype),
+            "split_new": ssd_ops.kernel_split(b * h, p, dtype, sms),
+            "errors": {tag: {key: e[key] for key in ("y_max_abs_err", "y_rel_norm_err",
+                                                    "state_max_abs_err", "state_rel_norm_err")}
+                       for tag, e in errs.items()},
+            "max_abs_diff_old": diff, **times, **bounds}
+
+
 def in_turns(runs: dict, library) -> dict:
     """Mean ms of each version (``<tag>_ms``) and of the library call
     (``library_ms``, None without one), in turns: each version in order,
@@ -350,6 +412,16 @@ def main() -> int:
             ab_flash(card, libs, "main_minitron", 4, 1024, 32, 8, 128),
             ab_flash(card, libs, "long_window4096", 1, 8192, 32, 8, 128, window=4096, seed=2),
             ab_flash(card, libs, "zamba2_d80", 4, 1024, 32, 32, 80, seed=7)],
+        # chip_smoke.py's ssd cases and draws
+        "ssd": lambda libs: [
+            ab_ssd(card, libs, "main_b4_t1024_bf16", 4, 1024, 80, dtype=torch.bfloat16, seed=2),
+            ab_ssd(card, libs, "main_b4_t1024", 4, 1024, 80),
+            ab_ssd(card, libs, "main_b4_t1024_state", 4, 1024, 80, state=True,
+                   dt_range=(1e-4, 2e-3), seed=1),
+            ab_ssd(card, libs, "b1_t8192", 1, 8192, 80, state=True, dt_range=(1e-5, 2e-4),
+                   seed=6),
+            ab_ssd(card, libs, "ragged_t1000", 4, 1000, 80, state=True, dt_range=(1e-4, 2e-3),
+                   seed=3)],
     }
     for kernel in args.only:
         for result in cases[kernel](pick(kernel)):
