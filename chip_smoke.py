@@ -30,7 +30,15 @@ In order:
    129 on either side of the cap), ``segment_mix`` at five (K=100
    complete, K=4096 ring, a padded star with a zero beta row and ragged N on
    the scalar path, round 17 of a stacked R=16 link-dropout schedule, and
-   D=2047 slots staged in chunks), ``wkv6`` at seventeen (the prefill's
+   D=2047 slots staged in chunks); the mass mode (push-sum) of the three
+   consensus kernels, mixed, d and the new mass each held to its plain
+   version, the new mass to sum K within 1e-5 K, and timed against
+   ``torch.matmul([A diag(y); Beta], X)``: ``consensus_mix`` at K = 8 on
+   the directed ring (gather), K = 100 complete (tile), K = 129 (gather) and
+   K = 16 with an isolated peer, ``dequant_mix`` (qint8) at K = 8, 100, 129
+   and K = 8 with an isolated peer, ``segment_mix`` on the K = 4096
+   directed ring at the 2NN's row and on a K = 64 one with an isolated peer
+   (whose mass and parameters stay, and whose d is 0); ``wkv6`` at seventeen (the prefill's
    B 4, T 1024, 64 heads of 64, chunk 16, from a zero and from a random
    state, and with bf16 r, k and v as served, timed; T 1000, ragged;
    log-decay -50; T 5, under one chunk; B 1, T 4096, timed; T 1001 ragged
@@ -93,17 +101,23 @@ In order:
    ``noniid_affinity`` (5 rounds) and ``iid_k100`` (2), then compressed
    ``timevarying_k8`` round robin with qint8 (5) and with top-k (3),
    ``iid_k100`` with qint8 (2), and ``iid_k100`` on the one-slice
-   hierarchical runtime (segment mode, 2), with every kernel's launch count
-   reset just before and read just after each run; after each of the first,
-   the compressed and the hierarchical runs it recomputes one consensus
-   phase with the plain version;
-8. breaks one round of ``noniid_affinity``, ``iid_k100`` and ``iid_k100``
-   with qint8 down by phase (synchronized host timers) and profiles one more
-   for the device's busy share;
+   hierarchical runtime (segment mode, 2); then push-sum: ``directed_k8``
+   static (3), with one-way matchings (3) and with directed link dropout and
+   qint8 (3), ``iid_k100 --protocol push_sum`` (2) and the same on the
+   one-slice segment runtime (2), each push-sum run checking after every
+   round that the mass sums to K within 1e-5 K and stays positive; with
+   every kernel's launch count reset just before and read just after each
+   run, and every plain version's calls counted (none allowed); after each
+   of the first, the compressed, the hierarchical and three push-sum runs it
+   recomputes one consensus phase with the plain version;
+8. breaks one round of ``noniid_affinity``, ``iid_k100``, ``iid_k100``
+   with qint8 and ``directed_k8`` down by phase (synchronized host timers)
+   and profiles one more for the device's busy share;
 9. trains the 2NN at K=4096 peers on a ring at full width on the one-slice
    segment runtime, 2 rounds through the round function without evaluation,
    and prints its seconds per round and peak memory beside the state's size;
-10. prints the ``kernels`` JSON line and, last, the contract line
+10. prints the ``kernels`` JSON line (each consensus kernel with its mass
+   mode beside its gossip mode) and, last, the contract line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result;
@@ -140,6 +154,7 @@ TV_QINT8_ROUNDS = 5
 TV_TOPK_ROUNDS = 3
 IID_QINT8_ROUNDS = 2
 IID_POD_ROUNDS = 2
+DIRECTED_ROUNDS = 3
 LARGE_K = 4096
 LARGE_K_ROUNDS = 2
 
@@ -563,6 +578,239 @@ def segment_cases(card: Card) -> list[dict]:
     ]
     torch.cuda.empty_cache()
     return cases
+
+
+def push_sum_operands(sched, sizes, dev):
+    """Push-sum's column-stochastic sparse schedule of ``sched`` and its upload."""
+    from repro_torch.core import graph as graph_lib
+    from repro_torch.kernels.consensus_mix import ops
+
+    sparse = graph_lib.SparseSchedule.from_schedule(sched, "data_weighted", data_sizes=sizes,
+                                                    stochasticity="column")
+    return sparse, ops.upload_schedule(sparse, dev)
+
+
+def push_sum_mass(k: int, seed: int, dev) -> torch.Tensor:
+    """A positive (K,) float32 mass summing to K, as push-sum keeps it."""
+    y = np.random.default_rng(seed).uniform(0.2, 2.0, k)
+    return torch.as_tensor((k * y / y.sum()).astype(np.float32), device=dev)
+
+
+def isolated(graph, peer: int):
+    """``graph`` with every edge into and out of ``peer`` removed."""
+    from repro_torch.core import graph as graph_lib
+
+    a = graph.adjacency.copy()
+    a[peer, :] = a[:, peer] = False
+    return graph_lib.CommGraph(a, directed=graph.directed)
+
+
+def mass_library(sparse, mass: torch.Tensor, dev, *, as_csr: bool) -> torch.Tensor:
+    """[A diag(y); Beta] of round 0 as a (2K, K) float32 operator (dense, or
+    CSR above K = 1000): its product with X is the push-sum numerator and
+    the neighbor sum, without the division."""
+    y = mass.double().cpu().numpy()
+    scaled = dataclasses.replace(sparse, self_w=sparse.self_w * y[None, :],
+                                 nbr_w=sparse.nbr_w * y[sparse.nbr_idx])
+    return library_operator(scaled, 0, dev, as_csr=as_csr)
+
+
+def check_mass_outputs(name: str, got, want, x, mass, iso) -> float:
+    """Kernel against plain version: mixed, d (and est') and the new mass at
+    TOL; the new mass sums to K; an isolated peer keeps its parameters (to
+    the rounding of y x / y) and its mass, and its d is 0.  Returns the
+    largest absolute difference."""
+    err = 0.0
+    names = ("mixed", "d", "est'", "new_mass") if len(got) == 4 else ("mixed", "d", "new_mass")
+    for g, r, what in zip(got, want, names):
+        torch.testing.assert_close(g, r, **TOL, msg=lambda m: f"{name} {what}: {m}")
+        err = max(err, float((g - r).abs().max()))
+    y_new = got[-1]
+    k = y_new.shape[0]
+    check(abs(float(y_new.double().sum()) - k) <= 1e-5 * k, f"{name}: sum y' = K")
+    check(bool((y_new > 0).all()), f"{name}: y' > 0")
+    if iso is not None:
+        check(float(y_new[iso]) == float(mass[iso]), f"{name}: isolated peer keeps its mass")
+        torch.testing.assert_close(got[0][iso], x[iso], rtol=1e-6, atol=0,
+                                   msg=lambda m: f"{name}: isolated peer's parameters: {m}")
+        check(bool((got[1][iso] == 0).all()), f"{name}: isolated peer's d is 0")
+    return err
+
+
+def consensus_mass_case(card, name, graph, sizes, n, *, iso=None, want_path="tile", seed=0):
+    """``consensus_mix``'s mass mode (push-sum) against its plain version and
+    the library product of [A diag(y); Beta]; ``iso`` isolates a peer."""
+    from repro_torch.core import graph as graph_lib
+    from repro_torch.kernels.consensus_mix import ops, ref
+
+    dev = torch.device("cuda")
+    t = 10
+    if iso is not None:
+        graph = isolated(graph, iso)
+    sparse, ops_s = push_sum_operands(graph_lib.static_schedule(graph), sizes, dev)
+    one = ops.select_round(ops_s, 0)
+    k, d = sparse.num_peers, sparse.degree_bound
+    path = "tile" if ops.takes_tile_path(k) else "gather"
+    check(path == want_path, f"{name}: {path} design, want {want_path}")
+    x = torch.as_tensor(np.random.default_rng(seed).normal(size=(k, n)).astype(np.float32),
+                        device=dev)
+    mass = push_sum_mass(k, seed, dev)
+    got = ops.consensus_mix_push_sum_stacked(x, mass, one, t)
+    want = ref.consensus_mix_push_sum_stacked_ref(x, mass, *one, t)
+    torch.cuda.synchronize()
+    err = check_mass_outputs(name, got, want, x, mass, iso)
+    del got, want
+
+    mixed, d_out, new_mass = torch.empty_like(x), torch.empty_like(x), torch.empty_like(mass)
+    lib_op = mass_library(sparse, mass, dev, as_csr=False)
+    lib_out = torch.empty((2 * k, n), device=dev)
+    times = in_turns(lambda: ref.consensus_mix_push_sum_stacked_ref(x, mass, *one, t),
+                     lambda: ops.launch(x, one, t, mixed, d_out, mass, new_mass),
+                     lambda: torch.matmul(lib_op, x, out=lib_out))
+    real = int((sparse.nbr_idx[0] != np.arange(k)[:, None]).sum())
+    flops = n * (4 * real + 4 * k) + 2 * (real + k)  # gossip's, a divide a row, y'
+    nbytes = 3 * k * n * 4 + k * 4 + 3 * k * d * 4 + 2 * k * 4  # gossip's, mass in and out
+    return {"case": name, "K": k, "D": d, "N": n, "path": path, "vector_path": n % 4 == 0,
+            "max_abs_err": err, **times, **card.bound(nbytes, flops)}
+
+
+def dequant_mass_case(card, name, graph, sizes, layout, *, iso=None, want_path="tile", seed=0):
+    """``dequant_mix``'s mass mode (compressed push-sum, qint8 at the 2NN's
+    row) against its plain version and the library product of
+    [A diag(y); Beta] with the advanced estimates."""
+    from repro_torch.core import graph as graph_lib
+    from repro_torch.kernels.consensus_mix import dequant, ops, ref
+
+    dev = torch.device("cuda")
+    t = 10
+    if iso is not None:
+        graph = isolated(graph, iso)
+    sparse, ops_s = push_sum_operands(graph_lib.static_schedule(graph), sizes, dev)
+    one = ops.select_round(ops_s, 0)
+    k, d = sparse.num_peers, sparse.degree_bound
+    path = "tile" if dequant.takes_tile_path(k) else "gather"
+    check(path == want_path, f"{name}: {path} design, want {want_path}")
+    n, size, leaves = layout.row, layout.size, layout.leaf_offsets
+    rng = np.random.default_rng(seed)
+    x = torch.zeros(k, n, device=dev)
+    x[:, :size] = torch.as_tensor(rng.normal(size=(k, size)).astype(np.float32), device=dev)
+    est = x + torch.as_tensor(0.01 * rng.normal(size=(k, n)).astype(np.float32), device=dev)
+    est[:, size:] = 0.0
+    q = torch.zeros(k, n, dtype=torch.int8, device=dev)
+    q[:, :size] = torch.as_tensor(rng.integers(-127, 128, (k, size)).astype(np.int8), device=dev)
+    scale = torch.as_tensor(rng.uniform(0, 1e-4, (k, len(leaves) - 1)).astype(np.float32),
+                            device=dev)
+    mass = push_sum_mass(k, seed, dev)
+    got = dequant.dequant_mix_push_sum_stacked(x, est, q, scale, mass, one, leaves, t)
+    want = ref.dequant_mix_push_sum_stacked_ref(x, est, q, scale, leaves, mass, *one, t)
+    torch.cuda.synchronize()
+    err = check_mass_outputs(name, got, want, x, mass, iso)
+    adv = want[2]
+    del got, want
+
+    outs = [torch.empty_like(x) for _ in range(3)]
+    new_mass = torch.empty_like(mass)
+    lib_op = mass_library(sparse, mass, dev, as_csr=False)
+    lib_out = torch.empty((2 * k, n), device=dev)
+    times = in_turns(
+        lambda: ref.dequant_mix_push_sum_stacked_ref(x, est, q, scale, leaves, mass, *one, t),
+        lambda: dequant.launch(x, est, q, scale, one, leaves, t, *outs, mass, new_mass),
+        lambda: torch.matmul(lib_op, adv, out=lib_out))
+    real = int((sparse.nbr_idx[0] != np.arange(k)[:, None]).sum())
+    flops = n * (4 * real + 6 * k) + 2 * (real + k)
+    nbytes = (4 * k * n * 4 + k * n + k * (len(leaves) - 1) * 4 + k * n * 4 + k * 4
+              + 3 * k * d * 4 + 2 * k * 4)
+    return {"case": name, "K": k, "D": d, "N": n, "path": path, "vector_path": True,
+            "max_abs_err": err, **times, **card.bound(nbytes, flops)}
+
+
+def segment_mass_case(card, name, graph, sizes, n, *, size=None, iso=None, seed=0):
+    """``segment_mix``'s mass mode (push-sum on the one-slice segment
+    runtime) against its plain version and the library product of
+    [A diag(y); Beta] (CSR above K = 1000)."""
+    from repro_torch.core import graph as graph_lib
+    from repro_torch.kernels.consensus_mix import ref, segment
+
+    dev = torch.device("cuda")
+    t = 10
+    if iso is not None:
+        graph = isolated(graph, iso)
+    sparse, ops_s = push_sum_operands(graph_lib.static_schedule(graph), sizes, dev)
+    k, d = sparse.num_peers, sparse.degree_bound
+    size = n if size is None else size
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.zeros(k, n, device=dev)
+    x[:, :size] = torch.randn(k, size, generator=gen, device=dev)
+    mass = push_sum_mass(k, seed, dev)
+    got = segment.segment_mix_push_sum_schedule(x, mass, 0, ops_s, t)
+    want = ref.segment_mix_push_sum_stacked_ref(x, mass, *(a[0] for a in ops_s), t)
+    torch.cuda.synchronize()
+    err = check_mass_outputs(name, got, want, x, mass, iso)
+    del got, want
+
+    mixed, d_out, new_mass = torch.empty_like(x), torch.empty_like(x), torch.empty_like(mass)
+    as_csr = k > 1000
+    lib_op = mass_library(sparse, mass, dev, as_csr=as_csr)
+    library = ((lambda: torch.sparse.mm(lib_op, x)) if as_csr  # noqa: E731
+               else (lambda: torch.matmul(lib_op, x)))
+    times = in_turns(
+        lambda: ref.segment_mix_push_sum_stacked_ref(x, mass, *(a[0] for a in ops_s), t),
+        lambda: segment.launch(x, 0, ops_s, t, mixed, d_out, mass, new_mass), library)
+    real = int((sparse.nbr_idx[0] != np.arange(k)[:, None]).sum())
+    flops = n * (4 * real + 4 * k) + 2 * (real + k)
+    nbytes = 3 * k * n * 4 + k * 4 + 3 * k * d * 4 + 2 * k * 4
+    out = {"case": name, "K": k, "D": d, "N": n, "vector_path": n % 4 == 0,
+           "library": "torch.sparse.mm (CSR [A diag(y); Beta])" if as_csr else "torch.matmul",
+           "max_abs_err": err, **times, **card.bound(nbytes, flops)}
+    del x, mixed, d_out, lib_op
+    torch.cuda.empty_cache()
+    return out
+
+
+def mass_cases(card: Card) -> dict[str, list[dict]]:
+    """The mass mode (push-sum) of the three consensus kernels at the
+    push-sum paths' shapes: ``directed_k8`` (K = 8, directed ring, gather /
+    tile for qint8), ``iid_k100 --protocol push_sum`` (K = 100, tile), one
+    K past the tile cap (gather), the K = 4096 directed ring on the segment
+    kernel, and one case each with an isolated peer."""
+    from repro_torch.core import graph as graph_lib
+    from repro_torch.core.p2p import layout_of
+    from repro_torch.kernels.consensus_mix import ops
+
+    layout = layout_of("mnist_mlp")
+    row = layout.row
+    complete = lambda k: graph_lib.build_graph("complete", k)  # noqa: E731
+    ring8 = graph_lib.build_graph("directed_ring", 8)
+    k8_sizes = np.array([150, 150, 150, 150, 100, 100, 100, 100])  # directed_k8's shards
+    cap = ops.TILE_MAX_PEERS
+    large_k_sizes = np.where(np.arange(LARGE_K) < 60000 % LARGE_K, 15, 14)
+    return {
+        "consensus_mix": [
+            consensus_mass_case(card, "directed_k8", ring8, k8_sizes, row, want_path="gather"),
+            consensus_mass_case(card, "iid_k100", complete(100), np.full(100, 600), row, seed=1),
+            consensus_mass_case(card, f"gather_k{cap + 1}", complete(cap + 1),
+                                np.arange(1, cap + 2) * 5, 50000, want_path="gather", seed=2),
+            consensus_mass_case(card, "k16_isolated_peer", complete(16), np.arange(1, 17) * 10,
+                                5003, iso=3, seed=3),
+        ],
+        "dequant_mix": [
+            dequant_mass_case(card, "directed_k8_qint8", ring8, k8_sizes, layout),
+            dequant_mass_case(card, "iid_k100_qint8", complete(100), np.full(100, 600), layout,
+                              seed=1),
+            dequant_mass_case(card, f"gather_k{cap + 1}_qint8", complete(cap + 1),
+                              np.arange(1, cap + 2) * 5, layout, want_path="gather", seed=2),
+            dequant_mass_case(card, "directed_k8_isolated_peer", ring8, k8_sizes, layout,
+                              iso=5, seed=3),
+        ],
+        "segment_mix": [
+            segment_mass_case(card, f"directed_ring_k{LARGE_K}",
+                              graph_lib.build_graph("directed_ring", LARGE_K), large_k_sizes,
+                              row, size=layout.size),
+            segment_mass_case(card, "directed_ring_k64_isolated_peer",
+                              graph_lib.build_graph("directed_ring", 64), np.arange(64) % 5 + 10,
+                              1001, iso=7, seed=1),
+        ],
+    }
 
 
 WKV6_TOL = dict(atol=1e-3, rtol=1e-3)  # float32, the wkv6 tolerance of tests/test_kernels.py
@@ -1038,7 +1286,8 @@ def _print_ssd_case(c: dict) -> None:
 
 
 def check_kernels(card: Card) -> dict[str, list[dict]]:
-    """Build the six kernels and hold each against its plain version at its shapes."""
+    """Build the six kernels and hold each against its plain version at its
+    shapes; the three consensus kernels' mass mode under "<kernel> mass"."""
     from repro_torch.core.p2p import layout_of
 
     build_kernels()
@@ -1048,6 +1297,8 @@ def check_kernels(card: Card) -> dict[str, list[dict]]:
              "dequant_mix": dequant_cases(card, layout), "segment_mix": segment_cases(card),
              "wkv6": wkv6_cases(card), "flash_attention": flash_cases(card),
              "ssd": ssd_cases(card)}
+    for kernel, kcases in mass_cases(card).items():
+        cases[f"{kernel} mass"] = kcases
     for kernel, kcases in cases.items():
         for c in kcases:
             if kernel == "wkv6":
@@ -1064,7 +1315,9 @@ def check_kernels(card: Card) -> dict[str, list[dict]]:
 def recheck_consensus(name: str, exp, state, data, *, mix_mode=None) -> None:
     """One more round's consensus phase through the kernel, held against the
     plain version on the same post-local state (S = 1); ``mix_mode``
-    "segment" rechecks the one-slice hierarchical runtime's phase."""
+    "segment" rechecks the one-slice hierarchical runtime's phase.  A
+    push-sum run is held to the plain versions of the mass mode, its new
+    mass included."""
     from repro_torch import compression
     from repro_torch.core import p2p, task as task_lib
     from repro_torch.kernels.consensus_mix import ops as cm_ops
@@ -1082,22 +1335,30 @@ def recheck_consensus(name: str, exp, state, data, *, mix_mode=None) -> None:
     ops_s = p2p.schedule_operands(cfg, sizes, device="cuda")
     sparse = cm_ops.select_round(ops_s, after_local.round_idx)
     comp = compression.from_config(cfg)
+    push_sum = cfg.protocol == "push_sum"
+    # push-sum: the plain versions of the mass mode take the mass after x
+    mass = (after_local.protocol.mass,) if push_sum else ()
     if mix_mode == "segment":
         after_cons = p2p.consensus_phase_hier(after_local, cfg, ops_s, mix_mode=mix_mode)
-        mixed, d_bias = ref.segment_mix_stacked_ref(after_local.params, *sparse,
-                                                    cfg.local_steps)
+        plain = ref.segment_mix_push_sum_stacked_ref if push_sum else ref.segment_mix_stacked_ref
+        out = plain(after_local.params, *mass, *sparse, cfg.local_steps)
     elif comp.identity:
         after_cons = p2p.consensus_phase(after_local, cfg, sparse)
-        mixed, d_bias = ref.consensus_mix_stacked_ref(after_local.params, *sparse,
-                                                      cfg.local_steps)
+        plain = (ref.consensus_mix_push_sum_stacked_ref if push_sum
+                 else ref.consensus_mix_stacked_ref)
+        out = plain(after_local.params, *mass, *sparse, cfg.local_steps)
     else:
         after_cons = p2p.consensus_phase(after_local, cfg, sparse)
         layout = p2p.layout_of(cfg.model)
         payload = comp.ef_flat(after_local.params, after_local.compression, layout)
-        mixed, d_bias, est = ref.dequant_mix_stacked_ref(
-            after_local.params, payload.est, payload.q, payload.scale, layout.leaf_offsets,
-            *sparse, cfg.local_steps)
-        torch.testing.assert_close(after_cons.compression, est, **TOL)
+        plain = (ref.dequant_mix_push_sum_stacked_ref if push_sum
+                 else ref.dequant_mix_stacked_ref)
+        out = plain(after_local.params, payload.est, payload.q, payload.scale,
+                    layout.leaf_offsets, *mass, *sparse, cfg.local_steps)
+        torch.testing.assert_close(after_cons.compression, out[2], **TOL)
+    mixed, d_bias = out[0], out[1]
+    if push_sum:
+        torch.testing.assert_close(after_cons.protocol.mass, out[-1], **TOL)
     torch.testing.assert_close(after_cons.params, mixed, **TOL)
     if cfg.use_affinity_d:
         torch.testing.assert_close(after_cons.d_bias, d_bias, **TOL)
@@ -1115,14 +1376,53 @@ def launch_counters() -> dict:
             "flash_attention": flash_ops.launches, "ssd": ssd_ops.launches}
 
 
+@contextlib.contextmanager
+def count_plain_calls():
+    """Counts the calls of the consensus kernels' plain versions (every
+    ``*_ref`` function of ``kernels.consensus_mix.ref``) while active:
+    yields a dict name -> calls."""
+    from repro_torch.kernels.consensus_mix import ref
+
+    calls: dict[str, int] = {}
+    names = [n for n in dir(ref) if n.endswith("_ref") and callable(getattr(ref, n))]
+    real = {n: getattr(ref, n) for n in names}
+
+    def counted(n):
+        def call(*args, **kwargs):
+            calls[n] = calls.get(n, 0) + 1
+            return real[n](*args, **kwargs)
+        return call
+
+    for n in names:
+        setattr(ref, n, counted(n))
+    try:
+        yield calls
+    finally:
+        for n in names:
+            setattr(ref, n, real[n])
+
+
 def drive(name: str, exp, rounds: int, data, *, recheck: bool, mix_mode: str | None = None,
           **run_kw) -> dict:
     """Train ``exp`` for ``rounds`` rounds through ``run_paper_experiment`` on
     the card, every launch count set to 0 just before and read just after;
-    checks that the path's kernel launched rounds x S times and the others
-    none, and that the run's numbers are sane.  ``mix_mode`` "segment" with
-    ``peer_axis="pod"`` runs the one-slice hierarchical runtime."""
+    checks that the path's kernel launched rounds x S times, the others and
+    every plain version none, and that the run's numbers are sane.
+    ``mix_mode`` "segment" with ``peer_axis="pod"`` runs the one-slice
+    hierarchical runtime.  A push-sum run also checks after every round that
+    the mass sums to K within 1e-5 K and stays positive."""
     from repro_torch.launch import train
+
+    push_sum = exp.p2p.protocol == "push_sum"
+    sums = []
+
+    def watch_mass(r, state):
+        mass = state.protocol.mass
+        k = mass.shape[0]
+        total = float(mass.double().sum())
+        sums.append(total)
+        check(abs(total - k) <= 1e-5 * k, f"{name} round {r}: sum y = {total}, want {k}")
+        check(bool((mass > 0).all()), f"{name} round {r}: y > 0")
 
     counters = launch_counters()
     if mix_mode == "segment":
@@ -1136,20 +1436,26 @@ def drive(name: str, exp, rounds: int, data, *, recheck: bool, mix_mode: str | N
     torch.cuda.reset_peak_memory_stats()
     for counter in counters.values():
         counter.reset()
-    log, state = train.run_paper_experiment(exp, rounds=rounds, data=data, device="cuda",
-                                            verbose=True, return_state=True, **run_kw)
+    with count_plain_calls() as plain_calls:
+        log, state = train.run_paper_experiment(
+            exp, rounds=rounds, data=data, device="cuda", verbose=True, return_state=True,
+            on_round=watch_mass if push_sum else None, **run_kw)
     launches = {key: counter.count for key, counter in counters.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(launches == want, f"{name} launched {launches}, want {want}")
+    check(not plain_calls, f"{name} called plain versions {plain_calls}")
+    check(len(sums) == (rounds if push_sum else 0), f"{name}: mass watched every round")
     check(all(math.isfinite(v) for v in log.train_loss), f"{name} losses finite")
     acc = log.series("all").mean(axis=1)
     check(bool(np.all((acc >= 0) & (acc <= 1))), f"{name} accuracies in [0, 1]")
     check(bool(torch.isfinite(state.params).all()), f"{name} parameters finite")
     if recheck:
         recheck_consensus(name, exp, state, data, mix_mode=mix_mode)
-    print(f"{name}: launches {launches}, seconds per round {log.seconds}, "
-          f"peak memory {peak_gb:.3f} GB")
-    return {"launches": {kernel: launches[kernel]}, "peak_gb": peak_gb, "seconds": log.seconds}
+    print(f"{name}: launches {launches}, plain-version calls {plain_calls}, seconds per round "
+          f"{log.seconds}, peak memory {peak_gb:.3f} GB"
+          + (f", sum of the mass after each round {sums}" if push_sum else ""))
+    return {"launches": {kernel: launches[kernel]}, "peak_gb": peak_gb, "seconds": log.seconds,
+            "mode": "mass" if push_sum else "gossip", "mass_sums": sums}
 
 
 def phase_breakdown(exp, data, rounds: int = 3) -> dict:
@@ -1617,7 +1923,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this smoke run needs a GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs.p2pl_mnist import iid_k100, noniid_k2, timevarying_k8
+    from repro_torch.configs.p2pl_mnist import directed_k8, iid_k100, noniid_k2, timevarying_k8
     from repro_torch.data import synthetic
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1664,8 +1970,29 @@ def main() -> int:
                                       recheck=True, mix_mode="segment", peer_axis="pod",
                                       peers_per_device=iid.p2p.num_peers),
     }
+    # push-sum: directed_k8 (K = 8, the gather design; qint8 through
+    # dequant_mix) and iid_k100 with --protocol push_sum (the tile design,
+    # then the one-slice segment runtime), each kernel in its mass mode
+    directed = directed_k8()
+    iid_push = dataclasses.replace(iid, p2p=dataclasses.replace(iid.p2p, protocol="push_sum"))
+    paths |= {
+        "directed_k8": drive("directed_k8", directed, DIRECTED_ROUNDS, data, recheck=True),
+        "directed_k8_one_way_matching": drive(
+            "directed_k8_one_way_matching", directed_k8(schedule="one_way_matching"),
+            DIRECTED_ROUNDS, data, recheck=False),
+        "directed_k8_link_dropout_qint8": drive(
+            "directed_k8_link_dropout_qint8",
+            dataclasses.replace(directed_k8(schedule="link_dropout"), p2p=dataclasses.replace(
+                directed_k8(schedule="link_dropout").p2p, compressor="qint8")),
+            DIRECTED_ROUNDS, data, recheck=True),
+        "iid_k100_push_sum": drive("iid_k100_push_sum", iid_push, IID_ROUNDS, data,
+                                   recheck=False),
+        "iid_k100_push_sum_pod_segment": drive(
+            "iid_k100_push_sum_pod_segment", iid_push, IID_POD_ROUNDS, data, recheck=True,
+            mix_mode="segment", peer_axis="pod", peers_per_device=iid.p2p.num_peers),
+    }
     for label, exp in (("noniid_affinity", noniid), ("iid_k100", iid),
-                       ("iid_k100_qint8", iid_qint8)):
+                       ("iid_k100_qint8", iid_qint8), ("directed_k8", directed)):
         print(f"breakdown {label} ({card.line}): {json.dumps(phase_breakdown(exp, data))}",
               flush=True)
     ring = iid_k100(topology="ring")
@@ -1688,6 +2015,19 @@ def main() -> int:
         main = next(c for c in cases[kernel] if c["case"] == main_case)
         by_path = {name: p["launches"][kernel] for name, p in paths.items()
                    if kernel in p["launches"]}
+        mass_entry = {}
+        if f"{kernel} mass" in cases:
+            mass_main = cases[f"{kernel} mass"][0]  # the push-sum main path's shape
+            mass_paths = {name: n for name, n in by_path.items()
+                          if paths[name].get("mode") == "mass"}
+            mass_entry = {"mass_mode": {
+                "launches": sum(mass_paths.values()), "launches_by_path": mass_paths,
+                "max_abs_err": max(c["max_abs_err"] for c in cases[f"{kernel} mass"]),
+                **{key: mass_main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "library_ms", "bound_card")},
+                "shape": f"{mass_main['case']}: K={mass_main['K']} D={mass_main['D']} "
+                         f"N={mass_main['N']}",
+                "shapes": cases[f"{kernel} mass"]}}
         if kernel == "wkv6":
             shape = (f"B={main['B']} T={main['T']} H={main['H']} dk={main['dk']} "
                      f"chunk={main['chunk']} {main['dtype']}")
@@ -1714,6 +2054,7 @@ def main() -> int:
                                           "bound_by_tensor", "route", "split")}
                if kernel == "ssd" else {}),
             "shapes": cases[kernel],
+            **mass_entry,
         })
     for entry in entries:
         kernel = entry["name"]

@@ -1,6 +1,6 @@
 """The paper's own workload: 2NN MLP on (synthetic-)MNIST under P2PL (the
-port's ``repro.configs.p2pl_mnist``: the paper's two experiments and the two
-time-varying ones).
+port's ``repro.configs.p2pl_mnist``: the paper's two experiments, the two
+time-varying ones and the directed push-sum one).
 
 Sec. V hyperparameters: B=10, eta=0.01, mu=0.5 (IID) / 0 (non-IID),
 T=60 gradient steps per round (IID, n_k=600) — one epoch per round,
@@ -157,6 +157,66 @@ def timevarying_k8(
             adaptive_seed=adaptive_seed,
             compressor=compressor,
             topk_frac=topk_frac,
+        ),
+        batch_size=10,
+        samples_per_class=50,
+        rounds=60,
+        peer_classes=peer_classes,
+    )
+
+
+def directed_k8(
+    *,
+    schedule: str = "static",
+    protocol: str = "push_sum",
+    algorithm: str = "p2pl_affinity",
+    local_steps: int = 10,
+    schedule_rounds: int = 16,
+    link_survival_prob: float = 0.7,
+    schedule_seed: int = 0,
+    partner_rule: str = "loss_proximity",
+    adaptive_eps: float = 0.1,
+    adaptive_seed: int = 0,
+) -> PaperExperiment:
+    """Beyond-paper: 8 non-IID peers on a directed ring, each pushing forward
+    only (one-way links).
+
+    Row-stochastic gossip is biased here; the default ``push_sum`` carries a
+    mass per peer whose ratio de-biases the estimates, so consensus lands on
+    the data-weighted average.  Schedules: ``static`` (the directed ring),
+    ``link_dropout`` (each one-way link drops on its own) or
+    ``one_way_matching`` (random sender -> receiver pairs each round).
+
+    The shards are unequal on purpose (peers 0-3 hold a third class, 150
+    samples feeding 100-sample peers): with equal sizes on a degree-regular
+    directed ring the data-weighted row matrix is unbiased and push-sum
+    would give gossip's numbers.
+    """
+    peer_classes = tuple(
+        ((2 * k) % 10, (2 * k + 1) % 10, (2 * k + 2) % 10) if k < 4
+        else ((2 * k) % 10, (2 * k + 1) % 10)
+        for k in range(8)
+    )
+    return PaperExperiment(
+        name=f"directed_k8_{schedule}_{protocol}_{algorithm}_T{local_steps}",
+        p2p=P2PConfig(
+            algorithm=algorithm,
+            num_peers=8,
+            local_steps=local_steps,
+            consensus_steps=1,
+            lr=0.01,
+            momentum=0.0,
+            eta_d=0.5,
+            topology="directed_ring",
+            mixing="data_weighted",
+            schedule=schedule,
+            schedule_rounds=schedule_rounds,
+            link_survival_prob=link_survival_prob,
+            schedule_seed=schedule_seed,
+            protocol=protocol,
+            partner_rule=partner_rule,
+            adaptive_eps=adaptive_eps,
+            adaptive_seed=adaptive_seed,
         ),
         batch_size=10,
         samples_per_class=50,

@@ -7,7 +7,9 @@ reach are ported: compression x staleness, and compression x the
 (one-slice) hierarchical runtime.  The reference's other pairs involve
 features the port does not run yet (adaptive partner selection, async
 rounds, registry models: ROADMAP.md queue 1 items 13, 12 and 14), which
-``P2PConfig`` rejects before this table with ``NotImplementedError``.
+``P2PConfig`` rejects before this table with ``NotImplementedError``.  The
+reference's table has no push-sum row: push-sum composes with a compressed
+wire and with the hierarchical runtime, as in the reference.
 """
 from __future__ import annotations
 

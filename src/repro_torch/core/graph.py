@@ -9,11 +9,13 @@ row-stochastic — the paper's choice is data-size weighted:
     alpha_kk = 1 - sum_j alpha_kj
 
 Everything here is float64 numpy and must equal the reference bit for bit.
-The undirected time-varying schedules (link dropout, random matchings, peer
-churn, round robin) and their sparse degree-bounded form (``SparseSchedule``,
-row-stochastic) are ported; directed schedules and column-stochastic
-(push-sum) matrices are still to be ported (ROADMAP.md queue 1 item 8b), and
-so are the on-device adaptive matchings (item 13).
+Graphs may be directed (``CommGraph(a, directed=True)``): push-sum
+(``core.protocols.PushSumProtocol``) mixes them with the column-stochastic
+weights of ``column_stochastic_matrix``.  The time-varying schedules (link
+dropout, undirected or one-way edge by edge, random and one-way matchings,
+peer churn, round robin) and their sparse degree-bounded form
+(``SparseSchedule``, row- or column-stochastic) are ported; the on-device
+adaptive matchings are still to be ported (ROADMAP.md queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -81,9 +83,18 @@ class CommGraph:
         """(K,) number of peers each peer receives from."""
         return self.adjacency.sum(axis=0)
 
+    def out_degree(self) -> np.ndarray:
+        """(K,) number of peers each peer sends to."""
+        return self.adjacency.sum(axis=1)
+
     def is_connected(self) -> bool:
         """Weak connectivity (edge directions ignored)."""
         return bool(_reachable(self.adjacency | self.adjacency.T).all())
+
+    def is_strongly_connected(self) -> bool:
+        """Every peer reaches every peer along directed edges (push-sum's
+        condition for the de-biased estimates to converge)."""
+        return bool(_reachable(self.adjacency).all() and _reachable(self.adjacency.T).all())
 
     def max_degree(self) -> int:
         """Max *in*-degree — the padded neighbor width of the sparse mixing row."""
@@ -218,6 +229,78 @@ def mixing_matrix(
     return w
 
 
+def column_stochastic_matrix(
+    graph: CommGraph,
+    mixing: str = "data_weighted",
+    *,
+    data_sizes: Sequence[int] | None = None,
+    consensus_step_size: float | np.ndarray = 1.0,
+) -> np.ndarray:
+    """Column-stochastic push weights A with A[k, j] = the share of sender j's
+    mass that j pushes to k.
+
+    Column j splits j's mass over its out-neighbors and itself (sum_k A[k, j]
+    = 1), so the total mass is conserved every round, on any directed, even
+    disconnected, graph:
+
+    data_weighted — A[k, j] = n_k / (n_j + sum_{i in out(j)} n_i), A[j, j] the rest.
+    metropolis — A[k, j] = 1 / (1 + max(outdeg_j, outdeg_k)) per edge j -> k.
+    uniform_neighbor — A[k, j] = 1 / (outdeg_j + 1), the classic push-sum split.
+    identity — no mixing.
+
+    On an undirected graph ``metropolis`` gives a symmetric doubly
+    stochastic A, ``mixing_matrix``'s.  consensus_step_size applies column
+    by column: A_eps = (1 - eps_j) I + eps_j A.
+    """
+    k = graph.num_peers
+    adj = graph.adjacency
+    if mixing == "identity":
+        a = np.eye(k)
+    elif mixing == "data_weighted":
+        if data_sizes is None:
+            data_sizes = np.ones(k)
+        n = np.asarray(data_sizes, dtype=np.float64)
+        if n.shape != (k,) or (n <= 0).any():
+            raise ValueError("data_sizes must be positive, one per peer")
+        a = np.zeros((k, k))
+        for j in range(k):
+            out = np.nonzero(adj[j])[0]
+            denom = n[j] + n[out].sum()
+            a[out, j] = n[out] / denom
+            a[j, j] = 1.0 - a[out, j].sum()
+    elif mixing == "metropolis":
+        deg = graph.out_degree()
+        a = np.zeros((k, k))
+        for j in range(k):
+            for i in np.nonzero(adj[j])[0]:
+                a[i, j] = 1.0 / (1.0 + max(deg[j], deg[i]))
+            a[j, j] = 1.0 - a[:, j].sum()
+    elif mixing == "uniform_neighbor":
+        deg = graph.out_degree()
+        a = np.zeros((k, k))
+        for j in range(k):
+            out = np.nonzero(adj[j])[0]
+            a[out, j] = 1.0 / (deg[j] + 1.0)
+            a[j, j] = 1.0 - a[out, j].sum()
+    else:
+        raise ValueError(f"unknown mixing {mixing!r}; one of {MIXINGS}")
+
+    eps = np.asarray(consensus_step_size, dtype=np.float64)
+    if eps.ndim == 0:
+        eps = np.full(k, float(eps))
+    if eps.shape != (k,):
+        raise ValueError("consensus_step_size must be scalar or (K,)")
+    a = np.eye(k) * (1.0 - eps)[None, :] + eps[None, :] * a
+
+    if not np.all(a >= -1e-12):
+        raise ValueError("push weights must be nonnegative")
+    if not np.allclose(a.sum(axis=0), 1.0):
+        raise ValueError("push matrix must be column stochastic")
+    if not np.all(np.diag(a) > 0):
+        raise ValueError("senders must retain some mass (positive diagonal)")
+    return a
+
+
 def affinity_matrix(graph: CommGraph, *, data_sizes: Sequence[int] | None = None) -> np.ndarray:
     """Beta matrix for the affinity bias d (Sec. V-C):
 
@@ -308,9 +391,10 @@ class GraphSchedule:
         """Weak connectivity of the period union (B-connectivity check)."""
         return self.union_graph().is_connected()
 
-
-def _directed_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP.md queue 1 item 8b")
+    def union_is_strongly_connected(self) -> bool:
+        """Strong connectivity of the period union: push-sum's condition for
+        the de-biased estimates to reach consensus."""
+        return self.union_graph().is_strongly_connected()
 
 
 def static_schedule(graph: CommGraph) -> GraphSchedule:
@@ -321,22 +405,28 @@ def static_schedule(graph: CommGraph) -> GraphSchedule:
 def link_dropout_schedule(
     base: CommGraph, survival_prob: float, rounds: int, *, seed: int = 0
 ) -> GraphSchedule:
-    """Each base link independently survives each round with prob ``survival_prob``.
+    """Each base edge independently survives each round with prob ``survival_prob``.
 
-    Undirected bases only: dropping the directed edges of a directed base one
-    by one is the push-sum half of the schedule (queue 1 item 8b).
+    On a directed base every one-way edge drops on its own: a round may keep
+    i -> j and lose j -> i.  Undirected bases drop whole links.
     """
     if not 0.0 < survival_prob <= 1.0:
         raise ValueError("survival_prob must be in (0, 1]")
     if rounds < 1:
         raise ValueError("need at least one round")
-    if base.directed:
-        raise _directed_not_ported("link_dropout on a directed base graph")
     rng = np.random.default_rng(seed)
     k = base.num_peers
+    graphs = []
+    if base.directed:
+        ei, ej = np.nonzero(base.adjacency)
+        for _ in range(rounds):
+            keep = rng.random(len(ei)) < survival_prob
+            a = np.zeros((k, k), dtype=bool)
+            a[ei[keep], ej[keep]] = True
+            graphs.append(CommGraph(a, directed=True))
+        return GraphSchedule(tuple(graphs), name="link_dropout")
     iu, ju = np.triu_indices(k, 1)
     edge_mask = base.adjacency[iu, ju]
-    graphs = []
     for _ in range(rounds):
         keep = edge_mask & (rng.random(len(iu)) < survival_prob)
         a = np.zeros((k, k), dtype=bool)
@@ -391,8 +481,25 @@ def peer_churn_schedule(
 
 
 def one_way_matching_schedule(num_peers: int, rounds: int, *, seed: int = 0) -> GraphSchedule:
-    """Directed pairwise gossip: raises, push-sum and directed graphs are item 8b."""
-    raise _directed_not_ported("the one_way_matching schedule")
+    """Directed pairwise gossip: a random one-way matching per round.
+
+    Each round pairs peers at random and each pair transmits in one
+    direction, sender to receiver.  Row-stochastic gossip cannot average
+    under this schedule; push-sum's mass correction makes it exact.
+    """
+    if num_peers < 2:
+        raise ValueError("matching needs at least two peers")
+    if rounds < 1:
+        raise ValueError("need at least one round")
+    rng = np.random.default_rng(seed)
+    graphs = []
+    for _ in range(rounds):
+        perm = rng.permutation(num_peers)
+        a = np.zeros((num_peers, num_peers), dtype=bool)
+        for p in range(0, num_peers - 1, 2):
+            a[perm[p], perm[p + 1]] = True  # perm[p] sends, perm[p + 1] receives
+        graphs.append(CommGraph(a, directed=True))
+    return GraphSchedule(tuple(graphs), name="one_way_matching")
 
 
 def round_robin_schedule(graphs: Sequence[CommGraph]) -> GraphSchedule:
@@ -408,14 +515,20 @@ def schedule_matrices(
     consensus_step_size: float | np.ndarray = 1.0,
     stochasticity: str = "row",
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Stacked per-round mixing/affinity matrices: (R, K, K) W and Beta."""
-    if stochasticity == "column":
-        raise _directed_not_ported("column-stochastic (push-sum) matrices")
-    if stochasticity != "row":
+    """Stacked per-round mixing/affinity matrices: (R, K, K) W and Beta.
+
+    stochasticity: "row" (gossip, ``mixing_matrix``) or "column" (push-sum,
+    ``column_stochastic_matrix``).
+    """
+    if stochasticity == "row":
+        build = mixing_matrix
+    elif stochasticity == "column":
+        build = column_stochastic_matrix
+    else:
         raise ValueError(f"unknown stochasticity {stochasticity!r}; 'row' or 'column'")
     w = np.stack(
         [
-            mixing_matrix(
+            build(
                 g, mixing, data_sizes=data_sizes, consensus_step_size=consensus_step_size
             )
             for g in schedule.graphs
@@ -516,6 +629,54 @@ def _sparse_row_weights(
         raise ValueError(f"unknown mixing {mixing!r}; one of {MIXINGS}")
     # consensus step size, row-wise: W_eps = (1 - eps) I + eps W
     nbr_w = eps[:, None] * nbr_w
+    self_w = (1.0 - eps) + eps * self_w
+    return self_w, nbr_w
+
+
+def _sparse_col_weights(
+    graph: CommGraph,
+    mixing: str,
+    n: np.ndarray,
+    eps: np.ndarray,
+    nbr_idx: np.ndarray,
+    valid: np.ndarray,
+) -> tuple[np.ndarray, np.ndarray]:
+    """(self_w (K,), nbr_w (K, D)): the rows of ``column_stochastic_matrix``.
+
+    ``nbr_w[i, s]`` is A[i, j] for the in-neighbor j = nbr_idx[i, s] (the
+    mass j pushes to i); the diagonal is a column property (the mass sender
+    j keeps), so it sums over each sender's padded out-neighbor slots.
+    """
+    k = graph.num_peers
+    adj = graph.adjacency
+    if mixing == "identity":
+        return np.ones(k), np.zeros(nbr_idx.shape)
+    # out_idx[j]: the receivers of sender j's mass
+    out_deg = graph.out_degree()
+    out_idx, out_valid = _padded_in_neighbors(adj, max(int(out_deg.max()), 1))
+    if mixing == "data_weighted":
+        denom = n + _slot_sum(n[out_idx], out_valid)  # per sender j
+        nbr_w = np.where(valid, n[:, None] / denom[nbr_idx], 0.0)
+        col_vals = np.where(out_valid, n[out_idx] / denom[:, None], 0.0)
+        self_w = 1.0 - _slot_sum(col_vals, out_valid)
+    elif mixing == "metropolis":
+        deg = out_deg.astype(np.float64)
+        nbr_w = np.where(
+            valid, 1.0 / (1.0 + np.maximum(deg[nbr_idx], deg[:, None])), 0.0
+        )
+        col_vals = np.where(
+            out_valid, 1.0 / (1.0 + np.maximum(deg[:, None], deg[out_idx])), 0.0
+        )
+        self_w = 1.0 - _slot_sum(col_vals, out_valid)
+    elif mixing == "uniform_neighbor":
+        deg = out_deg.astype(np.float64)
+        nbr_w = np.where(valid, 1.0 / (deg[nbr_idx] + 1.0), 0.0)
+        col_vals = np.where(out_valid, 1.0 / (deg[:, None] + 1.0), 0.0)
+        self_w = 1.0 - _slot_sum(col_vals, out_valid)
+    else:
+        raise ValueError(f"unknown mixing {mixing!r}; one of {MIXINGS}")
+    # consensus step size, column-wise: A_eps = I (1 - eps) + eps A
+    nbr_w = eps[nbr_idx] * nbr_w
     self_w = (1.0 - eps) + eps * self_w
     return self_w, nbr_w
 
@@ -686,12 +847,14 @@ class SparseSchedule:
 
         The exact values of ``schedule_matrices`` + ``from_dense`` (the same
         float64 expressions, the same summation order) at any K; the neighbor
-        pattern is the adjacency itself.  Row-stochastic (gossip) weights
-        only: the column-stochastic push-sum weights are queue 1 item 8b.
+        pattern is the adjacency itself.  ``stochasticity`` "row" builds
+        gossip's weights, "column" push-sum's.
         """
-        if stochasticity == "column":
-            raise _directed_not_ported("column-stochastic (push-sum) sparse weights")
-        if stochasticity != "row":
+        if stochasticity == "row":
+            weights = _sparse_row_weights
+        elif stochasticity == "column":
+            weights = _sparse_col_weights
+        else:
             raise ValueError(f"unknown stochasticity {stochasticity!r}; 'row' or 'column'")
         k = schedule.num_peers
         n = _check_data_sizes(data_sizes, k)
@@ -701,7 +864,7 @@ class SparseSchedule:
         self_w, idx, nbr_w, beta = [], [], [], []
         for g in schedule.graphs:
             ix, valid = _padded_in_neighbors(g.adjacency.T, degree_bound)
-            sw, nw = _sparse_row_weights(g, mixing, n, eps, ix, valid)
+            sw, nw = weights(g, mixing, n, eps, ix, valid)
             self_w.append(sw)
             idx.append(ix)
             nbr_w.append(nw)

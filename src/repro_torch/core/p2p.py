@@ -38,15 +38,22 @@ bit; "segment" (larger K) is the ``segment_mix`` kernel over the round's
 slots of the degree-bounded schedule, which takes any degree bound and never
 builds a (K, K) array.  This is how one GPU trains K = 4096 peers of the 2NN.
 
-Ported: gossip over the static and the undirected time-varying schedules,
-uncompressed or compressed, synchronous rounds, the 2NN task, the vmap and
-one-slice hierarchical runtimes.  Any other configuration raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it.
+Push-sum (``protocol="push_sum"``) carries a (K,) mass in
+``P2PState.protocol`` and mixes directed and churning schedules with
+column-stochastic weights; each of its consensus steps goes through the same
+kernels in their mass mode (``core.protocols.PushSumProtocol``).
+
+Ported: gossip and push-sum over the static, the undirected and the directed
+time-varying schedules, uncompressed or compressed, synchronous rounds, the
+2NN task, the vmap and one-slice hierarchical runtimes.  Any other
+configuration raises ``NotImplementedError`` naming the ROADMAP.md item that
+ports it.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import warnings
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -95,7 +102,7 @@ class P2PConfig:
     erdos_renyi_p: float = 0.3
     graph_seed: int = 0
     protocol: str = "gossip"
-    # -- time-varying communication (item 8; directed: item 8b) --------------
+    # -- time-varying communication (item 8 and 8b) ---------------------------
     schedule: str = "static"
     schedule_rounds: int = 16
     link_survival_prob: float = 0.8
@@ -133,14 +140,10 @@ class P2PConfig:
             raise _not_ported("schedule='adaptive'", 13)
         if self.schedule not in graph_lib.SCHEDULES:
             raise ValueError(f"unknown schedule {self.schedule!r}")
-        if self.schedule == "one_way_matching":
-            raise _not_ported("the directed schedule 'one_way_matching'", "8b")
         if self.schedule_rounds < 1:
             raise ValueError("schedule_rounds must be >= 1")
         if self.topology not in graph_lib.TOPOLOGIES:
             raise ValueError(f"unknown topology {self.topology!r}")
-        if self.topology == "directed_ring":
-            raise _not_ported("a directed topology", "8b")
         if self.compressor not in compression_lib.compressor_names():
             raise ValueError(
                 f"unknown compressor {self.compressor!r}; one of "
@@ -166,8 +169,6 @@ class P2PConfig:
                 raise ValueError(
                     f"unknown round_robin topology {topo!r}; one of {graph_lib.TOPOLOGIES}"
                 )
-            if topo == "directed_ring":
-                raise _not_ported("a directed topology", "8b")
 
     @property
     def use_affinity_d(self) -> bool:
@@ -230,7 +231,8 @@ class ParamLayout:
 class P2PState(NamedTuple):
     """Stacked peer state: every tensor is (K, row) float32 (see ``ParamLayout``).
 
-    ``protocol`` holds the consensus protocol's own state (``()`` for gossip).
+    ``protocol`` holds the consensus protocol's own state: ``()`` for gossip,
+    ``protocols.PushSumState`` ((K,) mass) for push-sum.
     ``compression`` is the public-estimate stack of a compressed wire, (K, row)
     like the parameters, or ``()`` for ``compressor="none"``.
     ``round_idx`` counts completed consensus phases.
@@ -267,6 +269,10 @@ def build_schedule(cfg: P2PConfig) -> graph_lib.GraphSchedule:
         return graph_lib.random_matching_schedule(
             cfg.num_peers, cfg.schedule_rounds, seed=cfg.schedule_seed
         )
+    if cfg.schedule == "one_way_matching":
+        return graph_lib.one_way_matching_schedule(
+            cfg.num_peers, cfg.schedule_rounds, seed=cfg.schedule_seed
+        )
     if cfg.schedule == "peer_churn":
         return graph_lib.peer_churn_schedule(
             build(cfg.topology), cfg.peer_online_prob, cfg.schedule_rounds,
@@ -276,12 +282,28 @@ def build_schedule(cfg: P2PConfig) -> graph_lib.GraphSchedule:
     return graph_lib.round_robin_schedule([build(t) for t in cfg.round_robin_topologies])
 
 
+def _protocol_schedule(cfg: P2PConfig):
+    """The config's schedule and protocol, warning (as the reference does)
+    when a protocol that is not directed-capable meets a directed schedule."""
+    sched = build_schedule(cfg)
+    proto = protocols_lib.get_protocol(cfg.protocol)
+    if sched.directed and not proto.directed_capable:
+        warnings.warn(
+            f"protocol {cfg.protocol!r} on a directed schedule "
+            f"({sched.name!r}): a row-stochastic consensus point is biased on "
+            "asymmetric graphs — use protocol='push_sum' unless the bias is "
+            "deliberate",
+            stacklevel=3,
+        )
+    return sched, proto
+
+
 def protocol_constants(
     cfg: P2PConfig, data_sizes: np.ndarray | None = None
 ) -> tuple[protocols_lib.ProtocolConstants, graph_lib.GraphSchedule]:
     """Stacked (R, K, K) float64 round constants of the config's protocol."""
-    sched = build_schedule(cfg)
-    consts = protocols_lib.get_protocol(cfg.protocol).constants(
+    sched, proto = _protocol_schedule(cfg)
+    consts = proto.constants(
         sched, cfg.mixing, data_sizes=data_sizes,
         consensus_step_size=cfg.consensus_step_size,
     )
@@ -303,6 +325,8 @@ def init_state(
     through ``repro_torch.interop``) replaces the draw from ``seed``; max-norm
     sync still applies to it, as in the reference.  A compressed wire's
     estimate stack starts as a copy of the parameters after the sync.
+    ``data_sizes`` seeds the protocol state: push-sum's mass is proportional
+    to them (uniform without them).
     """
     device = resolve_device(device)
     if init_params is None:
@@ -462,11 +486,13 @@ def schedule_operands(
     device: torch.device | str | None = None,
 ) -> SparseRoundOps:
     """The sparse operands of the schedule's whole period, stacked (R, K) /
-    (R, K, D), built from its graphs (``GossipProtocol.operands``) and
-    uploaded to ``device`` once; round ``r`` of a run uses ``r % R``."""
+    (R, K, D), built from its graphs (the protocol's ``operands``: row- or
+    column-stochastic) and uploaded to ``device`` once; round ``r`` of a run
+    uses ``r % R``."""
     device = resolve_device(device)
-    return protocols_lib.get_protocol(cfg.protocol).operands(
-        build_schedule(cfg), cfg.mixing, data_sizes=data_sizes,
+    sched, proto = _protocol_schedule(cfg)
+    return proto.operands(
+        sched, cfg.mixing, data_sizes=data_sizes,
         consensus_step_size=cfg.consensus_step_size, device=device,
     )
 

@@ -1,9 +1,15 @@
 """Consensus protocols: how one gossip step moves parameters (the port's
-``repro.core.protocols``, gossip only).
+``repro.core.protocols``).
 
 A protocol owns its per-run state, its stacked (R, K, K) round constants, and
 one consensus step.  ``gossip`` is the paper's row-stochastic Eq. 4 mix and is
-stateless.  Push-sum is still to be ported (ROADMAP.md queue 1 item 8b).
+stateless.  ``push_sum`` runs directed and churning schedules: every peer
+carries a scalar mass y (``PushSumState``), the weights A are
+column-stochastic, and one step is
+
+    y'_k = sum_j A[k, j] y_j,    x'_k = sum_j A[k, j] y_j x_j / y'_k
+
+so the parameters stay de-biased and sum_k y_k = K holds on any round.
 
 The port's round does not mix with the dense constants: ``operands`` builds
 the schedule's padded sparse operands straight from its graphs
@@ -15,6 +21,7 @@ step, ``core.consensus.mix_stacked``, is the tests' reference.
 ``mix_compressed`` is the step of a compressed wire, through
 ``kernels.consensus_mix.dequant.dequant_mix_stacked``, and ``mix_hier`` the
 step of the one-slice hierarchical runtime ("bridge" or "segment").
+Push-sum's three steps go through the same three kernels in their mass mode.
 """
 from __future__ import annotations
 
@@ -48,11 +55,18 @@ def round_constants(consts: ProtocolConstants, idx) -> ProtocolConstants:
     return ProtocolConstants(w=consts.w[idx], beta=consts.beta[idx])
 
 
+class PushSumState(NamedTuple):
+    """Push-sum's protocol state: the (K,) float32 mass y on the device."""
+
+    mass: torch.Tensor
+
+
 class GossipProtocol:
     """The paper's protocol: row-stochastic averaging (Eq. 4), stateless."""
 
     name = "gossip"
     stochasticity = "row"
+    directed_capable = False
 
     def init_state(self, params, data_sizes: Sequence[int] | None = None):
         """Gossip carries no protocol state: always ``()``."""
@@ -66,10 +80,11 @@ class GossipProtocol:
         data_sizes: Sequence[int] | None = None,
         consensus_step_size: float | np.ndarray = 1.0,
     ) -> ProtocolConstants:
-        """Row-stochastic (R, K, K) float64 W/Beta stacks for the schedule."""
+        """(R, K, K) float64 W/Beta stacks for the schedule, W row- or
+        column-stochastic as the protocol's ``stochasticity`` says."""
         w, beta = graph_lib.schedule_matrices(
             schedule, mixing, data_sizes=data_sizes,
-            consensus_step_size=consensus_step_size,
+            consensus_step_size=consensus_step_size, stochasticity=self.stochasticity,
         )
         return ProtocolConstants(w=w, beta=beta)
 
@@ -147,9 +162,80 @@ class GossipProtocol:
         raise ValueError(f"unknown mix_mode {mode!r}; 'bridge' or 'segment'")
 
 
-_PROTOCOLS = {"gossip": GossipProtocol()}
-# names the reference registers that this port does not run yet
-UNPORTED_PROTOCOLS = ("push_sum",)
+class PushSumProtocol(GossipProtocol):
+    """Directed push-sum: column-stochastic weights and a mass correction.
+
+    The parameters a step takes and returns are de-biased; the affinity d of
+    every step comes from them, with Beta not scaled by mass (as in gossip).
+    """
+
+    name = "push_sum"
+    stochasticity = "column"
+    directed_capable = True
+
+    def init_state(self, params, data_sizes: Sequence[int] | None = None) -> PushSumState:
+        """The (K,) mass: proportional to ``data_sizes`` and normalised to sum
+        K (the de-biased estimates then approach the data-weighted average),
+        uniform without them."""
+        k = params.shape[0]
+        if data_sizes is None:
+            mass = np.ones(k)
+        else:
+            n = np.asarray(data_sizes, dtype=np.float64)
+            if n.shape != (k,) or (n <= 0).any():
+                raise ValueError("data_sizes must be positive, one per peer")
+            mass = k * n / n.sum()
+        return PushSumState(mass=torch.as_tensor(mass.astype(np.float32), device=params.device))
+
+    def mix(
+        self, proto_state: PushSumState, flat: torch.Tensor, ops: SparseRoundOps,
+        local_steps: int,
+    ) -> tuple[PushSumState, torch.Tensor, torch.Tensor]:
+        """One step through the ``consensus_mix`` kernel's mass mode:
+        (state with y', de-biased mixed, d_bias)."""
+        mixed, d_bias, mass = cm_ops.consensus_mix_push_sum_stacked(
+            flat, proto_state.mass, ops, local_steps)
+        return PushSumState(mass=mass), mixed, d_bias
+
+    def mix_compressed(
+        self,
+        proto_state: PushSumState,
+        flat: torch.Tensor,
+        payload: FlatPayload,
+        ops: SparseRoundOps,
+        leaf_offsets: tuple[int, ...],
+        local_steps: int,
+    ) -> tuple[PushSumState, torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Convex estimate-push-sum, ``(diag(A) y x + A_off y x̂) / y'``, with
+        x̂ the advanced estimates and the mass uncompressed, and d from
+        estimate differences; one step through the ``dequant_mix`` kernel's
+        mass mode.  Returns (state, mixed, d_bias, advanced estimates)."""
+        mixed, d_bias, est, mass = cm_dequant.dequant_mix_push_sum_stacked(
+            flat, payload.est, payload.q, payload.scale, proto_state.mass, ops, leaf_offsets,
+            local_steps)
+        return PushSumState(mass=mass), mixed, d_bias, est
+
+    def mix_hier(
+        self,
+        proto_state: PushSumState,
+        flat: torch.Tensor,
+        ops_s: SparseRoundOps,
+        round_idx: int,
+        local_steps: int,
+        *,
+        mode: str,
+    ) -> tuple[PushSumState, torch.Tensor, torch.Tensor]:
+        """The one-slice hierarchical step: "bridge" is ``mix`` on the round's
+        operands (as in gossip), "segment" the ``segment_mix`` kernel's mass
+        mode."""
+        if mode == "segment":
+            mixed, d_bias, mass = cm_segment.segment_mix_push_sum_schedule(
+                flat, proto_state.mass, round_idx, ops_s, local_steps)
+            return PushSumState(mass=mass), mixed, d_bias
+        return super().mix_hier(proto_state, flat, ops_s, round_idx, local_steps, mode=mode)
+
+
+_PROTOCOLS = {"gossip": GossipProtocol(), "push_sum": PushSumProtocol()}
 
 
 def protocol_names() -> tuple[str, ...]:
@@ -159,10 +245,6 @@ def protocol_names() -> tuple[str, ...]:
 
 def get_protocol(name: str) -> GossipProtocol:
     """The named protocol instance."""
-    if name in UNPORTED_PROTOCOLS:
-        raise NotImplementedError(
-            f"protocol {name!r} is not ported yet: ROADMAP.md queue 1 item 8b"
-        )
     if name not in _PROTOCOLS:
         raise ValueError(f"unknown protocol {name!r}; one of {protocol_names()}")
     return _PROTOCOLS[name]

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core import p2p
+from repro_torch.core import p2p, protocols
 from repro_torch.core import task as task_lib
 
 
@@ -73,24 +73,26 @@ def state_from_jax(
 
     Every state tree becomes one (K, row) buffer in ``ParamLayout`` order,
     the public-estimate tree of a compressed wire (``compression``) included,
-    so both packages can run a phase from one state.  Gossip only: a
-    protocol state (push-sum's mass) is queue 1 item 8b.
+    so both packages can run a phase from one state.  Push-sum's state, a
+    ``PushSumState`` whose ``mass`` is a (K,) array, becomes the port's
+    ``protocols.PushSumState`` with the same float32 values.
     """
-    if jstate.protocol != ():
-        raise NotImplementedError(
-            "protocol state (push-sum) is not ported yet: ROADMAP.md queue 1 item 8b"
-        )
     layout = p2p.ParamLayout.of(task)
 
     def flat(tree):
         return layout.flatten(params_from_jax(tree)).to(device)
 
     comp = jstate.compression
+    proto = jstate.protocol
+    if proto != ():
+        proto = protocols.PushSumState(
+            mass=torch.as_tensor(np.asarray(proto.mass, dtype=np.float32)).to(device))
     return p2p.P2PState(
         params=flat(jstate.params),
         momentum=flat(jstate.momentum),
         d_bias=flat(jstate.d_bias),
         b_bias=flat(jstate.b_bias),
         round_idx=int(jstate.round_idx),
+        protocol=proto,
         compression=flat(comp) if isinstance(comp, dict) else (),
     )

@@ -36,6 +36,27 @@
 // Padding slots carry the peer's own index with weight 0 and add exactly
 // +-0.0 to both sums.
 //
+// Mass mode (push-sum, `consensus_mix_push_sum_f32` and
+// `consensus_mix_push_sum_tile_f32`; the template switch kMass): the weights
+// are the column-stochastic push weights A and every peer carries a scalar
+// mass y.  Each weight is scaled by its sender's mass where the kernel
+// already reads it (the gather design when it stages its slot row, the tile
+// design when it scatters its [W_off; Beta] table and loads self_w), and
+//
+//   y'[k]    = self_w[k] y[k] + sum_s nbr_w[k, s] y[nbr_idx[k, s]]
+//   mixed[k] = (self_w[k] y[k] x[k] + sum_s nbr_w[k, s] y[j] x[j]) / y'[k]
+//   d[k]     = as in gossip: raw x, beta not scaled by mass
+//
+// Every block computes the y' of its rows from the same slots and takes the
+// correctly rounded 1 / y': the gather design multiplies by it at the
+// store, the tile design folds it into the row's weights as it builds its
+// table, so its loop and stores are gossip's (an IEEE divide per element
+// cost the FMA-bound tile 7% on an H100, and pushed dequant_mix's tile into
+// register spills).  The result is within a few ulp of A (y x) / y'.  y' is
+// written once to new_mass (by the blocks of the first column tile).  The mass is read from device memory: nothing is appended
+// to x and nothing goes back to the host.  The gossip instantiations
+// (kMass false) are the code they were.
+//
 // Bound on an H100: at the iid_k100 shape (K = 100, D = 99, N = 199,212) one
 // call must read 80 MB and write 160 MB (72 us at 3.35 TB/s) but does
 // 4 D + 3 = 399 float32 operations per output element, 7.9 GFLOP (119 us at
@@ -57,36 +78,55 @@ constexpr int kTileMaxPeers = 128;
 namespace {
 
 // T is float (scalar path) or float4 (vector path); n_vec counts T elements
-// per row, and rows are n_vec T elements apart.
-template <typename T>
+// per row, and rows are n_vec T elements apart.  kMass: push-sum (mass,
+// new_mass used), else gossip (both unused).
+template <typename T, bool kMass>
 __global__ void __launch_bounds__(kThreads)
 consensus_mix_kernel(const float* __restrict__ x, int64_t n_vec,
                      const float* __restrict__ self_w, const int32_t* __restrict__ nbr_idx,
                      const float* __restrict__ nbr_w, const float* __restrict__ beta,
-                     int d_slots, float local_steps, float* __restrict__ mixed,
-                     float* __restrict__ d_out) {
-  extern __shared__ float smem[];  // [D] nbr_w | [D] beta | [D] nbr_idx
+                     int d_slots, float local_steps, const float* __restrict__ mass,
+                     float* __restrict__ mixed, float* __restrict__ d_out,
+                     float* __restrict__ new_mass) {
+  extern __shared__ float smem[];  // [D] nbr_w (x sender mass) | [D] beta | [D] nbr_idx
   float* s_w = smem;
   float* s_b = smem + d_slots;
   int32_t* s_idx = reinterpret_cast<int32_t*>(smem + 2 * d_slots);
   __shared__ int s_has_nbrs;
+  __shared__ float s_mass[2];  // kMass: self_w[k] y[k] and 1 / y'[k]
 
   const int k = blockIdx.x;
   const int64_t slot_row = static_cast<int64_t>(k) * d_slots;
   for (int s = threadIdx.x; s < d_slots; s += blockDim.x) {
-    s_w[s] = nbr_w[slot_row + s];
-    s_b[s] = beta[slot_row + s];
-    s_idx[s] = nbr_idx[slot_row + s];
+    if (kMass) {
+      const int32_t j = nbr_idx[slot_row + s];
+      s_w[s] = nbr_w[slot_row + s] * mass[j];
+      s_b[s] = beta[slot_row + s];
+      s_idx[s] = j;
+    } else {
+      s_w[s] = nbr_w[slot_row + s];
+      s_b[s] = beta[slot_row + s];
+      s_idx[s] = nbr_idx[slot_row + s];
+    }
   }
   __syncthreads();
   if (threadIdx.x == 0) {
     float sum = 0.0f;
     for (int s = 0; s < d_slots; ++s) sum += s_b[s];
     s_has_nbrs = sum > 0.0f;
+    if (kMass) {  // y' in slot order, from the scaled slot weights
+      const float sw_y = self_w[k] * mass[k];
+      float y = sw_y;
+      for (int s = 0; s < d_slots; ++s) y += s_w[s];
+      s_mass[0] = sw_y;
+      s_mass[1] = 1.0f / y;
+      if (blockIdx.y == 0) new_mass[k] = y;
+    }
   }
   __syncthreads();
   const bool has_nbrs = s_has_nbrs != 0;
-  const float sw = self_w[k];
+  const float sw = kMass ? s_mass[0] : self_w[k];
+  const float inv_y = kMass ? s_mass[1] : 1.0f;
 
   const T* xv = reinterpret_cast<const T*>(x);
   T* mv = reinterpret_cast<T*>(mixed);
@@ -105,9 +145,58 @@ consensus_mix_kernel(const float* __restrict__ x, int64_t n_vec,
       acc_mix = vfma(s_w[s], v, acc_mix);
       acc_beta = vfma(s_b[s], v, acc_beta);
     }
-    mv[own + e] = acc_mix;
+    mv[own + e] = kMass ? vscale(inv_y, acc_mix) : acc_mix;
     dv[own + e] = vbias(acc_beta, self, local_steps, has_nbrs);
   }
+}
+
+template <bool kMass>
+int launch_gather(const float* x, int64_t num_peers, int64_t n, const float* self_w,
+                  const int32_t* nbr_idx, const float* nbr_w, const float* beta,
+                  int64_t d_slots, float local_steps, const float* mass, float* mixed,
+                  float* d_out, float* new_mass, void* stream) {
+  if (num_peers <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = static_cast<size_t>(d_slots) * 3 * sizeof(float);
+  const bool vec4 = n % 4 == 0 && aligned16(x) && aligned16(mixed) && aligned16(d_out);
+  const int64_t n_vec = vec4 ? n / 4 : n;
+  int64_t tiles = (n_vec + kThreads - 1) / kThreads;
+  if (kMass) tiles = mass_mode_tiles(tiles, d_slots);
+  if (tiles > kMaxGridY) tiles = kMaxGridY;
+  const dim3 grid(static_cast<unsigned>(num_peers), static_cast<unsigned>(tiles));
+  if (vec4) {
+    consensus_mix_kernel<float4, kMass><<<grid, kThreads, smem, s>>>(
+        x, n_vec, self_w, nbr_idx, nbr_w, beta, static_cast<int>(d_slots), local_steps, mass,
+        mixed, d_out, new_mass);
+  } else {
+    consensus_mix_kernel<float, kMass><<<grid, kThreads, smem, s>>>(
+        x, n_vec, self_w, nbr_idx, nbr_w, beta, static_cast<int>(d_slots), local_steps, mass,
+        mixed, d_out, new_mass);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kMass>
+int launch_column_tile(const float* x, int64_t num_peers, int64_t n, const float* self_w,
+                       const int32_t* nbr_idx, const float* nbr_w, const float* beta,
+                       int64_t d_slots, float local_steps, const float* mass, float* mixed,
+                       float* d_out, float* new_mass, void* stream) {
+  if (num_peers <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
+  if (num_peers > kTileMaxPeers || d_slots < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int k = static_cast<int>(num_peers), ds = static_cast<int>(d_slots);
+  const LeafStarts leaves = {};  // no payload: one leaf, unused
+  const size_t smem = tile_smem_bytes(k, false, kMass);
+  const bool vec4 = n % 4 == 0 && aligned16(x) && aligned16(mixed) && aligned16(d_out);
+  const cudaError_t err =
+      vec4 ? launch_tile<true, true, kMass>(false, smem, s, x, x, nullptr, nullptr, leaves, 1,
+                                            n, k, self_w, nbr_idx, nbr_w, beta, ds,
+                                            local_steps, mass, mixed, d_out, nullptr, new_mass)
+           : launch_tile<false, true, kMass>(false, smem, s, x, x, nullptr, nullptr, leaves, 1,
+                                             n, k, self_w, nbr_idx, nbr_w, beta, ds,
+                                             local_steps, mass, mixed, d_out, nullptr,
+                                             new_mass);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -122,24 +211,8 @@ extern "C" int consensus_mix_f32(const float* x, int64_t num_peers, int64_t n,
                                  const float* nbr_w, const float* beta, int64_t d_slots,
                                  float local_steps, float* mixed, float* d_out,
                                  void* stream) {
-  if (num_peers <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = static_cast<size_t>(d_slots) * 3 * sizeof(float);
-  const bool vec4 = n % 4 == 0 && aligned16(x) && aligned16(mixed) && aligned16(d_out);
-  const int64_t n_vec = vec4 ? n / 4 : n;
-  int64_t tiles = (n_vec + kThreads - 1) / kThreads;
-  if (tiles > kMaxGridY) tiles = kMaxGridY;
-  const dim3 grid(static_cast<unsigned>(num_peers), static_cast<unsigned>(tiles));
-  if (vec4) {
-    consensus_mix_kernel<float4><<<grid, kThreads, smem, s>>>(
-        x, n_vec, self_w, nbr_idx, nbr_w, beta, static_cast<int>(d_slots), local_steps, mixed,
-        d_out);
-  } else {
-    consensus_mix_kernel<float><<<grid, kThreads, smem, s>>>(
-        x, n_vec, self_w, nbr_idx, nbr_w, beta, static_cast<int>(d_slots), local_steps, mixed,
-        d_out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_gather<false>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, d_slots,
+                              local_steps, nullptr, mixed, d_out, nullptr, stream);
 }
 
 // The column-tile design's entry point: the arguments and their contract are
@@ -151,19 +224,31 @@ extern "C" int consensus_mix_tile_f32(const float* x, int64_t num_peers, int64_t
                                       const float* nbr_w, const float* beta, int64_t d_slots,
                                       float local_steps, float* mixed, float* d_out,
                                       void* stream) {
-  if (num_peers <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
-  if (num_peers > kTileMaxPeers || d_slots < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int k = static_cast<int>(num_peers), ds = static_cast<int>(d_slots);
-  const LeafStarts leaves = {};  // no payload: one leaf, unused
-  const size_t smem = tile_smem_bytes(k, false);
-  const bool vec4 = n % 4 == 0 && aligned16(x) && aligned16(mixed) && aligned16(d_out);
-  const cudaError_t err =
-      vec4 ? launch_tile<true, true>(false, smem, s, x, x, nullptr, nullptr, leaves, 1, n, k,
-                                     self_w, nbr_idx, nbr_w, beta, ds, local_steps, mixed,
-                                     d_out, nullptr)
-           : launch_tile<false, true>(false, smem, s, x, x, nullptr, nullptr, leaves, 1, n, k,
-                                      self_w, nbr_idx, nbr_w, beta, ds, local_steps, mixed,
-                                      d_out, nullptr);
-  return static_cast<int>(err);
+  return launch_column_tile<false>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, d_slots,
+                                   local_steps, nullptr, mixed, d_out, nullptr, stream);
+}
+
+// The mass mode (push-sum) of the two designs: consensus_mix_f32's and
+// consensus_mix_tile_f32's arguments and contracts, with mass (num_peers,)
+// float32 on the device, every entry positive, and new_mass (num_peers,),
+// a buffer other than mass, which receives y'.  x holds the de-biased
+// parameters and mixed receives them de-biased again.
+extern "C" int consensus_mix_push_sum_f32(const float* x, int64_t num_peers, int64_t n,
+                                          const float* self_w, const int32_t* nbr_idx,
+                                          const float* nbr_w, const float* beta,
+                                          int64_t d_slots, float local_steps, const float* mass,
+                                          float* mixed, float* d_out, float* new_mass,
+                                          void* stream) {
+  return launch_gather<true>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, d_slots,
+                             local_steps, mass, mixed, d_out, new_mass, stream);
+}
+
+extern "C" int consensus_mix_push_sum_tile_f32(const float* x, int64_t num_peers, int64_t n,
+                                               const float* self_w, const int32_t* nbr_idx,
+                                               const float* nbr_w, const float* beta,
+                                               int64_t d_slots, float local_steps,
+                                               const float* mass, float* mixed, float* d_out,
+                                               float* new_mass, void* stream) {
+  return launch_column_tile<true>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, d_slots,
+                                  local_steps, mass, mixed, d_out, new_mass, stream);
 }

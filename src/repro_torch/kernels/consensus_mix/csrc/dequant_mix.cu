@@ -54,6 +54,23 @@
 // Padding slots carry the peer's own index with weight 0 and add exactly
 // +-0.0 to both sums.
 //
+// Mass mode (compressed push-sum, `dequant_mix_push_sum_f32` and
+// `dequant_mix_push_sum_tile_f32`; the template switch kMass, in both
+// designs): the weights are the column-stochastic push weights A, every peer
+// carries an uncompressed scalar mass y, and
+//
+//   y'[k]    = self_w[k] y[k] + sum_s nbr_w[k, s] y[j]
+//   mixed[k] = (self_w[k] y[k] x[k] + sum_s nbr_w[k, s] y[j] v_j) / y'[k]
+//   d[k], est'[k] as above (advanced estimates, beta not scaled by mass)
+//
+// the self term on the true parameters, the off-diagonal terms on the
+// advanced estimates: the reference's PushSumProtocol.mix_compressed.  Each
+// weight is scaled by its sender's mass where it is staged (gather) or
+// scattered (tile); the gather design sums y' in slot order and multiplies
+// by 1 / y' at the store, the tile design sums it one warp a row and folds
+// 1 / y' into the row's weights (see consensus_mix.cu); y' is written once
+// to new_mass.
+//
 // Bound on an H100 SXM: at iid_k100 with qint8 (K = 100, D = 99,
 // N = 199,212) one call must read x, est (79.7 MB each) and q (19.9 MB) and
 // write mixed, d and est' (239 MB): 418 MB, 0.125 ms at 3.35 TB/s; its least
@@ -85,16 +102,18 @@ __device__ __forceinline__ float4 load_q(const char4* q, int64_t i) {
 }
 
 // T is float (scalar path, Q = int8_t) or float4 (vector path, Q = char4);
-// n_vec counts T elements per row.  kHasQ is false for the no-payload call.
-template <typename T, typename Q, bool kHasQ>
+// n_vec counts T elements per row.  kHasQ is false for the no-payload call;
+// kMass is the push-sum mode (mass and new_mass used).
+template <typename T, typename Q, bool kHasQ, bool kMass>
 __global__ void __launch_bounds__(kThreads)
 dequant_mix_kernel(const float* __restrict__ x, const float* __restrict__ est,
                    const int8_t* __restrict__ q, const float* __restrict__ scale,
                    LeafStarts leaves, int num_leaves, int64_t n_vec,
                    const float* __restrict__ self_w, const int32_t* __restrict__ nbr_idx,
                    const float* __restrict__ nbr_w, const float* __restrict__ beta,
-                   int d_slots, float local_steps, float* __restrict__ mixed,
-                   float* __restrict__ d_out, float* __restrict__ est_out) {
+                   int d_slots, float local_steps, const float* __restrict__ mass,
+                   float* __restrict__ mixed, float* __restrict__ d_out,
+                   float* __restrict__ est_out, float* __restrict__ new_mass) {
   // [D] nbr_w | [D] beta | [D] nbr_idx | [L * D] sender scales | [L] own scales
   extern __shared__ float smem[];
   float* s_w = smem;
@@ -104,13 +123,21 @@ dequant_mix_kernel(const float* __restrict__ x, const float* __restrict__ est,
   float* s_own = s_sc + num_leaves * d_slots;
   __shared__ int64_t s_start[kMaxLeaves];
   __shared__ int s_has_nbrs;
+  __shared__ float s_mass[2];  // kMass: self_w[k] y[k] and 1 / y'[k]
 
   const int k = blockIdx.x;
   const int64_t slot_row = static_cast<int64_t>(k) * d_slots;
   for (int s = threadIdx.x; s < d_slots; s += blockDim.x) {
-    s_w[s] = nbr_w[slot_row + s];
-    s_b[s] = beta[slot_row + s];
-    s_idx[s] = nbr_idx[slot_row + s];
+    if (kMass) {
+      const int32_t j = nbr_idx[slot_row + s];
+      s_w[s] = nbr_w[slot_row + s] * mass[j];
+      s_b[s] = beta[slot_row + s];
+      s_idx[s] = j;
+    } else {
+      s_w[s] = nbr_w[slot_row + s];
+      s_b[s] = beta[slot_row + s];
+      s_idx[s] = nbr_idx[slot_row + s];
+    }
   }
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -132,10 +159,19 @@ dequant_mix_kernel(const float* __restrict__ x, const float* __restrict__ est,
     float sum = 0.0f;
     for (int s = 0; s < d_slots; ++s) sum += s_b[s];
     s_has_nbrs = sum > 0.0f;
+    if (kMass) {  // y' in slot order, from the scaled slot weights
+      const float sw_y = self_w[k] * mass[k];
+      float y = sw_y;
+      for (int s = 0; s < d_slots; ++s) y += s_w[s];
+      s_mass[0] = sw_y;
+      s_mass[1] = 1.0f / y;
+      if (blockIdx.y == 0) new_mass[k] = y;
+    }
   }
   __syncthreads();
   const bool has_nbrs = s_has_nbrs != 0;
-  const float sw = self_w[k];
+  const float sw = kMass ? s_mass[0] : self_w[k];
+  const float inv_y = kMass ? s_mass[1] : 1.0f;
   constexpr int kWidth = sizeof(T) / sizeof(float);
 
   const T* xv = reinterpret_cast<const T*>(x);
@@ -169,7 +205,7 @@ dequant_mix_kernel(const float* __restrict__ x, const float* __restrict__ est,
       acc_mix = vfma(s_w[s], v, acc_mix);
       acc_beta = vfma(s_b[s], v, acc_beta);
     }
-    mv[own + e] = acc_mix;
+    mv[own + e] = kMass ? vscale(inv_y, acc_mix) : acc_mix;
     dv[own + e] = vbias(acc_beta, self_est, local_steps, has_nbrs);
   }
 }
@@ -178,21 +214,104 @@ bool aligned(const void* p, uintptr_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-template <typename T, typename Q>
+template <typename T, typename Q, bool kMass>
 void launch(bool has_q, dim3 grid, size_t smem, cudaStream_t s, const float* x,
             const float* est, const int8_t* q, const float* scale, const LeafStarts& leaves,
             int num_leaves, int64_t n_vec, const float* self_w, const int32_t* nbr_idx,
             const float* nbr_w, const float* beta, int d_slots, float local_steps,
-            float* mixed, float* d_out, float* est_out) {
+            const float* mass, float* mixed, float* d_out, float* est_out, float* new_mass) {
   if (has_q) {
-    dequant_mix_kernel<T, Q, true><<<grid, kThreads, smem, s>>>(
+    dequant_mix_kernel<T, Q, true, kMass><<<grid, kThreads, smem, s>>>(
         x, est, q, scale, leaves, num_leaves, n_vec, self_w, nbr_idx, nbr_w, beta, d_slots,
-        local_steps, mixed, d_out, est_out);
+        local_steps, mass, mixed, d_out, est_out, new_mass);
   } else {
-    dequant_mix_kernel<T, Q, false><<<grid, kThreads, smem, s>>>(
+    dequant_mix_kernel<T, Q, false, kMass><<<grid, kThreads, smem, s>>>(
         x, est, q, scale, leaves, num_leaves, n_vec, self_w, nbr_idx, nbr_w, beta, d_slots,
-        local_steps, mixed, d_out, est_out);
+        local_steps, mass, mixed, d_out, est_out, new_mass);
   }
+}
+
+// The checks both entry points make: 0 or the cudaError_t to return.
+int check_args(const int8_t* q, const float* scale, const int64_t* leaf_start,
+               int64_t num_leaves, int64_t n, int vec4, const float* x, const float* est,
+               const float* mixed, const float* d_out, const float* est_out,
+               LeafStarts& leaves) {
+  const bool has_q = q != nullptr;
+  if (num_leaves < 1 || num_leaves > kMaxLeaves ||
+      (has_q && (scale == nullptr || est_out == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int64_t l = 0; l < num_leaves; ++l) {
+    leaves.start[l] = leaf_start[l];
+    if (vec4 && leaf_start[l] % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (vec4 && !(n % 4 == 0 && aligned(x, 16) && aligned(est, 16) && aligned(mixed, 16) &&
+                aligned(d_out, 16) && (!has_q || (aligned(q, 4) && aligned(est_out, 16)))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
+}
+
+template <bool kMass>
+int launch_gather(const float* x, const float* est, const int8_t* q, const float* scale,
+                  const int64_t* leaf_start, int64_t num_leaves, int64_t num_peers, int64_t n,
+                  const float* self_w, const int32_t* nbr_idx, const float* nbr_w,
+                  const float* beta, int64_t d_slots, float local_steps, int vec4,
+                  const float* mass, float* mixed, float* d_out, float* est_out,
+                  float* new_mass, void* stream) {
+  if (num_peers <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
+  const bool has_q = q != nullptr;
+  LeafStarts leaves = {};
+  if (const int err = check_args(q, scale, leaf_start, num_leaves, n, vec4, x, est, mixed,
+                                 d_out, est_out, leaves))
+    return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nl = static_cast<int>(num_leaves);
+  const int ds = static_cast<int>(d_slots);
+  const size_t smem =
+      (static_cast<size_t>(d_slots) * (3 + (has_q ? num_leaves : 0)) + (has_q ? num_leaves : 0)) *
+      sizeof(float);
+  const int64_t n_vec = vec4 ? n / 4 : n;
+  int64_t tiles = (n_vec + kThreads - 1) / kThreads;
+  if (kMass) tiles = mass_mode_tiles(tiles, d_slots);
+  if (tiles > kMaxGridY) tiles = kMaxGridY;
+  const dim3 grid(static_cast<unsigned>(num_peers), static_cast<unsigned>(tiles));
+  if (vec4) {
+    launch<float4, char4, kMass>(has_q, grid, smem, s, x, est, q, scale, leaves, nl, n_vec,
+                                 self_w, nbr_idx, nbr_w, beta, ds, local_steps, mass, mixed,
+                                 d_out, est_out, new_mass);
+  } else {
+    launch<float, int8_t, kMass>(has_q, grid, smem, s, x, est, q, scale, leaves, nl, n_vec,
+                                 self_w, nbr_idx, nbr_w, beta, ds, local_steps, mass, mixed,
+                                 d_out, est_out, new_mass);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kMass>
+int launch_column_tile(const float* x, const float* est, const int8_t* q, const float* scale,
+                       const int64_t* leaf_start, int64_t num_leaves, int64_t num_peers,
+                       int64_t n, const float* self_w, const int32_t* nbr_idx,
+                       const float* nbr_w, const float* beta, int64_t d_slots,
+                       float local_steps, int vec4, const float* mass, float* mixed,
+                       float* d_out, float* est_out, float* new_mass, void* stream) {
+  if (num_peers <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
+  const bool has_q = q != nullptr;
+  if (num_peers > kTileMaxPeers || d_slots < 1) return static_cast<int>(cudaErrorInvalidValue);
+  LeafStarts leaves = {};
+  if (const int err = check_args(q, scale, leaf_start, num_leaves, n, vec4, x, est, mixed,
+                                 d_out, est_out, leaves))
+    return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nl = static_cast<int>(num_leaves), k = static_cast<int>(num_peers);
+  const int ds = static_cast<int>(d_slots);
+  const size_t smem = tile_smem_bytes(k, has_q, kMass);
+  const cudaError_t err =
+      vec4 ? launch_tile<true, false, kMass>(has_q, smem, s, x, est, q, scale, leaves, nl, n,
+                                             k, self_w, nbr_idx, nbr_w, beta, ds, local_steps,
+                                             mass, mixed, d_out, est_out, new_mass)
+           : launch_tile<false, false, kMass>(has_q, smem, s, x, est, q, scale, leaves, nl, n,
+                                              k, self_w, nbr_idx, nbr_w, beta, ds, local_steps,
+                                              mass, mixed, d_out, est_out, new_mass);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -214,37 +333,9 @@ extern "C" int dequant_mix_f32(const float* x, const float* est, const int8_t* q
                                const float* self_w, const int32_t* nbr_idx, const float* nbr_w,
                                const float* beta, int64_t d_slots, float local_steps, int vec4,
                                float* mixed, float* d_out, float* est_out, void* stream) {
-  if (num_peers <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
-  const bool has_q = q != nullptr;
-  if (num_leaves < 1 || num_leaves > kMaxLeaves ||
-      (has_q && (scale == nullptr || est_out == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  LeafStarts leaves = {};
-  for (int64_t l = 0; l < num_leaves; ++l) {
-    leaves.start[l] = leaf_start[l];
-    if (vec4 && leaf_start[l] % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (vec4 && !(n % 4 == 0 && aligned(x, 16) && aligned(est, 16) && aligned(mixed, 16) &&
-                aligned(d_out, 16) && (!has_q || (aligned(q, 4) && aligned(est_out, 16)))))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nl = static_cast<int>(num_leaves);
-  const int ds = static_cast<int>(d_slots);
-  const size_t smem =
-      (static_cast<size_t>(d_slots) * (3 + (has_q ? num_leaves : 0)) + (has_q ? num_leaves : 0)) *
-      sizeof(float);
-  const int64_t n_vec = vec4 ? n / 4 : n;
-  int64_t tiles = (n_vec + kThreads - 1) / kThreads;
-  if (tiles > kMaxGridY) tiles = kMaxGridY;
-  const dim3 grid(static_cast<unsigned>(num_peers), static_cast<unsigned>(tiles));
-  if (vec4) {
-    launch<float4, char4>(has_q, grid, smem, s, x, est, q, scale, leaves, nl, n_vec, self_w,
-                          nbr_idx, nbr_w, beta, ds, local_steps, mixed, d_out, est_out);
-  } else {
-    launch<float, int8_t>(has_q, grid, smem, s, x, est, q, scale, leaves, nl, n_vec, self_w,
-                          nbr_idx, nbr_w, beta, ds, local_steps, mixed, d_out, est_out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_gather<false>(x, est, q, scale, leaf_start, num_leaves, num_peers, n, self_w,
+                              nbr_idx, nbr_w, beta, d_slots, local_steps, vec4, nullptr, mixed,
+                              d_out, est_out, nullptr, stream);
 }
 
 // The column-tile design's entry point: the arguments and their contract are
@@ -258,31 +349,39 @@ extern "C" int dequant_mix_tile_f32(const float* x, const float* est, const int8
                                     const float* nbr_w, const float* beta, int64_t d_slots,
                                     float local_steps, int vec4, float* mixed, float* d_out,
                                     float* est_out, void* stream) {
-  if (num_peers <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
-  const bool has_q = q != nullptr;
-  if (num_peers > kTileMaxPeers || d_slots < 1 || num_leaves < 1 || num_leaves > kMaxLeaves ||
-      (has_q && (scale == nullptr || est_out == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  LeafStarts leaves = {};
-  for (int64_t l = 0; l < num_leaves; ++l) {
-    leaves.start[l] = leaf_start[l];
-    if (vec4 && leaf_start[l] % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (vec4 && !(n % 4 == 0 && aligned(x, 16) && aligned(est, 16) && aligned(mixed, 16) &&
-                aligned(d_out, 16) && (!has_q || (aligned(q, 4) && aligned(est_out, 16)))))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nl = static_cast<int>(num_leaves), k = static_cast<int>(num_peers);
-  const int ds = static_cast<int>(d_slots);
-  const size_t smem = tile_smem_bytes(k, has_q);
-  const cudaError_t err =
-      vec4 ? launch_tile<true, false>(has_q, smem, s, x, est, q, scale, leaves, nl, n, k,
-                                      self_w, nbr_idx, nbr_w, beta, ds, local_steps, mixed,
-                                      d_out, est_out)
-           : launch_tile<false, false>(has_q, smem, s, x, est, q, scale, leaves, nl, n, k,
-                                       self_w, nbr_idx, nbr_w, beta, ds, local_steps, mixed,
-                                       d_out, est_out);
-  return static_cast<int>(err);
+  return launch_column_tile<false>(x, est, q, scale, leaf_start, num_leaves, num_peers, n,
+                                   self_w, nbr_idx, nbr_w, beta, d_slots, local_steps, vec4,
+                                   nullptr, mixed, d_out, est_out, nullptr, stream);
+}
+
+// The mass mode (compressed push-sum) of the two designs: the arguments and
+// contracts of dequant_mix_f32 and dequant_mix_tile_f32, with mass
+// (num_peers,) float32 on the device, every entry positive, and new_mass
+// (num_peers,), a buffer other than mass, which receives y'.
+extern "C" int dequant_mix_push_sum_f32(const float* x, const float* est, const int8_t* q,
+                                        const float* scale, const int64_t* leaf_start,
+                                        int64_t num_leaves, int64_t num_peers, int64_t n,
+                                        const float* self_w, const int32_t* nbr_idx,
+                                        const float* nbr_w, const float* beta, int64_t d_slots,
+                                        float local_steps, int vec4, const float* mass,
+                                        float* mixed, float* d_out, float* est_out,
+                                        float* new_mass, void* stream) {
+  return launch_gather<true>(x, est, q, scale, leaf_start, num_leaves, num_peers, n, self_w,
+                             nbr_idx, nbr_w, beta, d_slots, local_steps, vec4, mass, mixed,
+                             d_out, est_out, new_mass, stream);
+}
+
+extern "C" int dequant_mix_push_sum_tile_f32(const float* x, const float* est, const int8_t* q,
+                                             const float* scale, const int64_t* leaf_start,
+                                             int64_t num_leaves, int64_t num_peers, int64_t n,
+                                             const float* self_w, const int32_t* nbr_idx,
+                                             const float* nbr_w, const float* beta,
+                                             int64_t d_slots, float local_steps, int vec4,
+                                             const float* mass, float* mixed, float* d_out,
+                                             float* est_out, float* new_mass, void* stream) {
+  return launch_column_tile<true>(x, est, q, scale, leaf_start, num_leaves, num_peers, n,
+                                  self_w, nbr_idx, nbr_w, beta, d_slots, local_steps, vec4, mass,
+                                  mixed, d_out, est_out, new_mass, stream);
 }
 
 // Columns of one tile of the column-tile design at num_peers peers.

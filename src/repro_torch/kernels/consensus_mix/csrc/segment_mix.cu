@@ -36,6 +36,21 @@
 // Padding slots carry the peer's own index with weight 0 and add exactly
 // +-0.0 to both sums.
 //
+// Mass mode (push-sum, `segment_mix_push_sum_f32`; the template switch
+// kMass): the round's weights are column-stochastic push weights and every
+// peer carries a scalar mass y, (K,) and the same for every round.  The
+// sender's mass scales each slot's weight where the slot is staged, the
+// self term uses y_k, and
+//
+//   y'[k]    = self_w[r, k] y[k] + sum_s nbr_w[r, k, s] y[nbr_idx[r, k, s]]
+//   mixed[k] = (self_w[r, k] y[k] x[k] + sum_s nbr_w[r, k, s] y[j] x[j]) / y'[k]
+//   d[k]     = as in gossip (raw x, beta not scaled)
+//
+// y' is reduced across the block from the raw slot row, as the guard is, so
+// any degree bound works; the division is a multiply by 1 / y' (see
+// consensus_mix.cu); the blocks of the first tile column write y' to
+// new_mass.
+//
 // Bound on an H100 SXM: at the large-K shape (K = 4096 on a ring, D = 2,
 // N = 199,212) one call must read x once (3.26 GB) and write mixed and d
 // (6.53 GB): 9.8 GB, 2.9 ms at 3.35 TB/s, against 9.0 GFLOP (0.13 ms at
@@ -53,48 +68,73 @@ namespace {
 
 constexpr int kChunk = 1024;  // slots staged at a time: 3 x 4 KB of shared memory
 
+// kMass: each slot's weight scaled by its sender's mass.
+template <bool kMass>
 __device__ __forceinline__ void stage_slots(const int32_t* __restrict__ nbr_idx,
                                             const float* __restrict__ nbr_w,
-                                            const float* __restrict__ beta, int64_t first,
+                                            const float* __restrict__ beta,
+                                            const float* __restrict__ mass, int64_t first,
                                             int count, int32_t* s_idx, float* s_w,
                                             float* s_b) {
   for (int s = threadIdx.x; s < count; s += kThreads) {
-    s_idx[s] = nbr_idx[first + s];
-    s_w[s] = nbr_w[first + s];
+    const int32_t j = nbr_idx[first + s];
+    s_idx[s] = j;
+    s_w[s] = kMass ? nbr_w[first + s] * mass[j] : nbr_w[first + s];
     s_b[s] = beta[first + s];
   }
 }
 
 // T is float (scalar path) or float4 (vector path); n_vec counts T elements
 // per row, and rows are n_vec T elements apart.  The operand pointers point
-// at the round's (K,) and (K, D) slices.
-template <typename T>
+// at the round's (K,) and (K, D) slices; mass and new_mass are (K,), used in
+// the mass mode only.
+template <typename T, bool kMass>
 __global__ void __launch_bounds__(kThreads)
 segment_mix_kernel(const float* __restrict__ x, int64_t n_vec,
                    const float* __restrict__ self_w, const int32_t* __restrict__ nbr_idx,
                    const float* __restrict__ nbr_w, const float* __restrict__ beta,
-                   int d_slots, float local_steps, float* __restrict__ mixed,
-                   float* __restrict__ d_out) {
+                   int d_slots, float local_steps, const float* __restrict__ mass,
+                   float* __restrict__ mixed, float* __restrict__ d_out,
+                   float* __restrict__ new_mass) {
   __shared__ int32_t s_idx[kChunk];
   __shared__ float s_w[kChunk];
   __shared__ float s_b[kChunk];
   __shared__ float s_part[kThreads / 32];
+  __shared__ float s_ypart[kThreads / 32];  // kMass: partial sums of y'
 
   const int k = blockIdx.x;
   const int64_t slot_row = static_cast<int64_t>(k) * d_slots;
 
   // the guard reads the raw beta row: strided partial sums, then the warps
-  float part = 0.0f;
-  for (int s = threadIdx.x; s < d_slots; s += kThreads) part += beta[slot_row + s];
-  for (int off = 16; off > 0; off >>= 1) part += __shfl_down_sync(0xffffffffu, part, off);
-  if ((threadIdx.x & 31) == 0) s_part[threadIdx.x >> 5] = part;
+  // (and y' in the mass mode, from the raw weights and masses)
+  float part = 0.0f, ypart = 0.0f;
+  for (int s = threadIdx.x; s < d_slots; s += kThreads) {
+    part += beta[slot_row + s];
+    if (kMass) ypart += __fmul_rn(nbr_w[slot_row + s], mass[nbr_idx[slot_row + s]]);
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    part += __shfl_down_sync(0xffffffffu, part, off);
+    if (kMass) ypart += __shfl_down_sync(0xffffffffu, ypart, off);
+  }
+  if ((threadIdx.x & 31) == 0) {
+    s_part[threadIdx.x >> 5] = part;
+    if (kMass) s_ypart[threadIdx.x >> 5] = ypart;
+  }
   const bool one_chunk = d_slots <= kChunk;
-  if (one_chunk) stage_slots(nbr_idx, nbr_w, beta, slot_row, d_slots, s_idx, s_w, s_b);
+  if (one_chunk)
+    stage_slots<kMass>(nbr_idx, nbr_w, beta, mass, slot_row, d_slots, s_idx, s_w, s_b);
   __syncthreads();
   float beta_sum = 0.0f;
   for (int w = 0; w < kThreads / 32; ++w) beta_sum += s_part[w];
   const bool has_nbrs = beta_sum > 0.0f;
-  const float sw = self_w[k];
+  const float sw = kMass ? self_w[k] * mass[k] : self_w[k];
+  float inv_y = 1.0f;
+  if (kMass) {
+    float y_new = sw;
+    for (int w = 0; w < kThreads / 32; ++w) y_new += s_ypart[w];
+    if (blockIdx.y == 0 && threadIdx.x == 0) new_mass[k] = y_new;
+    inv_y = 1.0f / y_new;
+  }
 
   const T* xv = reinterpret_cast<const T*>(x);
   T* mv = reinterpret_cast<T*>(mixed);
@@ -115,7 +155,7 @@ segment_mix_kernel(const float* __restrict__ x, int64_t n_vec,
       const int cn = min(kChunk, d_slots - c0);
       if (!one_chunk) {
         __syncthreads();  // every thread is done with the previous chunk
-        stage_slots(nbr_idx, nbr_w, beta, slot_row + c0, cn, s_idx, s_w, s_b);
+        stage_slots<kMass>(nbr_idx, nbr_w, beta, mass, slot_row + c0, cn, s_idx, s_w, s_b);
         __syncthreads();
       }
       if (live) {
@@ -128,10 +168,42 @@ segment_mix_kernel(const float* __restrict__ x, int64_t n_vec,
       }
     }
     if (live) {
-      mv[own + e] = acc_mix;
+      mv[own + e] = kMass ? vscale(inv_y, acc_mix) : acc_mix;
       dv[own + e] = vbias(acc_beta, self, local_steps, has_nbrs);
     }
   }
+}
+
+template <bool kMass>
+int launch_segment(const float* x, int64_t num_peers, int64_t n, const float* self_w,
+                   const int32_t* nbr_idx, const float* nbr_w, const float* beta,
+                   int64_t rounds, int64_t round_idx, int64_t d_slots, float local_steps,
+                   const float* mass, float* mixed, float* d_out, float* new_mass,
+                   void* stream) {
+  if (num_peers <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
+  if (rounds <= 0 || d_slots <= 0 || d_slots > INT32_MAX || num_peers > INT32_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t r = (round_idx % rounds + rounds) % rounds;
+  const int64_t peer_off = r * num_peers;
+  const int64_t slot_off = peer_off * d_slots;
+  const bool vec4 = n % 4 == 0 && aligned16(x) && aligned16(mixed) && aligned16(d_out);
+  const int64_t n_vec = vec4 ? n / 4 : n;
+  int64_t tiles = (n_vec + kThreads - 1) / kThreads;
+  if (kMass) tiles = mass_mode_tiles(tiles, d_slots);
+  if (tiles > kMaxGridY) tiles = kMaxGridY;
+  const dim3 grid(static_cast<unsigned>(num_peers), static_cast<unsigned>(tiles));
+  if (vec4) {
+    segment_mix_kernel<float4, kMass><<<grid, kThreads, 0, s>>>(
+        x, n_vec, self_w + peer_off, nbr_idx + slot_off, nbr_w + slot_off, beta + slot_off,
+        static_cast<int>(d_slots), local_steps, mass, mixed, d_out, new_mass);
+  } else {
+    segment_mix_kernel<float, kMass><<<grid, kThreads, 0, s>>>(
+        x, n_vec, self_w + peer_off, nbr_idx + slot_off, nbr_w + slot_off, beta + slot_off,
+        static_cast<int>(d_slots), local_steps, mass, mixed, d_out, new_mass);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -146,27 +218,21 @@ extern "C" int segment_mix_f32(const float* x, int64_t num_peers, int64_t n,
                                const float* nbr_w, const float* beta, int64_t rounds,
                                int64_t round_idx, int64_t d_slots, float local_steps,
                                float* mixed, float* d_out, void* stream) {
-  if (num_peers <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
-  if (rounds <= 0 || d_slots <= 0 || d_slots > INT32_MAX || num_peers > INT32_MAX) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t r = (round_idx % rounds + rounds) % rounds;
-  const int64_t peer_off = r * num_peers;
-  const int64_t slot_off = peer_off * d_slots;
-  const bool vec4 = n % 4 == 0 && aligned16(x) && aligned16(mixed) && aligned16(d_out);
-  const int64_t n_vec = vec4 ? n / 4 : n;
-  int64_t tiles = (n_vec + kThreads - 1) / kThreads;
-  if (tiles > kMaxGridY) tiles = kMaxGridY;
-  const dim3 grid(static_cast<unsigned>(num_peers), static_cast<unsigned>(tiles));
-  if (vec4) {
-    segment_mix_kernel<float4><<<grid, kThreads, 0, s>>>(
-        x, n_vec, self_w + peer_off, nbr_idx + slot_off, nbr_w + slot_off, beta + slot_off,
-        static_cast<int>(d_slots), local_steps, mixed, d_out);
-  } else {
-    segment_mix_kernel<float><<<grid, kThreads, 0, s>>>(
-        x, n_vec, self_w + peer_off, nbr_idx + slot_off, nbr_w + slot_off, beta + slot_off,
-        static_cast<int>(d_slots), local_steps, mixed, d_out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_segment<false>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, rounds,
+                               round_idx, d_slots, local_steps, nullptr, mixed, d_out, nullptr,
+                               stream);
+}
+
+// The mass mode (push-sum): segment_mix_f32's arguments and contract, with
+// mass (num_peers,) float32 on the device, every entry positive, and
+// new_mass (num_peers,), a buffer other than mass, which receives y'.
+extern "C" int segment_mix_push_sum_f32(const float* x, int64_t num_peers, int64_t n,
+                                        const float* self_w, const int32_t* nbr_idx,
+                                        const float* nbr_w, const float* beta, int64_t rounds,
+                                        int64_t round_idx, int64_t d_slots, float local_steps,
+                                        const float* mass, float* mixed, float* d_out,
+                                        float* new_mass, void* stream) {
+  return launch_segment<true>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, rounds,
+                              round_idx, d_slots, local_steps, mass, mixed, d_out, new_mass,
+                              stream);
 }

@@ -7,10 +7,16 @@
 //   d[k]     = (sum_j Beta[k, j] v_j - v_k) / T,  0 if the raw beta row sums to 0
 //
 // with v = est (advanced in place by an int8 payload where there is one:
-// v_j = est[j] + scale[j, leaf] * q[j], written once to est').  Two template
+// v_j = est[j] + scale[j, leaf] * q[j], written once to est').  Three template
 // switches choose what a caller needs: kHasQ (a payload to dequantize, est'
-// written) and kSelfStaged (x is est, so the self term is read from the
-// staged tile and not from device memory a second time: consensus_mix).
+// written), kSelfStaged (x is est, so the self term is read from the
+// staged tile and not from device memory a second time: consensus_mix) and
+// kMass (push-sum: each row's y'_k = self_w[k] y_k + sum_s nbr_w[k, s] y_j
+// reduced by one warp from the slots first, then every W weight, self_w
+// included, scaled by its sender's mass y_j and by its row's 1 / y'_k as
+// the table is scattered and self_w loaded, so the mix rows come out
+// de-biased with the tile loop and its stores those of gossip; y' written
+// to new_mass by block 0.  The Beta rows stay unscaled).
 //
 // - a block owns a tile of TN columns of ALL K peers; a persistent grid of
 //   as many blocks as fit on the SMs walks the tiles.  Every sender's tile is
@@ -203,32 +209,76 @@ __device__ __forceinline__ void store4(float* __restrict__ p, int64_t row, int64
 }
 
 // Dynamic shared memory: [K][RP] table | K4 self_w | K4 has-neighbor flags |
-// 2 stages of [K][TN] float32 est (advanced in place) | 2 of [K][TN] int8 q.
-size_t tile_smem_bytes(int k, bool has_q) {
+// K4 1 / y' (mass mode only) | 2 stages of [K][TN] float32 est (advanced in
+// place) | 2 of [K][TN] int8 q.
+size_t tile_smem_bytes(int k, bool has_q, bool mass) {
   const TileShape t = tile_shape(k);
   const size_t k4 = static_cast<size_t>((k + 3) & ~3);
   const size_t tile = static_cast<size_t>(k) * t.tn;
-  return sizeof(float) * (static_cast<size_t>(k) * t.rp + 2 * k4 + 2 * tile) +
+  return sizeof(float) * (static_cast<size_t>(k) * t.rp + (mass ? 3 : 2) * k4 + 2 * tile) +
          (has_q ? 2 * tile : 0);
 }
 
-template <bool kVec, bool kHasQ, bool kSelfStaged>
+// One warp a row of the slot table: the raw beta row sum (the no-neighbor
+// guard) and self_w; in the mass mode also y'_k = self_w[k] y_k +
+// sum_s nbr_w[k, s] y_j, kept as 1 / y'_k, self_w[k] y_k / y'_k in place of
+// self_w, and y' written to new_mass by block 0.
+template <bool kMass>
+__device__ __forceinline__ void reduce_slot_rows(int k_peers, int d_slots,
+                                                 const float* __restrict__ self_w,
+                                                 const int32_t* __restrict__ nbr_idx,
+                                                 const float* __restrict__ nbr_w,
+                                                 const float* __restrict__ beta,
+                                                 const float* __restrict__ mass, float* s_sw,
+                                                 int* s_has, float* s_inv_y,
+                                                 float* __restrict__ new_mass) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int k = warp; k < k_peers; k += blockDim.x / 32) {
+    float sum = 0.0f, ysum = 0.0f;
+    for (int s = lane; s < d_slots; s += 32) {
+      const int64_t e = static_cast<int64_t>(k) * d_slots + s;
+      sum += beta[e];
+      if (kMass) ysum += __fmul_rn(nbr_w[e], mass[nbr_idx[e]]);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (kMass) ysum += __shfl_xor_sync(0xffffffffu, ysum, off);
+    }
+    if (lane == 0) {
+      s_has[k] = sum > 0.0f;
+      if (kMass) {
+        const float sw_y = self_w[k] * mass[k], y = sw_y + ysum;
+        const float inv_y = 1.0f / y;
+        s_inv_y[k] = inv_y;
+        s_sw[k] = sw_y * inv_y;
+        if (blockIdx.x == 0) new_mass[k] = y;
+      } else {
+        s_sw[k] = self_w[k];
+      }
+    }
+  }
+}
+
+template <bool kVec, bool kHasQ, bool kSelfStaged, bool kMass>
 __global__ void __launch_bounds__(kTileThreads, 1)
 mix_tile_kernel(const float* __restrict__ x, const float* __restrict__ est,
                         const int8_t* __restrict__ q, const float* __restrict__ scale,
                         LeafStarts leaves, int num_leaves, int64_t n, int k_peers,
                         const float* __restrict__ self_w, const int32_t* __restrict__ nbr_idx,
                         const float* __restrict__ nbr_w, const float* __restrict__ beta,
-                        int d_slots, float local_steps, float* __restrict__ mixed,
-                        float* __restrict__ d_out, float* __restrict__ est_out) {
+                        int d_slots, float local_steps, const float* __restrict__ mass,
+                        float* __restrict__ mixed, float* __restrict__ d_out,
+                        float* __restrict__ est_out, float* __restrict__ new_mass) {
   const TileShape ts = tile_shape(k_peers);
   const int rp = ts.rp, tn = ts.tn;
   const int k4 = (k_peers + 3) & ~3;
   extern __shared__ __align__(16) float smem[];
   float* table = smem;                 // table[j * rp + r] = [W_off; Beta][r, j]
-  float* s_sw = table + k_peers * rp;  // self_w
+  float* s_sw = table + k_peers * rp;  // self_w (x own mass in the mass mode)
   int* s_has = reinterpret_cast<int*>(s_sw + k4);
-  float* stage_v = s_sw + 2 * k4;      // 2 x [K][TN]
+  float* s_inv_y = s_sw + 2 * k4;      // 1 / y' (mass mode)
+  float* stage_v = s_sw + (kMass ? 3 : 2) * k4;  // 2 x [K][TN]
   int8_t* stage_q = reinterpret_cast<int8_t*>(stage_v + 2 * k_peers * tn);  // 2 x [K][TN]
   const int tile_elems = k_peers * tn;
   __shared__ int64_t s_start[kMaxLeaves];
@@ -242,27 +292,23 @@ mix_tile_kernel(const float* __restrict__ x, const float* __restrict__ est,
     }
   }
   __syncthreads();
+  if (kMass) {  // the rows' 1 / y' first: the scatter scales by it
+    reduce_slot_rows<true>(k_peers, d_slots, self_w, nbr_idx, nbr_w, beta, mass, s_sw, s_has,
+                           s_inv_y, new_mass);
+    __syncthreads();
+  }
   // scatter the slot table: a row's slots name distinct senders but for its
   // padding slots (its own index, weight 0), so each entry receives at most
   // one real weight onto +0.0, whatever the order of the atomics
   for (int e = threadIdx.x; e < k_peers * d_slots; e += blockDim.x) {
     const int k = e / d_slots;
     const int j = nbr_idx[e];
-    atomicAdd(table + j * rp + k, nbr_w[e]);
+    atomicAdd(table + j * rp + k, kMass ? nbr_w[e] * mass[j] * s_inv_y[k] : nbr_w[e]);
     atomicAdd(table + j * rp + k_peers + k, beta[e]);
   }
-  // raw beta row sums, one warp a row
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int k = warp; k < k_peers; k += blockDim.x / 32) {
-    float sum = 0.0f;
-    for (int s = lane; s < d_slots; s += 32) sum += beta[static_cast<int64_t>(k) * d_slots + s];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if (lane == 0) {
-      s_has[k] = sum > 0.0f;
-      s_sw[k] = self_w[k];
-    }
-  }
+  if (!kMass)
+    reduce_slot_rows<false>(k_peers, d_slots, self_w, nbr_idx, nbr_w, beta, mass, s_sw, s_has,
+                            s_inv_y, new_mass);
   __syncthreads();
 
   const int tid = threadIdx.x;
@@ -342,15 +388,15 @@ mix_tile_kernel(const float* __restrict__ x, const float* __restrict__ est,
   cp_async_wait<0>();
 }
 
-template <bool kVec, bool kSelfStaged>
+template <bool kVec, bool kSelfStaged, bool kMass>
 cudaError_t launch_tile(bool has_q, size_t smem, cudaStream_t s, const float* x,
                         const float* est, const int8_t* q, const float* scale,
                         const LeafStarts& leaves, int num_leaves, int64_t n, int k_peers,
                         const float* self_w, const int32_t* nbr_idx, const float* nbr_w,
-                        const float* beta, int d_slots, float local_steps, float* mixed,
-                        float* d_out, float* est_out) {
-  auto kernel = has_q ? mix_tile_kernel<kVec, true, kSelfStaged>
-                      : mix_tile_kernel<kVec, false, kSelfStaged>;
+                        const float* beta, int d_slots, float local_steps, const float* mass,
+                        float* mixed, float* d_out, float* est_out, float* new_mass) {
+  auto kernel = has_q ? mix_tile_kernel<kVec, true, kSelfStaged, kMass>
+                      : mix_tile_kernel<kVec, false, kSelfStaged, kMass>;
   const TileShape ts = tile_shape(k_peers);
   const int64_t n_tiles = (n + ts.tn - 1) / ts.tn;
   // the persistent grid: as many blocks as fit on the SMs, at most one a
@@ -383,8 +429,8 @@ cudaError_t launch_tile(bool has_q, size_t smem, cudaStream_t s, const float* x,
   const int64_t blocks = static_cast<int64_t>(sms[dev]) * fit;
   const int grid = static_cast<int>(blocks < n_tiles ? blocks : n_tiles);
   kernel<<<grid, ts.block, smem, s>>>(x, est, q, scale, leaves, num_leaves, n, k_peers, self_w,
-                                      nbr_idx, nbr_w, beta, d_slots, local_steps, mixed, d_out,
-                                      est_out);
+                                      nbr_idx, nbr_w, beta, d_slots, local_steps, mass, mixed,
+                                      d_out, est_out, new_mass);
   return cudaGetLastError();
 }
 

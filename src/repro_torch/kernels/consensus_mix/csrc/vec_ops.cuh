@@ -10,6 +10,15 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int64_t kMaxGridY = 65535;
+// The mass mode (push-sum) of a gather design: its prologue (the sender-mass
+// scaling, y' and 1 / y') is longer than gossip's, so where a peer's slot
+// row is short (D <= 4: a ring, a matching) a block walks 4 column tiles and
+// pays it once for them; with long rows the work a tile outweighs it and
+// fewer blocks cost more than they save (tools/kernel_ab.py on an H100:
+// K = 4096, D = 1 5.36 -> 4.49 ms, K = 100, D = 99 0.589 -> 0.667 ms).
+inline int64_t mass_mode_tiles(int64_t tiles, int64_t d_slots) {
+  return d_slots <= 4 ? (tiles + 3) / 4 : tiles;
+}
 
 __device__ __forceinline__ float vscale(float a, float v) { return a * v; }
 __device__ __forceinline__ float4 vscale(float a, float4 v) {

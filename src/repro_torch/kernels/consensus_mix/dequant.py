@@ -8,7 +8,13 @@ and leaf of the row) and mixes the advanced estimates of the neighbors, in one
 pass.  It replaces the Pallas TPU kernel
 ``repro/kernels/consensus_mix/dequant.py:dequant_mix_2d``.  Called with no
 payload (``q=None``: top-k, whose estimate the caller advanced with a
-scatter), it mixes the estimates as they stand.
+scatter), it mixes the estimates as they stand.  ``dequant_mix_push_sum_stacked``
+is the kernel's mass mode, one compressed push-sum step (the reference's
+``PushSumProtocol.mix_compressed``, which its runtime computes with
+einsums: its Pallas kernel has no mass mode): the self term on the true
+parameters times the own mass, the neighbors' advanced estimates times
+their senders' mass, divided by the new mass, with the (K,) mass
+uncompressed.
 
 Dispatch is by the device of the buffer, and only by it:
 
@@ -43,7 +49,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.consensus_mix import ref
 from repro_torch.kernels.build import LaunchCounter
-from repro_torch.kernels.consensus_mix.ops import SparseOperands, check_operands
+from repro_torch.kernels.consensus_mix.ops import SparseOperands, check_mass, check_operands
 
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "dequant_mix.cu"]
 MAX_LEAVES = 64  # kMaxLeaves in the CUDA source
@@ -71,6 +77,10 @@ def load_kernel() -> build.KernelLibrary:
     for fn in (kl.lib.dequant_mix_f32, kl.lib.dequant_mix_tile_f32):
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, ptr, ptr, ptr, ptr, i64,
                        ctypes.c_float, ctypes.c_int, ptr, ptr, ptr, ptr]
+        fn.restype = ctypes.c_int
+    for fn in (kl.lib.dequant_mix_push_sum_f32, kl.lib.dequant_mix_push_sum_tile_f32):
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, ptr, ptr, ptr, ptr, i64,
+                       ctypes.c_float, ctypes.c_int, ptr, ptr, ptr, ptr, ptr, ptr]
         fn.restype = ctypes.c_int
     kl.lib.dequant_mix_tile_columns.argtypes = [i64]
     kl.lib.dequant_mix_tile_columns.restype = i64
@@ -128,28 +138,40 @@ def launch(
     mixed: torch.Tensor,
     d_bias: torch.Tensor,
     est_out: torch.Tensor | None,
+    mass: torch.Tensor | None = None,
+    new_mass: torch.Tensor | None = None,
 ) -> None:
     """Launch the kernel on the current stream into ``mixed`` / ``d_bias`` /
-    ``est_out`` (unused without a payload).
+    ``est_out`` (unused without a payload); with ``mass`` (and ``new_mass``
+    for y') its mass mode.
 
-    No checks: callers pass what ``dequant_mix_stacked`` validated.  Counts
-    the launch and raises if CUDA refused it.
+    No checks: callers pass what ``dequant_mix_stacked`` (or
+    ``dequant_mix_push_sum_stacked``) validated.  Counts the launch and
+    raises if CUDA refused it.
     """
     lib = load_kernel().lib
-    fn = lib.dequant_mix_tile_f32 if takes_tile_path(flat.shape[0]) else lib.dequant_mix_f32
+    tile = takes_tile_path(flat.shape[0])
+    if mass is None:
+        fn = lib.dequant_mix_tile_f32 if tile else lib.dequant_mix_f32
+    else:
+        fn = lib.dequant_mix_push_sum_tile_f32 if tile else lib.dequant_mix_push_sum_f32
     starts = [int(o) for o in leaf_offsets[:-1]] if q is not None else [0]
     vec4 = takes_vector_path(leaf_offsets if q is not None else (0, 0),
                              flat, est, q, mixed, d_bias, est_out)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    err = fn(
+    args = [
         flat.data_ptr(), est.data_ptr(), ptr(q), ptr(scale),
         (ctypes.c_int64 * len(starts))(*starts), len(starts),
         flat.shape[0], flat.shape[1],
         ops.self_w.data_ptr(), ops.nbr_idx.data_ptr(), ops.nbr_w.data_ptr(),
         ops.beta.data_ptr(), ops.nbr_idx.shape[1], float(local_steps), int(vec4),
-        mixed.data_ptr(), d_bias.data_ptr(), ptr(est_out),
-        torch.cuda.current_stream(flat.device).cuda_stream,
-    )
+    ]
+    if mass is not None:
+        args.append(mass.data_ptr())
+    args += [mixed.data_ptr(), d_bias.data_ptr(), ptr(est_out)]
+    if mass is not None:
+        args.append(new_mass.data_ptr())
+    err = fn(*args, torch.cuda.current_stream(flat.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dequant_mix launch failed with cudaError_t {err}")
     launches.count += 1
@@ -181,3 +203,32 @@ def dequant_mix_stacked(
     est_out = torch.empty_like(est) if q is not None else None
     launch(flat, est, q, scale, ops, leaf_offsets, local_steps, mixed, d_bias, est_out)
     return mixed, d_bias, est if est_out is None else est_out
+
+
+def dequant_mix_push_sum_stacked(
+    flat: torch.Tensor,  # (K, N) float32 — every peer's TRUE (de-biased) parameters
+    est: torch.Tensor,  # (K, N) float32 — public estimates
+    q: torch.Tensor | None,  # (K, N) int8 payloads, or None
+    scale: torch.Tensor | None,  # (K, L) float32 per-leaf scales, or None
+    mass: torch.Tensor,  # (K,) float32 push-sum mass y
+    ops: SparseOperands,  # column-stochastic push weights
+    leaf_offsets,
+    local_steps: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One compressed push-sum step + affinity d for all peers, through the
+    kernel's mass mode.  Returns (mixed, d_bias, est_new, new_mass); est_new
+    as in ``dequant_mix_stacked``."""
+    if flat.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"dequant_mix runs on cpu or cuda tensors, got {flat.device}")
+    _check(flat, est, q, scale, ops, leaf_offsets, local_steps)
+    check_mass(flat, mass, "dequant_mix")
+    if flat.device.type == "cpu":
+        return ref.dequant_mix_push_sum_stacked_ref(flat, est, q, scale, tuple(leaf_offsets),
+                                                    mass, *ops, local_steps)
+    mixed = torch.empty_like(flat)
+    d_bias = torch.empty_like(flat)
+    est_out = torch.empty_like(est) if q is not None else None
+    new_mass = torch.empty_like(mass)
+    launch(flat, est, q, scale, ops, leaf_offsets, local_steps, mixed, d_bias, est_out,
+           mass, new_mass)
+    return mixed, d_bias, est if est_out is None else est_out, new_mass

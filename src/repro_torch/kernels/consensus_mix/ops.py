@@ -6,6 +6,11 @@ all K peers of a (K, N) float32 flat parameter buffer, from padded sparse
 operands uploaded once per run by ``upload_schedule``.  It replaces the
 Pallas TPU kernel ``repro/kernels/consensus_mix/consensus_mix.py:
 consensus_mix_2d`` (reached there through ``ops.consensus_mix_stacked``).
+``consensus_mix_push_sum_stacked`` is the same kernel's mass mode, one
+push-sum step (reached there through ``ops.consensus_mix_push_sum_stacked``
+and ``_schedule``, which append a lane of ones to the parameters): the
+kernel reads the (K,) mass and scales each weight by its sender's mass
+where it reads the weight, so nothing is appended or copied.
 
 Dispatch is by the device of the buffer, and only by it:
 
@@ -115,6 +120,10 @@ def load_kernel() -> build.KernelLibrary:
     for fn in (kl.lib.consensus_mix_f32, kl.lib.consensus_mix_tile_f32):
         fn.argtypes = [ptr, i64, i64, ptr, ptr, ptr, ptr, i64, ctypes.c_float, ptr, ptr, ptr]
         fn.restype = ctypes.c_int
+    for fn in (kl.lib.consensus_mix_push_sum_f32, kl.lib.consensus_mix_push_sum_tile_f32):
+        fn.argtypes = [ptr, i64, i64, ptr, ptr, ptr, ptr, i64, ctypes.c_float, ptr, ptr, ptr,
+                       ptr, ptr]
+        fn.restype = ctypes.c_int
     return kl
 
 
@@ -160,27 +169,45 @@ def check_operands(flat: torch.Tensor, ops: SparseOperands, local_steps: int,
         raise ValueError(f"nbr_idx entries must index peers in [0, {k})")
 
 
+def check_mass(flat: torch.Tensor, mass: torch.Tensor, what: str) -> None:
+    """Validate a push-sum mass: (K,) float32, contiguous, on the buffer's
+    device.  Its values are not read: that would synchronize the host with
+    the device on every launch."""
+    k = flat.shape[0]
+    if tuple(mass.shape) != (k,) or mass.dtype != torch.float32:
+        raise ValueError(f"{what}: mass must be ({k},) float32, got "
+                         f"{tuple(mass.shape)} {mass.dtype}")
+    if mass.device != flat.device or not mass.is_contiguous():
+        raise ValueError(f"{what}: mass must be contiguous on {flat.device}")
+
+
 def launch(
     flat: torch.Tensor,
     ops: SparseOperands,
     local_steps: int,
     mixed: torch.Tensor,
     d_bias: torch.Tensor,
+    mass: torch.Tensor | None = None,
+    new_mass: torch.Tensor | None = None,
 ) -> None:
-    """Launch the kernel on the current stream into ``mixed`` / ``d_bias``.
+    """Launch the kernel on the current stream into ``mixed`` / ``d_bias``;
+    with ``mass`` (and ``new_mass`` for y') its mass mode.
 
-    No checks: callers pass what ``check_operands`` validated.  Counts
-    the launch and raises if CUDA refused it.
+    No checks: callers pass what ``check_operands`` (and ``check_mass``)
+    validated.  Counts the launch and raises if CUDA refused it.
     """
     lib = load_kernel().lib
-    fn = lib.consensus_mix_tile_f32 if takes_tile_path(flat.shape[0]) else lib.consensus_mix_f32
-    err = fn(
-        flat.data_ptr(), flat.shape[0], flat.shape[1],
-        ops.self_w.data_ptr(), ops.nbr_idx.data_ptr(), ops.nbr_w.data_ptr(),
-        ops.beta.data_ptr(), ops.nbr_idx.shape[1], float(local_steps),
-        mixed.data_ptr(), d_bias.data_ptr(),
-        torch.cuda.current_stream(flat.device).cuda_stream,
-    )
+    tile = takes_tile_path(flat.shape[0])
+    args = [flat.data_ptr(), flat.shape[0], flat.shape[1],
+            ops.self_w.data_ptr(), ops.nbr_idx.data_ptr(), ops.nbr_w.data_ptr(),
+            ops.beta.data_ptr(), ops.nbr_idx.shape[1], float(local_steps)]
+    if mass is None:
+        fn = lib.consensus_mix_tile_f32 if tile else lib.consensus_mix_f32
+        args += [mixed.data_ptr(), d_bias.data_ptr()]
+    else:
+        fn = lib.consensus_mix_push_sum_tile_f32 if tile else lib.consensus_mix_push_sum_f32
+        args += [mass.data_ptr(), mixed.data_ptr(), d_bias.data_ptr(), new_mass.data_ptr()]
+    err = fn(*args, torch.cuda.current_stream(flat.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"consensus_mix launch failed with cudaError_t {err}")
     launches.count += 1
@@ -202,3 +229,25 @@ def consensus_mix_stacked(
     d_bias = torch.empty_like(flat)
     launch(flat, ops, local_steps, mixed, d_bias)
     return mixed, d_bias
+
+
+def consensus_mix_push_sum_stacked(
+    flat: torch.Tensor,  # (K, N) float32 — the de-biased parameters
+    mass: torch.Tensor,  # (K,) float32 push-sum mass y
+    ops: SparseOperands,  # column-stochastic push weights
+    local_steps: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One push-sum step + affinity d for all peers, through the kernel's
+    mass mode: returns (mixed, d_bias, new_mass), the de-biased
+    ``A (y x) / y'``, d from the raw x, and y' = A y, in fresh buffers."""
+    if flat.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"consensus_mix runs on cpu or cuda tensors, got {flat.device}")
+    check_operands(flat, ops, local_steps, MAX_SLOTS)
+    check_mass(flat, mass, "consensus_mix")
+    if flat.device.type == "cpu":
+        return ref.consensus_mix_push_sum_stacked_ref(flat, mass, *ops, local_steps)
+    mixed = torch.empty_like(flat)
+    d_bias = torch.empty_like(flat)
+    new_mass = torch.empty_like(mass)
+    launch(flat, ops, local_steps, mixed, d_bias, mass, new_mass)
+    return mixed, d_bias, new_mass

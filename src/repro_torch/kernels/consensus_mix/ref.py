@@ -2,7 +2,7 @@
 ``consensus_mix_stacked_ref`` (below), for a compressed wire
 ``dequant_mix_stacked_ref``, and for the hierarchical runtime's segment mode
 ``segment_mix_stacked_ref`` with its dense oracle ``segment_mix_ref`` (at the
-end).
+end).  Each has a push-sum form (``*_push_sum_*``, after its gossip form).
 
 For every peer k of a (K, N) flat parameter buffer, with D padded neighbor
 slots ``nbr_idx[k]``:
@@ -44,6 +44,52 @@ def consensus_mix_stacked_ref(
     has_nbrs = beta.sum(dim=1) > 0.0
     d = torch.where(has_nbrs[:, None], (nbr_sum - xf) / local_steps, torch.zeros_like(xf))
     return mixed.to(flat.dtype), d.to(flat.dtype)
+
+
+def push_sum_weights(
+    mass: torch.Tensor,  # (K,)
+    self_w: torch.Tensor,  # (K,)
+    nbr_idx: torch.Tensor,  # (K, D) int
+    nbr_w: torch.Tensor,  # (K, D)
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Push-sum's weights, each scaled by its sender's mass, and the new mass:
+
+        self_w_y[k]   = self_w[k] y[k]
+        nbr_w_y[k, s] = nbr_w[k, s] y[nbr_idx[k, s]]
+        y'[k]         = self_w_y[k] + sum_s nbr_w_y[k, s]   (slot order)
+
+    all float32.  With them the gossip forms compute push-sum's numerator."""
+    y = mass.to(torch.float32)
+    self_w_y = self_w.to(torch.float32) * y
+    nbr_w_y = nbr_w.to(torch.float32) * y[nbr_idx.long()]
+    y_new = self_w_y
+    for slot in range(nbr_idx.shape[1]):
+        y_new = y_new + nbr_w_y[:, slot]
+    return self_w_y, nbr_w_y, y_new
+
+
+def consensus_mix_push_sum_stacked_ref(
+    flat: torch.Tensor,  # (K, N) de-biased parameters
+    mass: torch.Tensor,  # (K,) push-sum mass y
+    self_w: torch.Tensor,  # (K,) diagonal of the column-stochastic A
+    nbr_idx: torch.Tensor,  # (K, D) int
+    nbr_w: torch.Tensor,  # (K, D) off-diagonal A weights
+    beta: torch.Tensor,  # (K, D)
+    local_steps: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One push-sum step + affinity d (the reference's
+    ``PushSumProtocol.mix`` plus the d update):
+
+        y'    = A y
+        mixed = A (y * x) / y'
+        d     = where(has_nbrs, (Beta x - x) / T, 0)   (raw x, Beta not scaled)
+
+    Returns (mixed, d, y').  This is the CPU path of
+    ``ops.consensus_mix_push_sum_stacked`` and the oracle its kernel mode is
+    held to."""
+    self_w_y, nbr_w_y, y_new = push_sum_weights(mass, self_w, nbr_idx, nbr_w)
+    num, d = consensus_mix_stacked_ref(flat, self_w_y, nbr_idx, nbr_w_y, beta, local_steps)
+    return (num / y_new[:, None]).to(flat.dtype), d, y_new
 
 
 def leaf_scale_columns(
@@ -100,6 +146,35 @@ def dequant_mix_stacked_ref(
     return mixed.to(flat.dtype), d.to(flat.dtype), adv if q is not None else est
 
 
+def dequant_mix_push_sum_stacked_ref(
+    flat: torch.Tensor,  # (K, N) float32 — every peer's TRUE (de-biased) parameters
+    est: torch.Tensor,  # (K, N) float32 — public estimates before this step's advance
+    q: torch.Tensor | None,  # (K, N) int8 payloads, or None
+    scale: torch.Tensor | None,  # (K, L) float32 per-leaf payload scales
+    leaf_offsets: tuple[int, ...],
+    mass: torch.Tensor,  # (K,) push-sum mass y, uncompressed
+    self_w: torch.Tensor,  # (K,) diagonal of the column-stochastic A
+    nbr_idx: torch.Tensor,  # (K, D) int
+    nbr_w: torch.Tensor,  # (K, D)
+    beta: torch.Tensor,  # (K, D)
+    local_steps: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One compressed push-sum step (the reference's
+    ``PushSumProtocol.mix_compressed`` plus d from the advanced estimates):
+
+        y'    = A y
+        mixed = (diag(A) (y * x) + A_off (y * v)) / y'
+        d     = where(has_nbrs, (Beta v - v) / T, 0)
+
+    with v the advanced estimates.  Returns (mixed, d, v, y').  This is the
+    CPU path of ``dequant.dequant_mix_push_sum_stacked`` and the oracle its
+    kernel mode is held to."""
+    self_w_y, nbr_w_y, y_new = push_sum_weights(mass, self_w, nbr_idx, nbr_w)
+    num, d, adv = dequant_mix_stacked_ref(flat, est, q, scale, leaf_offsets, self_w_y,
+                                          nbr_idx, nbr_w_y, beta, local_steps)
+    return (num / y_new[:, None]).to(flat.dtype), d, adv, y_new
+
+
 def dense_mix_operator(
     nbr_idx: torch.Tensor,  # (K, D) int
     nbr_w: torch.Tensor,  # (K, D)
@@ -139,6 +214,26 @@ def segment_mix_ref(
     return (w @ xf).to(flat.dtype), d.to(flat.dtype)
 
 
+def segment_mix_push_sum_ref(
+    flat: torch.Tensor,  # (K, N) de-biased parameters
+    mass: torch.Tensor,  # (K,)
+    a_mat: torch.Tensor,  # (K, K) column-stochastic
+    beta_mat: torch.Tensor,  # (K, K)
+    local_steps: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Dense oracle of the segment kernel's push-sum mode (the reference's
+    ``ref.segment_mix_push_sum_ref``): y' = A y, mixed = A (y * x) / y',
+    d = (Beta x - x) / T, 0 where a Beta row sums to 0.  Returns
+    (mixed, d, y')."""
+    xf = flat.to(torch.float32)
+    a = a_mat.to(torch.float32)
+    y = mass.to(torch.float32)
+    y_new = a @ y
+    mixed = (a @ (xf * y[:, None])) / y_new[:, None]
+    _, d = segment_mix_ref(flat, a_mat, beta_mat, local_steps)
+    return mixed.to(flat.dtype), d, y_new
+
+
 def segment_mix_stacked_ref(
     flat: torch.Tensor,  # (K, N)
     self_w: torch.Tensor,  # (K,)
@@ -160,3 +255,22 @@ def segment_mix_stacked_ref(
     has_nbrs = beta.sum(dim=1) > 0.0
     d = torch.where(has_nbrs[:, None], (nbr_sum - flat) / local_steps, torch.zeros_like(flat))
     return mixed, d
+
+
+def segment_mix_push_sum_stacked_ref(
+    flat: torch.Tensor,  # (K, N) de-biased parameters
+    mass: torch.Tensor,  # (K,)
+    self_w: torch.Tensor,  # (K,)
+    nbr_idx: torch.Tensor,  # (K, D) int
+    nbr_w: torch.Tensor,  # (K, D)
+    beta: torch.Tensor,  # (K, D)
+    local_steps: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the ``segment_mix`` kernel's push-sum mode: the slot
+    form of ``segment_mix_stacked_ref`` on the mass-scaled weights, divided
+    by y'.  Returns (mixed, d, y').  This is the CPU path of
+    ``segment.segment_mix_push_sum_schedule`` and the oracle its kernel mode
+    is held to."""
+    self_w_y, nbr_w_y, y_new = push_sum_weights(mass, self_w, nbr_idx, nbr_w)
+    num, d = segment_mix_stacked_ref(flat, self_w_y, nbr_idx, nbr_w_y, beta, local_steps)
+    return num / y_new[:, None], d, y_new

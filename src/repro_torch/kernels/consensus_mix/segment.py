@@ -8,7 +8,11 @@ all K peers of a (K, N) float32 flat parameter buffer over round
 the round by offsetting its operand pointers.  ``segment_mix_stacked`` is the
 same step over one round's (K,) / (K, D) operands.  They replace the Pallas
 TPU kernel ``repro/kernels/consensus_mix/segment.py:segment_mix_2d``, reached
-there through the wrappers of the same names.  It is the hierarchical
+there through the wrappers of the same names.  ``segment_mix_push_sum_schedule``
+and ``_stacked`` are the kernel's mass mode, one push-sum step (the
+reference's ``segment_mix_push_sum_stacked``, which appends a lane of ones):
+the sender's mass scales each slot's weight inside the kernel, the (K,) mass
+is the same for every round.  It is the hierarchical
 runtime's "segment" mix (``core.p2p.consensus_phase_hier``), the large-K form:
 the wrapper takes any degree bound D that a ``SparseSchedule`` produces (the
 kernel stages the slots in chunks), where ``ops.consensus_mix_stacked`` stops
@@ -42,6 +46,7 @@ from repro_torch.kernels.consensus_mix import ref
 from repro_torch.kernels.build import LaunchCounter
 from repro_torch.kernels.consensus_mix.ops import (
     SparseOperands,
+    check_mass,
     check_operands,
     select_round,
 )
@@ -56,10 +61,14 @@ launches = LaunchCounter()
 def load_kernel() -> build.KernelLibrary:
     """Build (first call) and load the kernel library; declares its C signature."""
     kl = build.load_library("segment_mix", SOURCES)
-    fn = kl.lib.segment_mix_f32
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    fn = kl.lib.segment_mix_f32
     fn.argtypes = [ptr, i64, i64, ptr, ptr, ptr, ptr, i64, i64, i64, ctypes.c_float,
                    ptr, ptr, ptr]
+    fn.restype = ctypes.c_int
+    fn = kl.lib.segment_mix_push_sum_f32
+    fn.argtypes = [ptr, i64, i64, ptr, ptr, ptr, ptr, i64, i64, i64, ctypes.c_float,
+                   ptr, ptr, ptr, ptr, ptr]
     fn.restype = ctypes.c_int
     return kl
 
@@ -87,20 +96,27 @@ def launch(
     local_steps: int,
     mixed: torch.Tensor,
     d_bias: torch.Tensor,
+    mass: torch.Tensor | None = None,
+    new_mass: torch.Tensor | None = None,
 ) -> None:
-    """Launch the kernel on the current stream into ``mixed`` / ``d_bias``.
+    """Launch the kernel on the current stream into ``mixed`` / ``d_bias``;
+    with ``mass`` (and ``new_mass`` for y') its mass mode.
 
-    No checks: callers pass what ``check_schedule`` validated.  Counts the
-    launch and raises if CUDA refused it.
+    No checks: callers pass what ``check_schedule`` (and ``check_mass``)
+    validated.  Counts the launch and raises if CUDA refused it.
     """
-    fn = load_kernel().lib.segment_mix_f32
-    err = fn(
-        flat.data_ptr(), flat.shape[0], flat.shape[1],
-        ops_s.self_w.data_ptr(), ops_s.nbr_idx.data_ptr(), ops_s.nbr_w.data_ptr(),
-        ops_s.beta.data_ptr(), ops_s.self_w.shape[0], int(round_idx),
-        ops_s.nbr_idx.shape[2], float(local_steps), mixed.data_ptr(), d_bias.data_ptr(),
-        torch.cuda.current_stream(flat.device).cuda_stream,
-    )
+    lib = load_kernel().lib
+    args = [flat.data_ptr(), flat.shape[0], flat.shape[1],
+            ops_s.self_w.data_ptr(), ops_s.nbr_idx.data_ptr(), ops_s.nbr_w.data_ptr(),
+            ops_s.beta.data_ptr(), ops_s.self_w.shape[0], int(round_idx),
+            ops_s.nbr_idx.shape[2], float(local_steps)]
+    if mass is None:
+        fn = lib.segment_mix_f32
+        args += [mixed.data_ptr(), d_bias.data_ptr()]
+    else:
+        fn = lib.segment_mix_push_sum_f32
+        args += [mass.data_ptr(), mixed.data_ptr(), d_bias.data_ptr(), new_mass.data_ptr()]
+    err = fn(*args, torch.cuda.current_stream(flat.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"segment_mix launch failed with cudaError_t {err}")
     launches.count += 1
@@ -132,3 +148,38 @@ def segment_mix_stacked(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``segment_mix_schedule`` over one round's operands."""
     return segment_mix_schedule(flat, 0, SparseOperands(*(t[None] for t in ops)), local_steps)
+
+
+def segment_mix_push_sum_schedule(
+    flat: torch.Tensor,  # (K, N) float32 — the de-biased parameters
+    mass: torch.Tensor,  # (K,) float32 push-sum mass y
+    round_idx: int,
+    ops_s: SparseOperands,  # stacked (R, K) / (R, K, D) push weights
+    local_steps: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One push-sum step + affinity d for all peers over round
+    ``round_idx % R``, through the kernel's mass mode: returns (mixed,
+    d_bias, new_mass) in fresh buffers."""
+    if flat.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"segment_mix runs on cpu or cuda tensors, got {flat.device}")
+    check_schedule(flat, ops_s, local_steps)
+    check_mass(flat, mass, "segment_mix")
+    if flat.device.type == "cpu":
+        return ref.segment_mix_push_sum_stacked_ref(
+            flat, mass, *select_round(ops_s, round_idx), local_steps)
+    mixed = torch.empty_like(flat)
+    d_bias = torch.empty_like(flat)
+    new_mass = torch.empty_like(mass)
+    launch(flat, round_idx, ops_s, local_steps, mixed, d_bias, mass, new_mass)
+    return mixed, d_bias, new_mass
+
+
+def segment_mix_push_sum_stacked(
+    flat: torch.Tensor,  # (K, N) float32
+    mass: torch.Tensor,  # (K,) float32
+    ops: SparseOperands,  # one round's (K,) / (K, D)
+    local_steps: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``segment_mix_push_sum_schedule`` over one round's operands."""
+    return segment_mix_push_sum_schedule(flat, mass, 0, SparseOperands(*(t[None] for t in ops)),
+                                         local_steps)

@@ -11,13 +11,15 @@ CLI:  python -m repro_torch.launch.train --experiment noniid_affinity --rounds 4
           --schedule round_robin --compressor qint8
       python -m repro_torch.launch.train --experiment timevarying_k8 \
           --peer-axis pod --peers-per-device 8 --mix-mode segment
+      python -m repro_torch.launch.train --experiment directed_k8 \
+          --schedule one_way_matching   (push-sum on one-way links)
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -25,6 +27,7 @@ import torch
 from repro_torch.compression import compressor_names
 from repro_torch.configs.p2pl_mnist import (
     PaperExperiment,
+    directed_k8,
     iid_k100,
     noniid_k2,
     timevarying_k2,
@@ -34,6 +37,7 @@ from repro_torch.core import consensus as consensus_lib
 from repro_torch.core import features as features_lib
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.core import p2p
+from repro_torch.core import protocols as protocols_lib
 from repro_torch.core import task as task_lib
 from repro_torch.data import partition, synthetic
 from repro_torch.device import resolve_device
@@ -64,6 +68,7 @@ def run_paper_experiment(
     peers_per_device: int = 1,
     mix_mode: str = "auto",
     return_state: bool = False,
+    on_round: Optional[Callable[[int, p2p.P2PState], None]] = None,
 ):
     """Train ``exp`` for ``rounds`` rounds, evaluating after both phases of
     every round; returns the ``RoundLog``.
@@ -78,7 +83,9 @@ def run_paper_experiment(
 
     The log's ``seconds`` hold each round's wall time from batch gather to
     the end of consensus, device work included (evaluation excluded).
-    ``return_state=True`` returns ``(log, final_state)``.
+    ``return_state=True`` returns ``(log, final_state)``; ``on_round(r,
+    state)``, if given, is called after round ``r`` with the state after its
+    consensus (e.g. to watch push-sum's mass).
     """
     if peer_axis not in ("vmap", "pod"):
         raise ValueError(f"peer_axis must be 'vmap' or 'pod', got {peer_axis!r}")
@@ -153,6 +160,8 @@ def run_paper_experiment(
             train_loss=loss,
             seconds=seconds,
         )
+        if on_round is not None:
+            on_round(r, state)
         if verbose:
             print(
                 f"round {r:3d} loss={loss:.4f} "
@@ -181,6 +190,24 @@ def _timevarying(builder):
     return build
 
 
+DIRECTED_SCHEDULES = ("static", "link_dropout", "one_way_matching")
+
+
+def _directed(args) -> PaperExperiment:
+    schedule = args.schedule or "static"
+    if schedule not in DIRECTED_SCHEDULES:
+        raise ValueError(f"directed_k8 supports --schedule {'|'.join(DIRECTED_SCHEDULES)}, "
+                         f"got {schedule!r}")
+    return directed_k8(
+        schedule=schedule,
+        protocol=args.protocol or "push_sum",
+        algorithm=args.algorithm,
+        local_steps=args.local_steps or 10,
+        schedule_rounds=args.schedule_rounds,
+        link_survival_prob=args.link_survival_prob,
+    )
+
+
 # experiment name -> builder from the parsed CLI arguments (the reference
 # CLI's, src/repro/launch/train.py, for the experiments the port runs)
 EXPERIMENTS = {
@@ -192,9 +219,11 @@ EXPERIMENTS = {
                                            local_steps=a.local_steps or 10),
     "timevarying_k2": _timevarying(timevarying_k2),
     "timevarying_k8": _timevarying(timevarying_k8),
+    "directed_k8": _directed,
 }
-# the undirected schedules; one_way_matching and adaptive are items 8b and 13
-SCHEDULE_CHOICES = ["static", "link_dropout", "random_matching", "peer_churn", "round_robin"]
+# every pretraced schedule; adaptive is queue 1 item 13
+SCHEDULE_CHOICES = ["static", "link_dropout", "random_matching", "peer_churn", "round_robin",
+                    "one_way_matching"]
 
 
 def main(argv=None):
@@ -208,10 +237,14 @@ def main(argv=None):
     ap.add_argument("--local-steps", type=int, default=None,
                     help="T local SGD steps per round (default: the experiment's own, 10)")
     ap.add_argument("--algorithm", default="p2pl_affinity",
-                    help="algorithm for timevarying_* experiments")
+                    help="algorithm for timevarying_* and directed_k8 experiments")
     ap.add_argument("--schedule", default=None, choices=SCHEDULE_CHOICES,
-                    help="communication-graph schedule for timevarying_* experiments "
-                         "(default: link_dropout)")
+                    help="communication-graph schedule for timevarying_* and directed_k8 "
+                         "experiments (default: link_dropout for timevarying_*, static for "
+                         "directed_k8, which takes static|link_dropout|one_way_matching)")
+    ap.add_argument("--protocol", default=None, choices=list(protocols_lib.protocol_names()),
+                    help="consensus protocol, for any experiment (default: the "
+                         "experiment's own: gossip everywhere but directed_k8's push_sum)")
     ap.add_argument("--schedule-rounds", type=int, default=16,
                     help="period of the stochastic schedule (cycled)")
     ap.add_argument("--link-survival-prob", type=float, default=0.7)
@@ -242,7 +275,12 @@ def main(argv=None):
     if not 0.0 < args.topk_frac <= 1.0:
         ap.error(f"--topk-frac must be in (0, 1], got {args.topk_frac}")
 
-    exp = EXPERIMENTS[args.experiment](args)
+    try:
+        exp = EXPERIMENTS[args.experiment](args)
+    except ValueError as e:
+        ap.error(str(e))
+    if args.protocol and exp.p2p.protocol != args.protocol:
+        exp = dataclasses.replace(exp, p2p=dataclasses.replace(exp.p2p, protocol=args.protocol))
     if args.compressor and (exp.p2p.compressor != args.compressor
                             or exp.p2p.topk_frac != args.topk_frac):
         try:

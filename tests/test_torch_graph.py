@@ -1,5 +1,6 @@
-"""Port parity, graphs: adjacencies and the float64 W / Beta matrices equal
-``repro.core.graph`` bit for bit (``array_equal``)."""
+"""Port parity, graphs: adjacencies and the float64 W / Beta matrices, row-
+and column-stochastic, equal ``repro.core.graph`` bit for bit
+(``array_equal``)."""
 import numpy as np
 import pytest
 
@@ -63,6 +64,8 @@ def test_topologies_equal(topology, k):
     assert tg.directed == jg.directed
     assert tg.max_degree() == jg.max_degree()
     assert tg.is_connected() == jg.is_connected()
+    assert tg.is_strongly_connected() == jg.is_strongly_connected()
+    np.testing.assert_array_equal(tg.out_degree(), jg.out_degree())
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -90,7 +93,46 @@ def test_protocol_constants_equal(experiment):
     np.testing.assert_array_equal(tc.beta, jc.beta)
 
 
-def test_column_stochastic_is_not_ported():
-    sched = tgraph.static_schedule(tgraph.build_graph("ring", 4))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tgraph.schedule_matrices(sched, stochasticity="column")
+# push-sum's topologies: the directed ring, and undirected graphs (where
+# metropolis gives gossip's doubly stochastic matrix) down to no edges at all
+COLUMN_CASES = {
+    "directed_ring": ("directed_ring", 8, np.arange(1, 9) * 30),
+    "complete": ("complete", 5, np.array([10, 20, 30, 40, 50])),
+    "ring": ("ring", 7, np.arange(3, 10)),
+    "disconnected": ("disconnected", 3, np.array([100, 100, 50])),
+}
+
+
+@pytest.mark.parametrize("case", sorted(COLUMN_CASES))
+@pytest.mark.parametrize("mixing", ["data_weighted", "metropolis", "uniform_neighbor",
+                                    "identity"])
+def test_column_stochastic_matrices_equal(case, mixing):
+    topology, k, sizes = COLUMN_CASES[case]
+    jg, tg = jgraph.build_graph(topology, k), tgraph.build_graph(topology, k)
+    for eps in (1.0, 0.5, np.linspace(0.2, 1.0, k)):
+        got = tgraph.column_stochastic_matrix(tg, mixing, data_sizes=sizes,
+                                              consensus_step_size=eps)
+        want = jgraph.column_stochastic_matrix(jg, mixing, data_sizes=sizes,
+                                               consensus_step_size=eps)
+        assert got.dtype == np.float64
+        np.testing.assert_array_equal(got, want)
+    got = tgraph.schedule_matrices(tgraph.static_schedule(tg), mixing, data_sizes=sizes,
+                                   stochasticity="column")
+    want = jgraph.schedule_matrices(jgraph.static_schedule(jg), mixing, data_sizes=sizes,
+                                    stochasticity="column")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    if mixing == "metropolis" and not tg.directed:
+        np.testing.assert_array_equal(got[0][0], tgraph.mixing_matrix(tg, mixing))
+
+
+def test_column_stochastic_rejects_what_the_reference_rejects():
+    g = tgraph.build_graph("directed_ring", 4)
+    with pytest.raises(ValueError, match="data_sizes"):
+        tgraph.column_stochastic_matrix(g, data_sizes=np.zeros(4))
+    with pytest.raises(ValueError, match="mixing"):
+        tgraph.column_stochastic_matrix(g, "max_degree")
+    with pytest.raises(ValueError, match="consensus_step_size"):
+        tgraph.column_stochastic_matrix(g, consensus_step_size=np.ones(3))
+    with pytest.raises(ValueError, match="stochasticity"):
+        tgraph.schedule_matrices(tgraph.static_schedule(g), stochasticity="diag")

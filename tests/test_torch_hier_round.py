@@ -9,7 +9,10 @@ parameters, with both affinity biases, two consensus steps and momentum:
   its segment mode to its vmap runtime);
 - "bridge" is bitwise the port's own vmap round, and allclose to the
   reference's bridge round at tests/test_kernels.py's float32 tolerance;
-- "auto" picks bridge at K <= 64 and segment above.
+- "auto" picks bridge at K <= 64 and segment above;
+- push-sum (``directed_k8`` reduced, static and directed link dropout) runs
+  both modes the same way, the mass held to the reference's and to sum K:
+  "segment" through the ``segment_mix`` kernel's mass mode.
 
 At K = 4096 one segment consensus phase creates no tensor with two
 dimensions equal to K (the counterpart of the reference's ``_no_kk_avals``).
@@ -55,11 +58,15 @@ SCHEDULES = ("static", "link_dropout", "round_robin")
 FIELDS = ("params", "momentum", "d_bias", "b_bias")
 
 
-def _configs(schedule):
+def _configs(schedule, push_sum=False):
+    """timevarying_k8 (gossip) or directed_k8 (push-sum), reduced, with both
+    affinity biases, two consensus steps and momentum."""
     kw = dict(schedule=schedule, local_steps=2, schedule_rounds=4)
     rep = dict(eta_b=0.1, consensus_steps=2, momentum=0.3)
-    return (dataclasses.replace(jconfigs.timevarying_k8(**kw).p2p, **rep),
-            dataclasses.replace(tconfigs.timevarying_k8(**kw).p2p, **rep))
+    jexp, texp = ((jconfigs.directed_k8(**kw), tconfigs.directed_k8(**kw)) if push_sum
+                  else (jconfigs.timevarying_k8(**kw), tconfigs.timevarying_k8(**kw)))
+    return (dataclasses.replace(jexp.p2p, **rep), dataclasses.replace(texp.p2p, **rep),
+            list(jexp.peer_classes))
 
 
 def _leaves(tree):
@@ -75,12 +82,17 @@ def _assert_close(tstate, jstate, what, tol):
             np.testing.assert_allclose(got[name].numpy(), want, **tol,
                                        err_msg=f"{what} {field} {name}")
     assert tstate.round_idx == int(jstate.round_idx)
+    if jstate.protocol != ():
+        mass = tstate.protocol.mass
+        np.testing.assert_allclose(mass.numpy(), np.asarray(jstate.protocol.mass), **tol,
+                                   err_msg=f"{what} mass")
+        np.testing.assert_allclose(float(mass.sum()), K, rtol=1e-5)
+        assert bool((mass > 0).all())
 
 
-def _start(schedule, mnist_small):
-    jcfg, tcfg = _configs(schedule)
+def _start(schedule, mnist_small, push_sum=False):
+    jcfg, tcfg, classes = _configs(schedule, push_sum)
     x, y, _, _ = mnist_small
-    classes = [(2 * k % 10, 2 * k % 10 + 1) for k in range(K)]
     parts = partition.pathological_partition(x, y, classes, samples_per_class=50)
     sizes = partition.data_sizes(parts)
     key = jax.random.PRNGKey(0)
@@ -96,11 +108,11 @@ def _one_device_mesh():
     return jax.sharding.Mesh(np.asarray(jax.devices()[:1]), ("pod",))
 
 
-def _run(schedule, mix_mode, mnist_small):
+def _run(schedule, mix_mode, mnist_small, push_sum=False):
     """3 rounds of the port's and the reference's one-slice runtimes, and of
     the port's vmap runtime, on the same batches; yields each round's
     (port hier, reference hier, port vmap) (after_local, after_consensus)."""
-    jcfg, tcfg, task, parts, sizes, jstate, tstate = _start(schedule, mnist_small)
+    jcfg, tcfg, task, parts, sizes, jstate, tstate = _start(schedule, mnist_small, push_sum)
     mesh = _one_device_mesh()
     jround = jp2p.make_sharded_round_fn(jmlp.loss_2nn, jcfg, mesh, data_sizes=sizes,
                                         peers_per_device=K, mix_mode=mix_mode)
@@ -134,6 +146,45 @@ def test_bridge_round_is_the_vmap_round_bit_for_bit(schedule, mnist_small):
             for field in FIELDS:
                 assert torch.equal(getattr(hier, field), getattr(vmap, field)), (r, field)
         _assert_close(tc, jc, f"{schedule} round {r} after consensus", TOL)
+
+
+PUSH_SUM_SCHEDULES = ("static", "link_dropout")
+
+
+@pytest.mark.parametrize("schedule", PUSH_SUM_SCHEDULES)
+def test_push_sum_segment_round_matches_reference(schedule, mnist_small):
+    for r, (tl, tc), (jl, jc), _ in _run(schedule, "segment", mnist_small, push_sum=True):
+        _assert_close(tl, jl, f"push-sum {schedule} round {r} after local", SEGMENT_TOL)
+        _assert_close(tc, jc, f"push-sum {schedule} round {r} after consensus", SEGMENT_TOL)
+
+
+@pytest.mark.parametrize("schedule", PUSH_SUM_SCHEDULES)
+def test_push_sum_bridge_round_is_the_vmap_round_bit_for_bit(schedule, mnist_small):
+    for r, (tl, tc), (jl, jc), (vl, vc) in _run(schedule, "bridge", mnist_small, push_sum=True):
+        for hier, vmap in ((tl, vl), (tc, vc)):
+            for field in FIELDS:
+                assert torch.equal(getattr(hier, field), getattr(vmap, field)), (r, field)
+            assert torch.equal(hier.protocol.mass, vmap.protocol.mass), r
+        _assert_close(tc, jc, f"push-sum {schedule} round {r} after consensus", TOL)
+
+
+def test_push_sum_segment_mode_calls_the_mass_mode(monkeypatch, mnist_small):
+    """The push-sum segment runtime mixes through
+    ``segment_mix_push_sum_schedule``, once per consensus step."""
+    calls = []
+    real = segment.segment_mix_push_sum_schedule
+
+    def spy(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(segment, "segment_mix_push_sum_schedule", spy)
+    _, tcfg, task, parts, sizes, _, state = _start("static", mnist_small, push_sum=True)
+    batches = tpipeline.PeerBatcher(parts, 10, seed=0).round_batches_on(
+        tcfg.local_steps, torch.device("cpu"))
+    tp2p.make_hier_round_fn(task, tcfg, sizes, peers_per_device=K, mix_mode="segment",
+                            device="cpu")(state, batches)
+    assert len(calls) == tcfg.consensus_steps
 
 
 def test_auto_mode_picks_bridge_up_to_64_peers(monkeypatch, mnist_small):
@@ -213,7 +264,7 @@ def test_compression_x_hierarchical_message_equals_reference():
 
 def test_layout_and_mix_mode_errors_read_as_the_reference():
     task = ttask.get_task("mnist_mlp")
-    _, tcfg = _configs("static")
+    _, tcfg, _ = _configs("static")
     with pytest.raises(ValueError) as want:
         jspecs.hierarchical_layout(K, _one_device_mesh(), peers_per_device=1)
     with pytest.raises(ValueError) as got:

@@ -58,3 +58,27 @@ def test_flat_rows_round_trip():
         assert torch.equal(views[name], value)
         # a view into the row buffer, not a copy
         assert views[name].untyped_storage().data_ptr() == flat.untyped_storage().data_ptr()
+
+
+@pytest.mark.parametrize("protocol", ["gossip", "push_sum"])
+def test_state_from_jax_carries_the_protocol_state(protocol):
+    """A reference round state converts with its protocol state: gossip's
+    ``()``, push-sum's (K,) mass, float32 bits unchanged."""
+    from repro.configs import p2pl_mnist as jconfigs
+    from repro.core import p2p as jp2p
+    from repro.core import task as jtask
+    from repro_torch.core import protocols as tprotocols
+
+    cfg = jconfigs.directed_k8(protocol=protocol).p2p
+    sizes = np.array([150, 150, 150, 150, 100, 100, 100, 100])
+    jstate = jp2p.init_state(jax.random.PRNGKey(0), jtask.get_task("mnist_mlp"), cfg,
+                             data_sizes=sizes)
+    tstate = interop.state_from_jax(jax.tree.map(np.asarray, jstate),
+                                    ttask.get_task("mnist_mlp"))
+    if protocol == "gossip":
+        assert tstate.protocol == ()
+    else:
+        assert isinstance(tstate.protocol, tprotocols.PushSumState)
+        assert tstate.protocol.mass.dtype == torch.float32
+        np.testing.assert_array_equal(tstate.protocol.mass.numpy(),
+                                      np.asarray(jstate.protocol.mass))

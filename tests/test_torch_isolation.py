@@ -99,7 +99,7 @@ def test_cli_raises_without_cuda(no_cuda, argv):
 
 @pytest.mark.parametrize("argv,msg", [
     (["--topk-frac", "0"], "--topk-frac must be in (0, 1]"),
-    (["--schedule", "one_way_matching"], "invalid choice"),
+    (["--protocol", "flood"], "invalid choice"),  # one_way_matching is valid since push-sum
     (["--schedule", "adaptive"], "invalid choice"),
 ])
 def test_cli_rejects_bad_flags(argv, msg, capsys):

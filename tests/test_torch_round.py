@@ -55,9 +55,6 @@ def test_config_fields_match_reference():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("protocol", "push_sum", "8b"),
-    ("schedule", "one_way_matching", "8b"),
-    ("topology", "directed_ring", "8b"),
     ("schedule", "adaptive", 13),
     ("steps_profile", "linear", 12),
     ("steps_profile", "straggler", 12),

@@ -1,9 +1,10 @@
-"""Port parity, time-varying schedules: every undirected schedule builder,
-``build_schedule`` and ``schedule_matrices`` give adjacencies equal to
-``repro.core.graph``'s (``array_equal``) and float64 W / Beta equal bit for
-bit, for several seeds; ``spectral_gap`` and the schedule's union checks
-agree; and the config checks of the time-varying and compression fields
-reject what the reference rejects."""
+"""Port parity, time-varying schedules: every schedule builder, undirected
+and directed, ``build_schedule`` and ``schedule_matrices`` (row- and
+column-stochastic) give adjacencies equal to ``repro.core.graph``'s
+(``array_equal``) and float64 W / Beta equal bit for bit, for several seeds;
+``spectral_gap`` and the schedule's union checks agree; and the config
+checks of the time-varying and compression fields reject what the reference
+rejects."""
 import dataclasses
 
 import numpy as np
@@ -35,6 +36,7 @@ def _assert_schedules_equal(got, want):
     assert got.max_degree() == want.max_degree()
     np.testing.assert_array_equal(got.union_graph().adjacency, want.union_graph().adjacency)
     assert got.union_is_connected() == want.union_is_connected()
+    assert got.union_is_strongly_connected() == want.union_is_strongly_connected()
     for r in (0, 1, got.period, 2 * got.period + 1):
         np.testing.assert_array_equal(got.graph_at(r).adjacency, want.graph_at(r).adjacency)
 
@@ -88,11 +90,50 @@ def test_builder_argument_checks_match():
         tgraph.random_matching_schedule(1, 3)
 
 
-def test_directed_schedules_raise_item_8b():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8b"):
-        tgraph.link_dropout_schedule(tgraph.build_graph("directed_ring", 4), 0.5, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8b"):
-        tgraph.one_way_matching_schedule(4, 3)
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("k", [4, 8])
+def test_directed_link_dropout_equal(k, seed):
+    """On a directed base each one-way edge drops on its own."""
+    for q in (0.3, 0.7, 1.0):
+        _assert_schedules_equal(
+            tgraph.link_dropout_schedule(tgraph.build_graph("directed_ring", k), q, 6,
+                                         seed=seed),
+            jgraph.link_dropout_schedule(jgraph.build_graph("directed_ring", k), q, 6,
+                                         seed=seed),
+        )
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("k", [2, 7, 8])
+def test_one_way_matching_equal(k, seed):
+    _assert_schedules_equal(tgraph.one_way_matching_schedule(k, 5, seed=seed),
+                            jgraph.one_way_matching_schedule(k, 5, seed=seed))
+    with pytest.raises(ValueError):
+        tgraph.one_way_matching_schedule(1, 3)
+    with pytest.raises(ValueError):
+        tgraph.one_way_matching_schedule(k, 0)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("schedule", ["static", "link_dropout", "one_way_matching"])
+def test_directed_build_schedule_and_column_matrices_equal(schedule, seed):
+    """``directed_k8``'s schedules and their column-stochastic (push-sum)
+    and row-stochastic (gossip) matrices."""
+    kw = dict(schedule=schedule, schedule_rounds=5)
+    jcfg = dataclasses.replace(jconfigs.directed_k8(**kw).p2p, schedule_seed=seed)
+    tcfg = dataclasses.replace(tconfigs.directed_k8(**kw).p2p, schedule_seed=seed)
+    tsched, jsched = tp2p.build_schedule(tcfg), jp2p.build_schedule(jcfg)
+    _assert_schedules_equal(tsched, jsched)
+    assert tsched.directed
+    sizes = np.arange(1, 9) * 37
+    for mixing in ("data_weighted", "metropolis", "uniform_neighbor"):
+        for stochasticity in ("column", "row"):
+            kw = dict(data_sizes=sizes, consensus_step_size=0.7, stochasticity=stochasticity)
+            got = tgraph.schedule_matrices(tsched, mixing, **kw)
+            want = jgraph.schedule_matrices(jsched, mixing, **kw)
+            for g, w in zip(got, want):
+                assert g.dtype == np.float64 and g.shape == w.shape
+                np.testing.assert_array_equal(g, w)
 
 
 def _experiments(schedule, seed):
@@ -167,6 +208,11 @@ def test_config_checks_match_reference(kw):
         assert str(got.value) == str(want.value)  # the compatibility table's message
 
 
-def test_round_robin_directed_topology_raises_item_8b():
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        tp2p.P2PConfig(schedule="round_robin", round_robin_topologies=("ring", "directed_ring"))
+def test_round_robin_with_a_directed_member_equals_reference():
+    kw = dict(num_peers=6, schedule="round_robin",
+              round_robin_topologies=("ring", "directed_ring", "star"))
+    tcfg, jcfg = tp2p.P2PConfig(**kw), jp2p.P2PConfig(**kw)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    tsched, jsched = tp2p.build_schedule(tcfg), jp2p.build_schedule(jcfg)
+    _assert_schedules_equal(tsched, jsched)
+    assert tsched.directed and [g.directed for g in tsched.graphs] == [False, True, False]

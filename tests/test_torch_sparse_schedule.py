@@ -1,8 +1,9 @@
 """Port parity, the sparse degree-bounded schedule: ``graph.SparseSchedule``
 built straight from the graphs equals ``repro.core.graph.SparseSchedule``
-field for field (``array_equal``, float64) for every undirected schedule and
-mixing, scatters back to the float64 ``schedule_matrices`` exactly, and
-round-trips through ``from_dense`` / ``to_dense``.  At K = 4096 the build
+field for field (``array_equal``, float64) for every schedule and mixing,
+row-stochastic (gossip) and column-stochastic (push-sum, on the directed
+schedules too), scatters back to the float64 ``schedule_matrices`` exactly,
+and round-trips through ``from_dense`` / ``to_dense``.  At K = 4096 the build
 and the upload stay sparse: the dense builders are patched to raise.
 
 The runtime's operands come from this form (``GossipProtocol.operands``), so
@@ -109,8 +110,9 @@ def test_invalid_arrays_and_stochasticity_rejected():
         tgraph.SparseSchedule(sp.self_w, sp.nbr_idx + K, sp.nbr_w, sp.beta)
     with pytest.raises(ValueError, match="stochasticity"):
         tgraph.SparseSchedule(sp.self_w, sp.nbr_idx, sp.nbr_w, sp.beta, stochasticity="diag")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8b$"):
-        tgraph.SparseSchedule.from_schedule(tsched, stochasticity="column")
+    column = dict(data_sizes=np.arange(1, K + 1), stochasticity="column")
+    _assert_sparse_equal(tgraph.SparseSchedule.from_schedule(tsched, **column),
+                         jgraph.SparseSchedule.from_schedule(_schedules("static")[1], **column))
     with pytest.raises(ValueError, match="stochasticity"):
         tgraph.SparseSchedule.from_schedule(tsched, stochasticity="diag")
 
@@ -161,3 +163,62 @@ def test_operands_keep_beta_where_mixing_weight_is_zero(mixing, eps):
             np.testing.assert_array_equal(
                 t.numpy(), getattr(want, field)[0].astype(t.numpy().dtype), err_msg=field)
         assert bool((ops.beta.sum(dim=1) == 1).all()) and bool((ops.nbr_w == 0).all())
+
+
+DIRECTED = ("static", "link_dropout", "one_way_matching")
+
+
+@pytest.mark.parametrize("eps", [1.0, 0.7])
+@pytest.mark.parametrize("mixing", MIXINGS)
+@pytest.mark.parametrize("name", DIRECTED)
+def test_column_from_schedule_equals_reference_on_directed_schedules(name, mixing, eps):
+    """Push-sum's column-stochastic sparse weights on the directed ring's
+    schedules: equal to the reference's, and ``to_dense`` gives the float64
+    ``schedule_matrices(..., stochasticity="column")`` exactly."""
+    tsched, jsched = _schedules(name, topology="directed_ring")
+    assert tsched.directed
+    kw = dict(data_sizes=np.arange(3, 3 + K), consensus_step_size=eps, stochasticity="column")
+    got = tgraph.SparseSchedule.from_schedule(tsched, mixing, **kw)
+    _assert_sparse_equal(got, jgraph.SparseSchedule.from_schedule(jsched, mixing, **kw))
+    w, beta = tgraph.schedule_matrices(tsched, mixing, **kw)
+    w2, beta2 = got.to_dense()
+    assert np.array_equal(w, w2) and np.array_equal(beta, beta2)
+
+
+@pytest.mark.parametrize("name", UNDIRECTED)
+def test_column_from_schedule_equals_reference_on_undirected_schedules(name):
+    tsched, jsched = _schedules(name)
+    for mixing in MIXINGS:
+        kw = dict(data_sizes=np.arange(3, 3 + K), stochasticity="column")
+        got = tgraph.SparseSchedule.from_schedule(tsched, mixing, **kw)
+        _assert_sparse_equal(got, jgraph.SparseSchedule.from_schedule(jsched, mixing, **kw))
+        w, beta = tgraph.schedule_matrices(tsched, mixing, **kw)
+        w2, beta2 = got.to_dense()
+        assert np.array_equal(w, w2) and np.array_equal(beta, beta2)
+
+
+@pytest.mark.parametrize("name", DIRECTED)
+def test_column_from_dense_round_trip_equals_reference(name):
+    tsched, _ = _schedules(name, topology="directed_ring")
+    w, beta = tgraph.schedule_matrices(tsched, "data_weighted", data_sizes=np.arange(1, K + 1),
+                                       stochasticity="column")
+    got = tgraph.SparseSchedule.from_dense(w, beta, stochasticity="column", name=name)
+    _assert_sparse_equal(got, jgraph.SparseSchedule.from_dense(w, beta, stochasticity="column",
+                                                               name=name))
+    w2, beta2 = got.to_dense()
+    assert np.array_equal(w, w2) and np.array_equal(beta, beta2)
+
+
+def test_push_sum_operands_are_the_column_schedule_in_float32():
+    """``schedule_operands`` of a push-sum config uploads the column-stochastic
+    sparse schedule, cast to float32 once."""
+    cfg = tp2p.P2PConfig(num_peers=K, topology="directed_ring", protocol="push_sum",
+                         schedule="link_dropout", schedule_rounds=4)
+    sizes = np.arange(2, 2 + K)
+    ops_s = tp2p.schedule_operands(cfg, sizes, device="cpu")
+    want = jgraph.SparseSchedule.from_schedule(jp2p.build_schedule(jp2p.P2PConfig(
+        num_peers=K, topology="directed_ring", protocol="push_sum", schedule="link_dropout",
+        schedule_rounds=4)), data_sizes=sizes, stochasticity="column")
+    for field, t in zip(FIELDS, ops_s):
+        np.testing.assert_array_equal(t.numpy(), getattr(want, field).astype(t.numpy().dtype),
+                                      err_msg=field)

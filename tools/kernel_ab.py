@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time two versions of the port's ``consensus_mix``, ``dequant_mix``,
-``wkv6``, ``flash_attention`` and ``ssd`` kernels in turns on one GPU: this
-checkout's and another tree's (an older commit unpacked beside it).
+``segment_mix``, ``wkv6``, ``flash_attention`` and ``ssd`` kernels in turns on
+one GPU: this checkout's and another tree's (an older commit unpacked beside
+it).
 
 Both versions are built from their ``.cu`` sources with the port's nvcc flags
 into ``build/kernel_ab/``, called through the C entry points their wrappers
@@ -13,8 +14,14 @@ library call and the bound chip_smoke.py computes:
 - ``consensus_mix`` at K = 2, 8 (a ring padded to 3 slots) and 100, and
   on complete graphs of 12 to 32 peers (where its designs cross), each of
   the checkout's two designs (``new_tile_ms``, ``new_gather_ms``) beside
-  the old tree's and ``torch.matmul([W; Beta], X)``;
-- ``dequant_mix`` at K = 100 and 8;
+  the old tree's same design (``gossip_identical_bits``: the two versions'
+  outputs equal bit for bit) and ``torch.matmul([W; Beta], X)``;
+- ``dequant_mix`` at K = 100, 8 and 129, and ``segment_mix`` at K = 100
+  complete and on the K = 4096 ring, old against new, each with
+  ``gossip_identical_bits``;
+- for the three consensus kernels also the mass mode (push-sum,
+  ``new_mass_ms``, and ``old_mass_ms`` where the other tree has one) on the
+  same inputs with a random positive mass, held to its plain version;
 - ``wkv6`` at the serving prefill's B 4, T 1024 and at B 1, T 4096
   (float32), with bf16 r, k, v as served (an old tree whose kernel takes
   float32 only is timed as its wrapper ran it, casts included), and at a
@@ -63,6 +70,7 @@ from repro_torch.kernels.rwkv6 import ref as wkv6_ref  # noqa: E402
 KERNELS = {  # name: source below src/repro_torch/kernels
     "consensus_mix": "consensus_mix/csrc/consensus_mix.cu",
     "dequant_mix": "consensus_mix/csrc/dequant_mix.cu",
+    "segment_mix": "consensus_mix/csrc/segment_mix.cu",
     "wkv6": "rwkv6/csrc/wkv6.cu",
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
     "ssd": "mamba2/csrc/ssd.cu",
@@ -81,19 +89,42 @@ def build_lib(tree: Path, rel: str, tag: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(lib))
 
 
-def dequant_fn(lib: ctypes.CDLL, k: int):
-    """The entry point this version's wrapper would call at K peers: the
-    column-tile one where the library has it and K is within its cap."""
+def push_sum_mass(k: int, dev) -> torch.Tensor:
+    """A positive (K,) mass summing to K for the mass-mode runs."""
+    return chip_smoke.push_sum_mass(k, 11, dev)
+
+
+def mass_stats(outs: list, want: tuple, what: str) -> dict:
+    """Holds a mass-mode run's outputs to its plain version at chip_smoke's
+    tolerance; returns their largest difference."""
+    err = 0.0
+    for got, ref_out in zip(outs, want):
+        torch.testing.assert_close(got, ref_out, **chip_smoke.TOL, msg=lambda m: f"{what}: {m}")
+        err = max(err, float((got - ref_out).abs().max()))
+    return {"mass_max_abs_err": err}
+
+
+def dequant_fns(lib: ctypes.CDLL, k: int) -> dict:
+    """The entry points this version's wrapper would call at K peers (the
+    column-tile one where the library has it and K is within its cap):
+    ``gossip`` and, where the library has it, ``mass``."""
     tile = hasattr(lib, "dequant_mix_tile_f32") and dequant.takes_tile_path(k)
-    fn = lib.dequant_mix_tile_f32 if tile else lib.dequant_mix_f32
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, ptr, ptr, ptr, ptr, i64,
-                   ctypes.c_float, ctypes.c_int, ptr, ptr, ptr, ptr]
-    fn.restype = ctypes.c_int
-    return fn, "tile" if tile else "gather"
+    head = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, ptr, ptr, ptr, ptr, i64, ctypes.c_float,
+            ctypes.c_int]
+    fns = {"gossip": (lib.dequant_mix_tile_f32 if tile else lib.dequant_mix_f32,
+                      head + [ptr] * 4)}
+    if hasattr(lib, "dequant_mix_push_sum_f32"):
+        fns["mass"] = (lib.dequant_mix_push_sum_tile_f32 if tile else lib.dequant_mix_push_sum_f32,
+                       head + [ptr] * 6)
+    for fn, argtypes in fns.values():
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return {mode: fn for mode, (fn, _) in fns.items()} | {"path": "tile" if tile else "gather"}
 
 
 def ab_dequant(card, libs: dict, name: str, graph, k: int, seed: int = 0) -> dict:
+    """dequant_mix's gossip mode, old against new (outputs compared bit for
+    bit), and the new version's mass mode (push-sum) on the same inputs."""
     dev = torch.device("cuda")
     layout = layout_of("mnist_mlp")
     sizes = np.full(k, 600)
@@ -107,26 +138,47 @@ def ab_dequant(card, libs: dict, name: str, graph, k: int, seed: int = 0) -> dic
     q = torch.as_tensor(rng.integers(-127, 128, (k, n)).astype(np.int8), device=dev)
     scale = torch.as_tensor(rng.uniform(0, 1e-4, (k, len(leaves) - 1)).astype(np.float32),
                             device=dev)
+    mass = push_sum_mass(k, dev)
     want = ref.dequant_mix_stacked_ref(x, est, q, scale, leaves, *sparse, t)
     starts = (ctypes.c_int64 * (len(leaves) - 1))(*leaves[:-1])
     stream = torch.cuda.current_stream().cuda_stream
-    runs, paths = {}, {}
+    head = lambda: [x.data_ptr(), est.data_ptr(), q.data_ptr(), scale.data_ptr(),  # noqa: E731
+                    starts, len(leaves) - 1, k, n, sparse.self_w.data_ptr(),
+                    sparse.nbr_idx.data_ptr(), sparse.nbr_w.data_ptr(), sparse.beta.data_ptr(),
+                    sparse.nbr_idx.shape[1], float(t), 1]
+    runs, paths, outs = {}, {}, {}
     for tag, lib in libs.items():
-        fn, paths[tag] = dequant_fn(lib, k)
-        outs = [torch.empty_like(x) for _ in range(3)]
+        fns = dequant_fns(lib, k)
+        paths[tag] = fns["path"]
+        outs[tag] = [torch.empty_like(x) for _ in range(3)]
 
-        def run(fn=fn, outs=outs):
-            err = fn(x.data_ptr(), est.data_ptr(), q.data_ptr(), scale.data_ptr(), starts,
-                     len(leaves) - 1, k, n, sparse.self_w.data_ptr(), sparse.nbr_idx.data_ptr(),
-                     sparse.nbr_w.data_ptr(), sparse.beta.data_ptr(), sparse.nbr_idx.shape[1],
-                     float(t), 1, *(o.data_ptr() for o in outs), stream)
+        def run(fn=fns["gossip"], o=outs[tag], tag=tag):
+            err = fn(*head(), *(t_.data_ptr() for t_ in o), stream)
             chip_smoke.check(err == 0, f"dequant_mix {tag} launch: cudaError_t {err}")
 
         run()
         torch.cuda.synchronize()
-        for got, ref_out in zip(outs, want):
+        for got, ref_out in zip(outs[tag], want):
             torch.testing.assert_close(got, ref_out, **chip_smoke.TOL)
         runs[tag] = run
+    want_mass = ref.dequant_mix_push_sum_stacked_ref(x, est, q, scale, leaves, mass, *sparse, t)
+    stats = {}
+    for tag, lib in libs.items():
+        fns = dequant_fns(lib, k)
+        if "mass" not in fns:
+            continue
+        mass_outs = [torch.empty_like(x) for _ in range(3)] + [torch.empty_like(mass)]
+
+        def run_mass(fn=fns["mass"], o=mass_outs, tag=tag):
+            err = fn(*head(), mass.data_ptr(), *(t_.data_ptr() for t_ in o), stream)
+            chip_smoke.check(err == 0, f"dequant_mix {tag} mass launch: cudaError_t {err}")
+
+        run_mass()
+        torch.cuda.synchronize()
+        stats |= {f"{tag}_{key}": v for key, v in mass_stats(
+            mass_outs, want_mass, f"dequant_mix {tag} {name} mass mode").items()}
+        runs[f"{tag}_mass"] = run_mass
+    identical = all(torch.equal(a, b) for a, b in zip(outs["old"], outs["new"]))
     dense = ref.dense_mix_operator(sparse.nbr_idx, sparse.nbr_w, sparse.beta)
     lib_out = torch.empty(2 * k, n, device=dev)
     times = in_turns(runs, lambda: torch.matmul(dense, want[2], out=lib_out))
@@ -134,27 +186,32 @@ def ab_dequant(card, libs: dict, name: str, graph, k: int, seed: int = 0) -> dic
     flops = n * (4 * real + 5 * k)
     nbytes = 4 * k * n * 4 + k * n + k * (len(leaves) - 1) * 4 + k * n * 4 + k * 4 + \
         3 * k * sparse.nbr_idx.shape[1] * 4
-    return {"kernel": "dequant_mix", "case": name, "K": k, "N": n, "paths": paths, **times,
-            **card.bound(nbytes, flops)}
+    return {"kernel": "dequant_mix", "case": name, "K": k, "N": n, "paths": paths,
+            "gossip_identical_bits": identical, **stats, **times, **card.bound(nbytes, flops)}
 
 
 def consensus_fns(lib: ctypes.CDLL) -> dict:
     """The consensus_mix entry points a library has: ``gather`` (every
-    version) and ``tile`` (from the column-tile design on)."""
+    version), ``tile`` (from the column-tile design on) and their mass modes
+    ``mass_gather`` / ``mass_tile`` (from push-sum on)."""
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    fns = {"gather": lib.consensus_mix_f32}
-    if hasattr(lib, "consensus_mix_tile_f32"):
-        fns["tile"] = lib.consensus_mix_tile_f32
-    for fn in fns.values():
-        fn.argtypes = [ptr, i64, i64, ptr, ptr, ptr, ptr, i64, ctypes.c_float, ptr, ptr, ptr]
+    names = {"gather": "consensus_mix_f32", "tile": "consensus_mix_tile_f32",
+             "mass_gather": "consensus_mix_push_sum_f32",
+             "mass_tile": "consensus_mix_push_sum_tile_f32"}
+    fns = {key: getattr(lib, name) for key, name in names.items() if hasattr(lib, name)}
+    for key, fn in fns.items():
+        fn.argtypes = [ptr, i64, i64, ptr, ptr, ptr, ptr, i64, ctypes.c_float,
+                       *([ptr] * (5 if key.startswith("mass") else 3))]
         fn.restype = ctypes.c_int
     return fns
 
 
 def ab_consensus(card, libs: dict, name: str, graph, sizes, n: int, *, dmax=None,
                  seed=0) -> dict:
-    """consensus_mix: the old tree's design against both of this checkout's,
-    which the wrapper's rule (``ops.takes_tile_path``) chooses between."""
+    """consensus_mix: each design of the old tree against the same design of
+    this checkout (outputs compared bit for bit), and this checkout's mass
+    mode (push-sum) in the design the wrapper's rule (``ops.takes_tile_path``)
+    takes, on the same inputs."""
     dev = torch.device("cuda")
     w = graph_lib.mixing_matrix(graph, "data_weighted", data_sizes=sizes)
     beta = graph_lib.affinity_matrix(graph, data_sizes=sizes)
@@ -163,35 +220,135 @@ def ab_consensus(card, libs: dict, name: str, graph, sizes, n: int, *, dmax=None
     t = 10
     rng = np.random.default_rng(seed)
     x = torch.as_tensor(rng.normal(size=(k, n)).astype(np.float32), device=dev)
+    mass = push_sum_mass(k, dev)
     want = ref.consensus_mix_stacked_ref(x, *sparse, t)
     stream = torch.cuda.current_stream().cuda_stream
-    fns = {"old": consensus_fns(libs["old"])["gather"]}
-    fns |= {f"new_{design}": fn for design, fn in consensus_fns(libs["new"]).items()}
-    runs = {}
+    rule = "tile" if ops.takes_tile_path(k) else "gather"
+    old, new = consensus_fns(libs["old"]), consensus_fns(libs["new"])
+    fns = {f"old_{design}": old[design] for design in ("gather", "tile") if design in old}
+    fns |= {f"new_{design}": new[design] for design in ("gather", "tile")}
+    fns |= {f"{tag}_mass": lib[f"mass_{rule}"] for tag, lib in (("old", old), ("new", new))
+            if f"mass_{rule}" in lib}
+    head = [x.data_ptr(), k, n, sparse.self_w.data_ptr(), sparse.nbr_idx.data_ptr(),
+            sparse.nbr_w.data_ptr(), sparse.beta.data_ptr(), d, float(t)]
+    runs, outs = {}, {}
     for tag, fn in fns.items():
-        outs = [torch.empty_like(x) for _ in range(2)]
+        outs[tag] = [torch.empty_like(x) for _ in range(2)]
+        tail = [o.data_ptr() for o in outs[tag]]
+        if tag.endswith("_mass"):
+            outs[tag].append(torch.empty_like(mass))
+            tail = [mass.data_ptr(), *(o.data_ptr() for o in outs[tag])]
 
-        def run(fn=fn, outs=outs, tag=tag):
-            err = fn(x.data_ptr(), k, n, sparse.self_w.data_ptr(), sparse.nbr_idx.data_ptr(),
-                     sparse.nbr_w.data_ptr(), sparse.beta.data_ptr(), d, float(t),
-                     *(o.data_ptr() for o in outs), stream)
+        def run(fn=fn, tail=tail, tag=tag):
+            err = fn(*head, *tail, stream)
             chip_smoke.check(err == 0, f"consensus_mix {tag} launch: cudaError_t {err}")
 
         run()
         torch.cuda.synchronize()
-        for got, ref_out in zip(outs, want):
-            torch.testing.assert_close(got, ref_out, **chip_smoke.TOL)
+        if not tag.endswith("_mass"):
+            for got, ref_out in zip(outs[tag], want):
+                torch.testing.assert_close(got, ref_out, **chip_smoke.TOL)
         runs[tag] = run
+    want_mass = ref.consensus_mix_push_sum_stacked_ref(x, mass, *sparse, t)
+    stats = {}
+    for tag in ("old_mass", "new_mass"):
+        if tag in outs:
+            stats |= {f"{tag.removesuffix('_mass')}_{key}": v for key, v in mass_stats(
+                outs[tag], want_mass, f"consensus_mix {tag} {name}").items()}
+    identical = {design: all(torch.equal(a, b) for a, b in
+                             zip(outs[f"old_{design}"], outs[f"new_{design}"]))
+                 for design in ("gather", "tile") if f"old_{design}" in outs}
     dense = torch.as_tensor(np.concatenate([w, beta]), dtype=torch.float32, device=dev)
     lib_out = torch.empty(2 * k, n, device=dev)
     times = in_turns(runs, lambda: torch.matmul(dense, x, out=lib_out))
-    rule = "tile" if ops.takes_tile_path(k) else "gather"
     times["new_ms"] = times[f"new_{rule}_ms"]  # the design the wrapper takes at this K
+    if f"old_{rule}_ms" in times:
+        times["old_ms"] = times[f"old_{rule}_ms"]
     real = (sparse.nbr_idx != torch.arange(k, device=dev)[:, None]).sum().item()
     flops = n * (4 * real + 3 * k)
     nbytes = 3 * k * n * 4 + k * 4 + 3 * k * d * 4
     return {"kernel": "consensus_mix", "case": name, "K": k, "D": d, "N": n, "rule": rule,
-            **times, **card.bound(nbytes, flops)}
+            "gossip_identical_bits": identical, **stats, **times, **card.bound(nbytes, flops)}
+
+
+def segment_fns(lib: ctypes.CDLL) -> dict:
+    """segment_mix's entry points: ``gossip`` and, from push-sum on, ``mass``."""
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    head = [ptr, i64, i64, ptr, ptr, ptr, ptr, i64, i64, i64, ctypes.c_float]
+    fns = {"gossip": (lib.segment_mix_f32, head + [ptr] * 3)}
+    if hasattr(lib, "segment_mix_push_sum_f32"):
+        fns["mass"] = (lib.segment_mix_push_sum_f32, head + [ptr] * 5)
+    for fn, argtypes in fns.values():
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return {mode: fn for mode, (fn, _) in fns.items()}
+
+
+def ab_segment(card, libs: dict, name: str, topology: str, k: int, sizes, seed=0) -> dict:
+    """segment_mix's gossip mode, old against new (outputs compared bit for
+    bit), and the new version's mass mode on the same inputs and operands,
+    at the 2NN's row."""
+    dev = torch.device("cuda")
+    layout = layout_of("mnist_mlp")
+    n, t = layout.row, 10
+    sched = graph_lib.static_schedule(graph_lib.build_graph(topology, k))
+    sparse = graph_lib.SparseSchedule.from_schedule(sched, "data_weighted", data_sizes=sizes)
+    ops_s = ops.upload_schedule(sparse, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.zeros(k, n, device=dev)
+    x[:, :layout.size] = torch.randn(k, layout.size, generator=gen, device=dev)
+    mass = push_sum_mass(k, dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    head = [x.data_ptr(), k, n, ops_s.self_w.data_ptr(), ops_s.nbr_idx.data_ptr(),
+            ops_s.nbr_w.data_ptr(), ops_s.beta.data_ptr(), 1, 0, sparse.degree_bound, float(t)]
+    runs, outs = {}, {}
+    for tag, lib in libs.items():
+        outs[tag] = [torch.empty_like(x) for _ in range(2)]
+
+        def run(fn=segment_fns(lib)["gossip"], o=outs[tag], tag=tag):
+            err = fn(*head, *(t_.data_ptr() for t_ in o), stream)
+            chip_smoke.check(err == 0, f"segment_mix {tag} launch: cudaError_t {err}")
+
+        run()
+        runs[tag] = run
+    torch.cuda.synchronize()
+    one = ops.select_round(ops_s, 0)
+    want = ref.segment_mix_stacked_ref(x, *one, t)
+    for got, ref_out in zip(outs["new"], want):
+        torch.testing.assert_close(got, ref_out, **chip_smoke.TOL)
+    del want
+    identical = all(torch.equal(a, b) for a, b in zip(outs["old"], outs["new"]))
+    del outs["old"]
+    want_mass = ref.segment_mix_push_sum_stacked_ref(x, mass, *one, t)
+    mass_outs = outs["new"] + [torch.empty_like(mass)]  # the gossip runs' buffers, reused
+    stats = {}
+    for tag, lib in libs.items():
+        fns = segment_fns(lib)
+        if "mass" not in fns:
+            continue
+
+        def run_mass(fn=fns["mass"], tag=tag):
+            err = fn(*head, mass.data_ptr(), *(t_.data_ptr() for t_ in mass_outs), stream)
+            chip_smoke.check(err == 0, f"segment_mix {tag} mass launch: cudaError_t {err}")
+
+        run_mass()
+        torch.cuda.synchronize()
+        stats |= {f"{tag}_{key}": v for key, v in mass_stats(
+            mass_outs, want_mass, f"segment_mix {tag} {name} mass mode").items()}
+        runs[f"{tag}_mass"] = run_mass
+    del want_mass
+    as_csr = k > 1000
+    lib_op = chip_smoke.library_operator(sparse, 0, dev, as_csr=as_csr)
+    library = ((lambda: torch.sparse.mm(lib_op, x)) if as_csr  # noqa: E731
+               else (lambda: torch.matmul(lib_op, x)))
+    times = in_turns(runs, library)
+    real = int((sparse.nbr_idx[0] != np.arange(k)[:, None]).sum())
+    flops = n * (4 * real + 3 * k)
+    nbytes = 3 * k * n * 4 + k * 4 + 3 * k * sparse.degree_bound * 4
+    out = {"kernel": "segment_mix", "case": name, "K": k, "D": sparse.degree_bound, "N": n,
+           "gossip_identical_bits": identical, **stats, **times, **card.bound(nbytes, flops)}
+    del x, mass_outs, lib_op
+    torch.cuda.empty_cache()
+    return out
 
 
 def ab_wkv6(card, libs: dict, name: str, b, t, h, dk, q, *, dtype=torch.float32, ld=None,
@@ -401,7 +558,13 @@ def main() -> int:
               for k in (12, 16, 24, 32))],
         "dequant_mix": lambda libs: [
             ab_dequant(card, libs, "iid_k100_qint8", complete(100), 100),
-            ab_dequant(card, libs, "tv_k8_star", graph_lib.build_graph("star", 8), 8)],
+            ab_dequant(card, libs, "tv_k8_star", graph_lib.build_graph("star", 8), 8),
+            ab_dequant(card, libs, "gather_k129_qint8", complete(129), 129)],
+        "segment_mix": lambda libs: [
+            ab_segment(card, libs, "iid_k100", "complete", 100, np.full(100, 600)),
+            ab_segment(card, libs, "ring_k4096", "ring", chip_smoke.LARGE_K,
+                       np.where(np.arange(chip_smoke.LARGE_K) < 60000 % chip_smoke.LARGE_K,
+                                15, 14), seed=1)],
         "wkv6": lambda libs: [
             ab_wkv6(card, libs, "main_b4_t1024", 4, 1024, 64, 64, 16),
             ab_wkv6(card, libs, "b1_t4096", 1, 4096, 64, 64, 16, seed=5),
