@@ -87,8 +87,10 @@ In order:
    times and profiles a warm prefill and decode step (device time by kernel
    category); then
    runs its long-context variant (``for_shape(..., long_500k)``, a 4096-slot
-   ring) on a prompt of 8192 tokens and 3 decode steps, asserting 32
-   launches, finite logits and the ring's positions;
+   ring) on a prompt of 8192 tokens and 3 decode steps, both ways (the
+   python loop and the scanned decode from the same prefill's cache, tokens
+   and rings equal), asserting 32 launches, finite logits and the ring's
+   positions;
 6. serves zamba2-2.7b (2.35 B parameters: 54 Mamba2 layers and one shared
    attention block applied 9 times) at full width and depth the same way,
    asserting 54 ``ssd`` and 9 ``flash_attention`` launches in each prefill
@@ -97,6 +99,17 @@ In order:
    calls of the shared block's first and last application of one more
    prefill through the plain version the same way; times and profiles a
    warm prefill and decode step (device time by kernel category);
+   in phases 4-6, ``serve_batch`` and ``serve_fleet`` decode through their
+   default, the scanned decode (one decode step captured as a CUDA graph
+   over the cache, written in place, and replayed per token); and on the
+   parameters each phase loads for its recheck, one prefill is decoded 15
+   steps both ways, the python loop and the scanned decode
+   (``compare_decode``): tokens and every final cache leaf equal, the
+   prefill's launches as above and none in either decode, decode s/token
+   both ways, the capture seconds, a warm replay's seconds, the CUDA
+   kernels of one step both ways (torch.profiler) and the peak memory both
+   ways; the K = 2 fleet's groups are drawn again and decoded both ways,
+   each equal to ``serve_fleet``'s tokens (``fleet_both_ways``);
 7. drives the trainer through ``run_paper_experiment``: uncompressed
    ``noniid_affinity`` (5 rounds) and ``iid_k100`` (2), then compressed
    ``timevarying_k8`` round robin with qint8 (5) and with top-k (3),
@@ -109,13 +122,31 @@ In order:
    every kernel's launch count reset just before and read just after each
    run, and every plain version's calls counted (none allowed); after each
    of the first, the compressed, the hierarchical and three push-sum runs it
-   recomputes one consensus phase with the plain version;
+   recomputes one consensus phase with the plain version; these runs take
+   ``run_paper_experiment``'s default driver, the scan driver (each round a
+   replay of one captured CUDA graph of the round, launches counted on
+   replay), evaluating every round, so ``on_round`` still sees every
+   round; then runs both drivers from the same seed and rounds
+   (``compare_drivers``): ``noniid_affinity`` (K = 2, the gather design; 15
+   rounds, eval every 5), ``iid_k100`` (tile; 10, 5), ``iid_k100`` qint8
+   (``dequant_mix``; 10, 5), ``timevarying_k8`` round robin with qint8 (R =
+   2 operands refreshed per round; 9, 3), ``directed_k8`` (push-sum, mass
+   mode; 15, 5) and ``iid_k100`` on the one-slice segment runtime
+   (``segment_mix``; 10, 5): final params, momentum, d, b, mass and
+   estimate, the logged losses and accuracies equal bit for bit, the same
+   launches, no plain version; s/round both ways after the first period,
+   the capture seconds, peak memory both ways, and at K = 100 the cost of
+   copying every state leaf once (the body's carry copy at most);
 8. breaks one round of ``noniid_affinity``, ``iid_k100``, ``iid_k100``
-   with qint8 and ``directed_k8`` down by phase (synchronized host timers)
-   and profiles one more for the device's busy share;
+   with qint8 and ``directed_k8`` down by phase (synchronized host timers:
+   the python driver's per-round view, through the phase functions) and
+   profiles one more for the device's busy share;
 9. trains the 2NN at K=4096 peers on a ring at full width on the one-slice
-   segment runtime, 2 rounds through the round function without evaluation,
-   and prints its seconds per round and peak memory beside the state's size;
+   segment runtime, 2 rounds through the python driver's round function
+   without evaluation (its rounds are device-bound, about 2 s, and its
+   state 13.1 GB, so a graph of the round would save little and its carry
+   copy more memory), and prints its seconds per round and peak memory
+   beside the state's size;
 10. prints the ``kernels`` JSON line (each consensus kernel with its mass
    mode beside its gossip mode) and, last, the contract line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1405,7 +1436,8 @@ def count_plain_calls():
 def drive(name: str, exp, rounds: int, data, *, recheck: bool, mix_mode: str | None = None,
           **run_kw) -> dict:
     """Train ``exp`` for ``rounds`` rounds through ``run_paper_experiment`` on
-    the card, every launch count set to 0 just before and read just after;
+    the card (its default scan driver, evaluating every round), every launch
+    count set to 0 just before and read just after;
     checks that the path's kernel launched rounds x S times, the others and
     every plain version none, and that the run's numbers are sane.
     ``mix_mode`` "segment" with ``peer_axis="pod"`` runs the one-slice
@@ -1456,6 +1488,75 @@ def drive(name: str, exp, rounds: int, data, *, recheck: bool, mix_mode: str | N
           + (f", sum of the mass after each round {sums}" if push_sum else ""))
     return {"launches": {kernel: launches[kernel]}, "peak_gb": peak_gb, "seconds": log.seconds,
             "mode": "mass" if push_sum else "gossip", "mass_sums": sums}
+
+
+def compare_drivers(card: Card, name: str, exp, rounds: int, eval_every: int, data, *,
+                    kernel: str, **run_kw) -> dict:
+    """``run_paper_experiment`` of ``exp`` under both drivers, the python one
+    first, from the same seed and rounds, every launch count set to 0 just
+    before and read just after each run and every plain version's calls
+    counted (none allowed): the final state (params, momentum, d, b,
+    push-sum's mass, the compressed wire's estimate) equal bit for bit, the
+    logged losses and accuracies equal, and the same launches (the scan
+    driver's counted on replay: ``repro_torch.capture``), ``kernel``'s
+    rounds x S.  Prints seconds per round both ways over the eval periods
+    after the first (the scan driver's first holds its warm-up round and
+    capture), the capture seconds and the peak memory both ways."""
+    from repro_torch.core import p2p
+    from repro_torch.launch import train
+
+    counters = launch_counters()
+    want = {key: 0 for key in counters} | {kernel: rounds * exp.p2p.consensus_steps}
+    runs = {}
+    for driver in ("python", "scan"):
+        print(f"main path: {name}, {rounds} rounds, eval every {eval_every}, driver {driver}",
+              flush=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for counter in counters.values():
+            counter.reset()
+        with count_plain_calls() as plain_calls:
+            log, state = train.run_paper_experiment(
+                exp, rounds=rounds, data=data, eval_every=eval_every, device="cuda",
+                driver=driver, return_state=True, **run_kw)
+        launches = {key: counter.count for key, counter in counters.items()}
+        check(launches == want, f"{name} ({driver}) launched {launches}, want {want}")
+        check(not plain_calls, f"{name} ({driver}) called plain versions {plain_calls}")
+        check(all(math.isfinite(v) for v in log.train_loss), f"{name} ({driver}) losses finite")
+        runs[driver] = {"log": log, "state": state, "launches": launches,
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    python, scan = runs["python"], runs["scan"]
+    leaves = list(zip(p2p.state_leaves(python["state"]), p2p.state_leaves(scan["state"])))
+    check(len(p2p.state_leaves(python["state"])) == len(p2p.state_leaves(scan["state"])),
+          f"{name}: state structure")
+    for i, (a, b) in enumerate(leaves):
+        check(torch.equal(a, b), f"{name}: state leaf {i} differs between the drivers, max "
+                                 f"|diff| {float((a - b).abs().max())}")
+    check(python["state"].round_idx == scan["state"].round_idx == rounds, f"{name}: rounds")
+    check(python["log"].train_loss == scan["log"].train_loss, f"{name}: logged losses differ")
+    for group in python["log"].after_local:
+        for phase in ("local", "consensus"):
+            check(np.array_equal(python["log"].series(group, phase),
+                                 scan["log"].series(group, phase)),
+                  f"{name}: logged {phase} accuracies of {group} differ")
+    out = {"card": card.line, "rounds": rounds, "eval_every": eval_every,
+           "state_leaves_equal": len(leaves), "launches_per_round": {
+               d: runs[d]["launches"][kernel] / rounds for d in runs},
+           "s_per_round_after_first_period": {
+               d: float(np.mean(runs[d]["log"].seconds[1:])) for d in runs},
+           "first_period_s_per_round": {d: runs[d]["log"].seconds[0] for d in runs},
+           "capture_s": scan["log"].capture_seconds,
+           "peak_gb": {d: runs[d]["peak_gb"] for d in runs}}
+    if exp.p2p.num_peers == 100 and not run_kw and exp.p2p.compressor == "none":
+        # what the body's copy of the round's state into the carried buffers
+        # costs at most: every (K, row) leaf copied once
+        src = p2p.state_leaves(scan["state"])
+        dst = [t.clone() for t in src]
+        out["carry_copy_all_leaves_ms"] = cuda_ms(
+            lambda: [d.copy_(t) for d, t in zip(dst, src)])
+        del dst
+    print(f"drivers {name} ({card.line}): {json.dumps(out)}", flush=True)
+    return {"launches": {kernel: scan["launches"][kernel]}, **out}
 
 
 def phase_breakdown(exp, data, rounds: int = 3) -> dict:
@@ -1526,8 +1627,9 @@ def phase_breakdown(exp, data, rounds: int = 3) -> dict:
 
 def drive_large_k(exp, rounds: int, data) -> dict:
     """``exp`` at K = LARGE_K peers, full width, on the one-slice segment
-    runtime: ``rounds`` rounds through the round function, no evaluation
-    (as the reference's K = 4096 test drives its round step), launch counts
+    runtime: ``rounds`` rounds through the python driver's round function,
+    no evaluation (as the reference's K = 4096 test drives its round step;
+    the rounds are device-bound at about 2 s), launch counts
     reset just before and read just after, peak memory beside the size of
     the four state buffers (params, momentum, d, b)."""
     from repro_torch.core import p2p, task as task_lib
@@ -1761,13 +1863,85 @@ def recheck_calls(picks: dict[str, tuple[int, ...]], log: dict):
               f"{kernel}: rechecked {sorted(log[kernel])}, want calls {numbers}")
 
 
-def recheck_and_break_down(card: Card, arch: str, picks: dict[str, tuple[int, ...]]) -> dict:
+def compare_decode(card: Card, name: str, model, params, prompt, per_prefill: dict[str, int],
+                   *, gen: int = SERVE_GEN) -> dict:
+    """One prefill of ``prompt``, then its ``gen - 1`` decode steps both ways
+    from the prefill's cache: the python loop (``make_decode_loop``, which
+    leaves the cache as it was), then the scanned decode
+    (``make_decode_scan``: one captured CUDA graph of the step, replayed per
+    token, consuming the cache).  Launch counts set to 0 just before and
+    read just after each: the prefill's kernels as ``per_prefill``, none in
+    either decode.  Tokens and every leaf of the final cache must be equal.
+    Prints decode s/token both ways, the capture seconds, a warm replay's
+    seconds (the replays' wall time over their count), the CUDA kernels of
+    one step both ways (torch.profiler: an eager step, one replay) and the
+    peak memory both ways."""
+    from repro_torch.launch import steps
+
+    dev = prompt["tokens"].device
+    batch, prompt_len = prompt["tokens"].shape
+    counters = launch_counters()
+    torch.cuda.empty_cache()
+    for counter in counters.values():
+        counter.reset()
+    tok, cache = steps.make_prefill_step(model)(
+        params, prompt, model.init_cache(batch, prompt_len + gen, dev))
+    torch.cuda.synchronize()
+    _serving_launches(counters, per_prefill, f"{name} prefill")
+    pos = torch.full((batch,), prompt_len, dtype=torch.int64, device=dev)
+    out, toks, caches = {"card": card.line}, {}, {}
+    for impl in ("python", "scan"):
+        make = steps.make_decode_loop if impl == "python" else steps.make_decode_scan
+        decode = make(model, gen - 1)
+        for counter in counters.values():
+            counter.reset()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        toks[impl], caches[impl] = decode(params, cache, tok, pos)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        _serving_launches(counters, {}, f"{name} decode ({impl})")
+        out.setdefault("decode_s_per_token", {})[impl] = seconds / (gen - 1)
+        out.setdefault("peak_gb", {})[impl] = torch.cuda.max_memory_allocated() / 1e9
+        if impl == "scan":
+            out["capture_s"] = decode.capture_seconds
+            out["replay_s_per_step"] = (seconds - decode.capture_seconds) / (gen - 2)
+    check(torch.equal(toks["python"], toks["scan"]),
+          f"{name}: decode tokens differ: {toks['python'].tolist()} vs {toks['scan'].tolist()}")
+    for leaf in caches["python"]:
+        a, b = caches["python"][leaf], caches["scan"][leaf]
+        check(torch.equal(a, b), f"{name}: final cache {leaf} differs, max |diff| "
+                                 f"{float((a.float() - b.float()).abs().max())}")
+    out["tokens"] = [int(tok[0])] + toks["scan"][0].tolist()
+    # one more step each way from the final cache, profiled
+    last = toks["scan"][:, -1].clone()
+    at = pos + gen - 1
+    eager = steps.make_serve_step(model)
+    captured = steps.make_decode_scan(model, 2).capture_step(params, caches["scan"],
+                                                            last.clone(), at.clone())
+    profiles = {"python": profile_once(lambda: eager(params, caches["python"], last, at)),
+                "scan": profile_once(captured.replay)}
+    del captured
+    out["kernels_per_step"] = {impl: p["kernels"] for impl, p in profiles.items()}
+    out["profiled_step"] = {impl: {k: p[k] for k in ("wall_s", "device_busy_s",
+                                                     "device_busy_share")}
+                            for impl, p in profiles.items()}
+    print(f"decode both ways {name} ({card.line}): {json.dumps(out)}", flush=True)
+    del cache, caches
+    torch.cuda.empty_cache()
+    return out
+
+
+def recheck_and_break_down(card: Card, arch: str, picks: dict[str, tuple[int, ...]],
+                           per_prefill: dict[str, int]) -> dict:
     """The served ``arch`` again (seed 0: the same parameters and prompt as
     ``serve_batch``): one prefill through ``model.prefill`` in which the
     kernel calls of ``picks`` (call i is layer i's, or the shared block's
     i-th application) are rerun through the plain version on the operands
     the served path gives them (``recheck_calls``); then one warm prefill
-    and one warm decode step timed, and each profiled for its kernels."""
+    and one warm decode step timed, and each profiled for its kernels; then,
+    on the same parameters, the decode both ways (``compare_decode``, the
+    prefill launching ``per_prefill``)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
@@ -1785,7 +1959,9 @@ def recheck_and_break_down(card: Card, arch: str, picks: dict[str, tuple[int, ..
         torch.cuda.empty_cache()
         out.update(time_and_profile_serving(model, params, prompt, cache0))
     print(f"serving breakdown {arch} ({card.line}): {json.dumps(out)}", flush=True)
-    del params, cache0
+    del cache0
+    out["decode_both_ways"] = compare_decode(card, arch, model, params, prompt, per_prefill)
+    del params
     torch.cuda.empty_cache()
     return out
 
@@ -1793,9 +1969,11 @@ def recheck_and_break_down(card: Card, arch: str, picks: dict[str, tuple[int, ..
 def drive_long_context(card: Card) -> dict:
     """minitron-8b's long-context variant (``for_shape(..., long_500k)``: a
     4096-slot ring) at full width and depth through ``build_model`` and
-    ``launch/steps.py``: batch 1, a prompt of 8192 tokens, 4 tokens; launch
+    ``launch/steps.py``: batch 1, a prompt of 8192 tokens, 4 tokens, the 3
+    decode steps both ways (the python loop, then the scanned decode from
+    the same prefill's cache; tokens and the final rings equal); launch
     counts set to 0 just before and read just after: one flash launch per
-    layer in the prefill, none in decode."""
+    layer in the prefill, none in either decode."""
     from repro_torch.configs import INPUT_SHAPES, for_shape, get_config
     from repro_torch.launch import steps
     from repro_torch.models import build_model
@@ -1829,16 +2007,28 @@ def drive_long_context(card: Card) -> dict:
     tok = torch.argmax(logits[:, -1], dim=-1)
     pos = torch.full((1,), LONG_PROMPT, dtype=torch.int64, device=dev)
     start = time.perf_counter()
-    toks, cache = decode(params, cache, tok, pos)
+    toks, python_cache = decode(params, cache, tok, pos)  # leaves the prefill's cache
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - start
+    scan = steps.make_decode_scan(model, LONG_GEN - 1)
+    start = time.perf_counter()
+    scan_toks, cache = scan(params, cache, tok, pos)  # consumes it, written in place
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - start
     launches = _serving_launches(counters, {"flash_attention": cfg.num_layers}, "long context")
+    check(torch.equal(toks, scan_toks), f"long-context decode tokens differ: {toks.tolist()} "
+                                        f"vs {scan_toks.tolist()}")
+    for leaf in cache:
+        check(torch.equal(python_cache[leaf], cache[leaf]),
+              f"long-context final cache {leaf} differs between the decodes")
+    del python_cache
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "long-context tokens in the vocab")
     last = LONG_PROMPT + LONG_GEN - 2  # the last position written
     held = torch.sort(cache["main.pos_ids"][:, 0].long(), dim=-1).values
     check(bool((held == torch.arange(last - window + 1, last + 1, device=dev)).all()),
           "every layer's ring holds the last 4096 positions")
     run = {"prefill_s": prefill_s, "decode_s_per_token": decode_s / (LONG_GEN - 1),
+           "scan_decode_s_per_token": scan_s / (LONG_GEN - 1), "capture_s": scan.capture_seconds,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            "params_gb": sum(t.numel() * t.element_size() for t in params.values()) / 1e9,
            "launches": launches["flash_attention"], "tokens": [int(tok[0])] + toks[0].tolist()}
@@ -1883,6 +2073,7 @@ def profile_once(fn) -> dict:
         entry[1] += e.self_device_time_total / 1e3
     return {"wall_s": wall_s, "device_busy_s": device_s,
             "device_busy_share": device_s / wall_s if device_s > 0 else None,
+            "kernels": sum(e.count for e in kernels),
             "by_category_launches_ms": by_category,
             "top_kernels_ms": [(e.key[:70], e.count, e.self_device_time_total / 1e3)
                                for e in top[:8]]}
@@ -1911,11 +2102,60 @@ def drive_serve_fleet(card: Card) -> dict:
     check(tuple(tokens.shape) == (FLEET_PEERS, SERVE_BATCH, SERVE_GEN), "fleet tokens shape")
     check(bool(((tokens >= 0) & (tokens < 65536)).all()), "fleet tokens in the vocab")
     check(not torch.equal(tokens[0], tokens[1]), "two peers' models answer differently")
-    run = {key: out[key] for key in ("serve_s", "tokens_per_s", "peak_memory_gb", "params_gb")}
-    print(f"serve_fleet ({card.line}): {json.dumps(run)}", flush=True)
+    run = {key: out[key] for key in ("serve_s", "capture_s", "tokens_per_s", "peak_memory_gb",
+                                     "params_gb")}
     del out
+    run["groups_both_ways"] = fleet_both_ways(tokens)
+    print(f"serve_fleet ({card.line}): {json.dumps(run)}", flush=True)
     torch.cuda.empty_cache()
     return {"launches": {"wkv6": launches["wkv6"]}, **run}
+
+
+def fleet_both_ways(fleet_tokens: torch.Tensor, seed: int = 0) -> dict:
+    """The K = 2 fleet's parameters and prompts drawn again as ``serve_fleet``
+    draws them (peer p from seed + 1 + p, the prompts from ``seed``); each
+    group prefilled once, then decoded with the python loop and with the
+    scanned decode (its own capture: the group's parameter views sit
+    elsewhere).  Both must give ``serve_fleet``'s tokens; decode s/token and
+    capture seconds per group, both ways."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import build_model, common
+    from repro_torch.models import transformer as tf
+
+    dev = torch.device("cuda")
+    model = build_model(get_config(SERVE_ARCH))
+    torch.cuda.empty_cache()
+    stacked = tf.stacked_init(
+        FLEET_PEERS, lambda p: model.init(torch.Generator(device=dev).manual_seed(seed + 1 + p)))
+    prompt_gen = torch.Generator(device=dev).manual_seed(seed)
+    prompts = tf.stacked_init(FLEET_PEERS,
+                              lambda _p: model.make_batch(prompt_gen, SERVE_BATCH, SERVE_PROMPT))
+    caches = serve.stack_request_caches(
+        model.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_GEN, dev), FLEET_PEERS)
+    prefill = steps.make_prefill_step(model)
+    pos = torch.full((SERVE_BATCH,), SERVE_PROMPT, dtype=torch.int64, device=dev)
+    out = {}
+    for g in range(FLEET_PEERS):
+        params = common.row(stacked, g)
+        tok, cache = prefill(params, common.row(prompts, g), common.row(caches, g))
+        run = {}
+        for impl in ("python", "scan"):
+            make = steps.make_decode_loop if impl == "python" else steps.make_decode_scan
+            decode = make(model, SERVE_GEN - 1)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            toks, _ = decode(params, cache, tok, pos)
+            torch.cuda.synchronize()
+            run[f"decode_s_per_token_{impl}"] = (time.perf_counter() - start) / (SERVE_GEN - 1)
+            check(torch.equal(torch.cat([tok[:, None], toks], dim=1), fleet_tokens[g]),
+                  f"fleet group {g}: the {impl} decode's tokens differ from serve_fleet's")
+            if impl == "scan":
+                run["capture_s"] = decode.capture_seconds
+        out[f"group{g}"] = run
+    del stacked, caches, cache
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -1936,19 +2176,22 @@ def main() -> int:
 
     cases = check_kernels(card)
     paths = {"serve_batch": drive_serve_batch(card, SERVE_ARCH, {"wkv6": 32})}
-    serving = {SERVE_ARCH: recheck_and_break_down(card, SERVE_ARCH, {"wkv6": (0, 31)})}
+    serving = {SERVE_ARCH: recheck_and_break_down(card, SERVE_ARCH, {"wkv6": (0, 31)},
+                                                  {"wkv6": 32})}
     paths["serve_fleet_k2"] = drive_serve_fleet(card)
     paths["serve_batch_minitron"] = drive_serve_batch(card, DECODER_ARCH,
                                                       {"flash_attention": 32})
     serving[DECODER_ARCH] = recheck_and_break_down(card, DECODER_ARCH,
-                                                   {"flash_attention": (0, 31)})
+                                                   {"flash_attention": (0, 31)},
+                                                   {"flash_attention": 32})
     paths["long_context_minitron"] = drive_long_context(card)
     # zamba2: 54 Mamba2 layers through ssd, 9 shared-block applications through
     # flash_attention in every prefill
     paths["serve_batch_zamba2"] = drive_serve_batch(card, HYBRID_ARCH,
                                                     {"ssd": 54, "flash_attention": 9})
     serving[HYBRID_ARCH] = recheck_and_break_down(card, HYBRID_ARCH,
-                                                  {"ssd": (0, 53), "flash_attention": (0, 8)})
+                                                  {"ssd": (0, 53), "flash_attention": (0, 8)},
+                                                  {"ssd": 54, "flash_attention": 9})
     data = synthetic.mnist_like()
     noniid = noniid_k2(algorithm="p2pl_affinity", local_steps=10)
     iid = iid_k100()
@@ -1991,6 +2234,20 @@ def main() -> int:
             "iid_k100_push_sum_pod_segment", iid_push, IID_POD_ROUNDS, data, recheck=True,
             mix_mode="segment", peer_axis="pod", peers_per_device=iid.p2p.num_peers),
     }
+    # both round drivers from the same seed and rounds, bit for bit
+    pod = dict(peer_axis="pod", peers_per_device=iid.p2p.num_peers, mix_mode="segment")
+    for label, exp, rounds, every, kernel, run_kw in (
+        ("noniid_affinity", noniid, 15, 5, "consensus_mix", {}),
+        ("iid_k100", iid, 10, 5, "consensus_mix", {}),
+        ("iid_k100_qint8", iid_qint8, 10, 5, "dequant_mix", {}),
+        ("timevarying_k8_round_robin_qint8",
+         timevarying_k8(schedule="round_robin", compressor="qint8"), 9, 3, "dequant_mix", {}),
+        ("directed_k8", directed, 15, 5, "consensus_mix", {}),
+        ("iid_k100_pod_segment", iid, 10, 5, "segment_mix", pod),
+    ):
+        result = compare_drivers(card, label, exp, rounds, every, data, kernel=kernel, **run_kw)
+        result["mode"] = "mass" if exp.p2p.protocol == "push_sum" else "gossip"
+        paths[f"{label}_both_drivers"] = result
     for label, exp in (("noniid_affinity", noniid), ("iid_k100", iid),
                        ("iid_k100_qint8", iid_qint8), ("directed_k8", directed)):
         print(f"breakdown {label} ({card.line}): {json.dumps(phase_breakdown(exp, data))}",

@@ -3,7 +3,8 @@
 
 The paper's central instrument is test accuracy evaluated at *both* phase
 boundaries of every round (after local training, after consensus).  The
-port's log also keeps each round's wall seconds.
+port's log also keeps each eval period's wall seconds per round, and the
+scan driver's capture time.
 """
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ class RoundLog:
     consensus_error: list = dataclasses.field(default_factory=list)
     train_loss: list = dataclasses.field(default_factory=list)
     seconds: list = dataclasses.field(default_factory=list)  # wall time per round
+    # the scan driver's warm-up round and capture (in the first period's seconds too)
+    capture_seconds: float = 0.0
 
     def record(
         self,

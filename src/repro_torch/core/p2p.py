@@ -59,6 +59,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import capture as capture_lib
 from repro_torch import compression as compression_lib
 from repro_torch.core import consensus as consensus_lib
 from repro_torch.core import features as features_lib
@@ -598,17 +599,194 @@ def make_hier_round_fn(
     one-device mesh).  The stacked (R, K, D) operands are uploaded once,
     here; round ``r`` uses those of ``r % R``.
     """
+    step = _hier_round_step(task, cfg, peers_per_device, mix_mode)
+    ops_s = schedule_operands(cfg, data_sizes, device=device)
+    return lambda state, batches: step(state, batches, ops_s)
+
+
+def _hier_round_step(task: task_lib.TrainTask, cfg: P2PConfig, peers_per_device: int,
+                     mix_mode: str):
+    """The one-slice hierarchical round ``step(state, batches, ops_s)`` over
+    stacked (R, K) / (R, K, D) operands, after validating the layout."""
     features_lib.check_config(cfg, peers_per_device=peers_per_device)
     mode = resolve_mix_mode(mix_mode, cfg.num_peers)
     check_hierarchical_layout(cfg.num_peers, peers_per_device)
-    ops_s = schedule_operands(cfg, data_sizes, device=device)
 
-    def step(state: P2PState, batches):
+    def step(state: P2PState, batches, ops_s: SparseRoundOps):
         after_local, losses = local_phase(state, task, batches, cfg)
         after_cons = consensus_phase_hier(after_local, cfg, ops_s, mix_mode=mode)
         return after_local, after_cons, losses
 
     return step
+
+
+def state_leaves(state: P2PState) -> list[torch.Tensor]:
+    """The state's tensors in a fixed order: params, momentum, d, b, the
+    protocol's, then the compressed wire's estimate."""
+    est = (state.compression,) if isinstance(state.compression, torch.Tensor) else ()
+    return [state.params, state.momentum, state.d_bias, state.b_bias, *state.protocol, *est]
+
+
+def with_leaves(like: P2PState, leaves: list[torch.Tensor], round_idx: int) -> P2PState:
+    """``like`` with its tensors replaced by ``leaves`` (``state_leaves``'
+    order) and its round index by ``round_idx``."""
+    params, momentum, d_bias, b_bias, *rest = leaves
+    n_proto = len(like.protocol)
+    protocol = type(like.protocol)(*rest[:n_proto]) if n_proto else ()
+    compression = rest[n_proto] if isinstance(like.compression, torch.Tensor) else ()
+    return P2PState(params, momentum, d_bias, b_bias, round_idx, protocol, compression)
+
+
+class ScanDriver:
+    """C rounds a call, each a replay of one captured round (``make_scan_driver``).
+
+    ``drive(state, batches) -> (after_local, final_state, losses (C, T))``;
+    ``batches`` is a ``data.pipeline.ChunkBatches`` of C rounds.  The body
+    of a round is the python driver's round step, unchanged, over static
+    buffers: the carried state (params, momentum, d, b, push-sum's mass, the
+    compressed wire's estimate), the round's operands ``(self_w, nbr_idx,
+    nbr_w, beta)`` and its (T, K, B) batch rows, with the gather
+    ``x_all[rows]`` inside the body.  Between rounds, on the device: round
+    ``r % R``'s operands are copied into the static ones (the hierarchical
+    runtime's as a static R = 1 stack, read at round index 0), round c's rows
+    into the static rows, and after each round its (T,) losses into the
+    driver's (C, T) buffer.  At its end the body copies the round's state
+    into the carried buffers.  The first round of the first call runs
+    eagerly as the warm-up; the capture follows and every later round is a
+    replay (``repro_torch.capture``).  ``round_idx`` stays a host int and
+    advances by C.
+
+    ``donate=True`` adopts the input state's buffers as the carried ones on
+    the first call and returns them as the final state: the input is
+    consumed, and the caller uses the returned state (passing it back costs
+    no copy).  ``donate=False`` copies the input in and returns copies.
+    ``after_local`` (the last round's state after its local phase) is always
+    the driver's own copy.  ``capture_seconds`` is the warm-up round and the
+    capture's wall time; ``captured`` the ``capture.Captured`` of the round.
+    """
+
+    def __init__(self, step, pick, period: int, *, donate: bool, device: torch.device):
+        """``step(state, batches, ops)`` is the round; ``pick(r)`` round r's
+        operands, as ``step`` takes them, of a period of ``period`` rounds."""
+        self.step, self.pick, self.period = step, pick, period
+        if device.type == "cuda" and device.index is None:  # as tensors name it
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.donate, self.device = donate, device
+        # R = 1: the upload itself is static; else round r % R is copied in
+        self.static_ops = pick(0) if period == 1 else SparseRoundOps(
+            *(t.clone() for t in pick(0)))
+        self.carry: P2PState | None = None
+        self.rows: torch.Tensor | None = None
+        self.data: tuple[torch.Tensor, torch.Tensor] | None = None
+        self.captured: capture_lib.Captured | None = None
+        self.capture_seconds = 0.0
+        self._aliases: list[int] | None = None  # after-local leaves that are carried ones
+
+    def _capture(self) -> capture_lib.Captured:
+        """Warm up (one real round) and capture the round over the static buffers."""
+        step, (x_all, y_all), rows = self.step, self.data, self.rows
+        carry, ops = self.carry, self.static_ops
+
+        def body():  # holds the buffers, not the driver: no reference cycle to a graph
+            after_local, after_cons, losses = step(carry, (x_all[rows], y_all[rows]), ops)
+            for dst, src in zip(state_leaves(carry), state_leaves(after_cons)):
+                if src is not dst:
+                    dst.copy_(src)
+            return after_local, losses
+
+        return capture_lib.capture(body, self.device)
+
+    def _take(self, state: P2PState) -> None:
+        """Make ``state`` the carried state: adopted (``donate``) or copied in."""
+        leaves = state_leaves(state)
+        if self.carry is None:
+            owned: set[int] = set()
+            carry = []
+            for t in leaves:
+                adopt = (self.donate and t.is_contiguous() and t.device == self.device
+                         and t.data_ptr() not in owned)
+                carry.append(t if adopt else t.detach().clone(
+                    memory_format=torch.contiguous_format).to(self.device))
+                owned.add(carry[-1].data_ptr())
+            self.carry = with_leaves(state, carry, 0)
+            return
+        for dst, src in zip(state_leaves(self.carry), leaves):
+            if src is not dst:
+                dst.copy_(src)
+
+    def __call__(self, state: P2PState, batches) -> tuple[P2PState, P2PState, torch.Tensor]:
+        x_all, y_all, idx = batches
+        chunk = idx.shape[0]
+        if idx.dim() != 4 or chunk < 1:
+            raise ValueError(f"batch rows must be (C, T, K, B) with C >= 1, got "
+                             f"{tuple(idx.shape)}")
+        if self.data is None or self.data[0] is not x_all or self.data[1] is not y_all \
+                or tuple(self.rows.shape) != tuple(idx.shape[1:]):
+            # other data or batch shape: warm up and capture anew
+            self.data, self.captured, self._aliases = (x_all, y_all), None, None
+            self.rows = torch.empty(idx.shape[1:], dtype=idx.dtype, device=self.device)
+        self._take(state)
+        carry = state_leaves(self.carry)
+        losses_out = None
+        for c in range(chunk):
+            if self.period > 1:
+                for dst, src in zip(self.static_ops, self.pick((state.round_idx + c)
+                                                               % self.period)):
+                    dst.copy_(src)
+            self.rows.copy_(idx[c])
+            if c == chunk - 1:  # the carried leaves the last after-local state reads
+                keep = range(len(carry)) if self._aliases is None else self._aliases
+                before = {i: carry[i].clone() for i in keep}
+            if self.captured is None:
+                self.captured = self._capture()
+                self.capture_seconds = self.captured.seconds
+                after_local, losses = self.captured.warmup_outputs
+                self._aliases = [i for i, t in enumerate(state_leaves(after_local))
+                                 if t is carry[i]]
+            else:
+                after_local, losses = self.captured.replay()
+            if losses_out is None:
+                losses_out = losses.new_empty((chunk, *losses.shape))
+            losses_out[c].copy_(losses)
+        local_leaves = [before[i] if t is carry[i] else t.clone()
+                        for i, t in enumerate(state_leaves(after_local))]
+        round_idx = state.round_idx + chunk
+        final = carry if self.donate else [t.clone() for t in carry]
+        return (with_leaves(state, local_leaves, round_idx - 1),
+                with_leaves(state, final, round_idx), losses_out)
+
+
+def make_scan_driver(
+    task: task_lib.TrainTask,
+    cfg: P2PConfig,
+    data_sizes: np.ndarray | None = None,
+    *,
+    peers_per_device: int | None = None,
+    mix_mode: str = "auto",
+    donate: bool = True,
+    device: torch.device | str | None = None,
+) -> ScanDriver:
+    """Fused multi-round driver (the reference's ``make_scan_driver``): C
+    rounds a call, on the card each a replay of one CUDA graph of the round
+    (``ScanDriver``), so the results equal C calls of ``make_round_fn`` (or
+    ``make_hier_round_fn`` with ``peers_per_device`` = K) bit for bit.  The
+    schedule's operands are uploaded once, here.  The chunk length C is read
+    from the batches; one capture serves every C.
+    """
+    device = resolve_device(device)
+    if peers_per_device is not None and peers_per_device > 1:
+        step = _hier_round_step(task, cfg, peers_per_device, mix_mode)
+        ops_s = schedule_operands(cfg, data_sizes, device=device)
+
+        def pick(r):  # an R = 1 stack: the step reads its round index 0
+            return SparseRoundOps(*(t[r:r + 1] for t in ops_s))
+    else:
+        def step(state, batches, ops):
+            return run_round(state, task, batches, cfg, ops)
+
+        ops_s = schedule_operands(cfg, data_sizes, device=device)
+        pick = functools.partial(select_round, ops_s)
+    return ScanDriver(step, pick, ops_s.self_w.shape[0], donate=donate, device=device)
 
 
 def param_views(state: P2PState, task: task_lib.TrainTask) -> dict[str, torch.Tensor]:

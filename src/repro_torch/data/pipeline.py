@@ -7,12 +7,26 @@ local dataset with per-peer reshuffling at epoch boundaries.
 The index stream stays on the host in numpy, with the reference's RNG streams
 (``seed + 7k``), cursors and reshuffles, so batch order matches the reference
 exactly.  Every peer's shard is uploaded to the device once; each round moves
-only its (T, K, B) index array and gathers the batches there.
+only its (T, K, B) index array and gathers the batches there.  The scan
+driver (``core.p2p.make_scan_driver``) takes a chunk of C rounds as one
+(C, T, K, B) index upload (``chunk_batches_on``), drawn in one call in the
+same order as C calls of ``round_batches_on``.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
+
+
+class ChunkBatches(NamedTuple):
+    """C rounds' batches as rows of device-resident data: round c's batches
+    are ``(x_all[idx[c]], y_all[idx[c]])``, each (T, K, B, ...)."""
+
+    x_all: torch.Tensor  # (N, ...) every peer's shard, concatenated
+    y_all: torch.Tensor  # (N,)
+    idx: torch.Tensor  # (C, T, K, B) int64 rows of x_all and y_all
 
 
 class PeerBatcher:
@@ -56,11 +70,9 @@ class PeerBatcher:
                 out[t, k] = self._next_indices(k)
         return out
 
-    def round_batches_on(
-        self, local_steps: int, device: torch.device
-    ) -> tuple[torch.Tensor, torch.Tensor]:
-        """One round's batches on ``device``: (x (T,K,B,F) float32, y (T,K,B) int64),
-        the reference's ``round_batches`` values."""
+    def resident(self, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+        """Every peer's shard, concatenated, on ``device`` (float32 images,
+        int64 labels): uploaded on first use, then kept."""
         if self._resident is None or self._resident[0] != str(device):
             x_all = np.concatenate([p[0] for p in self.parts])
             y_all = np.concatenate([p[1] for p in self.parts])
@@ -69,7 +81,27 @@ class PeerBatcher:
                 torch.as_tensor(x_all, dtype=torch.float32, device=device),
                 torch.as_tensor(y_all, dtype=torch.int64, device=device),
             )
-        _, x_all, y_all = self._resident
-        idx = self.round_indices(local_steps) + self.offsets[None, :, None]
-        gidx = torch.as_tensor(idx, device=x_all.device)
+        return self._resident[1], self._resident[2]
+
+    def _rows(self, local_steps: int) -> np.ndarray:
+        """``round_indices`` as rows of the concatenated shards."""
+        return self.round_indices(local_steps) + self.offsets[None, :, None]
+
+    def round_batches_on(
+        self, local_steps: int, device: torch.device
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """One round's batches on ``device``: (x (T,K,B,F) float32, y (T,K,B) int64),
+        the reference's ``round_batches`` values."""
+        x_all, y_all = self.resident(device)
+        gidx = torch.as_tensor(self._rows(local_steps), device=x_all.device)
         return x_all[gidx], y_all[gidx]
+
+    def chunk_batches_on(self, local_steps: int, rounds: int,
+                         device: torch.device) -> ChunkBatches:
+        """``rounds`` rounds' batches as one (C, T, K, B) index upload: the
+        reference scan driver's ``round_batches(T * C)`` reshaped to (C, T,
+        ...), which equals C calls of ``round_batches_on``."""
+        x_all, y_all = self.resident(device)
+        rows = self._rows(local_steps * rounds)
+        idx = rows.reshape(rounds, local_steps, *rows.shape[1:])
+        return ChunkBatches(x_all, y_all, torch.as_tensor(idx, device=x_all.device))

@@ -30,10 +30,15 @@ NVCC_FLAGS = (
 
 class LaunchCounter:
     """Number of kernel launches since the last ``reset``; every wrapper
-    keeps one and adds 1 where it launches its kernel, and nowhere else."""
+    keeps one and adds 1 where it launches its kernel, and nowhere else.
+    ``instances`` lists every counter, for ``repro_torch.capture``, which
+    moves the count of a recorded launch from the capture to each replay."""
+
+    instances: list["LaunchCounter"] = []
 
     def __init__(self) -> None:
         self.count = 0
+        LaunchCounter.instances.append(self)
 
     def reset(self) -> None:
         self.count = 0

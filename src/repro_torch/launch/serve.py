@@ -1,14 +1,17 @@
 """Serving: single-model batched decode and the stacked K-model fleet (the
 port's ``repro.launch.serve``).
 
-``serve_batch`` serves ONE model: prefill a prompt batch, then greedy-decode
-in a Python loop of decode steps (``launch/steps.py:make_decode_loop``, the
-reference's ``decode_impl="python"``).  Every prefill runs one hand-written
-kernel per layer: the dense decoders' attention through ``flash_attention``,
-RWKV6's chunked WKV through ``wkv6``, the hybrid's Mamba2 SSD through
-``ssd`` and its shared block's attention through ``flash_attention``; the
-decode steps (attention over the KV cache, or the token-sequential
-recurrences) launch no kernel.
+``serve_batch`` serves ONE model: prefill a prompt batch, then greedy-decode.
+``decode_impl="scan"`` (the default, as in the reference) decodes through
+``launch/steps.py:make_decode_scan``: one decode step captured as a CUDA
+graph over the cache, written in place, and replayed once per token;
+``decode_impl="python"`` is the Python loop of functional decode steps
+(``make_decode_loop``).  Both give the same tokens.  Every prefill runs
+eagerly, one hand-written kernel per layer: the dense decoders' attention
+through ``flash_attention``, RWKV6's chunked WKV through ``wkv6``, the
+hybrid's Mamba2 SSD through ``ssd`` and its shared block's attention through
+``flash_attention``; the decode steps (attention over the KV cache, or the
+token-sequential recurrences) launch no kernel.
 
 ``serve_fleet`` is the personalized-fleet path: P2PL's product is K
 *divergent* models, stacked along a leading K axis as the trainer keeps them
@@ -17,7 +20,9 @@ group g under peer ``peer_ids[g]``'s weights.  The reference gathers the
 groups' parameter rows and vmaps one generate over them; here the groups
 run in turn, each on views ``stacked[peer_id]`` of the stacked leaves, so no
 (G, ...) copy of the parameters is made (at RWKV6-7B a row is 15.2 GB, at
-minitron-8b 19.8 GB, at zamba2-2.7b 4.7 GB).  The
+minitron-8b 19.8 GB, at zamba2-2.7b 4.7 GB); each group's decode is scanned
+(``steps.make_generate_fn``), with its own capture, since each group's
+parameter views sit at other addresses.  The
 result is the reference's invariant: the fleet is bit-identical to serving
 each peer's model separately.  The pod layout (one device per peer) is
 ROADMAP.md queue 1 item 15.
@@ -26,6 +31,7 @@ Entry points run on ``cuda`` unless given ``device="cpu"``; times are taken
 after ``torch.cuda.synchronize()`` on the card.
 
 CLI:  python -m repro_torch.launch.serve --arch smollm-135m --batch 4 --gen 8
+      python -m repro_torch.launch.serve --decode-impl python   # the eager loop
       python -m repro_torch.launch.serve --peers 2        # the stacked fleet
       python -m repro_torch.launch.serve --arch zamba2-2.7b --full --batch 4 \
           --prompt-len 1024 --gen 16                      # the hybrid, full size
@@ -60,7 +66,9 @@ def make_fleet_generate_fn(model, gen_tokens: int) -> Callable:
 
     Request group g decodes under peer ``peer_ids[g]``'s weights; the groups
     run in turn on views of the stacked leaves (``steps.make_generate_fn``
-    on ``stacked[peer_ids[g]]``).
+    on ``stacked[peer_ids[g]]``).  The returned function's ``decode`` is
+    the groups' shared ``steps.DecodeScan`` (its ``capture_seconds`` sum
+    every group's capture), None for ``gen_tokens == 1``.
     """
     generate = steps_lib.make_generate_fn(model, gen_tokens)
 
@@ -73,6 +81,7 @@ def make_fleet_generate_fn(model, gen_tokens: int) -> Callable:
             new.append(c)
         return torch.stack(toks), {name: torch.stack([c[name] for c in new]) for name in caches}
 
+    fleet.decode = generate.decode
     return fleet
 
 
@@ -131,7 +140,7 @@ def serve_batch(
     use_reduced: bool = True,
     seed: int = 0,
     verbose: bool = False,
-    decode_impl: str = "python",
+    decode_impl: str = "scan",
     device: str | torch.device | None = None,
 ) -> dict:
     """Single-model serving: prefill, then greedy-decode ``gen_tokens - 1``.
@@ -139,8 +148,12 @@ def serve_batch(
     Parameters and prompts are drawn from ``seed`` on the device.  Times are
     host clocks around work that ends in a device synchronize; each step runs
     once, so the first call's one-time costs (cuBLAS handles, the kernel's
-    build) are in ``prefill_s``.  ``peak_memory_gb`` is the device's peak from
-    the prefill on (parameters included), ``None`` on the CPU.
+    build) are in ``prefill_s``.  ``decode_s_per_token`` is the whole
+    decode over its steps; under ``decode_impl="scan"`` that includes the
+    warm-up step and the capture, whose time is also ``capture_s`` (None
+    under "python" and without a decode).  ``peak_memory_gb`` is the
+    device's peak from the prefill on (parameters included), ``None`` on the
+    CPU.
 
     ``gen_tokens=1`` is the EXPLICIT empty decode: zero serve steps run, the
     prefill-sampled token is the only output (``tokens`` is (B, 1)),
@@ -150,11 +163,6 @@ def serve_batch(
         raise ValueError(f"need gen_tokens >= 1, got {gen_tokens}")
     if decode_impl not in ("scan", "python"):
         raise ValueError(f"decode_impl must be 'scan' or 'python', got {decode_impl!r}")
-    if decode_impl == "scan":
-        raise NotImplementedError(
-            "a fused decode (a CUDA graph of the decode loop, the counterpart of the "
-            "reference's lax.scan) is not ported yet: ROADMAP.md queue 1 item 17"
-        )
     dev = resolve_device(device)
     model = _model_of(arch, use_reduced)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -172,17 +180,23 @@ def serve_batch(
 
     decode_steps = gen_tokens - 1
     decode_s = 0.0
+    capture_s = None
     if decode_steps == 0:
         out = tok[:, None]
         decode_s_per_token = None
     else:
         pos = torch.full((batch,), steps_lib.prompt_dec_len(prompt), dtype=torch.int64,
                          device=dev)
-        decode = steps_lib.make_decode_loop(model, decode_steps)
+        if decode_impl == "scan":
+            decode = steps_lib.make_decode_scan(model, decode_steps)
+        else:
+            decode = steps_lib.make_decode_loop(model, decode_steps)
         t0 = time.perf_counter()
         gen_toks, cache = decode(params, cache, tok, pos)
         _sync(dev)
         decode_s = time.perf_counter() - t0
+        if decode_impl == "scan":
+            capture_s = decode.capture_seconds
         out = torch.cat([tok[:, None], gen_toks], dim=1)
         decode_s_per_token = decode_s / decode_steps
 
@@ -192,6 +206,7 @@ def serve_batch(
         "prefill_s": prefill_s,
         "decode_steps": decode_steps,
         "decode_s_per_token": decode_s_per_token,
+        "capture_s": capture_s,
         "tokens_per_s": out.numel() / (prefill_s + decode_s),
         "peak_memory_gb": _peak_gb(dev),
         "params_gb": _nbytes_gb(params),
@@ -203,6 +218,7 @@ def serve_batch(
             "decode: (empty — gen_tokens=1 samples only the prefill token)"
             if decode_s_per_token is None
             else f"decode: {decode_s_per_token * 1e3:.2f} ms/token"
+            + (f" (capture {capture_s * 1e3:.1f} ms included)" if capture_s is not None else "")
         )
         print(f"prefill: {prefill_s * 1e3:.1f} ms; {decode_msg}; "
               f"{result['tokens_per_s']:.1f} tokens/s")
@@ -229,9 +245,10 @@ def serve_fleet(
 
     Builds K per-peer parameter sets (independent seeds standing in for a
     trained ``P2PState``'s stacked rows), one request group per peer, and
-    runs the whole fleet through ``make_fleet_generate_fn``.  ``peer_axis``
-    "vmap" is the stacked layout on one device; "pod" (one device per peer)
-    raises.
+    runs the whole fleet through ``make_fleet_generate_fn`` (each group's
+    decode scanned; ``capture_s`` sums the groups' warm-up steps and
+    captures, which ``serve_s`` includes).  ``peer_axis`` "vmap" is the
+    stacked layout on one device; "pod" (one device per peer) raises.
     """
     if peer_axis not in ("vmap", "pod"):
         raise ValueError(f"peer_axis must be 'vmap' or 'pod', got {peer_axis!r}")
@@ -262,6 +279,7 @@ def serve_fleet(
     result = {
         "tokens": tokens,  # (K, B, gen_tokens)
         "serve_s": serve_s,
+        "capture_s": None if fleet.decode is None else fleet.decode.capture_seconds,
         "tokens_per_s": tokens.numel() / serve_s,
         "peak_memory_gb": _peak_gb(dev),
         "params_gb": _nbytes_gb(stacked_params),
@@ -288,9 +306,10 @@ def main(argv=None):
     ap.add_argument("--peers", type=int, default=0,
                     help="serve this many personalized models from one "
                          "stacked process (0 = single-model serve_batch)")
-    ap.add_argument("--decode-impl", default="python", choices=["python", "scan"],
-                    help="single-model decode driver: 'python' is the per-token loop; "
-                         "'scan' (a fused decode) is not ported yet")
+    ap.add_argument("--decode-impl", default="scan", choices=["scan", "python"],
+                    help="single-model decode driver: 'scan' replays one captured CUDA "
+                         "graph of the decode step per token (the reference's fused "
+                         "decode); 'python' is the per-token eager loop (parity baseline)")
     ap.add_argument("--full", action="store_true", help="use the full (non-reduced) config")
     ap.add_argument("--device", default=None,
                     help="'cuda' (the default) or 'cpu' (the plain PyTorch path)")

@@ -1,12 +1,18 @@
-"""Training driver of the port (``repro.launch.train``'s python-loop driver on
-the stacked layout).
+"""Training driver of the port (``repro.launch.train``'s ``run_paper_experiment``
+on the stacked layout, with both of its round drivers).
 
 ``run_paper_experiment`` — K peers train the experiment's task on
 (synthetic-)MNIST shards under the P2PL-with-Affinity family, measuring test
-accuracy after BOTH phases of every evaluated round (the paper's
-instrument).  Runs on the GPU unless ``device="cpu"``.
+accuracy after BOTH phases of the last round of every eval period (the
+paper's instrument).  ``driver="scan"`` (the default, as in the reference)
+runs each eval period as one chunk of ``core.p2p.make_scan_driver``: on the
+card, one replay of a captured CUDA graph of the round per round;
+``driver="python"`` calls the round function once per round.  The two give
+the same bits.  Runs on the GPU unless ``device="cpu"``.
 
 CLI:  python -m repro_torch.launch.train --experiment noniid_affinity --rounds 40
+      python -m repro_torch.launch.train --experiment iid_k100 --eval-every 10
+      python -m repro_torch.launch.train --experiment noniid_affinity --driver python
       python -m repro_torch.launch.train --experiment timevarying_k8 \
           --schedule round_robin --compressor qint8
       python -m repro_torch.launch.train --experiment timevarying_k8 \
@@ -61,17 +67,27 @@ def run_paper_experiment(
     *,
     rounds: Optional[int] = None,
     data=None,
+    eval_every: int = 1,
     seed: int = 0,
     verbose: bool = False,
     device: torch.device | str | None = None,
     peer_axis: str = "vmap",
+    driver: str = "scan",
     peers_per_device: int = 1,
     mix_mode: str = "auto",
     return_state: bool = False,
     on_round: Optional[Callable[[int, p2p.P2PState], None]] = None,
 ):
     """Train ``exp`` for ``rounds`` rounds, evaluating after both phases of
-    every round; returns the ``RoundLog``.
+    rounds ``eval_every``, ``2 * eval_every``, ... and the last; returns the
+    ``RoundLog``, one record per eval period.
+
+    ``driver``: "scan" (the default) runs each eval period as ONE chunk of
+    ``p2p.make_scan_driver`` (the input state donated: on the card each
+    round a replay of one captured CUDA graph, the first round of the run
+    its warm-up, and nothing read back to the host within a period);
+    "python" calls the round function once per round (the parity baseline:
+    the two are float32 bit-identical).  Both evaluate at the same rounds.
 
     ``peer_axis="vmap"`` stacks the K peers on one device.  ``"pod"`` with
     ``peers_per_device == K`` is the reference's hierarchical runtime on a
@@ -81,14 +97,21 @@ def run_paper_experiment(
     large-K form) or "auto" (bridge iff K <= 64).  Other pod layouts need
     several devices (ROADMAP.md queue 1 item 15).
 
-    The log's ``seconds`` hold each round's wall time from batch gather to
-    the end of consensus, device work included (evaluation excluded).
-    ``return_state=True`` returns ``(log, final_state)``; ``on_round(r,
-    state)``, if given, is called after round ``r`` with the state after its
-    consensus (e.g. to watch push-sum's mass).
+    The log's ``seconds`` hold each eval period's wall time from its first
+    batch draw to the end of its last consensus, device work included and
+    evaluation excluded, divided by its rounds; the scan driver's first
+    period includes its warm-up round and capture, whose time is also in
+    ``log.capture_seconds``.  ``return_state=True`` returns ``(log,
+    final_state)``; ``on_round(r, state)``, if given, is called at the end
+    of each eval period (round ``r``) with the state after its consensus
+    (e.g. to watch push-sum's mass).
     """
     if peer_axis not in ("vmap", "pod"):
         raise ValueError(f"peer_axis must be 'vmap' or 'pod', got {peer_axis!r}")
+    if driver not in ("scan", "python"):
+        raise ValueError(f"driver must be 'scan' or 'python', got {driver!r}")
+    if eval_every < 1:
+        raise ValueError(f"eval_every must be >= 1, got {eval_every}")
     if peers_per_device < 1:
         raise ValueError(f"peers_per_device must be >= 1, got {peers_per_device}")
     if peers_per_device > 1 and peer_axis != "pod":
@@ -117,9 +140,12 @@ def run_paper_experiment(
 
     batcher = task.make_peer_batches(parts, exp.batch_size, seed=seed)
     state = p2p.init_state(task, cfg, seed=seed, data_sizes=sizes, device=device)
-    if peer_axis == "pod":
-        round_fn = p2p.make_hier_round_fn(task, cfg, sizes, peers_per_device=peers_per_device,
-                                          mix_mode=mix_mode, device=device)
+    hier = (dict(peers_per_device=peers_per_device, mix_mode=mix_mode)
+            if peer_axis == "pod" else {})
+    if driver == "scan":
+        drive_fn = p2p.make_scan_driver(task, cfg, sizes, device=device, **hier)
+    elif peer_axis == "pod":
+        round_fn = p2p.make_hier_round_fn(task, cfg, sizes, device=device, **hier)
     else:
         round_fn = p2p.make_round_fn(task, cfg, data_sizes=sizes, device=device)
 
@@ -143,33 +169,44 @@ def run_paper_experiment(
         return {k: v.cpu().numpy() for k, v in acc.items()}
 
     log = metrics_lib.RoundLog()
-    for r in range(rounds):
+    r = 0
+    while r < rounds:
+        n = min(eval_every, rounds - r)
         start = time.perf_counter()
-        batches = batcher.round_batches_on(cfg.local_steps, device)
-        after_local, after_cons, losses = round_fn(state, batches)
+        if driver == "scan":
+            chunk = batcher.chunk_batches_on(cfg.local_steps, n, device)
+            # the input state is donated: use only the returns
+            after_local, state, losses = drive_fn(state, chunk)
+            losses = losses[-1]  # the period's last round, (T,)
+        else:
+            for _ in range(n):
+                batches = batcher.round_batches_on(cfg.local_steps, device)
+                after_local, state, losses = round_fn(state, batches)
         _synchronize(device)
-        seconds = time.perf_counter() - start
-        state = after_cons
-        acc_l, acc_c = eval_fn(after_local), eval_fn(after_cons)
+        seconds = (time.perf_counter() - start) / n
+        r += n
+        acc_l, acc_c = eval_fn(after_local), eval_fn(state)
         loss = float(losses.mean())
         log.record(
             local_acc=acc_l,
             consensus_acc=acc_c,
             drift=float(consensus_lib.pairwise_drift(after_local.params)),
-            consensus_error=float(consensus_lib.consensus_error(after_cons.params)),
+            consensus_error=float(consensus_lib.consensus_error(state.params)),
             train_loss=loss,
             seconds=seconds,
         )
         if on_round is not None:
-            on_round(r, state)
+            on_round(r - 1, state)
         if verbose:
             print(
-                f"round {r:3d} loss={loss:.4f} "
+                f"round {r - 1:3d} loss={loss:.4f} "
                 f"acc(after local)={acc_l['all'].mean():.3f} "
                 f"acc(after consensus)={acc_c['all'].mean():.3f} "
-                f"({seconds:.4f} s)",
+                f"({seconds:.4f} s/round)",
                 flush=True,
             )
+    if driver == "scan":
+        log.capture_seconds = drive_fn.capture_seconds
     if return_state:
         return log, state
     return log
@@ -271,7 +308,18 @@ def main(argv=None):
                          "'bridge' is the vmap runtime's mix (bit-identical, K <= 64), "
                          "'segment' the degree-bounded segment_mix kernel (allclose), "
                          "'auto' picks bridge iff K <= 64")
+    ap.add_argument("--driver", default="scan", choices=["scan", "python"],
+                    help="round driver: 'scan' runs each eval period as one chunk of "
+                         "replays of a captured CUDA graph of the round (donated state, "
+                         "one host transfer per period); 'python' runs one eager round "
+                         "per loop iteration (debug/parity baseline)")
+    ap.add_argument("--eval-every", type=int, default=1,
+                    help="evaluate every N rounds (the end of each period); with "
+                         "--driver scan this is also the fused chunk size — N rounds per "
+                         "call, so N > 1 is where the scan driver's amortization engages")
     args = ap.parse_args(argv)
+    if args.eval_every < 1:
+        ap.error(f"--eval-every must be >= 1, got {args.eval_every}")
     if not 0.0 < args.topk_frac <= 1.0:
         ap.error(f"--topk-frac must be in (0, 1], got {args.topk_frac}")
 
@@ -303,9 +351,12 @@ def main(argv=None):
             f"num_peers={exp.p2p.num_peers} of experiment {exp.name!r}"
         )
     t0 = time.time()
-    run_paper_experiment(exp, rounds=args.rounds, verbose=True, device=args.device,
-                         peer_axis=args.peer_axis, peers_per_device=args.peers_per_device,
-                         mix_mode=args.mix_mode)
+    log = run_paper_experiment(exp, rounds=args.rounds, eval_every=args.eval_every,
+                               verbose=True, device=args.device, peer_axis=args.peer_axis,
+                               driver=args.driver, peers_per_device=args.peers_per_device,
+                               mix_mode=args.mix_mode)
+    if args.driver == "scan":
+        print(f"warm-up round and capture: {log.capture_seconds:.3f}s")
     print(f"done in {time.time() - t0:.1f}s")
 
 

@@ -34,7 +34,10 @@ writes only the last cache_len of them (``index_put_`` with repeated slots
 may keep any writer on CUDA), which leaves the ring the reference leaves.
 
 Caches are updated functionally, as in the reference: the returned cache is
-new and the one passed in is left as it was.
+new and the one passed in is left as it was.  With ``inplace=True`` (the
+scanned decode, ``launch.steps.make_decode_scan``, which owns its cache) the
+new slots are written into the given buffers instead, and the returned cache
+is the one passed in: the same values, without a copy of the cache.
 """
 from __future__ import annotations
 
@@ -125,9 +128,11 @@ def _write_slots(cache_len: int, positions: torch.Tensor) -> torch.Tensor:
     return positions % cache_len
 
 
-def _scatter_cache(buf: torch.Tensor, slots: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
-    """A copy of buf (B, C, ...) with values (B, T, ...) at slots (B, T)."""
-    out = buf.clone()
+def _scatter_cache(buf: torch.Tensor, slots: torch.Tensor, values: torch.Tensor, *,
+                   inplace: bool = False) -> torch.Tensor:
+    """A copy of buf (B, C, ...) with values (B, T, ...) at slots (B, T);
+    ``inplace``: buf itself, written there."""
+    out = buf if inplace else buf.clone()
     bidx = torch.arange(buf.shape[0], device=buf.device)[:, None]
     out[bidx, slots] = values.to(buf.dtype)
     return out
@@ -192,10 +197,12 @@ def gqa_apply(
     cache: dict | None = None,
     causal: bool = True,
     prefill: bool = False,
+    inplace: bool = False,
 ) -> tuple[torch.Tensor, dict | None]:
     """x: (B, T, D); positions: (B, T) absolute.  Returns (out, new_cache).
     ``prefill``: the tokens are a whole prompt written into an empty cache
-    (attended through the kernel); ignored without a cache."""
+    (attended through the kernel); ignored without a cache.  ``inplace``:
+    the tokens are written into the given cache, which is returned."""
     b, t, _ = x.shape
     h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q, k, v = project_qkv(params, cfg, x, positions)
@@ -213,13 +220,9 @@ def gqa_apply(
         if "k_scale" in cache:  # int8-quantized cache
             kq, ks = _quantize_kv(kw)
             vq, vs = _quantize_kv(vw)
-            cache = {
-                "k": _scatter_cache(cache["k"], slots, kq),
-                "v": _scatter_cache(cache["v"], slots, vq),
-                "k_scale": _scatter_cache(cache["k_scale"], slots, ks),
-                "v_scale": _scatter_cache(cache["v_scale"], slots, vs),
-                "pos_ids": _scatter_cache(cache["pos_ids"], slots, pw),
-            }
+            new = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs, "pos_ids": pw}
+            cache = {name: _scatter_cache(cache[name], slots, new[name], inplace=inplace)
+                     for name in new}
             if prefill:  # the prompt's own k and v as the reference reads them back
                 q = q.float()
                 k = _dequantize_kv(*_quantize_kv(k))
@@ -228,11 +231,9 @@ def gqa_apply(
                 kk = _dequantize_kv(cache["k"], cache["k_scale"])
                 vv = _dequantize_kv(cache["v"], cache["v_scale"])
         else:
-            cache = {
-                "k": _scatter_cache(cache["k"], slots, kw),
-                "v": _scatter_cache(cache["v"], slots, vw),
-                "pos_ids": _scatter_cache(cache["pos_ids"], slots, pw),
-            }
+            new = {"k": kw, "v": vw, "pos_ids": pw}
+            cache = {name: _scatter_cache(cache[name], slots, new[name], inplace=inplace)
+                     for name in new}
             kk, vv = cache["k"], cache["v"]
         kv_pos = cache["pos_ids"]
 
@@ -252,9 +253,10 @@ def gqa_apply(
 
 
 def apply(params, cfg: AttentionConfig, x, positions, *, cache=None, causal=True,
-          prefill=False):
+          prefill=False, inplace=False):
     if cfg.kind == "mla":
         raise NotImplementedError(
             "MLA (multi-head latent attention) is not ported yet: ROADMAP.md queue 1 item 16"
         )
-    return gqa_apply(params, cfg, x, positions, cache=cache, causal=causal, prefill=prefill)
+    return gqa_apply(params, cfg, x, positions, cache=cache, causal=causal, prefill=prefill,
+                     inplace=inplace)

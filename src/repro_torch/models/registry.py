@@ -9,7 +9,9 @@ Every family exposes:
                                                dense and hybrid)
     init_cache(batch, seq_len, device) -> cache
     prefill(params, batch, cache) -> (logits, cache)
-    decode_step(params, token, pos, cache) -> (logits, cache)
+    decode_step(params, token, pos, cache, *, inplace=False) -> (logits, cache)
+                                              (``inplace``: the new slot or
+                                               state written into ``cache``)
     make_batch(generator, batch, seq) -> {"tokens", "labels"} (B, S) int64
 
 The reference's ``batch_specs`` (shape stand-ins for its XLA dry run) has no
@@ -60,7 +62,8 @@ def build_model(cfg: ModelConfig) -> Model:
             loss_fn=lambda p, b: tf.decoder_loss_fn(p, cfg, b),
             init_cache=lambda b, s, device: tf.decoder_init_cache(cfg, b, s, device),
             prefill=lambda p, batch, c: tf.decoder_prefill(p, cfg, batch, c),
-            decode_step=lambda p, t, pos, c: tf.decoder_decode_step(p, cfg, t, pos, c),
+            decode_step=lambda p, t, pos, c, inplace=False: tf.decoder_decode_step(
+                p, cfg, t, pos, c, inplace=inplace),
             make_batch=lambda g, b, s: _token_batch(g, cfg, b, s),
         )
     if cfg.family == "hybrid":
@@ -70,7 +73,8 @@ def build_model(cfg: ModelConfig) -> Model:
             loss_fn=lambda p, b: tf.hybrid_loss_fn(p, cfg, b),
             init_cache=lambda b, s, device: tf.hybrid_init_cache(cfg, b, s, device),
             prefill=lambda p, batch, c: tf.hybrid_prefill(p, cfg, batch, c),
-            decode_step=lambda p, t, pos, c: tf.hybrid_decode_step(p, cfg, t, pos, c),
+            decode_step=lambda p, t, pos, c, inplace=False: tf.hybrid_decode_step(
+                p, cfg, t, pos, c, inplace=inplace),
             make_batch=lambda g, b, s: _token_batch(g, cfg, b, s),
         )
     if cfg.family != "rwkv6":
@@ -83,6 +87,7 @@ def build_model(cfg: ModelConfig) -> Model:
         loss_fn=lambda p, b: tf.rwkv6_loss_fn(p, cfg, b),
         init_cache=lambda b, s, device: tf.rwkv6_init_state(cfg, b, device),
         prefill=lambda p, batch, c: tf.rwkv6_prefill(p, cfg, batch, c),
-        decode_step=lambda p, t, pos, c: tf.rwkv6_decode_step(p, cfg, t, pos, c),
+        decode_step=lambda p, t, pos, c, inplace=False: tf.rwkv6_decode_step(
+            p, cfg, t, pos, c, inplace=inplace),
         make_batch=lambda g, b, s: _token_batch(g, cfg, b, s),
     )

@@ -18,7 +18,9 @@ kernels' wrappers: ``mamba2_apply_chunked`` through
 ``kernels.rwkv6.ops.wkv6``.  The scans (``mamba2_apply_scan``,
 ``rwkv6_time_mix_scan``: decode, one token at a time, and the oracles) are
 the token-sequential recurrences and reach no kernel, in the reference as
-here.
+here.  With ``inplace=True`` (decode in the scanned decode,
+``launch.steps.make_decode_scan``) they update the state they are given, in
+place, instead of returning new tensors; the values are the same.
 """
 from __future__ import annotations
 
@@ -74,10 +76,11 @@ def mamba2_state(d_model: int, cfg: SSMConfig, batch: int, dtype: torch.dtype,
     }
 
 
-def _mamba2_preproc(params, cfg: SSMConfig, x, conv_state):
+def _mamba2_preproc(params, cfg: SSMConfig, x, conv_state, inplace: bool = False):
     """in_proj + causal depthwise conv; returns (z, xh, bm, cm, dt, new_conv_state).
     xh (B, L, H, P), bm and cm (B, L, G, N) are views of the convolution's
-    output; dt (B, L, H) is float32."""
+    output; dt (B, L, H) is float32.  ``inplace``: the new conv state is
+    written into ``conv_state``, which is returned."""
     b, l, d_model = x.shape
     dims = mamba2_dims(d_model, cfg)
     d_in, h, p, n, g = dims["d_inner"], dims["nheads"], cfg.head_dim, cfg.state_dim, cfg.ngroups
@@ -88,8 +91,12 @@ def _mamba2_preproc(params, cfg: SSMConfig, x, conv_state):
     # causal depthwise conv over the sequence (kernel conv_dim); the new conv
     # state is copied out, so it does not hold the padded input alive
     xbc_pad = torch.cat([conv_state.to(xbc.dtype), xbc], dim=1)
-    new_conv_state = xbc_pad[:, -(cfg.conv_dim - 1):].clone() if cfg.conv_dim > 1 \
-        else conv_state
+    if cfg.conv_dim == 1:
+        new_conv_state = conv_state
+    elif inplace:
+        new_conv_state = conv_state.copy_(xbc_pad[:, -(cfg.conv_dim - 1):])
+    else:
+        new_conv_state = xbc_pad[:, -(cfg.conv_dim - 1):].clone()
     conv = sum(xbc_pad[:, i:i + l] * params["conv_w"][i] for i in range(cfg.conv_dim))
     conv = conv + params["conv_b"]
     conv = torch.nn.functional.silu(conv.float()).to(x.dtype)
@@ -107,12 +114,13 @@ def _mamba2_finish(params, z, y, x_dtype):
     return y @ params["out_proj"]
 
 
-def mamba2_apply_scan(params, cfg: SSMConfig, x, state=None):
-    """Sequential oracle / decode path. x: (B, L, D). Returns (out, state)."""
+def mamba2_apply_scan(params, cfg: SSMConfig, x, state=None, *, inplace: bool = False):
+    """Sequential oracle / decode path. x: (B, L, D). Returns (out, state);
+    ``inplace``: ``state``'s tensors updated and returned."""
     b, l, d_model = x.shape
     if state is None:
         state = mamba2_state(d_model, cfg, b, x.dtype, x.device)
-    z, xh, bm, cm, dt, conv_state = _mamba2_preproc(params, cfg, x, state["conv"])
+    z, xh, bm, cm, dt, conv_state = _mamba2_preproc(params, cfg, x, state["conv"], inplace)
     h = xh.shape[2]
     a = -torch.exp(params["A_log"])  # (H,)
     bm, cm = (ssd_ref.expand_groups(m, h).float() for m in (bm, cm))
@@ -121,7 +129,8 @@ def mamba2_apply_scan(params, cfg: SSMConfig, x, state=None):
     ys = []
     for t in range(l):
         decay = torch.exp(dt[:, t] * a)[..., None, None]  # (B, H, 1, 1)
-        s = s * decay + (dt[:, t, :, None] * xf[:, t])[..., None] * bm[:, t, :, None, :]
+        inject = (dt[:, t, :, None] * xf[:, t])[..., None] * bm[:, t, :, None, :]
+        s = s.mul_(decay).add_(inject) if inplace else s * decay + inject
         ys.append(torch.einsum("bhpn,bhn->bhp", s, cm[:, t]))
     y = torch.stack(ys, dim=1) + params["D"][:, None] * xf
     out = _mamba2_finish(params, z, y.reshape(b, l, -1), x.dtype)
@@ -244,8 +253,9 @@ def _tm_output(tm: dict, o: torch.Tensor, g: torch.Tensor, dtype: torch.dtype):
     return o @ tm["w_o"]
 
 
-def rwkv6_time_mix_scan(tm: dict, cfg: SSMConfig, x, prev, wkv):
-    """Sequential WKV oracle / decode. Returns (out, new_prev, new_wkv)."""
+def rwkv6_time_mix_scan(tm: dict, cfg: SSMConfig, x, prev, wkv, *, inplace: bool = False):
+    """Sequential WKV oracle / decode. Returns (out, new_prev, new_wkv);
+    ``inplace``: ``wkv`` updated and returned as new_wkv."""
     r, k, v, g, logd, new_prev = _tm_projections(tm, x, prev)
     dk = cfg.head_dim
     rh, kh, vh = (_heads(t, dk).float() for t in (r, k, v))
@@ -257,7 +267,8 @@ def rwkv6_time_mix_scan(tm: dict, cfg: SSMConfig, x, prev, wkv):
         rt, kt, vt = rh[:, t], kh[:, t], vh[:, t]  # (B, H, dk)
         # o_t = r_t . (S_{t-1} + (u*k_t) v_t^T)
         ot = (rt.unsqueeze(-2) @ s).squeeze(-2) + (rt * u * kt).sum(-1, keepdim=True) * vt
-        s = torch.exp(ld[:, t]).unsqueeze(-1) * s + kt.unsqueeze(-1) * vt.unsqueeze(-2)
+        decay, kv = torch.exp(ld[:, t]).unsqueeze(-1), kt.unsqueeze(-1) * vt.unsqueeze(-2)
+        s = s.mul_(decay).add_(kv) if inplace else decay * s + kv
         outs.append(ot)
     o = torch.stack(outs, dim=1)  # (B, L, H, dk)
     return _tm_output(tm, o, g, x.dtype), new_prev, s
@@ -289,14 +300,23 @@ def rwkv6_channel_mix(cm: dict, x, prev):
     return rg.to(x.dtype) * kv, x[:, -1]
 
 
-def rwkv6_block_apply(params: dict, cfg: SSMConfig, x, state: dict, *, chunked: bool):
-    """Full RWKV6 layer: time-mix + channel-mix with pre-LN residuals."""
+def rwkv6_block_apply(params: dict, cfg: SSMConfig, x, state: dict, *, chunked: bool,
+                      inplace: bool = False):
+    """Full RWKV6 layer: time-mix + channel-mix with pre-LN residuals.
+    ``inplace`` (the scan form only): ``state``'s tensors updated and returned."""
     tm, cm = common.sub(params, "time_mix."), common.sub(params, "channel_mix.")
     h_in = common.layernorm(common.sub(tm, "ln."), x)
-    fn = rwkv6_time_mix_chunked if chunked else rwkv6_time_mix_scan
-    o, tm_prev, wkv = fn(tm, cfg, h_in, state["tm_prev"], state["wkv"])
+    if chunked:
+        o, tm_prev, wkv = rwkv6_time_mix_chunked(tm, cfg, h_in, state["tm_prev"], state["wkv"])
+    else:
+        o, tm_prev, wkv = rwkv6_time_mix_scan(tm, cfg, h_in, state["tm_prev"], state["wkv"],
+                                              inplace=inplace)
     x = x + o
     c_in = common.layernorm(common.sub(cm, "ln."), x)
     o2, cm_prev = rwkv6_channel_mix(cm, c_in, state["cm_prev"])
     x = x + o2
+    if inplace:
+        state["tm_prev"].copy_(tm_prev)
+        state["cm_prev"].copy_(cm_prev)
+        return x, state
     return x, {"tm_prev": tm_prev, "cm_prev": cm_prev, "wkv": wkv}

@@ -21,9 +21,16 @@ and each shared-block application's attention through ``flash_attention``
 (``models/attention.py``), each Mamba2 layer's SSD through ``ssd``
 (``models/ssm.py``); decode steps attend over the cache and run the Mamba2
 recurrence in plain PyTorch.
+
+Caches are updated functionally (each layer's new cache, then the stack of
+them), as in the reference.  The decode steps also take ``inplace=True``
+(the scanned decode, ``launch.steps.make_decode_scan``, which owns its
+cache): every layer writes its new slot or state into its row of the
+stacked buffers, and the step returns the cache it was given.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
@@ -77,11 +84,12 @@ def _block_init(generator: torch.Generator, cfg: ModelConfig) -> dict[str, torch
     return p
 
 
-def _block_apply(p, cfg: ModelConfig, x, positions, cache, *, prefill=False):
-    """Returns (x, new_cache); ``prefill`` as in ``attention.gqa_apply``."""
+def _block_apply(p, cfg: ModelConfig, x, positions, cache, *, prefill=False, inplace=False):
+    """Returns (x, new_cache); ``prefill`` and ``inplace`` as in
+    ``attention.gqa_apply``."""
     h, cache = attention.apply(common.sub(p, "attn."), cfg.attention,
                                common.rmsnorm(common.sub(p, "ln1."), x, cfg.norm_eps),
-                               positions, cache=cache, prefill=prefill)
+                               positions, cache=cache, prefill=prefill, inplace=inplace)
     x = x + h
     h2 = common.rmsnorm(common.sub(p, "ln2."), x, cfg.norm_eps)
     return x + common.mlp_apply(common.sub(p, "mlp."), h2, act=cfg.act), cache
@@ -122,20 +130,23 @@ def _decoder_embed(params, cfg: ModelConfig, tokens, patches=None):
     return common.embed_lookup(params["embed"], tokens, compute_dtype(cfg))
 
 
-def _decoder_trunk(params, cfg: ModelConfig, x, positions, caches, *, prefill=False):
+def _decoder_trunk(params, cfg: ModelConfig, x, positions, caches, *, prefill=False,
+                   inplace=False):
     """caches: the ``"main."`` leaves stacked (L, ...), or None (no cache);
-    ``prefill``: x is the whole prompt, written into empty caches.
+    ``prefill``: x is the whole prompt, written into empty caches;
+    ``inplace``: each layer writes into its row of ``caches``.
     Returns (x after the final norm, new caches or None)."""
     layers = common.sub(params, LAYERS)
     main = None if caches is None else common.sub(caches, MAIN_CACHE)
     new = []
     for i in range(cfg.num_layers):
         x, c = _block_apply(common.row(layers, i), cfg, x, positions,
-                            None if main is None else common.row(main, i), prefill=prefill)
+                            None if main is None else common.row(main, i), prefill=prefill,
+                            inplace=inplace)
         new.append(c)
     x = common.rmsnorm(common.sub(params, "final_norm."), x, cfg.norm_eps)
-    if caches is None:
-        return x, None
+    if caches is None or inplace:
+        return x, caches
     return x, {MAIN_CACHE + name: torch.stack([c[name] for c in new]) for name in main}
 
 
@@ -164,10 +175,10 @@ def decoder_prefill(params, cfg: ModelConfig, batch, caches):
     return decoder_logits(params, cfg, x[:, -1:]), caches
 
 
-def decoder_decode_step(params, cfg: ModelConfig, token, pos, caches):
+def decoder_decode_step(params, cfg: ModelConfig, token, pos, caches, *, inplace=False):
     """token: (B,) int; pos: (B,) absolute position of this token."""
     x = _decoder_embed(params, cfg, token[:, None])
-    x, caches = _decoder_trunk(params, cfg, x, pos[:, None], caches)
+    x, caches = _decoder_trunk(params, cfg, x, pos[:, None], caches, inplace=inplace)
     return decoder_logits(params, cfg, x), caches
 
 
@@ -202,14 +213,15 @@ def rwkv6_init_state(cfg: ModelConfig, batch: int, device) -> dict[str, torch.Te
     )
 
 
-def _rwkv6_trunk(params, cfg: ModelConfig, x, states, *, chunked: bool):
+def _rwkv6_trunk(params, cfg: ModelConfig, x, states, *, chunked: bool, inplace: bool = False):
     layers = common.sub(params, LAYERS)
     new_states = []
     for i in range(cfg.num_layers):
         x, s = ssm.rwkv6_block_apply(common.row(layers, i), cfg.ssm, x, common.row(states, i),
-                                     chunked=chunked)
+                                     chunked=chunked, inplace=inplace)
         new_states.append(s)
-    stacked = {name: torch.stack([s[name] for s in new_states]) for name in states}
+    stacked = states if inplace else {
+        name: torch.stack([s[name] for s in new_states]) for name in states}
     return common.layernorm(common.sub(params, "final_norm."), x, cfg.norm_eps), stacked
 
 
@@ -234,11 +246,11 @@ def rwkv6_prefill(params, cfg: ModelConfig, batch, states):
     return decoder_logits(params, cfg, x[:, -1:]), states
 
 
-def rwkv6_decode_step(params, cfg: ModelConfig, token, pos, states):
+def rwkv6_decode_step(params, cfg: ModelConfig, token, pos, states, *, inplace=False):
     del pos  # recurrent: position-free
     x = common.embed_lookup(params["embed"], token[:, None], compute_dtype(cfg))
     x = common.layernorm(common.sub(params, "ln0."), x, cfg.norm_eps)
-    x, states = _rwkv6_trunk(params, cfg, x, states, chunked=False)
+    x, states = _rwkv6_trunk(params, cfg, x, states, chunked=False, inplace=inplace)
     return decoder_logits(params, cfg, x), states
 
 
@@ -290,16 +302,19 @@ def hybrid_init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def _hybrid_layers(params, cfg: ModelConfig, x, positions, mamba_states, attn_caches, *,
-                   chunked: bool, prefill: bool):
+                   chunked: bool, prefill: bool, inplace: bool = False):
     """The trunk shared by the cached and the cache-free forms: the Mamba2
     layers in groups of ``shared_block_period``, the shared block after each
     group on ``concat(h, embedding) @ shared_proj``.  ``attn_caches`` None
     runs the shared block without a cache.  Returns (x after the final norm,
-    the new Mamba2 states stacked, the new attention caches stacked or None)."""
+    the new Mamba2 states stacked, the new attention caches stacked or None);
+    ``inplace`` (decode) writes them into ``mamba_states`` and
+    ``attn_caches`` and returns those."""
     period = cfg.shared_block_period
     groups = hybrid_num_shared_applications(cfg) if period else 1
     per = cfg.num_layers // groups
-    mamba_fn = ssm.mamba2_apply_chunked if chunked else ssm.mamba2_apply_scan
+    mamba_fn = (ssm.mamba2_apply_chunked if chunked
+                else functools.partial(ssm.mamba2_apply_scan, inplace=inplace))
     layers = common.sub(params, LAYERS)
     shared = common.sub(params, "shared_block.")
     x0 = x  # the embedding, concatenated into every shared-block input
@@ -315,23 +330,28 @@ def _hybrid_layers(params, cfg: ModelConfig, x, positions, mamba_states, attn_ca
         cache = None if attn_caches is None else common.row(attn_caches, gi)
         if period:
             inp = torch.cat([x, x0], dim=-1) @ params["shared_proj"]
-            out, cache = _block_apply(shared, cfg, inp, positions, cache, prefill=prefill)
+            out, cache = _block_apply(shared, cfg, inp, positions, cache, prefill=prefill,
+                                      inplace=inplace)
             x = x + out
         new_attn.append(cache)
     x = common.rmsnorm(common.sub(params, "final_norm."), x, cfg.norm_eps)
+    if inplace:
+        return x, mamba_states, attn_caches
     mamba = {name: torch.stack([s[name] for s in new_mamba]) for name in mamba_states}
     if attn_caches is None:
         return x, mamba, None
     return x, mamba, {name: torch.stack([c[name] for c in new_attn]) for name in attn_caches}
 
 
-def _hybrid_trunk(params, cfg: ModelConfig, x, positions, cache, *, chunked: bool):
+def _hybrid_trunk(params, cfg: ModelConfig, x, positions, cache, *, chunked: bool,
+                  inplace: bool = False):
     """``chunked``: the prompt, written into empty caches (the SSD through the
     kernel, the shared block's attention through ``flash_attention``);
-    otherwise decode steps (the Mamba2 recurrence, cached attention)."""
+    otherwise decode steps (the Mamba2 recurrence, cached attention),
+    ``inplace`` as in ``_hybrid_layers``."""
     x, mamba, attn = _hybrid_layers(params, cfg, x, positions, common.sub(cache, MAMBA_CACHE),
                                     common.sub(cache, ATTN_CACHE), chunked=chunked,
-                                    prefill=chunked)
+                                    prefill=chunked, inplace=inplace)
     return x, {**{MAMBA_CACHE + k: t for k, t in mamba.items()},
                **{ATTN_CACHE + k: t for k, t in attn.items()}}
 
@@ -360,8 +380,9 @@ def hybrid_prefill(params, cfg: ModelConfig, batch, cache):
     return decoder_logits(params, cfg, x[:, -1:]), cache
 
 
-def hybrid_decode_step(params, cfg: ModelConfig, token, pos, cache):
+def hybrid_decode_step(params, cfg: ModelConfig, token, pos, cache, *, inplace=False):
     """token: (B,) int; pos: (B,) absolute position of this token."""
     x = common.embed_lookup(params["embed"], token[:, None], compute_dtype(cfg))
-    x, cache = _hybrid_trunk(params, cfg, x, pos[:, None], cache, chunked=False)
+    x, cache = _hybrid_trunk(params, cfg, x, pos[:, None], cache, chunked=False,
+                             inplace=inplace)
     return decoder_logits(params, cfg, x), cache

@@ -8,7 +8,8 @@
   (float32 atol = rtol = 1e-4; measured ~3e-6), and the port's own greedy
   tokens equal the reference's up to the first step whose top-2 logit margin
   is within twice that tolerance (where the argmax may flip).
-* The explicit empty decode at ``gen_tokens == 1`` and the ``ValueError``s.
+* The explicit empty decode at ``gen_tokens == 1``, the ``ValueError``s, and
+  ``decode_impl="scan"`` equal to ``"python"`` on the CPU.
 * The fleet is bit-identical to sequential per-peer generation
   (``torch.equal``), under any routing, for both families.
 * The 2NN fleet, ``serving_params`` and ``consensus_averaged_params`` on a
@@ -143,8 +144,11 @@ def test_degenerate_lengths_rejected(models):
         steps.make_decode_loop(tmodel, 0)
     with pytest.raises(ValueError, match="decode_impl"):
         serve.serve_batch(ARCH, decode_impl="loop", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        serve.serve_batch(ARCH, decode_impl="scan", device="cpu")
+    # the scanned decode runs on the CPU and gives the python loop's tokens
+    kw = dict(batch=2, prompt_len=8, gen_tokens=4, device="cpu")
+    scan = serve.serve_batch(ARCH, decode_impl="scan", **kw)
+    assert torch.equal(scan["tokens"], serve.serve_batch(ARCH, decode_impl="python",
+                                                         **kw)["tokens"])
     with pytest.raises(ValueError, match="peer_axis"):
         serve.serve_fleet(ARCH, peer_axis="mesh", device="cpu")
     with pytest.raises(NotImplementedError, match="item 15"):
