@@ -38,7 +38,13 @@ In order:
    K = 16 with an isolated peer, ``dequant_mix`` (qint8) at K = 8, 100, 129
    and K = 8 with an isolated peer, ``segment_mix`` on the K = 4096
    directed ring at the 2NN's row and on a K = 64 one with an isolated peer
-   (whose mass and parameters stay, and whose d is 0); ``wkv6`` at seventeen (the prefill's
+   (whose mass and parameters stay, and whose d is 0); the snapshot mode
+   (bounded staleness) of ``consensus_mix``, gossip and mass, on
+   age-decayed operands with every own snapshot stale, asserting its design
+   and that d reads the live row, timed against
+   ``torch.matmul([W_off; Beta], P)``: ``straggler_k8``'s K = 8 ring
+   (gather), K = 100 complete (tile), K = 129 (gather) and K = 16 with an
+   isolated peer (tile); ``wkv6`` at seventeen (the prefill's
    B 4, T 1024, 64 heads of 64, chunk 16, from a zero and from a random
    state, and with bf16 r, k and v as served, timed; T 1000, ragged;
    log-decay -50; T 5, under one chunk; B 1, T 4096, timed; T 1001 ragged
@@ -118,11 +124,15 @@ In order:
    static (3), with one-way matchings (3) and with directed link dropout and
    qint8 (3), ``iid_k100 --protocol push_sum`` (2) and the same on the
    one-slice segment runtime (2), each push-sum run checking after every
-   round that the mass sums to K within 1e-5 K and stays positive; with
+   round that the mass sums to K within 1e-5 K and stays positive; then
+   asynchronous rounds: ``iid_k100 --steps-profile linear`` (2: step budgets
+   alone, the synchronous consensus), ``straggler_k8`` gossip static and
+   push-sum round robin (5 each, through the snapshot mode); with
    every kernel's launch count reset just before and read just after each
    run, and every plain version's calls counted (none allowed); after each
    of the first, the compressed, the hierarchical and three push-sum runs it
-   recomputes one consensus phase with the plain version; these runs take
+   recomputes one consensus phase with the plain version (the async ones
+   on the round's delivery and age-decayed operands); these runs take
    ``run_paper_experiment``'s default driver, the scan driver (each round a
    replay of one captured CUDA graph of the round, launches counted on
    replay), evaluating every round, so ``on_round`` still sees every
@@ -131,9 +141,13 @@ In order:
    rounds, eval every 5), ``iid_k100`` (tile; 10, 5), ``iid_k100`` qint8
    (``dequant_mix``; 10, 5), ``timevarying_k8`` round robin with qint8 (R =
    2 operands refreshed per round; 9, 3), ``directed_k8`` (push-sum, mass
-   mode; 15, 5) and ``iid_k100`` on the one-slice segment runtime
-   (``segment_mix``; 10, 5): final params, momentum, d, b, mass and
-   estimate, the logged losses and accuracies equal bit for bit, the same
+   mode; 15, 5), ``iid_k100`` on the one-slice segment runtime
+   (``segment_mix``; 10, 5), ``straggler_k8`` gossip static and push-sum
+   round robin (the snapshot mode's gather; 15, 5) and ``iid_k100
+   --steps-profile straggler --staleness-bound 3`` (its tile; 10, 5): final
+   params, momentum, d, b, mass, estimate, published snapshots and ages,
+   the logged losses and accuracies equal bit for bit, ages within the
+   bound and the mass summing to K, the same
    launches, no plain version; s/round both ways after the first period,
    the capture seconds, peak memory both ways, and at K = 100 the cost of
    copying every state leaf once (the body's carry copy at most);
@@ -148,7 +162,8 @@ In order:
    copy more memory), and prints its seconds per round and peak memory
    beside the state's size;
 10. prints the ``kernels`` JSON line (each consensus kernel with its mass
-   mode beside its gossip mode) and, last, the contract line
+   mode beside its gossip mode, ``consensus_mix`` also with its snapshot
+   mode) and, last, the contract line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result;
@@ -186,6 +201,7 @@ TV_TOPK_ROUNDS = 3
 IID_QINT8_ROUNDS = 2
 IID_POD_ROUNDS = 2
 DIRECTED_ROUNDS = 3
+STRAGGLER_ROUNDS = 5
 LARGE_K = 4096
 LARGE_K_ROUNDS = 2
 
@@ -844,6 +860,127 @@ def mass_cases(card: Card) -> dict[str, list[dict]]:
     }
 
 
+STALE_BOUND = 3  # straggler_k8's staleness bound: the ages the snapshot cases draw
+
+
+def snapshot_case(card, name, graph, sizes, n, *, mass=False, iso=None, want_path="tile",
+                  seed=0):
+    """``consensus_mix``'s snapshot mode (bounded-staleness consensus), gossip
+    or with ``mass`` its mass mode, against its plain version and the
+    library product ``[W_off; Beta] P`` (mass: ``[A_off diag(y); Beta] P``),
+    on the round's operands age-decayed (``protocols.age_decayed_operands``)
+    by random ages up to ``STALE_BOUND``.  The published buffer P is x
+    perturbed, so every own row is stale and d must read the live x_k.
+    ``iso`` isolates a peer: it keeps its parameters (and its mass) and its
+    d is 0."""
+    from repro_torch.core import graph as graph_lib
+    from repro_torch.core import protocols
+    from repro_torch.kernels.consensus_mix import ops, ref
+
+    dev = torch.device("cuda")
+    t = 10
+    if iso is not None:
+        graph = isolated(graph, iso)
+    stochasticity = "column" if mass else "row"
+    sparse = graph_lib.SparseSchedule.from_schedule(
+        graph_lib.static_schedule(graph), "data_weighted", data_sizes=sizes,
+        stochasticity=stochasticity)
+    k, d = sparse.num_peers, sparse.degree_bound
+    path = "tile" if ops.takes_tile_path(k) else "gather"
+    check(path == want_path, f"{name}: {path} design, want {want_path}")
+    rng = np.random.default_rng(seed)
+    stale = protocols.StaleRoundOps(
+        *ops.select_round(ops.upload_schedule(sparse, dev), 0),
+        torch.as_tensor(protocols.column_sums(sparse)[0], device=dev),
+        torch.zeros(k, dtype=torch.bool, device=dev))
+    age = rng.integers(0, STALE_BOUND + 1, k)
+    decay = torch.as_tensor((0.5 ** age).astype(np.float32), device=dev)
+    a_ops = protocols.age_decayed_operands(stale, decay, stochasticity)
+    x = torch.as_tensor(rng.normal(size=(k, n)).astype(np.float32), device=dev)
+    pub = x + torch.as_tensor(0.05 * rng.normal(size=(k, n)).astype(np.float32), device=dev)
+    y = push_sum_mass(k, seed, dev) if mass else None
+    if mass:
+        got = ops.consensus_mix_push_sum_snapshot_stacked(x, pub, y, a_ops, t)
+        want = ref.consensus_mix_push_sum_stacked_ref(x, y, *a_ops, t, published=pub)
+    else:
+        got = ops.consensus_mix_snapshot_stacked(x, pub, a_ops, t)
+        want = ref.consensus_mix_stacked_ref(x, *a_ops, t, published=pub)
+    torch.cuda.synchronize()
+    if mass:
+        err = check_mass_outputs(name, got, want, x, y, iso)
+    else:
+        err = 0.0
+        for g, r, what in zip(got, want, ("mixed", "d")):
+            torch.testing.assert_close(g, r, **TOL, msg=lambda m: f"{name} {what}: {m}")
+            err = max(err, float((g - r).abs().max()))
+        if iso is not None:
+            check(bool(torch.equal(got[0][iso], x[iso])), f"{name}: isolated peer keeps x")
+            check(bool((got[1][iso] == 0).all()), f"{name}: isolated peer's d is 0")
+    # d's own term is the live row: with the stale own row it would differ
+    live = int(np.argmax(np.asarray(a_ops.beta.sum(dim=1).cpu()) > 0))
+    wrong = (want[1][live] * t + x[live] - pub[live]) / t
+    check(not torch.allclose(got[1][live], wrong, **TOL), f"{name}: d reads the live x_k")
+    del got, want
+
+    outs = [torch.empty_like(x), torch.empty_like(x)]
+    mass_args = (y, torch.empty_like(y)) if mass else ()
+    w_off = torch.zeros(k, k, dtype=torch.float32, device=dev)
+    rows = torch.arange(k, device=dev).repeat_interleave(d)
+    cols = a_ops.nbr_idx.long().reshape(-1)
+    w_vals = a_ops.nbr_w * (y[a_ops.nbr_idx.long()] if mass else 1.0)
+    beta_d = torch.zeros(k, k, dtype=torch.float32, device=dev)
+    w_off.index_put_((rows, cols), w_vals.reshape(-1), accumulate=True)
+    beta_d.index_put_((rows, cols), a_ops.beta.reshape(-1), accumulate=True)
+    lib_op = torch.cat([w_off, beta_d])
+    lib_out = torch.empty((2 * k, n), device=dev)
+    if mass:
+        plain = lambda: ref.consensus_mix_push_sum_stacked_ref(  # noqa: E731
+            x, y, *a_ops, t, published=pub)
+    else:
+        plain = lambda: ref.consensus_mix_stacked_ref(x, *a_ops, t, published=pub)  # noqa: E731
+    times = in_turns(plain,
+                     lambda: ops.launch(x, a_ops, t, *outs, *mass_args, published=pub),
+                     lambda: torch.matmul(lib_op, pub, out=lib_out))
+    real = int((sparse.nbr_idx[0] != np.arange(k)[:, None]).sum())
+    flops = n * (4 * real + (4 if mass else 3) * k) + (2 * (real + k) if mass else 0)
+    # x and P read once, mixed and d written once, the operands (and the mass)
+    nbytes = 4 * k * n * 4 + k * 4 + 3 * k * d * 4 + (2 * k * 4 if mass else 0)
+    return {"case": name, "K": k, "D": d, "N": n, "path": path, "vector_path": n % 4 == 0,
+            "weights": "mass" if mass else "gossip", "max_abs_err": err, **times,
+            **card.bound(nbytes, flops)}
+
+
+def snapshot_cases(card: Card) -> list[dict]:
+    """The snapshot mode of ``consensus_mix`` in both designs and both weight
+    modes: ``straggler_k8``'s K = 8 ring (gather), K = 100 complete at the
+    2NN's row (tile: ``iid_k100`` with a staleness bound), K = 129 past the
+    tile's cap (gather), and K = 16 with an isolated peer whose own row is
+    stale (tile)."""
+    from repro_torch.core import graph as graph_lib
+    from repro_torch.core.p2p import layout_of
+    from repro_torch.kernels.consensus_mix import ops
+
+    row = layout_of("mnist_mlp").row
+    complete = lambda k: graph_lib.build_graph("complete", k)  # noqa: E731
+    ring8 = graph_lib.build_graph("ring", 8)
+    cap = ops.TILE_MAX_PEERS
+    cases = []
+    for mass in (False, True):
+        tag = "_mass" if mass else ""
+        cases += [
+            snapshot_case(card, f"straggler_k8{tag}", ring8, np.full(8, 100), row, mass=mass,
+                          want_path="gather"),
+            snapshot_case(card, f"iid_k100{tag}", complete(100), np.full(100, 600), row,
+                          mass=mass, seed=1),
+            snapshot_case(card, f"gather_k{cap + 1}{tag}", complete(cap + 1),
+                          np.arange(1, cap + 2) * 5, 50000, mass=mass, want_path="gather",
+                          seed=2),
+            snapshot_case(card, f"k16_isolated_stale{tag}", complete(16),
+                          np.arange(1, 17) * 10, 5003, mass=mass, iso=3, seed=3),
+        ]
+    return cases
+
+
 WKV6_TOL = dict(atol=1e-3, rtol=1e-3)  # float32, the wkv6 tolerance of tests/test_kernels.py
 # bf16 r, k, v and output: both sides compute in float32 from the same bf16
 # values, and the kernel rounds its float32 output once to bf16 (at most 2^-9
@@ -1330,6 +1467,7 @@ def check_kernels(card: Card) -> dict[str, list[dict]]:
              "ssd": ssd_cases(card)}
     for kernel, kcases in mass_cases(card).items():
         cases[f"{kernel} mass"] = kcases
+    cases["consensus_mix snapshot"] = snapshot_cases(card)
     for kernel, kcases in cases.items():
         for c in kcases:
             if kernel == "wkv6":
@@ -1348,9 +1486,11 @@ def recheck_consensus(name: str, exp, state, data, *, mix_mode=None) -> None:
     plain version on the same post-local state (S = 1); ``mix_mode``
     "segment" rechecks the one-slice hierarchical runtime's phase.  A
     push-sum run is held to the plain versions of the mass mode, its new
-    mass included."""
+    mass included; a bounded-staleness run to the snapshot mode's, on the
+    round's delivery and age-decayed operands, its published buffer and ages
+    included."""
     from repro_torch import compression
-    from repro_torch.core import p2p, task as task_lib
+    from repro_torch.core import p2p, protocols, task as task_lib
     from repro_torch.kernels.consensus_mix import ops as cm_ops
     from repro_torch.kernels.consensus_mix import ref
     from repro_torch.launch import train
@@ -1362,7 +1502,7 @@ def recheck_consensus(name: str, exp, state, data, *, mix_mode=None) -> None:
     sizes = np.asarray([len(p[0]) for p in parts])
     batches = task.make_peer_batches(parts, exp.batch_size, seed=1).round_batches_on(
         cfg.local_steps, torch.device("cuda"))
-    after_local, _ = p2p.local_phase(state, task, batches, cfg)
+    after_local, _ = p2p.local_phase(state, task, batches, cfg, steps_k=p2p.steps_budget(cfg))
     ops_s = p2p.schedule_operands(cfg, sizes, device="cuda")
     sparse = cm_ops.select_round(ops_s, after_local.round_idx)
     comp = compression.from_config(cfg)
@@ -1373,6 +1513,21 @@ def recheck_consensus(name: str, exp, state, data, *, mix_mode=None) -> None:
         after_cons = p2p.consensus_phase_hier(after_local, cfg, ops_s, mix_mode=mix_mode)
         plain = ref.segment_mix_push_sum_stacked_ref if push_sum else ref.segment_mix_stacked_ref
         out = plain(after_local.params, *mass, *sparse, cfg.local_steps)
+    elif cfg.staleness_bound > 0:
+        pick, _ = p2p.round_picker(cfg, sizes, device="cuda")
+        stale = pick(after_local.round_idx)
+        after_cons = p2p.consensus_phase(after_local, cfg, stale)
+        st = after_local.staleness
+        delivered, age, decay = p2p.staleness_delivery(cfg, stale.scheduled, st.age)
+        published = torch.where(delivered[:, None], after_local.params, st.published)
+        a_ops = protocols.age_decayed_operands(
+            stale, decay, protocols.get_protocol(cfg.protocol).stochasticity)
+        plain = (ref.consensus_mix_push_sum_stacked_ref if push_sum
+                 else ref.consensus_mix_stacked_ref)
+        out = plain(after_local.params, *mass, *a_ops, cfg.local_steps, published=published)
+        check(torch.equal(after_cons.staleness.published, published)
+              and torch.equal(after_cons.staleness.age, age), f"{name}: published buffer")
+        check(int(age.max()) <= cfg.staleness_bound, f"{name}: ages within the bound")
     elif comp.identity:
         after_cons = p2p.consensus_phase(after_local, cfg, sparse)
         plain = (ref.consensus_mix_push_sum_stacked_ref if push_sum
@@ -1526,6 +1681,14 @@ def compare_drivers(card: Card, name: str, exp, rounds: int, eval_every: int, da
         runs[driver] = {"log": log, "state": state, "launches": launches,
                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     python, scan = runs["python"], runs["scan"]
+    final = scan["state"]
+    if exp.p2p.protocol == "push_sum":
+        total = float(final.protocol.mass.double().sum())
+        check(abs(total - exp.p2p.num_peers) <= 1e-5 * exp.p2p.num_peers,
+              f"{name}: sum y = {total}")
+    if exp.p2p.staleness_bound > 0:
+        check(int(final.staleness.age.max()) <= exp.p2p.staleness_bound,
+              f"{name}: ages within the bound")
     leaves = list(zip(p2p.state_leaves(python["state"]), p2p.state_leaves(scan["state"])))
     check(len(p2p.state_leaves(python["state"])) == len(p2p.state_leaves(scan["state"])),
           f"{name}: state structure")
@@ -1547,7 +1710,8 @@ def compare_drivers(card: Card, name: str, exp, rounds: int, eval_every: int, da
            "first_period_s_per_round": {d: runs[d]["log"].seconds[0] for d in runs},
            "capture_s": scan["log"].capture_seconds,
            "peak_gb": {d: runs[d]["peak_gb"] for d in runs}}
-    if exp.p2p.num_peers == 100 and not run_kw and exp.p2p.compressor == "none":
+    if exp.p2p.num_peers == 100 and not run_kw and exp.p2p.compressor == "none" \
+            and not exp.p2p.use_async:
         # what the body's copy of the round's state into the carried buffers
         # costs at most: every (K, row) leaf copied once
         src = p2p.state_leaves(scan["state"])
@@ -2163,7 +2327,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this smoke run needs a GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs.p2pl_mnist import directed_k8, iid_k100, noniid_k2, timevarying_k8
+    from repro_torch.configs.p2pl_mnist import (directed_k8, iid_k100, noniid_k2, straggler_k8,
+                                                timevarying_k8)
     from repro_torch.data import synthetic
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2234,6 +2399,26 @@ def main() -> int:
             "iid_k100_push_sum_pod_segment", iid_push, IID_POD_ROUNDS, data, recheck=True,
             mix_mode="segment", peer_axis="pod", peers_per_device=iid.p2p.num_peers),
     }
+    # asynchronous rounds: straggler_k8 (K = 8, the snapshot mode's gather
+    # design), and iid_k100 with per-peer step budgets alone (linear: the
+    # synchronous consensus) and with a staleness bound (the snapshot mode's
+    # tile); their both-driver runs follow
+    iid_linear = dataclasses.replace(iid, p2p=dataclasses.replace(iid.p2p,
+                                                                  steps_profile="linear"))
+    iid_stale = dataclasses.replace(iid, p2p=dataclasses.replace(
+        iid.p2p, steps_profile="straggler", staleness_bound=3))
+    straggler_push = straggler_k8(schedule="round_robin", protocol="push_sum")
+    paths |= {
+        "iid_k100_linear": drive("iid_k100_linear", iid_linear, IID_ROUNDS, data,
+                                 recheck=False),
+        "straggler_k8": drive("straggler_k8", straggler_k8(), STRAGGLER_ROUNDS, data,
+                              recheck=True),
+        "straggler_k8_round_robin_push_sum": drive(
+            "straggler_k8_round_robin_push_sum", straggler_push, STRAGGLER_ROUNDS, data,
+            recheck=True),
+    }
+    for label in ("straggler_k8", "straggler_k8_round_robin_push_sum"):
+        paths[label]["mode"] = "snapshot"
     # both round drivers from the same seed and rounds, bit for bit
     pod = dict(peer_axis="pod", peers_per_device=iid.p2p.num_peers, mix_mode="segment")
     for label, exp, rounds, every, kernel, run_kw in (
@@ -2244,9 +2429,13 @@ def main() -> int:
          timevarying_k8(schedule="round_robin", compressor="qint8"), 9, 3, "dequant_mix", {}),
         ("directed_k8", directed, 15, 5, "consensus_mix", {}),
         ("iid_k100_pod_segment", iid, 10, 5, "segment_mix", pod),
+        ("straggler_k8", straggler_k8(), 15, 5, "consensus_mix", {}),
+        ("straggler_k8_round_robin_push_sum", straggler_push, 15, 5, "consensus_mix", {}),
+        ("iid_k100_straggler_b3", iid_stale, 10, 5, "consensus_mix", {}),
     ):
         result = compare_drivers(card, label, exp, rounds, every, data, kernel=kernel, **run_kw)
-        result["mode"] = "mass" if exp.p2p.protocol == "push_sum" else "gossip"
+        result["mode"] = ("snapshot" if exp.p2p.staleness_bound > 0 else
+                          "mass" if exp.p2p.protocol == "push_sum" else "gossip")
         paths[f"{label}_both_drivers"] = result
     for label, exp in (("noniid_affinity", noniid), ("iid_k100", iid),
                        ("iid_k100_qint8", iid_qint8), ("directed_k8", directed)):
@@ -2273,18 +2462,31 @@ def main() -> int:
         by_path = {name: p["launches"][kernel] for name, p in paths.items()
                    if kernel in p["launches"]}
         mass_entry = {}
+        if f"{kernel} snapshot" in cases:
+            snap = cases[f"{kernel} snapshot"]
+            snap_main = snap[0]  # straggler_k8's shape
+            snap_paths = {name: n for name, n in by_path.items()
+                          if paths[name].get("mode") == "snapshot"}
+            mass_entry["snapshot_mode"] = {
+                "launches": sum(snap_paths.values()), "launches_by_path": snap_paths,
+                "max_abs_err": max(c["max_abs_err"] for c in snap),
+                **{key: snap_main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "library_ms", "bound_card")},
+                "shape": f"{snap_main['case']}: K={snap_main['K']} D={snap_main['D']} "
+                         f"N={snap_main['N']}",
+                "shapes": snap}
         if f"{kernel} mass" in cases:
             mass_main = cases[f"{kernel} mass"][0]  # the push-sum main path's shape
             mass_paths = {name: n for name, n in by_path.items()
                           if paths[name].get("mode") == "mass"}
-            mass_entry = {"mass_mode": {
+            mass_entry["mass_mode"] = {
                 "launches": sum(mass_paths.values()), "launches_by_path": mass_paths,
                 "max_abs_err": max(c["max_abs_err"] for c in cases[f"{kernel} mass"]),
                 **{key: mass_main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                    "library_ms", "bound_card")},
                 "shape": f"{mass_main['case']}: K={mass_main['K']} D={mass_main['D']} "
                          f"N={mass_main['N']}",
-                "shapes": cases[f"{kernel} mass"]}}
+                "shapes": cases[f"{kernel} mass"]}
         if kernel == "wkv6":
             shape = (f"B={main['B']} T={main['T']} H={main['H']} dk={main['dk']} "
                      f"chunk={main['chunk']} {main['dtype']}")

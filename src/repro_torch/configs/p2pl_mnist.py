@@ -1,6 +1,6 @@
 """The paper's own workload: 2NN MLP on (synthetic-)MNIST under P2PL (the
 port's ``repro.configs.p2pl_mnist``: the paper's two experiments, the two
-time-varying ones and the directed push-sum one).
+time-varying ones, the directed push-sum one and the straggler one).
 
 Sec. V hyperparameters: B=10, eta=0.01, mu=0.5 (IID) / 0 (non-IID),
 T=60 gradient steps per round (IID, n_k=600) — one epoch per round,
@@ -217,6 +217,63 @@ def directed_k8(
             partner_rule=partner_rule,
             adaptive_eps=adaptive_eps,
             adaptive_seed=adaptive_seed,
+        ),
+        batch_size=10,
+        samples_per_class=50,
+        rounds=60,
+        peer_classes=peer_classes,
+    )
+
+
+def straggler_k8(
+    *,
+    schedule: str = "static",
+    protocol: str = "gossip",
+    algorithm: str = "p2pl_affinity",
+    local_steps: int = 8,
+    steps_profile: str = "straggler",
+    staleness_bound: int = 3,
+    staleness_decay: float = 0.5,
+    straggler_frac: float = 0.25,
+    straggler_period: int = 4,
+    eta_d: float = 0.25,
+    topology: str = "ring",
+    schedule_rounds: int = 16,
+    round_robin_topologies: tuple = ("ring", "star"),
+) -> PaperExperiment:
+    """Beyond-paper: 8 non-IID peers with heterogeneous compute (stragglers).
+
+    ``timevarying_k8``'s learning problem (2 classes per peer on a ring), but
+    the last quarter of the fleet is 4x slower: under the ``straggler``
+    profile those peers complete T/4 local steps a round and publish every
+    4th round.  With ``staleness_bound=3`` their neighbors mix the last
+    published snapshot (age-decayed, renormalised per the protocol) instead
+    of waiting: the bounded-staleness round of ``core/p2p.py``.  eta_d is
+    0.25, half the synchronous experiments' 0.5: snapshot delay eats the
+    affinity feedback's gain margin (the reference diverges at 0.5).
+    """
+    peer_classes = tuple(((2 * k) % 10, (2 * k + 1) % 10) for k in range(8))
+    return PaperExperiment(
+        name=f"straggler_k8_{schedule}_{protocol}_{steps_profile}_b{staleness_bound}",
+        p2p=P2PConfig(
+            algorithm=algorithm,
+            num_peers=8,
+            local_steps=local_steps,
+            consensus_steps=1,
+            lr=0.01,
+            momentum=0.0,
+            eta_d=eta_d,
+            topology=topology,
+            mixing="data_weighted",
+            schedule=schedule,
+            schedule_rounds=schedule_rounds,
+            round_robin_topologies=round_robin_topologies,
+            protocol=protocol,
+            steps_profile=steps_profile,
+            staleness_bound=staleness_bound,
+            staleness_decay=staleness_decay,
+            straggler_frac=straggler_frac,
+            straggler_period=straggler_period,
         ),
         batch_size=10,
         samples_per_class=50,

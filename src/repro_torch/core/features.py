@@ -3,13 +3,14 @@
 Every pairwise "feature A does not compose with feature B" rejection lives
 here and raises one formatted message, the reference's word for word, from
 whichever layer catches the combination.  Only the pairs that the port can
-reach are ported: compression x staleness, and compression x the
-(one-slice) hierarchical runtime.  The reference's other pairs involve
-features the port does not run yet (adaptive partner selection, async
-rounds, registry models: ROADMAP.md queue 1 items 13, 12 and 14), which
-``P2PConfig`` rejects before this table with ``NotImplementedError``.  The
-reference's table has no push-sum row: push-sum composes with a compressed
-wire and with the hierarchical runtime, as in the reference.
+reach are ported: staleness x compression, compression x the (one-slice)
+hierarchical runtime, and async rounds x the hierarchical runtime.  The
+reference's other pairs involve features the port does not run yet
+(adaptive partner selection, registry models: ROADMAP.md queue 1 items 13
+and 14), which ``P2PConfig`` rejects before this table with
+``NotImplementedError``.  The reference's table has no push-sum row:
+push-sum composes with a compressed wire, with async rounds and with the
+hierarchical runtime, as in the reference.
 """
 from __future__ import annotations
 
@@ -22,13 +23,15 @@ class FeatureContext:
     """Plain-value snapshot of one run's feature axes."""
 
     compressor: str = "none"
+    steps_profile: str = "uniform"
     staleness_bound: int = 0
     peers_per_device: int = 1  # a runtime axis a frozen config cannot know
 
 
 def context_from_config(cfg, *, peers_per_device: int = 1) -> FeatureContext:
     """Snapshot a ``P2PConfig``(-shaped) object into a ``FeatureContext``."""
-    return FeatureContext(compressor=cfg.compressor, staleness_bound=cfg.staleness_bound,
+    return FeatureContext(compressor=cfg.compressor, steps_profile=cfg.steps_profile,
+                          staleness_bound=cfg.staleness_bound,
                           peers_per_device=peers_per_device)
 
 
@@ -65,6 +68,13 @@ FEATURES: dict[str, Feature] = {
             describe=lambda c: f"staleness_bound={c.staleness_bound} (bounded-staleness gossip)",
         ),
         Feature(
+            name="async",
+            predicate=lambda c: c.staleness_bound > 0 or c.steps_profile != "uniform",
+            describe=lambda c: "asynchronous rounds (--steps-profile "
+                               f"{c.steps_profile}, --staleness-bound "
+                               f"{c.staleness_bound})",
+        ),
+        Feature(
             name="hierarchical",
             predicate=lambda c: c.peers_per_device > 1,
             describe=lambda c: "the hierarchical runtime (peers_per_device "
@@ -90,6 +100,15 @@ INCOMPATIBILITIES: tuple[Incompatibility, ...] = (
                "not payload-advanced estimates",
         workaround="run compressed gossip with one peer per device "
                    "(peers_per_device=1), or compressor='none' here",
+    ),
+    Incompatibility(
+        a="async",
+        b="hierarchical",
+        reason="the hierarchical bridge/segment mixes stream live parameter "
+               "blocks with no staleness buffer",
+        workaround="run async rounds with one peer per device "
+                   "(peers_per_device=1), or the uniform synchronous profile "
+                   "here",
     ),
 )
 

@@ -43,16 +43,25 @@ Push-sum (``protocol="push_sum"``) carries a (K,) mass in
 column-stochastic weights; each of its consensus steps goes through the same
 kernels in their mass mode (``core.protocols.PushSumProtocol``).
 
+Asynchronous rounds (the reference's straggler model): a compute profile
+(``steps_profile``, ``compute_profile``) gives each peer a budget of local
+steps, held by masking in the local phase, and a publication period; with
+``staleness_bound > 0`` the round carries each sender's last published
+snapshot and its age (``P2PState.staleness``), and each consensus step goes
+through the ``consensus_mix`` kernel's snapshot mode on age-decayed weights
+(``_consensus_phase_async``).
+
 Ported: gossip and push-sum over the static, the undirected and the directed
-time-varying schedules, uncompressed or compressed, synchronous rounds, the
-2NN task, the vmap and one-slice hierarchical runtimes.  Any other
-configuration raises ``NotImplementedError`` naming the ROADMAP.md item that
-ports it.
+time-varying schedules, uncompressed or compressed, synchronous or
+asynchronous rounds, the 2NN task, the vmap and one-slice hierarchical
+runtimes.  Any other configuration raises ``NotImplementedError`` naming the
+ROADMAP.md item that ports it.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 import warnings
 from typing import Callable, NamedTuple
 
@@ -68,7 +77,7 @@ from repro_torch.core import protocols as protocols_lib
 from repro_torch.core import task as task_lib
 from repro_torch.device import resolve_device
 from repro_torch.core.protocols import SparseRoundOps
-from repro_torch.kernels.consensus_mix.ops import select_round
+from repro_torch.kernels.consensus_mix.ops import select_round, upload_schedule
 
 ALGORITHMS = ("dsgd", "local_dsgd", "p2pl", "p2pl_affinity", "isolated")
 STEPS_PROFILES = ("uniform", "straggler", "linear")
@@ -153,12 +162,18 @@ class P2PConfig:
         if not 0.0 < self.topk_frac <= 1.0:
             raise ValueError("topk_frac must be in (0, 1]")
         if self.steps_profile not in STEPS_PROFILES:
-            raise ValueError(f"unknown steps_profile {self.steps_profile!r}")
+            raise ValueError(
+                f"unknown steps_profile {self.steps_profile!r}; one of {STEPS_PROFILES}"
+            )
         if self.staleness_bound < 0:
             raise ValueError("staleness_bound must be >= 0 (0 = synchronous)")
+        if not 0.0 < self.staleness_decay <= 1.0:
+            raise ValueError("staleness_decay must be in (0, 1]")
+        if not 0.0 < self.straggler_frac <= 1.0:
+            raise ValueError("straggler_frac must be in (0, 1]")
+        if self.straggler_period < 1:
+            raise ValueError("straggler_period must be >= 1")
         features_lib.check_config(self)
-        if self.steps_profile != "uniform" or self.staleness_bound > 0:
-            raise _not_ported("asynchronous rounds", 12)
         task_lib.get_task(self.model)
         if self.schedule == "round_robin" and not self.round_robin_topologies:
             raise ValueError("round_robin schedule needs round_robin_topologies")
@@ -185,6 +200,65 @@ class P2PConfig:
     def use_max_norm_init(self) -> bool:
         """Whether peers synchronize to the max-norm init (Sec. IV-A)."""
         return self.max_norm_init or self.algorithm in ("p2pl", "p2pl_affinity")
+
+    @property
+    def use_async(self) -> bool:
+        """Whether any asynchronous-round machinery is active: snapshots
+        mixed under a staleness bound, or per-peer step budgets.  False
+        means the synchronous round runs as it was, bit for bit."""
+        return self.staleness_bound > 0 or self.steps_profile != "uniform"
+
+
+def compute_profile(cfg: P2PConfig) -> tuple[np.ndarray, np.ndarray]:
+    """Per-peer compute profile ``(steps_k, period_k)``, (K,) int32 each
+    (the reference's ``compute_profile``): the local steps peer k completes
+    a round (<= T; the local phase still runs T steps and holds a finished
+    peer) and the rounds between its snapshot publications.  "uniform":
+    (T, 1) for every peer; "straggler": the last ``straggler_frac`` of the
+    peers take ``max(1, T // straggler_period)`` steps and publish every
+    ``straggler_period`` rounds; "linear": speeds from 1 down to
+    ``1 / straggler_period``, steps ``max(1, round(T * speed))``, period 1."""
+    k, t = cfg.num_peers, cfg.local_steps
+    steps = np.full((k,), t, np.int32)
+    period = np.ones((k,), np.int32)
+    if cfg.steps_profile == "straggler":
+        n_slow = max(1, int(round(k * cfg.straggler_frac)))
+        slow = np.arange(k) >= k - n_slow
+        steps[slow] = max(1, t // cfg.straggler_period)
+        period[slow] = cfg.straggler_period
+    elif cfg.steps_profile == "linear":
+        speed = np.linspace(1.0, 1.0 / cfg.straggler_period, k)
+        steps = np.maximum(1, np.round(t * speed)).astype(np.int32)
+    return steps, period
+
+
+def publication_table(cfg: P2PConfig) -> np.ndarray:
+    """(P, K) bool, P the least common multiple of the profile's periods:
+    row ``r % P`` says which senders publish on their compute schedule in
+    round r, ``r mod period_k == period_k - 1``."""
+    _, periods = compute_profile(cfg)
+    p = math.lcm(*(int(v) for v in periods))
+    return np.arange(p)[:, None] % periods[None, :] == periods[None, :] - 1
+
+
+def steps_budget(cfg: P2PConfig) -> np.ndarray | None:
+    """The (K,) int32 step budgets, on the host (``compute_profile``), or
+    None for the "uniform" profile, whose local phase stays the unmasked
+    loop."""
+    if cfg.steps_profile == "uniform":
+        return None
+    return compute_profile(cfg)[0]
+
+
+def _held_rows(steps_k: np.ndarray, t: int) -> list[slice]:
+    """The peers whose budget is spent by local step ``t``, as slices of
+    consecutive rows (one for the "straggler" and "linear" profiles: their
+    slow peers are the last ones)."""
+    held = np.flatnonzero(steps_k <= t)
+    if held.size == 0:
+        return []
+    cuts = np.flatnonzero(np.diff(held) > 1) + 1
+    return [slice(int(run[0]), int(run[-1]) + 1) for run in np.split(held, cuts)]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -229,6 +303,20 @@ class ParamLayout:
         return torch.cat(rows, dim=1)
 
 
+class StalenessState(NamedTuple):
+    """The bounded-staleness delivery buffer (``staleness_bound > 0``): one
+    snapshot per sender, which every receiver of that sender mixes.
+
+    ``published`` (K, row) float32: each sender's last published
+    parameters, the source of every off-diagonal consensus term (the self
+    term reads the live parameters).  ``age`` (K,) int32: rounds since each
+    snapshot was taken, never above ``staleness_bound`` after a round.
+    """
+
+    published: torch.Tensor
+    age: torch.Tensor
+
+
 class P2PState(NamedTuple):
     """Stacked peer state: every tensor is (K, row) float32 (see ``ParamLayout``).
 
@@ -237,6 +325,8 @@ class P2PState(NamedTuple):
     ``compression`` is the public-estimate stack of a compressed wire, (K, row)
     like the parameters, or ``()`` for ``compressor="none"``.
     ``round_idx`` counts completed consensus phases.
+    ``staleness`` is the ``StalenessState`` of bounded-staleness consensus,
+    ``()`` when ``staleness_bound == 0``.
     """
 
     params: torch.Tensor
@@ -246,6 +336,7 @@ class P2PState(NamedTuple):
     round_idx: int
     protocol: tuple = ()
     compression: torch.Tensor | tuple = ()
+    staleness: StalenessState | tuple = ()
 
 
 @functools.cache
@@ -325,7 +416,8 @@ def init_state(
     ``init_params`` (stacked (K, ...) leaves, e.g. exported from the reference
     through ``repro_torch.interop``) replaces the draw from ``seed``; max-norm
     sync still applies to it, as in the reference.  A compressed wire's
-    estimate stack starts as a copy of the parameters after the sync.
+    estimate stack, and the published snapshots of bounded-staleness
+    consensus (age 0), start as copies of the parameters after the sync.
     ``data_sizes`` seeds the protocol state: push-sum's mass is proportional
     to them (uniform without them).
     """
@@ -348,6 +440,12 @@ def init_state(
     if cfg.use_max_norm_init:
         stacked = consensus_lib.max_norm_sync(stacked)
     params = ParamLayout.of(task).flatten(stacked).to(device)
+    staleness = ()
+    if cfg.staleness_bound > 0:
+        # a copy, not an alias: the scan driver adopts each leaf's buffer
+        staleness = StalenessState(
+            published=params.clone(),
+            age=torch.zeros(cfg.num_peers, dtype=torch.int32, device=device))
     return P2PState(
         params=params,
         momentum=torch.zeros_like(params),
@@ -356,6 +454,7 @@ def init_state(
         round_idx=0,
         protocol=protocols_lib.get_protocol(cfg.protocol).init_state(params, data_sizes),
         compression=compression_lib.from_config(cfg).init_estimate(params),
+        staleness=staleness,
     )
 
 
@@ -364,10 +463,20 @@ def local_phase(
     task: task_lib.TrainTask,
     batches: tuple[torch.Tensor, torch.Tensor],
     cfg: P2PConfig,
+    *,
+    steps_k: np.ndarray | None = None,
 ) -> tuple[P2PState, torch.Tensor]:
     """Run T local SGD steps on every peer (Eq. 3).
 
     ``batches`` = (x (T, K, B, ...), y (T, K, B)), step-major then peer.
+    ``steps_k`` ((K,) int32 on the host, ``steps_budget``) caps peer k at
+    ``steps_k[k]`` updates: every step still runs for every peer, and from
+    step ``steps_k[k]`` on peer k's parameters and momentum (its ``eta_d d``
+    with them) are held, their rows copied back over the step's result (the
+    reference's ``jnp.where`` on the step index; the rows are known on the
+    host, so a captured round replays the same copies); a finished peer
+    reports its frozen parameters' loss on each later step's batch.  None
+    (the "uniform" profile) is the unmasked loop.
     Returns (new_state, per-step mean loss over peers (T,)).
     """
     layout = ParamLayout.of(task)
@@ -382,13 +491,19 @@ def local_phase(
         grads = torch.autograd.grad(losses.sum(), list(views.values()))
         grads = layout.flatten(dict(zip(views, grads)))
         if cfg.momentum:
-            mom = cfg.momentum * mom + grads
-            update = mom
+            new_mom = cfg.momentum * mom + grads
+            update = new_mom
         else:
-            update = grads
-        params = params - cfg.lr * update
+            new_mom, update = mom, grads
+        new_params = params - cfg.lr * update
         if cfg.use_affinity_d:
-            params = params + cfg.eta_d * state.d_bias  # d fixed during the local phase
+            new_params = new_params + cfg.eta_d * state.d_bias  # d fixed during the local phase
+        if steps_k is not None:
+            for rows in _held_rows(steps_k, t):  # new_params, new_mom: this step's own buffers
+                new_params[rows] = params[rows]
+                if cfg.momentum:
+                    new_mom[rows] = mom[rows]
+        params, mom = new_params, new_mom
         step_losses.append(losses.detach())
     b_bias = state.b_bias
     if cfg.use_affinity_b:
@@ -414,13 +529,17 @@ def _consensus_steps(state: P2PState, cfg: P2PConfig, mix) -> P2PState:
     )
 
 
-def consensus_phase(state: P2PState, cfg: P2PConfig, ops: SparseRoundOps) -> P2PState:
+def consensus_phase(
+    state: P2PState, cfg: P2PConfig, ops: SparseRoundOps | protocols_lib.StaleRoundOps
+) -> P2PState:
     """Run S consensus steps through the fused kernel; refreshes d en route.
 
-    ``ops`` are the round's sparse operands (``round_operands``).  Each
+    ``ops`` are the round's operands (``round_operands``): sparse ones, or
+    with ``staleness_bound > 0`` a ``protocols.StaleRoundOps``.  Each
     step's d comes from the *incoming* neighbor parameters of that step
     (Sec. IV-A); peers with an all-zero beta row keep d = 0.  A compressed
-    wire takes ``_consensus_phase_compressed``.
+    wire takes ``_consensus_phase_compressed``, bounded staleness
+    ``_consensus_phase_async``.
     """
     if cfg.consensus_steps == 0:
         return state._replace(round_idx=state.round_idx + 1)
@@ -428,6 +547,8 @@ def consensus_phase(state: P2PState, cfg: P2PConfig, ops: SparseRoundOps) -> P2P
     comp = compression_lib.from_config(cfg)
     if not comp.identity:
         return _consensus_phase_compressed(state, cfg, ops, proto, comp)
+    if cfg.staleness_bound > 0:
+        return _consensus_phase_async(state, cfg, ops, proto)
     return _consensus_steps(
         state, cfg, lambda ps, x: proto.mix(ps, x, ops, cfg.local_steps)
     )
@@ -468,15 +589,64 @@ def _consensus_phase_compressed(
     )
 
 
+def staleness_delivery(
+    cfg: P2PConfig, scheduled: torch.Tensor, age: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One async round's delivery from the (K,) snapshot ages (the
+    reference's ``_staleness_delivery``), on the device: sender k delivers
+    when ``scheduled[k]`` (its compute schedule, a row of
+    ``publication_table``) or when its snapshot would otherwise pass the
+    bound, ``age + 1 > staleness_bound``.  Returns (delivered (K,) bool,
+    new age (K,) int32, 0 where delivered, decay (K,) float32
+    ``staleness_decay ** new_age``)."""
+    delivered = scheduled | (age + 1 > cfg.staleness_bound)
+    new_age = torch.where(delivered, torch.zeros_like(age), age + 1)
+    base = torch.full_like(new_age, cfg.staleness_decay, dtype=torch.float32)
+    return delivered, new_age, torch.pow(base, new_age.to(torch.float32))
+
+
+def _consensus_phase_async(
+    state: P2PState,
+    cfg: P2PConfig,
+    ops: protocols_lib.StaleRoundOps,
+    proto: protocols_lib.GossipProtocol,
+) -> P2PState:
+    """``consensus_phase`` under bounded-staleness delivery (the reference's
+    ``_consensus_phase_async``).
+
+    Once a round: decide delivery (``staleness_delivery``), make the
+    delivering senders' live post-local rows their published snapshots,
+    and age-decay the round's operands (``protocols.age_decayed_operands``:
+    gossip rows and push-sum columns stay stochastic, so push-sum's mass
+    is conserved).  Then S steps through the ``consensus_mix`` kernel's
+    snapshot mode: the self term and d's own term on the live parameters,
+    every neighbor term on the published buffer, d from the decayed,
+    renormalised beta.  A peer's support for d is its beta row: decay
+    shrinks weights but disconnects no one (the kernel reads the decayed
+    row, which is zero only where the raw one is, unless
+    ``staleness_decay ** staleness_bound`` underflows float32).
+    """
+    st: StalenessState = state.staleness
+    delivered, age, decay = staleness_delivery(cfg, ops.scheduled, st.age)
+    published = torch.where(delivered[:, None], state.params, st.published)
+    a_ops = protocols_lib.age_decayed_operands(ops, decay, proto.stochasticity)
+    state = _consensus_steps(state, cfg, lambda ps, x: proto.mix_stale(
+        ps, x, published, a_ops, cfg.local_steps))
+    return state._replace(staleness=StalenessState(published=published, age=age))
+
+
 def run_round(
     state: P2PState,
     task: task_lib.TrainTask,
     batches: tuple[torch.Tensor, torch.Tensor],
     cfg: P2PConfig,
-    ops: SparseRoundOps,
+    ops: SparseRoundOps | protocols_lib.StaleRoundOps,
+    *,
+    steps_k: np.ndarray | None = None,
 ) -> tuple[P2PState, P2PState, torch.Tensor]:
-    """One full round: (state_after_local, state_after_consensus, losses (T,))."""
-    after_local, losses = local_phase(state, task, batches, cfg)
+    """One full round: (state_after_local, state_after_consensus, losses (T,));
+    ``steps_k`` the per-peer step budgets (``steps_budget``)."""
+    after_local, losses = local_phase(state, task, batches, cfg, steps_k=steps_k)
     return after_local, consensus_phase(after_local, cfg, ops), losses
 
 
@@ -498,16 +668,47 @@ def schedule_operands(
     )
 
 
+def round_picker(
+    cfg: P2PConfig,
+    data_sizes: np.ndarray | None = None,
+    *,
+    device: torch.device | str | None = None,
+) -> tuple[Callable[[int], SparseRoundOps | protocols_lib.StaleRoundOps], int]:
+    """``(pick, period)``: ``pick(r)`` is round r's operands as the round
+    step takes them, views of one upload made here, and repeats every
+    ``period`` rounds.  Synchronous: the schedule's sparse operands, period
+    R.  ``staleness_bound > 0``: a ``protocols.StaleRoundOps`` with the
+    round's column sums and its row of ``publication_table``, period the
+    least common multiple of R and the table's P."""
+    device = resolve_device(device)
+    if cfg.staleness_bound == 0:
+        stacked = schedule_operands(cfg, data_sizes, device=device)
+        return functools.partial(select_round, stacked), stacked.self_w.shape[0]
+    sched, proto = _protocol_schedule(cfg)
+    sparse = proto.sparse_schedule(sched, cfg.mixing, data_sizes=data_sizes,
+                                   consensus_step_size=cfg.consensus_step_size)
+    stacked = upload_schedule(sparse, device)
+    col = torch.as_tensor(protocols_lib.column_sums(sparse), device=device)
+    table = torch.as_tensor(publication_table(cfg), device=device)
+    r_period, p_period = sparse.period, table.shape[0]
+
+    def pick(r: int) -> protocols_lib.StaleRoundOps:
+        return protocols_lib.StaleRoundOps(*select_round(stacked, r), col[r % r_period],
+                                           table[r % p_period])
+
+    return pick, math.lcm(r_period, p_period)
+
+
 def round_operands(
     cfg: P2PConfig,
     data_sizes: np.ndarray | None = None,
     *,
     device: torch.device | str | None = None,
-) -> list[SparseRoundOps]:
-    """Every period round's operands, as views of one ``schedule_operands``
+) -> list[SparseRoundOps | protocols_lib.StaleRoundOps]:
+    """Every period round's operands (``round_picker``), views of one
     upload; round ``r`` of a run uses entry ``r % period``."""
-    stacked = schedule_operands(cfg, data_sizes, device=device)
-    return [select_round(stacked, r) for r in range(stacked.self_w.shape[0])]
+    pick, period = round_picker(cfg, data_sizes, device=device)
+    return [pick(r) for r in range(period)]
 
 
 def make_round_fn(
@@ -518,13 +719,16 @@ def make_round_fn(
     device: torch.device | str | None = None,
 ) -> Callable[[P2PState, tuple], tuple[P2PState, P2PState, torch.Tensor]]:
     """Round closure over the schedule: the operands of every round of the
-    period are built and uploaded once, here (``round_operands``); round
-    ``r`` uses those of ``r % R``."""
+    period, and the profile's step budgets, are built and uploaded once,
+    here (``round_operands``, ``steps_budget``); round ``r`` uses those of
+    ``r % period``."""
     ops = round_operands(cfg, data_sizes, device=device)
     period = len(ops)
+    steps_k = steps_budget(cfg)
 
     def step(state: P2PState, batches):
-        return run_round(state, task, batches, cfg, ops[state.round_idx % period])
+        return run_round(state, task, batches, cfg, ops[state.round_idx % period],
+                         steps_k=steps_k)
 
     return step
 
@@ -622,9 +826,11 @@ def _hier_round_step(task: task_lib.TrainTask, cfg: P2PConfig, peers_per_device:
 
 def state_leaves(state: P2PState) -> list[torch.Tensor]:
     """The state's tensors in a fixed order: params, momentum, d, b, the
-    protocol's, then the compressed wire's estimate."""
+    protocol's, the compressed wire's estimate, then the staleness buffer's
+    published snapshots and (int32) ages."""
     est = (state.compression,) if isinstance(state.compression, torch.Tensor) else ()
-    return [state.params, state.momentum, state.d_bias, state.b_bias, *state.protocol, *est]
+    return [state.params, state.momentum, state.d_bias, state.b_bias, *state.protocol, *est,
+            *state.staleness]
 
 
 def with_leaves(like: P2PState, leaves: list[torch.Tensor], round_idx: int) -> P2PState:
@@ -633,8 +839,11 @@ def with_leaves(like: P2PState, leaves: list[torch.Tensor], round_idx: int) -> P
     params, momentum, d_bias, b_bias, *rest = leaves
     n_proto = len(like.protocol)
     protocol = type(like.protocol)(*rest[:n_proto]) if n_proto else ()
-    compression = rest[n_proto] if isinstance(like.compression, torch.Tensor) else ()
-    return P2PState(params, momentum, d_bias, b_bias, round_idx, protocol, compression)
+    n_est = int(isinstance(like.compression, torch.Tensor))
+    compression = rest[n_proto] if n_est else ()
+    staleness = StalenessState(*rest[n_proto + n_est:]) if like.staleness else ()
+    return P2PState(params, momentum, d_bias, b_bias, round_idx, protocol, compression,
+                    staleness)
 
 
 class ScanDriver:
@@ -644,13 +853,16 @@ class ScanDriver:
     ``batches`` is a ``data.pipeline.ChunkBatches`` of C rounds.  The body
     of a round is the python driver's round step, unchanged, over static
     buffers: the carried state (params, momentum, d, b, push-sum's mass, the
-    compressed wire's estimate), the round's operands ``(self_w, nbr_idx,
-    nbr_w, beta)`` and its (T, K, B) batch rows, with the gather
-    ``x_all[rows]`` inside the body.  Between rounds, on the device: round
-    ``r % R``'s operands are copied into the static ones (the hierarchical
-    runtime's as a static R = 1 stack, read at round index 0), round c's rows
-    into the static rows, and after each round its (T,) losses into the
-    driver's (C, T) buffer.  At its end the body copies the round's state
+    compressed wire's estimate, the published snapshots and their int32
+    ages), the round's operands ``(self_w, nbr_idx, nbr_w, beta)`` (with
+    bounded staleness also the round's column sums and its row of the
+    publication table: ``protocols.StaleRoundOps``, so the delivery rule
+    runs on the device inside the graph) and its (T, K, B) batch rows, with
+    the gather ``x_all[rows]`` inside the body.  Between rounds, on the
+    device: round ``r % period``'s operands are copied into the static ones
+    (the hierarchical runtime's as a static R = 1 stack, read at round index
+    0), round c's rows into the static rows, and after each round its (T,)
+    losses into the driver's (C, T) buffer.  At its end the body copies the round's state
     into the carried buffers.  The first round of the first call runs
     eagerly as the warm-up; the capture follows and every later round is a
     replay (``repro_torch.capture``).  ``round_idx`` stays a host int and
@@ -672,9 +884,9 @@ class ScanDriver:
         if device.type == "cuda" and device.index is None:  # as tensors name it
             device = torch.device("cuda", torch.cuda.current_device())
         self.donate, self.device = donate, device
-        # R = 1: the upload itself is static; else round r % R is copied in
-        self.static_ops = pick(0) if period == 1 else SparseRoundOps(
-            *(t.clone() for t in pick(0)))
+        # period 1: the upload itself is static; else round r % period is copied in
+        first = pick(0)
+        self.static_ops = first if period == 1 else type(first)(*(t.clone() for t in first))
         self.carry: P2PState | None = None
         self.rows: torch.Tensor | None = None
         self.data: tuple[torch.Tensor, torch.Tensor] | None = None
@@ -770,8 +982,9 @@ def make_scan_driver(
     rounds a call, on the card each a replay of one CUDA graph of the round
     (``ScanDriver``), so the results equal C calls of ``make_round_fn`` (or
     ``make_hier_round_fn`` with ``peers_per_device`` = K) bit for bit.  The
-    schedule's operands are uploaded once, here.  The chunk length C is read
-    from the batches; one capture serves every C.
+    schedule's operands (``round_picker``) and the step budgets are uploaded
+    once, here.  The chunk length C is read from the batches; one capture
+    serves every C.
     """
     device = resolve_device(device)
     if peers_per_device is not None and peers_per_device > 1:
@@ -780,13 +993,15 @@ def make_scan_driver(
 
         def pick(r):  # an R = 1 stack: the step reads its round index 0
             return SparseRoundOps(*(t[r:r + 1] for t in ops_s))
+        period = ops_s.self_w.shape[0]
     else:
-        def step(state, batches, ops):
-            return run_round(state, task, batches, cfg, ops)
+        steps_k = steps_budget(cfg)
 
-        ops_s = schedule_operands(cfg, data_sizes, device=device)
-        pick = functools.partial(select_round, ops_s)
-    return ScanDriver(step, pick, ops_s.self_w.shape[0], donate=donate, device=device)
+        def step(state, batches, ops):
+            return run_round(state, task, batches, cfg, ops, steps_k=steps_k)
+
+        pick, period = round_picker(cfg, data_sizes, device=device)
+    return ScanDriver(step, pick, period, donate=donate, device=device)
 
 
 def param_views(state: P2PState, task: task_lib.TrainTask) -> dict[str, torch.Tensor]:

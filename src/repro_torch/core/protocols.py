@@ -19,9 +19,13 @@ them once per run, stacked over the period; ``mix`` runs one step through
 parameters and the affinity bias d together.  The dense form of the same
 step, ``core.consensus.mix_stacked``, is the tests' reference.
 ``mix_compressed`` is the step of a compressed wire, through
-``kernels.consensus_mix.dequant.dequant_mix_stacked``, and ``mix_hier`` the
-step of the one-slice hierarchical runtime ("bridge" or "segment").
-Push-sum's three steps go through the same three kernels in their mass mode.
+``kernels.consensus_mix.dequant.dequant_mix_stacked``, ``mix_hier`` the
+step of the one-slice hierarchical runtime ("bridge" or "segment"), and
+``mix_stale`` the step of bounded-staleness consensus, through the
+``consensus_mix`` kernel's snapshot mode on the round's age-decayed
+operands (``age_decayed_operands``, the counterpart of the reference's
+``age_decayed_constants``).  Push-sum's steps go through the same kernels in
+their mass mode.
 """
 from __future__ import annotations
 
@@ -53,6 +57,67 @@ class ProtocolConstants(NamedTuple):
 def round_constants(consts: ProtocolConstants, idx) -> ProtocolConstants:
     """Select round ``idx`` of a stacked (R, ...) constants pair."""
     return ProtocolConstants(w=consts.w[idx], beta=consts.beta[idx])
+
+
+class StaleRoundOps(NamedTuple):
+    """One round's operands of bounded-staleness consensus on the device:
+    the round's sparse operands, the column sums of their off-diagonal
+    weights and the profile's publication schedule for the round.  Every
+    field is a tensor, so a round driver refreshes them in place."""
+
+    self_w: torch.Tensor  # (K,) float32
+    nbr_idx: torch.Tensor  # (K, D) int32
+    nbr_w: torch.Tensor  # (K, D) float32
+    beta: torch.Tensor  # (K, D) float32 — undecayed
+    col_off: torch.Tensor  # (K,) float32 — sum_k of W_off[k, j] over the float32 weights
+    scheduled: torch.Tensor  # (K,) bool — sender j publishes on its compute schedule
+
+
+def column_sums(sparse: graph_lib.SparseSchedule) -> np.ndarray:
+    """(R, K) float32: each round's sums over receivers of the off-diagonal
+    weights each sender j ships, ``c_j = sum_k W_off[k, j]``, from the
+    float32 weights the kernels read, summed in float64 on the host (padding
+    slots weigh 0).  Push-sum's age-decayed diagonal is ``1 - decay_j c_j``:
+    decay_j factors out of the column, so c_j is a constant of the round."""
+    w32 = sparse.nbr_w.astype(np.float32).astype(np.float64)
+    out = np.zeros((sparse.period, sparse.num_peers))
+    for r in range(sparse.period):
+        np.add.at(out[r], sparse.nbr_idx[r].ravel(), w32[r].ravel())
+    return out.astype(np.float32)
+
+
+def age_decayed_operands(
+    ops: StaleRoundOps, decay: torch.Tensor, stochasticity: str
+) -> SparseRoundOps:
+    """One async round's age-decayed operands (the counterpart of the
+    reference's ``age_decayed_constants`` on the slot table), float32:
+
+    * off-diagonal weights ``nbr_w[k, s] * decay[nbr_idx[k, s]]``;
+    * the diagonal rebuilt so that the matrix stays stochastic: row
+      (gossip) ``self_w[k] = 1 - sum_s`` of row k's decayed weights, column
+      (push-sum) ``self_w[j] = 1 - decay_j c_j`` (``column_sums``);
+    * beta decayed per sender, then row-renormalised; all-zero rows stay 0.
+
+    ``decay`` is the (K,) float32 per-sender ``staleness_decay ** age``.
+    With decay 1 the result equals the round's operands up to the rounding
+    of the rebuilt diagonal.  Every operation is a device kernel of fixed
+    shape (no host sync, no atomics), so a captured round gives the bits of
+    an eager one.
+    """
+    if stochasticity not in ("row", "column"):
+        raise ValueError(f"unknown stochasticity {stochasticity!r}")
+    sender = decay[ops.nbr_idx.long()]  # (K, D)
+    nbr_w = ops.nbr_w * sender
+    if stochasticity == "row":
+        self_w = 1.0 - nbr_w.sum(dim=1)
+    else:
+        self_w = 1.0 - decay * ops.col_off
+    beta_d = ops.beta * sender
+    row_sums = beta_d.sum(dim=1, keepdim=True)
+    has = row_sums > 0
+    beta = torch.where(has, beta_d / torch.where(has, row_sums, torch.ones_like(row_sums)),
+                       torch.zeros_like(beta_d))
+    return SparseRoundOps(self_w, ops.nbr_idx, nbr_w, beta)
 
 
 class PushSumState(NamedTuple):
@@ -88,6 +153,24 @@ class GossipProtocol:
         )
         return ProtocolConstants(w=w, beta=beta)
 
+    def sparse_schedule(
+        self,
+        schedule: graph_lib.GraphSchedule,
+        mixing: str = "data_weighted",
+        *,
+        data_sizes: Sequence[int] | None = None,
+        consensus_step_size: float | np.ndarray = 1.0,
+    ) -> graph_lib.SparseSchedule:
+        """The schedule's padded float64 slot table, row- or
+        column-stochastic as the protocol's ``stochasticity`` says: the
+        values of ``constants``, built without any (K, K) array.  A row's
+        slots are its in-neighbors in the graph, so an edge whose mixing
+        weight is 0 keeps its affinity weight."""
+        return graph_lib.SparseSchedule.from_schedule(
+            schedule, mixing, data_sizes=data_sizes,
+            consensus_step_size=consensus_step_size, stochasticity=self.stochasticity,
+        )
+
     def operands(
         self,
         schedule: graph_lib.GraphSchedule,
@@ -98,14 +181,9 @@ class GossipProtocol:
         device: torch.device | str = "cpu",
     ) -> SparseRoundOps:
         """The schedule's stacked (R, K) / (R, K, D) sparse operands on
-        ``device``: the float64 values of ``constants``, built without any
-        (K, K) array and cast to float32 once.  A row's slots are its
-        in-neighbors in the graph, so an edge whose mixing weight is 0 keeps
-        its affinity weight."""
-        sparse = graph_lib.SparseSchedule.from_schedule(
-            schedule, mixing, data_sizes=data_sizes,
-            consensus_step_size=consensus_step_size, stochasticity=self.stochasticity,
-        )
+        ``device`` (``sparse_schedule``, cast to float32 once)."""
+        sparse = self.sparse_schedule(schedule, mixing, data_sizes=data_sizes,
+                                      consensus_step_size=consensus_step_size)
         return cm_ops.upload_schedule(sparse, device)
 
     def mix(
@@ -132,6 +210,18 @@ class GossipProtocol:
             flat, payload.est, payload.q, payload.scale, ops, leaf_offsets, local_steps
         )
         return proto_state, mixed, d_bias, est
+
+    def mix_stale(
+        self, proto_state, flat: torch.Tensor, published: torch.Tensor, ops: SparseRoundOps,
+        local_steps: int,
+    ) -> tuple[Any, torch.Tensor, torch.Tensor]:
+        """One bounded-staleness step (the reference's ``mix_compressed``
+        with the published snapshots for the estimates, plus d) through the
+        kernel's snapshot mode: ``diag(W) x + W_off P`` and ``d = (Beta P -
+        x) / T`` on the round's age-decayed operands.  Returns
+        (proto_state, mixed, d_bias)."""
+        mixed, d_bias = cm_ops.consensus_mix_snapshot_stacked(flat, published, ops, local_steps)
+        return proto_state, mixed, d_bias
 
     def mix_hier(
         self,
@@ -214,6 +304,18 @@ class PushSumProtocol(GossipProtocol):
             flat, payload.est, payload.q, payload.scale, proto_state.mass, ops, leaf_offsets,
             local_steps)
         return PushSumState(mass=mass), mixed, d_bias, est
+
+    def mix_stale(
+        self, proto_state: PushSumState, flat: torch.Tensor, published: torch.Tensor,
+        ops: SparseRoundOps, local_steps: int,
+    ) -> tuple[PushSumState, torch.Tensor, torch.Tensor]:
+        """One bounded-staleness push-sum step through the snapshot mode in
+        its mass mode: ``(diag(A) y x + A_off y P) / y'``, the mass
+        uncompressed and never stale, d as in gossip.  Returns (state with
+        y', mixed, d_bias)."""
+        mixed, d_bias, mass = cm_ops.consensus_mix_push_sum_snapshot_stacked(
+            flat, published, proto_state.mass, ops, local_steps)
+        return PushSumState(mass=mass), mixed, d_bias
 
     def mix_hier(
         self,

@@ -75,7 +75,10 @@ def state_from_jax(
     the public-estimate tree of a compressed wire (``compression``) included,
     so both packages can run a phase from one state.  Push-sum's state, a
     ``PushSumState`` whose ``mass`` is a (K,) array, becomes the port's
-    ``protocols.PushSumState`` with the same float32 values.
+    ``protocols.PushSumState`` with the same float32 values.  The
+    bounded-staleness buffer, a ``StalenessState``, becomes the port's
+    ``p2p.StalenessState``: the published tree flattened to one (K, row)
+    buffer, the (K,) ages as int32.
     """
     layout = p2p.ParamLayout.of(task)
 
@@ -87,6 +90,11 @@ def state_from_jax(
     if proto != ():
         proto = protocols.PushSumState(
             mass=torch.as_tensor(np.asarray(proto.mass, dtype=np.float32)).to(device))
+    stale = jstate.staleness
+    if stale != ():
+        stale = p2p.StalenessState(
+            published=flat(stale.published),
+            age=torch.as_tensor(np.array(stale.age, dtype=np.int32)).to(device))
     return p2p.P2PState(
         params=flat(jstate.params),
         momentum=flat(jstate.momentum),
@@ -95,4 +103,5 @@ def state_from_jax(
         round_idx=int(jstate.round_idx),
         protocol=proto,
         compression=flat(comp) if isinstance(comp, dict) else (),
+        staleness=stale,
     )

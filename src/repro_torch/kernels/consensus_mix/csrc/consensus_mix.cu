@@ -57,6 +57,24 @@
 // to x and nothing goes back to the host.  The gossip instantiations
 // (kMass false) are the code they were.
 //
+// Snapshot mode (bounded-staleness consensus, `consensus_mix_snapshot_f32`,
+// `consensus_mix_snapshot_tile_f32` and their push-sum forms; the template
+// switch kSnap, in either weight mode): every neighbor term reads the
+// sender's last published snapshot P (a second (K, N) buffer), while the
+// self term and d's own term read the live x, with weights the caller has
+// already age-decayed:
+//
+//   mixed[k] = self_w[k] * x[k] + sum_s nbr_w[k, s] * P[nbr_idx[k, s]]
+//   d[k]     = (sum_s beta[k, s] * P[nbr_idx[k, s]] - x[k]) / T
+//
+// (in the mass mode the weights are scaled by the senders' masses and the
+// mix divided by y'_k, as above).  The gather design changes only its
+// neighbor load, from x to P; the column tile stages P's tiles in place of
+// x's, reads the self term from device memory (as dequant_mix does) and
+// loads x_k for the d rows too.  Every other instantiation is the code it
+// was: kSnap is a template switch, and the gather kernel's one new argument
+// comes last.
+//
 // Bound on an H100: at the iid_k100 shape (K = 100, D = 99, N = 199,212) one
 // call must read 80 MB and write 160 MB (72 us at 3.35 TB/s) but does
 // 4 D + 3 = 399 float32 operations per output element, 7.9 GFLOP (119 us at
@@ -79,15 +97,16 @@ namespace {
 
 // T is float (scalar path) or float4 (vector path); n_vec counts T elements
 // per row, and rows are n_vec T elements apart.  kMass: push-sum (mass,
-// new_mass used), else gossip (both unused).
-template <typename T, bool kMass>
+// new_mass used), else gossip (both unused).  kSnap: the neighbor rows are
+// read from pub (the published snapshots), else from x (pub unused).
+template <typename T, bool kMass, bool kSnap = false>
 __global__ void __launch_bounds__(kThreads)
 consensus_mix_kernel(const float* __restrict__ x, int64_t n_vec,
                      const float* __restrict__ self_w, const int32_t* __restrict__ nbr_idx,
                      const float* __restrict__ nbr_w, const float* __restrict__ beta,
                      int d_slots, float local_steps, const float* __restrict__ mass,
                      float* __restrict__ mixed, float* __restrict__ d_out,
-                     float* __restrict__ new_mass) {
+                     float* __restrict__ new_mass, const float* __restrict__ pub) {
   extern __shared__ float smem[];  // [D] nbr_w (x sender mass) | [D] beta | [D] nbr_idx
   float* s_w = smem;
   float* s_b = smem + d_slots;
@@ -129,6 +148,7 @@ consensus_mix_kernel(const float* __restrict__ x, int64_t n_vec,
   const float inv_y = kMass ? s_mass[1] : 1.0f;
 
   const T* xv = reinterpret_cast<const T*>(x);
+  const T* nv = reinterpret_cast<const T*>(kSnap ? pub : x);  // the neighbor rows
   T* mv = reinterpret_cast<T*>(mixed);
   T* dv = reinterpret_cast<T*>(d_out);
   const int64_t own = static_cast<int64_t>(k) * n_vec;
@@ -141,7 +161,7 @@ consensus_mix_kernel(const float* __restrict__ x, int64_t n_vec,
     vzero(acc_beta);
 #pragma unroll 4
     for (int s = 0; s < d_slots; ++s) {
-      const T v = xv[static_cast<int64_t>(s_idx[s]) * n_vec + e];
+      const T v = nv[static_cast<int64_t>(s_idx[s]) * n_vec + e];
       acc_mix = vfma(s_w[s], v, acc_mix);
       acc_beta = vfma(s_b[s], v, acc_beta);
     }
@@ -150,52 +170,60 @@ consensus_mix_kernel(const float* __restrict__ x, int64_t n_vec,
   }
 }
 
-template <bool kMass>
+// pub: the published snapshots (kSnap), else nullptr.
+template <bool kMass, bool kSnap = false>
 int launch_gather(const float* x, int64_t num_peers, int64_t n, const float* self_w,
                   const int32_t* nbr_idx, const float* nbr_w, const float* beta,
                   int64_t d_slots, float local_steps, const float* mass, float* mixed,
-                  float* d_out, float* new_mass, void* stream) {
+                  float* d_out, float* new_mass, void* stream, const float* pub = nullptr) {
   if (num_peers <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = static_cast<size_t>(d_slots) * 3 * sizeof(float);
-  const bool vec4 = n % 4 == 0 && aligned16(x) && aligned16(mixed) && aligned16(d_out);
+  const bool vec4 = n % 4 == 0 && aligned16(x) && aligned16(mixed) && aligned16(d_out) &&
+                    (!kSnap || aligned16(pub));
   const int64_t n_vec = vec4 ? n / 4 : n;
   int64_t tiles = (n_vec + kThreads - 1) / kThreads;
   if (kMass) tiles = mass_mode_tiles(tiles, d_slots);
   if (tiles > kMaxGridY) tiles = kMaxGridY;
   const dim3 grid(static_cast<unsigned>(num_peers), static_cast<unsigned>(tiles));
   if (vec4) {
-    consensus_mix_kernel<float4, kMass><<<grid, kThreads, smem, s>>>(
+    consensus_mix_kernel<float4, kMass, kSnap><<<grid, kThreads, smem, s>>>(
         x, n_vec, self_w, nbr_idx, nbr_w, beta, static_cast<int>(d_slots), local_steps, mass,
-        mixed, d_out, new_mass);
+        mixed, d_out, new_mass, pub);
   } else {
-    consensus_mix_kernel<float, kMass><<<grid, kThreads, smem, s>>>(
+    consensus_mix_kernel<float, kMass, kSnap><<<grid, kThreads, smem, s>>>(
         x, n_vec, self_w, nbr_idx, nbr_w, beta, static_cast<int>(d_slots), local_steps, mass,
-        mixed, d_out, new_mass);
+        mixed, d_out, new_mass, pub);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kMass>
+// kSnap: the tile stages pub (the published snapshots) in place of x and
+// reads the self term, and d's own term, from x in device memory.
+template <bool kMass, bool kSnap = false>
 int launch_column_tile(const float* x, int64_t num_peers, int64_t n, const float* self_w,
                        const int32_t* nbr_idx, const float* nbr_w, const float* beta,
                        int64_t d_slots, float local_steps, const float* mass, float* mixed,
-                       float* d_out, float* new_mass, void* stream) {
+                       float* d_out, float* new_mass, void* stream,
+                       const float* pub = nullptr) {
   if (num_peers <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
   if (num_peers > kTileMaxPeers || d_slots < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int k = static_cast<int>(num_peers), ds = static_cast<int>(d_slots);
   const LeafStarts leaves = {};  // no payload: one leaf, unused
   const size_t smem = tile_smem_bytes(k, false, kMass);
-  const bool vec4 = n % 4 == 0 && aligned16(x) && aligned16(mixed) && aligned16(d_out);
+  const float* staged = kSnap ? pub : x;
+  const bool vec4 = n % 4 == 0 && aligned16(x) && aligned16(mixed) && aligned16(d_out) &&
+                    aligned16(staged);
   const cudaError_t err =
-      vec4 ? launch_tile<true, true, kMass>(false, smem, s, x, x, nullptr, nullptr, leaves, 1,
-                                            n, k, self_w, nbr_idx, nbr_w, beta, ds,
-                                            local_steps, mass, mixed, d_out, nullptr, new_mass)
-           : launch_tile<false, true, kMass>(false, smem, s, x, x, nullptr, nullptr, leaves, 1,
-                                             n, k, self_w, nbr_idx, nbr_w, beta, ds,
-                                             local_steps, mass, mixed, d_out, nullptr,
-                                             new_mass);
+      vec4 ? launch_tile<true, !kSnap, kMass, kSnap>(false, smem, s, x, staged, nullptr,
+                                                      nullptr, leaves, 1, n, k, self_w, nbr_idx,
+                                                      nbr_w, beta, ds, local_steps, mass, mixed,
+                                                      d_out, nullptr, new_mass)
+           : launch_tile<false, !kSnap, kMass, kSnap>(false, smem, s, x, staged, nullptr,
+                                                       nullptr, leaves, 1, n, k, self_w,
+                                                       nbr_idx, nbr_w, beta, ds, local_steps,
+                                                       mass, mixed, d_out, nullptr, new_mass);
   return static_cast<int>(err);
 }
 
@@ -251,4 +279,52 @@ extern "C" int consensus_mix_push_sum_tile_f32(const float* x, int64_t num_peers
                                                float* new_mass, void* stream) {
   return launch_column_tile<true>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, d_slots,
                                   local_steps, mass, mixed, d_out, new_mass, stream);
+}
+
+// The snapshot mode (bounded-staleness consensus) of the four entry points
+// above: their arguments and contracts, with published (num_peers, n)
+// row-major float32 on the device, the senders' last published snapshots,
+// which every neighbor term reads; x, the live parameters, gives the self
+// term and d's own term.  The weights are the round's age-decayed ones.
+extern "C" int consensus_mix_snapshot_f32(const float* x, const float* published,
+                                          int64_t num_peers, int64_t n, const float* self_w,
+                                          const int32_t* nbr_idx, const float* nbr_w,
+                                          const float* beta, int64_t d_slots,
+                                          float local_steps, float* mixed, float* d_out,
+                                          void* stream) {
+  return launch_gather<false, true>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, d_slots,
+                                    local_steps, nullptr, mixed, d_out, nullptr, stream,
+                                    published);
+}
+
+extern "C" int consensus_mix_snapshot_tile_f32(const float* x, const float* published,
+                                               int64_t num_peers, int64_t n,
+                                               const float* self_w, const int32_t* nbr_idx,
+                                               const float* nbr_w, const float* beta,
+                                               int64_t d_slots, float local_steps,
+                                               float* mixed, float* d_out, void* stream) {
+  return launch_column_tile<false, true>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta,
+                                         d_slots, local_steps, nullptr, mixed, d_out, nullptr,
+                                         stream, published);
+}
+
+extern "C" int consensus_mix_push_sum_snapshot_f32(const float* x, const float* published,
+                                                   int64_t num_peers, int64_t n,
+                                                   const float* self_w, const int32_t* nbr_idx,
+                                                   const float* nbr_w, const float* beta,
+                                                   int64_t d_slots, float local_steps,
+                                                   const float* mass, float* mixed,
+                                                   float* d_out, float* new_mass, void* stream) {
+  return launch_gather<true, true>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, d_slots,
+                                   local_steps, mass, mixed, d_out, new_mass, stream, published);
+}
+
+extern "C" int consensus_mix_push_sum_snapshot_tile_f32(
+    const float* x, const float* published, int64_t num_peers, int64_t n, const float* self_w,
+    const int32_t* nbr_idx, const float* nbr_w, const float* beta, int64_t d_slots,
+    float local_steps, const float* mass, float* mixed, float* d_out, float* new_mass,
+    void* stream) {
+  return launch_column_tile<true, true>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, d_slots,
+                                        local_steps, mass, mixed, d_out, new_mass, stream,
+                                        published);
 }

@@ -7,16 +7,20 @@
 //   d[k]     = (sum_j Beta[k, j] v_j - v_k) / T,  0 if the raw beta row sums to 0
 //
 // with v = est (advanced in place by an int8 payload where there is one:
-// v_j = est[j] + scale[j, leaf] * q[j], written once to est').  Three template
+// v_j = est[j] + scale[j, leaf] * q[j], written once to est').  Four template
 // switches choose what a caller needs: kHasQ (a payload to dequantize, est'
 // written), kSelfStaged (x is est, so the self term is read from the
-// staged tile and not from device memory a second time: consensus_mix) and
+// staged tile and not from device memory a second time: consensus_mix),
 // kMass (push-sum: each row's y'_k = self_w[k] y_k + sum_s nbr_w[k, s] y_j
 // reduced by one warp from the slots first, then every W weight, self_w
 // included, scaled by its sender's mass y_j and by its row's 1 / y'_k as
 // the table is scattered and self_w loaded, so the mix rows come out
 // de-biased with the tile loop and its stores those of gossip; y' written
-// to new_mass by block 0.  The Beta rows stay unscaled).
+// to new_mass by block 0.  The Beta rows stay unscaled) and kSnap (the
+// snapshot mode of consensus_mix: est is the published snapshot buffer P,
+// and d's own term is the live x_k, not v_k, so the threads of the d rows
+// load x as those of the mix rows do:
+// d[k] = (sum_j Beta[k, j] P_j - x_k) / T).
 //
 // - a block owns a tile of TN columns of ALL K peers; a persistent grid of
 //   as many blocks as fit on the SMs walks the tiles.  Every sender's tile is
@@ -260,7 +264,7 @@ __device__ __forceinline__ void reduce_slot_rows(int k_peers, int d_slots,
   }
 }
 
-template <bool kVec, bool kHasQ, bool kSelfStaged, bool kMass>
+template <bool kVec, bool kHasQ, bool kSelfStaged, bool kMass, bool kSnap = false>
 __global__ void __launch_bounds__(kTileThreads, 1)
 mix_tile_kernel(const float* __restrict__ x, const float* __restrict__ est,
                         const int8_t* __restrict__ q, const float* __restrict__ scale,
@@ -334,14 +338,17 @@ mix_tile_kernel(const float* __restrict__ x, const float* __restrict__ est,
       advance_tile<kVec>(sv, sq, scale, s_start, num_leaves, est_out, col0, n, k_peers, tn);
     __syncthreads();
     if (computes) {
-      // x of this thread's mix rows, loads in flight during the sums (with
-      // kSelfStaged the staged tile is x and holds them already)
+      // x of this thread's mix rows (kSnap: and of its d rows' peers), loads
+      // in flight during the sums (with kSelfStaged the staged tile is x and
+      // holds them already)
       float xs[kTileRows][kTileCols];
 #pragma unroll
       for (int i = 0; i < kTileRows; ++i) {
-        const float4 xa = !kSelfStaged && r0 + i < k_peers
-                              ? load4<kVec>(x, r0 + i, col0 + ca, n)
-                              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        const int r = r0 + i;
+        const bool live = kSnap ? r < 2 * k_peers : !kSelfStaged && r < k_peers;
+        const float4 xa = live ? load4<kVec>(x, kSnap && r >= k_peers ? r - k_peers : r,
+                                             col0 + ca, n)
+                               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         xs[i][0] = xa.x, xs[i][1] = xa.y, xs[i][2] = xa.z, xs[i][3] = xa.w;
       }
       float acc[kTileRows][kTileCols];
@@ -377,7 +384,8 @@ mix_tile_kernel(const float* __restrict__ x, const float* __restrict__ est,
         } else if (r < 2 * k_peers) {
           const int k = r - k_peers;
           const bool has = s_has[k] != 0;
-          const float4 va = *reinterpret_cast<const float4*>(sv + k * tn + ca);
+          const float4 va = kSnap ? make_float4(xs[i][0], xs[i][1], xs[i][2], xs[i][3])
+                                  : *reinterpret_cast<const float4*>(sv + k * tn + ca);
           const float4 sa = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
           store4<kVec>(d_out, k, col0 + ca, n, vbias(sa, va, local_steps, has));
         }
@@ -388,15 +396,15 @@ mix_tile_kernel(const float* __restrict__ x, const float* __restrict__ est,
   cp_async_wait<0>();
 }
 
-template <bool kVec, bool kSelfStaged, bool kMass>
+template <bool kVec, bool kSelfStaged, bool kMass, bool kSnap = false>
 cudaError_t launch_tile(bool has_q, size_t smem, cudaStream_t s, const float* x,
                         const float* est, const int8_t* q, const float* scale,
                         const LeafStarts& leaves, int num_leaves, int64_t n, int k_peers,
                         const float* self_w, const int32_t* nbr_idx, const float* nbr_w,
                         const float* beta, int d_slots, float local_steps, const float* mass,
                         float* mixed, float* d_out, float* est_out, float* new_mass) {
-  auto kernel = has_q ? mix_tile_kernel<kVec, true, kSelfStaged, kMass>
-                      : mix_tile_kernel<kVec, false, kSelfStaged, kMass>;
+  auto kernel = has_q ? mix_tile_kernel<kVec, true, kSelfStaged, kMass, kSnap>
+                      : mix_tile_kernel<kVec, false, kSelfStaged, kMass, kSnap>;
   const TileShape ts = tile_shape(k_peers);
   const int64_t n_tiles = (n + ts.tn - 1) / ts.tn;
   // the persistent grid: as many blocks as fit on the SMs, at most one a

@@ -11,6 +11,13 @@ push-sum step (reached there through ``ops.consensus_mix_push_sum_stacked``
 and ``_schedule``, which append a lane of ones to the parameters): the
 kernel reads the (K,) mass and scales each weight by its sender's mass
 where it reads the weight, so nothing is appended or copied.
+``consensus_mix_snapshot_stacked`` and
+``consensus_mix_push_sum_snapshot_stacked`` are the kernel's snapshot mode,
+one step of bounded-staleness consensus (the reference's
+``_consensus_phase_async``, which mixes through ``mix_compressed`` with the
+published snapshots in place of the estimates): every neighbor term reads
+the sender's last published snapshot, the self term and d's own term the
+live parameters, with the round's age-decayed weights.
 
 Dispatch is by the device of the buffer, and only by it:
 
@@ -124,6 +131,16 @@ def load_kernel() -> build.KernelLibrary:
         fn.argtypes = [ptr, i64, i64, ptr, ptr, ptr, ptr, i64, ctypes.c_float, ptr, ptr, ptr,
                        ptr, ptr]
         fn.restype = ctypes.c_int
+    # the snapshot mode: the published buffer after x
+    for fn in (kl.lib.consensus_mix_snapshot_f32, kl.lib.consensus_mix_snapshot_tile_f32):
+        fn.argtypes = [ptr, ptr, i64, i64, ptr, ptr, ptr, ptr, i64, ctypes.c_float, ptr, ptr,
+                       ptr]
+        fn.restype = ctypes.c_int
+    for fn in (kl.lib.consensus_mix_push_sum_snapshot_f32,
+               kl.lib.consensus_mix_push_sum_snapshot_tile_f32):
+        fn.argtypes = [ptr, ptr, i64, i64, ptr, ptr, ptr, ptr, i64, ctypes.c_float, ptr, ptr,
+                       ptr, ptr, ptr]
+        fn.restype = ctypes.c_int
     return kl
 
 
@@ -181,6 +198,17 @@ def check_mass(flat: torch.Tensor, mass: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: mass must be contiguous on {flat.device}")
 
 
+def check_published(flat: torch.Tensor, published: torch.Tensor) -> None:
+    """Validate a published snapshot buffer: the live buffer's shape and
+    dtype, contiguous, on its device."""
+    if (published.shape != flat.shape or published.dtype != flat.dtype
+            or published.device != flat.device or not published.is_contiguous()):
+        raise ValueError(
+            f"published must be a contiguous {tuple(flat.shape)} {flat.dtype} buffer on "
+            f"{flat.device}, got {tuple(published.shape)} {published.dtype} on "
+            f"{published.device}")
+
+
 def launch(
     flat: torch.Tensor,
     ops: SparseOperands,
@@ -189,23 +217,29 @@ def launch(
     d_bias: torch.Tensor,
     mass: torch.Tensor | None = None,
     new_mass: torch.Tensor | None = None,
+    published: torch.Tensor | None = None,
 ) -> None:
     """Launch the kernel on the current stream into ``mixed`` / ``d_bias``;
-    with ``mass`` (and ``new_mass`` for y') its mass mode.
+    with ``mass`` (and ``new_mass`` for y') its mass mode; with
+    ``published`` its snapshot mode (in either weight mode).
 
-    No checks: callers pass what ``check_operands`` (and ``check_mass``)
-    validated.  Counts the launch and raises if CUDA refused it.
+    No checks: callers pass what ``check_operands`` (and ``check_mass``,
+    ``check_published``) validated.  Counts the launch and raises if CUDA
+    refused it.
     """
     lib = load_kernel().lib
     tile = takes_tile_path(flat.shape[0])
-    args = [flat.data_ptr(), flat.shape[0], flat.shape[1],
+    snap = published is not None
+    args = [flat.data_ptr(), *((published.data_ptr(),) if snap else ()),
+            flat.shape[0], flat.shape[1],
             ops.self_w.data_ptr(), ops.nbr_idx.data_ptr(), ops.nbr_w.data_ptr(),
             ops.beta.data_ptr(), ops.nbr_idx.shape[1], float(local_steps)]
+    mode = "_push_sum" if mass is not None else ""
+    fn = getattr(lib, f"consensus_mix{mode}{'_snapshot' if snap else ''}"
+                      f"{'_tile' if tile else ''}_f32")
     if mass is None:
-        fn = lib.consensus_mix_tile_f32 if tile else lib.consensus_mix_f32
         args += [mixed.data_ptr(), d_bias.data_ptr()]
     else:
-        fn = lib.consensus_mix_push_sum_tile_f32 if tile else lib.consensus_mix_push_sum_f32
         args += [mass.data_ptr(), mixed.data_ptr(), d_bias.data_ptr(), new_mass.data_ptr()]
     err = fn(*args, torch.cuda.current_stream(flat.device).cuda_stream)
     if err != 0:
@@ -250,4 +284,53 @@ def consensus_mix_push_sum_stacked(
     d_bias = torch.empty_like(flat)
     new_mass = torch.empty_like(mass)
     launch(flat, ops, local_steps, mixed, d_bias, mass, new_mass)
+    return mixed, d_bias, new_mass
+
+
+def consensus_mix_snapshot_stacked(
+    flat: torch.Tensor,  # (K, N) float32 — the live parameters
+    published: torch.Tensor,  # (K, N) float32 — each sender's last published snapshot
+    ops: SparseOperands,  # the round's age-decayed weights
+    local_steps: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One bounded-staleness gossip step + affinity d, through the kernel's
+    snapshot mode: ``mixed = self_w x + sum_s nbr_w P[j]`` and
+    ``d = (sum_s beta P[j] - x) / T`` (0 for a zero beta row), in fresh
+    buffers."""
+    if flat.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"consensus_mix runs on cpu or cuda tensors, got {flat.device}")
+    check_operands(flat, ops, local_steps, MAX_SLOTS)
+    check_published(flat, published)
+    if flat.device.type == "cpu":
+        return ref.consensus_mix_stacked_ref(flat, *ops, local_steps, published=published)
+    mixed = torch.empty_like(flat)
+    d_bias = torch.empty_like(flat)
+    launch(flat, ops, local_steps, mixed, d_bias, published=published)
+    return mixed, d_bias
+
+
+def consensus_mix_push_sum_snapshot_stacked(
+    flat: torch.Tensor,  # (K, N) float32 — the live de-biased parameters
+    published: torch.Tensor,  # (K, N) float32 — each sender's last published snapshot
+    mass: torch.Tensor,  # (K,) float32 push-sum mass y
+    ops: SparseOperands,  # the round's age-decayed column-stochastic weights
+    local_steps: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One bounded-staleness push-sum step + affinity d, through the kernel's
+    snapshot mode in its mass mode: y' = A y, ``mixed = (self_w y x +
+    sum_s nbr_w y_j P[j]) / y'``, d as in ``consensus_mix_snapshot_stacked``
+    (beta not scaled by mass).  Returns (mixed, d_bias, new_mass) in fresh
+    buffers."""
+    if flat.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"consensus_mix runs on cpu or cuda tensors, got {flat.device}")
+    check_operands(flat, ops, local_steps, MAX_SLOTS)
+    check_mass(flat, mass, "consensus_mix")
+    check_published(flat, published)
+    if flat.device.type == "cpu":
+        return ref.consensus_mix_push_sum_stacked_ref(flat, mass, *ops, local_steps,
+                                                      published=published)
+    mixed = torch.empty_like(flat)
+    d_bias = torch.empty_like(flat)
+    new_mass = torch.empty_like(mass)
+    launch(flat, ops, local_steps, mixed, d_bias, mass, new_mass, published=published)
     return mixed, d_bias, new_mass

@@ -14,7 +14,10 @@ with d_k = 0 when sum_d beta[k, d] == 0 (an isolated peer).  Accumulation in
 float32, outputs cast back.  This is the CPU path of
 ``ops.consensus_mix_stacked`` and the oracle the CUDA kernel is held to.
 It loops over the D slots, so it never holds more than one gathered (K, N)
-neighbor block at a time.
+neighbor block at a time.  With ``published`` (the snapshot mode of
+bounded-staleness consensus) every neighbor term reads
+``published[nbr_idx[k, d]]`` in place of ``x[nbr_idx[k, d]]``; x_k, in the
+self term and in d, stays the live row.
 """
 from __future__ import annotations
 
@@ -30,15 +33,18 @@ def consensus_mix_stacked_ref(
     nbr_w: torch.Tensor,  # (K, D)
     beta: torch.Tensor,  # (K, D)
     local_steps: int,
+    *,
+    published: torch.Tensor | None = None,  # (K, N): the senders' snapshots
 ) -> tuple[torch.Tensor, torch.Tensor]:
     xf = flat.to(torch.float32)
+    src = xf if published is None else published.to(torch.float32)
     nbr_idx = nbr_idx.long()
     nbr_w = nbr_w.to(torch.float32)
     beta = beta.to(torch.float32)
     mixed = self_w.to(torch.float32)[:, None] * xf
     nbr_sum = torch.zeros_like(xf)
     for slot in range(nbr_idx.shape[1]):
-        nbr = xf[nbr_idx[:, slot]]  # (K, N): every peer's slot-th neighbor
+        nbr = src[nbr_idx[:, slot]]  # (K, N): every peer's slot-th neighbor
         mixed = mixed + nbr_w[:, slot, None] * nbr
         nbr_sum = nbr_sum + beta[:, slot, None] * nbr
     has_nbrs = beta.sum(dim=1) > 0.0
@@ -76,6 +82,8 @@ def consensus_mix_push_sum_stacked_ref(
     nbr_w: torch.Tensor,  # (K, D) off-diagonal A weights
     beta: torch.Tensor,  # (K, D)
     local_steps: int,
+    *,
+    published: torch.Tensor | None = None,  # (K, N): the senders' snapshots
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One push-sum step + affinity d (the reference's
     ``PushSumProtocol.mix`` plus the d update):
@@ -84,11 +92,14 @@ def consensus_mix_push_sum_stacked_ref(
         mixed = A (y * x) / y'
         d     = where(has_nbrs, (Beta x - x) / T, 0)   (raw x, Beta not scaled)
 
-    Returns (mixed, d, y').  This is the CPU path of
-    ``ops.consensus_mix_push_sum_stacked`` and the oracle its kernel mode is
-    held to."""
+    Returns (mixed, d, y').  With ``published`` the neighbor terms read the
+    snapshots P (the reference's ``mix_compressed`` with P for the
+    estimates): ``mixed = (diag(A) y x + A_off y P) / y'``, ``d = (Beta P -
+    x) / T``.  This is the CPU path of ``ops.consensus_mix_push_sum_stacked``
+    (and of its snapshot mode) and the oracle its kernel modes are held to."""
     self_w_y, nbr_w_y, y_new = push_sum_weights(mass, self_w, nbr_idx, nbr_w)
-    num, d = consensus_mix_stacked_ref(flat, self_w_y, nbr_idx, nbr_w_y, beta, local_steps)
+    num, d = consensus_mix_stacked_ref(flat, self_w_y, nbr_idx, nbr_w_y, beta, local_steps,
+                                       published=published)
     return (num / y_new[:, None]).to(flat.dtype), d, y_new
 
 

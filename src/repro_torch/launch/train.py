@@ -19,6 +19,10 @@ CLI:  python -m repro_torch.launch.train --experiment noniid_affinity --rounds 4
           --peer-axis pod --peers-per-device 8 --mix-mode segment
       python -m repro_torch.launch.train --experiment directed_k8 \
           --schedule one_way_matching   (push-sum on one-way links)
+      python -m repro_torch.launch.train --experiment straggler_k8 \
+          --schedule round_robin --protocol push_sum   (bounded staleness)
+      python -m repro_torch.launch.train --experiment iid_k100 \
+          --steps-profile straggler --staleness-bound 3
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from repro_torch.configs.p2pl_mnist import (
     directed_k8,
     iid_k100,
     noniid_k2,
+    straggler_k8,
     timevarying_k2,
     timevarying_k8,
 )
@@ -245,6 +250,27 @@ def _directed(args) -> PaperExperiment:
     )
 
 
+STRAGGLER_SCHEDULES = ("static", "round_robin")
+
+
+def _straggler(args) -> PaperExperiment:
+    schedule = args.schedule or "static"
+    if schedule not in STRAGGLER_SCHEDULES:
+        raise ValueError(f"straggler_k8 supports --schedule {'|'.join(STRAGGLER_SCHEDULES)}, "
+                         f"got {schedule!r}")
+    return straggler_k8(
+        schedule=schedule,
+        protocol=args.protocol or "gossip",
+        algorithm=args.algorithm,
+        local_steps=args.local_steps or 8,
+        steps_profile=args.steps_profile or "straggler",
+        staleness_bound=3 if args.staleness_bound is None else args.staleness_bound,
+        staleness_decay=0.5 if args.staleness_decay is None else args.staleness_decay,
+        schedule_rounds=args.schedule_rounds,
+        round_robin_topologies=tuple(t for t in args.round_robin_topologies.split(",") if t),
+    )
+
+
 # experiment name -> builder from the parsed CLI arguments (the reference
 # CLI's, src/repro/launch/train.py, for the experiments the port runs)
 EXPERIMENTS = {
@@ -257,6 +283,7 @@ EXPERIMENTS = {
     "timevarying_k2": _timevarying(timevarying_k2),
     "timevarying_k8": _timevarying(timevarying_k8),
     "directed_k8": _directed,
+    "straggler_k8": _straggler,
 }
 # every pretraced schedule; adaptive is queue 1 item 13
 SCHEDULE_CHOICES = ["static", "link_dropout", "random_matching", "peer_churn", "round_robin",
@@ -274,11 +301,14 @@ def main(argv=None):
     ap.add_argument("--local-steps", type=int, default=None,
                     help="T local SGD steps per round (default: the experiment's own, 10)")
     ap.add_argument("--algorithm", default="p2pl_affinity",
-                    help="algorithm for timevarying_* and directed_k8 experiments")
+                    help="algorithm for timevarying_*, directed_k8 and straggler_k8 "
+                         "experiments")
     ap.add_argument("--schedule", default=None, choices=SCHEDULE_CHOICES,
-                    help="communication-graph schedule for timevarying_* and directed_k8 "
-                         "experiments (default: link_dropout for timevarying_*, static for "
-                         "directed_k8, which takes static|link_dropout|one_way_matching)")
+                    help="communication-graph schedule for timevarying_*, directed_k8 and "
+                         "straggler_k8 experiments (default: link_dropout for "
+                         "timevarying_*, static for directed_k8, which takes "
+                         "static|link_dropout|one_way_matching, and for straggler_k8, which "
+                         "takes static|round_robin)")
     ap.add_argument("--protocol", default=None, choices=list(protocols_lib.protocol_names()),
                     help="consensus protocol, for any experiment (default: the "
                          "experiment's own: gossip everywhere but directed_k8's push_sum)")
@@ -295,6 +325,23 @@ def main(argv=None):
                          "leaf; both with error feedback")
     ap.add_argument("--topk-frac", type=float, default=0.01,
                     help="fraction of entries the 'topk' compressor keeps per leaf, in (0, 1]")
+    ap.add_argument("--steps-profile", default=None, choices=sorted(p2p.STEPS_PROFILES),
+                    help="per-peer compute profile, for any experiment (core/p2p.py "
+                         "compute_profile): 'uniform', every peer runs all T local steps "
+                         "(the synchronous round, bit-identical); 'straggler', the last "
+                         "straggler_frac of the peers run T/straggler_period steps and "
+                         "publish every straggler_period-th round; 'linear', per-peer "
+                         "speeds ramp from 1 down to 1/straggler_period")
+    ap.add_argument("--staleness-bound", type=int, default=None,
+                    help="bounded-staleness gossip, for any experiment: peers mix each "
+                         "sender's last published snapshot, at most this many rounds old "
+                         "(delivery forced at the bound); 0 (default) mixes synchronously, "
+                         "> 0 takes the consensus_mix kernel's snapshot mode with "
+                         "age-decayed, renormalised weights")
+    ap.add_argument("--staleness-decay", type=float, default=None,
+                    help="per-round decay of a stale snapshot's mixing weight (weight *= "
+                         "decay^age, the diagonal renormalised per the protocol's "
+                         "stochasticity); in (0, 1], default 0.5")
     ap.add_argument("--peer-axis", default="vmap", choices=["vmap", "pod"],
                     help="how the K peer axis executes: 'vmap' (stacked runtime) or 'pod' "
                          "(the hierarchical runtime; the port runs it on one slice, "
@@ -334,6 +381,18 @@ def main(argv=None):
         try:
             exp = dataclasses.replace(exp, p2p=dataclasses.replace(
                 exp.p2p, compressor=args.compressor, topk_frac=args.topk_frac))
+        except ValueError as e:
+            ap.error(str(e))
+    async_overrides = {
+        k: v for k, v in (
+            ("steps_profile", args.steps_profile),
+            ("staleness_bound", args.staleness_bound),
+            ("staleness_decay", args.staleness_decay),
+        ) if v is not None and getattr(exp.p2p, k) != v
+    }
+    if async_overrides:
+        try:
+            exp = dataclasses.replace(exp, p2p=dataclasses.replace(exp.p2p, **async_overrides))
         except ValueError as e:
             ap.error(str(e))
     if args.peers_per_device < 1:

@@ -56,9 +56,6 @@ def test_config_fields_match_reference():
 
 @pytest.mark.parametrize("field,value,item", [
     ("schedule", "adaptive", 13),
-    ("steps_profile", "linear", 12),
-    ("steps_profile", "straggler", 12),
-    ("staleness_bound", 2, 12),
     ("model", "rwkv6_seqmnist", 14),
 ])
 def test_unported_config_raises_with_roadmap_item(field, value, item):

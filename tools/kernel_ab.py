@@ -21,7 +21,13 @@ library call and the bound chip_smoke.py computes:
   ``gossip_identical_bits``;
 - for the three consensus kernels also the mass mode (push-sum,
   ``new_mass_ms``, and ``old_mass_ms`` where the other tree has one) on the
-  same inputs with a random positive mass, held to its plain version;
+  same inputs with a random positive mass, held to its plain version
+  (``consensus_mix``: ``mass_identical_bits``, old and new mass outputs
+  equal);
+- for ``consensus_mix`` also the snapshot mode (bounded staleness), gossip
+  and mass, in the design the wrapper takes, with a published buffer P
+  beside x (``new_snapshot_ms``, ``new_snapshot_mass_ms``, and the old
+  tree's where it has them), held to its plain version;
 - ``wkv6`` at the serving prefill's B 4, T 1024 and at B 1, T 4096
   (float32), with bf16 r, k, v as served (an old tree whose kernel takes
   float32 only is timed as its wrapper ran it, casts included), and at a
@@ -192,16 +198,22 @@ def ab_dequant(card, libs: dict, name: str, graph, k: int, seed: int = 0) -> dic
 
 def consensus_fns(lib: ctypes.CDLL) -> dict:
     """The consensus_mix entry points a library has: ``gather`` (every
-    version), ``tile`` (from the column-tile design on) and their mass modes
-    ``mass_gather`` / ``mass_tile`` (from push-sum on)."""
+    version), ``tile`` (from the column-tile design on), their mass modes
+    ``mass_gather`` / ``mass_tile`` (from push-sum on) and the snapshot
+    modes ``snap_*`` / ``mass_snap_*`` (from bounded staleness on, the
+    published buffer after x)."""
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
     names = {"gather": "consensus_mix_f32", "tile": "consensus_mix_tile_f32",
              "mass_gather": "consensus_mix_push_sum_f32",
-             "mass_tile": "consensus_mix_push_sum_tile_f32"}
+             "mass_tile": "consensus_mix_push_sum_tile_f32",
+             "snap_gather": "consensus_mix_snapshot_f32",
+             "snap_tile": "consensus_mix_snapshot_tile_f32",
+             "mass_snap_gather": "consensus_mix_push_sum_snapshot_f32",
+             "mass_snap_tile": "consensus_mix_push_sum_snapshot_tile_f32"}
     fns = {key: getattr(lib, name) for key, name in names.items() if hasattr(lib, name)}
     for key, fn in fns.items():
-        fn.argtypes = [ptr, i64, i64, ptr, ptr, ptr, ptr, i64, ctypes.c_float,
-                       *([ptr] * (5 if key.startswith("mass") else 3))]
+        fn.argtypes = [ptr, *([ptr] if "snap" in key else []), i64, i64, ptr, ptr, ptr, ptr,
+                       i64, ctypes.c_float, *([ptr] * (5 if key.startswith("mass") else 3))]
         fn.restype = ctypes.c_int
     return fns
 
@@ -209,8 +221,9 @@ def consensus_fns(lib: ctypes.CDLL) -> dict:
 def ab_consensus(card, libs: dict, name: str, graph, sizes, n: int, *, dmax=None,
                  seed=0) -> dict:
     """consensus_mix: each design of the old tree against the same design of
-    this checkout (outputs compared bit for bit), and this checkout's mass
-    mode (push-sum) in the design the wrapper's rule (``ops.takes_tile_path``)
+    this checkout (outputs compared bit for bit), and each tree's mass mode
+    (push-sum, bit for bit too) and snapshot modes (bounded staleness, gossip
+    and mass) in the design the wrapper's rule (``ops.takes_tile_path``)
     takes, on the same inputs."""
     dev = torch.device("cuda")
     w = graph_lib.mixing_matrix(graph, "data_weighted", data_sizes=sizes)
@@ -220,6 +233,7 @@ def ab_consensus(card, libs: dict, name: str, graph, sizes, n: int, *, dmax=None
     t = 10
     rng = np.random.default_rng(seed)
     x = torch.as_tensor(rng.normal(size=(k, n)).astype(np.float32), device=dev)
+    pub = x + torch.as_tensor(0.05 * rng.normal(size=(k, n)).astype(np.float32), device=dev)
     mass = push_sum_mass(k, dev)
     want = ref.consensus_mix_stacked_ref(x, *sparse, t)
     stream = torch.cuda.current_stream().cuda_stream
@@ -227,9 +241,11 @@ def ab_consensus(card, libs: dict, name: str, graph, sizes, n: int, *, dmax=None
     old, new = consensus_fns(libs["old"]), consensus_fns(libs["new"])
     fns = {f"old_{design}": old[design] for design in ("gather", "tile") if design in old}
     fns |= {f"new_{design}": new[design] for design in ("gather", "tile")}
-    fns |= {f"{tag}_mass": lib[f"mass_{rule}"] for tag, lib in (("old", old), ("new", new))
-            if f"mass_{rule}" in lib}
-    head = [x.data_ptr(), k, n, sparse.self_w.data_ptr(), sparse.nbr_idx.data_ptr(),
+    for mode in ("mass", "snapshot", "snapshot_mass"):
+        key = {"mass": "mass", "snapshot": "snap", "snapshot_mass": "mass_snap"}[mode]
+        fns |= {f"{tag}_{mode}": lib[f"{key}_{rule}"] for tag, lib in (("old", old), ("new", new))
+                if f"{key}_{rule}" in lib}
+    head = [k, n, sparse.self_w.data_ptr(), sparse.nbr_idx.data_ptr(),
             sparse.nbr_w.data_ptr(), sparse.beta.data_ptr(), d, float(t)]
     runs, outs = {}, {}
     for tag, fn in fns.items():
@@ -238,26 +254,33 @@ def ab_consensus(card, libs: dict, name: str, graph, sizes, n: int, *, dmax=None
         if tag.endswith("_mass"):
             outs[tag].append(torch.empty_like(mass))
             tail = [mass.data_ptr(), *(o.data_ptr() for o in outs[tag])]
+        lead = [x.data_ptr(), pub.data_ptr()] if "_snapshot" in tag else [x.data_ptr()]
 
-        def run(fn=fn, tail=tail, tag=tag):
-            err = fn(*head, *tail, stream)
+        def run(fn=fn, lead=lead, tail=tail, tag=tag):
+            err = fn(*lead, *head, *tail, stream)
             chip_smoke.check(err == 0, f"consensus_mix {tag} launch: cudaError_t {err}")
 
         run()
         torch.cuda.synchronize()
-        if not tag.endswith("_mass"):
+        if not tag.endswith("_mass") and "_snapshot" not in tag:
             for got, ref_out in zip(outs[tag], want):
                 torch.testing.assert_close(got, ref_out, **chip_smoke.TOL)
         runs[tag] = run
-    want_mass = ref.consensus_mix_push_sum_stacked_ref(x, mass, *sparse, t)
     stats = {}
-    for tag in ("old_mass", "new_mass"):
-        if tag in outs:
-            stats |= {f"{tag.removesuffix('_mass')}_{key}": v for key, v in mass_stats(
-                outs[tag], want_mass, f"consensus_mix {tag} {name}").items()}
+    for mode, want_mode in (
+            ("mass", ref.consensus_mix_push_sum_stacked_ref(x, mass, *sparse, t)),
+            ("snapshot", ref.consensus_mix_stacked_ref(x, *sparse, t, published=pub)),
+            ("snapshot_mass", ref.consensus_mix_push_sum_stacked_ref(x, mass, *sparse, t,
+                                                                     published=pub))):
+        for tag in (f"old_{mode}", f"new_{mode}"):
+            if tag in outs:
+                stats |= {f"{tag}_{key.removeprefix('mass_')}": v for key, v in mass_stats(
+                    outs[tag], want_mode, f"consensus_mix {tag} {name}").items()}
     identical = {design: all(torch.equal(a, b) for a, b in
                              zip(outs[f"old_{design}"], outs[f"new_{design}"]))
-                 for design in ("gather", "tile") if f"old_{design}" in outs}
+                 for design in ("gather", "tile", "mass") if f"old_{design}" in outs}
+    if "mass" in identical:
+        stats["mass_identical_bits"] = identical.pop("mass")
     dense = torch.as_tensor(np.concatenate([w, beta]), dtype=torch.float32, device=dev)
     lib_out = torch.empty(2 * k, n, device=dev)
     times = in_turns(runs, lambda: torch.matmul(dense, x, out=lib_out))
