@@ -44,7 +44,16 @@ In order:
    and that d reads the live row, timed against
    ``torch.matmul([W_off; Beta], P)``: ``straggler_k8``'s K = 8 ring
    (gather), K = 100 complete (tile), K = 129 (gather) and K = 16 with an
-   isolated peer (tile); ``wkv6`` at seventeen (the prefill's
+   isolated peer (tile); the dense operands of adaptive rounds (a
+   loss-proximity matching computed on the card, every j != k a slot, one
+   weighted), asserting each design and timed against
+   ``torch.matmul([W_off; Beta], X)``: ``consensus_mix`` at K = 8 (gather,
+   D = 7, also timed on the same matching's D = 1 sparse operands), K = 9
+   (one unmatched peer, whose row stays x_k and whose d stays 0) and K = 100
+   (tile, D = 99), its mass mode at K = 8 and 100 (the new mass summing to
+   K), ``dequant_mix`` (qint8) at K = 8 (tile); then each partner rule's
+   matching on the card against the CPU's, partner, W and Beta equal, the
+   all-zero-loss round's tie-break pairing among them; ``wkv6`` at seventeen (the prefill's
    B 4, T 1024, 64 heads of 64, chunk 16, from a zero and from a random
    state, and with bf16 r, k and v as served, timed; T 1000, ragged;
    log-decay -50; T 5, under one chunk; B 1, T 4096, timed; T 1001 ragged
@@ -127,7 +136,12 @@ In order:
    round that the mass sums to K within 1e-5 K and stays positive; then
    asynchronous rounds: ``iid_k100 --steps-profile linear`` (2: step budgets
    alone, the synchronous consensus), ``straggler_k8`` gossip static and
-   push-sum round robin (5 each, through the snapshot mode); with
+   push-sum round robin (5 each, through the snapshot mode); then adaptive
+   partner selection (each round's matching chosen on the card inside the
+   round, mixed through the dense operands): ``timevarying_k8 --schedule
+   adaptive`` with loss proximity and with eps-greedy (eps 0.5),
+   ``directed_k8 --schedule adaptive`` (push-sum, the mass mode) and
+   ``timevarying_k8 --schedule adaptive --compressor qint8`` (5 each); with
    every kernel's launch count reset just before and read just after each
    run, and every plain version's calls counted (none allowed); after each
    of the first, the compressed, the hierarchical and three push-sum runs it
@@ -144,8 +158,10 @@ In order:
    mode; 15, 5), ``iid_k100`` on the one-slice segment runtime
    (``segment_mix``; 10, 5), ``straggler_k8`` gossip static and push-sum
    round robin (the snapshot mode's gather; 15, 5) and ``iid_k100
-   --steps-profile straggler --staleness-bound 3`` (its tile; 10, 5): final
-   params, momentum, d, b, mass, estimate, published snapshots and ages,
+   --steps-profile straggler --staleness-bound 3`` (its tile; 10, 5), and
+   the adaptive ``timevarying_k8`` loss-proximity and eps-greedy runs and
+   ``directed_k8`` (15, 5 each): final params, momentum, d, b, mass, the
+   selection key and last losses, estimate, published snapshots and ages,
    the logged losses and accuracies equal bit for bit, ages within the
    bound and the mass summing to K, the same
    launches, no plain version; s/round both ways after the first period,
@@ -154,7 +170,9 @@ In order:
 8. breaks one round of ``noniid_affinity``, ``iid_k100``, ``iid_k100``
    with qint8 and ``directed_k8`` down by phase (synchronized host timers:
    the python driver's per-round view, through the phase functions) and
-   profiles one more for the device's busy share;
+   profiles one more for the device's busy share; and profiles one adaptive
+   round's selection alone at K = 8 for each rule (kernels, device time,
+   a CUDA graph of it replayed);
 9. trains the 2NN at K=4096 peers on a ring at full width on the one-slice
    segment runtime, 2 rounds through the python driver's round function
    without evaluation (its rounds are device-bound, about 2 s, and its
@@ -163,7 +181,8 @@ In order:
    beside the state's size;
 10. prints the ``kernels`` JSON line (each consensus kernel with its mass
    mode beside its gossip mode, ``consensus_mix`` also with its snapshot
-   mode) and, last, the contract line
+   mode, ``consensus_mix`` and ``dequant_mix`` with their dense-operand
+   cases and the adaptive paths' launches) and, last, the contract line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result;
@@ -202,6 +221,7 @@ IID_QINT8_ROUNDS = 2
 IID_POD_ROUNDS = 2
 DIRECTED_ROUNDS = 3
 STRAGGLER_ROUNDS = 5
+ADAPTIVE_ROUNDS = 5
 LARGE_K = 4096
 LARGE_K_ROUNDS = 2
 
@@ -366,22 +386,26 @@ def consensus_cases(card: Card, row: int) -> list[dict]:
 
 def dequant_case(card, name, graph, sizes, leaf_offsets, n, *, dmax=None, zero_beta_rows=(),
                  zero_scale_leaves=(), payload=True, want_vector=None, want_path="tile",
-                 seed=0):
+                 seed=0, operands=None):
     """dequant_mix kernel vs its plain version (and the dense library product
     of the advanced estimates) at one shape.  ``leaf_offsets`` are the L + 1
     leaf boundaries; columns from the last one to ``n`` are row padding, zero
     in every input.  ``payload=False`` is top-k's call: no q, no scales.
     ``want_path`` is the design the wrapper must pick: ``"tile"`` or
-    ``"gather"``."""
+    ``"gather"``.  ``operands`` (an adaptive round's dense operands on the
+    card) replace the graph's."""
     from repro_torch.core import graph as graph_lib
     from repro_torch.kernels.consensus_mix import dequant, ops, ref
 
     dev = torch.device("cuda")
     local_steps = 10
-    w = graph_lib.mixing_matrix(graph, "data_weighted", data_sizes=sizes)
-    beta = graph_lib.affinity_matrix(graph, data_sizes=sizes)
-    beta[list(zero_beta_rows)] = 0.0  # isolated for d: d must stay exactly 0
-    sparse = ops.sparse_from_matrices(w, beta, dmax=dmax, device=dev)
+    if operands is None:
+        w = graph_lib.mixing_matrix(graph, "data_weighted", data_sizes=sizes)
+        beta = graph_lib.affinity_matrix(graph, data_sizes=sizes)
+        beta[list(zero_beta_rows)] = 0.0  # isolated for d: d must stay exactly 0
+        sparse = ops.sparse_from_matrices(w, beta, dmax=dmax, device=dev)
+    else:
+        sparse = operands
     k, d = sparse.nbr_idx.shape
     size, num_leaves = leaf_offsets[-1], len(leaf_offsets) - 1
     rng = np.random.default_rng(seed)
@@ -428,9 +452,10 @@ def dequant_case(card, name, graph, sizes, leaf_offsets, n, *, dmax=None, zero_b
     library = lambda: torch.matmul(dense, adv, out=lib_out)  # noqa: E731
     times = in_turns(plain, kern, library)
 
-    # work this run's data needs: real (non-padding) slots only; the own
-    # estimate's advance (2 operations) only with a payload
-    real = (sparse.nbr_idx != torch.arange(k, device=dev)[:, None]).sum().item()
+    # work this run's data needs: slots of nonzero weight only (padding and a
+    # dense round's unselected edges weigh 0); the own estimate's advance (2
+    # operations) only with a payload
+    real = ((sparse.nbr_w != 0) | (sparse.beta != 0)).sum().item()
     flops = n * (4 * real + (5 if payload else 3) * k)
     nbytes = (2 * k * n * 4 + 2 * k * n * 4  # x, est in; mixed, d out
               + (k * n + k * num_leaves * 4 + k * n * 4 if payload else 0)  # q, scales; est'
@@ -981,6 +1006,206 @@ def snapshot_cases(card: Card) -> list[dict]:
     return cases
 
 
+def matching_operands(k: int, *, mass: bool, seed: int):
+    """An adaptive round's dense (K, K) W and Beta computed on the card
+    (``graph.adaptive_round_matrices``, loss proximity over random losses,
+    ``timevarying_k8``-like data sizes; column-stochastic with ``mass``),
+    and the kernel's operands gathered from them (``ops.dense_operands``)."""
+    from repro_torch.core import graph as graph_lib
+    from repro_torch.core import prng
+    from repro_torch.kernels.consensus_mix import ops
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    losses = torch.as_tensor(rng.uniform(1.0, 2.5, k).astype(np.float32), device=dev)
+    sizes = torch.as_tensor((100 + 50 * (np.arange(k) % 3)).astype(np.float32), device=dev)
+    w, beta = graph_lib.adaptive_round_matrices(
+        losses, prng.prng_key(seed, dev), data_sizes=sizes,
+        stochasticity="column" if mass else "row")
+    return w, beta, ops.dense_operands(w, beta, ops.complete_candidates(k, dev))
+
+
+def dense_case(card, name, k, n, *, mass=False, want_path="tile", with_d1=False, seed=0):
+    """``consensus_mix`` on an adaptive round's dense operands (every j != k
+    a slot, one of them weighted), gossip or with ``mass`` its mass mode,
+    against its plain version on the same operands and the library product
+    ``[W_off; Beta] X`` (mass: ``[A_off diag(y); Beta] X``).  An odd K
+    leaves one peer unmatched: its parameters (and mass) stay, its d is 0.
+    ``with_d1`` also times the kernel on the same matching's D = 1 sparse
+    operands (``ops.sparse_from_matrices``), the rows the dense operands
+    read but weight 0 left out."""
+    from repro_torch.kernels.consensus_mix import ops, ref
+
+    dev = torch.device("cuda")
+    t = 10
+    w, beta, dense = matching_operands(k, mass=mass, seed=seed)
+    d = dense.nbr_idx.shape[1]
+    check(d == k - 1, f"{name}: D = {d}, want K - 1")
+    path = "tile" if ops.takes_tile_path(k) else "gather"
+    check(path == want_path, f"{name}: {path} design, want {want_path}")
+    lone = torch.nonzero(beta.sum(dim=1) == 0).flatten().tolist()
+    check(len(lone) == k % 2, f"{name}: {len(lone)} unmatched peers, want {k % 2}")
+    iso = lone[0] if lone else None
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.normal(size=(k, n)).astype(np.float32), device=dev)
+    y = push_sum_mass(k, seed, dev) if mass else None
+    if mass:
+        got = ops.consensus_mix_push_sum_dense(x, y, w, beta, t)
+        want = ref.consensus_mix_push_sum_stacked_ref(x, y, *dense, t)
+        torch.cuda.synchronize()
+        err = check_mass_outputs(name, got, want, x, y, iso)
+    else:
+        got = ops.consensus_mix_dense(x, w, beta, t)
+        want = ref.consensus_mix_stacked_ref(x, *dense, t)
+        torch.cuda.synchronize()
+        err = 0.0
+        for g, r, what in zip(got, want, ("mixed", "d")):
+            torch.testing.assert_close(g, r, **TOL, msg=lambda m: f"{name} {what}: {m}")
+            err = max(err, float((g - r).abs().max()))
+        if iso is not None:
+            check(bool(torch.equal(got[0][iso], x[iso])), f"{name}: unmatched peer keeps x")
+            check(bool((got[1][iso] == 0).all()), f"{name}: unmatched peer's d is 0")
+    del want
+
+    outs = [torch.empty_like(x), torch.empty_like(x)]
+    mass_args = (y, torch.empty_like(y)) if mass else ()
+    nbr_w = dense.nbr_w * y[dense.nbr_idx.long()] if mass else dense.nbr_w
+    lib_op = ref.dense_mix_operator(dense.nbr_idx, nbr_w, dense.beta)
+    lib_out = torch.empty((2 * k, n), device=dev)
+    plain_fn = ref.consensus_mix_push_sum_stacked_ref if mass else ref.consensus_mix_stacked_ref
+    times = in_turns(lambda: plain_fn(x, *((y,) if mass else ()), *dense, t),
+                     lambda: ops.launch(x, dense, t, *outs, *mass_args),
+                     lambda: torch.matmul(lib_op, x, out=lib_out))
+    extra = {}
+    if with_d1:
+        sparse = ops.sparse_from_matrices(w.double().cpu().numpy(), beta.double().cpu().numpy(),
+                                          device=dev)
+        check(sparse.nbr_idx.shape[1] == 1, f"{name}: the matching's sparse operands have D = 1")
+        d1_out = [torch.empty_like(x), torch.empty_like(x)]
+        ops.launch(x, sparse, t, *d1_out)
+        for g, r, what in zip(d1_out, got, ("mixed", "d")):
+            torch.testing.assert_close(g, r, **TOL, msg=lambda m: f"{name} D = 1 {what}: {m}")
+        extra = {"sparse_d1_ms": cuda_ms(lambda: ops.launch(x, sparse, t, *d1_out)),
+                 "dense_ms_same_call": cuda_ms(lambda: ops.launch(x, dense, t, *outs))}
+    # work this run's data needs: the matched slots (nonzero weight) only
+    real = int(((dense.nbr_w != 0) | (dense.beta != 0)).sum())
+    flops = n * (4 * real + (4 if mass else 3) * k) + (2 * (real + k) if mass else 0)
+    nbytes = 3 * k * n * 4 + k * 4 + 3 * k * d * 4 + (2 * k * 4 if mass else 0)
+    return {"case": name, "K": k, "D": d, "N": n, "path": path, "vector_path": n % 4 == 0,
+            "weights": "mass" if mass else "gossip", "matched_slots": real,
+            "max_abs_err": err, **times, **extra, **card.bound(nbytes, flops)}
+
+
+def dense_cases(card: Card) -> dict[str, list[dict]]:
+    """Adaptive rounds' dense operands at the 2NN's row: ``consensus_mix`` at
+    K = 8 (gather, D = 7; also timed on the D = 1 sparse operands of the
+    same matching), K = 9 (one unmatched peer) and K = 100 (tile, D = 99),
+    its mass mode at K = 8 and 100, and ``dequant_mix`` (qint8) at K = 8
+    (tile)."""
+    from repro_torch.core.p2p import layout_of
+
+    layout = layout_of("mnist_mlp")
+    row = layout.row
+    _, _, k8 = matching_operands(8, mass=False, seed=4)
+    return {
+        "consensus_mix": [
+            dense_case(card, "adaptive_k8", 8, row, want_path="gather", with_d1=True),
+            dense_case(card, "adaptive_k9_unmatched", 9, row, want_path="gather", seed=1),
+            dense_case(card, "adaptive_k100", 100, row, seed=2),
+            dense_case(card, "adaptive_k8_mass", 8, row, mass=True, want_path="gather",
+                       seed=3),
+            dense_case(card, "adaptive_k100_mass", 100, row, mass=True, seed=5),
+        ],
+        "dequant_mix": [
+            dequant_case(card, "adaptive_k8_qint8", None, None, layout.leaf_offsets, row,
+                         want_vector=True, seed=4, operands=k8),
+        ],
+    }
+
+
+def check_matching_on_card() -> dict:
+    """Each rule's ``adaptive_round_matrices`` on the card against the CPU's
+    for the same losses and key: partner (via the matching), W and Beta
+    equal, both stochasticities, at K = 8 and 9, the all-zero-loss round
+    (every pair ties: ``torch.argmin``'s first flat index on the card, the
+    pairing (0, 1), (2, 3), ...) among them."""
+    from repro_torch.core import graph as graph_lib
+    from repro_torch.core import prng
+
+    dev = torch.device("cuda")
+    checked = 0
+    for k in (8, 9):
+        for seed in range(4):
+            losses = np.random.default_rng(seed).uniform(0.5, 2.5, k).astype(np.float32)
+            if seed == 0:
+                losses[:] = 0.0
+            for rule in graph_lib.ADAPTIVE_RULES:
+                out = {}
+                for where in ("cpu", dev):
+                    l_t, key = torch.as_tensor(losses, device=where), prng.prng_key(seed, where)
+                    partner = graph_lib.greedy_matching(
+                        graph_lib.partner_scores(l_t, key, rule, 0.5))
+                    mats = [graph_lib.adaptive_round_matrices(
+                        l_t, key, rule=rule, eps=0.5, data_sizes=torch.arange(
+                            1.0, k + 1, device=where), stochasticity=st)
+                        for st in ("row", "column")]
+                    out[str(where)] = [partner, *(m for pair in mats for m in pair)]
+                for a, b in zip(out["cpu"], out[str(dev)]):
+                    check(torch.equal(a, b.cpu()), f"matching K={k} seed {seed} {rule}: the "
+                                                   "card's differs from the CPU's")
+                if seed == 0 and rule == "loss_proximity":
+                    pairs = out[str(dev)][0].cpu().tolist()
+                    want = [i + 1 if i % 2 == 0 else i - 1 for i in range(k - k % 2)]
+                    check(pairs[:k - k % 2] == want, f"K={k}: round 0 pairs {pairs}")
+                checked += 1
+    print(f"matching on the card equals the CPU's: {checked} (K, losses, key, rule) cases, "
+          "partner, W and Beta, row and column", flush=True)
+    return {"cases": checked}
+
+
+def selection_profile(card: Card, exp, data) -> dict:
+    """The device time of one adaptive round's selection (the key split, the
+    scores, the greedy matching, W and Beta, the dense operands:
+    ``p2p.adaptive_operands``) at ``exp``'s K, for each rule: the host's
+    seconds of an eager call, its kernel count and device time
+    (torch.profiler), and a replay of it alone captured as a CUDA graph
+    (CUDA events)."""
+    from repro_torch import capture as capture_lib
+    from repro_torch.core import graph as graph_lib
+    from repro_torch.core import p2p, task as task_lib
+
+    dev = torch.device("cuda")
+    out = {"card": card.line}
+    for rule in graph_lib.ADAPTIVE_RULES:
+        cfg = dataclasses.replace(exp.p2p, partner_rule=rule)
+        state = p2p.init_state(task_lib.get_task(cfg.model), cfg, device=dev)
+        ad = state.adaptive._replace(last_losses=torch.linspace(1.0, 2.0, cfg.num_peers,
+                                                                device=dev))
+        ops = p2p.round_operands(cfg, device=dev)[0]
+        select = lambda: p2p.adaptive_operands(ad, cfg, ops)  # noqa: E731
+        select()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(20):
+            select()
+        torch.cuda.synchronize()
+        eager_s = (time.perf_counter() - start) / 20
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            select()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        captured = capture_lib.capture(select, dev)
+        out[rule] = {"eager_host_s": eager_s,
+                     "kernels": sum(e.count for e in kernels),
+                     "device_busy_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
+                     "graph_replay_ms": cuda_ms(captured.replay)}
+        del captured
+    print(f"selection ({card.line}): {json.dumps(out)}", flush=True)
+    return out
+
+
 WKV6_TOL = dict(atol=1e-3, rtol=1e-3)  # float32, the wkv6 tolerance of tests/test_kernels.py
 # bf16 r, k, v and output: both sides compute in float32 from the same bf16
 # values, and the kernel rounds its float32 output once to bf16 (at most 2^-9
@@ -1455,7 +1680,9 @@ def _print_ssd_case(c: dict) -> None:
 
 def check_kernels(card: Card) -> dict[str, list[dict]]:
     """Build the six kernels and hold each against its plain version at its
-    shapes; the three consensus kernels' mass mode under "<kernel> mass"."""
+    shapes; the three consensus kernels' mass mode under "<kernel> mass",
+    ``consensus_mix``'s snapshot mode under "consensus_mix snapshot", and
+    adaptive rounds' dense operands under "<kernel> dense"."""
     from repro_torch.core.p2p import layout_of
 
     build_kernels()
@@ -1468,6 +1695,8 @@ def check_kernels(card: Card) -> dict[str, list[dict]]:
     for kernel, kcases in mass_cases(card).items():
         cases[f"{kernel} mass"] = kcases
     cases["consensus_mix snapshot"] = snapshot_cases(card)
+    for kernel, kcases in dense_cases(card).items():
+        cases[f"{kernel} dense"] = kcases
     for kernel, kcases in cases.items():
         for c in kcases:
             if kernel == "wkv6":
@@ -1478,6 +1707,10 @@ def check_kernels(card: Card) -> dict[str, list[dict]]:
                 _print_ssd_case(c)
             else:
                 _print_case(kernel, c)
+            if "sparse_d1_ms" in c:
+                print(f"{kernel} {c['case']}: the same matching on D = 1 sparse operands "
+                      f"{c['sparse_d1_ms']:.4f} ms against the dense D = {c['D']} "
+                      f"{c['dense_ms_same_call']:.4f} ms (same call)", flush=True)
     return cases
 
 
@@ -1488,7 +1721,8 @@ def recheck_consensus(name: str, exp, state, data, *, mix_mode=None) -> None:
     push-sum run is held to the plain versions of the mass mode, its new
     mass included; a bounded-staleness run to the snapshot mode's, on the
     round's delivery and age-decayed operands, its published buffer and ages
-    included."""
+    included; an adaptive run on the round's dense operands, selected from
+    the state as the round step selects them."""
     from repro_torch import compression
     from repro_torch.core import p2p, protocols, task as task_lib
     from repro_torch.kernels.consensus_mix import ops as cm_ops
@@ -1503,8 +1737,13 @@ def recheck_consensus(name: str, exp, state, data, *, mix_mode=None) -> None:
     batches = task.make_peer_batches(parts, exp.batch_size, seed=1).round_batches_on(
         cfg.local_steps, torch.device("cuda"))
     after_local, _ = p2p.local_phase(state, task, batches, cfg, steps_k=p2p.steps_budget(cfg))
-    ops_s = p2p.schedule_operands(cfg, sizes, device="cuda")
-    sparse = cm_ops.select_round(ops_s, after_local.round_idx)
+    if cfg.schedule == "adaptive":
+        sparse, _ = p2p.adaptive_operands(
+            state.adaptive, cfg, p2p.round_operands(cfg, sizes, device="cuda")[0])
+        check(sparse.nbr_idx.shape[1] == cfg.num_peers - 1, f"{name}: dense operands")
+    else:
+        ops_s = p2p.schedule_operands(cfg, sizes, device="cuda")
+        sparse = cm_ops.select_round(ops_s, after_local.round_idx)
     comp = compression.from_config(cfg)
     push_sum = cfg.protocol == "push_sum"
     # push-sum: the plain versions of the mass mode take the mass after x
@@ -2340,6 +2579,7 @@ def main() -> int:
           flush=True)
 
     cases = check_kernels(card)
+    matching = check_matching_on_card()
     paths = {"serve_batch": drive_serve_batch(card, SERVE_ARCH, {"wkv6": 32})}
     serving = {SERVE_ARCH: recheck_and_break_down(card, SERVE_ARCH, {"wkv6": (0, 31)},
                                                   {"wkv6": 32})}
@@ -2419,6 +2659,30 @@ def main() -> int:
     }
     for label in ("straggler_k8", "straggler_k8_round_robin_push_sum"):
         paths[label]["mode"] = "snapshot"
+    # adaptive partner selection: each round's matching chosen on the card
+    # from the previous losses, mixed through the dense operands of
+    # consensus_mix (gossip; push-sum's mass mode for directed_k8) and of
+    # dequant_mix (qint8); eps_greedy at eps 0.5 explores in round 0 only
+    tv_adaptive = timevarying_k8(schedule="adaptive")
+    tv_eps_greedy = timevarying_k8(schedule="adaptive", partner_rule="eps_greedy",
+                                   adaptive_eps=0.5)
+    directed_adaptive = directed_k8(schedule="adaptive")
+    paths |= {
+        "timevarying_k8_adaptive": drive("timevarying_k8_adaptive", tv_adaptive,
+                                         ADAPTIVE_ROUNDS, data, recheck=True),
+        "timevarying_k8_adaptive_eps_greedy": drive(
+            "timevarying_k8_adaptive_eps_greedy", tv_eps_greedy, ADAPTIVE_ROUNDS, data,
+            recheck=True),
+        "directed_k8_adaptive": drive("directed_k8_adaptive", directed_adaptive,
+                                      ADAPTIVE_ROUNDS, data, recheck=True),
+        "timevarying_k8_adaptive_qint8": drive(
+            "timevarying_k8_adaptive_qint8",
+            timevarying_k8(schedule="adaptive", compressor="qint8"), ADAPTIVE_ROUNDS, data,
+            recheck=True),
+    }
+    for label in ("timevarying_k8_adaptive", "timevarying_k8_adaptive_eps_greedy",
+                  "directed_k8_adaptive", "timevarying_k8_adaptive_qint8"):
+        paths[label]["mode"] = "dense"
     # both round drivers from the same seed and rounds, bit for bit
     pod = dict(peer_axis="pod", peers_per_device=iid.p2p.num_peers, mix_mode="segment")
     for label, exp, rounds, every, kernel, run_kw in (
@@ -2432,15 +2696,20 @@ def main() -> int:
         ("straggler_k8", straggler_k8(), 15, 5, "consensus_mix", {}),
         ("straggler_k8_round_robin_push_sum", straggler_push, 15, 5, "consensus_mix", {}),
         ("iid_k100_straggler_b3", iid_stale, 10, 5, "consensus_mix", {}),
+        ("timevarying_k8_adaptive", tv_adaptive, 15, 5, "consensus_mix", {}),
+        ("timevarying_k8_adaptive_eps_greedy", tv_eps_greedy, 15, 5, "consensus_mix", {}),
+        ("directed_k8_adaptive", directed_adaptive, 15, 5, "consensus_mix", {}),
     ):
         result = compare_drivers(card, label, exp, rounds, every, data, kernel=kernel, **run_kw)
-        result["mode"] = ("snapshot" if exp.p2p.staleness_bound > 0 else
+        result["mode"] = ("dense" if exp.p2p.schedule == "adaptive" else
+                          "snapshot" if exp.p2p.staleness_bound > 0 else
                           "mass" if exp.p2p.protocol == "push_sum" else "gossip")
         paths[f"{label}_both_drivers"] = result
     for label, exp in (("noniid_affinity", noniid), ("iid_k100", iid),
                        ("iid_k100_qint8", iid_qint8), ("directed_k8", directed)):
         print(f"breakdown {label} ({card.line}): {json.dumps(phase_breakdown(exp, data))}",
               flush=True)
+    selection = selection_profile(card, tv_adaptive, data)
     ring = iid_k100(topology="ring")
     large_k = dataclasses.replace(ring, p2p=dataclasses.replace(ring.p2p, num_peers=LARGE_K))
     paths[f"ring_k{LARGE_K}"] = drive_large_k(large_k, LARGE_K_ROUNDS, data)
@@ -2462,6 +2731,21 @@ def main() -> int:
         by_path = {name: p["launches"][kernel] for name, p in paths.items()
                    if kernel in p["launches"]}
         mass_entry = {}
+        if f"{kernel} dense" in cases:
+            dense = cases[f"{kernel} dense"]
+            dense_main = dense[0]  # timevarying_k8's adaptive round
+            dense_paths = {name: n for name, n in by_path.items()
+                           if paths[name].get("mode") == "dense"}
+            mass_entry["dense_operands"] = {
+                "launches": sum(dense_paths.values()), "launches_by_path": dense_paths,
+                "max_abs_err": max(c["max_abs_err"] for c in dense),
+                **{key: dense_main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                    "library_ms", "bound_card")},
+                "shape": f"{dense_main['case']}: K={dense_main['K']} D={dense_main['D']} "
+                         f"N={dense_main['N']}",
+                "shapes": dense,
+                **({"matching_on_card": matching, "selection": selection}
+                   if kernel == "consensus_mix" else {})}
         if f"{kernel} snapshot" in cases:
             snap = cases[f"{kernel} snapshot"]
             snap_main = snap[0]  # straggler_k8's shape

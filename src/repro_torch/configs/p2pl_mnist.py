@@ -130,8 +130,10 @@ def timevarying_k8(
     topk_frac: float = 0.01,
 ) -> PaperExperiment:
     """Beyond-paper: 8 peers, 2 classes each, gossiping over a time-varying
-    graph (pairwise random matchings, dropped links, peer churn on a ring, or
-    a round robin of topologies), optionally over a compressed wire."""
+    graph (pairwise random matchings, dropped links, peer churn on a ring, a
+    round robin of topologies, or ``schedule="adaptive"``: pairwise matchings
+    selected on the device each round from the peers' own training losses),
+    optionally over a compressed wire."""
     peer_classes = tuple(((2 * k) % 10, (2 * k + 1) % 10) for k in range(8))
     return PaperExperiment(
         name=f"timevarying_k8_{schedule}_{algorithm}_T{local_steps}",
@@ -184,8 +186,10 @@ def directed_k8(
     Row-stochastic gossip is biased here; the default ``push_sum`` carries a
     mass per peer whose ratio de-biases the estimates, so consensus lands on
     the data-weighted average.  Schedules: ``static`` (the directed ring),
-    ``link_dropout`` (each one-way link drops on its own) or
-    ``one_way_matching`` (random sender -> receiver pairs each round).
+    ``link_dropout`` (each one-way link drops on its own),
+    ``one_way_matching`` (random sender -> receiver pairs each round) or
+    ``adaptive`` (pairwise matchings chosen on the device from the losses,
+    mixed column-stochastically).
 
     The shards are unequal on purpose (peers 0-3 hold a third class, 150
     samples feeding 100-sample peers): with equal sizes on a degree-regular

@@ -2,15 +2,16 @@
 
 Every pairwise "feature A does not compose with feature B" rejection lives
 here and raises one formatted message, the reference's word for word, from
-whichever layer catches the combination.  Only the pairs that the port can
-reach are ported: staleness x compression, compression x the (one-slice)
-hierarchical runtime, and async rounds x the hierarchical runtime.  The
-reference's other pairs involve features the port does not run yet
-(adaptive partner selection, registry models: ROADMAP.md queue 1 items 13
-and 14), which ``P2PConfig`` rejects before this table with
-``NotImplementedError``.  The reference's table has no push-sum row:
-push-sum composes with a compressed wire, with async rounds and with the
-hierarchical runtime, as in the reference.
+whichever layer catches the combination.  The pairs the port can reach are
+ported, in the reference's order: staleness x adaptive partner selection,
+staleness x compression, adaptive selection x the (one-slice) hierarchical
+runtime, compression x the hierarchical runtime, and async rounds x the
+hierarchical runtime.  The reference's last pair involves registry models,
+which the port does not run yet (ROADMAP.md queue 1 item 14) and which
+``P2PConfig`` rejects before this table with ``NotImplementedError``.  The
+reference's table has no push-sum row: push-sum composes with a compressed
+wire, with async rounds, with adaptive selection and with the hierarchical
+runtime, as in the reference.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from typing import Callable
 class FeatureContext:
     """Plain-value snapshot of one run's feature axes."""
 
+    schedule: str = "static"
     compressor: str = "none"
     steps_profile: str = "uniform"
     staleness_bound: int = 0
@@ -30,7 +32,8 @@ class FeatureContext:
 
 def context_from_config(cfg, *, peers_per_device: int = 1) -> FeatureContext:
     """Snapshot a ``P2PConfig``(-shaped) object into a ``FeatureContext``."""
-    return FeatureContext(compressor=cfg.compressor, steps_profile=cfg.steps_profile,
+    return FeatureContext(schedule=cfg.schedule, compressor=cfg.compressor,
+                          steps_profile=cfg.steps_profile,
                           staleness_bound=cfg.staleness_bound,
                           peers_per_device=peers_per_device)
 
@@ -57,6 +60,11 @@ class Incompatibility:
 FEATURES: dict[str, Feature] = {
     f.name: f
     for f in (
+        Feature(
+            name="adaptive",
+            predicate=lambda c: c.schedule == "adaptive",
+            describe=lambda c: "schedule='adaptive' (state-dependent partner selection)",
+        ),
         Feature(
             name="compression",
             predicate=lambda c: c.compressor != "none",
@@ -86,12 +94,29 @@ FEATURES: dict[str, Feature] = {
 INCOMPATIBILITIES: tuple[Incompatibility, ...] = (
     Incompatibility(
         a="staleness",
+        b="adaptive",
+        reason="the adaptive matching is derived from FRESH per-peer losses "
+               "every round, which is exactly what a straggler cannot provide",
+        workaround="run bounded-staleness gossip on a pretraced schedule, or "
+                   "adaptive selection synchronously (staleness_bound=0)",
+    ),
+    Incompatibility(
+        a="staleness",
         b="compression",
         reason="the staleness buffer stores raw sender snapshots while the "
                "compressed wire stores payload-advanced estimates — composing "
                "the two buffers is an open item",
         workaround="run async rounds uncompressed, or compression "
                    "synchronously (staleness_bound=0)",
+    ),
+    Incompatibility(
+        a="adaptive",
+        b="hierarchical",
+        reason="the adaptive candidate set is the complete graph — dense "
+               "O(K^2) matrices the hierarchical runtime's sparse "
+               "degree-bounded path exists to avoid",
+        workaround="run adaptive schedules with one peer per device "
+                   "(peers_per_device=1), or use a pretraced schedule here",
     ),
     Incompatibility(
         a="compression",

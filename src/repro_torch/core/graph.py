@@ -1,5 +1,6 @@
-"""Communication graphs and mixing matrices (host side; the port's copy of the
-numpy half of ``repro.core.graph``).
+"""Communication graphs and mixing matrices (the port's ``repro.core.graph``:
+its numpy half on the host, its adaptive partner selection in torch on the
+device).
 
 The paper (Sec. III-C) models the network as a flat, undirected, connected
 graph; devices exchange parameters only over its edges.  Mixing matrices are
@@ -8,14 +9,19 @@ row-stochastic — the paper's choice is data-size weighted:
     alpha_kj = n_j / (n_k + sum_{i in N(k)} n_i)        (neighbors j)
     alpha_kk = 1 - sum_j alpha_kj
 
-Everything here is float64 numpy and must equal the reference bit for bit.
-Graphs may be directed (``CommGraph(a, directed=True)``): push-sum
+The graphs and matrices are float64 numpy and equal the reference's bit for
+bit.  Graphs may be directed (``CommGraph(a, directed=True)``): push-sum
 (``core.protocols.PushSumProtocol``) mixes them with the column-stochastic
 weights of ``column_stochastic_matrix``.  The time-varying schedules (link
 dropout, undirected or one-way edge by edge, random and one-way matchings,
 peer churn, round robin) and their sparse degree-bounded form
-(``SparseSchedule``, row- or column-stochastic) are ported; the on-device
-adaptive matchings are still to be ported (ROADMAP.md queue 1 item 13).
+(``SparseSchedule``, row- or column-stochastic) are built the same way.
+
+Adaptive partner selection (``schedule="adaptive"``) is not numpy: each
+round's pairwise matching is computed on the run's device from run state,
+the peers' previous losses and a threefry key (``core.prng``), by
+``adaptive_round_matrices``.  Its scores, matching and float32 (W, Beta)
+equal the reference's bit for bit given the same losses and key.
 """
 from __future__ import annotations
 
@@ -23,6 +29,9 @@ import dataclasses
 from typing import Sequence
 
 import numpy as np
+import torch
+
+from repro_torch.core import prng
 
 TOPOLOGIES = (
     "complete",
@@ -873,6 +882,125 @@ class SparseSchedule:
             np.stack(self_w), np.stack(idx), np.stack(nbr_w), np.stack(beta),
             stochasticity=stochasticity, name=schedule.name,
         )
+
+
+# ---------------------------------------------------------------------------
+# Adaptive (state-dependent) partner selection: torch, on the run's device
+# ---------------------------------------------------------------------------
+
+ADAPTIVE_RULES = ("loss_proximity", "random", "eps_greedy")
+
+_MATCH_INF = 1e30  # sentinel: masked (used-up) score entries, float32
+
+
+def partner_scores(
+    losses: torch.Tensor,  # (K,) per-peer recent training losses
+    key: torch.Tensor,  # (2,) int64 threefry key (``core.prng``) for this round
+    rule: str = "loss_proximity",
+    eps: float = 0.1,
+) -> torch.Tensor:
+    """Symmetric (K, K) float32 pairing scores, lower a more desirable partner
+    (the reference's ``partner_scores``): "loss_proximity" |l_i - l_j|;
+    "random" ``0.5 (u + u^T)`` with u uniform from the key's second split;
+    "eps_greedy" the random scores when a Bernoulli(eps) coin from its
+    first split comes up, else the loss scores."""
+    if rule not in ADAPTIVE_RULES:
+        raise ValueError(f"unknown partner rule {rule!r}; one of {ADAPTIVE_RULES}")
+    k = losses.shape[0]
+    lf = losses.to(torch.float32)
+    loss_s = (lf[:, None] - lf[None, :]).abs()
+    if rule == "loss_proximity":
+        return loss_s
+    key_coin, key_scores = prng.split(key)
+    u = prng.uniform(key_scores, (k, k))
+    rand_s = 0.5 * (u + u.T)
+    if rule == "random":
+        return rand_s
+    return torch.where(prng.bernoulli(key_coin, eps), rand_s, loss_s)
+
+
+def greedy_matching(scores: torch.Tensor) -> torch.Tensor:
+    """Greedy minimum-score matching over a symmetric (K, K) score matrix
+    (the reference's ``greedy_matching``): ``partner`` (K,) int64, with
+    ``partner[k] == k`` for the one peer an odd K leaves unmatched.
+
+    K // 2 fixed steps of "take the global argmin pair, then mask both
+    peers"; ties go to the first flat index (``torch.argmin``'s rule on
+    either device).  Every step is a kernel of fixed shape and the "pairs
+    left" flag stays a device boolean, so the loop runs inside a captured
+    round with no read back to the host.
+    """
+    k = scores.shape[0]
+    dev = scores.device
+    eye = torch.eye(k, dtype=torch.bool, device=dev)
+    s = torch.where(eye, _MATCH_INF, scores.to(torch.float32))
+    idx = torch.arange(k, device=dev)
+    partner = idx
+    for _ in range(k // 2):
+        flat = torch.argmin(s.reshape(-1)).reshape(1)
+        i, j = flat // k, flat % k
+        ok = s.reshape(-1).gather(0, flat) < _MATCH_INF  # all masked: no pairs left
+        paired = torch.where(idx == j, i, torch.where(idx == i, j, partner))
+        partner = torch.where(ok, paired, partner)
+        used = (idx == i) | (idx == j)
+        s = torch.where(ok & (used[:, None] | used[None, :]), _MATCH_INF, s)
+    return partner
+
+
+def matching_matrices(
+    partner: torch.Tensor,  # (K,) int, symmetric (partner[partner[k]] == k)
+    *,
+    data_sizes: torch.Tensor | None = None,
+    consensus_step_size: float = 1.0,
+    stochasticity: str = "row",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(W, Beta) float32 of a pairwise matching round (the reference's
+    ``matching_matrices``): row form (gossip) ``W[k, p] = n_p / (n_k +
+    n_p)`` at p = partner[k], the diagonal the remainder; column form
+    (push-sum) ``n_k / (n_k + n_p)`` and columns summing to 1; then the
+    paper's epsilon, ``(1 - eps) I + eps W`` row- (column-) wise.  Beta is
+    one-hot at the partner, all-zero for an unmatched peer."""
+    if stochasticity not in ("row", "column"):
+        raise ValueError(f"unknown stochasticity {stochasticity!r}; 'row' or 'column'")
+    k = partner.shape[0]
+    dev = partner.device
+    idx = torch.arange(k, device=dev)
+    n = (torch.ones(k, dtype=torch.float32, device=dev) if data_sizes is None
+         else torch.as_tensor(data_sizes, dtype=torch.float32, device=dev))
+    matched = partner != idx
+    adj = (partner[:, None] == idx[None, :]) & matched[:, None]
+    denom = n[:, None] + n[None, :]
+    beta = adj.to(torch.float32)
+    eps = torch.full((k,), consensus_step_size, dtype=torch.float32, device=dev)
+    eye = torch.eye(k, dtype=torch.float32, device=dev)
+    if stochasticity == "row":
+        off = torch.where(adj, n[None, :] / denom, 0.0)
+        w = off + torch.diag(1.0 - off.sum(dim=1))
+        w = (1.0 - eps)[:, None] * eye + eps[:, None] * w
+    else:
+        off = torch.where(adj, n[:, None] / denom, 0.0)
+        w = off + torch.diag(1.0 - off.sum(dim=0))
+        w = (1.0 - eps)[None, :] * eye + eps[None, :] * w
+    return w, beta
+
+
+def adaptive_round_matrices(
+    losses: torch.Tensor,  # (K,) per-peer recent training losses
+    key: torch.Tensor,  # (2,) int64 key for this round
+    *,
+    rule: str = "loss_proximity",
+    eps: float = 0.1,
+    data_sizes: torch.Tensor | None = None,
+    consensus_step_size: float = 1.0,
+    stochasticity: str = "row",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One adaptive round's (W, Beta) on the losses' device: scores, greedy
+    matching, stochastic matrices (the reference's
+    ``adaptive_round_matrices``)."""
+    partner = greedy_matching(partner_scores(losses, key, rule, eps))
+    return matching_matrices(partner, data_sizes=data_sizes,
+                             consensus_step_size=consensus_step_size,
+                             stochasticity=stochasticity)
 
 
 def spectral_gap(w: np.ndarray) -> float:

@@ -51,11 +51,19 @@ snapshot and its age (``P2PState.staleness``), and each consensus step goes
 through the ``consensus_mix`` kernel's snapshot mode on age-decayed weights
 (``_consensus_phase_async``).
 
+Adaptive partner selection (``schedule="adaptive"``) picks each round's
+pairwise matching on the device from run state (``P2PState.adaptive``: the
+peers' previous mean losses and a threefry key, ``core.prng``), before the
+local phase, as the reference's step does (``run_adaptive_round``); the
+round's dense W and Beta reach the same kernels through their dense
+operands (``kernels.consensus_mix.ops.dense_operands``: every j != k a
+slot).
+
 Ported: gossip and push-sum over the static, the undirected and the directed
-time-varying schedules, uncompressed or compressed, synchronous or
-asynchronous rounds, the 2NN task, the vmap and one-slice hierarchical
-runtimes.  Any other configuration raises ``NotImplementedError`` naming the
-ROADMAP.md item that ports it.
+time-varying schedules and adaptive matchings, uncompressed or compressed,
+synchronous or asynchronous rounds, the 2NN task, the vmap and one-slice
+hierarchical runtimes.  Any other configuration raises
+``NotImplementedError`` naming the ROADMAP.md item that ports it.
 """
 from __future__ import annotations
 
@@ -73,11 +81,13 @@ from repro_torch import compression as compression_lib
 from repro_torch.core import consensus as consensus_lib
 from repro_torch.core import features as features_lib
 from repro_torch.core import graph as graph_lib
+from repro_torch.core import prng
 from repro_torch.core import protocols as protocols_lib
 from repro_torch.core import task as task_lib
 from repro_torch.device import resolve_device
 from repro_torch.core.protocols import SparseRoundOps
-from repro_torch.kernels.consensus_mix.ops import select_round, upload_schedule
+from repro_torch.kernels.consensus_mix.ops import (complete_candidates, dense_operands,
+                                                    select_round, upload_schedule)
 
 ALGORITHMS = ("dsgd", "local_dsgd", "p2pl", "p2pl_affinity", "isolated")
 STEPS_PROFILES = ("uniform", "straggler", "linear")
@@ -119,7 +129,7 @@ class P2PConfig:
     peer_online_prob: float = 0.8
     schedule_seed: int = 0
     round_robin_topologies: tuple[str, ...] = ()
-    # -- adaptive partner selection (item 13) --------------------------------
+    # -- adaptive partner selection, schedule="adaptive" ----------------------
     partner_rule: str = "loss_proximity"
     adaptive_eps: float = 0.1
     adaptive_seed: int = 0
@@ -146,12 +156,22 @@ class P2PConfig:
         if self.local_steps < 1:
             raise ValueError("need at least one local step per round")
         protocols_lib.get_protocol(self.protocol)
-        if self.schedule == "adaptive":
-            raise _not_ported("schedule='adaptive'", 13)
-        if self.schedule not in graph_lib.SCHEDULES:
-            raise ValueError(f"unknown schedule {self.schedule!r}")
+        if self.schedule not in graph_lib.SCHEDULES + ("adaptive",):
+            raise ValueError(
+                f"unknown schedule {self.schedule!r}; one of "
+                f"{graph_lib.SCHEDULES + ('adaptive',)}"
+            )
         if self.schedule_rounds < 1:
             raise ValueError("schedule_rounds must be >= 1")
+        if self.partner_rule not in graph_lib.ADAPTIVE_RULES:
+            raise ValueError(
+                f"unknown partner_rule {self.partner_rule!r}; one of "
+                f"{graph_lib.ADAPTIVE_RULES}"
+            )
+        if not 0.0 <= self.adaptive_eps <= 1.0:
+            raise ValueError("adaptive_eps must be in [0, 1]")
+        if self.schedule == "adaptive" and self.num_peers < 2:
+            raise ValueError("adaptive partner selection needs at least two peers")
         if self.topology not in graph_lib.TOPOLOGIES:
             raise ValueError(f"unknown topology {self.topology!r}")
         if self.compressor not in compression_lib.compressor_names():
@@ -317,11 +337,35 @@ class StalenessState(NamedTuple):
     age: torch.Tensor
 
 
+class AdaptiveState(NamedTuple):
+    """Run state of adaptive partner selection (``schedule="adaptive"``).
+
+    ``key`` (K, 2) int64 holding the reference's uint32 threefry key
+    (``core.prng``), the same in every row, so every peer derives the same
+    matching; one split is consumed per round.  ``last_losses`` (K,)
+    float32: each peer's mean training loss of the previous round, the
+    selection signal.
+    """
+
+    key: torch.Tensor
+    last_losses: torch.Tensor
+
+
+class AdaptiveRoundOps(NamedTuple):
+    """The static operands of an adaptive round on the device: the round's
+    W and Beta are computed inside the step, from the state."""
+
+    nbr_idx: torch.Tensor  # (K, K-1) int32 — every j != k (``complete_candidates``)
+    data_sizes: torch.Tensor  # (K,) float32 — n_k, ones without data sizes
+
+
 class P2PState(NamedTuple):
     """Stacked peer state: every tensor is (K, row) float32 (see ``ParamLayout``).
 
     ``protocol`` holds the consensus protocol's own state: ``()`` for gossip,
     ``protocols.PushSumState`` ((K,) mass) for push-sum.
+    ``adaptive`` is the ``AdaptiveState`` of ``schedule="adaptive"``, else
+    ``()``.
     ``compression`` is the public-estimate stack of a compressed wire, (K, row)
     like the parameters, or ``()`` for ``compressor="none"``.
     ``round_idx`` counts completed consensus phases.
@@ -335,6 +379,7 @@ class P2PState(NamedTuple):
     b_bias: torch.Tensor  # affinity consensus-phase bias (Eq. 4)
     round_idx: int
     protocol: tuple = ()
+    adaptive: AdaptiveState | tuple = ()
     compression: torch.Tensor | tuple = ()
     staleness: StalenessState | tuple = ()
 
@@ -350,6 +395,13 @@ def build_schedule(cfg: P2PConfig) -> graph_lib.GraphSchedule:
     build = lambda topo: graph_lib.build_graph(  # noqa: E731
         topo, cfg.num_peers, p=cfg.erdos_renyi_p, seed=cfg.graph_seed
     )
+    if cfg.schedule == "adaptive":
+        raise ValueError(
+            "schedule='adaptive' has no pretraced graph sequence: each "
+            "round's topology is computed on device from run state "
+            "(graph.adaptive_round_matrices inside the jitted round step); "
+            "there is no GraphSchedule to build"
+        )
     if cfg.schedule == "static":
         return graph_lib.static_schedule(build(cfg.topology))
     if cfg.schedule == "link_dropout":
@@ -419,7 +471,10 @@ def init_state(
     estimate stack, and the published snapshots of bounded-staleness
     consensus (age 0), start as copies of the parameters after the sync.
     ``data_sizes`` seeds the protocol state: push-sum's mass is proportional
-    to them (uniform without them).
+    to them (uniform without them).  ``schedule="adaptive"`` starts every
+    row of the selection key at ``PRNGKey(adaptive_seed)`` and the losses at
+    0, so round 0's loss-proximity matching is the tie-break pairing
+    (0, 1), (2, 3), ...
     """
     device = resolve_device(device)
     if init_params is None:
@@ -446,6 +501,11 @@ def init_state(
         staleness = StalenessState(
             published=params.clone(),
             age=torch.zeros(cfg.num_peers, dtype=torch.int32, device=device))
+    adaptive = ()
+    if cfg.schedule == "adaptive":
+        adaptive = AdaptiveState(
+            key=prng.prng_key(cfg.adaptive_seed, device).repeat(cfg.num_peers, 1),
+            last_losses=torch.zeros(cfg.num_peers, dtype=torch.float32, device=device))
     return P2PState(
         params=params,
         momentum=torch.zeros_like(params),
@@ -453,6 +513,7 @@ def init_state(
         b_bias=torch.zeros_like(params),
         round_idx=0,
         protocol=protocols_lib.get_protocol(cfg.protocol).init_state(params, data_sizes),
+        adaptive=adaptive,
         compression=compression_lib.from_config(cfg).init_estimate(params),
         staleness=staleness,
     )
@@ -466,7 +527,23 @@ def local_phase(
     *,
     steps_k: np.ndarray | None = None,
 ) -> tuple[P2PState, torch.Tensor]:
-    """Run T local SGD steps on every peer (Eq. 3).
+    """Run T local SGD steps on every peer (Eq. 3): ``local_phase_stats``
+    with its (T, K) losses reduced to the per-step mean over peers, (T,)."""
+    state, losses = local_phase_stats(state, task, batches, cfg, steps_k=steps_k)
+    return state, losses.mean(dim=1)
+
+
+def local_phase_stats(
+    state: P2PState,
+    task: task_lib.TrainTask,
+    batches: tuple[torch.Tensor, torch.Tensor],
+    cfg: P2PConfig,
+    *,
+    steps_k: np.ndarray | None = None,
+) -> tuple[P2PState, torch.Tensor]:
+    """Run T local SGD steps on every peer (Eq. 3), keeping every step's
+    per-peer losses (the reference's ``_local_phase_stats``: adaptive
+    selection reads each peer's mean).
 
     ``batches`` = (x (T, K, B, ...), y (T, K, B)), step-major then peer.
     ``steps_k`` ((K,) int32 on the host, ``steps_budget``) caps peer k at
@@ -477,7 +554,7 @@ def local_phase(
     host, so a captured round replays the same copies); a finished peer
     reports its frozen parameters' loss on each later step's batch.  None
     (the "uniform" profile) is the unmasked loop.
-    Returns (new_state, per-step mean loss over peers (T,)).
+    Returns (new_state, losses (T, K)).
     """
     layout = ParamLayout.of(task)
     x, y = batches
@@ -509,7 +586,7 @@ def local_phase(
     if cfg.use_affinity_b:
         b_bias = params / max(cfg.consensus_steps, 1)
     state = state._replace(params=params, momentum=mom, b_bias=b_bias)
-    return state, torch.stack(step_losses).mean(dim=1)
+    return state, torch.stack(step_losses)
 
 
 def _consensus_steps(state: P2PState, cfg: P2PConfig, mix) -> P2PState:
@@ -640,14 +717,56 @@ def run_round(
     task: task_lib.TrainTask,
     batches: tuple[torch.Tensor, torch.Tensor],
     cfg: P2PConfig,
-    ops: SparseRoundOps | protocols_lib.StaleRoundOps,
+    ops: SparseRoundOps | protocols_lib.StaleRoundOps | AdaptiveRoundOps,
     *,
     steps_k: np.ndarray | None = None,
 ) -> tuple[P2PState, P2PState, torch.Tensor]:
     """One full round: (state_after_local, state_after_consensus, losses (T,));
-    ``steps_k`` the per-peer step budgets (``steps_budget``)."""
+    ``steps_k`` the per-peer step budgets (``steps_budget``).  An adaptive
+    schedule's round is ``run_adaptive_round``."""
+    if cfg.schedule == "adaptive":
+        return run_adaptive_round(state, task, batches, cfg, ops, steps_k=steps_k)
     after_local, losses = local_phase(state, task, batches, cfg, steps_k=steps_k)
     return after_local, consensus_phase(after_local, cfg, ops), losses
+
+
+def adaptive_operands(
+    ad: AdaptiveState, cfg: P2PConfig, ops: AdaptiveRoundOps
+) -> tuple[SparseRoundOps, torch.Tensor]:
+    """(the round's dense operands, the next round's key) from the
+    selection state (the reference's ``adaptive_consts``): split the key,
+    match on the previous losses (``graph.adaptive_round_matrices``, row- or
+    column-stochastic as the protocol mixes), gather the kernel's operands
+    from W and Beta (``dense_operands``).  All on the device."""
+    key_round, key_next = prng.split(ad.key[0])
+    w, beta = graph_lib.adaptive_round_matrices(
+        ad.last_losses, key_round, rule=cfg.partner_rule, eps=cfg.adaptive_eps,
+        data_sizes=ops.data_sizes, consensus_step_size=cfg.consensus_step_size,
+        stochasticity=protocols_lib.get_protocol(cfg.protocol).stochasticity)
+    return dense_operands(w, beta, ops.nbr_idx), key_next
+
+
+def run_adaptive_round(
+    state: P2PState,
+    task: task_lib.TrainTask,
+    batches: tuple[torch.Tensor, torch.Tensor],
+    cfg: P2PConfig,
+    ops: AdaptiveRoundOps,
+    *,
+    steps_k: np.ndarray | None = None,
+) -> tuple[P2PState, P2PState, torch.Tensor]:
+    """One adaptive round, in the reference's order: this round's operands
+    from the previous round's losses and the key (``adaptive_operands``),
+    the local phase, then the selection state's update (this round's
+    per-peer mean losses, the next key) in the after-local state, and the
+    consensus phase over the round's dense operands.  Returns
+    (state_after_local, state_after_consensus, losses (T,))."""
+    dense, key_next = adaptive_operands(state.adaptive, cfg, ops)
+    after_local, losses = local_phase_stats(state, task, batches, cfg, steps_k=steps_k)
+    after_local = after_local._replace(adaptive=AdaptiveState(
+        key=key_next.expand_as(state.adaptive.key).contiguous(),
+        last_losses=losses.mean(dim=0)))
+    return after_local, consensus_phase(after_local, cfg, dense), losses.mean(dim=1)
 
 
 def schedule_operands(
@@ -673,14 +792,22 @@ def round_picker(
     data_sizes: np.ndarray | None = None,
     *,
     device: torch.device | str | None = None,
-) -> tuple[Callable[[int], SparseRoundOps | protocols_lib.StaleRoundOps], int]:
+) -> tuple[Callable[[int], SparseRoundOps | protocols_lib.StaleRoundOps | AdaptiveRoundOps],
+           int]:
     """``(pick, period)``: ``pick(r)`` is round r's operands as the round
     step takes them, views of one upload made here, and repeats every
     ``period`` rounds.  Synchronous: the schedule's sparse operands, period
     R.  ``staleness_bound > 0``: a ``protocols.StaleRoundOps`` with the
     round's column sums and its row of ``publication_table``, period the
-    least common multiple of R and the table's P."""
+    least common multiple of R and the table's P.  Adaptive: the static
+    ``AdaptiveRoundOps`` (the round's W and Beta come from the state), period
+    1."""
     device = resolve_device(device)
+    if cfg.schedule == "adaptive":
+        sizes = np.ones(cfg.num_peers) if data_sizes is None else np.asarray(data_sizes)
+        ops = AdaptiveRoundOps(complete_candidates(cfg.num_peers, device),
+                               torch.as_tensor(sizes, dtype=torch.float32, device=device))
+        return lambda r: ops, 1
     if cfg.staleness_bound == 0:
         stacked = schedule_operands(cfg, data_sizes, device=device)
         return functools.partial(select_round, stacked), stacked.self_w.shape[0]
@@ -704,7 +831,7 @@ def round_operands(
     data_sizes: np.ndarray | None = None,
     *,
     device: torch.device | str | None = None,
-) -> list[SparseRoundOps | protocols_lib.StaleRoundOps]:
+) -> list[SparseRoundOps | protocols_lib.StaleRoundOps | AdaptiveRoundOps]:
     """Every period round's operands (``round_picker``), views of one
     upload; round ``r`` of a run uses entry ``r % period``."""
     pick, period = round_picker(cfg, data_sizes, device=device)
@@ -826,11 +953,12 @@ def _hier_round_step(task: task_lib.TrainTask, cfg: P2PConfig, peers_per_device:
 
 def state_leaves(state: P2PState) -> list[torch.Tensor]:
     """The state's tensors in a fixed order: params, momentum, d, b, the
-    protocol's, the compressed wire's estimate, then the staleness buffer's
-    published snapshots and (int32) ages."""
+    protocol's, the adaptive selection's (int64) key and last losses, the
+    compressed wire's estimate, then the staleness buffer's published
+    snapshots and (int32) ages."""
     est = (state.compression,) if isinstance(state.compression, torch.Tensor) else ()
-    return [state.params, state.momentum, state.d_bias, state.b_bias, *state.protocol, *est,
-            *state.staleness]
+    return [state.params, state.momentum, state.d_bias, state.b_bias, *state.protocol,
+            *state.adaptive, *est, *state.staleness]
 
 
 def with_leaves(like: P2PState, leaves: list[torch.Tensor], round_idx: int) -> P2PState:
@@ -839,11 +967,15 @@ def with_leaves(like: P2PState, leaves: list[torch.Tensor], round_idx: int) -> P
     params, momentum, d_bias, b_bias, *rest = leaves
     n_proto = len(like.protocol)
     protocol = type(like.protocol)(*rest[:n_proto]) if n_proto else ()
+    rest = rest[n_proto:]
+    n_ad = len(like.adaptive)
+    adaptive = AdaptiveState(*rest[:n_ad]) if n_ad else ()
+    rest = rest[n_ad:]
     n_est = int(isinstance(like.compression, torch.Tensor))
-    compression = rest[n_proto] if n_est else ()
-    staleness = StalenessState(*rest[n_proto + n_est:]) if like.staleness else ()
-    return P2PState(params, momentum, d_bias, b_bias, round_idx, protocol, compression,
-                    staleness)
+    compression = rest[0] if n_est else ()
+    staleness = StalenessState(*rest[n_est:]) if like.staleness else ()
+    return P2PState(params, momentum, d_bias, b_bias, round_idx, protocol, adaptive,
+                    compression, staleness)
 
 
 class ScanDriver:
@@ -853,11 +985,14 @@ class ScanDriver:
     ``batches`` is a ``data.pipeline.ChunkBatches`` of C rounds.  The body
     of a round is the python driver's round step, unchanged, over static
     buffers: the carried state (params, momentum, d, b, push-sum's mass, the
-    compressed wire's estimate, the published snapshots and their int32
-    ages), the round's operands ``(self_w, nbr_idx, nbr_w, beta)`` (with
-    bounded staleness also the round's column sums and its row of the
-    publication table: ``protocols.StaleRoundOps``, so the delivery rule
-    runs on the device inside the graph) and its (T, K, B) batch rows, with
+    adaptive selection's key and losses, the compressed wire's estimate, the
+    published snapshots and their int32 ages), the round's operands
+    ``(self_w, nbr_idx, nbr_w, beta)`` (with bounded staleness also the
+    round's column sums and its row of the publication table:
+    ``protocols.StaleRoundOps``, so the delivery rule runs on the device
+    inside the graph; an adaptive round's static ``AdaptiveRoundOps``, its
+    key split, matching and W / Beta inside the graph) and its (T, K, B)
+    batch rows, with
     the gather ``x_all[rows]`` inside the body.  Between rounds, on the
     device: round ``r % period``'s operands are copied into the static ones
     (the hierarchical runtime's as a static R = 1 stack, read at round index

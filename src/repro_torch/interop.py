@@ -1,8 +1,9 @@
 """Parameter and state exchange with the reference package, through numpy.
 
-``jax.random``'s threefry stream cannot be reproduced in torch, so parity
-runs start both packages from the same exported parameters, or from the
-same exported round state (``state_from_jax``).  The reference
+Parameter initialisation draws from ``jax.random`` in the reference and from
+``torch.Generator`` in the port, so parity runs start both packages from the
+same exported parameters, or from the same exported round state
+(``state_from_jax``).  The reference
 keeps nested dicts (``{"fc1": {"w": ..., "b": ...}, ...}``); the port keeps
 flat dicts with dotted names (``{"fc1.w": ..., "fc1.b": ...}``).  Nothing here
 imports jax: the caller converts jax arrays with ``numpy.asarray`` (for
@@ -65,6 +66,23 @@ def params_to_jax(params: dict[str, torch.Tensor]) -> dict:
     return tree
 
 
+def key_from_jax(key) -> torch.Tensor:
+    """A reference uint32 threefry key (``np.asarray`` of a ``PRNGKey`` or
+    of a stack of them) -> the port's int64 tensor of the same values."""
+    arr = np.asarray(key)
+    if arr.dtype != np.uint32:
+        raise ValueError(f"a threefry key is uint32, got {arr.dtype}")
+    return torch.as_tensor(arr.astype(np.int64))
+
+
+def key_to_jax(key: torch.Tensor) -> np.ndarray:
+    """The port's int64 key -> the reference's uint32 values (numpy)."""
+    arr = key.detach().cpu().numpy()
+    if arr.min(initial=0) < 0 or arr.max(initial=0) > 0xFFFFFFFF:
+        raise ValueError("a threefry key holds uint32 values")
+    return arr.astype(np.uint32)
+
+
 def state_from_jax(
     jstate, task: task_lib.TrainTask, *, device: torch.device | str = "cpu"
 ) -> p2p.P2PState:
@@ -78,7 +96,10 @@ def state_from_jax(
     ``protocols.PushSumState`` with the same float32 values.  The
     bounded-staleness buffer, a ``StalenessState``, becomes the port's
     ``p2p.StalenessState``: the published tree flattened to one (K, row)
-    buffer, the (K,) ages as int32.
+    buffer, the (K,) ages as int32.  Adaptive selection's ``AdaptiveState``
+    becomes the port's: the (K, 2) uint32 key as int64 values
+    (``key_from_jax``; ``key_to_jax`` turns it back), the (K,) float32
+    last losses as they are.
     """
     layout = p2p.ParamLayout.of(task)
 
@@ -90,6 +111,12 @@ def state_from_jax(
     if proto != ():
         proto = protocols.PushSumState(
             mass=torch.as_tensor(np.asarray(proto.mass, dtype=np.float32)).to(device))
+    adaptive = jstate.adaptive
+    if adaptive != ():
+        adaptive = p2p.AdaptiveState(
+            key=key_from_jax(adaptive.key).to(device),
+            last_losses=torch.as_tensor(np.array(adaptive.last_losses, dtype=np.float32))
+            .to(device))
     stale = jstate.staleness
     if stale != ():
         stale = p2p.StalenessState(
@@ -102,6 +129,7 @@ def state_from_jax(
         b_bias=flat(jstate.b_bias),
         round_idx=int(jstate.round_idx),
         protocol=proto,
+        adaptive=adaptive,
         compression=flat(comp) if isinstance(comp, dict) else (),
         staleness=stale,
     )

@@ -18,6 +18,10 @@ one step of bounded-staleness consensus (the reference's
 published snapshots in place of the estimates): every neighbor term reads
 the sender's last published snapshot, the self term and d's own term the
 live parameters, with the round's age-decayed weights.
+``consensus_mix_dense`` and ``consensus_mix_push_sum_dense`` take one
+round's dense (K, K) W and Beta computed on the device (adaptive partner
+selection) and run the same kernel on ``dense_operands``: the static
+candidate set of every j != k, the weights gathered from the matrices.
 
 Dispatch is by the device of the buffer, and only by it:
 
@@ -285,6 +289,59 @@ def consensus_mix_push_sum_stacked(
     new_mass = torch.empty_like(mass)
     launch(flat, ops, local_steps, mixed, d_bias, mass, new_mass)
     return mixed, d_bias, new_mass
+
+
+@functools.cache
+def complete_candidates(k: int, device: torch.device) -> torch.Tensor:
+    """The static (K, K-1) int32 candidate set of the dense-dynamic path,
+    every peer j != k in row-major order, built once per (K, device): every
+    edge is a slot, and the round's weights decide which contribute."""
+    if k < 2:
+        raise ValueError("dense-dynamic consensus needs at least two peers")
+    idx = np.arange(k)
+    cand = np.stack([np.concatenate([idx[:i], idx[i + 1:]]) for i in range(k)])
+    return torch.as_tensor(cand.astype(np.int32), device=device)
+
+
+def dense_operands(w_mat: torch.Tensor, beta_mat: torch.Tensor,
+                   nbr_idx: torch.Tensor) -> SparseOperands:
+    """The kernel's operands of one round's dense (K, K) W and Beta computed
+    on the device (an adaptive round's matching): the diagonal as ``self_w``,
+    and ``nbr_w`` / ``beta`` gathered at the candidates ``nbr_idx``
+    (``complete_candidates``).  Weights of unselected edges are zero;
+    nothing is read back to the host."""
+    cols = nbr_idx.long()
+    return SparseOperands(w_mat.diagonal().to(torch.float32).contiguous(), nbr_idx,
+                          w_mat.gather(1, cols).to(torch.float32),
+                          beta_mat.gather(1, cols).to(torch.float32))
+
+
+def consensus_mix_dense(
+    flat: torch.Tensor,  # (K, N) float32
+    w_mat: torch.Tensor,  # (K, K) row-stochastic mixing matrix, computed on the device
+    beta_mat: torch.Tensor,  # (K, K) affinity matrix
+    local_steps: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One gossip step + affinity d from dense (K, K) matrices computed on
+    the device (the reference's ``ops.consensus_mix_dense``): the kernel on
+    ``dense_operands``, every j != k a slot.  Returns (mixed, d_bias)."""
+    ops = dense_operands(w_mat, beta_mat, complete_candidates(w_mat.shape[0], w_mat.device))
+    return consensus_mix_stacked(flat, ops, local_steps)
+
+
+def consensus_mix_push_sum_dense(
+    flat: torch.Tensor,  # (K, N) float32 — the de-biased parameters
+    mass: torch.Tensor,  # (K,) float32 push-sum mass y
+    w_mat: torch.Tensor,  # (K, K) column-stochastic push matrix, computed on the device
+    beta_mat: torch.Tensor,  # (K, K) affinity matrix
+    local_steps: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One push-sum step + affinity d from dense (K, K) matrices computed on
+    the device (the reference's ``ops.consensus_mix_push_sum_dense``): the
+    kernel's mass mode on ``dense_operands``.  Returns (mixed, d_bias,
+    new_mass)."""
+    ops = dense_operands(w_mat, beta_mat, complete_candidates(w_mat.shape[0], w_mat.device))
+    return consensus_mix_push_sum_stacked(flat, mass, ops, local_steps)
 
 
 def consensus_mix_snapshot_stacked(

@@ -23,6 +23,8 @@ CLI:  python -m repro_torch.launch.train --experiment noniid_affinity --rounds 4
           --schedule round_robin --protocol push_sum   (bounded staleness)
       python -m repro_torch.launch.train --experiment iid_k100 \
           --steps-profile straggler --staleness-bound 3
+      python -m repro_torch.launch.train --experiment timevarying_k8 \
+          --schedule adaptive --partner-rule eps_greedy   (matchings chosen on the device)
 """
 from __future__ import annotations
 
@@ -46,6 +48,7 @@ from repro_torch.configs.p2pl_mnist import (
 )
 from repro_torch.core import consensus as consensus_lib
 from repro_torch.core import features as features_lib
+from repro_torch.core import graph as graph_lib
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.core import p2p
 from repro_torch.core import protocols as protocols_lib
@@ -227,12 +230,15 @@ def _timevarying(builder):
             link_survival_prob=args.link_survival_prob,
             peer_online_prob=args.peer_online_prob,
             round_robin_topologies=tuple(t for t in args.round_robin_topologies.split(",") if t),
+            partner_rule=args.partner_rule,
+            adaptive_eps=args.adaptive_eps,
+            adaptive_seed=args.adaptive_seed,
         )
 
     return build
 
 
-DIRECTED_SCHEDULES = ("static", "link_dropout", "one_way_matching")
+DIRECTED_SCHEDULES = ("static", "link_dropout", "one_way_matching", "adaptive")
 
 
 def _directed(args) -> PaperExperiment:
@@ -247,6 +253,9 @@ def _directed(args) -> PaperExperiment:
         local_steps=args.local_steps or 10,
         schedule_rounds=args.schedule_rounds,
         link_survival_prob=args.link_survival_prob,
+        partner_rule=args.partner_rule,
+        adaptive_eps=args.adaptive_eps,
+        adaptive_seed=args.adaptive_seed,
     )
 
 
@@ -285,9 +294,9 @@ EXPERIMENTS = {
     "directed_k8": _directed,
     "straggler_k8": _straggler,
 }
-# every pretraced schedule; adaptive is queue 1 item 13
+# every pretraced schedule, and the adaptive matchings chosen on the device
 SCHEDULE_CHOICES = ["static", "link_dropout", "random_matching", "peer_churn", "round_robin",
-                    "one_way_matching"]
+                    "one_way_matching", "adaptive"]
 
 
 def main(argv=None):
@@ -307,8 +316,21 @@ def main(argv=None):
                     help="communication-graph schedule for timevarying_*, directed_k8 and "
                          "straggler_k8 experiments (default: link_dropout for "
                          "timevarying_*, static for directed_k8, which takes "
-                         "static|link_dropout|one_way_matching, and for straggler_k8, which "
-                         "takes static|round_robin)")
+                         "static|link_dropout|one_way_matching|adaptive, and for "
+                         "straggler_k8, which takes static|round_robin).  'adaptive' selects "
+                         "gossip partners on the device each round from the peers' own "
+                         "training losses (see --partner-rule)")
+    ap.add_argument("--partner-rule", default="loss_proximity",
+                    choices=sorted(graph_lib.ADAPTIVE_RULES),
+                    help="how --schedule adaptive scores candidate partners: "
+                         "loss_proximity pairs peers with the closest recent training loss, "
+                         "random is the matched-communication baseline, eps_greedy explores "
+                         "a random matching with probability --adaptive-eps")
+    ap.add_argument("--adaptive-eps", type=float, default=0.1,
+                    help="exploration probability for --partner-rule eps_greedy (in [0, 1])")
+    ap.add_argument("--adaptive-seed", type=int, default=0,
+                    help="seeds the threefry key threaded through the adaptive selection "
+                         "state")
     ap.add_argument("--protocol", default=None, choices=list(protocols_lib.protocol_names()),
                     help="consensus protocol, for any experiment (default: the "
                          "experiment's own: gossip everywhere but directed_k8's push_sum)")
@@ -365,6 +387,8 @@ def main(argv=None):
                          "--driver scan this is also the fused chunk size — N rounds per "
                          "call, so N > 1 is where the scan driver's amortization engages")
     args = ap.parse_args(argv)
+    if not 0.0 <= args.adaptive_eps <= 1.0:
+        ap.error(f"--adaptive-eps must be in [0, 1], got {args.adaptive_eps}")
     if args.eval_every < 1:
         ap.error(f"--eval-every must be >= 1, got {args.eval_every}")
     if not 0.0 < args.topk_frac <= 1.0:

@@ -100,7 +100,7 @@ def test_cli_raises_without_cuda(no_cuda, argv):
 @pytest.mark.parametrize("argv,msg", [
     (["--topk-frac", "0"], "--topk-frac must be in (0, 1]"),
     (["--protocol", "flood"], "invalid choice"),  # one_way_matching is valid since push-sum
-    (["--schedule", "adaptive"], "invalid choice"),
+    (["--adaptive-eps", "2"], "--adaptive-eps must be in [0, 1]"),
 ])
 def test_cli_rejects_bad_flags(argv, msg, capsys):
     with pytest.raises(SystemExit) as ex:
@@ -115,7 +115,8 @@ def test_cli_builds_the_reference_experiments():
     parse = lambda *a: train.argparse.Namespace(  # noqa: E731
         topology="ring", local_steps=None, algorithm="local_dsgd", schedule=None,
         schedule_rounds=16, link_survival_prob=0.7, peer_online_prob=0.8,
-        round_robin_topologies="ring,star", compressor=None, topk_frac=0.01)
+        round_robin_topologies="ring,star", compressor=None, topk_frac=0.01,
+        partner_rule="loss_proximity", adaptive_eps=0.1, adaptive_seed=0)
     exp = train.EXPERIMENTS["timevarying_k8"](parse())
     assert exp.p2p.schedule == "link_dropout" and exp.p2p.algorithm == "local_dsgd"
     assert exp.p2p.round_robin_topologies == ("ring", "star")

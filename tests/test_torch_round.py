@@ -55,7 +55,6 @@ def test_config_fields_match_reference():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("schedule", "adaptive", 13),
     ("model", "rwkv6_seqmnist", 14),
 ])
 def test_unported_config_raises_with_roadmap_item(field, value, item):
