@@ -141,7 +141,20 @@ In order:
    round, mixed through the dense operands): ``timevarying_k8 --schedule
    adaptive`` with loss proximity and with eps-greedy (eps 0.5),
    ``directed_k8 --schedule adaptive`` (push-sum, the mass mode) and
-   ``timevarying_k8 --schedule adaptive --compressor qint8`` (5 each); with
+   ``timevarying_k8 --schedule adaptive --compressor qint8`` (5 each); then
+   RWKV6 on sequential MNIST (``seqmnist_phase``: ``seqmnist_k8``, K = 8,
+   T = 4, 31 leaves, N = 100,236): the classifier's K-batched loss and
+   per-leaf gradients on the card against the CPU (atol 5e-5 / rtol 1e-4),
+   ``rwkv6_features`` chunked (``wkv6``, 2 launches) against the token loop
+   at B = 256, ``wkv6`` at B 256, T 196, H 4, dk 16, chunk 49 against its
+   plain version (timed) and from a random state, autograd through
+   ``wkv6`` (directly and under ``rwkv6_loss_fn``), ``ssd`` and
+   ``flash_attention`` raising ``NotImplementedError`` with nothing
+   launched, ``consensus_mix`` (gossip and mass mode) and ``dequant_mix``
+   held and timed at the task's row, gossip static, push-sum static and
+   gossip round robin over qint8 (3 rounds each), both drivers on gossip
+   and push-sum (6 rounds, eval every 3), and one round's kernels eager and
+   on replay (torch.profiler), printing the phase's seconds; with
    every kernel's launch count reset just before and read just after each
    run, and every plain version's calls counted (none allowed); after each
    of the first, the compressed, the hierarchical and three push-sum runs it
@@ -2083,6 +2096,240 @@ def drive_large_k(exp, rounds: int, data) -> dict:
             "state_gb": state_gb, "seconds": seconds, "setup_s": setup_s}
 
 
+SEQMNIST = "rwkv6_seqmnist"
+SEQMNIST_ROUNDS = 3
+
+
+def seqmnist_params(k: int, seed: int = 0) -> dict[str, torch.Tensor]:
+    """``k`` draws of the classifier's parameters, stacked, on the CPU."""
+    from repro_torch.core import task as task_lib
+
+    task = task_lib.get_task(SEQMNIST)
+    gen = torch.Generator().manual_seed(seed)
+    peers = [task.init_params(gen) for _ in range(k)]
+    return {name: torch.stack([p[name] for p in peers]) for name in task.param_shapes}
+
+
+def check_classifier_on_card() -> dict:
+    """The task's K-batched loss (``torch.func.vmap`` of the classifier, the
+    RNN form) and its per-leaf gradients on the card against the same
+    function on the CPU, from the same parameters and one (K, B, 196) token
+    batch, TF32 off; at atol 5e-5 / rtol 1e-4 (``TOL``).  The RNN form
+    reaches no kernel: no launch may be counted."""
+    from repro_torch.core import task as task_lib
+
+    task = task_lib.get_task(SEQMNIST)
+    k, b = 8, 10  # seqmnist_k8's peers and batch: one local step's
+    params = seqmnist_params(k)
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(0, 16, (k, b, 196)))
+    labels = torch.as_tensor(rng.integers(0, 10, (k, b)))
+    counters = launch_counters()
+    for counter in counters.values():
+        counter.reset()
+
+    def loss_and_grads(dev):
+        leaves = {n: t.to(dev).requires_grad_(True) for n, t in params.items()}
+        losses = task.loss_fn(leaves, (tokens.to(dev), labels.to(dev)))
+        grads = torch.autograd.grad(losses.sum(), list(leaves.values()))
+        return losses.detach().cpu(), [g.cpu() for g in grads]
+
+    (cpu_l, cpu_g), (card_l, card_g) = loss_and_grads("cpu"), loss_and_grads("cuda")
+    launched = {key: c.count for key, c in counters.items() if c.count}
+    check(not launched, f"the classifier's RNN form launched {launched}")
+    torch.testing.assert_close(card_l, cpu_l, **TOL, msg=lambda m: f"classifier losses: {m}")
+    for name, got, want in zip(params, card_g, cpu_g):
+        torch.testing.assert_close(got, want, **TOL,
+                                   msg=lambda m, n=name: f"classifier grad {n}: {m}")
+    out = {"K": k, "B": b, "T": 196,
+           "loss_max_abs_diff": float((card_l - cpu_l).abs().max()),
+           "grad_max_abs_diff": max(float((g - w).abs().max()) for g, w in zip(card_g, cpu_g)),
+           "tolerance": TOL}
+    print(f"classifier on the card against the CPU: {json.dumps(out)}", flush=True)
+    return out
+
+
+def check_seqmnist_wkv6(card: Card) -> dict:
+    """``rwkv6_features(chunked=True)`` on the card (each layer's WKV through
+    ``wkv6``: 2 launches) against ``chunked=False`` (the token loop) at the
+    task's shape, B = 256 as the chunked eval's chunks (``WKV6_TOL``); then
+    one ``wkv6`` call at B 256, T 196, H 4, dk 16, chunk 49, from a zero and
+    from a random state, against its plain version, the first timed in
+    turns."""
+    from repro_torch.core import task as task_lib
+    from repro_torch.kernels.rwkv6 import ops as wkv6_ops
+    from repro_torch.models import transformer as tf
+
+    cfg = task_lib.seqmnist_model_config()
+    params = {n: t[0].cuda() for n, t in seqmnist_params(1, seed=1).items()}
+    tokens = torch.as_tensor(np.random.default_rng(2).integers(0, 16, (256, 196)),
+                             device="cuda")
+    wkv6_ops.launches.reset()
+    with torch.no_grad():
+        chunked = tf.rwkv6_features(params, cfg, tokens, chunked=True)
+        launched = wkv6_ops.launches.count
+        loop = tf.rwkv6_features(params, cfg, tokens, chunked=False)
+    check(launched == cfg.num_layers, f"rwkv6_features(chunked=True) launched wkv6 {launched} "
+                                      f"times, want {cfg.num_layers}")
+    check(wkv6_ops.launches.count == launched, "the token loop launched wkv6")
+    torch.testing.assert_close(chunked, loop, **WKV6_TOL,
+                               msg=lambda m: f"features, wkv6 against the token loop: {m}")
+    features_err = float((chunked - loop).abs().max())
+    del chunked, loop
+    cases = [wkv6_case(card, "seqmnist_b256_t196_q49", 256, 196, 4, 16, 49, timed=True, seed=11),
+             wkv6_case(card, "seqmnist_b256_t196_q49_state", 256, 196, 4, 16, 49, state=True,
+                       ld=(1e-4, 2e-2), seed=12)]
+    for c in cases:
+        _print_wkv6_case(c)
+    print(f"features at B=256 T=196: wkv6 against the token loop, max |diff| "
+          f"{features_err:.3g} (atol = rtol = 1e-3)", flush=True)
+    return {"features_max_abs_diff": features_err, "cases": cases}
+
+
+def check_backward_raises() -> dict:
+    """Autograd through a forward-only kernel on the card raises
+    ``NotImplementedError`` (``kernels.build.check_no_grad``) and launches
+    nothing: ``wkv6`` called directly and under ``rwkv6_loss_fn``, ``ssd`` and
+    ``flash_attention`` directly; under ``torch.no_grad`` the same calls run."""
+    from repro_torch.core import task as task_lib
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.mamba2 import ops as ssd_ops
+    from repro_torch.kernels.rwkv6 import ops as wkv6_ops
+    from repro_torch.models import transformer as tf
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    r, k, v = (rnd(2, 98, 4, 16).requires_grad_(True) for _ in range(3))
+    logd, u = -torch.rand(2, 98, 4, 16, generator=gen, device=dev), rnd(4, 16)
+    x, bm, cm = rnd(2, 64, 4, 32).requires_grad_(True), rnd(2, 64, 1, 16), rnd(2, 64, 1, 16)
+    dt, a = torch.rand(2, 64, 4, generator=gen, device=dev), -torch.ones(4, device=dev)
+    q, kk, vv = (rnd(1, 64, 2, 32).requires_grad_(True) for _ in range(3))
+    cfg = task_lib.seqmnist_model_config()
+    trunk = {n: t[0].to(dev).requires_grad_(True) for n, t in seqmnist_params(1).items()
+             if not n.startswith("cls_head.")}
+    toks = torch.randint(0, 16, (2, 196), generator=gen, device=dev)
+    calls = {
+        "wkv6": lambda: wkv6_ops.wkv6(r, k, v, logd, u, chunk=49),
+        "wkv6 under rwkv6_loss_fn": lambda: tf.rwkv6_loss_fn(
+            trunk, cfg, {"tokens": toks, "labels": toks}),
+        "ssd": lambda: ssd_ops.ssd(x, bm, cm, dt, a, chunk=32),
+        "flash_attention": lambda: flash_ops.gqa_flash_attention(q, kk, vv),
+    }
+    counters = launch_counters()
+    out = {}
+    for name, call in calls.items():
+        for counter in counters.values():
+            counter.reset()
+        try:
+            call()
+        except NotImplementedError as e:
+            out[name] = str(e)
+        else:
+            raise RuntimeError(f"check failed: autograd through {name} on the card did not "
+                               "raise")
+        launched = {key: c.count for key, c in counters.items() if c.count}
+        check(not launched, f"{name}: launched {launched} before raising")
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
+    print(f"backward through the forward-only kernels raises: {json.dumps(out)}", flush=True)
+    return out
+
+
+def profile_seqmnist_round(card: Card, exp, data) -> dict:
+    """One ``exp`` round both ways under torch.profiler: an eager round of
+    the python driver's round function, and a replay of the scan driver's
+    captured round (``ScanDriver.captured``, after one chunk of 2 rounds):
+    kernels, device time, wall seconds, and the graph's capture seconds
+    (warm-up round included).  A replay launches only what the capture
+    recorded, so its kernel count is the eager round's."""
+    from repro_torch.core import p2p, task as task_lib
+    from repro_torch.launch import train
+
+    dev = torch.device("cuda")
+    cfg = exp.p2p
+    task = task_lib.get_task(cfg.model)
+    parts = train.mnist_parts(exp, data[0], data[1])
+    sizes = np.asarray([len(p[0]) for p in parts])
+    batcher = task.make_peer_batches(parts, exp.batch_size, seed=0)
+    state = p2p.init_state(task, cfg, data_sizes=sizes, device=dev)
+    round_fn = p2p.make_round_fn(task, cfg, sizes, device=dev)
+    batches = batcher.round_batches_on(cfg.local_steps, dev)
+    round_fn(state, batches)  # warm-up: cuBLAS handles, allocator, autograd
+    torch.cuda.synchronize()
+    eager = profile_once(lambda: round_fn(state, batches))
+    drive_fn = p2p.make_scan_driver(task, cfg, sizes, device=dev, donate=False)
+    drive_fn(state, batcher.chunk_batches_on(cfg.local_steps, 2, dev))
+    replay = profile_once(drive_fn.captured.replay)
+    replay_ms = cuda_ms(drive_fn.captured.replay, target_s=0.5)
+    out = {"card": card.line, "capture_s": drive_fn.capture_seconds,
+           "eager_round": {key: eager[key] for key in ("wall_s", "device_busy_s", "kernels")},
+           "replay": {key: replay[key] for key in ("wall_s", "device_busy_s", "kernels")},
+           "replay_ms_cuda_events": replay_ms,
+           "replay_by_category": replay["by_category_launches_ms"],
+           "replay_top_kernels_ms": replay["top_kernels_ms"]}
+    print(f"seqmnist round profile ({card.line}): {json.dumps(out)}", flush=True)
+    check(replay["kernels"] <= eager["kernels"],
+          f"a replay ran {replay['kernels']} kernels, the eager round {eager['kernels']}")
+    return out
+
+
+def seqmnist_phase(card: Card, data, cases: dict, paths: dict) -> dict:
+    """RWKV6 on sequential MNIST (``seqmnist_k8``, K = 8, T = 4, 31 leaves,
+    N = 100,236): the classifier on the card against the CPU, ``wkv6`` at
+    the task's shape, the backward guard, ``consensus_mix`` (and its mass
+    mode) and ``dequant_mix`` held and timed at the task's row, three
+    training runs through ``run_paper_experiment`` (gossip static, push-sum
+    static, gossip round robin over qint8; launches counted, no plain
+    version, the mass watched, one consensus phase rechecked), both drivers
+    on gossip and push-sum, and one round's kernels both ways.  Adds its
+    cases and paths to ``cases`` and ``paths``; returns its own results and
+    seconds."""
+    from repro_torch.configs.p2pl_mnist import seqmnist_k8
+    from repro_torch.core import graph as graph_lib
+    from repro_torch.core.p2p import layout_of
+
+    start = time.perf_counter()
+    out = {"classifier": check_classifier_on_card()}
+    wkv6 = check_seqmnist_wkv6(card)
+    cases["wkv6"].extend(wkv6["cases"])
+    out["features_max_abs_diff"] = wkv6["features_max_abs_diff"]
+    out["backward_raises"] = check_backward_raises()
+    layout = layout_of(SEQMNIST)
+    check((len(layout.shapes), layout.size, layout.row) == (31, 100_234, 100_236),
+          f"seqmnist layout {len(layout.shapes)} leaves, {layout.size} -> {layout.row}")
+    ring, sizes = graph_lib.build_graph("ring", 8), np.full(8, 100)
+    new = {"consensus_mix": consensus_case(card, "seqmnist_k8_ring", ring, sizes, layout.row,
+                                           want_path="gather", seed=13),
+           "consensus_mix mass": consensus_mass_case(card, "seqmnist_k8_ring_push_sum", ring,
+                                                     sizes, layout.row, want_path="gather",
+                                                     seed=14),
+           "dequant_mix": dequant_case(card, "seqmnist_k8_ring_qint8", ring, sizes,
+                                       layout.leaf_offsets, layout.row, seed=15)}
+    for kernel, c in new.items():
+        cases[kernel].append(c)
+        _print_case(kernel, c)
+    gossip, push = seqmnist_k8(), seqmnist_k8(protocol="push_sum")
+    rr = seqmnist_k8(schedule="round_robin")
+    rr_qint8 = dataclasses.replace(rr, p2p=dataclasses.replace(rr.p2p, compressor="qint8"))
+    paths |= {
+        "seqmnist_k8": drive("seqmnist_k8", gossip, SEQMNIST_ROUNDS, data, recheck=True),
+        "seqmnist_k8_push_sum": drive("seqmnist_k8_push_sum", push, SEQMNIST_ROUNDS, data,
+                                      recheck=True),
+        "seqmnist_k8_round_robin_qint8": drive("seqmnist_k8_round_robin_qint8", rr_qint8,
+                                               SEQMNIST_ROUNDS, data, recheck=True),
+    }
+    for label, exp in (("seqmnist_k8", gossip), ("seqmnist_k8_push_sum", push)):
+        result = compare_drivers(card, label, exp, 6, 3, data, kernel="consensus_mix")
+        result["mode"] = "mass" if exp.p2p.protocol == "push_sum" else "gossip"
+        paths[f"{label}_both_drivers"] = result
+    out["round_profile"] = profile_seqmnist_round(card, gossip, data)
+    out["seconds"] = time.perf_counter() - start
+    print(f"seqmnist phase ({card.line}): {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 SERVE_ARCH = "rwkv6-7b"
 DECODER_ARCH = "minitron-8b"
 HYBRID_ARCH = "zamba2-2.7b"
@@ -2572,6 +2819,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    started = time.perf_counter()
     card = Card(card_line())
     print(f"card: {card.line}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; tf32 matmul="
@@ -2683,6 +2931,9 @@ def main() -> int:
     for label in ("timevarying_k8_adaptive", "timevarying_k8_adaptive_eps_greedy",
                   "directed_k8_adaptive", "timevarying_k8_adaptive_qint8"):
         paths[label]["mode"] = "dense"
+    # RWKV6 on sequential MNIST: 31 leaves, N = 100,236, through consensus_mix
+    # (gossip and mass mode) and dequant_mix (qint8)
+    seqmnist = seqmnist_phase(card, data, cases, paths)
     # both round drivers from the same seed and rounds, bit for bit
     pod = dict(peer_axis="pod", peers_per_device=iid.p2p.num_peers, mix_mode="segment")
     for label, exp, rounds, every, kernel, run_kw in (
@@ -2774,6 +3025,12 @@ def main() -> int:
         if kernel == "wkv6":
             shape = (f"B={main['B']} T={main['T']} H={main['H']} dk={main['dk']} "
                      f"chunk={main['chunk']} {main['dtype']}")
+            seq = next(c for c in cases[kernel] if c["case"] == "seqmnist_b256_t196_q49")
+            mass_entry["seqmnist_shape"] = {
+                **{key: seq[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                             "library_ms", "bound_card", "max_abs_err")},
+                "shape": "B=256 T=196 H=4 dk=16 chunk=49 float32 (rwkv6_features, chunked)",
+                "features_max_abs_diff": seqmnist["features_max_abs_diff"]}
         elif kernel == "flash_attention":
             shape = (f"B={main['B']} S={main['S']} H={main['H']} Kh={main['Kh']} D={main['D']} "
                      f"causal {main['dtype']}")
@@ -2808,6 +3065,8 @@ def main() -> int:
                                           for name, p in paths.items()
                                           if kernel in p.get("launches_by_phase", {})}
             entry["serving_recheck"] = rechecks
+    print(f"seqmnist phase: {seqmnist['seconds']:.1f} s of {time.perf_counter() - started:.1f} s "
+          f"of the run ({card.line})", flush=True)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

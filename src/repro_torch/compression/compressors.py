@@ -176,7 +176,10 @@ class QInt8Compressor(Compressor):
 
     def compress(self, leaf: torch.Tensor) -> QInt8Payload:
         flat = _flat(leaf)
-        scale = flat.abs().amax(dim=1, keepdim=True) / 127.0  # (K, 1)
+        # times the float32 reciprocal, not a division: the reference's jitted
+        # rounds compute max|h| / 127 so (XLA rewrites a division by a
+        # constant), and a scale one ulp off flips round(h / scale) at ties
+        scale = flat.abs().amax(dim=1, keepdim=True) * (1.0 / 127.0)  # (K, 1)
         safe = torch.where(scale > 0.0, scale, torch.ones_like(scale))  # zero row -> q = 0
         # torch.round, like jnp.round, rounds half to even
         q = torch.clamp(torch.round(flat / safe), -127.0, 127.0).to(torch.int8)

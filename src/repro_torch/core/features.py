@@ -2,16 +2,14 @@
 
 Every pairwise "feature A does not compose with feature B" rejection lives
 here and raises one formatted message, the reference's word for word, from
-whichever layer catches the combination.  The pairs the port can reach are
-ported, in the reference's order: staleness x adaptive partner selection,
+whichever layer catches the combination.  Every pair of the reference's
+table is ported, in its order: staleness x adaptive partner selection,
 staleness x compression, adaptive selection x the (one-slice) hierarchical
-runtime, compression x the hierarchical runtime, and async rounds x the
-hierarchical runtime.  The reference's last pair involves registry models,
-which the port does not run yet (ROADMAP.md queue 1 item 14) and which
-``P2PConfig`` rejects before this table with ``NotImplementedError``.  The
-reference's table has no push-sum row: push-sum composes with a compressed
-wire, with async rounds, with adaptive selection and with the hierarchical
-runtime, as in the reference.
+runtime, compression x the hierarchical runtime, async rounds x the
+hierarchical runtime, and a registry task (``model != "mnist_mlp"``) x the
+hierarchical runtime.  The reference's table has no push-sum row: push-sum
+composes with a compressed wire, with async rounds, with adaptive selection
+and with the hierarchical runtime, as in the reference.
 """
 from __future__ import annotations
 
@@ -27,6 +25,7 @@ class FeatureContext:
     compressor: str = "none"
     steps_profile: str = "uniform"
     staleness_bound: int = 0
+    model: str = "mnist_mlp"
     peers_per_device: int = 1  # a runtime axis a frozen config cannot know
 
 
@@ -35,6 +34,7 @@ def context_from_config(cfg, *, peers_per_device: int = 1) -> FeatureContext:
     return FeatureContext(schedule=cfg.schedule, compressor=cfg.compressor,
                           steps_profile=cfg.steps_profile,
                           staleness_bound=cfg.staleness_bound,
+                          model=getattr(cfg, "model", "mnist_mlp"),
                           peers_per_device=peers_per_device)
 
 
@@ -88,6 +88,11 @@ FEATURES: dict[str, Feature] = {
             describe=lambda c: "the hierarchical runtime (peers_per_device "
                                f"= {c.peers_per_device} > 1)",
         ),
+        Feature(
+            name="real_model",
+            predicate=lambda c: c.model != "mnist_mlp",
+            describe=lambda c: f"model={c.model!r} (a registry TrainTask)",
+        ),
     )
 }
 
@@ -134,6 +139,16 @@ INCOMPATIBILITIES: tuple[Incompatibility, ...] = (
         workaround="run async rounds with one peer per device "
                    "(peers_per_device=1), or the uniform synchronous profile "
                    "here",
+    ),
+    Incompatibility(
+        a="real_model",
+        b="hierarchical",
+        reason="the bridge/segment mixes and their sparse degree-bounded "
+               "schedules are validated on the paper's 2NN only; a registry "
+               "task's deep parameter tree has no hierarchical parity "
+               "baseline yet",
+        workaround="run registry tasks with one peer per device "
+                   "(peers_per_device=1), or model='mnist_mlp' here",
     ),
 )
 

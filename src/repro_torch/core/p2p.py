@@ -61,9 +61,11 @@ slot).
 
 Ported: gossip and push-sum over the static, the undirected and the directed
 time-varying schedules and adaptive matchings, uncompressed or compressed,
-synchronous or asynchronous rounds, the 2NN task, the vmap and one-slice
-hierarchical runtimes.  Any other configuration raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it.
+synchronous or asynchronous rounds, every registered task (the 2NN and
+``rwkv6_seqmnist``; a registry task is refused by the hierarchical runtime,
+as in the reference), the vmap and one-slice hierarchical runtimes.  Any
+other configuration raises ``NotImplementedError`` naming the ROADMAP.md
+item that ports it.
 """
 from __future__ import annotations
 
@@ -142,7 +144,7 @@ class P2PConfig:
     staleness_decay: float = 0.5
     straggler_frac: float = 0.25
     straggler_period: int = 4
-    # -- training task (item 14 for anything but the 2NN) --------------------
+    # -- training task: any registered name (core.task.task_names()) ---------
     model: str = "mnist_mlp"
 
     def __post_init__(self):
@@ -1199,6 +1201,16 @@ def evaluate_stacked(apply_fn, params: dict, images: torch.Tensor, labels: torch
 
 
 @torch.no_grad()
+def masked_predictions(apply_fn, params: dict, inputs: torch.Tensor,
+                       classes: np.ndarray) -> torch.Tensor:
+    """(K, N) every peer's argmax over its logits restricted to ``classes``."""
+    logits = apply_fn(params, inputs)  # (K, N, C)
+    mask = torch.full((logits.shape[-1],), -1e9, dtype=torch.float32, device=logits.device)
+    mask[torch.as_tensor(classes, device=logits.device)] = 0.0
+    return torch.argmax(logits + mask, dim=-1)
+
+
+@torch.no_grad()
 def stratified_accuracy(
     apply_fn,
     params: dict,
@@ -1212,10 +1224,7 @@ def stratified_accuracy(
     paper's K-class tasks (e.g. 4-class task over {0,1,7,8}).
     """
     all_classes = np.sort(np.concatenate(list(class_groups.values())))
-    logits = apply_fn(params, images)  # (K, N, C)
-    mask = torch.full((logits.shape[-1],), -1e9, dtype=torch.float32, device=logits.device)
-    mask[torch.as_tensor(all_classes, device=logits.device)] = 0.0
-    pred = torch.argmax(logits + mask, dim=-1)  # (K, N)
+    pred = masked_predictions(apply_fn, params, images, all_classes)  # (K, N)
     out = {}
     for name, classes in class_groups.items():
         sel = torch.isin(labels, torch.as_tensor(classes, device=labels.device))

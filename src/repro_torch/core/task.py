@@ -1,6 +1,5 @@
 """TrainTask: what the P2P drivers need to train one model family (the port's
-``repro.core.task``; ``mnist_mlp`` only — ``rwkv6_seqmnist`` is ROADMAP.md
-queue 1 item 14).
+``repro.core.task``), chosen by name through ``P2PConfig.model``.
 
 A task provides:
 
@@ -11,14 +10,32 @@ A task provides:
 ``loss_fn(stacked_params, batch) -> (K,) losses``
     Every peer's training loss on its own batch, in one batched pass.
 ``apply_fn(stacked_params, inputs) -> (K, N, C) logits``
-    The eval head.
+    The eval head, every peer on one shared input set.
 ``make_peer_batches(parts, batch_size, *, seed) -> PeerBatcher``
 ``prepare_eval(x) -> inputs``
+    Raw evaluation images in the model's input format (identity for the
+    MLP; the pixel-stream tokens for sequence models).
+``eval_batch_size``, ``eval_set_size``
+    None: the whole test set in one apply.  An int caps the eval minibatch
+    (a sequence trunk's intermediates grow with B * S * D), and subsamples
+    the test set (a seeded permutation), as the reference does.
+
+``mnist_mlp`` is the paper's 2NN, written with the peer axis explicit.
+``rwkv6_seqmnist`` is RWKV6 run as a recurrent network over the 196-token
+pixel stream of sequential MNIST, classified from the final position
+(``models.registry.build_sequence_classifier`` on
+``seqmnist_model_config``); its stacked functions are ``torch.func.vmap``
+of the one-model classifier over the peers, as the reference vmaps its
+per-peer loss, so one backward of the summed losses gives each peer its own
+gradient.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
+
+import numpy as np
+import torch
 
 from repro_torch.data import pipeline
 from repro_torch.models import mlp
@@ -35,6 +52,34 @@ class TrainTask:
     apply_fn: Callable[[dict, Any], Any]
     make_peer_batches: Callable[..., Any]
     prepare_eval: Callable[[Any], Any]
+    eval_batch_size: int | None = None
+    eval_set_size: int | None = None
+    description: str = ""
+
+
+_BUILDERS: dict[str, Callable[[], TrainTask]] = {}
+_CACHE: dict[str, TrainTask] = {}
+
+
+def register_task(name: str, builder: Callable[[], TrainTask]) -> None:
+    """Register a lazy task builder (built once, on first ``get_task``)."""
+    if name in _BUILDERS:
+        raise ValueError(f"task {name!r} already registered")
+    _BUILDERS[name] = builder
+
+
+def task_names() -> tuple[str, ...]:
+    """Registered task names (no tasks are built)."""
+    return tuple(sorted(_BUILDERS))
+
+
+def get_task(name: str) -> TrainTask:
+    """Build (once) and return the named task."""
+    if name not in _BUILDERS:
+        raise ValueError(f"unknown model {name!r}; one of {task_names()}")
+    if name not in _CACHE:
+        _CACHE[name] = _BUILDERS[name]()
+    return _CACHE[name]
 
 
 def _build_mnist_mlp() -> TrainTask:
@@ -46,23 +91,69 @@ def _build_mnist_mlp() -> TrainTask:
         apply_fn=mlp.apply_2nn,
         make_peer_batches=pipeline.PeerBatcher,
         prepare_eval=lambda x: x,
+        description="the paper's 2NN MLP (784-200-200-10) on flat MNIST images",
     )
 
 
-_BUILDERS: dict[str, Callable[[], TrainTask]] = {"mnist_mlp": _build_mnist_mlp}
-# names the reference registers that this port does not run yet
-UNPORTED_TASKS = ("rwkv6_seqmnist",)
+# 2x2-pooled 28x28 -> 14x14 = 196 intensity tokens an image; chunk 49 tiles
+# the sequence exactly (4 chunks) where the chunked form runs
+SEQMNIST_POOL = 2
+SEQMNIST_BINS = 16
+_SEQMNIST_SEQ_LEN = (28 // SEQMNIST_POOL) ** 2
 
 
-def task_names() -> tuple[str, ...]:
-    """Registered task names."""
-    return tuple(sorted(_BUILDERS))
+def seqmnist_model_config():
+    """The reduced RWKV6 config of the sequential-MNIST task (the reference's)."""
+    from repro_torch.configs.base import ModelConfig, SSMConfig
+
+    return ModelConfig(
+        name="rwkv6-seqmnist",
+        family="rwkv6",
+        num_layers=2,
+        d_model=64,
+        d_ff=128,
+        vocab_size=SEQMNIST_BINS,
+        ssm=SSMConfig(kind="rwkv6", state_dim=16, head_dim=16, chunk=49, lora_rank=8),
+        tie_embeddings=True,
+        dtype="float32",
+        remat=False,
+    )
 
 
-def get_task(name: str) -> TrainTask:
-    """Build and return the named task."""
-    if name in UNPORTED_TASKS:
-        raise NotImplementedError(f"task {name!r} is not ported yet: ROADMAP.md queue 1 item 14")
-    if name not in _BUILDERS:
-        raise ValueError(f"unknown model {name!r}; one of {task_names()}")
-    return _BUILDERS[name]()
+def _tokens_of(x) -> np.ndarray:
+    """Eval images -> int64 pixel-stream tokens (torch's index type)."""
+    return pipeline.images_to_tokens(x, num_bins=SEQMNIST_BINS,
+                                     pool=SEQMNIST_POOL).astype(np.int64)
+
+
+def _build_rwkv6_seqmnist() -> TrainTask:
+    from repro_torch.models import registry
+
+    cfg = seqmnist_model_config()
+    init, apply, loss = registry.build_sequence_classifier(cfg, num_classes=10)
+    # every peer its own parameters and batch; eval: one input set for all
+    stacked_loss = torch.func.vmap(loss, in_dims=(0, (0, 0)))
+    stacked_apply = torch.func.vmap(apply, in_dims=(0, None))
+
+    def make_peer_batches(parts, batch_size, *, seed=0):
+        return pipeline.TokenSequenceBatcher(parts, batch_size, seed=seed,
+                                             num_bins=SEQMNIST_BINS, pool=SEQMNIST_POOL)
+
+    return TrainTask(
+        name="rwkv6_seqmnist",
+        param_shapes=registry.sequence_classifier_shapes(cfg, num_classes=10),
+        init_params=init,
+        loss_fn=stacked_loss,
+        apply_fn=stacked_apply,
+        make_peer_batches=make_peer_batches,
+        prepare_eval=_tokens_of,
+        eval_batch_size=256,
+        eval_set_size=512,
+        description="RWKV6 (2 layers, d_model=64) as a recurrent net over the "
+                    f"{_SEQMNIST_SEQ_LEN}-token pixel stream of sequential MNIST, "
+                    "classified from the final state",
+    )
+
+
+register_task("mnist_mlp", _build_mnist_mlp)
+register_task("rwkv6_seqmnist", _build_rwkv6_seqmnist)

@@ -11,6 +11,10 @@ only its (T, K, B) index array and gathers the batches there.  The scan
 driver (``core.p2p.make_scan_driver``) takes a chunk of C rounds as one
 (C, T, K, B) index upload (``chunk_batches_on``), drawn in one call in the
 same order as C calls of ``round_batches_on``.
+
+``TokenSequenceBatcher`` serves sequence models: each shard tokenized once
+into a pixel stream (``images_to_tokens``, sequential MNIST), then sampled
+as ``PeerBatcher`` samples.
 """
 from __future__ import annotations
 
@@ -71,14 +75,15 @@ class PeerBatcher:
         return out
 
     def resident(self, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-        """Every peer's shard, concatenated, on ``device`` (float32 images,
-        int64 labels): uploaded on first use, then kept."""
+        """Every peer's shard, concatenated, on ``device`` (float32 images or
+        int64 tokens, int64 labels): uploaded on first use, then kept."""
         if self._resident is None or self._resident[0] != str(device):
             x_all = np.concatenate([p[0] for p in self.parts])
             y_all = np.concatenate([p[1] for p in self.parts])
+            x_type = torch.int64 if np.issubdtype(x_all.dtype, np.integer) else torch.float32
             self._resident = (
                 str(device),
-                torch.as_tensor(x_all, dtype=torch.float32, device=device),
+                torch.as_tensor(x_all, dtype=x_type, device=device),
                 torch.as_tensor(y_all, dtype=torch.int64, device=device),
             )
         return self._resident[1], self._resident[2]
@@ -90,8 +95,9 @@ class PeerBatcher:
     def round_batches_on(
         self, local_steps: int, device: torch.device
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """One round's batches on ``device``: (x (T,K,B,F) float32, y (T,K,B) int64),
-        the reference's ``round_batches`` values."""
+        """One round's batches on ``device``: (x (T,K,B,F) float32 or
+        (T,K,B,L) int64 tokens, y (T,K,B) int64), the reference's
+        ``round_batches`` values."""
         x_all, y_all = self.resident(device)
         gidx = torch.as_tensor(self._rows(local_steps), device=x_all.device)
         return x_all[gidx], y_all[gidx]
@@ -105,3 +111,36 @@ class PeerBatcher:
         rows = self._rows(local_steps * rounds)
         idx = rows.reshape(rounds, local_steps, *rows.shape[1:])
         return ChunkBatches(x_all, y_all, torch.as_tensor(idx, device=x_all.device))
+
+
+def images_to_tokens(x: np.ndarray, *, num_bins: int = 16, pool: int = 2,
+                     side: int = 28) -> np.ndarray:
+    """Flat images (N, side*side) -> pixel-stream tokens (N, L) int32 (the
+    reference's sequential-MNIST transform): ``pool`` x ``pool`` average
+    pooling (784 -> 196 positions at the default), then each pooled intensity
+    quantized into one of ``num_bins`` levels over the fixed range [-3, 4]
+    (a dataset constant: the same pixel always maps to the same token);
+    values outside clip into the edge bins."""
+    if side % pool:
+        raise ValueError(f"pool={pool} does not divide side={side}")
+    n = x.shape[0]
+    imgs = np.asarray(x, np.float32).reshape(n, side, side)
+    if pool > 1:
+        s = side // pool
+        imgs = imgs.reshape(n, s, pool, s, pool).mean(axis=(2, 4))
+    lo, hi = -3.0, 4.0
+    u = np.clip((imgs - lo) / (hi - lo), 0.0, np.nextafter(1.0, 0.0))
+    return np.floor(u * num_bins).astype(np.int32).reshape(n, -1)
+
+
+class TokenSequenceBatcher(PeerBatcher):
+    """``PeerBatcher`` for sequence models: image shards in, token batches
+    out.  Each peer's shard is tokenized once (``images_to_tokens``); the
+    sampling is ``PeerBatcher``'s, so batch order equals the image
+    batcher's, and the device copy holds int64 tokens."""
+
+    def __init__(self, parts: list[tuple[np.ndarray, np.ndarray]], batch_size: int, *,
+                 seed: int = 0, num_bins: int = 16, pool: int = 2):
+        tok_parts = [(images_to_tokens(px, num_bins=num_bins, pool=pool),
+                      np.asarray(py, np.int32)) for px, py in parts]
+        super().__init__(tok_parts, batch_size, seed=seed)

@@ -20,6 +20,10 @@ Dispatch is by the device of the operands, and only by it:
   no fallback;
 - any other device raises.
 
+The kernel is forward only: on a CUDA tensor, with autograd on, an operand
+that requires grad raises ``NotImplementedError`` (``build.check_no_grad``)
+rather than cut the graph; the CPU path differentiates as usual.
+
 The kernel takes float32 (computed in float32 on the float32 pipes) and
 bfloat16 (tensor cores, float32 accumulation) at head widths 32, 64, 80 and
 128.  Which code runs is a rule on (dtype, D) alone (``kernel_route``):
@@ -157,6 +161,7 @@ def gqa_flash_attention(
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return ref.gqa_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+    build.check_no_grad("flash_attention", q, k, v)
     if q.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"the flash attention kernel is built for head widths {HEAD_DIMS}, "
                          f"got D={q.shape[-1]}")

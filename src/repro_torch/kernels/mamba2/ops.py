@@ -21,6 +21,10 @@ Dispatch is by the device of the operands, and only by it:
   fallback;
 - any other device raises.
 
+The kernel is forward only: on a CUDA tensor, with autograd on, an operand
+that requires grad raises ``NotImplementedError`` (``build.check_no_grad``)
+rather than cut the graph; the CPU path differentiates as usual.
+
 x, B and C are float32 or bfloat16 (one type; bf16 is widened in the
 kernel, so it computes what the reference's float32 cast computes); dt and
 a are float32.  The kernel runs its chunk products on the tensor cores in
@@ -191,6 +195,7 @@ def ssd(
     q = check_inputs(x, b, c, dt, a, state, chunk)
     if x.device.type == "cpu":
         return ref.ssd_chunked_ref(x, b, c, dt, a, state=state, chunk=q)
+    build.check_no_grad("ssd", x, b, c, dt, a, state)
     y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     final = torch.empty((x.shape[0], x.shape[2], x.shape[3], b.shape[3]), dtype=torch.float32,
                         device=x.device)

@@ -17,6 +17,10 @@ Dispatch is by the device of the operands, and only by it:
   fallback;
 - any other device raises.
 
+The kernel is forward only: on a CUDA tensor, with autograd on, an operand
+that requires grad raises ``NotImplementedError`` (``build.check_no_grad``)
+rather than cut the graph; the CPU path differentiates as usual.
+
 The kernel reads r, k and v in the type they come in (bf16 as the served
 model computes them, or float32) and writes the output in r's type, rounded
 once to nearest even; ``logdecay``, ``u`` and the state are float32 (a bf16
@@ -140,6 +144,7 @@ def wkv6(
     if r.device.type == "cpu":
         out, final = ref.wkv6_chunked_ref(r, k, v, logdecay, u, state, chunk=q)
         return out.to(r.dtype), final
+    build.check_no_grad("wkv6", r, k, v, logdecay, u, state)
     # r, k and v as they come when they share a type; the output in r's
     # type (the kernel rounds it to bf16 itself)
     rkv_dtype = r.dtype if r.dtype == k.dtype == v.dtype else torch.float32

@@ -1,12 +1,14 @@
 """Training driver of the port (``repro.launch.train``'s ``run_paper_experiment``
 on the stacked layout, with both of its round drivers).
 
-``run_paper_experiment`` — K peers train the experiment's task on
-(synthetic-)MNIST shards under the P2PL-with-Affinity family, measuring test
-accuracy after BOTH phases of the last round of every eval period (the
-paper's instrument).  ``driver="scan"`` (the default, as in the reference)
-runs each eval period as one chunk of ``core.p2p.make_scan_driver``: on the
-card, one replay of a captured CUDA graph of the round per round;
+``run_paper_experiment`` — K peers train the experiment's task
+(``core/task.py``: the paper's 2NN by default, ``--model rwkv6_seqmnist``
+for RWKV6 on sequential MNIST) on (synthetic-)MNIST shards under the
+P2PL-with-Affinity family, measuring test accuracy after BOTH phases of the
+last round of every eval period (the paper's instrument).  ``driver="scan"``
+(the default, as in the reference) runs each eval period as one chunk of
+``core.p2p.make_scan_driver``: on the card, one replay of a captured CUDA
+graph of the round per round;
 ``driver="python"`` calls the round function once per round.  The two give
 the same bits.  Runs on the GPU unless ``device="cpu"``.
 
@@ -25,6 +27,8 @@ CLI:  python -m repro_torch.launch.train --experiment noniid_affinity --rounds 4
           --steps-profile straggler --staleness-bound 3
       python -m repro_torch.launch.train --experiment timevarying_k8 \
           --schedule adaptive --partner-rule eps_greedy   (matchings chosen on the device)
+      python -m repro_torch.launch.train --experiment seqmnist_k8 --rounds 4 \
+          --protocol push_sum   (RWKV6 on sequential MNIST; --model picks the task)
 """
 from __future__ import annotations
 
@@ -42,6 +46,7 @@ from repro_torch.configs.p2pl_mnist import (
     directed_k8,
     iid_k100,
     noniid_k2,
+    seqmnist_k8,
     straggler_k8,
     timevarying_k2,
     timevarying_k8,
@@ -65,9 +70,63 @@ def mnist_parts(exp: PaperExperiment, x, y):
     return partition.iid_partition(x, y, exp.p2p.num_peers)
 
 
+def chunked_accuracy(apply_fn, params: dict, x_eval: torch.Tensor, y_eval: np.ndarray,
+                     groups: dict[str, np.ndarray], batch: int) -> dict[str, np.ndarray]:
+    """``p2p.stratified_accuracy`` over ``batch``-sized chunks of the eval
+    set (the reference's chunked eval): each chunk's predictions over the
+    union of the groups' classes, then each group's (K,) accuracy from the
+    concatenated (K, N) predictions, on the host."""
+    classes = np.sort(np.concatenate(list(groups.values())))
+    pred = torch.cat([p2p.masked_predictions(apply_fn, params, x_eval[i:i + batch], classes)
+                      for i in range(0, x_eval.shape[0], batch)], dim=1).cpu().numpy()
+    out = {}
+    for name, group in groups.items():
+        sel = np.isin(y_eval, group)
+        denom = max(int(sel.sum()), 1)
+        out[name] = ((pred == y_eval[None, :]) & sel[None, :]).sum(axis=1) / denom
+    return out
+
+
 def _synchronize(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def make_eval_fn(exp: PaperExperiment, task: task_lib.TrainTask, x_te: np.ndarray,
+                 y_te: np.ndarray, *, seed: int, device: torch.device
+                 ) -> Callable[[p2p.P2PState], dict[str, np.ndarray]]:
+    """``eval_fn(state) -> {group: (K,) accuracy}``, the reference's evaluation:
+    one "peer{k}_seen" group per peer's classes and "all" their union (the
+    test set restricted to it), or "all" ten classes for IID runs; the task's
+    seeded, sorted subsample of ``eval_set_size`` examples, in its input
+    format, once on ``device``; every peer's predictions over the union's
+    classes, in one apply or in ``eval_batch_size`` chunks
+    (``chunked_accuracy``)."""
+    if exp.peer_classes:
+        all_classes = sorted({c for cls in exp.peer_classes for c in cls})
+        groups = {f"peer{k}_seen": np.asarray(cls) for k, cls in enumerate(exp.peer_classes)}
+        groups["all"] = np.asarray(all_classes)
+        sel = np.isin(y_te, all_classes)
+        x_eval, y_eval = x_te[sel], y_te[sel]
+    else:
+        groups = {"all": np.arange(10)}
+        x_eval, y_eval = x_te, y_te
+    if task.eval_set_size is not None and len(x_eval) > task.eval_set_size:
+        idx = np.random.default_rng(seed).permutation(len(x_eval))
+        idx = np.sort(idx[: task.eval_set_size])
+        x_eval, y_eval = x_eval[idx], y_eval[idx]
+    x_eval_t = torch.as_tensor(np.asarray(task.prepare_eval(x_eval)), device=device)
+    y_eval_t = torch.as_tensor(y_eval, dtype=torch.int64, device=device)
+
+    def eval_fn(st: p2p.P2PState) -> dict[str, np.ndarray]:
+        params = p2p.param_views(st, task)
+        if task.eval_batch_size is not None:
+            return chunked_accuracy(task.apply_fn, params, x_eval_t, y_eval, groups,
+                                    task.eval_batch_size)
+        acc = p2p.stratified_accuracy(task.apply_fn, params, x_eval_t, y_eval_t, groups)
+        return {k: v.cpu().numpy() for k, v in acc.items()}
+
+    return eval_fn
 
 
 def run_paper_experiment(
@@ -104,6 +163,11 @@ def run_paper_experiment(
     runtime's mix, bit for bit), "segment" (the ``segment_mix`` kernel, the
     large-K form) or "auto" (bridge iff K <= 64).  Other pod layouts need
     several devices (ROADMAP.md queue 1 item 15).
+
+    Evaluation follows the task (``make_eval_fn``): the whole
+    class-filtered test set in one apply, or, where the task sets them, a
+    seeded subsample of ``eval_set_size`` examples in chunks of
+    ``eval_batch_size``, as the reference evaluates ``rwkv6_seqmnist``.
 
     The log's ``seconds`` hold each eval period's wall time from its first
     batch draw to the end of its last consensus, device work included and
@@ -157,24 +221,7 @@ def run_paper_experiment(
     else:
         round_fn = p2p.make_round_fn(task, cfg, data_sizes=sizes, device=device)
 
-    # stratified eval groups: seen/unseen per the union of peer classes
-    if exp.peer_classes:
-        all_classes = sorted({c for cls in exp.peer_classes for c in cls})
-        groups = {f"peer{k}_seen": np.asarray(cls) for k, cls in enumerate(exp.peer_classes)}
-        groups["all"] = np.asarray(all_classes)
-        sel = np.isin(y_te, all_classes)
-        x_eval, y_eval = x_te[sel], y_te[sel]
-    else:
-        groups = {"all": np.arange(10)}
-        x_eval, y_eval = x_te, y_te
-    x_eval_t = torch.as_tensor(np.asarray(task.prepare_eval(x_eval)), device=device)
-    y_eval_t = torch.as_tensor(y_eval, dtype=torch.int64, device=device)
-
-    def eval_fn(st: p2p.P2PState):
-        acc = p2p.stratified_accuracy(
-            task.apply_fn, p2p.param_views(st, task), x_eval_t, y_eval_t, groups
-        )
-        return {k: v.cpu().numpy() for k, v in acc.items()}
+    eval_fn = make_eval_fn(exp, task, x_te, y_te, seed=seed, device=device)
 
     log = metrics_lib.RoundLog()
     r = 0
@@ -280,6 +327,16 @@ def _straggler(args) -> PaperExperiment:
     )
 
 
+def _seqmnist(args) -> PaperExperiment:
+    return seqmnist_k8(
+        schedule=args.schedule or "static",
+        protocol=args.protocol or "gossip",
+        local_steps=args.local_steps or 4,
+        schedule_rounds=args.schedule_rounds,
+        round_robin_topologies=tuple(t for t in args.round_robin_topologies.split(",") if t),
+    )
+
+
 # experiment name -> builder from the parsed CLI arguments (the reference
 # CLI's, src/repro/launch/train.py, for the experiments the port runs)
 EXPERIMENTS = {
@@ -293,6 +350,7 @@ EXPERIMENTS = {
     "timevarying_k8": _timevarying(timevarying_k8),
     "directed_k8": _directed,
     "straggler_k8": _straggler,
+    "seqmnist_k8": _seqmnist,
 }
 # every pretraced schedule, and the adaptive matchings chosen on the device
 SCHEDULE_CHOICES = ["static", "link_dropout", "random_matching", "peer_churn", "round_robin",
@@ -302,13 +360,19 @@ SCHEDULE_CHOICES = ["static", "link_dropout", "random_matching", "peer_churn", "
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--experiment", default="noniid_affinity", choices=sorted(EXPERIMENTS))
+    ap.add_argument("--model", default=None, choices=sorted(task_lib.task_names()),
+                    help="the TrainTask the peers train (core/task.py): 'mnist_mlp', the "
+                         "paper's 2NN on flat images; 'rwkv6_seqmnist', RWKV6 run as an RNN "
+                         "over the 196-token pixel stream of sequential MNIST.  Default: the "
+                         "experiment's own (mnist_mlp everywhere but seqmnist_k8)")
     ap.add_argument("--rounds", type=int, default=None,
                     help="default: the experiment's own (40-100)")
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help="default cuda; cpu runs each kernel's plain PyTorch version")
     ap.add_argument("--topology", default="complete", help="graph of iid_k100")
     ap.add_argument("--local-steps", type=int, default=None,
-                    help="T local SGD steps per round (default: the experiment's own, 10)")
+                    help="T local SGD steps per round (default: the experiment's own: 10 "
+                         "everywhere but straggler_k8's 8 and seqmnist_k8's 4)")
     ap.add_argument("--algorithm", default="p2pl_affinity",
                     help="algorithm for timevarying_*, directed_k8 and straggler_k8 "
                          "experiments")
@@ -398,6 +462,12 @@ def main(argv=None):
         exp = EXPERIMENTS[args.experiment](args)
     except ValueError as e:
         ap.error(str(e))
+    if args.model and args.model != exp.model:
+        try:
+            exp = dataclasses.replace(exp, model=args.model,
+                                      p2p=dataclasses.replace(exp.p2p, model=args.model))
+        except ValueError as e:
+            ap.error(str(e))
     if args.protocol and exp.p2p.protocol != args.protocol:
         exp = dataclasses.replace(exp, p2p=dataclasses.replace(exp.p2p, protocol=args.protocol))
     if args.compressor and (exp.p2p.compressor != args.compressor

@@ -143,3 +143,15 @@ def unembed(table_or_head: torch.Tensor, x: torch.Tensor, *, transpose: bool) ->
     """Logits in f32. transpose=True when sharing the embedding table (V, D)."""
     head = table_or_head.float()
     return x.float() @ (head.T if transpose else head)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
+                       ignore_id: int = -100) -> torch.Tensor:
+    """Mean token cross entropy in float32, positions labelled ``ignore_id``
+    left out (the mean over at least one position)."""
+    logits = logits.float()
+    mask = (labels != ignore_id).float()
+    safe = torch.where(labels == ignore_id, torch.zeros_like(labels), labels)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, safe.unsqueeze(-1)).squeeze(-1)
+    return ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -200,6 +200,20 @@ def rwkv6_init(
             **{f"channel_mix.{k}": t for k, t in cm.items()}}
 
 
+def rwkv6_shapes(d_model: int, d_ff: int, cfg: SSMConfig) -> dict[str, tuple[int, ...]]:
+    """The shapes of ``rwkv6_init``'s leaves, in its order, without drawing."""
+    d, r, hd = d_model, cfg.lora_rank, cfg.head_dim
+    ln = {"ln.scale": (d,), "ln.bias": (d,)}
+    tm = {**ln, "mu_base": (d,), "mix_mu": (5, d), "mix_lora_a": (d, 5, r),
+          "mix_lora_b": (5, r, d), **{f"w_{n}": (d, d) for n in "rkvgo"},
+          "decay_base": (d,), "decay_lora_a": (d, 2 * r), "decay_lora_b": (2 * r, d),
+          "bonus_u": (d // hd, hd), "out_ln.scale": (d,), "out_ln.bias": (d,)}
+    cm = {**ln, "mu_k": (d,), "mu_r": (d,), "wk_ff": (d, d_ff), "wv_ff": (d_ff, d),
+          "wr_gate": (d, d)}
+    return {**{f"time_mix.{k}": v for k, v in tm.items()},
+            **{f"channel_mix.{k}": v for k, v in cm.items()}}
+
+
 def rwkv6_state(
     d_model: int, cfg: SSMConfig, batch: int, dtype: torch.dtype, device: torch.device
 ) -> dict[str, torch.Tensor]:
@@ -263,11 +277,12 @@ def rwkv6_time_mix_scan(tm: dict, cfg: SSMConfig, x, prev, wkv, *, inplace: bool
     u = tm["bonus_u"]  # (H, dk)
     s = wkv
     outs = []
-    for t in range(x.shape[1]):
-        rt, kt, vt = rh[:, t], kh[:, t], vh[:, t]  # (B, H, dk)
+    # unbind, not an index per token: its backward is one stack, where an
+    # index's would write a full-length zero gradient for every token
+    for rt, kt, vt, ldt in zip(*(t.unbind(1) for t in (rh, kh, vh, ld))):  # (B, H, dk)
         # o_t = r_t . (S_{t-1} + (u*k_t) v_t^T)
         ot = (rt.unsqueeze(-2) @ s).squeeze(-2) + (rt * u * kt).sum(-1, keepdim=True) * vt
-        decay, kv = torch.exp(ld[:, t]).unsqueeze(-1), kt.unsqueeze(-1) * vt.unsqueeze(-2)
+        decay, kv = torch.exp(ldt).unsqueeze(-1), kt.unsqueeze(-1) * vt.unsqueeze(-2)
         s = s.mul_(decay).add_(kv) if inplace else decay * s + kv
         outs.append(ot)
     o = torch.stack(outs, dim=1)  # (B, L, H, dk)

@@ -12,15 +12,21 @@ RWKV6 recurrent state one of (L, ...) leaves (``"tm_prev"``, ``"cm_prev"``,
 ``"wkv"``), the hybrid's cache the Mamba2 states stacked over the layers
 (``"mamba.conv"``, ``"mamba.ssm"``) and one attention cache per application
 of the shared block (``"attn.k"``, ``"attn.v"``, ``"attn.pos_ids"``).  The
-reference's ``cfg.remat`` (``jax.checkpoint`` around each block) saves
-activations for a backward pass; this forward-only serving path keeps none,
-so it has no counterpart here.
+reference's ``cfg.remat`` (``jax.checkpoint`` around each block) trades
+recomputation for activation memory in a backward pass; it has no
+counterpart here: the one model the port trains (the sequence classifier of
+``rwkv6_features``, ``models.registry``) is small.
 
 Every prefill runs one hand-written kernel per layer: each decoder layer's
 and each shared-block application's attention through ``flash_attention``
 (``models/attention.py``), each Mamba2 layer's SSD through ``ssd``
 (``models/ssm.py``); decode steps attend over the cache and run the Mamba2
 recurrence in plain PyTorch.
+
+``rwkv6_features`` (the trunk's hidden states) and ``rwkv6_loss_fn`` (the
+language-model loss, its WKV through the forward-only ``wkv6`` kernel on
+the card) serve training; the dense and hybrid losses are ROADMAP.md
+queue 1 item 18.
 
 Caches are updated functionally (each layer's new cache, then the stack of
 them), as in the reference.  The decode steps also take ``inplace=True``
@@ -225,17 +231,43 @@ def _rwkv6_trunk(params, cfg: ModelConfig, x, states, *, chunked: bool, inplace:
     return common.layernorm(common.sub(params, "final_norm."), x, cfg.norm_eps), stacked
 
 
+def rwkv6_param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    """The shapes of ``rwkv6_init_model``'s leaves, in its order, without drawing."""
+    d = cfg.d_model
+    shapes = {"embed": (cfg.vocab_size, d), "ln0.scale": (d,), "ln0.bias": (d,)}
+    shapes.update({LAYERS + name: (cfg.num_layers, *shape)
+                   for name, shape in ssm.rwkv6_shapes(d, cfg.d_ff, cfg.ssm).items()})
+    shapes.update({"final_norm.scale": (d,), "final_norm.bias": (d,)})
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (d, cfg.vocab_size)
+    return shapes
+
+
 def rwkv6_loss_fn(params, cfg: ModelConfig, batch):
-    raise NotImplementedError(
-        "training the RWKV6 language model is not ported yet: ROADMAP.md queue 1 item 14"
-    )
+    """Mean next-token cross entropy of ``batch`` = {"tokens", "labels"}
+    (B, S), over the chunked trunk from a zero state (the WKV through the
+    ``wkv6`` kernel's wrapper: forward only on the card)."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    x = rwkv6_features(params, cfg, tokens, chunked=True)
+    return common.cross_entropy_loss(decoder_logits(params, cfg, x), labels)
 
 
 def rwkv6_features(params, cfg: ModelConfig, tokens, *, chunked: bool = True):
-    raise NotImplementedError(
-        "rwkv6_features (the sequence classifier's trunk) is not ported yet: "
-        "ROADMAP.md queue 1 item 14"
-    )
+    """Trunk hidden states (B, S, D) for sequence-level heads (no unembed):
+    embed, ln0, the layers from a zero recurrent state, the final norm.
+
+    ``chunked=False`` runs the token-sequential recurrence
+    (``ssm.rwkv6_time_mix_scan``, no kernel) instead of the chunked scan
+    (``ssm.rwkv6_time_mix_chunked``, the ``wkv6`` kernel on the card): the
+    same function, with O(B * D) live state and no (chunk, chunk)
+    intermediates.  It updates no tensor in place, so ``torch.func.vmap``
+    maps it over stacked peers (``registry.build_sequence_classifier``).
+    """
+    x = common.embed_lookup(params["embed"], tokens, compute_dtype(cfg))
+    x = common.layernorm(common.sub(params, "ln0."), x, cfg.norm_eps)
+    states = rwkv6_init_state(cfg, tokens.shape[0], tokens.device)
+    x, _ = _rwkv6_trunk(params, cfg, x, states, chunked=chunked)
+    return x
 
 
 def rwkv6_prefill(params, cfg: ModelConfig, batch, states):

@@ -74,7 +74,8 @@ def test_qint8_payload_equal(shape):
         len(shape) - 1))).astype(np.float32)
     leaf[0] = 0.0  # a zero row: scale 0, q 0
     got = tcomp.QInt8Compressor().compress(torch.as_tensor(leaf))
-    want = jcomp.QInt8Compressor().compress(jnp.asarray(leaf))
+    # jitted, as the reference's rounds run it: XLA multiplies by 1/127
+    want = jax.jit(jcomp.QInt8Compressor().compress)(jnp.asarray(leaf))
     np.testing.assert_array_equal(got.q.numpy(), np.asarray(want.q))
     np.testing.assert_array_equal(got.scale.numpy(), np.asarray(want.scale))
     assert got.q.dtype == torch.int8
@@ -191,7 +192,9 @@ def test_ef_flat_matches_reference_leaf_by_leaf(name):
     x_tree = _tree(4, 7)
     est_tree = _noisy(x_tree, rng, 0.02)
     jc, tc = (mod.get_compressor(name, topk_frac=0.01) for mod in (jcomp, tcomp))
-    payloads, want = jcomp.ef_compress_tree(jc, x_tree, est_tree)
+    # jitted, as the reference's rounds run it (qint8: XLA multiplies by 1/127)
+    payloads, want = jax.jit(lambda x_, e_: jcomp.ef_compress_tree(jc, x_, e_))(x_tree,
+                                                                              est_tree)
     x = LAYOUT.flatten(interop.params_from_jax(x_tree))
     est = LAYOUT.flatten(interop.params_from_jax(est_tree))
     got = tc.ef_flat(x, est, LAYOUT)

@@ -54,14 +54,6 @@ def test_config_fields_match_reference():
     assert tp2p.ALGORITHMS == jp2p.ALGORITHMS
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("model", "rwkv6_seqmnist", 14),
-])
-def test_unported_config_raises_with_roadmap_item(field, value, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 item {item}$"):
-        tp2p.P2PConfig(**{field: value})
-
-
 @pytest.mark.parametrize("field,value", [
     ("algorithm", "sgd"), ("protocol", "flood"), ("schedule", "weekly"),
     ("compressor", "zip"), ("model", "resnet"), ("topology", "mesh3d"),

@@ -32,9 +32,8 @@ from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs import base as tbase  # noqa: E402
 from repro_torch.kernels.rwkv6 import ops as wkv6_ops  # noqa: E402
-from repro_torch.models import build_model, common, registry  # noqa: E402
+from repro_torch.models import build_model, common  # noqa: E402
 from repro_torch.models import ssm as tssm  # noqa: E402
-from repro_torch.models import transformer as ttf  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -103,17 +102,6 @@ def test_unported_architecture_raises_naming_item_16(arch):
     cfg = _port_config(jconfigs.reduced(jconfigs.get_config(arch)))
     with pytest.raises(NotImplementedError, match="item 16"):
         build_model(cfg)
-
-
-def test_training_entry_points_raise_naming_item_14():
-    cfg = tconfigs.reduced(tconfigs.get_config("rwkv6-7b"))
-    model = build_model(cfg)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        model.loss_fn({}, {})
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ttf.rwkv6_features({}, cfg, torch.zeros(1, 4, dtype=torch.int64))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        registry.build_sequence_classifier(cfg, 10)
 
 
 @pytest.fixture(scope="module", params=["float32", "bfloat16"])
@@ -261,6 +249,24 @@ def test_prefill_and_decode_step_match_reference(models, length):
     _close(tlogits2, jlogits2, dtype, "decode logits")
     for name in jstate2:
         _close(tstate2[name], jstate2[name], dtype, f"decode {name}")
+
+
+@pytest.mark.parametrize("length", LENGTHS)
+def test_loss_fn_matches_reference(models, length):
+    """``Model.loss_fn`` (``rwkv6_loss_fn``: the chunked trunk, its WKV
+    through the ``wkv6`` wrapper's plain version, then the cross entropy of
+    the tied logits) on the reduced RWKV6-7B; 10 leaves a ragged chunk."""
+    dtype, (_, jmodel, jparams), (_, tmodel, tparams) = models
+    rng = np.random.default_rng(length + 1)
+    tokens = rng.integers(0, 512, (2, length))
+    labels = rng.integers(0, 512, (2, length))
+    labels[0, :3] = -100  # ignored positions
+    want = jax.jit(jmodel.loss_fn)(jparams, {"tokens": jnp.asarray(tokens, jnp.int32),
+                                             "labels": jnp.asarray(labels, jnp.int32)})
+    got = tmodel.loss_fn(tparams, {"tokens": torch.as_tensor(tokens),
+                                   "labels": torch.as_tensor(labels)})
+    assert got.dtype == torch.float32 and got.shape == ()
+    np.testing.assert_allclose(float(got), float(want), **_tol(dtype))
 
 
 def test_make_batch_draws_tokens_in_range():
