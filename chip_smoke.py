@@ -61,7 +61,7 @@ In order:
    head widths 16, 32 and 64; head widths 16 and 32 at chunks 1 and 64;
    and chunk 64 at head width 64 in float32 at B 1 and 4; bf16 outputs
    held within the float32 tolerance plus their one rounding),
-   ``flash_attention`` at 36, asserting the route each takes (``wgmma``
+   ``flash_attention`` at 37, asserting the route each takes (``wgmma``
    for bf16 at D = 80 and 128, ``mma_sync`` at D = 32 and 64, ``float32``)
    (minitron's prefill B 4, S 1024, H 32, Kh 8,
    D 128, causal, bf16, timed against SDPA; phi4's group of 3; the
@@ -72,6 +72,8 @@ In order:
    design's edges: S 129 and 1000 against 128-row tiles, S 5 at D 80,
    window 4000 at S 8192, group 3 at D 80, non-causal D 128, B 4 S 1024 at
    both served widths, and the (B, H, S, D) entry read in place at both;
+   qwen3-moe's prefill at its group of 16, B 4, S 1024, H 64, Kh 4, D 128,
+   timed against SDPA;
    and the reference sweep's 9 (S, D, mask) shapes in both types), ``ssd``
    at 32, output and
    final state, each asserting its route (``tf32x2`` for bf16 inputs,
@@ -113,7 +115,24 @@ In order:
    parameters; reruns the SSD calls of layers 0 and 53 and the attention
    calls of the shared block's first and last application of one more
    prefill through the plain version the same way; times and profiles a
-   warm prefill and decode step (device time by kernel category);
+   warm prefill and decode step (device time by kernel category); then
+   serves the two MoE decoders at their published widths with the depth cut
+   to fit the card (bf16, random init from seed 0 on the card, batch 4,
+   prompt 1024, 16 tokens, through ``serve_model``, the helper
+   ``serve_batch`` runs): deepseek-v2-236b at 6 of 60 layers (21.25 B
+   parameters: MLA, the dense layer 0, 5 MoE layers of 160 experts top-6
+   and 2 shared; no kernel, so none launched) and qwen3-moe-235b-a22b at 8
+   of 94 (21.15 B: GQA at a group of 16 through ``flash_attention``, 8
+   launches in each prefill and none in the decode, layers 0 and 7
+   rechecked; 128 experts top-8), each timed, profiled and decoded both
+   ways as the others, printing the peak memory beside the parameters; and
+   on each (``moe_checks``): the share of assignments dropped at capacity
+   factor 1.25 in every MoE layer of one prefill, the first MoE layer's
+   dispatch on 512 tokens of its real input at a capacity that drops
+   nothing against ``apply_dense_reference`` (relative norm error under
+   1e-2), and for deepseek one decode step under ``mla_absorb`` against the
+   expanded step (each layer's MLA output on the expanded step's own input
+   within 1e-2, the logits' error reported), both timed;
    in phases 4-6, ``serve_batch`` and ``serve_fleet`` decode through their
    default, the scanned decode (one decode step captured as a CUDA graph
    over the cache, written in place, and replayed per token); and on the
@@ -271,6 +290,12 @@ class Card:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+def rel_norm(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The relative norm error |got - want| / |want|, in float32."""
+    return float(torch.linalg.vector_norm(got.float() - want.float())
+                 / torch.linalg.vector_norm(want.float()))
 
 
 def card_line() -> str:
@@ -1356,7 +1381,7 @@ def check_flash(got: torch.Tensor, want: torch.Tensor, what: str) -> dict:
     check(got.dtype == want.dtype and bool(torch.isfinite(g).all()), f"{what} finite")
     tol = TOL if got.dtype == torch.float32 else FLASH_BF16_TOL
     torch.testing.assert_close(g, w, **tol, msg=lambda m: f"{what}: {m}")
-    rel = float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w))
+    rel = rel_norm(g, w)
     check(rel < FLASH_REL_NORM[got.dtype],
           f"{what}: relative norm error {rel} >= {FLASH_REL_NORM[got.dtype]}")
     return {"max_abs_err": float((g - w).abs().max()), "rel_norm_err": rel,
@@ -1468,6 +1493,8 @@ def flash_cases(card: Card) -> list[dict]:
         flash_case(card, "noncausal_f32", 2, 512, 4, 4, 64, causal=False, dtype=f32, seed=5),
         flash_case(card, "smollm", 2, 512, 9, 3, 64, want_route="mma_sync", seed=6),
         flash_case(card, "zamba2_d80", 4, 1024, 32, 32, 80, timed=True, want_route=wg, seed=7),
+        flash_case(card, "qwen3moe_group16", 4, 1024, 64, 4, 128, timed=True, want_route=wg,
+                   seed=19),
         flash_case(card, "reduced_d32_f32", 2, 128, 4, 2, 32, dtype=f32, seed=8),
         # the wgmma design's edges: rows ragged against 128-row tiles, a
         # window that is a multiple of no tile, both served widths at the
@@ -2243,7 +2270,11 @@ def profile_seqmnist_round(card: Card, exp, data) -> dict:
     captured round (``ScanDriver.captured``, after one chunk of 2 rounds):
     kernels, device time, wall seconds, and the graph's capture seconds
     (warm-up round included).  A replay launches only what the capture
-    recorded, so its kernel count is the eager round's."""
+    recorded: the eager round's matmuls, one for one.  The total counts
+    differ by a few tens either way (the graph's static-buffer copies, the
+    eager round's batch upload and the one-time work of its first calls,
+    whose count falls from call to call), so they are reported, not
+    compared."""
     from repro_torch.core import p2p, task as task_lib
     from repro_torch.launch import train
 
@@ -2270,8 +2301,10 @@ def profile_seqmnist_round(card: Card, exp, data) -> dict:
            "replay_by_category": replay["by_category_launches_ms"],
            "replay_top_kernels_ms": replay["top_kernels_ms"]}
     print(f"seqmnist round profile ({card.line}): {json.dumps(out)}", flush=True)
-    check(replay["kernels"] <= eager["kernels"],
-          f"a replay ran {replay['kernels']} kernels, the eager round {eager['kernels']}")
+    matmuls = {name: p["by_category_launches_ms"].get("matmul", [0])[0]
+               for name, p in (("eager", eager), ("replay", replay))}
+    check(matmuls["replay"] == matmuls["eager"] > 0,
+          f"a replay ran {matmuls['replay']} matmuls, the eager round {matmuls['eager']}")
     return out
 
 
@@ -2336,6 +2369,13 @@ HYBRID_ARCH = "zamba2-2.7b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 16
 FLEET_PEERS = 2
 LONG_PROMPT, LONG_GEN = 8192, 4
+# the MoE decoders at published widths, depth cut to fit one 80 GB card (bf16
+# parameters 42.5 and 42.3 GB): deepseek's dense layer 0 and 5 MoE layers,
+# qwen3-moe's first 8 layers; (arch, layers, launches a prefill, rechecked calls)
+MOE_SERVED = (("deepseek-v2-236b", 6, {}, {}),
+              ("qwen3-moe-235b-a22b", 8, {"flash_attention": 8}, {"flash_attention": (0, 7)}))
+MOE_REL_NORM = 1e-2  # bf16: the dispatch against the dense oracle, absorbed MLA against expanded
+MOE_DENSE_TOKENS = 128  # of each prompt row: 512 tokens through every expert in the oracle
 
 
 def _serving_launches(counters: dict, want: dict, name: str) -> dict:
@@ -2345,29 +2385,44 @@ def _serving_launches(counters: dict, want: dict, name: str) -> dict:
     return launches
 
 
-def drive_serve_batch(card: Card, arch: str, per_prefill: dict[str, int]) -> dict:
-    """``serve_batch`` of ``arch`` at full width and depth (bf16, random init
-    from seed 0 on the card), launch counts set to 0 just before and read
-    just after each call: first with ``gen_tokens=1`` (prefill only, the
-    explicit empty decode), where each kernel of ``per_prefill`` launches
-    the number given and every other kernel none; then prefill plus 15
-    decode steps, where they launch the same numbers in all, so the decode
-    launched none."""
+def served_config(arch: str, layers: int | None = None):
+    """``arch``'s published config, its depth cut to ``layers`` if given."""
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve
 
     cfg = get_config(arch)
+    return cfg if layers is None else cfg.replace(num_layers=layers)
+
+
+def drive_serve_batch(card: Card, arch: str, per_prefill: dict[str, int], *,
+                      layers: int | None = None) -> dict:
+    """``serve_batch`` of ``arch`` at full width and depth (bf16, random init
+    from seed 0 on the card), or, with ``layers``, ``serve_model`` (the
+    helper ``serve_batch`` runs) on the published config cut to that depth;
+    launch counts set to 0 just before and read just after each call: first
+    with ``gen_tokens=1`` (prefill only, the explicit empty decode), where
+    each kernel of ``per_prefill`` launches the number given and every other
+    kernel none; then prefill plus 15 decode steps, where they launch the
+    same numbers in all, so the decode launched none."""
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+
+    cfg = served_config(arch, layers)
+    depth = "full" if layers is None else f"full width, {layers} of " \
+        f"{served_config(arch).num_layers} layers"
     counters = launch_counters()
     runs = {}
     for label, gen in (("prefill_only", 1), ("prefill_decode", SERVE_GEN)):
-        print(f"main path: serve_batch {arch} full, batch {SERVE_BATCH}, prompt "
+        print(f"main path: serve_batch {arch} {depth}, batch {SERVE_BATCH}, prompt "
               f"{SERVE_PROMPT}, gen {gen}", flush=True)
         torch.cuda.empty_cache()
         for counter in counters.values():
             counter.reset()
-        out = serve.serve_batch(arch, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
-                                gen_tokens=gen, use_reduced=False, seed=0, verbose=True,
-                                device="cuda")
+        kw = dict(batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen_tokens=gen, seed=0,
+                  verbose=True, device="cuda")
+        if layers is None:
+            out = serve.serve_batch(arch, use_reduced=False, **kw)
+        else:
+            out = serve.serve_model(build_model(cfg), **kw)
         launches = _serving_launches(counters, per_prefill, f"serve_batch {arch} gen={gen}")
         tokens = out["tokens"]
         check(tuple(tokens.shape) == (SERVE_BATCH, gen), f"serve_batch tokens {tokens.shape}")
@@ -2375,7 +2430,7 @@ def drive_serve_batch(card: Card, arch: str, per_prefill: dict[str, int]) -> dic
               "serve_batch tokens in the vocab")
         for name, leaf in out["cache"].items():
             check(bool(torch.isfinite(leaf.float()).all()), f"serve_batch cache {name} finite")
-        for name in ("main.pos_ids", "attn.pos_ids"):  # the KV caches hold positions
+        for name in ("main.pos_ids", "first.pos_ids", "attn.pos_ids"):  # KV caches' positions
             if name in out["cache"]:  # 0 .. prompt + gen - 2
                 want_pos = torch.arange(SERVE_PROMPT + gen, device="cuda", dtype=torch.int32)
                 want_pos[SERVE_PROMPT + gen - 1:] = -1
@@ -2583,20 +2638,22 @@ def compare_decode(card: Card, name: str, model, params, prompt, per_prefill: di
 
 
 def recheck_and_break_down(card: Card, arch: str, picks: dict[str, tuple[int, ...]],
-                           per_prefill: dict[str, int]) -> dict:
+                           per_prefill: dict[str, int], *, layers: int | None = None,
+                           extra=None) -> dict:
     """The served ``arch`` again (seed 0: the same parameters and prompt as
-    ``serve_batch``): one prefill through ``model.prefill`` in which the
+    ``serve_batch``; with ``layers``, its depth cut so): one prefill through
+    ``model.prefill`` in which the
     kernel calls of ``picks`` (call i is layer i's, or the shared block's
     i-th application) are rerun through the plain version on the operands
     the served path gives them (``recheck_calls``); then one warm prefill
     and one warm decode step timed, and each profiled for its kernels; then,
     on the same parameters, the decode both ways (``compare_decode``, the
-    prefill launching ``per_prefill``)."""
-    from repro_torch.configs import get_config
+    prefill launching ``per_prefill``); then ``extra(card, model, params,
+    prompt)`` where given, its result under ``"checks"``."""
     from repro_torch.models import build_model
 
     dev = torch.device("cuda")
-    model = build_model(get_config(arch))
+    model = build_model(served_config(arch, layers))
     torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(0)
     params = model.init(gen)
@@ -2611,8 +2668,124 @@ def recheck_and_break_down(card: Card, arch: str, picks: dict[str, tuple[int, ..
     print(f"serving breakdown {arch} ({card.line}): {json.dumps(out)}", flush=True)
     del cache0
     out["decode_both_ways"] = compare_decode(card, arch, model, params, prompt, per_prefill)
+    if extra is not None:
+        out["checks"] = extra(card, model, params, prompt)
     del params
     torch.cuda.empty_cache()
+    return out
+
+
+def mla_absorbed_vs_expanded(model, params, tok, cache) -> dict:
+    """One decode step from ``cache`` (the prefill's) under ``mla_absorb``
+    against the expanded step.  Layer by layer, the absorbed MLA on the very
+    input and cache the expanded step gives that layer, each within
+    ``MOE_REL_NORM``: there the two forms differ only by the expanded
+    form's bf16 K and V (the reference's), the absorbed form being float32
+    throughout.  The whole step's logits are compared and reported (their
+    error grows through the layers and the MoE blocks of random weights).
+    Both steps timed in turns."""
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import build_model
+
+    cfg = model.cfg
+    absorbed_attn = dataclasses.replace(cfg.attention, mla_absorb=True)
+    absorbed = build_model(cfg.replace(attention=absorbed_attn))
+    pos = torch.full((SERVE_BATCH,), SERVE_PROMPT, dtype=torch.int64, device=tok.device)
+    step = {"expanded": lambda: model.decode_step(params, tok, pos, cache),
+            "absorbed": lambda: absorbed.decode_step(params, tok, pos, cache)}
+    layer_errs = []
+    real_mla = attn_lib.mla_apply
+
+    def mla(p, acfg, x, positions, **kw):
+        o, c = real_mla(p, acfg, x, positions, **kw)
+        layer_errs.append(rel_norm(real_mla(p, absorbed_attn, x, positions, **kw)[0], o))
+        return o, c
+
+    with torch.no_grad():
+        attn_lib.mla_apply = mla
+        try:
+            expanded_logits = step["expanded"]()[0]
+        finally:
+            attn_lib.mla_apply = real_mla
+        absorbed_logits = step["absorbed"]()[0]
+        torch.cuda.synchronize()
+        check(len(layer_errs) == cfg.num_layers, f"{len(layer_errs)} MLA layers compared")
+        for i, err in enumerate(layer_errs):
+            check(err < MOE_REL_NORM, f"{cfg.name}: absorbed MLA at layer {i}, relative norm "
+                                      f"error {err}")
+        out = {"layer_rel_norm_err": layer_errs,
+               "logits_rel_norm_err": rel_norm(absorbed_logits, expanded_logits),
+               "logits_max_abs_err": float((absorbed_logits - expanded_logits).abs().max()),
+               "same_argmax": bool(torch.equal(absorbed_logits.argmax(-1),
+                                               expanded_logits.argmax(-1)))}
+        times = {"expanded": [], "absorbed": []}
+        for name in ("expanded", "absorbed", "absorbed", "expanded"):
+            times[name].append(cuda_ms(step[name]))
+    return {**out, **{f"{name}_step_ms": sum(v) / len(v) for name, v in times.items()}}
+
+
+def moe_checks(card: Card, model, params, prompt) -> dict:
+    """On a MoE decoder at published widths: one prefill in which every MoE
+    layer's input is routed once more to count the share of assignments
+    dropped at the config's capacity factor (1.25); the first MoE layer's
+    dispatch, on the first ``MOE_DENSE_TOKENS`` tokens of each prompt row of
+    its real input, at a capacity factor that drops nothing (E / top_k)
+    against ``apply_dense_reference`` (every expert on every token), within
+    a relative norm error of ``MOE_REL_NORM``, and at 1.25 beside it; with
+    MLA, one decode step from the prefill's cache under ``mla_absorb`` against
+    the expanded step (logits within ``MOE_REL_NORM``), both timed in turns."""
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_lib
+
+    cfg, dev = model.cfg, prompt["tokens"].device
+    seen: dict = {"drops": []}
+    real = moe_lib.apply
+
+    def wrapped(p, mcfg, x, *, act="silu"):
+        seen["drops"].append(float(moe_lib.dropped_share(p, mcfg, x)))
+        if "x" not in seen:
+            seen["p"], seen["x"] = p, x[:, :MOE_DENSE_TOKENS].clone()
+        return real(p, mcfg, x, act=act)
+
+    moe_lib.apply = wrapped
+    try:
+        tok, cache = steps.make_prefill_step(model)(
+            params, prompt, model.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_GEN, dev))
+    finally:
+        moe_lib.apply = real
+    n_moe = cfg.num_layers - cfg.moe.first_dense_layers
+    check(len(seen["drops"]) == n_moe, f"{cfg.name}: {len(seen['drops'])} MoE calls, want {n_moe}")
+    check(all(0.0 <= d < 1.0 for d in seen["drops"]), f"{cfg.name}: drop shares {seen['drops']}")
+    out = {"card": card.line, "capacity_factor": cfg.moe.capacity_factor,
+           "tokens": SERVE_BATCH * SERVE_PROMPT,
+           "capacity": moe_lib.capacity(cfg.moe, SERVE_BATCH * SERVE_PROMPT),
+           "dropped_share_by_layer": seen["drops"],
+           "dropped_share_mean": sum(seen["drops"]) / n_moe}
+    p, x = seen["p"], seen["x"]
+    no_drop = dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k)
+    with torch.no_grad():
+        check(float(moe_lib.dropped_share(p, no_drop, x)) == 0.0, f"{cfg.name}: no drops")
+        want, want_aux = moe_lib.apply_dense_reference(p, cfg.moe, x)
+        got, got_aux = moe_lib.apply(p, no_drop, x)
+        at_cf, _ = moe_lib.apply(p, cfg.moe, x)
+        torch.cuda.synchronize()
+    check(bool(torch.isfinite(got.float()).all()), f"{cfg.name}: dispatch finite")
+    rel = rel_norm(got, want)
+    check(rel < MOE_REL_NORM, f"{cfg.name}: dispatch vs dense oracle, relative norm error {rel}")
+    out["dispatch_vs_dense"] = {
+        "tokens": x.shape[0] * x.shape[1], "capacity": moe_lib.capacity(no_drop, x.shape[0] *
+                                                                        x.shape[1]),
+        "rel_norm_err": rel, "max_abs_err": float((got.float() - want.float()).abs().max()),
+        "aux": float(got_aux), "aux_dense": float(want_aux),
+        "dropped_share_at_cf": float(moe_lib.dropped_share(p, cfg.moe, x)),
+        "rel_norm_err_at_cf": rel_norm(at_cf, want)}
+    del seen, p, x, want, got, at_cf
+    if cfg.attention.kind == "mla":
+        out["mla_absorbed_vs_expanded"] = mla_absorbed_vs_expanded(model, params, tok, cache)
+    del cache
+    torch.cuda.empty_cache()
+    print(f"moe checks {cfg.name} ({card.line}): {json.dumps(out)}", flush=True)
     return out
 
 
@@ -2845,6 +3018,12 @@ def main() -> int:
     serving[HYBRID_ARCH] = recheck_and_break_down(card, HYBRID_ARCH,
                                                   {"ssd": (0, 53), "flash_attention": (0, 8)},
                                                   {"ssd": 54, "flash_attention": 9})
+    # the MoE decoders at published widths and cut depth: deepseek-v2 (MLA, no
+    # kernel: 0 launches), qwen3-moe (8 flash_attention launches a prefill)
+    for arch, layers, per_prefill, picks in MOE_SERVED:
+        paths[f"serve_batch_{arch}"] = drive_serve_batch(card, arch, per_prefill, layers=layers)
+        serving[arch] = recheck_and_break_down(card, arch, picks, per_prefill, layers=layers,
+                                               extra=moe_checks)
     data = synthetic.mnist_like()
     noniid = noniid_k2(algorithm="p2pl_affinity", local_steps=10)
     iid = iid_k100()
@@ -3034,6 +3213,14 @@ def main() -> int:
         elif kernel == "flash_attention":
             shape = (f"B={main['B']} S={main['S']} H={main['H']} Kh={main['Kh']} D={main['D']} "
                      f"causal {main['dtype']}")
+            g16 = next(c for c in cases[kernel] if c["case"] == "qwen3moe_group16")
+            mass_entry["qwen3moe_shape"] = {
+                **{key: g16[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                             "library_ms", "bound_card", "max_abs_err",
+                                             "rel_norm_err")},
+                "shape": "B=4 S=1024 H=64 Kh=4 D=128 causal bfloat16 (qwen3-moe's prefill, "
+                         "group 16)",
+                "launches": sum(n for name, n in by_path.items() if "qwen3-moe" in name)}
         elif kernel == "ssd":
             shape = (f"B={main['B']} T={main['T']} H={main['H']} G={main['G']} P={main['P']} "
                      f"N={main['N']} chunk={main['chunk']} {main['dtype']}")

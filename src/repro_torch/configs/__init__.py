@@ -3,18 +3,22 @@
 ``p2pl_mnist`` holds the paper's experiments.  The model registry below is
 the port's ``repro.configs`` registry: ``get_config(name)`` and
 ``reduced(cfg)``, and ``for_shape(cfg, shape)`` (the long-context window
-variant).  The RWKV6 model, the four dense GQA decoders and the zamba2
-hybrid are registered; the reference's other architectures raise
-``NotImplementedError`` (ROADMAP.md queue 1 item 16).
+variant).  The RWKV6 model, the four dense GQA decoders, the zamba2
+hybrid and the two MoE decoders (deepseek-v2-236b with MLA,
+qwen3-moe-235b-a22b) are registered; the reference's vlm and
+encoder-decoder architectures raise ``NotImplementedError`` (ROADMAP.md
+queue 1 item 16b).
 """
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.configs import (
+    deepseek_v2_236b,
     minitron_8b,
     phi4_mini_3_8b,
     qwen1_5_32b,
+    qwen3_moe_235b_a22b,
     rwkv6_7b,
     smollm_135m,
     zamba2_2_7b,
@@ -35,12 +39,12 @@ ARCHITECTURES = {
     "qwen1.5-32b": qwen1_5_32b.config,
     "smollm-135m": smollm_135m.config,
     "zamba2-2.7b": zamba2_2_7b.config,
+    "deepseek-v2-236b": deepseek_v2_236b.config,
+    "qwen3-moe-235b-a22b": qwen3_moe_235b_a22b.config,
 }
 # names the reference registers whose families the port does not run yet
 UNPORTED_ARCHITECTURES = (
-    "deepseek-v2-236b",
     "internvl2-2b",
-    "qwen3-moe-235b-a22b",
     "seamless-m4t-medium",
 )
 
@@ -54,7 +58,7 @@ def get_config(name: str) -> ModelConfig:
     """The named architecture's full-size config."""
     if name in UNPORTED_ARCHITECTURES:
         raise NotImplementedError(
-            f"architecture {name!r} is not ported yet: ROADMAP.md queue 1 item 16"
+            f"architecture {name!r} is not ported yet: ROADMAP.md queue 1 item 16b"
         )
     if name not in ARCHITECTURES:
         raise KeyError(f"unknown architecture {name!r}; one of {sorted(ARCHITECTURES)}")

@@ -1,7 +1,9 @@
 """Serving: single-model batched decode and the stacked K-model fleet (the
 port's ``repro.launch.serve``).
 
-``serve_batch`` serves ONE model: prefill a prompt batch, then greedy-decode.
+``serve_batch`` serves ONE model: prefill a prompt batch, then greedy-decode
+(``serve_model``, which takes a built ``Model``: a config cut in depth, as
+``chip_smoke.py`` serves the MoE decoders, goes through the same code).
 ``decode_impl="scan"`` (the default, as in the reference) decodes through
 ``launch/steps.py:make_decode_scan``: one decode step captured as a CUDA
 graph over the cache, written in place, and replayed once per token;
@@ -10,7 +12,9 @@ graph over the cache, written in place, and replayed once per token;
 eagerly, one hand-written kernel per layer: the dense decoders' attention
 through ``flash_attention``, RWKV6's chunked WKV through ``wkv6``, the
 hybrid's Mamba2 SSD through ``ssd`` and its shared block's attention through
-``flash_attention``; the decode steps (attention over the KV cache, or the
+``flash_attention``, qwen3-moe's GQA attention through ``flash_attention``
+(deepseek-v2's MLA and both MoE decoders' expert dispatch have no TPU
+kernel and run in plain PyTorch); the decode steps (attention over the KV cache, or the
 token-sequential recurrences) launch no kernel.
 
 ``serve_fleet`` is the personalized-fleet path: P2PL's product is K
@@ -143,7 +147,26 @@ def serve_batch(
     decode_impl: str = "scan",
     device: str | torch.device | None = None,
 ) -> dict:
-    """Single-model serving: prefill, then greedy-decode ``gen_tokens - 1``.
+    """Single-model serving of the registered ``arch`` (its reduced config
+    unless ``use_reduced=False``): ``serve_model`` on the built model."""
+    return serve_model(_model_of(arch, use_reduced), batch=batch, prompt_len=prompt_len,
+                       gen_tokens=gen_tokens, seed=seed, verbose=verbose,
+                       decode_impl=decode_impl, device=device)
+
+
+def serve_model(
+    model,
+    *,
+    batch: int = 4,
+    prompt_len: int = 16,
+    gen_tokens: int = 8,
+    seed: int = 0,
+    verbose: bool = False,
+    decode_impl: str = "scan",
+    device: str | torch.device | None = None,
+) -> dict:
+    """Single-model serving of a built ``Model``: prefill, then greedy-decode
+    ``gen_tokens - 1``.
 
     Parameters and prompts are drawn from ``seed`` on the device.  Times are
     host clocks around work that ends in a device synchronize; each step runs
@@ -164,7 +187,6 @@ def serve_batch(
     if decode_impl not in ("scan", "python"):
         raise ValueError(f"decode_impl must be 'scan' or 'python', got {decode_impl!r}")
     dev = resolve_device(device)
-    model = _model_of(arch, use_reduced)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = model.init(gen)
     prompt = model.make_batch(gen, batch, prompt_len)
@@ -212,8 +234,8 @@ def serve_batch(
         "params_gb": _nbytes_gb(params),
     }
     if verbose:
-        print(f"arch={arch} batch={batch} prompt={prompt_len} gen={gen_tokens} "
-              f"decode_impl={decode_impl} device={dev} params={result['params_gb']:.3f} GB")
+        print(f"arch={model.cfg.name} layers={model.cfg.num_layers} batch={batch} "
+              f"prompt={prompt_len} gen={gen_tokens} decode_impl={decode_impl} device={dev} params={result['params_gb']:.3f} GB")
         decode_msg = (
             "decode: (empty — gen_tokens=1 samples only the prefill token)"
             if decode_s_per_token is None
@@ -299,7 +321,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m",
                     help="a registered architecture: smollm-135m, minitron-8b, phi4-mini-3.8b, "
-                         "qwen1.5-32b, rwkv6-7b or zamba2-2.7b")
+                         "qwen1.5-32b, rwkv6-7b, zamba2-2.7b, deepseek-v2-236b or "
+                         "qwen3-moe-235b-a22b (the last two do not fit one 80 GB card "
+                         "with --full)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=8)

@@ -1,5 +1,6 @@
-"""Attention with KV caches (the port's ``repro.models.attention``, its GQA
-half; MLA is ROADMAP.md queue 1 item 16).
+"""Attention with KV caches (the port's ``repro.models.attention``): GQA
+(full or sliding-window) and MLA (DeepSeek-V2's multi-head latent
+attention).
 
 Parameters are the reference's: ``w_q`` (D, H, dh), ``w_k`` and ``w_v``
 (D, Kh, dh), ``w_o`` (H dh, D) and, with ``qkv_bias``, ``b_q`` / ``b_k`` /
@@ -38,6 +39,21 @@ new and the one passed in is left as it was.  With ``inplace=True`` (the
 scanned decode, ``launch.steps.make_decode_scan``, which owns its cache) the
 new slots are written into the given buffers instead, and the returned cache
 is the one passed in: the same values, without a copy of the cache.
+
+MLA (``mla_apply``) caches the latent: ``c_kv`` (B, C, kv_lora_rank) and
+``k_rope`` (B, C, qk_rope_dim), with ``pos_ids``.  Its parameters are the
+reference's: ``w_dkv`` (D, lora + rope), ``kv_norm``, ``w_uk`` (lora, H,
+nope), ``w_uv`` (lora, H, v), ``w_o`` (H v, D), and ``w_dq`` / ``q_norm`` /
+``w_uq`` with a query rank (``w_q`` without).  No TPU kernel computes it:
+the scores and the context are the reference's float32 einsums, in plain
+PyTorch on the card too.  The expanded form re-expands K and V from the
+latent; ``mla_absorb`` (with a cache) scores and reads in the latent space.
+The prefill (``prefill=True``, or no cache) attends over the prompt's own
+latents, as ``gqa_apply``'s prefill attends over the prompt's own k and v:
+the reference attends over the whole cache after writing the prompt, whose
+empty slots are masked out (the same values, summed over C = T slots here
+instead of C = cache_len).  A write of T > cache_len positions keeps the
+last cache_len, as in ``gqa_apply``.
 """
 from __future__ import annotations
 
@@ -52,9 +68,7 @@ from repro_torch.models import common
 def init(generator: torch.Generator, d_model: int, cfg: AttentionConfig,
          dtype: torch.dtype) -> dict[str, torch.Tensor]:
     if cfg.kind == "mla":
-        raise NotImplementedError(
-            "MLA (multi-head latent attention) is not ported yet: ROADMAP.md queue 1 item 16"
-        )
+        return _mla_init(generator, d_model, cfg, dtype)
     return _gqa_init(generator, d_model, cfg, dtype)
 
 
@@ -75,6 +89,26 @@ def _gqa_init(generator: torch.Generator, d_model: int, cfg: AttentionConfig,
     return p
 
 
+def _mla_init(generator: torch.Generator, d_model: int, cfg: AttentionConfig,
+              dtype: torch.dtype) -> dict[str, torch.Tensor]:
+    h, dev = cfg.num_heads, generator.device
+    nope, rope, vd, lora = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    p = {
+        "w_dkv": common.dense_init(generator, d_model, lora + rope, dtype),
+        "kv_norm.scale": common.rmsnorm_init(lora, dtype, dev)["scale"],
+        "w_uk": common.dense_init(generator, lora, (h, nope), dtype),
+        "w_uv": common.dense_init(generator, lora, (h, vd), dtype),
+        "w_o": common.dense_init(generator, h * vd, d_model, dtype),
+    }
+    if cfg.q_lora_rank:
+        p["w_dq"] = common.dense_init(generator, d_model, cfg.q_lora_rank, dtype)
+        p["q_norm.scale"] = common.rmsnorm_init(cfg.q_lora_rank, dtype, dev)["scale"]
+        p["w_uq"] = common.dense_init(generator, cfg.q_lora_rank, (h, nope + rope), dtype)
+    else:
+        p["w_q"] = common.dense_init(generator, d_model, (h, nope + rope), dtype)
+    return p
+
+
 # ---------------------------------------------------------------------------
 # Caches
 # ---------------------------------------------------------------------------
@@ -83,11 +117,16 @@ def _gqa_init(generator: torch.Generator, d_model: int, cfg: AttentionConfig,
 def init_cache(cfg: AttentionConfig, batch: int, max_seq: int, dtype: torch.dtype,
                device) -> dict[str, torch.Tensor]:
     """Decode cache; a ring of ``window`` slots under a sliding window."""
-    if cfg.kind == "mla":
-        raise NotImplementedError(
-            "the MLA latent cache is not ported yet: ROADMAP.md queue 1 item 16")
     cache_len = min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
     pos_ids = torch.full((batch, cache_len), -1, dtype=torch.int32, device=device)
+    if cfg.kind == "mla":
+        return {
+            "c_kv": torch.zeros((batch, cache_len, cfg.kv_lora_rank), dtype=dtype,
+                                device=device),
+            "k_rope": torch.zeros((batch, cache_len, cfg.qk_rope_dim), dtype=dtype,
+                                  device=device),
+            "pos_ids": pos_ids,
+        }
     kv_shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
     if cfg.cache_quant == "int8":
         return {
@@ -138,6 +177,20 @@ def _scatter_cache(buf: torch.Tensor, slots: torch.Tensor, values: torch.Tensor,
     return out
 
 
+def _write_cache(cache: dict, new: dict, *, inplace: bool = False) -> dict:
+    """``new``'s (B, T, ...) leaves, ``pos_ids`` among them, written at their
+    slots: a copy of each leaf of ``cache`` (``inplace``: the leaf itself).
+    Of T > cache_len positions (a prompt longer than the ring) only the last
+    cache_len are written: ``index_put_`` with repeated slots may keep any
+    writer on CUDA."""
+    cache_len = cache["pos_ids"].shape[1]
+    if new["pos_ids"].shape[1] > cache_len:
+        new = {name: a[:, -cache_len:] for name, a in new.items()}
+    slots = _write_slots(cache_len, new["pos_ids"])
+    return {name: _scatter_cache(cache[name], slots, new[name], inplace=inplace)
+            for name in new}
+
+
 # ---------------------------------------------------------------------------
 # Core attend (decode)
 # ---------------------------------------------------------------------------
@@ -169,7 +222,7 @@ def _check_prefill(positions: torch.Tensor, cache: dict | None) -> None:
     want = torch.arange(t, dtype=positions.dtype)
     if not bool((positions == want).all()) or not bool((cache["pos_ids"] == -1).all()):
         raise ValueError(
-            "gqa_apply(prefill=True) writes positions 0 .. T-1 into an empty cache; "
+            "a prefill (prefill=True) writes positions 0 .. T-1 into an empty cache; "
             "append to a written cache with prefill=False"
         )
 
@@ -212,17 +265,11 @@ def gqa_apply(
 
     kk = vv = kv_pos = None
     if cache is not None:
-        cache_len = cache["k"].shape[1]
-        # a prompt longer than the ring: only its last cache_len positions stay
-        kw, vw, pw = (a[:, -cache_len:] for a in (k, v, positions)) if t > cache_len \
-            else (k, v, positions)
-        slots = _write_slots(cache_len, pw)
         if "k_scale" in cache:  # int8-quantized cache
-            kq, ks = _quantize_kv(kw)
-            vq, vs = _quantize_kv(vw)
-            new = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs, "pos_ids": pw}
-            cache = {name: _scatter_cache(cache[name], slots, new[name], inplace=inplace)
-                     for name in new}
+            kq, ks = _quantize_kv(k)
+            vq, vs = _quantize_kv(v)
+            cache = _write_cache(cache, {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs,
+                                         "pos_ids": positions}, inplace=inplace)
             if prefill:  # the prompt's own k and v as the reference reads them back
                 q = q.float()
                 k = _dequantize_kv(*_quantize_kv(k))
@@ -231,9 +278,8 @@ def gqa_apply(
                 kk = _dequantize_kv(cache["k"], cache["k_scale"])
                 vv = _dequantize_kv(cache["v"], cache["v_scale"])
         else:
-            new = {"k": kw, "v": vw, "pos_ids": pw}
-            cache = {name: _scatter_cache(cache[name], slots, new[name], inplace=inplace)
-                     for name in new}
+            cache = _write_cache(cache, {"k": k, "v": v, "pos_ids": positions},
+                                 inplace=inplace)
             kk, vv = cache["k"], cache["v"]
         kv_pos = cache["pos_ids"]
 
@@ -252,11 +298,84 @@ def gqa_apply(
     return ctx @ params["w_o"], cache
 
 
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def _mla_q(params: dict, cfg: AttentionConfig, x: torch.Tensor,
+           positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """q_nope (B, T, H, nope) and the rotated q_rope (B, T, H, rope)."""
+    b, t, d_model = x.shape
+    width = cfg.num_heads * (cfg.qk_nope_dim + cfg.qk_rope_dim)
+    if cfg.q_lora_rank:
+        cq = common.rmsnorm(common.sub(params, "q_norm."), x @ params["w_dq"])
+        q = cq @ params["w_uq"].reshape(cfg.q_lora_rank, width)
+    else:
+        q = x @ params["w_q"].reshape(d_model, width)
+    q = q.view(b, t, cfg.num_heads, cfg.qk_nope_dim + cfg.qk_rope_dim)
+    return (q[..., :cfg.qk_nope_dim],
+            common.apply_rope(q[..., cfg.qk_nope_dim:], positions, cfg.rope_theta))
+
+
+def mla_apply(
+    params: dict,
+    cfg: AttentionConfig,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    cache: dict | None = None,
+    prefill: bool = False,
+    inplace: bool = False,
+) -> tuple[torch.Tensor, dict | None]:
+    """x: (B, T, D); positions: (B, T) absolute.  Returns (out, new_cache);
+    ``prefill`` and ``inplace`` as in ``gqa_apply``."""
+    b, t, _ = x.shape
+    h, lora = cfg.num_heads, cfg.kv_lora_rank
+    nope, vd = cfg.qk_nope_dim, cfg.v_head_dim
+    scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+    q_nope, q_rope = _mla_q(params, cfg, x, positions)
+    dkv = x @ params["w_dkv"]
+    c_kv = common.rmsnorm(common.sub(params, "kv_norm."), dkv[..., :lora])
+    k_rope = common.apply_rope(dkv[..., lora:], positions, cfg.rope_theta)
+    prefill = prefill or cache is None
+    if prefill:
+        _check_prefill(positions, cache)
+
+    c_all, krope_all, kv_pos = c_kv, k_rope, positions
+    if cache is not None:
+        cache = _write_cache(cache, {"c_kv": c_kv, "k_rope": k_rope, "pos_ids": positions},
+                             inplace=inplace)
+        if not prefill:
+            c_all, krope_all, kv_pos = cache["c_kv"], cache["k_rope"], cache["pos_ids"]
+
+    bias = torch.where(_make_mask(positions, kv_pos, cfg.sliding_window)[:, None], 0.0,
+                       NEG_INF)  # (B, 1, T, C)
+    if cfg.mla_absorb and cache is not None:
+        # absorbed: score and read in the latent space, never expanding K or V
+        q_lat = torch.einsum("bthn,rhn->bthr", q_nope.float(), params["w_uk"].float())
+        scores = torch.einsum("bthr,bcr->bhtc", q_lat, c_all.float())
+        scores += torch.einsum("bthp,bcp->bhtc", q_rope.float(), krope_all.float())
+        probs = torch.softmax(scores.mul_(scale).add_(bias), dim=-1)
+        ctx_lat = torch.einsum("bhtc,bcr->bthr", probs, c_all.float())
+        ctx = torch.einsum("bthr,rhv->bthv", ctx_lat, params["w_uv"].float())
+    else:
+        # expanded: K and V re-expanded from the latent (model dtype)
+        c = c_all.shape[1]
+        k_nope = (c_all @ params["w_uk"].reshape(lora, h * nope)).view(b, c, h, nope)
+        vv = (c_all @ params["w_uv"].reshape(lora, h * vd)).view(b, c, h, vd)
+        scores = torch.einsum("bthn,bchn->bhtc", q_nope.float(), k_nope.float())
+        scores += torch.einsum("bthp,bcp->bhtc", q_rope.float(), krope_all.float())
+        probs = torch.softmax(scores.mul_(scale).add_(bias), dim=-1)
+        ctx = torch.einsum("bhtc,bchv->bthv", probs, vv.float())
+    ctx = ctx.reshape(b, t, h * vd).to(x.dtype)
+    return ctx @ params["w_o"], cache
+
+
 def apply(params, cfg: AttentionConfig, x, positions, *, cache=None, causal=True,
           prefill=False, inplace=False):
-    if cfg.kind == "mla":
-        raise NotImplementedError(
-            "MLA (multi-head latent attention) is not ported yet: ROADMAP.md queue 1 item 16"
-        )
+    if cfg.kind == "mla":  # causal always, as in the reference
+        return mla_apply(params, cfg, x, positions, cache=cache, prefill=prefill,
+                         inplace=inplace)
     return gqa_apply(params, cfg, x, positions, cache=cache, causal=causal, prefill=prefill,
                      inplace=inplace)

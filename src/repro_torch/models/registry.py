@@ -1,12 +1,13 @@
 """A uniform Model interface from a ModelConfig (the port's
-``repro.models.registry``, for the ``dense``, ``rwkv6`` and ``hybrid``
-families; ``moe``, ``vlm`` and ``encdec`` are ROADMAP.md queue 1 item 16).
+``repro.models.registry``, for the ``dense``, ``moe``, ``rwkv6`` and
+``hybrid`` families; ``vlm`` and ``encdec`` are ROADMAP.md queue 1 item
+16b).
 
 Every family exposes:
     init(generator) -> params                 (drawn on the generator's device)
-    loss_fn(params, batch) -> scalar          (training: rwkv6; dense and
-                                               hybrid are ROADMAP.md queue 1
-                                               item 18)
+    loss_fn(params, batch) -> scalar          (training: rwkv6; dense, moe
+                                               and hybrid are ROADMAP.md
+                                               queue 1 item 18)
     init_cache(batch, seq_len, device) -> cache
     prefill(params, batch, cache) -> (logits, cache)
     decode_step(params, token, pos, cache, *, inplace=False) -> (logits, cache)
@@ -96,7 +97,7 @@ def build_sequence_classifier(cfg: ModelConfig, num_classes: int):
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):  # one decoder: MoE blocks and first_layers by config
         return Model(
             cfg=cfg,
             init=lambda g: tf.decoder_init(g, cfg),
@@ -120,7 +121,8 @@ def build_model(cfg: ModelConfig) -> Model:
         )
     if cfg.family != "rwkv6":
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet: ROADMAP.md queue 1 item 16"
+            f"model family {cfg.family!r} is not ported yet (the vlm prefix and the "
+            "encoder-decoder family): ROADMAP.md queue 1 item 16b"
         )
     return Model(
         cfg=cfg,

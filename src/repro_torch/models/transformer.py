@@ -1,13 +1,17 @@
 """Model stacks of the port (the port's ``repro.models.transformer``: the
-dense decoder, the RWKV6 stack and the zamba2 hybrid; MoE, vlm and the
-encoder-decoder families are ROADMAP.md queue 1 item 16).
+dense and MoE decoders, the RWKV6 stack and the zamba2 hybrid; the vlm and
+encoder-decoder families are ROADMAP.md queue 1 item 16b).
 
 Parameters are a flat dict with dotted names in the reference's tree
-(``"embed"``, ``"layers.attn.w_q"``, ``"layers.time_mix.w_r"``,
-``"lm_head"``, ...).  Layer-stacked leaves keep the reference's leading
-(L, ...) axis, and the trunks loop over L on views of them; the decoder's
-KV cache is a dict of (L, ...) leaves under ``"main."`` (``"main.k"``,
-``"main.v"``, ``"main.pos_ids"``; the reference's ``{"main": {...}}``), the
+(``"embed"``, ``"layers.attn.w_q"``, ``"layers.moe.w_gate"``,
+``"layers.time_mix.w_r"``, ``"lm_head"``, ...).  Layer-stacked leaves keep
+the reference's leading (L, ...) axis, and the trunks loop over L on views
+of them.  A MoE decoder's leading dense layers (``cfg.moe.first_dense_layers``,
+DeepSeek-V2's layer 0, a dense MLP of ``dense_ff``) are their own stack,
+``"first_layers."``, run before ``"layers."``.  The decoder's KV cache is a
+dict of (L, ...) leaves under ``"main."`` (``"main.k"``, ``"main.v"``,
+``"main.pos_ids"``; MLA's ``"main.c_kv"``, ``"main.k_rope"``; the
+reference's ``{"main": {...}}``) and, with first layers, ``"first."``, the
 RWKV6 recurrent state one of (L, ...) leaves (``"tm_prev"``, ``"cm_prev"``,
 ``"wkv"``), the hybrid's cache the Mamba2 states stacked over the layers
 (``"mamba.conv"``, ``"mamba.ssm"``) and one attention cache per application
@@ -17,11 +21,13 @@ recomputation for activation memory in a backward pass; it has no
 counterpart here: the one model the port trains (the sequence classifier of
 ``rwkv6_features``, ``models.registry``) is small.
 
-Every prefill runs one hand-written kernel per layer: each decoder layer's
-and each shared-block application's attention through ``flash_attention``
-(``models/attention.py``), each Mamba2 layer's SSD through ``ssd``
-(``models/ssm.py``); decode steps attend over the cache and run the Mamba2
-recurrence in plain PyTorch.
+Every prefill runs one hand-written kernel per layer: each GQA decoder
+layer's and each shared-block application's attention through
+``flash_attention`` (``models/attention.py``), each Mamba2 layer's SSD
+through ``ssd`` (``models/ssm.py``); MLA and the MoE dispatch
+(``models/moe.py``) have no TPU kernel in the reference and run in plain
+PyTorch; decode steps attend over the cache and run the Mamba2 recurrence
+in plain PyTorch.
 
 ``rwkv6_features`` (the trunk's hidden states) and ``rwkv6_loss_fn`` (the
 language-model loss, its WKV through the forward-only ``wkv6`` kernel on
@@ -42,10 +48,12 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, common, ssm
+from repro_torch.models import attention, common, moe, ssm
 
 LAYERS = "layers."
+FIRST_LAYERS = "first_layers."
 MAIN_CACHE = "main."
+FIRST_CACHE = "first."
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -74,51 +82,66 @@ def decoder_logits(params, cfg: ModelConfig, x):
 
 
 # ===========================================================================
-# Decoder block and the dense decoder
+# Decoder block (dense MLP or MoE) and the decoder
 # ===========================================================================
 
 
-def _block_init(generator: torch.Generator, cfg: ModelConfig) -> dict[str, torch.Tensor]:
-    """One dense decoder block: RMSNorm, GQA attention, RMSNorm, SwiGLU MLP."""
+def _block_init(generator: torch.Generator, cfg: ModelConfig, *, use_moe: bool = False,
+                dense_ff: int | None = None) -> dict[str, torch.Tensor]:
+    """One decoder block: RMSNorm, attention (GQA or MLA), RMSNorm, then a
+    SwiGLU MLP of ``dense_ff or d_ff`` or, with ``use_moe``, the experts."""
     dtype, dev = compute_dtype(cfg), generator.device
     p = {f"ln1.{k}": t for k, t in common.rmsnorm_init(cfg.d_model, dtype, dev).items()}
     p.update({f"attn.{k}": t
               for k, t in attention.init(generator, cfg.d_model, cfg.attention, dtype).items()})
     p.update({f"ln2.{k}": t for k, t in common.rmsnorm_init(cfg.d_model, dtype, dev).items()})
-    p.update({f"mlp.{k}": t
-              for k, t in common.mlp_init(generator, cfg.d_model, cfg.d_ff, dtype).items()})
+    if use_moe:
+        p.update({f"moe.{k}": t
+                  for k, t in moe.init(generator, cfg.d_model, cfg.moe, dtype).items()})
+    else:
+        p.update({f"mlp.{k}": t for k, t in common.mlp_init(
+            generator, cfg.d_model, dense_ff or cfg.d_ff, dtype).items()})
     return p
 
 
 def _block_apply(p, cfg: ModelConfig, x, positions, cache, *, prefill=False, inplace=False):
-    """Returns (x, new_cache); ``prefill`` and ``inplace`` as in
+    """Returns (x, new_cache, aux): aux is the MoE load-balance loss, a
+    float32 scalar tensor (the float 0.0 for a dense MLP: no device work in a
+    dense decode step); ``prefill`` and ``inplace`` as in
     ``attention.gqa_apply``."""
     h, cache = attention.apply(common.sub(p, "attn."), cfg.attention,
                                common.rmsnorm(common.sub(p, "ln1."), x, cfg.norm_eps),
                                positions, cache=cache, prefill=prefill, inplace=inplace)
     x = x + h
     h2 = common.rmsnorm(common.sub(p, "ln2."), x, cfg.norm_eps)
-    return x + common.mlp_apply(common.sub(p, "mlp."), h2, act=cfg.act), cache
+    experts = common.sub(p, "moe.")
+    if experts:
+        h2, aux = moe.apply(experts, cfg.moe, h2, act=cfg.act)
+    else:
+        h2, aux = common.mlp_apply(common.sub(p, "mlp."), h2, act=cfg.act), 0.0
+    return x + h2, cache, aux
 
 
-def _unported_decoder(cfg: ModelConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            "MoE decoders (expert layers, first_layers) are not ported yet: "
-            "ROADMAP.md queue 1 item 16"
-        )
+def _num_first_layers(cfg: ModelConfig) -> int:
+    return cfg.moe.first_dense_layers if cfg.moe else 0
 
 
 def decoder_init(generator: torch.Generator, cfg: ModelConfig) -> dict[str, torch.Tensor]:
     """The whole decoder's parameters, drawn on the generator's device; the
     layer-stacked leaves one layer's draw at a time."""
-    _unported_decoder(cfg)
     if cfg.family == "vlm":
         raise NotImplementedError(
-            "the vlm projector and image prefix are not ported yet: ROADMAP.md queue 1 item 16")
+            "the vlm projector and image prefix are not ported yet: ROADMAP.md queue 1 "
+            "item 16b")
     dtype, dev = compute_dtype(cfg), generator.device
+    n_first = _num_first_layers(cfg)
     p = {"embed": common.embed_init(generator, cfg.vocab_size, cfg.d_model, dtype)}
-    layers = stacked_init(cfg.num_layers, lambda _i: _block_init(generator, cfg))
+    if n_first:
+        first = stacked_init(n_first, lambda _i: _block_init(
+            generator, cfg, dense_ff=cfg.moe.dense_ff or cfg.d_ff))
+        p.update({FIRST_LAYERS + name: t for name, t in first.items()})
+    layers = stacked_init(cfg.num_layers - n_first,
+                          lambda _i: _block_init(generator, cfg, use_moe=cfg.moe is not None))
     p.update({LAYERS + name: t for name, t in layers.items()})
     p.update({f"final_norm.{k}": t
               for k, t in common.rmsnorm_init(cfg.d_model, dtype, dev).items()})
@@ -131,29 +154,40 @@ def _decoder_embed(params, cfg: ModelConfig, tokens, patches=None):
     if patches is not None:
         raise NotImplementedError(
             "vlm image patches (the projector prefix) are not ported yet: "
-            "ROADMAP.md queue 1 item 16"
+            "ROADMAP.md queue 1 item 16b"
         )
     return common.embed_lookup(params["embed"], tokens, compute_dtype(cfg))
 
 
 def _decoder_trunk(params, cfg: ModelConfig, x, positions, caches, *, prefill=False,
                    inplace=False):
-    """caches: the ``"main."`` leaves stacked (L, ...), or None (no cache);
-    ``prefill``: x is the whole prompt, written into empty caches;
-    ``inplace``: each layer writes into its row of ``caches``.
-    Returns (x after the final norm, new caches or None)."""
-    layers = common.sub(params, LAYERS)
-    main = None if caches is None else common.sub(caches, MAIN_CACHE)
-    new = []
-    for i in range(cfg.num_layers):
-        x, c = _block_apply(common.row(layers, i), cfg, x, positions,
-                            None if main is None else common.row(main, i), prefill=prefill,
-                            inplace=inplace)
-        new.append(c)
+    """caches: the ``"first."`` and ``"main."`` leaves, each stacked over its
+    layers, or None (no cache); ``prefill``: x is the whole prompt, written
+    into empty caches; ``inplace``: each layer writes into its row of
+    ``caches``.  The first layers run, then the main ones.  Returns (x after
+    the final norm, new caches or None, the summed MoE aux loss: 0.0
+    without MoE layers)."""
+    aux = 0.0
+    new_caches = {}
+    for layer_prefix, cache_prefix in ((FIRST_LAYERS, FIRST_CACHE), (LAYERS, MAIN_CACHE)):
+        layers = common.sub(params, layer_prefix)
+        if not layers:
+            continue
+        stack = None if caches is None else common.sub(caches, cache_prefix)
+        new = []
+        for i in range(next(iter(layers.values())).shape[0]):
+            x, c, a = _block_apply(common.row(layers, i), cfg, x, positions,
+                                   None if stack is None else common.row(stack, i),
+                                   prefill=prefill, inplace=inplace)
+            aux = aux + a
+            new.append(c)
+        if caches is not None and not inplace:
+            new_caches.update({cache_prefix + name: torch.stack([c[name] for c in new])
+                               for name in stack})
     x = common.rmsnorm(common.sub(params, "final_norm."), x, cfg.norm_eps)
     if caches is None or inplace:
-        return x, caches
-    return x, {MAIN_CACHE + name: torch.stack([c[name] for c in new]) for name in main}
+        return x, caches, aux
+    return x, new_caches, aux
 
 
 def decoder_loss_fn(params, cfg: ModelConfig, batch):
@@ -165,26 +199,34 @@ def decoder_loss_fn(params, cfg: ModelConfig, batch):
 
 def decoder_init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                        device) -> dict[str, torch.Tensor]:
-    _unported_decoder(cfg)
+    """One attention cache per layer: the main layers' under ``"main."``, the
+    first layers' (if any) under ``"first."``."""
     dtype, dev = compute_dtype(cfg), torch.device(device)
-    caches = stacked_init(
-        cfg.num_layers,
-        lambda _i: attention.init_cache(cfg.attention, batch, max_seq, dtype, dev))
-    return {MAIN_CACHE + name: t for name, t in caches.items()}
+    n_first = _num_first_layers(cfg)
+
+    def stack(n, prefix):
+        caches = stacked_init(
+            n, lambda _i: attention.init_cache(cfg.attention, batch, max_seq, dtype, dev))
+        return {prefix + name: t for name, t in caches.items()}
+
+    out = stack(cfg.num_layers - n_first, MAIN_CACHE)
+    if n_first:
+        out.update(stack(n_first, FIRST_CACHE))
+    return out
 
 
 def decoder_prefill(params, cfg: ModelConfig, batch, caches):
     x = _decoder_embed(params, cfg, batch["tokens"], batch.get("patches"))
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
-    x, caches = _decoder_trunk(params, cfg, x, positions, caches, prefill=True)
+    x, caches, _ = _decoder_trunk(params, cfg, x, positions, caches, prefill=True)
     return decoder_logits(params, cfg, x[:, -1:]), caches
 
 
 def decoder_decode_step(params, cfg: ModelConfig, token, pos, caches, *, inplace=False):
     """token: (B,) int; pos: (B,) absolute position of this token."""
     x = _decoder_embed(params, cfg, token[:, None])
-    x, caches = _decoder_trunk(params, cfg, x, pos[:, None], caches, inplace=inplace)
+    x, caches, _ = _decoder_trunk(params, cfg, x, pos[:, None], caches, inplace=inplace)
     return decoder_logits(params, cfg, x), caches
 
 
@@ -362,8 +404,8 @@ def _hybrid_layers(params, cfg: ModelConfig, x, positions, mamba_states, attn_ca
         cache = None if attn_caches is None else common.row(attn_caches, gi)
         if period:
             inp = torch.cat([x, x0], dim=-1) @ params["shared_proj"]
-            out, cache = _block_apply(shared, cfg, inp, positions, cache, prefill=prefill,
-                                      inplace=inplace)
+            out, cache, _ = _block_apply(shared, cfg, inp, positions, cache, prefill=prefill,
+                                         inplace=inplace)
             x = x + out
         new_attn.append(cache)
     x = common.rmsnorm(common.sub(params, "final_norm."), x, cfg.norm_eps)

@@ -17,7 +17,8 @@
 - The window quirk at T > window: the port's prefill equals the reference's
   no-cache forward and differs from its cached prefill, and the port's ring
   holds the positions the reference's does (ROADMAP.md §3).
-- The unported families and ``decoder_loss_fn`` raise, naming their items.
+- The unported families (vlm, encdec) and ``decoder_loss_fn`` raise,
+  naming their items; the MoE decoders are ``tests/test_torch_moe.py``'s.
 
 Tolerances: float32 atol = rtol = 1e-4 (measured differences are ~1e-6:
 the same arithmetic summed in another order); the int8 cache's values are
@@ -108,7 +109,8 @@ def test_dense_config_equals_reference(arch, size):
     assert tcfg.param_count() == jcfg.param_count()
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-7b", *DENSE])
+@pytest.mark.parametrize("arch", ["rwkv6-7b", *DENSE, "deepseek-v2-236b",
+                                  "qwen3-moe-235b-a22b"])
 @pytest.mark.parametrize("shape", sorted(jconfigs.INPUT_SHAPES))
 def test_for_shape_equals_reference(arch, shape):
     jcfg = jconfigs.for_shape(jconfigs.get_config(arch), jconfigs.INPUT_SHAPES[shape])
@@ -365,16 +367,6 @@ def test_cache_bytes_and_int8_layout_equal_reference():
                                   np.asarray(jattention._dequantize_kv(jq, js)))
 
 
-def test_mla_raises_naming_item_16():
-    cfg = tbase.AttentionConfig(num_heads=4, num_kv_heads=4, head_dim=32, kind="mla")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tattention.init(torch.Generator(), 128, cfg, torch.float32)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tattention.init_cache(cfg, 1, 8, torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tattention.apply({}, cfg, torch.zeros(1, 2, 128), torch.zeros(1, 2, dtype=torch.int64))
-
-
 # ---------------------------------------------------------------------------
 # the whole decoder: prefill and decode
 # ---------------------------------------------------------------------------
@@ -488,14 +480,9 @@ def test_unported_paths_raise_naming_their_items():
     with pytest.raises(NotImplementedError, match="item 16"):
         ttf._decoder_embed({}, cfg, torch.zeros(1, 2, dtype=torch.int64),
                            patches=torch.zeros(1, 2, 4))
-    moe_cfg = _port_config(jconfigs.reduced(jconfigs.get_config("deepseek-v2-236b")))
-    for fn in (lambda: ttf.decoder_init(torch.Generator(), moe_cfg),
-               lambda: ttf.decoder_init_cache(moe_cfg, 1, 8, "cpu")):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            fn()
     vlm_cfg = _port_config(jconfigs.reduced(jconfigs.get_config("internvl2-2b")))
     with pytest.raises(NotImplementedError, match="item 16"):
         ttf.decoder_init(torch.Generator(), vlm_cfg)
-    for arch in ("deepseek-v2-236b", "internvl2-2b", "seamless-m4t-medium"):
+    for arch in ("internvl2-2b", "seamless-m4t-medium"):
         with pytest.raises(NotImplementedError, match="item 16"):
             build_model(_port_config(jconfigs.reduced(jconfigs.get_config(arch))))
