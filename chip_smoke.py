@@ -61,7 +61,7 @@ In order:
    head widths 16, 32 and 64; head widths 16 and 32 at chunks 1 and 64;
    and chunk 64 at head width 64 in float32 at B 1 and 4; bf16 outputs
    held within the float32 tolerance plus their one rounding),
-   ``flash_attention`` at 37, asserting the route each takes (``wgmma``
+   ``flash_attention`` at 40, asserting the route each takes (``wgmma``
    for bf16 at D = 80 and 128, ``mma_sync`` at D = 32 and 64, ``float32``)
    (minitron's prefill B 4, S 1024, H 32, Kh 8,
    D 128, causal, bf16, timed against SDPA; phi4's group of 3; the
@@ -73,7 +73,10 @@ In order:
    window 4000 at S 8192, group 3 at D 80, non-causal D 128, B 4 S 1024 at
    both served widths, and the (B, H, S, D) entry read in place at both;
    qwen3-moe's prefill at its group of 16, B 4, S 1024, H 64, Kh 4, D 128,
-   timed against SDPA;
+   timed against SDPA; internvl2's prefill, B 4, S 1024, H 16, Kh 8, D 128,
+   causal; seamless-m4t's encoder, B 4, S 256, H = Kh = 16, D 64,
+   non-causal (SDPA with ``is_causal=False``), and its decoder prefill, S
+   768, causal, each timed against SDPA;
    and the reference sweep's 9 (S, D, mask) shapes in both types), ``ssd``
    at 32, output and
    final state, each asserting its route (``tf32x2`` for bf16 inputs,
@@ -116,6 +119,19 @@ In order:
    calls of the shared block's first and last application of one more
    prefill through the plain version the same way; times and profiles a
    warm prefill and decode step (device time by kernel category); then
+   serves internvl2-2b (1.89 B parameters: 24 layers, a 256-patch image
+   prefix projected before 768 text tokens) and seamless-m4t-medium (0.72 B:
+   256 frames through 12 encoder layers, 768 tokens through 12 decoder
+   layers with cross-attention) at full size the same way, asserting 24
+   ``flash_attention`` launches in each prefill (seamless: 12 non-causal in
+   the encoder, 12 causal in the decoder) and none in the decode, every KV
+   cache's positions (internvl2's 0 .. 1038 across the prefix; seamless's
+   cache of ``split_encdec_seq(1040)`` = 780 decoder slots, as the
+   reference sizes it, so decode positions 780-782 wrap onto slots 0-2) and
+   seamless's cross k and v of the prompt's 256 frames; reruns the
+   attention calls of internvl2's layers 0 and 23 and seamless's encoder
+   layers 0 and 11 and decoder layers 0 and 11 of one more prefill through
+   the plain version the same way, and prints each path's seconds; then
    serves the two MoE decoders at their published widths with the depth cut
    to fit the card (bf16, random init from seed 0 on the card, batch 4,
    prompt 1024, 16 tokens, through ``serve_model``, the helper
@@ -1495,6 +1511,15 @@ def flash_cases(card: Card) -> list[dict]:
         flash_case(card, "zamba2_d80", 4, 1024, 32, 32, 80, timed=True, want_route=wg, seed=7),
         flash_case(card, "qwen3moe_group16", 4, 1024, 64, 4, 128, timed=True, want_route=wg,
                    seed=19),
+        # the last two families' prefills: internvl2's 256 patches and 768 text
+        # tokens at group 2; seamless-m4t's encoder over 256 frames (non-causal)
+        # and its decoder over 768 tokens, both at D 64
+        flash_case(card, "internvl2_group2", 4, 1024, 16, 8, 128, timed=True, want_route=wg,
+                   seed=20),
+        flash_case(card, "seamless_encoder_noncausal", 4, 256, 16, 16, 64, causal=False,
+                   timed=True, want_route="mma_sync", seed=21),
+        flash_case(card, "seamless_decoder", 4, 768, 16, 16, 64, timed=True,
+                   want_route="mma_sync", seed=22),
         flash_case(card, "reduced_d32_f32", 2, 128, 4, 2, 32, dtype=f32, seed=8),
         # the wgmma design's edges: rows ragged against 128-row tiles, a
         # window that is a multiple of no tile, both served widths at the
@@ -2369,6 +2394,14 @@ HYBRID_ARCH = "zamba2-2.7b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 16
 FLEET_PEERS = 2
 LONG_PROMPT, LONG_GEN = 8192, 4
+# the last two families at full size (nothing cut): internvl2-2b, a 256-patch
+# image prefix before 768 text tokens, 24 layers; seamless-m4t-medium, 256
+# frames through 12 encoder layers (non-causal) and 768 tokens through 12
+# decoder layers; (arch, launches a prefill, rechecked calls: the first and
+# last layer's, and seamless's first and last encoder and decoder calls)
+VLM_ENCDEC_SERVED = (("internvl2-2b", {"flash_attention": 24}, {"flash_attention": (0, 23)}),
+                     ("seamless-m4t-medium", {"flash_attention": 24},
+                      {"flash_attention": (0, 11, 12, 23)}))
 # the MoE decoders at published widths, depth cut to fit one 80 GB card (bf16
 # parameters 42.5 and 42.3 GB): deepseek's dense layer 0 and 5 MoE layers,
 # qwen3-moe's first 8 layers; (arch, layers, launches a prefill, rechecked calls)
@@ -2383,6 +2416,22 @@ def _serving_launches(counters: dict, want: dict, name: str) -> dict:
     want = {key: 0 for key in counters} | want
     check(launches == want, f"{name} launched {launches}, want {want}")
     return launches
+
+
+def prompt_seq_len(prompt: dict) -> int:
+    """The length ``make_batch`` was given: the text tokens, and the vlm
+    patches or the encoder-decoder's frames."""
+    return sum(prompt[k].shape[1] for k in ("tokens", "patches", "frames") if k in prompt)
+
+
+def ring_positions(n_slots: int, written: int, device) -> torch.Tensor:
+    """(n_slots,) int32: the positions a KV cache of ``n_slots`` slots holds
+    after positions 0 .. written - 1 were written in order, each at its slot
+    ``pos % n_slots`` (-1 where none was)."""
+    want = torch.full((n_slots,), -1, dtype=torch.int32, device=device)
+    last = torch.arange(max(written - n_slots, 0), written, dtype=torch.int32, device=device)
+    want[last.long() % n_slots] = last
+    return want
 
 
 def served_config(arch: str, layers: int | None = None):
@@ -2402,9 +2451,15 @@ def drive_serve_batch(card: Card, arch: str, per_prefill: dict[str, int], *,
     with ``gen_tokens=1`` (prefill only, the explicit empty decode), where
     each kernel of ``per_prefill`` launches the number given and every other
     kernel none; then prefill plus 15 decode steps, where they launch the
-    same numbers in all, so the decode launched none."""
+    same numbers in all, so the decode launched none.  Every KV cache's
+    positions are checked: the prompt's decoder side (the vlm's patches and
+    text; the encoder-decoder's text), then the decoded tokens, each at its
+    slot ``pos % cache_len``; the encoder-decoder's cache has
+    ``split_encdec_seq(prompt + gen)`` decoder slots, as the reference's,
+    so its last decode positions wrap onto the first slots."""
     from repro_torch.launch import serve
     from repro_torch.models import build_model
+    from repro_torch.models.registry import split_encdec_seq
 
     cfg = served_config(arch, layers)
     depth = "full" if layers is None else f"full width, {layers} of " \
@@ -2430,17 +2485,25 @@ def drive_serve_batch(card: Card, arch: str, per_prefill: dict[str, int], *,
               "serve_batch tokens in the vocab")
         for name, leaf in out["cache"].items():
             check(bool(torch.isfinite(leaf.float()).all()), f"serve_batch cache {name} finite")
-        for name in ("main.pos_ids", "first.pos_ids", "attn.pos_ids"):  # KV caches' positions
-            if name in out["cache"]:  # 0 .. prompt + gen - 2
-                want_pos = torch.arange(SERVE_PROMPT + gen, device="cuda", dtype=torch.int32)
-                want_pos[SERVE_PROMPT + gen - 1:] = -1
-                check(bool((out["cache"][name] == want_pos).all()),
-                      f"serve_batch cache positions {name}")
         runs[label] = {key: out[key] for key in ("prefill_s", "decode_steps",
                                                  "decode_s_per_token", "tokens_per_s",
                                                  "peak_memory_gb", "params_gb")}
         runs[label]["launches"] = {k: launches[k] for k in per_prefill}
         runs[label]["tokens"] = tokens[0].tolist()
+        dec_len = split_encdec_seq(SERVE_PROMPT)[1] if cfg.family == "encdec" else SERVE_PROMPT
+        for name in ("main.pos_ids", "first.pos_ids", "attn.pos_ids", "self.pos_ids"):
+            if name in out["cache"]:  # KV caches' positions: 0 .. dec_len + gen - 2
+                held = out["cache"][name]
+                want_pos = ring_positions(held.shape[-1], dec_len + gen - 1, "cuda")
+                check(bool((held == want_pos).all()), f"serve_batch cache positions {name}: "
+                      f"slots 0-2 {held[0, 0, :3].tolist()}, want {want_pos[:3].tolist()}")
+                runs[label]["pos_ids_slots_0_3"] = held[0, 0, :4].tolist()
+        if cfg.family == "encdec":  # the prefill's cross k and v, not the cache's 260 frames
+            enc_len = split_encdec_seq(SERVE_PROMPT)[0]
+            for name in ("cross_k", "cross_v"):
+                check(tuple(out["cache"][name].shape) == (
+                    cfg.num_layers, SERVE_BATCH, enc_len, cfg.attention.num_kv_heads,
+                    cfg.attention.head_dim), f"serve_batch {name} {out['cache'][name].shape}")
         del out
     check(runs["prefill_only"]["tokens"][0] == runs["prefill_decode"]["tokens"][0],
           "the prefill token does not depend on the decode length")
@@ -2455,9 +2518,20 @@ def drive_serve_batch(card: Card, arch: str, per_prefill: dict[str, int], *,
                                   for k in per_prefill}}
 
 
+def decode_step_bytes(params: dict, cache: dict) -> int:
+    """The bytes one decode step must read: every parameter but an untied
+    embedding table, of which it gathers B rows (a tied one the unembedding
+    reads whole), and every leaf of the prefill's cache."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*params.values(), *cache.values()))
+    if "lm_head" in params:
+        nbytes -= params["embed"].numel() * params["embed"].element_size()
+    return nbytes
+
+
 def time_and_profile_serving(model, params, prompt, cache0) -> dict:
     """One warm prefill and one warm decode step (after a warm-up step),
-    timed by host clocks around device synchronizes, then each profiled."""
+    timed by host clocks around device synchronizes, then each profiled;
+    and the bytes a decode step must read (``decode_step_bytes``)."""
     from repro_torch.launch import steps
 
     prefill = steps.make_prefill_step(model)
@@ -2468,7 +2542,9 @@ def time_and_profile_serving(model, params, prompt, cache0) -> dict:
     tok, cache = prefill(params, prompt, cache0)
     torch.cuda.synchronize()
     out["warm_prefill_s"] = time.perf_counter() - start
-    pos = torch.full((SERVE_BATCH,), SERVE_PROMPT, dtype=torch.int64, device="cuda")
+    out["decode_step_bytes"] = decode_step_bytes(params, cache)
+    pos = torch.full((SERVE_BATCH,), steps.prompt_dec_len(prompt), dtype=torch.int64,
+                     device="cuda")
     decode(params, cache, tok, pos)  # warm-up step
     torch.cuda.synchronize()
     start = time.perf_counter()
@@ -2493,7 +2569,8 @@ def _compare_wkv6(args, kwargs, got, want, what) -> dict:
 
 
 def _compare_flash(args, kwargs, got, want, what) -> dict:
-    return {**check_flash(got, want, what), "q_max_abs": float(args[0].float().abs().max())}
+    return {**check_flash(got, want, what), "q_max_abs": float(args[0].float().abs().max()),
+            "S": args[0].shape[1], "causal": kwargs.get("causal", True)}
 
 
 def _compare_ssd(args, kwargs, got, want, what) -> dict:
@@ -2584,16 +2661,16 @@ def compare_decode(card: Card, name: str, model, params, prompt, per_prefill: di
     from repro_torch.launch import steps
 
     dev = prompt["tokens"].device
-    batch, prompt_len = prompt["tokens"].shape
+    batch = prompt["tokens"].shape[0]
     counters = launch_counters()
     torch.cuda.empty_cache()
     for counter in counters.values():
         counter.reset()
     tok, cache = steps.make_prefill_step(model)(
-        params, prompt, model.init_cache(batch, prompt_len + gen, dev))
+        params, prompt, model.init_cache(batch, prompt_seq_len(prompt) + gen, dev))
     torch.cuda.synchronize()
     _serving_launches(counters, per_prefill, f"{name} prefill")
-    pos = torch.full((batch,), prompt_len, dtype=torch.int64, device=dev)
+    pos = torch.full((batch,), steps.prompt_dec_len(prompt), dtype=torch.int64, device=dev)
     out, toks, caches = {"card": card.line}, {}, {}
     for impl in ("python", "scan"):
         make = steps.make_decode_loop if impl == "python" else steps.make_decode_scan
@@ -2665,6 +2742,7 @@ def recheck_and_break_down(card: Card, arch: str, picks: dict[str, tuple[int, ..
             model.prefill(params, prompt, cache0)
         torch.cuda.empty_cache()
         out.update(time_and_profile_serving(model, params, prompt, cache0))
+    out["decode_step_bound_ms"] = out["decode_step_bytes"] / card.bytes_per_s * 1e3
     print(f"serving breakdown {arch} ({card.line}): {json.dumps(out)}", flush=True)
     del cache0
     out["decode_both_ways"] = compare_decode(card, arch, model, params, prompt, per_prefill)
@@ -3018,6 +3096,26 @@ def main() -> int:
     serving[HYBRID_ARCH] = recheck_and_break_down(card, HYBRID_ARCH,
                                                   {"ssd": (0, 53), "flash_attention": (0, 8)},
                                                   {"ssd": 54, "flash_attention": 9})
+    # the last two families at full size: internvl2-2b (the image prefix and
+    # the text through flash_attention, causal, group 2) and seamless-m4t-medium
+    # (12 non-causal encoder and 12 causal decoder launches a prefill)
+    for arch, per_prefill, picks in VLM_ENCDEC_SERVED:
+        start = time.perf_counter()
+        paths[f"serve_batch_{arch}"] = drive_serve_batch(card, arch, per_prefill)
+        serving[arch] = recheck_and_break_down(card, arch, picks, per_prefill)
+        if arch == "seamless-m4t-medium":  # the encoder's calls non-causal, the decoder's causal
+            causal = {call: rec["causal"] for call, rec in
+                      serving[arch]["recheck"]["flash_attention"].items()}
+            check(causal == {"call0": False, "call11": False, "call12": True, "call23": True},
+                  f"seamless flash calls causal {causal}")
+        paths[f"serve_batch_{arch}"]["seconds"] = time.perf_counter() - start
+        replay_ms = serving[arch]["decode_both_ways"]["replay_s_per_step"] * 1e3
+        print(f"decode step {arch} ({card.line}): warm replay {replay_ms:.4f} ms against a "
+              f"byte bound of {serving[arch]['decode_step_bound_ms']:.4f} ms "
+              f"({serving[arch]['decode_step_bytes'] / 1e9:.3f} GB at "
+              f"{card.bytes_per_s / 1e12} TB/s)", flush=True)
+        print(f"serve_batch {arch} path: {paths[f'serve_batch_{arch}']['seconds']:.1f} s "
+              f"({card.line})", flush=True)
     # the MoE decoders at published widths and cut depth: deepseek-v2 (MLA, no
     # kernel: 0 launches), qwen3-moe (8 flash_attention launches a prefill)
     for arch, layers, per_prefill, picks in MOE_SERVED:
@@ -3213,14 +3311,28 @@ def main() -> int:
         elif kernel == "flash_attention":
             shape = (f"B={main['B']} S={main['S']} H={main['H']} Kh={main['Kh']} D={main['D']} "
                      f"causal {main['dtype']}")
-            g16 = next(c for c in cases[kernel] if c["case"] == "qwen3moe_group16")
-            mass_entry["qwen3moe_shape"] = {
-                **{key: g16[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                             "library_ms", "bound_card", "max_abs_err",
-                                             "rel_norm_err")},
-                "shape": "B=4 S=1024 H=64 Kh=4 D=128 causal bfloat16 (qwen3-moe's prefill, "
-                         "group 16)",
-                "launches": sum(n for name, n in by_path.items() if "qwen3-moe" in name)}
+            def served(case, shape, launches):
+                c = next(x for x in cases[kernel] if x["case"] == case)
+                return {**{key: c[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "library_ms", "bound_card", "max_abs_err",
+                                                   "rel_norm_err")},
+                        "shape": shape, "launches": launches}
+
+            def path_launches(arch):
+                return sum(n for name, n in by_path.items() if arch in name)
+
+            mass_entry["qwen3moe_shape"] = served(
+                "qwen3moe_group16", "B=4 S=1024 H=64 Kh=4 D=128 causal bfloat16 (qwen3-moe's "
+                "prefill, group 16)", path_launches("qwen3-moe"))
+            mass_entry["internvl2_shape"] = served(
+                "internvl2_group2", "B=4 S=1024 H=16 Kh=8 D=128 causal bfloat16 (internvl2's "
+                "prefill: 256 patches and 768 tokens, group 2)", path_launches("internvl2"))
+            half = path_launches("seamless") // 2  # 12 encoder and 12 decoder calls a prefill
+            mass_entry["seamless_shapes"] = {
+                "encoder": served("seamless_encoder_noncausal", "B=4 S=256 H=Kh=16 D=64 "
+                                  "non-causal bfloat16 (seamless-m4t's encoder)", half),
+                "decoder": served("seamless_decoder", "B=4 S=768 H=Kh=16 D=64 causal bfloat16 "
+                                  "(seamless-m4t's decoder prefill)", half)}
         elif kernel == "ssd":
             shape = (f"B={main['B']} T={main['T']} H={main['H']} G={main['G']} P={main['P']} "
                      f"N={main['N']} chunk={main['chunk']} {main['dtype']}")

@@ -3,11 +3,11 @@
 ``p2pl_mnist`` holds the paper's experiments.  The model registry below is
 the port's ``repro.configs`` registry: ``get_config(name)`` and
 ``reduced(cfg)``, and ``for_shape(cfg, shape)`` (the long-context window
-variant).  The RWKV6 model, the four dense GQA decoders, the zamba2
-hybrid and the two MoE decoders (deepseek-v2-236b with MLA,
-qwen3-moe-235b-a22b) are registered; the reference's vlm and
-encoder-decoder architectures raise ``NotImplementedError`` (ROADMAP.md
-queue 1 item 16b).
+variant).  Every architecture of the reference is registered: the RWKV6
+model, the four dense GQA decoders, the zamba2 hybrid, the two MoE decoders
+(deepseek-v2-236b with MLA, qwen3-moe-235b-a22b), the vlm internvl2-2b
+(an image prefix before the text) and the encoder-decoder
+seamless-m4t-medium.
 """
 from __future__ import annotations
 
@@ -15,11 +15,13 @@ import dataclasses
 
 from repro_torch.configs import (
     deepseek_v2_236b,
+    internvl2_2b,
     minitron_8b,
     phi4_mini_3_8b,
     qwen1_5_32b,
     qwen3_moe_235b_a22b,
     rwkv6_7b,
+    seamless_m4t_medium,
     smollm_135m,
     zamba2_2_7b,
 )
@@ -41,12 +43,9 @@ ARCHITECTURES = {
     "zamba2-2.7b": zamba2_2_7b.config,
     "deepseek-v2-236b": deepseek_v2_236b.config,
     "qwen3-moe-235b-a22b": qwen3_moe_235b_a22b.config,
+    "internvl2-2b": internvl2_2b.config,
+    "seamless-m4t-medium": seamless_m4t_medium.config,
 }
-# names the reference registers whose families the port does not run yet
-UNPORTED_ARCHITECTURES = (
-    "internvl2-2b",
-    "seamless-m4t-medium",
-)
 
 # Sliding-window size for the long_500k variant of attention-bearing archs.
 LONG_CTX_WINDOW = 4096
@@ -56,10 +55,6 @@ NATIVE_LONG_CTX_FAMILIES = ("rwkv6", "hybrid")
 
 def get_config(name: str) -> ModelConfig:
     """The named architecture's full-size config."""
-    if name in UNPORTED_ARCHITECTURES:
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported yet: ROADMAP.md queue 1 item 16b"
-        )
     if name not in ARCHITECTURES:
         raise KeyError(f"unknown architecture {name!r}; one of {sorted(ARCHITECTURES)}")
     return ARCHITECTURES[name]()
@@ -145,7 +140,6 @@ __all__ = [
     "NATIVE_LONG_CTX_FAMILIES",
     "SSMConfig",
     "ShapeConfig",
-    "UNPORTED_ARCHITECTURES",
     "for_shape",
     "get_config",
     "reduced",

@@ -12,9 +12,12 @@ graph over the cache, written in place, and replayed once per token;
 eagerly, one hand-written kernel per layer: the dense decoders' attention
 through ``flash_attention``, RWKV6's chunked WKV through ``wkv6``, the
 hybrid's Mamba2 SSD through ``ssd`` and its shared block's attention through
-``flash_attention``, qwen3-moe's GQA attention through ``flash_attention``
-(deepseek-v2's MLA and both MoE decoders' expert dispatch have no TPU
-kernel and run in plain PyTorch); the decode steps (attention over the KV cache, or the
+``flash_attention``, qwen3-moe's and internvl2's GQA attention (the image
+prefix and the text, causal) through ``flash_attention``, seamless-m4t's
+encoder (non-causal) and decoder self-attention through ``flash_attention``
+(deepseek-v2's MLA, both MoE decoders' expert dispatch and the
+encoder-decoder's cross-attention have no TPU kernel and run in plain
+PyTorch); the decode steps (attention over the KV cache, or the
 token-sequential recurrences) launch no kernel.
 
 ``serve_fleet`` is the personalized-fleet path: P2PL's product is K
@@ -39,6 +42,8 @@ CLI:  python -m repro_torch.launch.serve --arch smollm-135m --batch 4 --gen 8
       python -m repro_torch.launch.serve --peers 2        # the stacked fleet
       python -m repro_torch.launch.serve --arch zamba2-2.7b --full --batch 4 \
           --prompt-len 1024 --gen 16                      # the hybrid, full size
+      python -m repro_torch.launch.serve --arch internvl2-2b --full   # 256 patches + text
+      python -m repro_torch.launch.serve --arch seamless-m4t-medium --full  # encoder-decoder
       (add --device cpu to run the reduced model on the CPU, --full for the
       full-size model)
 """
@@ -321,9 +326,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m",
                     help="a registered architecture: smollm-135m, minitron-8b, phi4-mini-3.8b, "
-                         "qwen1.5-32b, rwkv6-7b, zamba2-2.7b, deepseek-v2-236b or "
-                         "qwen3-moe-235b-a22b (the last two do not fit one 80 GB card "
-                         "with --full)")
+                         "qwen1.5-32b, rwkv6-7b, zamba2-2.7b, internvl2-2b, "
+                         "seamless-m4t-medium, deepseek-v2-236b or qwen3-moe-235b-a22b (the "
+                         "last two do not fit one 80 GB card with --full)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=8)

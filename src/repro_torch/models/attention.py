@@ -1,6 +1,6 @@
 """Attention with KV caches (the port's ``repro.models.attention``): GQA
-(full or sliding-window) and MLA (DeepSeek-V2's multi-head latent
-attention).
+(full or sliding-window), MLA (DeepSeek-V2's multi-head latent
+attention) and the encoder-decoder's cross-attention.
 
 Parameters are the reference's: ``w_q`` (D, H, dh), ``w_k`` and ``w_v``
 (D, Kh, dh), ``w_o`` (H dh, D) and, with ``qkv_bias``, ``b_q`` / ``b_k`` /
@@ -54,6 +54,13 @@ the reference attends over the whole cache after writing the prompt, whose
 empty slots are masked out (the same values, summed over C = T slots here
 instead of C = cache_len).  A write of T > cache_len positions keeps the
 last cache_len, as in ``gqa_apply``.
+
+Cross-attention (``cross_attention_apply``) reads the encoder's keys and
+values, projected once per decoder layer by ``encoder_kv``: no RoPE, no
+mask (every encoder slot is visible), the float32 scores of ``_attend``.
+The keys are as long as the encoder's output, not as the queries, which the
+flash kernel does not take; the reference computes it with the same
+einsums, outside its Pallas kernel, and so does the port, on the card too.
 """
 from __future__ import annotations
 
@@ -296,6 +303,30 @@ def gqa_apply(
         ctx = _attend(q.view(b, t, kh, h // kh, dh), kk, vv, mask[:, None, None], dh**-0.5)
     ctx = ctx.reshape(b, t, h * dh).to(x.dtype)
     return ctx @ params["w_o"], cache
+
+
+def cross_attention_apply(params: dict, cfg: AttentionConfig, x: torch.Tensor,
+                          enc_kv: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """x: (B, T, D) decoder states; enc_kv: the encoder's k and v (B, S, Kh,
+    dh) from ``encoder_kv``.  Every encoder slot visible, no RoPE."""
+    b, t, d_model = x.shape
+    h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    k, v = enc_kv
+    q = (x @ params["w_q"].reshape(d_model, h * dh)).view(b, t, kh, h // kh, dh)
+    mask = torch.ones((1, 1, 1, 1, 1), dtype=torch.bool, device=x.device)
+    ctx = _attend(q, k, v, mask, dh**-0.5).reshape(b, t, h * dh).to(x.dtype)
+    return ctx @ params["w_o"]
+
+
+def encoder_kv(params: dict, cfg: AttentionConfig,
+               enc_out: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The encoder output (B, S, D) projected to cross-attention k and v (B,
+    S, Kh, dh): no bias, no RoPE, as in the reference."""
+    b, s, d_model = enc_out.shape
+    width = cfg.num_kv_heads * cfg.head_dim
+    k = (enc_out @ params["w_k"].reshape(d_model, width)).view(b, s, cfg.num_kv_heads, -1)
+    v = (enc_out @ params["w_v"].reshape(d_model, width)).view(b, s, cfg.num_kv_heads, -1)
+    return k, v
 
 
 # ---------------------------------------------------------------------------

@@ -1,19 +1,30 @@
 """A uniform Model interface from a ModelConfig (the port's
-``repro.models.registry``, for the ``dense``, ``moe``, ``rwkv6`` and
-``hybrid`` families; ``vlm`` and ``encdec`` are ROADMAP.md queue 1 item
-16b).
+``repro.models.registry``, for every family of the reference: ``dense``,
+``moe``, ``vlm``, ``rwkv6``, ``hybrid`` and ``encdec``).
 
 Every family exposes:
     init(generator) -> params                 (drawn on the generator's device)
-    loss_fn(params, batch) -> scalar          (training: rwkv6; dense, moe
-                                               and hybrid are ROADMAP.md
-                                               queue 1 item 18)
+    loss_fn(params, batch) -> scalar          (training: rwkv6; the others
+                                               are ROADMAP.md queue 1 item
+                                               18)
     init_cache(batch, seq_len, device) -> cache
     prefill(params, batch, cache) -> (logits, cache)
     decode_step(params, token, pos, cache, *, inplace=False) -> (logits, cache)
                                               (``inplace``: the new slot or
                                                state written into ``cache``)
     make_batch(generator, batch, seq) -> {"tokens", "labels"} (B, S) int64
+                                              (vlm: S - Np tokens and float32
+                                               ``patches`` (B, Np, F); encdec:
+                                               S - S//4 tokens and float32
+                                               ``frames`` (B, S//4, F), as
+                                               ``split_vlm_seq`` and
+                                               ``split_encdec_seq`` say)
+
+The encoder-decoder's ``init_cache(b, s, device)`` splits ``s`` as its
+``make_batch`` does, as the reference does: a cache for ``prompt_len +
+gen_tokens`` has ``s - max(s//4, 1)`` decoder slots, fewer than the
+positions a decode reaches, so the last positions wrap onto the first
+slots through the ``pos % cache_len`` ring (ROADMAP.md section 3).
 
 The reference's ``batch_specs`` (shape stand-ins for its XLA dry run) has no
 counterpart here (ROADMAP.md queue 1 item 18).  ``build_sequence_classifier``
@@ -50,6 +61,39 @@ def _token_batch(generator: torch.Generator, cfg: ModelConfig, b: int, s: int) -
                              device=generator.device)
 
     return {"tokens": draw(), "labels": draw()}
+
+
+def split_vlm_seq(cfg: ModelConfig, s: int) -> tuple[int, int]:
+    """(prefix embeddings, text tokens) of a vlm sequence of length ``s``."""
+    np_ = min(cfg.num_prefix_embeddings, max(s - 1, 1))
+    return np_, s - np_
+
+
+def split_encdec_seq(s: int) -> tuple[int, int]:
+    """(encoder frames, decoder tokens) of an encoder-decoder sequence of length ``s``."""
+    enc = max(s // 4, 1)
+    return enc, max(s - enc, 1)
+
+
+def _vlm_batch(generator: torch.Generator, cfg: ModelConfig, b: int, s: int) -> dict:
+    np_, st = split_vlm_seq(cfg, s)
+    out = _token_batch(generator, cfg, b, st)
+    out["patches"] = torch.randn((b, np_, cfg.frontend_dim), generator=generator,
+                                 device=generator.device)
+    return out
+
+
+def _encdec_batch(generator: torch.Generator, cfg: ModelConfig, b: int, s: int) -> dict:
+    enc, dec = split_encdec_seq(s)
+    out = _token_batch(generator, cfg, b, dec)
+    out["frames"] = torch.randn((b, enc, cfg.frontend_dim), generator=generator,
+                                device=generator.device)
+    return out
+
+
+def _encdec_init_cache(cfg: ModelConfig, b: int, s: int, device) -> dict:
+    enc, dec = split_encdec_seq(s)
+    return tf.encdec_init_cache(cfg, b, dec, enc, device)
 
 
 def sequence_classifier_shapes(cfg: ModelConfig, num_classes: int) -> dict[str, tuple[int, ...]]:
@@ -97,7 +141,9 @@ def build_sequence_classifier(cfg: ModelConfig, num_classes: int):
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family in ("dense", "moe"):  # one decoder: MoE blocks and first_layers by config
+    if cfg.family in ("dense", "moe", "vlm"):  # one decoder: MoE blocks, first_layers and
+        # the vlm projector by config
+        make_batch = _vlm_batch if cfg.family == "vlm" else _token_batch
         return Model(
             cfg=cfg,
             init=lambda g: tf.decoder_init(g, cfg),
@@ -106,7 +152,7 @@ def build_model(cfg: ModelConfig) -> Model:
             prefill=lambda p, batch, c: tf.decoder_prefill(p, cfg, batch, c),
             decode_step=lambda p, t, pos, c, inplace=False: tf.decoder_decode_step(
                 p, cfg, t, pos, c, inplace=inplace),
-            make_batch=lambda g, b, s: _token_batch(g, cfg, b, s),
+            make_batch=lambda g, b, s: make_batch(g, cfg, b, s),
         )
     if cfg.family == "hybrid":
         return Model(
@@ -119,11 +165,19 @@ def build_model(cfg: ModelConfig) -> Model:
                 p, cfg, t, pos, c, inplace=inplace),
             make_batch=lambda g, b, s: _token_batch(g, cfg, b, s),
         )
-    if cfg.family != "rwkv6":
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (the vlm prefix and the "
-            "encoder-decoder family): ROADMAP.md queue 1 item 16b"
+    if cfg.family == "encdec":
+        return Model(
+            cfg=cfg,
+            init=lambda g: tf.encdec_init(g, cfg),
+            loss_fn=lambda p, b: tf.encdec_loss_fn(p, cfg, b),
+            init_cache=lambda b, s, device: _encdec_init_cache(cfg, b, s, device),
+            prefill=lambda p, batch, c: tf.encdec_prefill(p, cfg, batch, c),
+            decode_step=lambda p, t, pos, c, inplace=False: tf.encdec_decode_step(
+                p, cfg, t, pos, c, inplace=inplace),
+            make_batch=lambda g, b, s: _encdec_batch(g, cfg, b, s),
         )
+    if cfg.family != "rwkv6":
+        raise ValueError(f"unknown family {cfg.family!r}")
     return Model(
         cfg=cfg,
         init=lambda g: tf.rwkv6_init_model(g, cfg),

@@ -1,6 +1,6 @@
 """Model stacks of the port (the port's ``repro.models.transformer``: the
-dense and MoE decoders, the RWKV6 stack and the zamba2 hybrid; the vlm and
-encoder-decoder families are ROADMAP.md queue 1 item 16b).
+dense, MoE and vlm decoders, the RWKV6 stack, the zamba2 hybrid and the
+encoder-decoder).
 
 Parameters are a flat dict with dotted names in the reference's tree
 (``"embed"``, ``"layers.attn.w_q"``, ``"layers.moe.w_gate"``,
@@ -15,7 +15,14 @@ reference's ``{"main": {...}}``) and, with first layers, ``"first."``, the
 RWKV6 recurrent state one of (L, ...) leaves (``"tm_prev"``, ``"cm_prev"``,
 ``"wkv"``), the hybrid's cache the Mamba2 states stacked over the layers
 (``"mamba.conv"``, ``"mamba.ssm"``) and one attention cache per application
-of the shared block (``"attn.k"``, ``"attn.v"``, ``"attn.pos_ids"``).  The
+of the shared block (``"attn.k"``, ``"attn.v"``, ``"attn.pos_ids"``).  A vlm
+decoder has a ``"projector"`` (frontend_dim, d_model) that maps the image
+patches to a prefix of the text's embeddings.  The encoder-decoder keeps
+``"enc_layers."`` and ``"dec_layers."`` (each decoder layer with
+``"ln_cross."`` and ``"cross."``), and its cache is the decoder's
+self-attention cache under ``"self."`` and the encoder's projected keys and
+values, ``"cross_k"`` and ``"cross_v"`` (L, B, S_enc, Kh, dh), which the
+prefill computes and every decode step reads.  The
 reference's ``cfg.remat`` (``jax.checkpoint`` around each block) trades
 recomputation for activation memory in a backward pass; it has no
 counterpart here: the one model the port trains (the sequence classifier of
@@ -23,7 +30,10 @@ counterpart here: the one model the port trains (the sequence classifier of
 
 Every prefill runs one hand-written kernel per layer: each GQA decoder
 layer's and each shared-block application's attention through
-``flash_attention`` (``models/attention.py``), each Mamba2 layer's SSD
+``flash_attention`` (``models/attention.py``; the encoder's non-causal
+self-attention too, one launch per encoder layer, and the encoder-decoder's
+causal decoder self-attention; its cross-attention stays plain PyTorch, as
+in the reference), each Mamba2 layer's SSD
 through ``ssd`` (``models/ssm.py``); MLA and the MoE dispatch
 (``models/moe.py``) have no TPU kernel in the reference and run in plain
 PyTorch; decode steps attend over the cache and run the Mamba2 recurrence
@@ -31,8 +41,8 @@ in plain PyTorch.
 
 ``rwkv6_features`` (the trunk's hidden states) and ``rwkv6_loss_fn`` (the
 language-model loss, its WKV through the forward-only ``wkv6`` kernel on
-the card) serve training; the dense and hybrid losses are ROADMAP.md
-queue 1 item 18.
+the card) serve training; the dense, vlm, hybrid and encoder-decoder
+losses are ROADMAP.md queue 1 item 18.
 
 Caches are updated functionally (each layer's new cache, then the stack of
 them), as in the reference.  The decode steps also take ``inplace=True``
@@ -104,14 +114,16 @@ def _block_init(generator: torch.Generator, cfg: ModelConfig, *, use_moe: bool =
     return p
 
 
-def _block_apply(p, cfg: ModelConfig, x, positions, cache, *, prefill=False, inplace=False):
+def _block_apply(p, cfg: ModelConfig, x, positions, cache, *, prefill=False, inplace=False,
+                 causal=True):
     """Returns (x, new_cache, aux): aux is the MoE load-balance loss, a
     float32 scalar tensor (the float 0.0 for a dense MLP: no device work in a
-    dense decode step); ``prefill`` and ``inplace`` as in
+    dense decode step); ``prefill``, ``inplace`` and ``causal`` as in
     ``attention.gqa_apply``."""
     h, cache = attention.apply(common.sub(p, "attn."), cfg.attention,
                                common.rmsnorm(common.sub(p, "ln1."), x, cfg.norm_eps),
-                               positions, cache=cache, prefill=prefill, inplace=inplace)
+                               positions, cache=cache, causal=causal, prefill=prefill,
+                               inplace=inplace)
     x = x + h
     h2 = common.rmsnorm(common.sub(p, "ln2."), x, cfg.norm_eps)
     experts = common.sub(p, "moe.")
@@ -129,10 +141,6 @@ def _num_first_layers(cfg: ModelConfig) -> int:
 def decoder_init(generator: torch.Generator, cfg: ModelConfig) -> dict[str, torch.Tensor]:
     """The whole decoder's parameters, drawn on the generator's device; the
     layer-stacked leaves one layer's draw at a time."""
-    if cfg.family == "vlm":
-        raise NotImplementedError(
-            "the vlm projector and image prefix are not ported yet: ROADMAP.md queue 1 "
-            "item 16b")
     dtype, dev = compute_dtype(cfg), generator.device
     n_first = _num_first_layers(cfg)
     p = {"embed": common.embed_init(generator, cfg.vocab_size, cfg.d_model, dtype)}
@@ -147,16 +155,18 @@ def decoder_init(generator: torch.Generator, cfg: ModelConfig) -> dict[str, torc
               for k, t in common.rmsnorm_init(cfg.d_model, dtype, dev).items()})
     if not cfg.tie_embeddings:
         p["lm_head"] = common.dense_init(generator, cfg.d_model, cfg.vocab_size, dtype)
+    if cfg.family == "vlm":
+        p["projector"] = common.dense_init(generator, cfg.frontend_dim, cfg.d_model, dtype)
     return p
 
 
 def _decoder_embed(params, cfg: ModelConfig, tokens, patches=None):
+    """The tokens' embeddings (B, S, D); vlm ``patches`` (B, Np, F) are
+    projected in the model's dtype and put before them (B, Np + S, D)."""
+    x = common.embed_lookup(params["embed"], tokens, compute_dtype(cfg))
     if patches is not None:
-        raise NotImplementedError(
-            "vlm image patches (the projector prefix) are not ported yet: "
-            "ROADMAP.md queue 1 item 16b"
-        )
-    return common.embed_lookup(params["embed"], tokens, compute_dtype(cfg))
+        x = torch.cat([patches.to(x.dtype) @ params["projector"], x], dim=1)
+    return x
 
 
 def _decoder_trunk(params, cfg: ModelConfig, x, positions, caches, *, prefill=False,
@@ -460,3 +470,145 @@ def hybrid_decode_step(params, cfg: ModelConfig, token, pos, cache, *, inplace=F
     x, cache = _hybrid_trunk(params, cfg, x, pos[:, None], cache, chunked=False,
                              inplace=inplace)
     return decoder_logits(params, cfg, x), cache
+
+
+# ===========================================================================
+# Encoder-decoder (seamless-m4t backbone; the audio frontend a stub)
+# ===========================================================================
+
+ENC_LAYERS = "enc_layers."
+DEC_LAYERS = "dec_layers."
+SELF_CACHE = "self."
+
+
+def encdec_init(generator: torch.Generator, cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """The whole model's parameters, drawn on the generator's device: the
+    frame projection, the encoder's blocks and norm, the embedding (tied to
+    the unembedding), the decoder's blocks, each with a cross-attention, and
+    the final norm."""
+    dtype, dev = compute_dtype(cfg), generator.device
+
+    def dec_layer(_i):
+        p = _block_init(generator, cfg)
+        p.update({f"ln_cross.{k}": t
+                  for k, t in common.rmsnorm_init(cfg.d_model, dtype, dev).items()})
+        p.update({f"cross.{k}": t
+                  for k, t in attention.init(generator, cfg.d_model, cfg.attention, dtype).items()})
+        return p
+
+    p = {"frontend_proj": common.dense_init(generator, cfg.frontend_dim, cfg.d_model, dtype)}
+    p.update({ENC_LAYERS + name: t for name, t in stacked_init(
+        cfg.encoder_layers, lambda _i: _block_init(generator, cfg)).items()})
+    p.update({f"enc_norm.{k}": t for k, t in common.rmsnorm_init(cfg.d_model, dtype, dev).items()})
+    p["embed"] = common.embed_init(generator, cfg.vocab_size, cfg.d_model, dtype)
+    p.update({DEC_LAYERS + name: t for name, t in stacked_init(cfg.num_layers, dec_layer).items()})
+    p.update({f"final_norm.{k}": t
+              for k, t in common.rmsnorm_init(cfg.d_model, dtype, dev).items()})
+    return p
+
+
+def encdec_encode(params, cfg: ModelConfig, frames):
+    """frames (B, S, F) -> the encoder's output (B, S, D): each layer's
+    self-attention non-causal over the frames (RoPE at frame positions), one
+    ``flash_attention`` launch per layer on the card."""
+    x = frames.to(compute_dtype(cfg)) @ params["frontend_proj"]
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    layers = common.sub(params, ENC_LAYERS)
+    for i in range(cfg.encoder_layers):
+        x, _, _ = _block_apply(common.row(layers, i), cfg, x, positions, None, causal=False)
+    return common.rmsnorm(common.sub(params, "enc_norm."), x, cfg.norm_eps)
+
+
+def encdec_cross_kv(params, cfg: ModelConfig, enc_out):
+    """Every decoder layer's cross-attention k and v of the encoder's
+    output, stacked: two (L, B, S, Kh, dh) tensors."""
+    layers = common.sub(params, DEC_LAYERS)
+    kv = [attention.encoder_kv(common.sub(common.row(layers, i), "cross."), cfg.attention,
+                               enc_out) for i in range(cfg.num_layers)]
+    return torch.stack([k for k, _ in kv]), torch.stack([v for _, v in kv])
+
+
+def _encdec_dec_block(p, cfg: ModelConfig, x, positions, cache, enc_kv, *, prefill=False,
+                      inplace=False):
+    """Self-attention (cached; ``prefill`` and ``inplace`` as in
+    ``attention.gqa_apply``), cross-attention over ``enc_kv``, the MLP.
+    Returns (x, new_cache)."""
+    h, cache = attention.apply(common.sub(p, "attn."), cfg.attention,
+                               common.rmsnorm(common.sub(p, "ln1."), x, cfg.norm_eps),
+                               positions, cache=cache, prefill=prefill, inplace=inplace)
+    x = x + h
+    x = x + attention.cross_attention_apply(
+        common.sub(p, "cross."), cfg.attention,
+        common.rmsnorm(common.sub(p, "ln_cross."), x, cfg.norm_eps), enc_kv)
+    return x + common.mlp_apply(common.sub(p, "mlp."),
+                                common.rmsnorm(common.sub(p, "ln2."), x, cfg.norm_eps),
+                                act=cfg.act), cache
+
+
+def _encdec_dec_trunk(params, cfg: ModelConfig, x, positions, caches, cross_kv, *,
+                      prefill=False, inplace=False):
+    """caches: the self-attention caches stacked over the layers;
+    cross_kv: (cross_k, cross_v) stacked.  Returns (x after the final norm,
+    the new caches stacked; ``inplace``: ``caches``, written)."""
+    layers = common.sub(params, DEC_LAYERS)
+    cross_k, cross_v = cross_kv
+    new = []
+    for i in range(cfg.num_layers):
+        x, c = _encdec_dec_block(common.row(layers, i), cfg, x, positions,
+                                 common.row(caches, i), (cross_k[i], cross_v[i]),
+                                 prefill=prefill, inplace=inplace)
+        new.append(c)
+    x = common.rmsnorm(common.sub(params, "final_norm."), x, cfg.norm_eps)
+    if inplace:
+        return x, caches
+    return x, {name: torch.stack([c[name] for c in new]) for name in caches}
+
+
+def encdec_loss_fn(params, cfg: ModelConfig, batch):
+    raise NotImplementedError(
+        "training the encoder-decoder language model is not ported yet: ROADMAP.md queue 1 "
+        "item 18"
+    )
+
+
+def encdec_init_cache(cfg: ModelConfig, batch: int, max_seq: int, enc_len: int,
+                      device) -> dict[str, torch.Tensor]:
+    """The decoder's self-attention caches of ``max_seq`` slots under
+    ``"self."`` and zeroed cross k and v of ``enc_len`` frames (the prefill
+    replaces them with the encoder's, as the reference does)."""
+    dtype, dev, a = compute_dtype(cfg), torch.device(device), cfg.attention
+    caches = stacked_init(cfg.num_layers,
+                          lambda _i: attention.init_cache(a, batch, max_seq, dtype, dev))
+    kv_shape = (cfg.num_layers, batch, enc_len, a.num_kv_heads, a.head_dim)
+    return {**{SELF_CACHE + name: t for name, t in caches.items()},
+            "cross_k": torch.zeros(kv_shape, dtype=dtype, device=dev),
+            "cross_v": torch.zeros(kv_shape, dtype=dtype, device=dev)}
+
+
+def encdec_prefill(params, cfg: ModelConfig, batch, caches):
+    """Encode ``batch["frames"]``, then run the decoder over the prompt's
+    tokens: the self-attention caches written, the cross k and v the new
+    encoder output's."""
+    cross_k, cross_v = encdec_cross_kv(params, cfg, encdec_encode(params, cfg, batch["frames"]))
+    tokens = batch["tokens"]
+    x = common.embed_lookup(params["embed"], tokens, compute_dtype(cfg))
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    x, self_c = _encdec_dec_trunk(params, cfg, x, positions, common.sub(caches, SELF_CACHE),
+                                  (cross_k, cross_v), prefill=True)
+    return decoder_logits(params, cfg, x[:, -1:]), {
+        **{SELF_CACHE + name: t for name, t in self_c.items()},
+        "cross_k": cross_k, "cross_v": cross_v}
+
+
+def encdec_decode_step(params, cfg: ModelConfig, token, pos, caches, *, inplace=False):
+    """token: (B,) int; pos: (B,) absolute decoder position of this token."""
+    x = common.embed_lookup(params["embed"], token[:, None], compute_dtype(cfg))
+    x, self_c = _encdec_dec_trunk(params, cfg, x, pos[:, None], common.sub(caches, SELF_CACHE),
+                                  (caches["cross_k"], caches["cross_v"]), inplace=inplace)
+    if inplace:
+        return decoder_logits(params, cfg, x), caches
+    return decoder_logits(params, cfg, x), {
+        **{SELF_CACHE + name: t for name, t in self_c.items()},
+        "cross_k": caches["cross_k"], "cross_v": caches["cross_v"]}

@@ -17,8 +17,9 @@
 - The window quirk at T > window: the port's prefill equals the reference's
   no-cache forward and differs from its cached prefill, and the port's ring
   holds the positions the reference's does (ROADMAP.md §3).
-- The unported families (vlm, encdec) and ``decoder_loss_fn`` raise,
-  naming their items; the MoE decoders are ``tests/test_torch_moe.py``'s.
+- ``decoder_loss_fn`` raises, naming its item; the MoE decoders are
+  ``tests/test_torch_moe.py``'s, the vlm and encoder-decoder
+  ``tests/test_torch_vlm_encdec.py``'s.
 
 Tolerances: float32 atol = rtol = 1e-4 (measured differences are ~1e-6:
 the same arithmetic summed in another order); the int8 cache's values are
@@ -44,7 +45,6 @@ from repro_torch.configs import base as tbase  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.models import attention as tattention  # noqa: E402
 from repro_torch.models import build_model, common  # noqa: E402
-from repro_torch.models import transformer as ttf  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -477,12 +477,3 @@ def test_unported_paths_raise_naming_their_items():
     model = build_model(cfg)
     with pytest.raises(NotImplementedError, match="item 18"):
         model.loss_fn({}, {})
-    with pytest.raises(NotImplementedError, match="item 16"):
-        ttf._decoder_embed({}, cfg, torch.zeros(1, 2, dtype=torch.int64),
-                           patches=torch.zeros(1, 2, 4))
-    vlm_cfg = _port_config(jconfigs.reduced(jconfigs.get_config("internvl2-2b")))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        ttf.decoder_init(torch.Generator(), vlm_cfg)
-    for arch in ("internvl2-2b", "seamless-m4t-medium"):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            build_model(_port_config(jconfigs.reduced(jconfigs.get_config(arch))))

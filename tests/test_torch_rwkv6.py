@@ -74,8 +74,7 @@ def test_config_module_equals_reference():
         tf_ = {f.name: f.default for f in dataclasses.fields(getattr(tbase, cls))}
         jf = {f.name: f.default for f in dataclasses.fields(getattr(jbase, cls))}
         assert tf_ == jf, cls
-    assert set(tconfigs.ARCHITECTURES) | set(tconfigs.UNPORTED_ARCHITECTURES) == set(
-        jconfigs.ARCHITECTURES)
+    assert set(tconfigs.ARCHITECTURES) == set(jconfigs.ARCHITECTURES)
 
 
 @pytest.mark.parametrize("arch", sorted(jconfigs.ARCHITECTURES))
@@ -95,13 +94,14 @@ def test_rwkv6_7b_has_7_6_billion_parameters():
     assert tconfigs.get_config("rwkv6-7b").param_count() == 7_617_118_208
 
 
-@pytest.mark.parametrize("arch", tconfigs.UNPORTED_ARCHITECTURES)
-def test_unported_architecture_raises_naming_item_16(arch):
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tconfigs.get_config(arch)
-    cfg = _port_config(jconfigs.reduced(jconfigs.get_config(arch)))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        build_model(cfg)
+@pytest.mark.parametrize("arch", sorted(jconfigs.ARCHITECTURES))
+def test_every_reference_architecture_is_registered(arch):
+    """``get_config`` gives every reference architecture, with the
+    reference's fields, and the registry builds its model."""
+    assert dataclasses.asdict(tconfigs.get_config(arch)) == dataclasses.asdict(
+        jconfigs.get_config(arch))
+    model = build_model(tconfigs.reduced(tconfigs.get_config(arch)))
+    assert model.cfg.family == jconfigs.get_config(arch).family
 
 
 @pytest.fixture(scope="module", params=["float32", "bfloat16"])
