@@ -27,18 +27,31 @@ In order:
    (its N a ragged number of tiles), a padded star round, the scalar path
    with odd leaf boundaries inside a tile, a zero beta row, a zero-scale
    leaf and a no-payload call at K = 8 and K = 100, K = 2, and K = 128 and
-   129 on either side of the cap), ``segment_mix`` at five (K=100
-   complete, K=4096 ring, a padded star with a zero beta row and ragged N on
-   the scalar path, round 17 of a stacked R=16 link-dropout schedule, and
-   D=2047 slots staged in chunks); the mass mode (push-sum) of the three
+   129 on either side of the cap), ``segment_mix`` at fifteen, printing
+   and asserting the route each takes (the library's ``segment_mix_route``
+   against ``segment.kernel_route``, and the route the case is built for:
+   the column tile from K = 16 to 128 at D >= K / 3 slots, the persistent
+   gather elsewhere): K=100 complete (tile), K=4096 ring (gather), a
+   padded star with a zero beta row and ragged N on the scalar path,
+   round 17 of a stacked R=16 link-dropout schedule, D=2047 slots, K = 24
+   complete with a zero beta row and ragged N (the tile's scalar path),
+   K = 32 complete at a degree bound of 34 (the tile's padding slots past
+   K), and where the routes meet at the 2NN's row: complete graphs of 8
+   and 12 peers (gather), 16 and 32 (tile), a ring of 64 (gather) and
+   Erdos-Renyi graphs of 64 at D = 25 (tile) and of 128 at D = 36 (gather)
+   and 52 (tile); the mass mode (push-sum) of the three
    consensus kernels, mixed, d and the new mass each held to its plain
    version, the new mass to sum K within 1e-5 K, and timed against
    ``torch.matmul([A diag(y); Beta], X)``: ``consensus_mix`` at K = 8 on
    the directed ring (gather), K = 100 complete (tile), K = 129 (gather) and
    K = 16 with an isolated peer, ``dequant_mix`` (qint8) at K = 8, 100, 129
    and K = 8 with an isolated peer, ``segment_mix`` on the K = 4096
-   directed ring at the 2NN's row and on a K = 64 one with an isolated peer
-   (whose mass and parameters stay, and whose d is 0); the snapshot mode
+   directed ring at the 2NN's row, on a K = 64 one with an isolated peer
+   (whose mass and parameters stay, and whose d is 0), at ``iid_k100
+   --protocol push_sum``'s K = 100 on the complete graph (the tile), on a
+   complete graph of 24 with an isolated peer (the tile's guard) and at
+   the gossip cases' eight shapes where the routes meet; the
+   snapshot mode
    (bounded staleness) of ``consensus_mix``, gossip and mass, on
    age-decayed operands with every own snapshot stale, asserting its design
    and that d reads the live row, timed against
@@ -228,7 +241,9 @@ In order:
    copy more memory), and prints its seconds per round and peak memory
    beside the state's size;
 10. prints the ``kernels`` JSON line (each consensus kernel with its mass
-   mode beside its gossip mode, ``consensus_mix`` also with its snapshot
+   mode beside its gossip mode, ``segment_mix`` at K = 100 beside K = 4096
+   in both modes and with its routes' edges, ``consensus_mix`` also with
+   its snapshot
    mode, ``consensus_mix`` and ``dequant_mix`` with their dense-operand
    cases and the adaptive paths' launches) and, last, the contract line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -580,12 +595,27 @@ def library_operator(sparse, r: int, dev, *, as_csr: bool) -> torch.Tensor:
     return op.to_sparse_csr() if as_csr else op.to_dense()
 
 
+def segment_route(name: str, k: int, d: int, want: str) -> str:
+    """``segment.kernel_route(k, d)``, checked against the kernel library's
+    own ``segment_mix_route`` and against ``want``, the route the case is
+    built for."""
+    from repro_torch.kernels.consensus_mix import segment
+
+    route = segment.kernel_route(k, d)
+    lib_route = segment.ROUTES[segment.load_kernel().lib.segment_mix_route(k, d)]
+    check(route == lib_route, f"segment_mix {name}: the wrapper's route {route} is the "
+          f"kernel's ({lib_route})")
+    check(route == want, f"segment_mix {name}: route {route}, want {want}")
+    return route
+
+
 def segment_case(card, name, sparse, n, *, round_idx=0, zero_beta_rows=(), size=None,
-                 want_vector=None, seed=0):
+                 want_vector=None, want_route, seed=0):
     """segment_mix kernel vs its plain version (and the library product of
     [W; Beta]) over round ``round_idx % R`` of a stacked sparse schedule.
     Columns from ``size`` to ``n`` are row padding, zero in the input, and
-    must stay exactly zero."""
+    must stay exactly zero.  The route (``segment.kernel_route``) must be
+    the kernel library's own and ``want_route``."""
     from repro_torch.kernels.consensus_mix import ops, ref, segment
 
     dev = torch.device("cuda")
@@ -596,6 +626,7 @@ def segment_case(card, name, sparse, n, *, round_idx=0, zero_beta_rows=(), size=
         sparse = dataclasses.replace(sparse, beta=beta)
     ops_s = ops.upload_schedule(sparse, dev)
     k, d = sparse.num_peers, sparse.degree_bound
+    route = segment_route(name, k, d, want_route)
     r = round_idx % sparse.period
     size = n if size is None else size
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -626,13 +657,16 @@ def segment_case(card, name, sparse, n, *, round_idx=0, zero_beta_rows=(), size=
     library = ((lambda: torch.sparse.mm(lib_op, x)) if as_csr  # noqa: E731
                else (lambda: torch.matmul(lib_op, x)))
     times = in_turns(plain, kern, library)
+    if as_csr:  # the card's streaming rate beside the byte bound: one copy of x
+        times["copy_ms"] = cuda_ms(lambda: mixed.copy_(x))
 
     # work this run's data needs: the round's real (non-padding) slots only;
     # x read once, mixed and d written once, the round's operands read once
     real = int((sparse.nbr_idx[r] != np.arange(k)[:, None]).sum())
     flops = n * (4 * real + 3 * k)
     nbytes = 3 * k * n * 4 + k * 4 + 3 * k * d * 4
-    return {"case": name, "K": k, "D": d, "N": n, "round": r, "vector_path": vector,
+    return {"case": name, "K": k, "D": d, "N": n, "round": r, "route": route,
+            "vector_path": vector,
             "library": "torch.sparse.mm (CSR [W; Beta])" if as_csr else "torch.matmul",
             "max_abs_err": err, **times, **card.bound(nbytes, flops)}
 
@@ -663,11 +697,33 @@ def build_kernels() -> None:
 
 
 def _print_case(kernel: str, c: dict) -> None:
-    path = f"path={c['path']} vector={c['vector_path']} " if "path" in c else ""
+    path = (f"path={c['path']} vector={c['vector_path']} " if "path" in c else
+            f"route={c['route']} vector={c['vector_path']} " if "route" in c else "")
+    copy = f"copy of x={c['copy_ms']:.4f} ms " if "copy_ms" in c else ""
     print(f"{kernel} {c['case']}: K={c['K']} D={c['D']} N={c['N']} {path}"
           f"max_abs_err={c['max_abs_err']:.3g} kernel={c['ms']:.4f} ms "
-          f"plain={c['plain_ms']:.4f} ms library={c['library_ms']:.4f} ms "
+          f"plain={c['plain_ms']:.4f} ms library={c['library_ms']:.4f} ms {copy}"
           f"bound={c['bound_ms']:.4f} ms ({c['bound_by']}; {c['bound_card']})", flush=True)
+
+
+# where segment_mix's two routes meet, at the 2NN's row: complete graphs
+# across the lower edge in K, and sparse rows below the cap across the edge
+# in D (D >= K / 3 takes the tile): a ring of 64 (D = 2), Erdos-Renyi graphs
+# of 64 at p = 0.25 (D = 25) and of 128 at p = 0.2 (D = 36) and 0.3 (D =
+# 52); each (topology, K, p, the route it takes)
+SEGMENT_EDGE_SHAPES = (("complete", 8, None, "gather"), ("complete", 12, None, "gather"),
+                       ("complete", 16, None, "tile"), ("complete", 32, None, "tile"),
+                       ("ring", 64, None, "gather"), ("erdos_renyi", 64, 0.25, "tile"),
+                       ("erdos_renyi", 128, 0.2, "gather"), ("erdos_renyi", 128, 0.3, "tile"))
+
+
+def segment_edge_graph(topology: str, k: int, p: float | None):
+    """The graph of a ``SEGMENT_EDGE_SHAPES`` entry and its case's name."""
+    from repro_torch.core import graph as graph_lib
+
+    if p is None:
+        return graph_lib.build_graph(topology, k), f"{topology}_k{k}"
+    return graph_lib.build_graph(topology, k, p=p), f"{topology}_k{k}_p{p}"
 
 
 def segment_cases(card: Card) -> list[dict]:
@@ -691,17 +747,33 @@ def segment_cases(card: Card) -> list[dict]:
     large_k_sizes = np.where(np.arange(LARGE_K) < 60000 % LARGE_K, 15, 14)  # iid_partition's
     cases = [
         segment_case(card, "iid_k100", sparse_of(static("complete", 100), np.full(100, 600)),
-                     layout.row, size=layout.size, want_vector=True),
+                     layout.row, size=layout.size, want_vector=True, want_route="tile"),
         segment_case(card, "ring_k4096", sparse_of(static("ring", LARGE_K), large_k_sizes),
-                     layout.row, size=layout.size, want_vector=True, seed=1),
+                     layout.row, size=layout.size, want_vector=True, want_route="gather",
+                     seed=1),
         segment_case(card, "star_k8_ragged", sparse_of(static("star", 8), np.arange(1, 9) * 10),
-                     1001, zero_beta_rows=(3,), want_vector=False, seed=2),
+                     1001, zero_beta_rows=(3,), want_vector=False, want_route="gather", seed=2),
         segment_case(card, "link_dropout_r16_at17", dropout_sparse, layout.row,
-                     round_idx=17, size=layout.size, want_vector=True, seed=3),
+                     round_idx=17, size=layout.size, want_vector=True, want_route="gather",
+                     seed=3),
         segment_case(card, "complete_k2048_chunked",
                      sparse_of(static("complete", 2048), np.arange(2048) % 7 + 5), 256,
-                     want_vector=True, seed=4),
+                     want_vector=True, want_route="gather", seed=4),
+        # the tile route's scalar path and its guard on the raw beta row
+        segment_case(card, "complete_k24_ragged",
+                     sparse_of(static("complete", 24), np.arange(1, 25) * 10), 1001,
+                     zero_beta_rows=(3,), want_vector=False, want_route="tile", seed=5),
+        # a degree bound past K: the tile's two padding slots a row scatter +0.0
+        segment_case(card, "complete_k32_bound34", graph_lib.SparseSchedule.from_schedule(
+                         static("complete", 32), "data_weighted",
+                         data_sizes=np.arange(1, 33) * 10, degree_bound=34),
+                     layout.row, size=layout.size, want_vector=True, want_route="tile", seed=6),
     ]
+    for i, (topology, k, p, route) in enumerate(SEGMENT_EDGE_SHAPES):
+        graph, name = segment_edge_graph(topology, k, p)
+        cases.append(segment_case(
+            card, name, sparse_of(graph_lib.static_schedule(graph), np.arange(1, k + 1) * 10),
+            layout.row, size=layout.size, want_vector=True, want_route=route, seed=7 + i))
     torch.cuda.empty_cache()
     return cases
 
@@ -850,7 +922,8 @@ def dequant_mass_case(card, name, graph, sizes, layout, *, iso=None, want_path="
             "max_abs_err": err, **times, **card.bound(nbytes, flops)}
 
 
-def segment_mass_case(card, name, graph, sizes, n, *, size=None, iso=None, seed=0):
+def segment_mass_case(card, name, graph, sizes, n, *, size=None, iso=None, want_route,
+                      seed=0):
     """``segment_mix``'s mass mode (push-sum on the one-slice segment
     runtime) against its plain version and the library product of
     [A diag(y); Beta] (CSR above K = 1000)."""
@@ -863,6 +936,7 @@ def segment_mass_case(card, name, graph, sizes, n, *, size=None, iso=None, seed=
         graph = isolated(graph, iso)
     sparse, ops_s = push_sum_operands(graph_lib.static_schedule(graph), sizes, dev)
     k, d = sparse.num_peers, sparse.degree_bound
+    route = segment_route(name, k, d, want_route)
     size = n if size is None else size
     gen = torch.Generator(device=dev).manual_seed(seed)
     x = torch.zeros(k, n, device=dev)
@@ -885,7 +959,7 @@ def segment_mass_case(card, name, graph, sizes, n, *, size=None, iso=None, seed=
     real = int((sparse.nbr_idx[0] != np.arange(k)[:, None]).sum())
     flops = n * (4 * real + 4 * k) + 2 * (real + k)
     nbytes = 3 * k * n * 4 + k * 4 + 3 * k * d * 4 + 2 * k * 4
-    out = {"case": name, "K": k, "D": d, "N": n, "vector_path": n % 4 == 0,
+    out = {"case": name, "K": k, "D": d, "N": n, "route": route, "vector_path": n % 4 == 0,
            "library": "torch.sparse.mm (CSR [A diag(y); Beta])" if as_csr else "torch.matmul",
            "max_abs_err": err, **times, **card.bound(nbytes, flops)}
     del x, mixed, d_out, lib_op
@@ -897,8 +971,8 @@ def mass_cases(card: Card) -> dict[str, list[dict]]:
     """The mass mode (push-sum) of the three consensus kernels at the
     push-sum paths' shapes: ``directed_k8`` (K = 8, directed ring, gather /
     tile for qint8), ``iid_k100 --protocol push_sum`` (K = 100, tile), one
-    K past the tile cap (gather), the K = 4096 directed ring on the segment
-    kernel, and one case each with an isolated peer."""
+    K past the tile cap (gather), and one case each with an isolated peer;
+    ``segment_mix``'s are ``segment_mass_cases``."""
     from repro_torch.core import graph as graph_lib
     from repro_torch.core.p2p import layout_of
     from repro_torch.kernels.consensus_mix import ops
@@ -909,7 +983,6 @@ def mass_cases(card: Card) -> dict[str, list[dict]]:
     ring8 = graph_lib.build_graph("directed_ring", 8)
     k8_sizes = np.array([150, 150, 150, 150, 100, 100, 100, 100])  # directed_k8's shards
     cap = ops.TILE_MAX_PEERS
-    large_k_sizes = np.where(np.arange(LARGE_K) < 60000 % LARGE_K, 15, 14)
     return {
         "consensus_mix": [
             consensus_mass_case(card, "directed_k8", ring8, k8_sizes, row, want_path="gather"),
@@ -928,15 +1001,38 @@ def mass_cases(card: Card) -> dict[str, list[dict]]:
             dequant_mass_case(card, "directed_k8_isolated_peer", ring8, k8_sizes, layout,
                               iso=5, seed=3),
         ],
-        "segment_mix": [
-            segment_mass_case(card, f"directed_ring_k{LARGE_K}",
-                              graph_lib.build_graph("directed_ring", LARGE_K), large_k_sizes,
-                              row, size=layout.size),
-            segment_mass_case(card, "directed_ring_k64_isolated_peer",
-                              graph_lib.build_graph("directed_ring", 64), np.arange(64) % 5 + 10,
-                              1001, iso=7, seed=1),
-        ],
+        "segment_mix": segment_mass_cases(card),
     }
+
+
+def segment_mass_cases(card: Card) -> list[dict]:
+    """``segment_mix``'s mass mode: the K = 4096 directed ring (gather),
+    ``iid_k100 --protocol push_sum`` on the one-slice segment runtime
+    (tile), an isolated peer on each route, and ``SEGMENT_EDGE_SHAPES``."""
+    from repro_torch.core import graph as graph_lib
+    from repro_torch.core.p2p import layout_of
+
+    layout = layout_of("mnist_mlp")
+    row = layout.row
+    large_k_sizes = np.where(np.arange(LARGE_K) < 60000 % LARGE_K, 15, 14)
+    cases = [
+        segment_mass_case(card, f"directed_ring_k{LARGE_K}",
+                          graph_lib.build_graph("directed_ring", LARGE_K), large_k_sizes, row,
+                          size=layout.size, want_route="gather"),
+        segment_mass_case(card, "directed_ring_k64_isolated_peer",
+                          graph_lib.build_graph("directed_ring", 64), np.arange(64) % 5 + 10,
+                          1001, iso=7, want_route="gather", seed=1),
+        segment_mass_case(card, "iid_k100", graph_lib.build_graph("complete", 100),
+                          np.full(100, 600), row, size=layout.size, want_route="tile", seed=2),
+        segment_mass_case(card, "complete_k24_isolated_peer",
+                          graph_lib.build_graph("complete", 24), np.arange(1, 25) * 10, 1001,
+                          iso=5, want_route="tile", seed=3),
+    ]
+    for i, (topology, k, p, route) in enumerate(SEGMENT_EDGE_SHAPES):
+        graph, name = segment_edge_graph(topology, k, p)
+        cases.append(segment_mass_case(card, name, graph, np.arange(1, k + 1) * 10, row,
+                                       size=layout.size, want_route=route, seed=4 + i))
+    return cases
 
 
 STALE_BOUND = 3  # straggler_k8's staleness bound: the ages the snapshot cases draw
@@ -3299,6 +3395,17 @@ def main() -> int:
                 "shape": f"{mass_main['case']}: K={mass_main['K']} D={mass_main['D']} "
                          f"N={mass_main['N']}",
                 "shapes": cases[f"{kernel} mass"]}
+        if kernel == "segment_mix":  # K = 100 beside the K = 4096 main shape, both modes
+            def at_k100(kcases, what):
+                c = next(x for x in kcases if x["case"] == "iid_k100")
+                return {**{key: c[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "library_ms", "bound_card", "max_abs_err",
+                                                   "route")},
+                        "shape": f"{what}: K={c['K']} D={c['D']} N={c['N']}"}
+
+            mass_entry["k100_shape"] = at_k100(cases[kernel], "iid_k100, one-slice segment runtime")
+            mass_entry["mass_mode"]["k100_shape"] = at_k100(
+                cases[f"{kernel} mass"], "iid_k100 --protocol push_sum, one-slice segment runtime")
         if kernel == "wkv6":
             shape = (f"B={main['B']} T={main['T']} H={main['H']} dk={main['dk']} "
                      f"chunk={main['chunk']} {main['dtype']}")

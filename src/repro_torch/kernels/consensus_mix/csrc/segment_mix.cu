@@ -12,174 +12,299 @@
 //   d[k]     = (sum_s beta[r, k, s] * x[nbr_idx[r, k, s]] - x[k]) / T,
 //              and d[k] = 0 when sum_s beta[r, k, s] == 0 (isolated peer)
 //
-// Design (simple first; what it shares with consensus_mix.cu is in
-// vec_ops.cuh):
-// - the round is chosen by offsetting the operand pointers on the host: no
-//   round's operands are sliced or copied.
-// - grid (K, tiles of N); blockIdx.x is the peer, so the K blocks that work
-//   on one tile of N run next to each other and find that tile's neighbor
-//   rows in L2.  Every row and byte offset is int64: at K = 4096 and
-//   N = 199,212 one buffer holds 8.2e8 floats.  gridDim.y is capped at
-//   65,535 and the blocks stride over the remaining tiles.
-// - any degree bound D: the slot rows (nbr_idx, nbr_w, beta) are staged in
-//   shared memory in chunks of kChunk slots (12 KB); when D <= kChunk one
-//   staging serves every tile, otherwise each tile restages chunk by chunk.
-//   The isolated-peer guard reduces the raw beta row across the block.
-// - each thread keeps float32 accumulators for both outputs, starts the mix
-//   from self_w * x and adds the slots in slot order, as the Pallas grid's
-//   innermost slot axis does; the (K, D, N) gather never exists.
-// - float4 loads and stores when N is a multiple of 4 and the buffers are
-//   16-byte aligned (the port pads each parameter row to a multiple of 4),
-//   scalar otherwise; the tail is masked.
-// - outputs go to buffers other than x: other blocks still read x[k] as a
-//   neighbor.
-// Padding slots carry the peer's own index with weight 0 and add exactly
-// +-0.0 to both sums.
+// The round is chosen by offsetting the operand pointers on the host: no
+// round's operands are sliced or copied.  Outputs go to buffers other than
+// x: other blocks still read x[k] as a neighbor.  Padding slots carry the
+// peer's own index with weight 0 and add exactly +-0.0 to both sums.  Every
+// row and byte offset is int64: at K = 4096 and N = 199,212 one buffer holds
+// 8.2e8 floats.
+//
+// Two routes, chosen here by (K, D) alone (`route`; the Python wrapper's
+// `segment.kernel_route` is the same rule):
+//
+// - the column tile (route 1) for kTileMinPeers <= K <= kTileMaxPeers and
+//   K / kTileMinDensity <= D <= kTileMaxSlots: the code of tile_mix.cuh,
+//   shared with consensus_mix.cu and dequant_mix.cu, on the round's operand
+//   pointers.  A persistent grid reads each sender's column tile from device
+//   memory once, scatters the D slots into a dense [W_off; Beta]^T table in
+//   shared memory (a padding slot, also past K, adds +0.0 there), keeps the
+//   raw beta sums for the guard and in the mass mode reduces y' from the raw
+//   slots.  The old one-block-a-peer design re-read each sender's tile from
+//   L1/L2 once per receiver (99 times at K = 100, 7.9 GB of cache reads a
+//   call); the tile is bound by the float32 FMAs of the dense product, as
+//   consensus_mix's is.  It sums over senders in index order, the gather in
+//   slot order, so the two differ in the last bits.  The edges are measured
+//   (PERF.md section 6, the segment_mix edge table: both routes' times at
+//   each of chip_smoke.py's SEGMENT_EDGE_SHAPES, from copies of this tree with
+//   kTileMinPeers and kTileMinDensity edited so that each case takes the
+//   other route): on complete graphs the gather wins at K = 8 and 12 and
+//   the tile from K = 16, as consensus_mix's rule has it; the dense product costs K^2 N however sparse the rows, the
+//   gather (D + 1) K N, so sparse rows keep the gather (a ring of 64 runs
+//   it in about half the tile's time), and the rule puts the crossing at
+//   D = K / 3, between the Erdos-Renyi shapes on either side.
+//   kTileMaxSlots bounds the table scatter's K x D (an int) and its cost
+//   per block.
+// - the persistent gather (route 0) everywhere else: K > 128 (the large-K
+//   runtime, e.g. K = 4096 on a ring), K below the edge, sparse rows, any
+//   degree bound D.  As many blocks as fit on the SMs walk items.  A block's
+//   threads form groups of `lanes` threads, as many as a row's width needs
+//   (kThreads at the 2NN's row, 64 at N = 256, so narrow rows still fill the
+//   block); an item is a run of consecutive peers, up to kRunPeers a group,
+//   over a span of `lanes` elements (4 KB of a row on the vector path at
+//   kThreads).  The item's slot rows are staged in shared memory, and the
+//   beta-sum guard and y' reduced by one warp a peer, once per item rather
+//   than once per 4 KB as in the old (K, tiles) grid of one-shot blocks,
+//   whose two dependent round trips to device memory came before each
+//   block's first load of x: runs of one peer are 8-20% slower at the
+//   K = 4096 ring (the same A/B).  Each thread starts the mix from self_w * x_k and
+//   adds the slots in slot order, the old design's arithmetic, so its
+//   outputs are the old ones bit for bit; the slot loop is unrolled by two.
+//   Items go run-fastest, so the blocks in flight cover neighboring peers at
+//   the same columns and a ring's shared rows come from L1 and L2 (staging
+//   the union of a run's sender rows in shared memory was not built); the
+//   outputs are stored with the evict-first hint (st.global.cs).  Past
+//   kChunk / groups slots a peer, a group walks one peer at a time and its
+//   slots are staged in chunks (complete_k2048: D = 2,047).
+// Both routes take float4 loads and stores when N is a multiple of 4 and x,
+// mixed and d are 16-byte aligned (the port pads each parameter row to a
+// multiple of 4), scalar ones otherwise; columns past N are neither read nor
+// written.  Neither allocates or synchronizes, so both are captured into the
+// scan driver's CUDA graph of the round (repro_torch/capture.py).
 //
 // Mass mode (push-sum, `segment_mix_push_sum_f32`; the template switch
 // kMass): the round's weights are column-stochastic push weights and every
-// peer carries a scalar mass y, (K,) and the same for every round.  The
-// sender's mass scales each slot's weight where the slot is staged, the
-// self term uses y_k, and
+// peer carries a scalar mass y, (K,) and the same for every round:
 //
 //   y'[k]    = self_w[r, k] y[k] + sum_s nbr_w[r, k, s] y[nbr_idx[r, k, s]]
 //   mixed[k] = (self_w[r, k] y[k] x[k] + sum_s nbr_w[r, k, s] y[j] x[j]) / y'[k]
 //   d[k]     = as in gossip (raw x, beta not scaled)
 //
-// y' is reduced across the block from the raw slot row, as the guard is, so
-// any degree bound works; the division is a multiply by 1 / y' (see
-// consensus_mix.cu); the blocks of the first tile column write y' to
-// new_mass.
+// y' is reduced from the raw slot row, as the guard is, so any degree bound
+// works; the division is a multiply by the correctly rounded 1 / y' (see
+// consensus_mix.cu).  y' is written to new_mass once a peer: by the tile's
+// block 0, by the gather's item of the peer's run at span 0.
 //
 // Bound on an H100 SXM: at the large-K shape (K = 4096 on a ring, D = 2,
 // N = 199,212) one call must read x once (3.26 GB) and write mixed and d
 // (6.53 GB): 9.8 GB, 2.9 ms at 3.35 TB/s, against 9.0 GFLOP (0.13 ms at
-// 67 TFLOP/s): it is bound by bytes, and the L2 reuse of neighboring peers'
-// rows is what keeps its traffic near that (the slots alone would read
-// (D + 1) K N floats, 9.8 GB of reads).  At K = 100 on the complete graph
-// (D = 99) it is bound by float32 FMA throughput, like consensus_mix.
+// 67 TFLOP/s): it is bound by bytes (the slots alone would read
+// (D + 1) K N floats, 9.8 GB of reads, without the L2's reuse).  At K = 100
+// on the complete graph (D = 99) it is bound by float32 FMA throughput:
+// 7.9 GFLOP, 0.119 ms, against 0.072 ms of bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "vec_ops.cuh"
+namespace {
+constexpr int kTileMaxPeers = 128;
+}  // namespace
+
+#include "tile_mix.cuh"
 
 namespace {
 
+constexpr int kTileMinPeers = 16;
+constexpr int kTileMinDensity = 3;  // the tile from D >= K / 3 slots
+constexpr int kTileMaxSlots = 4096;
+constexpr int kRouteGather = 0, kRouteTile = 1;
+constexpr int kRunPeers = 8;  // most consecutive peers a group walks in one item
 constexpr int kChunk = 1024;  // slots staged at a time: 3 x 4 KB of shared memory
+constexpr int kWarps = kThreads / 32;
+constexpr int kItemPeers = kRunPeers * kWarps;  // most peers an item: groups x run
 
-// kMass: each slot's weight scaled by its sender's mass.
+int route(int64_t num_peers, int64_t d_slots) {
+  return num_peers >= kTileMinPeers && num_peers <= kTileMaxPeers &&
+                 kTileMinDensity * d_slots >= num_peers && d_slots <= kTileMaxSlots
+             ? kRouteTile
+             : kRouteGather;
+}
+
+// Slot `from` of the round's slot table to slot `to` of the staged rows;
+// kMass: its weight scaled by its sender's mass.
 template <bool kMass>
-__device__ __forceinline__ void stage_slots(const int32_t* __restrict__ nbr_idx,
-                                            const float* __restrict__ nbr_w,
-                                            const float* __restrict__ beta,
-                                            const float* __restrict__ mass, int64_t first,
-                                            int count, int32_t* s_idx, float* s_w,
-                                            float* s_b) {
-  for (int s = threadIdx.x; s < count; s += kThreads) {
-    const int32_t j = nbr_idx[first + s];
-    s_idx[s] = j;
-    s_w[s] = kMass ? nbr_w[first + s] * mass[j] : nbr_w[first + s];
-    s_b[s] = beta[first + s];
+__device__ __forceinline__ void stage_slot(const int32_t* __restrict__ nbr_idx,
+                                           const float* __restrict__ nbr_w,
+                                           const float* __restrict__ beta,
+                                           const float* __restrict__ mass, int64_t from, int to,
+                                           int32_t* s_idx, float* s_w, float* s_b) {
+  const int32_t j = nbr_idx[from];
+  s_idx[to] = j;
+  s_w[to] = kMass ? nbr_w[from] * mass[j] : nbr_w[from];
+  s_b[to] = beta[from];
+}
+
+// Adds `count` staged slots to the accumulators of element e, in slot
+// order; unrolled by two, so two slots' 16-byte loads are in flight.
+template <typename T>
+__device__ __forceinline__ void add_slots(const T* __restrict__ xv, int64_t n_vec, int64_t e,
+                                          const int32_t* s_idx, const float* s_w,
+                                          const float* s_b, int count, T& acc_mix, T& acc_beta) {
+#pragma unroll 2
+  for (int s = 0; s < count; ++s) {
+    const T v = __ldg(xv + static_cast<int64_t>(s_idx[s]) * n_vec + e);
+    acc_mix = vfma(s_w[s], v, acc_mix);
+    acc_beta = vfma(s_b[s], v, acc_beta);
   }
 }
 
 // T is float (scalar path) or float4 (vector path); n_vec counts T elements
 // per row, and rows are n_vec T elements apart.  The operand pointers point
 // at the round's (K,) and (K, D) slices; mass and new_mass are (K,), used in
-// the mass mode only.
+// the mass mode only.  The block's threads form kThreads / lanes groups of
+// `lanes` threads.  Item i covers groups x run consecutive peers from
+// (i % n_runs) x groups x run over the span i / n_runs of `lanes` T
+// elements; group g walks the run of peers g x run, ..., g x run + run - 1 of
+// the item in turn.  chunk >= d_slots: every slot row of the item is staged
+// at its start; else each group's peer is staged chunk slots at a time.
 template <typename T, bool kMass>
 __global__ void __launch_bounds__(kThreads)
-segment_mix_kernel(const float* __restrict__ x, int64_t n_vec,
-                   const float* __restrict__ self_w, const int32_t* __restrict__ nbr_idx,
-                   const float* __restrict__ nbr_w, const float* __restrict__ beta,
-                   int d_slots, float local_steps, const float* __restrict__ mass,
-                   float* __restrict__ mixed, float* __restrict__ d_out,
-                   float* __restrict__ new_mass) {
+segment_gather_kernel(const float* __restrict__ x, int64_t n_vec, int k_peers,
+                      const float* __restrict__ self_w, const int32_t* __restrict__ nbr_idx,
+                      const float* __restrict__ nbr_w, const float* __restrict__ beta,
+                      int d_slots, float local_steps, const float* __restrict__ mass,
+                      float* __restrict__ mixed, float* __restrict__ d_out,
+                      float* __restrict__ new_mass, int lanes, int run, int chunk,
+                      int64_t n_runs, int64_t n_items) {
   __shared__ int32_t s_idx[kChunk];
   __shared__ float s_w[kChunk];
   __shared__ float s_b[kChunk];
-  __shared__ float s_part[kThreads / 32];
-  __shared__ float s_ypart[kThreads / 32];  // kMass: partial sums of y'
-
-  const int k = blockIdx.x;
-  const int64_t slot_row = static_cast<int64_t>(k) * d_slots;
-
-  // the guard reads the raw beta row: strided partial sums, then the warps
-  // (and y' in the mass mode, from the raw weights and masses)
-  float part = 0.0f, ypart = 0.0f;
-  for (int s = threadIdx.x; s < d_slots; s += kThreads) {
-    part += beta[slot_row + s];
-    if (kMass) ypart += __fmul_rn(nbr_w[slot_row + s], mass[nbr_idx[slot_row + s]]);
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    part += __shfl_down_sync(0xffffffffu, part, off);
-    if (kMass) ypart += __shfl_down_sync(0xffffffffu, ypart, off);
-  }
-  if ((threadIdx.x & 31) == 0) {
-    s_part[threadIdx.x >> 5] = part;
-    if (kMass) s_ypart[threadIdx.x >> 5] = ypart;
-  }
-  const bool one_chunk = d_slots <= kChunk;
-  if (one_chunk)
-    stage_slots<kMass>(nbr_idx, nbr_w, beta, mass, slot_row, d_slots, s_idx, s_w, s_b);
-  __syncthreads();
-  float beta_sum = 0.0f;
-  for (int w = 0; w < kThreads / 32; ++w) beta_sum += s_part[w];
-  const bool has_nbrs = beta_sum > 0.0f;
-  const float sw = kMass ? self_w[k] * mass[k] : self_w[k];
-  float inv_y = 1.0f;
-  if (kMass) {
-    float y_new = sw;
-    for (int w = 0; w < kThreads / 32; ++w) y_new += s_ypart[w];
-    if (blockIdx.y == 0 && threadIdx.x == 0) new_mass[k] = y_new;
-    inv_y = 1.0f / y_new;
-  }
+  __shared__ float s_sw[kItemPeers];     // self_w (x own mass in the mass mode)
+  __shared__ float s_inv_y[kItemPeers];  // kMass: 1 / y'
+  __shared__ int s_has[kItemPeers];      // the raw beta row sums to more than 0
 
   const T* xv = reinterpret_cast<const T*>(x);
   T* mv = reinterpret_cast<T*>(mixed);
   T* dv = reinterpret_cast<T*>(d_out);
-  const int64_t own = static_cast<int64_t>(k) * n_vec;
-  // the loop bound is the same for every thread of the block, so the
-  // barriers of the chunked staging below are reached by all of them
-  for (int64_t tile = blockIdx.y; tile * kThreads < n_vec; tile += gridDim.y) {
-    const int64_t e = tile * kThreads + threadIdx.x;
-    const bool live = e < n_vec;
-    T self;
-    vzero(self);
-    if (live) self = xv[own + e];
-    T acc_mix = vscale(sw, self);
-    T acc_beta;
-    vzero(acc_beta);
-    for (int c0 = 0; c0 < d_slots; c0 += kChunk) {
-      const int cn = min(kChunk, d_slots - c0);
-      if (!one_chunk) {
-        __syncthreads();  // every thread is done with the previous chunk
-        stage_slots<kMass>(nbr_idx, nbr_w, beta, mass, slot_row + c0, cn, s_idx, s_w, s_b);
-        __syncthreads();
+  const int groups = kThreads / lanes, g = threadIdx.x / lanes, t = threadIdx.x % lanes;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool staged_once = chunk >= d_slots;
+  // the loop bounds are the same for every thread of the block, so every
+  // barrier below is reached by all of them
+  for (int64_t item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int64_t span = item / n_runs;
+    const int64_t k0 = (item - span * n_runs) * groups * run;
+    const int np = k_peers - k0 < groups * run ? static_cast<int>(k_peers - k0) : groups * run;
+    __syncthreads();  // every thread is done with the previous item's rows
+    if (staged_once) {
+      for (int s = threadIdx.x; s < np * d_slots; s += kThreads)
+        stage_slot<kMass>(nbr_idx, nbr_w, beta, mass, k0 * d_slots + s, s, s_idx, s_w, s_b);
+    }
+    for (int p = warp; p < np; p += kWarps) {  // the guard and y' from the raw slot row
+      const int64_t k = k0 + p, row = k * d_slots;
+      float sum = 0.0f, ysum = 0.0f;
+      for (int s = lane; s < d_slots; s += 32) {
+        sum += beta[row + s];
+        if (kMass) ysum += __fmul_rn(nbr_w[row + s], mass[nbr_idx[row + s]]);
       }
-      if (live) {
-#pragma unroll 4
-        for (int s = 0; s < cn; ++s) {
-          const T v = xv[static_cast<int64_t>(s_idx[s]) * n_vec + e];
-          acc_mix = vfma(s_w[s], v, acc_mix);
-          acc_beta = vfma(s_b[s], v, acc_beta);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        if (kMass) ysum += __shfl_xor_sync(0xffffffffu, ysum, off);
+      }
+      if (lane == 0) {
+        s_has[p] = sum > 0.0f;
+        const float sw = kMass ? self_w[k] * mass[k] : self_w[k];
+        s_sw[p] = sw;
+        if (kMass) {
+          const float y = sw + ysum;
+          s_inv_y[p] = 1.0f / y;
+          if (span == 0) new_mass[k] = y;  // one writer a peer
         }
       }
     }
-    if (live) {
-      mv[own + e] = kMass ? vscale(inv_y, acc_mix) : acc_mix;
-      dv[own + e] = vbias(acc_beta, self, local_steps, has_nbrs);
+    __syncthreads();
+    const int64_t e = span * lanes + t;
+    for (int i = 0; i < run; ++i) {
+      const int p = g * run + i;
+      const bool live = p < np && e < n_vec;
+      const int64_t own = (k0 + p) * n_vec;
+      T self, acc_mix, acc_beta;
+      vzero(self);
+      vzero(acc_beta);
+      if (live) self = __ldg(xv + own + e);
+      acc_mix = vscale(live ? s_sw[p] : 0.0f, self);
+      if (staged_once) {
+        if (live) {
+          const int at = p * d_slots;
+          add_slots<T>(xv, n_vec, e, s_idx + at, s_w + at, s_b + at, d_slots, acc_mix, acc_beta);
+        }
+      } else {
+        for (int c0 = 0; c0 < d_slots; c0 += chunk) {
+          const int cn = min(chunk, d_slots - c0);
+          __syncthreads();  // every thread is done with the previous chunk
+          for (int q = threadIdx.x; q < groups * cn; q += kThreads) {
+            const int gg = q / cn, s = q - gg * cn, pp = gg * run + i;
+            if (pp < np)
+              stage_slot<kMass>(nbr_idx, nbr_w, beta, mass, (k0 + pp) * d_slots + c0 + s,
+                                gg * chunk + s, s_idx, s_w, s_b);
+          }
+          __syncthreads();
+          if (live)
+            add_slots<T>(xv, n_vec, e, s_idx + g * chunk, s_w + g * chunk, s_b + g * chunk, cn,
+                         acc_mix, acc_beta);
+        }
+      }
+      if (!live) continue;
+      const bool has = s_has[p] != 0;
+      __stcs(mv + own + e, kMass ? vscale(s_inv_y[p], acc_mix) : acc_mix);
+      __stcs(dv + own + e, vbias(acc_beta, self, local_steps, has));
     }
   }
 }
 
+// The persistent grid: as many blocks as fit on the SMs (asked once per
+// device and instantiation, as launch_tile does), at most one an item.  A
+// group is as many threads as a row's n_vec needs, a power of two from 32
+// to kThreads.  A run is as many peers a group as kChunk staged
+// slots hold, at most kRunPeers, halved while that leaves fewer than two
+// items a block; past kChunk / groups slots a peer, its slots are staged
+// in chunks of that many, one peer a group.
+template <typename T, bool kMass>
+cudaError_t launch_gather(cudaStream_t s, const float* x, int64_t num_peers, int64_t n_vec,
+                          const float* self_w, const int32_t* nbr_idx, const float* nbr_w,
+                          const float* beta, int64_t d_slots, float local_steps,
+                          const float* mass, float* mixed, float* d_out, float* new_mass) {
+  auto kernel = segment_gather_kernel<T, kMass>;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  static int sms[kMaxDevices] = {}, fit[kMaxDevices] = {};
+  if (fit[dev] == 0) {
+    if ((err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev)) !=
+        cudaSuccess)
+      return err;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit[dev], kernel, kThreads, 0)) !=
+        cudaSuccess)
+      return err;
+    if (fit[dev] < 1) return cudaErrorInvalidConfiguration;
+  }
+  const int64_t blocks = static_cast<int64_t>(sms[dev]) * fit[dev];
+  int lanes = 32;
+  while (lanes < kThreads && lanes < n_vec) lanes *= 2;
+  const int64_t groups = kThreads / lanes;
+  const int64_t n_spans = (n_vec + lanes - 1) / lanes;
+  const bool staged_once = groups * d_slots <= kChunk;
+  int64_t run = staged_once ? kChunk / (groups * d_slots) : 1;
+  if (run > kRunPeers) run = kRunPeers;
+  auto runs = [&](int64_t r) { return (num_peers + groups * r - 1) / (groups * r); };
+  while (run > 1 && runs(run) * n_spans < 2 * blocks) run = (run + 1) / 2;
+  const int64_t n_runs = runs(run), n_items = n_runs * n_spans;
+  const int chunk = staged_once ? static_cast<int>(d_slots) : static_cast<int>(kChunk / groups);
+  const int grid = static_cast<int>(blocks < n_items ? blocks : n_items);
+  kernel<<<grid, kThreads, 0, s>>>(x, n_vec, static_cast<int>(num_peers), self_w, nbr_idx,
+                                   nbr_w, beta, static_cast<int>(d_slots), local_steps, mass,
+                                   mixed, d_out, new_mass, lanes, static_cast<int>(run), chunk,
+                                   n_runs, n_items);
+  return cudaGetLastError();
+}
+
 template <bool kMass>
-int launch_segment(const float* x, int64_t num_peers, int64_t n, const float* self_w,
-                   const int32_t* nbr_idx, const float* nbr_w, const float* beta,
-                   int64_t rounds, int64_t round_idx, int64_t d_slots, float local_steps,
-                   const float* mass, float* mixed, float* d_out, float* new_mass,
-                   void* stream) {
+int launch_segment(const float* x, int64_t num_peers, int64_t n,
+                   const float* self_w, const int32_t* nbr_idx, const float* nbr_w,
+                   const float* beta, int64_t rounds, int64_t round_idx, int64_t d_slots,
+                   float local_steps, const float* mass, float* mixed, float* d_out,
+                   float* new_mass, void* stream) {
   if (num_peers <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
   if (rounds <= 0 || d_slots <= 0 || d_slots > INT32_MAX || num_peers > INT32_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -188,39 +313,55 @@ int launch_segment(const float* x, int64_t num_peers, int64_t n, const float* se
   const int64_t r = (round_idx % rounds + rounds) % rounds;
   const int64_t peer_off = r * num_peers;
   const int64_t slot_off = peer_off * d_slots;
+  self_w += peer_off;
+  nbr_idx += slot_off;
+  nbr_w += slot_off;
+  beta += slot_off;
   const bool vec4 = n % 4 == 0 && aligned16(x) && aligned16(mixed) && aligned16(d_out);
-  const int64_t n_vec = vec4 ? n / 4 : n;
-  int64_t tiles = (n_vec + kThreads - 1) / kThreads;
-  if (kMass) tiles = mass_mode_tiles(tiles, d_slots);
-  if (tiles > kMaxGridY) tiles = kMaxGridY;
-  const dim3 grid(static_cast<unsigned>(num_peers), static_cast<unsigned>(tiles));
-  if (vec4) {
-    segment_mix_kernel<float4, kMass><<<grid, kThreads, 0, s>>>(
-        x, n_vec, self_w + peer_off, nbr_idx + slot_off, nbr_w + slot_off, beta + slot_off,
-        static_cast<int>(d_slots), local_steps, mass, mixed, d_out, new_mass);
+  cudaError_t err;
+  if (route(num_peers, d_slots) == kRouteTile) {
+    const int k = static_cast<int>(num_peers), ds = static_cast<int>(d_slots);
+    const LeafStarts leaves = {};  // no payload: one leaf, unused
+    const size_t smem = tile_smem_bytes(k, false, kMass);
+    // x is the staged tile (kSelfStaged): the self term is read from it
+    err = vec4 ? launch_tile<true, true, kMass>(false, smem, s, x, x, nullptr, nullptr, leaves, 1,
+                                                n, k, self_w, nbr_idx, nbr_w, beta, ds,
+                                                local_steps, mass, mixed, d_out, nullptr, new_mass)
+               : launch_tile<false, true, kMass>(false, smem, s, x, x, nullptr, nullptr, leaves,
+                                                 1, n, k, self_w, nbr_idx, nbr_w, beta, ds,
+                                                 local_steps, mass, mixed, d_out, nullptr,
+                                                 new_mass);
   } else {
-    segment_mix_kernel<float, kMass><<<grid, kThreads, 0, s>>>(
-        x, n_vec, self_w + peer_off, nbr_idx + slot_off, nbr_w + slot_off, beta + slot_off,
-        static_cast<int>(d_slots), local_steps, mass, mixed, d_out, new_mass);
+    err = vec4 ? launch_gather<float4, kMass>(s, x, num_peers, n / 4, self_w, nbr_idx, nbr_w,
+                                              beta, d_slots, local_steps, mass, mixed, d_out,
+                                              new_mass)
+               : launch_gather<float, kMass>(s, x, num_peers, n, self_w, nbr_idx, nbr_w, beta,
+                                             d_slots, local_steps, mass, mixed, d_out, new_mass);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
+// The route a call of num_peers peers and d_slots slots takes: 1 the column
+// tile, 0 the persistent gather.
+extern "C" int64_t segment_mix_route(int64_t num_peers, int64_t d_slots) {
+  return route(num_peers, d_slots);
+}
+
 // x, mixed, d_out: (num_peers, n) row-major float32 on the device; self_w
 // (rounds, num_peers); nbr_idx, nbr_w, beta (rounds, num_peers, d_slots).
-// Mixes with round round_idx % rounds.  Every nbr_idx entry must lie in
-// [0, num_peers); the Python wrapper's schedule checked that once.  Launches
-// on `stream` and returns the launch's cudaError_t (0 on success).
+// Mixes with round round_idx % rounds, on the route segment_mix_route
+// gives.  Every nbr_idx entry must lie in [0, num_peers); the Python
+// wrapper's schedule checked that once.  Launches on `stream` and returns
+// the launch's cudaError_t (0 on success).
 extern "C" int segment_mix_f32(const float* x, int64_t num_peers, int64_t n,
                                const float* self_w, const int32_t* nbr_idx,
                                const float* nbr_w, const float* beta, int64_t rounds,
                                int64_t round_idx, int64_t d_slots, float local_steps,
                                float* mixed, float* d_out, void* stream) {
-  return launch_segment<false>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, rounds,
-                               round_idx, d_slots, local_steps, nullptr, mixed, d_out, nullptr,
-                               stream);
+  return launch_segment<false>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, rounds, round_idx,
+                               d_slots, local_steps, nullptr, mixed, d_out, nullptr, stream);
 }
 
 // The mass mode (push-sum): segment_mix_f32's arguments and contract, with
@@ -232,7 +373,6 @@ extern "C" int segment_mix_push_sum_f32(const float* x, int64_t num_peers, int64
                                         int64_t round_idx, int64_t d_slots, float local_steps,
                                         const float* mass, float* mixed, float* d_out,
                                         float* new_mass, void* stream) {
-  return launch_segment<true>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, rounds,
-                              round_idx, d_slots, local_steps, mass, mixed, d_out, new_mass,
-                              stream);
+  return launch_segment<true>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, rounds, round_idx,
+                              d_slots, local_steps, mass, mixed, d_out, new_mass, stream);
 }

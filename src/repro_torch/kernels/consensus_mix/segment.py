@@ -26,6 +26,15 @@ Dispatch is by the device of the buffer, and only by it:
   no fallback;
 - any other device raises.
 
+The kernel library chooses between two routes by (K, D) alone
+(``kernel_route`` is the same rule, and the library exports its own as
+``segment_mix_route``): from ``TILE_MIN_PEERS`` to ``TILE_MAX_PEERS`` peers
+with ``K / TILE_MIN_DENSITY`` to ``TILE_MAX_SLOTS`` slots the column tile of
+``csrc/tile_mix.cuh`` (shared with ``consensus_mix`` and ``dequant_mix``),
+which reads each sender's column tile once and computes the dense
+``[W_off; Beta]`` product from shared memory; everywhere else a persistent
+gather, whose blocks walk runs of consecutive peers over wide column spans.
+
 Bound on an H100 SXM (see the note in the CUDA source): at K = 4096 peers on
 a ring (D = 2) at the 2NN's width one call must move 9.8 GB (2.9 ms at
 3.35 TB/s) and is bound by bytes; at K = 100 on the complete graph it is
@@ -45,6 +54,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.consensus_mix import ref
 from repro_torch.kernels.build import LaunchCounter
 from repro_torch.kernels.consensus_mix.ops import (
+    TILE_MAX_PEERS,
+    TILE_MIN_PEERS,
     SparseOperands,
     check_mass,
     check_operands,
@@ -53,6 +64,14 @@ from repro_torch.kernels.consensus_mix.ops import (
 
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "segment_mix.cu"]
 MAX_SLOTS = 2**31 - 1  # the kernel counts slots in an int
+ROUTES = ("gather", "tile")  # segment_mix_route's codes
+# kTileMinDensity and kTileMaxSlots in the CUDA source (its kTileMinPeers
+# and kTileMaxPeers are ops' TILE_MIN_PEERS and TILE_MAX_PEERS, the same
+# tile's edges): below K / TILE_MIN_DENSITY slots (sparse rows, where the
+# tile's dense product is mostly zeros) the gather is the faster route
+# (PERF.md section 6); TILE_MAX_SLOTS bounds the table scatter's work
+TILE_MIN_DENSITY = 3
+TILE_MAX_SLOTS = 4096
 
 launches = LaunchCounter()
 
@@ -70,7 +89,19 @@ def load_kernel() -> build.KernelLibrary:
     fn.argtypes = [ptr, i64, i64, ptr, ptr, ptr, ptr, i64, i64, i64, ctypes.c_float,
                    ptr, ptr, ptr, ptr, ptr]
     fn.restype = ctypes.c_int
+    kl.lib.segment_mix_route.argtypes = [i64, i64]
+    kl.lib.segment_mix_route.restype = i64
     return kl
+
+
+def kernel_route(k: int, d: int) -> str:
+    """The route a CUDA call of ``k`` peers and ``d`` slots takes:
+    ``"tile"`` from ``TILE_MIN_PEERS`` to ``TILE_MAX_PEERS`` peers with
+    ``k / TILE_MIN_DENSITY`` to ``TILE_MAX_SLOTS`` slots, ``"gather"``
+    otherwise; the CUDA source's ``route`` is the same rule."""
+    tile = (TILE_MIN_PEERS <= k <= TILE_MAX_PEERS and TILE_MIN_DENSITY * d >= k
+            and d <= TILE_MAX_SLOTS)
+    return "tile" if tile else "gather"
 
 
 def check_schedule(flat: torch.Tensor, ops_s: SparseOperands, local_steps: int) -> None:

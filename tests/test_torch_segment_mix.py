@@ -5,11 +5,18 @@ Pallas wrappers of the same names, run in interpret mode as
 tests/test_kernels.py runs them, and against the dense oracle
 ``ref.segment_mix_ref`` of both packages.  The slot forms of
 ``core.consensus`` are held to the reference's.  The CUDA kernel itself is
-held to this plain version on the card by chip_smoke.py.
+held to this plain version on the card by chip_smoke.py, on both of its
+routes (the column tile from 16 to 128 peers, a persistent gather
+elsewhere); here ``kernel_route`` is held to the CUDA source's constants,
+and the plain version to the reference at the shapes where the routes
+meet (K = 100, 128 and 129, and K = 32 at a degree bound past K; the mass
+mode at K = 100).
 
 Tolerance: float32 atol 5e-5 / rtol 1e-4, tests/test_kernels.py's: the
 slot-ordered sums reduce in another order than the dense products.
 """
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -180,3 +187,80 @@ def test_cpu_wrapper_leaves_launch_counter_at_zero():
     for r in range(4):
         tseg.segment_mix_schedule(torch.as_tensor(_flat(8, 33, seed=r)), r, ops_s, T)
     assert tseg.launches.count == 0
+
+
+# The kernel's two routes meet at these shapes: the column tile from
+# TILE_MIN_PEERS to TILE_MAX_PEERS peers with K / TILE_MIN_DENSITY to
+# TILE_MAX_SLOTS slots, the persistent gather elsewhere.
+@pytest.mark.parametrize("k,d,route", [
+    (8, 7, "gather"), (15, 14, "gather"), (16, 15, "tile"), (100, 99, "tile"),
+    (128, 127, "tile"), (129, 128, "gather"), (4096, 2, "gather"),
+    (16, 40, "tile"),  # a degree bound past K: the padding slots scatter +0.0
+    (100, 4097, "gather"),  # past TILE_MAX_SLOTS
+    (64, 2, "gather"), (128, 42, "gather"), (128, 43, "tile"),  # sparse rows: D < K / 3
+])
+def test_kernel_route(k, d, route):
+    """``kernel_route`` is the CUDA source's rule, on its constants."""
+    assert tseg.kernel_route(k, d) == route
+    src = Path(tseg.SOURCES[0]).read_text()
+    for name, value in (("kTileMinPeers", tseg.TILE_MIN_PEERS),
+                        ("kTileMaxPeers", tseg.TILE_MAX_PEERS),
+                        ("kTileMinDensity", tseg.TILE_MIN_DENSITY),
+                        ("kTileMaxSlots", tseg.TILE_MAX_SLOTS)):
+        assert f"constexpr int {name} = {value};" in src
+    assert "kTileMinDensity * d_slots >= num_peers" in src
+    assert '#include "tile_mix.cuh"' in src
+    assert tseg.ROUTES == ("gather", "tile") and "kRouteGather = 0, kRouteTile = 1" in src
+
+
+def _complete(k, *, stochasticity="row", degree_bound=None):
+    sched = tgraph.static_schedule(tgraph.build_graph("complete", k))
+    return tgraph.SparseSchedule.from_schedule(
+        sched, "data_weighted", data_sizes=np.arange(1, k + 1) * 10,
+        stochasticity=stochasticity, degree_bound=degree_bound)
+
+
+@pytest.mark.parametrize("k,bound", [(100, None), (128, None), (129, None), (32, 34)])
+def test_plain_matches_reference_at_the_route_edges(k, bound):
+    """At the shapes where the routes meet (the tile's K = 100 main path and
+    its cap, the gather just past it, and a tile shape whose degree bound
+    exceeds K, so two padding slots a row), the plain version the card
+    holds both routes to is held to the reference's Pallas wrapper and to
+    both packages' dense oracles."""
+    n = 36
+    sp = _complete(k, degree_bound=bound)
+    assert sp.degree_bound == (k - 1 if bound is None else bound)
+    w_np, b_np = sp.to_dense()
+    flat = _flat(k, n, seed=k)
+    got = tseg.segment_mix_stacked(torch.as_tensor(flat),
+                                   tops.select_round(tops.upload_schedule(sp), 0), T)
+    jm, jd = jseg.segment_mix_stacked({"w": jnp.asarray(flat)}, *_jax_round_ops(sp, 0), T)
+    dense = jref.segment_mix_ref(jnp.asarray(flat), jnp.asarray(w_np[0], jnp.float32),
+                                 jnp.asarray(b_np[0], jnp.float32), T)
+    tdense = tref.segment_mix_ref(torch.as_tensor(flat), torch.as_tensor(w_np[0]),
+                                  torch.as_tensor(b_np[0]), T)
+    for want in ((jm["w"], jd["w"]), dense, tdense):
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+
+
+def test_mass_mode_plain_matches_reference_at_k100():
+    """``iid_k100 --protocol push_sum`` on the segment runtime (the tile
+    route on the card): the mass mode's plain version against the
+    reference's ``segment_mix_push_sum_stacked`` and its dense oracle."""
+    k, n = 100, 36
+    sp = _complete(k, stochasticity="column")
+    a_np, b_np = sp.to_dense()
+    flat = _flat(k, n, seed=12)
+    mass = np.random.default_rng(13).uniform(0.2, 2.0, k).astype(np.float32)
+    got = tseg.segment_mix_push_sum_stacked(
+        torch.as_tensor(flat), torch.as_tensor(mass),
+        tops.select_round(tops.upload_schedule(sp), 0), T)
+    jm, jd, jy = jseg.segment_mix_push_sum_stacked({"w": jnp.asarray(flat)}, jnp.asarray(mass),
+                                                   *_jax_round_ops(sp, 0), T)
+    dense = jref.segment_mix_push_sum_ref(jnp.asarray(flat), jnp.asarray(mass),
+                                          jnp.asarray(a_np[0], jnp.float32),
+                                          jnp.asarray(b_np[0], jnp.float32), T)
+    for want in ((jm["w"], jd["w"], jy), dense):
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
