@@ -7,9 +7,9 @@ In order:
    the card's peak memory rate, float32 rate and dense bf16 and TF32 tensor
    rates from its name;
 2. builds every kernel of the port's main paths from this checkout's sources,
-   one nvcc per source, all started together (six: ``consensus_mix``,
-   ``dequant_mix``, ``segment_mix``, ``wkv6``, ``flash_attention``,
-   ``ssd``), and prints ptxas's report;
+   one nvcc per source, all started together (seven: ``consensus_mix``,
+   ``dequant_mix``, ``segment_mix``, ``wkv6``, ``flash_attention`` and its
+   backward ``flash_attention_bwd``, ``ssd``), and prints ptxas's report;
 3. holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes and times kernel, plain version and, where one exists,
    one PyTorch library call in turns with CUDA events (atol 5e-5 / rtol 1e-4
@@ -103,7 +103,36 @@ In order:
    design's edges: B * H on either side of each change of the split, in
    bf16 and float32; B 1, H 80 in bf16 (split 4); P 64, N 32 split 4;
    T 65, T 17, chunk 48 and chunk 1, and P 16, N 8 over 3 groups, in both
-   types);
+   types); ``flash_attention_bwd`` at ten, dq, dk and dv against the plain
+   backward on the forward kernel's own output and row log-sum-exp (the
+   lse against the plain forward's; bf16 atol = rtol = 5e-2 and a relative
+   norm error under 1e-2, float32 a relative norm error under 1e-5; two
+   calls equal bit for bit), six timed against SDPA's backward
+   (``torch.autograd.grad`` through ``scaled_dot_product_attention(...,
+   enable_gqa=True)``): the LM round's B 16 (K = 4 peers x batch 4), S 1024,
+   H 9, Kh 3, D 64, causal, bf16; minitron's B 4, S 1024, H 32, Kh 8, D
+   128; a window of 256; non-causal at D 80; float32 at D 32 and 64; and
+   ragged S 1000, 130 (window 48), 200 (float32 D 128) and 77 (float32 D
+   80, non-causal); ``consensus_mix``'s bf16 mode (gossip) at six against
+   its plain version (atol = rtol = 5e-2), each asserting its design and
+   its vector path (rows of a multiple of 8), timed against the dense bf16
+   product: the LM round's K = 4 complete at smollm-135m's row (N =
+   134,515,008, the gather), K = 2, K = 100 at the 2NN's bf16 row (the
+   tile), a K = 8 ring with a zero beta row, K = 24 with zero beta rows at
+   N = 4099 and K = 4 at N = 5003 (the scalar path of each design);
+3b. trains smollm-135m at full width (30 layers, d 576, vocab 49,152, tied,
+   bf16, nothing cut) P2P through ``core.task.from_model``, ``init_state``
+   and ``make_round_fn`` (``drive_p2p_lm``): K = 4 on the complete graph,
+   batch 4, seq 1024, T = 4, S = 1, p2pl_affinity, seed 0; the first local
+   step's stacked losses (equal) and gradients against the same step with
+   the plain attention backward (atol = rtol = 5e-2, relative norm error
+   under 5e-2); 3 rounds, each launching ``flash_attention`` and
+   ``flash_attention_bwd`` 120 times and ``consensus_mix`` once (bf16 mode,
+   the gather), no plain version; losses, drift and state finite; then one
+   more round through its two phases, timed apart; s/round and peak memory;
+   then the reference's entry point as it is, ``run_p2p_lm("smollm-135m",
+   rounds=4)`` (reduced, float32: 32 launches each way, 4 of
+   ``consensus_mix``);
 4. serves RWKV6-7B at full width and depth (bf16, random init on the card)
    through ``serve_batch``: batch 4, prompt 1024, first prefill only, then
    prefill and 15 decode steps, asserting ``wkv6`` launched once per layer
@@ -196,13 +225,13 @@ In order:
    ``rwkv6_features`` chunked (``wkv6``, 2 launches) against the token loop
    at B = 256, ``wkv6`` at B 256, T 196, H 4, dk 16, chunk 49 against its
    plain version (timed) and from a random state, autograd through
-   ``wkv6`` (directly and under ``rwkv6_loss_fn``), ``ssd`` and
-   ``flash_attention`` raising ``NotImplementedError`` with nothing
-   launched, ``consensus_mix`` (gossip and mass mode) and ``dequant_mix``
-   held and timed at the task's row, gossip static, push-sum static and
-   gossip round robin over qint8 (3 rounds each), both drivers on gossip
-   and push-sum (6 rounds, eval every 3), and one round's kernels eager and
-   on replay (torch.profiler), printing the phase's seconds; with
+   ``wkv6`` (directly and under ``rwkv6_loss_fn``) and ``ssd`` raising
+   ``NotImplementedError`` with nothing launched, ``consensus_mix`` (gossip
+   and mass mode) and ``dequant_mix`` held and timed at the task's row,
+   gossip static, push-sum static and gossip round robin over qint8 (3
+   rounds each), both drivers on gossip and push-sum (6 rounds, eval every
+   3), and one round's kernels eager and on replay (torch.profiler),
+   printing the phase's seconds; with
    every kernel's launch count reset just before and read just after each
    run, and every plain version's calls counted (none allowed); after each
    of the first, the compressed, the hierarchical and three push-sum runs it
@@ -240,11 +269,12 @@ In order:
    state 13.1 GB, so a graph of the round would save little and its carry
    copy more memory), and prints its seconds per round and peak memory
    beside the state's size;
-10. prints the ``kernels`` JSON line (each consensus kernel with its mass
-   mode beside its gossip mode, ``segment_mix`` at K = 100 beside K = 4096
-   in both modes and with its routes' edges, ``consensus_mix`` also with
-   its snapshot
-   mode, ``consensus_mix`` and ``dequant_mix`` with their dense-operand
+10. prints the ``kernels`` JSON line (``flash_attention_bwd`` among them,
+   with the LM step's gradient check; ``consensus_mix`` with its bf16 mode;
+   each consensus kernel with its mass mode beside its gossip mode,
+   ``segment_mix`` at K = 100 beside K = 4096 in both modes and with its
+   routes' edges, ``consensus_mix`` also with its snapshot mode,
+   ``consensus_mix`` and ``dequant_mix`` with their dense-operand
    cases and the adaptive paths' launches) and, last, the contract line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -450,6 +480,84 @@ def consensus_cases(card: Card, row: int) -> list[dict]:
                        zero_beta_rows=(5,), seed=5),
         consensus_case(card, f"gather_k{cap + 1}", complete(cap + 1), np.arange(1, cap + 2) * 5,
                        50000, zero_beta_rows=(5,), want_path="gather", seed=6),
+    ]
+
+
+CONSENSUS_BF16_TOL = dict(atol=5e-2, rtol=5e-2)  # bf16, as tests/test_kernels.py
+
+
+def consensus_bf16_case(card, name, graph, sizes, n, *, zero_beta_rows=(), want_path="gather",
+                        seed=0):
+    """The bf16 storage mode of ``consensus_mix`` (gossip) vs its plain
+    version on the card: x bf16, float32 sums, mixed and d rounded to bf16
+    (atol = rtol = 5e-2), timed in turns against the dense bf16 library
+    product ``[W_off; Beta] X`` (float32 accumulation)."""
+    from repro_torch.core import graph as graph_lib
+    from repro_torch.kernels.consensus_mix import ops, ref
+
+    dev = torch.device("cuda")
+    local_steps = 4
+    w = graph_lib.mixing_matrix(graph, "data_weighted", data_sizes=sizes)
+    beta = graph_lib.affinity_matrix(graph, data_sizes=sizes)
+    beta[list(zero_beta_rows)] = 0.0
+    sparse = ops.sparse_from_matrices(w, beta, device=dev)
+    k, d = sparse.nbr_idx.shape
+    path = "tile" if ops.takes_tile_path(k) else "gather"
+    check(path == want_path, f"{name}: {path} design, want {want_path}")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(k, n, generator=gen, device=dev).to(torch.bfloat16)
+    vector = ops.vector_width(x) > 1
+    check(vector == (n % 8 == 0), f"{name}: the vector path iff N = {n} is a multiple of 8")
+    got = ops.consensus_mix_stacked(x, sparse, local_steps)
+    want = ref.consensus_mix_stacked_ref(x, *sparse, local_steps)
+    torch.cuda.synchronize()
+    err, rel = 0.0, 0.0
+    for g, r, what in zip(got, want, ("mixed", "d")):
+        check(g.dtype == torch.bfloat16, f"{name} {what} is bf16")
+        torch.testing.assert_close(g.float(), r.float(), **CONSENSUS_BF16_TOL,
+                                   msg=lambda m: f"{name} {what}: {m}")
+        err = max(err, float((g.float() - r.float()).abs().max()))
+        rel = max(rel, rel_norm(g, r))
+    for row in zero_beta_rows:
+        check(bool((got[1][row] == 0).all()), f"{name}: zero beta row {row} gives d = 0")
+    del got, want
+    mixed, d_out = torch.empty_like(x), torch.empty_like(x)
+    dense = torch.as_tensor(np.concatenate([w, beta]),
+                            dtype=torch.bfloat16, device=dev)
+    lib_out = torch.empty((2 * k, n), dtype=torch.bfloat16, device=dev)
+    kern = lambda: ops.launch(x, sparse, local_steps, mixed, d_out)  # noqa: E731
+    plain = lambda: ref.consensus_mix_stacked_ref(x, *sparse, local_steps)  # noqa: E731
+    library = lambda: torch.matmul(dense, x, out=lib_out)  # noqa: E731
+    times = in_turns(plain, kern, library)
+    real = (sparse.nbr_idx != torch.arange(k, device=dev)[:, None]).sum().item()
+    flops = n * (4 * real + 3 * k)
+    nbytes = 3 * k * n * 2 + k * 4 + 3 * k * d * 4  # bf16 x once, mixed + d; operands
+    case = {"case": name, "K": k, "D": d, "N": n, "path": path, "vector_path": vector,
+            "dtype": "bfloat16", "max_abs_err": err, "rel_norm_err": rel, **times,
+            **card.bound(nbytes, flops)}
+    del x, mixed, d_out, lib_out
+    torch.cuda.empty_cache()
+    return case
+
+
+def consensus_bf16_cases(card: Card, lm_row: int, mlp_row: int) -> list[dict]:
+    """The bf16 mode at the LM round's shape (K = 4 complete at smollm-135m's
+    row, the gather), K = 2, K = 100 at the 2NN's bf16 row (the tile), a
+    zero beta row on each design, and rows of no multiple of 8 elements
+    (the scalar path) on each design."""
+    from repro_torch.core import graph as graph_lib
+
+    complete = lambda k: graph_lib.build_graph("complete", k)  # noqa: E731
+    return [
+        consensus_bf16_case(card, "lm_smollm_k4", complete(4), np.ones(4), lm_row),
+        consensus_bf16_case(card, "k2", complete(2), np.ones(2), 1 << 20, seed=1),
+        consensus_bf16_case(card, "k100_mlp_row", complete(100), np.full(100, 600), mlp_row,
+                            want_path="tile", seed=2),
+        consensus_bf16_case(card, "k8_ring_zero_beta", graph_lib.build_graph("ring", 8),
+                            np.arange(1, 9) * 10, 1 << 16, zero_beta_rows=(3,), seed=3),
+        consensus_bf16_case(card, "k24_zero_beta_ragged", complete(24), np.arange(1, 25) * 6,
+                            4099, zero_beta_rows=(0, 11), want_path="tile", seed=4),
+        consensus_bf16_case(card, "k4_ragged_n", complete(4), np.arange(1, 5), 5003, seed=5),
     ]
 
 
@@ -681,10 +789,12 @@ def build_kernels() -> None:
     start = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:
         libs = dict(zip(("consensus_mix", "dequant_mix", "segment_mix", "wkv6",
-                         "flash_attention", "ssd"),
-                        pool.map(lambda mod: mod.load_kernel(),
-                                 (ops, dequant, segment, wkv6_ops, flash_ops, ssd_ops))))
-    print(f"build: all six kernels in {time.perf_counter() - start:.2f} s", flush=True)
+                         "flash_attention", "flash_attention_bwd", "ssd"),
+                        pool.map(lambda load: load(),
+                                 (ops.load_kernel, dequant.load_kernel, segment.load_kernel,
+                                  wkv6_ops.load_kernel, flash_ops.load_kernel,
+                                  flash_ops.load_bwd_kernel, ssd_ops.load_kernel))))
+    print(f"build: all seven kernels in {time.perf_counter() - start:.2f} s", flush=True)
     for name, kl in libs.items():
         print(f"  {name}: nvcc {kl.build_seconds:.2f} s -> {kl.path.relative_to(ROOT)}")
         for line in kl.log.splitlines():
@@ -1604,6 +1714,9 @@ def flash_cases(card: Card) -> list[dict]:
         flash_case(card, "tiny_s5", 1, 5, 32, 8, 128, want_route=wg, seed=4),
         flash_case(card, "noncausal_f32", 2, 512, 4, 4, 64, causal=False, dtype=f32, seed=5),
         flash_case(card, "smollm", 2, 512, 9, 3, 64, want_route="mma_sync", seed=6),
+        # the LM round's forward: K = 4 peers x batch 4 folded into B 16
+        flash_case(card, "lm_smollm_k4", 16, 1024, 9, 3, 64, timed=True, want_route="mma_sync",
+                   seed=23),
         flash_case(card, "zamba2_d80", 4, 1024, 32, 32, 80, timed=True, want_route=wg, seed=7),
         flash_case(card, "qwen3moe_group16", 4, 1024, 64, 4, 128, timed=True, want_route=wg,
                    seed=19),
@@ -1658,6 +1771,142 @@ def _print_flash_case(c: dict) -> None:
           f"route={c['route']} "
           f"max_abs_err={c['max_abs_err']:.3g} rel_norm_err={c['rel_norm_err']:.3g} "
           f"(max |out| {c['max_abs']:.4g}){times}", flush=True)
+
+
+FLASH_BWD_BF16_TOL = dict(atol=5e-2, rtol=5e-2)  # bf16 gradients, as tests/test_kernels.py
+FLASH_BWD_REL_NORM = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+FLASH_LSE_TOL = {torch.float32: TOL, torch.bfloat16: dict(atol=2e-3, rtol=1e-4)}
+
+
+def flash_bwd_work(b, s, h, kh, d, *, causal, window, elem_bytes):
+    """(bytes, FLOP) one backward call needs: q, k, v, o and do read once,
+    the float32 lse read once, dq, dk and dv written once; the five products
+    (s, dp, dv, dq, dk) are 10 D operations a live (q, k) pair, 2.5 times the
+    forward's."""
+    nbytes = (4 * b * s * h * d + 4 * b * s * kh * d) * elem_bytes + b * h * s * 4
+    return nbytes, 10 * d * b * h * flash_live_pairs(s, causal=causal, window=window)
+
+
+def flash_bwd_case(card, name, b, s, h, kh, d, *, causal=True, window=None,
+                   dtype=torch.bfloat16, timed=False, seed=0):
+    """The backward kernel vs the plain backward on the card at one shape:
+    the forward kernel's output and row log-sum-exp (the lse against the
+    plain forward's), then dq, dk, dv from both backwards on the same
+    inputs; ``timed`` also times kernel, plain backward and SDPA's backward
+    (``torch.autograd.grad`` through ``scaled_dot_product_attention(...,
+    enable_gqa=True)``) in turns."""
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(b, s, kh, d, generator=gen, device=dev).to(dtype) for _ in range(2))
+    dout = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
+    route = ("float32", "mma_sync")[ops.load_bwd_kernel().lib.flash_attention_bwd_route(
+        ops.DTYPE_CODES[dtype], d)]
+    scale = d**-0.5
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+    ops.launch(q, k, v, out, causal=causal, window=window, scale=scale, lse=lse)
+    want_out, want_lse = ref.gqa_attention_ref(q, k, v, causal=causal, window=window,
+                                               return_lse=True)
+    torch.cuda.synchronize()
+    check_flash(out, want_out, f"flash_bwd {name} forward")
+    torch.testing.assert_close(lse, want_lse, **FLASH_LSE_TOL[dtype],
+                               msg=lambda m: f"flash_bwd {name} lse: {m}")
+    lse_err = float((lse - want_lse).abs().max())
+    del want_out, want_lse
+    got = ops.attention_bwd(q, k, v, out, dout, lse, causal=causal, window=window, scale=scale)
+    want = ref.gqa_attention_bwd_ref(q, k, v, out, dout, lse, causal=causal, window=window,
+                                     scale=scale)
+    torch.cuda.synchronize()
+    errs, rels = [], []
+    for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+        check(g.dtype == dtype and g.shape == w.shape and bool(torch.isfinite(g.float()).all()),
+              f"flash_bwd {name} {what} finite, {dtype}, {tuple(w.shape)}")
+        if dtype == torch.bfloat16:
+            torch.testing.assert_close(g.float(), w.float(), **FLASH_BWD_BF16_TOL,
+                                       msg=lambda m: f"flash_bwd {name} {what}: {m}")
+        rel = rel_norm(g, w)
+        check(rel < FLASH_BWD_REL_NORM[dtype],
+              f"flash_bwd {name} {what}: relative norm error {rel} >= "
+              f"{FLASH_BWD_REL_NORM[dtype]}")
+        errs.append(float((g.float() - w.float()).abs().max()))
+        rels.append(rel)
+    again = ops.attention_bwd(q, k, v, out, dout, lse, causal=causal, window=window,
+                              scale=scale)
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          f"flash_bwd {name}: two calls give the same bits (no atomics)")
+    case = {"case": name, "B": b, "S": s, "H": h, "Kh": kh, "D": d, "causal": causal,
+            "window": window, "dtype": str(dtype).removeprefix("torch."), "route": route,
+            "max_abs_err": max(errs), "rel_norm_err": max(rels), "lse_max_abs_err": lse_err,
+            "max_abs": max(float(w.float().abs().max()) for w in want)}
+    del got, want, again
+    if timed:
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+        kw = (dict(is_causal=causal) if window is None else
+              dict(attn_mask=visible_mask(s, causal=causal, window=window, device=dev)))
+        lib_out = sdpa(qt, kt, vt, enable_gqa=True, **kw)
+        dout_t = dout.transpose(1, 2)
+        library = lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dout_t,  # noqa: E731
+                                              retain_graph=True)
+        lib_dq = library()[0].transpose(1, 2)
+        case["library_dq_rel_norm_err"] = rel_norm(lib_dq, ops.attention_bwd(
+            q, k, v, out, dout, lse, causal=causal, window=window, scale=scale)[0])
+        del lib_dq
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        delta = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+        kern = lambda: ops.launch_bwd(q, k, v, out, dout, lse, dq, dk, dv, delta,  # noqa: E731
+                                      causal=causal, window=window, scale=scale)
+        plain = lambda: ref.gqa_attention_bwd_ref(q, k, v, out, dout, lse,  # noqa: E731
+                                                  causal=causal, window=window, scale=scale)
+        case.update(in_turns(plain, kern, library))
+        case.update(card.bound(*flash_bwd_work(b, s, h, kh, d, causal=causal, window=window,
+                                               elem_bytes=q.element_size()),
+                               bf16=dtype == torch.bfloat16))
+        del lib_out, qt, kt, vt
+    del q, k, v, dout, out, lse
+    torch.cuda.empty_cache()
+    return case
+
+
+def flash_bwd_cases(card: Card) -> list[dict]:
+    """The backward kernel at the LM round's shape (smollm-135m: the K = 4
+    peers' batch of 4 folded into B 16, S 1024, H 9, Kh 3, D 64, causal,
+    bf16), at minitron's prefill shape, with a window, non-causal, in
+    float32 (the reduced configs' D 32), and at S that are no multiple of
+    a tile, at every head width."""
+    f32 = torch.float32
+    return [
+        flash_bwd_case(card, "lm_smollm_k4", 16, 1024, 9, 3, 64, timed=True),
+        flash_bwd_case(card, "minitron", 4, 1024, 32, 8, 128, timed=True, seed=1),
+        flash_bwd_case(card, "window256", 2, 1024, 8, 2, 64, window=256, timed=True, seed=2),
+        flash_bwd_case(card, "noncausal_d80", 2, 512, 4, 4, 80, causal=False, timed=True,
+                       seed=3),
+        flash_bwd_case(card, "reduced_f32_d32", 8, 32, 4, 2, 32, dtype=f32, timed=True,
+                       seed=4),
+        flash_bwd_case(card, "f32_s512_d64", 2, 512, 4, 2, 64, dtype=f32, timed=True, seed=5),
+        flash_bwd_case(card, "ragged_s1000", 2, 1000, 9, 3, 64, seed=6),
+        flash_bwd_case(card, "ragged_s130_d32", 1, 130, 4, 2, 32, window=48, seed=7),
+        flash_bwd_case(card, "ragged_s200_d128_f32", 1, 200, 2, 1, 128, dtype=f32, seed=8),
+        flash_bwd_case(card, "ragged_s77_d80_f32", 1, 77, 4, 2, 80, dtype=f32, causal=False,
+                       seed=9),
+    ]
+
+
+def _print_flash_bwd_case(c: dict) -> None:
+    times = ""
+    if "ms" in c:
+        times = (f" kernel={c['ms']:.4f} ms plain={c['plain_ms']:.4f} ms "
+                 f"library(SDPA backward)={c['library_ms']:.4f} ms "
+                 f"(its dq's relative norm error {c['library_dq_rel_norm_err']:.3g}) "
+                 f"bound={c['bound_ms']:.4f} ms ({c['bound_by']}; {c['bound_card']})")
+    print(f"flash_attention_bwd {c['case']}: B={c['B']} S={c['S']} H={c['H']} Kh={c['Kh']} "
+          f"D={c['D']} causal={c['causal']} window={c['window']} {c['dtype']} "
+          f"route={c['route']} max_abs_err={c['max_abs_err']:.3g} "
+          f"rel_norm_err={c['rel_norm_err']:.3g} (max |grad| {c['max_abs']:.4g}; lse "
+          f"max_abs_err {c['lse_max_abs_err']:.3g}){times}", flush=True)
 
 
 # The kernel and its plain version compute in float32 from the same values
@@ -1840,19 +2089,27 @@ def _print_ssd_case(c: dict) -> None:
 
 
 def check_kernels(card: Card) -> dict[str, list[dict]]:
-    """Build the six kernels and hold each against its plain version at its
+    """Build the seven kernels and hold each against its plain version at its
     shapes; the three consensus kernels' mass mode under "<kernel> mass",
-    ``consensus_mix``'s snapshot mode under "consensus_mix snapshot", and
-    adaptive rounds' dense operands under "<kernel> dense"."""
-    from repro_torch.core.p2p import layout_of
+    ``consensus_mix``'s snapshot mode under "consensus_mix snapshot" and its
+    bf16 mode under "consensus_mix bf16", and adaptive rounds' dense
+    operands under "<kernel> dense"."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.p2p import layout_of, row_align
+    from repro_torch.models import transformer as tf
 
     build_kernels()
     layout = layout_of("mnist_mlp")
     row = layout.row  # 199,210 parameters -> 199,212
+    align = row_align(torch.bfloat16)
+    bf16_row = lambda n: -(-n // align) * align  # noqa: E731
+    lm_size = sum(math.prod(s) for s in tf.decoder_param_shapes(get_config(LM_ARCH)).values())
     cases = {"consensus_mix": consensus_cases(card, row),
              "dequant_mix": dequant_cases(card, layout), "segment_mix": segment_cases(card),
              "wkv6": wkv6_cases(card), "flash_attention": flash_cases(card),
-             "ssd": ssd_cases(card)}
+             "flash_attention_bwd": flash_bwd_cases(card), "ssd": ssd_cases(card),
+             "consensus_mix bf16": consensus_bf16_cases(card, bf16_row(lm_size),
+                                                        bf16_row(layout.size))}
     for kernel, kcases in mass_cases(card).items():
         cases[f"{kernel} mass"] = kcases
     cases["consensus_mix snapshot"] = snapshot_cases(card)
@@ -1864,6 +2121,8 @@ def check_kernels(card: Card) -> dict[str, list[dict]]:
                 _print_wkv6_case(c)
             elif kernel == "flash_attention":
                 _print_flash_case(c)
+            elif kernel == "flash_attention_bwd":
+                _print_flash_bwd_case(c)
             elif kernel == "ssd":
                 _print_ssd_case(c)
             else:
@@ -1959,7 +2218,8 @@ def launch_counters() -> dict:
 
     return {"consensus_mix": ops.launches, "dequant_mix": dequant.launches,
             "segment_mix": segment.launches, "wkv6": wkv6_ops.launches,
-            "flash_attention": flash_ops.launches, "ssd": ssd_ops.launches}
+            "flash_attention": flash_ops.launches,
+            "flash_attention_bwd": flash_ops.bwd_launches, "ssd": ssd_ops.launches}
 
 
 @contextlib.contextmanager
@@ -2244,6 +2504,212 @@ def drive_large_k(exp, rounds: int, data) -> dict:
             "state_gb": state_gb, "seconds": seconds, "setup_s": setup_s}
 
 
+LM_ARCH = "smollm-135m"
+LM_PEERS, LM_BATCH, LM_SEQ, LM_STEPS, LM_ROUNDS = 4, 4, 1024, 4, 3
+LM_REDUCED_ROUNDS = 4
+# the first step's bf16 gradients, kernel against plain backward, through 30
+# layers of bf16 activations: tests/test_kernels.py's bf16 tolerance, 5e-2,
+# on every entry and on the relative norm of the difference (each backward
+# call alone is held to 1e-2, FLASH_BWD_REL_NORM)
+LM_GRAD_TOL = dict(atol=5e-2, rtol=5e-2)
+LM_GRAD_REL_NORM = 5e-2
+
+
+@contextlib.contextmanager
+def plain_attention_backward():
+    """While active, ``FlashAttention``'s backward runs the plain backward
+    on CUDA tensors too (the yardstick of the gradient check): its module
+    function ``attention_bwd`` is swapped for the plain version."""
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    real = ops.attention_bwd
+
+    def plain(q, k, v, out, dout, lse, *, causal, window, scale):
+        return ref.gqa_attention_bwd_ref(q, k, v, out, dout, lse, causal=causal, window=window,
+                                         scale=scale)
+
+    ops.attention_bwd = plain
+    try:
+        yield
+    finally:
+        ops.attention_bwd = real
+
+
+def lm_step_grads(task, layout, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
+    """The local step's stacked losses and flat gradients, as ``local_phase``
+    takes them (one backward of the summed per-peer losses)."""
+    views = layout.views(params.detach().requires_grad_(True))
+    losses = task.loss_fn(views, batch)
+    grads = torch.autograd.grad(losses.sum(), list(views.values()), materialize_grads=True)
+    return losses.detach(), layout.flatten(dict(zip(views, grads)))
+
+
+def drive_p2p_lm(card: Card) -> dict:
+    """The slice's path at full width: P2P training of smollm-135m (30
+    layers, d 576, 9 heads over 3 KV heads, D 64, vocab 49,152, tied, bf16,
+    nothing cut) through ``core.task.from_model``, ``init_state`` and
+    ``make_round_fn``: K = 4 peers on the complete graph, batch 4, seq 1024,
+    T = 4, S = 1, p2pl_affinity, seed 0 (``run_p2p_lm``'s step sizes and
+    token draws).  First the first local step's stacked losses and
+    gradients against the same step with the plain attention backward on
+    the card; then LM_ROUNDS rounds, every launch count reset just before
+    and read just after each (forward and backward ``flash_attention`` 30 T
+    a round, ``consensus_mix`` S); then one more round through the two
+    phases with synchronized timers.  Prints s/round, the phases' seconds,
+    the launches, the peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import consensus as consensus_lib
+    from repro_torch.core import p2p, task as task_lib
+    from repro_torch.launch import train
+    from repro_torch.models.registry import build_model
+
+    dev = torch.device("cuda")
+    cfg = get_config(LM_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    task = task_lib.from_model(build_model(cfg))
+    pcfg = train.lm_config(num_peers=LM_PEERS, local_steps=LM_STEPS, algorithm="p2pl_affinity",
+                           lr=1e-2, momentum=0.5, eta_d=0.25)
+    state = p2p.init_state(task, pcfg, seed=0, device=dev)
+    round_fn = p2p.make_round_fn(task, pcfg, device=dev)
+    layout = p2p.ParamLayout.of(task)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - start
+    check(state.params.dtype == torch.bfloat16 and state.params.shape == (LM_PEERS, layout.row)
+          and layout.row % 8 == 0, f"{LM_ARCH}: a (K, row) bf16 buffer, row a multiple of 8")
+    rng = np.random.default_rng(0)
+
+    def round_batches():
+        tokens, labels = train.lm_token_batches(rng, cfg.vocab_size, num_peers=LM_PEERS,
+                                                local_steps=LM_STEPS, batch=LM_BATCH, seq=LM_SEQ)
+        return tuple(torch.as_tensor(a, dtype=torch.int64, device=dev) for a in (tokens, labels))
+
+    counters = launch_counters()
+    batches = round_batches()
+    step0 = (batches[0][0], batches[1][0])
+    for counter in counters.values():
+        counter.reset()
+    losses_k, grads_k = lm_step_grads(task, layout, state.params, step0)
+    torch.cuda.synchronize()
+    step_launches = {key: c.count for key, c in counters.items() if c.count}
+    want_step = {"flash_attention": cfg.num_layers, "flash_attention_bwd": cfg.num_layers}
+    check(step_launches == want_step, f"{LM_ARCH} step launched {step_launches}, "
+          f"want {want_step}")
+    with plain_attention_backward():
+        losses_p, grads_p = lm_step_grads(task, layout, state.params, step0)
+    torch.cuda.synchronize()
+    check(torch.equal(losses_k, losses_p), f"{LM_ARCH}: the step's losses equal")
+    check(bool(torch.isfinite(grads_k.float()).all()), f"{LM_ARCH}: gradients finite")
+    torch.testing.assert_close(grads_k.float(), grads_p.float(), **LM_GRAD_TOL,
+                               msg=lambda m: f"{LM_ARCH} gradients: {m}")
+    grad_rel = rel_norm(grads_k, grads_p)
+    leaf_rel = {name: rel_norm(a, b) for (name, a), b in zip(
+        layout.views(grads_k).items(), layout.views(grads_p).values())}
+    grad_check = {"losses": losses_k.tolist(), "rel_norm_err": grad_rel,
+                  "max_abs_err": float((grads_k.float() - grads_p.float()).abs().max()),
+                  "max_abs": float(grads_p.float().abs().max()),
+                  "leaf_rel_norm_err_max": max(leaf_rel.values()),
+                  "leaf_rel_norm_err": leaf_rel}
+    print(f"{LM_ARCH} first local step ({card.line}): losses {losses_k.tolist()}; gradients "
+          f"against the plain attention backward: relative norm error {grad_rel:.3g}, max abs "
+          f"error {grad_check['max_abs_err']:.3g} of max |grad| {grad_check['max_abs']:.3g}, "
+          f"worst leaf {max(leaf_rel, key=leaf_rel.get)} {max(leaf_rel.values()):.3g}; every "
+          f"leaf {json.dumps(leaf_rel)}", flush=True)
+    check(grad_rel < LM_GRAD_REL_NORM, f"{LM_ARCH} gradients: relative norm error {grad_rel}")
+    del grads_k, grads_p
+
+    print(f"main path: p2p_lm {LM_ARCH} full width, K={LM_PEERS} batch {LM_BATCH} seq {LM_SEQ} "
+          f"T={LM_STEPS}, {LM_ROUNDS} rounds", flush=True)
+    want = {key: 0 for key in counters} | {"flash_attention": cfg.num_layers * LM_STEPS,
+                                           "flash_attention_bwd": cfg.num_layers * LM_STEPS,
+                                           "consensus_mix": pcfg.consensus_steps}
+    seconds, losses, per_round = [], [], []
+    total = dict.fromkeys(counters, 0)
+    with count_plain_calls() as plain_calls:
+        for r in range(LM_ROUNDS):
+            if r:
+                batches = round_batches()
+            torch.cuda.synchronize()
+            for counter in counters.values():
+                counter.reset()
+            start = time.perf_counter()
+            _, state, step_losses = round_fn(state, batches)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - start)
+            launches = {key: c.count for key, c in counters.items()}
+            check(launches == want, f"{LM_ARCH} round {r} launched {launches}, want {want}")
+            per_round.append({key: n for key, n in launches.items() if n})
+            for key, n in launches.items():
+                total[key] += n
+            losses.append(float(step_losses.float().mean()))
+    check(not plain_calls, f"{LM_ARCH} called plain versions {plain_calls}")
+    check(all(math.isfinite(v) for v in losses), f"{LM_ARCH} losses finite: {losses}")
+    drift = float(consensus_lib.pairwise_drift(state.params))
+    check(math.isfinite(drift), f"{LM_ARCH} drift finite: {drift}")
+    for field in ("params", "momentum", "d_bias"):
+        check(bool(torch.isfinite(getattr(state, field).float()).all()),
+              f"{LM_ARCH} {field} finite")
+    # one more round through its two phases, timed apart
+    ops = p2p.round_operands(pcfg, device=dev)
+    batches = round_batches()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    after_local, _ = p2p.local_phase(state, task, batches, pcfg)
+    torch.cuda.synchronize()
+    local_s = time.perf_counter() - start
+    start = time.perf_counter()
+    state = p2p.consensus_phase(after_local, pcfg, ops[state.round_idx % len(ops)])
+    torch.cuda.synchronize()
+    consensus_s = time.perf_counter() - start
+    del after_local
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    state_gb = 4 * state.params.numel() * state.params.element_size() / 1e9
+    print(f"p2p_lm {LM_ARCH} ({card.line}): set-up {setup_s:.2f} s, seconds per round "
+          f"{seconds}, losses {losses}, final drift {drift:.6g}; one more round: local phase "
+          f"{local_s:.4f} s, consensus {consensus_s:.4f} s; launches per round {per_round}; "
+          f"peak memory {peak_gb:.3f} GB against {state_gb:.3f} GB for the four (K, "
+          f"{layout.row}) bf16 state buffers", flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return {"launches": {key: n for key, n in total.items() if n}, "seconds": seconds,
+            "losses": losses, "final_drift": drift, "local_s": local_s,
+            "consensus_s": consensus_s, "setup_s": setup_s, "peak_gb": peak_gb,
+            "state_gb": state_gb, "launches_per_round": per_round, "grad_check": grad_check,
+            "row": layout.row}
+
+
+def drive_run_p2p_lm_reduced(card: Card) -> dict:
+    """The reference's entry point as it is: ``run_p2p_lm(LM_ARCH,
+    rounds=LM_REDUCED_ROUNDS)`` on the card (reduced, float32: the forward
+    and backward kernels' float32 route at D 32, ``consensus_mix`` at K = 2),
+    launch counts reset just before and read just after."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import train
+
+    cfg = reduced(get_config(LM_ARCH))
+    counters = launch_counters()
+    for counter in counters.values():
+        counter.reset()
+    print(f"main path: run_p2p_lm({LM_ARCH!r}, rounds={LM_REDUCED_ROUNDS}) (reduced)",
+          flush=True)
+    start = time.perf_counter()
+    out = train.run_p2p_lm(LM_ARCH, rounds=LM_REDUCED_ROUNDS, verbose=True, device="cuda")
+    seconds = time.perf_counter() - start
+    launches = {key: c.count for key, c in counters.items()}
+    steps = LM_REDUCED_ROUNDS * 4  # the reference's default T = 4
+    want = {key: 0 for key in counters} | {"flash_attention": cfg.num_layers * steps,
+                                           "flash_attention_bwd": cfg.num_layers * steps,
+                                           "consensus_mix": LM_REDUCED_ROUNDS}
+    check(launches == want, f"run_p2p_lm launched {launches}, want {want}")
+    check(len(out["losses"]) == LM_REDUCED_ROUNDS
+          and all(math.isfinite(v) for v in out["losses"]), f"run_p2p_lm losses {out}")
+    check(math.isfinite(out["final_drift"]), f"run_p2p_lm drift {out}")
+    print(f"run_p2p_lm reduced ({card.line}): {json.dumps(out)} in {seconds:.2f} s, "
+          f"launches {launches}", flush=True)
+    return {"launches": {key: n for key, n in launches.items() if n}, "seconds": seconds, **out}
+
+
 SEQMNIST = "rwkv6_seqmnist"
 SEQMNIST_ROUNDS = 3
 
@@ -2337,10 +2803,10 @@ def check_seqmnist_wkv6(card: Card) -> dict:
 def check_backward_raises() -> dict:
     """Autograd through a forward-only kernel on the card raises
     ``NotImplementedError`` (``kernels.build.check_no_grad``) and launches
-    nothing: ``wkv6`` called directly and under ``rwkv6_loss_fn``, ``ssd`` and
-    ``flash_attention`` directly; under ``torch.no_grad`` the same calls run."""
+    nothing: ``wkv6`` called directly and under ``rwkv6_loss_fn``, and
+    ``ssd``; under ``torch.no_grad`` the same calls run.  (``flash_attention``
+    has its backward kernel: ``drive_p2p_lm`` trains through it.)"""
     from repro_torch.core import task as task_lib
-    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.mamba2 import ops as ssd_ops
     from repro_torch.kernels.rwkv6 import ops as wkv6_ops
     from repro_torch.models import transformer as tf
@@ -2352,7 +2818,6 @@ def check_backward_raises() -> dict:
     logd, u = -torch.rand(2, 98, 4, 16, generator=gen, device=dev), rnd(4, 16)
     x, bm, cm = rnd(2, 64, 4, 32).requires_grad_(True), rnd(2, 64, 1, 16), rnd(2, 64, 1, 16)
     dt, a = torch.rand(2, 64, 4, generator=gen, device=dev), -torch.ones(4, device=dev)
-    q, kk, vv = (rnd(1, 64, 2, 32).requires_grad_(True) for _ in range(3))
     cfg = task_lib.seqmnist_model_config()
     trunk = {n: t[0].to(dev).requires_grad_(True) for n, t in seqmnist_params(1).items()
              if not n.startswith("cls_head.")}
@@ -2362,7 +2827,6 @@ def check_backward_raises() -> dict:
         "wkv6 under rwkv6_loss_fn": lambda: tf.rwkv6_loss_fn(
             trunk, cfg, {"tokens": toks, "labels": toks}),
         "ssd": lambda: ssd_ops.ssd(x, bm, cm, dt, a, chunk=32),
-        "flash_attention": lambda: flash_ops.gqa_flash_attention(q, kk, vv),
     }
     counters = launch_counters()
     out = {}
@@ -3174,8 +3638,13 @@ def main() -> int:
           flush=True)
 
     cases = check_kernels(card)
+    # the slice's path first, on a card with nothing else held: P2P training of
+    # smollm-135m at full width (flash_attention forward and backward,
+    # consensus_mix in bf16), then the reference's run_p2p_lm (reduced, float32)
+    paths = {"p2p_lm_smollm_full": drive_p2p_lm(card),
+             "run_p2p_lm_reduced": drive_run_p2p_lm_reduced(card)}
     matching = check_matching_on_card()
-    paths = {"serve_batch": drive_serve_batch(card, SERVE_ARCH, {"wkv6": 32})}
+    paths["serve_batch"] = drive_serve_batch(card, SERVE_ARCH, {"wkv6": 32})
     serving = {SERVE_ARCH: recheck_and_break_down(card, SERVE_ARCH, {"wkv6": (0, 31)},
                                                   {"wkv6": 32})}
     paths["serve_fleet_k2"] = drive_serve_fleet(card)
@@ -3349,6 +3818,8 @@ def main() -> int:
         ("wkv6", "rwkv6/csrc/wkv6.cu", "rwkv6/rwkv6.py:94", "main_b4_t1024_bf16"),
         ("flash_attention", "flash_attention/csrc/flash_attention.cu",
          "flash_attention/flash_attention.py:124", "main_minitron"),
+        ("flash_attention_bwd", "flash_attention/csrc/flash_attention_bwd.cu",
+         "flash_attention/flash_attention.py:124", "lm_smollm_k4"),
         ("ssd", "mamba2/csrc/ssd.cu", "mamba2/mamba2.py:98", "main_b4_t1024_bf16"),
     ):
         main = next(c for c in cases[kernel] if c["case"] == main_case)
@@ -3406,6 +3877,17 @@ def main() -> int:
             mass_entry["k100_shape"] = at_k100(cases[kernel], "iid_k100, one-slice segment runtime")
             mass_entry["mass_mode"]["k100_shape"] = at_k100(
                 cases[f"{kernel} mass"], "iid_k100 --protocol push_sum, one-slice segment runtime")
+        if f"{kernel} bf16" in cases:  # the LM round's bf16 parameters (gossip)
+            bf16 = cases[f"{kernel} bf16"]
+            bf16_main = bf16[0]  # smollm-135m's row at K = 4
+            mass_entry["bf16_mode"] = {
+                "launches": paths["p2p_lm_smollm_full"]["launches"][kernel],
+                "max_abs_err": max(c["max_abs_err"] for c in bf16),
+                **{key: bf16_main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "library_ms", "bound_card")},
+                "shape": f"{bf16_main['case']}: K={bf16_main['K']} D={bf16_main['D']} "
+                         f"N={bf16_main['N']} bfloat16",
+                "shapes": bf16}
         if kernel == "wkv6":
             shape = (f"B={main['B']} T={main['T']} H={main['H']} dk={main['dk']} "
                      f"chunk={main['chunk']} {main['dtype']}")
@@ -3415,6 +3897,15 @@ def main() -> int:
                                              "library_ms", "bound_card", "max_abs_err")},
                 "shape": "B=256 T=196 H=4 dk=16 chunk=49 float32 (rwkv6_features, chunked)",
                 "features_max_abs_diff": seqmnist["features_max_abs_diff"]}
+        elif kernel == "flash_attention_bwd":
+            shape = (f"B={main['B']} S={main['S']} H={main['H']} Kh={main['Kh']} D={main['D']} "
+                     f"causal {main['dtype']} (the LM round: K = 4 peers x batch 4)")
+            mass_entry["replaces_note"] = (
+                "the Pallas kernel has no backward (the reference differentiates its jnp "
+                "forms); this is the backward of the flash_attention port")
+            mass_entry["lm_grad_check"] = {
+                key: v for key, v in paths["p2p_lm_smollm_full"]["grad_check"].items()
+                if key != "leaf_rel_norm_err"}
         elif kernel == "flash_attention":
             shape = (f"B={main['B']} S={main['S']} H={main['H']} Kh={main['Kh']} D={main['D']} "
                      f"causal {main['dtype']}")
@@ -3428,6 +3919,9 @@ def main() -> int:
             def path_launches(arch):
                 return sum(n for name, n in by_path.items() if arch in name)
 
+            mass_entry["lm_round_shape"] = served(
+                "lm_smollm_k4", "B=16 S=1024 H=9 Kh=3 D=64 causal bfloat16 (the LM round: "
+                "K = 4 peers x batch 4, smollm-135m's heads)", path_launches("p2p_lm_smollm"))
             mass_entry["qwen3moe_shape"] = served(
                 "qwen3moe_group16", "B=4 S=1024 H=64 Kh=4 D=128 causal bfloat16 (qwen3-moe's "
                 "prefill, group 16)", path_launches("qwen3-moe"))
@@ -3456,9 +3950,11 @@ def main() -> int:
             **{key: main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                           "library_ms", "bound_card")},
             "shape": shape,
+            # ssd's design (tf32x2 / tf32x3) under its own key: "route" is the
+            # contract's, "cuda" for every kernel
             **({key: main[key] for key in ("bound_ms_fma", "bound_by_fma", "bound_ms_tensor",
-                                          "bound_by_tensor", "route", "split")}
-               if kernel == "ssd" else {}),
+                                          "bound_by_tensor", "split")}
+               | {"kernel_route": main["route"]} if kernel == "ssd" else {}),
             "shapes": cases[kernel],
             **mass_entry,
         })

@@ -16,10 +16,11 @@ Consensus phase (Eq. 4):  w_k <- sum_j alpha_kj w_j + eta_b * b_k
 Affinity biases:          d_k <- (1/T) sum_j beta_kj (w_j - w_k)   (consensus)
                           b_k <- (1/S) w_k                         (local phase)
 
-Layout.  Every state leaf is ONE (K, row) float32 tensor on the device: the K
+Layout.  Every state leaf is ONE (K, row) tensor on the device, of the
+task's type (float32, or bfloat16 for a bf16 language model): the K
 peers' parameters flattened into rows (``ParamLayout``; the leaves in the
-task's order, each row zero-padded to a multiple of 4 floats so rows stay
-16-byte aligned).  The local phase reads the leaves as (K, ...) views of that
+task's order, each row zero-padded to 16 bytes, 4 float32 or 8 bf16
+elements, so rows stay 16-byte aligned).  The local phase reads the leaves as (K, ...) views of that
 buffer and runs each layer as one batched matmul over the peers; one backward
 of the summed per-peer losses gives every peer its own gradient, and the SGD
 update is a few elementwise passes over the whole buffer.  The consensus
@@ -63,7 +64,9 @@ Ported: gossip and push-sum over the static, the undirected and the directed
 time-varying schedules and adaptive matchings, uncompressed or compressed,
 synchronous or asynchronous rounds, every registered task (the 2NN and
 ``rwkv6_seqmnist``; a registry task is refused by the hierarchical runtime,
-as in the reference), the vmap and one-slice hierarchical runtimes.  Any
+as in the reference) and a registry language model's task
+(``task.from_model``; in bf16 the gossip step only: the bf16 mass, snapshot
+and dense modes raise), the vmap and one-slice hierarchical runtimes.  Any
 other configuration raises ``NotImplementedError`` naming the ROADMAP.md
 item that ports it.
 """
@@ -94,6 +97,28 @@ from repro_torch.kernels.consensus_mix.ops import (complete_candidates, dense_op
 ALGORITHMS = ("dsgd", "local_dsgd", "p2pl", "p2pl_affinity", "isolated")
 STEPS_PROFILES = ("uniform", "straggler", "linear")
 ROW_ALIGN = 4  # floats: keeps every peer's row 16-byte aligned
+
+
+def row_align(dtype: torch.dtype) -> int:
+    """Elements of ``dtype`` in ROW_ALIGN floats (16 bytes): 4 float32, 8 bf16."""
+    return ROW_ALIGN * 4 // dtype.itemsize
+
+
+def resolve_loss_fn(task_or_loss) -> Callable:
+    """A ``TrainTask`` or a bare per-peer loss -> the stacked loss
+    ``(stacked params, batch) -> (K,)`` (the reference's ``resolve_loss_fn``,
+    whose drivers vmap the per-peer loss themselves): a task's ``loss_fn``
+    as it is, a bare per-peer loss ``(params, batch) -> scalar`` mapped over
+    the peers by ``torch.func.vmap``."""
+    loss_fn = getattr(task_or_loss, "loss_fn", None)
+    return torch.func.vmap(task_or_loss) if loss_fn is None else loss_fn
+
+
+def resolve_init_fn(task_or_init) -> Callable:
+    """A ``TrainTask`` or a bare per-peer init ``generator -> params`` -> the
+    per-peer init (the reference's ``resolve_init_fn``)."""
+    init_fn = getattr(task_or_init, "init_params", None)
+    return task_or_init if init_fn is None else init_fn
 
 
 def _not_ported(what: str, item) -> NotImplementedError:
@@ -290,7 +315,8 @@ class ParamLayout:
     shapes: dict[str, tuple[int, ...]]
     offsets: dict[str, int]
     size: int  # parameters per peer
-    row: int  # row length: ``size`` padded to a multiple of ROW_ALIGN
+    row: int  # row length: ``size`` padded to 16 bytes (``row_align``)
+    dtype: torch.dtype = torch.float32  # the task's parameter type
 
     @classmethod
     def of(cls, task: task_lib.TrainTask) -> "ParamLayout":
@@ -299,8 +325,9 @@ class ParamLayout:
         for name, shape in task.param_shapes.items():
             offsets[name] = off
             off += int(np.prod(shape))
-        row = -(-off // ROW_ALIGN) * ROW_ALIGN
-        return cls(dict(task.param_shapes), offsets, off, row)
+        align = row_align(task.dtype)
+        row = -(-off // align) * align
+        return cls(dict(task.param_shapes), offsets, off, row, task.dtype)
 
     @property
     def leaf_offsets(self) -> tuple[int, ...]:
@@ -317,8 +344,10 @@ class ParamLayout:
         }
 
     def flatten(self, leaves: dict[str, torch.Tensor]) -> torch.Tensor:
-        """Named stacked (K, ...) leaves -> a fresh (K, row) buffer."""
-        rows = [leaves[name].reshape(leaves[name].shape[0], -1) for name in self.shapes]
+        """Named stacked (K, ...) leaves -> a fresh (K, row) buffer of the
+        layout's type."""
+        rows = [leaves[name].reshape(leaves[name].shape[0], -1).to(self.dtype)
+                for name in self.shapes]
         pad = self.row - self.size
         if pad:
             rows.append(rows[0].new_zeros(rows[0].shape[0], pad))
@@ -362,7 +391,8 @@ class AdaptiveRoundOps(NamedTuple):
 
 
 class P2PState(NamedTuple):
-    """Stacked peer state: every tensor is (K, row) float32 (see ``ParamLayout``).
+    """Stacked peer state: every tensor is (K, row), of the task's type (see
+    ``ParamLayout``).
 
     ``protocol`` holds the consensus protocol's own state: ``()`` for gossip,
     ``protocols.PushSumState`` ((K,) mass) for push-sum.
@@ -467,6 +497,9 @@ def init_state(
 ) -> P2PState:
     """Independent per-peer init (PyTorch-style default), then optional max-norm sync.
 
+    The draw runs on the CPU, or on ``device`` for a task with
+    ``init_on_device`` (a registry language model); the buffers take the
+    task's type (``ParamLayout.dtype``).
     ``init_params`` (stacked (K, ...) leaves, e.g. exported from the reference
     through ``repro_torch.interop``) replaces the draw from ``seed``; max-norm
     sync still applies to it, as in the reference.  A compressed wire's
@@ -479,13 +512,16 @@ def init_state(
     (0, 1), (2, 3), ...
     """
     device = resolve_device(device)
+    layout = ParamLayout.of(task)
     if init_params is None:
-        gen = torch.Generator().manual_seed(seed)
-        peers = [task.init_params(gen) for _ in range(cfg.num_peers)]
+        gen = torch.Generator(device if task.init_on_device else "cpu").manual_seed(seed)
+        init = resolve_init_fn(task)
+        peers = [init(gen) for _ in range(cfg.num_peers)]
         stacked = {name: torch.stack([p[name] for p in peers]) for name in task.param_shapes}
+        del peers
     else:
         stacked = {
-            name: torch.as_tensor(init_params[name], dtype=torch.float32)
+            name: torch.as_tensor(init_params[name], dtype=layout.dtype)
             for name in task.param_shapes
         }
         for name, shape in task.param_shapes.items():
@@ -496,7 +532,8 @@ def init_state(
                 )
     if cfg.use_max_norm_init:
         stacked = consensus_lib.max_norm_sync(stacked)
-    params = ParamLayout.of(task).flatten(stacked).to(device)
+    params = layout.flatten(stacked).to(device)
+    del stacked
     staleness = ()
     if cfg.staleness_bound > 0:
         # a copy, not an alias: the scan driver adopts each leaf's buffer
@@ -566,8 +603,9 @@ def local_phase_stats(
         views = layout.views(params.detach().requires_grad_(True))
         losses = task.loss_fn(views, (x[t], y[t]))  # (K,)
         # the peers share no parameters, so the gradient of the summed loss
-        # is every peer's own gradient, stacked
-        grads = torch.autograd.grad(losses.sum(), list(views.values()))
+        # is every peer's own gradient, stacked; a leaf the loss does not
+        # read (a vlm's projector on a text-only batch) gets zeros, as jax.grad
+        grads = torch.autograd.grad(losses.sum(), list(views.values()), materialize_grads=True)
         grads = layout.flatten(dict(zip(views, grads)))
         if cfg.momentum:
             new_mom = cfg.momentum * mom + grads

@@ -19,8 +19,19 @@ A task provides:
     None: the whole test set in one apply.  An int caps the eval minibatch
     (a sequence trunk's intermediates grow with B * S * D), and subsamples
     the test set (a seeded permutation), as the reference does.
+``dtype``
+    The parameters' type, and so the flat buffer's (``p2p.ParamLayout``):
+    float32, or bfloat16 for a bf16 model.
+``init_on_device``
+    Whether ``p2p.init_state`` draws the peers' parameters on the compute
+    device (a registry model: 135 M parameters a peer take seconds on the
+    CPU) rather than on the CPU.
 
 ``mnist_mlp`` is the paper's 2NN, written with the peer axis explicit.
+``from_model`` makes a task of a registry language model
+(``models.registry.build_model``): its leaves, its init and its per-peer
+loss vmapped over the peers, with no eval head; ``launch.train.run_p2p_lm``
+trains one.
 ``rwkv6_seqmnist`` is RWKV6 run as a recurrent network over the 196-token
 pixel stream of sequential MNIST, classified from the final position
 (``models.registry.build_sequence_classifier`` on
@@ -55,6 +66,8 @@ class TrainTask:
     eval_batch_size: int | None = None
     eval_set_size: int | None = None
     description: str = ""
+    dtype: torch.dtype = torch.float32
+    init_on_device: bool = False
 
 
 _BUILDERS: dict[str, Callable[[], TrainTask]] = {}
@@ -152,6 +165,51 @@ def _build_rwkv6_seqmnist() -> TrainTask:
         description="RWKV6 (2 layers, d_model=64) as a recurrent net over the "
                     f"{_SEQMNIST_SEQ_LEN}-token pixel stream of sequential MNIST, "
                     "classified from the final state",
+    )
+
+
+def _no_eval(*_args):
+    raise NotImplementedError("a language-model task has no eval head (run_p2p_lm reports "
+                              "its training losses and the peers' drift)")
+
+
+def from_model(model) -> TrainTask:
+    """A task of a registry language model (``models.registry.Model``): its
+    leaves (``transformer.decoder_param_shapes``, nothing drawn), its init,
+    and its per-peer loss on ``(tokens, labels)`` mapped over the peers by
+    ``torch.func.vmap``, as the reference vmaps its per-peer loss; no eval
+    head.  The flat buffer takes the model's type.  The dense, MoE and vlm
+    decoders; a bf16 MoE (its router leaf is float32) is refused: one flat
+    buffer holds one type."""
+    from repro_torch.models import transformer as tf
+
+    cfg = model.cfg
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise NotImplementedError(
+            f"training the {cfg.family!r} family's language model is not ported yet: "
+            "ROADMAP.md queue 1 item 18")
+    dtype = tf.compute_dtype(cfg)
+    if cfg.moe is not None and dtype != torch.float32:
+        raise NotImplementedError(
+            "a MoE decoder's router is float32 and its other leaves "
+            f"{cfg.dtype}: one flat buffer of mixed types is ROADMAP.md queue 1 item 18")
+
+    def peer_loss(params, batch):
+        tokens, labels = batch
+        return model.loss_fn(params, {"tokens": tokens, "labels": labels})
+
+    return TrainTask(
+        name=cfg.name,
+        param_shapes=tf.decoder_param_shapes(cfg),
+        init_params=model.init,
+        loss_fn=torch.func.vmap(peer_loss, in_dims=(0, (0, 0))),
+        apply_fn=_no_eval,
+        make_peer_batches=_no_eval,
+        prepare_eval=_no_eval,
+        description=f"the {cfg.name} language model ({cfg.family}, {cfg.num_layers} layers, "
+                    f"d_model={cfg.d_model}, {cfg.dtype})",
+        dtype=dtype,
+        init_on_device=True,
     )
 
 

@@ -83,6 +83,16 @@ def key_to_jax(key: torch.Tensor) -> np.ndarray:
     return arr.astype(np.uint32)
 
 
+def flat_from_jax(
+    tree: dict, task: task_lib.TrainTask, *, device: torch.device | str = "cpu"
+) -> torch.Tensor:
+    """A reference stacked parameter tree ((K, ...) numpy leaves, e.g. the
+    reference's ``P2PState.params`` of a decoder) -> the port's (K, row)
+    buffer of ``task``'s layout, in the task's type (``ParamLayout.dtype``:
+    a bf16 model's exported bf16 leaves carried bit for bit)."""
+    return p2p.ParamLayout.of(task).flatten(params_from_jax(tree)).to(device)
+
+
 def state_from_jax(
     jstate, task: task_lib.TrainTask, *, device: torch.device | str = "cpu"
 ) -> p2p.P2PState:
@@ -101,10 +111,8 @@ def state_from_jax(
     (``key_from_jax``; ``key_to_jax`` turns it back), the (K,) float32
     last losses as they are.
     """
-    layout = p2p.ParamLayout.of(task)
-
     def flat(tree):
-        return layout.flatten(params_from_jax(tree)).to(device)
+        return flat_from_jax(tree, task, device=device)
 
     comp = jstate.compression
     proto = jstate.protocol

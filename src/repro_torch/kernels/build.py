@@ -49,11 +49,12 @@ class LaunchCounter:
 def check_no_grad(kernel: str, *operands) -> None:
     """Raise where autograd would flow through ``kernel`` on the card.
 
-    The hand-written kernels are forward only: their wrappers write into
-    fresh tensors with no ``grad_fn``, so a backward through them would
-    silently leave no gradient on their operands or on anything upstream.
-    Called by each wrapper on its CUDA path; the CPU path takes the plain
-    version, which autograd differentiates.
+    ``wkv6`` and ``ssd`` are forward only: their wrappers write into fresh
+    tensors with no ``grad_fn``, so a backward through them would silently
+    leave no gradient on their operands or on anything upstream.  Called by
+    each of those wrappers on its CUDA path; the CPU path takes the plain
+    version, which autograd differentiates.  (``flash_attention`` has a
+    backward kernel and goes through its ``autograd.Function`` instead.)
     """
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in operands):
         raise NotImplementedError(

@@ -75,6 +75,19 @@
 // was: kSnap is a template switch, and the gather kernel's one new argument
 // comes last.
 //
+// bf16 storage mode (the gossip mode only; `consensus_mix_bf16` and
+// `consensus_mix_tile_bf16`): x, mixed and d are bf16 in device memory, as
+// a bfloat16 model's parameters are (the reference mixes bf16 leaves in
+// float32 and casts back, core/consensus.py, as its Pallas kernel does).
+// Each x value is widened to float32 as it is read, every sum is float32 as
+// in the float32 mode, and mixed and d are rounded to bf16 as they are
+// stored; the weights, the guard and T stay float32.  The gather design
+// reads 8 bf16 (16 bytes) a thread where N is a multiple of 8 and the
+// buffers are 16-byte aligned (the port pads a bf16 row to a multiple of 8),
+// one element otherwise; the column tile widens each tile as it stages it
+// (tile_mix.cuh, TS = __nv_bfloat16).  The mass, snapshot and dense modes
+// stay float32.  Bound: the same work on half the bytes.
+//
 // Bound on an H100: at the iid_k100 shape (K = 100, D = 99, N = 199,212) one
 // call must read 80 MB and write 160 MB (72 us at 3.35 TB/s) but does
 // 4 D + 3 = 399 float32 operations per output element, 7.9 GFLOP (119 us at
@@ -84,6 +97,7 @@
 // peers that need it; the tile design reads each row once and does the
 // (2K x K) @ (K x N) product from shared memory.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -196,6 +210,147 @@ int launch_gather(const float* x, int64_t num_peers, int64_t n, const float* sel
         mixed, d_out, new_mass, pub);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// V bf16 values from p, widened to float32: 16 bytes at once where V is 8.
+template <int V>
+__device__ __forceinline__ void load_bf16(const __nv_bfloat16* __restrict__ p, float (&out)[V]) {
+  if constexpr (V == 8) {
+    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) out[i] = __bfloat162float(p[i]);
+  }
+}
+
+// V float32 values rounded to bf16 into p: 16 bytes at once where V is 8.
+template <int V>
+__device__ __forceinline__ void store_bf16(__nv_bfloat16* __restrict__ p, const float (&v)[V]) {
+  if constexpr (V == 8) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 b = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&b);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) p[i] = __float2bfloat16_rn(v[i]);
+  }
+}
+
+// The gather design's bf16 storage mode (gossip): V elements a thread (8 on
+// the vector path, 1 on the scalar path), float32 sums, bf16 stores.
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+consensus_mix_bf16_kernel(const __nv_bfloat16* __restrict__ x, int64_t n,
+                          const float* __restrict__ self_w, const int32_t* __restrict__ nbr_idx,
+                          const float* __restrict__ nbr_w, const float* __restrict__ beta,
+                          int d_slots, float local_steps, __nv_bfloat16* __restrict__ mixed,
+                          __nv_bfloat16* __restrict__ d_out) {
+  extern __shared__ float smem[];  // [D] nbr_w | [D] beta | [D] nbr_idx
+  float* s_w = smem;
+  float* s_b = smem + d_slots;
+  int32_t* s_idx = reinterpret_cast<int32_t*>(smem + 2 * d_slots);
+  __shared__ int s_has_nbrs;
+
+  const int k = blockIdx.x;
+  const int64_t slot_row = static_cast<int64_t>(k) * d_slots;
+  for (int s = threadIdx.x; s < d_slots; s += blockDim.x) {
+    s_w[s] = nbr_w[slot_row + s];
+    s_b[s] = beta[slot_row + s];
+    s_idx[s] = nbr_idx[slot_row + s];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float sum = 0.0f;
+    for (int s = 0; s < d_slots; ++s) sum += s_b[s];
+    s_has_nbrs = sum > 0.0f;
+  }
+  __syncthreads();
+  const bool has_nbrs = s_has_nbrs != 0;
+  const float sw = self_w[k];
+
+  const int64_t n_vec = n / V;
+  const int64_t own = static_cast<int64_t>(k) * n;
+  const int64_t stride = static_cast<int64_t>(gridDim.y) * blockDim.x;
+  for (int64_t e = static_cast<int64_t>(blockIdx.y) * blockDim.x + threadIdx.x; e < n_vec;
+       e += stride) {
+    float self[V], acc_mix[V], acc_beta[V];
+    load_bf16<V>(x + own + e * V, self);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      acc_mix[i] = sw * self[i];
+      acc_beta[i] = 0.0f;
+    }
+#pragma unroll 4
+    for (int s = 0; s < d_slots; ++s) {
+      float v[V];
+      load_bf16<V>(x + static_cast<int64_t>(s_idx[s]) * n + e * V, v);
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        acc_mix[i] = fmaf(s_w[s], v[i], acc_mix[i]);
+        acc_beta[i] = fmaf(s_b[s], v[i], acc_beta[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc_beta[i] = vbias(acc_beta[i], self[i], local_steps, has_nbrs);
+    store_bf16<V>(mixed + own + e * V, acc_mix);
+    store_bf16<V>(d_out + own + e * V, acc_beta);
+  }
+}
+
+int launch_gather_bf16(const __nv_bfloat16* x, int64_t num_peers, int64_t n, const float* self_w,
+                       const int32_t* nbr_idx, const float* nbr_w, const float* beta,
+                       int64_t d_slots, float local_steps, __nv_bfloat16* mixed,
+                       __nv_bfloat16* d_out, void* stream) {
+  if (num_peers <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = static_cast<size_t>(d_slots) * 3 * sizeof(float);
+  const bool vec8 = n % 8 == 0 && aligned16(x) && aligned16(mixed) && aligned16(d_out);
+  const int64_t n_vec = vec8 ? n / 8 : n;
+  int64_t tiles = (n_vec + kThreads - 1) / kThreads;
+  if (tiles > kMaxGridY) tiles = kMaxGridY;
+  const dim3 grid(static_cast<unsigned>(num_peers), static_cast<unsigned>(tiles));
+  if (vec8) {
+    consensus_mix_bf16_kernel<8><<<grid, kThreads, smem, s>>>(
+        x, n, self_w, nbr_idx, nbr_w, beta, static_cast<int>(d_slots), local_steps, mixed, d_out);
+  } else {
+    consensus_mix_bf16_kernel<1><<<grid, kThreads, smem, s>>>(
+        x, n, self_w, nbr_idx, nbr_w, beta, static_cast<int>(d_slots), local_steps, mixed, d_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The column tile's bf16 storage mode (gossip): the tile widens x as it
+// stages it; the vector path needs rows of a multiple of 8 elements.
+int launch_column_tile_bf16(const __nv_bfloat16* x, int64_t num_peers, int64_t n,
+                            const float* self_w, const int32_t* nbr_idx, const float* nbr_w,
+                            const float* beta, int64_t d_slots, float local_steps,
+                            __nv_bfloat16* mixed, __nv_bfloat16* d_out, void* stream) {
+  if (num_peers <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
+  if (num_peers > kTileMaxPeers || d_slots < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int k = static_cast<int>(num_peers), ds = static_cast<int>(d_slots);
+  const LeafStarts leaves = {};
+  const size_t smem = tile_smem_bytes(k, false, false);
+  const bool vec = n % 8 == 0 && aligned16(x) && aligned16(mixed) && aligned16(d_out);
+  const cudaError_t err =
+      vec ? launch_tile<true, true, false, false, __nv_bfloat16>(
+                false, smem, s, x, x, nullptr, nullptr, leaves, 1, n, k, self_w, nbr_idx, nbr_w,
+                beta, ds, local_steps, nullptr, mixed, d_out, nullptr, nullptr)
+          : launch_tile<false, true, false, false, __nv_bfloat16>(
+                false, smem, s, x, x, nullptr, nullptr, leaves, 1, n, k, self_w, nbr_idx, nbr_w,
+                beta, ds, local_steps, nullptr, mixed, d_out, nullptr, nullptr);
+  return static_cast<int>(err);
 }
 
 // kSnap: the tile stages pub (the published snapshots) in place of x and
@@ -327,4 +482,25 @@ extern "C" int consensus_mix_push_sum_snapshot_tile_f32(
   return launch_column_tile<true, true>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, d_slots,
                                         local_steps, mass, mixed, d_out, new_mass, stream,
                                         published);
+}
+
+// The bf16 storage mode (gossip) of the two designs: consensus_mix_f32's and
+// consensus_mix_tile_f32's arguments and contracts, with x, mixed and d_out
+// (num_peers, n) row-major bf16; the weights stay float32.
+extern "C" int consensus_mix_bf16(const __nv_bfloat16* x, int64_t num_peers, int64_t n,
+                                  const float* self_w, const int32_t* nbr_idx,
+                                  const float* nbr_w, const float* beta, int64_t d_slots,
+                                  float local_steps, __nv_bfloat16* mixed,
+                                  __nv_bfloat16* d_out, void* stream) {
+  return launch_gather_bf16(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, d_slots,
+                            local_steps, mixed, d_out, stream);
+}
+
+extern "C" int consensus_mix_tile_bf16(const __nv_bfloat16* x, int64_t num_peers, int64_t n,
+                                       const float* self_w, const int32_t* nbr_idx,
+                                       const float* nbr_w, const float* beta, int64_t d_slots,
+                                       float local_steps, __nv_bfloat16* mixed,
+                                       __nv_bfloat16* d_out, void* stream) {
+  return launch_column_tile_bf16(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, d_slots,
+                                 local_steps, mixed, d_out, stream);
 }

@@ -20,7 +20,12 @@
 // snapshot mode of consensus_mix: est is the published snapshot buffer P,
 // and d's own term is the live x_k, not v_k, so the threads of the d rows
 // load x as those of the mix rows do:
-// d[k] = (sum_j Beta[k, j] P_j - x_k) / T).
+// d[k] = (sum_j Beta[k, j] P_j - x_k) / T).  A fifth, the storage type TS
+// (float, or __nv_bfloat16 for consensus_mix's bf16 gossip mode), names the
+// type of x, est, mixed and d in device memory: a bf16 tile is widened to
+// float32 as it is staged (plain loads, 8 bytes a 4-column chunk on the
+// vector path, which needs rows of a multiple of 8 elements), every sum is
+// float32, and mixed and d are rounded to bf16 as they are stored.
 //
 // - a block owns a tile of TN columns of ALL K peers; a persistent grid of
 //   as many blocks as fit on the SMs walks the tiles.  Every sender's tile is
@@ -43,8 +48,11 @@
 // fits shared memory, before it includes this header.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "vec_ops.cuh"
 
@@ -105,6 +113,29 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Four bf16 values (8 bytes) as a float4, and back, rounding to nearest.
+__device__ __forceinline__ float4 bf16x4_to_float4(uint2 raw) {
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ uint2 float4_to_bf16x4(float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  return make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                    *reinterpret_cast<const uint32_t*>(&hi));
+}
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename TS>
+__device__ __forceinline__ TS from_float(float v) {
+  if constexpr (std::is_same<TS, float>::value) {
+    return v;
+  } else {
+    return __float2bfloat16_rn(v);
+  }
+}
+
 __device__ __forceinline__ int leaf_of(int64_t col, const int64_t* starts, int num_leaves) {
   int l = 0;
   while (l + 1 < num_leaves && col >= starts[l + 1]) ++l;
@@ -114,9 +145,10 @@ __device__ __forceinline__ int leaf_of(int64_t col, const int64_t* starts, int n
 // Stage the (est, q) tile starting at column col0 into sv ([K][TN] float32)
 // and sq ([K][TN] int8): thread tid takes the 4-column chunks tid, tid +
 // blockDim, ...; columns past n are zero.  kVec: cp.async (asynchronous);
-// else plain loads (synchronous).
-template <bool kVec, bool kHasQ>
-__device__ __forceinline__ void stage_tile(float* sv, int8_t* sq, const float* __restrict__ est,
+// else plain loads (synchronous).  A bf16 est is widened with plain loads
+// (8 bytes a chunk where kVec), synchronously; it has no payload.
+template <bool kVec, bool kHasQ, typename TS = float>
+__device__ __forceinline__ void stage_tile(float* sv, int8_t* sq, const TS* __restrict__ est,
                                            const int8_t* __restrict__ q, int64_t col0, int64_t n,
                                            int k_peers, int tn) {
   const int c4 = tn / 4;
@@ -126,7 +158,17 @@ __device__ __forceinline__ void stage_tile(float* sv, int8_t* sq, const float* _
     const int64_t src = static_cast<int64_t>(j) * n + col;
     float* dv = sv + j * tn + 4 * c;
     int8_t* dq = sq + j * tn + 4 * c;
-    if (kVec) {
+    if constexpr (!std::is_same<TS, float>::value) {
+      static_assert(!kHasQ, "a bf16 tile has no payload");
+      if (kVec) {
+        *reinterpret_cast<float4*>(dv) =
+            col < n ? bf16x4_to_float4(__ldg(reinterpret_cast<const uint2*>(est + src)))
+                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dv[i] = col + i < n ? to_float(est[src + i]) : 0.0f;
+      }
+    } else if (kVec) {
       const bool ok = col < n;
       cp_async16(dv, ok ? est + src : est, ok);
       if (kHasQ) cp_async4(dq, ok ? q + src : q, ok);
@@ -184,32 +226,49 @@ __device__ __forceinline__ void advance_tile(float* sv, const int8_t* sq,
   }
 }
 
-// Four consecutive columns of `row` from `col`: whole on the vector path
-// (n is a multiple of 4 there), guarded per column on the scalar path.
-template <bool kVec>
-__device__ __forceinline__ float4 load4(const float* __restrict__ p, int64_t row, int64_t col,
+// Four consecutive columns of `row` from `col`, as float32: whole on the
+// vector path (n is a multiple of 4 there; of 8 for bf16), guarded per
+// column on the scalar path.
+template <bool kVec, typename TS = float>
+__device__ __forceinline__ float4 load4(const TS* __restrict__ p, int64_t row, int64_t col,
                                         int64_t n) {
-  if (kVec) {
-    return col < n ? __ldg(reinterpret_cast<const float4*>(p + row * n + col))
-                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  }
-  float v[4];
+  if constexpr (!std::is_same<TS, float>::value) {
+    if (kVec)
+      return col < n ? bf16x4_to_float4(__ldg(reinterpret_cast<const uint2*>(p + row * n + col)))
+                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    float v[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) v[i] = col + i < n ? __ldg(p + row * n + col + i) : 0.0f;
-  return make_float4(v[0], v[1], v[2], v[3]);
+    for (int i = 0; i < 4; ++i) v[i] = col + i < n ? to_float(p[row * n + col + i]) : 0.0f;
+    return make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    if (kVec) {
+      return col < n ? __ldg(reinterpret_cast<const float4*>(p + row * n + col))
+                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+    float v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = col + i < n ? __ldg(p + row * n + col + i) : 0.0f;
+    return make_float4(v[0], v[1], v[2], v[3]);
+  }
 }
 
-template <bool kVec>
-__device__ __forceinline__ void store4(float* __restrict__ p, int64_t row, int64_t col, int64_t n,
+template <bool kVec, typename TS = float>
+__device__ __forceinline__ void store4(TS* __restrict__ p, int64_t row, int64_t col, int64_t n,
                                        float4 v) {
   if (kVec) {
-    if (col < n) *reinterpret_cast<float4*>(p + row * n + col) = v;
+    if (col < n) {
+      if constexpr (std::is_same<TS, float>::value) {
+        *reinterpret_cast<float4*>(p + row * n + col) = v;
+      } else {
+        *reinterpret_cast<uint2*>(p + row * n + col) = float4_to_bf16x4(v);
+      }
+    }
     return;
   }
   const float vv[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i)
-    if (col + i < n) p[row * n + col + i] = vv[i];
+    if (col + i < n) p[row * n + col + i] = from_float<TS>(vv[i]);
 }
 
 // Dynamic shared memory: [K][RP] table | K4 self_w | K4 has-neighbor flags |
@@ -264,15 +323,16 @@ __device__ __forceinline__ void reduce_slot_rows(int k_peers, int d_slots,
   }
 }
 
-template <bool kVec, bool kHasQ, bool kSelfStaged, bool kMass, bool kSnap = false>
+template <bool kVec, bool kHasQ, bool kSelfStaged, bool kMass, bool kSnap = false,
+          typename TS = float>
 __global__ void __launch_bounds__(kTileThreads, 1)
-mix_tile_kernel(const float* __restrict__ x, const float* __restrict__ est,
+mix_tile_kernel(const TS* __restrict__ x, const TS* __restrict__ est,
                         const int8_t* __restrict__ q, const float* __restrict__ scale,
                         LeafStarts leaves, int num_leaves, int64_t n, int k_peers,
                         const float* __restrict__ self_w, const int32_t* __restrict__ nbr_idx,
                         const float* __restrict__ nbr_w, const float* __restrict__ beta,
                         int d_slots, float local_steps, const float* __restrict__ mass,
-                        float* __restrict__ mixed, float* __restrict__ d_out,
+                        TS* __restrict__ mixed, TS* __restrict__ d_out,
                         float* __restrict__ est_out, float* __restrict__ new_mass) {
   const TileShape ts = tile_shape(k_peers);
   const int rp = ts.rp, tn = ts.tn;
@@ -321,7 +381,7 @@ mix_tile_kernel(const float* __restrict__ x, const float* __restrict__ est,
   const int r0 = rg * kTileRows;
   const int ca = 4 * cgi;  // this thread's column group
   int64_t tile = blockIdx.x;
-  stage_tile<kVec, kHasQ>(stage_v, stage_q, est, q, tile * tn, n, k_peers, tn);
+  stage_tile<kVec, kHasQ, TS>(stage_v, stage_q, est, q, tile * tn, n, k_peers, tn);
   cp_async_commit();
   for (int it = 0; tile < n_tiles; ++it, tile += gridDim.x) {
     const int64_t col0 = tile * tn;
@@ -329,7 +389,7 @@ mix_tile_kernel(const float* __restrict__ x, const float* __restrict__ est,
     const int8_t* sq = stage_q + (it & 1) * tile_elems;
     const int64_t next = tile + gridDim.x;
     if (next < n_tiles)  // the next tile's copies run while this one is computed
-      stage_tile<kVec, kHasQ>(stage_v + ((it + 1) & 1) * tile_elems,
+      stage_tile<kVec, kHasQ, TS>(stage_v + ((it + 1) & 1) * tile_elems,
                               stage_q + ((it + 1) & 1) * tile_elems, est, q, next * tn, n,
                               k_peers, tn);
     cp_async_commit();
@@ -346,7 +406,7 @@ mix_tile_kernel(const float* __restrict__ x, const float* __restrict__ est,
       for (int i = 0; i < kTileRows; ++i) {
         const int r = r0 + i;
         const bool live = kSnap ? r < 2 * k_peers : !kSelfStaged && r < k_peers;
-        const float4 xa = live ? load4<kVec>(x, kSnap && r >= k_peers ? r - k_peers : r,
+        const float4 xa = live ? load4<kVec, TS>(x, kSnap && r >= k_peers ? r - k_peers : r,
                                              col0 + ca, n)
                                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         xs[i][0] = xa.x, xs[i][1] = xa.y, xs[i][2] = xa.z, xs[i][3] = xa.w;
@@ -379,7 +439,7 @@ mix_tile_kernel(const float* __restrict__ x, const float* __restrict__ est,
           }
 #pragma unroll
           for (int c = 0; c < kTileCols; ++c) acc[i][c] = fmaf(sw, xs[i][c], acc[i][c]);
-          store4<kVec>(mixed, r, col0 + ca, n,
+          store4<kVec, TS>(mixed, r, col0 + ca, n,
                        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
         } else if (r < 2 * k_peers) {
           const int k = r - k_peers;
@@ -387,7 +447,7 @@ mix_tile_kernel(const float* __restrict__ x, const float* __restrict__ est,
           const float4 va = kSnap ? make_float4(xs[i][0], xs[i][1], xs[i][2], xs[i][3])
                                   : *reinterpret_cast<const float4*>(sv + k * tn + ca);
           const float4 sa = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-          store4<kVec>(d_out, k, col0 + ca, n, vbias(sa, va, local_steps, has));
+          store4<kVec, TS>(d_out, k, col0 + ca, n, vbias(sa, va, local_steps, has));
         }
       }
     }
@@ -396,15 +456,23 @@ mix_tile_kernel(const float* __restrict__ x, const float* __restrict__ est,
   cp_async_wait<0>();
 }
 
-template <bool kVec, bool kSelfStaged, bool kMass, bool kSnap = false>
-cudaError_t launch_tile(bool has_q, size_t smem, cudaStream_t s, const float* x,
-                        const float* est, const int8_t* q, const float* scale,
+template <bool kVec, bool kSelfStaged, bool kMass, bool kSnap = false, typename TS = float>
+cudaError_t launch_tile(bool has_q, size_t smem, cudaStream_t s, const TS* x,
+                        const TS* est, const int8_t* q, const float* scale,
                         const LeafStarts& leaves, int num_leaves, int64_t n, int k_peers,
                         const float* self_w, const int32_t* nbr_idx, const float* nbr_w,
                         const float* beta, int d_slots, float local_steps, const float* mass,
-                        float* mixed, float* d_out, float* est_out, float* new_mass) {
-  auto kernel = has_q ? mix_tile_kernel<kVec, true, kSelfStaged, kMass, kSnap>
-                      : mix_tile_kernel<kVec, false, kSelfStaged, kMass, kSnap>;
+                        TS* mixed, TS* d_out, float* est_out, float* new_mass) {
+  void (*kernel)(const TS*, const TS*, const int8_t*, const float*, LeafStarts, int, int64_t,
+                 int, const float*, const int32_t*, const float*, const float*, int, float,
+                 const float*, TS*, TS*, float*, float*);
+  if constexpr (std::is_same<TS, float>::value) {
+    kernel = has_q ? mix_tile_kernel<kVec, true, kSelfStaged, kMass, kSnap, TS>
+                   : mix_tile_kernel<kVec, false, kSelfStaged, kMass, kSnap, TS>;
+  } else {  // a bf16 tile has no payload
+    if (has_q) return cudaErrorInvalidValue;
+    kernel = mix_tile_kernel<kVec, false, kSelfStaged, kMass, kSnap, TS>;
+  }
   const TileShape ts = tile_shape(k_peers);
   const int64_t n_tiles = (n + ts.tn - 1) / ts.tn;
   // the persistent grid: as many blocks as fit on the SMs, at most one a

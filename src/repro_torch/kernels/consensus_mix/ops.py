@@ -23,6 +23,13 @@ round's dense (K, K) W and Beta computed on the device (adaptive partner
 selection) and run the same kernel on ``dense_operands``: the static
 candidate set of every j != k, the weights gathered from the matrices.
 
+The gossip step also takes a bfloat16 buffer (a bf16 model's parameters):
+the kernel's bf16 storage mode reads x as bf16, sums in float32 and writes
+mixed and d as bf16, as the reference mixes a bf16 leaf in float32 and casts
+back; the weights stay float32.  The mass, snapshot and dense-operand modes
+take float32 only and raise ``TypeError`` on bf16 (ROADMAP.md queue 1 item
+18 ports them).
+
 Dispatch is by the device of the buffer, and only by it:
 
 - a CPU tensor takes the plain PyTorch version (``ref.py``);
@@ -128,7 +135,8 @@ def load_kernel() -> build.KernelLibrary:
     """Build (first call) and load the kernel library; declares its C signature."""
     kl = build.load_library("consensus_mix", SOURCES)
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    for fn in (kl.lib.consensus_mix_f32, kl.lib.consensus_mix_tile_f32):
+    for fn in (kl.lib.consensus_mix_f32, kl.lib.consensus_mix_tile_f32,
+               kl.lib.consensus_mix_bf16, kl.lib.consensus_mix_tile_bf16):
         fn.argtypes = [ptr, i64, i64, ptr, ptr, ptr, ptr, i64, ctypes.c_float, ptr, ptr, ptr]
         fn.restype = ctypes.c_int
     for fn in (kl.lib.consensus_mix_push_sum_f32, kl.lib.consensus_mix_push_sum_tile_f32):
@@ -155,10 +163,26 @@ def takes_tile_path(num_peers: int) -> bool:
     return TILE_MIN_PEERS <= num_peers <= TILE_MAX_PEERS
 
 
+GOSSIP_DTYPES = (torch.float32, torch.bfloat16)  # the gossip step's buffer types
+
+
+def vector_width(flat: torch.Tensor) -> int:
+    """Elements a thread loads at once on the gather design's vector path,
+    16 bytes (4 float32, 8 bf16), where the row length is a multiple of it
+    and the buffer 16-byte aligned, else 1 (the scalar path): the CUDA
+    source's rule, which a bf16 row of 4 mod 8 elements fails although a
+    float32 row of as many bytes passes."""
+    width = 16 // flat.element_size()
+    return width if flat.shape[-1] % width == 0 and flat.data_ptr() % 16 == 0 else 1
+
+
 def check_operands(flat: torch.Tensor, ops: SparseOperands, local_steps: int,
-                   max_slots: int, what: str = "consensus_mix") -> None:
-    """Validate a (K, N) float32 buffer and its sparse operands for a kernel
-    that stages up to ``max_slots`` slots per peer.
+                   max_slots: int, what: str = "consensus_mix",
+                   dtypes: tuple[torch.dtype, ...] = (torch.float32,)) -> None:
+    """Validate a (K, N) buffer of one of ``dtypes`` and its float32 sparse
+    operands for a kernel that stages up to ``max_slots`` slots per peer.
+    A bf16 buffer where only float32 is taken raises ``TypeError`` naming
+    the ROADMAP.md entry that ports it.
 
     The range of ``nbr_idx`` is checked here for CPU tensors only: for CUDA
     tensors ``SparseSchedule`` checked it once, from numpy, and reading it
@@ -166,8 +190,13 @@ def check_operands(flat: torch.Tensor, ops: SparseOperands, local_steps: int,
     """
     if flat.dim() != 2:
         raise ValueError(f"flat must be (K, N), got shape {tuple(flat.shape)}")
-    if flat.dtype != torch.float32:
-        raise TypeError(f"{what} takes float32 only, got {flat.dtype}")
+    if flat.dtype not in dtypes:
+        if flat.dtype == torch.bfloat16:
+            raise TypeError(
+                f"{what}: this mode takes float32 only; bf16 parameters mix through "
+                "consensus_mix's gossip step (the other modes' bf16 form is ROADMAP.md "
+                "queue 1 item 18)")
+        raise TypeError(f"{what} takes {', '.join(map(str, dtypes))}, got {flat.dtype}")
     k = flat.shape[0]
     d = ops.nbr_idx.shape[-1]
     want = {"self_w": ((k,), torch.float32), "nbr_idx": ((k, d), torch.int32),
@@ -239,8 +268,9 @@ def launch(
             ops.self_w.data_ptr(), ops.nbr_idx.data_ptr(), ops.nbr_w.data_ptr(),
             ops.beta.data_ptr(), ops.nbr_idx.shape[1], float(local_steps)]
     mode = "_push_sum" if mass is not None else ""
+    dtype = "bf16" if flat.dtype == torch.bfloat16 else "f32"
     fn = getattr(lib, f"consensus_mix{mode}{'_snapshot' if snap else ''}"
-                      f"{'_tile' if tile else ''}_f32")
+                      f"{'_tile' if tile else ''}_{dtype}")
     if mass is None:
         args += [mixed.data_ptr(), d_bias.data_ptr()]
     else:
@@ -257,10 +287,10 @@ def consensus_mix_stacked(
     local_steps: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One gossip step + affinity d for all peers: returns (mixed, d_bias),
-    both (K, N) in fresh buffers."""
+    both (K, N) in fresh buffers of the buffer's type (float32 or bf16)."""
     if flat.device.type not in ("cpu", "cuda"):
         raise ValueError(f"consensus_mix runs on cpu or cuda tensors, got {flat.device}")
-    check_operands(flat, ops, local_steps, MAX_SLOTS)
+    check_operands(flat, ops, local_steps, MAX_SLOTS, dtypes=GOSSIP_DTYPES)
     if flat.device.type == "cpu":
         return ref.consensus_mix_stacked_ref(flat, *ops, local_steps)
     mixed = torch.empty_like(flat)
@@ -316,6 +346,13 @@ def dense_operands(w_mat: torch.Tensor, beta_mat: torch.Tensor,
                           beta_mat.gather(1, cols).to(torch.float32))
 
 
+def check_dense_dtype(flat: torch.Tensor) -> None:
+    """The dense-operand mode takes a float32 buffer only."""
+    if flat.dtype == torch.bfloat16:
+        raise TypeError("consensus_mix's dense-operand mode is float32 only (its bf16 form is "
+                        "ROADMAP.md queue 1 item 18)")
+
+
 def consensus_mix_dense(
     flat: torch.Tensor,  # (K, N) float32
     w_mat: torch.Tensor,  # (K, K) row-stochastic mixing matrix, computed on the device
@@ -324,7 +361,9 @@ def consensus_mix_dense(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One gossip step + affinity d from dense (K, K) matrices computed on
     the device (the reference's ``ops.consensus_mix_dense``): the kernel on
-    ``dense_operands``, every j != k a slot.  Returns (mixed, d_bias)."""
+    ``dense_operands``, every j != k a slot.  Returns (mixed, d_bias).
+    float32 only."""
+    check_dense_dtype(flat)
     ops = dense_operands(w_mat, beta_mat, complete_candidates(w_mat.shape[0], w_mat.device))
     return consensus_mix_stacked(flat, ops, local_steps)
 

@@ -61,6 +61,13 @@
 // tx + 8 j of the score tile and of the output; row statistics by shuffles
 // over the 8 lanes of a row.
 //
+// Row log-sum-exp (`flash_attention_fwd_lse`): where the caller passes a
+// (B, H, S) float32 buffer, every route also writes lse_i = log sum_j
+// exp(s[i, j]) over the visible keys, from the row's final max and
+// denominator, for the backward (flash_attention_bwd.cu).  With a null
+// pointer (`flash_attention_fwd`, the served prefill) nothing more is
+// written: the test on the pointer is one branch a row at the end.
+//
 // Bound on an H100 SXM: the serving prefill's shape (B 4, S 1024, H 32,
 // Kh 8, D 128, causal) has 67,174,400 live (q, k) pairs; at 4 D operations a
 // pair that is 34.4 GFLOP, 0.0348 ms at 989 TFLOP/s (bf16 dense tensor
@@ -81,6 +88,7 @@ constexpr int kBQ = 64;  // query rows per block
 constexpr int kBK = 64;  // key rows per staged tile
 constexpr float kNegInf = -0.7f * FLT_MAX;
 constexpr double kLog2e = 1.4426950408889634;
+constexpr float kLn2 = 0.6931471805599453f;
 static_assert(kBQ <= kBK, "the bf16 kernel stages Q in the slot of one K tile");
 
 struct Params {
@@ -88,6 +96,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, H, S) row log-sum-exp, or nullptr
   // strides in elements: batch, sequence, head
   int64_t q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh;
   int S, group, causal, window;
@@ -243,6 +252,8 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(Params p) {
       const float denom = fmaxf(lt, 1e-30f);
 #pragma unroll
       for (int c = 0; c < C; ++c) op[qpos * p.o_ss + tx + 8 * c] = acc[i][c] / denom;
+      if (p.lse != nullptr && tx == 0)
+        p.lse[(static_cast<int64_t>(b) * p.H + h) * p.S + qpos] = m[i] + logf(denom);
     }
   }
 }
@@ -476,6 +487,8 @@ __global__ void __launch_bounds__(kThreads, 3) flash_bf16_kernel(Params p) {
       for (int n = 0; n < NT; ++n)
         *reinterpret_cast<uint32_t*>(orow + n * 8) =
             pack_bf16(acc[n][2 * i] / denom, acc[n][2 * i + 1] / denom);
+      if (p.lse != nullptr && tq == 0)  // m is in the log2 domain
+        p.lse[(static_cast<int64_t>(b) * p.H + h) * p.S + qrow[i]] = (m[i] + log2f(denom)) * kLn2;
     }
   }
 }
@@ -893,6 +906,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         lt += __shfl_xor_sync(0xffffffffu, lt, 1);
         lt += __shfl_xor_sync(0xffffffffu, lt, 2);
         if (qrow[r] < p.S) {
+          if (p.lse != nullptr && tq == 0)  // m is the raw score max, p.scale scale * log2(e)
+            p.lse[(static_cast<int64_t>(b) * p.H + h) * p.S + qrow[r]] =
+                (m[r] * p.scale + log2f(fmaxf(lt, 1e-30f))) * kLn2;
           const float inv = 1.0f / fmaxf(lt, 1e-30f);  // one division a row
           __nv_bfloat16* orow = op + qrow[r] * p.o_ss + 2 * tq;
 #pragma unroll
@@ -1032,16 +1048,11 @@ extern "C" int64_t flash_attention_route(int64_t dtype, int64_t d) {
   return route(static_cast<int>(dtype), static_cast<int>(d));
 }
 
-// q, o: (B, S, H, D); k, v: (B, S, KH, D), all of one type (dtype 0 float32,
-// 1 bfloat16), read and written through `strides`: 12 int64 element strides,
-// (batch, sequence, head) of q, k, v and o in turn; the head axis has unit
-// stride.  For bf16 every stride is a multiple of 8 and every pointer 16-byte
-// aligned.  causal: 0 or 1; window: 0 for none.  Launches on `stream` and
-// returns the launch's cudaError_t (0 on success).
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int64_t dtype, int64_t B, int64_t S, int64_t H, int64_t KH,
-                                   int64_t D, const int64_t* strides, int64_t causal,
-                                   int64_t window, double scale, void* stream) {
+// lse: nullptr, or a (B, H, S) float32 buffer, contiguous, that receives
+// each row's log-sum-exp of the scaled visible scores (natural log).
+static int forward(const void* q, const void* k, const void* v, void* o, float* lse, int64_t dtype,
+            int64_t B, int64_t S, int64_t H, int64_t KH, int64_t D, const int64_t* strides,
+            int64_t causal, int64_t window, double scale, void* stream) {
   if (B < 1 || S < 1 || H < 1 || KH < 1 || H % KH != 0 || B > 65535 || H > 65535 ||
       S > 0x7fffffff - kBQ || window < 0 || window > 0x7fffffff || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1050,6 +1061,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = lse;
   p.q_sb = strides[0], p.q_ss = strides[1], p.q_sh = strides[2];
   p.k_sb = strides[3], p.k_ss = strides[4], p.k_sh = strides[5];
   p.v_sb = strides[6], p.v_ss = strides[7], p.v_sh = strides[8];
@@ -1072,4 +1084,30 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     case 128: return static_cast<int>(launch_d<128>(d, p, n_q, h, b, kh, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// q, o: (B, S, H, D); k, v: (B, S, KH, D), all of one type (dtype 0 float32,
+// 1 bfloat16), read and written through `strides`: 12 int64 element strides,
+// (batch, sequence, head) of q, k, v and o in turn; the head axis has unit
+// stride.  For bf16 every stride is a multiple of 8 and every pointer 16-byte
+// aligned.  causal: 0 or 1; window: 0 for none.  Launches on `stream` and
+// returns the launch's cudaError_t (0 on success).
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                                   int64_t dtype, int64_t B, int64_t S, int64_t H, int64_t KH,
+                                   int64_t D, const int64_t* strides, int64_t causal,
+                                   int64_t window, double scale, void* stream) {
+  return forward(q, k, v, o, nullptr, dtype, B, S, H, KH, D, strides, causal, window, scale,
+                 stream);
+}
+
+// flash_attention_fwd's arguments and contract, with `lse` a (B, H, S)
+// float32 buffer, contiguous, that receives each row's log-sum-exp of the
+// scaled visible scores (natural log), which the backward reads.
+extern "C" int flash_attention_fwd_lse(const void* q, const void* k, const void* v, void* o,
+                                       float* lse, int64_t dtype, int64_t B, int64_t S,
+                                       int64_t H, int64_t KH, int64_t D, const int64_t* strides,
+                                       int64_t causal, int64_t window, double scale,
+                                       void* stream) {
+  return forward(q, k, v, o, lse, dtype, B, S, H, KH, D, strides, causal, window, scale,
+                 stream);
 }

@@ -20,9 +20,17 @@ Dispatch is by the device of the operands, and only by it:
   no fallback;
 - any other device raises.
 
-The kernel is forward only: on a CUDA tensor, with autograd on, an operand
-that requires grad raises ``NotImplementedError`` (``build.check_no_grad``)
-rather than cut the graph; the CPU path differentiates as usual.
+Every call goes through ``FlashAttention``, a ``torch.autograd.Function``:
+where an operand requires grad the forward also writes the float32 row
+log-sum-exp (B, H, S), and the backward launches
+the backward kernel (``csrc/flash_attention_bwd.cu``: rowsum(dO O), then dK
+and dV over each KV tile and its query group, then dQ over each query tile;
+deterministic, no atomics) on CUDA tensors and the plain backward
+(``ref.gqa_attention_bwd_ref``) on CPU tensors, with no fallback between the
+two.  Its ``vmap`` rule folds the vmapped axis (the port's stacked peers)
+into the batch axis, so one forward and one backward launch a layer serve
+every peer.  Without autograd the forward is the one the served prefill
+runs: no log-sum-exp is written.
 
 The kernel takes float32 (computed in float32 on the float32 pipes) and
 bfloat16 (tensor cores, float32 accumulation) at head widths 32, 64, 80 and
@@ -41,7 +49,9 @@ prefill's B 4, S 1024, H 32, Kh 8, D 128, causal, one call does
 34.4 GFLOP (0.0348 ms at 989 TFLOP/s bf16) against 83.9 MB (0.025 ms at
 3.35 TB/s): it is bound by operations.
 
-``launches.count`` counts kernel launches (never plain-version calls).
+``launches.count`` counts forward launches and ``bwd_launches.count``
+backward launches (one a backward call, its three kernels together), never
+plain-version calls.
 """
 from __future__ import annotations
 
@@ -56,12 +66,14 @@ from repro_torch.kernels.build import LaunchCounter
 from repro_torch.kernels.flash_attention import ref
 
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"]
+BWD_SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attention_bwd.cu"]
 HEAD_DIMS = (32, 64, 80, 128)  # the head widths the kernel is instantiated for
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # the kernel's dtype argument
 ROUTES = ("float32", "mma_sync", "wgmma")  # flash_attention_route's codes in the CUDA source
 WGMMA_HEAD_DIMS = (80, 128)
 
 launches = LaunchCounter()
+bwd_launches = LaunchCounter()
 
 
 @functools.cache
@@ -72,9 +84,27 @@ def load_kernel() -> build.KernelLibrary:
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
     fn.argtypes = [ptr] * 4 + [i64] * 6 + [ctypes.POINTER(i64), i64, i64, ctypes.c_double, ptr]
     fn.restype = ctypes.c_int
+    fn = kl.lib.flash_attention_fwd_lse
+    fn.argtypes = [ptr] * 5 + [i64] * 6 + [ctypes.POINTER(i64), i64, i64, ctypes.c_double, ptr]
+    fn.restype = ctypes.c_int
     for name in ("flash_attention_smem_bytes", "flash_attention_route"):
         getattr(kl.lib, name).argtypes = [i64, i64]
         getattr(kl.lib, name).restype = i64
+    return kl
+
+
+@functools.cache
+def load_bwd_kernel() -> build.KernelLibrary:
+    """Build (first call) and load the backward kernel library; declares its
+    C signature."""
+    kl = build.load_library("flash_attention_bwd", BWD_SOURCES)
+    fn = kl.lib.flash_attention_bwd
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    fn.argtypes = [ptr] * 10 + [i64] * 6 + [ctypes.POINTER(i64), i64, i64, ctypes.c_double,
+                                            ptr]
+    fn.restype = ctypes.c_int
+    kl.lib.flash_attention_bwd_route.argtypes = [i64, i64]
+    kl.lib.flash_attention_bwd_route.restype = i64
     return kl
 
 
@@ -124,24 +154,137 @@ def _kernel_operand(x: torch.Tensor) -> torch.Tensor:
     return x if aligned else x.clone(memory_format=torch.contiguous_format)
 
 
-def launch(q, k, v, out, *, causal: bool, window: int | None, scale: float) -> None:
-    """Launch the kernel on the current stream into ``out`` (B, S, H, D).
+def launch(q, k, v, out, *, causal: bool, window: int | None, scale: float,
+           lse: torch.Tensor | None = None) -> None:
+    """Launch the kernel on the current stream into ``out`` (B, S, H, D) and,
+    given one, the contiguous float32 ``lse`` (B, H, S).
 
     No checks: callers pass CUDA operands that ``check_inputs`` validated,
     with strides the kernel reads (``_kernel_operand``), and a contiguous
     ``out``.  Counts the launch and raises if CUDA refused it.
     """
-    fn = load_kernel().lib.flash_attention_fwd
+    lib = load_kernel().lib
     b, s, h, d = q.shape
     strides = (ctypes.c_int64 * 12)(*(st for x in (q, k, v, out) for st in x.stride()[:3]))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if lse is None:
+        fn, args = lib.flash_attention_fwd, ptrs
+    else:
+        fn, args = lib.flash_attention_fwd_lse, (*ptrs, lse.data_ptr())
     err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), DTYPE_CODES[q.dtype],
+        *args, DTYPE_CODES[q.dtype],
         b, s, h, k.shape[2], d, strides, int(causal), window or 0, scale,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed with cudaError_t {err}")
     launches.count += 1
+
+
+def launch_bwd(q, k, v, out, dout, lse, dq, dk, dv, delta, *, causal: bool,
+               window: int | None, scale: float) -> None:
+    """Launch the backward kernels on the current stream: ``delta`` (B, H, S)
+    float32 scratch receives rowsum(dO O), then ``dk``, ``dv`` (B, S, Kh, D)
+    and ``dq`` (B, S, H, D), contiguous, in the operands' type.
+
+    No checks: callers pass CUDA operands that ``check_inputs`` validated,
+    ``out`` and ``dout`` of q's shape and type, all read through strides the
+    kernel takes (``_kernel_operand``), and the forward's contiguous
+    ``lse``.  Counts one backward launch and raises if CUDA refused one.
+    """
+    fn = load_bwd_kernel().lib.flash_attention_bwd
+    b, s, h, d = q.shape
+    strides = (ctypes.c_int64 * 15)(*(st for x in (q, k, v, out, dout) for st in x.stride()[:3]))
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        DTYPE_CODES[q.dtype], b, s, h, k.shape[2], d, strides, int(causal), window or 0,
+        scale, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward launch failed with cudaError_t {err}")
+    bwd_launches.count += 1
+
+
+def _forward(q, k, v, causal: bool, window: int | None, scale: float,
+             with_lse: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(out, lse or None) by the device of the operands: the plain version
+    on the CPU, the kernel on CUDA."""
+    if q.device.type == "cpu":
+        if with_lse:
+            return ref.gqa_attention_ref(q, k, v, causal=causal, window=window, scale=scale,
+                                         return_lse=True)
+        return ref.gqa_attention_ref(q, k, v, causal=causal, window=window, scale=scale), None
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = (torch.empty((q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32,
+                       device=q.device) if with_lse else None)
+    launch(*(_kernel_operand(x) for x in (q, k, v)), out, causal=causal, window=window,
+           scale=scale, lse=lse)
+    return out, lse
+
+
+def attention_bwd(q, k, v, out, dout, lse, *, causal: bool, window: int | None,
+                  scale: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) by the device of the operands: the plain backward
+    (``ref.gqa_attention_bwd_ref``) on the CPU, the backward kernel on
+    CUDA."""
+    if q.device.type == "cpu":
+        return ref.gqa_attention_bwd_ref(q, k, v, out, dout, lse, causal=causal,
+                                         window=window, scale=scale)
+    q, k, v, out, dout = (_kernel_operand(x) for x in (q, k, v, out, dout))
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
+    launch_bwd(q, k, v, out, dout, lse.contiguous(), dq, dk, dv, delta, causal=causal,
+               window=window, scale=scale)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """``gqa_flash_attention`` under autograd: (out, lse) from (q, k, v);
+    lse is not differentiable.  ``vmap`` folds the vmapped axis into the
+    batch axis, so a vmapped call is one launch each way."""
+
+    @staticmethod
+    def forward(q, k, v, causal, window, scale, with_lse):
+        out, lse = _forward(q, k, v, causal, window, scale, with_lse)
+        if lse is None:  # no backward will read it
+            lse = q.new_empty((0,), dtype=torch.float32)
+        return out, lse
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window, scale, _ = inputs
+        out, lse = output
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.attrs = (causal, window, scale)
+        ctx.mark_non_differentiable(lse)
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, scale = ctx.attrs
+        dq, dk, dv = attention_bwd(q, k, v, out, dout, lse, causal=causal, window=window,
+                                   scale=scale)
+        return dq, dk, dv, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window, scale, with_lse):
+        n = info.batch_size
+
+        def fold(x, dim):
+            x = x.expand(n, *x.shape) if dim is None else x.movedim(dim, 0)
+            return x.reshape(n * x.shape[1], *x.shape[2:])
+
+        qf, kf, vf = (fold(x, dim) for x, dim in zip((q, k, v), in_dims[:3]))
+        # below the vmap level autograd sees whether the operands need grad
+        with_lse = with_lse or (torch.is_grad_enabled()
+                                and any(x.requires_grad for x in (qf, kf, vf)))
+        out, lse = FlashAttention.apply(qf, kf, vf, causal, window, scale, with_lse)
+        out = out.view(n, -1, *out.shape[1:])
+        lse = lse.view(n, -1, *lse.shape[1:]) if lse.numel() else lse.expand(n, 0)
+        return (out, lse), (0, 0)
 
 
 def gqa_flash_attention(
@@ -159,16 +302,12 @@ def gqa_flash_attention(
         raise ValueError(f"flash attention runs on cpu or cuda tensors, got {q.device}")
     check_inputs(q, k, v, window)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        return ref.gqa_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
-    build.check_no_grad("flash_attention", q, k, v)
-    if q.shape[-1] not in HEAD_DIMS:
+    if q.device.type == "cuda" and q.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"the flash attention kernel is built for head widths {HEAD_DIMS}, "
                          f"got D={q.shape[-1]}")
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    launch(*(_kernel_operand(x) for x in (q, k, v)), out, causal=causal, window=window,
-           scale=scale)
-    return out
+    # the row log-sum-exp only where a backward will read it
+    grad = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
+    return FlashAttention.apply(q, k, v, causal, window, scale, grad)[0]
 
 
 def flash_attention(

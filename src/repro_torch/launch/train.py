@@ -12,6 +12,13 @@ graph of the round per round;
 ``driver="python"`` calls the round function once per round.  The two give
 the same bits.  Runs on the GPU unless ``device="cpu"``.
 
+``run_p2p_lm`` — the same algorithm family on a (reduced) language model of
+the registry, as the reference's: K peers train on disjoint token spans, T
+local steps then gossip, the vmap runtime and the python round loop.  On
+the card every attention of the loss runs the ``flash_attention`` kernel
+forward and backward, and a bf16 model's consensus the ``consensus_mix``
+kernel's bf16 mode.
+
 CLI:  python -m repro_torch.launch.train --experiment noniid_affinity --rounds 40
       python -m repro_torch.launch.train --experiment iid_k100 --eval-every 10
       python -m repro_torch.launch.train --experiment noniid_affinity --driver python
@@ -29,11 +36,13 @@ CLI:  python -m repro_torch.launch.train --experiment noniid_affinity --rounds 4
           --schedule adaptive --partner-rule eps_greedy   (matchings chosen on the device)
       python -m repro_torch.launch.train --experiment seqmnist_k8 --rounds 4 \
           --protocol push_sum   (RWKV6 on sequential MNIST; --model picks the task)
+      python -m repro_torch.launch.train --experiment p2p_lm --arch smollm-135m --rounds 8
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
 from typing import Callable, Optional
 
@@ -41,6 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch.compression import compressor_names
+from repro_torch.configs import ARCHITECTURES, get_config, reduced
 from repro_torch.configs.p2pl_mnist import (
     PaperExperiment,
     directed_k8,
@@ -60,6 +70,7 @@ from repro_torch.core import protocols as protocols_lib
 from repro_torch.core import task as task_lib
 from repro_torch.data import partition, synthetic
 from repro_torch.device import resolve_device
+from repro_torch.models.registry import build_model
 
 
 def mnist_parts(exp: PaperExperiment, x, y):
@@ -267,6 +278,78 @@ def run_paper_experiment(
     return log
 
 
+def lm_token_batches(rng: np.random.Generator, vocab_size: int, *, num_peers: int,
+                     local_steps: int, batch: int, seq: int) -> tuple[np.ndarray, np.ndarray]:
+    """One round's (tokens, labels), (T, K, B, S) int32 each, drawn as the
+    reference's ``run_p2p_lm`` draws them: peer k's tokens from its own span
+    of the vocabulary (non-IID token distributions), labels the next token."""
+    tokens = np.empty((local_steps, num_peers, batch, seq), np.int32)
+    labels = np.empty_like(tokens)
+    span = vocab_size // num_peers
+    for t in range(local_steps):
+        for k in range(num_peers):
+            toks = rng.integers(k * span, (k + 1) * span, size=(batch, seq + 1))
+            tokens[t, k] = toks[:, :-1]
+            labels[t, k] = toks[:, 1:]
+    return tokens, labels
+
+
+def lm_config(*, num_peers: int, local_steps: int, algorithm: str, lr: float,
+              momentum: float, eta_d: float) -> p2p.P2PConfig:
+    """The reference ``run_p2p_lm``'s P2P configuration: S = 1, complete graph."""
+    return p2p.P2PConfig(algorithm=algorithm, num_peers=num_peers, local_steps=local_steps,
+                         consensus_steps=1, lr=lr, momentum=momentum, eta_d=eta_d,
+                         topology="complete")
+
+
+def run_p2p_lm(
+    arch: str = "smollm-135m",
+    *,
+    num_peers: int = 2,
+    local_steps: int = 4,
+    rounds: int = 8,
+    batch: int = 4,
+    seq: int = 32,
+    algorithm: str = "p2pl_affinity",
+    lr: float = 1e-2,
+    momentum: float = 0.5,
+    eta_d: float = 0.25,
+    seed: int = 0,
+    verbose: bool = False,
+    device: torch.device | str | None = None,
+    init_params: dict[str, torch.Tensor] | None = None,
+) -> dict:
+    """K peers, disjoint token shards, local-DSGD / P2PL rounds on
+    ``reduced(get_config(arch))`` (the reference's ``run_p2p_lm``, its
+    defaults; eta_d 0.25, as the reference explains: with K = 2 and a fully
+    averaging consensus eta_d = 1 re-injects the whole pre-consensus drift).
+    The model becomes a task (``core.task.from_model``) on the vmap runtime;
+    ``init_params`` (stacked (K, ...) leaves, e.g. the reference's exported
+    initial state) replaces the draw from ``seed``.  Returns {"losses": each
+    round's mean local loss, "final_drift": ``pairwise_drift`` of the final
+    parameters}."""
+    device = resolve_device(device)
+    cfg = reduced(get_config(arch))
+    task = task_lib.from_model(build_model(cfg))
+    p2p_cfg = lm_config(num_peers=num_peers, local_steps=local_steps,
+                        algorithm=algorithm, lr=lr, momentum=momentum, eta_d=eta_d)
+    state = p2p.init_state(task, p2p_cfg, seed=seed, device=device, init_params=init_params)
+    round_fn = p2p.make_round_fn(task, p2p_cfg, device=device)
+    rng = np.random.default_rng(seed)
+    losses = []
+    for r in range(rounds):
+        tokens, labels = lm_token_batches(rng, cfg.vocab_size, num_peers=num_peers,
+                                          local_steps=local_steps, batch=batch, seq=seq)
+        batches = tuple(torch.as_tensor(a, dtype=torch.int64, device=device)
+                        for a in (tokens, labels))
+        _, state, step_losses = round_fn(state, batches)
+        losses.append(float(step_losses.mean()))
+        if verbose:
+            print(f"round {r}: loss {losses[-1]:.4f}", flush=True)
+    drift = float(consensus_lib.pairwise_drift(state.params))
+    return {"losses": losses, "final_drift": drift}
+
+
 def _timevarying(builder):
     def build(args) -> PaperExperiment:
         return builder(
@@ -359,7 +442,11 @@ SCHEDULE_CHOICES = ["static", "link_dropout", "random_matching", "peer_churn", "
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--experiment", default="noniid_affinity", choices=sorted(EXPERIMENTS))
+    ap.add_argument("--experiment", default="noniid_affinity",
+                    choices=sorted([*EXPERIMENTS, "p2p_lm"]))
+    ap.add_argument("--arch", default="smollm-135m", choices=sorted(ARCHITECTURES),
+                    help="with --experiment p2p_lm: the architecture whose reduced config "
+                         "the peers train")
     ap.add_argument("--model", default=None, choices=sorted(task_lib.task_names()),
                     help="the TrainTask the peers train (core/task.py): 'mnist_mlp', the "
                          "paper's 2NN on flat images; 'rwkv6_seqmnist', RWKV6 run as an RNN "
@@ -458,6 +545,12 @@ def main(argv=None):
     if not 0.0 < args.topk_frac <= 1.0:
         ap.error(f"--topk-frac must be in (0, 1], got {args.topk_frac}")
 
+    if args.experiment == "p2p_lm":
+        if args.peer_axis != "vmap":
+            ap.error("p2p_lm runs the vmap runtime only (--peer-axis vmap)")
+        out = run_p2p_lm(args.arch, rounds=args.rounds or 8, verbose=True, device=args.device)
+        print(json.dumps(out))
+        return
     try:
         exp = EXPERIMENTS[args.experiment](args)
     except ValueError as e:

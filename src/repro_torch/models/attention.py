@@ -79,6 +79,27 @@ def init(generator: torch.Generator, d_model: int, cfg: AttentionConfig,
     return _gqa_init(generator, d_model, cfg, dtype)
 
 
+def param_shapes(d_model: int, cfg: AttentionConfig) -> dict[str, tuple[int, ...]]:
+    """The shapes of ``init``'s leaves, in its order, without drawing."""
+    h = cfg.num_heads
+    if cfg.kind == "mla":
+        nope, rope, vd, lora = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim, cfg.kv_lora_rank
+        shapes = {"w_dkv": (d_model, lora + rope), "kv_norm.scale": (lora,),
+                  "w_uk": (lora, h, nope), "w_uv": (lora, h, vd), "w_o": (h * vd, d_model)}
+        if cfg.q_lora_rank:
+            shapes.update({"w_dq": (d_model, cfg.q_lora_rank), "q_norm.scale": (cfg.q_lora_rank,),
+                           "w_uq": (cfg.q_lora_rank, h, nope + rope)})
+        else:
+            shapes["w_q"] = (d_model, h, nope + rope)
+        return shapes
+    kh, dh = cfg.num_kv_heads, cfg.head_dim
+    shapes = {"w_q": (d_model, h, dh), "w_k": (d_model, kh, dh), "w_v": (d_model, kh, dh),
+              "w_o": (h * dh, d_model)}
+    if cfg.qkv_bias:
+        shapes.update({"b_q": (h, dh), "b_k": (kh, dh), "b_v": (kh, dh)})
+    return shapes
+
+
 def _gqa_init(generator: torch.Generator, d_model: int, cfg: AttentionConfig,
               dtype: torch.dtype) -> dict[str, torch.Tensor]:
     h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim

@@ -124,6 +124,14 @@ def mlp_init(generator: torch.Generator, d_model: int, d_ff: int, dtype: torch.d
     return p
 
 
+def mlp_shapes(d_model: int, d_ff: int, *, gated: bool = True) -> dict[str, tuple[int, ...]]:
+    """The shapes of ``mlp_init``'s leaves, in its order, without drawing."""
+    shapes = {"w_up": (d_model, d_ff), "w_down": (d_ff, d_model)}
+    if gated:
+        shapes["w_gate"] = (d_model, d_ff)
+    return shapes
+
+
 def mlp_apply(params: dict, x: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
     """SwiGLU when ``w_gate`` is present, a plain activation MLP otherwise;
     the activation runs in float32 and is cast back.  x: (B, S, D)."""

@@ -62,6 +62,18 @@ def init(generator: torch.Generator, d_model: int, cfg: MoEConfig,
     return p
 
 
+def param_shapes(d_model: int, cfg: MoEConfig) -> dict[str, tuple[int, ...]]:
+    """The shapes of ``init``'s leaves, in its order, without drawing (the
+    router's leaf is float32, the others in the model's type)."""
+    e, f = cfg.num_experts, cfg.expert_ff
+    shapes = {"router": (d_model, e), "w_gate": (e, d_model, f), "w_up": (e, d_model, f),
+              "w_down": (e, f, d_model)}
+    if cfg.num_shared:
+        shapes.update({f"shared.{k}": s for k, s in common.mlp_shapes(
+            d_model, cfg.num_shared * f, gated=True).items()})
+    return shapes
+
+
 def _num_groups(cfg: MoEConfig, n_tokens: int) -> int:
     return math.gcd(max(1, cfg.router_groups), n_tokens)
 
@@ -153,10 +165,12 @@ def apply(params: dict, cfg: MoEConfig, x: torch.Tensor, *,
     dest = _slots(experts, e, c)  # (G, A); the overflow slot E*C
     flat_tok = torch.arange(ng, device=x.device)[:, None].expand(ng, k).reshape(1, ng * k)
     flat_tok = flat_tok.expand(g, ng * k)
-    slot_tok = torch.full((g, e * c + 1), ng, dtype=torch.int64, device=x.device)
-    slot_tok.scatter_(1, dest, flat_tok)  # kept slots unique; the overflow slot dropped
-    slot_gate = torch.zeros((g, e * c + 1), dtype=torch.float32, device=x.device)
-    slot_gate.scatter_(1, dest, gates.reshape(g, ng * k))
+    # out of place, so the layer maps over stacked peers (torch.func.vmap);
+    # kept slots are unique, and the overflow slot is dropped
+    slot_tok = torch.full((g, e * c + 1), ng, dtype=torch.int64, device=x.device).scatter(
+        1, dest, flat_tok)
+    slot_gate = torch.zeros((g, e * c + 1), dtype=torch.float32, device=x.device).scatter(
+        1, dest, gates.reshape(g, ng * k))
     slot_tok, slot_gate = slot_tok[:, :-1], slot_gate[:, :-1]
 
     # --- gather -> expert products -> combine -------------------------------

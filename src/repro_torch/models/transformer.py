@@ -25,8 +25,9 @@ values, ``"cross_k"`` and ``"cross_v"`` (L, B, S_enc, Kh, dh), which the
 prefill computes and every decode step reads.  The
 reference's ``cfg.remat`` (``jax.checkpoint`` around each block) trades
 recomputation for activation memory in a backward pass; it has no
-counterpart here: the one model the port trains (the sequence classifier of
-``rwkv6_features``, ``models.registry``) is small.
+counterpart here: the models the port trains keep every activation (the
+sequence classifier of ``rwkv6_features`` is small; smollm-135m's LM round
+at K = 4, batch 4, seq 1024 fits an 80 GB card, ``chip_smoke.py``).
 
 Every prefill runs one hand-written kernel per layer: each GQA decoder
 layer's and each shared-block application's attention through
@@ -41,8 +42,10 @@ in plain PyTorch.
 
 ``rwkv6_features`` (the trunk's hidden states) and ``rwkv6_loss_fn`` (the
 language-model loss, its WKV through the forward-only ``wkv6`` kernel on
-the card) serve training; the dense, vlm, hybrid and encoder-decoder
-losses are ROADMAP.md queue 1 item 18.
+the card) serve training, and ``decoder_loss_fn`` trains the dense, MoE and
+vlm decoders (its attention through ``flash_attention`` and its backward
+kernel on the card); the hybrid and encoder-decoder losses are ROADMAP.md
+queue 1 item 18.
 
 Caches are updated functionally (each layer's new cache, then the stack of
 them), as in the reference.  The decode steps also take ``inplace=True``
@@ -200,11 +203,56 @@ def _decoder_trunk(params, cfg: ModelConfig, x, positions, caches, *, prefill=Fa
     return x, new_caches, aux
 
 
+def decoder_param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    """The shapes of ``decoder_init``'s leaves, in its order, without drawing."""
+    d = cfg.d_model
+    n_first = _num_first_layers(cfg)
+
+    def block(use_moe: bool, dense_ff: int | None = None) -> dict[str, tuple[int, ...]]:
+        shapes = {"ln1.scale": (d,)}
+        shapes.update({f"attn.{k}": s for k, s in attention.param_shapes(d, cfg.attention).items()})
+        shapes["ln2.scale"] = (d,)
+        if use_moe:
+            shapes.update({f"moe.{k}": s for k, s in moe.param_shapes(d, cfg.moe).items()})
+        else:
+            shapes.update({f"mlp.{k}": s for k, s in common.mlp_shapes(
+                d, dense_ff or cfg.d_ff).items()})
+        return shapes
+
+    shapes = {"embed": (cfg.vocab_size, d)}
+    if n_first:
+        shapes.update({FIRST_LAYERS + k: (n_first, *s) for k, s in block(
+            False, cfg.moe.dense_ff or cfg.d_ff).items()})
+    shapes.update({LAYERS + k: (cfg.num_layers - n_first, *s)
+                   for k, s in block(cfg.moe is not None).items()})
+    shapes["final_norm.scale"] = (d,)
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (d, cfg.vocab_size)
+    if cfg.family == "vlm":
+        shapes["projector"] = (cfg.frontend_dim, d)
+    return shapes
+
+
 def decoder_loss_fn(params, cfg: ModelConfig, batch):
-    raise NotImplementedError(
-        "training the decoder language model (run_p2p_lm) is not ported yet: "
-        "ROADMAP.md queue 1 item 18"
-    )
+    """Mean next-token cross entropy of ``batch`` = {"tokens", "labels"} (B,
+    S) and, for a vlm, "patches" (B, Np, F) (the reference's
+    ``decoder_loss_fn``): the embedding (the projected patches first), the
+    trunk with no cache (each layer's attention through the
+    ``flash_attention`` kernel, forward and backward, on the card), the loss
+    over the text positions only; a MoE decoder adds ``router_aux_coef *
+    aux / num_layers``."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    patches = batch.get("patches")
+    x = _decoder_embed(params, cfg, tokens, patches)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    x, _, aux = _decoder_trunk(params, cfg, x, positions, None)
+    if patches is not None:
+        x = x[:, patches.shape[1]:]  # loss over text positions only
+    loss = common.cross_entropy_loss(decoder_logits(params, cfg, x), labels)
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_coef * aux / cfg.num_layers
+    return loss
 
 
 def decoder_init_cache(cfg: ModelConfig, batch: int, max_seq: int,

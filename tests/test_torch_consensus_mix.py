@@ -210,3 +210,68 @@ def test_dense_operator_product_matches_plain(topology, k, dmax, self_only_w):
     torch.testing.assert_close(torch.where(has[:, None], (sums[k:] - x) / T, 0.0), d, **TOL)
     if self_only_w:
         assert torch.equal(mixed, x) and float(d.abs().max()) > 0.0
+
+
+# ---------------------------------------------------------------------------
+# bf16 parameters (a bf16 language model's consensus), gossip only
+# ---------------------------------------------------------------------------
+
+BF16_TOL = dict(atol=5e-2, rtol=5e-2)  # tests/test_kernels.py's bf16 tolerance
+
+
+@pytest.mark.parametrize("n,d", [(64, 1), (257, 3), (4096, 5)])
+def test_bf16_plain_matches_reference_pallas_interpret(n, d):
+    """bf16 x: float32 sums, mixed and d cast back to bf16, the weights
+    float32 (the reference kernel's ``_kernel``), against the reference's
+    Pallas wrapper in interpret mode, as ``test_consensus_mix_sweep`` runs
+    it in bf16."""
+    flat, self_w, idx, nbr_w, beta = _random_case(d + 1, d, n, seed=11 * n + d)
+    x = torch.as_tensor(flat).to(torch.bfloat16)
+    ops = tops.SparseOperands(*(torch.as_tensor(a) for a in (self_w, idx, nbr_w, beta)))
+    got_m, got_d = tops.consensus_mix_stacked(x, ops, T)
+    assert got_m.dtype == got_d.dtype == torch.bfloat16
+    want_m, want_d = jops.consensus_mix_stacked(
+        jnp.asarray(flat, jnp.bfloat16), jnp.asarray(self_w), jnp.asarray(idx),
+        jnp.asarray(nbr_w), jnp.asarray(beta), T, interpret=True)
+    assert want_m.dtype == jnp.bfloat16
+    np.testing.assert_allclose(got_m.float().numpy(), np.asarray(want_m, np.float32), **BF16_TOL)
+    np.testing.assert_allclose(got_d.float().numpy(), np.asarray(want_d, np.float32), **BF16_TOL)
+    # the float32 sums of the bf16 values, rounded once
+    want32 = tref.consensus_mix_stacked_ref(x.float(), *ops, T)
+    for g, w in zip((got_m, got_d), want32):
+        assert torch.equal(g, w.to(torch.bfloat16))
+
+
+def test_bf16_only_in_the_gossip_step():
+    """The gossip step takes bf16; the mass, snapshot and dense-operand
+    modes raise ``TypeError`` naming the ROADMAP.md entry that ports them."""
+    g = tgraph.build_graph("complete", 4)
+    w, beta = tgraph.mixing_matrix(g), tgraph.affinity_matrix(g)
+    ops = tops.sparse_from_matrices(w, beta)
+    x = torch.zeros(4, 16, dtype=torch.bfloat16)
+    mass = torch.ones(4)
+    assert tops.consensus_mix_stacked(x, ops, T)[0].dtype == torch.bfloat16
+    for call in (lambda: tops.consensus_mix_push_sum_stacked(x, mass, ops, T),
+                 lambda: tops.consensus_mix_snapshot_stacked(x, x.clone(), ops, T),
+                 lambda: tops.consensus_mix_push_sum_snapshot_stacked(x, x.clone(), mass, ops, T),
+                 lambda: tops.consensus_mix_dense(x, torch.as_tensor(w, dtype=torch.float32),
+                                                  torch.as_tensor(beta, dtype=torch.float32), T)):
+        with pytest.raises(TypeError, match="ROADMAP.md queue 1 item 18"):
+            call()
+    with pytest.raises(TypeError, match="float32"):
+        tops.consensus_mix_stacked(x.half(), ops, T)
+
+
+def test_vector_path_rule_sees_bf16_rows():
+    """The gather's vector path loads 16 bytes a thread: 4 float32 or 8 bf16
+    elements, so a bf16 row of 4 mod 8 elements takes the scalar path where
+    a float32 row of as many elements does not; the CUDA source's rule."""
+    f32 = torch.zeros(4, 1004)
+    assert tops.vector_width(f32) == 4
+    assert tops.vector_width(f32.bfloat16()) == 1
+    assert tops.vector_width(torch.zeros(4, 1008, dtype=torch.bfloat16)) == 8
+    off = torch.zeros(4 * 1008 + 4, dtype=torch.bfloat16)[4:].view(4, 1008)  # 8 bytes off
+    assert tops.vector_width(off) == 1
+    src = Path(tops.SOURCES[0]).read_text()
+    assert "const bool vec8 = n % 8 == 0 && aligned16(x)" in src
+    assert "const bool vec4 = n % 4 == 0 && aligned16(x)" in src

@@ -17,7 +17,8 @@
 - The window quirk at T > window: the port's prefill equals the reference's
   no-cache forward and differs from its cached prefill, and the port's ring
   holds the positions the reference's does (ROADMAP.md §3).
-- ``decoder_loss_fn`` raises, naming its item; the MoE decoders are
+- the hybrid and encoder-decoder losses raise, naming their item (the
+  decoder's loss is tests/test_torch_lm_train.py's); the MoE decoders are
   ``tests/test_torch_moe.py``'s, the vlm and encoder-decoder
   ``tests/test_torch_vlm_encdec.py``'s.
 
@@ -473,7 +474,9 @@ def test_prefill_on_cpu_counts_no_kernel_launch():
 
 
 def test_unported_paths_raise_naming_their_items():
-    cfg = tconfigs.reduced(tconfigs.get_config("minitron-8b"))
-    model = build_model(cfg)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        model.loss_fn({}, {})
+    # the decoder's loss is ported (tests/test_torch_lm_train.py); the
+    # hybrid's and the encoder-decoder's are still item 18
+    for arch in ("zamba2-2.7b", "seamless-m4t-medium"):
+        model = build_model(tconfigs.reduced(tconfigs.get_config(arch)))
+        with pytest.raises(NotImplementedError, match="item 18"):
+            model.loss_fn({}, {})

@@ -10,11 +10,20 @@ reference's ``ops.gqa_flash_attention`` (Pallas and ref) at groups 2, 3 and
 take) to the oracle.  The CUDA kernel itself is held to the plain version on
 the card by ``chip_smoke.py``.
 
+The backward: the plain backward ``ref.gqa_attention_bwd_ref`` (the CPU
+path of ``ops.FlashAttention`` and the oracle of the backward kernel) against
+torch.autograd through ``gqa_attention_ref`` and against ``jax.grad`` of the
+reference's ``attention_ref`` with repeated KV heads, float32 atol 5e-5 /
+rtol 1e-4; the Function under ``torch.func.vmap`` against a loop over the
+mapped axis.
+
 Tolerances: tests/test_kernels.py's, float32 atol 5e-5 / rtol 1e-4 and bf16
 atol = rtol = 5e-2.
 """
+import inspect
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -187,3 +196,117 @@ def test_tma_operand_rule(d):
     odd = torch.zeros(2, 16, 4, d + 1, dtype=torch.bfloat16)[..., :d]  # head stride d + 1
     assert ops._kernel_operand(odd).is_contiguous()
     torch.testing.assert_close(ops._kernel_operand(odd), odd)
+
+
+# ---------------------------------------------------------------------------
+# the backward: the plain backward, the autograd Function and its vmap rule
+# ---------------------------------------------------------------------------
+
+BWD_CASES = [(s, h, kh, causal, window) for s in (64, 100) for h, kh in ((2, 2), (4, 2), (6, 2))
+             for causal, window in MASKS]
+
+
+@pytest.mark.parametrize("s,h,kh,causal,window", BWD_CASES)
+def test_plain_backward_matches_autograd_and_jax(s, h, kh, causal, window):
+    """Groups 1, 2 and 3, causal, windowed and non-causal, S = 64 and a
+    ragged 100."""
+    b, d = 2, 32
+    seed = s + 10 * h + (window or 0)
+    q, k, v = (torch.as_tensor(_draw(shape, seed + i))
+               for i, shape in enumerate(((b, s, h, d), (b, s, kh, d), (b, s, kh, d))))
+    dout = torch.as_tensor(_draw((b, s, h, d), seed + 3))
+    out, lse = ref.gqa_attention_ref(q, k, v, causal=causal, window=window, return_lse=True)
+    assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+    got = ref.gqa_attention_bwd_ref(q, k, v, out, dout, lse, causal=causal, window=window)
+
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad(ref.gqa_attention_ref(*leaves, causal=causal, window=window),
+                               leaves, dout)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **TOL["float32"])
+
+    def jloss(jq, jk, jv):
+        rep = lambda x: jnp.repeat(x.transpose(0, 2, 1, 3), h // kh, axis=1)  # noqa: E731
+        o = jattention_ref(jq.transpose(0, 2, 1, 3), rep(jk), rep(jv), causal=causal,
+                           window=window).transpose(0, 2, 1, 3)
+        return jnp.sum(o * jnp.asarray(dout.numpy()))
+
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(x.numpy()) for x in (q, k, v)))
+    for g, w in zip(got, jgrads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL["float32"])
+    # the log-sum-exp is the one of the masked scaled scores
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k.repeat_interleave(h // kh, dim=2)) * d**-0.5
+    mask = ref._mask(s, causal=causal, window=window, device="cpu")
+    want_lse = torch.logsumexp(torch.where(mask, scores, ref.NEG_INF), dim=-1)
+    np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), **TOL["float32"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_function_gradients_match_plain_backward(dtype):
+    """The wrapper under autograd goes through ``FlashAttention``: its
+    gradients are the plain backward's, in the operands' type."""
+    tdtype = getattr(torch, dtype)
+    q, k, v = (torch.as_tensor(_draw(shape, 20 + i)).to(tdtype).requires_grad_(True)
+               for i, shape in enumerate(((2, 40, 6, 32), (2, 40, 2, 32), (2, 40, 2, 32))))
+    dout = torch.as_tensor(_draw((2, 40, 6, 32), 23)).to(tdtype)
+    out = ops.gqa_flash_attention(q, k, v, window=16)
+    assert out.grad_fn is not None and type(out.grad_fn).__name__.startswith("FlashAttention")
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    o, lse = ref.gqa_attention_ref(q.detach(), k.detach(), v.detach(), window=16,
+                                   return_lse=True)
+    want = ref.gqa_attention_bwd_ref(q.detach(), k.detach(), v.detach(), o, dout, lse,
+                                     window=16)
+    for g, w in zip(got, want):
+        assert g.dtype == tdtype and g.shape == w.shape
+        assert torch.equal(g, w)
+    # without autograd the forward writes no log-sum-exp and makes no node
+    with torch.no_grad():
+        assert ops.gqa_flash_attention(q, k, v).grad_fn is None
+
+
+def test_function_under_vmap_matches_loop():
+    """``torch.func.vmap`` of the wrapper over a leading peer axis (the
+    port's stacked peers) folds that axis into the batch: outputs and
+    gradients equal a loop over the peers; with one operand unmapped too."""
+    kp = 3
+    q, k, v = (torch.as_tensor(_draw(shape, 30 + i)).requires_grad_(True)
+               for i, shape in enumerate(((kp, 2, 24, 4, 32), (kp, 2, 24, 2, 32),
+                                          (kp, 2, 24, 2, 32))))
+    dout = torch.as_tensor(_draw((kp, 2, 24, 4, 32), 33))
+    fn = torch.func.vmap(lambda a, b_, c: ops.gqa_flash_attention(a, b_, c, window=8))
+    out = fn(q, k, v)
+    loop = torch.stack([ref.gqa_attention_ref(q[i], k[i], v[i], window=8) for i in range(kp)])
+    np.testing.assert_allclose(out.detach().numpy(), loop.detach().numpy(), **TOL["float32"])
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    want = torch.autograd.grad(loop, (q, k, v), dout)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **TOL["float32"])
+    shared_v = v[0].detach().clone().requires_grad_(True)
+    out = torch.func.vmap(lambda a, b_, c: ops.gqa_flash_attention(a, b_, c),
+                          in_dims=(0, 0, None))(q, k, shared_v)
+    loop = torch.stack([ref.gqa_attention_ref(q[i], k[i], shared_v) for i in range(kp)])
+    g_out = torch.autograd.grad(out, shared_v, dout)[0]
+    g_loop = torch.autograd.grad(loop, shared_v, dout)[0]
+    np.testing.assert_allclose(g_out.numpy(), g_loop.numpy(), **TOL["float32"])
+    # vmap of grad runs the plain backward under the transform too
+    per_peer = torch.func.vmap(torch.func.grad(
+        lambda a, b_, c: ops.gqa_flash_attention(a, b_, c).square().sum(), argnums=(0, 1, 2)))
+    gg = per_peer(q.detach(), k.detach(), v.detach())
+    total = sum(ref.gqa_attention_ref(q[i], k[i], v[i]).square().sum() for i in range(kp))
+    for g, w in zip(gg, torch.autograd.grad(total, (q, k, v))):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=2e-4, rtol=1e-4)
+
+
+def test_backward_dispatch_and_counts():
+    """The backward takes the plain version on CPU tensors and launches the
+    backward kernel on CUDA tensors, with nothing between them; CPU calls
+    count no launch either way."""
+    src = inspect.getsource(ops.attention_bwd)
+    assert src.index('device.type == "cpu"') < src.index("launch_bwd(")
+    assert "try" not in src
+    ops.launches.reset()
+    ops.bwd_launches.reset()
+    q = torch.as_tensor(_draw((1, 16, 2, 32), 40)).requires_grad_(True)
+    ops.gqa_flash_attention(q, q.detach(), q.detach()).sum().backward()
+    assert ops.launches.count == 0 and ops.bwd_launches.count == 0
+    assert "flash_attention_bwd" in Path(ops.BWD_SOURCES[0]).read_text()

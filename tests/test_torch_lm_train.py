@@ -1,0 +1,349 @@
+"""Port parity, P2P training of the decoder language model: the port's
+``decoder_loss_fn``, ``core.task.from_model``, the bf16 flat layout and
+``launch.train.run_p2p_lm`` against the reference's, on the CPU.
+
+- ``decoder_param_shapes`` equals the leaves ``decoder_init`` draws and the
+  reference's tree, at every decoder family's reduced config;
+- ``decoder_loss_fn`` and its gradients against ``jax.value_and_grad`` of the
+  reference's, from exported parameters, on reduced smollm-135m,
+  qwen3-moe-235b-a22b (the MoE aux loss) and internvl2-2b (image patches),
+  float32 (atol 5e-5 / rtol 1e-4 on the loss, 1e-5 / 1e-3 on gradients:
+  sums over many tokens in another order);
+- ``run_p2p_lm`` against the reference's from the reference's exported
+  initial state: the token batches equal, the losses and the final drift
+  allclose;
+- one round of reduced smollm-135m in bfloat16 (the flat buffer bf16, its
+  row a multiple of 8) against the reference's round, at the bf16
+  tolerance of tests/test_kernels.py (5e-2);
+- the reference's claim (the loss falls by more than 0.3 over 25 rounds) on
+  the port; the CLI; ``resolve_loss_fn`` / ``resolve_init_fn``.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs import get_config as jget_config  # noqa: E402
+from repro.configs import reduced as jreduced  # noqa: E402
+from repro.core import consensus as jconsensus  # noqa: E402
+from repro.core import p2p as jp2p  # noqa: E402
+from repro.launch import train as jtrain  # noqa: E402
+from repro.models import build_model as jbuild_model  # noqa: E402
+from repro_torch import interop  # noqa: E402
+from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.core import consensus as tconsensus  # noqa: E402
+from repro_torch.core import p2p as tp2p  # noqa: E402
+from repro_torch.core import task as task_lib  # noqa: E402
+from repro_torch.launch import train as ttrain  # noqa: E402
+from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.models.registry import build_model  # noqa: E402
+
+torch.backends.cuda.matmul.allow_tf32 = False
+# one intra-op thread: the suite runs several workers on a few shared cores
+torch.set_num_threads(1)
+
+TOL = dict(atol=5e-5, rtol=1e-4)
+GRAD_TOL = dict(atol=1e-5, rtol=1e-3)
+BF16_TOL = dict(atol=5e-2, rtol=5e-2)
+DECODERS = ["smollm-135m", "minitron-8b", "phi4-mini-3.8b", "qwen1.5-32b", "deepseek-v2-236b",
+            "qwen3-moe-235b-a22b", "internvl2-2b"]
+
+
+def _flat_names(tree, prefix=""):
+    out = {}
+    for key, child in tree.items():
+        if isinstance(child, dict):
+            out.update(_flat_names(child, f"{prefix}{key}."))
+        else:
+            out[prefix + key] = tuple(child.shape)
+    return out
+
+
+@pytest.mark.parametrize("arch", DECODERS)
+def test_decoder_param_shapes_match_init_and_reference(arch):
+    cfg = reduced(get_config(arch))
+    shapes = tf.decoder_param_shapes(cfg)
+    drawn = tf.decoder_init(torch.Generator().manual_seed(0), cfg)
+    assert list(shapes) == list(drawn)
+    assert shapes == {name: tuple(t.shape) for name, t in drawn.items()}
+    jshapes = jax.eval_shape(jbuild_model(jreduced(jget_config(arch))).init,
+                             jax.random.PRNGKey(0))
+    assert shapes == _flat_names(jshapes)
+
+
+def _decoder_case(arch, seed=0):
+    jcfg = jreduced(jget_config(arch))
+    jmodel = jbuild_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(seed))
+    rng = np.random.default_rng(seed)
+    b, s = 2, 16
+    batch = {"tokens": rng.integers(0, jcfg.vocab_size, size=(b, s)).astype(np.int32),
+             "labels": rng.integers(0, jcfg.vocab_size, size=(b, s)).astype(np.int32)}
+    if jcfg.family == "vlm":
+        batch["patches"] = rng.normal(size=(b, jcfg.num_prefix_embeddings,
+                                            jcfg.frontend_dim)).astype(np.float32)
+    return jmodel, jparams, batch
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen3-moe-235b-a22b", "internvl2-2b"])
+def test_decoder_loss_and_grads_match_reference(arch):
+    jmodel, jparams, batch = _decoder_case(arch)
+    jloss, jgrads = jax.value_and_grad(jmodel.loss_fn)(
+        jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    cfg = reduced(get_config(arch))
+    params = {k: v.requires_grad_(True) for k, v in
+              interop.params_from_jax(jax.tree.map(np.asarray, jparams)).items()}
+    tbatch = {k: torch.as_tensor(v, dtype=torch.int64 if k != "patches" else torch.float32)
+              for k, v in batch.items()}
+    loss = tf.decoder_loss_fn(params, cfg, tbatch)
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), **TOL)
+    grads = torch.autograd.grad(loss, list(params.values()), materialize_grads=True)
+    want = interop.params_from_jax(jax.tree.map(np.asarray, jgrads))
+    for (name, g) in zip(params, grads):
+        np.testing.assert_allclose(g.numpy(), want[name].numpy(), **GRAD_TOL, err_msg=name)
+    if cfg.moe is not None:  # the aux loss is in: without it the loss differs
+        no_aux = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, router_aux_coef=0.0))
+        assert float(tf.decoder_loss_fn(params, no_aux, tbatch).detach()) < float(loss.detach())
+
+
+def test_model_loss_fn_reaches_decoder_loss():
+    """The registry's dense, MoE and vlm ``Model.loss_fn`` is
+    ``decoder_loss_fn``; hybrid and encdec still raise."""
+    for arch in ("smollm-135m", "qwen3-moe-235b-a22b", "internvl2-2b"):
+        _, jparams, batch = _decoder_case(arch, seed=1)
+        cfg = reduced(get_config(arch))
+        params = interop.params_from_jax(jax.tree.map(np.asarray, jparams))
+        tbatch = {k: torch.as_tensor(v, dtype=torch.int64 if k != "patches" else torch.float32)
+                  for k, v in batch.items()}
+        assert torch.equal(build_model(cfg).loss_fn(params, tbatch),
+                           tf.decoder_loss_fn(params, cfg, tbatch))
+    for arch in ("zamba2-2.7b", "seamless-m4t-medium"):
+        with pytest.raises(NotImplementedError, match="item 18"):
+            build_model(reduced(get_config(arch))).loss_fn({}, {"tokens": None, "labels": None})
+        with pytest.raises(NotImplementedError, match="item 18"):
+            task_lib.from_model(build_model(reduced(get_config(arch))))
+
+
+def test_from_model_task_and_bf16_layout():
+    """``from_model``: the model's leaves and type; a bf16 row padded to 8
+    elements (16 bytes), a float32 one to 4; a bf16 MoE refused (its
+    router leaf is float32)."""
+    cfg = reduced(get_config("smollm-135m"))
+    task = task_lib.from_model(build_model(cfg))
+    assert task.param_shapes == tf.decoder_param_shapes(cfg) and task.dtype == torch.float32
+    assert task.init_on_device
+    size = sum(int(np.prod(s)) for s in task.param_shapes.values())
+    layout = tp2p.ParamLayout.of(task)
+    assert (layout.size, layout.row, layout.dtype) == (size, -(-size // 4) * 4, torch.float32)
+    task16 = task_lib.from_model(build_model(cfg.replace(dtype="bfloat16")))
+    layout16 = tp2p.ParamLayout.of(task16)
+    assert layout16.dtype == torch.bfloat16 and layout16.row % 8 == 0
+    assert layout16.row == -(-size // 8) * 8 and tp2p.row_align(torch.bfloat16) == 8
+    state = tp2p.init_state(task16, ttrain.lm_config(
+        num_peers=2, local_steps=1, algorithm="p2pl_affinity", lr=1e-2, momentum=0.5,
+        eta_d=0.25), seed=0, device="cpu")
+    for buf in (state.params, state.momentum, state.d_bias, state.b_bias):
+        assert buf.dtype == torch.bfloat16 and buf.shape == (2, layout16.row)
+    assert torch.equal(state.params[0], state.params[1])  # max-norm sync
+    full = get_config("smollm-135m")
+    full_shapes = tf.decoder_param_shapes(full)
+    assert sum(int(np.prod(s)) for s in full_shapes.values()) == 134_515_008
+    with pytest.raises(NotImplementedError, match="router is float32"):
+        task_lib.from_model(build_model(reduced(get_config("qwen3-moe-235b-a22b")).replace(
+            dtype="bfloat16")))
+
+
+def test_resolve_loss_and_init_fns():
+    cfg = reduced(get_config("smollm-135m"))
+    model = build_model(cfg)
+    task = task_lib.from_model(model)
+    assert tp2p.resolve_loss_fn(task) is task.loss_fn
+    assert tp2p.resolve_init_fn(task) is task.init_params
+    assert tp2p.resolve_init_fn(model.init) is model.init
+    gen = torch.Generator().manual_seed(0)
+    peers = [model.init(gen) for _ in range(2)]
+    stacked = {n: torch.stack([p[n] for p in peers]) for n in peers[0]}
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(2, 2, 8)))
+    per_peer = lambda p, b: model.loss_fn(p, {"tokens": b[0], "labels": b[1]})  # noqa: E731
+    bare = tp2p.resolve_loss_fn(per_peer)(stacked, (toks, toks))
+    loop = torch.stack([per_peer({n: t[i] for n, t in stacked.items()}, (toks[i], toks[i]))
+                        for i in range(2)])
+    np.testing.assert_allclose(bare.numpy(), loop.numpy(), **TOL)
+    np.testing.assert_allclose(task.loss_fn(stacked, (toks, toks)).numpy(), loop.numpy(), **TOL)
+
+
+def _run_reference(monkeypatch, **kw):
+    """The reference's ``run_p2p_lm``, recording its initial state and the
+    batches each round got."""
+    seen = {"batches": []}
+    real_init, real_round = jp2p.init_state, jp2p.make_round_fn
+
+    def init_state(*a, **k):
+        seen["state"] = real_init(*a, **k)
+        return seen["state"]
+
+    def make_round_fn(*a, **k):
+        fn = real_round(*a, **k)
+
+        def step(state, batch):
+            seen["batches"].append({k: np.asarray(v) for k, v in batch.items()})
+            return fn(state, batch)
+        return step
+
+    monkeypatch.setattr(jp2p, "init_state", init_state)
+    monkeypatch.setattr(jp2p, "make_round_fn", make_round_fn)
+    out = jtrain.run_p2p_lm("smollm-135m", **kw)
+    monkeypatch.undo()
+    return out, seen
+
+
+def _run_port(monkeypatch, init_params, **kw):
+    seen = []
+    real_round = tp2p.make_round_fn
+
+    def make_round_fn(*a, **k):
+        fn = real_round(*a, **k)
+
+        def step(state, batches):
+            seen.append(tuple(b.numpy() for b in batches))
+            return fn(state, batches)
+        return step
+
+    monkeypatch.setattr(tp2p, "make_round_fn", make_round_fn)
+    out = ttrain.run_p2p_lm("smollm-135m", device="cpu", init_params=init_params, **kw)
+    monkeypatch.undo()
+    return out, seen
+
+
+def test_run_p2p_lm_matches_reference(monkeypatch):
+    kw = dict(num_peers=2, local_steps=2, rounds=2, batch=2, seq=16)
+    want, jseen = _run_reference(monkeypatch, **kw)
+    init = interop.params_from_jax(jax.tree.map(np.asarray, jseen["state"].params))
+    got, tseen = _run_port(monkeypatch, init, **kw)
+    assert len(jseen["batches"]) == len(tseen) == 2
+    for jb, (tokens, labels) in zip(jseen["batches"], tseen):
+        np.testing.assert_array_equal(tokens, jb["tokens"])
+        np.testing.assert_array_equal(labels, jb["labels"])
+    np.testing.assert_allclose(got["losses"], want["losses"], **TOL)
+    # After a complete graph's uniform mix every peer holds the same average,
+    # so the drift is 0 in exact arithmetic; ``pairwise_drift`` expands
+    # ||x_i - x_j||^2 = ||x_i||^2 + ||x_j||^2 - 2 x_i.x_j in float32, and both
+    # packages return that expansion's cancellation noise (summed per leaf in
+    # the reference, over the flat row in the port), held to its scale: a
+    # float32 sum of N terms errs by about sqrt(N) eps of its size, so
+    # sqrt(4 max ||x_k||^2 sqrt(N) eps)
+    rows = [np.concatenate([np.asarray(x, np.float64)[i].ravel()
+                            for x in jax.tree.leaves(jseen["state"].params)]) for i in range(2)]
+    norm2 = max(float(np.sum(r ** 2)) for r in rows)
+    noise = np.sqrt(4 * norm2 * np.sqrt(rows[0].size) * np.finfo(np.float32).eps)
+    assert abs(got["final_drift"] - want["final_drift"]) <= noise
+    assert 0.0 <= got["final_drift"] <= noise and 0.0 <= want["final_drift"] <= noise
+    # the port's configuration is the reference's
+    jcfg = jp2p.P2PConfig(algorithm="p2pl_affinity", num_peers=2, local_steps=2,
+                          consensus_steps=1, lr=1e-2, momentum=0.5, eta_d=0.25,
+                          topology="complete")
+    tcfg = ttrain.lm_config(num_peers=2, local_steps=2, algorithm="p2pl_affinity", lr=1e-2,
+                            momentum=0.5, eta_d=0.25)
+    jd, td = dataclasses.asdict(jcfg), dataclasses.asdict(tcfg)
+    assert {k: td[k] for k in jd if k in td} == {k: jd[k] for k in jd if k in td}
+
+
+def test_bf16_round_matches_reference():
+    """One round of reduced smollm-135m in bfloat16, from the reference's
+    exported initial state: both packages' post-local and post-consensus
+    parameters and d, and the losses, within bf16 tolerance."""
+    k, t, b, s = 2, 2, 2, 16
+    jcfg = dataclasses.replace(jreduced(jget_config("smollm-135m")), dtype="bfloat16")
+    jmodel = jbuild_model(jcfg)
+    pcfg = jp2p.P2PConfig(algorithm="p2pl_affinity", num_peers=k, local_steps=t,
+                          consensus_steps=1, lr=5e-2, momentum=0.5, eta_d=0.25,
+                          topology="complete")
+    jstate = jp2p.init_state(jax.random.PRNGKey(3), jmodel.init, pcfg)
+    assert jax.tree.leaves(jstate.params)[0].dtype == jnp.bfloat16
+    tokens, labels = ttrain.lm_token_batches(np.random.default_rng(3), jcfg.vocab_size,
+                                             num_peers=k, local_steps=t, batch=b, seq=s)
+    j_local, j_after, j_losses = jp2p.make_round_fn(jmodel.loss_fn, pcfg)(
+        jstate, {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)})
+
+    cfg = reduced(get_config("smollm-135m")).replace(dtype="bfloat16")
+    task = task_lib.from_model(build_model(cfg))
+    tcfg = ttrain.lm_config(num_peers=k, local_steps=t, algorithm="p2pl_affinity", lr=5e-2,
+                            momentum=0.5, eta_d=0.25)
+    init = interop.params_from_jax(jax.tree.map(np.asarray, jstate.params))
+    state = tp2p.init_state(task, tcfg, device="cpu", init_params=init)
+    assert state.params.dtype == torch.bfloat16
+    t_local, t_after, t_losses = tp2p.make_round_fn(task, tcfg, device="cpu")(
+        state, tuple(torch.as_tensor(a, dtype=torch.int64) for a in (tokens, labels)))
+    np.testing.assert_allclose(t_losses.float().numpy(), np.asarray(j_losses, np.float32),
+                               **BF16_TOL)
+    for jst, tst in ((j_local, t_local), (j_after, t_after)):
+        for field in ("params", "d_bias"):
+            want = interop.flat_from_jax(jax.tree.map(np.asarray, getattr(jst, field)), task)
+            got = getattr(tst, field)
+            assert got.dtype == want.dtype == torch.bfloat16
+            np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), **BF16_TOL)
+    np.testing.assert_allclose(
+        float(tconsensus.pairwise_drift(t_after.params)),
+        float(jconsensus.pairwise_drift(j_after.params)), rtol=5e-2)
+
+
+def test_loss_falls_claim():
+    """The reference's claim (``tests/test_train_integration.py``) on the
+    port: the loss falls by more than 0.3 over 25 rounds, drift finite."""
+    out = ttrain.run_p2p_lm("smollm-135m", num_peers=2, local_steps=4, rounds=25, batch=8,
+                            seq=16, lr=5e-2, momentum=0.5, device="cpu")
+    assert min(out["losses"][-5:]) < out["losses"][0] - 0.3, out["losses"]
+    assert np.isfinite(out["final_drift"])
+
+
+def test_cli_p2p_lm(capsys):
+    ttrain.main(["--experiment", "p2p_lm", "--device", "cpu", "--rounds", "1",
+                 "--arch", "smollm-135m"])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[0].startswith("round 0: loss")
+    result = __import__("json").loads(out[-1])
+    assert len(result["losses"]) == 1 and np.isfinite(result["final_drift"])
+    argv = ["--experiment", "p2p_lm", "--peer-axis", "pod"]
+    for main in (jtrain.main, ttrain.main):
+        with pytest.raises(SystemExit):
+            main(argv)
+    ref_msg, port_msg = [line.split("error: ", 1)[1]
+                         for line in capsys.readouterr().err.splitlines() if "error: " in line]
+    assert port_msg == ref_msg
+
+
+def test_bf16_drift_and_flat_export():
+    """``pairwise_drift`` of a bf16 (K, row) buffer, in float32, against the
+    reference's on the same bf16 leaves; ``interop.flat_from_jax`` carries
+    the exported bf16 leaves into the bf16 layout bit for bit."""
+    cfg = reduced(get_config("smollm-135m")).replace(dtype="bfloat16")
+    task = task_lib.from_model(build_model(cfg))
+    rng = np.random.default_rng(5)
+    tree = jax.tree.map(lambda s: jnp.asarray(rng.normal(size=(3, *s.shape)), jnp.bfloat16),
+                        jax.eval_shape(jbuild_model(dataclasses.replace(
+                            jreduced(jget_config("smollm-135m")), dtype="bfloat16")).init,
+                            jax.random.PRNGKey(0)))
+    flat = interop.flat_from_jax(jax.tree.map(np.asarray, tree), task)
+    layout = tp2p.ParamLayout.of(task)
+    assert flat.dtype == torch.bfloat16 and flat.shape == (3, layout.row)
+    for name, view in layout.views(flat).items():
+        leaf = interop.params_from_jax(jax.tree.map(np.asarray, tree))[name]
+        assert torch.equal(view.view(torch.int16), leaf.view(torch.int16))
+    np.testing.assert_allclose(float(tconsensus.pairwise_drift(flat)),
+                               float(jconsensus.pairwise_drift(tree)), rtol=1e-4)
+
+
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_run_p2p_lm_runs_on_cuda_unless_asked(monkeypatch, device):
+    """The entry point runs on the card unless the caller passes
+    ``device="cpu"``: without CUDA it raises before it trains."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrain.run_p2p_lm("smollm-135m", rounds=1, device=device)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrain.main(["--experiment", "p2p_lm", "--rounds", "1"])

@@ -649,16 +649,35 @@ def test_backward_guard_raises_where_autograd_would_flow():
         build.check_no_grad("ssd", b)
 
 
-@pytest.mark.parametrize("wrapper,kernel", [(wkv6_ops.wkv6, "wkv6"), (ssd_ops.ssd, "ssd"),
-                                            (flash_ops.gqa_flash_attention,
-                                             "flash_attention")])
+@pytest.mark.parametrize("wrapper,kernel", [(wkv6_ops.wkv6, "wkv6"), (ssd_ops.ssd, "ssd")])
 def test_wrappers_guard_their_cuda_path(wrapper, kernel):
-    """Each wrapper calls the guard after its CPU return and before its
-    launch, so the CPU path stays differentiable and the CUDA path cannot
-    cut the graph."""
+    """Each forward-only wrapper calls the guard after its CPU return and
+    before its launch, so the CPU path stays differentiable and the CUDA
+    path cannot cut the graph."""
     src = inspect.getsource(wrapper)
     guard = src.index(f'build.check_no_grad("{kernel}"')
     assert src.index('device.type == "cpu"') < guard < src.index("launch(")
+
+
+def test_flash_attention_cuda_path_goes_through_its_function():
+    """``flash_attention`` has its backward kernel: the wrapper no longer
+    guards; it calls ``FlashAttention.apply``, whose forward launches the
+    kernel on a CUDA tensor, with the row log-sum-exp where autograd will
+    flow, and whose backward launches the backward kernel
+    (``attention_bwd``: the plain backward on CPU tensors only), so the
+    graph is never cut."""
+    src = inspect.getsource(flash_ops.gqa_flash_attention)
+    assert "check_no_grad" not in src
+    assert src.index("torch.is_grad_enabled()") < src.index("FlashAttention.apply(")
+    fwd = inspect.getsource(flash_ops._forward)
+    assert fwd.index('device.type == "cpu"') < fwd.index("launch(") and "lse=lse" in fwd
+    bwd = inspect.getsource(flash_ops.FlashAttention.backward)
+    assert "attention_bwd(" in bwd
+    dispatch = inspect.getsource(flash_ops.attention_bwd)
+    assert dispatch.index('device.type == "cpu"') < dispatch.index("launch_bwd(")
+    q = torch.zeros(1, 4, 2, 32, requires_grad=True)
+    out = flash_ops.gqa_flash_attention(q, q.detach(), q.detach())
+    assert type(out.grad_fn).__name__.startswith("FlashAttention")
 
 
 def test_cpu_wkv6_stays_differentiable():

@@ -23,7 +23,8 @@ the CPU.
   (ROADMAP.md section 3): its cache is sized by ``split_encdec_seq(prompt +
   gen)``, so at prompt 16 and 8 tokens decode position 18 lands in slot 0 in
   both packages.
-- ``loss_fn`` of either family raises, naming ROADMAP.md item 18.
+- ``loss_fn`` of the encoder-decoder raises, naming ROADMAP.md item 18;
+  the vlm's is ``decoder_loss_fn`` (tests/test_torch_lm_train.py).
 
 Tolerances: float32 atol 5e-5 / rtol 1e-4 (the same arithmetic summed in
 another order); bf16 5e-2, the repository's bf16 tolerance, with every
@@ -432,6 +433,14 @@ def test_cli_serves_the_family(arch, capsys):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_loss_raises_naming_item_18(arch):
+    """The encoder-decoder's loss is still ROADMAP.md item 18; the vlm's is
+    ``decoder_loss_fn`` now (held to the reference in
+    tests/test_torch_lm_train.py), finite on a batch of its own."""
     model = build_model(tconfigs.reduced(tconfigs.get_config(arch)))
+    if model.cfg.family == "vlm":
+        gen = torch.Generator().manual_seed(0)
+        loss = model.loss_fn(model.init(gen), model.make_batch(gen, 2, 12))
+        assert loss.dim() == 0 and bool(torch.isfinite(loss))
+        return
     with pytest.raises(NotImplementedError, match="item 18"):
         model.loss_fn({}, {})
