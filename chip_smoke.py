@@ -75,7 +75,7 @@ In order:
    and chunk 64 at head width 64 in float32 at B 1 and 4; bf16 outputs
    held within the float32 tolerance plus their one rounding),
    ``flash_attention`` at 40, asserting the route each takes (``wgmma``
-   for bf16 at D = 80 and 128, ``mma_sync`` at D = 32 and 64, ``float32``)
+   for bf16 at D = 64, 80 and 128, ``mma_sync`` at D = 32, ``float32``)
    (minitron's prefill B 4, S 1024, H 32, Kh 8,
    D 128, causal, bf16, timed against SDPA; phi4's group of 3; the
    long-context B 1, S 8192, window 4096, timed against SDPA with a boolean
@@ -103,7 +103,9 @@ In order:
    design's edges: B * H on either side of each change of the split, in
    bf16 and float32; B 1, H 80 in bf16 (split 4); P 64, N 32 split 4;
    T 65, T 17, chunk 48 and chunk 1, and P 16, N 8 over 3 groups, in both
-   types); ``flash_attention_bwd`` at ten, dq, dk and dv against the plain
+   types); ``flash_attention_bwd`` at nineteen, each asserting its route
+   (``wgmma`` for bf16 at D = 64 and 128, ``mma_sync`` at D = 32 and 80,
+   ``float32``), dq, dk and dv against the plain
    backward on the forward kernel's own output and row log-sum-exp (the
    lse against the plain forward's; bf16 atol = rtol = 5e-2 and a relative
    norm error under 1e-2, float32 a relative norm error under 1e-5; two
@@ -113,7 +115,10 @@ In order:
    H 9, Kh 3, D 64, causal, bf16; minitron's B 4, S 1024, H 32, Kh 8, D
    128; a window of 256; non-causal at D 80; float32 at D 32 and 64; and
    ragged S 1000, 130 (window 48), 200 (float32 D 128) and 77 (float32 D
-   80, non-causal); ``consensus_mix``'s bf16 mode (gossip) at six against
+   80, non-causal); the wgmma design's edges: S 129 at D 64 and 128, S 5, a
+   window of 100 and non-causal at D 64, groups 1 and 16 at D 128, every
+   operand read through (B, H, S, D) views at D 64 and 128;
+   ``consensus_mix``'s bf16 mode (gossip) at six against
    its plain version (atol = rtol = 5e-2), each asserting its design and
    its vector path (rows of a multiple of 8), timed against the dense bf16
    product: the LM round's K = 4 complete at smollm-135m's row (N =
@@ -130,6 +135,9 @@ In order:
    ``flash_attention_bwd`` 120 times and ``consensus_mix`` once (bf16 mode,
    the gather), no plain version; losses, drift and state finite; then one
    more round through its two phases, timed apart; s/round and peak memory;
+   one more round under torch.profiler: device ms and launches by category
+   (matmuls, elementwise and casts, attention forward and backward,
+   consensus, other), the busy share and the top kernels;
    then the reference's entry point as it is, ``run_p2p_lm("smollm-135m",
    rounds=4)`` (reduced, float32: 32 launches each way, 4 of
    ``consensus_mix``);
@@ -532,9 +540,11 @@ def consensus_bf16_case(card, name, graph, sizes, n, *, zero_beta_rows=(), want_
     real = (sparse.nbr_idx != torch.arange(k, device=dev)[:, None]).sum().item()
     flops = n * (4 * real + 3 * k)
     nbytes = 3 * k * n * 2 + k * 4 + 3 * k * d * 4  # bf16 x once, mixed + d; operands
+    # the same work's least time on bf16 operands: the dense bf16 tensor rate
+    # (the library product's), so the (2K, K) operator times x is bound by bytes
     case = {"case": name, "K": k, "D": d, "N": n, "path": path, "vector_path": vector,
             "dtype": "bfloat16", "max_abs_err": err, "rel_norm_err": rel, **times,
-            **card.bound(nbytes, flops)}
+            **card.bound(nbytes, flops, bf16=True)}
     del x, mixed, d_out, lib_out
     torch.cuda.empty_cache()
     return case
@@ -1713,9 +1723,9 @@ def flash_cases(card: Card) -> list[dict]:
         flash_case(card, "ragged_s1000", 2, 1000, 32, 8, 128, want_route=wg, seed=3),
         flash_case(card, "tiny_s5", 1, 5, 32, 8, 128, want_route=wg, seed=4),
         flash_case(card, "noncausal_f32", 2, 512, 4, 4, 64, causal=False, dtype=f32, seed=5),
-        flash_case(card, "smollm", 2, 512, 9, 3, 64, want_route="mma_sync", seed=6),
+        flash_case(card, "smollm", 2, 512, 9, 3, 64, want_route=wg, seed=6),
         # the LM round's forward: K = 4 peers x batch 4 folded into B 16
-        flash_case(card, "lm_smollm_k4", 16, 1024, 9, 3, 64, timed=True, want_route="mma_sync",
+        flash_case(card, "lm_smollm_k4", 16, 1024, 9, 3, 64, timed=True, want_route=wg,
                    seed=23),
         flash_case(card, "zamba2_d80", 4, 1024, 32, 32, 80, timed=True, want_route=wg, seed=7),
         flash_case(card, "qwen3moe_group16", 4, 1024, 64, 4, 128, timed=True, want_route=wg,
@@ -1726,9 +1736,9 @@ def flash_cases(card: Card) -> list[dict]:
         flash_case(card, "internvl2_group2", 4, 1024, 16, 8, 128, timed=True, want_route=wg,
                    seed=20),
         flash_case(card, "seamless_encoder_noncausal", 4, 256, 16, 16, 64, causal=False,
-                   timed=True, want_route="mma_sync", seed=21),
+                   timed=True, want_route=wg, seed=21),
         flash_case(card, "seamless_decoder", 4, 768, 16, 16, 64, timed=True,
-                   want_route="mma_sync", seed=22),
+                   want_route=wg, seed=22),
         flash_case(card, "reduced_d32_f32", 2, 128, 4, 2, 32, dtype=f32, seed=8),
         # the wgmma design's edges: rows ragged against 128-row tiles, a
         # window that is a multiple of no tile, both served widths at the
@@ -1788,13 +1798,17 @@ def flash_bwd_work(b, s, h, kh, d, *, causal, window, elem_bytes):
 
 
 def flash_bwd_case(card, name, b, s, h, kh, d, *, causal=True, window=None,
-                   dtype=torch.bfloat16, timed=False, seed=0):
+                   dtype=torch.bfloat16, timed=False, transposed=False, want_route=None,
+                   seed=0):
     """The backward kernel vs the plain backward on the card at one shape:
     the forward kernel's output and row log-sum-exp (the lse against the
     plain forward's), then dq, dk, dv from both backwards on the same
     inputs; ``timed`` also times kernel, plain backward and SDPA's backward
     (``torch.autograd.grad`` through ``scaled_dot_product_attention(...,
-    enable_gqa=True)``) in turns."""
+    enable_gqa=True)``) in turns.  ``transposed`` hands the backward q, k,
+    v, o and do as (B, S, H, D) views of (B, H, S, D) tensors, read in place.
+    The route (``ops.bwd_kernel_route``) must be the kernel library's own,
+    and ``want_route`` where given."""
     from repro_torch.kernels.flash_attention import ops, ref
 
     dev = torch.device("cuda")
@@ -1802,8 +1816,12 @@ def flash_bwd_case(card, name, b, s, h, kh, d, *, causal=True, window=None,
     q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
     k, v = (torch.randn(b, s, kh, d, generator=gen, device=dev).to(dtype) for _ in range(2))
     dout = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
-    route = ("float32", "mma_sync")[ops.load_bwd_kernel().lib.flash_attention_bwd_route(
-        ops.DTYPE_CODES[dtype], d)]
+    route = ops.bwd_kernel_route(dtype, d)
+    check(route == ops.ROUTES[ops.load_bwd_kernel().lib.flash_attention_bwd_route(
+        ops.DTYPE_CODES[dtype], d)], f"flash_bwd {name}: the wrapper's route {route} is the "
+          "kernel's")
+    check(want_route is None or route == want_route, f"flash_bwd {name}: route {route}, "
+          f"want {want_route}")
     scale = d**-0.5
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=dev)
@@ -1816,6 +1834,12 @@ def flash_bwd_case(card, name, b, s, h, kh, d, *, causal=True, window=None,
                                msg=lambda m: f"flash_bwd {name} lse: {m}")
     lse_err = float((lse - want_lse).abs().max())
     del want_out, want_lse
+    if transposed:  # every operand a (B, S, H, D) view of a (B, H, S, D) tensor
+        q, k, v, out, dout = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                              for x in (q, k, v, out, dout))
+        check(all(ops._kernel_operand(x) is x and not x.is_contiguous()
+                  for x in (q, k, v, out, dout)),
+              f"flash_bwd {name}: the transposed views are read in place, not copied")
     got = ops.attention_bwd(q, k, v, out, dout, lse, causal=causal, window=window, scale=scale)
     want = ref.gqa_attention_bwd_ref(q, k, v, out, dout, lse, causal=causal, window=window,
                                      scale=scale)
@@ -1856,7 +1880,7 @@ def flash_bwd_case(card, name, b, s, h, kh, d, *, causal=True, window=None,
             q, k, v, out, dout, lse, causal=causal, window=window, scale=scale)[0])
         del lib_dq
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        delta = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+        delta = ops.bwd_scratch(b, h, s, dev)
         kern = lambda: ops.launch_bwd(q, k, v, out, dout, lse, dq, dk, dv, delta,  # noqa: E731
                                       causal=causal, window=window, scale=scale)
         plain = lambda: ref.gqa_attention_bwd_ref(q, k, v, out, dout, lse,  # noqa: E731
@@ -1876,22 +1900,43 @@ def flash_bwd_cases(card: Card) -> list[dict]:
     peers' batch of 4 folded into B 16, S 1024, H 9, Kh 3, D 64, causal,
     bf16), at minitron's prefill shape, with a window, non-causal, in
     float32 (the reduced configs' D 32), and at S that are no multiple of
-    a tile, at every head width."""
-    f32 = torch.float32
+    a tile, at every head width; then the wgmma design's edges: S ragged
+    against its 128-key and 128-row tiles (129) and below one tile (5), a
+    window that is a multiple of no tile, non-causal at D 64, groups of 1
+    and 16 at D 128, and every operand read through (B, H, S, D) views.
+    Each asserts its route."""
+    f32, wg, ms = torch.float32, "wgmma", "mma_sync"
     return [
-        flash_bwd_case(card, "lm_smollm_k4", 16, 1024, 9, 3, 64, timed=True),
-        flash_bwd_case(card, "minitron", 4, 1024, 32, 8, 128, timed=True, seed=1),
-        flash_bwd_case(card, "window256", 2, 1024, 8, 2, 64, window=256, timed=True, seed=2),
+        flash_bwd_case(card, "lm_smollm_k4", 16, 1024, 9, 3, 64, timed=True, want_route=wg),
+        flash_bwd_case(card, "minitron", 4, 1024, 32, 8, 128, timed=True, want_route=wg, seed=1),
+        flash_bwd_case(card, "window256", 2, 1024, 8, 2, 64, window=256, timed=True,
+                       want_route=wg, seed=2),
         flash_bwd_case(card, "noncausal_d80", 2, 512, 4, 4, 80, causal=False, timed=True,
-                       seed=3),
+                       want_route=ms, seed=3),
         flash_bwd_case(card, "reduced_f32_d32", 8, 32, 4, 2, 32, dtype=f32, timed=True,
-                       seed=4),
-        flash_bwd_case(card, "f32_s512_d64", 2, 512, 4, 2, 64, dtype=f32, timed=True, seed=5),
-        flash_bwd_case(card, "ragged_s1000", 2, 1000, 9, 3, 64, seed=6),
-        flash_bwd_case(card, "ragged_s130_d32", 1, 130, 4, 2, 32, window=48, seed=7),
-        flash_bwd_case(card, "ragged_s200_d128_f32", 1, 200, 2, 1, 128, dtype=f32, seed=8),
+                       want_route="float32", seed=4),
+        flash_bwd_case(card, "f32_s512_d64", 2, 512, 4, 2, 64, dtype=f32, timed=True,
+                       want_route="float32", seed=5),
+        flash_bwd_case(card, "ragged_s1000", 2, 1000, 9, 3, 64, want_route=wg, seed=6),
+        flash_bwd_case(card, "ragged_s130_d32", 1, 130, 4, 2, 32, window=48, want_route=ms,
+                       seed=7),
+        flash_bwd_case(card, "ragged_s200_d128_f32", 1, 200, 2, 1, 128, dtype=f32,
+                       want_route="float32", seed=8),
         flash_bwd_case(card, "ragged_s77_d80_f32", 1, 77, 4, 2, 80, dtype=f32, causal=False,
-                       seed=9),
+                       want_route="float32", seed=9),
+        flash_bwd_case(card, "ragged_s129", 2, 129, 9, 3, 64, want_route=wg, seed=10),
+        flash_bwd_case(card, "ragged_s129_d128", 2, 129, 8, 2, 128, want_route=wg, seed=11),
+        flash_bwd_case(card, "tiny_s5", 1, 5, 9, 3, 64, want_route=wg, seed=12),
+        flash_bwd_case(card, "window100_d64", 2, 1000, 8, 2, 64, window=100, want_route=wg,
+                       seed=13),
+        flash_bwd_case(card, "noncausal_d64", 2, 1000, 8, 2, 64, causal=False, want_route=wg,
+                       seed=14),
+        flash_bwd_case(card, "group1_d128", 2, 1024, 8, 8, 128, want_route=wg, seed=15),
+        flash_bwd_case(card, "group16_d128", 1, 1024, 64, 4, 128, want_route=wg, seed=16),
+        flash_bwd_case(card, "transposed_bhsd_d64", 2, 1000, 9, 3, 64, transposed=True,
+                       want_route=wg, seed=17),
+        flash_bwd_case(card, "transposed_bhsd_d128", 2, 1024, 8, 2, 128, transposed=True,
+                       want_route=wg, seed=18),
     ]
 
 
@@ -2544,6 +2589,22 @@ def lm_step_grads(task, layout, params, batch) -> tuple[torch.Tensor, torch.Tens
     return losses.detach(), layout.flatten(dict(zip(views, grads)))
 
 
+def lm_kernel_category(name: str) -> str:
+    """The group a device kernel of the LM round is reported under."""
+    if any(tag in name for tag in ("flash_wgmma", "flash_bf16", "flash_f32")):
+        return "attention forward"
+    if any(tag in name for tag in ("delta_f32", "delta_bf16", "dkdv_", "dq_wgmma", "dq_bf16",
+                                   "dq_f32")):
+        return "attention backward"
+    if any(tag in name for tag in ("consensus_mix", "mix_tile", "dequant_mix", "segment_")):
+        return "consensus"
+    if kernel_category(name) == "matmul":
+        return "matmuls"
+    if any(tag in name for tag in ("elementwise", "copy", "Copy", "cast")):
+        return "elementwise and casts"
+    return "other"
+
+
 def drive_p2p_lm(card: Card) -> dict:
     """The slice's path at full width: P2P training of smollm-135m (30
     layers, d 576, 9 heads over 3 KV heads, D 64, vocab 49,152, tied, bf16,
@@ -2555,8 +2616,10 @@ def drive_p2p_lm(card: Card) -> dict:
     the card; then LM_ROUNDS rounds, every launch count reset just before
     and read just after each (forward and backward ``flash_attention`` 30 T
     a round, ``consensus_mix`` S); then one more round through the two
-    phases with synchronized timers.  Prints s/round, the phases' seconds,
-    the launches, the peak memory."""
+    phases with synchronized timers, and one under torch.profiler (device
+    ms and launches by ``lm_kernel_category``, the busy share, the top
+    kernels).  Prints s/round, the phases' seconds, the launches, the peak
+    memory and the profile."""
     from repro_torch.configs import get_config
     from repro_torch.core import consensus as consensus_lib
     from repro_torch.core import p2p, task as task_lib
@@ -2664,6 +2727,16 @@ def drive_p2p_lm(card: Card) -> dict:
     consensus_s = time.perf_counter() - start
     del after_local
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    batches = round_batches()
+    holder = {}
+    profile = profile_once(lambda: holder.update(out=round_fn(state, batches)),
+                           category=lm_kernel_category, n_top=12)
+    del holder
+    print(f"p2p_lm {LM_ARCH} one round under torch.profiler ({card.line}): wall "
+          f"{profile['wall_s']:.4f} s, device busy {profile['device_busy_s']:.4f} s (share "
+          f"{profile['device_busy_share']:.4f}), {profile['kernels']} kernels; by category "
+          f"[launches, device ms]: {json.dumps(profile['by_category_launches_ms'])}; top "
+          f"kernels [name, launches, ms]: {json.dumps(profile['top_kernels_ms'])}", flush=True)
     state_gb = 4 * state.params.numel() * state.params.element_size() / 1e9
     print(f"p2p_lm {LM_ARCH} ({card.line}): set-up {setup_s:.2f} s, seconds per round "
           f"{seconds}, losses {losses}, final drift {drift:.6g}; one more round: local phase "
@@ -2676,7 +2749,7 @@ def drive_p2p_lm(card: Card) -> dict:
             "losses": losses, "final_drift": drift, "local_s": local_s,
             "consensus_s": consensus_s, "setup_s": setup_s, "peak_gb": peak_gb,
             "state_gb": state_gb, "launches_per_round": per_round, "grad_check": grad_check,
-            "row": layout.row}
+            "row": layout.row, "round_profile": profile}
 
 
 def drive_run_p2p_lm_reduced(card: Card) -> dict:
@@ -3514,10 +3587,11 @@ def kernel_category(name: str) -> str:
     return "other elementwise and reductions"
 
 
-def profile_once(fn) -> dict:
+def profile_once(fn, category=kernel_category, n_top: int = 8) -> dict:
     """One call of ``fn`` under torch.profiler: wall seconds, device busy
-    seconds and share, device milliseconds by kernel category, and the
-    kernels that took the most device time."""
+    seconds and share, launches and device milliseconds by kernel category
+    (``category`` of the kernel's name), and the ``n_top`` kernels that took
+    the most device time."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         start = time.perf_counter()
@@ -3529,7 +3603,7 @@ def profile_once(fn) -> dict:
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)
     by_category: dict[str, list] = {}
     for e in kernels:
-        entry = by_category.setdefault(kernel_category(e.key), [0, 0.0])
+        entry = by_category.setdefault(category(e.key), [0, 0.0])
         entry[0] += e.count
         entry[1] += e.self_device_time_total / 1e3
     return {"wall_s": wall_s, "device_busy_s": device_s,
@@ -3537,7 +3611,7 @@ def profile_once(fn) -> dict:
             "kernels": sum(e.count for e in kernels),
             "by_category_launches_ms": by_category,
             "top_kernels_ms": [(e.key[:70], e.count, e.self_device_time_total / 1e3)
-                               for e in top[:8]]}
+                               for e in top[:n_top]]}
 
 
 def drive_serve_fleet(card: Card) -> dict:

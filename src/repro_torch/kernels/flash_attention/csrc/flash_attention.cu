@@ -15,8 +15,8 @@
 // (online softmax), and divides by max(l, 1e-30) at the end.
 //
 // Three codes, chosen by (dtype, D) alone (`route`, and `kernel_route` in
-// ops.py): bf16 at the served widths D = 128 and 80 on wgmma + TMA; bf16 at
-// D = 32 and 64 on mma.sync; float32 on the float32 pipes.  All three:
+// ops.py): bf16 at D = 128, 80 and 64 on wgmma + TMA; bf16 at D = 32 on
+// mma.sync; float32 on the float32 pipes.  All three:
 // - visit only the KV tiles that hold a visible key, from the tile of
 //   max(0, q0 - window + 1) to the tile of the last query row (causal) or
 //   the last key; dead tiles are never visited, and only tiles that hold a
@@ -28,7 +28,8 @@
 // - give a key that is not visible probability exactly 0, read keys past S
 //   as zeros and never write rows past S: S need not be a multiple of a tile.
 //
-// wgmma + TMA (bf16, D = 128 and 80; `flash_wgmma_kernel`):
+// wgmma + TMA (bf16, D = 128, 80 and 64; `flash_wgmma_kernel`; the Hopper
+// pieces in hopper.cuh, shared with the backward):
 // - a persistent grid, one block of 384 threads an SM, walks the work items
 //   (128-row query tile, head, batch row), heaviest query tiles first.
 //   Warp 0 produces: TMA loads of Q (two buffers, so the next item's Q
@@ -40,16 +41,17 @@
 //   float32 registers (max on the raw scores, the scale * log2(e) folded into
 //   one FFMA before ex2.approx, -inf for keys that are not visible, tested
 //   against each row's visible range); P converted to bf16 in registers as
-//   wgmma's A operand against V read MN-major (the transpose bit).  One
+//   wgmma's A operand against V read MN-major (the transpose bit), by
+//   m64n128k16, m64n96k16 or m64n64k16 at D = 128, 80 and 64.  One
 //   reciprocal a row at the end.
 // - operands through 4-d tensor maps (D, heads, S, B) built on the host from
 //   the strides each call (cuTensorMapEncodeTiled, reached through the
 //   runtime's driver entry point): D = 128 as two 64-column chunks in the
-//   128-byte swizzle; D = 80 in three 32-column chunks in the 64-byte
+//   128-byte swizzle, D = 64 as one; D = 80 in three 32-column chunks in the 64-byte
 //   swizzle, its 160-byte rows fitting no swizzle, so TMA zero-fills
 //   columns 80..95 (20% more tensor work, no extra bytes read).
 //
-// mma.sync (bf16, D = 32 and 64; `flash_bf16_kernel`): one block of 128
+// mma.sync (bf16, D = 32; `flash_bf16_kernel`): one block of 128
 // threads per (64-row query tile, head, batch row); K and V tiles of 64 rows
 // in two cp.async stages; mma.sync.m16n8k16 as in FlashAttention-2, a warp
 // owning 16 query rows, K's fragments by ldmatrix, V's by ldmatrix.trans;
@@ -74,12 +76,9 @@
 // rate), against 83.9 MB of q, k, v and o (0.025 ms at 3.35 TB/s): it is
 // bound by operations, hence wgmma for the served widths.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <float.h>
-#include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -264,11 +263,6 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(Params p) {
 
 __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* ptr) {
   return *reinterpret_cast<const uint32_t*>(ptr);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // c += a (16 x 16, row) * b (16 x 8, col)
@@ -494,35 +488,18 @@ __global__ void __launch_bounds__(kThreads, 3) flash_bf16_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 at D = 128 and D = 80: wgmma + TMA, warp-specialized
+// bfloat16 at D = 128, 80 and 64: wgmma + TMA, warp-specialized
 // ---------------------------------------------------------------------------
 
 constexpr int kWgBM = 128;       // query rows a block: two consumer warpgroups of 64
 constexpr int kWgBN = 128;       // keys a staged K / V tile
-constexpr int kWgStages = 2;     // K / V tiles in flight
+// K / V tiles in flight.  At D = 64 (97 KB a block) neither a third stage
+// (no faster at the LM round's shape) nor two blocks an SM (ptxas cannot fit
+// m64n128k16's 64 accumulators in the 80 registers a thread that leaves)
+// helps.
+constexpr int kWgStages = 2;
 constexpr int kWgThreads = 384;  // one producer warpgroup, two consumer warpgroups
 constexpr int kWgConsumers = 256;
-constexpr int kMaxDevices = 64;
-
-// How a head of width D is staged: kChunks chunks of kChunk columns, each a
-// [rows][kChunk] region of kRowBytes-byte rows in the swizzle of the same
-// width, which the TMA box and the wgmma descriptor (kDescLayout: 1 is
-// 128-byte, 2 is 64-byte swizzle) both name.  D = 128: two chunks of 64
-// (128-byte swizzle).  D = 80: 160-byte rows fit no swizzle, so three chunks
-// of 32 columns (64-byte swizzle) stage a width of 96, columns 80..95 zero-
-// filled by TMA: 20% more tensor work, no extra bytes read.
-template <int D>
-struct WgLayout;
-template <>
-struct WgLayout<128> {
-  static constexpr int kChunk = 64, kChunks = 2, kRowBytes = 128, kDescLayout = 1;
-  static constexpr CUtensorMapSwizzle kSwizzle = CU_TENSOR_MAP_SWIZZLE_128B;
-};
-template <>
-struct WgLayout<80> {
-  static constexpr int kChunk = 32, kChunks = 3, kRowBytes = 64, kDescLayout = 2;
-  static constexpr CUtensorMapSwizzle kSwizzle = CU_TENSOR_MAP_SWIZZLE_64B;
-};
 
 template <int D>
 constexpr size_t wg_smem_bytes() {
@@ -531,175 +508,6 @@ constexpr size_t wg_smem_bytes() {
   constexpr size_t tile_bytes = static_cast<size_t>(kWgBN) * L::kChunks * L::kRowBytes;
   // two Q buffers, the K / V stages, the barriers, and slack to align the base to 1024
   return 2 * q_bytes + kWgStages * 2 * tile_bytes + 8 * (4 + 3 * kWgStages) + 1024;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Spin until the phase of `bar` with this parity has completed.  A phase
-// that never completes (a fault in the pipeline) traps after 2^35 clock
-// cycles (some 17 s), so the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  const long long start = clock64();
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (clock64() - start > (1LL << 35)) __trap();
-  }
-}
-
-// One TMA box of a 4-d map at coordinates (c0 innermost) into shared memory,
-// completing `bar`'s transaction bytes; out-of-range elements are zero.
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                            int c2, int c3, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
-      : "memory");
-}
-
-// A wgmma shared-memory descriptor: start address, leading and stride byte
-// offsets (16-byte units) and the swizzle of the canonical layout.
-__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                            uint32_t layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
-         (static_cast<uint64_t>(layout) << 62);
-}
-
-// 2^x by the special-function unit (relative error about 2^-22); 2^-inf = 0.
-__device__ __forceinline__ float ex2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Orders the accumulator registers after (or before) the wgmma fences and
-// waits, which name no register themselves.
-template <int N>
-__device__ __forceinline__ void fence_operands(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x 128, float32) (accumulate ? += : =) A (64 x 16) B (16 x 128), both from
-// shared memory, K-major, described by a and b
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
-                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d (64 x 128, float32) += A (64 x 16, bf16 registers) B (16 x 128, shared memory,
-// MN-major: the transpose bit), described by b
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
-                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d (64 x 96, float32) += A (64 x 16, bf16 registers) B (16 x 96, shared memory,
-// MN-major: the transpose bit), described by b
-__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48], const uint32_t (&a)[4],
-                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
-      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_pv(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&d)[64], const uint32_t (&a)[4],
-                                              uint64_t b) {
-  wgmma_rs_n128(d, a, b);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<96>(float (&d)[48], const uint32_t (&a)[4], uint64_t b) {
-  wgmma_rs_n96(d, a, b);
 }
 
 // Warp 0 of warpgroup 0 loads (Q once, then K and V tiles through a ring of
@@ -751,13 +559,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_init(full_v(s), 1);
       mbar_init(empty(s), kWgConsumers);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
   if (wg == 0) {  // producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    setmaxnreg_dec<40>();
     if (threadIdx.x == 0) {
       int ring = 0, n = 0;  // K / V tiles and items loaded so far
       for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
@@ -785,7 +593,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     }
   } else {  // consumers
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    setmaxnreg_inc<232>();
     const int cw = wg - 1;  // rows q0 + 64 cw .. q0 + 64 cw + 63
     const int ct = threadIdx.x - 128 * wg, warp = ct / 32, lane = ct % 32;
     const int g = lane >> 2, tq = lane & 3;
@@ -823,10 +631,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                                       16, kSbo, L::kDescLayout);
           const uint64_t db =
               wg_desc(s_k + (ks / kStepsPerChunk) * kKVChunk + off, 16, kSbo, L::kDescLayout);
-          wgmma_ss_n128(sc, da, db, ks > 0);
+          wgmma_ss<kWgBN>(sc, da, db, ks > 0);
         }
         wgmma_commit();
-        wgmma_wait_all();
+        wgmma_wait<0>();
         fence_operands(sc);
 
         // online softmax in the log2 domain, two FA3 economies: the row max is
@@ -890,10 +698,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kWgBN / 16; ++kk)
-          wgmma_pv<DP>(o, pa[kk], wg_desc(s_v + kk * 16 * L::kRowBytes, kKVChunk, kSbo,
+          wgmma_rs<DP>(o, pa[kk], wg_desc(s_v + kk * 16 * L::kRowBytes, kKVChunk, kSbo,
                                           L::kDescLayout));
         wgmma_commit();
-        wgmma_wait_all();
+        wgmma_wait<0>();
         fence_operands(o);
         mbar_arrive(empty(s));
       }
@@ -921,50 +729,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda).
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr,
-                                                             12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(ptr);
-  }
-  return fn;
-}
-
-// The 4-d map (D, heads, S, B) of a bf16 operand read through its element
-// strides, boxes of (chunk, 1, rows, 1); rows past S and columns past D
-// read as zero.
-cudaError_t make_map(CUtensorMap* map, const void* ptr, int64_t d, int64_t heads, int64_t s,
-                     int64_t b, int64_t sh, int64_t ss, int64_t sb, int chunk, int rows,
-                     CUtensorMapSwizzle swizzle) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(s), static_cast<cuuint64_t>(b)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2, static_cast<cuuint64_t>(ss) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(chunk), 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                            strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int D>
 cudaError_t launch_wgmma(const Params& p, int B, int H, int KH, cudaStream_t stream) {
   using L = WgLayout<D>;
@@ -981,31 +745,24 @@ cudaError_t launch_wgmma(const Params& p, int B, int H, int KH, cudaStream_t str
   // at most one a work item.  The shared-memory limit and the SM count are
   // set and asked once per device.
   constexpr size_t smem = wg_smem_bytes<D>();
-  int dev = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   static int sms[kMaxDevices] = {};
-  if (sms[dev] == 0) {
-    if ((err = cudaFuncSetAttribute(flash_wgmma_kernel<D>,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    static_cast<int>(smem))) != cudaSuccess ||
-        (err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev)) !=
-            cudaSuccess)
-      return err;
-  }
+  int count = 0;
+  if ((err = prepare_persistent(flash_wgmma_kernel<D>, smem, sms, count)) != cudaSuccess)
+    return err;
   const int64_t items = static_cast<int64_t>((p.S + kWgBM - 1) / kWgBM) * H * B;
   if (items > 0x7fffffff) return cudaErrorInvalidValue;
-  const int grid = static_cast<int>(items < sms[dev] ? items : sms[dev]);
+  const int grid = static_cast<int>(items < count ? items : count);
   flash_wgmma_kernel<D><<<grid, kWgThreads, smem, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();
 }
 
 // Which code runs a call: 0 float32 (float32 pipes), 1 bf16 on mma.sync
-// (D = 32, 64), 2 bf16 on wgmma + TMA (D = 80, 128).
-int route(int dtype, int d) { return dtype == 0 ? 0 : (d == 80 || d == 128) ? 2 : 1; }
+// (D = 32), 2 bf16 on wgmma + TMA (D = 64, 80, 128).
+int route(int dtype, int d) { return dtype == 0 ? 0 : (d == 64 || d == 80 || d == 128) ? 2 : 1; }
 
 size_t smem_bytes(int dtype, int d) {
-  if (route(dtype, d) == 2) return d == 128 ? wg_smem_bytes<128>() : wg_smem_bytes<80>();
+  if (route(dtype, d) == 2)
+    return d == 128 ? wg_smem_bytes<128>() : d == 80 ? wg_smem_bytes<80>() : wg_smem_bytes<64>();
   if (dtype == 0)
     return sizeof(float) * (static_cast<size_t>(kBQ + kBK) * (d + 1) +
                             static_cast<size_t>(kBK) * d + static_cast<size_t>(kBQ) * (kBK + 1));
@@ -1027,7 +784,7 @@ cudaError_t launch_d(int dtype, const Params& p, int n_q, int H, int B, int KH,
                      cudaStream_t stream) {
   const size_t smem = smem_bytes(dtype, D);
   if (dtype == 0) return launch(flash_f32_kernel<D>, smem, p, n_q, H, B, stream);
-  if constexpr (D == 80 || D == 128) {
+  if constexpr (D == 64 || D == 80 || D == 128) {
     return launch_wgmma<D>(p, B, H, KH, stream);
   } else {
     return launch(flash_bf16_kernel<D>, smem, p, n_q, H, B, stream);
@@ -1043,7 +800,7 @@ extern "C" int64_t flash_attention_smem_bytes(int64_t dtype, int64_t d) {
 }
 
 // The code a call of `dtype` at head width d runs: 0 float32, 1 bf16 on
-// mma.sync, 2 bf16 on wgmma + TMA.
+// mma.sync (D = 32), 2 bf16 on wgmma + TMA (D = 64, 80, 128).
 extern "C" int64_t flash_attention_route(int64_t dtype, int64_t d) {
   return route(static_cast<int>(dtype), static_cast<int>(d));
 }

@@ -19,43 +19,75 @@
 // Three kernels a call, none with atomics, so every output element is
 // written by one thread in a fixed order and a call gives the same bits
 // each time:
-// - `delta_kernel`: rowsum(do o), one warp a row, into a float32 scratch.
-// - `dkdv_*_kernel`: a block owns 64 keys of one KV head and walks its G
-//   query heads and, for each, the query tiles that see any of its keys,
-//   accumulating dk and dv in float32 registers; it recomputes p and dp for
-//   each (key tile, query tile) pair.
-// - `dq_*_kernel`: a block owns 64 query rows of one head and walks the KV
-//   tiles they see (the forward's range), accumulating dq.
+// - `delta_*_kernel`: rowsum(do o) into a float32 scratch,
+//   and beside it lse log2(e): rows of S padded with zeros to a multiple of
+//   128, so the wgmma route's TMA boxes of 64 or 128 rows start aligned and
+//   lie in the buffer at any S.
+// - `dkdv_*_kernel`: a block owns a tile of keys of one KV head and walks
+//   its G query heads and, for each, the query tiles that see any of its
+//   keys, accumulating dk and dv in float32 registers; it recomputes p and
+//   dp for each (key tile, query tile) pair.
+// - `dq_*_kernel`: a block owns a tile of query rows of one head and walks
+//   the KV tiles they see (the forward's range), accumulating dq.
 // S and dP are computed twice (once in each of the last two kernels): 14 D
-// operations a visible (q, k) pair against the 10 D the five products need.
+// operations a visible (q, k) pair against the 10 D the five products need;
+// a single pass would have to sum dq across key tiles, which without
+// floating-point atomics needs a second pass over a (tiles, S, H, D)
+// scratch anyway.
 //
-// bf16 (every head width: 32, 64, 80, 128) on the tensor cores with
-// mma.sync.m16n8k16 and float32 accumulation, a warp owning 16 rows of the
-// block's tile; A fragments read from shared memory, B fragments by
-// ldmatrix (.trans where the operand is [k][n] in memory), P and dS
-// converted to bf16 in registers as the A operand of the second products,
-// as in FlashAttention-2.  Tiles staged by cp.async, synchronously (no
-// pipelining: a simple kernel first).  float32 on the float32 pipes with the
-// forward's float32 tiling (thread (ty, tx) holds rows 4 ty .. 4 ty + 3 and
-// columns tx + 8 j).  Rows and keys past S read as zeros, are masked to
-// p = 0, and are never written: S need not be a multiple of a tile.
+// Three codes, chosen by (dtype, D) alone (`route`, and `bwd_kernel_route`
+// in ops.py):
+//
+// wgmma + TMA (bf16 at D = 64 and 128, the trained widths;
+// `dkdv_wgmma_kernel`, `dq_wgmma_kernel`; the Hopper pieces in hopper.cuh,
+// shared with the forward): each a persistent grid of 384-thread blocks,
+// one an SM.  Warp 0 produces by TMA through 4-d tensor maps of the
+// operands' strides (and 1-d maps of the padded lse and delta) into
+// mbarrier rings, keeping 40 registers (setmaxnreg); two consumer
+// warpgroups of 64 rows each, 232 registers, run every product on wgmma
+// with float32 accumulators: the score-like products (S^T = K Q^T and
+// dP^T = V dO^T for dk / dv; S = Q K^T and dP = dO V^T for dq) by m64nNk16
+// with both operands in swizzled shared memory, the exponentials of S
+// while dP's products run; the gradient products (dv += P^T dO,
+// dk += dS^T Q, dq += dS K) by m64nDk16 with P^T / dS^T / dS converted to
+// bf16 in registers as the A operand and the other operand read MN-major
+// (the transpose bit), as the forward's P V.  dk / dv blocks own 128 keys
+// and stage Q and dO tiles of N = 64 rows (128 at D = 64); dq blocks own
+// 128 query rows and stage K and V tiles of N = 64 keys (128 at D = 64).
+// Only tiles that hold a dead (q, k) pair evaluate the mask, setting -inf
+// from each row's visible range.  The first key tiles (causal: the most
+// query tiles) and the last query tiles (the most key tiles) go first, and
+// a block takes its items in snake order over the sorted list.
+//
+// mma.sync (bf16 at D = 32 and 80): mma.sync.m16n8k16 and float32
+// accumulation, a warp owning 16 rows of the block's 64-row tile; A
+// fragments read from shared memory, B fragments by ldmatrix (.trans where
+// the operand is [k][n] in memory), P and dS converted to bf16 in registers
+// as the A operand of the second products, as in FlashAttention-2.  Tiles
+// staged by cp.async, synchronously.
+//
+// float32 on the float32 pipes with the forward's float32 tiling (thread
+// (ty, tx) holds rows 4 ty .. 4 ty + 3 and columns tx + 8 j).
+//
+// Every code: rows and keys past S read as zeros, are masked to p = 0, and
+// are never written: S need not be a multiple of a tile.
 //
 // Bound on an H100 SXM: at the LM round's shape (B 16, S 1024, H 9, Kh 3,
 // D 64, causal) there are 75.5 M visible (q, k) pairs; the five products
 // take 10 D = 640 operations a pair, 48.3 GFLOP, 0.049 ms at 989 TFLOP/s
 // (bf16 dense tensor rate), against 57 MB of q, k, v, o, do, lse, dq, dk,
-// dv (0.017 ms at 3.35 TB/s): bound by operations.
+// dv (0.017 ms at 3.35 TB/s): bound by operations, hence wgmma.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kTile = 64;  // keys of a dk / dv block, query rows of a dq block
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kRowPad = 128;  // the scratch rows' length is a multiple of this
+
+int64_t padded_rows(int64_t S) { return (S + kRowPad - 1) / kRowPad * kRowPad; }
 
 struct BwdParams {
   const void* q;
@@ -64,14 +96,16 @@ struct BwdParams {
   const void* o;
   const void* dout;
   const float* lse;  // (B, H, S), natural log
-  float* delta;      // (B, H, S) scratch: rowsum(do o)
+  float* delta;      // (B, H, sp) scratch: rowsum(do o), 0 in the padding
+  float* lse2;       // (B, H, sp) scratch after it: lse log2(e), 0 in the padding
   void* dq;          // (B, S, H, D), contiguous
   void* dk;          // (B, S, KH, D), contiguous
   void* dv;          // (B, S, KH, D), contiguous
   // strides in elements: batch, sequence, head
   int64_t q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh;
   int64_t do_sb, do_ss, do_sh;
-  int S, H, KH, group, causal, window;
+  int S, H, KH, B, group, causal, window;
+  int sp;  // S rounded up to kRowPad: the scratch rows' length
   float scale;  // the softmax scale
 };
 
@@ -100,28 +134,74 @@ __device__ __forceinline__ void kv_tiles(int q0, const BwdParams& p, int& lo, in
   hi = (p.causal ? q_last : p.S - 1) / BK;
 }
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
 // ---------------------------------------------------------------------------
-// delta = rowsum(do o), one warp a row
+// delta = rowsum(do o) and lse log2(e), a row of the padded scratch each
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) delta_kernel(BwdParams p, int D, int64_t rows) {
+// float32: one warp a row.
+__global__ void __launch_bounds__(kThreads) delta_f32_kernel(BwdParams p, int D, int64_t rows) {
   const int64_t row = static_cast<int64_t>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
-  const int s = static_cast<int>(row % p.S);
-  const int64_t bh = row / p.S;
+  const int s = static_cast<int>(row % p.sp);
+  const int64_t bh = row / p.sp;
+  if (s >= p.S) {  // the padding: probability 0 and finite in every product
+    if (lane == 0) p.delta[row] = p.lse2[row] = 0.0f;
+    return;
+  }
   const int h = static_cast<int>(bh % p.H), b = static_cast<int>(bh / p.H);
-  const T* o = static_cast<const T*>(p.o) + b * p.o_sb + s * p.o_ss + h * p.o_sh;
-  const T* g = static_cast<const T*>(p.dout) + b * p.do_sb + s * p.do_ss + h * p.do_sh;
+  const float* o = static_cast<const float*>(p.o) + b * p.o_sb + s * p.o_ss + h * p.o_sh;
+  const float* g = static_cast<const float*>(p.dout) + b * p.do_sb + s * p.do_ss + h * p.do_sh;
   float acc = 0.0f;
-  for (int c = lane; c < D; c += 32) acc = fmaf(to_f(o[c]), to_f(g[c]), acc);
+  for (int c = lane; c < D; c += 32) acc = fmaf(o[c], g[c], acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) p.delta[row] = acc;
+  if (lane == 0) {
+    p.delta[row] = acc;
+    p.lse2[row] = p.lse[bh * p.S + s] * kLog2e;
+  }
+}
+
+// bf16: delta_lanes<D>() lanes a row, 8 elements (16 bytes) a lane (the
+// operands' strides are multiples of 8 elements), the rest of the warp on
+// the next rows; block (x, h, b) takes rows x delta_block_rows<D>() .. of
+// head h, batch row b, the padding past S included.  Small blocks, many
+// waves of them: larger ones (several rows a lane group) leave a partial
+// last wave at the LM round's shape.
+template <int D>
+__host__ __device__ constexpr int delta_lanes() { return D / 8 <= 4 ? 4 : D / 8 <= 8 ? 8 : 16; }
+template <int D>
+__host__ __device__ constexpr int delta_block_rows() { return kThreads / delta_lanes<D>(); }
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) delta_bf16_kernel(BwdParams p) {
+  constexpr int kLanes = delta_lanes<D>();
+  const int sub = threadIdx.x % kLanes, h = blockIdx.y, b = blockIdx.z;
+  const int s = blockIdx.x * delta_block_rows<D>() + threadIdx.x / kLanes;
+  float acc = 0.0f;
+  if (s < p.S && sub * 8 < D) {
+    const uint4 ov = *reinterpret_cast<const uint4*>(
+        static_cast<const __nv_bfloat16*>(p.o) + b * p.o_sb + s * p.o_ss + h * p.o_sh + sub * 8);
+    const uint4 gv = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(p.dout) +
+                                                     b * p.do_sb + s * p.do_ss + h * p.do_sh +
+                                                     sub * 8);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 x = __bfloat1622float2(o2[e]), y = __bfloat1622float2(g2[e]);
+      acc = fmaf(x.x, y.x, acc);
+      acc = fmaf(x.y, y.y, acc);
+    }
+  }
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (s < p.sp && sub == 0) {
+    const int64_t bh = static_cast<int64_t>(b) * p.H + h;
+    const bool pad = s >= p.S;  // the padding: probability 0 and finite in every product
+    p.delta[bh * p.sp + s] = pad ? 0.0f : acc;
+    p.lse2[bh * p.sp + s] = pad ? 0.0f : p.lse[bh * p.S + s] * kLog2e;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -146,7 +226,7 @@ __device__ __forceinline__ void stage_rows(float* s_lse, float* s_delta, const B
   for (int r = threadIdx.x; r < kTile; r += kThreads) {
     const int s = first + r;
     s_lse[r] = s < p.S ? p.lse[bh * p.S + s] * lse_mul : 0.0f;
-    s_delta[r] = s < p.S ? p.delta[bh * p.S + s] : 0.0f;
+    s_delta[r] = s < p.S ? p.delta[bh * p.sp + s] : 0.0f;
   }
 }
 
@@ -374,11 +454,6 @@ __global__ void __launch_bounds__(kThreads) dq_f32_kernel(BwdParams p) {
 
 __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* ptr) {
   return *reinterpret_cast<const uint32_t*>(ptr);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // c += a (16 x 16, row) * b (16 x 8, col)
@@ -677,11 +752,529 @@ __global__ void __launch_bounds__(kThreads) dq_bf16_kernel(BwdParams p) {
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16 at D = 64 and 128: wgmma + TMA, warp-specialized
+// ---------------------------------------------------------------------------
+
+constexpr int kWgThreads = 384;  // one producer warpgroup, two consumer warpgroups
+constexpr int kWgConsumers = 256;
+constexpr int kKvBN = 128;  // keys a dK / dV block: two consumer warpgroups of 64
+constexpr int kQBM = 128;   // query rows a dQ block: two consumer warpgroups of 64
+
+// The staged tiles and stages in flight at head width D: kKvBM query rows
+// a Q / dO tile of the dK / dV kernel, kQBN keys a K / V tile of the dQ
+// kernel.  At D = 128, 64 each: the dK and dV accumulators take 128
+// registers a thread, the score-like products 32 each.  At D = 64 the
+// gradient accumulators are half as large, so the tiles double (128),
+// which halves the barriers, waits and row loads per product.
+template <int D>
+struct BwdTuning {
+  static constexpr int kKvBM = 64, kQBN = 64, kKvStages = 3, kQStages = 2;
+};
+template <>
+struct BwdTuning<64> {
+  static constexpr int kKvBM = 128, kQBN = 128, kKvStages = 3, kQStages = 3;
+};
+
+template <int D>
+constexpr size_t dkdv_wg_smem() {
+  using L = WgLayout<D>;
+  constexpr int bm = BwdTuning<D>::kKvBM, st = BwdTuning<D>::kKvStages;
+  constexpr size_t k_bytes = static_cast<size_t>(kKvBN) * L::kChunks * L::kRowBytes;
+  constexpr size_t q_bytes = static_cast<size_t>(bm) * L::kChunks * L::kRowBytes;
+  // K and V, the Q / dO stages, their lse and delta rows, the barriers, and
+  // slack to align the base to 1024
+  return 2 * k_bytes + st * (2 * q_bytes + 2 * bm * sizeof(float)) + 8 * (2 + 2 * st) + 1024;
+}
+
+template <int D>
+constexpr size_t dq_wg_smem() {
+  using L = WgLayout<D>;
+  constexpr int bn = BwdTuning<D>::kQBN, st = BwdTuning<D>::kQStages;
+  constexpr size_t q_bytes = static_cast<size_t>(kQBM) * L::kChunks * L::kRowBytes;
+  constexpr size_t k_bytes = static_cast<size_t>(bn) * L::kChunks * L::kRowBytes;
+  // two (Q, dO) buffers, the K / V stages, the barriers, and the slack
+  return 4 * q_bytes + st * 2 * k_bytes + 8 * (4 + 2 * st) + 1024;
+}
+
+// Item `r` of block blockIdx.x in a persistent grid of `grid` blocks: round
+// r takes items r grid .. r grid + grid - 1, the block the x-th of them in
+// even rounds and the x-th from the end in odd ones, so that over a list
+// sorted heaviest first a block that drew a heavy item draws a light one
+// next.
+__device__ __forceinline__ int snake_item(int r, int grid) {
+  const int x = static_cast<int>(blockIdx.x);
+  return r * grid + ((r & 1) ? grid - 1 - x : x);
+}
+
+// Whether the BM query rows from q0 and the BN keys from k0 hold a (q, k)
+// pair that is not visible (or lies past S).
+__device__ __forceinline__ bool pair_tile_needs_mask(int q0, int bm, int k0, int bn,
+                                                     const BwdParams& p) {
+  return q0 + bm > p.S || k0 + bn > p.S || (p.causal && k0 + bn - 1 > q0) ||
+         (p.window > 0 && q0 + bm - 1 - k0 >= p.window);
+}
+
+// dK and dV: a persistent grid walks the items (128-key tile, KV head,
+// batch row), first key tiles first (under a causal mask the most query
+// tiles see them).  Warp 0 loads the item's K and V once (one buffer, freed
+// when both consumer warpgroups are done with the item), then for each of
+// the group's G query heads and each query tile that sees the keys, the
+// 64-row Q and dO tiles and their lse and delta rows through a ring of
+// stages.  Consumer warpgroup cw owns keys k0 + 64 cw .. + 63:
+//   S^T = K Q^T and dP^T = V dO^T by wgmma m64n64k16 from shared memory;
+//   P^T = exp2(S^T scale log2(e) - lse log2(e)), 0 where not visible, and
+//   dS^T = P^T (dP^T - delta), both converted to bf16 in registers as
+//   wgmma's A operand: dV += P^T dO and dK += dS^T Q, dO and Q read MN-major
+//   (the transpose bit), by m64nDk16.
+// dK and dV stay in float32 registers for the item and are written once.
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_do,
+                  const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v,
+                  const __grid_constant__ CUtensorMap tm_lse,
+                  const __grid_constant__ CUtensorMap tm_delta, BwdParams p) {
+  using L = WgLayout<D>;
+  constexpr int kStages = BwdTuning<D>::kKvStages, kKvBM = BwdTuning<D>::kKvBM;
+  constexpr int kStepsPerChunk = L::kChunk / 16;
+  constexpr uint32_t kKChunk = kKvBN * L::kRowBytes, kKBytes = kKChunk * L::kChunks;
+  constexpr uint32_t kQChunk = kKvBM * L::kRowBytes, kQBytes = kQChunk * L::kChunks;
+  constexpr uint32_t kRowsBytes = kKvBM * sizeof(float);
+  constexpr uint32_t kSbo = 8 * L::kRowBytes;  // 8 rows of a chunk
+  extern __shared__ unsigned char smem_wg[];
+  const uint32_t base = (smem_u32(smem_wg) + 1023) & ~1023u;  // the swizzle atoms' alignment
+  const unsigned char* gbase = smem_wg + (base - smem_u32(smem_wg));
+  const uint32_t s_k = base, s_v = base + kKBytes;
+  const uint32_t s_st = base + 2 * kKBytes;              // stage s: Q, then dO
+  const uint32_t s_rows = s_st + kStages * 2 * kQBytes;  // stage s: lse, then delta
+  const uint32_t bars = s_rows + kStages * 2 * kRowsBytes;
+  auto st_q = [&](int s) { return s_st + 2 * s * kQBytes; };
+  auto st_do = [&](int s) { return s_st + (2 * s + 1) * kQBytes; };
+  auto st_lse = [&](int s) { return s_rows + 2 * s * kRowsBytes; };
+  auto st_delta = [&](int s) { return s_rows + (2 * s + 1) * kRowsBytes; };
+  const uint32_t kv_full = bars, kv_empty = bars + 8;
+  auto full = [&](int s) { return bars + 8 * (2 + s); };
+  auto empty = [&](int s) { return bars + 8 * (2 + kStages + s); };
+
+  const int slots = p.KH * p.B, items = ((p.S + kKvBN - 1) / kKvBN) * slots;
+  auto item_of = [&](int item, int& k0, int& kh, int& b) {
+    const int r = item % slots;
+    k0 = (item / slots) * kKvBN;
+    kh = r % p.KH;
+    b = r / p.KH;
+  };
+  const int grid = static_cast<int>(gridDim.x);
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, kWgConsumers);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kWgConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {  // producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      int ring = 0, n = 0;  // Q / dO tiles and items loaded so far
+      for (int r = 0; r * grid < items; ++r) {
+        const int item = snake_item(r, grid);
+        if (item >= items) continue;
+        int k0, kh, b;
+        item_of(item, k0, kh, b);
+        int t_lo, t_hi;
+        q_tiles<kKvBM, kKvBN>(k0, p, t_lo, t_hi);
+        mbar_wait(kv_empty, (n & 1) ^ 1);
+        mbar_expect_tx(kv_full, 2 * kKBytes);
+        for (int c = 0; c < L::kChunks; ++c) {
+          tma_load_4d(s_k + c * kKChunk, &tm_k, c * L::kChunk, kh, k0, b, kv_full);
+          tma_load_4d(s_v + c * kKChunk, &tm_v, c * L::kChunk, kh, k0, b, kv_full);
+        }
+        for (int gi = 0; gi < p.group; ++gi) {
+          const int h = kh * p.group + gi;
+          const int row0 = (b * p.H + h) * p.sp;  // (b, h)'s first lse / delta element
+          for (int t = t_lo; t <= t_hi; ++t, ++ring) {
+            const int s = ring % kStages;
+            mbar_wait(empty(s), ((ring / kStages) & 1) ^ 1);
+            mbar_expect_tx(full(s), 2 * kQBytes + 2 * kRowsBytes);
+            for (int c = 0; c < L::kChunks; ++c) {
+              tma_load_4d(st_q(s) + c * kQChunk, &tm_q, c * L::kChunk, h, t * kKvBM, b, full(s));
+              tma_load_4d(st_do(s) + c * kQChunk, &tm_do, c * L::kChunk, h, t * kKvBM, b,
+                          full(s));
+            }
+            tma_load_1d(st_lse(s), &tm_lse, row0 + t * kKvBM, full(s));  // lse log2(e)
+            tma_load_1d(st_delta(s), &tm_delta, row0 + t * kKvBM, full(s));
+          }
+        }
+        ++n;
+      }
+    }
+  } else {  // consumers
+    setmaxnreg_inc<232>();
+    const int cw = wg - 1;
+    const int ct = threadIdx.x - 128 * wg, warp = ct / 32, lane = ct % 32;
+    const int g = lane >> 2, tq = lane & 3;
+    const float scale2 = p.scale * kLog2e;
+    int ring = 0, n = 0;
+    for (int r = 0; r * grid < items; ++r) {
+      const int item = snake_item(r, grid);
+      if (item >= items) continue;
+      int k0, kh, b;
+      item_of(item, k0, kh, b);
+      int t_lo, t_hi;
+      q_tiles<kKvBM, kKvBN>(k0, p, t_lo, t_hi);
+      const int wk0 = k0 + 64 * cw;  // this warpgroup's keys
+      const int krow[2] = {wk0 + 16 * warp + g, wk0 + 16 * warp + g + 8};
+      float dk[D / 2], dv[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.0f;
+      mbar_wait(kv_full, n & 1);
+
+      for (int gi = 0; gi < p.group; ++gi) {
+        for (int t = t_lo; t <= t_hi; ++t, ++ring) {
+          const int s = ring % kStages;
+          const int q0 = t * kKvBM;
+          mbar_wait(full(s), (ring / kStages) & 1);
+
+          // S^T and dP^T: element 4 j + e is key krow[e / 2], query
+          // q0 + 8 j + 2 tq + e % 2
+          float st[kKvBM / 2] = {}, dpt[kKvBM / 2] = {};  // overwritten (accumulate 0)
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < D / 16; ++ks) {
+            const uint32_t off = (ks / kStepsPerChunk) * kKChunk + (ks % kStepsPerChunk) * 32;
+            const uint32_t qoff = (ks / kStepsPerChunk) * kQChunk + (ks % kStepsPerChunk) * 32;
+            wgmma_ss<kKvBM>(st, wg_desc(s_k + off + 64 * cw * L::kRowBytes, 16, kSbo,
+                                        L::kDescLayout),
+                            wg_desc(st_q(s) + qoff, 16, kSbo, L::kDescLayout), ks > 0);
+          }
+          wgmma_commit();
+#pragma unroll
+          for (int ks = 0; ks < D / 16; ++ks) {
+            const uint32_t off = (ks / kStepsPerChunk) * kKChunk + (ks % kStepsPerChunk) * 32;
+            const uint32_t qoff = (ks / kStepsPerChunk) * kQChunk + (ks % kStepsPerChunk) * 32;
+            wgmma_ss<kKvBM>(dpt, wg_desc(s_v + off + 64 * cw * L::kRowBytes, 16, kSbo,
+                                         L::kDescLayout),
+                            wg_desc(st_do(s) + qoff, 16, kSbo, L::kDescLayout), ks > 0);
+          }
+          wgmma_commit();
+
+          // P^T in place of S^T while dP^T's products run, then dS^T =
+          // P^T (dP^T - delta) in place of dP^T; both as the bf16 A fragments
+          // of the 16-query steps
+          const float* lse = reinterpret_cast<const float*>(gbase + (st_lse(s) - base));
+          const float* delta = reinterpret_cast<const float*>(gbase + (st_delta(s) - base));
+          wgmma_wait<1>();
+          fence_operands(st);
+          // where the tile needs a mask, a query that does not see the key
+          // (or lies past S) scores -inf, tested against each key's range
+          // of visible queries: its probability is then exactly 0
+          if (pair_tile_needs_mask(q0, kKvBM, wk0, 64, p)) {
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int k = krow[r];
+              const int last = p.window > 0 ? min(p.S - 1, k + p.window - 1) : p.S - 1;
+              const int lo = (p.causal ? k : 0) - q0 - 2 * tq;
+              const int hi = (k < p.S ? last : -1) - q0 - 2 * tq;
+#pragma unroll
+              for (int j = 0; j < kKvBM / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  const int col = 8 * j + e;
+                  if (col < lo || col > hi) st[4 * j + 2 * r + e] = -INFINITY;
+                }
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < kKvBM / 8; ++j) {
+            const float2 l2 = *reinterpret_cast<const float2*>(lse + 8 * j + 2 * tq);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              st[4 * j + e] = ex2_approx(fmaf(st[4 * j + e], scale2, -(e & 1 ? l2.y : l2.x)));
+          }
+          wgmma_wait<0>();
+          fence_operands(dpt);
+#pragma unroll
+          for (int j = 0; j < kKvBM / 8; ++j) {
+            const float2 d2 = *reinterpret_cast<const float2*>(delta + 8 * j + 2 * tq);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - (e & 1 ? d2.y : d2.x));
+          }
+          uint32_t pa[kKvBM / 16][4], sa[kKvBM / 16][4];
+#pragma unroll
+          for (int j = 0; j < kKvBM / 8; ++j) {
+            pa[j / 2][2 * (j & 1)] = pack_bf16(st[4 * j], st[4 * j + 1]);
+            pa[j / 2][2 * (j & 1) + 1] = pack_bf16(st[4 * j + 2], st[4 * j + 3]);
+            sa[j / 2][2 * (j & 1)] = pack_bf16(dpt[4 * j], dpt[4 * j + 1]);
+            sa[j / 2][2 * (j & 1) + 1] = pack_bf16(dpt[4 * j + 2], dpt[4 * j + 3]);
+          }
+
+          // dV += P^T dO and dK += dS^T Q, dO and Q read MN-major
+          fence_operands(dv);
+          fence_operands(dk);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kKvBM / 16; ++kk)
+            wgmma_rs<D>(dv, pa[kk], wg_desc(st_do(s) + kk * 16 * L::kRowBytes, kQChunk, kSbo,
+                                            L::kDescLayout));
+#pragma unroll
+          for (int kk = 0; kk < kKvBM / 16; ++kk)
+            wgmma_rs<D>(dk, sa[kk], wg_desc(st_q(s) + kk * 16 * L::kRowBytes, kQChunk, kSbo,
+                                            L::kDescLayout));
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_operands(dv);
+          fence_operands(dk);
+          mbar_arrive(empty(s));
+        }
+      }
+      mbar_arrive(kv_empty);  // the producer may load the next item's K and V
+
+      const int64_t row_stride = static_cast<int64_t>(p.KH) * D;
+      const int64_t head = (static_cast<int64_t>(b) * p.S * p.KH + kh) * D;
+      __nv_bfloat16* dkp = static_cast<__nv_bfloat16*>(p.dk) + head;
+      __nv_bfloat16* dvp = static_cast<__nv_bfloat16*>(p.dv) + head;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (krow[e] >= p.S) continue;
+        const int64_t at = krow[e] * row_stride + 2 * tq;
+#pragma unroll
+        for (int c = 0; c < D / 8; ++c) {
+          *reinterpret_cast<uint32_t*>(dkp + at + c * 8) =
+              pack_bf16(dk[4 * c + 2 * e] * p.scale, dk[4 * c + 2 * e + 1] * p.scale);
+          *reinterpret_cast<uint32_t*>(dvp + at + c * 8) =
+              pack_bf16(dv[4 * c + 2 * e], dv[4 * c + 2 * e + 1]);
+        }
+      }
+      ++n;
+    }
+  }
+}
+
+// dQ: a persistent grid walks the items (128-row query tile, head, batch
+// row), heaviest query tiles first, as the forward.  Warp 0 loads the
+// item's Q and dO (two buffers, so the next item's arrive during this one),
+// then the 64-key K and V tiles the rows see through a ring of stages.
+// Consumer warpgroup cw owns rows q0 + 64 cw .. + 63, their lse and delta
+// in registers:
+//   S = Q K^T and dP = dO V^T by wgmma m64n64k16 from shared memory;
+//   dS = P (dP - delta), P = exp2(S scale log2(e) - lse log2(e)), 0 where
+//   not visible; dQ += dS K with dS as bf16 registers and K read MN-major.
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_do,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v, BwdParams p) {
+  using L = WgLayout<D>;
+  constexpr int kStages = BwdTuning<D>::kQStages, kQBN = BwdTuning<D>::kQBN;
+  constexpr int kStepsPerChunk = L::kChunk / 16;
+  constexpr uint32_t kQChunk = kQBM * L::kRowBytes, kQBytes = kQChunk * L::kChunks;
+  constexpr uint32_t kKChunk = kQBN * L::kRowBytes, kKBytes = kKChunk * L::kChunks;
+  constexpr uint32_t kSbo = 8 * L::kRowBytes;
+  extern __shared__ unsigned char smem_wg[];
+  const uint32_t base = (smem_u32(smem_wg) + 1023) & ~1023u;
+  const uint32_t s_qd = base;                 // buffer qs: Q, then dO
+  const uint32_t s_kv = base + 4 * kQBytes;   // stage s: K, then V
+  const uint32_t bars = s_kv + kStages * 2 * kKBytes;
+  auto buf_q = [&](int qs) { return s_qd + 2 * qs * kQBytes; };
+  auto buf_do = [&](int qs) { return s_qd + (2 * qs + 1) * kQBytes; };
+  auto st_k = [&](int s) { return s_kv + 2 * s * kKBytes; };
+  auto st_v = [&](int s) { return s_kv + (2 * s + 1) * kKBytes; };
+  auto qd_full = [&](int qs) { return bars + 8 * qs; };
+  auto qd_empty = [&](int qs) { return bars + 8 * (2 + qs); };
+  auto full = [&](int s) { return bars + 8 * (4 + s); };
+  auto empty = [&](int s) { return bars + 8 * (4 + kStages + s); };
+
+  const int n_q = (p.S + kQBM - 1) / kQBM;
+  const int heads = p.H, items = n_q * heads * p.B;
+  auto item_of = [&](int item, int& q0, int& h, int& b) {
+    const int hb = item % (heads * p.B);
+    q0 = (n_q - 1 - item / (heads * p.B)) * kQBM;
+    h = hb % heads;
+    b = hb / heads;
+  };
+  const int grid = static_cast<int>(gridDim.x);
+
+  if (threadIdx.x == 0) {
+    for (int qs = 0; qs < 2; ++qs) {
+      mbar_init(qd_full(qs), 1);
+      mbar_init(qd_empty(qs), kWgConsumers);
+    }
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kWgConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {  // producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      int ring = 0, n = 0;  // K / V tiles and items loaded so far
+      for (int r = 0; r * grid < items; ++r) {
+        const int item = snake_item(r, grid);
+        if (item >= items) continue;
+        int q0, h, b;
+        item_of(item, q0, h, b);
+        const int kh = h / p.group, qs = n & 1;
+        int t_lo, t_hi;
+        kv_tiles<kQBM, kQBN>(q0, p, t_lo, t_hi);
+        mbar_wait(qd_empty(qs), ((n >> 1) & 1) ^ 1);
+        mbar_expect_tx(qd_full(qs), 2 * kQBytes);
+        for (int c = 0; c < L::kChunks; ++c) {
+          tma_load_4d(buf_q(qs) + c * kQChunk, &tm_q, c * L::kChunk, h, q0, b, qd_full(qs));
+          tma_load_4d(buf_do(qs) + c * kQChunk, &tm_do, c * L::kChunk, h, q0, b, qd_full(qs));
+        }
+        for (int t = t_lo; t <= t_hi; ++t, ++ring) {
+          const int s = ring % kStages;
+          mbar_wait(empty(s), ((ring / kStages) & 1) ^ 1);
+          mbar_expect_tx(full(s), 2 * kKBytes);
+          for (int c = 0; c < L::kChunks; ++c) {
+            tma_load_4d(st_k(s) + c * kKChunk, &tm_k, c * L::kChunk, kh, t * kQBN, b, full(s));
+            tma_load_4d(st_v(s) + c * kKChunk, &tm_v, c * L::kChunk, kh, t * kQBN, b, full(s));
+          }
+        }
+        ++n;
+      }
+    }
+  } else {  // consumers
+    setmaxnreg_inc<232>();
+    const int cw = wg - 1;
+    const int ct = threadIdx.x - 128 * wg, warp = ct / 32, lane = ct % 32;
+    const int g = lane >> 2, tq = lane & 3;
+    const float scale2 = p.scale * kLog2e;
+    int ring = 0, n = 0;
+    for (int r = 0; r * grid < items; ++r) {
+      const int item = snake_item(r, grid);
+      if (item >= items) continue;
+      int q0, h, b;
+      item_of(item, q0, h, b);
+      const int qs = n & 1;
+      int t_lo, t_hi;
+      kv_tiles<kQBM, kQBN>(q0, p, t_lo, t_hi);
+      const int wq0 = q0 + 64 * cw;
+      const int qrow[2] = {wq0 + 16 * warp + g, wq0 + 16 * warp + g + 8};
+      const int64_t bh = static_cast<int64_t>(b) * p.H + h;
+      float lse2[2], dl[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool in = qrow[e] < p.S;
+        lse2[e] = in ? p.lse2[bh * p.sp + qrow[e]] : 0.0f;
+        dl[e] = in ? p.delta[bh * p.sp + qrow[e]] : 0.0f;
+      }
+      float dq[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dq[i] = 0.0f;
+      mbar_wait(qd_full(qs), (n >> 1) & 1);
+
+      for (int t = t_lo; t <= t_hi; ++t, ++ring) {
+        const int s = ring % kStages;
+        const int k0 = t * kQBN;
+        mbar_wait(full(s), (ring / kStages) & 1);
+
+        // S and dP: element 4 j + e is row qrow[e / 2], key k0 + 8 j + 2 tq + e % 2
+        float sc[kQBN / 2] = {}, dp[kQBN / 2] = {};  // overwritten (accumulate 0)
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks) {
+          const uint32_t qoff = (ks / kStepsPerChunk) * kQChunk + (ks % kStepsPerChunk) * 32 +
+                                64 * cw * L::kRowBytes;
+          const uint32_t koff = (ks / kStepsPerChunk) * kKChunk + (ks % kStepsPerChunk) * 32;
+          wgmma_ss<kQBN>(sc, wg_desc(buf_q(qs) + qoff, 16, kSbo, L::kDescLayout),
+                         wg_desc(st_k(s) + koff, 16, kSbo, L::kDescLayout), ks > 0);
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks) {
+          const uint32_t qoff = (ks / kStepsPerChunk) * kQChunk + (ks % kStepsPerChunk) * 32 +
+                                64 * cw * L::kRowBytes;
+          const uint32_t koff = (ks / kStepsPerChunk) * kKChunk + (ks % kStepsPerChunk) * 32;
+          wgmma_ss<kQBN>(dp, wg_desc(buf_do(qs) + qoff, 16, kSbo, L::kDescLayout),
+                         wg_desc(st_v(s) + koff, 16, kSbo, L::kDescLayout), ks > 0);
+        }
+        wgmma_commit();
+
+        // P in place of S while dP's products run, then dS = P (dP - delta);
+        // where the tile needs a mask, a key the row does not see (or past
+        // S) scores -inf, tested against each row's range of visible keys
+        wgmma_wait<1>();
+        fence_operands(sc);
+        if (pair_tile_needs_mask(wq0, 64, k0, kQBN, p)) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int hi = min(p.S - 1, p.causal ? qrow[r] : p.S - 1) - k0 - 2 * tq;
+            const int lo = (p.window > 0 ? qrow[r] - p.window + 1 : 0) - k0 - 2 * tq;
+#pragma unroll
+            for (int j = 0; j < kQBN / 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int col = 8 * j + e;
+                if (col < lo || col > hi) sc[4 * j + 2 * r + e] = -INFINITY;
+              }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kQBN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[4 * j + e] = ex2_approx(fmaf(sc[4 * j + e], scale2, -lse2[e >> 1]));
+        wgmma_wait<0>();
+        fence_operands(dp);
+        uint32_t sa[kQBN / 16][4];  // dS as the A fragments of the 16-key steps
+#pragma unroll
+        for (int j = 0; j < kQBN / 8; ++j) {
+          float se[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) se[e] = sc[4 * j + e] * (dp[4 * j + e] - dl[e >> 1]);
+          sa[j / 2][2 * (j & 1)] = pack_bf16(se[0], se[1]);
+          sa[j / 2][2 * (j & 1) + 1] = pack_bf16(se[2], se[3]);
+        }
+        fence_operands(dq);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kQBN / 16; ++kk)
+          wgmma_rs<D>(dq, sa[kk], wg_desc(st_k(s) + kk * 16 * L::kRowBytes, kKChunk, kSbo,
+                                          L::kDescLayout));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operands(dq);
+        mbar_arrive(empty(s));
+      }
+      mbar_arrive(qd_empty(qs));  // the producer may load the item after next's Q and dO
+
+      const int64_t row_stride = static_cast<int64_t>(p.H) * D;
+      __nv_bfloat16* dqp =
+          static_cast<__nv_bfloat16*>(p.dq) + (static_cast<int64_t>(b) * p.S * p.H + h) * D;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (qrow[e] >= p.S) continue;
+        __nv_bfloat16* row = dqp + qrow[e] * row_stride + 2 * tq;
+#pragma unroll
+        for (int c = 0; c < D / 8; ++c)
+          *reinterpret_cast<uint32_t*>(row + c * 8) =
+              pack_bf16(dq[4 * c + 2 * e] * p.scale, dq[4 * c + 2 * e + 1] * p.scale);
+      }
+      ++n;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
-// Which code runs a call: 0 float32 (float32 pipes), 1 bf16 on mma.sync.
-int route(int dtype) { return dtype == 0 ? 0 : 1; }
+// Which code runs a call: 0 float32 (float32 pipes), 1 bf16 on mma.sync
+// (D = 32, 80), 2 bf16 on wgmma + TMA (D = 64, 128).
+int route(int dtype, int d) { return dtype == 0 ? 0 : (d == 64 || d == 128) ? 2 : 1; }
 
 size_t dkdv_smem(int dtype, int d) {
   if (dtype == 0)
@@ -709,14 +1302,61 @@ cudaError_t launch(Kernel kernel, size_t smem, dim3 grid, const BwdParams& p,
   return cudaGetLastError();
 }
 
+// The two persistent kernels of the wgmma route, after delta_bf16_kernel: dK
+// and dV, then dQ, each at most one block an SM and one a work item.
+template <int D>
+cudaError_t launch_wgmma(const BwdParams& p, cudaStream_t stream) {
+  using L = WgLayout<D>;
+  CUtensorMap tq, tdo, tk, tv, tlse, tdelta;
+  const int64_t rows = static_cast<int64_t>(p.B) * p.H * p.sp;  // of the padded scratch
+  cudaError_t err;
+  auto maps = [&](int q_rows, int k_rows) {
+    cudaError_t e;
+    if ((e = make_map(&tq, p.q, D, p.H, p.S, p.B, p.q_sh, p.q_ss, p.q_sb, L::kChunk, q_rows,
+                      L::kSwizzle)) != cudaSuccess ||
+        (e = make_map(&tdo, p.dout, D, p.H, p.S, p.B, p.do_sh, p.do_ss, p.do_sb, L::kChunk,
+                      q_rows, L::kSwizzle)) != cudaSuccess ||
+        (e = make_map(&tk, p.k, D, p.KH, p.S, p.B, p.k_sh, p.k_ss, p.k_sb, L::kChunk, k_rows,
+                      L::kSwizzle)) != cudaSuccess)
+      return e;
+    return make_map(&tv, p.v, D, p.KH, p.S, p.B, p.v_sh, p.v_ss, p.v_sb, L::kChunk, k_rows,
+                    L::kSwizzle);
+  };
+  constexpr int kKvBM = BwdTuning<D>::kKvBM, kQBN = BwdTuning<D>::kQBN;
+  static_assert(kRowPad % kKvBM == 0, "a row box never crosses a padded row");
+  if ((err = maps(kKvBM, kKvBN)) != cudaSuccess ||
+      (err = make_map_1d(&tlse, p.lse2, rows, kKvBM)) != cudaSuccess ||
+      (err = make_map_1d(&tdelta, p.delta, rows, kKvBM)) != cudaSuccess)
+    return err;
+  static int sms_kv[kMaxDevices] = {}, sms_q[kMaxDevices] = {};
+  int count = 0;
+  if ((err = prepare_persistent(dkdv_wgmma_kernel<D>, dkdv_wg_smem<D>(), sms_kv, count)) !=
+      cudaSuccess)
+    return err;
+  const int64_t kv_items = static_cast<int64_t>((p.S + kKvBN - 1) / kKvBN) * p.KH * p.B;
+  dkdv_wgmma_kernel<D><<<static_cast<int>(kv_items < count ? kv_items : count), kWgThreads,
+                         dkdv_wg_smem<D>(), stream>>>(tq, tdo, tk, tv, tlse, tdelta, p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = maps(kQBM, kQBN)) != cudaSuccess ||
+      (err = prepare_persistent(dq_wgmma_kernel<D>, dq_wg_smem<D>(), sms_q, count)) !=
+          cudaSuccess)
+    return err;
+  const int64_t q_items = static_cast<int64_t>((p.S + kQBM - 1) / kQBM) * p.H * p.B;
+  dq_wgmma_kernel<D><<<static_cast<int>(q_items < count ? q_items : count), kWgThreads,
+                       dq_wg_smem<D>(), stream>>>(tq, tdo, tk, tv, p);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_d(int dtype, const BwdParams& p, int B, cudaStream_t stream) {
-  const int64_t rows = static_cast<int64_t>(B) * p.H * p.S;
-  const unsigned n_delta = static_cast<unsigned>((rows + kThreads / 32 - 1) / (kThreads / 32));
+  const int64_t rows = static_cast<int64_t>(B) * p.H * p.sp;  // of the padded scratch
   if (dtype == 0) {
-    delta_kernel<float><<<n_delta, kThreads, 0, stream>>>(p, D, rows);
+    const int64_t per_block = kThreads / 32;
+    delta_f32_kernel<<<static_cast<unsigned>((rows + per_block - 1) / per_block), kThreads, 0,
+                       stream>>>(p, D, rows);
   } else {
-    delta_kernel<__nv_bfloat16><<<n_delta, kThreads, 0, stream>>>(p, D, rows);
+    const dim3 grid((p.sp + delta_block_rows<D>() - 1) / delta_block_rows<D>(), p.H, B);
+    delta_bf16_kernel<D><<<grid, kThreads, 0, stream>>>(p);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -727,18 +1367,28 @@ cudaError_t launch_d(int dtype, const BwdParams& p, int B, cudaStream_t stream) 
       return err;
     return launch(dq_f32_kernel<D>, dq_smem(0, D), g_q, p, stream);
   }
-  if ((err = launch(dkdv_bf16_kernel<D>, dkdv_smem(1, D), g_kv, p, stream)) != cudaSuccess)
-    return err;
-  return launch(dq_bf16_kernel<D>, dq_smem(1, D), g_q, p, stream);
+  if constexpr (D == 64 || D == 128) {
+    return launch_wgmma<D>(p, stream);
+  } else {
+    if ((err = launch(dkdv_bf16_kernel<D>, dkdv_smem(1, D), g_kv, p, stream)) != cudaSuccess)
+      return err;
+    return launch(dq_bf16_kernel<D>, dq_smem(1, D), g_q, p, stream);
+  }
 }
 
 }  // namespace
 
 // The code a call of `dtype` (0 float32, 1 bfloat16) runs at head width d:
-// 0 float32 pipes, 1 bf16 on mma.sync (every width).
+// 0 float32 pipes, 1 bf16 on mma.sync (D = 32, 80), 2 bf16 on wgmma + TMA
+// (D = 64, 128).
 extern "C" int64_t flash_attention_bwd_route(int64_t dtype, int64_t d) {
-  (void)d;
-  return route(static_cast<int>(dtype));
+  return route(static_cast<int>(dtype), static_cast<int>(d));
+}
+
+// The float32 elements of the scratch a call at (B, H, S) takes: delta and
+// lse log2(e), (B, H, S rounded up to 64) each.
+extern "C" int64_t flash_attention_bwd_scratch(int64_t B, int64_t H, int64_t S) {
+  return 2 * B * H * padded_rows(S);
 }
 
 // q, o, dout, dq: (B, S, H, D); k, v, dk, dv: (B, S, KH, D), all of one type
@@ -747,7 +1397,8 @@ extern "C" int64_t flash_attention_bwd_route(int64_t dtype, int64_t d) {
 // and dout in turn, the head axis of unit stride; for bf16 every stride a
 // multiple of 8 and every pointer 16-byte aligned.  dq, dk, dv are written
 // contiguous.  lse: the forward's (B, H, S) float32 row log-sum-exp,
-// contiguous; delta: a (B, H, S) float32 scratch.  causal: 0 or 1; window:
+// contiguous; delta: a float32 scratch of flash_attention_bwd_scratch(B, H,
+// S) elements.  causal: 0 or 1; window:
 // 0 for none.  Launches three kernels on `stream` and returns the first
 // failing launch's cudaError_t (0 on success).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
@@ -757,7 +1408,8 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
                                    int64_t causal, int64_t window, double scale,
                                    void* stream) {
   if (B < 1 || S < 1 || H < 1 || KH < 1 || H % KH != 0 || B > 65535 || H > 65535 ||
-      S > 0x7fffffff - kTile || window < 0 || window > 0x7fffffff ||
+      S > 0x7fffffff - kTile || B * H * padded_rows(S) > 0x7fffffff || window < 0 ||
+      window > 0x7fffffff ||
       (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   BwdParams p;
@@ -768,6 +1420,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   p.dout = dout;
   p.lse = lse;
   p.delta = delta;
+  p.lse2 = delta + B * H * padded_rows(S);
   p.dq = dq;
   p.dk = dk;
   p.dv = dv;
@@ -777,8 +1430,10 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   p.o_sb = strides[9], p.o_ss = strides[10], p.o_sh = strides[11];
   p.do_sb = strides[12], p.do_ss = strides[13], p.do_sh = strides[14];
   p.S = static_cast<int>(S);
+  p.sp = static_cast<int>(padded_rows(S));
   p.H = static_cast<int>(H);
   p.KH = static_cast<int>(KH);
+  p.B = static_cast<int>(B);
   p.group = static_cast<int>(H / KH);
   p.causal = causal != 0;
   p.window = static_cast<int>(window);

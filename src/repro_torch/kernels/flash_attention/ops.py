@@ -25,7 +25,10 @@ where an operand requires grad the forward also writes the float32 row
 log-sum-exp (B, H, S), and the backward launches
 the backward kernel (``csrc/flash_attention_bwd.cu``: rowsum(dO O), then dK
 and dV over each KV tile and its query group, then dQ over each query tile;
-deterministic, no atomics) on CUDA tensors and the plain backward
+deterministic, no atomics; its route by (dtype, D) is
+``bwd_kernel_route``: bf16 at D = 64 and 128 on ``wgmma`` with TMA loads,
+bf16 at D = 32 and 80 on ``mma.sync``, float32 on the float32 pipes) on
+CUDA tensors and the plain backward
 (``ref.gqa_attention_bwd_ref``) on CPU tensors, with no fallback between the
 two.  Its ``vmap`` rule folds the vmapped axis (the port's stacked peers)
 into the batch axis, so one forward and one backward launch a layer serve
@@ -35,9 +38,9 @@ runs: no log-sum-exp is written.
 The kernel takes float32 (computed in float32 on the float32 pipes) and
 bfloat16 (tensor cores, float32 accumulation) at head widths 32, 64, 80 and
 128.  Which code runs is a rule on (dtype, D) alone (``kernel_route``):
-bf16 at D = 80 and 128, the served widths, on ``wgmma`` with TMA loads
-(128 query rows a block, a producer warp and two consumer warpgroups);
-bf16 at D = 32 and 64 on ``mma.sync``; float32 on the float32 pipes.  The
+bf16 at D = 64, 80 and 128 on ``wgmma`` with TMA loads (128 query rows a
+block, a producer warp and two consumer warpgroups); bf16 at D = 32 on
+``mma.sync``; float32 on the float32 pipes.  The
 TMA maps read the operands through their strides, so the rule for an
 operand the kernel takes in place is the same for every route: unit stride
 on the last axis and, for bf16, the other strides multiples of 8 elements
@@ -69,8 +72,10 @@ SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"]
 BWD_SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attention_bwd.cu"]
 HEAD_DIMS = (32, 64, 80, 128)  # the head widths the kernel is instantiated for
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # the kernel's dtype argument
-ROUTES = ("float32", "mma_sync", "wgmma")  # flash_attention_route's codes in the CUDA source
-WGMMA_HEAD_DIMS = (80, 128)
+# the route codes of flash_attention_route and flash_attention_bwd_route
+ROUTES = ("float32", "mma_sync", "wgmma")
+WGMMA_HEAD_DIMS = (64, 80, 128)  # the forward's bf16 widths on wgmma
+BWD_WGMMA_HEAD_DIMS = (64, 128)  # the backward's
 
 launches = LaunchCounter()
 bwd_launches = LaunchCounter()
@@ -105,16 +110,35 @@ def load_bwd_kernel() -> build.KernelLibrary:
     fn.restype = ctypes.c_int
     kl.lib.flash_attention_bwd_route.argtypes = [i64, i64]
     kl.lib.flash_attention_bwd_route.restype = i64
+    kl.lib.flash_attention_bwd_scratch.argtypes = [i64, i64, i64]
+    kl.lib.flash_attention_bwd_scratch.restype = i64
     return kl
 
 
+def bwd_scratch(b: int, h: int, s: int, device) -> torch.Tensor:
+    """The backward's float32 scratch for (B, H, S): rowsum(dO O) and the
+    lse times log2(e), each in rows of S padded to the source's multiple."""
+    n = load_bwd_kernel().lib.flash_attention_bwd_scratch(b, h, s)
+    return torch.empty(n, dtype=torch.float32, device=device)
+
+
 def kernel_route(dtype: torch.dtype, d: int) -> str:
-    """The code a CUDA call of ``dtype`` at head width ``d`` runs:
-    ``"wgmma"`` (bf16 at D = 80 and 128), ``"mma_sync"`` (bf16 at D = 32
-    and 64) or ``"float32"``; the CUDA source's ``route`` is the same rule."""
+    """The code a CUDA forward call of ``dtype`` at head width ``d`` runs:
+    ``"wgmma"`` (bf16 at D = 64, 80 and 128), ``"mma_sync"`` (bf16 at
+    D = 32) or ``"float32"``; the CUDA source's ``route`` is the same rule."""
     if dtype == torch.float32:
         return "float32"
     return "wgmma" if d in WGMMA_HEAD_DIMS else "mma_sync"
+
+
+def bwd_kernel_route(dtype: torch.dtype, d: int) -> str:
+    """The code a CUDA backward call of ``dtype`` at head width ``d`` runs:
+    ``"wgmma"`` (bf16 at D = 64 and 128), ``"mma_sync"`` (bf16 at D = 32
+    and 80) or ``"float32"``; the backward source's ``route`` is the same
+    rule."""
+    if dtype == torch.float32:
+        return "float32"
+    return "wgmma" if d in BWD_WGMMA_HEAD_DIMS else "mma_sync"
 
 
 def check_inputs(q, k, v, window) -> None:
@@ -183,9 +207,10 @@ def launch(q, k, v, out, *, causal: bool, window: int | None, scale: float,
 
 def launch_bwd(q, k, v, out, dout, lse, dq, dk, dv, delta, *, causal: bool,
                window: int | None, scale: float) -> None:
-    """Launch the backward kernels on the current stream: ``delta`` (B, H, S)
-    float32 scratch receives rowsum(dO O), then ``dk``, ``dv`` (B, S, Kh, D)
-    and ``dq`` (B, S, H, D), contiguous, in the operands' type.
+    """Launch the backward kernels on the current stream: the float32
+    scratch ``delta`` (``bwd_scratch``) receives rowsum(dO O) and the lse
+    times log2(e), then ``dk``, ``dv`` (B, S, Kh, D) and ``dq`` (B, S, H,
+    D), contiguous, in the operands' type.
 
     No checks: callers pass CUDA operands that ``check_inputs`` validated,
     ``out`` and ``dout`` of q's shape and type, all read through strides the
@@ -235,7 +260,7 @@ def attention_bwd(q, k, v, out, dout, lse, *, causal: bool, window: int | None,
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
+    delta = bwd_scratch(q.shape[0], q.shape[2], q.shape[1], q.device)
     launch_bwd(q, k, v, out, dout, lse.contiguous(), dq, dk, dv, delta, causal=causal,
                window=window, scale=scale)
     return dq, dk, dv

@@ -21,6 +21,7 @@ Tolerances: tests/test_kernels.py's, float32 atol 5e-5 / rtol 1e-4 and bf16
 atol = rtol = 5e-2.
 """
 import inspect
+import re
 from pathlib import Path
 
 import jax
@@ -166,16 +167,44 @@ def test_mixed_types_raise():
 
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.float32, 32, "float32"), (torch.float32, 128, "float32"),
-    (torch.bfloat16, 32, "mma_sync"), (torch.bfloat16, 64, "mma_sync"),
+    (torch.bfloat16, 32, "mma_sync"), (torch.bfloat16, 64, "wgmma"),
     (torch.bfloat16, 80, "wgmma"), (torch.bfloat16, 128, "wgmma"),
 ])
 def test_kernel_route(dtype, d, route):
-    """The served widths (bf16 at D = 80 and 128) take the wgmma + TMA code;
-    the CUDA source's route function is the same rule."""
+    """bf16 at D = 64, 80 and 128 takes the forward's wgmma + TMA code, D =
+    32 mma.sync; the CUDA source's route function is the same rule."""
     assert ops.kernel_route(dtype, d) == route
     src = Path(ops.SOURCES[0]).read_text()
-    assert "(d == 80 || d == 128) ? 2 : 1" in src
-    assert ops.ROUTES[2] == "wgmma" and set(ops.WGMMA_HEAD_DIMS) == {80, 128}
+    assert "(d == 64 || d == 80 || d == 128) ? 2 : 1" in src
+    assert ops.ROUTES[2] == "wgmma" and set(ops.WGMMA_HEAD_DIMS) == {64, 80, 128}
+
+
+def _source_route(src: str, dtype: torch.dtype, d: int) -> str:
+    """The route a CUDA source's one-line ``int route(int dtype, int d)``
+    returns for (dtype, d): it must read ``dtype == 0 ? 0 : (d == a || ...)
+    ? 2 : 1``, the widths a, ... on wgmma."""
+    line = next(x for x in src.splitlines() if x.startswith("int route(int dtype, int d)"))
+    m = re.fullmatch(r"int route\(int dtype, int d\) \{ return dtype == 0 \? 0 : "
+                     r"\(((?:d == \d+(?: \|\| )?)+)\) \? 2 : 1; \}", line)
+    assert m, line
+    wgmma = {int(w) for w in re.findall(r"d == (\d+)", m.group(1))}
+    return ops.ROUTES[0 if dtype == torch.float32 else 2 if d in wgmma else 1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", ops.HEAD_DIMS)
+def test_bwd_kernel_route(dtype, d):
+    """The backward's route (bf16 at D = 64 and 128 on wgmma + TMA, D = 32
+    and 80 on mma.sync, float32 on the float32 pipes): ``ops.bwd_kernel_route``
+    is the backward source's ``route`` for every (dtype, D), and the forward's
+    ``kernel_route`` its source's."""
+    bwd = Path(ops.BWD_SOURCES[0]).read_text()
+    assert ops.bwd_kernel_route(dtype, d) == _source_route(bwd, dtype, d)
+    assert ops.kernel_route(dtype, d) == _source_route(Path(ops.SOURCES[0]).read_text(), dtype, d)
+    want = ("float32" if dtype == torch.float32 else
+            "wgmma" if d in (64, 128) else "mma_sync")
+    assert ops.bwd_kernel_route(dtype, d) == want
+    assert '#include "hopper.cuh"' in bwd
 
 
 @pytest.mark.parametrize("d", [80, 128])

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time two versions of the port's ``consensus_mix``, ``dequant_mix``,
-``segment_mix``, ``wkv6``, ``flash_attention`` and ``ssd`` kernels in turns on
-one GPU: this checkout's and another tree's (an older commit unpacked beside
-it).
+``segment_mix``, ``wkv6``, ``flash_attention``, ``flash_attention_bwd`` and
+``ssd`` kernels in turns on one GPU: this checkout's and another tree's (an
+older commit unpacked beside it).
 
 Both versions are built from their ``.cu`` sources with the port's nvcc flags
 into ``build/kernel_ab/``, called through the C entry points their wrappers
@@ -33,8 +33,15 @@ library call and the bound chip_smoke.py computes:
   float32 only is timed as its wrapper ran it, casts included), and at a
   log-decay of -50 a step, each with the largest difference between the
   two versions' outputs;
-- ``flash_attention`` at minitron's prefill, its 4096-token window and
-  zamba2's D = 80;
+- ``flash_attention`` at minitron's prefill, its 4096-token window,
+  zamba2's D = 80, qwen3-moe's group of 16, internvl2's group of 2, the
+  LM round's D = 64 (B 16, S 1024, H 9, Kh 3) and seamless-m4t's D = 64
+  encoder (non-causal) and decoder, each with ``identical_bits`` (the two
+  versions' outputs equal bit for bit);
+- ``flash_attention_bwd`` at the LM round's shape and minitron's, both
+  versions' dq, dk and dv held to the plain backward on the forward
+  kernel's output and lse, beside SDPA's backward
+  (``torch.autograd.grad`` through ``scaled_dot_product_attention``);
 - ``ssd`` at zamba2's prefill (B 4, T 1024, H 80, P = N = 64, one group,
   chunk 64) with bf16 x, B and C as served, and in float32 from a zero and
   from a random state, at B 1, T 8192 from a state (float32) and at a
@@ -79,6 +86,7 @@ KERNELS = {  # name: source below src/repro_torch/kernels
     "segment_mix": "consensus_mix/csrc/segment_mix.cu",
     "wkv6": "rwkv6/csrc/wkv6.cu",
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
+    "flash_attention_bwd": "flash_attention/csrc/flash_attention_bwd.cu",
     "ssd": "mamba2/csrc/ssd.cu",
 }
 OUT = ROOT / "build" / "kernel_ab"
@@ -442,26 +450,27 @@ def ab_wkv6(card, libs: dict, name: str, b, t, h, dk, q, *, dtype=torch.float32,
             "max_abs_diff_old": diff, **times, **bound}
 
 
-def ab_flash(card, libs: dict, name: str, b, s, h, kh, d, *, window=None, seed=0) -> dict:
+def ab_flash(card, libs: dict, name: str, b, s, h, kh, d, *, causal=True, window=None,
+             seed=0) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(b, s, h, d, generator=gen, device=dev).bfloat16()
     k, v = (torch.randn(b, s, kh, d, generator=gen, device=dev).bfloat16() for _ in range(2))
-    want = flash_ref.gqa_attention_ref(q, k, v, causal=True, window=window)
+    want = flash_ref.gqa_attention_ref(q, k, v, causal=causal, window=window)
     stream = torch.cuda.current_stream().cuda_stream
-    runs = {}
+    runs, outs = {}, {}
     for tag, lib in libs.items():
         fn = lib.flash_attention_fwd
         ptr, i64 = ctypes.c_void_p, ctypes.c_int64
         fn.argtypes = [ptr] * 4 + [i64] * 6 + [ctypes.POINTER(i64), i64, i64, ctypes.c_double,
                                                ptr]
         fn.restype = ctypes.c_int
-        out = torch.empty_like(q)
+        out = outs[tag] = torch.empty_like(q)
         strides = (ctypes.c_int64 * 12)(*(st for x in (q, k, v, out) for st in x.stride()[:3]))
 
         def run(fn=fn, out=out, strides=strides):
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1, b, s, h, kh, d,
-                     strides, 1, window or 0, d**-0.5, stream)
+                     strides, int(causal), window or 0, d**-0.5, stream)
             chip_smoke.check(err == 0, f"flash_attention {tag} launch: cudaError_t {err}")
 
         run()
@@ -471,16 +480,80 @@ def ab_flash(card, libs: dict, name: str, b, s, h, kh, d, *, window=None, seed=0
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     if window is None:
-        library = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)  # noqa: E731
+        library = lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)  # noqa: E731
     else:
-        mask = chip_smoke.visible_mask(s, causal=True, window=window, device=dev)
+        mask = chip_smoke.visible_mask(s, causal=causal, window=window, device=dev)
         library = lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
     times = in_turns(runs, library)
-    bound = card.bound(*chip_smoke.flash_work(b, s, h, kh, d, causal=True, window=window,
+    bound = card.bound(*chip_smoke.flash_work(b, s, h, kh, d, causal=causal, window=window,
                                               elem_bytes=2), bf16=True)
     return {"kernel": "flash_attention", "case": name, "B": b, "S": s, "H": h, "Kh": kh, "D": d,
-            "window": window, "route_new": flash_ops.kernel_route(torch.bfloat16, d), **times,
-            **bound}
+            "causal": causal, "window": window,
+            "route_new": flash_ops.kernel_route(torch.bfloat16, d),
+            "identical_bits": torch.equal(outs["old"], outs["new"]), **times, **bound}
+
+
+def ab_flash_bwd(card, libs: dict, name: str, b, s, h, kh, d, *, seed=0) -> dict:
+    """The backward (causal, bf16) of both versions through
+    ``flash_attention_bwd`` (the same C entry in both) on the forward
+    kernel's output and lse, each held to the plain backward at
+    chip_smoke.py's tolerances, timed in turns beside SDPA's backward."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, s, h, d, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(b, s, kh, d, generator=gen, device=dev).bfloat16() for _ in range(2))
+    dout = torch.randn(b, s, h, d, generator=gen, device=dev).bfloat16()
+    scale = d**-0.5
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+    flash_ops.launch(q, k, v, out, causal=True, window=None, scale=scale, lse=lse)
+    want = flash_ref.gqa_attention_bwd_ref(q, k, v, out, dout, lse, causal=True, window=None,
+                                           scale=scale)
+    stream = torch.cuda.current_stream().cuda_stream
+    strides = (ctypes.c_int64 * 15)(*(st for x in (q, k, v, out, dout) for st in x.stride()[:3]))
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    runs, grads, errs = {}, {}, {}
+    for tag, lib in libs.items():
+        fn = lib.flash_attention_bwd
+        fn.argtypes = [ptr] * 10 + [i64] * 6 + [ctypes.POINTER(i64), i64, i64, ctypes.c_double,
+                                                ptr]
+        fn.restype = ctypes.c_int
+        g = grads[tag] = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+        # this tree's scratch (delta and the scaled lse, padded) holds the
+        # older one's (B, H, S) delta
+        delta = flash_ops.bwd_scratch(b, h, s, dev)
+
+        def run(fn=fn, g=g, delta=delta, tag=tag):
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                     lse.data_ptr(), delta.data_ptr(), g[0].data_ptr(), g[1].data_ptr(),
+                     g[2].data_ptr(), 1, b, s, h, kh, d, strides, 1, 0, scale, stream)
+            chip_smoke.check(err == 0, f"flash_attention_bwd {tag} launch: cudaError_t {err}")
+
+        run()
+        torch.cuda.synchronize()
+        errs[tag] = {}
+        for got, w, what in zip(g, want, ("dq", "dk", "dv")):
+            torch.testing.assert_close(got.float(), w.float(), **chip_smoke.FLASH_BWD_BF16_TOL,
+                                       msg=lambda m: f"flash_bwd {tag} {name} {what}: {m}")
+            rel = chip_smoke.rel_norm(got, w)
+            chip_smoke.check(rel < chip_smoke.FLASH_BWD_REL_NORM[torch.bfloat16],
+                             f"flash_bwd {tag} {name} {what}: relative norm error {rel}")
+            errs[tag][what] = {"max_abs_err": float((got.float() - w.float()).abs().max()),
+                               "rel_norm_err": rel}
+        runs[tag] = run
+    del want
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    lib_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                               enable_gqa=True)
+    dout_t = dout.transpose(1, 2)
+    library = lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dout_t,  # noqa: E731
+                                          retain_graph=True)
+    times = in_turns(runs, library)
+    bound = card.bound(*chip_smoke.flash_bwd_work(b, s, h, kh, d, causal=True, window=None,
+                                                  elem_bytes=2), bf16=True)
+    return {"kernel": "flash_attention_bwd", "case": name, "B": b, "S": s, "H": h, "Kh": kh,
+            "D": d, "causal": True, "route_new": flash_ops.bwd_kernel_route(torch.bfloat16, d),
+            "errors": errs, **times, **bound}
 
 
 def ab_ssd(card, libs: dict, name: str, b, t, h, *, dtype=torch.float32, state=False,
@@ -594,10 +667,20 @@ def main() -> int:
             ab_wkv6(card, libs, "main_b4_t1024_bf16", 4, 1024, 64, 64, 16,
                     dtype=torch.bfloat16, seed=7),
             ab_wkv6(card, libs, "extreme_decay", 4, 1024, 64, 64, 16, ld=-50.0, seed=3)],
+        # chip_smoke.py's timed flash cases and draws
         "flash_attention": lambda libs: [
             ab_flash(card, libs, "main_minitron", 4, 1024, 32, 8, 128),
             ab_flash(card, libs, "long_window4096", 1, 8192, 32, 8, 128, window=4096, seed=2),
-            ab_flash(card, libs, "zamba2_d80", 4, 1024, 32, 32, 80, seed=7)],
+            ab_flash(card, libs, "zamba2_d80", 4, 1024, 32, 32, 80, seed=7),
+            ab_flash(card, libs, "qwen3moe_group16", 4, 1024, 64, 4, 128, seed=19),
+            ab_flash(card, libs, "internvl2_group2", 4, 1024, 16, 8, 128, seed=20),
+            ab_flash(card, libs, "lm_smollm_k4", 16, 1024, 9, 3, 64, seed=23),
+            ab_flash(card, libs, "seamless_encoder_noncausal", 4, 256, 16, 16, 64, causal=False,
+                     seed=21),
+            ab_flash(card, libs, "seamless_decoder", 4, 768, 16, 16, 64, seed=22)],
+        "flash_attention_bwd": lambda libs: [
+            ab_flash_bwd(card, libs, "lm_smollm_k4", 16, 1024, 9, 3, 64),
+            ab_flash_bwd(card, libs, "minitron", 4, 1024, 32, 8, 128, seed=1)],
         # chip_smoke.py's ssd cases and draws
         "ssd": lambda libs: [
             ab_ssd(card, libs, "main_b4_t1024_bf16", 4, 1024, 80, dtype=torch.bfloat16, seed=2),
