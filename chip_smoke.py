@@ -3,13 +3,16 @@
 
 In order:
 1. prints the card's name and power limit, the torch version and the TF32
-   flags (set off: the reference mixes at full float32 precision), and takes
+   flags (set off: the reference mixes at full float32 precision), asks the
+   allocator for expandable segments (unless ``PYTORCH_CUDA_ALLOC_CONF`` is
+   set), and takes
    the card's peak memory rate, float32 rate and dense bf16 and TF32 tensor
    rates from its name;
 2. builds every kernel of the port's main paths from this checkout's sources,
-   one nvcc per source, all started together (seven: ``consensus_mix``,
-   ``dequant_mix``, ``segment_mix``, ``wkv6``, ``flash_attention`` and its
-   backward ``flash_attention_bwd``, ``ssd``), and prints ptxas's report;
+   one nvcc per source, all started together (nine: ``consensus_mix``,
+   ``dequant_mix``, ``segment_mix``, ``wkv6`` and its backward ``wkv6_bwd``,
+   ``flash_attention`` and its backward ``flash_attention_bwd``, ``ssd`` and
+   its backward ``ssd_bwd``), and prints ptxas's report;
 3. holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes and times kernel, plain version and, where one exists,
    one PyTorch library call in turns with CUDA events (atol 5e-5 / rtol 1e-4
@@ -125,6 +128,16 @@ In order:
    134,515,008, the gather), K = 2, K = 100 at the 2NN's bf16 row (the
    tile), a K = 8 ring with a zero beta row, K = 24 with zero beta rows at
    N = 4099 and K = 4 at N = 5003 (the scalar path of each design);
+   ``wkv6_bwd`` at seven and ``ssd_bwd`` at nine against their plain
+   backwards (``BWD_REL_NORM``: each gradient's relative norm error under
+   1e-4 in float32 and 1e-2 in bf16; under extreme decay every gradient
+   within 1e-4 of the largest, ddt 1e-3; two calls equal bit for bit), the
+   trained shapes timed against the plain backwards beside their bounds:
+   rwkv6-7b's round (K = 2 x batch 2 = B 4, T 1024, 64 heads of 64, bf16,
+   each peer's u a row) and zamba2-2.7b's (B 2, T 1024, 80 heads of P = N =
+   64, bf16 views of the convolution's output, each peer's a a row), the
+   served batch of 4, float32 with both states, ragged, G < H, the reduced
+   and the narrowest widths, one token, extreme decay;
 3b. trains smollm-135m at full width (30 layers, d 576, vocab 49,152, tied,
    bf16, nothing cut) P2P through ``core.task.from_model``, ``init_state``
    and ``make_round_fn`` (``drive_p2p_lm``): K = 4 on the complete graph,
@@ -136,11 +149,17 @@ In order:
    the gather), no plain version; losses, drift and state finite; then one
    more round through its two phases, timed apart; s/round and peak memory;
    one more round under torch.profiler: device ms and launches by category
-   (matmuls, elementwise and casts, attention forward and backward,
-   consensus, other), the busy share and the top kernels;
-   then the reference's entry point as it is, ``run_p2p_lm("smollm-135m",
-   rounds=4)`` (reduced, float32: 32 launches each way, 4 of
-   ``consensus_mix``);
+   (matmuls, elementwise and casts, attention forward and backward, wkv6
+   and ssd forward and backward, consensus, other), the busy share and the
+   top kernels; then the same for rwkv6-7b (published widths, 6 of 32
+   layers, K = 2, batch 2: ``wkv6`` and ``wkv6_bwd`` 24 a round) and
+   zamba2-2.7b (published widths, 42 of 54 layers, K = 2, batch 1: ``ssd``
+   and ``ssd_bwd`` 168, ``flash_attention`` and its backward 28 a round),
+   the first step's gradients against the plain backwards of all three
+   kernels (``plain_backwards``); then the reference's entry point as it
+   is, ``run_p2p_lm(arch, rounds=4)`` for smollm-135m, rwkv6-7b and
+   zamba2-2.7b (reduced, float32: the kernels' float32 routes, 4 launches
+   of ``consensus_mix``);
 4. serves RWKV6-7B at full width and depth (bf16, random init on the card)
    through ``serve_batch``: batch 4, prompt 1024, first prefill only, then
    prefill and 15 decode steps, asserting ``wkv6`` launched once per layer
@@ -232,9 +251,7 @@ In order:
    per-leaf gradients on the card against the CPU (atol 5e-5 / rtol 1e-4),
    ``rwkv6_features`` chunked (``wkv6``, 2 launches) against the token loop
    at B = 256, ``wkv6`` at B 256, T 196, H 4, dk 16, chunk 49 against its
-   plain version (timed) and from a random state, autograd through
-   ``wkv6`` (directly and under ``rwkv6_loss_fn``) and ``ssd`` raising
-   ``NotImplementedError`` with nothing launched, ``consensus_mix`` (gossip
+   plain version (timed) and from a random state, ``consensus_mix`` (gossip
    and mass mode) and ``dequant_mix`` held and timed at the task's row,
    gossip static, push-sum static and gossip round robin over qint8 (3
    rounds each), both drivers on gossip and push-sum (6 rounds, eval every
@@ -277,8 +294,9 @@ In order:
    state 13.1 GB, so a graph of the round would save little and its carry
    copy more memory), and prints its seconds per round and peak memory
    beside the state's size;
-10. prints the ``kernels`` JSON line (``flash_attention_bwd`` among them,
-   with the LM step's gradient check; ``consensus_mix`` with its bf16 mode;
+10. prints the ``kernels`` JSON line (``flash_attention_bwd``, ``wkv6_bwd``
+   and ``ssd_bwd`` among them, each with its LM step's gradient check;
+   ``consensus_mix`` with its bf16 mode;
    each consensus kernel with its mass mode beside its gossip mode,
    ``segment_mix`` at K = 100 beside K = 4096 in both modes and with its
    routes' edges, ``consensus_mix`` also with its snapshot mode,
@@ -299,6 +317,7 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -798,13 +817,14 @@ def build_kernels() -> None:
 
     start = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:
-        libs = dict(zip(("consensus_mix", "dequant_mix", "segment_mix", "wkv6",
-                         "flash_attention", "flash_attention_bwd", "ssd"),
+        libs = dict(zip(("consensus_mix", "dequant_mix", "segment_mix", "wkv6", "wkv6_bwd",
+                         "flash_attention", "flash_attention_bwd", "ssd", "ssd_bwd"),
                         pool.map(lambda load: load(),
                                  (ops.load_kernel, dequant.load_kernel, segment.load_kernel,
-                                  wkv6_ops.load_kernel, flash_ops.load_kernel,
-                                  flash_ops.load_bwd_kernel, ssd_ops.load_kernel))))
-    print(f"build: all seven kernels in {time.perf_counter() - start:.2f} s", flush=True)
+                                  wkv6_ops.load_kernel, wkv6_ops.load_bwd_kernel,
+                                  flash_ops.load_kernel, flash_ops.load_bwd_kernel,
+                                  ssd_ops.load_kernel, ssd_ops.load_bwd_kernel))))
+    print(f"build: all nine kernels in {time.perf_counter() - start:.2f} s", flush=True)
     for name, kl in libs.items():
         print(f"  {name}: nvcc {kl.build_seconds:.2f} s -> {kl.path.relative_to(ROOT)}")
         for line in kl.log.splitlines():
@@ -2043,20 +2063,24 @@ def ssd_case(card, name, b, t, h, p, n, chunk, *, g=1, state=False, dt_range=(0.
         kern = lambda: ops.launch(x, bm, cm, dt, a, s0, q, y, final)  # noqa: E731
         plain = lambda: ref.ssd_chunked_ref(x, bm, cm, dt, a, state=s0, chunk=q)  # noqa: E731
         case.update(in_turns(plain, kern, None))
-        case.update(ssd_bounds(card, *ssd_work(b, t, h, g, p, n, q, state=state,
-                                               in_bytes=x.element_size())))
+        case.update(pipe_and_tensor_bounds(card, *ssd_work(b, t, h, g, p, n, q, state=state,
+                                                           in_bytes=x.element_size())))
     del x, bm, cm, dt, got, got_s, want, want_s
     return case
 
 
-def ssd_bounds(card: Card, nbytes: float, flops: float, tf32: float) -> dict:
-    """Both bounds of an ssd call, on the float32 pipes and on the tensor
-    cores in the kernel's TF32 passes; the headline (``bound_ms``) is the
+def pipe_and_tensor_bounds(card: Card, nbytes: float, flops: float, tensor_flops: float, *,
+                           bf16: bool = False) -> dict:
+    """Both bounds of a scan kernel's call: its ``flops`` on the float32
+    pipes, and its ``tensor_flops`` on the tensor cores (the dense bf16 rate
+    for ``bf16`` operands, else TF32's); the headline (``bound_ms``) is the
     smaller, the least time the card could take."""
-    fma, tensor = card.bound(nbytes, flops), card.bound(nbytes, tf32, tf32=True)
+    fma = card.bound(nbytes, flops)
+    tensor = card.bound(nbytes, tensor_flops, bf16=bf16, tf32=not bf16)
     return {**min(fma, tensor, key=lambda bd: bd["bound_ms"]),
             **{f"{key}_{kind}": bd[key] for kind, bd in (("fma", fma), ("tensor", tensor))
-               for key in ("bound_ms", "bound_by")}}
+               for key in ("bound_ms", "bound_by")},
+            "bound_tensor_type": "bf16" if bf16 else "TF32"}
 
 
 def ssd_cases(card: Card) -> list[dict]:
@@ -2119,13 +2143,19 @@ def ssd_cases(card: Card) -> list[dict]:
     return cases
 
 
+def _both_bounds(c: dict) -> str:
+    """The two bounds of ``pipe_and_tensor_bounds``, for a printed case."""
+    return (f"float32 pipes {c['bound_ms_fma']:.4f} ms by {c['bound_by_fma']}, "
+            f"{c['bound_tensor_type']} tensor cores {c['bound_ms_tensor']:.4f} ms by "
+            f"{c['bound_by_tensor']}")
+
+
 def _print_ssd_case(c: dict) -> None:
     times = ""
     if "ms" in c:
         times = (f" kernel={c['ms']:.4f} ms plain={c['plain_ms']:.4f} ms library=none "
                  f"bound={c['bound_ms']:.4f} ms ({c['bound_by']}; {c['bound_card']}; "
-                 f"float32 pipes {c['bound_ms_fma']:.4f} ms by {c['bound_by_fma']}, "
-                 f"TF32 tensor cores {c['bound_ms_tensor']:.4f} ms by {c['bound_by_tensor']})")
+                 f"{_both_bounds(c)})")
     print(f"ssd {c['case']}: B={c['B']} T={c['T']} H={c['H']} G={c['G']} P={c['P']} N={c['N']} "
           f"chunk={c['chunk']} state={c['state']} {c['dtype']} route={c['route']} "
           f"split={c['split']} max_abs_err={c['max_abs_err']:.3g} "
@@ -2133,8 +2163,274 @@ def _print_ssd_case(c: dict) -> None:
           flush=True)
 
 
+# The backward kernels of wkv6 and ssd against their plain backwards on the
+# card: each gradient's relative norm error under 1e-4 where it is float32
+# and under 1e-2 where it is bf16 (dr, dk, dv, dx, dB, dC in the operands'
+# type: one rounding of each); two calls equal bit for bit (no atomics).
+# Under extreme decay (a log-decay of -50 a step) the log-decays' gradient is
+# the cancellation of sums of terms the size of the other gradients and
+# vanishes in exact arithmetic, so there every gradient is held within 1e-4
+# of the largest entry of any (and ddt, which carries it times |a| = 50,
+# within 1e-3).
+BWD_REL_NORM = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def check_bwd(kernel: str, name: str, names, got, again, want, *, extreme: bool) -> dict:
+    """Holds one backward call's gradients to the plain backward's; returns
+    the largest errors."""
+    errs, rels = {}, {}
+    scale = max(float(w.float().abs().max()) for w in want)
+    for what, g, w, g2 in zip(names, got, want, again):
+        check(g.shape == w.shape and bool(torch.isfinite(g.float()).all()),
+              f"{kernel} {name} d{what}: shape {tuple(g.shape)} and finite")
+        check(torch.equal(g, g2), f"{kernel} {name} d{what}: two calls give the same bits")
+        errs[what] = float((g.float() - w.float()).abs().max())
+        rels[what] = rel_norm(g, w)
+        if extreme:
+            lim = (1e-3 if what == "dt" else 1e-4) * scale
+            check(errs[what] <= lim, f"{kernel} {name} d{what}: max abs error {errs[what]} > "
+                                     f"{lim} (extreme decay)")
+        else:
+            lim = BWD_REL_NORM[g.dtype]
+            check(rels[what] < lim, f"{kernel} {name} d{what}: relative norm error "
+                                    f"{rels[what]} >= {lim}")
+    return {"max_abs_err": max(errs.values()), "rel_norm_err": max(rels.values()),
+            "max_abs": scale, "max_abs_err_by_grad": errs, "rel_norm_err_by_grad": rels}
+
+
+def wkv6_bwd_work(b, t, h, dk, *, in_bytes: int, u_rows: int, state: bool, dstate: bool):
+    """(bytes, FLOP) one wkv6 backward call needs: r, k, v, the output's
+    gradient (``in_bytes`` each) and the float32 log-decays read once, u and
+    the states given read once; dr, dk, dv (``in_bytes``), dlogdecay and du
+    (float32) and the initial state's gradient written once.  Operations:
+    12 dk^2 a token and head (the forward pass's S do and state update, the
+    reverse pass's G v, G^T k and G update) and 34 dk for the per-token dots,
+    exps and epilogues (an exp counts as one)."""
+    n = b * t * h * dk
+    nbytes = n * (4 * in_bytes + 4) + n * (3 * in_bytes + 4) + 2 * u_rows * h * dk * 4
+    nbytes += (int(state) + int(dstate) + 1) * b * h * dk * dk * 4
+    return nbytes, b * t * h * (12 * dk * dk + 34 * dk)
+
+
+def wkv6_bwd_case(card, name, b, t, h, dk, *, u_rows=1, state=False, dstate=False, ld=None,
+                  dtype=torch.float32, timed=False, seed=0):
+    """The wkv6 backward kernel vs the plain backward on the card at one
+    shape: r, k, v and the output's gradient in ``dtype``, log-decays as
+    ``wkv6_case`` draws them, u of ``u_rows`` rows (a vmapped call's peers
+    folded into the batch), a random initial state and final-state gradient
+    where asked."""
+    from repro_torch.kernels.rwkv6 import ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r, k, v, dout = (torch.randn(b, t, h, dk, generator=gen, device=dev).to(dtype)
+                     for _ in range(4))
+    if isinstance(ld, float):
+        logd = torch.full((b, t, h, dk), ld, device=dev)
+    else:
+        low, high = ld or (0.01, 4.0)
+        logd = -(low + (high - low) * torch.rand(b, t, h, dk, generator=gen, device=dev))
+    u = 0.5 * torch.randn(*((u_rows,) if u_rows > 1 else ()), h, dk, generator=gen, device=dev)
+    s0 = torch.randn(b, h, dk, dk, generator=gen, device=dev) if state else None
+    ds = torch.randn(b, h, dk, dk, generator=gen, device=dev) if dstate else None
+    args = (r, k, v, logd, u, s0, dout, ds)
+    got = ops.wkv6_bwd(*args)
+    again = ops.wkv6_bwd(*args)
+    want = ref.wkv6_bwd_ref(*args)
+    torch.cuda.synchronize()
+    for g, x in zip(got, (r, k, v, logd, u)):
+        check(g.dtype == x.dtype, f"wkv6_bwd {name}: a gradient in its operand's type")
+    names = ("r", "k", "v", "logdecay", "u", "state")
+    case = {"case": name, "B": b, "T": t, "H": h, "dk": dk, "u_rows": u_rows, "state": state,
+            "dstate": dstate, "dtype": str(dtype).removeprefix("torch."),
+            **check_bwd("wkv6_bwd", name, names, got, again, want,
+                        extreme=isinstance(ld, float))}
+    del got, again, want
+    if timed:
+        rkv = ops._rkv_dtype(r, k, v)
+        outs = [torch.empty(b, t, h, dk, dtype=rkv, device=dev) for _ in range(3)]
+        dld = torch.empty(b, t, h, dk, device=dev)
+        du, du_part = torch.empty_like(u), torch.empty(b, h, dk, device=dev)
+        ds_in = torch.empty(b, h, dk, dk, device=dev)
+        kern = lambda: ops.launch_bwd(r, k, v, logd, u, s0, dout, ds, *outs, dld, du,  # noqa: E731
+                                      du_part, ds_in)
+        plain = lambda: ref.wkv6_bwd_ref(*args)  # noqa: E731
+        case.update(in_turns(plain, kern, None))
+        nbytes, flops = wkv6_bwd_work(b, t, h, dk, in_bytes=r.element_size(), u_rows=u_rows,
+                                      state=state, dstate=dstate)
+        # the token-by-token count on the tensor cores too, at the operands' rate
+        case.update(pipe_and_tensor_bounds(card, nbytes, flops, flops,
+                                           bf16=dtype == torch.bfloat16))
+    del r, k, v, dout, logd, u, s0, ds
+    torch.cuda.empty_cache()
+    return case
+
+
+def wkv6_bwd_cases(card: Card) -> list[dict]:
+    """The wkv6 backward at the trained rwkv6-7b round's shape (K = 2 peers x
+    batch 2 folded into B 4, T 1024, 64 heads of 64, bf16, each peer's u a
+    row, a state in (the loss hands the kernel zeros), no final-state
+    gradient), which is also the served prefill's batch of 4; then with a
+    final-state gradient in float32, ragged, at the narrower heads (the
+    reduced configs' 32, seqmnist's 16), one token, and extreme decay."""
+    small = (1e-4, 2e-3)  # decays summing to about -1 over 1024 tokens: the state survives
+    bf16 = torch.bfloat16
+    return [
+        wkv6_bwd_case(card, "trained_k2_b2_t1024_bf16", 4, 1024, 64, 64, u_rows=2, state=True,
+                      dtype=bf16, timed=True, seed=31),
+        wkv6_bwd_case(card, "b4_t1024_state_dstate_f32", 4, 1024, 64, 64, state=True,
+                      dstate=True, ld=small, timed=True, seed=32),
+        wkv6_bwd_case(card, "ragged_t1000_bf16", 2, 1000, 8, 64, u_rows=2, state=True,
+                      dstate=True, ld=small, dtype=bf16, seed=33),
+        wkv6_bwd_case(card, "reduced_dk32_f32", 4, 32, 4, 32, u_rows=2, state=True,
+                      dstate=True, seed=34),
+        wkv6_bwd_case(card, "seqmnist_dk16_f32", 64, 196, 4, 16, state=True, dstate=True,
+                      seed=35),
+        wkv6_bwd_case(card, "t1_dk64", 2, 1, 4, 64, state=True, dstate=True, seed=36),
+        wkv6_bwd_case(card, "extreme_decay", 2, 256, 8, 64, state=True, dstate=True, ld=-50.0,
+                      seed=37),
+    ]
+
+
+def _print_wkv6_bwd_case(c: dict) -> None:
+    times = ""
+    if "ms" in c:
+        times = (f" kernel={c['ms']:.4f} ms plain={c['plain_ms']:.4f} ms library=none "
+                 f"bound={c['bound_ms']:.4f} ms ({c['bound_by']}; {c['bound_card']}; "
+                 f"{_both_bounds(c)})")
+    print(f"wkv6_bwd {c['case']}: B={c['B']} T={c['T']} H={c['H']} dk={c['dk']} "
+          f"u_rows={c['u_rows']} state={c['state']} dstate={c['dstate']} {c['dtype']} "
+          f"max_abs_err={c['max_abs_err']:.3g} rel_norm_err={c['rel_norm_err']:.3g} (max |grad| "
+          f"{c['max_abs']:.4g}; by gradient {json.dumps(c['rel_norm_err_by_grad'])}){times}",
+          flush=True)
+
+
+def ssd_bwd_work(b, t, h, g, p, n, *, in_bytes: int, a_rows: int, state: bool, dstate: bool):
+    """(bytes, FLOP) one ssd backward call needs: x, B and C (``in_bytes``
+    each), dt and the float32 output gradient read once, a and the states
+    given read once; dx, dB, dC (``in_bytes``), ddt and da (float32) and the
+    initial state's gradient written once.  Operations: 12 P N a token and
+    head (the forward pass's state update and S^T dy, the reverse pass's G
+    update, G B, G^T x and decay) and 20 (P + N) for the per-token sums,
+    scalings and epilogues (an exp counts as one)."""
+    nbytes = 2 * (b * t * h * p + 2 * b * t * g * n) * in_bytes + b * t * h * p * 4
+    nbytes += 2 * b * t * h * 4 + 2 * a_rows * h * 4
+    nbytes += (int(state) + int(dstate) + 1) * b * h * p * n * 4
+    return nbytes, b * t * h * (12 * p * n + 20 * (p + n))
+
+
+def ssd_bwd_case(card, name, b, t, h, p, n, *, g=1, a_rows=1, state=False, dstate=False,
+                 dt_range=(0.01, 1.0), dt_a=None, dtype=torch.float32, strided=False,
+                 timed=False, seed=0):
+    """The ssd backward kernel vs the plain backward on the card at one
+    shape: x, B and C in ``dtype`` (``strided``: views of one (B, T, H P +
+    2 G N) buffer, as the model's convolution output gives them), dt and a
+    as ``ssd_case`` draws them (a of ``a_rows`` rows: a vmapped call's peers
+    folded into the batch), the float32 output gradient normal, a random
+    initial state and final-state gradient where asked."""
+    from repro_torch.kernels.mamba2 import ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if strided:
+        conv = torch.randn(b, t, h * p + 2 * g * n, generator=gen, device=dev).to(dtype)
+        x = conv[..., :h * p].unflatten(-1, (h, p))
+        bm = conv[..., h * p:h * p + g * n].unflatten(-1, (g, n))
+        cm = conv[..., h * p + g * n:].unflatten(-1, (g, n))
+        check(all(ops._kernel_operand(m) is m for m in (x, bm, cm)),
+              f"ssd_bwd {name}: the strided views are read in place")
+    else:
+        x = torch.randn(b, t, h, p, generator=gen, device=dev).to(dtype)
+        bm, cm = (torch.randn(b, t, g, n, generator=gen, device=dev).to(dtype) for _ in range(2))
+    low, high = dt_range
+    dt = low + (high - low) * torch.rand(b, t, h, generator=gen, device=dev)
+    a_shape = ((a_rows,) if a_rows > 1 else ()) + (h,)
+    a = -(0.5 + 1.5 * torch.rand(*a_shape, generator=gen, device=dev))
+    if dt_a is not None:
+        dt, a = torch.ones(b, t, h, device=dev), torch.full(a_shape, dt_a, device=dev)
+    dy = torch.randn(b, t, h, p, generator=gen, device=dev)
+    s0 = torch.randn(b, h, p, n, generator=gen, device=dev) if state else None
+    ds = torch.randn(b, h, p, n, generator=gen, device=dev) if dstate else None
+    args = (x, bm, cm, dt, a, s0, dy, ds)
+    got = ops.ssd_bwd(*args)
+    again = ops.ssd_bwd(*args)
+    want = ref.ssd_bwd_ref(*args)
+    torch.cuda.synchronize()
+    for gr, m in zip(got, (x, bm, cm, dt, a)):
+        check(gr.dtype == m.dtype, f"ssd_bwd {name}: a gradient in its operand's type")
+    names = ("x", "b", "c", "dt", "a", "state")
+    case = {"case": name, "B": b, "T": t, "H": h, "G": g, "P": p, "N": n, "a_rows": a_rows,
+            "state": state, "dstate": dstate, "strided": strided,
+            "dtype": str(dtype).removeprefix("torch."),
+            **check_bwd("ssd_bwd", name, names, got, again, want, extreme=dt_a is not None)}
+    del got, again, want
+    if timed:
+        dx = torch.empty(b, t, h, p, dtype=dtype, device=dev)
+        db, dc = (torch.empty(b, t, g, n, dtype=dtype, device=dev) for _ in range(2))
+        ddt, da = torch.empty_like(dt), torch.empty_like(a)
+        scratch = ops.bwd_scratch(b, t, h, p, n, dev)
+        ds_in = torch.empty(b, h, p, n, device=dev)
+        kern = lambda: ops.launch_bwd(x, bm, cm, dt, a, s0, dy, ds, dx, db, dc,  # noqa: E731
+                                      ddt, da, scratch, ds_in)
+        plain = lambda: ref.ssd_bwd_ref(*args)  # noqa: E731
+        case.update(in_turns(plain, kern, None))
+        nbytes, flops = ssd_bwd_work(b, t, h, g, p, n, in_bytes=x.element_size(),
+                                     a_rows=a_rows, state=state, dstate=dstate)
+        # the token-by-token count on the tensor cores too, at the operands' rate
+        case.update(pipe_and_tensor_bounds(card, nbytes, flops, flops,
+                                           bf16=dtype == torch.bfloat16))
+    del x, bm, cm, dt, a, dy, s0, ds
+    torch.cuda.empty_cache()
+    return case
+
+
+def ssd_bwd_cases(card: Card) -> list[dict]:
+    """The ssd backward at the trained zamba2-2.7b round's shape (K = 2
+    peers x batch 1 folded into B 2, T 1024, 80 heads of P = N = 64, one
+    B/C group, bf16 views of the convolution's output, each peer's a a row,
+    a state in (the loss hands the kernel zeros), no final-state gradient)
+    and the served prefill's batch of 4; then with a final-state gradient in
+    float32, ragged with G = 2 over H = 4, the reduced configs' (P, N) =
+    (32, 16), the narrowest (16, 8), one token, and strong decay."""
+    small = (1e-4, 2e-3)
+    bf16 = torch.bfloat16
+    zamba = (1024, 80, 64, 64)
+    return [
+        ssd_bwd_case(card, "trained_k2_b1_t1024_bf16", 2, *zamba, a_rows=2, state=True,
+                     dtype=bf16, strided=True, timed=True, seed=41),
+        ssd_bwd_case(card, "served_b4_t1024_bf16", 4, *zamba, state=True, dtype=bf16,
+                     strided=True, timed=True, seed=42),
+        ssd_bwd_case(card, "b2_t1024_state_dstate_f32", 2, *zamba, state=True, dstate=True,
+                     dt_range=small, timed=True, seed=43),
+        ssd_bwd_case(card, "ragged_t1000_g2_h4_bf16", 2, 1000, 4, 64, 64, g=2, a_rows=2,
+                     state=True, dstate=True, dt_range=small, dtype=bf16, seed=44),
+        ssd_bwd_case(card, "reduced_p32_n16_f32", 4, 32, 8, 32, 16, a_rows=2, state=True,
+                     dstate=True, strided=True, seed=45),
+        ssd_bwd_case(card, "p64_n32_f32", 2, 200, 4, 64, 32, g=2, state=True, dstate=True,
+                     seed=46),
+        ssd_bwd_case(card, "p16_n8_g3_f32", 2, 100, 6, 16, 8, g=3, state=True, dstate=True,
+                     seed=47),
+        ssd_bwd_case(card, "t1", 2, 1, 8, 64, 64, state=True, dstate=True, seed=48),
+        ssd_bwd_case(card, "strong_decay", 2, 256, 8, 64, 64, state=True, dstate=True,
+                     dt_a=-50.0, seed=49),
+    ]
+
+
+def _print_ssd_bwd_case(c: dict) -> None:
+    times = ""
+    if "ms" in c:
+        times = (f" kernel={c['ms']:.4f} ms plain={c['plain_ms']:.4f} ms library=none "
+                 f"bound={c['bound_ms']:.4f} ms ({c['bound_by']}; {c['bound_card']}; "
+                 f"{_both_bounds(c)})")
+    print(f"ssd_bwd {c['case']}: B={c['B']} T={c['T']} H={c['H']} G={c['G']} P={c['P']} "
+          f"N={c['N']} a_rows={c['a_rows']} state={c['state']} dstate={c['dstate']} "
+          f"strided={c['strided']} {c['dtype']} max_abs_err={c['max_abs_err']:.3g} "
+          f"rel_norm_err={c['rel_norm_err']:.3g} (max |grad| {c['max_abs']:.4g}; by gradient "
+          f"{json.dumps(c['rel_norm_err_by_grad'])}){times}", flush=True)
+
+
 def check_kernels(card: Card) -> dict[str, list[dict]]:
-    """Build the seven kernels and hold each against its plain version at its
+    """Build the nine kernels and hold each against its plain version at its
     shapes; the three consensus kernels' mass mode under "<kernel> mass",
     ``consensus_mix``'s snapshot mode under "consensus_mix snapshot" and its
     bf16 mode under "consensus_mix bf16", and adaptive rounds' dense
@@ -2151,8 +2447,10 @@ def check_kernels(card: Card) -> dict[str, list[dict]]:
     lm_size = sum(math.prod(s) for s in tf.decoder_param_shapes(get_config(LM_ARCH)).values())
     cases = {"consensus_mix": consensus_cases(card, row),
              "dequant_mix": dequant_cases(card, layout), "segment_mix": segment_cases(card),
-             "wkv6": wkv6_cases(card), "flash_attention": flash_cases(card),
+             "wkv6": wkv6_cases(card), "wkv6_bwd": wkv6_bwd_cases(card),
+             "flash_attention": flash_cases(card),
              "flash_attention_bwd": flash_bwd_cases(card), "ssd": ssd_cases(card),
+             "ssd_bwd": ssd_bwd_cases(card),
              "consensus_mix bf16": consensus_bf16_cases(card, bf16_row(lm_size),
                                                         bf16_row(layout.size))}
     for kernel, kcases in mass_cases(card).items():
@@ -2164,6 +2462,10 @@ def check_kernels(card: Card) -> dict[str, list[dict]]:
         for c in kcases:
             if kernel == "wkv6":
                 _print_wkv6_case(c)
+            elif kernel == "wkv6_bwd":
+                _print_wkv6_bwd_case(c)
+            elif kernel == "ssd_bwd":
+                _print_ssd_bwd_case(c)
             elif kernel == "flash_attention":
                 _print_flash_case(c)
             elif kernel == "flash_attention_bwd":
@@ -2263,8 +2565,9 @@ def launch_counters() -> dict:
 
     return {"consensus_mix": ops.launches, "dequant_mix": dequant.launches,
             "segment_mix": segment.launches, "wkv6": wkv6_ops.launches,
-            "flash_attention": flash_ops.launches,
-            "flash_attention_bwd": flash_ops.bwd_launches, "ssd": ssd_ops.launches}
+            "wkv6_bwd": wkv6_ops.bwd_launches, "flash_attention": flash_ops.launches,
+            "flash_attention_bwd": flash_ops.bwd_launches, "ssd": ssd_ops.launches,
+            "ssd_bwd": ssd_ops.bwd_launches}
 
 
 @contextlib.contextmanager
@@ -2550,34 +2853,88 @@ def drive_large_k(exp, rounds: int, data) -> dict:
 
 
 LM_ARCH = "smollm-135m"
-LM_PEERS, LM_BATCH, LM_SEQ, LM_STEPS, LM_ROUNDS = 4, 4, 1024, 4, 3
 LM_REDUCED_ROUNDS = 4
-# the first step's bf16 gradients, kernel against plain backward, through 30
-# layers of bf16 activations: tests/test_kernels.py's bf16 tolerance, 5e-2,
-# on every entry and on the relative norm of the difference (each backward
-# call alone is held to 1e-2, FLASH_BWD_REL_NORM)
+# the first step's bf16 gradients, kernels against plain backwards, through
+# every layer's bf16 activations: tests/test_kernels.py's bf16 tolerance,
+# 5e-2, on every entry and on the relative norm of the difference (each
+# backward call alone is held to 1e-2, FLASH_BWD_REL_NORM and BWD_REL_NORM)
 LM_GRAD_TOL = dict(atol=5e-2, rtol=5e-2)
 LM_GRAD_REL_NORM = 5e-2
 
 
+@dataclasses.dataclass(frozen=True)
+class LMRun:
+    """One P2P LM training configuration on the card: ``run_p2p_lm``'s step
+    sizes and token draws, p2pl_affinity on the complete graph, S = 1, seed 0,
+    bf16; ``layers`` None is the published depth."""
+
+    label: str
+    arch: str
+    layers: int | None
+    peers: int
+    batch: int
+    seq: int
+    steps: int = 4
+    rounds: int = 3
+
+
+LM_RUNS = (
+    # smollm-135m at full width and depth, K = 4
+    LMRun("p2p_lm_smollm_full", LM_ARCH, None, 4, 4, 1024),
+    # rwkv6-7b at its published widths, 6 of 32 layers: the most whose
+    # reckoned peak stays under 70 GB at K = 2, batch 2 (PERF.md)
+    LMRun("p2p_lm_rwkv6_7b", "rwkv6-7b", 6, 2, 2, 1024),
+    # zamba2-2.7b at its published widths, 42 of 54 layers (7 of the shared
+    # block's 9 periods): 54 reckon over 70 GB at K = 2, batch 1 (PERF.md)
+    LMRun("p2p_lm_zamba2_2_7b", "zamba2-2.7b", 42, 2, 1, 1024),
+)
+
+
+def lm_step_launches(cfg) -> dict:
+    """The kernel launches one local step of ``cfg``'s loss makes, each way."""
+    if cfg.family == "rwkv6":
+        return {"wkv6": cfg.num_layers, "wkv6_bwd": cfg.num_layers}
+    if cfg.family == "hybrid":
+        apps = cfg.num_layers // cfg.shared_block_period
+        return {"ssd": cfg.num_layers, "ssd_bwd": cfg.num_layers, "flash_attention": apps,
+                "flash_attention_bwd": apps}
+    return {"flash_attention": cfg.num_layers, "flash_attention_bwd": cfg.num_layers}
+
+
 @contextlib.contextmanager
-def plain_attention_backward():
-    """While active, ``FlashAttention``'s backward runs the plain backward
-    on CUDA tensors too (the yardstick of the gradient check): its module
-    function ``attention_bwd`` is swapped for the plain version."""
+def plain_backwards():
+    """While active, the Functions of ``flash_attention``, ``wkv6`` and
+    ``ssd`` run their plain backwards on CUDA tensors too (the yardstick of
+    the gradient checks): each module's backward dispatch (``attention_bwd``,
+    ``wkv6_bwd``, ``ssd_bwd``) is swapped for its plain version."""
     from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.kernels.mamba2 import ops as ssd_ops
+    from repro_torch.kernels.mamba2 import ref as ssd_ref
+    from repro_torch.kernels.rwkv6 import ops as wkv6_ops
+    from repro_torch.kernels.rwkv6 import ref as wkv6_ref
 
-    real = ops.attention_bwd
-
-    def plain(q, k, v, out, dout, lse, *, causal, window, scale):
+    def attention(q, k, v, out, dout, lse, *, causal, window, scale):
         return ref.gqa_attention_bwd_ref(q, k, v, out, dout, lse, causal=causal, window=window,
                                          scale=scale)
 
-    ops.attention_bwd = plain
+    def plain_of(ref_fn, operands: int):
+        def run(*args, need_dstate=True):
+            grads = ref_fn(*args)
+            return (*(g.to(x.dtype) for g, x in zip(grads[:5], args[:operands])),
+                    grads[5] if need_dstate else None)
+        return run
+
+    swaps = [(ops, "attention_bwd", attention),
+             (wkv6_ops, "wkv6_bwd", plain_of(wkv6_ref.wkv6_bwd_ref, 5)),
+             (ssd_ops, "ssd_bwd", plain_of(ssd_ref.ssd_bwd_ref, 5))]
+    real = [(module, name, getattr(module, name)) for module, name, _ in swaps]
+    for module, name, plain in swaps:
+        setattr(module, name, plain)
     try:
         yield
     finally:
-        ops.attention_bwd = real
+        for module, name, fn in real:
+            setattr(module, name, fn)
 
 
 def lm_step_grads(task, layout, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
@@ -2589,6 +2946,30 @@ def lm_step_grads(task, layout, params, batch) -> tuple[torch.Tensor, torch.Tens
     return losses.detach(), layout.flatten(dict(zip(views, grads)))
 
 
+def compare_grads(name: str, layout, got: torch.Tensor, want: torch.Tensor) -> dict:
+    """Holds a step's flat gradients to the plain backwards' (LM_GRAD_TOL)
+    leaf by leaf, 2^26 entries at a time in float32 (the whole (K, row)
+    buffer widened would take 15 GB at rwkv6-7b's 6 layers, zamba2's stacked
+    in_proj alone 9 GB; the views die with this function); returns the
+    relative norm errors, whole and by leaf, and the largest errors."""
+    leaf_rel, diff2, want2, max_err, max_abs = {}, 0.0, 0.0, 0.0, 0.0
+    for (leaf, ga), gb in zip(layout.views(got).items(), layout.views(want).values()):
+        d2 = w2 = 0.0
+        for a, b in zip(ga.reshape(-1).split(2**26), gb.reshape(-1).split(2**26)):
+            a, b = a.float(), b.float()
+            check(bool(torch.isfinite(a).all()), f"{name}: gradient of {leaf} finite")
+            torch.testing.assert_close(a, b, **LM_GRAD_TOL, msg=lambda m: f"{name} d{leaf}: {m}")
+            d2 += float(torch.linalg.vector_norm(a - b)) ** 2
+            w2 += float(torch.linalg.vector_norm(b)) ** 2
+            max_err = max(max_err, float((a - b).abs().max()))
+            max_abs = max(max_abs, float(b.abs().max()))
+        leaf_rel[leaf] = math.sqrt(d2 / w2) if w2 else math.sqrt(d2)
+        diff2, want2 = diff2 + d2, want2 + w2
+    return {"rel_norm_err": math.sqrt(diff2 / want2), "max_abs_err": max_err,
+            "max_abs": max_abs, "leaf_rel_norm_err_max": max(leaf_rel.values()),
+            "leaf_rel_norm_err": leaf_rel}
+
+
 def lm_kernel_category(name: str) -> str:
     """The group a device kernel of the LM round is reported under."""
     if any(tag in name for tag in ("flash_wgmma", "flash_bf16", "flash_f32")):
@@ -2596,6 +2977,14 @@ def lm_kernel_category(name: str) -> str:
     if any(tag in name for tag in ("delta_f32", "delta_bf16", "dkdv_", "dq_wgmma", "dq_bf16",
                                    "dq_f32")):
         return "attention backward"
+    if any(tag in name for tag in ("wkv6_bwd", "du_reduce")):
+        return "wkv6 backward"
+    if "wkv6" in name:
+        return "wkv6 forward"
+    if any(tag in name for tag in ("ssd_bwd", "group_reduce", "da_reduce")):
+        return "ssd backward"
+    if "ssd_kernel" in name:
+        return "ssd forward"
     if any(tag in name for tag in ("consensus_mix", "mix_tile", "dequant_mix", "segment_")):
         return "consensus"
     if kernel_category(name) == "matmul":
@@ -2605,21 +2994,21 @@ def lm_kernel_category(name: str) -> str:
     return "other"
 
 
-def drive_p2p_lm(card: Card) -> dict:
-    """The slice's path at full width: P2P training of smollm-135m (30
-    layers, d 576, 9 heads over 3 KV heads, D 64, vocab 49,152, tied, bf16,
-    nothing cut) through ``core.task.from_model``, ``init_state`` and
-    ``make_round_fn``: K = 4 peers on the complete graph, batch 4, seq 1024,
-    T = 4, S = 1, p2pl_affinity, seed 0 (``run_p2p_lm``'s step sizes and
-    token draws).  First the first local step's stacked losses and
-    gradients against the same step with the plain attention backward on
-    the card; then LM_ROUNDS rounds, every launch count reset just before
-    and read just after each (forward and backward ``flash_attention`` 30 T
-    a round, ``consensus_mix`` S); then one more round through the two
-    phases with synchronized timers, and one under torch.profiler (device
-    ms and launches by ``lm_kernel_category``, the busy share, the top
-    kernels).  Prints s/round, the phases' seconds, the launches, the peak
-    memory and the profile."""
+def drive_p2p_lm(card: Card, run: LMRun) -> dict:
+    """One slice path at published widths: P2P training of ``run.arch`` (its
+    depth cut to ``run.layers`` where given; bf16) through
+    ``core.task.from_model``, ``init_state`` and ``make_round_fn``: K =
+    ``run.peers`` on the complete graph, ``run.batch`` x ``run.seq`` tokens,
+    T = ``run.steps``, S = 1, p2pl_affinity, seed 0 (``run_p2p_lm``'s step
+    sizes and token draws).  First the first local step's stacked losses
+    and gradients against the same step with the plain backwards on the
+    card; then ``run.rounds`` rounds, every launch count reset just before
+    and read just after each (``lm_step_launches`` T times a round,
+    ``consensus_mix`` S); then one more round through the two phases with
+    synchronized timers, and one under torch.profiler (device ms and
+    launches by ``lm_kernel_category``, the busy share, the top kernels).
+    Prints s/round, the phases' seconds, the launches, the peak memory and
+    the profile."""
     from repro_torch.configs import get_config
     from repro_torch.core import consensus as consensus_lib
     from repro_torch.core import p2p, task as task_lib
@@ -2627,25 +3016,29 @@ def drive_p2p_lm(card: Card) -> dict:
     from repro_torch.models.registry import build_model
 
     dev = torch.device("cuda")
-    cfg = get_config(LM_ARCH)
+    name = run.arch
+    cfg = get_config(run.arch)
+    if run.layers is not None:
+        cfg = cfg.replace(num_layers=run.layers)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     start = time.perf_counter()
     task = task_lib.from_model(build_model(cfg))
-    pcfg = train.lm_config(num_peers=LM_PEERS, local_steps=LM_STEPS, algorithm="p2pl_affinity",
-                           lr=1e-2, momentum=0.5, eta_d=0.25)
+    pcfg = train.lm_config(num_peers=run.peers, local_steps=run.steps,
+                           algorithm="p2pl_affinity", lr=1e-2, momentum=0.5, eta_d=0.25)
     state = p2p.init_state(task, pcfg, seed=0, device=dev)
     round_fn = p2p.make_round_fn(task, pcfg, device=dev)
     layout = p2p.ParamLayout.of(task)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - start
-    check(state.params.dtype == torch.bfloat16 and state.params.shape == (LM_PEERS, layout.row)
-          and layout.row % 8 == 0, f"{LM_ARCH}: a (K, row) bf16 buffer, row a multiple of 8")
+    check(state.params.dtype == torch.bfloat16 and state.params.shape == (run.peers, layout.row)
+          and layout.row % 8 == 0, f"{name}: a (K, row) bf16 buffer, row a multiple of 8")
     rng = np.random.default_rng(0)
 
     def round_batches():
-        tokens, labels = train.lm_token_batches(rng, cfg.vocab_size, num_peers=LM_PEERS,
-                                                local_steps=LM_STEPS, batch=LM_BATCH, seq=LM_SEQ)
+        tokens, labels = train.lm_token_batches(rng, cfg.vocab_size, num_peers=run.peers,
+                                                local_steps=run.steps, batch=run.batch,
+                                                seq=run.seq)
         return tuple(torch.as_tensor(a, dtype=torch.int64, device=dev) for a in (tokens, labels))
 
     counters = launch_counters()
@@ -2656,63 +3049,57 @@ def drive_p2p_lm(card: Card) -> dict:
     losses_k, grads_k = lm_step_grads(task, layout, state.params, step0)
     torch.cuda.synchronize()
     step_launches = {key: c.count for key, c in counters.items() if c.count}
-    want_step = {"flash_attention": cfg.num_layers, "flash_attention_bwd": cfg.num_layers}
-    check(step_launches == want_step, f"{LM_ARCH} step launched {step_launches}, "
-          f"want {want_step}")
-    with plain_attention_backward():
+    want_step = lm_step_launches(cfg)
+    check(step_launches == want_step, f"{name} step launched {step_launches}, want {want_step}")
+    start = time.perf_counter()
+    with plain_backwards():
         losses_p, grads_p = lm_step_grads(task, layout, state.params, step0)
     torch.cuda.synchronize()
-    check(torch.equal(losses_k, losses_p), f"{LM_ARCH}: the step's losses equal")
-    check(bool(torch.isfinite(grads_k.float()).all()), f"{LM_ARCH}: gradients finite")
-    torch.testing.assert_close(grads_k.float(), grads_p.float(), **LM_GRAD_TOL,
-                               msg=lambda m: f"{LM_ARCH} gradients: {m}")
-    grad_rel = rel_norm(grads_k, grads_p)
-    leaf_rel = {name: rel_norm(a, b) for (name, a), b in zip(
-        layout.views(grads_k).items(), layout.views(grads_p).values())}
-    grad_check = {"losses": losses_k.tolist(), "rel_norm_err": grad_rel,
-                  "max_abs_err": float((grads_k.float() - grads_p.float()).abs().max()),
-                  "max_abs": float(grads_p.float().abs().max()),
-                  "leaf_rel_norm_err_max": max(leaf_rel.values()),
-                  "leaf_rel_norm_err": leaf_rel}
-    print(f"{LM_ARCH} first local step ({card.line}): losses {losses_k.tolist()}; gradients "
-          f"against the plain attention backward: relative norm error {grad_rel:.3g}, max abs "
+    plain_step_s = time.perf_counter() - start
+    check(torch.equal(losses_k, losses_p), f"{name}: the step's losses equal")
+    grad_check = {"losses": losses_k.tolist(), **compare_grads(name, layout, grads_k, grads_p),
+                  "plain_step_s": plain_step_s}
+    grad_rel, leaf_rel = grad_check["rel_norm_err"], grad_check["leaf_rel_norm_err"]
+    print(f"{name} first local step ({card.line}): losses {losses_k.tolist()}; gradients "
+          f"against the plain backwards: relative norm error {grad_rel:.3g}, max abs "
           f"error {grad_check['max_abs_err']:.3g} of max |grad| {grad_check['max_abs']:.3g}, "
-          f"worst leaf {max(leaf_rel, key=leaf_rel.get)} {max(leaf_rel.values()):.3g}; every "
-          f"leaf {json.dumps(leaf_rel)}", flush=True)
-    check(grad_rel < LM_GRAD_REL_NORM, f"{LM_ARCH} gradients: relative norm error {grad_rel}")
+          f"worst leaf {max(leaf_rel, key=leaf_rel.get)} {max(leaf_rel.values()):.3g} (the "
+          f"plain step {plain_step_s:.2f} s); every leaf {json.dumps(leaf_rel)}", flush=True)
+    check(grad_rel < LM_GRAD_REL_NORM, f"{name} gradients: relative norm error {grad_rel}")
     del grads_k, grads_p
 
-    print(f"main path: p2p_lm {LM_ARCH} full width, K={LM_PEERS} batch {LM_BATCH} seq {LM_SEQ} "
-          f"T={LM_STEPS}, {LM_ROUNDS} rounds", flush=True)
-    want = {key: 0 for key in counters} | {"flash_attention": cfg.num_layers * LM_STEPS,
-                                           "flash_attention_bwd": cfg.num_layers * LM_STEPS,
-                                           "consensus_mix": pcfg.consensus_steps}
+    depth = "" if run.layers is None else f" {run.layers} layers,"
+    print(f"main path: p2p_lm {name} full width,{depth} K={run.peers} batch {run.batch} seq "
+          f"{run.seq} T={run.steps}, {run.rounds} rounds", flush=True)
+    want = {key: 0 for key in counters} | {key: n * run.steps for key, n in want_step.items()}
+    want["consensus_mix"] = pcfg.consensus_steps
     seconds, losses, per_round = [], [], []
     total = dict.fromkeys(counters, 0)
     with count_plain_calls() as plain_calls:
-        for r in range(LM_ROUNDS):
+        for r in range(run.rounds):
             if r:
                 batches = round_batches()
             torch.cuda.synchronize()
             for counter in counters.values():
                 counter.reset()
             start = time.perf_counter()
-            _, state, step_losses = round_fn(state, batches)
+            # the round's post-local state (its first output) is not kept:
+            # at these widths it is two (K, row) buffers
+            state, step_losses = round_fn(state, batches)[1:]
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - start)
             launches = {key: c.count for key, c in counters.items()}
-            check(launches == want, f"{LM_ARCH} round {r} launched {launches}, want {want}")
+            check(launches == want, f"{name} round {r} launched {launches}, want {want}")
             per_round.append({key: n for key, n in launches.items() if n})
             for key, n in launches.items():
                 total[key] += n
             losses.append(float(step_losses.float().mean()))
-    check(not plain_calls, f"{LM_ARCH} called plain versions {plain_calls}")
-    check(all(math.isfinite(v) for v in losses), f"{LM_ARCH} losses finite: {losses}")
+    check(not plain_calls, f"{name} called plain versions {plain_calls}")
+    check(all(math.isfinite(v) for v in losses), f"{name} losses finite: {losses}")
     drift = float(consensus_lib.pairwise_drift(state.params))
-    check(math.isfinite(drift), f"{LM_ARCH} drift finite: {drift}")
+    check(math.isfinite(drift), f"{name} drift finite: {drift}")
     for field in ("params", "momentum", "d_bias"):
-        check(bool(torch.isfinite(getattr(state, field).float()).all()),
-              f"{LM_ARCH} {field} finite")
+        check(bool(torch.isfinite(getattr(state, field)).all()), f"{name} {field} finite")
     # one more round through its two phases, timed apart
     ops = p2p.round_operands(pcfg, device=dev)
     batches = round_batches()
@@ -2728,57 +3115,56 @@ def drive_p2p_lm(card: Card) -> dict:
     del after_local
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     batches = round_batches()
-    holder = {}
-    profile = profile_once(lambda: holder.update(out=round_fn(state, batches)),
-                           category=lm_kernel_category, n_top=12)
-    del holder
-    print(f"p2p_lm {LM_ARCH} one round under torch.profiler ({card.line}): wall "
+    profile = profile_once(lambda: round_fn(state, batches), category=lm_kernel_category,
+                           n_top=12)
+    print(f"p2p_lm {name} one round under torch.profiler ({card.line}): wall "
           f"{profile['wall_s']:.4f} s, device busy {profile['device_busy_s']:.4f} s (share "
           f"{profile['device_busy_share']:.4f}), {profile['kernels']} kernels; by category "
           f"[launches, device ms]: {json.dumps(profile['by_category_launches_ms'])}; top "
           f"kernels [name, launches, ms]: {json.dumps(profile['top_kernels_ms'])}", flush=True)
-    state_gb = 4 * state.params.numel() * state.params.element_size() / 1e9
-    print(f"p2p_lm {LM_ARCH} ({card.line}): set-up {setup_s:.2f} s, seconds per round "
-          f"{seconds}, losses {losses}, final drift {drift:.6g}; one more round: local phase "
-          f"{local_s:.4f} s, consensus {consensus_s:.4f} s; launches per round {per_round}; "
-          f"peak memory {peak_gb:.3f} GB against {state_gb:.3f} GB for the four (K, "
-          f"{layout.row}) bf16 state buffers", flush=True)
+    replica_gb = state.params.numel() * state.params.element_size() / 1e9
+    state_gb = 4 * replica_gb
+    print(f"p2p_lm {name} ({card.line}): {layout.size} parameters a peer, set-up {setup_s:.2f} "
+          f"s, seconds per round {seconds}, losses {losses}, final drift {drift:.6g}; one more "
+          f"round: local phase {local_s:.4f} s, consensus {consensus_s:.4f} s; launches per "
+          f"round {per_round}; peak memory {peak_gb:.3f} GB against {state_gb:.3f} GB for the "
+          f"four (K, {layout.row}) bf16 state buffers", flush=True)
     del state
     torch.cuda.empty_cache()
     return {"launches": {key: n for key, n in total.items() if n}, "seconds": seconds,
             "losses": losses, "final_drift": drift, "local_s": local_s,
             "consensus_s": consensus_s, "setup_s": setup_s, "peak_gb": peak_gb,
             "state_gb": state_gb, "launches_per_round": per_round, "grad_check": grad_check,
-            "row": layout.row, "round_profile": profile}
+            "row": layout.row, "params_per_peer": layout.size, "layers": cfg.num_layers,
+            "round_profile": profile}
 
 
-def drive_run_p2p_lm_reduced(card: Card) -> dict:
-    """The reference's entry point as it is: ``run_p2p_lm(LM_ARCH,
-    rounds=LM_REDUCED_ROUNDS)`` on the card (reduced, float32: the forward
-    and backward kernels' float32 route at D 32, ``consensus_mix`` at K = 2),
+def drive_run_p2p_lm_reduced(card: Card, arch: str) -> dict:
+    """The reference's entry point as it is: ``run_p2p_lm(arch,
+    rounds=LM_REDUCED_ROUNDS)`` on the card (reduced, float32: the kernels'
+    float32 routes at the reduced widths, ``consensus_mix`` at K = 2),
     launch counts reset just before and read just after."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.launch import train
 
-    cfg = reduced(get_config(LM_ARCH))
+    cfg = reduced(get_config(arch))
     counters = launch_counters()
     for counter in counters.values():
         counter.reset()
-    print(f"main path: run_p2p_lm({LM_ARCH!r}, rounds={LM_REDUCED_ROUNDS}) (reduced)",
-          flush=True)
+    print(f"main path: run_p2p_lm({arch!r}, rounds={LM_REDUCED_ROUNDS}) (reduced)", flush=True)
     start = time.perf_counter()
-    out = train.run_p2p_lm(LM_ARCH, rounds=LM_REDUCED_ROUNDS, verbose=True, device="cuda")
+    out = train.run_p2p_lm(arch, rounds=LM_REDUCED_ROUNDS, verbose=True, device="cuda")
     seconds = time.perf_counter() - start
     launches = {key: c.count for key, c in counters.items()}
     steps = LM_REDUCED_ROUNDS * 4  # the reference's default T = 4
-    want = {key: 0 for key in counters} | {"flash_attention": cfg.num_layers * steps,
-                                           "flash_attention_bwd": cfg.num_layers * steps,
-                                           "consensus_mix": LM_REDUCED_ROUNDS}
-    check(launches == want, f"run_p2p_lm launched {launches}, want {want}")
+    want = {key: 0 for key in counters} | {key: n * steps for key, n in
+                                           lm_step_launches(cfg).items()}
+    want["consensus_mix"] = LM_REDUCED_ROUNDS
+    check(launches == want, f"run_p2p_lm({arch}) launched {launches}, want {want}")
     check(len(out["losses"]) == LM_REDUCED_ROUNDS
-          and all(math.isfinite(v) for v in out["losses"]), f"run_p2p_lm losses {out}")
-    check(math.isfinite(out["final_drift"]), f"run_p2p_lm drift {out}")
-    print(f"run_p2p_lm reduced ({card.line}): {json.dumps(out)} in {seconds:.2f} s, "
+          and all(math.isfinite(v) for v in out["losses"]), f"run_p2p_lm({arch}) losses {out}")
+    check(math.isfinite(out["final_drift"]), f"run_p2p_lm({arch}) drift {out}")
+    print(f"run_p2p_lm {arch} reduced ({card.line}): {json.dumps(out)} in {seconds:.2f} s, "
           f"launches {launches}", flush=True)
     return {"launches": {key: n for key, n in launches.items() if n}, "seconds": seconds, **out}
 
@@ -2873,55 +3259,6 @@ def check_seqmnist_wkv6(card: Card) -> dict:
     return {"features_max_abs_diff": features_err, "cases": cases}
 
 
-def check_backward_raises() -> dict:
-    """Autograd through a forward-only kernel on the card raises
-    ``NotImplementedError`` (``kernels.build.check_no_grad``) and launches
-    nothing: ``wkv6`` called directly and under ``rwkv6_loss_fn``, and
-    ``ssd``; under ``torch.no_grad`` the same calls run.  (``flash_attention``
-    has its backward kernel: ``drive_p2p_lm`` trains through it.)"""
-    from repro_torch.core import task as task_lib
-    from repro_torch.kernels.mamba2 import ops as ssd_ops
-    from repro_torch.kernels.rwkv6 import ops as wkv6_ops
-    from repro_torch.models import transformer as tf
-
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
-    r, k, v = (rnd(2, 98, 4, 16).requires_grad_(True) for _ in range(3))
-    logd, u = -torch.rand(2, 98, 4, 16, generator=gen, device=dev), rnd(4, 16)
-    x, bm, cm = rnd(2, 64, 4, 32).requires_grad_(True), rnd(2, 64, 1, 16), rnd(2, 64, 1, 16)
-    dt, a = torch.rand(2, 64, 4, generator=gen, device=dev), -torch.ones(4, device=dev)
-    cfg = task_lib.seqmnist_model_config()
-    trunk = {n: t[0].to(dev).requires_grad_(True) for n, t in seqmnist_params(1).items()
-             if not n.startswith("cls_head.")}
-    toks = torch.randint(0, 16, (2, 196), generator=gen, device=dev)
-    calls = {
-        "wkv6": lambda: wkv6_ops.wkv6(r, k, v, logd, u, chunk=49),
-        "wkv6 under rwkv6_loss_fn": lambda: tf.rwkv6_loss_fn(
-            trunk, cfg, {"tokens": toks, "labels": toks}),
-        "ssd": lambda: ssd_ops.ssd(x, bm, cm, dt, a, chunk=32),
-    }
-    counters = launch_counters()
-    out = {}
-    for name, call in calls.items():
-        for counter in counters.values():
-            counter.reset()
-        try:
-            call()
-        except NotImplementedError as e:
-            out[name] = str(e)
-        else:
-            raise RuntimeError(f"check failed: autograd through {name} on the card did not "
-                               "raise")
-        launched = {key: c.count for key, c in counters.items() if c.count}
-        check(not launched, f"{name}: launched {launched} before raising")
-        with torch.no_grad():
-            call()
-    torch.cuda.synchronize()
-    print(f"backward through the forward-only kernels raises: {json.dumps(out)}", flush=True)
-    return out
-
-
 def profile_seqmnist_round(card: Card, exp, data) -> dict:
     """One ``exp`` round both ways under torch.profiler: an eager round of
     the python driver's round function, and a replay of the scan driver's
@@ -2969,7 +3306,7 @@ def profile_seqmnist_round(card: Card, exp, data) -> dict:
 def seqmnist_phase(card: Card, data, cases: dict, paths: dict) -> dict:
     """RWKV6 on sequential MNIST (``seqmnist_k8``, K = 8, T = 4, 31 leaves,
     N = 100,236): the classifier on the card against the CPU, ``wkv6`` at
-    the task's shape, the backward guard, ``consensus_mix`` (and its mass
+    the task's shape, ``consensus_mix`` (and its mass
     mode) and ``dequant_mix`` held and timed at the task's row, three
     training runs through ``run_paper_experiment`` (gossip static, push-sum
     static, gossip round robin over qint8; launches counted, no plain
@@ -2986,7 +3323,6 @@ def seqmnist_phase(card: Card, data, cases: dict, paths: dict) -> dict:
     wkv6 = check_seqmnist_wkv6(card)
     cases["wkv6"].extend(wkv6["cases"])
     out["features_max_abs_diff"] = wkv6["features_max_abs_diff"]
-    out["backward_raises"] = check_backward_raises()
     layout = layout_of(SEQMNIST)
     check((len(layout.shapes), layout.size, layout.row) == (31, 100_234, 100_236),
           f"seqmnist layout {len(layout.shapes)} leaves, {layout.size} -> {layout.row}")
@@ -3694,6 +4030,9 @@ def fleet_both_ways(fleet_tokens: torch.Tensor, seed: int = 0) -> dict:
 
 
 def main() -> int:
+    # the full-width LM rounds hold about nine parameter-sized buffers; with
+    # fixed segments the allocator left 9.5 GiB of them unusable (rwkv6-7b)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs a GPU", file=sys.stderr)
         return 1
@@ -3712,11 +4051,16 @@ def main() -> int:
           flush=True)
 
     cases = check_kernels(card)
-    # the slice's path first, on a card with nothing else held: P2P training of
-    # smollm-135m at full width (flash_attention forward and backward,
-    # consensus_mix in bf16), then the reference's run_p2p_lm (reduced, float32)
-    paths = {"p2p_lm_smollm_full": drive_p2p_lm(card),
-             "run_p2p_lm_reduced": drive_run_p2p_lm_reduced(card)}
+    # the slices' paths first, on a card with nothing else held: P2P training
+    # of smollm-135m at full width (flash_attention forward and backward,
+    # consensus_mix in bf16), of rwkv6-7b (wkv6 and its backward) and of
+    # zamba2-2.7b (ssd and its backward, the shared block's flash_attention)
+    # at their published widths, then the reference's run_p2p_lm of each
+    # (reduced, float32)
+    paths = {run.label: drive_p2p_lm(card, run) for run in LM_RUNS}
+    for arch in (LM_ARCH, *(run.arch for run in LM_RUNS[1:])):
+        label = "run_p2p_lm_reduced" if arch == LM_ARCH else f"run_p2p_lm_reduced_{arch}"
+        paths[label] = drive_run_p2p_lm_reduced(card, arch)
     matching = check_matching_on_card()
     paths["serve_batch"] = drive_serve_batch(card, SERVE_ARCH, {"wkv6": 32})
     serving = {SERVE_ARCH: recheck_and_break_down(card, SERVE_ARCH, {"wkv6": (0, 31)},
@@ -3890,11 +4234,13 @@ def main() -> int:
         ("segment_mix", "consensus_mix/csrc/segment_mix.cu", "consensus_mix/segment.py:124",
          f"ring_k{LARGE_K}"),
         ("wkv6", "rwkv6/csrc/wkv6.cu", "rwkv6/rwkv6.py:94", "main_b4_t1024_bf16"),
+        ("wkv6_bwd", "rwkv6/csrc/wkv6_bwd.cu", "rwkv6/rwkv6.py:94", "trained_k2_b2_t1024_bf16"),
         ("flash_attention", "flash_attention/csrc/flash_attention.cu",
          "flash_attention/flash_attention.py:124", "main_minitron"),
         ("flash_attention_bwd", "flash_attention/csrc/flash_attention_bwd.cu",
          "flash_attention/flash_attention.py:124", "lm_smollm_k4"),
         ("ssd", "mamba2/csrc/ssd.cu", "mamba2/mamba2.py:98", "main_b4_t1024_bf16"),
+        ("ssd_bwd", "mamba2/csrc/ssd_bwd.cu", "mamba2/mamba2.py:98", "trained_k2_b1_t1024_bf16"),
     ):
         main = next(c for c in cases[kernel] if c["case"] == main_case)
         by_path = {name: p["launches"][kernel] for name, p in paths.items()
@@ -4011,6 +4357,18 @@ def main() -> int:
         elif kernel == "ssd":
             shape = (f"B={main['B']} T={main['T']} H={main['H']} G={main['G']} P={main['P']} "
                      f"N={main['N']} chunk={main['chunk']} {main['dtype']}")
+        elif kernel in ("wkv6_bwd", "ssd_bwd"):
+            run = "p2p_lm_rwkv6_7b" if kernel == "wkv6_bwd" else "p2p_lm_zamba2_2_7b"
+            dims = (f"dk={main['dk']}" if kernel == "wkv6_bwd" else
+                    f"G={main['G']} P={main['P']} N={main['N']}")
+            shape = (f"B={main['B']} T={main['T']} H={main['H']} {dims} {main['dtype']} (the "
+                     f"LM round: K = 2 peers folded into the batch)")
+            mass_entry["replaces_note"] = (
+                "the Pallas kernel has no backward (the reference differentiates its jnp "
+                f"forms); this is the backward of the {kernel[:-4]} port")
+            mass_entry["lm_grad_check"] = {
+                key: v for key, v in paths[run]["grad_check"].items()
+                if key != "leaf_rel_norm_err"}
         else:
             shape = f"K={main['K']} D={main['D']} N={main['N']}"
         entries.append({
@@ -4024,11 +4382,13 @@ def main() -> int:
             **{key: main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                           "library_ms", "bound_card")},
             "shape": shape,
-            # ssd's design (tf32x2 / tf32x3) under its own key: "route" is the
-            # contract's, "cuda" for every kernel
+            # the scans' two bounds; ssd's design (tf32x2 / tf32x3) under its own
+            # key: "route" is the contract's, "cuda" for every kernel
             **({key: main[key] for key in ("bound_ms_fma", "bound_by_fma", "bound_ms_tensor",
-                                          "bound_by_tensor", "split")}
-               | {"kernel_route": main["route"]} if kernel == "ssd" else {}),
+                                          "bound_by_tensor", "bound_tensor_type")}
+               if kernel in ("ssd", "wkv6_bwd", "ssd_bwd") else {}),
+            **({"split": main["split"], "kernel_route": main["route"]} if kernel == "ssd"
+               else {}),
             "shapes": cases[kernel],
             **mass_entry,
         })

@@ -594,6 +594,15 @@ def local_phase_stats(
     reports its frozen parameters' loss on each later step's batch.  None
     (the "uniform" profile) is the unmasked loop.
     Returns (new_state, losses (T, K)).
+
+    Each step writes its results into buffers the phase owns (the first
+    step's fresh products, then the same buffers in place; a held peer's
+    rows are saved before the update and written back after it), and with
+    momentum each leaf's gradient is added into its view of the momentum
+    buffer as autograd returns it, with no flat copy: the arithmetic is the
+    functional form's, operation for operation, and a step holds at most one
+    (K, row) temporary beside the leaves' gradients, which lets the two
+    peers of a 1.9 B-parameter model train on one 80 GB card.
     """
     layout = ParamLayout.of(task)
     x, y = batches
@@ -605,21 +614,33 @@ def local_phase_stats(
         # the peers share no parameters, so the gradient of the summed loss
         # is every peer's own gradient, stacked; a leaf the loss does not
         # read (a vlm's projector on a text-only batch) gets zeros, as jax.grad
-        grads = torch.autograd.grad(losses.sum(), list(views.values()), materialize_grads=True)
-        grads = layout.flatten(dict(zip(views, grads)))
+        grads = list(torch.autograd.grad(losses.sum(), list(views.values()),
+                                         materialize_grads=True))
+        held = [] if steps_k is None else [  # (rows, their parameters, their momentum)
+            (rows, params[rows].clone(), mom[rows].clone() if cfg.momentum else None)
+            for rows in _held_rows(steps_k, t)]
+        owned = t > 0  # from step 1 on params and mom are the phase's own buffers
         if cfg.momentum:
-            new_mom = cfg.momentum * mom + grads
+            # momentum * mom + grads, each leaf's gradient summed into its view
+            # of the product's buffer and released
+            new_mom = mom.mul_(cfg.momentum) if owned else cfg.momentum * mom
+            for i, view in enumerate(layout.views(new_mom).values()):
+                view.add_(grads[i])
+                grads[i] = None
             update = new_mom
         else:
-            new_mom, update = mom, grads
-        new_params = params - cfg.lr * update
-        if cfg.use_affinity_d:
-            new_params = new_params + cfg.eta_d * state.d_bias  # d fixed during the local phase
-        if steps_k is not None:
-            for rows in _held_rows(steps_k, t):  # new_params, new_mom: this step's own buffers
-                new_params[rows] = params[rows]
-                if cfg.momentum:
-                    new_mom[rows] = mom[rows]
+            new_mom, update = mom, layout.flatten(dict(zip(views, grads)))
+        del grads
+        if owned:  # params - lr * update, in place
+            new_params = params.sub_(cfg.lr * update)
+        else:
+            new_params = params - cfg.lr * update
+        if cfg.use_affinity_d:  # d fixed during the local phase; new_params is never an input
+            new_params.add_(cfg.eta_d * state.d_bias)
+        for rows, held_params, held_mom in held:
+            new_params[rows] = held_params
+            if cfg.momentum:
+                new_mom[rows] = held_mom
         params, mom = new_params, new_mom
         step_losses.append(losses.detach())
     b_bias = state.b_bias

@@ -29,9 +29,9 @@ A task provides:
 
 ``mnist_mlp`` is the paper's 2NN, written with the peer axis explicit.
 ``from_model`` makes a task of a registry language model
-(``models.registry.build_model``): its leaves, its init and its per-peer
-loss vmapped over the peers, with no eval head; ``launch.train.run_p2p_lm``
-trains one.
+(``models.registry.build_model``: a decoder, rwkv6 or the hybrid): its
+leaves, its init and its per-peer loss vmapped over the peers, with no eval
+head; ``launch.train.run_p2p_lm`` trains one.
 ``rwkv6_seqmnist`` is RWKV6 run as a recurrent network over the 196-token
 pixel stream of sequential MNIST, classified from the final position
 (``models.registry.build_sequence_classifier`` on
@@ -175,16 +175,29 @@ def _no_eval(*_args):
 
 def from_model(model) -> TrainTask:
     """A task of a registry language model (``models.registry.Model``): its
-    leaves (``transformer.decoder_param_shapes``, nothing drawn), its init,
-    and its per-peer loss on ``(tokens, labels)`` mapped over the peers by
+    leaves (the family's ``*_param_shapes``, nothing drawn), its init, and
+    its per-peer loss on ``(tokens, labels)`` mapped over the peers by
     ``torch.func.vmap``, as the reference vmaps its per-peer loss; no eval
-    head.  The flat buffer takes the model's type.  The dense, MoE and vlm
-    decoders; a bf16 MoE (its router leaf is float32) is refused: one flat
-    buffer holds one type."""
+    head.  The dense, MoE and vlm decoders, rwkv6 and the zamba2 hybrid.
+
+    The flat buffer takes the model's type, and one buffer holds one type.
+    A bf16 rwkv6 or hybrid model's few float32 leaves (each layer's
+    ``decay_base`` and ``bonus_u``, or ``dt_bias``, ``A_log`` and ``D``: one
+    value a channel or a head) are held in bf16 with the rest, and the
+    layers widen them where they compute.  That departs from the reference,
+    which keeps them float32: a bf16 step of ``decay_base`` near -4 or of
+    ``D`` near 1 is larger than most SGD updates at lr 1e-2, so the buffer
+    loses them (``tools/leaf_precision.py`` measures it; a flat buffer of
+    mixed types is ROADMAP.md queue 1 item 18).  A bf16 MoE is refused,
+    since its float32 router is a (d, E) matrix whose rounding to bf16 can
+    change which experts each token takes."""
     from repro_torch.models import transformer as tf
 
     cfg = model.cfg
-    if cfg.family not in ("dense", "moe", "vlm"):
+    shapes_of = {"dense": tf.decoder_param_shapes, "moe": tf.decoder_param_shapes,
+                 "vlm": tf.decoder_param_shapes, "rwkv6": tf.rwkv6_param_shapes,
+                 "hybrid": tf.hybrid_param_shapes}
+    if cfg.family not in shapes_of:
         raise NotImplementedError(
             f"training the {cfg.family!r} family's language model is not ported yet: "
             "ROADMAP.md queue 1 item 18")
@@ -200,7 +213,7 @@ def from_model(model) -> TrainTask:
 
     return TrainTask(
         name=cfg.name,
-        param_shapes=tf.decoder_param_shapes(cfg),
+        param_shapes=shapes_of[cfg.family](cfg),
         init_params=model.init,
         loss_fn=torch.func.vmap(peer_loss, in_dims=(0, (0, 0))),
         apply_fn=_no_eval,

@@ -19,8 +19,6 @@ import subprocess
 import time
 from pathlib import Path
 
-import torch
-
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
 NVCC_FLAGS = (
@@ -44,24 +42,6 @@ class LaunchCounter:
 
     def reset(self) -> None:
         self.count = 0
-
-
-def check_no_grad(kernel: str, *operands) -> None:
-    """Raise where autograd would flow through ``kernel`` on the card.
-
-    ``wkv6`` and ``ssd`` are forward only: their wrappers write into fresh
-    tensors with no ``grad_fn``, so a backward through them would silently
-    leave no gradient on their operands or on anything upstream.  Called by
-    each of those wrappers on its CUDA path; the CPU path takes the plain
-    version, which autograd differentiates.  (``flash_attention`` has a
-    backward kernel and goes through its ``autograd.Function`` instead.)
-    """
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in operands):
-        raise NotImplementedError(
-            f"{kernel} has no backward kernel: autograd through it on a CUDA tensor is not "
-            "ported yet (ROADMAP.md Open questions, \"Backward kernels\"; queue 1 item 18); "
-            "run it under torch.no_grad() or on detached operands"
-        )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -627,7 +627,7 @@ ssd_kernel(const T* __restrict__ x, const T* __restrict__ bm, const T* __restric
            const float* __restrict__ dt, const float* __restrict__ a,
            const float* __restrict__ state_in, float* __restrict__ y,
            float* __restrict__ state_out, int T_len, int H, int G, int Q, int split,
-           int64_t x_sb, int64_t x_st, int64_t b_sb, int64_t b_st, int64_t c_sb,
+           int a_batch, int64_t x_sb, int64_t x_st, int64_t b_sb, int64_t b_st, int64_t c_sb,
            int64_t c_st) {
   using C = Cfg<T, PB, N>;
   constexpr int NS = C::NS;
@@ -643,7 +643,7 @@ ssd_kernel(const T* __restrict__ x, const T* __restrict__ bm, const T* __restric
   const int P = PB * split;
   const int b = bh / H, h = bh - b * H;
   const int grp = h / (H / G);
-  const float a_h = a[h];
+  const float a_h = a[static_cast<int64_t>(b / a_batch) * H + h];
   const T* x_base = x + b * x_sb + static_cast<int64_t>(h) * P + p0;
   const T* b_base = bm + b * b_sb + static_cast<int64_t>(grp) * N;
   const T* c_base = cm + b * c_sb + static_cast<int64_t>(grp) * N;
@@ -731,8 +731,8 @@ ssd_kernel(const T* __restrict__ x, const T* __restrict__ bm, const T* __restric
 template <typename T, int PB, int N>
 cudaError_t launch(const void* x, const void* bm, const void* cm, const float* dt,
                    const float* a, const float* state_in, float* y, float* state_out, int B,
-                   int T_len, int H, int G, int Q, int split, const int64_t* strides,
-                   cudaStream_t stream) {
+                   int T_len, int H, int G, int Q, int split, int a_batch,
+                   const int64_t* strides, cudaStream_t stream) {
   constexpr int smem = Cfg<T, PB, N>::kBytes;
   auto kernel = ssd_kernel<T, PB, N>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -743,8 +743,8 @@ cudaError_t launch(const void* x, const void* bm, const void* cm, const float* d
   if (err != cudaSuccess) return err;
   kernel<<<B * H * split, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(bm), static_cast<const T*>(cm), dt, a,
-      state_in, y, state_out, T_len, H, G, Q, split, strides[0], strides[1], strides[2],
-      strides[3], strides[4], strides[5]);
+      state_in, y, state_out, T_len, H, G, Q, split, a_batch, strides[0], strides[1],
+      strides[2], strides[3], strides[4], strides[5]);
   return cudaGetLastError();
 }
 
@@ -753,21 +753,21 @@ template <typename T, int P, int N>
 cudaError_t launch_split(int split, const void* x, const void* bm, const void* cm,
                          const float* dt, const float* a, const float* state_in, float* y,
                          float* state_out, int B, int T_len, int H, int G, int Q,
-                         const int64_t* strides, cudaStream_t stream) {
+                         int a_batch, const int64_t* strides, cudaStream_t stream) {
   if constexpr (kTakes<T, P, P>) {
     if (split == 1)
       return launch<T, P, N>(x, bm, cm, dt, a, state_in, y, state_out, B, T_len, H, G, Q, 1,
-                             strides, stream);
+                             a_batch, strides, stream);
   }
   if constexpr (kTakes<T, P / 2, P>) {
     if (split == 2)
       return launch<T, P / 2, N>(x, bm, cm, dt, a, state_in, y, state_out, B, T_len, H, G, Q,
-                                 2, strides, stream);
+                                 2, a_batch, strides, stream);
   }
   if constexpr (kTakes<T, P / 4, P>) {
     if (split == 4)
       return launch<T, P / 4, N>(x, bm, cm, dt, a, state_in, y, state_out, B, T_len, H, G, Q,
-                                 4, strides, stream);
+                                 4, a_batch, strides, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -776,13 +776,13 @@ template <int P, int N>
 cudaError_t launch_typed(int dtype, int split, const void* x, const void* bm, const void* cm,
                          const float* dt, const float* a, const float* state_in, float* y,
                          float* state_out, int B, int T_len, int H, int G, int Q,
-                         const int64_t* strides, cudaStream_t stream) {
+                         int a_batch, const int64_t* strides, cudaStream_t stream) {
   if (dtype == 0)
     return launch_split<float, P, N>(split, x, bm, cm, dt, a, state_in, y, state_out, B, T_len,
-                                     H, G, Q, strides, stream);
+                                     H, G, Q, a_batch, strides, stream);
   if (dtype == 1)
     return launch_split<__nv_bfloat16, P, N>(split, x, bm, cm, dt, a, state_in, y, state_out,
-                                             B, T_len, H, G, Q, strides, stream);
+                                             B, T_len, H, G, Q, a_batch, strides, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -811,15 +811,19 @@ extern "C" int ssd_route(int64_t dtype) { return dtype == 0 ? 3 : dtype == 1 ? 2
 // (dtype 1), each token's (H, P) / (G, N) block contiguous, read through the
 // (batch, token) element strides x_sb, x_st, b_sb, b_st, c_sb, c_st given in
 // `strides`, 16-byte aligned (pointers and strides in bytes); dt (B, T, H)
-// and a (H,) float32, contiguous; state_in (B, H, P, N) float32 or null
-// (zero state); y (B, T, H, P) and state_out (B, H, P, N) float32,
+// float32, contiguous; a (B / a_batch, H) float32, batch element b reading
+// row b / a_batch (a_batch = B: one a for the batch; a vmapped call folds its
+// peers into the batch, each peer's a a row); state_in (B, H, P, N) float32
+// or null (zero state); y (B, T, H, P) and state_out (B, H, P, N) float32,
 // contiguous.  Q = chunk length, 1 <= Q <= 64; G divides H.  Launches on
 // `stream` and returns the launch's cudaError_t (0 on success).
 extern "C" int ssd_fwd(const void* x, const void* bm, const void* cm, const float* dt,
                        const float* a, const float* state_in, float* y, float* state_out,
                        int64_t dtype, int64_t B, int64_t T, int64_t H, int64_t G, int64_t P,
-                       int64_t N, int64_t Q, const int64_t* strides, void* stream) {
+                       int64_t N, int64_t Q, int64_t a_batch, const int64_t* strides,
+                       void* stream) {
   if (B < 1 || T < 1 || H < 1 || G < 1 || H % G != 0 || Q < 1 || Q > kMaxChunk ||
+      a_batch < 1 || B % a_batch != 0 ||
       B * H * 4 > 0x7fffffff || T > 0x7fffffff || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t es = dtype == 1 ? 2 : 4;
@@ -836,20 +840,21 @@ extern "C" int ssd_fwd(const void* x, const void* bm, const void* cm, const floa
   const int split = ssd_split(B * H, P, dtype, sms);
   auto s = static_cast<cudaStream_t>(stream);
   const int b = static_cast<int>(B), t = static_cast<int>(T), h = static_cast<int>(H),
-            g = static_cast<int>(G), q = static_cast<int>(Q), d = static_cast<int>(dtype);
+            g = static_cast<int>(G), q = static_cast<int>(Q), d = static_cast<int>(dtype),
+            ab = static_cast<int>(a_batch);
   switch (P * 1000 + N) {
     case 64064:
       return static_cast<int>(launch_typed<64, 64>(d, split, x, bm, cm, dt, a, state_in, y,
-                                                   state_out, b, t, h, g, q, strides, s));
+                                                   state_out, b, t, h, g, q, ab, strides, s));
     case 64032:
       return static_cast<int>(launch_typed<64, 32>(d, split, x, bm, cm, dt, a, state_in, y,
-                                                   state_out, b, t, h, g, q, strides, s));
+                                                   state_out, b, t, h, g, q, ab, strides, s));
     case 32016:
       return static_cast<int>(launch_typed<32, 16>(d, split, x, bm, cm, dt, a, state_in, y,
-                                                   state_out, b, t, h, g, q, strides, s));
+                                                   state_out, b, t, h, g, q, ab, strides, s));
     case 16008:
       return static_cast<int>(launch_typed<16, 8>(d, split, x, bm, cm, dt, a, state_in, y,
-                                                  state_out, b, t, h, g, q, strides, s));
+                                                  state_out, b, t, h, g, q, ab, strides, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -21,9 +21,21 @@ Dispatch is by the device of the operands, and only by it:
   fallback;
 - any other device raises.
 
-The kernel is forward only: on a CUDA tensor, with autograd on, an operand
-that requires grad raises ``NotImplementedError`` (``build.check_no_grad``)
-rather than cut the graph; the CPU path differentiates as usual.
+Every call goes through ``SSD``, a ``torch.autograd.Function``: its backward
+launches the backward kernel (``csrc/ssd_bwd.cu``: a forward pass over the
+tokens rebuilding the states for dC and saving one at each 16-token chunk's
+end, a reverse pass carrying dS for dx, dB, the state's gradient and the
+log-decays' running sum, restarted at each saved state; then dB and dC
+summed over each group's heads and da over the batch by three small
+kernels; no atomics; no state saved by the forward) on CUDA tensors and the plain
+backward (``ref.ssd_bwd_ref``, the same recurrence) on CPU tensors, with no
+fallback between the two.  Its ``vmap`` rule folds the vmapped axis (the
+port's stacked peers) into the batch axis, a free reshape of the model's
+(K, B, T, ...) operands that leaves each head's group as it is, and hands
+the kernels each peer's a as a row of a (K, H) a that batch element b reads
+at b // B: one launch each way serves every peer.  (Folding the peers into
+the head axis instead would take a transposed copy of every operand, and
+head k H + h would read group k G + h // (H / G).)
 
 x, B and C are float32 or bfloat16 (one type; bf16 is widened in the
 kernel, so it computes what the reference's float32 cast computes); dt and
@@ -37,7 +49,9 @@ P = N = 64, G 1, chunk 64, bf16 x, B and C as served, one call from a zero
 state moves 133 MB (0.040 ms at 3.35 TB/s) and does 14.8 GFLOP of TF32
 passes (0.030 ms at 495 TFLOP/s dense TF32): it is bound by bytes.
 
-``launches.count`` counts kernel launches (never plain-version calls).
+``launches.count`` counts forward launches and ``bwd_launches.count``
+backward launches (one a backward call, its four kernels together), never
+plain-version calls.
 """
 from __future__ import annotations
 
@@ -52,6 +66,7 @@ from repro_torch.kernels.build import LaunchCounter
 from repro_torch.kernels.mamba2 import ref
 
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "ssd.cu"]
+BWD_SOURCES = [Path(__file__).resolve().parent / "csrc" / "ssd_bwd.cu"]
 # the (P, N) the kernel is instantiated for: zamba2's, the reduced config's
 # and tests/test_kernels.py:test_ssd_sweep's
 SHAPES = ((64, 64), (64, 32), (32, 16), (16, 8))
@@ -68,6 +83,7 @@ SLICES = {torch.bfloat16: (16, 64), torch.float32: (32, 32)}
 ROUTES = {2: "tf32x2", 3: "tf32x3"}
 
 launches = LaunchCounter()
+bwd_launches = LaunchCounter()
 
 
 @functools.cache
@@ -76,12 +92,24 @@ def load_kernel() -> build.KernelLibrary:
     kl = build.load_library("ssd", SOURCES)
     fn = kl.lib.ssd_fwd
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    fn.argtypes = [ptr] * 8 + [i64] * 8 + [ctypes.POINTER(i64), ptr]
+    fn.argtypes = [ptr] * 8 + [i64] * 9 + [ctypes.POINTER(i64), ptr]
     fn.restype = ctypes.c_int
     kl.lib.ssd_split.argtypes = [i64] * 4
     kl.lib.ssd_split.restype = ctypes.c_int
     kl.lib.ssd_route.argtypes = [i64]
     kl.lib.ssd_route.restype = ctypes.c_int
+    return kl
+
+
+@functools.cache
+def load_bwd_kernel() -> build.KernelLibrary:
+    """Build (first call) and load the backward kernel library; declares its
+    C signature."""
+    kl = build.load_library("ssd_bwd", BWD_SOURCES)
+    fn = kl.lib.ssd_bwd
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    fn.argtypes = [ptr] * 18 + [i64] * 8 + [ctypes.POINTER(i64), ptr]
+    fn.restype = ctypes.c_int
     return kl
 
 
@@ -156,12 +184,19 @@ def _kernel_operand(m: torch.Tensor) -> torch.Tensor:
     return m if inner and aligned else m.contiguous()
 
 
+def a_batch(a: torch.Tensor, bs: int) -> int:
+    """The batch elements that share a row of ``a``: (H,) is one row for all
+    ``bs``; (G_a, H) one row for each b // (B // G_a)."""
+    return bs if a.dim() == 1 else bs // a.shape[0]
+
+
 def launch(x, b, c, dt, a, state, q: int, y, state_out) -> None:
     """Launch the kernel on the current stream into ``y`` / ``state_out``.
 
     No checks: callers pass CUDA operands that ``check_inputs`` validated,
-    x, b and c as ``_kernel_operand`` leaves them, contiguous dt, a, state
-    and outputs.  Counts the launch and raises if CUDA refused it.
+    x, b and c as ``_kernel_operand`` leaves them, contiguous dt, a ((H,) or
+    (G_a, H), ``a_batch``), state and outputs.  Counts the launch and raises
+    if CUDA refused it.
     """
     fn = load_kernel().lib.ssd_fwd
     bs, t, h, p = x.shape
@@ -170,12 +205,133 @@ def launch(x, b, c, dt, a, state, q: int, y, state_out) -> None:
     err = fn(
         x.data_ptr(), b.data_ptr(), c.data_ptr(), dt.data_ptr(), a.data_ptr(),
         None if state is None else state.data_ptr(), y.data_ptr(), state_out.data_ptr(),
-        DTYPE_CODES[x.dtype], bs, t, h, g, p, n, q, strides,
+        DTYPE_CODES[x.dtype], bs, t, h, g, p, n, q, a_batch(a, bs), strides,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"ssd launch failed with cudaError_t {err}")
     launches.count += 1
+
+
+def bwd_scratch(bs: int, t: int, h: int, p: int, n: int, device) -> tuple[torch.Tensor, ...]:
+    """The backward's float32 scratch: the per-head dB and dC (B, T, H, N),
+    the partial da (B, H), and the state at the end of every chunk of
+    ``ref.BWD_CHUNK`` tokens but the last (at least one element)."""
+    ends = (t + ref.BWD_CHUNK - 1) // ref.BWD_CHUNK - 1
+    return (torch.empty((bs, t, h, n), dtype=torch.float32, device=device),
+            torch.empty((bs, t, h, n), dtype=torch.float32, device=device),
+            torch.empty((bs, h), dtype=torch.float32, device=device),
+            torch.empty(max(bs * h * ends * p * n, 1), dtype=torch.float32, device=device))
+
+
+def launch_bwd(x, b, c, dt, a, state, dy, dstate, dx, db, dc, ddt, da, scratch,
+               dstate_in) -> None:
+    """Launch the backward kernels on the current stream: ``dx`` in x's
+    type, ``db`` and ``dc`` (B, T, G, N) in b's type, ``ddt`` (B, T, H) and
+    ``da`` (a's shape) float32 and, given one, ``dstate_in`` (B, H, P, N)
+    float32; ``scratch`` is ``bwd_scratch``'s.
+
+    No checks: callers pass CUDA operands that ``check_inputs`` validated,
+    x, b and c as ``_kernel_operand`` leaves them, the rest float32 and
+    contiguous; ``state`` and ``dstate`` (the final state's gradient) may be
+    None (zeros).  Counts one backward launch and raises if CUDA refused one.
+    """
+    fn = load_bwd_kernel().lib.ssd_bwd
+    bs, t, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    strides = (ctypes.c_int64 * 6)(*(st for m in (x, b, c) for st in m.stride()[:2]))
+    opt = lambda m: None if m is None else m.data_ptr()  # noqa: E731
+    err = fn(
+        x.data_ptr(), b.data_ptr(), c.data_ptr(), dt.data_ptr(), a.data_ptr(), opt(state),
+        dy.data_ptr(), opt(dstate), dx.data_ptr(), db.data_ptr(), dc.data_ptr(), ddt.data_ptr(),
+        da.data_ptr(), *(m.data_ptr() for m in scratch), opt(dstate_in),
+        DTYPE_CODES[x.dtype], bs, t, h, g, p, n, a_batch(a, bs), strides,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"ssd backward launch failed with cudaError_t {err}")
+    bwd_launches.count += 1
+
+
+def _forward(x, b, c, dt, a, state, q: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(y, final state), both float32, by the device of the operands: the
+    plain version on the CPU, the kernel on CUDA."""
+    if x.device.type == "cpu":
+        return ref.ssd_chunked_ref(x, b, c, dt, a, state=state, chunk=q)
+    y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    final = torch.empty((x.shape[0], x.shape[2], x.shape[3], b.shape[3]), dtype=torch.float32,
+                        device=x.device)
+    launch(*(_kernel_operand(m) for m in (x, b, c)), dt.contiguous(), a.contiguous(),
+           None if state is None else state.contiguous(), q, y, final)
+    return y, final
+
+
+def ssd_bwd(x, b, c, dt, a, state, dy, dstate, *, need_dstate: bool = True):
+    """(dx, db, dc, ddt, da, dstate) by the device of the operands, each in
+    its operand's type (dstate float32, None without ``need_dstate``): the
+    plain backward (``ref.ssd_bwd_ref``) on the CPU, the backward kernel on
+    CUDA.  ``state`` and ``dstate`` may be None (zeros)."""
+    if x.device.type == "cpu":
+        grads = ref.ssd_bwd_ref(x, b, c, dt, a, state, dy, dstate)
+    else:
+        xk, bk, ck = (_kernel_operand(m) for m in (x, b, c))
+        dtk, ak, dyk = (m.to(torch.float32).contiguous() for m in (dt, a, dy))
+        state, dstate = (None if m is None else m.contiguous() for m in (state, dstate))
+        bs, t, h, p = x.shape
+        g, n = b.shape[2], b.shape[3]
+        dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+        db, dc = (torch.empty(b.shape, dtype=b.dtype, device=x.device) for _ in range(2))
+        ddt = torch.empty(dt.shape, dtype=torch.float32, device=x.device)
+        da = torch.empty(a.shape, dtype=torch.float32, device=x.device)
+        scratch = bwd_scratch(bs, t, h, p, n, x.device)
+        dstate_in = (torch.empty((bs, h, p, n), dtype=torch.float32, device=x.device)
+                     if need_dstate else None)
+        launch_bwd(xk, bk, ck, dtk, ak, state, dyk, dstate, dx, db, dc, ddt, da, scratch,
+                   dstate_in)
+        grads = (dx, db, dc, ddt, da, dstate_in)
+    dstate_in = grads[5] if need_dstate else None
+    return (*(gr.to(m.dtype) for gr, m in zip(grads[:5], (x, b, c, dt, a))), dstate_in)
+
+
+class SSD(torch.autograd.Function):
+    """``ssd`` under autograd: (y, final state) from (x, b, c, dt, a,
+    state); a (H,) or (G_a, H) (``a_batch``).  ``vmap`` folds the vmapped
+    axis into the batch axis, so a vmapped call is one launch each way."""
+
+    @staticmethod
+    def forward(x, b, c, dt, a, state, q):
+        return _forward(x, b, c, dt, a, state, q)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, b, c, dt, a, state, _ = inputs
+        ctx.save_for_backward(x, b, c, dt, a, state)
+        ctx.set_materialize_grads(False)
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, b, c, dt, a, state = ctx.saved_tensors
+        if dy is None:  # only the final state reached the loss
+            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        *grads, dstate = ssd_bwd(x, b, c, dt, a, state, dy, dfinal,
+                                 need_dstate=ctx.needs_input_grad[5])
+        return (*grads, dstate, None)
+
+    @staticmethod
+    def vmap(info, in_dims, x, b, c, dt, a, state, q):
+        n = info.batch_size
+
+        def fold(m, dim):
+            m = m.expand(n, *m.shape) if dim is None else m.movedim(dim, 0)
+            return m.reshape(n * m.shape[1], *m.shape[2:])
+
+        xf, bf, cf, dtf = (fold(m, d) for m, d in zip((x, b, c, dt), in_dims[:4]))
+        # one row of a for each peer (and each of its rows, where a has them)
+        af = a.expand(n, *a.shape) if in_dims[4] is None else a.movedim(in_dims[4], 0)
+        af = af.reshape(-1, af.shape[-1])
+        sf = None if state is None else fold(state, in_dims[5])
+        y, final = SSD.apply(xf, bf, cf, dtf, af, sf, q)
+        return (y.view(n, -1, *y.shape[1:]), final.view(n, -1, *final.shape[1:])), (0, 0)
 
 
 def ssd(
@@ -189,16 +345,8 @@ def ssd(
     chunk: int = 64,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The chunked SSD: returns (y (B, T, H, P), final state (B, H, P, N)),
-    both float32."""
+    both float32.  Differentiable in every operand (``SSD``)."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"ssd runs on cpu or cuda tensors, got {x.device}")
     q = check_inputs(x, b, c, dt, a, state, chunk)
-    if x.device.type == "cpu":
-        return ref.ssd_chunked_ref(x, b, c, dt, a, state=state, chunk=q)
-    build.check_no_grad("ssd", x, b, c, dt, a, state)
-    y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    final = torch.empty((x.shape[0], x.shape[2], x.shape[3], b.shape[3]), dtype=torch.float32,
-                        device=x.device)
-    launch(*(_kernel_operand(m) for m in (x, b, c)), dt.contiguous(), a.contiguous(),
-           None if state is None else state.contiguous(), q, y, final)
-    return y, final
+    return SSD.apply(x, b, c, dt, a, state, q)

@@ -225,7 +225,7 @@ __global__ void __launch_bounds__(NT, NT >= 512 ? 1 : 2)
 wkv6_kernel(const TI* __restrict__ r, const TI* __restrict__ k, const TI* __restrict__ v,
             const float* __restrict__ ld, const float* __restrict__ u,
             const float* __restrict__ state_in, TI* __restrict__ out,
-            float* __restrict__ state_out, int T, int H, int q) {
+            float* __restrict__ state_out, int T, int H, int q, int u_batch) {
   constexpr int kThreads = NT;
   const int Q = QC > 0 ? QC : q;
   constexpr int CW = columns_of(DK);         // columns of S a thread holds
@@ -271,7 +271,7 @@ wkv6_kernel(const TI* __restrict__ r, const TI* __restrict__ k, const TI* __rest
       S[m][c] = state_in != nullptr
                     ? state_in[state_off + static_cast<int64_t>(row0 + m) * DK + col0 + c]
                     : 0.0f;
-  if (tid < DK) s_u[tid] = u[h * DK + tid];
+  if (tid < DK) s_u[tid] = u[(static_cast<int64_t>(b / u_batch) * H + h) * DK + tid];
   for (int a = tid; a < t2; a += kThreads) {
     s_tiles[a] = static_cast<uint16_t>(a << 8 | a);
     for (int c = 0; c < a; ++c)
@@ -503,7 +503,7 @@ wkv6_kernel(const TI* __restrict__ r, const TI* __restrict__ k, const TI* __rest
 template <typename TI, int DK, int QC, int NT>
 cudaError_t launch(const void* r, const void* k, const void* v, const float* ld, const float* u,
                    const float* state_in, void* out, float* state_out, int B, int T, int H, int Q,
-                   cudaStream_t stream) {
+                   int u_batch, cudaStream_t stream) {
   auto kernel = wkv6_kernel<TI, DK, QC, NT>;
   const int smem = layout<TI, DK>(Q, NT).total;
   // all of the SM's shared memory for CTAs: two fit at the serving prefill's
@@ -516,7 +516,7 @@ cudaError_t launch(const void* r, const void* k, const void* v, const float* ld,
   if (err != cudaSuccess) return err;
   kernel<<<B * H, NT, smem, stream>>>(static_cast<const TI*>(r), static_cast<const TI*>(k),
                                       static_cast<const TI*>(v), ld, u, state_in,
-                                      static_cast<TI*>(out), state_out, T, H, Q);
+                                      static_cast<TI*>(out), state_out, T, H, Q, u_batch);
   return cudaGetLastError();
 }
 
@@ -529,40 +529,45 @@ cudaError_t launch(const void* r, const void* k, const void* v, const float* ld,
 template <typename TI>
 cudaError_t dispatch(int64_t dk, const void* r, const void* k, const void* v, const float* ld,
                      const float* u, const float* state_in, void* out, float* state_out, int B,
-                     int T, int H, int Q, cudaStream_t s) {
+                     int T, int H, int Q, int ub, cudaStream_t s) {
   switch (dk) {
     case 16:
-      return launch<TI, 16, 0, 64>(r, k, v, ld, u, state_in, out, state_out, B, T, H, Q, s);
+      return launch<TI, 16, 0, 64>(r, k, v, ld, u, state_in, out, state_out, B, T, H, Q, ub, s);
     case 32:
-      return launch<TI, 32, 0, 128>(r, k, v, ld, u, state_in, out, state_out, B, T, H, Q, s);
+      return launch<TI, 32, 0, 128>(r, k, v, ld, u, state_in, out, state_out, B, T, H, Q, ub,
+                                    s);
     case 64: break;
     default: return cudaErrorInvalidValue;
   }
   if (Q != 16)
-    return launch<TI, 64, 0, 256>(r, k, v, ld, u, state_in, out, state_out, B, T, H, Q, s);
+    return launch<TI, 64, 0, 256>(r, k, v, ld, u, state_in, out, state_out, B, T, H, Q, ub, s);
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   return static_cast<int64_t>(B) * H <= sms
-             ? launch<TI, 64, 16, 512>(r, k, v, ld, u, state_in, out, state_out, B, T, H, Q, s)
-             : launch<TI, 64, 16, 256>(r, k, v, ld, u, state_in, out, state_out, B, T, H, Q, s);
+             ? launch<TI, 64, 16, 512>(r, k, v, ld, u, state_in, out, state_out, B, T, H, Q, ub,
+                                       s)
+             : launch<TI, 64, 16, 256>(r, k, v, ld, u, state_in, out, state_out, B, T, H, Q, ub,
+                                       s);
 }
 
 }  // namespace
 
 // r, k, v, out: (B, T, H, DK) contiguous and 16-byte aligned, float32
 // (bf16 == 0) or bf16 (bf16 != 0); ld: (B, T, H, DK) float32, 16-byte aligned;
-// u: (H, DK) float32; state_in: (B, H, DK, DK) float32 or null (zero state);
+// u: (B / u_batch, H, DK) float32, batch element b reading row b / u_batch
+// (u_batch = B: one u for the batch; a vmapped call folds its peers into the
+// batch, each peer's u a row); state_in: (B, H, DK, DK) float32 or null (zero state);
 // state_out: (B, H, DK, DK) float32.  DK in {16, 32, 64}; Q = chunk length,
 // 1 <= Q <= 64.  Launches on `stream` and returns the launch's cudaError_t
 // (0 on success, cudaErrorInvalidValue for arguments it refuses).
 extern "C" int wkv6_fwd(const void* r, const void* k, const void* v, const float* ld,
                         const float* u, const float* state_in, void* out, float* state_out,
-                        int64_t B, int64_t T, int64_t H, int64_t DK, int64_t Q, int bf16,
-                        void* stream) {
+                        int64_t B, int64_t T, int64_t H, int64_t DK, int64_t Q,
+                        int64_t u_batch, int bf16, void* stream) {
   if (B < 1 || T < 1 || H < 1 || Q < 1 || Q > kMaxChunk || B * H > 0x7fffffff ||
-      T > 0x7fffffff)
+      T > 0x7fffffff || u_batch < 1 || B % u_batch != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const uintptr_t any = reinterpret_cast<uintptr_t>(r) | reinterpret_cast<uintptr_t>(k) |
                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(ld) |
@@ -570,9 +575,10 @@ extern "C" int wkv6_fwd(const void* r, const void* k, const void* v, const float
   if (any % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   const int b = static_cast<int>(B), t = static_cast<int>(T), h = static_cast<int>(H),
-            q = static_cast<int>(Q);
+            q = static_cast<int>(Q), ub = static_cast<int>(u_batch);
   const cudaError_t err =
-      bf16 ? dispatch<__nv_bfloat16>(DK, r, k, v, ld, u, state_in, out, state_out, b, t, h, q, s)
-           : dispatch<float>(DK, r, k, v, ld, u, state_in, out, state_out, b, t, h, q, s);
+      bf16 ? dispatch<__nv_bfloat16>(DK, r, k, v, ld, u, state_in, out, state_out, b, t, h, q,
+                                     ub, s)
+           : dispatch<float>(DK, r, k, v, ld, u, state_in, out, state_out, b, t, h, q, ub, s);
   return static_cast<int>(err);
 }

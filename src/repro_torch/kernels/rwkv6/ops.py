@@ -17,9 +17,18 @@ Dispatch is by the device of the operands, and only by it:
   fallback;
 - any other device raises.
 
-The kernel is forward only: on a CUDA tensor, with autograd on, an operand
-that requires grad raises ``NotImplementedError`` (``build.check_no_grad``)
-rather than cut the graph; the CPU path differentiates as usual.
+Every call goes through ``WKV6``, a ``torch.autograd.Function``: its
+backward launches the backward kernel (``csrc/wkv6_bwd.cu``: a forward pass
+over the tokens for dr, a reverse pass carrying dS for dk, dv, the log-decays'
+running sum and the state's gradient, then du summed over the batch by a
+second kernel; no atomics) on CUDA tensors and the plain backward
+(``ref.wkv6_bwd_ref``, the same recurrence) on CPU tensors, with no
+fallback between the two.  Its ``vmap`` rule folds the vmapped axis (the
+port's stacked peers) into the batch axis, a free reshape of the model's
+(K, B, T, H, dk) operands, and hands the kernels each peer's u as a row of a
+(K, H, dk) u that batch element b reads at b // B: one launch each way
+serves every peer.  (Folding the peers into the head axis instead would
+take a transposed copy of every operand and gradient.)
 
 The kernel reads r, k and v in the type they come in (bf16 as the served
 model computes them, or float32) and writes the output in r's type, rounded
@@ -34,7 +43,9 @@ H = 64, dk = 64 one call from a zero state moves 340 MB (0.10 ms at
 bound by bytes; with bf16 r, k, v and output it moves about 205 MB and is
 bound by operations.
 
-``launches.count`` counts kernel launches (never plain-version calls).
+``launches.count`` counts forward launches and ``bwd_launches.count``
+backward launches (one a backward call, its two kernels together), never
+plain-version calls.
 """
 from __future__ import annotations
 
@@ -49,11 +60,13 @@ from repro_torch.kernels.build import LaunchCounter
 from repro_torch.kernels.rwkv6 import ref
 
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "wkv6.cu"]
+BWD_SOURCES = [Path(__file__).resolve().parent / "csrc" / "wkv6_bwd.cu"]
 HEAD_DIMS = (16, 32, 64)  # the head widths the kernel is instantiated for
 MAX_CHUNK = 64  # kMaxChunk in the CUDA source
 INPUT_TYPES = (torch.float32, torch.bfloat16)
 
 launches = LaunchCounter()
+bwd_launches = LaunchCounter()
 
 
 @functools.cache
@@ -62,7 +75,19 @@ def load_kernel() -> build.KernelLibrary:
     kl = build.load_library("wkv6", SOURCES)
     fn = kl.lib.wkv6_fwd
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    fn.argtypes = [ptr] * 8 + [i64] * 5 + [ctypes.c_int, ptr]
+    fn.argtypes = [ptr] * 8 + [i64] * 6 + [ctypes.c_int, ptr]
+    fn.restype = ctypes.c_int
+    return kl
+
+
+@functools.cache
+def load_bwd_kernel() -> build.KernelLibrary:
+    """Build (first call) and load the backward kernel library; declares its
+    C signature."""
+    kl = build.load_library("wkv6_bwd", BWD_SOURCES)
+    fn = kl.lib.wkv6_bwd
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    fn.argtypes = [ptr] * 15 + [i64] * 5 + [ctypes.c_int, ptr]
     fn.restype = ctypes.c_int
     return kl
 
@@ -106,24 +131,153 @@ def kernel_operand(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.clone() if x.data_ptr() % 16 else x
 
 
+def u_batch(u: torch.Tensor, b: int) -> int:
+    """The batch elements that share a row of ``u``: (H, dk) is one row for
+    all ``b``; (G, H, dk) one row for each b // (B // G)."""
+    return b if u.dim() == 2 else b // u.shape[0]
+
+
 def launch(r, k, v, logdecay, u, state, q: int, out, state_out) -> None:
     """Launch the kernel on the current stream into ``out`` / ``state_out``.
 
     No checks: callers pass what ``kernel_operand`` gives for tensors that
     ``check_inputs`` validated: r, k, v and out of one type (float32 or
-    bf16), the rest float32.  Counts the launch and raises if CUDA refused it.
+    bf16), the rest float32; u (H, dk) or (G, H, dk) (``u_batch``).  Counts
+    the launch and raises if CUDA refused it.
     """
     fn = load_kernel().lib.wkv6_fwd
     b, t, h, dk = r.shape
     err = fn(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logdecay.data_ptr(), u.data_ptr(),
         None if state is None else state.data_ptr(), out.data_ptr(), state_out.data_ptr(),
-        b, t, h, dk, q, int(r.dtype == torch.bfloat16),
+        b, t, h, dk, q, u_batch(u, b), int(r.dtype == torch.bfloat16),
         torch.cuda.current_stream(r.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"wkv6 launch failed with cudaError_t {err}")
     launches.count += 1
+
+
+def launch_bwd(r, k, v, logdecay, u, state, dout, dstate, dr, dk, dv, dld, du, du_part,
+               dstate_in) -> None:
+    """Launch the backward kernels on the current stream: ``dr``, ``dk``,
+    ``dv`` in r's type, ``dld`` float32 (B, T, H, dk), ``du`` float32 of u's
+    shape (through the float32 scratch ``du_part`` (B, H, dk)) and, given
+    one, ``dstate_in`` (B, H, dk, dk) float32.
+
+    No checks: callers pass what ``kernel_operand`` gives for operands that
+    ``check_inputs`` validated: r, k, v, dout and the three outputs of one
+    type, the rest float32 and contiguous; ``state`` and ``dstate`` (the
+    final state's gradient) may be None (zeros).  Counts one backward launch
+    and raises if CUDA refused one.
+    """
+    fn = load_bwd_kernel().lib.wkv6_bwd
+    b, t, h, dk_ = r.shape
+    opt = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    err = fn(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), logdecay.data_ptr(), u.data_ptr(), opt(state),
+        dout.data_ptr(), opt(dstate), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        dld.data_ptr(), du.data_ptr(), du_part.data_ptr(), opt(dstate_in),
+        b, t, h, dk_, u_batch(u, b), int(r.dtype == torch.bfloat16),
+        torch.cuda.current_stream(r.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"wkv6 backward launch failed with cudaError_t {err}")
+    bwd_launches.count += 1
+
+
+def _rkv_dtype(r, k, v) -> torch.dtype:
+    """The type the kernels read r, k and v in: theirs when they share one."""
+    return r.dtype if r.dtype == k.dtype == v.dtype else torch.float32
+
+
+def _forward(r, k, v, logdecay, u, state, q: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(out in r's type, final state) by the device of the operands: the
+    plain version on the CPU, the kernel on CUDA."""
+    if r.device.type == "cpu":
+        out, final = ref.wkv6_chunked_ref(r, k, v, logdecay, u, state, chunk=q)
+        return out.to(r.dtype), final
+    # r, k and v as they come when they share a type; the output in r's
+    # type (the kernel rounds it to bf16 itself)
+    rkv_dtype = _rkv_dtype(r, k, v)
+    rk, kk, vk = (kernel_operand(x, rkv_dtype) for x in (r, k, v))
+    lk, uk = (kernel_operand(x, torch.float32) for x in (logdecay, u))
+    state = None if state is None else state.contiguous()
+    out = torch.empty(r.shape, dtype=rkv_dtype, device=r.device)
+    final = torch.empty((r.shape[0], r.shape[2], r.shape[3], r.shape[3]), dtype=torch.float32,
+                        device=r.device)
+    launch(rk, kk, vk, lk, uk, state, q, out, final)
+    return out.to(r.dtype), final
+
+
+def wkv6_bwd(r, k, v, logdecay, u, state, dout, dstate, *, need_dstate: bool = True):
+    """(dr, dk, dv, dlogdecay, du, dstate) by the device of the operands,
+    each in its operand's type (dstate float32, None without
+    ``need_dstate``): the plain backward (``ref.wkv6_bwd_ref``) on the CPU,
+    the backward kernel on CUDA.  ``state`` and ``dstate`` may be None
+    (zeros)."""
+    if r.device.type == "cpu":
+        grads = ref.wkv6_bwd_ref(r, k, v, logdecay, u, state, dout, dstate)
+    else:
+        rkv_dtype = _rkv_dtype(r, k, v)
+        rk, kk, vk, dk_out = (kernel_operand(x, rkv_dtype) for x in (r, k, v, dout))
+        lk, uk = (kernel_operand(x, torch.float32) for x in (logdecay, u))
+        state, dstate = (None if x is None else x.contiguous() for x in (state, dstate))
+        b, t, h, dk = r.shape
+        dr, dk_, dv = (torch.empty(r.shape, dtype=rkv_dtype, device=r.device) for _ in range(3))
+        dld = torch.empty(r.shape, dtype=torch.float32, device=r.device)
+        du = torch.empty(uk.shape, dtype=torch.float32, device=r.device)
+        du_part = torch.empty((b, h, dk), dtype=torch.float32, device=r.device)
+        dstate_in = (torch.empty((b, h, dk, dk), dtype=torch.float32, device=r.device)
+                     if need_dstate else None)
+        launch_bwd(rk, kk, vk, lk, uk, state, dk_out, dstate, dr, dk_, dv, dld, du, du_part,
+                   dstate_in)
+        grads = (dr, dk_, dv, dld, du, dstate_in)
+    dstate_in = grads[5] if need_dstate else None
+    return (*(g.to(x.dtype) for g, x in zip(grads[:5], (r, k, v, logdecay, u))), dstate_in)
+
+
+class WKV6(torch.autograd.Function):
+    """``wkv6`` under autograd: (out, final state) from (r, k, v, logdecay,
+    u, state); u (H, dk) or (G, H, dk) (``u_batch``).  ``vmap`` folds the
+    vmapped axis into the batch axis, so a vmapped call is one launch each
+    way."""
+
+    @staticmethod
+    def forward(r, k, v, logdecay, u, state, q):
+        return _forward(r, k, v, logdecay, u, state, q)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        r, k, v, logdecay, u, state, _ = inputs
+        ctx.save_for_backward(r, k, v, logdecay, u, state)
+        ctx.set_materialize_grads(False)
+
+    @staticmethod
+    def backward(ctx, dout, dfinal):
+        r, k, v, logdecay, u, state = ctx.saved_tensors
+        if dout is None:  # only the final state reached the loss
+            dout = torch.zeros_like(r)
+        *grads, dstate = wkv6_bwd(r, k, v, logdecay, u, state, dout, dfinal,
+                                  need_dstate=ctx.needs_input_grad[5])
+        return (*grads, dstate, None)
+
+    @staticmethod
+    def vmap(info, in_dims, r, k, v, logdecay, u, state, q):
+        n = info.batch_size
+
+        def fold(x, dim):
+            x = x.expand(n, *x.shape) if dim is None else x.movedim(dim, 0)
+            return x.reshape(n * x.shape[1], *x.shape[2:])
+
+        rf, kf, vf, lf = (fold(x, d) for x, d in zip((r, k, v, logdecay), in_dims[:4]))
+        # one row of u for each peer (and each of its rows, where u has them)
+        u_dim = in_dims[4]
+        uf = u.expand(n, *u.shape) if u_dim is None else u.movedim(u_dim, 0)
+        uf = uf.reshape(-1, *uf.shape[-2:])
+        sf = None if state is None else fold(state, in_dims[5])
+        out, final = WKV6.apply(rf, kf, vf, lf, uf, sf, q)
+        return (out.view(n, -1, *out.shape[1:]), final.view(n, -1, *final.shape[1:])), (0, 0)
 
 
 def wkv6(
@@ -137,22 +291,9 @@ def wkv6(
     chunk: int = 16,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The chunked WKV: returns (out (B, T, H, dk) in r's type, final state
-    (B, H, dk, dk) float32).  bf16 operands are computed in float32."""
+    (B, H, dk, dk) float32).  bf16 operands are computed in float32.
+    Differentiable in every operand (``WKV6``)."""
     if r.device.type not in ("cpu", "cuda"):
         raise ValueError(f"wkv6 runs on cpu or cuda tensors, got {r.device}")
     q = check_inputs(r, k, v, logdecay, u, state, chunk)
-    if r.device.type == "cpu":
-        out, final = ref.wkv6_chunked_ref(r, k, v, logdecay, u, state, chunk=q)
-        return out.to(r.dtype), final
-    build.check_no_grad("wkv6", r, k, v, logdecay, u, state)
-    # r, k and v as they come when they share a type; the output in r's
-    # type (the kernel rounds it to bf16 itself)
-    rkv_dtype = r.dtype if r.dtype == k.dtype == v.dtype else torch.float32
-    rk, kk, vk = (kernel_operand(x, rkv_dtype) for x in (r, k, v))
-    lk, uk = (kernel_operand(x, torch.float32) for x in (logdecay, u))
-    state = None if state is None else state.contiguous()
-    out = torch.empty(r.shape, dtype=rkv_dtype, device=r.device)
-    final = torch.empty((r.shape[0], r.shape[2], r.shape[3], r.shape[3]), dtype=torch.float32,
-                        device=r.device)
-    launch(rk, kk, vk, lk, uk, state, q, out, final)
-    return out.to(r.dtype), final
+    return WKV6.apply(r, k, v, logdecay, u, state, q)

@@ -10,12 +10,25 @@ with data-dependent per-channel log-decays (<= 0).
 version of the hand-written kernel (``csrc/wkv6.cu``): the chunk scan of the
 reference's ``repro.models.ssm.rwkv6_time_mix_chunked``, with a state in and
 the final state out, and a ragged tail zero-padded (log-decay 0, k = v = 0,
-so the state passes through the padded steps unchanged).  Both compute in
-float32 and return float32.
+so the state passes through the padded steps unchanged).  ``wkv6_bwd_ref``
+is the plain version of the backward kernel (``csrc/wkv6_bwd.cu``): the
+token-sequential reverse recurrence it computes.  All compute in float32
+and return float32.
+
+``u`` is (H, dk), shared by the batch, or (G, H, dk): batch element b reads
+row b // (B // G) (a vmapped call's peers folded into the batch, each with
+its own u).
 """
 from __future__ import annotations
 
 import torch
+
+
+def per_batch(u: torch.Tensor, b: int) -> torch.Tensor:
+    """u (H, dk) or (G, H, dk) as a (B, H, dk) float32 tensor: batch element
+    b's row."""
+    uf = u.float()
+    return uf.expand(b, *uf.shape) if uf.dim() == 2 else uf.repeat_interleave(b // uf.shape[0], 0)
 
 
 def _state0(state, b, h, dk, device):
@@ -45,7 +58,7 @@ def wkv6_chunked_ref(r, k, v, logdecay, u, state=None, chunk: int = 16):
     b, t, h, dk = r.shape
     q = min(chunk, t)
     rh, kh, vh, ld = (x.float() for x in (r, k, v, logdecay))
-    uf = u.float()
+    uf = u.float() if u.dim() == 2 else per_batch(u, b)[:, None]
     pad = (-t) % q
     if pad:
         rh, kh, vh, ld = (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
@@ -74,3 +87,52 @@ def wkv6_chunked_ref(r, k, v, logdecay, u, state=None, chunk: int = 16):
         s = s * torch.exp(cum[:, -1]).unsqueeze(-1) + torch.einsum("bshi,bshj->bhij", kq * rem, vq)
         ys.append(y)
     return torch.cat(ys, dim=1)[:, :t], s
+
+
+def wkv6_bwd_ref(r, k, v, logdecay, u, state, dout, dstate):
+    """The gradients of ``wkv6_chunked_ref``'s (out, final state) against
+    (r, k, v, logdecay, u, state), given ``dout`` (B, T, H, dk) and
+    ``dstate`` (B, H, dk, dk) or None (zeros): (dr, dk, dv, dlogdecay,
+    du of u's shape, dstate (B, H, dk, dk)), float32.
+
+    Two passes over the tokens, as the kernel makes them.  Forward, from
+    the state in: dr_t = S_{t-1} do_t + u k_t (v_t . do_t), and S to the
+    final state.  Reverse, carrying G = dL/dS_t from ``dstate``:
+    dk_t = G v_t + r_t u (v_t . do_t), dv_t = G^T k_t + (r_t . u k_t) do_t,
+    then G = diag(w_t) G + r_t do_t^T (w = exp(logdecay)); the G left is
+    the state's gradient.  The log-decays' gradient needs no state beside
+    G: with c the prefix sum of the log-decays, S_{t-1} carries
+    exp(c_{t-1}) on its rows and every k_s v_s^T in it exp(-c_s), so
+    dL/dc_t = r_{t+1} (S_t do_{t+1}) - k_t (G_t v_t), plus the final state's
+    rows of dstate * S_T at t = T; dlogdecay_t is the sum of these from t to
+    T, a running sum in the reverse pass.  du_i = sum_t r_t,i k_t,i
+    (v_t . do_t)."""
+    b, t, h, dk = r.shape
+    rf, kf, vf, ld, do = (x.float() for x in (r, k, v, logdecay, dout))
+    ub = per_batch(u, b)  # (B, H, dk)
+    w = torch.exp(ld)
+    vdo = (vf * do).sum(-1, keepdim=True)  # (B, T, H, 1)
+    ruk = (rf * ub[:, None] * kf).sum(-1, keepdim=True)
+    s = _state0(state, b, h, dk, r.device)
+    dr_state = []  # S_{t-1} do_t
+    for kt, vt, dot, wt in zip(kf.unbind(1), vf.unbind(1), do.unbind(1), w.unbind(1)):
+        dr_state.append((s @ dot.unsqueeze(-1)).squeeze(-1))
+        s = wt.unsqueeze(-1) * s + kt.unsqueeze(-1) * vt.unsqueeze(-2)
+    dr_state = torch.stack(dr_state, dim=1)
+    dr = dr_state + ub[:, None] * kf * vdo
+    g = torch.zeros_like(s) if dstate is None else dstate.float()
+    run = (g * s).sum(-1)  # the final state's term of dL/dc_T
+    dks, dvs, dld = [], [], []
+    for i in reversed(range(t)):
+        dk_state = (g @ vf[:, i].unsqueeze(-1)).squeeze(-1)  # G v_t
+        dvs.append((kf[:, i].unsqueeze(-2) @ g).squeeze(-2))  # G^T k_t
+        dks.append(dk_state)
+        dld.append(run - kf[:, i] * dk_state)
+        run = dld[-1] + rf[:, i] * dr_state[:, i]
+        g = w[:, i].unsqueeze(-1) * g + rf[:, i].unsqueeze(-1) * do[:, i].unsqueeze(-2)
+    dk_state, dv_state, dld = (torch.stack(x[::-1], dim=1) for x in (dks, dvs, dld))
+    dk_ = dk_state + rf * ub[:, None] * vdo
+    dv_ = dv_state + ruk * do
+    du = (rf * kf * vdo).sum(1)  # (B, H, dk)
+    du = du.sum(0) if u.dim() == 2 else du.view(u.shape[0], -1, h, dk).sum(1)
+    return dr, dk_, dv_, dld, du, g

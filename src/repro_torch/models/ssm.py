@@ -12,13 +12,17 @@ float32 and is cast back to the model type, the log-decay is
 ``-exp(clip(w0 + dw, -12, 4))`` in float32, and r, k and v enter the WKV in
 float32.
 
-The chunked forms (prefill) send their core through the hand-written
-kernels' wrappers: ``mamba2_apply_chunked`` through
+The chunked forms (prefill and training) send their core through the
+hand-written kernels' wrappers: ``mamba2_apply_chunked`` through
 ``kernels.mamba2.ops.ssd``, ``rwkv6_time_mix_chunked`` through
-``kernels.rwkv6.ops.wkv6``.  The scans (``mamba2_apply_scan``,
-``rwkv6_time_mix_scan``: decode, one token at a time, and the oracles) are
-the token-sequential recurrences and reach no kernel, in the reference as
-here.  With ``inplace=True`` (decode in the scanned decode,
+``kernels.rwkv6.ops.wkv6``; each wrapper's backward is a hand-written
+kernel too, so training on the card runs both ways through them.  A bf16
+model trained from a bf16 flat buffer (``core.task.from_model``) hands
+these layers its float32 leaves (``A_log``, ``D``, ``dt_bias``,
+``decay_base``, ``bonus_u``) in bf16; each is widened where it is used.
+The scans (``mamba2_apply_scan``, ``rwkv6_time_mix_scan``: decode, one
+token at a time, and the oracles) are the token-sequential recurrences and
+reach no kernel, in the reference as here.  With ``inplace=True`` (decode in the scanned decode,
 ``launch.steps.make_decode_scan``) they update the state they are given, in
 place, instead of returning new tensors; the values are the same.
 """
@@ -63,6 +67,16 @@ def mamba2_init(
         **{f"norm.{k}": t for k, t in common.rmsnorm_init(d_in, dtype, dev).items()},
         "out_proj": common.dense_init(generator, d_in, d_model, dtype),
     }
+
+
+def mamba2_shapes(d_model: int, cfg: SSMConfig) -> dict[str, tuple[int, ...]]:
+    """The shapes of ``mamba2_init``'s leaves, in its order, without drawing."""
+    dims = mamba2_dims(d_model, cfg)
+    d_in, h, cc = dims["d_inner"], dims["nheads"], dims["conv_channels"]
+    d_proj = 2 * d_in + 2 * cfg.ngroups * cfg.state_dim + h
+    return {"in_proj": (d_model, d_proj), "conv_w": (cfg.conv_dim, cc), "conv_b": (cc,),
+            "dt_bias": (h,), "A_log": (h,), "D": (h,), "norm.scale": (d_in,),
+            "out_proj": (d_in, d_model)}
 
 
 def mamba2_state(d_model: int, cfg: SSMConfig, batch: int, dtype: torch.dtype,
@@ -122,7 +136,7 @@ def mamba2_apply_scan(params, cfg: SSMConfig, x, state=None, *, inplace: bool = 
         state = mamba2_state(d_model, cfg, b, x.dtype, x.device)
     z, xh, bm, cm, dt, conv_state = _mamba2_preproc(params, cfg, x, state["conv"], inplace)
     h = xh.shape[2]
-    a = -torch.exp(params["A_log"])  # (H,)
+    a = -torch.exp(params["A_log"].float())  # (H,)
     bm, cm = (ssd_ref.expand_groups(m, h).float() for m in (bm, cm))
     xf = xh.float()
     s = state["ssm"]
@@ -145,7 +159,7 @@ def mamba2_apply_chunked(params, cfg: SSMConfig, x, state=None):
     if state is None:
         state = mamba2_state(d_model, cfg, b, x.dtype, x.device)
     z, xh, bm, cm, dt, conv_state = _mamba2_preproc(params, cfg, x, state["conv"])
-    a = -torch.exp(params["A_log"])
+    a = -torch.exp(params["A_log"].float())
     y, s_final = ssd_ops.ssd(xh, bm, cm, dt, a, state=state["ssm"], chunk=cfg.chunk)
     y = y + params["D"][:, None] * xh.float()
     out = _mamba2_finish(params, z, y.reshape(b, l, -1), x.dtype)

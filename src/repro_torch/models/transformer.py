@@ -41,10 +41,12 @@ PyTorch; decode steps attend over the cache and run the Mamba2 recurrence
 in plain PyTorch.
 
 ``rwkv6_features`` (the trunk's hidden states) and ``rwkv6_loss_fn`` (the
-language-model loss, its WKV through the forward-only ``wkv6`` kernel on
-the card) serve training, and ``decoder_loss_fn`` trains the dense, MoE and
-vlm decoders (its attention through ``flash_attention`` and its backward
-kernel on the card); the hybrid and encoder-decoder losses are ROADMAP.md
+language-model loss, its WKV through the ``wkv6`` kernel and its backward
+kernel on the card) serve training, ``decoder_loss_fn`` trains the dense,
+MoE and vlm decoders (its attention through ``flash_attention`` and its
+backward kernel on the card) and ``hybrid_loss_fn`` the zamba2 hybrid (its
+SSD through ``ssd`` and its backward kernel, the shared block's attention
+through ``flash_attention``'s); the encoder-decoder's loss is ROADMAP.md
 queue 1 item 18.
 
 Caches are updated functionally (each layer's new cache, then the stack of
@@ -346,7 +348,7 @@ def rwkv6_param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
 def rwkv6_loss_fn(params, cfg: ModelConfig, batch):
     """Mean next-token cross entropy of ``batch`` = {"tokens", "labels"}
     (B, S), over the chunked trunk from a zero state (the WKV through the
-    ``wkv6`` kernel's wrapper: forward only on the card)."""
+    ``wkv6`` kernel, forward and backward, on the card)."""
     tokens, labels = batch["tokens"], batch["labels"]
     x = rwkv6_features(params, cfg, tokens, chunked=True)
     return common.cross_entropy_loss(decoder_logits(params, cfg, x), labels)
@@ -497,10 +499,42 @@ def _hybrid_trunk_nocache(params, cfg: ModelConfig, x, positions, mamba_states):
     return x, mamba
 
 
+def hybrid_param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    """The shapes of ``hybrid_init``'s leaves, in its order, without drawing."""
+    d = cfg.d_model
+    shapes = {"embed": (cfg.vocab_size, d), LAYERS + "ln.scale": (cfg.num_layers, d)}
+    shapes.update({LAYERS + "mamba." + name: (cfg.num_layers, *shape)
+                   for name, shape in ssm.mamba2_shapes(d, cfg.ssm).items()})
+    shapes["final_norm.scale"] = (d,)
+    if cfg.shared_block_period:
+        shapes["shared_proj"] = (2 * d, d)
+        shapes["shared_block.ln1.scale"] = (d,)
+        shapes.update({f"shared_block.attn.{k}": s
+                       for k, s in attention.param_shapes(d, cfg.attention).items()})
+        shapes["shared_block.ln2.scale"] = (d,)
+        shapes.update({f"shared_block.mlp.{k}": s
+                       for k, s in common.mlp_shapes(d, cfg.d_ff).items()})
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (d, cfg.vocab_size)
+    return shapes
+
+
 def hybrid_loss_fn(params, cfg: ModelConfig, batch):
-    raise NotImplementedError(
-        "training the hybrid language model is not ported yet: ROADMAP.md queue 1 item 18"
-    )
+    """Mean next-token cross entropy of ``batch`` = {"tokens", "labels"}
+    (B, S) (the reference's ``hybrid_loss_fn``): the embedding, the trunk
+    from zero Mamba2 states with no attention cache (each layer's SSD through
+    the ``ssd`` kernel and each shared-block application's attention
+    through ``flash_attention``, forward and backward, on the card), the
+    logits."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    b, s = tokens.shape
+    dtype = compute_dtype(cfg)
+    x = common.embed_lookup(params["embed"], tokens, dtype)
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    states = stacked_init(cfg.num_layers, lambda _i: ssm.mamba2_state(
+        cfg.d_model, cfg.ssm, b, dtype, tokens.device))
+    x, _ = _hybrid_trunk_nocache(params, cfg, x, positions, states)
+    return common.cross_entropy_loss(decoder_logits(params, cfg, x), labels)
 
 
 def hybrid_prefill(params, cfg: ModelConfig, batch, cache):

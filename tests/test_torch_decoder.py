@@ -474,9 +474,13 @@ def test_prefill_on_cpu_counts_no_kernel_launch():
 
 
 def test_unported_paths_raise_naming_their_items():
-    # the decoder's loss is ported (tests/test_torch_lm_train.py); the
-    # hybrid's and the encoder-decoder's are still item 18
-    for arch in ("zamba2-2.7b", "seamless-m4t-medium"):
-        model = build_model(tconfigs.reduced(tconfigs.get_config(arch)))
-        with pytest.raises(NotImplementedError, match="item 18"):
-            model.loss_fn({}, {})
+    # the decoder's, rwkv6's and the hybrid's losses are ported
+    # (tests/test_torch_lm_train.py); the encoder-decoder's is still item 18
+    model = build_model(tconfigs.reduced(tconfigs.get_config("seamless-m4t-medium")))
+    with pytest.raises(NotImplementedError, match="item 18"):
+        model.loss_fn({}, {})
+    hybrid = build_model(tconfigs.reduced(tconfigs.get_config("zamba2-2.7b")))
+    toks = torch.zeros((1, 4), dtype=torch.int64)
+    loss = hybrid.loss_fn(hybrid.init(torch.Generator().manual_seed(0)),
+                          {"tokens": toks, "labels": toks})
+    assert loss.shape == () and bool(torch.isfinite(loss))

@@ -9,7 +9,8 @@ shapes and types equal and an exact round trip; the reference's three Mamba2
 checks (tests/test_ssm.py) re-run on the port; the Mamba2 scan and chunked
 mixers, ``_hybrid_trunk_nocache``, ``hybrid_prefill`` at a ragged prompt of
 10 and three ``hybrid_decode_step``s (logits and every cache leaf) allclose
-to the reference's; and ``serve_batch`` and a K = 2 ``serve_fleet`` give the
+to the reference's; ``hybrid_loss_fn`` and its gradients against the
+reference's; and ``serve_batch`` and a K = 2 ``serve_fleet`` give the
 reference's greedy tokens.  The chunked path's SSD goes through ``ops.ssd``
 and the shared block's prefill attention through ``gqa_flash_attention``,
 whose CPU paths are the kernels' plain versions.
@@ -121,9 +122,28 @@ def test_parameters_and_cache_round_trip_exactly(models):
         assert torch.equal(tcache[name], jcache[name]), name
 
 
-def test_loss_fn_raises_naming_item_18(models):
-    with pytest.raises(NotImplementedError, match="item 18"):
-        models[2].loss_fn({}, {})
+@pytest.mark.parametrize("length", [8, 10])
+def test_loss_fn_matches_reference(models, length):
+    """``hybrid_loss_fn`` (the reference's: zero Mamba2 states, the shared
+    block without a cache) and its gradients, at a whole and a ragged
+    number of chunks of 4: the loss at TOL, every leaf's gradient at atol
+    1e-5 / rtol 1e-3 (sums over the tokens in another order; the SSD's
+    through ``ref.ssd_bwd_ref``)."""
+    jmodel, jparams, tmodel, tparams = models
+    rng = np.random.default_rng(length)
+    batch = {k: rng.integers(0, tmodel.cfg.vocab_size, size=(2, length)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    jloss, jgrads = jax.jit(jax.value_and_grad(jmodel.loss_fn))(
+        jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    params = {n: t.clone().requires_grad_(True) for n, t in tparams.items()}
+    loss = tmodel.loss_fn(params, {k: torch.as_tensor(v, dtype=torch.int64)
+                                   for k, v in batch.items()})
+    _close(loss.detach(), jloss)
+    grads = torch.autograd.grad(loss, list(params.values()), materialize_grads=True)
+    want = interop.params_from_jax(jax.tree.map(np.asarray, jgrads))
+    for name, g in zip(params, grads):
+        np.testing.assert_allclose(g.numpy(), want[name].numpy(), atol=1e-5, rtol=1e-3,
+                                   err_msg=name)
 
 
 # ---------------------------------------------------------------------------

@@ -15,8 +15,9 @@ Held to the reference at its four levels:
 4. behaviour: the reference's ``test_rwkv6_seqmnist_trains_vmap`` claims.
 
 Plus both drivers bit for bit, the chunked and subsampled evaluation, the
-configs, the CLI, the feature table's ``real_model`` row, and the guard
-that stops autograd through a forward-only kernel on the card.
+configs, the CLI, the feature table's ``real_model`` row, and the
+attention wrapper's path through its ``autograd.Function`` (the WKV's and
+the SSD's are tests/test_torch_ssm_train.py's).
 
 Tolerance: float32 atol 5e-5 / rtol 1e-4 (tests/test_kernels.py's float32
 tolerance) everywhere, the 196-step recurrence included: TF32 is off and the
@@ -51,9 +52,7 @@ from repro_torch.core import features as tfeatures  # noqa: E402
 from repro_torch.core import p2p as tp2p  # noqa: E402
 from repro_torch.core import task as ttask  # noqa: E402
 from repro_torch.data import pipeline as tpipeline  # noqa: E402
-from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
-from repro_torch.kernels.mamba2 import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.rwkv6 import ops as wkv6_ops  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.models import common as tcommon  # noqa: E402
@@ -630,33 +629,8 @@ def test_cli_model_and_seqmnist_experiment(monkeypatch, capsys):
 
 
 # ---------------------------------------------------------------------------
-# the forward-only kernels on the card: no silent gradient cut
+# every kernel on the card has its backward: no silent gradient cut
 # ---------------------------------------------------------------------------
-
-
-def test_backward_guard_raises_where_autograd_would_flow():
-    """``build.check_no_grad`` (called by the three served kernels' wrappers
-    on their CUDA path) raises, naming the missing backward and its ROADMAP
-    entry, when autograd is on and an operand requires grad; not otherwise."""
-    a, b = torch.zeros(2), torch.zeros(2, requires_grad=True)
-    with pytest.raises(NotImplementedError,
-                       match=r"wkv6 has no backward kernel.*Backward kernels.*item 18"):
-        build.check_no_grad("wkv6", a, None, b)
-    build.check_no_grad("wkv6", a, None, b.detach())
-    with torch.no_grad():
-        build.check_no_grad("wkv6", a, b)
-    with torch.inference_mode():
-        build.check_no_grad("ssd", b)
-
-
-@pytest.mark.parametrize("wrapper,kernel", [(wkv6_ops.wkv6, "wkv6"), (ssd_ops.ssd, "ssd")])
-def test_wrappers_guard_their_cuda_path(wrapper, kernel):
-    """Each forward-only wrapper calls the guard after its CPU return and
-    before its launch, so the CPU path stays differentiable and the CUDA
-    path cannot cut the graph."""
-    src = inspect.getsource(wrapper)
-    guard = src.index(f'build.check_no_grad("{kernel}"')
-    assert src.index('device.type == "cpu"') < guard < src.index("launch(")
 
 
 def test_flash_attention_cuda_path_goes_through_its_function():

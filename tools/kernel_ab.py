@@ -100,7 +100,9 @@ def build_lib(tree: Path, rel: str, tag: str) -> ctypes.CDLL:
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
-    return ctypes.CDLL(str(lib))
+    out = ctypes.CDLL(str(lib))
+    out.source_text = src.read_text()  # which form of an entry point this version has
+    return out
 
 
 def push_sum_mass(k: int, dev) -> torch.Tensor:
@@ -410,12 +412,16 @@ def ab_wkv6(card, libs: dict, name: str, b, t, h, dk, q, *, dtype=torch.float32,
         out = outs[tag]
         if hasattr(lib, "wkv6_fwd"):
             fn = lib.wkv6_fwd
-            fn.argtypes, fn.restype = [ptr] * 8 + [i64] * 5 + [ctypes.c_int, ptr], ctypes.c_int
+            # a version whose u may hold a row per group of batch elements
+            # takes their count after the chunk (B: one u for the batch)
+            rows = (b,) if "u_batch" in lib.source_text else ()
+            fn.argtypes = [ptr] * 8 + [i64] * (5 + len(rows)) + [ctypes.c_int, ptr]
+            fn.restype = ctypes.c_int
 
             def run():
                 err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), ld.data_ptr(), u.data_ptr(),
-                         None, out.data_ptr(), final.data_ptr(), b, t, h, dk, q, int(bf16),
-                         stream)
+                         None, out.data_ptr(), final.data_ptr(), b, t, h, dk, q, *rows,
+                         int(bf16), stream)
                 chip_smoke.check(err == 0, f"wkv6 {tag} launch: cudaError_t {err}")
             return run
         fn = lib.wkv6_f32
@@ -581,13 +587,17 @@ def ab_ssd(card, libs: dict, name: str, b, t, h, *, dtype=torch.float32, state=F
     runs, errs = {}, {}
     for tag, lib in libs.items():
         fn = lib.ssd_fwd
-        fn.argtypes, fn.restype = [ptr] * 8 + [i64] * 8 + [ctypes.POINTER(i64), ptr], ctypes.c_int
+        # a version whose a may hold a row per group of batch elements takes
+        # their count after the chunk (B: one a for the batch)
+        rows = (b,) if "a_batch" in lib.source_text else ()
+        fn.argtypes = [ptr] * 8 + [i64] * (8 + len(rows)) + [ctypes.POINTER(i64), ptr]
+        fn.restype = ctypes.c_int
 
-        def run(fn=fn, tag=tag):
+        def run(fn=fn, tag=tag, rows=rows):
             y, final = outs[tag]
             err = fn(x.data_ptr(), bm.data_ptr(), cm.data_ptr(), dt.data_ptr(), a.data_ptr(),
                      None if s0 is None else s0.data_ptr(), y.data_ptr(), final.data_ptr(),
-                     ssd_ops.DTYPE_CODES[dtype], b, t, h, 1, p, n, q, strides, stream)
+                     ssd_ops.DTYPE_CODES[dtype], b, t, h, 1, p, n, q, *rows, strides, stream)
             chip_smoke.check(err == 0, f"ssd {tag} launch: cudaError_t {err}")
 
         run()
@@ -597,7 +607,7 @@ def ab_ssd(card, libs: dict, name: str, b, t, h, *, dtype=torch.float32, state=F
         runs[tag] = run
     diff = max(float((outs["new"][i] - outs["old"][i]).abs().max()) for i in range(2))
     times = in_turns(runs, None)
-    bounds = chip_smoke.ssd_bounds(card, *chip_smoke.ssd_work(
+    bounds = chip_smoke.pipe_and_tensor_bounds(card, *chip_smoke.ssd_work(
         b, t, h, 1, p, n, q, state=state, in_bytes=x.element_size()))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return {"kernel": "ssd", "case": name, "B": b, "T": t, "H": h, "P": p, "N": n, "chunk": q,
