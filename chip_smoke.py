@@ -1918,7 +1918,8 @@ def flash_bwd_case(card, name, b, s, h, kh, d, *, causal=True, window=None,
 def flash_bwd_cases(card: Card) -> list[dict]:
     """The backward kernel at the LM round's shape (smollm-135m: the K = 4
     peers' batch of 4 folded into B 16, S 1024, H 9, Kh 3, D 64, causal,
-    bf16), at minitron's prefill shape, with a window, non-causal, in
+    bf16), at zamba2-2.7b's LM round's (B 2, H = Kh = 32, D 80), at
+    minitron's prefill shape, with a window, non-causal, in
     float32 (the reduced configs' D 32), and at S that are no multiple of
     a tile, at every head width; then the wgmma design's edges: S ragged
     against its 128-key and 128-row tiles (129) and below one tile (5), a
@@ -1928,6 +1929,9 @@ def flash_bwd_cases(card: Card) -> list[dict]:
     f32, wg, ms = torch.float32, "wgmma", "mma_sync"
     return [
         flash_bwd_case(card, "lm_smollm_k4", 16, 1024, 9, 3, 64, timed=True, want_route=wg),
+        # zamba2-2.7b's shared block in its LM round: K = 2 peers x batch 1
+        flash_bwd_case(card, "zamba2_trained_d80", 2, 1024, 32, 32, 80, timed=True,
+                       want_route=ms, seed=19),
         flash_bwd_case(card, "minitron", 4, 1024, 32, 8, 128, timed=True, want_route=wg, seed=1),
         flash_bwd_case(card, "window256", 2, 1024, 8, 2, 64, window=256, timed=True,
                        want_route=wg, seed=2),
@@ -2937,23 +2941,25 @@ def plain_backwards():
             setattr(module, name, fn)
 
 
-def lm_step_grads(task, layout, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
-    """The local step's stacked losses and flat gradients, as ``local_phase``
-    takes them (one backward of the summed per-peer losses)."""
-    views = layout.views(params.detach().requires_grad_(True))
+def lm_step_grads(task, layout, blocks, batch) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """The local step's stacked losses and flat gradients, one buffer a
+    block of the layout, as ``local_phase`` takes them (one backward of the
+    summed per-peer losses)."""
+    views = layout.views(*(b.detach().requires_grad_(True) for b in blocks))
     losses = task.loss_fn(views, batch)
     grads = torch.autograd.grad(losses.sum(), list(views.values()), materialize_grads=True)
-    return losses.detach(), layout.flatten(dict(zip(views, grads)))
+    return losses.detach(), layout.flatten_blocks(dict(zip(views, grads)))
 
 
-def compare_grads(name: str, layout, got: torch.Tensor, want: torch.Tensor) -> dict:
-    """Holds a step's flat gradients to the plain backwards' (LM_GRAD_TOL)
-    leaf by leaf, 2^26 entries at a time in float32 (the whole (K, row)
-    buffer widened would take 15 GB at rwkv6-7b's 6 layers, zamba2's stacked
-    in_proj alone 9 GB; the views die with this function); returns the
-    relative norm errors, whole and by leaf, and the largest errors."""
+def compare_grads(name: str, layout, got: list, want: list) -> dict:
+    """Holds a step's flat gradients (one buffer a block) to the plain
+    backwards' (LM_GRAD_TOL) leaf by leaf, 2^26 entries at a time in
+    float32 (the whole (K, row) buffer widened would take 15 GB at rwkv6-7b's
+    6 layers, zamba2's stacked in_proj alone 9 GB; the views die with this
+    function); returns the relative norm errors, whole and by leaf, and the
+    largest errors."""
     leaf_rel, diff2, want2, max_err, max_abs = {}, 0.0, 0.0, 0.0, 0.0
-    for (leaf, ga), gb in zip(layout.views(got).items(), layout.views(want).values()):
+    for (leaf, ga), gb in zip(layout.views(*got).items(), layout.views(*want).values()):
         d2 = w2 = 0.0
         for a, b in zip(ga.reshape(-1).split(2**26), gb.reshape(-1).split(2**26)):
             a, b = a.float(), b.float()
@@ -2981,7 +2987,8 @@ def lm_kernel_category(name: str) -> str:
         return "wkv6 backward"
     if "wkv6" in name:
         return "wkv6 forward"
-    if any(tag in name for tag in ("ssd_bwd", "group_reduce", "da_reduce")):
+    if any(tag in name for tag in ("chunk_cums", "chunk_states", "chunk_grad", "group_reduce",
+                                   "da_reduce")):
         return "ssd backward"
     if "ssd_kernel" in name:
         return "ssd forward"
@@ -2992,6 +2999,30 @@ def lm_kernel_category(name: str) -> str:
     if any(tag in name for tag in ("elementwise", "copy", "Copy", "cast")):
         return "elementwise and casts"
     return "other"
+
+
+def recording_init(task):
+    """``task`` with an init that records the leaves' types as it draws
+    them, and that record: what ``check_leaf_types`` holds the flat buffers
+    to, independent of the layout's own account of the types."""
+    types = {}
+
+    def init(gen):
+        leaves = task.init_params(gen)
+        types.update((leaf, v.dtype) for leaf, v in leaves.items())
+        return leaves
+
+    return dataclasses.replace(task, init_params=init), types
+
+
+def check_leaf_types(name: str, init_types: dict, layout, blocks) -> None:
+    """Every leaf of the flat buffers in the type the model's init drew it
+    in (``recording_init``; the reference's: float32 for rwkv6's decay base
+    and bonus, Mamba2's dt bias, A_log and D and a MoE router, the model's
+    type for the rest)."""
+    got = {leaf: v.dtype for leaf, v in layout.views(*blocks).items()}
+    check(bool(init_types) and got == init_types, f"{name}: leaf types {got}, "
+          f"drawn {init_types}")
 
 
 def drive_p2p_lm(card: Card, run: LMRun) -> dict:
@@ -3008,7 +3039,9 @@ def drive_p2p_lm(card: Card, run: LMRun) -> dict:
     synchronized timers, and one under torch.profiler (device ms and
     launches by ``lm_kernel_category``, the busy share, the top kernels).
     Prints s/round, the phases' seconds, the launches, the peak memory and
-    the profile."""
+    the profile.  rwkv6's and Mamba2's float32 leaves sit in a float32 block
+    beside the bf16 one (``ParamLayout.wide``), so their rounds mix twice a
+    consensus step."""
     from repro_torch.configs import get_config
     from repro_torch.core import consensus as consensus_lib
     from repro_torch.core import p2p, task as task_lib
@@ -3023,7 +3056,7 @@ def drive_p2p_lm(card: Card, run: LMRun) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     start = time.perf_counter()
-    task = task_lib.from_model(build_model(cfg))
+    task, init_types = recording_init(task_lib.from_model(build_model(cfg)))
     pcfg = train.lm_config(num_peers=run.peers, local_steps=run.steps,
                            algorithm="p2pl_affinity", lr=1e-2, momentum=0.5, eta_d=0.25)
     state = p2p.init_state(task, pcfg, seed=0, device=dev)
@@ -3033,6 +3066,10 @@ def drive_p2p_lm(card: Card, run: LMRun) -> dict:
     setup_s = time.perf_counter() - start
     check(state.params.dtype == torch.bfloat16 and state.params.shape == (run.peers, layout.row)
           and layout.row % 8 == 0, f"{name}: a (K, row) bf16 buffer, row a multiple of 8")
+    blocks = p2p.param_blocks(state)
+    check_leaf_types(name, init_types, layout, blocks)
+    check((layout.wide is not None) == (cfg.family in ("rwkv6", "hybrid")),
+          f"{name}: a float32 block exactly where the model has float32 leaves")
     rng = np.random.default_rng(0)
 
     def round_batches():
@@ -3046,14 +3083,14 @@ def drive_p2p_lm(card: Card, run: LMRun) -> dict:
     step0 = (batches[0][0], batches[1][0])
     for counter in counters.values():
         counter.reset()
-    losses_k, grads_k = lm_step_grads(task, layout, state.params, step0)
+    losses_k, grads_k = lm_step_grads(task, layout, blocks, step0)
     torch.cuda.synchronize()
     step_launches = {key: c.count for key, c in counters.items() if c.count}
     want_step = lm_step_launches(cfg)
     check(step_launches == want_step, f"{name} step launched {step_launches}, want {want_step}")
     start = time.perf_counter()
     with plain_backwards():
-        losses_p, grads_p = lm_step_grads(task, layout, state.params, step0)
+        losses_p, grads_p = lm_step_grads(task, layout, blocks, step0)
     torch.cuda.synchronize()
     plain_step_s = time.perf_counter() - start
     check(torch.equal(losses_k, losses_p), f"{name}: the step's losses equal")
@@ -3066,13 +3103,14 @@ def drive_p2p_lm(card: Card, run: LMRun) -> dict:
           f"worst leaf {max(leaf_rel, key=leaf_rel.get)} {max(leaf_rel.values()):.3g} (the "
           f"plain step {plain_step_s:.2f} s); every leaf {json.dumps(leaf_rel)}", flush=True)
     check(grad_rel < LM_GRAD_REL_NORM, f"{name} gradients: relative norm error {grad_rel}")
-    del grads_k, grads_p
+    del grads_k, grads_p, blocks
 
     depth = "" if run.layers is None else f" {run.layers} layers,"
     print(f"main path: p2p_lm {name} full width,{depth} K={run.peers} batch {run.batch} seq "
           f"{run.seq} T={run.steps}, {run.rounds} rounds", flush=True)
     want = {key: 0 for key in counters} | {key: n * run.steps for key, n in want_step.items()}
-    want["consensus_mix"] = pcfg.consensus_steps
+    # one launch a consensus step for each block of the layout
+    want["consensus_mix"] = pcfg.consensus_steps * (2 if layout.wide is not None else 1)
     seconds, losses, per_round = [], [], []
     total = dict.fromkeys(counters, 0)
     with count_plain_calls() as plain_calls:
@@ -3096,10 +3134,12 @@ def drive_p2p_lm(card: Card, run: LMRun) -> dict:
             losses.append(float(step_losses.float().mean()))
     check(not plain_calls, f"{name} called plain versions {plain_calls}")
     check(all(math.isfinite(v) for v in losses), f"{name} losses finite: {losses}")
-    drift = float(consensus_lib.pairwise_drift(state.params))
+    drift = float(consensus_lib.pairwise_drift(*p2p.param_blocks(state)))
     check(math.isfinite(drift), f"{name} drift finite: {drift}")
     for field in ("params", "momentum", "d_bias"):
-        check(bool(torch.isfinite(getattr(state, field)).all()), f"{name} {field} finite")
+        for block in (state, *([state.wide] if state.wide else [])):
+            check(bool(torch.isfinite(getattr(block, field)).all()), f"{name} {field} finite")
+    check_leaf_types(name, init_types, layout, p2p.param_blocks(state))
     # one more round through its two phases, timed apart
     ops = p2p.round_operands(pcfg, device=dev)
     batches = round_batches()
@@ -3122,13 +3162,14 @@ def drive_p2p_lm(card: Card, run: LMRun) -> dict:
           f"{profile['device_busy_share']:.4f}), {profile['kernels']} kernels; by category "
           f"[launches, device ms]: {json.dumps(profile['by_category_launches_ms'])}; top "
           f"kernels [name, launches, ms]: {json.dumps(profile['top_kernels_ms'])}", flush=True)
-    replica_gb = state.params.numel() * state.params.element_size() / 1e9
+    replica_gb = sum(b.numel() * b.element_size() for b in p2p.param_blocks(state)) / 1e9
     state_gb = 4 * replica_gb
+    wide = "" if layout.wide is None else f" and (K, {layout.wide.row}) float32"
     print(f"p2p_lm {name} ({card.line}): {layout.size} parameters a peer, set-up {setup_s:.2f} "
           f"s, seconds per round {seconds}, losses {losses}, final drift {drift:.6g}; one more "
           f"round: local phase {local_s:.4f} s, consensus {consensus_s:.4f} s; launches per "
           f"round {per_round}; peak memory {peak_gb:.3f} GB against {state_gb:.3f} GB for the "
-          f"four (K, {layout.row}) bf16 state buffers", flush=True)
+          f"four (K, {layout.row}) bf16{wide} state buffers", flush=True)
     del state
     torch.cuda.empty_cache()
     return {"launches": {key: n for key, n in total.items() if n}, "seconds": seconds,
@@ -3136,6 +3177,7 @@ def drive_p2p_lm(card: Card, run: LMRun) -> dict:
             "consensus_s": consensus_s, "setup_s": setup_s, "peak_gb": peak_gb,
             "state_gb": state_gb, "launches_per_round": per_round, "grad_check": grad_check,
             "row": layout.row, "params_per_peer": layout.size, "layers": cfg.num_layers,
+            "wide_row": None if layout.wide is None else layout.wide.row,
             "round_profile": profile}
 
 
@@ -3167,6 +3209,68 @@ def drive_run_p2p_lm_reduced(card: Card, arch: str) -> dict:
     print(f"run_p2p_lm {arch} reduced ({card.line}): {json.dumps(out)} in {seconds:.2f} s, "
           f"launches {launches}", flush=True)
     return {"launches": {key: n for key, n in launches.items() if n}, "seconds": seconds, **out}
+
+
+# a bf16 MoE decoder, reduced: its float32 router beside its bf16 leaves (the
+# full model does not fit: PERF.md)
+LM_MOE_ARCH = "qwen3-moe-235b-a22b"
+
+
+def drive_p2p_lm_reduced_bf16(card: Card, arch: str) -> dict:
+    """One round of ``run_p2p_lm``'s loop on ``reduced(get_config(arch))`` in
+    bf16 (its defaults: K = 2, T = 4, batch 4, seq 32, seed 0; the reference's
+    p2pl_affinity step sizes) through ``from_model``, ``init_state`` and
+    ``make_round_fn``, as ``run_p2p_lm`` composes them: every leaf in its
+    init's type through the round (a MoE's router float32 in a block of its
+    own, so ``consensus_mix`` launches twice), launch counts reset just
+    before and read just after, the losses, parameters and drift finite."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import consensus as consensus_lib
+    from repro_torch.core import p2p, task as task_lib
+    from repro_torch.launch import train
+    from repro_torch.models.registry import build_model
+
+    dev = torch.device("cuda")
+    name = f"{arch} reduced bf16"
+    cfg = reduced(get_config(arch)).replace(dtype="bfloat16")
+    task, init_types = recording_init(task_lib.from_model(build_model(cfg)))
+    pcfg = train.lm_config(num_peers=2, local_steps=4, algorithm="p2pl_affinity", lr=1e-2,
+                           momentum=0.5, eta_d=0.25)
+    state = p2p.init_state(task, pcfg, seed=0, device=dev)
+    layout = p2p.ParamLayout.of(task)
+    check(layout.wide is not None, f"{name}: a float32 block for the router")
+    check_leaf_types(name, init_types, layout, p2p.param_blocks(state))
+    round_fn = p2p.make_round_fn(task, pcfg, device=dev)
+    tokens, labels = train.lm_token_batches(np.random.default_rng(0), cfg.vocab_size,
+                                            num_peers=2, local_steps=4, batch=4, seq=32)
+    batches = tuple(torch.as_tensor(v, dtype=torch.int64, device=dev) for v in (tokens, labels))
+    counters = launch_counters()
+    for counter in counters.values():
+        counter.reset()
+    print(f"main path: p2p_lm {name}, K=2 batch 4 seq 32 T=4, one round", flush=True)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with count_plain_calls() as plain_calls:
+        _, state, step_losses = round_fn(state, batches)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = {key: c.count for key, c in counters.items()}
+    want = {key: 0 for key in counters} | {key: n * 4 for key, n in
+                                           lm_step_launches(cfg).items()}
+    want["consensus_mix"] = 2
+    check(launches == want, f"{name} launched {launches}, want {want}")
+    check(not plain_calls, f"{name} called plain versions {plain_calls}")
+    losses = step_losses.float().tolist()
+    check(all(math.isfinite(v) for v in losses), f"{name} losses finite: {losses}")
+    blocks = p2p.param_blocks(state)
+    check(all(bool(torch.isfinite(b.float()).all()) for b in blocks), f"{name} parameters finite")
+    check_leaf_types(name, init_types, layout, blocks)
+    drift = float(consensus_lib.pairwise_drift(*blocks))
+    print(f"p2p_lm {name} ({card.line}): {layout.size} bf16 and {layout.wide.size} float32 "
+          f"parameters a peer (rows {layout.row} and {layout.wide.row}), losses {losses}, drift "
+          f"{drift:.6g}, {seconds:.3f} s, launches {launches}", flush=True)
+    return {"launches": {key: n for key, n in launches.items() if n}, "seconds": seconds,
+            "losses": losses, "final_drift": drift}
 
 
 SEQMNIST = "rwkv6_seqmnist"
@@ -4061,6 +4165,7 @@ def main() -> int:
     for arch in (LM_ARCH, *(run.arch for run in LM_RUNS[1:])):
         label = "run_p2p_lm_reduced" if arch == LM_ARCH else f"run_p2p_lm_reduced_{arch}"
         paths[label] = drive_run_p2p_lm_reduced(card, arch)
+    paths[f"p2p_lm_reduced_bf16_{LM_MOE_ARCH}"] = drive_p2p_lm_reduced_bf16(card, LM_MOE_ARCH)
     matching = check_matching_on_card()
     paths["serve_batch"] = drive_serve_batch(card, SERVE_ARCH, {"wkv6": 32})
     serving = {SERVE_ARCH: recheck_and_break_down(card, SERVE_ARCH, {"wkv6": (0, 31)},
@@ -4326,6 +4431,14 @@ def main() -> int:
             mass_entry["lm_grad_check"] = {
                 key: v for key, v in paths["p2p_lm_smollm_full"]["grad_check"].items()
                 if key != "leaf_rel_norm_err"}
+            zamba = next(c for c in cases[kernel] if c["case"] == "zamba2_trained_d80")
+            mass_entry["zamba2_shape"] = {
+                **{key: zamba[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                               "library_ms", "bound_card", "max_abs_err",
+                                               "route")},
+                "shape": "B=2 S=1024 H=Kh=32 D=80 causal bfloat16 (zamba2-2.7b's LM round: K "
+                         "= 2 peers x batch 1, the shared block)",
+                "launches": paths["p2p_lm_zamba2_2_7b"]["launches"][kernel]}
         elif kernel == "flash_attention":
             shape = (f"B={main['B']} S={main['S']} H={main['H']} Kh={main['Kh']} D={main['D']} "
                      f"causal {main['dtype']}")

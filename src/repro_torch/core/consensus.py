@@ -114,10 +114,15 @@ def consensus_error(flat: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.square(xf - xf.mean(dim=0, keepdim=True)), dim=1)).mean()
 
 
-def pairwise_drift(flat: torch.Tensor) -> torch.Tensor:
-    """Max over peer pairs of ||w_i - w_j||_2 — the paper's drift/divergence."""
-    xf = flat.to(torch.float32)
-    # ||x_i - x_j||^2 = ||x_i||^2 + ||x_j||^2 - 2 x_i . x_j
-    n2 = torch.sum(xf * xf, dim=1)
-    sq = n2[:, None] + n2[None, :] - 2.0 * (xf @ xf.T)
+def pairwise_drift(flat: torch.Tensor, *blocks: torch.Tensor) -> torch.Tensor:
+    """Max over peer pairs of ||w_i - w_j||_2 — the paper's drift/divergence —
+    over the rows of ``flat`` and of any further (K, ...) ``blocks`` (a mixed
+    task's float32 block), in float32."""
+    sq = None
+    for block in (flat, *blocks):
+        xf = block.to(torch.float32)
+        # ||x_i - x_j||^2 = ||x_i||^2 + ||x_j||^2 - 2 x_i . x_j
+        n2 = torch.sum(xf * xf, dim=1)
+        term = n2[:, None] + n2[None, :] - 2.0 * (xf @ xf.T)
+        sq = term if sq is None else sq + term
     return torch.sqrt(torch.clamp(sq, min=0.0)).max()

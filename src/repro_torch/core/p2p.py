@@ -20,7 +20,11 @@ Layout.  Every state leaf is ONE (K, row) tensor on the device, of the
 task's type (float32, or bfloat16 for a bf16 language model): the K
 peers' parameters flattened into rows (``ParamLayout``; the leaves in the
 task's order, each row zero-padded to 16 bytes, 4 float32 or 8 bf16
-elements, so rows stay 16-byte aligned).  The local phase reads the leaves as (K, ...) views of that
+elements, so rows stay 16-byte aligned).  A bf16 model's float32 leaves
+(rwkv6's decay base and bonus, Mamba2's dt bias, A_log and D, a MoE router)
+sit in a second (K, row) float32 block of every such buffer
+(``P2PState.wide``), updated and mixed like the first, each in its own
+type.  The local phase reads the leaves as (K, ...) views of that
 buffer and runs each layer as one batched matmul over the peers; one backward
 of the summed per-peer losses gives every peer its own gradient, and the SGD
 update is a few elementwise passes over the whole buffer.  The consensus
@@ -66,7 +70,9 @@ synchronous or asynchronous rounds, every registered task (the 2NN and
 ``rwkv6_seqmnist``; a registry task is refused by the hierarchical runtime,
 as in the reference) and a registry language model's task
 (``task.from_model``; in bf16 the gossip step only: the bf16 mass, snapshot
-and dense modes raise), the vmap and one-slice hierarchical runtimes.  Any
+and dense modes raise, and with float32 leaves beside the bf16 ones the
+compressed wire and the scan driver too), the vmap and one-slice
+hierarchical runtimes.  Any
 other configuration raises ``NotImplementedError`` naming the ROADMAP.md
 item that ports it.
 """
@@ -310,24 +316,49 @@ def _held_rows(steps_k: np.ndarray, t: int) -> list[slice]:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class ParamLayout:
-    """Where each named leaf lives in a peer's flat parameter row."""
+    """Where each named leaf lives in a peer's flat parameter row.
+
+    A task whose leaves share its type has one block: every leaf in one
+    (K, row) buffer of that type.  A task with float32 leaves beside leaves
+    of another type (``TrainTask.param_dtypes``: a bf16 model's few float32
+    leaves) has two: ``shapes`` .. ``dtype`` describe the block of the
+    task's type, and ``wide`` the float32 block of the rest, each padded as
+    its type wants; ``views`` and ``flatten_blocks`` take and give one
+    buffer a block, the leaves in the task's order (``names``)."""
 
     shapes: dict[str, tuple[int, ...]]
     offsets: dict[str, int]
     size: int  # parameters per peer
     row: int  # row length: ``size`` padded to 16 bytes (``row_align``)
     dtype: torch.dtype = torch.float32  # the task's parameter type
+    wide: "ParamLayout | None" = None  # the float32 block of a mixed task
+    names: tuple[str, ...] = ()  # a mixed task's leaves, in the task's order
+
+    @classmethod
+    def block(cls, shapes: dict[str, tuple[int, ...]], dtype: torch.dtype) -> "ParamLayout":
+        """One block of ``shapes``' leaves, in their order, of ``dtype``."""
+        offsets, off = {}, 0
+        for name, shape in shapes.items():
+            offsets[name] = off
+            off += int(np.prod(shape))
+        align = row_align(dtype)
+        row = -(-off // align) * align
+        return cls(dict(shapes), offsets, off, row, dtype)
 
     @classmethod
     def of(cls, task: task_lib.TrainTask) -> "ParamLayout":
         """The layout of ``task``'s leaves, in ``task.param_shapes`` order."""
-        offsets, off = {}, 0
-        for name, shape in task.param_shapes.items():
-            offsets[name] = off
-            off += int(np.prod(shape))
-        align = row_align(task.dtype)
-        row = -(-off // align) * align
-        return cls(dict(task.param_shapes), offsets, off, row, task.dtype)
+        types = task.param_dtypes or {}
+        own = {n: s for n, s in task.param_shapes.items() if types.get(n, task.dtype) == task.dtype}
+        if len(own) == len(task.param_shapes):
+            return cls.block(task.param_shapes, task.dtype)
+        rest = {n: s for n, s in task.param_shapes.items() if n not in own}
+        if {types[n] for n in rest} != {torch.float32}:
+            raise TypeError(f"a task of {task.dtype} leaves takes float32 ones beside them, got "
+                            f"{sorted({str(types[n]) for n in rest})}")
+        return dataclasses.replace(cls.block(own, task.dtype),
+                                   wide=cls.block(rest, torch.float32),
+                                   names=tuple(task.param_shapes))
 
     @property
     def leaf_offsets(self) -> tuple[int, ...]:
@@ -335,23 +366,42 @@ class ParamLayout:
         ``size`` (the columns from ``size`` to ``row`` are padding)."""
         return (*self.offsets.values(), self.size)
 
-    def views(self, flat: torch.Tensor) -> dict[str, torch.Tensor]:
-        """(K, ...) views of every leaf into a (K, row) buffer (no copies)."""
+    def dtype_of(self, name: str) -> torch.dtype:
+        """The type of leaf ``name``: its block's."""
+        return self.wide.dtype if self.wide is not None and name in self.wide.shapes \
+            else self.dtype
+
+    def views(self, flat: torch.Tensor, wide: torch.Tensor | None = None
+              ) -> dict[str, torch.Tensor]:
+        """(K, ...) views of every leaf into a (K, row) buffer (no copies),
+        and of a mixed task's float32 leaves into ``wide``, its (K, row)
+        float32 block."""
         k = flat.shape[0]
-        return {
+        out = {
             name: flat[:, off : off + int(np.prod(shape))].view(k, *shape)
             for (name, shape), off in zip(self.shapes.items(), self.offsets.values())
         }
+        if self.wide is None:
+            return out
+        if wide is None:
+            raise ValueError("a layout of mixed types needs its float32 block too")
+        out.update(self.wide.views(wide))
+        return {name: out[name] for name in self.names}
 
     def flatten(self, leaves: dict[str, torch.Tensor]) -> torch.Tensor:
         """Named stacked (K, ...) leaves -> a fresh (K, row) buffer of the
-        layout's type."""
+        layout's type (of its own block's leaves)."""
         rows = [leaves[name].reshape(leaves[name].shape[0], -1).to(self.dtype)
                 for name in self.shapes]
         pad = self.row - self.size
         if pad:
             rows.append(rows[0].new_zeros(rows[0].shape[0], pad))
         return torch.cat(rows, dim=1)
+
+    def flatten_blocks(self, leaves: dict[str, torch.Tensor]) -> list[torch.Tensor]:
+        """Named stacked leaves -> one fresh buffer a block (``views``' order)."""
+        return [self.flatten(leaves)] + ([] if self.wide is None else
+                                         [self.wide.flatten(leaves)])
 
 
 class StalenessState(NamedTuple):
@@ -390,9 +440,22 @@ class AdaptiveRoundOps(NamedTuple):
     data_sizes: torch.Tensor  # (K,) float32 — n_k, ones without data sizes
 
 
+class WideState(NamedTuple):
+    """The float32 block of a mixed task's per-parameter buffers
+    (``ParamLayout.wide``): each (K, row) float32, its float32 leaves."""
+
+    params: torch.Tensor
+    momentum: torch.Tensor
+    d_bias: torch.Tensor
+    b_bias: torch.Tensor
+
+
 class P2PState(NamedTuple):
     """Stacked peer state: every tensor is (K, row), of the task's type (see
     ``ParamLayout``).
+
+    ``wide`` is a mixed task's float32 block of ``params`` .. ``b_bias``
+    (``WideState``), else ``()``.
 
     ``protocol`` holds the consensus protocol's own state: ``()`` for gossip,
     ``protocols.PushSumState`` ((K,) mass) for push-sum.
@@ -414,6 +477,30 @@ class P2PState(NamedTuple):
     adaptive: AdaptiveState | tuple = ()
     compression: torch.Tensor | tuple = ()
     staleness: StalenessState | tuple = ()
+    wide: WideState | tuple = ()
+
+
+def param_blocks(state: P2PState) -> list[torch.Tensor]:
+    """The state's parameter buffers: ``params``, and a mixed task's float32
+    block."""
+    return [state.params] + ([state.wide.params] if state.wide else [])
+
+
+def check_mixed(layout: ParamLayout, cfg: P2PConfig, *, scan_driver: bool = False) -> None:
+    """A mixed task (float32 leaves beside bf16 ones) mixes its two blocks
+    through ``consensus_mix``'s gossip step, one launch each; the modes that
+    take float32 only, the compressed wire and the scan driver raise."""
+    if layout.wide is None:
+        return
+    what = ("the scan driver" if scan_driver else
+            "push-sum's mass mode" if cfg.protocol != "gossip" else
+            "a compressed wire" if cfg.compressor != "none" else
+            "the snapshot mode of bounded staleness" if cfg.staleness_bound > 0 else
+            "adaptive selection's dense-operand mode" if cfg.schedule == "adaptive" else None)
+    if what is not None:
+        raise NotImplementedError(
+            f"{what} for a task of mixed leaf types (float32 leaves beside bf16 ones) is not "
+            "ported yet: ROADMAP.md queue 1 item 18b")
 
 
 @functools.cache
@@ -513,15 +600,23 @@ def init_state(
     """
     device = resolve_device(device)
     layout = ParamLayout.of(task)
+    check_mixed(layout, cfg)
     if init_params is None:
         gen = torch.Generator(device if task.init_on_device else "cpu").manual_seed(seed)
         init = resolve_init_fn(task)
         peers = [init(gen) for _ in range(cfg.num_peers)]
         stacked = {name: torch.stack([p[name] for p in peers]) for name in task.param_shapes}
         del peers
+        # the layout's types (``TrainTask.param_dtypes``) are the init's: a
+        # drawn leaf of another type is refused, never cast into a block
+        other = {name: str(leaf.dtype) for name, leaf in stacked.items()
+                 if leaf.dtype != layout.dtype_of(name)}
+        if other:
+            raise TypeError(f"{task.name}'s init drew {other}, which its layout holds as "
+                            f"{ {name: str(layout.dtype_of(name)) for name in other} }")
     else:
         stacked = {
-            name: torch.as_tensor(init_params[name], dtype=layout.dtype)
+            name: torch.as_tensor(init_params[name], dtype=layout.dtype_of(name))
             for name in task.param_shapes
         }
         for name, shape in task.param_shapes.items():
@@ -532,8 +627,11 @@ def init_state(
                 )
     if cfg.use_max_norm_init:
         stacked = consensus_lib.max_norm_sync(stacked)
-    params = layout.flatten(stacked).to(device)
+    params, *wide = (block.to(device) for block in layout.flatten_blocks(stacked))
     del stacked
+    if wide:
+        (wide,) = wide
+        wide = WideState(wide, *(torch.zeros_like(wide) for _ in range(3)))
     staleness = ()
     if cfg.staleness_bound > 0:
         # a copy, not an alias: the scan driver adopts each leaf's buffer
@@ -555,6 +653,7 @@ def init_state(
         adaptive=adaptive,
         compression=compression_lib.from_config(cfg).init_estimate(params),
         staleness=staleness,
+        wide=wide or (),
     )
 
 
@@ -602,14 +701,18 @@ def local_phase_stats(
     buffer as autograd returns it, with no flat copy: the arithmetic is the
     functional form's, operation for operation, and a step holds at most one
     (K, row) temporary beside the leaves' gradients, which lets the two
-    peers of a 1.9 B-parameter model train on one 80 GB card.
+    peers of a 1.9 B-parameter model train on one 80 GB card.  A mixed
+    task's float32 block (``P2PState.wide``) takes the same steps beside the
+    first, each leaf's gradient into its own block's momentum.
     """
     layout = ParamLayout.of(task)
     x, y = batches
-    params, mom = state.params, state.momentum
+    wide = state.wide
+    params, mom = param_blocks(state), [state.momentum] + ([wide.momentum] if wide else [])
+    d_bias = [state.d_bias] + ([wide.d_bias] if wide else [])
     step_losses = []
     for t in range(cfg.local_steps):
-        views = layout.views(params.detach().requires_grad_(True))
+        views = layout.views(*(p.detach().requires_grad_(True) for p in params))
         losses = task.loss_fn(views, (x[t], y[t]))  # (K,)
         # the peers share no parameters, so the gradient of the summed loss
         # is every peer's own gradient, stacked; a leaf the loss does not
@@ -617,53 +720,75 @@ def local_phase_stats(
         grads = list(torch.autograd.grad(losses.sum(), list(views.values()),
                                          materialize_grads=True))
         held = [] if steps_k is None else [  # (rows, their parameters, their momentum)
-            (rows, params[rows].clone(), mom[rows].clone() if cfg.momentum else None)
+            (rows, [p[rows].clone() for p in params],
+             [m[rows].clone() for m in mom] if cfg.momentum else None)
             for rows in _held_rows(steps_k, t)]
         owned = t > 0  # from step 1 on params and mom are the phase's own buffers
         if cfg.momentum:
             # momentum * mom + grads, each leaf's gradient summed into its view
             # of the product's buffer and released
-            new_mom = mom.mul_(cfg.momentum) if owned else cfg.momentum * mom
-            for i, view in enumerate(layout.views(new_mom).values()):
+            new_mom = [m.mul_(cfg.momentum) if owned else cfg.momentum * m for m in mom]
+            for i, view in enumerate(layout.views(*new_mom).values()):
                 view.add_(grads[i])
                 grads[i] = None
             update = new_mom
         else:
-            new_mom, update = mom, layout.flatten(dict(zip(views, grads)))
+            new_mom, update = mom, layout.flatten_blocks(dict(zip(views, grads)))
         del grads
-        if owned:  # params - lr * update, in place
-            new_params = params.sub_(cfg.lr * update)
-        else:
-            new_params = params - cfg.lr * update
-        if cfg.use_affinity_d:  # d fixed during the local phase; new_params is never an input
-            new_params.add_(cfg.eta_d * state.d_bias)
+        new_params = []
+        for p, u, d in zip(params, update, d_bias):
+            if owned:  # params - lr * update, in place
+                p = p.sub_(cfg.lr * u)
+            else:
+                p = p - cfg.lr * u
+            if cfg.use_affinity_d:  # d fixed during the local phase; p is never an input
+                p.add_(cfg.eta_d * d)
+            new_params.append(p)
         for rows, held_params, held_mom in held:
-            new_params[rows] = held_params
+            for p, kept in zip(new_params, held_params):
+                p[rows] = kept
             if cfg.momentum:
-                new_mom[rows] = held_mom
+                for m, kept in zip(new_mom, held_mom):
+                    m[rows] = kept
         params, mom = new_params, new_mom
         step_losses.append(losses.detach())
-    b_bias = state.b_bias
+    b_bias = [state.b_bias] + ([wide.b_bias] if wide else [])
     if cfg.use_affinity_b:
-        b_bias = params / max(cfg.consensus_steps, 1)
-    state = state._replace(params=params, momentum=mom, b_bias=b_bias)
+        b_bias = [p / max(cfg.consensus_steps, 1) for p in params]
+    if wide:
+        wide = WideState(params[1], mom[1], wide.d_bias, b_bias[1])
+    state = state._replace(params=params[0], momentum=mom[0], b_bias=b_bias[0], wide=wide)
     return state, torch.stack(step_losses)
 
 
-def _consensus_steps(state: P2PState, cfg: P2PConfig, mix) -> P2PState:
-    """S consensus steps of ``mix(proto_state, params) -> (proto_state,
-    mixed, d_step)``: d refreshed from each step's incoming neighbors (Eq. 3's
-    bias, Sec. IV-A), ``eta_b * b`` added after each mix (Eq. 4)."""
-    params, d_bias, proto_state = state.params, state.d_bias, state.protocol
+def _mix_block(params, d_bias, b_bias, proto_state, cfg: P2PConfig, mix):
+    """S consensus steps of one parameter block: (params, d, proto_state)."""
     for _ in range(cfg.consensus_steps):
         proto_state, mixed, d_step = mix(proto_state, params)
         if cfg.use_affinity_d:
             d_bias = d_step
         if cfg.use_affinity_b:
-            mixed = mixed + cfg.eta_b * state.b_bias
+            mixed = mixed + cfg.eta_b * b_bias
         params = mixed
+    return params, d_bias, proto_state
+
+
+def _consensus_steps(state: P2PState, cfg: P2PConfig, mix) -> P2PState:
+    """S consensus steps of ``mix(proto_state, params) -> (proto_state,
+    mixed, d_step)``: d refreshed from each step's incoming neighbors (Eq. 3's
+    bias, Sec. IV-A), ``eta_b * b`` added after each mix (Eq. 4).  A mixed
+    task's float32 block takes the same steps after the first block's
+    (gossip only, which ``init_state`` holds it to through ``check_mixed``:
+    no protocol state between them)."""
+    wide = state.wide
+    params, d_bias, proto_state = _mix_block(state.params, state.d_bias, state.b_bias,
+                                             state.protocol, cfg, mix)
+    if wide:
+        wide_params, wide_d, _ = _mix_block(wide.params, wide.d_bias, wide.b_bias, (), cfg, mix)
+        wide = wide._replace(params=wide_params, d_bias=wide_d)
     return state._replace(
-        params=params, d_bias=d_bias, protocol=proto_state, round_idx=state.round_idx + 1
+        params=params, d_bias=d_bias, protocol=proto_state, round_idx=state.round_idx + 1,
+        wide=wide,
     )
 
 
@@ -1183,6 +1308,7 @@ def make_scan_driver(
     serves every C.
     """
     device = resolve_device(device)
+    check_mixed(ParamLayout.of(task), cfg, scan_driver=True)
     if peers_per_device is not None and peers_per_device > 1:
         step = _hier_round_step(task, cfg, peers_per_device, mix_mode)
         ops_s = schedule_operands(cfg, data_sizes, device=device)
@@ -1202,7 +1328,7 @@ def make_scan_driver(
 
 def param_views(state: P2PState, task: task_lib.TrainTask) -> dict[str, torch.Tensor]:
     """The state's parameters as named (K, ...) leaves (views, no copies)."""
-    return ParamLayout.of(task).views(state.params)
+    return ParamLayout.of(task).views(*param_blocks(state))
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,10 @@ A task provides:
 ``dtype``
     The parameters' type, and so the flat buffer's (``p2p.ParamLayout``):
     float32, or bfloat16 for a bf16 model.
+``param_dtypes``
+    Each leaf's type where some differ from ``dtype`` (a bf16 model's
+    float32 leaves, which ``p2p.ParamLayout`` keeps in a second, float32
+    buffer), else None: every leaf of ``dtype``.
 ``init_on_device``
     Whether ``p2p.init_state`` draws the peers' parameters on the compute
     device (a registry model: 135 M parameters a peer take seconds on the
@@ -68,6 +72,7 @@ class TrainTask:
     description: str = ""
     dtype: torch.dtype = torch.float32
     init_on_device: bool = False
+    param_dtypes: dict[str, torch.dtype] | None = None
 
 
 _BUILDERS: dict[str, Callable[[], TrainTask]] = {}
@@ -180,17 +185,11 @@ def from_model(model) -> TrainTask:
     ``torch.func.vmap``, as the reference vmaps its per-peer loss; no eval
     head.  The dense, MoE and vlm decoders, rwkv6 and the zamba2 hybrid.
 
-    The flat buffer takes the model's type, and one buffer holds one type.
-    A bf16 rwkv6 or hybrid model's few float32 leaves (each layer's
-    ``decay_base`` and ``bonus_u``, or ``dt_bias``, ``A_log`` and ``D``: one
-    value a channel or a head) are held in bf16 with the rest, and the
-    layers widen them where they compute.  That departs from the reference,
-    which keeps them float32: a bf16 step of ``decay_base`` near -4 or of
-    ``D`` near 1 is larger than most SGD updates at lr 1e-2, so the buffer
-    loses them (``tools/leaf_precision.py`` measures it; a flat buffer of
-    mixed types is ROADMAP.md queue 1 item 18).  A bf16 MoE is refused,
-    since its float32 router is a (d, E) matrix whose rounding to bf16 can
-    change which experts each token takes."""
+    Each leaf keeps its init's type (``transformer.param_dtypes``): the
+    model's, but float32 for a bf16 rwkv6's decay base and bonus, a bf16
+    Mamba2 layer's ``dt_bias``, ``A_log`` and ``D`` and a bf16 MoE router,
+    as the reference keeps them; the flat layout holds those in a float32
+    block of their own (``p2p.ParamLayout``)."""
     from repro_torch.models import transformer as tf
 
     cfg = model.cfg
@@ -202,10 +201,8 @@ def from_model(model) -> TrainTask:
             f"training the {cfg.family!r} family's language model is not ported yet: "
             "ROADMAP.md queue 1 item 18")
     dtype = tf.compute_dtype(cfg)
-    if cfg.moe is not None and dtype != torch.float32:
-        raise NotImplementedError(
-            "a MoE decoder's router is float32 and its other leaves "
-            f"{cfg.dtype}: one flat buffer of mixed types is ROADMAP.md queue 1 item 18")
+    shapes = shapes_of[cfg.family](cfg)
+    types = tf.param_dtypes(cfg, shapes)
 
     def peer_loss(params, batch):
         tokens, labels = batch
@@ -213,7 +210,7 @@ def from_model(model) -> TrainTask:
 
     return TrainTask(
         name=cfg.name,
-        param_shapes=shapes_of[cfg.family](cfg),
+        param_shapes=shapes,
         init_params=model.init,
         loss_fn=torch.func.vmap(peer_loss, in_dims=(0, (0, 0))),
         apply_fn=_no_eval,
@@ -223,6 +220,7 @@ def from_model(model) -> TrainTask:
                     f"d_model={cfg.d_model}, {cfg.dtype})",
         dtype=dtype,
         init_on_device=True,
+        param_dtypes=types if set(types.values()) != {dtype} else None,
     )
 
 

@@ -89,8 +89,14 @@ def flat_from_jax(
     """A reference stacked parameter tree ((K, ...) numpy leaves, e.g. the
     reference's ``P2PState.params`` of a decoder) -> the port's (K, row)
     buffer of ``task``'s layout, in the task's type (``ParamLayout.dtype``:
-    a bf16 model's exported bf16 leaves carried bit for bit)."""
-    return p2p.ParamLayout.of(task).flatten(params_from_jax(tree)).to(device)
+    a bf16 model's exported bf16 leaves carried bit for bit).  A task of
+    mixed leaf types has two buffers, and raises: take
+    ``ParamLayout.flatten_blocks`` of ``params_from_jax(tree)``."""
+    layout = p2p.ParamLayout.of(task)
+    if layout.wide is not None:
+        raise ValueError(f"{task.name}'s leaves are of two types in two buffers "
+                         "(ParamLayout.flatten_blocks)")
+    return layout.flatten(params_from_jax(tree)).to(device)
 
 
 def state_from_jax(

@@ -1,349 +1,966 @@
-// Backward of the chunked Mamba2 SSD (ssd.cu), on Hopper (sm_90a).
+// Backward of the chunked Mamba2 SSD (ssd.cu), on Hopper (sm_90a): a chunked
+// form whose chunk products run on the tensor cores.
 //
 // The Pallas TPU kernel repro/kernels/mamba2/mamba2.py (`ssd_chunked`) has no
 // backward: the reference trains through its jnp chunk scan
 // (repro/models/ssm.py:mamba2_apply_chunked), which JAX differentiates.  The
 // port runs the forward as a hand-written kernel, so this kernel is its
-// backward; ref.ssd_bwd_ref is its plain version, the same recurrence.
+// backward; ref.ssd_bwd_ref is its plain version (the token recurrence) and
+// ref.ssd_bwd_chunked_ref the plain form of this decomposition.
 //
-// Per (batch b, head h), with the (P x N) state S, alpha_t = exp(dt_t a),
-// S_t = alpha_t S_{t-1} + dt_t x_t B_t^T, y_t = S_t C_t (B and C of head h's
-// group), and the incoming gradients dy (B, T, H, P) and dS_T or none:
+// Per (batch b, head h), with the (P x N) state S, chunks of Q = 64 tokens,
+// the log-decays l = dt a and, within a chunk, cum their inclusive prefix sum
+// (cl its last entry), e_s = exp(cl - cum_s), w_s = dt_s e_s, and
+// E[t,s] = exp(cum_t - cum_s) for s <= t (0 above the diagonal): the forward
+// gives y_t = sum_{s<=t} E[t,s] (C_t . B_s) dt_s x_s + exp(cum_t) S_c C_t and
+// S_{c+1} = exp(cl) S_c + sum_s w_s x_s B_s^T.  Given dy and dS_T:
 //
-//   forward pass, S from the state in:  dC_t(h) = S_t^T dy_t
-//   reverse pass, G = dL/dS_t from dS_T:
-//     G    += dy_t C_t^T
-//     dx_t  = dt_t G B_t,   dB_t(h) = dt_t G^T x_t
-//     G     = alpha_t G                          (G_0 = dS_0)
-//   dl_t   = alpha_t <G_t, S_{t-1}> = dl_{t+1} + C_t . dC_t(h) - x_t . dx_t:
-//            the log-decay l = dt a's gradient, a running sum in the reverse
-//            pass (ref.ssd_bwd_ref derives it), restarted at every chunk's
-//            end from the direct alpha <G, S> against the state the forward
-//            pass saved there: over a long memory the sum's terms cancel far
-//            above dl (da lost 3e-4 of its float32 value over 1024 tokens;
-//            restarted every 16 tokens, 4e-6)
-//   ddt_t  = x_t . (G_t B_t) + a dl_t,   da = sum_t dt_t dl_t
+//   1. each chunk's prefix sums cum, by one thread a (b, h, chunk), in order;
+//   2. the chunk-start states and chunk-end gradients: for each (b, h) a
+//      pass over the T / Q chunks, S_{c+1} = exp(cl) S_c + X^T (B o w) from
+//      the state in, and a reverse pass G_c = exp(cl) G_{c+1} + (dY o
+//      exp(cum))^T C from dS_T, each chunk's product (a P x Q by Q x N one) on
+//      the tensor cores; S_c and G_{c+1} are kept for step 3, and G_0 is dS_0;
+//   3. within a chunk (in parallel over (b, h, chunk)), with dAtt = dY X^T:
+//        dC  = exp(cum) o (dY S_c) + (dAtt o E o dt_s) B
+//        dxr = e o (B G_{c+1}^T) + (E o C B^T)^T dY,   dx = dt o dxr
+//        dB  = w o (X G_{c+1}) + (dAtt o E o dt_s)^T C
+//      (dB and dC per head), and the log-decays' gradient from those products:
+//        dcum_t = C_t . dC_t - dt_t x_t . dxr_t  (the row sums minus the
+//                 column sums of dAtt o att, plus the state terms)
+//                 + [t = Q - 1] <G_{c+1}, S_{c+1}>,
+//        <G_{c+1}, S_{c+1}> = exp(cl) <G_{c+1}, S_c> + sum_s dt_s x_s . (e_s G_{c+1} B_s),
+//        dl_t = sum_{t' >= t in the chunk} dcum_t',
+//        ddt_t = x_t . dxr_t + a dl_t,  da = sum_t dt_t dl_t;
+//   4. dB and dC summed over each group's heads, da over the chunks and the
+//      batch elements that share a row of a, by two small kernels.
 //
-// Memory: the forward saves nothing beyond its operands: the kernel's forward
-// pass rebuilds the states, one token at a time, and writes the state at each
-// chunk's end but the last to a scratch ((T / 16) P N float32 a (b, h): 165 MB
-// at zamba2's 2 peers x batch 1, T 1024, H 80).  Its other scratch is the
-// per-head dB and dC, (B, T, H, N) float32 each (42 MB each there), and
-// (B, H) partials of da; dB and dC are then summed over each group's heads
-// and da over the batch elements that share a row of a by a second and third
-// kernel, in a fixed order: no atomics, so two calls are equal bit for bit.
+// No running sum spans more than a chunk: dl restarts at every chunk's end
+// from the direct inner product, so the cancellation of a sequence-long sum
+// (ref.ssd_bwd_ref restarts every 16 tokens for it) does not arise, and every
+// exponent is a sum of log-decays cum_t - cum_s with s <= t (or cum_t, cl -
+// cum_s, cl), <= 0: no exp(-cum) alone, so a log-decay of -50 a step stays
+// finite.  dl is summed within the chunk in a fixed order by one lane, as
+// ssd.cu's prefix sums are; no atomics anywhere, so two calls are equal bit
+// for bit.
 //
-// Design: one CTA per (b, h) with the whole P x N float32 state in registers,
-// 4 x 4 entries a thread at P = N = 64 (256 threads: column groups cg the low
-// bits of the thread index, 16 row groups).  Tokens are staged 16 at a time
-// into shared memory (float32) and walked one by one; within a chunk no
-// thread waits on another: a row sum (G B) is reduced across the row's lanes
-// by shuffles, a column sum (S^T dy, G^T x) across the warp's row groups by
-// shuffles and across the warps after the chunk, and all are kept in shared
-// memory until the chunk's epilogue (one warp a token) writes dx, the dB and
-// dC partials and the per-token dots; one thread then runs the chunk's
-// scalar running sum of dl.  The forward pass writes C . dC into the ddt
-// output, which the reverse pass reads back before it overwrites it.  x, B
-// and C are read through the model's (batch, token) strides, as the forward
-// reads them.  Every sum is float32; dx is written in x's type, dB and dC in
-// B's, ddt, da and dS_0 in float32.
+// Design:
+// - Step 2 takes one block of 8 warps a (b, h) and pass (320 at zamba2's
+//   trained shape, B 2 = 2 peers x batch 1, H 80, T 1024), the state's P x N
+//   in registers (warp w: rows 16 (w % 4) .., half of the columns at P = N
+//   = 64), each chunk's x or dy, B or C, dt and cum staged by cp.async two
+//   chunks ahead of the one it computes.
+// - Step 3 takes one block of 4 warps a (b, h, chunk), 2,560 there (the token
+//   loop ran 160).  It stages the chunk's x, dy, B, C, S_c and G_{c+1} with
+//   cp.async, all 64 rows, those past T zero-filled (dt = 0: they change
+//   nothing, as the forward's zero padding), x, B and C read in place
+//   through the model's (batch, token) strides.  Warp w owns rows 16 w ..
+//   16 w + 15 of the chunk twice: as rows t of dAtt (the w + 1 pairs of
+//   8-column tiles at or below the diagonal) for dC, and as rows s of the
+//   transposed products C B^T and X dY^T (the 4 - w pairs at or above it)
+//   for dx and dB, recomputed rather than exchanged through shared memory.
+//   Each masked pair is taken into its accumulator at once, as an A operand
+//   straight from registers (the accumulator's layout, with the k order
+//   permuted, is the A fragment's, as in ssd.cu).  The row tile is a run-time
+//   index, not a template argument: four unrolled copies of the code, one a
+//   warp, overflowed the instruction cache and ran at half the speed.
+// - Products: mma.sync.m16n8k8 TF32 with float32 operands split 3xTF32 and
+//   bf16 x, B and C widened exactly (tf32_mma.cuh), as ssd.cu: every product
+//   with dy (float32, from the model) or a float32 intermediate takes the
+//   split (its low part left to the tensor cores' truncation, `split`); one
+//   TF32 pass fails the float32 check (tests/test_torch_ssm_train.py emulates
+//   both).  The passes of a product run across a group of tiles (`mma_group`)
+//   so that no two on one accumulator are back to back.  Not wgmma: a
+//   warpgroup takes a 64-row tile as one, while here each warp's 16 rows take
+//   their own share of the masked triangles, kept in registers and handed on
+//   as A operands; a wgmma form is left open.
+// - Shared memory free of bank conflicts on the fragment loads: bf16 rows
+//   with their 16-byte chunks XOR-swizzled by row (ldmatrix); float32 rows of
+//   32 or 64 with their 8-float groups XOR-swizzled by (r & 3) ^ ((r >> 2) &
+//   1), which serves the float2 row fragments and the scalar column fragments
+//   alike (narrower float32 rows padded).  Step 3 at P = N = 64: 75 KB a
+//   block with bf16 x, B and C (three blocks an SM), 99 KB in float32 (two).
+// - Scratch (ops.bwd_scratch): the chunks' cum, S_c and G_{c+1}, 2 (T / 64)
+//   P N float32 a (b, h) (84 MB at zamba2's trained shape, where the token
+//   loop kept 165 MB of states), the per-head dB and dC (B, T, H, N) float32
+//   and the (B, H, T / 64) partials of da.
 //
-// Bound on an H100 SXM (chip_smoke.py:ssd_bwd_work): at zamba2's trained
-// shape (B 2 = 2 peers x batch 1, T 1024, H 80, P = N = 64, one group, bf16
-// x, B, C, a state in) a call reads x (bf16, 21 MB), B, C, dt and dy
-// (float32, 42 MB) and writes dx (21 MB), dB, dC and ddt, with the states:
-// 96 MB, 0.029 ms at 3.35 TB/s; the two passes do 12 P N + 20 (P + N)
-// operations a token and head, 8.5 GFLOP, 0.13 ms at 67 TFLOP/s float32: it
-// is bound by operations.  This first design walks the tokens one at a time;
-// its time against that bound is in PERF.md.
+// Bound on an H100 SXM (chip_smoke.py:ssd_bwd_work, the work of the
+// function, whatever computes it): at zamba2's trained shape with bf16 x, B,
+// C and a state in, 96 MB read and written once, 0.027 ms at 3.35 TB/s; the
+// token recurrence's 8.5 GFLOP would take 0.13 ms on the float32 pipes.  This
+// design moves more (its scratch is written and read again) and does more
+// (eleven chunk products in 2 or 3 TF32 passes, as many again in step 2's
+// and the recomputed transposes); its time is in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
-constexpr int kQ = 16;  // tokens staged a chunk
+constexpr int kQ = 64;  // tokens a chunk (ref.BWD_Q)
+constexpr int kWarps = 4;  // one 16-row tile of the chunk each
+constexpr int kThreads = 32 * kWarps;
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
+// A fragment as TF32 parts (tf32_mma.cuh's parts), the low part of a split
+// value left unrounded: the tensor cores read the 19 high bits of a .tf32
+// operand, so they truncate lo themselves (at most 2^-21 |v| lost, where
+// rounding loses 2^-22), two integer operations a value fewer.
+template <bool kSplit, int R>
+__device__ __forceinline__ Parts<R> split(const float (&v)[R]) {
+  Parts<R> f;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if constexpr (kSplit) {
+      f.hi[i] = tf32_rna(v[i]);
+      f.lo[i] = __float_as_uint(v[i] - __uint_as_float(f.hi[i]));
+    } else {
+      f.hi[i] = __float_as_uint(v[i]);
+      f.lo[i] = 0u;
+    }
+  }
+  return f;
 }
 
-// The thread layout of a (P, N) state: NCG column groups of CN columns on the
-// low bits of the thread index, NRG row groups of RP rows; a warp holds
-// 32 / NCG row groups.
-template <int P, int N>
-struct Lay {
-  static constexpr int NCG = N < 16 ? N : 16, CN = N / NCG;
-  static constexpr int NRG = P < 16 ? P : 16, RP = P / NRG;
-  static constexpr int kThreads = NRG * NCG, kWarps = kThreads / 32;
-  static_assert(kThreads % 32 == 0 && RP <= NCG, "thread layout");
-  // float offsets of the dynamic shared memory: the staged chunk (x, dy,
-  // B, C, dt, alpha and the forward pass's C . dC), the chunk's row sums
-  // G B, the warps' column partials, the per-token x . (G B), the final
-  // state's term and the warps' partial sums of it
-  static constexpr int x = 0, dy = x + kQ * P, b = dy + kQ * P, c = b + kQ * N,
-                       dt = c + kQ * N, al = dt + kQ, cdc = al + kQ, row = cdc + kQ,
-                       col = row + kQ * P, xgb = col + kQ * kWarps * N, f = xgb + kQ,
-                       total = f + kWarps;
+// d[i] += a b[i] over a group of NB tiles sharing the A fragment, pass by
+// pass across the group (the passes of tf32_mma.cuh's mma_parts, small terms
+// first), so that the passes on one accumulator are NB instructions apart
+template <bool kSA, bool kSB, int NB>
+__device__ __forceinline__ void mma_group(float (*d)[4], const Parts<4>& a,
+                                          const Parts<2> (&b)[NB]) {
+  if constexpr (kSA) {
+#pragma unroll
+    for (int i = 0; i < NB; ++i) mma_tf32(d[i], a.lo, b[i].hi);
+  }
+  if constexpr (kSB) {
+#pragma unroll
+    for (int i = 0; i < NB; ++i) mma_tf32(d[i], a.hi, b[i].lo);
+  }
+#pragma unroll
+  for (int i = 0; i < NB; ++i) mma_tf32(d[i], a.hi, b[i].hi);
+}
+
+// A staged (R x W) operand of type T in shared memory.  bf16: rows of W
+// elements, the 16-byte chunks of row r XOR-swizzled by r / (8 / (W / 8)) (as
+// ssd.cu's Tile).  float32 with W >= 32: rows of W floats, the 8-float groups
+// of row r XOR-swizzled by f(r) = (r & 3) ^ ((r >> 2) & 1), distinct over
+// any four consecutive rows and over rows 2q (and 2q + 1) for q = 0 .. 3, so
+// both fragment shapes below fall in 32 different banks; narrower float32
+// rows padded by 4.
+//
+// Fragment loads, for lane (g = lane / 4, q = lane % 4), with the k order
+// permuted so that k = q reads element 2 q and k = q + 4 element 2 q + 1 of
+// the eight (the same permutation on both operands of a product):
+//   rows_a(r0, k0): a = M[r0+g][k0+2q], M[r0+g+8][k0+2q], M[r0+g][k0+2q+1],
+//                       M[r0+g+8][k0+2q+1]  (A of a product along the rows)
+//   rows_b(r0, k0): b = M[r0+g][k0+2q], M[r0+g][k0+2q+1]  (one 8-column tile)
+//   cols_a(k0, c0): a = M[k0+2q][c0+g], M[k0+2q][c0+g+8], M[k0+2q+1][c0+g],
+//                       M[k0+2q+1][c0+g+8]  (A of a product down the columns)
+//   cols_b(k0, c0): b = M[k0+2q][c0+g], M[k0+2q+1][c0+g]; NM column tiles
+//                   c0 + 8 m (at most 4)
+template <typename T, int R, int W>
+struct Op {
+  using Type = T;
+  static constexpr bool kBf16 = sizeof(T) == 2;
+  static constexpr bool kSwz = !kBf16 && W >= 32;
+  static constexpr int kStride = kBf16 || kSwz ? W : W + 4;
+  static constexpr int kBytes = R * kStride * static_cast<int>(sizeof(T));
+  static_assert(!kBf16 || (W >= 16 && W <= 64), "bf16 rows of 2 to 8 chunks");
+  static_assert(kBytes % 16 == 0, "16-byte sections");
+  const T* p;
+
+  static __device__ __forceinline__ int off(int r, int c) {
+    if constexpr (kBf16) {
+      constexpr int kChunks = W / 8, kGroup = 8 / kChunks;
+      return r * W + ((((c >> 3) ^ (r / kGroup)) & (kChunks - 1)) << 3) + (c & 7);
+    } else if constexpr (kSwz) {
+      return r * W + (c ^ (((r & 3) ^ ((r >> 2) & 1)) << 3));
+    } else {
+      return r * kStride + c;
+    }
+  }
+
+  __device__ __forceinline__ float at(int r, int c) const {
+    if constexpr (kBf16) {
+      return __bfloat162float(p[off(r, c)]);
+    } else {
+      return p[off(r, c)];
+    }
+  }
+
+  __device__ __forceinline__ void rows_a(float (&a)[4], int r0, int k0) const {
+    const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+    if constexpr (kBf16) {
+      uint32_t r[2];
+      ldsm<2, false>(r, p + off(r0 + (lane & 15), k0));
+      a[0] = bf_lo(r[0]);
+      a[2] = bf_hi(r[0]);
+      a[1] = bf_lo(r[1]);
+      a[3] = bf_hi(r[1]);
+    } else {
+      const float2 u = *reinterpret_cast<const float2*>(p + off(r0 + g, k0 + 2 * q));
+      const float2 v = *reinterpret_cast<const float2*>(p + off(r0 + g + 8, k0 + 2 * q));
+      a[0] = u.x;
+      a[1] = v.x;
+      a[2] = u.y;
+      a[3] = v.y;
+    }
+  }
+
+  __device__ __forceinline__ void rows_b(float (&b)[2], int r0, int k0) const {
+    const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+    if constexpr (kBf16) {
+      uint32_t r[1];
+      ldsm<1, false>(r, p + off(r0 + (lane & 7), k0));
+      b[0] = bf_lo(r[0]);
+      b[1] = bf_hi(r[0]);
+    } else {
+      const float2 u = *reinterpret_cast<const float2*>(p + off(r0 + g, k0 + 2 * q));
+      b[0] = u.x;
+      b[1] = u.y;
+    }
+  }
+
+  __device__ __forceinline__ void cols_a(float (&a)[4], int k0, int c0) const {
+    const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+    if constexpr (kBf16) {
+      uint32_t r[2];
+      ldsm<2, true>(r, p + off(k0 + (lane & 7), c0 + 8 * ((lane >> 3) & 1)));
+      a[0] = bf_lo(r[0]);
+      a[2] = bf_hi(r[0]);
+      a[1] = bf_lo(r[1]);
+      a[3] = bf_hi(r[1]);
+    } else {
+      a[0] = p[off(k0 + 2 * q, c0 + g)];
+      a[1] = p[off(k0 + 2 * q, c0 + g + 8)];
+      a[2] = p[off(k0 + 2 * q + 1, c0 + g)];
+      a[3] = p[off(k0 + 2 * q + 1, c0 + g + 8)];
+    }
+  }
+
+  template <int NM>
+  __device__ __forceinline__ void cols_b(float (&b)[NM][2], int k0, int c0) const {
+    static_assert(NM >= 1 && NM <= 4 && NM != 3, "1, 2 or 4 column tiles");
+    const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+    if constexpr (kBf16) {
+      uint32_t r[NM];
+      ldsm<NM, true>(r, p + off(k0 + (lane & 7), c0 + 8 * ((lane >> 3) % NM)));
+#pragma unroll
+      for (int m = 0; m < NM; ++m) {
+        b[m][0] = bf_lo(r[m]);
+        b[m][1] = bf_hi(r[m]);
+      }
+    } else {
+#pragma unroll
+      for (int m = 0; m < NM; ++m) {
+        b[m][0] = p[off(k0 + 2 * q, c0 + 8 * m + g)];
+        b[m][1] = p[off(k0 + 2 * q + 1, c0 + 8 * m + g)];
+      }
+    }
+  }
 };
 
-template <typename TI, int P, int N>
-__device__ __forceinline__ void stage(float* sm, const TI* __restrict__ x_base,
-                                      const TI* __restrict__ b_base,
-                                      const TI* __restrict__ c_base,
-                                      const float* __restrict__ dt_base,
-                                      const float* __restrict__ dy_base, const float* cdc_src,
-                                      int64_t x_st, int64_t b_st, int64_t c_st, int H, float a_h,
-                                      int t0, int nt) {
-  using L = Lay<P, N>;
-  const int64_t dy_st = static_cast<int64_t>(H) * P;
-  for (int e = threadIdx.x; e < kQ * P; e += L::kThreads) {
-    const int t = e / P, p = e - t * P;
-    const bool ok = t < nt;
-    sm[L::x + e] = ok ? to_f(x_base[(t0 + t) * x_st + p]) : 0.0f;
-    sm[L::dy + e] = ok ? dy_base[(t0 + t) * dy_st + p] : 0.0f;
-  }
-  for (int e = threadIdx.x; e < kQ * N; e += L::kThreads) {
-    const int t = e / N, n = e - t * N;
-    const bool ok = t < nt;
-    sm[L::b + e] = ok ? to_f(b_base[(t0 + t) * b_st + n]) : 0.0f;
-    sm[L::c + e] = ok ? to_f(c_base[(t0 + t) * c_st + n]) : 0.0f;
-  }
-  for (int t = threadIdx.x; t < kQ; t += L::kThreads) {
-    const bool ok = t < nt;
-    const float dt = ok ? dt_base[static_cast<int64_t>(t0 + t) * H] : 0.0f;
-    sm[L::dt + t] = dt;
-    sm[L::al + t] = expf(dt * a_h);
-    // the reverse pass reads back the forward pass's C . dC
-    if (cdc_src != nullptr) sm[L::cdc + t] = ok ? cdc_src[static_cast<int64_t>(t0 + t) * H] : 0.0f;
+// Start the copies of R rows of `cols` elements of type T into an operand's
+// layout, row r from src + r * st, rows from `valid` on zero-filled.
+template <typename O>
+__device__ __forceinline__ void stage(unsigned char* dst, const typename O::Type* src, int64_t st,
+                                      int rows, int cols, int valid) {
+  using T = typename O::Type;
+  constexpr int kE = 16 / static_cast<int>(sizeof(T));  // elements a copy
+  T* d = reinterpret_cast<T*>(dst);
+  const int per = cols / kE;
+  for (int e = threadIdx.x; e < rows * per; e += blockDim.x) {
+    const int r = e / per, i = (e - r * per) * kE;
+    const bool ok = r < valid;
+    cp_async16(d + O::off(r, i), ok ? src + r * st + i : src, ok);
   }
 }
 
-template <typename TI, int P, int N>
-__global__ void __launch_bounds__(Lay<P, N>::kThreads, 2)
-ssd_bwd_kernel(const TI* __restrict__ x, const TI* __restrict__ bm, const TI* __restrict__ cm,
-               const float* __restrict__ dt, const float* __restrict__ a,
-               const float* __restrict__ state_in, const float* __restrict__ dy,
-               const float* __restrict__ dstate_out, TI* __restrict__ dx,
-               float* __restrict__ db_part, float* __restrict__ dc_part, float* ddt,
-               float* __restrict__ da_part, float* __restrict__ ckpt,
-               float* __restrict__ dstate_in, int T, int H, int G,
-               int a_batch, int64_t x_sb, int64_t x_st, int64_t b_sb, int64_t b_st,
-               int64_t c_sb, int64_t c_st) {
-  using L = Lay<P, N>;
-  constexpr int RP = L::RP, CN = L::CN, NCG = L::NCG, NW = L::kWarps;
-  extern __shared__ __align__(16) float sm[];
-  const int bh = blockIdx.x, b = bh / H, h = bh - b * H, grp = h / (H / G);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int cg = tid % NCG, r0 = (tid / NCG) * RP, c0 = cg * CN;
+// The chunk's 64 dt (stride H), rows from `valid` on zero.
+__device__ __forceinline__ void stage_dt(float* sdt, const float* dt_base, int H, int valid) {
+  for (int r = threadIdx.x; r < kQ; r += blockDim.x) {
+    const bool ok = r < valid;
+    cp_async4(sdt + r, ok ? dt_base + static_cast<int64_t>(r) * H : dt_base, ok);
+  }
+}
+
+// The byte layout of step 3's dynamic shared memory.
+template <typename T, int P, int N>
+struct Cfg {
+  static constexpr bool kS = sizeof(T) == 4;  // float32 inputs carry a low part
+  static constexpr int NS = N < 16 ? 16 : N;  // staged width of B and C
+  static constexpr int NT = N / 8, PT = P / 8;  // column tiles of N and of P
+  using XT = Op<T, kQ, P>;
+  using YT = Op<float, kQ, P>;
+  using BT = Op<T, kQ, NS>;
+  using ST = Op<float, P, N>;
+  // x, dy, B, C, S_c, G_{c+1}, dt, cum, the rows' C . dC, x . dxr and
+  // x . (e G B), and the warps' partials of <G, S_c>
+  static constexpr int kX = 0, kY = kX + XT::kBytes, kB = kY + YT::kBytes, kC = kB + BT::kBytes,
+                       kS0 = kC + BT::kBytes, kG = kS0 + ST::kBytes, kDt = kG + ST::kBytes;
+  static constexpr int kGradBytes = kDt + 5 * kQ * 4 + 16;
+  // blocks an SM's 228 KB hold (1 KB of it reserved a block), at most 4
+  static constexpr int kFit = 233472 / (kGradBytes + 1024);
+  static constexpr int kGradBlocks = kFit < 1 ? 1 : kFit < 4 ? kFit : 4;
+};
+
+// ------------------------------- steps 1 and 2: the chunk-start states --
+
+// Each chunk's prefix sums of its log-decays, by one thread a (b, h, chunk),
+// in order, as ssd.cu sums them (no fused multiply-add); rows past T have
+// dt = 0.  Thread e is chunk c of (b, h) for e = (b nc + c) H + h, so a
+// warp's loads of one token's dt are contiguous.
+__global__ void __launch_bounds__(256)
+chunk_cums(const float* __restrict__ dt, const float* __restrict__ a, float* __restrict__ cum,
+           int B, int T_len, int H, int a_batch) {
+  const int nc = (T_len + kQ - 1) / kQ;
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= static_cast<int64_t>(B) * nc * H) return;
+  const int h = static_cast<int>(e % H), c = static_cast<int>(e / H % nc);
+  const int b = static_cast<int>(e / (static_cast<int64_t>(H) * nc));
   const float a_h = a[static_cast<int64_t>(b / a_batch) * H + h];
-  const TI* x_base = x + b * x_sb + static_cast<int64_t>(h) * P;
-  const TI* b_base = bm + b * b_sb + static_cast<int64_t>(grp) * N;
-  const TI* c_base = cm + b * c_sb + static_cast<int64_t>(grp) * N;
-  const int64_t bth = static_cast<int64_t>(b) * T * H + h;  // (b, 0, h) of a (B, T, H) array
-  const float* dt_base = dt + bth;
-  const float* dy_base = dy + bth * P;
-  TI* dx_base = dx + bth * P;
-  float* ddt_base = ddt + bth;
-  const int64_t state_off = static_cast<int64_t>(bh) * P * N;
-
-  float S[RP][CN];
+  const int t0 = c * kQ, valid = T_len - t0 < kQ ? T_len - t0 : kQ;
+  const float* src = dt + (static_cast<int64_t>(b) * T_len + t0) * H + h;
+  float* dst = cum + ((static_cast<int64_t>(b) * H + h) * nc + c) * kQ;
+  float v[kQ];
 #pragma unroll
-  for (int i = 0; i < RP; ++i)
+  for (int t = 0; t < kQ; ++t) v[t] = t < valid ? src[static_cast<int64_t>(t) * H] : 0.0f;
+  float run = 0.0f;
 #pragma unroll
-    for (int j = 0; j < CN; ++j)
-      S[i][j] = state_in != nullptr
-                    ? state_in[state_off + static_cast<int64_t>(r0 + i) * N + c0 + j]
-                    : 0.0f;
+  for (int t = 0; t < kQ; t += 4) {
+    float4 out;
+    run = __fadd_rn(run, __fmul_rn(v[t], a_h));
+    out.x = run;
+    run = __fadd_rn(run, __fmul_rn(v[t + 1], a_h));
+    out.y = run;
+    run = __fadd_rn(run, __fmul_rn(v[t + 2], a_h));
+    out.z = run;
+    run = __fadd_rn(run, __fmul_rn(v[t + 3], a_h));
+    out.w = run;
+    *reinterpret_cast<float4*>(dst + t) = out;
+  }
+}
 
-  const int nc = (T + kQ - 1) / kQ;
-  // a thread's entries of the state at the end of chunk ch < nc - 1, in
-  // thread order (coalesced)
-  auto ckpt_at = [&](int ch, int i, int j) -> float& {
-    return ckpt[((static_cast<int64_t>(bh) * (nc - 1) + ch) * (RP * CN) + i * CN + j) *
-                    L::kThreads + tid];
+// A block of steps 1-2 owns one (b, h) and one pass: the forward pass (S_c,
+// from x and B) or the reverse one (G_{c+1}, from dy and C).  Its byte
+// layout: kStages stages of a chunk's x or dy, B or C, dt and prefix sums.
+template <typename T, int P, int N>
+struct StateCfg {
+  static constexpr int NS = N < 16 ? 16 : N;
+  using XT = Op<T, kQ, P>;
+  using YT = Op<float, kQ, P>;
+  using BT = Op<T, kQ, NS>;
+  static constexpr int kB = YT::kBytes, kDt = kB + BT::kBytes, kCum = kDt + kQ * 4;
+  static constexpr int kStages = 3;  // chunks in flight: two staged ahead of the one computed
+  static constexpr int kStage = kCum + kQ * 4, kBytes = kStages * kStage;
+  // 8 warps: row tiles of P, and groups of the state's column tiles
+  static constexpr int kWarps = 8, kRowTiles = P / 16, kGroups = kWarps / kRowTiles;
+  static constexpr int NT = N / 8, NTW = NT < kGroups ? 1 : NT / kGroups;
+};
+
+// Steps 1 and 2 for one (b, h): chunk by chunk, U_c (or L_c) on the tensor
+// cores, then S_{c+1} = exp(cl) S_c + U_c (G_c = exp(cl) G_{c+1} + L_c) in
+// registers, S_c (G_{c+1}) written; the next two chunks' operands are
+// staged while one computes.  Warp w owns state rows 16 (w % R) .. and column tiles
+// NTW (w / R) .. (R row tiles of P).
+template <typename T, int P, int N>
+__global__ void __launch_bounds__(256, 3)
+chunk_states(const T* __restrict__ x, const T* __restrict__ bm, const T* __restrict__ cm,
+             const float* __restrict__ dt, const float* __restrict__ dy,
+             const float* __restrict__ state_in, const float* __restrict__ dstate_out,
+             const float* __restrict__ cum, float* __restrict__ sbuf, float* __restrict__ gbuf,
+             float* __restrict__ dstate_in, int T_len, int H, int G, int64_t x_sb, int64_t x_st,
+             int64_t b_sb, int64_t b_st, int64_t c_sb, int64_t c_st) {
+  using C = StateCfg<T, P, N>;
+  constexpr bool kS = sizeof(T) == 4;
+  constexpr int NTW = C::NTW;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int reverse = blockIdx.x & 1, bh = blockIdx.x >> 1;
+  const int b = bh / H, h = bh - b * H, grp = h / (H / G);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gi = lane >> 2, tq = lane & 3;
+  const int p0 = 16 * (warp % C::kRowTiles), n0 = 8 * NTW * (warp / C::kRowTiles);
+  const bool owner = n0 < N;
+  const int nc = (T_len + kQ - 1) / kQ;
+  const int64_t bth = static_cast<int64_t>(b) * T_len * H + h;  // (b, 0, h) of (B, T, H)
+  const int64_t st_off = static_cast<int64_t>(bh) * P * N;
+  float* out = (reverse ? gbuf : sbuf) + static_cast<int64_t>(bh) * nc * P * N;
+
+  // the chunk of step i, staged into stage i % kStages
+  auto stage_step = [&](int i) {
+    const int c = reverse ? nc - 1 - i : i;
+    unsigned char* buf = smem + (i % C::kStages) * C::kStage;
+    const int t0 = c * kQ, valid = T_len - t0 < kQ ? T_len - t0 : kQ;
+    if (reverse) {
+      stage<typename C::YT>(buf, dy + (bth + static_cast<int64_t>(t0) * H) * P,
+                            static_cast<int64_t>(H) * P, kQ, P, valid);
+      stage<typename C::BT>(buf + C::kB,
+                            cm + b * c_sb + t0 * c_st + static_cast<int64_t>(grp) * N, c_st, kQ,
+                            N, valid);
+    } else {
+      stage<typename C::XT>(buf, x + b * x_sb + t0 * x_st + static_cast<int64_t>(h) * P, x_st,
+                            kQ, P, valid);
+      stage<typename C::BT>(buf + C::kB,
+                            bm + b * b_sb + t0 * b_st + static_cast<int64_t>(grp) * N, b_st, kQ,
+                            N, valid);
+    }
+    stage_dt(reinterpret_cast<float*>(buf + C::kDt), dt + bth + static_cast<int64_t>(t0) * H,
+             H, valid);
+    stage<Op<float, 1, kQ>>(buf + C::kCum, cum + (static_cast<int64_t>(bh) * nc + c) * kQ, kQ,
+                            1, kQ, 1);
+    cp_async_commit();
   };
-  // forward pass: S_t, dC_t(h) = S_t^T dy_t, and C_t . dC_t(h) into ddt
-  for (int ch = 0; ch < nc; ++ch) {
-    const int t0 = ch * kQ, nt = min(kQ, T - t0);
-    __syncthreads();
-    stage<TI, P, N>(sm, x_base, b_base, c_base, dt_base, dy_base, nullptr, x_st, b_st, c_st, H,
-                    a_h, t0, nt);
-    __syncthreads();
-    for (int t = 0; t < nt; ++t) {
-      const float al = sm[L::al + t], dtt = sm[L::dt + t];
-      float pc[CN];
+
+  // the state's entries of this thread: rows p0 + gi (+ 8), columns
+  // n0 + 8 i + 2 tq (+ 1)
+  float s[NTW][4];
+  const float* init = reverse ? dstate_out : state_in;
 #pragma unroll
-      for (int j = 0; j < CN; ++j) pc[j] = 0.0f;
+  for (int i = 0; i < NTW; ++i) {
+    const int n = n0 + 8 * i + 2 * tq;
 #pragma unroll
-      for (int i = 0; i < RP; ++i) {
-        const float xs = dtt * sm[L::x + t * P + r0 + i], dyi = sm[L::dy + t * P + r0 + i];
+    for (int e = 0; e < 4; ++e) {
+      const int64_t at = st_off + (p0 + gi + 8 * (e >> 1)) * N + n + (e & 1);
+      s[i][e] = init != nullptr && owner ? init[at] : 0.0f;
+    }
+  }
+  stage_step(0);
+  if (nc > 1) stage_step(1);
+  for (int step = 0; step < nc; ++step) {
+    const int c = reverse ? nc - 1 - step : step;
+    if (step + 2 < nc) {
+      stage_step(step + 2);
+      cp_async_wait_group<2>();
+    } else if (step + 1 < nc) {
+      cp_async_wait_group<1>();
+    } else {
+      cp_async_wait_group<0>();
+    }
+    __syncthreads();  // chunk c staged
+    const unsigned char* buf = smem + (step % C::kStages) * C::kStage;
+    const float* s_dt = reinterpret_cast<const float*>(buf + C::kDt);
+    const float* s_cum = reinterpret_cast<const float*>(buf + C::kCum);
+    if (owner) {
+      const float cl = s_cum[kQ - 1], decay = expf(cl);
+      float acc[NTW][4];
 #pragma unroll
-        for (int j = 0; j < CN; ++j) {
-          S[i][j] = fmaf(al, S[i][j], xs * sm[L::b + t * N + c0 + j]);
-          pc[j] = fmaf(S[i][j], dyi, pc[j]);
+      for (int i = 0; i < NTW; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+      const typename C::BT bs{reinterpret_cast<const T*>(buf + C::kB)};
+      // U = X^T (B o w) or L = (dY o exp(cum))^T C: rows p, k over the
+      // chunk's rows, columns n; the float32 factor on the operand that is
+      // float32 already (bf16 x, B and C stay exact: two TF32 passes)
+#pragma unroll 2
+      for (int k0 = 0; k0 < kQ; k0 += 8) {
+        const int r = k0 + 2 * tq;  // the fragments' rows r and r + 1
+        float av[4], bv[NTW][2];
+        bs.template cols_b<NTW>(bv, k0, n0);
+        Parts<2> bp[NTW];
+        if (reverse) {
+          const float f0 = expf(s_cum[r]), f1 = expf(s_cum[r + 1]);
+          const typename C::YT ys{reinterpret_cast<const float*>(buf)};
+          ys.cols_a(av, k0, p0);
+          av[0] *= f0;
+          av[1] *= f0;
+          av[2] *= f1;
+          av[3] *= f1;
+#pragma unroll
+          for (int i = 0; i < NTW; ++i) bp[i] = split<kS>(bv[i]);
+          mma_group<true, kS, NTW>(acc, split<true>(av), bp);
+        } else {
+          const float f0 = s_dt[r] * expf(cl - s_cum[r]);
+          const float f1 = s_dt[r + 1] * expf(cl - s_cum[r + 1]);
+#pragma unroll
+          for (int i = 0; i < NTW; ++i) {
+            const float sv[2] = {bv[i][0] * f0, bv[i][1] * f1};
+            bp[i] = split<true>(sv);
+          }
+          const typename C::XT xs{reinterpret_cast<const T*>(buf)};
+          xs.cols_a(av, k0, p0);
+          mma_group<kS, true, NTW>(acc, split<kS>(av), bp);
         }
       }
 #pragma unroll
-      for (int j = 0; j < CN; ++j) {
+      for (int i = 0; i < NTW; ++i) {
+        const int n = n0 + 8 * i + 2 * tq;
+        float* slot = out + static_cast<int64_t>(c) * P * N + (p0 + gi) * N + n;
+        *reinterpret_cast<float2*>(slot) = make_float2(s[i][0], s[i][1]);
+        *reinterpret_cast<float2*>(slot + 8 * N) = make_float2(s[i][2], s[i][3]);
 #pragma unroll
-        for (int o = NCG; o < 32; o <<= 1) pc[j] += __shfl_xor_sync(kFull, pc[j], o);
-      }
-      if (lane < NCG) {
-#pragma unroll
-        for (int j = 0; j < CN; ++j) sm[L::col + (t * NW + warp) * N + c0 + j] = pc[j];
+        for (int e = 0; e < 4; ++e) s[i][e] = decay * s[i][e] + acc[i][e];
       }
     }
-    if (ch < nc - 1) {
+    __syncthreads();  // the stage is free
+  }
+  if (reverse && owner && dstate_in != nullptr) {
 #pragma unroll
-      for (int i = 0; i < RP; ++i)
-#pragma unroll
-        for (int j = 0; j < CN; ++j) ckpt_at(ch, i, j) = S[i][j];
-    }
-    __syncthreads();
-    for (int t = warp; t < nt; t += NW) {  // one warp a token
-      float cdc = 0.0f;
-      for (int n = lane; n < N; n += 32) {
-        float dc = 0.0f;
-#pragma unroll
-        for (int w = 0; w < NW; ++w) dc += sm[L::col + (t * NW + w) * N + n];
-        dc_part[(bth + static_cast<int64_t>(t0 + t) * H) * N + n] = dc;
-        cdc = fmaf(sm[L::c + t * N + n], dc, cdc);
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) cdc += __shfl_xor_sync(kFull, cdc, o);
-      if (lane == 0) ddt_base[static_cast<int64_t>(t0 + t) * H] = cdc;
+    for (int i = 0; i < NTW; ++i) {
+      const int n = n0 + 8 * i + 2 * tq;
+      float* at = dstate_in + st_off + (p0 + gi) * N + n;
+      *reinterpret_cast<float2*>(at) = make_float2(s[i][0], s[i][1]);
+      *reinterpret_cast<float2*>(at + 8 * N) = make_float2(s[i][2], s[i][3]);
     }
   }
+}
 
-  // G from dS_T, and <dS_T, S_T>, the final state's term of dl at t = T
-  float gs[RP][CN];
-  {
-    float f = 0.0f;
+// ------------------------------------------ step 3: within every chunk --
+
+// What a warp of step 3 reads and writes.
+template <typename T, int P, int N>
+struct Chunk {
+  typename Cfg<T, P, N>::XT xs;
+  typename Cfg<T, P, N>::YT ys;
+  typename Cfg<T, P, N>::BT bs, cs;
+  typename Cfg<T, P, N>::ST ss, gs;  // S_c, G_{c+1}
+  const float *dt, *cum;
+  float *cdc, *xdxr, *xst;  // per row: C . dC, x . dxr, x . (e G B)
+  T* dx;                    // (b, t0, h, 0) of dx
+  float *db, *dc;           // (b, t0, h, 0) of the per-head dB, dC
+  int64_t x_st, bc_st;      // their token strides: H P, H N
+  int valid;                // rows of the chunk before T
+};
+
+// the masked factor of a Q x Q tile entry, 0 where the pair is not causal
+__device__ __forceinline__ float causal(bool live, float v) { return live ? v : 0.0f; }
+
+// the sum of a quad's four lanes (the lanes of one accumulator row), fixed order
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(kFull, v, 1);
+  return v + __shfl_xor_sync(kFull, v, 2);
+}
+
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float v0, float v1) {
+  if constexpr (sizeof(T) == 2) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+  } else {
+    *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+  }
+}
+
+// The A fragment of a product whose k runs over the columns of an
+// accumulator tile (the k order permuted, as ssd.cu's att x), split
+__device__ __forceinline__ Parts<4> acc_as_a(const float (&d)[4]) {
+  const float av[4] = {d[0], d[2], d[1], d[3]};
+  return split<true>(av);
+}
+
+// Rows 16 w .. 16 w + 15 of the chunk (w the warp) as rows t:
+// dC = exp(cum) o (dY S_c) + (dAtt o E o dt_s) B, stored, and C . dC.  The
+// masked dAtt is made a pair of 8-column tiles at a time, at or below the
+// diagonal (w + 1 pairs), and each pair is taken into dC at once.
+template <typename T, int P, int N>
+__device__ __forceinline__ void rows_dc(const Chunk<T, P, N>& k, int w) {
+  using C = Cfg<T, P, N>;
+  constexpr bool kS = C::kS;
+  constexpr int NT = C::NT, NQ = NT < 4 ? NT : 4;
+  const int lane = threadIdx.x & 31, gi = lane >> 2, tq = lane & 3;
+  const int r0 = 16 * w, ta = r0 + gi, tb = ta + 8;
+  float acc[NT][4];
 #pragma unroll
-    for (int i = 0; i < RP; ++i)
+  for (int q = 0; q < NT; ++q)
 #pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        gs[i][j] = dstate_out != nullptr
-                      ? dstate_out[state_off + static_cast<int64_t>(r0 + i) * N + c0 + j]
-                      : 0.0f;
-        f = fmaf(gs[i][j], S[i][j], f);
+    for (int e = 0; e < 4; ++e) acc[q][e] = 0.0f;
+  // dY S_c
+#pragma unroll 2
+  for (int k0 = 0; k0 < P; k0 += 8) {
+    float av[4];
+    k.ys.rows_a(av, r0, k0);
+    const Parts<4> af = split<true>(av);
+#pragma unroll
+    for (int q0 = 0; q0 < NT; q0 += NQ) {
+      float sv[NQ][2];
+      k.ss.template cols_b<NQ>(sv, k0, 8 * q0);
+      Parts<2> bp[NQ];
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) bp[q] = split<true>(sv[q]);
+      mma_group<true, true, NQ>(acc + q0, af, bp);
+    }
+  }
+  const float cta = k.cum[ta], ctb = k.cum[tb];
+  const float ea = expf(cta), eb = expf(ctb);
+#pragma unroll
+  for (int q = 0; q < NT; ++q) {
+    acc[q][0] *= ea;
+    acc[q][1] *= ea;
+    acc[q][2] *= eb;
+    acc[q][3] *= eb;
+  }
+  for (int jp = 0; jp <= w; ++jp) {
+    float d[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[i][e] = 0.0f;
+    // dAtt = dY X^T on columns s = 16 jp .. 16 jp + 15
+#pragma unroll 2
+    for (int k0 = 0; k0 < P; k0 += 8) {
+      float av[4];
+      k.ys.rows_a(av, r0, k0);
+      const Parts<4> af = split<true>(av);
+      Parts<2> bp[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float bv[2];
+        k.xs.rows_b(bv, 16 * jp + 8 * i, k0);
+        bp[i] = split<kS>(bv);
       }
+      mma_group<true, kS, 2>(d, af, bp);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int s = 16 * jp + 8 * i + 2 * tq;
+      const float2 cs = *reinterpret_cast<const float2*>(k.cum + s);
+      const float2 ds = *reinterpret_cast<const float2*>(k.dt + s);
+      d[i][0] = causal(s <= ta, d[i][0] * ex2((cta - cs.x) * kLog2e) * ds.x);
+      d[i][1] = causal(s + 1 <= ta, d[i][1] * ex2((cta - cs.y) * kLog2e) * ds.y);
+      d[i][2] = causal(s <= tb, d[i][2] * ex2((ctb - cs.x) * kLog2e) * ds.x);
+      d[i][3] = causal(s + 1 <= tb, d[i][3] * ex2((ctb - cs.y) * kLog2e) * ds.y);
+    }
+    // + (dAtt o E o dt_s) B over these 16 s
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const Parts<4> af = acc_as_a(d[i]);
+#pragma unroll
+      for (int q0 = 0; q0 < NT; q0 += NQ) {
+        float bv[NQ][2];
+        k.bs.template cols_b<NQ>(bv, 16 * jp + 8 * i, 8 * q0);
+        Parts<2> bp[NQ];
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) bp[q] = split<kS>(bv[q]);
+        mma_group<true, kS, NQ>(acc + q0, af, bp);
+      }
+    }
+  }
+  float ca = 0.0f, cb = 0.0f;
+#pragma unroll
+  for (int q = 0; q < NT; ++q) {
+    const int n = 8 * q + 2 * tq;
+    ca = fmaf(k.cs.at(ta, n), acc[q][0], ca);
+    ca = fmaf(k.cs.at(ta, n + 1), acc[q][1], ca);
+    cb = fmaf(k.cs.at(tb, n), acc[q][2], cb);
+    cb = fmaf(k.cs.at(tb, n + 1), acc[q][3], cb);
+    if (ta < k.valid) store2(k.dc + ta * k.bc_st + n, acc[q][0], acc[q][1]);
+    if (tb < k.valid) store2(k.dc + tb * k.bc_st + n, acc[q][2], acc[q][3]);
+  }
+  ca = quad_sum(ca);
+  cb = quad_sum(cb);
+  if (tq == 0) {
+    k.cdc[ta] = ca;
+    k.cdc[tb] = cb;
+  }
+}
+
+// A pair of 8-column tiles (t = 16 jp ..) of rows s = 16 w .. at or above
+// the diagonal, times exp(cum_t - cum_s) (and dt_s with kDt), 0 for t < s.
+template <bool kDt>
+__device__ __forceinline__ void mask_upper(float (&m)[2][4], int w, int jp, const float* cum,
+                                           const float* dt) {
+  const int lane = threadIdx.x & 31, gi = lane >> 2, tq = lane & 3;
+  const int sa = 16 * w + gi, sb = sa + 8;
+  const float csa = cum[sa], csb = cum[sb];
+  const float da = kDt ? dt[sa] : 1.0f, db = kDt ? dt[sb] : 1.0f;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = 16 * jp + 8 * i + 2 * tq;
+    const float2 ct = *reinterpret_cast<const float2*>(cum + t);
+    m[i][0] = causal(t >= sa, m[i][0] * ex2((ct.x - csa) * kLog2e) * da);
+    m[i][1] = causal(t + 1 >= sa, m[i][1] * ex2((ct.y - csa) * kLog2e) * da);
+    m[i][2] = causal(t >= sb, m[i][2] * ex2((ct.x - csb) * kLog2e) * db);
+    m[i][3] = causal(t + 1 >= sb, m[i][3] * ex2((ct.y - csb) * kLog2e) * db);
+  }
+}
+
+// Rows 16 w .. 16 w + 15 as rows s: dxr = e o (B G^T) + (E o C B^T)^T dY,
+// dx = dt o dxr stored, x . (e G B) and x . dxr; the masked C B^T a pair of
+// tiles at a time, at or above the diagonal (4 - w pairs).
+template <typename T, int P, int N>
+__device__ __forceinline__ void rows_dx(const Chunk<T, P, N>& k, int w) {
+  using C = Cfg<T, P, N>;
+  constexpr bool kS = C::kS;
+  constexpr int PT = C::PT, PQ = PT < 4 ? PT : 4;
+  const int lane = threadIdx.x & 31, gi = lane >> 2, tq = lane & 3;
+  const int r0 = 16 * w, sa = r0 + gi, sb = sa + 8;
+  float acc[PT][4];
+#pragma unroll
+  for (int q = 0; q < PT; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[q][e] = 0.0f;
+  // B G^T: k over n, column tile q of P reads rows 8 q .. of G
+#pragma unroll
+  for (int k0 = 0; k0 < N; k0 += 8) {
+    float av[4];
+    k.bs.rows_a(av, r0, k0);
+    const Parts<4> af = split<kS>(av);
+#pragma unroll
+    for (int q0 = 0; q0 < PT; q0 += PQ) {
+      Parts<2> bp[PQ];
+#pragma unroll
+      for (int q = 0; q < PQ; ++q) {
+        float gv[2];
+        k.gs.rows_b(gv, 8 * (q0 + q), k0);
+        bp[q] = split<true>(gv);
+      }
+      mma_group<kS, true, PQ>(acc + q0, af, bp);
+    }
+  }
+  const float cl = k.cum[kQ - 1];
+  const float ea = expf(cl - k.cum[sa]), eb = expf(cl - k.cum[sb]);
+  float xa = 0.0f, xb = 0.0f;
+#pragma unroll
+  for (int q = 0; q < PT; ++q) {
+    const int p = 8 * q + 2 * tq;
+    acc[q][0] *= ea;
+    acc[q][1] *= ea;
+    acc[q][2] *= eb;
+    acc[q][3] *= eb;
+    xa = fmaf(k.xs.at(sa, p), acc[q][0], xa);
+    xa = fmaf(k.xs.at(sa, p + 1), acc[q][1], xa);
+    xb = fmaf(k.xs.at(sb, p), acc[q][2], xb);
+    xb = fmaf(k.xs.at(sb, p + 1), acc[q][3], xb);
+  }
+  xa = quad_sum(xa);
+  xb = quad_sum(xb);
+  if (tq == 0) {
+    k.xst[sa] = xa;
+    k.xst[sb] = xb;
+  }
+  for (int jp = w; jp < 4; ++jp) {
+    float m[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) m[i][e] = 0.0f;
+    // B C^T on columns t = 16 jp .. 16 jp + 15
+#pragma unroll
+    for (int k0 = 0; k0 < N; k0 += 8) {
+      float av[4];
+      k.bs.rows_a(av, r0, k0);
+      const Parts<4> af = split<kS>(av);
+      Parts<2> bp[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float cv[2];
+        k.cs.rows_b(cv, 16 * jp + 8 * i, k0);
+        bp[i] = split<kS>(cv);
+      }
+      mma_group<kS, kS, 2>(m, af, bp);
+    }
+    mask_upper<false>(m, w, jp, k.cum, k.dt);
+    // + (E o C B^T)^T dY over these 16 t
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const Parts<4> af = acc_as_a(m[i]);
+#pragma unroll
+      for (int q0 = 0; q0 < PT; q0 += PQ) {
+        float yv[PQ][2];
+        k.ys.template cols_b<PQ>(yv, 16 * jp + 8 * i, 8 * q0);
+        Parts<2> bp[PQ];
+#pragma unroll
+        for (int q = 0; q < PQ; ++q) bp[q] = split<true>(yv[q]);
+        mma_group<true, true, PQ>(acc + q0, af, bp);
+      }
+    }
+  }
+  const float da = k.dt[sa], db = k.dt[sb];
+  xa = 0.0f;
+  xb = 0.0f;
+#pragma unroll
+  for (int q = 0; q < PT; ++q) {
+    const int p = 8 * q + 2 * tq;
+    xa = fmaf(k.xs.at(sa, p), acc[q][0], xa);
+    xa = fmaf(k.xs.at(sa, p + 1), acc[q][1], xa);
+    xb = fmaf(k.xs.at(sb, p), acc[q][2], xb);
+    xb = fmaf(k.xs.at(sb, p + 1), acc[q][3], xb);
+    if (sa < k.valid) store2(k.dx + sa * k.x_st + p, da * acc[q][0], da * acc[q][1]);
+    if (sb < k.valid) store2(k.dx + sb * k.x_st + p, db * acc[q][2], db * acc[q][3]);
+  }
+  xa = quad_sum(xa);
+  xb = quad_sum(xb);
+  if (tq == 0) {
+    k.xdxr[sa] = xa;
+    k.xdxr[sb] = xb;
+  }
+}
+
+// Rows 16 w .. 16 w + 15 as rows s: dB = w o (X G) + (E o dt_s o X dY^T) C,
+// stored (per head); the masked X dY^T a pair of tiles at a time.
+template <typename T, int P, int N>
+__device__ __forceinline__ void rows_db(const Chunk<T, P, N>& k, int w) {
+  using C = Cfg<T, P, N>;
+  constexpr bool kS = C::kS;
+  constexpr int NT = C::NT, NQ = NT < 4 ? NT : 4;
+  const int lane = threadIdx.x & 31, gi = lane >> 2, tq = lane & 3;
+  const int r0 = 16 * w, sa = r0 + gi, sb = sa + 8;
+  float acc[NT][4];
+#pragma unroll
+  for (int q = 0; q < NT; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[q][e] = 0.0f;
+  // X G
+#pragma unroll 2
+  for (int k0 = 0; k0 < P; k0 += 8) {
+    float av[4];
+    k.xs.rows_a(av, r0, k0);
+    const Parts<4> af = split<kS>(av);
+#pragma unroll
+    for (int q0 = 0; q0 < NT; q0 += NQ) {
+      float gv[NQ][2];
+      k.gs.template cols_b<NQ>(gv, k0, 8 * q0);
+      Parts<2> bp[NQ];
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) bp[q] = split<true>(gv[q]);
+      mma_group<kS, true, NQ>(acc + q0, af, bp);
+    }
+  }
+  const float cl = k.cum[kQ - 1];
+  const float wa = k.dt[sa] * expf(cl - k.cum[sa]), wb = k.dt[sb] * expf(cl - k.cum[sb]);
+#pragma unroll
+  for (int q = 0; q < NT; ++q) {
+    acc[q][0] *= wa;
+    acc[q][1] *= wa;
+    acc[q][2] *= wb;
+    acc[q][3] *= wb;
+  }
+  for (int jp = w; jp < 4; ++jp) {
+    float m[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) m[i][e] = 0.0f;
+    // X dY^T on columns t = 16 jp .. 16 jp + 15
+#pragma unroll 2
+    for (int k0 = 0; k0 < P; k0 += 8) {
+      float av[4];
+      k.xs.rows_a(av, r0, k0);
+      const Parts<4> af = split<kS>(av);
+      Parts<2> bp[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float yv[2];
+        k.ys.rows_b(yv, 16 * jp + 8 * i, k0);
+        bp[i] = split<true>(yv);
+      }
+      mma_group<kS, true, 2>(m, af, bp);
+    }
+    mask_upper<true>(m, w, jp, k.cum, k.dt);
+    // + (E o dt_s o X dY^T) C over these 16 t
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const Parts<4> af = acc_as_a(m[i]);
+#pragma unroll
+      for (int q0 = 0; q0 < NT; q0 += NQ) {
+        float cv[NQ][2];
+        k.cs.template cols_b<NQ>(cv, 16 * jp + 8 * i, 8 * q0);
+        Parts<2> bp[NQ];
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) bp[q] = split<kS>(cv[q]);
+        mma_group<true, kS, NQ>(acc + q0, af, bp);
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < NT; ++q) {
+    const int n = 8 * q + 2 * tq;
+    if (sa < k.valid) store2(k.db + sa * k.bc_st + n, acc[q][0], acc[q][1]);
+    if (sb < k.valid) store2(k.db + sb * k.bc_st + n, acc[q][2], acc[q][3]);
+  }
+}
+
+template <typename T, int P, int N>
+__global__ void __launch_bounds__(kThreads, (Cfg<T, P, N>::kGradBlocks))
+chunk_grad(const T* __restrict__ x, const T* __restrict__ bm, const T* __restrict__ cm,
+           const float* __restrict__ dt, const float* __restrict__ a,
+           const float* __restrict__ dy, const float* __restrict__ cum,
+           const float* __restrict__ sbuf, const float* __restrict__ gbuf, T* __restrict__ dx,
+           float* __restrict__ db_part, float* __restrict__ dc_part, float* __restrict__ ddt,
+           float* __restrict__ da_part, int T_len, int H, int G, int a_batch, int64_t x_sb,
+           int64_t x_st, int64_t b_sb, int64_t b_st, int64_t c_sb, int64_t c_st) {
+  using C = Cfg<T, P, N>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_dt = reinterpret_cast<float*>(smem + C::kDt);
+  float* s_cum = s_dt + kQ;
+  float* s_cdc = s_cum + kQ;
+  float* s_xdxr = s_cdc + kQ;
+  float* s_xst = s_xdxr + kQ;
+  float* s_red = s_xst + kQ;
+  const int nc = (T_len + kQ - 1) / kQ;
+  const int bh = blockIdx.x / nc, ch = blockIdx.x - bh * nc;
+  const int b = bh / H, h = bh - b * H, grp = h / (H / G);
+  const int t0 = ch * kQ, valid = T_len - t0 < kQ ? T_len - t0 : kQ;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const float a_h = a[static_cast<int64_t>(b / a_batch) * H + h];
+  const int64_t bth = static_cast<int64_t>(b) * T_len * H + h;  // (b, 0, h) of (B, T, H)
+  const int64_t tok = bth + static_cast<int64_t>(t0) * H;       // (b, t0, h)
+  const int64_t blk = static_cast<int64_t>(blockIdx.x);
+
+  stage<typename C::XT>(smem + C::kX, x + b * x_sb + t0 * x_st + static_cast<int64_t>(h) * P,
+                        x_st, kQ, P, valid);
+  stage<typename C::YT>(smem + C::kY, dy + tok * P, static_cast<int64_t>(H) * P, kQ, P, valid);
+  stage<typename C::BT>(smem + C::kB, bm + b * b_sb + t0 * b_st + static_cast<int64_t>(grp) * N,
+                        b_st, kQ, N, valid);
+  stage<typename C::BT>(smem + C::kC, cm + b * c_sb + t0 * c_st + static_cast<int64_t>(grp) * N,
+                        c_st, kQ, N, valid);
+  stage<typename C::ST>(smem + C::kS0, sbuf + blk * P * N, N, P, N, P);
+  stage<typename C::ST>(smem + C::kG, gbuf + blk * P * N, N, P, N, P);
+  stage_dt(s_dt, dt + tok, H, valid);
+  stage<Op<float, 1, kQ>>(reinterpret_cast<unsigned char*>(s_cum), cum + blk * kQ, kQ, 1, kQ,
+                          1);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  const Chunk<T, P, N> k{{reinterpret_cast<const T*>(smem + C::kX)},
+                         {reinterpret_cast<const float*>(smem + C::kY)},
+                         {reinterpret_cast<const T*>(smem + C::kB)},
+                         {reinterpret_cast<const T*>(smem + C::kC)},
+                         {reinterpret_cast<const float*>(smem + C::kS0)},
+                         {reinterpret_cast<const float*>(smem + C::kG)},
+                         s_dt,
+                         s_cum,
+                         s_cdc,
+                         s_xdxr,
+                         s_xst,
+                         dx + tok * P,
+                         db_part + tok * N,
+                         dc_part + tok * N,
+                         static_cast<int64_t>(H) * P,
+                         static_cast<int64_t>(H) * N,
+                         valid};
+  {  // the warps' partials of <G_{c+1}, S_c>, each thread's entries in order
+    float f = 0.0f;
+    for (int e = tid; e < P * N; e += kThreads) {
+      const int r = e / N, c = e - r * N;
+      f = fmaf(k.gs.at(r, c), k.ss.at(r, c), f);
+    }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) f += __shfl_xor_sync(kFull, f, o);
-    if (lane == 0) sm[L::f + warp] = f;
+    if (lane == 0) s_red[warp] = f;
   }
+  rows_dc<T, P, N>(k, warp);
+  rows_dx<T, P, N>(k, warp);
+  rows_db<T, P, N>(k, warp);
   __syncthreads();
-  float run = 0.0f, da = 0.0f;  // thread 0's
-  if (tid == 0) {
-    for (int w = 0; w < NW; ++w) run += sm[L::f + w];
+  if (tid == 0) {  // the chunk's log-decay gradient, in order by one lane
+    const float cl = s_cum[kQ - 1];
+    float run = expf(cl) * (((s_red[0] + s_red[1]) + s_red[2]) + s_red[3]);
+    for (int s = 0; s < kQ; ++s) run = fmaf(s_dt[s], s_xst[s], run);  // <G, S_{c+1}>
+    float da = 0.0f;
+    float* ddt_base = ddt + tok;
+    for (int t = kQ - 1; t >= 0; --t) {
+      run += s_cdc[t] - s_dt[t] * s_xdxr[t];
+      if (t < valid) ddt_base[static_cast<int64_t>(t) * H] = fmaf(a_h, run, s_xdxr[t]);
+      da = fmaf(s_dt[t], run, da);
+    }
+    da_part[blk] = da;
   }
-
-  // reverse pass
-  for (int ch = nc - 1; ch >= 0; --ch) {
-    const int t0 = ch * kQ, nt = min(kQ, T - t0);
-    __syncthreads();
-    if (ch < nc - 1) {  // gs is alpha G of the next chunk's first token: dl there, directly
-      float f = 0.0f;
-#pragma unroll
-      for (int i = 0; i < RP; ++i)
-#pragma unroll
-        for (int j = 0; j < CN; ++j) f = fmaf(gs[i][j], ckpt_at(ch, i, j), f);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) f += __shfl_xor_sync(kFull, f, o);
-      if (lane == 0) sm[L::f + warp] = f;
-    }
-    stage<TI, P, N>(sm, x_base, b_base, c_base, dt_base, dy_base, ddt_base, x_st, b_st, c_st, H,
-                    a_h, t0, nt);
-    __syncthreads();
-    if (tid == 0 && ch < nc - 1) {
-      run = 0.0f;
-      for (int w = 0; w < NW; ++w) run += sm[L::f + w];
-    }
-    for (int t = nt - 1; t >= 0; --t) {
-      float pr[RP], pc[CN];
-#pragma unroll
-      for (int j = 0; j < CN; ++j) pc[j] = 0.0f;
-#pragma unroll
-      for (int i = 0; i < RP; ++i) {
-        const float dyi = sm[L::dy + t * P + r0 + i], xi = sm[L::x + t * P + r0 + i];
-        pr[i] = 0.0f;
-#pragma unroll
-        for (int j = 0; j < CN; ++j) {
-          gs[i][j] = fmaf(dyi, sm[L::c + t * N + c0 + j], gs[i][j]);
-          pr[i] = fmaf(gs[i][j], sm[L::b + t * N + c0 + j], pr[i]);
-          pc[j] = fmaf(gs[i][j], xi, pc[j]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < RP; ++i) {
-#pragma unroll
-        for (int o = 1; o < NCG; o <<= 1) pr[i] += __shfl_xor_sync(kFull, pr[i], o);
-        if (cg == i) sm[L::row + t * P + r0 + i] = pr[i];
-      }
-#pragma unroll
-      for (int j = 0; j < CN; ++j) {
-#pragma unroll
-        for (int o = NCG; o < 32; o <<= 1) pc[j] += __shfl_xor_sync(kFull, pc[j], o);
-      }
-      if (lane < NCG) {
-#pragma unroll
-        for (int j = 0; j < CN; ++j) sm[L::col + (t * NW + warp) * N + c0 + j] = pc[j];
-      }
-      const float al = sm[L::al + t];
-#pragma unroll
-      for (int i = 0; i < RP; ++i)
-#pragma unroll
-        for (int j = 0; j < CN; ++j) gs[i][j] *= al;
-    }
-    __syncthreads();
-    for (int t = warp; t < nt; t += NW) {  // one warp a token
-      const float dtt = sm[L::dt + t];
-      const int64_t tok = static_cast<int64_t>(t0 + t) * H;
-      float xgb = 0.0f;
-      for (int p = lane; p < P; p += 32) {
-        const float gb = sm[L::row + t * P + p];
-        dx_base[tok * P + p] = from_f<TI>(dtt * gb);
-        xgb = fmaf(sm[L::x + t * P + p], gb, xgb);
-      }
-      for (int n = lane; n < N; n += 32) {
-        float gx = 0.0f;
-#pragma unroll
-        for (int w = 0; w < NW; ++w) gx += sm[L::col + (t * NW + w) * N + n];
-        db_part[(bth + tok) * N + n] = dtt * gx;
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) xgb += __shfl_xor_sync(kFull, xgb, o);
-      if (lane == 0) sm[L::xgb + t] = xgb;
-    }
-    __syncthreads();
-    if (tid == 0) {  // the chunk's running sum of dl, in reverse token order
-      for (int t = nt - 1; t >= 0; --t) {
-        const float dtt = sm[L::dt + t], xgb = sm[L::xgb + t];
-        run += sm[L::cdc + t] - dtt * xgb;
-        ddt_base[static_cast<int64_t>(t0 + t) * H] = fmaf(a_h, run, xgb);
-        da = fmaf(dtt, run, da);
-      }
-    }
-  }
-  if (dstate_in != nullptr) {
-#pragma unroll
-    for (int i = 0; i < RP; ++i)
-#pragma unroll
-      for (int j = 0; j < CN; ++j)
-        dstate_in[state_off + static_cast<int64_t>(r0 + i) * N + c0 + j] = gs[i][j];
-  }
-  if (tid == 0) da_part[bh] = da;
 }
+
+// ------------------------------------------------------ step 4: the sums --
 
 // out (B, T, G, N) in TO = the sum over each group's H / G heads of part
 // (B, T, H, N), in head order
@@ -357,49 +974,80 @@ __global__ void group_reduce(const float* __restrict__ part, TO* __restrict__ ou
   const float* src = part + (bt * G * per + static_cast<int64_t>(g) * per) * N + n;
   float s = 0.0f;
   for (int j = 0; j < per; ++j) s += src[static_cast<int64_t>(j) * N];
-  out[e] = from_f<TO>(s);
+  if constexpr (sizeof(TO) == 2) {
+    out[e] = __float2bfloat16_rn(s);
+  } else {
+    out[e] = s;
+  }
 }
 
-// da (B / a_batch, H) = the sum of the partials (B, H) of the batch elements
-// that share each row, in batch order
+// da (B / a_batch, H) = the sum of the chunk partials (B, H, nc) of the batch
+// elements that share each row, in batch then chunk order
 __global__ void da_reduce(const float* __restrict__ da_part, float* __restrict__ da,
-                          int64_t rows, int H, int a_batch) {
+                          int64_t rows, int H, int a_batch, int nc) {
   const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= rows * H) return;
   const int64_t g = e / H, h = e - g * H;
   float s = 0.0f;
-  for (int j = 0; j < a_batch; ++j) s += da_part[(g * a_batch + j) * H + h];
+  for (int j = 0; j < a_batch; ++j) {
+    const float* src = da_part + ((g * a_batch + j) * H + h) * nc;
+    for (int c = 0; c < nc; ++c) s += src[c];
+  }
   da[e] = s;
 }
 
 unsigned blocks_of(int64_t n) { return static_cast<unsigned>((n + 255) / 256); }
 
-template <typename TI, int P, int N>
+template <typename T, int P, int N>
 cudaError_t launch(const void* x, const void* bm, const void* cm, const float* dt,
                    const float* a, const float* state_in, const float* dy,
                    const float* dstate_out, void* dx, void* db, void* dc, float* ddt, float* da,
                    float* db_part, float* dc_part, float* da_part, float* ckpt,
-                   float* dstate_in, int B, int T, int H, int G, int a_batch, const int64_t* st,
+                   float* dstate_in, int B, int T_len, int H, int G, int a_batch,
+                   const int64_t* st,
                    cudaStream_t stream) {
-  using L = Lay<P, N>;
-  auto kernel = ssd_bwd_kernel<TI, P, N>;
-  const int smem = L::total * static_cast<int>(sizeof(float));
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  using C = Cfg<T, P, N>;
+  const int nc = (T_len + kQ - 1) / kQ, bh = B * H;
+  float* cum = ckpt;
+  float* sbuf = cum + static_cast<int64_t>(bh) * nc * kQ;
+  float* gbuf = sbuf + static_cast<int64_t>(bh) * nc * P * N;
+  const T* xt = static_cast<const T*>(x);
+  const T* bt = static_cast<const T*>(bm);
+  const T* ct = static_cast<const T*>(cm);
+
+  chunk_cums<<<blocks_of(static_cast<int64_t>(B) * nc * H), 256, 0, stream>>>(dt, a, cum, B,
+                                                                              T_len, H, a_batch);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  kernel<<<B * H, L::kThreads, smem, stream>>>(
-      static_cast<const TI*>(x), static_cast<const TI*>(bm), static_cast<const TI*>(cm), dt, a,
-      state_in, dy, dstate_out, static_cast<TI*>(dx), db_part, dc_part, ddt, da_part, ckpt,
-      dstate_in, T, H, G, a_batch, st[0], st[1], st[2], st[3], st[4], st[5]);
+  auto states = chunk_states<T, P, N>;
+  constexpr int kStateBytes = StateCfg<T, P, N>::kBytes;
+  err = cudaFuncSetAttribute(states, cudaFuncAttributeMaxDynamicSharedMemorySize, kStateBytes);
+  if (err != cudaSuccess) return err;
+  states<<<bh * 2, 256, kStateBytes, stream>>>(xt, bt, ct, dt, dy, state_in, dstate_out, cum,
+                                               sbuf, gbuf, dstate_in, T_len, H, G, st[0], st[1],
+                                               st[2], st[3], st[4], st[5]);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int64_t bt = static_cast<int64_t>(B) * T;
-  group_reduce<TI><<<blocks_of(bt * G * N), 256, 0, stream>>>(db_part, static_cast<TI*>(db), bt,
-                                                                 G, H / G, N);
-  group_reduce<TI><<<blocks_of(bt * G * N), 256, 0, stream>>>(dc_part, static_cast<TI*>(dc), bt,
-                                                                 G, H / G, N);
+
+  auto grad = chunk_grad<T, P, N>;
+  err = cudaFuncSetAttribute(grad, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kGradBytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(grad, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  grad<<<bh * nc, kThreads, C::kGradBytes, stream>>>(
+      xt, bt, ct, dt, a, dy, cum, sbuf, gbuf, static_cast<T*>(dx), db_part, dc_part, ddt,
+      da_part, T_len, H, G, a_batch, st[0], st[1], st[2], st[3], st[4], st[5]);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const int64_t rows = static_cast<int64_t>(B) * T_len;
+  group_reduce<T><<<blocks_of(rows * G * N), 256, 0, stream>>>(db_part, static_cast<T*>(db),
+                                                                 rows, G, H / G, N);
+  group_reduce<T><<<blocks_of(rows * G * N), 256, 0, stream>>>(dc_part, static_cast<T*>(dc),
+                                                                 rows, G, H / G, N);
   da_reduce<<<blocks_of(static_cast<int64_t>(B / a_batch) * H), 256, 0, stream>>>(
-      da_part, da, B / a_batch, H, a_batch);
+      da_part, da, B / a_batch, H, a_batch, nc);
   return cudaGetLastError();
 }
 
@@ -426,17 +1074,19 @@ cudaError_t launch_typed(int dtype, const void* x, const void* bm, const void* c
 // x (B, T, H, P), bm and cm (B, T, G, N): float32 (dtype 0) or bfloat16
 // (dtype 1), each token's (H, P) / (G, N) block contiguous, read through the
 // (batch, token) element strides x_sb, x_st, b_sb, b_st, c_sb, c_st given in
-// `strides`; dt (B, T, H) float32 contiguous; a (B / a_batch, H) float32,
-// batch element b reading row b / a_batch; state_in (B, H, P, N) float32 or
-// null (zero state); dy (B, T, H, P) float32 contiguous; dstate_out (B, H, P,
-// N) float32 or null (no gradient of the final state).  Writes dx (B, T, H,
-// P) in x's type, db and dc (B, T, G, N) in bm's type, ddt (B, T, H) and da
-// (B / a_batch, H) float32, and dstate_in (B, H, P, N) float32 unless null;
-// db_part and dc_part (B, T, H, N), da_part (B, H) and ckpt (B H (ceil(T /
-// 16) - 1) P N, at least one element) are float32 scratch.
-// All outputs contiguous; G divides H.  Launches on `stream` (the main
-// kernel, then the three reductions) and returns the launches' cudaError_t
-// (0 on success, cudaErrorInvalidValue for arguments it refuses).
+// `strides`, 16-byte aligned (pointers and strides in bytes); dt (B, T, H)
+// float32 contiguous; a (B / a_batch, H) float32, batch element b reading row
+// b / a_batch; state_in (B, H, P, N) float32 or null (zero state); dy (B, T,
+// H, P) float32 contiguous; dstate_out (B, H, P, N) float32 or null (no
+// gradient of the final state).  Writes dx (B, T, H, P) in x's type, db and
+// dc (B, T, G, N) in bm's type, ddt (B, T, H) and da (B / a_batch, H)
+// float32, and dstate_in (B, H, P, N) float32 unless null; db_part and
+// dc_part (B, T, H, N), da_part (B H ceil(T / 64)) and ckpt (B H ceil(T /
+// 64) (64 + 2 P N): the chunks' cum, S_c and G_{c+1}) are float32 scratch.
+// All outputs contiguous; G divides H.  Launches on `stream` (the three chunk
+// kernels, then the three sums) and returns the launches' cudaError_t (0 on
+// success, cudaErrorInvalidValue or cudaErrorMisalignedAddress for arguments
+// it refuses).
 extern "C" int ssd_bwd(const void* x, const void* bm, const void* cm, const float* dt,
                        const float* a, const float* state_in, const float* dy,
                        const float* dstate_out, void* dx, void* db, void* dc, float* ddt,
@@ -445,8 +1095,17 @@ extern "C" int ssd_bwd(const void* x, const void* bm, const void* cm, const floa
                        int64_t G, int64_t P, int64_t N, int64_t a_batch, const int64_t* strides,
                        void* stream) {
   if (B < 1 || T < 1 || H < 1 || G < 1 || H % G != 0 || a_batch < 1 || B % a_batch != 0 ||
-      B * H > 0x7fffffff || T > 0x7fffffff || (dtype != 0 && dtype != 1))
+      B * H * ((T + kQ - 1) / kQ) > 0x7fffffff || T > 0x7fffffff || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t es = dtype == 1 ? 2 : 4;
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(bm) |
+                         reinterpret_cast<uintptr_t>(cm) | reinterpret_cast<uintptr_t>(dy) |
+                         reinterpret_cast<uintptr_t>(ckpt) | reinterpret_cast<uintptr_t>(state_in) |
+                         reinterpret_cast<uintptr_t>(dstate_out) |
+                         reinterpret_cast<uintptr_t>(dstate_in);
+  bool aligned = ptrs % 16 == 0;
+  for (int i = 0; i < 6; ++i) aligned = aligned && (strides[i] * es) % 16 == 0;
+  if (!aligned) return static_cast<int>(cudaErrorMisalignedAddress);
   auto s = static_cast<cudaStream_t>(stream);
   const int b = static_cast<int>(B), t = static_cast<int>(T), h = static_cast<int>(H),
             g = static_cast<int>(G), ab = static_cast<int>(a_batch), d = static_cast<int>(dtype);

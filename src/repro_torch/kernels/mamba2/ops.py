@@ -22,14 +22,17 @@ Dispatch is by the device of the operands, and only by it:
 - any other device raises.
 
 Every call goes through ``SSD``, a ``torch.autograd.Function``: its backward
-launches the backward kernel (``csrc/ssd_bwd.cu``: a forward pass over the
-tokens rebuilding the states for dC and saving one at each 16-token chunk's
-end, a reverse pass carrying dS for dx, dB, the state's gradient and the
-log-decays' running sum, restarted at each saved state; then dB and dC
-summed over each group's heads and da over the batch by three small
-kernels; no atomics; no state saved by the forward) on CUDA tensors and the plain
-backward (``ref.ssd_bwd_ref``, the same recurrence) on CPU tensors, with no
-fallback between the two.  Its ``vmap`` rule folds the vmapped axis (the
+launches the backward kernels (``csrc/ssd_bwd.cu``, chunks of ``ref.BWD_Q``
+= 64 tokens: each chunk's log-decay prefix sums; for each (b, h) a pass over
+the chunks for the chunk-start states and a reverse one for the chunk-end
+gradients, each chunk's product on the tensor cores; then every chunk's dx,
+dB, dC, ddt and da from its products with them, in parallel over (b, h,
+chunk); dB and dC summed over each group's heads and da over the chunks and
+the batch by two small kernels; no atomics; no state saved by the forward)
+on CUDA tensors and the plain backward (``ref.ssd_bwd_ref``, the token
+recurrence) on CPU tensors, with no fallback between the two
+(``ref.ssd_bwd_chunked_ref`` is the kernel's decomposition in plain
+PyTorch, for the tests).  Its ``vmap`` rule folds the vmapped axis (the
 port's stacked peers) into the batch axis, a free reshape of the model's
 (K, B, T, ...) operands that leaves each head's group as it is, and hands
 the kernels each peer's a as a row of a (K, H) a that batch element b reads
@@ -215,13 +218,14 @@ def launch(x, b, c, dt, a, state, q: int, y, state_out) -> None:
 
 def bwd_scratch(bs: int, t: int, h: int, p: int, n: int, device) -> tuple[torch.Tensor, ...]:
     """The backward's float32 scratch: the per-head dB and dC (B, T, H, N),
-    the partial da (B, H), and the state at the end of every chunk of
-    ``ref.BWD_CHUNK`` tokens but the last (at least one element)."""
-    ends = (t + ref.BWD_CHUNK - 1) // ref.BWD_CHUNK - 1
+    each chunk's partial da (B, H, T / Q), and for each chunk of ``Q =
+    ref.BWD_Q`` tokens its log-decays' prefix sums (Q), its starting state
+    and the gradient of its final state (P N each)."""
+    chunks = bs * h * (-(-t // ref.BWD_Q))
     return (torch.empty((bs, t, h, n), dtype=torch.float32, device=device),
             torch.empty((bs, t, h, n), dtype=torch.float32, device=device),
-            torch.empty((bs, h), dtype=torch.float32, device=device),
-            torch.empty(max(bs * h * ends * p * n, 1), dtype=torch.float32, device=device))
+            torch.empty(chunks, dtype=torch.float32, device=device),
+            torch.empty(chunks * (ref.BWD_Q + 2 * p * n), dtype=torch.float32, device=device))
 
 
 def launch_bwd(x, b, c, dt, a, state, dy, dstate, dx, db, dc, ddt, da, scratch,

@@ -18,6 +18,11 @@ A ragged last chunk is computed on its real rows only, which gives what the
 reference's zero padding (dt = 0: decay 1, no input) gives.  Head h reads
 B/C group h // (H // G), as the reference's ``_expand_groups`` repeats them.
 Computes in float32 and returns float32.
+
+``ssd_bwd_ref`` is the plain version of the backward kernel
+(``csrc/ssd_bwd.cu``), the token recurrence; ``ssd_bwd_chunked_ref`` is the
+kernel's chunked decomposition, for the tests (with ``tf32_product``, the
+kernel's TF32 passes emulated).
 """
 from __future__ import annotations
 
@@ -29,9 +34,11 @@ def expand_groups(t: torch.Tensor, h: int) -> torch.Tensor:
     return t.repeat_interleave(h // t.shape[2], dim=2)
 
 
-# the backward's chunk (kQ in csrc/ssd_bwd.cu): its log-decay running sum
-# restarts from a direct inner product at every chunk's end
+# ssd_bwd_ref's log-decay running sum restarts from a direct inner product
+# every BWD_CHUNK tokens
 BWD_CHUNK = 16
+# the backward kernel's chunk (kQ in csrc/ssd_bwd.cu)
+BWD_Q = 64
 
 
 def per_batch(a: torch.Tensor, b: int) -> torch.Tensor:
@@ -77,7 +84,7 @@ def ssd_bwd_ref(x, b, c, dt, a, state, dy, dstate):
     or None (zeros): (dx, db, dc (B, T, G, N), ddt, da of a's shape, dstate
     (B, H, P, N)), float32.
 
-    Two passes over the tokens, as the kernel makes them.  Forward, from the
+    Two passes over the tokens.  Forward, from the
     state in: S_t = alpha_t S_{t-1} + dt_t x_t B_t^T (alpha = exp(dt a)),
     dC_t = S_t^T dy_t.  Reverse, carrying G = dL/dS_t from ``dstate``: G +=
     dy_t C_t^T, then dx_t = dt_t G B_t, dB_t = dt_t G^T x_t, G = alpha_t G;
@@ -128,5 +135,119 @@ def ssd_bwd_ref(x, b, c, dt, a, state, dy, dstate):
         g = alpha[:, i, :, None, None] * g
     dx, db_head, ddt = (torch.stack(v[::-1], dim=1) for v in (dxs, dbs, ddts))
     db, dc = (m.view(bs, t, g_, h // g_, n).sum(3) for m in (db_head, dc_head))
+    da = da.sum(0) if a.dim() == 1 else da.view(a.shape[0], -1, h).sum(1)
+    return dx, db, dc, ddt, da, g
+
+
+def tf32(v: torch.Tensor) -> torch.Tensor:
+    """float32 v rounded to TF32, to nearest with ties away from zero."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_product(m1, m2, split1: bool, split2: bool, *, one_pass: bool = False):
+    """m1 @ m2 as the backward kernel's TF32 passes compute it: an operand
+    marked split is a float32 value taken as hi + lo, hi = tf32(v) and lo =
+    v - hi truncated to TF32 by the tensor cores, and the product summed as
+    lo hi + hi lo + hi hi; else it is exact in TF32 (a widened bf16).  Each pass is a float32
+    matmul (a product of two TF32 values is exact in float32).
+    ``one_pass`` rounds both operands to TF32 once instead."""
+    if one_pass:
+        return tf32(m1) @ tf32(m2)
+    hi1, hi2 = (tf32(m) if split else m for m, split in ((m1, split1), (m2, split2)))
+    out = hi1 @ hi2
+    if split1:
+        out = out + _tf32_truncated(m1 - hi1) @ hi2
+    if split2:
+        out = out + hi1 @ _tf32_truncated(m2 - hi2)
+    return out
+
+
+def _tf32_truncated(v: torch.Tensor) -> torch.Tensor:
+    """float32 v as a tensor core reads a .tf32 operand: the 13 low bits of
+    the significand dropped."""
+    return (v.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def ssd_bwd_chunked_ref(x, b, c, dt, a, state, dy, dstate, *, chunk: int = BWD_Q,
+                        product=None):
+    """``ssd_bwd_ref``'s gradients by the backward kernel's decomposition
+    (``csrc/ssd_bwd.cu``): T zero-padded to chunks of ``chunk`` tokens; each
+    chunk's state contribution U = X^T (B o w) and its gradient's L = (dY o
+    exp(cum))^T C; a pass over the chunks for the chunk-start states S_c and
+    a reverse one for the chunk-end gradients G_{c+1} (G_0 is dS_0); within
+    each chunk dC = exp(cum) o (dY S_c) + (dAtt o E o dt_s) B, dxr = e o (B
+    G^T) + (E o C B^T)^T dY, dB = w o (X G) + (E o dt_s o X dY^T)^T C with
+    dAtt = dY X^T (the transposed products recomputed, as the kernel does),
+    and the log-decays' gradient dl_t = <G, S_{c+1}> + sum_{t' >= t} (C_t' .
+    dC_t' - dt_t' x_t' . dxr_t') within the chunk, summed in reverse token
+    order; ddt = x . dxr + a dl, da = sum dt dl.
+
+    ``product(m1, m2, split1, split2)`` computes each chunk product m1 @ m2,
+    told which operands the kernel splits (float32 values) and which are exact
+    (bf16 x, B and C): ``torch.matmul`` by default, ``tf32_product`` for the
+    kernel's passes.  Returns (dx, db, dc, ddt, da, dstate) as
+    ``ssd_bwd_ref``, float32."""
+    prod = product or (lambda m1, m2, _s1, _s2: m1 @ m2)
+    bs, t, h, p = x.shape
+    g_, n = b.shape[2], b.shape[3]
+    q = chunk
+    nc = -(-t // q)
+    split = x.dtype == torch.float32  # bf16 x, B and C are exact in TF32
+
+    def chunked(m):  # (B, T, H, ...) -> (B, H, nc, Q, ...), zero-padded
+        m = torch.nn.functional.pad(m.float(), (0, 0) * (m.dim() - 2) + (0, nc * q - t))
+        return m.unflatten(1, (nc, q)).movedim(3, 1)
+
+    xf, dyf = chunked(x), chunked(dy)
+    bf, cf = (chunked(expand_groups(m, h)) for m in (b, c))
+    dtf = chunked(dt[..., None])[..., 0]  # (B, H, nc, Q)
+    ab = per_batch(a, bs)  # (B, H)
+    cum = torch.cumsum(dtf * ab[..., None, None], dim=-1)
+    cl = cum[..., -1]  # (B, H, nc)
+    e = torch.exp(cl[..., None] - cum)
+    w, ec = dtf * e, torch.exp(cum)
+    u = prod(xf.transpose(-1, -2), bf * w[..., None], split, True)  # (B, H, nc, P, N)
+    lc = prod((dyf * ec[..., None]).transpose(-1, -2), cf, True, split)
+    s = (torch.zeros((bs, h, p, n), dtype=torch.float32, device=x.device)
+         if state is None else state.float())
+    starts = []
+    for i in range(nc):
+        starts.append(s)
+        s = torch.exp(cl[..., i])[..., None, None] * s + u[:, :, i]
+    g = torch.zeros_like(s) if dstate is None else dstate.float()
+    ends = [None] * nc
+    for i in reversed(range(nc)):
+        ends[i] = g
+        g = torch.exp(cl[..., i])[..., None, None] * g + lc[:, :, i]
+    sc, ge = torch.stack(starts, 2), torch.stack(ends, 2)  # (B, H, nc, P, N)
+
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    pair = torch.where(tri, cum[..., :, None] - cum[..., None, :], float("-inf"))
+    big_e = torch.exp(pair)  # E[t, s], 0 above the diagonal
+    dcb = prod(dyf, xf.transpose(-1, -2), True, split) * big_e * dtf[..., None, :]
+    dc = ec[..., None] * prod(dyf, sc, True, True) + prod(dcb, bf, True, split)
+    att_t = big_e.transpose(-1, -2) * prod(bf, cf.transpose(-1, -2), split, split)
+    state_x = e[..., None] * prod(bf, ge.transpose(-1, -2), split, True)  # e o (B G^T)
+    dxr = state_x + prod(att_t, dyf, True, True)
+    dcb_t = big_e.transpose(-1, -2) * dtf[..., :, None] * prod(
+        xf, dyf.transpose(-1, -2), split, True)
+    db = w[..., None] * prod(xf, ge, split, True) + prod(dcb_t, cf, True, split)
+    dot = torch.exp(cl) * (ge * sc).sum((-2, -1)) + (dtf * (xf * state_x).sum(-1)).sum(-1)
+    cdc, xdxr = (cf * dc).sum(-1), (xf * dxr).sum(-1)
+    run, dls = dot, []
+    for i in reversed(range(q)):
+        run = run + cdc[..., i] - dtf[..., i] * xdxr[..., i]
+        dls.append(run)
+    dl = torch.stack(dls[::-1], dim=-1)  # (B, H, nc, Q)
+    ddt = xdxr + ab[..., None, None] * dl
+    da = (dtf * dl).sum((-2, -1))  # (B, H)
+
+    def unchunked(m):  # (B, H, nc, Q, ...) -> (B, T, H, ...)
+        return m.movedim(1, 3).flatten(1, 2)[:, :t]
+
+    dx = unchunked(dtf[..., None] * dxr)
+    db, dc = (unchunked(m).view(bs, t, g_, h // g_, n).sum(3) for m in (db, dc))
+    ddt = unchunked(ddt[..., None])[..., 0]
     da = da.sum(0) if a.dim() == 1 else da.view(a.shape[0], -1, h).sum(1)
     return dx, db, dc, ddt, da, g

@@ -346,7 +346,7 @@ def run_p2p_lm(
         losses.append(float(step_losses.mean()))
         if verbose:
             print(f"round {r}: loss {losses[-1]:.4f}", flush=True)
-    drift = float(consensus_lib.pairwise_drift(state.params))
+    drift = float(consensus_lib.pairwise_drift(*p2p.param_blocks(state)))
     return {"losses": losses, "final_drift": drift}
 
 

@@ -71,8 +71,22 @@ MAIN_CACHE = "main."
 FIRST_CACHE = "first."
 
 
+# The leaves the layers keep float32 whatever the model's type, as the inits
+# draw them (and the reference's): rwkv6's decay base and bonus, Mamba2's dt
+# bias, A_log and D, a MoE layer's router; by the end of their names.
+FLOAT32_LEAVES = (".time_mix.decay_base", ".time_mix.bonus_u", ".mamba.dt_bias",
+                  ".mamba.A_log", ".mamba.D", ".moe.router")
+
+
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def param_dtypes(cfg: ModelConfig, names) -> dict[str, torch.dtype]:
+    """Each of the named leaves' type, as the family's init draws it: the
+    model's type, float32 for ``FLOAT32_LEAVES``."""
+    dtype = compute_dtype(cfg)
+    return {name: torch.float32 if name.endswith(FLOAT32_LEAVES) else dtype for name in names}
 
 
 def stacked_init(n: int, init_one: Callable[[int], dict]) -> dict[str, torch.Tensor]:

@@ -20,9 +20,14 @@ against the reference's, on the CPU.
 - one round of reduced smollm-135m in bfloat16 (the flat buffer bf16, its
   row a multiple of 8) against the reference's round, at the bf16
   tolerance of tests/test_kernels.py (5e-2);
-- a known departure (ROADMAP.md §3): a bf16 rwkv6 or hybrid model's float32
-  leaves, held in its bf16 flat buffer, lose a local step smaller than half
-  a bf16 step, which the reference's float32 leaf keeps;
+- a bf16 model's float32 leaves (rwkv6's decay base and bonus, Mamba2's dt
+  bias, A_log and D, a MoE router) in a float32 block of their own
+  (``ParamLayout.wide``): float32 through ``init_state``, a local phase and a
+  round, each move lr times its float32 gradient with no entry lost; one
+  bf16 round of reduced rwkv6-7b, zamba2-2.7b and qwen3-moe-235b-a22b
+  against the reference's ``make_round_fn`` round from its exported initial
+  leaves, every leaf in the reference's type; a task of one type keeps one
+  buffer; the modes a mixed task cannot run yet raise;
 - the reference's claim (the loss falls by more than 0.3 over 25 rounds) on
   the port; the CLI; ``resolve_loss_fn`` / ``resolve_init_fn``.
 """
@@ -186,8 +191,8 @@ def test_model_loss_fn_reaches_decoder_loss():
 
 def test_from_model_task_and_bf16_layout():
     """``from_model``: the model's leaves and type; a bf16 row padded to 8
-    elements (16 bytes), a float32 one to 4; a bf16 MoE refused (its
-    router leaf is float32)."""
+    elements (16 bytes), a float32 one to 4; a bf16 MoE's float32 router in
+    a float32 block of its own."""
     cfg = reduced(get_config("smollm-135m"))
     task = task_lib.from_model(build_model(cfg))
     assert task.param_shapes == tf.decoder_param_shapes(cfg) and task.dtype == torch.float32
@@ -208,17 +213,21 @@ def test_from_model_task_and_bf16_layout():
     full = get_config("smollm-135m")
     full_shapes = tf.decoder_param_shapes(full)
     assert sum(int(np.prod(s)) for s in full_shapes.values()) == 134_515_008
-    with pytest.raises(NotImplementedError, match="router is float32"):
-        task_lib.from_model(build_model(reduced(get_config("qwen3-moe-235b-a22b")).replace(
-            dtype="bfloat16")))
+    moe = task_lib.from_model(build_model(reduced(get_config("qwen3-moe-235b-a22b")).replace(
+        dtype="bfloat16")))
+    moe_layout = tp2p.ParamLayout.of(moe)
+    assert list(moe_layout.wide.shapes) == ["layers.moe.router"]
+    assert moe_layout.wide.dtype == torch.float32 and moe_layout.dtype == torch.bfloat16
+    assert moe_layout.names == tuple(moe.param_shapes)
 
 
 @pytest.mark.parametrize("arch", SSM_ARCHS)
 def test_from_model_takes_rwkv6_and_hybrid(arch):
     """``from_model`` of rwkv6 and the hybrid: the family's leaves, float32
-    at the reduced config; in bf16 the flat buffer is bf16 and holds the
-    layers' float32 leaves (rwkv6's decay base and bonus, Mamba2's dt bias,
-    A_log and D) in bf16 too, and the stacked loss runs on its views."""
+    at the reduced config; in bf16 the flat buffer is bf16 and the layers'
+    float32 leaves (rwkv6's decay base and bonus, Mamba2's dt bias, A_log
+    and D) sit in a float32 block beside it, their types the init's, and
+    the stacked loss runs on the views of both."""
     cfg = reduced(get_config(arch))
     task = task_lib.from_model(build_model(cfg))
     assert task.param_shapes == SSM_SHAPES[cfg.family](cfg) and task.dtype == torch.float32
@@ -234,29 +243,40 @@ def test_from_model_takes_rwkv6_and_hybrid(arch):
                   if cfg.family == "rwkv6" else
                   {"layers.mamba.dt_bias", "layers.mamba.A_log", "layers.mamba.D"})
     assert mixed == want_mixed
+    assert {n for n, t in task16.param_dtypes.items() if t == torch.float32} == want_mixed
+    assert set(layout16.wide.shapes) == want_mixed and layout16.wide.row % 4 == 0
     state = tp2p.init_state(task16, ttrain.lm_config(
         num_peers=2, local_steps=1, algorithm="p2pl_affinity", lr=1e-2, momentum=0.5,
         eta_d=0.25), seed=0, device="cpu")
     assert state.params.dtype == torch.bfloat16 and state.params.shape == (2, layout16.row)
-    views = layout16.views(state.params)
+    assert state.wide.params.dtype == torch.float32
+    assert state.wide.params.shape == (2, layout16.wide.row)
+    views = tp2p.param_views(state, task16)
+    assert {n for n, v in views.items() if v.dtype == torch.float32} == want_mixed
     rng = np.random.default_rng(0)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(2, 2, 8)))
     losses = task16.loss_fn(views, (toks, toks))
     assert losses.shape == (2,) and bool(torch.isfinite(losses).all())
 
 
-@pytest.mark.parametrize("arch,leaf", [("rwkv6-7b", "layers.time_mix.decay_base"),
-                                       ("zamba2-2.7b", "layers.mamba.D")])
-def test_bf16_buffer_loses_small_updates_of_float32_leaves(arch, leaf):
-    """A known departure from the reference (ROADMAP.md §3): a bf16 model's
-    float32 leaves are held in its one-type bf16 flat buffer, so a local
-    step of rwkv6's decay base (-4: a bf16 step of 2**-5) or Mamba2's D (1:
-    2**-7) smaller than half a bf16 step is lost, where the reference, which
-    keeps the leaf float32, moves it by lr times its gradient.  Held: at
-    least nine tenths of the leaf's entries get a nonzero float32 move and
-    keep their value in the buffer."""
+MIXED_CASES = [("rwkv6-7b", "layers.time_mix.decay_base"), ("zamba2-2.7b", "layers.mamba.D"),
+               ("qwen3-moe-235b-a22b", "layers.moe.router")]
+
+
+def _bf16_task(arch):
     cfg = reduced(get_config(arch)).replace(dtype="bfloat16")
-    task = task_lib.from_model(build_model(cfg))
+    return cfg, task_lib.from_model(build_model(cfg))
+
+
+@pytest.mark.parametrize("arch,leaf", MIXED_CASES)
+def test_bf16_model_keeps_float32_leaves_float32(arch, leaf):
+    """The reference keeps a bf16 model's float32 leaves float32 (rwkv6's
+    decay base at -4, where a bf16 step is 2**-5; Mamba2's D at 1, 2**-7;
+    the MoE router), and so does the port: the leaf is float32 through
+    ``init_state``, one local phase and one round, and the local step moves
+    it by lr times its float32 gradient (momentum and d start at 0), every
+    entry whose move is above float32 rounding moved."""
+    cfg, task = _bf16_task(arch)
     layout = tp2p.ParamLayout.of(task)
     pcfg = ttrain.lm_config(num_peers=2, local_steps=1, algorithm="p2pl_affinity", lr=1e-2,
                             momentum=0.5, eta_d=0.25)
@@ -264,18 +284,190 @@ def test_bf16_buffer_loses_small_updates_of_float32_leaves(arch, leaf):
     tokens, labels = ttrain.lm_token_batches(np.random.default_rng(0), cfg.vocab_size,
                                              num_peers=2, local_steps=1, batch=2, seq=16)
     batches = tuple(torch.as_tensor(a, dtype=torch.int64) for a in (tokens, labels))
-    views = layout.views(state.params)
-    before = views[leaf].clone()
-    # the reference's type: the same values, this leaf float32, the first
-    # step's move lr * gradient (momentum and d start at 0)
-    wide = {name: v.detach() for name, v in views.items()}
-    wide[leaf] = before.float().requires_grad_(True)
+    before = tp2p.param_views(state, task)[leaf].clone()
+    assert before.dtype == torch.float32 and leaf in layout.wide.shapes
+    wide = {name: v.detach() for name, v in tp2p.param_views(state, task).items()}
+    wide[leaf] = before.clone().requires_grad_(True)
     loss = task.loss_fn(wide, (batches[0][0], batches[1][0]))
     (grad,) = torch.autograd.grad(loss.sum(), [wide[leaf]])
     moved = pcfg.lr * grad
     after, _ = tp2p.local_phase_stats(state, task, batches, pcfg)
-    lost = (layout.views(after.params)[leaf] == before) & (moved != 0)
-    assert float(lost.float().mean()) >= 0.9
+    got = tp2p.param_views(after, task)[leaf]
+    assert got.dtype == torch.float32
+    eps = float(np.finfo(np.float32).eps)
+    torch.testing.assert_close(before - got, moved, rtol=1e-4,
+                               atol=2 * eps * float(before.abs().max()))
+    lost = (got == before) & (moved.abs() > eps * before.abs())
+    assert not bool(lost.any())
+    _, after_round, _ = tp2p.make_round_fn(task, pcfg, device="cpu")(state, batches)
+    assert tp2p.param_views(after_round, task)[leaf].dtype == torch.float32
+    for buf in (after_round.wide.momentum, after_round.wide.d_bias, after_round.wide.b_bias):
+        assert buf.dtype == torch.float32
+
+
+# The float32 leaves' moves in a bf16 round against the reference's: the
+# relative norm of (port - start) - (reference - start), start the initial
+# leaf (params) or 0 (d), after the local phase and after consensus.  Read on
+# the CPU at these inputs: at most 0.033 for rwkv6's and Mamba2's leaves and
+# 0.091 for the MoE router, whose top-k choices follow bf16 activations that
+# the two frameworks round apart.  A block left unchanged reads 1, one left
+# unmixed 0.89 to 1.09, so each bound sits between the two.
+FLOAT32_MOVE_REL = {"rwkv6-7b": 5e-2, "zamba2-2.7b": 5e-2, "qwen3-moe-235b-a22b": 0.2}
+
+
+def _check_move(got: torch.Tensor, want: torch.Tensor, start: torch.Tensor, rel: float,
+                what: str) -> None:
+    """``got`` moved from ``start`` as ``want`` did, within ``rel`` of the
+    move's norm (float64); a move of nothing must be nothing."""
+    moved, want_moved = got.double() - start.double(), want.double() - start.double()
+    if not bool(want_moved.any()):
+        assert not bool(moved.any()), what
+        return
+    err = float(torch.linalg.vector_norm(moved - want_moved)
+                / torch.linalg.vector_norm(want_moved))
+    assert err <= rel, f"{what}: moved {err:.3g} of its norm off the reference's"
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-2.7b", "qwen3-moe-235b-a22b"])
+def test_bf16_mixed_round_matches_reference(arch):
+    """One bf16 round of the reduced model from the reference's exported
+    initial leaves (``interop.params_from_jax``) against the reference's
+    ``p2p.make_round_fn`` round on the same token batches: after the local
+    phase and after consensus, every leaf of params and d in the reference's
+    type, each float32 leaf's move within ``FLOAT32_MOVE_REL`` of the
+    reference's, the bf16 leaves within 5e-2; the losses within 5e-2."""
+    k, t, b, s = 2, 2, 2, 16
+    jcfg = dataclasses.replace(jreduced(jget_config(arch)), dtype="bfloat16")
+    jmodel = jbuild_model(jcfg)
+    pcfg = jp2p.P2PConfig(algorithm="p2pl_affinity", num_peers=k, local_steps=t,
+                          consensus_steps=1, lr=5e-2, momentum=0.5, eta_d=0.25,
+                          topology="complete")
+    jstate = jp2p.init_state(jax.random.PRNGKey(3), jmodel.init, pcfg)
+    tokens, labels = ttrain.lm_token_batches(np.random.default_rng(3), jcfg.vocab_size,
+                                             num_peers=k, local_steps=t, batch=b, seq=s)
+    j_local, j_after, j_losses = jp2p.make_round_fn(jmodel.loss_fn, pcfg)(
+        jstate, {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)})
+
+    _, task = _bf16_task(arch)
+    tcfg = ttrain.lm_config(num_peers=k, local_steps=t, algorithm="p2pl_affinity", lr=5e-2,
+                            momentum=0.5, eta_d=0.25)
+    init = interop.params_from_jax(jax.tree.map(np.asarray, jstate.params))
+    assert any(v.dtype == torch.float32 for v in init.values())
+    state = tp2p.init_state(task, tcfg, device="cpu", init_params=init)
+    t_local, t_after, t_losses = tp2p.make_round_fn(task, tcfg, device="cpu")(
+        state, tuple(torch.as_tensor(a, dtype=torch.int64) for a in (tokens, labels)))
+    np.testing.assert_allclose(t_losses.float().numpy(), np.asarray(j_losses, np.float32),
+                               **BF16_TOL)
+    layout = tp2p.ParamLayout.of(task)
+    for phase, jst, tst in (("local", j_local, t_local), ("consensus", j_after, t_after)):
+        for field in ("params", "d_bias"):
+            want = interop.params_from_jax(jax.tree.map(np.asarray, getattr(jst, field)))
+            got = layout.views(getattr(tst, field), getattr(tst.wide, field))
+            assert set(got) == set(want)
+            for name, g in got.items():
+                what = f"{phase} {field} {name}"
+                assert g.dtype == want[name].dtype, what
+                if g.dtype == torch.float32:
+                    start = init[name] if field == "params" else torch.zeros_like(g)
+                    _check_move(g, want[name], start, FLOAT32_MOVE_REL[arch], what)
+                else:
+                    np.testing.assert_allclose(g.float().numpy(), want[name].float().numpy(),
+                                               err_msg=what, **BF16_TOL)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-2.7b", "qwen3-moe-235b-a22b"])
+def test_bf16_mixed_consensus_mixes_float32_block_in_float32(arch):
+    """The float32 block after a bf16 round's consensus step is the gossip
+    step (Eq. 4, and d from the incoming neighbors) of the port's own
+    post-local float32 block, computed in float64, within two float32
+    roundings of the block's largest entry (4.3e-8 to 9.5e-7 here; the
+    readings on the CPU were at most a quarter of it).  A block left unmixed
+    misses by the peers' difference, 1.1e-3 to 6.1e-3; one rounded to bf16
+    by 4.9e-4 to 3.2e-3, its d by 2.9e-6 to 1.2e-5."""
+    cfg, task = _bf16_task(arch)
+    t = 2
+    pcfg = ttrain.lm_config(num_peers=2, local_steps=t, algorithm="p2pl_affinity", lr=5e-2,
+                            momentum=0.5, eta_d=0.25)
+    state = tp2p.init_state(task, pcfg, seed=3, device="cpu")
+    tokens, labels = ttrain.lm_token_batches(np.random.default_rng(3), cfg.vocab_size, num_peers=2,
+                                             local_steps=t, batch=2, seq=16)
+    local, after, _ = tp2p.make_round_fn(task, pcfg, device="cpu")(
+        state, tuple(torch.as_tensor(a, dtype=torch.int64) for a in (tokens, labels)))
+    ops = tp2p.round_operands(pcfg, device="cpu")[0]
+    x = local.wide.params.double()
+    mixed = ops.self_w.double()[:, None] * x
+    nbr_sum = torch.zeros_like(x)
+    for slot in range(ops.nbr_idx.shape[1]):
+        nbr = x[ops.nbr_idx[:, slot].long()]
+        mixed = mixed + ops.nbr_w.double()[:, slot, None] * nbr
+        nbr_sum = nbr_sum + ops.beta.double()[:, slot, None] * nbr
+    if pcfg.use_affinity_b:
+        mixed = mixed + pcfg.eta_b * local.wide.b_bias.double()
+    d = (nbr_sum - x) / t
+    assert bool((x[0] != x[1]).any()) and bool(d.any())
+    atol = 2 * float(np.finfo(np.float32).eps) * float(x.abs().max())
+    for name, got, want in (("params", after.wide.params, mixed), ("d", after.wide.d_bias, d)):
+        assert got.dtype == torch.float32, name
+        torch.testing.assert_close(got.double(), want, rtol=0, atol=atol, msg=name)
+
+
+def test_init_state_refuses_a_drawn_leaf_of_another_type():
+    """The layout's types are the init's: a task whose ``param_dtypes``
+    leave out float32 leaves that its init draws (a one-type bf16 layout for
+    a bf16 rwkv6) is refused by ``init_state``, not cast into the bf16
+    block."""
+    _, task = _bf16_task("rwkv6-7b")
+    wrong = dataclasses.replace(task, param_dtypes=None)
+    assert tp2p.ParamLayout.of(wrong).wide is None
+    pcfg = ttrain.lm_config(num_peers=2, local_steps=1, algorithm="p2pl_affinity", lr=1e-2,
+                            momentum=0.5, eta_d=0.25)
+    with pytest.raises(TypeError, match="decay_base.*float32.*bfloat16"):
+        tp2p.init_state(wrong, pcfg, seed=0, device="cpu")
+
+
+@pytest.mark.parametrize("arch,dtype", [("smollm-135m", "bfloat16"), ("rwkv6-7b", "float32"),
+                                        ("zamba2-2.7b", "float32")])
+def test_one_type_task_keeps_one_buffer(arch, dtype):
+    """A task whose leaves share its type (smollm-135m in bf16, rwkv6 and the
+    hybrid in float32) keeps a single (K, row) buffer: no float32 block, a
+    state of the four buffers and nothing beside them, the views and flatten
+    of one buffer."""
+    cfg = reduced(get_config(arch)).replace(dtype=dtype)
+    task = task_lib.from_model(build_model(cfg))
+    assert task.param_dtypes is None
+    layout = tp2p.ParamLayout.of(task)
+    assert layout.wide is None and layout.names == ()
+    size = sum(int(np.prod(sh)) for sh in task.param_shapes.values())
+    align = tp2p.row_align(getattr(torch, dtype))
+    assert (layout.size, layout.row, layout.dtype) == (size, -(-size // align) * align,
+                                                       getattr(torch, dtype))
+    state = tp2p.init_state(task, ttrain.lm_config(
+        num_peers=2, local_steps=1, algorithm="p2pl_affinity", lr=1e-2, momentum=0.5,
+        eta_d=0.25), seed=0, device="cpu")
+    assert state.wide == () and tp2p.param_blocks(state) == [state.params]
+    assert len(tp2p.state_leaves(state)) == 4
+    for buf in tp2p.state_leaves(state):
+        assert buf.dtype == layout.dtype and buf.shape == (2, layout.row)
+    views = layout.views(state.params)
+    assert torch.equal(layout.flatten(views), state.params)
+    assert [b.data_ptr() for b in layout.flatten_blocks(views)] != [state.params.data_ptr()]
+
+
+@pytest.mark.parametrize("field,value", [("protocol", "push_sum"), ("compressor", "qint8"),
+                                         ("staleness_bound", 2), ("schedule", "adaptive")])
+def test_mixed_task_refuses_what_it_cannot_run_yet(field, value):
+    """A task of mixed leaf types mixes through ``consensus_mix``'s gossip
+    step only: push-sum's mass mode, a compressed wire, bounded staleness
+    and adaptive selection raise, naming the ROADMAP.md item, and so does
+    the scan driver."""
+    _, task = _bf16_task("rwkv6-7b")
+    pcfg = dataclasses.replace(ttrain.lm_config(
+        num_peers=2, local_steps=1, algorithm="p2pl_affinity", lr=1e-2, momentum=0.5,
+        eta_d=0.25), **{field: value})
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 18b"):
+        tp2p.init_state(task, pcfg, seed=0, device="cpu")
+    with pytest.raises(NotImplementedError, match="scan driver.*ROADMAP.md queue 1 item 18b"):
+        tp2p.make_scan_driver(task, pcfg, device="cpu")
 
 
 def test_resolve_loss_and_init_fns():

@@ -9,10 +9,13 @@ reference's sequential oracles (``repro/kernels/rwkv6/ref.py:wkv6_ref``,
 ``repro/kernels/mamba2/ref.py:ssd_ref``) with a nonzero initial state and a
 nonzero gradient of the final state, in float32 and bf16, at ragged
 lengths, under extreme decay and, for the SSD, with B/C groups G < H; to
-torch autograd through the chunked plain versions; the Functions under
-``torch.func.vmap`` (the peers folded into the batch, each with its own u or
-a) against a loop over the peers; and the wrappers' dispatch: every call
-through its Function, no fallback, the plain backward on CPU tensors only.
+through the chunked forms; the SSD backward kernel's chunked
+decomposition (``ref.ssd_bwd_chunked_ref``) against the plain backward and
+``jax.vjp``, and with its TF32 passes emulated against the card's float32
+check; the Functions under ``torch.func.vmap`` (the peers folded into the
+batch, each with its own u or a) against a loop over the peers; and the
+wrappers' dispatch: every call through its Function, no fallback, the plain
+backward on CPU tensors only.
 The CUDA kernels are held to the plain backwards on the card by
 ``chip_smoke.py``.
 
@@ -27,6 +30,7 @@ operand's type, within one bf16 rounding (rtol 2**-7) and atol 1e-2 of the
 largest entry.
 """
 import ast
+import functools
 import inspect
 import re
 from pathlib import Path
@@ -204,13 +208,11 @@ def test_ssd_bwd_ref_strong_decay_stays_finite():
         _close(gr, w, scale=10 * scale, what=name)
 
 
-def test_ssd_bwd_ref_long_memory_matches_float64():
-    """A long memory (dt a about -0.03 a step, 1024 tokens, P = N = 64):
-    da and ddt within a relative norm error of 2e-6 of float64 autograd
-    through the recurrence.  The log-decays' running sum restarts every
-    ``BWD_CHUNK`` tokens from a direct inner product; run end to end it
-    misses this bound here (tools/bwd_precision.py: 2.8e-4 of da at
-    zamba2's head shape)."""
+@functools.cache
+def _long_memory_case():
+    """A long memory (dt a about -0.03 a step, 1024 tokens, P = N = 64, no
+    state): the operands and float64 autograd's dx, ddt and da through the
+    recurrence."""
     rng = np.random.default_rng(25)
     b, t, h, p, n = 1, 1024, 2, 64, 64
     x, dy = (rng.normal(size=(b, t, h, p)).astype(np.float32) for _ in range(2))
@@ -224,8 +226,19 @@ def test_ssd_bwd_ref_long_memory_matches_float64():
         s = (torch.exp(dd[:, i] * aa)[..., None, None] * s
              + (dd[:, i, :, None] * xx[:, i])[..., None] * bb[:, i][:, :, None])
         ys.append(torch.einsum("bhpn,bhn->bhp", s, cc[:, i]))
-    _, gdt, ga = torch.autograd.grad((torch.stack(ys, 1) * _t(dy).double()).sum(), (xx, dd, aa))
-    got = ssd_ref.ssd_bwd_ref(*map(_t, (x, bm, cm, dt, a)), None, _t(dy), None)
+    want = torch.autograd.grad((torch.stack(ys, 1) * _t(dy).double()).sum(), (xx, dd, aa))
+    return (x, bm, cm, dt, a), dy, want
+
+
+def test_ssd_bwd_ref_long_memory_matches_float64():
+    """A long memory (dt a about -0.03 a step, 1024 tokens, P = N = 64):
+    da and ddt within a relative norm error of 2e-6 of float64 autograd
+    through the recurrence.  The log-decays' running sum restarts every
+    ``BWD_CHUNK`` tokens from a direct inner product; run end to end it
+    misses this bound here (tools/bwd_precision.py: 2.8e-4 of da at
+    zamba2's head shape)."""
+    ops_, dy, (_, gdt, ga) = _long_memory_case()
+    got = ssd_ref.ssd_bwd_ref(*map(_t, ops_), None, _t(dy), None)
     for name, g, w in (("ddt", got[3], gdt), ("da", got[4], ga)):
         err = float((g.double() - w).norm() / w.norm())
         assert err < 2e-6, (name, err)
@@ -258,6 +271,110 @@ def test_ssd_bf16_gradients_in_their_operands_types():
         w = np.asarray(w, np.float32)
         np.testing.assert_allclose(gr.float().numpy(), w, rtol=2**-7,
                                    atol=1e-2 * float(np.abs(w).max()), err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernel's chunked decomposition (csrc/ssd_bwd.cu), and its TF32
+# passes emulated (the card's float32 check: chip_smoke.BWD_REL_NORM, 1e-4)
+# ---------------------------------------------------------------------------
+
+CARD_BWD_REL_NORM = 1e-4
+
+
+def _rel(got, want):
+    want = torch.as_tensor(np.asarray(want)).double()
+    return float((got.double() - want).norm() / want.norm())
+
+
+@pytest.mark.parametrize("b,t,h,p,n,g,chunk", [
+    (2, 16, 4, 16, 8, 2, 64), (2, 21, 4, 32, 16, 1, 64), (1, 37, 2, 64, 32, 2, 64),
+    (1, 37, 2, 64, 32, 2, 8), (2, 150, 2, 32, 16, 1, 64)])
+def test_ssd_bwd_chunked_ref_matches_plain_and_jax(b, t, h, p, n, g, chunk):
+    """The chunked decomposition (one ragged chunk of 64; several chunks of
+    8 or 64 with a ragged last one; G < H and G = H; a state in and a
+    final-state gradient) against ``jax.vjp`` of the reference's oracle and
+    against the plain backward (the token recurrence), at the float32
+    tolerance."""
+    ops_, grads = _ssd_inputs(b, t, h, p, n, g, seed=t + chunk)
+    want = _jax_ssd_vjp(ops_, grads)
+    plain = ssd_ref.ssd_bwd_ref(*map(_t, ops_), *map(_t, grads))
+    got = ssd_ref.ssd_bwd_chunked_ref(*map(_t, ops_), *map(_t, grads), chunk=chunk)
+    for name, gr, pl, w in zip(SSD_NAMES, got, plain, want):
+        assert gr.shape == pl.shape == np.shape(w), name
+        _close(gr, w, what=name)
+        _close(gr, pl.numpy(), what=name)
+
+
+def test_ssd_bwd_chunked_ref_takes_a_row_of_a_a_peer():
+    """a of one row per two batch elements (a vmapped call's peers folded
+    into the batch), a ragged chunk: the chunked form against the plain
+    backward."""
+    ops_, grads = _ssd_inputs(4, 75, 4, 16, 8, 2, seed=11, groups=2)
+    want = ssd_ref.ssd_bwd_ref(*map(_t, ops_), *map(_t, grads))
+    got = ssd_ref.ssd_bwd_chunked_ref(*map(_t, ops_), *map(_t, grads))
+    for name, gr, w in zip(SSD_NAMES, got, want):
+        assert gr.shape == w.shape, name
+        _close(gr, w.numpy(), what=name)
+
+
+@pytest.mark.parametrize("t", [24, 150])
+def test_ssd_bwd_chunked_ref_strong_decay_stays_finite(t):
+    """dt a = -50 a step in one chunk and across three: every exponent the
+    decomposition takes is a difference cum_t - cum_s with s <= t, so
+    nothing overflows; within atol of the reference's gradients on the scale
+    of the largest (1e-4 of it, as the plain backward's test)."""
+    ops_, grads = _ssd_inputs(1, t, 2, 16, 8, 1, seed=9, dt_a=-50.0)
+    want = _jax_ssd_vjp(ops_, grads)
+    got = ssd_ref.ssd_bwd_chunked_ref(*map(_t, ops_), *map(_t, grads))
+    scale = max(float(np.abs(np.asarray(w)).max()) for w in want)
+    for name, gr, w in zip(SSD_NAMES, got, want):
+        assert torch.isfinite(gr).all(), name
+        _close(gr, w, scale=10 * scale, what=name)
+
+
+@pytest.mark.parametrize("emulated", [False, True])
+def test_ssd_bwd_chunked_ref_long_memory_matches_float64(emulated):
+    """The long memory of the plain backward's test: no running sum of the
+    decomposition spans more than a chunk of 64 (each restarts from the
+    direct <G, S> at the chunk's end), and dx, ddt and da stay within 2e-6
+    of float64 autograd, with the kernel's TF32 passes too."""
+    ops_, dy, want = _long_memory_case()
+    product = ssd_ref.tf32_product if emulated else None
+    got = ssd_ref.ssd_bwd_chunked_ref(*map(_t, ops_), None, _t(dy), None, product=product)
+    for name, g, w in (("dx", got[0], want[0]), ("ddt", got[3], want[1]),
+                       ("da", got[4], want[2])):
+        err = float((g.double() - w).norm() / w.norm())
+        assert err < 2e-6, (name, err)
+
+
+def _emulated_bwd(dtype, *, one_pass):
+    ops_, grads = _ssd_inputs(1, 256, 2, 64, 64, 1, seed=20)
+    tops = (*(_t(m, dtype) for m in ops_[:3]), *map(_t, ops_[3:]))
+    want = ssd_ref.ssd_bwd_ref(*tops, *map(_t, grads))
+
+    def product(m1, m2, s1, s2):
+        return ssd_ref.tf32_product(m1, m2, s1, s2, one_pass=one_pass)
+
+    got = ssd_ref.ssd_bwd_chunked_ref(*tops, *map(_t, grads), product=product)
+    return {name: _rel(g, w) for name, g, w in zip(SSD_NAMES, got, want)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_split_tf32_backward_holds_the_float32_check(dtype):
+    """The kernel's split-TF32 passes (the float32 operand of every product
+    split, bf16 x, B and C exact; every operand split for float32 inputs)
+    keep every gradient within the card's float32 check of the plain
+    backward."""
+    rels = _emulated_bwd(dtype, one_pass=False)
+    assert max(rels.values()) < CARD_BWD_REL_NORM / 10, rels
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_one_pass_tf32_backward_fails_the_float32_check(dtype):
+    """Why the kernel splits: one TF32 pass a product misses the card's
+    float32 check of the plain backward."""
+    rels = _emulated_bwd(dtype, one_pass=True)
+    assert max(rels.values()) > CARD_BWD_REL_NORM, rels
 
 
 # ---------------------------------------------------------------------------

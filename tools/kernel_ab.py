@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time two versions of the port's ``consensus_mix``, ``dequant_mix``,
-``segment_mix``, ``wkv6``, ``flash_attention``, ``flash_attention_bwd`` and
-``ssd`` kernels in turns on one GPU: this checkout's and another tree's (an
-older commit unpacked beside it).
+``segment_mix``, ``wkv6``, ``flash_attention``, ``flash_attention_bwd``,
+``ssd`` and ``ssd_bwd`` kernels in turns on one GPU: this checkout's and
+another tree's (an older commit unpacked beside it).
 
 Both versions are built from their ``.cu`` sources with the port's nvcc flags
 into ``build/kernel_ab/``, called through the C entry points their wrappers
@@ -46,7 +46,14 @@ library call and the bound chip_smoke.py computes:
   chunk 64) with bf16 x, B and C as served, and in float32 from a zero and
   from a random state, at B 1, T 8192 from a state (float32) and at a
   ragged T 1000 (float32), each with both bounds and the largest
-  difference between the two versions' outputs.
+  difference between the two versions' outputs;
+- ``ssd_bwd`` at zamba2's trained shape (B 2 = 2 peers x batch 1, T 1024,
+  H 80, P = N = 64, one group, bf16 views of the convolution's output, each
+  peer's a a row, a state in) and at the served batch of 4, both versions
+  through ``ssd_bwd`` (the same C entry in both, each with its own scratch)
+  held to the plain backward at chip_smoke.py's checks, each called twice
+  (``repeat_identical_bits``: a version's two calls equal bit for bit),
+  with the bound chip_smoke.py computes for the function.
 
     git archive <commit> src/repro_torch/kernels | tar -x -C build/parent
     python3 tools/kernel_ab.py --old build/parent [--only ssd]
@@ -88,6 +95,7 @@ KERNELS = {  # name: source below src/repro_torch/kernels
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
     "flash_attention_bwd": "flash_attention/csrc/flash_attention_bwd.cu",
     "ssd": "mamba2/csrc/ssd.cu",
+    "ssd_bwd": "mamba2/csrc/ssd_bwd.cu",
 }
 OUT = ROOT / "build" / "kernel_ab"
 
@@ -620,6 +628,79 @@ def ab_ssd(card, libs: dict, name: str, b, t, h, *, dtype=torch.float32, state=F
             "max_abs_diff_old": diff, **times, **bounds}
 
 
+def ssd_bwd_scratch(lib: ctypes.CDLL, b, t, h, p, n, dev) -> tuple:
+    """The float32 scratch a version's ``ssd_bwd`` takes: the chunked form's
+    (this tree's ``ops.bwd_scratch``), or the earlier token loop's ((B, H)
+    partials of da and the state at every 16-token chunk's end but the
+    last)."""
+    if "chunk_states" in lib.source_text:
+        return ssd_ops.bwd_scratch(b, t, h, p, n, dev)
+    ends = -(-t // 16) - 1
+    return (torch.empty((b, t, h, n), device=dev), torch.empty((b, t, h, n), device=dev),
+            torch.empty((b, h), device=dev), torch.empty(max(b * h * ends * p * n, 1), device=dev))
+
+
+def ab_ssd_bwd(card, libs: dict, name: str, b, t, h, *, a_rows=1, seed=0) -> dict:
+    """The ssd backward at P = N = 64, one B/C group, bf16 x, B and C as
+    views of one (B, T, H P + 2 N) buffer (the model's convolution output), a
+    state in and no final-state gradient (as the LM round calls it), both
+    versions through ``ssd_bwd``, each held to the plain backward at
+    chip_smoke.py's checks and called twice, timed in turns."""
+    p = n = 64
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    conv = torch.randn(b, t, h * p + 2 * n, generator=gen, device=dev).to(torch.bfloat16)
+    x = conv[..., :h * p].unflatten(-1, (h, p))
+    bm = conv[..., h * p:h * p + n].unflatten(-1, (1, n))
+    cm = conv[..., h * p + n:].unflatten(-1, (1, n))
+    dt = 0.01 + 0.99 * torch.rand(b, t, h, generator=gen, device=dev)
+    a = -(0.5 + 1.5 * torch.rand(*((a_rows,) if a_rows > 1 else ()), h, generator=gen,
+                                 device=dev))
+    dy = torch.randn(b, t, h, p, generator=gen, device=dev)
+    s0 = torch.randn(b, h, p, n, generator=gen, device=dev)
+    want = ssd_ref.ssd_bwd_ref(x, bm, cm, dt, a, s0, dy, None)
+    strides = (ctypes.c_int64 * 6)(*(st for m in (x, bm, cm) for st in m.stride()[:2]))
+    stream = torch.cuda.current_stream().cuda_stream
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    runs, outs, checks = {}, {}, {}
+    for tag, lib in libs.items():
+        fn = lib.ssd_bwd
+        fn.argtypes = [ptr] * 18 + [i64] * 8 + [ctypes.POINTER(i64), ptr]
+        fn.restype = ctypes.c_int
+        scratch = ssd_bwd_scratch(lib, b, t, h, p, n, dev)
+
+        def grads():  # contiguous, in the operands' types
+            return (*(torch.empty(m.shape, dtype=m.dtype, device=dev) for m in (x, bm, cm)),
+                    torch.empty_like(dt), torch.empty_like(a), torch.empty_like(s0))
+
+        def run(fn=fn, tag=tag, scratch=scratch, out=None):
+            g = outs.setdefault(tag, grads()) if out is None else out
+            err = fn(x.data_ptr(), bm.data_ptr(), cm.data_ptr(), dt.data_ptr(), a.data_ptr(),
+                     s0.data_ptr(), dy.data_ptr(), None, *(m.data_ptr() for m in g[:5]),
+                     *(m.data_ptr() for m in scratch), g[5].data_ptr(), 1, b, t, h, 1, p, n,
+                     ssd_ops.a_batch(a, b), strides, stream)
+            chip_smoke.check(err == 0, f"ssd_bwd {tag} launch: cudaError_t {err}")
+
+        run()
+        again = grads()
+        run(out=again)
+        torch.cuda.synchronize()
+        checks[tag] = chip_smoke.check_bwd(f"ssd_bwd {tag}", name,
+                                           ("x", "b", "c", "dt", "a", "state"), outs[tag],
+                                           again, want, extreme=False)
+        runs[tag] = run
+    identical = all(torch.equal(u, v) for u, v in zip(outs["old"], outs["new"]))
+    times = in_turns(runs, None)
+    nbytes, flops = chip_smoke.ssd_bwd_work(b, t, h, 1, p, n, in_bytes=2, a_rows=a_rows,
+                                            state=True, dstate=False)
+    bounds = chip_smoke.pipe_and_tensor_bounds(card, nbytes, flops, flops, bf16=True)
+    return {"kernel": "ssd_bwd", "case": name, "B": b, "T": t, "H": h, "P": p, "N": n,
+            "a_rows": a_rows, "dtype": "bfloat16", "repeat_identical_bits": True,
+            "old_new_identical_bits": identical,
+            "rel_norm_err": {tag: c["rel_norm_err_by_grad"] for tag, c in checks.items()},
+            **times, **bounds}
+
+
 def in_turns(runs: dict, library) -> dict:
     """Mean ms of each version (``<tag>_ms``) and of the library call
     (``library_ms``, None without one), in turns: each version in order,
@@ -701,6 +782,10 @@ def main() -> int:
                    seed=6),
             ab_ssd(card, libs, "ragged_t1000", 4, 1000, 80, state=True, dt_range=(1e-4, 2e-3),
                    seed=3)],
+        # chip_smoke.py's timed ssd_bwd shapes: the LM round's and the served batch
+        "ssd_bwd": lambda libs: [
+            ab_ssd_bwd(card, libs, "trained_k2_b1_t1024_bf16", 2, 1024, 80, a_rows=2, seed=41),
+            ab_ssd_bwd(card, libs, "served_b4_t1024_bf16", 4, 1024, 80, seed=42)],
     }
     for kernel in args.only:
         for result in cases[kernel](pick(kernel)):

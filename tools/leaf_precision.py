@@ -1,16 +1,17 @@
-"""Measure what holding a bf16 model's float32 leaves in its bf16 flat buffer
-changes in one local phase of P2P LM training.
+"""Measure whether a bf16 model's float32 leaves keep their updates in one
+local phase of P2P LM training on the port's flat buffers.
 
-``core.task.from_model`` keeps one flat buffer of one type, so a bf16 rwkv6
-or hybrid model's float32 leaves (rwkv6's ``decay_base`` and ``bonus_u``, the
-Mamba2 layers' ``dt_bias``, ``A_log`` and ``D``) are stored and updated in
-bf16; the reference keeps them float32.  For each architecture this runs the
-first round's local phase (T momentum-SGD steps of K peers, ``run_p2p_lm``'s
-step sizes and token draws, seed 0) twice from the same draw: through
-``p2p.local_phase_stats`` on the flat buffer, and in a loop over named
+``core.p2p.ParamLayout`` keeps a bf16 rwkv6 or hybrid model's float32 leaves
+(rwkv6's ``decay_base`` and ``bonus_u``, the Mamba2 layers' ``dt_bias``,
+``A_log`` and ``D``) in a float32 block beside the bf16 buffer, as the
+reference keeps them float32.  For each architecture this runs the first
+round's local phase (T momentum-SGD steps of K peers, ``run_p2p_lm``'s step
+sizes and token draws, seed 0) twice from the same draw: through
+``p2p.local_phase_stats`` on the flat buffers, and in a loop over named
 leaves, each in its own type, with the same update.  Prints both phases'
 per-step losses and, for each float32 leaf, how far it moved in each and the
-share of its entries whose update the bf16 buffer lost.
+share of its entries whose update the flat buffers lost (0 where the leaf is
+held in float32).
 
     python tools/leaf_precision.py                      # on the card, LM_RUNS depths
     python tools/leaf_precision.py --device cpu --reduced
@@ -84,15 +85,16 @@ def measure(arch: str, *, layers: int | None, reduced: bool, peers: int, batch: 
     wide = [name for name, v in leaves.items() if v.dtype == torch.float32]
     init_wide = {name: leaves[name].clone() for name in wide}
 
-    # the port's flat buffer, from the same draw
+    # the port's flat buffers, from the same draw
     state = p2p.init_state(task, pcfg, seed=0, device=device)
-    for name, view in layout.views(state.params).items():
-        if name not in wide and not torch.equal(view, leaves[name]):
+    for name, view in layout.views(*p2p.param_blocks(state)).items():
+        if not torch.equal(view, leaves[name]):
             raise RuntimeError(f"{arch}: the two draws of {name} differ")
-    # the named leaves wait on the host while the flat buffer's phase runs
+    # the named leaves wait on the host while the flat buffers' phase runs
     leaves = {name: v.cpu() for name, v in leaves.items()}
     state, flat_losses = p2p.local_phase_stats(state, task, batches, pcfg)
-    flat_wide = {name: layout.views(state.params)[name].float() for name in wide}
+    flat_wide = {name: view.float() for name, view in
+                 layout.views(*p2p.param_blocks(state)).items() if name in wide}
     flat_losses = flat_losses.float().cpu().tolist()
     del state
     if device.type == "cuda":
@@ -103,21 +105,22 @@ def measure(arch: str, *, layers: int | None, reduced: bool, peers: int, batch: 
     by_leaf = {}
     for name in wide:
         moved = leaves[name] - init_wide[name]  # float32, as the reference holds it
-        moved_bf16 = flat_wide[name] - init_wide[name].to(layout.dtype).float()
-        lost = (moved_bf16 == 0) & (moved != 0)
+        moved_flat = flat_wide[name] - init_wide[name].to(layout.dtype_of(name)).float()
+        lost = (moved_flat == 0) & (moved != 0)
         by_leaf[name] = {
             "entries": moved.numel(),
+            "dtype_in_the_flat_buffers": str(layout.dtype_of(name)),
             "max_abs_moved_float32": float(moved.abs().max()),
-            "max_abs_moved_bf16": float(moved_bf16.abs().max()),
+            "max_abs_moved_flat": float(moved_flat.abs().max()),
             "share_of_updates_lost": float(lost.float().mean()),
-            "rel_err_of_the_move": float(torch.linalg.vector_norm(moved_bf16 - moved)
+            "rel_err_of_the_move": float(torch.linalg.vector_norm(moved_flat - moved)
                                          / torch.linalg.vector_norm(moved).clamp_min(1e-30)),
             "max_abs_diff_after": float((flat_wide[name] - leaves[name]).abs().max())}
     diff = np.abs(np.asarray(flat_losses) - np.asarray(named_losses))
     span = float(np.ptp(np.asarray(named_losses)[:, 0]))
     return {"arch": arch, "layers": cfg.num_layers, "reduced": reduced, "peers": peers,
             "batch": batch, "seq": seq, "dtype": str(layout.dtype), "float32_leaves": wide,
-            "losses_flat_bf16": flat_losses, "losses_named_float32_leaves": named_losses,
+            "losses_flat": flat_losses, "losses_named_float32_leaves": named_losses,
             "max_abs_loss_diff": float(diff.max()), "loss_change_over_the_phase_peer0": span,
             "by_leaf": by_leaf}
 
