@@ -128,7 +128,8 @@ In order:
    134,515,008, the gather), K = 2, K = 100 at the 2NN's bf16 row (the
    tile), a K = 8 ring with a zero beta row, K = 24 with zero beta rows at
    N = 4099 and K = 4 at N = 5003 (the scalar path of each design);
-   ``wkv6_bwd`` at seven and ``ssd_bwd`` at nine against their plain
+   ``wkv6_bwd`` at nine (two of them across many chunk boundaries) and
+   ``ssd_bwd`` at nine against their plain
    backwards (``BWD_REL_NORM``: each gradient's relative norm error under
    1e-4 in float32 and 1e-2 in bf16; under extreme decay every gradient
    within 1e-4 of the largest, ddt 1e-3; two calls equal bit for bit), the
@@ -137,7 +138,8 @@ In order:
    each peer's u a row) and zamba2-2.7b's (B 2, T 1024, 80 heads of P = N =
    64, bf16 views of the convolution's output, each peer's a a row), the
    served batch of 4, float32 with both states, ragged, G < H, the reduced
-   and the narrowest widths, one token, extreme decay;
+   and the narrowest widths, one token, extreme decay (``wkv6_bwd`` also at
+   4096 tokens and at extreme decay over 1024);
 3b. trains smollm-135m at full width (30 layers, d 576, vocab 49,152, tied,
    bf16, nothing cut) P2P through ``core.task.from_model``, ``init_state``
    and ``make_round_fn`` (``drive_p2p_lm``): K = 4 on the complete graph,
@@ -2254,10 +2256,10 @@ def wkv6_bwd_case(card, name, b, t, h, dk, *, u_rows=1, state=False, dstate=Fals
         rkv = ops._rkv_dtype(r, k, v)
         outs = [torch.empty(b, t, h, dk, dtype=rkv, device=dev) for _ in range(3)]
         dld = torch.empty(b, t, h, dk, device=dev)
-        du, du_part = torch.empty_like(u), torch.empty(b, h, dk, device=dev)
+        du, scratch = torch.empty_like(u), ops.bwd_scratch(b, t, h, dk, dev)
         ds_in = torch.empty(b, h, dk, dk, device=dev)
         kern = lambda: ops.launch_bwd(r, k, v, logd, u, s0, dout, ds, *outs, dld, du,  # noqa: E731
-                                      du_part, ds_in)
+                                      scratch, ds_in)
         plain = lambda: ref.wkv6_bwd_ref(*args)  # noqa: E731
         case.update(in_turns(plain, kern, None))
         nbytes, flops = wkv6_bwd_work(b, t, h, dk, in_bytes=r.element_size(), u_rows=u_rows,
@@ -2276,7 +2278,9 @@ def wkv6_bwd_cases(card: Card) -> list[dict]:
     row, a state in (the loss hands the kernel zeros), no final-state
     gradient), which is also the served prefill's batch of 4; then with a
     final-state gradient in float32, ragged, at the narrower heads (the
-    reduced configs' 32, seqmnist's 16), one token, and extreme decay."""
+    reduced configs' 32, seqmnist's 16), one token, extreme decay, and
+    across many chunk and sub-chunk boundaries: 4096 tokens in bf16 and
+    extreme decay over 1024."""
     small = (1e-4, 2e-3)  # decays summing to about -1 over 1024 tokens: the state survives
     bf16 = torch.bfloat16
     return [
@@ -2293,6 +2297,10 @@ def wkv6_bwd_cases(card: Card) -> list[dict]:
         wkv6_bwd_case(card, "t1_dk64", 2, 1, 4, 64, state=True, dstate=True, seed=36),
         wkv6_bwd_case(card, "extreme_decay", 2, 256, 8, 64, state=True, dstate=True, ld=-50.0,
                       seed=37),
+        wkv6_bwd_case(card, "b1_t4096_bf16", 1, 4096, 64, 64, state=True, dstate=True,
+                      ld=small, dtype=bf16, seed=38),
+        wkv6_bwd_case(card, "extreme_decay_t1024", 2, 1024, 8, 64, state=True, dstate=True,
+                      ld=-50.0, seed=39),
     ]
 
 
@@ -2983,7 +2991,7 @@ def lm_kernel_category(name: str) -> str:
     if any(tag in name for tag in ("delta_f32", "delta_bf16", "dkdv_", "dq_wgmma", "dq_bf16",
                                    "dq_f32")):
         return "attention backward"
-    if any(tag in name for tag in ("wkv6_bwd", "du_reduce")):
+    if "wkv6_bwd" in name:
         return "wkv6 backward"
     if "wkv6" in name:
         return "wkv6 forward"

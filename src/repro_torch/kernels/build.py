@@ -4,8 +4,9 @@ Each kernel is a ``.cu`` file with a plain C interface, compiled by ``nvcc``
 for Hopper (``sm_90a``) into a shared library and loaded with ``ctypes``;
 nothing includes PyTorch's headers, so a build takes seconds.  Libraries are
 built at first use into ``build/repro_torch/`` at the repository root, under
-a name keyed by a hash of the sources, their headers and the flags, so a
-changed source is rebuilt and an unchanged one is loaded as it is.  Nothing
+a name keyed by a hash of the sources, every header they include (followed
+from file to file, wherever it lies) and the flags, so a changed source or
+header is rebuilt and an unchanged one is loaded as it is.  Nothing
 here runs when the module is imported.
 """
 from __future__ import annotations
@@ -14,6 +15,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -72,16 +74,39 @@ def find_nvcc() -> str:
     return found
 
 
-def load_library(name: str, sources: list[Path]) -> KernelLibrary:
-    """Build (if needed) and load ``lib<name>-<hash>.so`` from ``sources``;
-    the hash also covers every ``*.cuh`` header beside them."""
+_QUOTED_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def included_headers(sources: list[Path]) -> list[Path]:
+    """Every header the sources include through a quoted ``#include``, and
+    every header those include in turn, each resolved against the directory
+    of the file that names it (as nvcc resolves them); sorted."""
+    found: set[Path] = set()
+    todo = list(sources)
+    while todo:
+        src = todo.pop()
+        for rel in _QUOTED_INCLUDE.findall(src.read_text()):
+            header = (src.parent / rel).resolve()
+            if header not in found:
+                found.add(header)
+                todo.append(header)
+    return sorted(found)
+
+
+def library_path(name: str, sources: list[Path]) -> Path:
+    """``BUILD_DIR / lib<name>-<hash>.so``: the hash covers the flags, the
+    sources and every header they include (``included_headers``)."""
     digest = hashlib.sha256()
     for flag in NVCC_FLAGS:
         digest.update(flag.encode())
-    headers = sorted({h for src in sources for h in src.parent.glob("*.cuh")})
-    for src in [*sources, *headers]:
+    for src in [*sources, *included_headers(sources)]:
         digest.update(src.read_bytes())
-    path = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def load_library(name: str, sources: list[Path]) -> KernelLibrary:
+    """Build (if needed) and load ``library_path(name, sources)``."""
+    path = library_path(name, sources)
     seconds, log = 0.0, ""
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -18,12 +18,13 @@ Dispatch is by the device of the operands, and only by it:
 - any other device raises.
 
 Every call goes through ``WKV6``, a ``torch.autograd.Function``: its
-backward launches the backward kernel (``csrc/wkv6_bwd.cu``: a forward pass
-over the tokens for dr, a reverse pass carrying dS for dk, dv, the log-decays'
-running sum and the state's gradient, then du summed over the batch by a
-second kernel; no atomics) on CUDA tensors and the plain backward
-(``ref.wkv6_bwd_ref``, the same recurrence) on CPU tensors, with no
-fallback between the two.  Its ``vmap`` rule folds the vmapped axis (the
+backward launches the backward kernels (``csrc/wkv6_bwd.cu``: the state at
+every 64-token chunk's start and its gradient at every chunk's end by a pass
+over 16-token sub-chunks each way, then every chunk in parallel, its
+products on the tensor cores, then du summed over the chunks and the batch;
+no atomics; ``ref.wkv6_bwd_chunked_ref`` is that decomposition in PyTorch)
+on CUDA tensors and the plain backward (``ref.wkv6_bwd_ref``, the token
+recurrence) on CPU tensors, with no fallback between the two.  Its ``vmap`` rule folds the vmapped axis (the
 port's stacked peers) into the batch axis, a free reshape of the model's
 (K, B, T, H, dk) operands, and hands the kernels each peer's u as a row of a
 (K, H, dk) u that batch element b reads at b // B: one launch each way
@@ -44,7 +45,7 @@ bound by bytes; with bf16 r, k, v and output it moves about 205 MB and is
 bound by operations.
 
 ``launches.count`` counts forward launches and ``bwd_launches.count``
-backward launches (one a backward call, its two kernels together), never
+backward launches (one a backward call, its three kernels together), never
 plain-version calls.
 """
 from __future__ import annotations
@@ -60,6 +61,8 @@ from repro_torch.kernels.build import LaunchCounter
 from repro_torch.kernels.rwkv6 import ref
 
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "wkv6.cu"]
+# wkv6_bwd.cu includes ../../mamba2/csrc/tf32_tiles.cuh (and through it
+# tf32_mma.cuh): the build hashes both with it
 BWD_SOURCES = [Path(__file__).resolve().parent / "csrc" / "wkv6_bwd.cu"]
 HEAD_DIMS = (16, 32, 64)  # the head widths the kernel is instantiated for
 MAX_CHUNK = 64  # kMaxChunk in the CUDA source
@@ -158,12 +161,21 @@ def launch(r, k, v, logdecay, u, state, q: int, out, state_out) -> None:
     launches.count += 1
 
 
-def launch_bwd(r, k, v, logdecay, u, state, dout, dstate, dr, dk, dv, dld, du, du_part,
+def bwd_scratch(b: int, t: int, h: int, dk: int, device) -> torch.Tensor:
+    """The backward kernels' float32 scratch: for every (b, h) and 64-token
+    chunk its starting state S_c and ending gradient G_{c+1} (dk x dk each)
+    and its partial of du (dk): B H ceil(T / 64) (2 dk^2 + dk) floats, 128 MB
+    at rwkv6-7b's trained shape (B 4, T 1024, H 64, dk 64)."""
+    chunks = b * h * -(-t // ref.BWD_Q)
+    return torch.empty(chunks * (2 * dk * dk + dk), dtype=torch.float32, device=device)
+
+
+def launch_bwd(r, k, v, logdecay, u, state, dout, dstate, dr, dk, dv, dld, du, scratch,
                dstate_in) -> None:
     """Launch the backward kernels on the current stream: ``dr``, ``dk``,
     ``dv`` in r's type, ``dld`` float32 (B, T, H, dk), ``du`` float32 of u's
-    shape (through the float32 scratch ``du_part`` (B, H, dk)) and, given
-    one, ``dstate_in`` (B, H, dk, dk) float32.
+    shape and, given one, ``dstate_in`` (B, H, dk, dk) float32, through the
+    float32 ``scratch`` (``bwd_scratch``).
 
     No checks: callers pass what ``kernel_operand`` gives for operands that
     ``check_inputs`` validated: r, k, v, dout and the three outputs of one
@@ -177,7 +189,7 @@ def launch_bwd(r, k, v, logdecay, u, state, dout, dstate, dr, dk, dv, dld, du, d
     err = fn(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logdecay.data_ptr(), u.data_ptr(), opt(state),
         dout.data_ptr(), opt(dstate), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        dld.data_ptr(), du.data_ptr(), du_part.data_ptr(), opt(dstate_in),
+        dld.data_ptr(), du.data_ptr(), scratch.data_ptr(), opt(dstate_in),
         b, t, h, dk_, u_batch(u, b), int(r.dtype == torch.bfloat16),
         torch.cuda.current_stream(r.device).cuda_stream,
     )
@@ -227,10 +239,10 @@ def wkv6_bwd(r, k, v, logdecay, u, state, dout, dstate, *, need_dstate: bool = T
         dr, dk_, dv = (torch.empty(r.shape, dtype=rkv_dtype, device=r.device) for _ in range(3))
         dld = torch.empty(r.shape, dtype=torch.float32, device=r.device)
         du = torch.empty(uk.shape, dtype=torch.float32, device=r.device)
-        du_part = torch.empty((b, h, dk), dtype=torch.float32, device=r.device)
+        scratch = bwd_scratch(b, t, h, dk, r.device)
         dstate_in = (torch.empty((b, h, dk, dk), dtype=torch.float32, device=r.device)
                      if need_dstate else None)
-        launch_bwd(rk, kk, vk, lk, uk, state, dk_out, dstate, dr, dk_, dv, dld, du, du_part,
+        launch_bwd(rk, kk, vk, lk, uk, state, dk_out, dstate, dr, dk_, dv, dld, du, scratch,
                    dstate_in)
         grads = (dr, dk_, dv, dld, du, dstate_in)
     dstate_in = grads[5] if need_dstate else None

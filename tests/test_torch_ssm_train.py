@@ -9,13 +9,13 @@ reference's sequential oracles (``repro/kernels/rwkv6/ref.py:wkv6_ref``,
 ``repro/kernels/mamba2/ref.py:ssd_ref``) with a nonzero initial state and a
 nonzero gradient of the final state, in float32 and bf16, at ragged
 lengths, under extreme decay and, for the SSD, with B/C groups G < H; to
-through the chunked forms; the SSD backward kernel's chunked
-decomposition (``ref.ssd_bwd_chunked_ref``) against the plain backward and
-``jax.vjp``, and with its TF32 passes emulated against the card's float32
-check; the Functions under ``torch.func.vmap`` (the peers folded into the
-batch, each with its own u or a) against a loop over the peers; and the
-wrappers' dispatch: every call through its Function, no fallback, the plain
-backward on CPU tensors only.
+through the chunked forms; the backward kernels' chunked decompositions
+(``ref.ssd_bwd_chunked_ref``, ``ref.wkv6_bwd_chunked_ref``) against the
+plain backwards and ``jax.vjp``, and with their TF32 passes emulated
+against the card's float32 check and float64; the Functions under
+``torch.func.vmap`` (the peers folded into the batch, each with its own u
+or a) against a loop over the peers; and the wrappers' dispatch: every call
+through its Function, no fallback, the plain backward on CPU tensors only.
 The CUDA kernels are held to the plain backwards on the card by
 ``chip_smoke.py``.
 
@@ -375,6 +375,140 @@ def test_one_pass_tf32_backward_fails_the_float32_check(dtype):
     float32 check of the plain backward."""
     rels = _emulated_bwd(dtype, one_pass=True)
     assert max(rels.values()) > CARD_BWD_REL_NORM, rels
+
+
+# ---------------------------------------------------------------------------
+# the wkv6 backward kernel's chunked decomposition (csrc/wkv6_bwd.cu), and its
+# TF32 passes emulated
+# ---------------------------------------------------------------------------
+
+
+def _jax_wkv6_vjp_rows(ops_, grads):
+    """``_jax_wkv6_vjp`` for u of one row (H, dk) or of a row per group of
+    batch elements (G, H, dk): the reference takes one u, so each group is
+    its own call, and du is each group's."""
+    r, k, v, ld, u, s0 = ops_
+    if u.ndim == 2:
+        return _jax_wkv6_vjp(ops_, grads)
+    per = r.shape[0] // u.shape[0]
+    parts = []
+    for g in range(u.shape[0]):
+        rows = slice(g * per, (g + 1) * per)
+        parts.append(_jax_wkv6_vjp((r[rows], k[rows], v[rows], ld[rows], u[g], s0[rows]),
+                                   tuple(x[rows] for x in grads)))
+    cat = lambda i: np.concatenate([np.asarray(p[i]) for p in parts])  # noqa: E731
+    return (cat(0), cat(1), cat(2), cat(3), np.stack([np.asarray(p[4]) for p in parts]),
+            cat(5))
+
+
+@pytest.mark.parametrize("b,t,h,dk,chunk,sub,state,dstate,groups", [
+    (2, 16, 2, 16, 16, 4, True, True, None),    # T equal to the chunk
+    (4, 13, 2, 32, 16, 4, True, False, 2),      # T below it, u a row per peer
+    (1, 37, 1, 64, 16, 8, False, True, None),   # ragged past it, several chunks
+    (2, 1, 2, 16, 8, 4, False, False, None),    # one token
+    (2, 40, 2, 32, 64, 16, True, True, 2),      # the kernel's sizes, below a chunk
+    (1, 150, 1, 16, 64, 16, True, True, None),  # the kernel's sizes, ragged past two
+])
+def test_wkv6_bwd_chunked_ref_matches_plain_and_jax(b, t, h, dk, chunk, sub, state, dstate,
+                                                    groups):
+    """The chunked decomposition against ``jax.vjp`` of the reference's
+    oracle and against the plain backward (the token recurrence), at the
+    float32 tolerance: every head width the kernel takes, T at, below and
+    ragged past the chunk, one token, a state and a final-state gradient
+    each given or not, u of one row and of a row per peer."""
+    ops_, grads = _wkv6_inputs(b, t, h, dk, seed=t + chunk + dk, groups=groups)
+    if not state:
+        ops_ = (*ops_[:5], np.zeros_like(ops_[5]))
+    if not dstate:
+        grads = (grads[0], np.zeros_like(grads[1]))
+    want = _jax_wkv6_vjp_rows(ops_, grads)
+    args = (*map(_t, ops_[:5]), _t(ops_[5]) if state else None, _t(grads[0]),
+            _t(grads[1]) if dstate else None)
+    plain = wkv6_ref.wkv6_bwd_ref(*args)
+    got = wkv6_ref.wkv6_bwd_chunked_ref(*args, chunk=chunk, sub=sub)
+    for name, g, pl, w in zip(WKV6_NAMES, got, plain, want):
+        assert g.shape == pl.shape == np.shape(w), name
+        _close(g, w, what=name)
+        _close(g, pl.numpy(), what=name)
+
+
+@pytest.mark.parametrize("t", [24, 150])
+def test_wkv6_bwd_chunked_ref_extreme_decay_stays_finite(t):
+    """ld = -50 a step within a chunk and across three (the kernel's chunk
+    and sub-chunk): every exponent the decomposition takes is a sum of
+    log-decays, so nothing overflows; within atol of the reference's
+    gradients on the scale of the largest, as the plain backward's test."""
+    ops_, grads = _wkv6_inputs(1, t, 2, 16, seed=t, ld_const=-50.0)
+    want = _jax_wkv6_vjp(ops_, grads)
+    got = wkv6_ref.wkv6_bwd_chunked_ref(*map(_t, ops_), *map(_t, grads))
+    scale = max(float(np.abs(np.asarray(w)).max()) for w in want)
+    for name, g, w in zip(WKV6_NAMES, got, want):
+        assert torch.isfinite(g).all(), name
+        _close(g, w, scale=scale, what=name)
+
+
+@functools.cache
+def _wkv6_long_memory_case():
+    """A long memory (log-decays in [-2e-3, -1e-4], the state surviving all
+    1024 tokens, dk 64, a state in and a final-state gradient): the
+    operands and float64 autograd's gradients through the recurrence."""
+    ops_, grads = _wkv6_inputs(1, 1024, 2, 64, seed=27)
+    rng = np.random.default_rng(28)
+    ld = -rng.uniform(1e-4, 2e-3, size=ops_[3].shape).astype(np.float32)
+    ops_ = (*ops_[:3], ld, *ops_[4:])
+    leaves = [torch.as_tensor(x).double().requires_grad_(True) for x in ops_]
+    r, k, v, ld_, u, s = leaves
+    outs = []
+    for i in range(r.shape[1]):
+        rt, kt, vt = r[:, i], k[:, i], v[:, i]
+        outs.append(torch.einsum("bhi,bhij->bhj", rt, s)
+                    + (rt * u * kt).sum(-1, keepdim=True) * vt)
+        s = torch.exp(ld_[:, i])[..., None] * s + kt[..., None] * vt[..., None, :]
+    loss = ((torch.stack(outs, 1) * torch.as_tensor(grads[0]).double()).sum()
+            + (s * torch.as_tensor(grads[1]).double()).sum())
+    return ops_, grads, torch.autograd.grad(loss, leaves)
+
+
+def _wkv6_long_memory_rels(*, one_pass):
+    ops_, grads, want = _wkv6_long_memory_case()
+
+    def product(m1, m2, s1, s2):
+        return ssd_ref.tf32_product(m1, m2, s1, s2, one_pass=one_pass)
+
+    got = wkv6_ref.wkv6_bwd_chunked_ref(*map(_t, ops_), *map(_t, grads), product=product)
+    return {name: float((g.double() - w).norm() / w.norm())
+            for name, g, w in zip(WKV6_NAMES, got, want)}
+
+
+def test_wkv6_bwd_chunked_ref_long_memory_matches_float64():
+    """The long memory with the kernel's split TF32 passes emulated: every
+    gradient within the card's float32 check (1e-4) of float64 autograd
+    through the recurrence: no running sum spans more than a chunk, and no
+    exponent is the difference of two long prefix sums."""
+    rels = _wkv6_long_memory_rels(one_pass=False)
+    assert max(rels.values()) < CARD_BWD_REL_NORM, rels
+
+
+def test_wkv6_one_pass_tf32_backward_fails_the_long_memory_check():
+    """Why the kernel splits its float32 operands: one TF32 pass a product
+    misses the card's float32 check against float64 on the long memory."""
+    rels = _wkv6_long_memory_rels(one_pass=True)
+    assert max(rels.values()) > CARD_BWD_REL_NORM, rels
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wkv6_split_tf32_backward_holds_the_float32_check(dtype):
+    """The kernel's split-TF32 passes (every float32 operand split, bf16 r,
+    k, v and do exact) at its chunk and sub-chunk, u a row per peer, a state
+    and a final-state gradient: every gradient within a tenth of the card's
+    float32 check of the plain backward on the same operands."""
+    ops_, grads = _wkv6_inputs(4, 200, 2, 64, seed=29, groups=2)
+    tops = (*(_t(x, dtype) for x in ops_[:3]), *map(_t, ops_[3:]))
+    args = (*tops, _t(grads[0], dtype), _t(grads[1]))
+    want = wkv6_ref.wkv6_bwd_ref(*args)
+    got = wkv6_ref.wkv6_bwd_chunked_ref(*args, product=ssd_ref.tf32_product)
+    rels = {name: _rel(g, w) for name, g, w in zip(WKV6_NAMES, got, want)}
+    assert max(rels.values()) < CARD_BWD_REL_NORM / 10, rels
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Time two versions of the port's ``consensus_mix``, ``dequant_mix``,
-``segment_mix``, ``wkv6``, ``flash_attention``, ``flash_attention_bwd``,
-``ssd`` and ``ssd_bwd`` kernels in turns on one GPU: this checkout's and
-another tree's (an older commit unpacked beside it).
+``segment_mix``, ``wkv6``, ``wkv6_bwd``, ``flash_attention``,
+``flash_attention_bwd``, ``ssd`` and ``ssd_bwd`` kernels in turns on one
+GPU: this checkout's and another tree's (an older commit unpacked beside
+it).
 
 Both versions are built from their ``.cu`` sources with the port's nvcc flags
 into ``build/kernel_ab/``, called through the C entry points their wrappers
@@ -53,7 +54,14 @@ library call and the bound chip_smoke.py computes:
   through ``ssd_bwd`` (the same C entry in both, each with its own scratch)
   held to the plain backward at chip_smoke.py's checks, each called twice
   (``repeat_identical_bits``: a version's two calls equal bit for bit),
-  with the bound chip_smoke.py computes for the function.
+  with the bound chip_smoke.py computes for the function;
+- ``wkv6_bwd`` at rwkv6-7b's trained shape (B 4 = 2 peers x batch 2, T
+  1024, H 64, dk 64, bf16 r, k, v and do, each peer's u a row, a state in,
+  no final-state gradient) and in float32 with both states, both versions
+  through ``wkv6_bwd`` (the same C entry in both, each with its own
+  scratch) held to the plain backward at chip_smoke.py's checks, each
+  called twice (``repeat_identical_bits``), with the bound chip_smoke.py
+  computes for the function.
 
     git archive <commit> src/repro_torch/kernels | tar -x -C build/parent
     python3 tools/kernel_ab.py --old build/parent [--only ssd]
@@ -66,6 +74,7 @@ import argparse
 import concurrent.futures
 import ctypes
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -85,6 +94,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
 from repro_torch.kernels.mamba2 import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.mamba2 import ref as ssd_ref  # noqa: E402
+from repro_torch.kernels.rwkv6 import ops as wkv6_ops  # noqa: E402
 from repro_torch.kernels.rwkv6 import ref as wkv6_ref  # noqa: E402
 
 KERNELS = {  # name: source below src/repro_torch/kernels
@@ -92,6 +102,7 @@ KERNELS = {  # name: source below src/repro_torch/kernels
     "dequant_mix": "consensus_mix/csrc/dequant_mix.cu",
     "segment_mix": "consensus_mix/csrc/segment_mix.cu",
     "wkv6": "rwkv6/csrc/wkv6.cu",
+    "wkv6_bwd": "rwkv6/csrc/wkv6_bwd.cu",
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
     "flash_attention_bwd": "flash_attention/csrc/flash_attention_bwd.cu",
     "ssd": "mamba2/csrc/ssd.cu",
@@ -701,6 +712,87 @@ def ab_ssd_bwd(card, libs: dict, name: str, b, t, h, *, a_rows=1, seed=0) -> dic
             **times, **bounds}
 
 
+def ab_wkv6_bwd(card, libs: dict, name: str, b, t, h, dk, *, dtype=torch.bfloat16, u_rows=1,
+                dstate=False, ld=None, seed=0) -> dict:
+    """The wkv6 backward of both versions through ``wkv6_bwd`` on the same
+    inputs (chip_smoke.py's draws: r, k, v and do in ``dtype``, u of
+    ``u_rows`` rows, a state in, a final-state gradient with ``dstate``,
+    log-decays uniform in -``ld``), each held to the plain backward at
+    chip_smoke.py's checks and called twice, timed in turns.  The chunked
+    version takes ``ops.bwd_scratch``, the token loop a (B, H, dk) scratch of
+    du's partials."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r, k, v, dout = (torch.randn(b, t, h, dk, generator=gen, device=dev).to(dtype)
+                     for _ in range(4))
+    low, high = ld or (0.01, 4.0)
+    logd = -(low + (high - low) * torch.rand(b, t, h, dk, generator=gen, device=dev))
+    u = 0.5 * torch.randn(*((u_rows,) if u_rows > 1 else ()), h, dk, generator=gen, device=dev)
+    s0 = torch.randn(b, h, dk, dk, generator=gen, device=dev)
+    ds = torch.randn(b, h, dk, dk, generator=gen, device=dev) if dstate else None
+    want = wkv6_ref.wkv6_bwd_ref(r, k, v, logd, u, s0, dout, ds)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    runs, outs, checks = {}, {}, {}
+    for tag, lib in libs.items():
+        fn = lib.wkv6_bwd
+        fn.argtypes = [ptr] * 15 + [i64] * 5 + [ctypes.c_int, ptr]
+        fn.restype = ctypes.c_int
+        scratch = (wkv6_ops.bwd_scratch(b, t, h, dk, dev) if "wkv6_bwd_chunk" in lib.source_text
+                   else torch.empty(b, h, dk, device=dev))
+
+        def grads():  # in the operands' types
+            return (*(torch.empty_like(x) for x in (r, k, v, logd, u, s0)),)
+
+        def run(fn=fn, tag=tag, scratch=scratch, out=None):
+            g = outs.setdefault(tag, grads()) if out is None else out
+            err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), logd.data_ptr(), u.data_ptr(),
+                     s0.data_ptr(), dout.data_ptr(), None if ds is None else ds.data_ptr(),
+                     *(x.data_ptr() for x in g[:5]), scratch.data_ptr(), g[5].data_ptr(),
+                     b, t, h, dk, wkv6_ops.u_batch(u, b), int(dtype == torch.bfloat16), stream)
+            chip_smoke.check(err == 0, f"wkv6_bwd {tag} launch: cudaError_t {err}")
+
+        run()
+        again = grads()
+        run(out=again)
+        torch.cuda.synchronize()
+        checks[tag] = chip_smoke.check_bwd(f"wkv6_bwd {tag}", name,
+                                           ("r", "k", "v", "logdecay", "u", "state"), outs[tag],
+                                           again, want, extreme=False)
+        runs[tag] = run
+    identical = all(torch.equal(x, y) for x, y in zip(outs["old"], outs["new"]))
+    times = in_turns(runs, None)
+    by_kernel = {tag: device_us_by_kernel(run) for tag, run in runs.items()}
+    nbytes, flops = chip_smoke.wkv6_bwd_work(b, t, h, dk, in_bytes=r.element_size(),
+                                             u_rows=u_rows, state=True, dstate=dstate)
+    bounds = chip_smoke.pipe_and_tensor_bounds(card, nbytes, flops, flops,
+                                               bf16=dtype == torch.bfloat16)
+    return {"kernel": "wkv6_bwd", "case": name, "B": b, "T": t, "H": h, "dk": dk,
+            "u_rows": u_rows, "dstate": dstate, "dtype": str(dtype).removeprefix("torch."),
+            "repeat_identical_bits": True, "old_new_identical_bits": identical,
+            "rel_norm_err": {tag: c["rel_norm_err_by_grad"] for tag, c in checks.items()},
+            "device_us_by_kernel": by_kernel, **times, **bounds}
+
+
+def device_us_by_kernel(fn, calls: int = 10) -> dict:
+    """Mean device microseconds a call of each kernel ``fn`` launches, by
+    torch.profiler over ``calls`` calls after a warm-up one (the kernel's
+    name up to its template arguments)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            found = re.search(r"(\w+)\s*[<(]", e.key.replace("(anonymous namespace)", ""))
+            name = found.group(1) if found else e.key
+            out[name] = out.get(name, 0.0) + e.device_time_total / calls
+    return out
+
+
 def in_turns(runs: dict, library) -> dict:
     """Mean ms of each version (``<tag>_ms``) and of the library call
     (``library_ms``, None without one), in turns: each version in order,
@@ -758,6 +850,12 @@ def main() -> int:
             ab_wkv6(card, libs, "main_b4_t1024_bf16", 4, 1024, 64, 64, 16,
                     dtype=torch.bfloat16, seed=7),
             ab_wkv6(card, libs, "extreme_decay", 4, 1024, 64, 64, 16, ld=-50.0, seed=3)],
+        # chip_smoke.py's timed wkv6_bwd cases and draws
+        "wkv6_bwd": lambda libs: [
+            ab_wkv6_bwd(card, libs, "trained_k2_b2_t1024_bf16", 4, 1024, 64, 64, u_rows=2,
+                        seed=31),
+            ab_wkv6_bwd(card, libs, "b4_t1024_state_dstate_f32", 4, 1024, 64, 64,
+                        dtype=torch.float32, dstate=True, ld=(1e-4, 2e-3), seed=32)],
         # chip_smoke.py's timed flash cases and draws
         "flash_attention": lambda libs: [
             ab_flash(card, libs, "main_minitron", 4, 1024, 32, 8, 128),
