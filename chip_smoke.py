@@ -161,7 +161,25 @@ In order:
    kernels (``plain_backwards``); then the reference's entry point as it
    is, ``run_p2p_lm(arch, rounds=4)`` for smollm-135m, rwkv6-7b and
    zamba2-2.7b (reduced, float32: the kernels' float32 routes, 4 launches
-   of ``consensus_mix``);
+   of ``consensus_mix``); then the reference's public API
+   (``drive_step_api``): the consensus kernels' tree-level wrappers on the
+   2NN's stacked float32 parameters at K = 8, each called the reference's
+   way, moving its kernel's counter and held to its plain version (5e-5 /
+   1e-4): ``consensus_mix_schedule`` on ``timevarying_k8``'s schedule,
+   ``consensus_mix_push_sum_schedule`` on ``directed_k8``'s,
+   ``dequant_consensus_mix_schedule`` on a qint8 wire and
+   ``consensus_mix_flat``, and one ``consensus_mix_schedule`` call with its
+   round index on the card captured as a CUDA graph, each replay equal to
+   the eager call bit for bit; then smollm-135m at full width and depth on
+   a K = 4 ring trained 2 rounds of T = 2 through ``make_train_step`` (AdamW
+   on a cosine schedule, gradients clipped, eta_d 0.25; batch 4 x seq 1024
+   a peer from ``lm_batches``) and ``make_consensus_step``: the first
+   step's gradients against the plain backwards, ``flash_attention`` and its
+   backward 480 launches each and ``consensus_mix`` 2 (bf16), each step's
+   and each consensus's seconds, the peak memory, one more consensus step
+   against its plain version (bf16 5e-2), ``make_consensus_step_psum``
+   against ``make_consensus_step`` on the complete graph, and a checkpoint
+   of the parameters and one peer's AdamW state restored bit for bit;
 4. serves RWKV6-7B at full width and depth (bf16, random init on the card)
    through ``serve_batch``: batch 4, prompt 1024, first prefill only, then
    prefill and 15 decode steps, asserting ``wkv6`` launched once per layer
@@ -2961,13 +2979,20 @@ def lm_step_grads(task, layout, blocks, batch) -> tuple[torch.Tensor, list[torch
 
 def compare_grads(name: str, layout, got: list, want: list) -> dict:
     """Holds a step's flat gradients (one buffer a block) to the plain
-    backwards' (LM_GRAD_TOL) leaf by leaf, 2^26 entries at a time in
-    float32 (the whole (K, row) buffer widened would take 15 GB at rwkv6-7b's
-    6 layers, zamba2's stacked in_proj alone 9 GB; the views die with this
-    function); returns the relative norm errors, whole and by leaf, and the
+    backwards' leaf by leaf (``compare_grad_dicts`` on the layout's views;
+    the views die with this function)."""
+    return compare_grad_dicts(name, layout.views(*got), layout.views(*want))
+
+
+def compare_grad_dicts(name: str, got: dict, want: dict) -> dict:
+    """Holds gradients to the plain backwards' (LM_GRAD_TOL) leaf by leaf,
+    2^26 entries at a time in float32 (the whole (K, row) buffer widened
+    would take 15 GB at rwkv6-7b's 6 layers, zamba2's stacked in_proj alone
+    9 GB); returns the relative norm errors, whole and by leaf, and the
     largest errors."""
     leaf_rel, diff2, want2, max_err, max_abs = {}, 0.0, 0.0, 0.0, 0.0
-    for (leaf, ga), gb in zip(layout.views(*got).items(), layout.views(*want).values()):
+    for leaf, ga in got.items():
+        gb = want[leaf]
         d2 = w2 = 0.0
         for a, b in zip(ga.reshape(-1).split(2**26), gb.reshape(-1).split(2**26)):
             a, b = a.float(), b.float()
@@ -3279,6 +3304,333 @@ def drive_p2p_lm_reduced_bf16(card: Card, arch: str) -> dict:
           f"{drift:.6g}, {seconds:.3f} s, launches {launches}", flush=True)
     return {"launches": {key: n for key, n in launches.items() if n}, "seconds": seconds,
             "losses": losses, "final_drift": drift}
+
+
+# the reference's step API at full width: smollm-135m, nothing cut, on a ring
+STEP_API_PEERS = 4
+STEP_API_BATCH, STEP_API_SEQ = 4, 1024
+STEP_API_STEPS, STEP_API_ROUNDS = 2, 2
+
+
+def compare_tree(name: str, got, want, tol: dict) -> float:
+    """Holds every leaf of tree ``got`` to the same leaf of ``want`` (each
+    flattened in the reference's order, ``ops.flatten_pytree``); returns the
+    largest absolute error."""
+    from repro_torch.kernels.consensus_mix import ops
+
+    a = ops.flatten_pytree(got)[0] if isinstance(got, dict) else got
+    b = ops.flatten_pytree(want)[0] if isinstance(want, dict) else want
+    torch.testing.assert_close(a.float(), b.float(), **tol, msg=lambda m: f"{name}: {m}")
+    return float((a.float() - b.float()).abs().max())
+
+
+def step_api_wrappers(card: Card) -> dict:
+    """The consensus kernels' tree-level wrappers, called the reference's
+    way on the 2NN's stacked float32 parameters at K = 8:
+    ``consensus_mix_schedule`` on ``timevarying_k8``'s schedule (random
+    matchings, R = 16), ``consensus_mix_push_sum_schedule`` on
+    ``directed_k8``'s, ``dequant_consensus_mix_schedule`` on a qint8 wire
+    (``quantize_int8`` of x minus estimates) and ``consensus_mix_flat``, each
+    call moving its kernel's counter by one and held to its plain version on
+    the same inputs (5e-5 / 1e-4); then one ``consensus_mix_schedule`` call
+    with a 0-d round index on the card captured as a CUDA graph and replayed
+    for rounds 3 and 11, each replay equal bit for bit to the eager call
+    with an int index.  Launch counts reset just before and read just
+    after; no plain version runs inside a wrapper."""
+    from repro_torch import capture as capture_lib
+    from repro_torch.configs.p2pl_mnist import directed_k8, timevarying_k8
+    from repro_torch.core import p2p, task as task_lib
+    from repro_torch.kernels.consensus_mix import dequant, ops, ref
+
+    dev = torch.device("cuda")
+    tv, directed = timevarying_k8(), directed_k8()
+    k = tv.p2p.num_peers
+    task = task_lib.get_task("mnist_mlp")
+    state = p2p.init_state(task, tv.p2p, seed=0, device=dev)
+    stacked = p2p.ParamLayout.of(task).views(state.params)  # (K, ...) views, float32
+    flat = ops.flatten_pytree(stacked)[0]
+    n = flat.shape[1]
+    sizes = np.arange(1, k + 1) * 100
+    w, beta, sched = p2p.mixing_constants(tv.p2p, sizes)
+    tv_ops = ops.sparse_from_schedule(w, beta, device=dev)
+    consts, dsched = p2p.protocol_constants(directed.p2p, sizes)
+    push_ops = ops.sparse_from_schedule(consts.w, consts.beta, device=dev)
+    mass = push_sum_mass(k, 0, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    est = flat + 0.01 * torch.randn(flat.shape, generator=gen, device=dev)
+    q, scale = dequant.quantize_int8(flat - est)
+    x, nbrs = flat[0], flat[1:4]
+    w_nbr = torch.tensor([0.2, 0.15, 0.25], device=dev)
+    b_nbr = torch.tensor([0.5, 0.3, 0.2], device=dev)
+    t_steps = tv.p2p.local_steps
+    counters = launch_counters()
+    for counter in counters.values():
+        counter.reset()
+    errs: dict[str, float] = {}
+    print(f"main path: the reference's wrappers on the 2NN's row, K={k} N={n} float32 "
+          f"({sched.name} R={w.shape[0]}, {dsched.name} R={consts.w.shape[0]})", flush=True)
+
+    def one_call(kernel, name, call, plain):
+        before = counters[kernel].count
+        with count_plain_calls() as plain_calls:
+            got = call()
+            torch.cuda.synchronize()
+        check(not plain_calls, f"{name}: called plain versions {plain_calls}")
+        check(counters[kernel].count == before + 1, f"{name}: one {kernel} launch")
+        want = plain()
+        errs[name] = max(compare_tree(f"{name} [{i}]", g, v, TOL)
+                         for i, (g, v) in enumerate(zip(got, want)))
+
+    for r in (0, 5, 17):
+        one_call("consensus_mix", f"consensus_mix_schedule r={r}",
+                 lambda: ops.consensus_mix_schedule(stacked, r, *tv_ops, t_steps),
+                 lambda: ref.consensus_mix_stacked_ref(flat, *ops.select_round(tv_ops, r),
+                                                       t_steps))
+        one_call("consensus_mix", f"consensus_mix_push_sum_schedule r={r}",
+                 lambda: ops.consensus_mix_push_sum_schedule(stacked, mass, r, *push_ops,
+                                                             t_steps),
+                 lambda: ref.consensus_mix_push_sum_stacked_ref(
+                     flat, mass, *ops.select_round(push_ops, r), t_steps))
+        one_call("dequant_mix", f"dequant_consensus_mix_schedule r={r}",
+                 lambda: dequant.dequant_consensus_mix_schedule(stacked, est, q, scale, *tv_ops,
+                                                                r, t_steps),
+                 lambda: ref.dequant_mix_stacked_ref(flat, est, q, scale[:, None], (0, n),
+                                                     *ops.select_round(tv_ops, r),
+                                                     t_steps)[:2])
+    one_call("consensus_mix", "consensus_mix_flat",
+             lambda: ops.consensus_mix_flat(x, nbrs, 0.4, w_nbr, b_nbr, t_steps),
+             lambda: ref.consensus_mix_ref(x, nbrs, 0.4, w_nbr, b_nbr, t_steps))
+    # one call with the round index on the card, captured and replayed
+    round_idx = torch.zeros((), dtype=torch.int64, device=dev)
+    captured = capture_lib.capture(
+        lambda: ops.consensus_mix_schedule(stacked, round_idx, *tv_ops, t_steps), dev)
+    replays = {}
+    for r in (3, 11):
+        round_idx.fill_(r)
+        got = captured.replay()
+        eager = ops.consensus_mix_schedule(stacked, r, *tv_ops, t_steps)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(g[leaf], e[leaf]) for g, e in zip(got, eager) for leaf in g)
+        check(equal, f"captured consensus_mix_schedule round {r}: replay equals eager")
+        replays[r] = equal
+    launches = {key: c.count for key, c in counters.items()}
+    want = {key: 0 for key in counters} | {"consensus_mix": 3 * 2 + 1 + 1 + 2 * 2,
+                                           "dequant_mix": 3}
+    check(launches == want, f"step_api wrappers launched {launches}, want {want}")
+    print(f"step_api wrappers ({card.line}): max abs error against the plain versions "
+          f"{json.dumps(errs)}; captured consensus_mix_schedule (capture {captured.seconds:.3f} "
+          f"s) replays equal eager bit for bit at rounds {list(replays)}; launches "
+          f"{ {key: v for key, v in launches.items() if v} }", flush=True)
+    return {"launches": {key: v for key, v in launches.items() if v}, "max_abs_err": errs,
+            "capture_replays_equal": replays, "capture_s": captured.seconds}
+
+
+def step_api_smollm(card: Card) -> dict:
+    """smollm-135m at full width and depth (bf16, random init from seed 0)
+    trained through the reference's step API on a K = 4 ring (W and Beta
+    from ``core.graph``, data-weighted with equal sizes): ``STEP_API_ROUNDS``
+    rounds of ``STEP_API_STEPS`` calls of ``make_train_step`` (eta_d 0.25)
+    on each peer in turn, AdamW on a cosine schedule with the gradients
+    clipped to norm 1, batch 4 x seq 1024 tokens a peer from
+    ``data.synthetic.lm_batches`` (seed 0), then ``make_consensus_step``
+    with the affinity d.  First the first step's gradients (an optimizer
+    that records them) against the same step with the plain backwards
+    (``plain_backwards``); then the rounds, launch counts reset just before
+    and read just after (``flash_attention`` and its backward 30 a step,
+    ``consensus_mix`` one a round: every leaf is bf16), every step and
+    consensus synchronized and timed; then, outside the count, one more
+    consensus step against its plain version (bf16 5e-2),
+    ``make_consensus_step_psum`` against ``make_consensus_step`` on the
+    complete graph with uniform weights, and a checkpoint of the stacked
+    parameters and peer 0's AdamW state saved to a temporary directory and
+    restored onto the card bit for bit."""
+    import tempfile
+
+    from repro_torch import checkpoint, optim, pytree
+    from repro_torch.configs import get_config
+    from repro_torch.core import graph as graph_lib
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.consensus_mix import ops, ref
+    from repro_torch.launch import steps
+    from repro_torch.models.registry import build_model
+
+    dev = torch.device("cuda")
+    k, t_steps, rounds = STEP_API_PEERS, STEP_API_STEPS, STEP_API_ROUNDS
+    name = f"step_api {LM_ARCH}"
+    cfg = get_config(LM_ARCH)
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    peers = [model.init(gen) for _ in range(k)]
+    stacked = {leaf: torch.stack([p[leaf] for p in peers]) for leaf in peers[0]}
+    del peers
+    check({v.dtype for v in stacked.values()} == {torch.bfloat16}, f"{name}: bf16 leaves")
+    graph = graph_lib.build_graph("ring", k)
+    w_mat, beta_mat = graph_lib.mixing_matrix(graph), graph_lib.affinity_matrix(graph)
+    tokens, labels = (torch.as_tensor(a, dtype=torch.int64, device=dev) for a in
+                      synthetic.lm_batches(rounds * t_steps * k, STEP_API_BATCH, STEP_API_SEQ,
+                                           cfg.vocab_size, seed=0))
+    base = optim.adamw(optim.cosine_schedule(1e-3, 1, rounds * t_steps), weight_decay=0.01)
+    opt = optim.Optimizer(base.init, lambda g, s, p, step: base.update(
+        optim.clip_by_global_norm(g, 1.0), s, p, step))
+    train_step = steps.make_train_step(model, opt, eta_d=0.25)
+    consensus_step = steps.make_consensus_step(w_mat, beta_mat, local_steps=t_steps,
+                                               use_affinity=True)
+    opt_states = [opt.init({leaf: v[i] for leaf, v in stacked.items()}) for i in range(k)]
+    d_bias = {leaf: torch.zeros(v.shape, dtype=torch.float32, device=dev)
+              for leaf, v in stacked.items()}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - start
+
+    def batch(i):
+        return {"tokens": tokens[i], "labels": labels[i]}
+
+    # the first step's gradients, the kernels' backwards against the plain ones
+    recorded: dict = {}
+
+    def record(grads, state, params, step):
+        recorded.clear()
+        recorded.update(grads)
+        return params, state
+
+    probe = steps.make_train_step(model, optim.Optimizer(lambda p: (), record))
+    peer0 = {leaf: v[0] for leaf, v in stacked.items()}
+    loss_k = probe(peer0, (), None, batch(0), 0)[2]
+    got = dict(recorded)
+    with plain_backwards():
+        loss_p = probe(peer0, (), None, batch(0), 0)[2]
+    want = dict(recorded)
+    check(torch.equal(loss_k, loss_p), f"{name}: the first step's losses equal")
+    grad_check = {"loss": float(loss_k), **compare_grad_dicts(name, got, want)}
+    del got, want, recorded, peer0
+    check(grad_check["rel_norm_err"] < LM_GRAD_REL_NORM,
+          f"{name} gradients: relative norm error {grad_check['rel_norm_err']}")
+    print(f"{name} first step ({card.line}): loss {float(loss_k):.6f}; gradients against the "
+          f"plain backwards: relative norm error {grad_check['rel_norm_err']:.3g}, max abs "
+          f"error {grad_check['max_abs_err']:.3g} of max |grad| {grad_check['max_abs']:.3g}",
+          flush=True)
+
+    print(f"main path: {name} full width, K={k} ring, batch {STEP_API_BATCH} seq "
+          f"{STEP_API_SEQ}, T={t_steps}, {rounds} rounds through make_train_step and "
+          f"make_consensus_step", flush=True)
+    counters = launch_counters()
+    for counter in counters.values():
+        counter.reset()
+    train_s, consensus_s, losses = [], [], []
+    with count_plain_calls() as plain_calls:
+        for r in range(rounds):
+            trained = []
+            for i in range(k):
+                params = {leaf: v[i] for leaf, v in stacked.items()}
+                d_i = {leaf: v[i] for leaf, v in d_bias.items()}
+                for t in range(t_steps):
+                    torch.cuda.synchronize()
+                    start = time.perf_counter()
+                    params, opt_states[i], loss = train_step(
+                        params, opt_states[i], d_i, batch((r * t_steps + t) * k + i),
+                        r * t_steps + t)
+                    torch.cuda.synchronize()
+                    train_s.append(time.perf_counter() - start)
+                    losses.append(float(loss))
+                trained.append(params)
+            stacked = {leaf: torch.stack([p[leaf] for p in trained]) for leaf in stacked}
+            del trained, params
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            stacked, d_bias = consensus_step(stacked, d_bias)
+            torch.cuda.synchronize()
+            consensus_s.append(time.perf_counter() - start)
+    launches = {key: c.count for key, c in counters.items()}
+    steps_run = rounds * k * t_steps
+    want_launches = {key: 0 for key in counters} | {
+        key: n * steps_run for key, n in lm_step_launches(cfg).items()} | {
+        "consensus_mix": rounds}
+    check(launches == want_launches, f"{name} launched {launches}, want {want_launches}")
+    check(not plain_calls, f"{name} called plain versions {plain_calls}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(math.isfinite(v) for v in losses), f"{name} losses finite: {losses}")
+    for what, tree in (("params", stacked), ("d", d_bias)):
+        check(all(bool(torch.isfinite(v.float()).all()) for v in tree.values()),
+              f"{name}: {what} finite")
+    check(all(v.dtype == torch.bfloat16 for v in stacked.values())
+          and all(v.dtype == torch.float32 for v in d_bias.values()),
+          f"{name}: mixed leaves bf16, d float32")
+
+    # outside the count: the consensus step against its plain version
+    mixed, d_new = consensus_step(stacked, d_bias)
+    flat = ops.flatten_pytree(stacked)[0]
+    sparse = graph_lib.SparseSchedule.from_dense(w_mat[None], beta_mat[None])
+    plain_mixed, plain_d = ref.consensus_mix_stacked_ref(
+        flat, *ops.select_round(ops.upload_schedule(sparse, dev), 0), t_steps)
+    tol = CONSENSUS_BF16_TOL
+    consensus_err = {"mixed": compare_tree(f"{name} consensus mixed", mixed, plain_mixed, tol),
+                     "d": compare_tree(f"{name} consensus d", d_new, plain_d, tol)}
+    del mixed, d_new, flat, plain_mixed, plain_d
+    # make_consensus_step_psum against make_consensus_step, complete graph, uniform
+    w_c = np.full((k, k), 1.0 / k)
+    beta_c = (np.ones((k, k)) - np.eye(k)) / (k - 1)
+    psum = steps.make_consensus_step_psum(k, self_weight=1 / k, peer_weight=1 / k,
+                                          local_steps=t_steps, use_affinity=True)(stacked, None)
+    kern = steps.make_consensus_step(w_c, beta_c, local_steps=t_steps,
+                                     use_affinity=True)(stacked, None)
+    psum_err = {"mixed": compare_tree(f"{name} psum mixed", psum[0], kern[0], tol),
+                "d": compare_tree(f"{name} psum d", psum[1], kern[1], tol)}
+    del psum, kern
+    # a checkpoint of the stacked parameters and peer 0's AdamW state
+    tree = {"params": stacked, "opt0": opt_states[0]}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        path = os.path.join(tmp, "step_api")
+        start = time.perf_counter()
+        checkpoint.save(path, tree, step=rounds * t_steps, extra={"arch": LM_ARCH})
+        save_s = time.perf_counter() - start
+        start = time.perf_counter()
+        restored = checkpoint.restore(path, tree)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - start
+        meta = checkpoint.load_metadata(path)
+        ckpt_gb = os.path.getsize(path + ".npz") / 1e9
+    leaves = pytree.leaves_with_path(tree)
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    for (p, want_leaf), got_leaf in zip(leaves, pytree.leaves(restored)):
+        check(got_leaf.device == want_leaf.device and got_leaf.dtype == want_leaf.dtype
+              and torch.equal(got_leaf.view(bits[got_leaf.dtype]),
+                              want_leaf.view(bits[want_leaf.dtype])),
+              f"{name}: checkpoint leaf {'/'.join(p)} restored bit for bit")
+    check(meta["step"] == rounds * t_steps and len(meta["keys"]) == len(leaves),
+          f"{name}: checkpoint metadata {meta['step']}, {len(meta['keys'])} keys")
+    del restored, tree
+    print(f"{name} ({card.line}): set-up {setup_s:.2f} s; seconds per train step {train_s} "
+          f"(mean {sum(train_s) / len(train_s):.4f}); seconds per consensus step "
+          f"{consensus_s}; peak memory {peak_gb:.3f} GB; losses {losses}; launches "
+          f"{ {key: v for key, v in launches.items() if v} }; consensus against its plain "
+          f"version, max abs error {json.dumps(consensus_err)}; psum against the kernel step "
+          f"on the complete graph {json.dumps(psum_err)}; checkpoint {ckpt_gb:.3f} GB "
+          f"({len(leaves)} leaves) saved in {save_s:.2f} s, restored bit for bit in "
+          f"{restore_s:.2f} s", flush=True)
+    del stacked, d_bias, opt_states
+    torch.cuda.empty_cache()
+    return {"launches": {key: v for key, v in launches.items() if v}, "train_step_s": train_s,
+            "consensus_step_s": consensus_s, "peak_gb": peak_gb, "losses": losses,
+            "setup_s": setup_s, "grad_check": {key: v for key, v in grad_check.items()
+                                               if key != "leaf_rel_norm_err"},
+            "consensus_max_abs_err": consensus_err, "psum_max_abs_err": psum_err,
+            "checkpoint": {"gb": ckpt_gb, "save_s": save_s, "restore_s": restore_s}}
+
+
+def drive_step_api(card: Card) -> dict:
+    """The reference's public API on the card (``step_api_wrappers``, then
+    ``step_api_smollm``): the launches of both, under one path."""
+    start = time.perf_counter()
+    wrappers = step_api_wrappers(card)
+    smollm = step_api_smollm(card)
+    launches = dict(wrappers["launches"])
+    for key, n in smollm["launches"].items():
+        launches[key] = launches.get(key, 0) + n
+    seconds = time.perf_counter() - start
+    print(f"drive_step_api ({card.line}): {seconds:.1f} s, launches {launches}", flush=True)
+    return {"launches": launches, "seconds": seconds, "wrappers": wrappers, "smollm": smollm}
 
 
 SEQMNIST = "rwkv6_seqmnist"
@@ -4174,6 +4526,9 @@ def main() -> int:
         label = "run_p2p_lm_reduced" if arch == LM_ARCH else f"run_p2p_lm_reduced_{arch}"
         paths[label] = drive_run_p2p_lm_reduced(card, arch)
     paths[f"p2p_lm_reduced_bf16_{LM_MOE_ARCH}"] = drive_p2p_lm_reduced_bf16(card, LM_MOE_ARCH)
+    # the reference's public API: the consensus wrappers on the 2NN, then
+    # smollm-135m at full width through make_train_step / make_consensus_step
+    paths["drive_step_api"] = drive_step_api(card)
     matching = check_matching_on_card()
     paths["serve_batch"] = drive_serve_batch(card, SERVE_ARCH, {"wkv6": 32})
     serving = {SERVE_ARCH: recheck_and_break_down(card, SERVE_ARCH, {"wkv6": (0, 31)},

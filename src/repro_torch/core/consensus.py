@@ -4,16 +4,17 @@ case of the hierarchical runtime's slot forms).
 
 Three forms of the same op out_k = sum_j W[k, j] x_j on a (K, N) flat buffer:
 
-1. **Dense** (``mix_stacked``): one (K, K) @ (K, N) product in float32 —
-   the reference round's form, kept here as the test oracle for the sparse
-   path.
+1. **Dense** (``mix_stacked``, ``mix_leaf`` for one (K, ...) leaf): one
+   (K, K) @ (K, N) product in float32 — the reference round's form, kept
+   here as the test oracle for the sparse path.
 2. **Sparse padded-neighbor** (``sparse_mixing``): host-side (self_w,
    nbr_idx, nbr_w) rows that feed the fused ``consensus_mix`` kernel, which
    the port's round runs (``repro_torch.kernels.consensus_mix.ops``).
 3. **Slot sums** (``ring_gather_slots``, ``mix_slots``, ``slot_sum``): the
    degree-bounded form of the hierarchical runtime's "segment" mode, the
    plain version of the ``segment_mix`` kernel.  Each sums the D slots in
-   slot order, in float32, as the kernel does.
+   slot order, in float32, as the kernel does.  ``scatter_rows`` turns
+   padded slot rows back into a dense block.
 """
 from __future__ import annotations
 
@@ -21,9 +22,16 @@ import numpy as np
 import torch
 
 
+def mix_leaf(w_mat: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """out_k = sum_j W[k, j] leaf_j over the leading peer axis of a (K, ...)
+    leaf, accumulated in float32 and cast back to the leaf's type."""
+    out = w_mat.to(torch.float32) @ leaf.to(torch.float32).reshape(leaf.shape[0], -1)
+    return out.reshape(w_mat.shape[0], *leaf.shape[1:]).to(leaf.dtype)
+
+
 def mix_stacked(w_mat: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
     """W @ flat over the leading peer axis, float32 accumulation, cast back."""
-    return (w_mat.to(torch.float32) @ flat.to(torch.float32)).to(flat.dtype)
+    return mix_leaf(w_mat, flat)
 
 
 def mixing_degrees(w_mat: np.ndarray) -> np.ndarray:
@@ -56,6 +64,32 @@ def sparse_mixing(
         nbr_w[i, : len(nbrs)] = off_diag[i, nbrs]
     self_w = np.diag(w_mat).astype(np.float32)
     return self_w, nbr_idx, nbr_w
+
+
+def scatter_rows(
+    nbr_idx: torch.Tensor,  # (p, D) int — global column indices per row
+    nbr_w: torch.Tensor,  # (p, D) weights (0.0 at padding slots)
+    num_peers: int,
+    *,
+    row_ids: torch.Tensor | None = None,  # (p,) global row indices
+    self_w: torch.Tensor | None = None,  # (p,) diagonal values, if any
+) -> torch.Tensor:
+    """Scatter padded sparse rows into a dense (p, K) float32 weight block.
+
+    Real slots place their weight at (row, idx); padding slots (idx == the
+    row's own global index, weight 0.0) add +-0.0 onto the diagonal entry,
+    so the block equals the dense matrix block the rows were extracted from.
+    """
+    p = nbr_idx.shape[0]
+    rows = torch.arange(p, device=nbr_idx.device)
+    block = torch.zeros((p, num_peers), dtype=torch.float32, device=nbr_idx.device)
+    if self_w is not None:
+        if row_ids is None:
+            raise ValueError("self_w placement needs the global row_ids")
+        block[rows, row_ids.long()] = self_w.to(torch.float32)
+    idx = nbr_idx.long()
+    return block.index_put_((rows[:, None].expand_as(idx), idx), nbr_w.to(torch.float32),
+                            accumulate=True)
 
 
 def ring_gather_slots(x_block: torch.Tensor, nbr_idx: torch.Tensor) -> torch.Tensor:

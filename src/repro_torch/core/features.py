@@ -10,6 +10,8 @@ hierarchical runtime, and a registry task (``model != "mnist_mlp"``) x the
 hierarchical runtime.  The reference's table has no push-sum row: push-sum
 composes with a compressed wire, with async rounds, with adaptive selection
 and with the hierarchical runtime, as in the reference.
+``support_matrix_markdown`` renders the table as the README's support
+matrix, the reference's string (``tools/check_support_matrix.py``).
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ class Feature:
     """One composable axis: when is it on, and how is it named in errors."""
 
     name: str
+    title: str  # static label for the generated support matrix
     predicate: Callable[[FeatureContext], bool]
     describe: Callable[[FeatureContext], str]
 
@@ -62,21 +65,25 @@ FEATURES: dict[str, Feature] = {
     for f in (
         Feature(
             name="adaptive",
+            title="schedule `adaptive` (loss-driven partner selection)",
             predicate=lambda c: c.schedule == "adaptive",
             describe=lambda c: "schedule='adaptive' (state-dependent partner selection)",
         ),
         Feature(
             name="compression",
+            title="compression `topk` / `qint8` (error feedback)",
             predicate=lambda c: c.compressor != "none",
             describe=lambda c: f"compressor={c.compressor!r} (compressed gossip payloads)",
         ),
         Feature(
             name="staleness",
+            title="async `staleness_bound > 0` (bounded-staleness gossip)",
             predicate=lambda c: c.staleness_bound > 0,
             describe=lambda c: f"staleness_bound={c.staleness_bound} (bounded-staleness gossip)",
         ),
         Feature(
             name="async",
+            title="async rounds (`--steps-profile` / `--staleness-bound`)",
             predicate=lambda c: c.staleness_bound > 0 or c.steps_profile != "uniform",
             describe=lambda c: "asynchronous rounds (--steps-profile "
                                f"{c.steps_profile}, --staleness-bound "
@@ -84,12 +91,14 @@ FEATURES: dict[str, Feature] = {
         ),
         Feature(
             name="hierarchical",
+            title="hierarchical runtime (`--peers-per-device > 1`)",
             predicate=lambda c: c.peers_per_device > 1,
             describe=lambda c: "the hierarchical runtime (peers_per_device "
                                f"= {c.peers_per_device} > 1)",
         ),
         Feature(
             name="real_model",
+            title="registry TrainTask (`model != \"mnist_mlp\"`)",
             predicate=lambda c: c.model != "mnist_mlp",
             describe=lambda c: f"model={c.model!r} (a registry TrainTask)",
         ),
@@ -160,10 +169,33 @@ def format_violation(inc: Incompatibility, ctx: FeatureContext) -> str:
             f"{inc.reason}; {inc.workaround}")
 
 
+def active_features(ctx: FeatureContext) -> tuple[str, ...]:
+    """Names of the features a context switches on."""
+    return tuple(n for n, f in FEATURES.items() if f.predicate(ctx))
+
+
+def violations(ctx: FeatureContext) -> tuple[Incompatibility, ...]:
+    """Table entries whose both features are active in the context."""
+    on = set(active_features(ctx))
+    return tuple(i for i in INCOMPATIBILITIES if i.a in on and i.b in on)
+
+
+def check(ctx: FeatureContext) -> None:
+    """Raise ``ValueError`` on the first active incompatibility."""
+    for inc in violations(ctx):
+        raise ValueError(format_violation(inc, ctx))
+
+
 def check_config(cfg, *, peers_per_device: int = 1) -> None:
-    """Raise ``ValueError`` on the first incompatible pair the config (run
-    with ``peers_per_device`` peers per device) switches on."""
-    ctx = context_from_config(cfg, peers_per_device=peers_per_device)
+    """``check`` over a ``P2PConfig``(-shaped) object run with
+    ``peers_per_device`` peers per device, the common entry."""
+    check(context_from_config(cfg, peers_per_device=peers_per_device))
+
+
+def support_matrix_markdown() -> str:
+    """The incompatibility table as the README's generated section, one row
+    per entry: the reference's string."""
+    lines = ["| feature | does not compose with | why |", "|---|---|---|"]
     for inc in INCOMPATIBILITIES:
-        if FEATURES[inc.a].predicate(ctx) and FEATURES[inc.b].predicate(ctx):
-            raise ValueError(format_violation(inc, ctx))
+        lines.append(f"| {FEATURES[inc.a].title} | {FEATURES[inc.b].title} | {inc.reason} |")
+    return "\n".join(lines) + "\n"

@@ -545,6 +545,19 @@ def build_schedule(cfg: P2PConfig) -> graph_lib.GraphSchedule:
     return graph_lib.round_robin_schedule([build(t) for t in cfg.round_robin_topologies])
 
 
+def mixing_constants(
+    cfg: P2PConfig, data_sizes: np.ndarray | None = None
+) -> tuple[np.ndarray, np.ndarray, graph_lib.GraphSchedule]:
+    """Stacked per-round row-stochastic (W, Beta, schedule) for a config:
+    (R, K, K) float64 numpy stacks, R = 1 for the static schedule (the
+    reference's pre-protocol entry point, the gossip protocol's
+    ``constants``)."""
+    sched = build_schedule(cfg)
+    w, beta = graph_lib.schedule_matrices(
+        sched, cfg.mixing, data_sizes=data_sizes, consensus_step_size=cfg.consensus_step_size)
+    return w, beta, sched
+
+
 def _protocol_schedule(cfg: P2PConfig):
     """The config's schedule and protocol, warning (as the reference does)
     when a protocol that is not directed-capable meets a directed schedule."""
@@ -821,7 +834,7 @@ def _consensus_phase_compressed(
     state: P2PState,
     cfg: P2PConfig,
     ops: SparseRoundOps,
-    proto: protocols_lib.GossipProtocol,
+    proto: protocols_lib.ConsensusProtocol,
     comp: compression_lib.Compressor,
 ) -> P2PState:
     """``consensus_phase`` when consensus messages cross a compressed wire.
@@ -872,7 +885,7 @@ def _consensus_phase_async(
     state: P2PState,
     cfg: P2PConfig,
     ops: protocols_lib.StaleRoundOps,
-    proto: protocols_lib.GossipProtocol,
+    proto: protocols_lib.ConsensusProtocol,
 ) -> P2PState:
     """``consensus_phase`` under bounded-staleness delivery (the reference's
     ``_consensus_phase_async``).

@@ -1,11 +1,13 @@
 """Consensus protocols: how one gossip step moves parameters (the port's
 ``repro.core.protocols``).
 
-A protocol owns its per-run state, its stacked (R, K, K) round constants, and
-one consensus step.  ``gossip`` is the paper's row-stochastic Eq. 4 mix and is
-stateless.  ``push_sum`` runs directed and churning schedules: every peer
-carries a scalar mass y (``PushSumState``), the weights A are
-column-stochastic, and one step is
+A protocol (``ConsensusProtocol``, the interface the runtime calls) owns its
+per-run state, its stacked (R, K, K) round constants, and one consensus step;
+``register_protocol`` adds one to the registry that ``P2PConfig.protocol``
+names (``get_protocol``, ``protocol_names``).  ``gossip`` is the paper's
+row-stochastic Eq. 4 mix and is stateless.  ``push_sum`` runs directed and
+churning schedules: every peer carries a scalar mass y (``PushSumState``),
+the weights A are column-stochastic, and one step is
 
     y'_k = sum_j A[k, j] y_j,    x'_k = sum_j A[k, j] y_j x_j / y'_k
 
@@ -23,7 +25,7 @@ step, ``core.consensus.mix_stacked``, is the tests' reference.
 step of the one-slice hierarchical runtime ("bridge" or "segment"), and
 ``mix_stale`` the step of bounded-staleness consensus, through the
 ``consensus_mix`` kernel's snapshot mode on the round's age-decayed
-operands (``age_decayed_operands``, the counterpart of the reference's
+operands (``age_decayed_operands``, the slot-table form of
 ``age_decayed_constants``).  Push-sum's steps go through the same kernels in
 their mass mode.
 """
@@ -57,6 +59,39 @@ class ProtocolConstants(NamedTuple):
 def round_constants(consts: ProtocolConstants, idx) -> ProtocolConstants:
     """Select round ``idx`` of a stacked (R, ...) constants pair."""
     return ProtocolConstants(w=consts.w[idx], beta=consts.beta[idx])
+
+
+def age_decayed_constants(
+    consts: ProtocolConstants, decay: torch.Tensor, stochasticity: str
+) -> ProtocolConstants:
+    """One async round's renormalized age-decayed dense (K, K) constants, in
+    float32 (the reference's ``age_decayed_constants``; the round runs the
+    slot-table form, ``age_decayed_operands``):
+
+    * off-diagonal entry (k, j) becomes ``w_kj * decay_j`` (axis 1 indexes
+      the sender);
+    * the diagonal absorbs the freed mass: ``1 - sum`` of the row's
+      (gossip, "row") or the column's (push-sum, "column") decayed
+      off-diagonals, so the matrix stays stochastic;
+    * beta is decayed per sender, then row-renormalized; all-zero rows stay
+      zero.
+
+    With ``decay == 1`` the result equals ``consts`` up to the rounding of
+    the rebuilt diagonal.
+    """
+    if stochasticity not in ("row", "column"):
+        raise ValueError(f"unknown stochasticity {stochasticity!r}")
+    w = torch.as_tensor(consts.w).to(torch.float32)
+    decay = torch.as_tensor(decay, device=w.device).to(torch.float32)
+    diag = torch.diagonal(w)
+    off = (w - torch.diag(diag)) * decay[None, :]
+    new_diag = 1.0 - off.sum(dim=1 if stochasticity == "row" else 0)
+    beta_d = torch.as_tensor(consts.beta, device=w.device).to(torch.float32) * decay[None, :]
+    row_sums = beta_d.sum(dim=1, keepdim=True)
+    has = row_sums > 0
+    beta = torch.where(has, beta_d / torch.where(has, row_sums, torch.ones_like(row_sums)),
+                       torch.zeros_like(beta_d))
+    return ProtocolConstants(w=off + torch.diag(new_diag), beta=beta)
 
 
 class StaleRoundOps(NamedTuple):
@@ -126,16 +161,30 @@ class PushSumState(NamedTuple):
     mass: torch.Tensor
 
 
-class GossipProtocol:
-    """The paper's protocol: row-stochastic averaging (Eq. 4), stateless."""
+class ConsensusProtocol:
+    """The interface the port's runtime calls on a consensus protocol.
 
-    name = "gossip"
-    stochasticity = "row"
-    directed_capable = False
+    A protocol declares its ``name`` (the registry key), whether it is
+    unbiased on directed schedules (``directed_capable``) and which
+    normalization its weights obey (``stochasticity``: "row" for
+    gossip-style averaging, "column" for push-sum mass splitting).  The
+    schedule's constants and operands (``constants``, ``sparse_schedule``,
+    ``operands``) follow from ``stochasticity`` alone and are built here;
+    a protocol implements its state (``init_state``) and its steps over the
+    (K, N) flat buffer: ``mix`` (a round's sparse operands), ``mix_compressed``
+    (a compressed wire), ``mix_stale`` (bounded staleness) and ``mix_hier``
+    (the one-slice hierarchical runtime).  Each step returns the new protocol
+    state, the mixed buffer and the affinity d.  ``register_protocol`` makes
+    an instance reachable by name from ``P2PConfig.protocol``.
+    """
+
+    name: str = "base"
+    directed_capable: bool = False
+    stochasticity: str = "row"
 
     def init_state(self, params, data_sizes: Sequence[int] | None = None):
-        """Gossip carries no protocol state: always ``()``."""
-        return ()
+        """Per-run protocol state, carried in ``P2PState.protocol``."""
+        raise NotImplementedError
 
     def constants(
         self,
@@ -185,6 +234,39 @@ class GossipProtocol:
         sparse = self.sparse_schedule(schedule, mixing, data_sizes=data_sizes,
                                       consensus_step_size=consensus_step_size)
         return cm_ops.upload_schedule(sparse, device)
+
+    def mix(self, proto_state, flat: torch.Tensor, ops: SparseRoundOps, local_steps: int):
+        """One consensus step: (proto_state, mixed, d_bias)."""
+        raise NotImplementedError
+
+    def mix_compressed(self, proto_state, flat: torch.Tensor, payload: FlatPayload,
+                       ops: SparseRoundOps, leaf_offsets: tuple[int, ...], local_steps: int):
+        """One step across a compressed wire: (proto_state, mixed, d_bias,
+        advanced estimates)."""
+        raise NotImplementedError
+
+    def mix_stale(self, proto_state, flat: torch.Tensor, published: torch.Tensor,
+                  ops: SparseRoundOps, local_steps: int):
+        """One bounded-staleness step: (proto_state, mixed, d_bias)."""
+        raise NotImplementedError
+
+    def mix_hier(self, proto_state, flat: torch.Tensor, ops_s: SparseRoundOps, round_idx: int,
+                 local_steps: int, *, mode: str):
+        """One step of the one-slice hierarchical runtime: (proto_state,
+        mixed, d_bias)."""
+        raise NotImplementedError
+
+
+class GossipProtocol(ConsensusProtocol):
+    """The paper's protocol: row-stochastic averaging (Eq. 4), stateless."""
+
+    name = "gossip"
+    stochasticity = "row"
+    directed_capable = False
+
+    def init_state(self, params, data_sizes: Sequence[int] | None = None):
+        """Gossip carries no protocol state: always ``()``."""
+        return ()
 
     def mix(
         self, proto_state, flat: torch.Tensor, ops: SparseRoundOps, local_steps: int
@@ -337,16 +419,31 @@ class PushSumProtocol(GossipProtocol):
         return super().mix_hier(proto_state, flat, ops_s, round_idx, local_steps, mode=mode)
 
 
-_PROTOCOLS = {"gossip": GossipProtocol(), "push_sum": PushSumProtocol()}
+_REGISTRY: dict[str, ConsensusProtocol] = {}
+
+
+def register_protocol(protocol: ConsensusProtocol) -> ConsensusProtocol:
+    """Add a protocol instance to the registry (its name must be unique)."""
+    if not protocol.name or protocol.name == "base":
+        raise ValueError("protocol needs a distinct name")
+    if protocol.name in _REGISTRY:
+        raise ValueError(f"protocol {protocol.name!r} already registered")
+    _REGISTRY[protocol.name] = protocol
+    return protocol
+
+
+def get_protocol(name: str) -> ConsensusProtocol:
+    """Look up a registered protocol by name (ValueError on unknown)."""
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(f"unknown protocol {name!r}; one of {protocol_names()}") from None
 
 
 def protocol_names() -> tuple[str, ...]:
-    """Registered protocol names."""
-    return tuple(sorted(_PROTOCOLS))
+    """Registered protocol names, in registration order."""
+    return tuple(_REGISTRY)
 
 
-def get_protocol(name: str) -> GossipProtocol:
-    """The named protocol instance."""
-    if name not in _PROTOCOLS:
-        raise ValueError(f"unknown protocol {name!r}; one of {protocol_names()}")
-    return _PROTOCOLS[name]
+register_protocol(GossipProtocol())
+register_protocol(PushSumProtocol())

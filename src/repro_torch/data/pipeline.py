@@ -144,3 +144,11 @@ class TokenSequenceBatcher(PeerBatcher):
         tok_parts = [(images_to_tokens(px, num_bins=num_bins, pool=pool),
                       np.asarray(py, np.int32)) for px, py in parts]
         super().__init__(tok_parts, batch_size, seed=seed)
+
+
+def global_to_peer_batch(x: np.ndarray, num_peers: int) -> np.ndarray:
+    """Split a global batch along axis 0 into a leading peer axis."""
+    b = x.shape[0]
+    if b % num_peers:
+        raise ValueError(f"global batch {b} not divisible by {num_peers} peers")
+    return x.reshape(num_peers, b // num_peers, *x.shape[1:])

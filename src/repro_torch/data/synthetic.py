@@ -1,10 +1,12 @@
-"""Deterministic synthetic MNIST stand-in (the port's copy of
-``repro.data.synthetic.mnist_like``).
+"""Deterministic synthetic datasets (the port's copy of
+``repro.data.synthetic``).
 
-Each of the 10 classes is a fixed smooth 28x28 prototype (a seed-fixed
-low-frequency random field) plus per-sample Gaussian noise and brightness
-jitter.  Pure numpy, so the same seed gives the reference's arrays bit for
-bit — the first link of the port's parity chain.
+``mnist_like`` — each of the 10 classes is a fixed smooth 28x28 prototype (a
+seed-fixed low-frequency random field) plus per-sample Gaussian noise and
+brightness jitter.  ``token_stream`` / ``lm_batches`` — Zipf-ish integer
+token batches for the language models.  Pure numpy, so the same seed gives
+the reference's arrays bit for bit — the first link of the port's parity
+chain.
 """
 from __future__ import annotations
 
@@ -44,3 +46,21 @@ def mnist_like(
     x_tr, y_tr = sample(num_train, np.random.default_rng(seed + 1))
     x_te, y_te = sample(num_test, np.random.default_rng(seed + 2))
     return x_tr, y_tr, x_te, y_te
+
+
+def token_stream(
+    num_tokens: int, vocab_size: int, *, seed: int = 0, zipf_a: float = 1.2
+) -> np.ndarray:
+    """Zipf-ish int32 token ids (more realistic softmax stats than uniform)."""
+    rng = np.random.default_rng(seed)
+    raw = rng.zipf(zipf_a, size=num_tokens)
+    return np.minimum(raw - 1, vocab_size - 1).astype(np.int32)
+
+
+def lm_batches(
+    num_batches: int, batch: int, seq: int, vocab_size: int, *, seed: int = 0
+) -> tuple[np.ndarray, np.ndarray]:
+    """(tokens, labels) of shape (num_batches, batch, seq): next-token LM."""
+    stream = token_stream(num_batches * batch * (seq + 1), vocab_size, seed=seed)
+    arr = stream.reshape(num_batches, batch, seq + 1)
+    return arr[..., :-1].copy(), arr[..., 1:].copy()

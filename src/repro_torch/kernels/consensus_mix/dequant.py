@@ -16,6 +16,15 @@ parameters times the own mass, the neighbors' advanced estimates times
 their senders' mass, divided by the new mass, with the (K,) mass
 uncompressed.
 
+The reference's tree-level entry points call the same kernel:
+``quantize_int8`` (one scale a peer over the whole row, the reference
+function's; the runtime keeps one a peer and leaf), ``dequant_mix_flat``
+(one peer's row), ``dequant_consensus_mix_stacked`` and
+``dequant_consensus_mix_schedule`` (a tree of stacked leaves, a round index
+that may be a 0-d tensor on the device).  Their d follows the port's
+runtime: the own estimate in it is advanced by the own payload (the
+reference's wrapper takes it before the advance; ROADMAP.md section 3).
+
 Dispatch is by the device of the buffer, and only by it:
 
 - a CPU tensor takes the plain PyTorch version (``ref.dequant_mix_stacked_ref``);
@@ -49,7 +58,9 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.consensus_mix import ref
 from repro_torch.kernels.build import LaunchCounter
-from repro_torch.kernels.consensus_mix.ops import SparseOperands, check_mass, check_operands
+from repro_torch.kernels.consensus_mix.ops import (SparseOperands, as_operands, check_mass,
+                                                   check_operands, flatten_pytree, select_round,
+                                                   unflatten_pytree)
 
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "dequant_mix.cu"]
 MAX_LEAVES = 64  # kMaxLeaves in the CUDA source
@@ -232,3 +243,77 @@ def dequant_mix_push_sum_stacked(
     launch(flat, est, q, scale, ops, leaf_offsets, local_steps, mixed, d_bias, est_out,
            mass, new_mass)
     return mixed, d_bias, est if est_out is None else est_out, new_mass
+
+
+def quantize_int8(flat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 payload of a (K, N) stack: (q int8, scale (K,)
+    float32), one scale a peer over the whole row (the reference's
+    ``dequant.quantize_int8``)."""
+    f = flat.to(torch.float32)
+    scale = f.abs().amax(dim=1) / 127.0
+    safe = torch.where(scale > 0.0, scale, torch.ones_like(scale))
+    q = torch.clamp(torch.round(f / safe[:, None]), -127.0, 127.0).to(torch.int8)
+    return q, scale
+
+
+def dequant_mix_flat(
+    x: torch.Tensor,  # (N,) float32 — own TRUE parameters
+    self_est: torch.Tensor,  # (N,) float32 — own public estimate
+    nbrs_est: torch.Tensor,  # (D, N) float32 — neighbor public estimates
+    nbrs_q: torch.Tensor,  # (D, N) int8 — difference payloads
+    nbr_scale,  # (D,) float32 payload scales
+    w_self,
+    w_nbr,  # (D,)
+    beta,  # (D,)
+    local_steps: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One peer's fused dequantize-and-mix step (the reference's
+    ``dequant.dequant_mix_flat``): the kernel on the (D + 1, N) stack of the
+    row and its neighbors (``ref.dequant_one_peer_stack``: the own row with
+    no payload, so d is ``(Beta v - self_est) / T``), row 0 returned."""
+    stack, est, q, scale, ops = ref.dequant_one_peer_stack(x, self_est, nbrs_est, nbrs_q,
+                                                           nbr_scale, w_self, w_nbr, beta)
+    mixed, d, _ = dequant_mix_stacked(stack, est, q, scale, SparseOperands(*ops),
+                                      (0, x.shape[0]), local_steps)
+    return mixed[0], d[0]
+
+
+def dequant_consensus_mix_stacked(
+    stacked,  # tree of (K, ...) leaves — each peer's own TRUE parameters
+    est: torch.Tensor,  # (K, N) float32 — public estimates before this step's advance
+    q: torch.Tensor,  # (K, N) int8 — the senders' payloads (quantize_int8)
+    scale: torch.Tensor,  # (K,) float32 payload scales
+    self_w, nbr_idx, nbr_w, beta,  # one round's sparse operands
+    local_steps: int,
+):
+    """One compressed gossip step + affinity d on a tree of stacked leaves,
+    every neighbor view its estimate advanced by its payload (the
+    reference's ``dequant.dequant_consensus_mix_stacked``), through
+    ``dequant_mix_stacked`` with the row as one leaf.  Returns (mixed,
+    d_bias) trees; the caller advances its estimates, ``est + q * scale``."""
+    flat, _ = flatten_pytree(stacked)
+    flat = flat.to(torch.float32)
+    dev = flat.device
+    ops = as_operands(self_w, nbr_idx, nbr_w, beta, dev)
+    scale = torch.as_tensor(scale, dtype=torch.float32, device=dev).reshape(-1, 1).contiguous()
+    mixed, d, _ = dequant_mix_stacked(flat, est, q, scale, ops, (0, flat.shape[1]), local_steps)
+    return unflatten_pytree(stacked, mixed), unflatten_pytree(stacked, d)
+
+
+def dequant_consensus_mix_schedule(
+    stacked,
+    est: torch.Tensor,  # (K, N) float32
+    q: torch.Tensor,  # (K, N) int8
+    scale: torch.Tensor,  # (K,)
+    self_w_s: torch.Tensor,  # (R, K)
+    nbr_idx_s: torch.Tensor,  # (R, K, D)
+    nbr_w_s: torch.Tensor,  # (R, K, D)
+    beta_s: torch.Tensor,  # (R, K, D)
+    round_idx: int | torch.Tensor,
+    local_steps: int,
+):
+    """Round ``round_idx % R`` of a stacked sparse schedule
+    (``ops.sparse_from_schedule``), selected on the device for a tensor
+    index: ``dequant_consensus_mix_stacked`` on that round's operands."""
+    ops = select_round(as_operands(self_w_s, nbr_idx_s, nbr_w_s, beta_s, est.device), round_idx)
+    return dequant_consensus_mix_stacked(stacked, est, q, scale, *ops, local_steps)

@@ -23,6 +23,14 @@ round's dense (K, K) W and Beta computed on the device (adaptive partner
 selection) and run the same kernel on ``dense_operands``: the static
 candidate set of every j != k, the weights gathered from the matrices.
 
+The reference's tree-level entry points call the same kernel:
+``consensus_mix_schedule`` and ``consensus_mix_push_sum_schedule`` take a
+tree of stacked (K, ...) leaves (``flatten_pytree``: the reference's leaf
+order), the stacked operands of ``sparse_from_schedule`` and a round index,
+which may be a 0-d tensor on the device (the round is then selected there,
+with no read back, so a call can be captured in a CUDA graph);
+``consensus_mix_flat`` takes one peer's row and its neighbors' rows.
+
 The gossip step also takes a bfloat16 buffer (a bf16 model's parameters):
 the kernel's bf16 storage mode reads x as bf16, sums in float32 and writes
 mixed and d as bf16, as the reference mixes a bf16 leaf in float32 and casts
@@ -64,6 +72,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import pytree
 from repro_torch.core import graph as graph_lib
 from repro_torch.kernels import build
 from repro_torch.kernels.build import LaunchCounter
@@ -108,10 +117,64 @@ def upload_schedule(
     return SparseOperands(*(torch.as_tensor(a, device=device) for a in arrays))
 
 
-def select_round(stacked: SparseOperands, round_idx: int) -> SparseOperands:
-    """Round ``round_idx % R`` of stacked operands: views, nothing copied."""
-    r = int(round_idx) % stacked.self_w.shape[0]
-    return SparseOperands(*(t[r] for t in stacked))
+def select_round(stacked: SparseOperands, round_idx: int | torch.Tensor) -> SparseOperands:
+    """Round ``round_idx % R`` of stacked operands.  An int gives views,
+    nothing copied; a 0-d tensor selects on the operands' device (one small
+    gather each, no read back to the host)."""
+    period = stacked.self_w.shape[0]
+    if isinstance(round_idx, torch.Tensor):
+        r = torch.remainder(round_idx.to(stacked.self_w.device, torch.int64), period).reshape(1)
+        return SparseOperands(*(t.index_select(0, r)[0] for t in stacked))
+    return SparseOperands(*(t[int(round_idx) % period] for t in stacked))
+
+
+def as_operands(self_w, nbr_idx, nbr_w, beta, device: torch.device) -> SparseOperands:
+    """Operands in the kernels' types on ``device``: float32 weights, int32
+    indices, contiguous (tensors already so are taken as they are; arrays
+    are copied, since a view of a jax array is read-only)."""
+    def cast(t, dtype):
+        t = t if isinstance(t, torch.Tensor) else np.array(t)
+        return torch.as_tensor(t, dtype=dtype, device=device).contiguous()
+
+    return SparseOperands(cast(self_w, torch.float32), cast(nbr_idx, torch.int32),
+                          cast(nbr_w, torch.float32), cast(beta, torch.float32))
+
+
+def sparse_from_schedule(
+    w_stack: np.ndarray, beta_stack: np.ndarray, *, device: torch.device | str = "cpu"
+) -> SparseOperands:
+    """Stacked sparse form of a (R, K, K) W/Beta schedule on ``device``:
+    (self_w (R, K), nbr_idx (R, K, D), nbr_w (R, K, D), beta (R, K, D)), D
+    the widest row of any round, so one kernel shape serves the schedule.
+    A row's slots are its nonzero off-diagonal W and Beta entries
+    (``SparseSchedule.from_dense``; the reference takes W's alone, and so
+    drops an affinity weight on an edge of mixing weight 0)."""
+    sparse = graph_lib.SparseSchedule.from_dense(np.asarray(w_stack), np.asarray(beta_stack))
+    return upload_schedule(sparse, device)
+
+
+def flatten_pytree(tree) -> tuple[torch.Tensor, list]:
+    """A tree of stacked (K, ...) leaves -> ((K, N) buffer, [(shape, dtype)]
+    of each leaf), the leaves in the reference's order
+    (``repro_torch.pytree``) and their common type by promotion."""
+    leaves = pytree.leaves(tree)
+    flat = torch.cat([leaf.reshape(leaf.shape[0], -1) for leaf in leaves], dim=1)
+    return flat, [(tuple(leaf.shape), leaf.dtype) for leaf in leaves]
+
+
+def unflatten_pytree(tree_like, flat: torch.Tensor):
+    """A (K, N) buffer -> ``tree_like``'s structure, each leaf in its shape
+    and type (the inverse of ``flatten_pytree``)."""
+    starts, off = {}, 0
+    for path, leaf in pytree.leaves_with_path(tree_like):
+        starts[path] = off
+        off += int(np.prod(leaf.shape[1:]))
+
+    def leaf_of(path, leaf):
+        size = int(np.prod(leaf.shape[1:]))
+        return flat[:, starts[path]:starts[path] + size].reshape(leaf.shape).to(leaf.dtype)
+
+    return pytree.map_with_path(leaf_of, tree_like)
 
 
 def sparse_from_matrices(
@@ -430,3 +493,60 @@ def consensus_mix_push_sum_snapshot_stacked(
     new_mass = torch.empty_like(mass)
     launch(flat, ops, local_steps, mixed, d_bias, mass, new_mass, published=published)
     return mixed, d_bias, new_mass
+
+
+def consensus_mix_flat(
+    x: torch.Tensor,  # (N,)
+    nbrs: torch.Tensor,  # (D, N)
+    w_self,
+    w_nbr,  # (D,)
+    beta,  # (D,)
+    local_steps: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One peer's gossip step + affinity d (the reference's
+    ``ops.consensus_mix_flat``): the kernel on the (D + 1, N) stack of the
+    row and its neighbors (``ref.one_peer_stack``), row 0 returned."""
+    stack, ops = ref.one_peer_stack(x, nbrs, w_self, w_nbr, beta)
+    mixed, d = consensus_mix_stacked(stack, SparseOperands(*ops), local_steps)
+    return mixed[0], d[0]
+
+
+def consensus_mix_schedule(
+    stacked,  # tree of (K, ...) leaves
+    round_idx: int | torch.Tensor,
+    self_w_s: torch.Tensor,  # (R, K)
+    nbr_idx_s: torch.Tensor,  # (R, K, D)
+    nbr_w_s: torch.Tensor,  # (R, K, D)
+    beta_s: torch.Tensor,  # (R, K, D)
+    local_steps: int,
+):
+    """Round ``round_idx % R`` of a stacked sparse schedule
+    (``sparse_from_schedule``) on a tree of stacked leaves: one gossip step
+    + affinity d through ``consensus_mix_stacked``.  Returns (mixed, d_bias)
+    trees, each leaf in its own type."""
+    flat, _ = flatten_pytree(stacked)
+    ops = select_round(as_operands(self_w_s, nbr_idx_s, nbr_w_s, beta_s, flat.device), round_idx)
+    mixed, d = consensus_mix_stacked(flat, ops, local_steps)
+    return unflatten_pytree(stacked, mixed), unflatten_pytree(stacked, d)
+
+
+def consensus_mix_push_sum_schedule(
+    stacked,  # tree of (K, ...) leaves: the de-biased parameters
+    mass: torch.Tensor,  # (K,) push-sum mass y
+    round_idx: int | torch.Tensor,
+    self_w_s: torch.Tensor,  # (R, K)
+    nbr_idx_s: torch.Tensor,  # (R, K, D)
+    nbr_w_s: torch.Tensor,  # (R, K, D)
+    beta_s: torch.Tensor,  # (R, K, D)
+    local_steps: int,
+):
+    """Round ``round_idx % R`` of a (possibly directed) stacked schedule on
+    a tree of stacked leaves: one push-sum step + affinity d through
+    ``consensus_mix_push_sum_stacked`` (float32).  Returns (mixed tree,
+    d_bias tree, new mass)."""
+    flat, _ = flatten_pytree(stacked)
+    flat = flat.to(torch.float32)
+    ops = select_round(as_operands(self_w_s, nbr_idx_s, nbr_w_s, beta_s, flat.device), round_idx)
+    mass = torch.as_tensor(mass, dtype=torch.float32, device=flat.device).contiguous()
+    mixed, d, new_mass = consensus_mix_push_sum_stacked(flat, mass, ops, local_steps)
+    return unflatten_pytree(stacked, mixed), unflatten_pytree(stacked, d), new_mass

@@ -18,6 +18,10 @@ neighbor block at a time.  With ``published`` (the snapshot mode of
 bounded-staleness consensus) every neighbor term reads
 ``published[nbr_idx[k, d]]`` in place of ``x[nbr_idx[k, d]]``; x_k, in the
 self term and in d, stays the live row.
+
+``consensus_mix_ref`` and ``dequant_mix_ref`` are the reference's one-peer
+oracles by name and call: one row x and its (D, N) neighbor rows, computed
+as row 0 of the stacked plain versions on ``one_peer_stack``.
 """
 from __future__ import annotations
 
@@ -50,6 +54,62 @@ def consensus_mix_stacked_ref(
     has_nbrs = beta.sum(dim=1) > 0.0
     d = torch.where(has_nbrs[:, None], (nbr_sum - xf) / local_steps, torch.zeros_like(xf))
     return mixed.to(flat.dtype), d.to(flat.dtype)
+
+
+def one_peer_stack(x, nbrs, w_self, w_nbr, beta):
+    """One peer's row ``x`` (N,) and its neighbors' rows ``nbrs`` (D, N) as a
+    (D + 1, N) stack with its operands: row 0 is the peer, mixing slot s
+    from row s + 1 with ``w_nbr[s]`` and ``beta[s]``; rows 1..D keep no
+    weight (own-index padding, zero beta: d = 0).  Returns (stack,
+    (self_w, nbr_idx, nbr_w, beta)), the weights float32 and the index
+    int32, on x's device."""
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    d = nbrs.shape[0]
+    stack = torch.cat([x[None], nbrs.to(x.dtype)]).contiguous()
+    rows = torch.arange(d + 1, dtype=torch.int32, device=dev)
+    nbr_idx = rows[:, None].repeat(1, d)
+    nbr_idx[0] = rows[1:]
+    pad = torch.zeros((d, d), **f32)
+    self_w = torch.cat([torch.as_tensor(w_self, **f32).reshape(1), torch.zeros(d, **f32)])
+    weights = [torch.cat([torch.as_tensor(w, **f32).reshape(1, d), pad]) for w in (w_nbr, beta)]
+    return stack, (self_w, nbr_idx, *weights)
+
+
+def consensus_mix_ref(x, nbrs, w_self, w_nbr, beta, local_steps: int):
+    """x: (N,); nbrs: (D, N); w_self: scalar; w_nbr, beta: (D,).  Returns
+    (mixed, d) of one peer, each (N,) in x's type (the reference's
+    ``ref.consensus_mix_ref``)."""
+    stack, ops = one_peer_stack(x, nbrs, w_self, w_nbr, beta)
+    mixed, d = consensus_mix_stacked_ref(stack, *ops, local_steps)
+    return mixed[0], d[0]
+
+
+def dequant_one_peer_stack(x, self_est, nbrs_est, nbrs_q, nbr_scale, w_self, w_nbr, beta):
+    """``one_peer_stack`` of a compressed step: (true rows, estimates, int8
+    payloads, (D + 1, 1) scales, operands).  The peer's own row carries no
+    payload (q = 0, scale 0), so its estimate stays ``self_est``, as the
+    reference's one-peer form has it."""
+    stack, ops = one_peer_stack(x, nbrs_est, w_self, w_nbr, beta)
+    est = torch.cat([self_est[None], nbrs_est]).to(torch.float32).contiguous()
+    q = torch.cat([torch.zeros_like(nbrs_q[:1]), nbrs_q]).contiguous()
+    scale = torch.cat([torch.zeros(1, dtype=torch.float32, device=x.device),
+                       torch.as_tensor(nbr_scale, dtype=torch.float32, device=x.device)])
+    return stack, est, q, scale[:, None].contiguous(), ops
+
+
+def dequant_mix_ref(x, self_est, nbrs_est, nbrs_q, nbr_scale, w_self, w_nbr, beta,
+                    local_steps: int):
+    """One peer's compressed step (the reference's ``ref.dequant_mix_ref``):
+    x, self_est (N,) float32; nbrs_est (D, N) float32; nbrs_q (D, N) int8;
+    nbr_scale, w_nbr, beta (D,); every neighbor advanced to ``est + q *
+    scale``, d on estimate differences ``(Beta v - self_est) / T``.
+    Returns (mixed, d), each (N,)."""
+    stack, est, q, scale, ops = dequant_one_peer_stack(x, self_est, nbrs_est, nbrs_q,
+                                                       nbr_scale, w_self, w_nbr, beta)
+    mixed, d, _ = dequant_mix_stacked_ref(stack, est, q, scale, (0, x.shape[0]), *ops,
+                                          local_steps)
+    return mixed[0], d[0]
 
 
 def push_sum_weights(

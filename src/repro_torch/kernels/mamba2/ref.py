@@ -19,7 +19,8 @@ reference's zero padding (dt = 0: decay 1, no input) gives.  Head h reads
 B/C group h // (H // G), as the reference's ``_expand_groups`` repeats them.
 Computes in float32 and returns float32.
 
-``ssd_bwd_ref`` is the plain version of the backward kernel
+``ssd_ref`` is the reference's oracle by name and call (B and C per head,
+an ``initial_state``), the same scan.  ``ssd_bwd_ref`` is the plain version of the backward kernel
 (``csrc/ssd_bwd.cu``), the token recurrence; ``ssd_bwd_chunked_ref`` is the
 kernel's chunked decomposition, for the tests (with ``tf32_product``, the
 kernel's TF32 passes emulated).
@@ -76,6 +77,13 @@ def ssd_chunked_ref(x, b, c, dt, a, *, state=None, chunk: int = 64):
             "bshn,bshp->bhpn", bq * (rem * dtq)[..., None], xq)
         ys.append(y)
     return torch.cat(ys, dim=1), s
+
+
+def ssd_ref(x, b, c, dt, a, initial_state=None):
+    """x (B, T, H, P); b, c (B, T, H, N); dt (B, T, H); a (H,) negative.
+    Returns (y (B, T, H, P), final state (B, H, P, N)), float32 (the
+    reference's ``ref.ssd_ref``, through ``ssd_chunked_ref``)."""
+    return ssd_chunked_ref(x, b, c, dt, a, state=initial_state)
 
 
 def ssd_bwd_ref(x, b, c, dt, a, state, dy, dstate):

@@ -1,7 +1,14 @@
-"""Serving steps built from a Model (the port's ``repro.launch.steps``, its
-serving half).
+"""Step functions built from a Model (the port's ``repro.launch.steps``).
 
-``make_decode_scan`` is the counterpart of the reference's
+Training: the paper's round at production scale is T calls of
+``make_train_step``'s step on each peer (Eq. 3: gradient, optimizer update,
+plus ``eta_d * d``), then one call of ``make_consensus_step``'s step on the
+peer-stacked trees (Eq. 4 and the affinity d, through the ``consensus_mix``
+kernel: one launch per leaf type).  ``make_consensus_step_psum`` is the
+reference's one-reduction form for a uniform complete graph.  The
+multi-pod steps are ROADMAP.md queue 1 item 15.
+
+Serving: ``make_decode_scan`` is the counterpart of the reference's
 ``make_decode_scan``, which collapses the greedy decode into one
 ``lax.scan``: it captures ONE decode step as a CUDA graph over static
 token, position and cache buffers (the cache written in place) and replays
@@ -16,10 +23,127 @@ from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
 from repro_torch import capture as capture_lib
+from repro_torch import pytree
+from repro_torch.core import graph as graph_lib
+from repro_torch.core import p2p
+from repro_torch.kernels.consensus_mix import ops as cm_ops
 from repro_torch.models.registry import Model
+from repro_torch.optim import Optimizer
+
+
+def make_train_step(model: Model, opt: Optimizer, *, eta_d: float = 0.0) -> Callable:
+    """(params, opt_state, d_bias, batch, step) -> (params, opt_state, loss).
+
+    One peer's local step: the loss ``model.loss_fn(params, batch)`` and its
+    gradient by autograd (the kernels' backwards on the card), ``opt.update``,
+    then ``w + eta_d * d`` in float32, cast back to w's type.  ``params``
+    may be any tree of tensors (views of a stacked buffer too); the step
+    returns fresh tensors and leaves its inputs as they are."""
+
+    def train_step(params, opt_state, d_bias, batch, step):
+        live = {path: leaf.detach().requires_grad_(True)
+                for path, leaf in pytree.leaves_with_path(params)}
+        with torch.enable_grad():
+            loss = model.loss_fn(pytree.map_with_path(lambda p, _: live[p], params), batch)
+            grads = dict(zip(live, torch.autograd.grad(loss, list(live.values()),
+                                                       materialize_grads=True)))
+        params, opt_state = opt.update(pytree.map_with_path(lambda p, _: grads[p], params),
+                                       opt_state, params, step)
+        if eta_d:
+            params = pytree.tree_map(
+                lambda w, d: (w.to(torch.float32) + eta_d * d.to(torch.float32)).to(w.dtype),
+                params, d_bias)
+        return params, opt_state, loss.detach()
+
+    return train_step
+
+
+def make_consensus_step(
+    w_mat: np.ndarray,
+    beta_mat: np.ndarray,
+    *,
+    local_steps: int,
+    use_affinity: bool,
+) -> Callable:
+    """Stacked-peer gossip: (stacked_params, d_bias) -> (mixed_params, new_d).
+
+    The trees' leaves carry a leading K (peer) axis.  The leaves of each type
+    are flattened into one (K, row) buffer (float32 or bf16;
+    ``p2p.ParamLayout.block``, as the runtime lays out a mixed task's
+    blocks) and mixed by one ``consensus_mix`` launch, which gives W x and
+    the affinity d = (Beta x - x) / T together, summed in float32.  The
+    dense (K, K) W and Beta become sparse operands here, once, and are
+    uploaded on the device of the first call.  Mixed leaves come back in
+    their own type; d comes back float32 (the reference's type: it does
+    not cast d back), its values those of the kernel, which rounds a bf16
+    block's d once (the reference rounds the Beta-average to bf16 before
+    it subtracts x; ROADMAP.md section 3).  A peer with no affinity
+    neighbor (a zero Beta row) gets d = 0, as in the runtime, where the
+    reference's dense form gives -x / T.  Without ``use_affinity`` d_bias
+    is returned as given."""
+    sparse = graph_lib.SparseSchedule.from_dense(np.asarray(w_mat)[None],
+                                                 np.asarray(beta_mat)[None])
+    uploaded: dict[torch.device, cm_ops.SparseOperands] = {}
+
+    def consensus_step(stacked_params, d_bias):
+        paths = pytree.leaves_with_path(stacked_params)
+        dev = paths[0][1].device
+        if dev not in uploaded:
+            uploaded[dev] = cm_ops.select_round(cm_ops.upload_schedule(sparse, dev), 0)
+        blocks: dict[torch.dtype, dict] = {}
+        for p, leaf in paths:
+            blocks.setdefault(leaf.dtype, {})[p] = leaf
+        mixed, d = {}, {}
+        for dtype, leaves in blocks.items():  # one buffer and one launch a leaf type
+            layout = p2p.ParamLayout.block({p: tuple(v.shape[1:]) for p, v in leaves.items()},
+                                           dtype)
+            mixed_flat, d_flat = cm_ops.consensus_mix_stacked(layout.flatten(leaves),
+                                                              uploaded[dev], local_steps)
+            mixed.update(layout.views(mixed_flat))
+            d.update((p, v.to(torch.float32)) for p, v in layout.views(d_flat).items())
+        mixed_tree = pytree.map_with_path(lambda p, _: mixed[p], stacked_params)
+        if use_affinity:
+            d_bias = pytree.map_with_path(lambda p, _: d[p], stacked_params)
+        return mixed_tree, d_bias
+
+    return consensus_step
+
+
+def make_consensus_step_psum(
+    num_peers: int,
+    *,
+    self_weight: float,
+    peer_weight: float,
+    local_steps: int,
+    use_affinity: bool,
+) -> Callable:
+    """Gossip on a uniform complete graph from one peer-axis reduction:
+
+        out_k = a x_k + b sum_{j != k} x_j = (a - b) x_k + b S,   S = sum_k x_k
+        d_k   = ((S - x_k) / (K - 1) - x_k) / T                   (uniform Beta)
+
+    in float32, each cast back to the leaf's type, d too (the reference's
+    formula; plain torch, as the reference computes it outside any
+    kernel)."""
+
+    def consensus_step(stacked_params, d_bias):
+        out = {}
+        for p, x in pytree.leaves_with_path(stacked_params):
+            xf = x.to(torch.float32)
+            s = torch.sum(xf, dim=0, keepdim=True)
+            mixed = ((self_weight - peer_weight) * xf + peer_weight * s).to(x.dtype)
+            nbr_avg = (s - xf) / max(num_peers - 1, 1)
+            out[p] = mixed, ((nbr_avg - xf) / local_steps).to(x.dtype)
+        mixed = pytree.map_with_path(lambda p, _: out[p][0], stacked_params)
+        if use_affinity:
+            d_bias = pytree.map_with_path(lambda p, _: out[p][1], stacked_params)
+        return mixed, d_bias
+
+    return consensus_step
 
 
 def make_prefill_step(model: Model) -> Callable:
