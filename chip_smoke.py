@@ -610,6 +610,229 @@ def consensus_bf16_cases(card: Card, lm_row: int, mlp_row: int) -> list[dict]:
     ]
 
 
+def bf16_mode_case(card, kernel: str, mode: str, name: str, graph, n: int, *, want: str,
+                   sizes=None, leaves: int = 6, scalar: bool = False, seed: int = 0) -> dict:
+    """One of the bf16 storage modes that extend the consensus kernels against
+    its plain version on the card (``CONSENSUS_BF16_TOL``; a dequant_mix
+    estimate's advance, ``ref.advance_estimates``, bit for bit; the new mass
+    at TOL), asserting the design or route the case is built for (``want``),
+    and timed in turns against the plain version and ``torch.matmul`` of the
+    dense bf16 ``[W_off; Beta]`` (the push-sum modes: ``[A_off diag(y);
+    Beta]``).  ``kernel``/``mode``: consensus_mix in "mass", "snapshot",
+    "mass_snapshot" or "dense" (an adaptive matching's operands, K peers),
+    dequant_mix and segment_mix in "gossip" or "mass".  The snapshots P (and
+    a compressed wire's estimates) are x perturbed; the int8 payload is the
+    qint8 compressor's of ``leaves`` equal leaves (``ef_flat``), with
+    ``scalar`` leaves that start off whole vectors (dequant_mix's scalar
+    path, asserted)."""
+    from repro_torch import compression
+    from repro_torch.core import graph as graph_lib
+    from repro_torch.core import p2p, protocols
+    from repro_torch.kernels.consensus_mix import dequant, ops, ref, segment
+
+    dev = torch.device("cuda")
+    t = 4
+    mass = "mass" in mode
+    rng = np.random.default_rng(seed)
+    if mode == "dense":
+        w, beta, one = matching_operands(graph, mass=False, seed=seed)
+        k, d = one.nbr_idx.shape
+        dense = torch.cat([w - torch.diag(torch.diagonal(w)), beta]).to(torch.bfloat16)
+    else:
+        sparse = graph_lib.SparseSchedule.from_schedule(
+            graph_lib.static_schedule(graph), "data_weighted",
+            data_sizes=np.ones(graph.num_peers) if sizes is None else sizes,
+            stochasticity="column" if mass else "row")
+        ops_s = ops.upload_schedule(sparse, dev)
+        one = ops.select_round(ops_s, 0)
+        k, d = sparse.num_peers, sparse.degree_bound
+    y = push_sum_mass(k, seed, dev) if mass else None
+    if "snapshot" in mode:
+        stale = protocols.StaleRoundOps(
+            *one, torch.as_tensor(protocols.column_sums(sparse)[0], device=dev),
+            torch.zeros(k, dtype=torch.bool, device=dev))
+        decay = torch.as_tensor((0.5 ** rng.integers(0, STALE_BOUND + 1, k)).astype(np.float32),
+                                device=dev)
+        one = protocols.age_decayed_operands(stale, decay, "column" if mass else "row")
+    if mode != "dense":
+        dense_w = torch.zeros(2 * k, k, device=dev)
+        rows = torch.arange(k, device=dev).repeat_interleave(d)
+        cols = one.nbr_idx.long().reshape(-1)
+        wy = one.nbr_w * (y[one.nbr_idx.long()] if mass else 1.0)
+        dense_w.index_put_((rows, cols), wy.reshape(-1), accumulate=True)
+        dense_w.index_put_((rows + k, cols), one.beta.reshape(-1), accumulate=True)
+        dense = dense_w.to(torch.bfloat16)
+        del dense_w
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(k, n, generator=gen, device=dev).to(torch.bfloat16)
+    other = (x.float() + 0.05 * torch.randn(k, n, generator=gen, device=dev)).to(torch.bfloat16)
+    offs, q, scale = None, None, None
+    if kernel == "dequant_mix":
+        base = n // leaves // 8 * 8  # leaf starts on whole vectors
+        cuts = [301, 1, 475, 222][:leaves - 1] if scalar else [base] * (leaves - 1)
+        shapes = {f"leaf{i}": (c,) for i, c in enumerate([*cuts, n - sum(cuts)])}
+        layout = p2p.ParamLayout.block(shapes, torch.bfloat16)
+        check(layout.row == n, f"{name}: the row {n} is whole bf16 rows")
+        offs = layout.leaf_offsets
+        payload = compression.get_compressor("qint8").ef_flat(x, other, layout)
+        q, scale = payload.q, payload.scale
+        vector = dequant.takes_vector_path(offs, x, other, q)
+        check(vector != scalar, f"dequant_mix bf16 {mode} {name}: vector path {vector}")
+    else:
+        vector = n % 8 == 0
+    if kernel == "segment_mix":
+        design = segment_route(name, k, d, want)
+    else:
+        tile = (ops if kernel == "consensus_mix" else dequant).takes_tile_path(k)
+        design = "tile" if tile else "gather"
+        check(design == want, f"{kernel} bf16 {mode} {name}: {design} design, want {want}")
+    pub = other if "snapshot" in mode else None
+    n_out = (3 if kernel == "dequant_mix" else 2) + (1 if mass else 0)
+    outs = [torch.empty_like(y) if mass and i == n_out - 1 else torch.empty_like(x)
+            for i in range(n_out)]
+    new_mass = outs[-1] if mass else None
+
+    def call():  # the wrapper, as the runtime calls it
+        if kernel == "consensus_mix":
+            if mass:
+                return (ops.consensus_mix_push_sum_stacked(x, y, one, t) if pub is None else
+                        ops.consensus_mix_push_sum_snapshot_stacked(x, pub, y, one, t))
+            return (ops.consensus_mix_stacked(x, one, t) if pub is None else
+                    ops.consensus_mix_snapshot_stacked(x, pub, one, t))
+        if kernel == "dequant_mix":
+            if mass:
+                return dequant.dequant_mix_push_sum_stacked(x, other, q, scale, y, one, offs, t)
+            return dequant.dequant_mix_stacked(x, other, q, scale, one, offs, t)
+        if mass:
+            return segment.segment_mix_push_sum_schedule(x, y, 0, ops_s, t)
+        return segment.segment_mix_schedule(x, 0, ops_s, t)
+
+    def plain():  # its plain version on the same inputs
+        if kernel == "consensus_mix":
+            if mass:
+                return ref.consensus_mix_push_sum_stacked_ref(x, y, *one, t, published=pub)
+            return ref.consensus_mix_stacked_ref(x, *one, t, published=pub)
+        if kernel == "dequant_mix":
+            if mass:
+                return ref.dequant_mix_push_sum_stacked_ref(x, other, q, scale, offs, y, *one, t)
+            return ref.dequant_mix_stacked_ref(x, other, q, scale, offs, *one, t)
+        if mass:
+            return ref.segment_mix_push_sum_stacked_ref(x, y, *one, t)
+        return ref.segment_mix_stacked_ref(x, *one, t)
+
+    def kern():  # the launch alone, into buffers made once
+        if kernel == "consensus_mix":
+            ops.launch(x, one, t, outs[0], outs[1], y, new_mass, published=pub)
+        elif kernel == "dequant_mix":
+            dequant.launch(x, other, q, scale, one, offs, t, *outs[:3], y, new_mass)
+        else:
+            segment.launch(x, 0, ops_s, t, outs[0], outs[1], y, new_mass)
+
+    got, want_out = call(), plain()
+    torch.cuda.synchronize()
+    err = 0.0
+    for i, (g, r) in enumerate(zip(got, want_out)):
+        what = f"{kernel} bf16 {mode} {name} output {i}"
+        if g.dtype == torch.float32:  # the new mass
+            torch.testing.assert_close(g, r, **TOL, msg=lambda m: f"{what}: {m}")
+            continue
+        check(g.dtype == torch.bfloat16, f"{what} is bf16")
+        if kernel == "dequant_mix" and i == 2:  # the advanced estimates, rounded alike
+            check(torch.equal(g, r), f"{what}: est' bit for bit")
+        torch.testing.assert_close(g.float(), r.float(), **CONSENSUS_BF16_TOL,
+                                   msg=lambda m: f"{what}: {m}")
+        err = max(err, float((g.float() - r.float()).abs().max()))
+    del got, want_out
+    lib_out = torch.empty((2 * k, n), dtype=torch.bfloat16, device=dev)
+    times = in_turns(plain, kern, lambda: torch.matmul(dense, x, out=lib_out))
+    real = int((one.nbr_idx != torch.arange(k, device=dev)[:, None]).sum())
+    # gossip's 4 D + 3 a column, a scale a mixed element (push-sum), the
+    # advance's multiply and add (an int8 payload)
+    flops = n * (4 * real + 3 * k + (k if mass else 0) + (2 * k if q is not None else 0))
+    reads = k * n * 2 * (2 if kernel == "dequant_mix" or "snapshot" in mode else 1)
+    writes = k * n * 2 * (3 if q is not None else 2)
+    nbytes = (reads + writes + (k * n if q is not None else 0) + 3 * k * d * 4 + k * 4
+              + (2 * k * 4 if mass else 0) + (k * len(offs) * 4 if offs else 0))
+    case = {"case": name, "mode": mode, "K": k, "D": d, "N": n,
+            ("route" if kernel == "segment_mix" else "path"): design,
+            "vector_path": vector, "dtype": "bfloat16", "max_abs_err": err, **times,
+            "library": "torch.matmul of the dense bf16 (2K, K) operator",
+            **card.bound(nbytes, flops, bf16=True)}
+    del x, other, outs, lib_out, dense
+    torch.cuda.empty_cache()
+    return case
+
+
+def bf16_mode_cases(card: Card, lm_row: int, mlp_row: int) -> dict[str, list[dict]]:
+    """The bf16 storage modes this slice adds, at the main paths' shapes:
+    ``consensus_mix`` mass (K = 8 directed ring at smollm-135m's row, the
+    gather; K = 100 at the 2NN's, the tile), snapshot and the two together
+    (the same two each), dense (an adaptive K = 8 matching at smollm's row);
+    ``dequant_mix`` gossip and mass at K = 8 (smollm's row) and K = 100 (the
+    2NN's), on the column tile, and at K = 129 on the gather (the 2NN's row;
+    gossip's also on the scalar path, leaves off whole vectors);
+    ``segment_mix`` gossip and mass at K = 100 (the tile) and on a K = 4096
+    ring (the gather), at the 2NN's row."""
+    from repro_torch.core import graph as graph_lib
+    from repro_torch.kernels.consensus_mix import dequant
+
+    ring = lambda k: graph_lib.build_graph("ring", k)  # noqa: E731
+    complete = lambda k: graph_lib.build_graph("complete", k)  # noqa: E731
+    directed = graph_lib.build_graph("directed_ring", 8)
+    sizes100 = np.full(100, 600)
+    gather_k = dequant.TILE_MAX_PEERS + 1  # the fewest peers on dequant_mix's gather
+    sizes_gather = np.arange(1, gather_k + 1) * 5
+    lm8 = lm_row  # smollm-135m's bf16 row
+    return {
+        "consensus_mix": [
+            bf16_mode_case(card, "consensus_mix", "mass", "k8_directed_ring_lm_row", directed,
+                           lm8, want="gather"),
+            bf16_mode_case(card, "consensus_mix", "mass", "k100_mlp_row", complete(100),
+                           mlp_row, sizes=sizes100, want="tile", seed=1),
+            bf16_mode_case(card, "consensus_mix", "snapshot", "k8_ring_lm_row", ring(8), lm8,
+                           want="gather", seed=2),
+            bf16_mode_case(card, "consensus_mix", "snapshot", "k100_mlp_row", complete(100),
+                           mlp_row, sizes=sizes100, want="tile", seed=3),
+            bf16_mode_case(card, "consensus_mix", "mass_snapshot", "k8_directed_ring_lm_row",
+                           directed, lm8, want="gather", seed=4),
+            bf16_mode_case(card, "consensus_mix", "mass_snapshot", "k100_mlp_row",
+                           complete(100), mlp_row, sizes=sizes100, want="tile", seed=17),
+            bf16_mode_case(card, "consensus_mix", "dense", "k8_matching_lm_row", 8, lm8,
+                           want="gather", seed=5),
+        ],
+        "dequant_mix": [
+            bf16_mode_case(card, "dequant_mix", "gossip", "k8_ring_lm_row", ring(8), lm8,
+                           want="tile", seed=6),
+            bf16_mode_case(card, "dequant_mix", "mass", "k8_directed_ring_lm_row", directed,
+                           lm8, want="tile", seed=7),
+            bf16_mode_case(card, "dequant_mix", "gossip", "k100_mlp_row", complete(100),
+                           mlp_row, sizes=sizes100, want="tile", seed=8),
+            bf16_mode_case(card, "dequant_mix", "mass", "k100_mlp_row", complete(100),
+                           mlp_row, sizes=sizes100, want="tile", seed=9),
+            bf16_mode_case(card, "dequant_mix", "gossip", f"gather_k{gather_k}_mlp_row",
+                           complete(gather_k), mlp_row, sizes=sizes_gather, want="gather",
+                           seed=14),
+            bf16_mode_case(card, "dequant_mix", "mass", f"gather_k{gather_k}_mlp_row",
+                           complete(gather_k), mlp_row, sizes=sizes_gather, want="gather",
+                           seed=15),
+            bf16_mode_case(card, "dequant_mix", "gossip", f"gather_k{gather_k}_odd_leaves",
+                           complete(gather_k), 50000, sizes=sizes_gather, leaves=5,
+                           scalar=True, want="gather", seed=16),
+        ],
+        "segment_mix": [
+            bf16_mode_case(card, "segment_mix", "gossip", "k100_mlp_row", complete(100),
+                           mlp_row, sizes=sizes100, want="tile", seed=10),
+            bf16_mode_case(card, "segment_mix", "mass", "k100_mlp_row", complete(100),
+                           mlp_row, sizes=sizes100, want="tile", seed=11),
+            bf16_mode_case(card, "segment_mix", "gossip", f"k{LARGE_K}_ring_mlp_row",
+                           ring(LARGE_K), mlp_row, want="gather", seed=12),
+            bf16_mode_case(card, "segment_mix", "mass", f"k{LARGE_K}_directed_ring_mlp_row",
+                           graph_lib.build_graph("directed_ring", LARGE_K), mlp_row,
+                           want="gather", seed=13),
+        ],
+    }
+
+
 def dequant_case(card, name, graph, sizes, leaf_offsets, n, *, dmax=None, zero_beta_rows=(),
                  zero_scale_leaves=(), payload=True, want_vector=None, want_path="tile",
                  seed=0, operands=None):
@@ -859,6 +1082,8 @@ def build_kernels() -> None:
 def _print_case(kernel: str, c: dict) -> None:
     path = (f"path={c['path']} vector={c['vector_path']} " if "path" in c else
             f"route={c['route']} vector={c['vector_path']} " if "route" in c else "")
+    if "mode" in c:
+        path = f"mode={c['mode']} {c.get('dtype', '')} " + path
     copy = f"copy of x={c['copy_ms']:.4f} ms " if "copy_ms" in c else ""
     print(f"{kernel} {c['case']}: K={c['K']} D={c['D']} N={c['N']} {path}"
           f"max_abs_err={c['max_abs_err']:.3g} kernel={c['ms']:.4f} ms "
@@ -1975,6 +2200,10 @@ def flash_bwd_cases(card: Card) -> list[dict]:
                        seed=13),
         flash_bwd_case(card, "noncausal_d64", 2, 1000, 8, 2, 64, causal=False, want_route=wg,
                        seed=14),
+        # seamless-m4t-medium's training: the encoder's non-causal
+        # self-attention, K = 2 peers x batch 4, 256 frames
+        flash_bwd_case(card, "seamless_trained_encoder_noncausal", 8, 256, 16, 16, 64,
+                       causal=False, timed=True, want_route=wg, seed=20),
         flash_bwd_case(card, "group1_d128", 2, 1024, 8, 8, 128, want_route=wg, seed=15),
         flash_bwd_case(card, "group16_d128", 1, 1024, 64, 4, 128, want_route=wg, seed=16),
         flash_bwd_case(card, "transposed_bhsd_d64", 2, 1000, 9, 3, 64, transposed=True,
@@ -2488,6 +2717,8 @@ def check_kernels(card: Card) -> dict[str, list[dict]]:
     cases["consensus_mix snapshot"] = snapshot_cases(card)
     for kernel, kcases in dense_cases(card).items():
         cases[f"{kernel} dense"] = kcases
+    for kernel, kcases in bf16_mode_cases(card, bf16_row(lm_size), bf16_row(layout.size)).items():
+        cases[f"{kernel} bf16 modes"] = kcases
     for kernel, kcases in cases.items():
         for c in kcases:
             if kernel == "wkv6":
@@ -2928,6 +3159,9 @@ def lm_step_launches(cfg) -> dict:
         apps = cfg.num_layers // cfg.shared_block_period
         return {"ssd": cfg.num_layers, "ssd_bwd": cfg.num_layers, "flash_attention": apps,
                 "flash_attention_bwd": apps}
+    if cfg.family == "encdec":  # the encoder's self-attention, then the decoder's
+        layers = cfg.encoder_layers + cfg.num_layers
+        return {"flash_attention": layers, "flash_attention_bwd": layers}
     return {"flash_attention": cfg.num_layers, "flash_attention_bwd": cfg.num_layers}
 
 
@@ -3242,6 +3476,406 @@ def drive_run_p2p_lm_reduced(card: Card, arch: str) -> dict:
     print(f"run_p2p_lm {arch} reduced ({card.line}): {json.dumps(out)} in {seconds:.2f} s, "
           f"launches {launches}", flush=True)
     return {"launches": {key: n for key, n in launches.items() if n}, "seconds": seconds, **out}
+
+
+# the scan driver on the LM round's batch trees: C rounds a call, CHUNKS calls
+LM_SCAN_CHUNK = 2
+LM_SCAN_CHUNKS = 2
+# the mixed rwkv6-7b task at its published widths and a depth cut to fit a
+# captured round beside the python driver's final state (PERF.md)
+LM_MIXED_ARCH, LM_MIXED_LAYERS = "rwkv6-7b", 2
+# the modes a bf16 LM now runs in: (label, P2PConfig fields); push-sum on a
+# directed ring, the qint8 wire, staleness bound 2 with straggling peers
+LM_MODES = (("push_sum", dict(protocol="push_sum", topology="directed_ring")),
+            ("qint8", dict(compressor="qint8")),
+            ("staleness2", dict(staleness_bound=2, steps_profile="straggler")))
+LM_MODE_ROUNDS = 2
+
+
+def lm_setup(arch: str, layers: int | None, peers: int, steps: int, **mode):
+    """A bf16 LM task at published widths (depth cut to ``layers`` where
+    given) and ``run_p2p_lm``'s P2P configuration with ``mode``'s fields:
+    (cfg, task, pcfg, init types)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import task as task_lib
+    from repro_torch.launch import train
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    task, init_types = recording_init(task_lib.from_model(build_model(cfg)))
+    pcfg = dataclasses.replace(train.lm_config(
+        num_peers=peers, local_steps=steps, algorithm="p2pl_affinity", lr=1e-2, momentum=0.5,
+        eta_d=0.25), **mode)
+    return cfg, task, pcfg, init_types
+
+
+def lm_chunk(rng, cfg, rounds: int, peers: int, steps: int, batch: int, seq: int) -> dict:
+    """``rounds`` rounds of ``run_p2p_lm``'s token draws as the reference's
+    batch tree on the card: {"tokens", "labels"}, (C, T, K, B, S) int64."""
+    from repro_torch.launch import train
+
+    draws = [train.lm_token_batches(rng, cfg.vocab_size, num_peers=peers, local_steps=steps,
+                                    batch=batch, seq=seq) for _ in range(rounds)]
+    return {name: torch.as_tensor(np.stack([d[i] for d in draws]), dtype=torch.int64,
+                                  device="cuda") for i, name in enumerate(("tokens", "labels"))}
+
+
+def lm_round_launches(cfg, pcfg, layout) -> dict:
+    """The launches a round of ``pcfg`` makes on ``cfg``: its loss's kernels
+    T times each way, and its consensus kernel once a block a step (a
+    compressed wire's ``dequant_mix``, else ``consensus_mix``)."""
+    counters = launch_counters()
+    want = {key: 0 for key in counters} | {key: n * pcfg.local_steps for key, n in
+                                           lm_step_launches(cfg).items()}
+    mix = "dequant_mix" if pcfg.compressor != "none" else "consensus_mix"
+    want[mix] = pcfg.consensus_steps * len(layout.blocks)
+    return want
+
+
+def drive_p2p_lm_scan(card: Card, label: str, arch: str, layers: int | None, peers: int,
+                      batch: int, seq: int, steps: int) -> dict:
+    """The scan driver on the reference's batch trees at published widths:
+    one initial state and the same (C, T, K, B, S) token chunks through
+    ``make_round_fn`` (C python-driver calls a chunk) and through
+    ``make_scan_driver`` (one call a chunk: the first round of the first
+    call eager, then the capture, every later round a replay of the LM round
+    as one CUDA graph); the final states (every carried leaf, both blocks of
+    a mixed task) and the losses must be equal bit for bit.  Launches are
+    counted a chunk and held to ``lm_round_launches`` C times; s/round is
+    timed in turns (python chunks, scan chunks, one more python round after
+    the driver and its graph are freed), with the capture's seconds, each
+    driver's peak memory and one replayed chunk under torch.profiler."""
+    from repro_torch import pytree
+    from repro_torch.core import p2p
+
+    dev = torch.device("cuda")
+    cfg, task, pcfg, init_types = lm_setup(arch, layers, peers, steps)
+    layout = p2p.ParamLayout.of(task)
+    torch.cuda.empty_cache()
+    state0 = p2p.init_state(task, pcfg, seed=0, device=dev)
+    check_leaf_types(label, init_types, layout, p2p.param_blocks(state0))
+    rng = np.random.default_rng(0)
+    chunks = [lm_chunk(rng, cfg, LM_SCAN_CHUNK, peers, steps, batch, seq)
+              for _ in range(LM_SCAN_CHUNKS)]
+    want = lm_round_launches(cfg, pcfg, layout)
+    counters = launch_counters()
+    depth = "" if layers is None else f" {layers} layers,"
+    print(f"main path: {label}: {arch} full width,{depth} K={peers} batch {batch} seq {seq} "
+          f"T={steps}, {LM_SCAN_CHUNKS} chunks of C={LM_SCAN_CHUNK} rounds through both "
+          f"drivers", flush=True)
+
+    def python_rounds(state, chunk):
+        losses, seconds = [], []
+        for c in range(LM_SCAN_CHUNK):
+            for counter in counters.values():
+                counter.reset()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            state, step_losses = round_fn(state, pytree.tree_map(lambda x: x[c], chunk))[1:]
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - start)
+            launches = {key: n.count for key, n in counters.items()}
+            check(launches == want, f"{label} python round launched {launches}, want {want}")
+            losses.append(step_losses)
+        return state, torch.stack(losses), seconds
+
+    round_fn = p2p.make_round_fn(task, pcfg, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    py = p2p.with_leaves(state0, [t.clone() for t in p2p.state_leaves(state0)], 0)
+    py_losses, py_seconds = [], []
+    for chunk in chunks:
+        py, losses, seconds = python_rounds(py, chunk)
+        py_losses.append(losses)
+        py_seconds += seconds
+    torch.cuda.synchronize()
+    py_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    drive = p2p.make_scan_driver(task, pcfg, device=dev, donate=True)
+    scan, scan_losses, scan_seconds = state0, [], []
+    del state0
+    for chunk in chunks:
+        for counter in counters.values():
+            counter.reset()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        scan, losses = drive(scan, chunk)[1:]
+        torch.cuda.synchronize()
+        scan_seconds.append(time.perf_counter() - start)
+        launches = {key: n.count for key, n in counters.items()}
+        want_chunk = {key: n * LM_SCAN_CHUNK for key, n in want.items()}
+        check(launches == want_chunk, f"{label} scan chunk launched {launches}, want "
+              f"{want_chunk}")
+        scan_losses.append(losses)
+    scan_peak = torch.cuda.max_memory_allocated() / 1e9
+    capture_s = drive.capture_seconds
+    py_leaves, scan_leaves = p2p.state_leaves(py), p2p.state_leaves(scan)
+    check(len(py_leaves) == len(scan_leaves) and scan.round_idx == py.round_idx,
+          f"{label}: the drivers' states have the same leaves and round")
+    for i, (a, b) in enumerate(zip(py_leaves, scan_leaves)):
+        check(a.dtype == b.dtype and torch.equal(a, b), f"{label}: leaf {i} bit for bit")
+    check(all(torch.equal(a, b) for a, b in zip(py_losses, scan_losses)),
+          f"{label}: losses bit for bit")
+    check(all(bool(torch.isfinite(x).all()) for x in py_losses), f"{label}: losses finite")
+    replay_profile = profile_once(lambda: drive(scan, chunks[-1]), category=lm_kernel_category,
+                                  n_top=8)
+    del py, py_leaves, drive
+    torch.cuda.empty_cache()
+    for counter in counters.values():
+        counter.reset()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    scan = round_fn(scan, pytree.tree_map(lambda x: x[0], chunks[0]))[1]
+    torch.cuda.synchronize()
+    py_again_s = time.perf_counter() - start
+    replay_s = scan_seconds[-1] / LM_SCAN_CHUNK  # the last chunk: replays only
+    first_rest_s = (scan_seconds[0] - capture_s) / max(LM_SCAN_CHUNK - 1, 1)
+    state_gb = sum(t.numel() * t.element_size() for t in scan_leaves) / 1e9
+    del scan, scan_leaves
+    torch.cuda.empty_cache()
+    # the launches counted and checked: both drivers' rounds (the profiled
+    # chunk and the last python round are not counted)
+    out = {"launches": {key: 2 * n * LM_SCAN_CHUNK * LM_SCAN_CHUNKS for key, n in want.items()
+                        if n},
+           "python_s_per_round": py_seconds, "python_again_s": py_again_s,
+           "scan_s_per_chunk": scan_seconds, "scan_replay_s_per_round": replay_s,
+           "scan_first_chunk_rest_s_per_round": first_rest_s, "capture_s": capture_s,
+           "python_peak_gb": py_peak, "scan_peak_gb": scan_peak, "state_gb": state_gb,
+           "losses": [float(x.float().mean()) for x in torch.cat(py_losses)],
+           "replay_profile": replay_profile, "layers": cfg.num_layers}
+    print(f"{label} ({card.line}): python driver s/round {py_seconds} (and {py_again_s:.4f} "
+          f"after the scan driver), peak {py_peak:.3f} GB; scan driver s/chunk of C="
+          f"{LM_SCAN_CHUNK} {scan_seconds} (warm-up and capture {capture_s:.3f} s; replays "
+          f"{replay_s:.4f} s/round), peak {scan_peak:.3f} GB; state {state_gb:.3f} GB; bits "
+          f"equal; replayed chunk under torch.profiler: wall {replay_profile['wall_s']:.4f} s, "
+          f"device busy {replay_profile['device_busy_s']:.4f} s (share "
+          f"{replay_profile['device_busy_share']:.4f}), {replay_profile['kernels']} kernels, "
+          f"by category {json.dumps(replay_profile['by_category_launches_ms'])}", flush=True)
+    return out
+
+
+def drive_lm_mode(card: Card, label: str, arch: str, layers: int | None, peers: int,
+                  batch: int, seq: int, steps: int, rounds: int, **mode) -> dict:
+    """``rounds`` rounds of a bf16 LM at published widths in a consensus mode
+    (``mode``: push-sum, a compressed wire, bounded staleness, adaptive
+    selection) through ``make_round_fn``: launches counted a round and held
+    to ``lm_round_launches`` (the mode's kernel once a block a step: a mixed
+    task's float32 block through the float32 kernel, its bf16 block through
+    the bf16 storage mode), no plain version called, every leaf in its type,
+    the losses, parameters and the mode's buffers finite, push-sum's mass
+    summing to K."""
+    from repro_torch.core import p2p
+
+    dev = torch.device("cuda")
+    cfg, task, pcfg, init_types = lm_setup(arch, layers, peers, steps, **mode)
+    layout = p2p.ParamLayout.of(task)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    state = p2p.init_state(task, pcfg, seed=0, device=dev)
+    round_fn = p2p.make_round_fn(task, pcfg, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - start
+    want = lm_round_launches(cfg, pcfg, layout)
+    counters = launch_counters()
+    rng = np.random.default_rng(0)
+    chunk = lm_chunk(rng, cfg, rounds, peers, steps, batch, seq)
+    depth = "" if layers is None else f" {layers} layers,"
+    print(f"main path: {label}: {arch} full width,{depth} K={peers} batch {batch} seq {seq} "
+          f"T={steps}, {rounds} rounds, {mode}", flush=True)
+    seconds, losses, total = [], [], dict.fromkeys(counters, 0)
+    with count_plain_calls() as plain_calls:
+        for r in range(rounds):
+            for counter in counters.values():
+                counter.reset()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            state, step_losses = round_fn(state, {k: v[r] for k, v in chunk.items()})[1:]
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - start)
+            launches = {key: c.count for key, c in counters.items()}
+            check(launches == want, f"{label} round {r} launched {launches}, want {want}")
+            for key, n in launches.items():
+                total[key] += n
+            losses.append(float(step_losses.float().mean()))
+    check(not plain_calls, f"{label} called plain versions {plain_calls}")
+    check(all(math.isfinite(v) for v in losses), f"{label} losses {losses}")
+    check_leaf_types(label, init_types, layout, p2p.param_blocks(state))
+    for i, leaf in enumerate(p2p.state_leaves(state)):
+        if leaf.is_floating_point():
+            check(bool(torch.isfinite(leaf).all()), f"{label}: state leaf {i} finite")
+    if pcfg.protocol == "push_sum":
+        mass = state.protocol.mass
+        check(abs(float(mass.double().sum()) - peers) <= 1e-5 * peers, f"{label}: sum y = K")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del state, round_fn
+    torch.cuda.empty_cache()
+    print(f"{label} ({card.line}): set-up {setup_s:.2f} s, s/round {seconds}, losses {losses}, "
+          f"launches a round {({k: n for k, n in want.items() if n})}, peak {peak_gb:.3f} GB",
+          flush=True)
+    return {"launches": {key: n for key, n in total.items() if n}, "seconds": seconds,
+            "losses": losses, "peak_gb": peak_gb, "mode": next(iter(mode)) if mode else "gossip",
+            "bf16_mode": True, "layers": cfg.num_layers}
+
+
+# the encoder-decoder at full size: K = 2, batch 4, a 1024-token sequence split
+# as the reference's split_encdec_seq (256 frames, 768 tokens), T = 4
+ENCDEC_ARCH, ENCDEC_PEERS, ENCDEC_BATCH, ENCDEC_SEQ, ENCDEC_ROUNDS = (
+    "seamless-m4t-medium", 2, 4, 1024, 2)
+# the vlm, one round with its image patches: published widths, 12 of its 24
+# layers (PERF.md), K = 2, batch 2, 256 patches and 768 tokens, T = 2
+VLM_ARCH, VLM_LAYERS = "internvl2-2b", 12
+
+
+@contextlib.contextmanager
+def flash_calls_by_mask():
+    """While active, counts ``flash_attention``'s forward and backward
+    launches by their mask: yields a dict ("forward" or "backward",
+    "causal" or "non-causal") -> launches."""
+    from repro_torch.kernels.flash_attention import ops
+
+    calls: dict[str, int] = {}
+    real = {"launch": ops.launch, "launch_bwd": ops.launch_bwd}
+
+    def counted(name, way):
+        def call(*args, **kwargs):
+            key = f"{way} {'causal' if kwargs['causal'] else 'non-causal'}"
+            calls[key] = calls.get(key, 0) + 1
+            return real[name](*args, **kwargs)
+        return call
+
+    ops.launch, ops.launch_bwd = counted("launch", "forward"), counted("launch_bwd", "backward")
+    try:
+        yield calls
+    finally:
+        ops.launch, ops.launch_bwd = real["launch"], real["launch_bwd"]
+
+
+def drive_p2p_batch_tree(card: Card, label: str, arch: str, layers: int | None, peers: int,
+                         batch: int, seq: int, steps: int, rounds: int) -> dict:
+    """P2P training of a model whose batch carries more than tokens (the
+    encoder-decoder's ``frames``, the vlm's ``patches``; bf16, published
+    widths, ``run_p2p_lm``'s step sizes) through ``from_model`` on the
+    registry's batch tree (``Model.make_batch``'s keys, stacked (T, K, B,
+    ...)): the first local step's losses and gradients against the same step
+    with the plain backwards (LM_GRAD_TOL), its ``flash_attention`` launches
+    by mask, then ``rounds`` rounds, launches held to ``lm_round_launches``,
+    s/round, the peak."""
+    from repro_torch.core import p2p
+    from repro_torch.models.registry import build_model
+
+    dev = torch.device("cuda")
+    cfg, task, pcfg, init_types = lm_setup(arch, layers, peers, steps)
+    model = build_model(cfg)
+    layout = p2p.ParamLayout.of(task)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    state = p2p.init_state(task, pcfg, seed=0, device=dev)
+    round_fn = p2p.make_round_fn(task, pcfg, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - start
+    check_leaf_types(label, init_types, layout, p2p.param_blocks(state))
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def round_batches():  # the registry's batch tree, (T, K, B, ...) a leaf
+        draws = [[model.make_batch(gen, batch, seq) for _ in range(peers)] for _ in range(steps)]
+        return {key: torch.stack([torch.stack([d[key] for d in step]) for step in draws])
+                for key in draws[0][0]}
+
+    batches = round_batches()
+    shapes = {key: tuple(leaf.shape[3:]) for key, leaf in batches.items()}
+    print(f"main path: {label}: {arch} full width{'' if layers is None else f', {layers} layers'}"
+          f", K={peers} batch {batch} seq {seq} ({shapes}), T={steps}, {rounds} rounds",
+          flush=True)
+    counters = launch_counters()
+    step0 = {key: leaf[0] for key, leaf in batches.items()}
+    for counter in counters.values():
+        counter.reset()
+    with flash_calls_by_mask() as by_mask:
+        losses_k, grads_k = lm_step_grads(task, layout, p2p.param_blocks(state), step0)
+    torch.cuda.synchronize()
+    step_launches = {key: c.count for key, c in counters.items() if c.count}
+    with plain_backwards():
+        losses_p, grads_p = lm_step_grads(task, layout, p2p.param_blocks(state), step0)
+    check(torch.equal(losses_k, losses_p), f"{label}: the step's losses equal")
+    grad_check = {"losses": losses_k.tolist(), **compare_grads(label, layout, grads_k, grads_p)}
+    del grads_k, grads_p
+    check(grad_check["rel_norm_err"] < LM_GRAD_REL_NORM,
+          f"{label} gradients: relative norm error {grad_check['rel_norm_err']}")
+    want = lm_round_launches(cfg, pcfg, layout)
+    check(step_launches == {k: n // steps for k, n in want.items() if n and "attention" in k},
+          f"{label}: the step launched {step_launches}")
+    seconds, losses, total = [], [], dict.fromkeys(counters, 0)
+    with count_plain_calls() as plain_calls:
+        for r in range(rounds):
+            if r:
+                batches = round_batches()
+            for counter in counters.values():
+                counter.reset()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            state, step_losses = round_fn(state, batches)[1:]
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - start)
+            launches = {key: c.count for key, c in counters.items()}
+            check(launches == want, f"{label} round {r} launched {launches}, want {want}")
+            for key, n in launches.items():
+                total[key] += n
+            losses.append(float(step_losses.float().mean()))
+    check(not plain_calls, f"{label} called plain versions {plain_calls}")
+    check(all(math.isfinite(v) for v in losses), f"{label} losses {losses}")
+    for leaf in p2p.param_blocks(state):
+        check(bool(torch.isfinite(leaf).all()), f"{label}: parameters finite")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    state_gb = 4 * sum(b.numel() * b.element_size() for b in p2p.param_blocks(state)) / 1e9
+    del state, round_fn, batches, step0
+    torch.cuda.empty_cache()
+    print(f"{label} ({card.line}): {layout.size} parameters a peer, set-up {setup_s:.2f} s; first "
+          f"step: losses {grad_check['losses']}, gradients against the plain backwards: relative "
+          f"norm error {grad_check['rel_norm_err']:.3g}, worst leaf "
+          f"{grad_check['leaf_rel_norm_err_max']:.3g}; flash_attention launches a step by mask "
+          f"{by_mask}; s/round {seconds}, losses {losses}, peak {peak_gb:.3f} GB against "
+          f"{state_gb:.3f} GB of state", flush=True)
+    grad_check.pop("leaf_rel_norm_err")
+    return {"launches": {key: n for key, n in total.items() if n}, "seconds": seconds,
+            "losses": losses, "peak_gb": peak_gb, "state_gb": state_gb, "setup_s": setup_s,
+            "grad_check": grad_check, "flash_launches_by_mask_a_step": by_mask,
+            "layers": cfg.num_layers, "params_per_peer": layout.size}
+
+
+def drive_lm_trees_and_modes(card: Card) -> dict:
+    """The LM paths of batch trees and consensus modes on the card: the scan driver on smollm-135m's token
+    batches (full width and depth, K = 4, batch 4, seq 1024, T = 4) and on
+    the mixed rwkv6-7b task (LM_MIXED_LAYERS layers, K = 2, batch 1, T = 2);
+    smollm-135m (K = 4) and the mixed rwkv6-7b (K = 2) in each of LM_MODES,
+    rwkv6-7b also under adaptive selection; the encoder-decoder's and the vlm's P2P
+    training on their batch trees.  Returns the paths by label."""
+    paths = {}
+    start = time.perf_counter()
+    paths["p2p_lm_scan_smollm_full"] = drive_p2p_lm_scan(
+        card, "p2p_lm_scan_smollm_full", LM_ARCH, None, 4, 4, 1024, 4)
+    paths["p2p_lm_scan_rwkv6_7b_mixed"] = drive_p2p_lm_scan(
+        card, "p2p_lm_scan_rwkv6_7b_mixed", LM_MIXED_ARCH, LM_MIXED_LAYERS, 2, 1, 1024, 2)
+    for name, mode in LM_MODES:
+        paths[f"p2p_lm_{name}_smollm_full"] = drive_lm_mode(
+            card, f"p2p_lm_{name}_smollm_full", LM_ARCH, None, 4, 4, 1024, 4, LM_MODE_ROUNDS,
+            **mode)
+    for name, mode in (*LM_MODES, ("adaptive", dict(schedule="adaptive"))):
+        paths[f"p2p_lm_{name}_rwkv6_7b_mixed"] = drive_lm_mode(
+            card, f"p2p_lm_{name}_rwkv6_7b_mixed", LM_MIXED_ARCH, LM_MIXED_LAYERS, 2, 1, 1024, 2,
+            LM_MODE_ROUNDS, **mode)
+    paths["p2p_encdec_seamless_full"] = drive_p2p_batch_tree(
+        card, "p2p_encdec_seamless_full", ENCDEC_ARCH, None, ENCDEC_PEERS, ENCDEC_BATCH,
+        ENCDEC_SEQ, 4, ENCDEC_ROUNDS)
+    paths["p2p_vlm_internvl2"] = drive_p2p_batch_tree(
+        card, "p2p_vlm_internvl2", VLM_ARCH, VLM_LAYERS, 2, 2, 1024, 2, 1)
+    print(f"LM tree and mode paths: {time.perf_counter() - start:.1f} s ({card.line})",
+          flush=True)
+    return paths
 
 
 # a bf16 MoE decoder, reduced: its float32 router beside its bf16 leaves (the
@@ -4526,6 +5160,10 @@ def main() -> int:
         label = "run_p2p_lm_reduced" if arch == LM_ARCH else f"run_p2p_lm_reduced_{arch}"
         paths[label] = drive_run_p2p_lm_reduced(card, arch)
     paths[f"p2p_lm_reduced_bf16_{LM_MOE_ARCH}"] = drive_p2p_lm_reduced_bf16(card, LM_MOE_ARCH)
+    # this slice: the LM round as one CUDA graph (the scan driver on token
+    # batch trees), bf16 and mixed-type LMs in every consensus mode, the
+    # encoder-decoder's and the vlm's training on their batch trees
+    paths |= drive_lm_trees_and_modes(card)
     # the reference's public API: the consensus wrappers on the 2NN, then
     # smollm-135m at full width through make_train_step / make_consensus_step
     paths["drive_step_api"] = drive_step_api(card)
@@ -4765,6 +5403,17 @@ def main() -> int:
             mass_entry["k100_shape"] = at_k100(cases[kernel], "iid_k100, one-slice segment runtime")
             mass_entry["mass_mode"]["k100_shape"] = at_k100(
                 cases[f"{kernel} mass"], "iid_k100 --protocol push_sum, one-slice segment runtime")
+        if f"{kernel} bf16 modes" in cases:  # bf16 storage in every other mode
+            modes = cases[f"{kernel} bf16 modes"]
+            mode_paths = {name: n for name, n in by_path.items() if paths[name].get("bf16_mode")}
+            mass_entry["bf16_storage_modes"] = {
+                "launches": sum(mode_paths.values()), "launches_by_path": mode_paths,
+                "max_abs_err": max(c["max_abs_err"] for c in modes),
+                **{key: modes[0][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                  "library_ms", "bound_card")},
+                "shape": f"{modes[0]['case']} ({modes[0]['mode']}): K={modes[0]['K']} "
+                         f"D={modes[0]['D']} N={modes[0]['N']} bfloat16",
+                "shapes": modes}
         if f"{kernel} bf16" in cases:  # the LM round's bf16 parameters (gossip)
             bf16 = cases[f"{kernel} bf16"]
             bf16_main = bf16[0]  # smollm-135m's row at K = 4
@@ -4823,8 +5472,13 @@ def main() -> int:
                 "prefill, group 16)", path_launches("qwen3-moe"))
             mass_entry["internvl2_shape"] = served(
                 "internvl2_group2", "B=4 S=1024 H=16 Kh=8 D=128 causal bfloat16 (internvl2's "
-                "prefill: 256 patches and 768 tokens, group 2)", path_launches("internvl2"))
-            half = path_launches("seamless") // 2  # 12 encoder and 12 decoder calls a prefill
+                "prefill: 256 patches and 768 tokens, group 2)",
+                path_launches("serve_batch_internvl2"))
+            mass_entry["encdec_training"] = {
+                "launches": paths["p2p_encdec_seamless_full"]["launches"][kernel],
+                "launches_by_mask_a_step":
+                    paths["p2p_encdec_seamless_full"]["flash_launches_by_mask_a_step"]}
+            half = path_launches("serve_batch_seamless") // 2  # 12 encoder, 12 decoder a prefill
             mass_entry["seamless_shapes"] = {
                 "encoder": served("seamless_encoder_noncausal", "B=4 S=256 H=Kh=16 D=64 "
                                   "non-causal bfloat16 (seamless-m4t's encoder)", half),

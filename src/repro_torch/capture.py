@@ -10,7 +10,11 @@ buffers between steps.  ``capture(fn, device)`` runs ``fn`` eagerly
 every one-time call outside the capture: the hand kernels' shared-memory
 attributes and occupancy queries, cuBLAS's workspace for that stream,
 autograd's first use), then records one more call under ``torch.cuda.graph``
-on the same stream, which launches nothing.  ``replay()`` relaunches the
+on the same stream, which launches nothing.  Between the two the allocator's
+cached free blocks are released (``torch.cuda.empty_cache``): the graph
+records into a private pool, which cannot reuse them, so a body whose
+warm-up leaves a round's activations cached (an LM round: tens of GB) would
+otherwise hold them twice.  ``replay()`` relaunches the
 recorded work on the current stream and returns the recorded call's outputs;
 their memory belongs to the graph, so the next replay overwrites them.
 
@@ -62,6 +66,8 @@ class Captured:
         with torch.cuda.stream(stream):
             for _ in range(warmup):
                 self.warmup_outputs = fn()
+        stream.synchronize()
+        torch.cuda.empty_cache()  # the warm-up's freed blocks: the graph's pool is its own
         before = [c.count for c in LaunchCounter.instances]
         graph = torch.cuda.CUDAGraph()
         # no garbage collection while recording: a dead reference cycle that

@@ -158,13 +158,15 @@ class TopKCompressor(Compressor):
     def ef_flat(self, x: torch.Tensor, est: torch.Tensor, layout) -> FlatPayload:
         """Advance a copy of ``est`` by each leaf's payload: ``est + D(C(x - est))``,
         with the top-k indices distinct per row so the scatter-add adds each
-        kept value once."""
+        kept value once.  A bf16 stack takes the difference and the sum in
+        bf16, as the reference's ``ef_compress_leaf`` does (the kept values
+        are the bf16 difference's own, so the cast back is exact)."""
         new = est.clone()
         new_leaves = layout.views(new)
         for name, diff in layout.views(x - est).items():
             payload = self.compress(diff)
             new_leaves[name].view(x.shape[0], -1).scatter_add_(
-                1, payload.indices, payload.values
+                1, payload.indices, payload.values.to(new.dtype)
             )
         return FlatPayload(est=new, q=None, scale=None)
 

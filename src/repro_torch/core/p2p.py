@@ -23,8 +23,12 @@ task's order, each row zero-padded to 16 bytes, 4 float32 or 8 bf16
 elements, so rows stay 16-byte aligned).  A bf16 model's float32 leaves
 (rwkv6's decay base and bonus, Mamba2's dt bias, A_log and D, a MoE router)
 sit in a second (K, row) float32 block of every such buffer
-(``P2PState.wide``), updated and mixed like the first, each in its own
-type.  The local phase reads the leaves as (K, ...) views of that
+(``P2PState.wide``: params, momentum, d, b, and a compressed wire's estimates
+and bounded staleness's snapshots where the round carries them), updated and
+mixed like the first, each in its own type, one kernel launch a block a
+consensus step; the round's protocol state (push-sum's mass), snapshot ages
+and operands are shared by both blocks.  The local phase reads the leaves
+as (K, ...) views of that
 buffer and runs each layer as one batched matmul over the peers; one backward
 of the summed per-peer losses gives every peer its own gradient, and the SGD
 update is a few elementwise passes over the whole buffer.  The consensus
@@ -69,10 +73,11 @@ time-varying schedules and adaptive matchings, uncompressed or compressed,
 synchronous or asynchronous rounds, every registered task (the 2NN and
 ``rwkv6_seqmnist``; a registry task is refused by the hierarchical runtime,
 as in the reference) and a registry language model's task
-(``task.from_model``; in bf16 the gossip step only: the bf16 mass, snapshot
-and dense modes raise, and with float32 leaves beside the bf16 ones the
-compressed wire and the scan driver too), the vmap and one-slice
-hierarchical runtimes.  Any
+(``task.from_model``, on the reference's batch tree: ``tokens``, ``labels``
+and a vlm's ``patches`` or an encoder-decoder's ``frames``; in float32 or
+bf16, with a bf16 model's float32 leaves in their float32 block, under every
+protocol, wire, delivery rule and schedule above and through both round
+drivers), the vmap and one-slice hierarchical runtimes.  Any
 other configuration raises ``NotImplementedError`` naming the ROADMAP.md
 item that ports it.
 """
@@ -89,12 +94,14 @@ import torch
 
 from repro_torch import capture as capture_lib
 from repro_torch import compression as compression_lib
+from repro_torch import pytree
 from repro_torch.core import consensus as consensus_lib
 from repro_torch.core import features as features_lib
 from repro_torch.core import graph as graph_lib
 from repro_torch.core import prng
 from repro_torch.core import protocols as protocols_lib
 from repro_torch.core import task as task_lib
+from repro_torch.data import pipeline
 from repro_torch.device import resolve_device
 from repro_torch.core.protocols import SparseRoundOps
 from repro_torch.kernels.consensus_mix.ops import (complete_candidates, dense_operands,
@@ -366,6 +373,15 @@ class ParamLayout:
         ``size`` (the columns from ``size`` to ``row`` are padding)."""
         return (*self.offsets.values(), self.size)
 
+    @property
+    def blocks(self) -> list["ParamLayout"]:
+        """One single-block layout a buffer of the state (``views``' order):
+        the layout itself for a task of one type, else the block of the
+        task's type and the float32 block."""
+        if self.wide is None:
+            return [self]
+        return [dataclasses.replace(self, wide=None, names=()), self.wide]
+
     def dtype_of(self, name: str) -> torch.dtype:
         """The type of leaf ``name``: its block's."""
         return self.wide.dtype if self.wide is not None and name in self.wide.shapes \
@@ -408,10 +424,12 @@ class StalenessState(NamedTuple):
     """The bounded-staleness delivery buffer (``staleness_bound > 0``): one
     snapshot per sender, which every receiver of that sender mixes.
 
-    ``published`` (K, row) float32: each sender's last published
-    parameters, the source of every off-diagonal consensus term (the self
-    term reads the live parameters).  ``age`` (K,) int32: rounds since each
-    snapshot was taken, never above ``staleness_bound`` after a round.
+    ``published`` (K, row) of the parameters' type: each sender's last
+    published parameters, the source of every off-diagonal consensus term
+    (the self term reads the live parameters); a mixed task's float32
+    block keeps its own in ``WideState.published``.  ``age`` (K,) int32:
+    rounds since each snapshot was taken, never above ``staleness_bound``
+    after a round.
     """
 
     published: torch.Tensor
@@ -442,12 +460,17 @@ class AdaptiveRoundOps(NamedTuple):
 
 class WideState(NamedTuple):
     """The float32 block of a mixed task's per-parameter buffers
-    (``ParamLayout.wide``): each (K, row) float32, its float32 leaves."""
+    (``ParamLayout.wide``): each (K, row) float32, its float32 leaves.
+    ``compression`` and ``published`` are the block's estimate stack of a
+    compressed wire and its published snapshots under bounded staleness,
+    ``()`` where the round carries none."""
 
     params: torch.Tensor
     momentum: torch.Tensor
     d_bias: torch.Tensor
     b_bias: torch.Tensor
+    compression: torch.Tensor | tuple = ()
+    published: torch.Tensor | tuple = ()
 
 
 class P2PState(NamedTuple):
@@ -480,27 +503,33 @@ class P2PState(NamedTuple):
     wide: WideState | tuple = ()
 
 
+def blocks(state: P2PState, field: str) -> list:
+    """``field``'s buffer of each parameter block: the state's own (for
+    ``"published"``, its ``StalenessState``'s snapshots), then a mixed task's
+    float32 block's (``WideState``).  With ``with_blocks``, the one place
+    that knows where a block's buffers live."""
+    first = state.staleness.published if field == "published" else getattr(state, field)
+    return [first] + ([getattr(state.wide, field)] if state.wide else [])
+
+
+def with_blocks(state: P2PState, **fields: list) -> P2PState:
+    """``state`` with each keyword's per-block buffers (``blocks``' order)
+    written back where ``blocks`` reads them."""
+    wide = state.wide
+    for field, (first, *rest) in fields.items():
+        if wide:
+            wide = wide._replace(**{field: rest[0]})
+        if field == "published":
+            state = state._replace(staleness=state.staleness._replace(published=first))
+        else:
+            state = state._replace(**{field: first})
+    return state._replace(wide=wide)
+
+
 def param_blocks(state: P2PState) -> list[torch.Tensor]:
     """The state's parameter buffers: ``params``, and a mixed task's float32
     block."""
-    return [state.params] + ([state.wide.params] if state.wide else [])
-
-
-def check_mixed(layout: ParamLayout, cfg: P2PConfig, *, scan_driver: bool = False) -> None:
-    """A mixed task (float32 leaves beside bf16 ones) mixes its two blocks
-    through ``consensus_mix``'s gossip step, one launch each; the modes that
-    take float32 only, the compressed wire and the scan driver raise."""
-    if layout.wide is None:
-        return
-    what = ("the scan driver" if scan_driver else
-            "push-sum's mass mode" if cfg.protocol != "gossip" else
-            "a compressed wire" if cfg.compressor != "none" else
-            "the snapshot mode of bounded staleness" if cfg.staleness_bound > 0 else
-            "adaptive selection's dense-operand mode" if cfg.schedule == "adaptive" else None)
-    if what is not None:
-        raise NotImplementedError(
-            f"{what} for a task of mixed leaf types (float32 leaves beside bf16 ones) is not "
-            "ported yet: ROADMAP.md queue 1 item 18b")
+    return blocks(state, "params")
 
 
 @functools.cache
@@ -613,7 +642,6 @@ def init_state(
     """
     device = resolve_device(device)
     layout = ParamLayout.of(task)
-    check_mixed(layout, cfg)
     if init_params is None:
         gen = torch.Generator(device if task.init_on_device else "cpu").manual_seed(seed)
         init = resolve_init_fn(task)
@@ -642,12 +670,15 @@ def init_state(
         stacked = consensus_lib.max_norm_sync(stacked)
     params, *wide = (block.to(device) for block in layout.flatten_blocks(stacked))
     del stacked
+    comp = compression_lib.from_config(cfg)
     if wide:
         (wide,) = wide
-        wide = WideState(wide, *(torch.zeros_like(wide) for _ in range(3)))
+        # copies, not aliases: the scan driver adopts each leaf's buffer
+        wide = WideState(wide, *(torch.zeros_like(wide) for _ in range(3)),
+                         compression=comp.init_estimate(wide),
+                         published=wide.clone() if cfg.staleness_bound > 0 else ())
     staleness = ()
     if cfg.staleness_bound > 0:
-        # a copy, not an alias: the scan driver adopts each leaf's buffer
         staleness = StalenessState(
             published=params.clone(),
             age=torch.zeros(cfg.num_peers, dtype=torch.int32, device=device))
@@ -664,16 +695,23 @@ def init_state(
         round_idx=0,
         protocol=protocols_lib.get_protocol(cfg.protocol).init_state(params, data_sizes),
         adaptive=adaptive,
-        compression=compression_lib.from_config(cfg).init_estimate(params),
+        compression=comp.init_estimate(params),
         staleness=staleness,
         wide=wide or (),
     )
 
 
+def step_batch(batches, t: int):
+    """Local step ``t``'s batch of a round's batch tree: every (T, K, ...)
+    leaf's row t, the tree's structure kept (``(x, y)`` or the registry's
+    ``{"tokens", "labels", ...}``, leaves of any types)."""
+    return pytree.tree_map(lambda leaf: leaf[t], batches)
+
+
 def local_phase(
     state: P2PState,
     task: task_lib.TrainTask,
-    batches: tuple[torch.Tensor, torch.Tensor],
+    batches,
     cfg: P2PConfig,
     *,
     steps_k: np.ndarray | None = None,
@@ -687,7 +725,7 @@ def local_phase(
 def local_phase_stats(
     state: P2PState,
     task: task_lib.TrainTask,
-    batches: tuple[torch.Tensor, torch.Tensor],
+    batches,
     cfg: P2PConfig,
     *,
     steps_k: np.ndarray | None = None,
@@ -696,7 +734,10 @@ def local_phase_stats(
     per-peer losses (the reference's ``_local_phase_stats``: adaptive
     selection reads each peer's mean).
 
-    ``batches`` = (x (T, K, B, ...), y (T, K, B)), step-major then peer.
+    ``batches`` = (x (T, K, B, ...), y (T, K, B)), step-major then peer, or
+    any tree of (T, K, ...) leaves (a language model's ``{"tokens",
+    "labels"}``, with a vlm's float32 ``"patches"``): step t gets every
+    leaf's row t (``step_batch``).
     ``steps_k`` ((K,) int32 on the host, ``steps_budget``) caps peer k at
     ``steps_k[k]`` updates: every step still runs for every peer, and from
     step ``steps_k[k]`` on peer k's parameters and momentum (its ``eta_d d``
@@ -719,14 +760,11 @@ def local_phase_stats(
     first, each leaf's gradient into its own block's momentum.
     """
     layout = ParamLayout.of(task)
-    x, y = batches
-    wide = state.wide
-    params, mom = param_blocks(state), [state.momentum] + ([wide.momentum] if wide else [])
-    d_bias = [state.d_bias] + ([wide.d_bias] if wide else [])
+    params, mom, d_bias = (blocks(state, f) for f in ("params", "momentum", "d_bias"))
     step_losses = []
     for t in range(cfg.local_steps):
         views = layout.views(*(p.detach().requires_grad_(True) for p in params))
-        losses = task.loss_fn(views, (x[t], y[t]))  # (K,)
+        losses = task.loss_fn(views, step_batch(batches, t))  # (K,)
         # the peers share no parameters, so the gradient of the summed loss
         # is every peer's own gradient, stacked; a leaf the loss does not
         # read (a vlm's projector on a text-only batch) gets zeros, as jax.grad
@@ -765,48 +803,54 @@ def local_phase_stats(
                     m[rows] = kept
         params, mom = new_params, new_mom
         step_losses.append(losses.detach())
-    b_bias = [state.b_bias] + ([wide.b_bias] if wide else [])
+    b_bias = blocks(state, "b_bias")
     if cfg.use_affinity_b:
         b_bias = [p / max(cfg.consensus_steps, 1) for p in params]
-    if wide:
-        wide = WideState(params[1], mom[1], wide.d_bias, b_bias[1])
-    state = state._replace(params=params[0], momentum=mom[0], b_bias=b_bias[0], wide=wide)
+    state = with_blocks(state, params=params, momentum=mom, b_bias=b_bias)
     return state, torch.stack(step_losses)
 
 
-def _mix_block(params, d_bias, b_bias, proto_state, cfg: P2PConfig, mix):
-    """S consensus steps of one parameter block: (params, d, proto_state)."""
-    for _ in range(cfg.consensus_steps):
-        proto_state, mixed, d_step = mix(proto_state, params)
-        if cfg.use_affinity_d:
-            d_bias = d_step
-        if cfg.use_affinity_b:
-            mixed = mixed + cfg.eta_b * b_bias
-        params = mixed
-    return params, d_bias, proto_state
-
-
 def _consensus_steps(state: P2PState, cfg: P2PConfig, mix) -> P2PState:
-    """S consensus steps of ``mix(proto_state, params) -> (proto_state,
-    mixed, d_step)``: d refreshed from each step's incoming neighbors (Eq. 3's
-    bias, Sec. IV-A), ``eta_b * b`` added after each mix (Eq. 4).  A mixed
-    task's float32 block takes the same steps after the first block's
-    (gossip only, which ``init_state`` holds it to through ``check_mixed``:
-    no protocol state between them)."""
-    wide = state.wide
-    params, d_bias, proto_state = _mix_block(state.params, state.d_bias, state.b_bias,
-                                             state.protocol, cfg, mix)
-    if wide:
-        wide_params, wide_d, _ = _mix_block(wide.params, wide.d_bias, wide.b_bias, (), cfg, mix)
-        wide = wide._replace(params=wide_params, d_bias=wide_d)
-    return state._replace(
-        params=params, d_bias=d_bias, protocol=proto_state, round_idx=state.round_idx + 1,
-        wide=wide,
-    )
+    """S consensus steps of ``mix(proto_state, params, i) -> (proto_state,
+    mixed, d_step)`` on each parameter block i (``param_blocks``): d
+    refreshed from each step's incoming neighbors (Eq. 3's bias, Sec.
+    IV-A), ``eta_b * b`` added after each mix (Eq. 4).  A mixed task's
+    float32 block takes each step after the first block, from the same
+    protocol state: push-sum's mass is a peer's, so it advances once a step
+    (the first block's y'; the float32 block's launch computes the same y'
+    from the same mass and weights)."""
+    params, d_bias, b_bias = (blocks(state, f) for f in ("params", "d_bias", "b_bias"))
+    proto_state = state.protocol
+    for _ in range(cfg.consensus_steps):
+        step_state = proto_state
+        for i, x in enumerate(params):
+            new_state, mixed, d_step = mix(step_state, x, i)
+            if i == 0:
+                proto_state = new_state
+            if cfg.use_affinity_d:
+                d_bias[i] = d_step
+            if cfg.use_affinity_b:
+                mixed = mixed + cfg.eta_b * b_bias[i]
+            params[i] = mixed
+    state = state._replace(protocol=proto_state, round_idx=state.round_idx + 1)
+    return with_blocks(state, params=params, d_bias=d_bias)
+
+
+def check_layout(layout: ParamLayout, state: P2PState) -> None:
+    """Raise ValueError unless ``layout``'s blocks are the state's parameter
+    buffers, row for row and type for type: a compressed wire quantizes
+    leaf by leaf, so another task's layout would quantize the wrong
+    columns."""
+    want = [(blk.row, blk.dtype) for blk in layout.blocks]
+    got = [(b.shape[-1], b.dtype) for b in param_blocks(state)]
+    if got != want:
+        raise ValueError(f"the layout's blocks (row, type) {want} are not the state's {got}: "
+                         "pass the task's layout (ParamLayout.of(task))")
 
 
 def consensus_phase(
-    state: P2PState, cfg: P2PConfig, ops: SparseRoundOps | protocols_lib.StaleRoundOps
+    state: P2PState, cfg: P2PConfig, ops: SparseRoundOps | protocols_lib.StaleRoundOps,
+    *, layout: ParamLayout | None = None,
 ) -> P2PState:
     """Run S consensus steps through the fused kernel; refreshes d en route.
 
@@ -814,19 +858,24 @@ def consensus_phase(
     with ``staleness_bound > 0`` a ``protocols.StaleRoundOps``.  Each
     step's d comes from the *incoming* neighbor parameters of that step
     (Sec. IV-A); peers with an all-zero beta row keep d = 0.  A compressed
-    wire takes ``_consensus_phase_compressed``, bounded staleness
-    ``_consensus_phase_async``.
+    wire takes ``_consensus_phase_compressed`` (its leaves from ``layout``,
+    the task's; ``layout_of(cfg.model)`` when None; ``check_layout``
+    refuses a layout that is not the state's), bounded staleness
+    ``_consensus_phase_async``.  Each mode mixes every block of a mixed
+    task, one launch a block a step (``_consensus_steps``).
     """
     if cfg.consensus_steps == 0:
         return state._replace(round_idx=state.round_idx + 1)
     proto = protocols_lib.get_protocol(cfg.protocol)
     comp = compression_lib.from_config(cfg)
     if not comp.identity:
-        return _consensus_phase_compressed(state, cfg, ops, proto, comp)
+        layout = layout or layout_of(cfg.model)
+        check_layout(layout, state)
+        return _consensus_phase_compressed(state, cfg, ops, proto, comp, layout)
     if cfg.staleness_bound > 0:
         return _consensus_phase_async(state, cfg, ops, proto)
     return _consensus_steps(
-        state, cfg, lambda ps, x: proto.mix(ps, x, ops, cfg.local_steps)
+        state, cfg, lambda ps, x, _i: proto.mix(ps, x, ops, cfg.local_steps)
     )
 
 
@@ -836,33 +885,29 @@ def _consensus_phase_compressed(
     ops: SparseRoundOps,
     proto: protocols_lib.ConsensusProtocol,
     comp: compression_lib.Compressor,
+    layout: ParamLayout,
 ) -> P2PState:
     """``consensus_phase`` when consensus messages cross a compressed wire.
 
-    Each step: compress the parameter-to-estimate difference ``x - x̂`` leaf by
-    leaf; advance the estimate stack by the payload (``x̂ <- x̂ + D(payload)``);
+    Each step, on each block: compress the parameter-to-estimate difference
+    ``x - x̂`` leaf by leaf (the block's leaves: its (K, L) scale table);
+    advance the estimate stack by the payload (``x̂ <- x̂ + D(payload)``);
     mix the convex form, self term on the true parameters and off-diagonal
     terms on the advanced estimates; and take d from estimate differences,
     ``d = (sum_j beta_kj x̂_j - x̂_k) / T`` (0 for a zero beta row).  qint8's
     advance happens inside the ``dequant_mix`` kernel that mixes; top-k's is a
     scatter before it.
     """
-    layout = layout_of(cfg.model)
-    params, d_bias, proto_state, est = state.params, state.d_bias, state.protocol, state.compression
-    for _ in range(cfg.consensus_steps):
-        payload = comp.ef_flat(params, est, layout)
-        proto_state, mixed, d_step, est = proto.mix_compressed(
-            proto_state, params, payload, ops, layout.leaf_offsets, cfg.local_steps
-        )
-        if cfg.use_affinity_d:
-            d_bias = d_step
-        if cfg.use_affinity_b:
-            mixed = mixed + cfg.eta_b * state.b_bias
-        params = mixed
-    return state._replace(
-        params=params, d_bias=d_bias, protocol=proto_state, compression=est,
-        round_idx=state.round_idx + 1,
-    )
+    leaves = layout.blocks
+    ests = blocks(state, "compression")
+
+    def mix(proto_state, x, i):
+        payload = comp.ef_flat(x, ests[i], leaves[i])
+        proto_state, mixed, d_step, ests[i] = proto.mix_compressed(
+            proto_state, x, payload, ops, leaves[i].leaf_offsets, cfg.local_steps)
+        return proto_state, mixed, d_step
+
+    return with_blocks(_consensus_steps(state, cfg, mix), compression=ests)
 
 
 def staleness_delivery(
@@ -904,29 +949,34 @@ def _consensus_phase_async(
     """
     st: StalenessState = state.staleness
     delivered, age, decay = staleness_delivery(cfg, ops.scheduled, st.age)
-    published = torch.where(delivered[:, None], state.params, st.published)
+    # one delivery rule and one set of ages for both blocks of a mixed task
+    published = [torch.where(delivered[:, None], x, p)
+                 for x, p in zip(param_blocks(state), blocks(state, "published"))]
     a_ops = protocols_lib.age_decayed_operands(ops, decay, proto.stochasticity)
-    state = _consensus_steps(state, cfg, lambda ps, x: proto.mix_stale(
-        ps, x, published, a_ops, cfg.local_steps))
-    return state._replace(staleness=StalenessState(published=published, age=age))
+    state = _consensus_steps(state, cfg, lambda ps, x, i: proto.mix_stale(
+        ps, x, published[i], a_ops, cfg.local_steps))
+    state = state._replace(staleness=st._replace(age=age))
+    return with_blocks(state, published=published)
 
 
 def run_round(
     state: P2PState,
     task: task_lib.TrainTask,
-    batches: tuple[torch.Tensor, torch.Tensor],
+    batches,
     cfg: P2PConfig,
     ops: SparseRoundOps | protocols_lib.StaleRoundOps | AdaptiveRoundOps,
     *,
     steps_k: np.ndarray | None = None,
 ) -> tuple[P2PState, P2PState, torch.Tensor]:
     """One full round: (state_after_local, state_after_consensus, losses (T,));
+    ``batches`` a tree of (T, K, ...) leaves (``local_phase_stats``),
     ``steps_k`` the per-peer step budgets (``steps_budget``).  An adaptive
     schedule's round is ``run_adaptive_round``."""
     if cfg.schedule == "adaptive":
         return run_adaptive_round(state, task, batches, cfg, ops, steps_k=steps_k)
     after_local, losses = local_phase(state, task, batches, cfg, steps_k=steps_k)
-    return after_local, consensus_phase(after_local, cfg, ops), losses
+    return after_local, consensus_phase(after_local, cfg, ops,
+                                        layout=ParamLayout.of(task)), losses
 
 
 def adaptive_operands(
@@ -948,7 +998,7 @@ def adaptive_operands(
 def run_adaptive_round(
     state: P2PState,
     task: task_lib.TrainTask,
-    batches: tuple[torch.Tensor, torch.Tensor],
+    batches,
     cfg: P2PConfig,
     ops: AdaptiveRoundOps,
     *,
@@ -965,7 +1015,8 @@ def run_adaptive_round(
     after_local = after_local._replace(adaptive=AdaptiveState(
         key=key_next.expand_as(state.adaptive.key).contiguous(),
         last_losses=losses.mean(dim=0)))
-    return after_local, consensus_phase(after_local, cfg, dense), losses.mean(dim=1)
+    return (after_local, consensus_phase(after_local, cfg, dense, layout=ParamLayout.of(task)),
+            losses.mean(dim=1))
 
 
 def schedule_operands(
@@ -1108,7 +1159,7 @@ def consensus_phase_hier(
     if cfg.consensus_steps == 0:
         return state._replace(round_idx=state.round_idx + 1)
     proto = protocols_lib.get_protocol(cfg.protocol)
-    return _consensus_steps(state, cfg, lambda ps, x: proto.mix_hier(
+    return _consensus_steps(state, cfg, lambda ps, x, _i: proto.mix_hier(
         ps, x, ops_s, state.round_idx, cfg.local_steps, mode=mix_mode))
 
 
@@ -1150,14 +1201,20 @@ def _hier_round_step(task: task_lib.TrainTask, cfg: P2PConfig, peers_per_device:
     return step
 
 
+def _tensors(*fields) -> list[torch.Tensor]:
+    """The fields that are tensors (the others are ``()``: not carried)."""
+    return [f for f in fields if isinstance(f, torch.Tensor)]
+
+
 def state_leaves(state: P2PState) -> list[torch.Tensor]:
     """The state's tensors in a fixed order: params, momentum, d, b, the
     protocol's, the adaptive selection's (int64) key and last losses, the
-    compressed wire's estimate, then the staleness buffer's published
-    snapshots and (int32) ages."""
-    est = (state.compression,) if isinstance(state.compression, torch.Tensor) else ()
+    compressed wire's estimate, the staleness buffer's published snapshots
+    and (int32) ages, then a mixed task's float32 block (``WideState``:
+    params, momentum, d, b, and its estimate and snapshots where carried)."""
+    wide = _tensors(*state.wide) if state.wide else []
     return [state.params, state.momentum, state.d_bias, state.b_bias, *state.protocol,
-            *state.adaptive, *est, *state.staleness]
+            *state.adaptive, *_tensors(state.compression), *state.staleness, *wide]
 
 
 def with_leaves(like: P2PState, leaves: list[torch.Tensor], round_idx: int) -> P2PState:
@@ -1170,33 +1227,45 @@ def with_leaves(like: P2PState, leaves: list[torch.Tensor], round_idx: int) -> P
     n_ad = len(like.adaptive)
     adaptive = AdaptiveState(*rest[:n_ad]) if n_ad else ()
     rest = rest[n_ad:]
-    n_est = int(isinstance(like.compression, torch.Tensor))
+    n_est = len(_tensors(like.compression))
     compression = rest[0] if n_est else ()
-    staleness = StalenessState(*rest[n_est:]) if like.staleness else ()
+    rest = rest[n_est:]
+    n_stale = len(like.staleness)
+    staleness = StalenessState(*rest[:n_stale]) if n_stale else ()
+    rest = iter(rest[n_stale:])
+    wide = WideState(*(next(rest) if isinstance(f, torch.Tensor) else ()
+                       for f in like.wide)) if like.wide else ()
     return P2PState(params, momentum, d_bias, b_bias, round_idx, protocol, adaptive,
-                    compression, staleness)
+                    compression, staleness, wide)
 
 
 class ScanDriver:
     """C rounds a call, each a replay of one captured round (``make_scan_driver``).
 
     ``drive(state, batches) -> (after_local, final_state, losses (C, T))``;
-    ``batches`` is a ``data.pipeline.ChunkBatches`` of C rounds.  The body
+    ``batches`` is a ``data.pipeline.ChunkBatches`` of C rounds, or, as the
+    reference's ``drive`` takes them, any tree (tuple or dict) of (C, T, K,
+    ...) tensors on the device, leaves of any types (a language model's
+    ``{"tokens", "labels"}``, with a vlm's float32 ``"patches"``).  The body
     of a round is the python driver's round step, unchanged, over static
-    buffers: the carried state (params, momentum, d, b, push-sum's mass, the
-    adaptive selection's key and losses, the compressed wire's estimate, the
-    published snapshots and their int32 ages), the round's operands
+    buffers: the carried state (``state_leaves``: params, momentum, d, b,
+    push-sum's mass, the adaptive selection's key and losses, the compressed
+    wire's estimate, the published snapshots and their int32 ages, and a
+    mixed task's float32 block of each), the round's operands
     ``(self_w, nbr_idx, nbr_w, beta)`` (with bounded staleness also the
     round's column sums and its row of the publication table:
     ``protocols.StaleRoundOps``, so the delivery rule runs on the device
     inside the graph; an adaptive round's static ``AdaptiveRoundOps``, its
     key split, matching and W / Beta inside the graph) and its (T, K, B)
     batch rows, with
-    the gather ``x_all[rows]`` inside the body.  Between rounds, on the
+    the gather ``x_all[rows]`` inside the body, or a static (T, K, ...)
+    tensor for each leaf of a batch tree.  Between rounds, on the
     device: round ``r % period``'s operands are copied into the static ones
     (the hierarchical runtime's as a static R = 1 stack, read at round index
-    0), round c's rows into the static rows, and after each round its (T,)
-    losses into the driver's (C, T) buffer.  At its end the body copies the round's state
+    0), round c's rows (or each leaf's ``batches[c]``) into the static ones,
+    and after each round its (T,) losses into the driver's (C, T) buffer.
+    Other data, or a batch tree of other leaves, shapes or types, is warmed
+    up and captured anew.  At its end the body copies the round's state
     into the carried buffers.  The first round of the first call runs
     eagerly as the warm-up; the capture follows and every later round is a
     replay (``repro_torch.capture``).  ``round_idx`` stays a host int and
@@ -1222,19 +1291,20 @@ class ScanDriver:
         first = pick(0)
         self.static_ops = first if period == 1 else type(first)(*(t.clone() for t in first))
         self.carry: P2PState | None = None
-        self.rows: torch.Tensor | None = None
-        self.data: tuple[torch.Tensor, torch.Tensor] | None = None
+        self.form: tuple | None = None  # what the static batch buffers stand for
+        self.rows = None  # the static batch rows, or the static batch tree
+        self.source: Callable[[], object] | None = None  # the round's batches from them
         self.captured: capture_lib.Captured | None = None
         self.capture_seconds = 0.0
         self._aliases: list[int] | None = None  # after-local leaves that are carried ones
 
     def _capture(self) -> capture_lib.Captured:
         """Warm up (one real round) and capture the round over the static buffers."""
-        step, (x_all, y_all), rows = self.step, self.data, self.rows
+        step, source = self.step, self.source
         carry, ops = self.carry, self.static_ops
 
         def body():  # holds the buffers, not the driver: no reference cycle to a graph
-            after_local, after_cons, losses = step(carry, (x_all[rows], y_all[rows]), ops)
+            after_local, after_cons, losses = step(carry, source(), ops)
             for dst, src in zip(state_leaves(carry), state_leaves(after_cons)):
                 if src is not dst:
                     dst.copy_(src)
@@ -1260,17 +1330,46 @@ class ScanDriver:
             if src is not dst:
                 dst.copy_(src)
 
+    def _static(self, form: tuple, rows, source) -> None:
+        """New static batch buffers (``rows``, read by ``source``): the next
+        round warms up and captures anew."""
+        self.form, self.rows, self.source = form, rows, source
+        self.captured, self._aliases = None, None
+
+    def _feed(self, batches) -> tuple[int, Callable[[int], object]]:
+        """(C, load): the chunk length and ``load(c)``, which copies round
+        c's batches into the static buffers, made anew where the batches
+        change form."""
+        if isinstance(batches, pipeline.ChunkBatches):
+            x_all, y_all, idx = batches
+            if idx.dim() != 4 or idx.shape[0] < 1:
+                raise ValueError(f"batch rows must be (C, T, K, B) with C >= 1, got "
+                                 f"{tuple(idx.shape)}")
+            if self.form is None or self.form[0] != "rows" or self.form[1] is not x_all \
+                    or self.form[2] is not y_all or tuple(self.rows.shape) != tuple(idx.shape[1:]):
+                rows = torch.empty(idx.shape[1:], dtype=idx.dtype, device=self.device)
+                self._static(("rows", x_all, y_all), rows, lambda: (x_all[rows], y_all[rows]))
+            return idx.shape[0], lambda c: self.rows.copy_(idx[c])
+        named = pytree.leaves_with_path(batches)
+        if not named:
+            raise ValueError("a batch tree needs at least one leaf")
+        chunk = named[0][1].shape[0]
+        for path, leaf in named:
+            if not isinstance(leaf, torch.Tensor) or leaf.dim() < 3 or leaf.shape[0] != chunk \
+                    or chunk < 1:
+                raise ValueError(f"every batch leaf must be a (C, T, K, ...) tensor with C = "
+                                 f"{chunk} >= 1; {'/'.join(path)} is "
+                                 f"{getattr(leaf, 'shape', type(leaf))}")
+        form = ("tree", tuple((path, tuple(leaf.shape[1:]), leaf.dtype) for path, leaf in named))
+        if self.form != form:
+            tree = pytree.tree_map(lambda leaf: torch.empty(
+                leaf.shape[1:], dtype=leaf.dtype, device=self.device), batches)
+            self._static(form, tree, lambda: tree)
+        pairs = list(zip(pytree.leaves(self.rows), (leaf for _, leaf in named)))
+        return chunk, lambda c: [dst.copy_(src[c]) for dst, src in pairs]
+
     def __call__(self, state: P2PState, batches) -> tuple[P2PState, P2PState, torch.Tensor]:
-        x_all, y_all, idx = batches
-        chunk = idx.shape[0]
-        if idx.dim() != 4 or chunk < 1:
-            raise ValueError(f"batch rows must be (C, T, K, B) with C >= 1, got "
-                             f"{tuple(idx.shape)}")
-        if self.data is None or self.data[0] is not x_all or self.data[1] is not y_all \
-                or tuple(self.rows.shape) != tuple(idx.shape[1:]):
-            # other data or batch shape: warm up and capture anew
-            self.data, self.captured, self._aliases = (x_all, y_all), None, None
-            self.rows = torch.empty(idx.shape[1:], dtype=idx.dtype, device=self.device)
+        chunk, load = self._feed(batches)
         self._take(state)
         carry = state_leaves(self.carry)
         losses_out = None
@@ -1279,7 +1378,7 @@ class ScanDriver:
                 for dst, src in zip(self.static_ops, self.pick((state.round_idx + c)
                                                                % self.period)):
                     dst.copy_(src)
-            self.rows.copy_(idx[c])
+            load(c)
             if c == chunk - 1:  # the carried leaves the last after-local state reads
                 keep = range(len(carry)) if self._aliases is None else self._aliases
                 before = {i: carry[i].clone() for i in keep}
@@ -1317,11 +1416,11 @@ def make_scan_driver(
     (``ScanDriver``), so the results equal C calls of ``make_round_fn`` (or
     ``make_hier_round_fn`` with ``peers_per_device`` = K) bit for bit.  The
     schedule's operands (``round_picker``) and the step budgets are uploaded
-    once, here.  The chunk length C is read from the batches; one capture
+    once, here.  The chunk length C is read from the batches (a
+    ``ChunkBatches`` or a tree of (C, T, K, ...) tensors); one capture
     serves every C.
     """
     device = resolve_device(device)
-    check_mixed(ParamLayout.of(task), cfg, scan_driver=True)
     if peers_per_device is not None and peers_per_device > 1:
         step = _hier_round_step(task, cfg, peers_per_device, mix_mode)
         ops_s = schedule_operands(cfg, data_sizes, device=device)

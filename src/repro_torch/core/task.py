@@ -33,9 +33,10 @@ A task provides:
 
 ``mnist_mlp`` is the paper's 2NN, written with the peer axis explicit.
 ``from_model`` makes a task of a registry language model
-(``models.registry.build_model``: a decoder, rwkv6 or the hybrid): its
-leaves, its init and its per-peer loss vmapped over the peers, with no eval
-head; ``launch.train.run_p2p_lm`` trains one.
+(``models.registry.build_model``: a decoder, rwkv6, the hybrid or the
+encoder-decoder): its leaves, its init and its per-peer loss on the
+registry's batch dict vmapped over the peers, with no eval head;
+``launch.train.run_p2p_lm`` trains one.
 ``rwkv6_seqmnist`` is RWKV6 run as a recurrent network over the 196-token
 pixel stream of sequential MNIST, classified from the final position
 (``models.registry.build_sequence_classifier`` on
@@ -181,9 +182,16 @@ def _no_eval(*_args):
 def from_model(model) -> TrainTask:
     """A task of a registry language model (``models.registry.Model``): its
     leaves (the family's ``*_param_shapes``, nothing drawn), its init, and
-    its per-peer loss on ``(tokens, labels)`` mapped over the peers by
-    ``torch.func.vmap``, as the reference vmaps its per-peer loss; no eval
-    head.  The dense, MoE and vlm decoders, rwkv6 and the zamba2 hybrid.
+    its per-peer loss mapped over the peers by ``torch.func.vmap``, as the
+    reference's ``make_round_fn(model.loss_fn)`` vmaps the model's loss; no
+    eval head.  The dense, MoE and vlm decoders, rwkv6, the zamba2 hybrid
+    and the encoder-decoder.
+
+    A batch is the registry's dict (``Model.make_batch``'s keys), every leaf
+    (K, B, ...): ``"tokens"`` and ``"labels"`` (B, S) int, a vlm's float32
+    ``"patches"`` (B, Np, F), an encoder-decoder's float32 ``"frames"`` (B,
+    S_enc, F); or ``(tokens, labels)``, the text-only batch, which a vlm
+    trains without its image prefix and an encoder-decoder refuses.
 
     Each leaf keeps its init's type (``transformer.param_dtypes``): the
     model's, but float32 for a bf16 rwkv6's decay base and bonus, a bf16
@@ -195,24 +203,24 @@ def from_model(model) -> TrainTask:
     cfg = model.cfg
     shapes_of = {"dense": tf.decoder_param_shapes, "moe": tf.decoder_param_shapes,
                  "vlm": tf.decoder_param_shapes, "rwkv6": tf.rwkv6_param_shapes,
-                 "hybrid": tf.hybrid_param_shapes}
+                 "hybrid": tf.hybrid_param_shapes, "encdec": tf.encdec_param_shapes}
     if cfg.family not in shapes_of:
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family's language model is not ported yet: "
-            "ROADMAP.md queue 1 item 18")
+        raise ValueError(f"unknown family {cfg.family!r}; one of {sorted(shapes_of)}")
     dtype = tf.compute_dtype(cfg)
     shapes = shapes_of[cfg.family](cfg)
     types = tf.param_dtypes(cfg, shapes)
 
     def peer_loss(params, batch):
-        tokens, labels = batch
-        return model.loss_fn(params, {"tokens": tokens, "labels": labels})
+        if not isinstance(batch, dict):
+            tokens, labels = batch
+            batch = {"tokens": tokens, "labels": labels}
+        return model.loss_fn(params, batch)
 
     return TrainTask(
         name=cfg.name,
         param_shapes=shapes,
         init_params=model.init,
-        loss_fn=torch.func.vmap(peer_loss, in_dims=(0, (0, 0))),
+        loss_fn=torch.func.vmap(peer_loss, in_dims=(0, 0)),
         apply_fn=_no_eval,
         make_peer_batches=_no_eval,
         prepare_eval=_no_eval,

@@ -115,10 +115,16 @@ def state_from_jax(
     buffer, the (K,) ages as int32.  Adaptive selection's ``AdaptiveState``
     becomes the port's: the (K, 2) uint32 key as int64 values
     (``key_from_jax``; ``key_to_jax`` turns it back), the (K,) float32
-    last losses as they are.
+    last losses as they are.  A task of mixed leaf types gets both blocks:
+    its float32 leaves of every tree in ``P2PState.wide``.
     """
+    layout = p2p.ParamLayout.of(task)
+
+    def blocks(tree) -> list[torch.Tensor]:  # one buffer a block: a mixed task's two
+        return [b.to(device) for b in layout.flatten_blocks(params_from_jax(tree))]
+
     def flat(tree):
-        return flat_from_jax(tree, task, device=device)
+        return blocks(tree)[0]
 
     comp = jstate.compression
     proto = jstate.protocol
@@ -136,6 +142,12 @@ def state_from_jax(
         stale = p2p.StalenessState(
             published=flat(stale.published),
             age=torch.as_tensor(np.array(stale.age, dtype=np.int32)).to(device))
+    wide = ()
+    if layout.wide is not None:
+        wide = p2p.WideState(
+            *(blocks(getattr(jstate, f))[1] for f in ("params", "momentum", "d_bias", "b_bias")),
+            compression=blocks(comp)[1] if isinstance(comp, dict) else (),
+            published=blocks(jstate.staleness.published)[1] if stale != () else ())
     return p2p.P2PState(
         params=flat(jstate.params),
         momentum=flat(jstate.momentum),
@@ -146,4 +158,5 @@ def state_from_jax(
         adaptive=adaptive,
         compression=flat(comp) if isinstance(comp, dict) else (),
         staleness=stale,
+        wide=wide,
     )

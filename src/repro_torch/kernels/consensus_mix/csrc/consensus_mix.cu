@@ -75,8 +75,9 @@
 // was: kSnap is a template switch, and the gather kernel's one new argument
 // comes last.
 //
-// bf16 storage mode (the gossip mode only; `consensus_mix_bf16` and
-// `consensus_mix_tile_bf16`): x, mixed and d are bf16 in device memory, as
+// bf16 storage mode (`consensus_mix_bf16` and `consensus_mix_tile_bf16`, and
+// the mass and snapshot modes' `*_bf16` entry points): x, P, mixed and d are
+// bf16 in device memory, as
 // a bfloat16 model's parameters are (the reference mixes bf16 leaves in
 // float32 and casts back, core/consensus.py, as its Pallas kernel does).
 // Each x value is widened to float32 as it is read, every sum is float32 as
@@ -85,8 +86,13 @@
 // reads 8 bf16 (16 bytes) a thread where N is a multiple of 8 and the
 // buffers are 16-byte aligned (the port pads a bf16 row to a multiple of 8),
 // one element otherwise; the column tile widens each tile as it stages it
-// (tile_mix.cuh, TS = __nv_bfloat16).  The mass, snapshot and dense modes
-// stay float32.  Bound: the same work on half the bytes.
+// (tile_mix.cuh, TS = __nv_bfloat16).  The mass mode (kMass) and the
+// snapshot mode (kSnap) take the same switches in bf16 storage as in float32:
+// the mass, y', the weights and 1 / y' stay float32, and the gather design's
+// bf16 kernel scales its staged weights and multiplies by 1 / y' at the
+// store as the float32 one does.  The dense-operand mode is the sparse one on
+// the candidate slots, so it takes bf16 too.  Bound: the same work on half
+// the bytes.
 //
 // Bound on an H100: at the iid_k100 shape (K = 100, D = 99, N = 199,212) one
 // call must read 80 MB and write 160 MB (72 us at 3.35 TB/s) but does
@@ -247,37 +253,50 @@ __device__ __forceinline__ void store_bf16(__nv_bfloat16* __restrict__ p, const 
   }
 }
 
-// The gather design's bf16 storage mode (gossip): V elements a thread (8 on
-// the vector path, 1 on the scalar path), float32 sums, bf16 stores.
-template <int V>
+// The gather design's bf16 storage mode: V elements a thread (8 on the
+// vector path, 1 on the scalar path), float32 sums, bf16 stores.  kMass and
+// kSnap as in consensus_mix_kernel (the published rows P bf16 too).
+template <int V, bool kMass = false, bool kSnap = false>
 __global__ void __launch_bounds__(kThreads)
 consensus_mix_bf16_kernel(const __nv_bfloat16* __restrict__ x, int64_t n,
                           const float* __restrict__ self_w, const int32_t* __restrict__ nbr_idx,
                           const float* __restrict__ nbr_w, const float* __restrict__ beta,
                           int d_slots, float local_steps, __nv_bfloat16* __restrict__ mixed,
-                          __nv_bfloat16* __restrict__ d_out) {
-  extern __shared__ float smem[];  // [D] nbr_w | [D] beta | [D] nbr_idx
+                          __nv_bfloat16* __restrict__ d_out, const float* __restrict__ mass,
+                          float* __restrict__ new_mass, const __nv_bfloat16* __restrict__ pub) {
+  extern __shared__ float smem[];  // [D] nbr_w (x sender mass) | [D] beta | [D] nbr_idx
   float* s_w = smem;
   float* s_b = smem + d_slots;
   int32_t* s_idx = reinterpret_cast<int32_t*>(smem + 2 * d_slots);
   __shared__ int s_has_nbrs;
+  __shared__ float s_mass[2];  // kMass: self_w[k] y[k] and 1 / y'[k]
 
   const int k = blockIdx.x;
   const int64_t slot_row = static_cast<int64_t>(k) * d_slots;
   for (int s = threadIdx.x; s < d_slots; s += blockDim.x) {
-    s_w[s] = nbr_w[slot_row + s];
+    const int32_t j = nbr_idx[slot_row + s];
+    s_w[s] = kMass ? nbr_w[slot_row + s] * mass[j] : nbr_w[slot_row + s];
     s_b[s] = beta[slot_row + s];
-    s_idx[s] = nbr_idx[slot_row + s];
+    s_idx[s] = j;
   }
   __syncthreads();
   if (threadIdx.x == 0) {
     float sum = 0.0f;
     for (int s = 0; s < d_slots; ++s) sum += s_b[s];
     s_has_nbrs = sum > 0.0f;
+    if (kMass) {  // y' in slot order, from the scaled slot weights
+      const float sw_y = self_w[k] * mass[k];
+      float y = sw_y;
+      for (int s = 0; s < d_slots; ++s) y += s_w[s];
+      s_mass[0] = sw_y;
+      s_mass[1] = 1.0f / y;
+      if (blockIdx.y == 0) new_mass[k] = y;
+    }
   }
   __syncthreads();
   const bool has_nbrs = s_has_nbrs != 0;
-  const float sw = self_w[k];
+  const float sw = kMass ? s_mass[0] : self_w[k];
+  const __nv_bfloat16* src = kSnap ? pub : x;  // the neighbor rows
 
   const int64_t n_vec = n / V;
   const int64_t own = static_cast<int64_t>(k) * n;
@@ -294,7 +313,7 @@ consensus_mix_bf16_kernel(const __nv_bfloat16* __restrict__ x, int64_t n,
 #pragma unroll 4
     for (int s = 0; s < d_slots; ++s) {
       float v[V];
-      load_bf16<V>(x + static_cast<int64_t>(s_idx[s]) * n + e * V, v);
+      load_bf16<V>(src + static_cast<int64_t>(s_idx[s]) * n + e * V, v);
 #pragma unroll
       for (int i = 0; i < V; ++i) {
         acc_mix[i] = fmaf(s_w[s], v[i], acc_mix[i]);
@@ -302,54 +321,68 @@ consensus_mix_bf16_kernel(const __nv_bfloat16* __restrict__ x, int64_t n,
       }
     }
 #pragma unroll
-    for (int i = 0; i < V; ++i) acc_beta[i] = vbias(acc_beta[i], self[i], local_steps, has_nbrs);
+    for (int i = 0; i < V; ++i) {
+      if (kMass) acc_mix[i] *= s_mass[1];
+      acc_beta[i] = vbias(acc_beta[i], self[i], local_steps, has_nbrs);
+    }
     store_bf16<V>(mixed + own + e * V, acc_mix);
     store_bf16<V>(d_out + own + e * V, acc_beta);
   }
 }
 
+template <bool kMass = false, bool kSnap = false>
 int launch_gather_bf16(const __nv_bfloat16* x, int64_t num_peers, int64_t n, const float* self_w,
                        const int32_t* nbr_idx, const float* nbr_w, const float* beta,
                        int64_t d_slots, float local_steps, __nv_bfloat16* mixed,
-                       __nv_bfloat16* d_out, void* stream) {
+                       __nv_bfloat16* d_out, void* stream, const float* mass = nullptr,
+                       float* new_mass = nullptr, const __nv_bfloat16* pub = nullptr) {
   if (num_peers <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = static_cast<size_t>(d_slots) * 3 * sizeof(float);
-  const bool vec8 = n % 8 == 0 && aligned16(x) && aligned16(mixed) && aligned16(d_out);
+  const bool vec8 = n % 8 == 0 && aligned16(x) && aligned16(mixed) && aligned16(d_out) &&
+                    (!kSnap || aligned16(pub));
   const int64_t n_vec = vec8 ? n / 8 : n;
   int64_t tiles = (n_vec + kThreads - 1) / kThreads;
+  if (kMass) tiles = mass_mode_tiles(tiles, d_slots);
   if (tiles > kMaxGridY) tiles = kMaxGridY;
   const dim3 grid(static_cast<unsigned>(num_peers), static_cast<unsigned>(tiles));
   if (vec8) {
-    consensus_mix_bf16_kernel<8><<<grid, kThreads, smem, s>>>(
-        x, n, self_w, nbr_idx, nbr_w, beta, static_cast<int>(d_slots), local_steps, mixed, d_out);
+    consensus_mix_bf16_kernel<8, kMass, kSnap><<<grid, kThreads, smem, s>>>(
+        x, n, self_w, nbr_idx, nbr_w, beta, static_cast<int>(d_slots), local_steps, mixed, d_out,
+        mass, new_mass, pub);
   } else {
-    consensus_mix_bf16_kernel<1><<<grid, kThreads, smem, s>>>(
-        x, n, self_w, nbr_idx, nbr_w, beta, static_cast<int>(d_slots), local_steps, mixed, d_out);
+    consensus_mix_bf16_kernel<1, kMass, kSnap><<<grid, kThreads, smem, s>>>(
+        x, n, self_w, nbr_idx, nbr_w, beta, static_cast<int>(d_slots), local_steps, mixed, d_out,
+        mass, new_mass, pub);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The column tile's bf16 storage mode (gossip): the tile widens x as it
+// The column tile's bf16 storage mode: the tile widens x (kSnap: P) as it
 // stages it; the vector path needs rows of a multiple of 8 elements.
+template <bool kMass = false, bool kSnap = false>
 int launch_column_tile_bf16(const __nv_bfloat16* x, int64_t num_peers, int64_t n,
                             const float* self_w, const int32_t* nbr_idx, const float* nbr_w,
                             const float* beta, int64_t d_slots, float local_steps,
-                            __nv_bfloat16* mixed, __nv_bfloat16* d_out, void* stream) {
+                            __nv_bfloat16* mixed, __nv_bfloat16* d_out, void* stream,
+                            const float* mass = nullptr, float* new_mass = nullptr,
+                            const __nv_bfloat16* pub = nullptr) {
   if (num_peers <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
   if (num_peers > kTileMaxPeers || d_slots < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int k = static_cast<int>(num_peers), ds = static_cast<int>(d_slots);
   const LeafStarts leaves = {};
-  const size_t smem = tile_smem_bytes(k, false, false);
-  const bool vec = n % 8 == 0 && aligned16(x) && aligned16(mixed) && aligned16(d_out);
+  const size_t smem = tile_smem_bytes(k, false, kMass);
+  const __nv_bfloat16* staged = kSnap ? pub : x;
+  const bool vec = n % 8 == 0 && aligned16(x) && aligned16(mixed) && aligned16(d_out) &&
+                   aligned16(staged);
   const cudaError_t err =
-      vec ? launch_tile<true, true, false, false, __nv_bfloat16>(
-                false, smem, s, x, x, nullptr, nullptr, leaves, 1, n, k, self_w, nbr_idx, nbr_w,
-                beta, ds, local_steps, nullptr, mixed, d_out, nullptr, nullptr)
-          : launch_tile<false, true, false, false, __nv_bfloat16>(
-                false, smem, s, x, x, nullptr, nullptr, leaves, 1, n, k, self_w, nbr_idx, nbr_w,
-                beta, ds, local_steps, nullptr, mixed, d_out, nullptr, nullptr);
+      vec ? launch_tile<true, !kSnap, kMass, kSnap, __nv_bfloat16>(
+                false, smem, s, x, staged, nullptr, nullptr, leaves, 1, n, k, self_w, nbr_idx,
+                nbr_w, beta, ds, local_steps, mass, mixed, d_out, nullptr, new_mass)
+          : launch_tile<false, !kSnap, kMass, kSnap, __nv_bfloat16>(
+                false, smem, s, x, staged, nullptr, nullptr, leaves, 1, n, k, self_w, nbr_idx,
+                nbr_w, beta, ds, local_steps, mass, mixed, d_out, nullptr, new_mass);
   return static_cast<int>(err);
 }
 
@@ -503,4 +536,76 @@ extern "C" int consensus_mix_tile_bf16(const __nv_bfloat16* x, int64_t num_peers
                                        __nv_bfloat16* d_out, void* stream) {
   return launch_column_tile_bf16(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, d_slots,
                                  local_steps, mixed, d_out, stream);
+}
+
+
+// The bf16 storage mode of the mass and snapshot modes: the arguments and
+// contracts of the float32 entry points of the same names, with x,
+// published, mixed and d_out (num_peers, n) row-major bf16; the weights, the
+// mass and new_mass stay float32.
+extern "C" int consensus_mix_push_sum_bf16(const __nv_bfloat16* x, int64_t num_peers,
+                                           int64_t n, const float* self_w,
+                                           const int32_t* nbr_idx, const float* nbr_w,
+                                           const float* beta, int64_t d_slots,
+                                           float local_steps, const float* mass,
+                                           __nv_bfloat16* mixed, __nv_bfloat16* d_out,
+                                           float* new_mass, void* stream) {
+  return launch_gather_bf16<true>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, d_slots,
+                                  local_steps, mixed, d_out, stream, mass, new_mass);
+}
+
+extern "C" int consensus_mix_push_sum_tile_bf16(const __nv_bfloat16* x, int64_t num_peers,
+                                                int64_t n, const float* self_w,
+                                                const int32_t* nbr_idx, const float* nbr_w,
+                                                const float* beta, int64_t d_slots,
+                                                float local_steps, const float* mass,
+                                                __nv_bfloat16* mixed, __nv_bfloat16* d_out,
+                                                float* new_mass, void* stream) {
+  return launch_column_tile_bf16<true>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, d_slots,
+                                       local_steps, mixed, d_out, stream, mass, new_mass);
+}
+
+extern "C" int consensus_mix_snapshot_bf16(const __nv_bfloat16* x,
+                                           const __nv_bfloat16* published, int64_t num_peers,
+                                           int64_t n, const float* self_w,
+                                           const int32_t* nbr_idx, const float* nbr_w,
+                                           const float* beta, int64_t d_slots,
+                                           float local_steps, __nv_bfloat16* mixed,
+                                           __nv_bfloat16* d_out, void* stream) {
+  return launch_gather_bf16<false, true>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, d_slots,
+                                         local_steps, mixed, d_out, stream, nullptr, nullptr,
+                                         published);
+}
+
+extern "C" int consensus_mix_snapshot_tile_bf16(const __nv_bfloat16* x,
+                                                const __nv_bfloat16* published,
+                                                int64_t num_peers, int64_t n,
+                                                const float* self_w, const int32_t* nbr_idx,
+                                                const float* nbr_w, const float* beta,
+                                                int64_t d_slots, float local_steps,
+                                                __nv_bfloat16* mixed, __nv_bfloat16* d_out,
+                                                void* stream) {
+  return launch_column_tile_bf16<false, true>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta,
+                                              d_slots, local_steps, mixed, d_out, stream,
+                                              nullptr, nullptr, published);
+}
+
+extern "C" int consensus_mix_push_sum_snapshot_bf16(
+    const __nv_bfloat16* x, const __nv_bfloat16* published, int64_t num_peers, int64_t n,
+    const float* self_w, const int32_t* nbr_idx, const float* nbr_w, const float* beta,
+    int64_t d_slots, float local_steps, const float* mass, __nv_bfloat16* mixed,
+    __nv_bfloat16* d_out, float* new_mass, void* stream) {
+  return launch_gather_bf16<true, true>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, d_slots,
+                                        local_steps, mixed, d_out, stream, mass, new_mass,
+                                        published);
+}
+
+extern "C" int consensus_mix_push_sum_snapshot_tile_bf16(
+    const __nv_bfloat16* x, const __nv_bfloat16* published, int64_t num_peers, int64_t n,
+    const float* self_w, const int32_t* nbr_idx, const float* nbr_w, const float* beta,
+    int64_t d_slots, float local_steps, const float* mass, __nv_bfloat16* mixed,
+    __nv_bfloat16* d_out, float* new_mass, void* stream) {
+  return launch_column_tile_bf16<true, true>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta,
+                                             d_slots, local_steps, mixed, d_out, stream, mass,
+                                             new_mass, published);
 }

@@ -71,6 +71,18 @@
 // 1 / y' into the row's weights (see consensus_mix.cu); y' is written once
 // to new_mass.
 //
+// bf16 storage mode (`dequant_mix_bf16`, `dequant_mix_tile_bf16` and their
+// push-sum forms; the storage type TS of both designs): x, est, est', mixed
+// and d are bf16 in device memory, as a bf16 model's parameters and their
+// public estimates are; q stays int8, the scales, the weights and the mass
+// float32.  The advance rounds where the reference's compressed path rounds
+// (compression/compressors.py ef_compress_leaf, QInt8.decompress): the
+// payload's value scale * q is formed in float32 and rounded to bf16, and the
+// new estimate est + D is rounded to bf16, v = bf16(est + bf16(scale * q))
+// (tile_mix.cuh's vadvance); v is widened to float32 for the sums, which stay
+// float32, and mixed and d are rounded to bf16 as they are stored.  The
+// vector path reads 4 bf16 (8 bytes) where the float32 one reads a float4.
+//
 // Bound on an H100 SXM: at iid_k100 with qint8 (K = 100, D = 99,
 // N = 199,212) one call must read x, est (79.7 MB each) and q (19.9 MB) and
 // write mixed, d and est' (239 MB): 418 MB, 0.125 ms at 3.35 TB/s; its least
@@ -81,6 +93,7 @@
 // column-tile design reads each once and does the 2 x 2K x K x N = 8.0
 // GFLOP of dense multiply-adds from shared memory.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -103,17 +116,18 @@ __device__ __forceinline__ float4 load_q(const char4* q, int64_t i) {
 
 // T is float (scalar path, Q = int8_t) or float4 (vector path, Q = char4);
 // n_vec counts T elements per row.  kHasQ is false for the no-payload call;
-// kMass is the push-sum mode (mass and new_mass used).
-template <typename T, typename Q, bool kHasQ, bool kMass>
+// kMass is the push-sum mode (mass and new_mass used); TS the storage type
+// of x, est, est', mixed and d (float, or __nv_bfloat16).
+template <typename T, typename Q, bool kHasQ, bool kMass, typename TS = float>
 __global__ void __launch_bounds__(kThreads)
-dequant_mix_kernel(const float* __restrict__ x, const float* __restrict__ est,
+dequant_mix_kernel(const TS* __restrict__ x, const TS* __restrict__ est,
                    const int8_t* __restrict__ q, const float* __restrict__ scale,
                    LeafStarts leaves, int num_leaves, int64_t n_vec,
                    const float* __restrict__ self_w, const int32_t* __restrict__ nbr_idx,
                    const float* __restrict__ nbr_w, const float* __restrict__ beta,
                    int d_slots, float local_steps, const float* __restrict__ mass,
-                   float* __restrict__ mixed, float* __restrict__ d_out,
-                   float* __restrict__ est_out, float* __restrict__ new_mass) {
+                   TS* __restrict__ mixed, TS* __restrict__ d_out,
+                   TS* __restrict__ est_out, float* __restrict__ new_mass) {
   // [D] nbr_w | [D] beta | [D] nbr_idx | [L * D] sender scales | [L] own scales
   extern __shared__ float smem[];
   float* s_w = smem;
@@ -174,39 +188,34 @@ dequant_mix_kernel(const float* __restrict__ x, const float* __restrict__ est,
   const float inv_y = kMass ? s_mass[1] : 1.0f;
   constexpr int kWidth = sizeof(T) / sizeof(float);
 
-  const T* xv = reinterpret_cast<const T*>(x);
-  const T* ev = reinterpret_cast<const T*>(est);
   const Q* qv = reinterpret_cast<const Q*>(q);
-  T* mv = reinterpret_cast<T*>(mixed);
-  T* dv = reinterpret_cast<T*>(d_out);
-  T* eo = reinterpret_cast<T*>(est_out);
   const int64_t own = static_cast<int64_t>(k) * n_vec;
   const int64_t stride = static_cast<int64_t>(gridDim.y) * blockDim.x;
   for (int64_t e = static_cast<int64_t>(blockIdx.y) * blockDim.x + threadIdx.x; e < n_vec;
        e += stride) {
-    T self_est = ev[own + e];
+    T self_est = vload<T>(est, own + e);
     const float* sc = s_sc;
     if (kHasQ) {
       const int64_t col = e * kWidth;
       int l = 0;
       while (l + 1 < num_leaves && col >= s_start[l + 1]) ++l;
       sc = s_sc + l * d_slots;
-      self_est = vfma(s_own[l], load_q(qv, own + e), self_est);
-      eo[own + e] = self_est;
+      self_est = vadvance<TS>(s_own[l], load_q(qv, own + e), self_est);
+      vstore(est_out, own + e, self_est);
     }
-    T acc_mix = vscale(sw, xv[own + e]);
+    T acc_mix = vscale(sw, vload<T>(x, own + e));
     T acc_beta;
     vzero(acc_beta);
 #pragma unroll 4
     for (int s = 0; s < d_slots; ++s) {
       const int64_t nbr = static_cast<int64_t>(s_idx[s]) * n_vec + e;
-      T v = ev[nbr];
-      if (kHasQ) v = vfma(sc[s], load_q(qv, nbr), v);
+      T v = vload<T>(est, nbr);
+      if (kHasQ) v = vadvance<TS>(sc[s], load_q(qv, nbr), v);
       acc_mix = vfma(s_w[s], v, acc_mix);
       acc_beta = vfma(s_b[s], v, acc_beta);
     }
-    mv[own + e] = kMass ? vscale(inv_y, acc_mix) : acc_mix;
-    dv[own + e] = vbias(acc_beta, self_est, local_steps, has_nbrs);
+    vstore(mixed, own + e, kMass ? vscale(inv_y, acc_mix) : acc_mix);
+    vstore(d_out, own + e, vbias(acc_beta, self_est, local_steps, has_nbrs));
   }
 }
 
@@ -214,18 +223,18 @@ bool aligned(const void* p, uintptr_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-template <typename T, typename Q, bool kMass>
-void launch(bool has_q, dim3 grid, size_t smem, cudaStream_t s, const float* x,
-            const float* est, const int8_t* q, const float* scale, const LeafStarts& leaves,
+template <typename T, typename Q, bool kMass, typename TS>
+void launch(bool has_q, dim3 grid, size_t smem, cudaStream_t s, const TS* x,
+            const TS* est, const int8_t* q, const float* scale, const LeafStarts& leaves,
             int num_leaves, int64_t n_vec, const float* self_w, const int32_t* nbr_idx,
             const float* nbr_w, const float* beta, int d_slots, float local_steps,
-            const float* mass, float* mixed, float* d_out, float* est_out, float* new_mass) {
+            const float* mass, TS* mixed, TS* d_out, TS* est_out, float* new_mass) {
   if (has_q) {
-    dequant_mix_kernel<T, Q, true, kMass><<<grid, kThreads, smem, s>>>(
+    dequant_mix_kernel<T, Q, true, kMass, TS><<<grid, kThreads, smem, s>>>(
         x, est, q, scale, leaves, num_leaves, n_vec, self_w, nbr_idx, nbr_w, beta, d_slots,
         local_steps, mass, mixed, d_out, est_out, new_mass);
   } else {
-    dequant_mix_kernel<T, Q, false, kMass><<<grid, kThreads, smem, s>>>(
+    dequant_mix_kernel<T, Q, false, kMass, TS><<<grid, kThreads, smem, s>>>(
         x, est, q, scale, leaves, num_leaves, n_vec, self_w, nbr_idx, nbr_w, beta, d_slots,
         local_steps, mass, mixed, d_out, est_out, new_mass);
   }
@@ -233,8 +242,8 @@ void launch(bool has_q, dim3 grid, size_t smem, cudaStream_t s, const float* x,
 
 // The checks both entry points make: 0 or the cudaError_t to return.
 int check_args(const int8_t* q, const float* scale, const int64_t* leaf_start,
-               int64_t num_leaves, int64_t n, int vec4, const float* x, const float* est,
-               const float* mixed, const float* d_out, const float* est_out,
+               int64_t num_leaves, int64_t n, int vec4, const void* x, const void* est,
+               const void* mixed, const void* d_out, const void* est_out,
                LeafStarts& leaves) {
   const bool has_q = q != nullptr;
   if (num_leaves < 1 || num_leaves > kMaxLeaves ||
@@ -250,12 +259,12 @@ int check_args(const int8_t* q, const float* scale, const int64_t* leaf_start,
   return 0;
 }
 
-template <bool kMass>
-int launch_gather(const float* x, const float* est, const int8_t* q, const float* scale,
+template <bool kMass, typename TS = float>
+int launch_gather(const TS* x, const TS* est, const int8_t* q, const float* scale,
                   const int64_t* leaf_start, int64_t num_leaves, int64_t num_peers, int64_t n,
                   const float* self_w, const int32_t* nbr_idx, const float* nbr_w,
                   const float* beta, int64_t d_slots, float local_steps, int vec4,
-                  const float* mass, float* mixed, float* d_out, float* est_out,
+                  const float* mass, TS* mixed, TS* d_out, TS* est_out,
                   float* new_mass, void* stream) {
   if (num_peers <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
   const bool has_q = q != nullptr;
@@ -275,24 +284,24 @@ int launch_gather(const float* x, const float* est, const int8_t* q, const float
   if (tiles > kMaxGridY) tiles = kMaxGridY;
   const dim3 grid(static_cast<unsigned>(num_peers), static_cast<unsigned>(tiles));
   if (vec4) {
-    launch<float4, char4, kMass>(has_q, grid, smem, s, x, est, q, scale, leaves, nl, n_vec,
+    launch<float4, char4, kMass, TS>(has_q, grid, smem, s, x, est, q, scale, leaves, nl, n_vec,
                                  self_w, nbr_idx, nbr_w, beta, ds, local_steps, mass, mixed,
                                  d_out, est_out, new_mass);
   } else {
-    launch<float, int8_t, kMass>(has_q, grid, smem, s, x, est, q, scale, leaves, nl, n_vec,
+    launch<float, int8_t, kMass, TS>(has_q, grid, smem, s, x, est, q, scale, leaves, nl, n_vec,
                                  self_w, nbr_idx, nbr_w, beta, ds, local_steps, mass, mixed,
                                  d_out, est_out, new_mass);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kMass>
-int launch_column_tile(const float* x, const float* est, const int8_t* q, const float* scale,
+template <bool kMass, typename TS = float>
+int launch_column_tile(const TS* x, const TS* est, const int8_t* q, const float* scale,
                        const int64_t* leaf_start, int64_t num_leaves, int64_t num_peers,
                        int64_t n, const float* self_w, const int32_t* nbr_idx,
                        const float* nbr_w, const float* beta, int64_t d_slots,
-                       float local_steps, int vec4, const float* mass, float* mixed,
-                       float* d_out, float* est_out, float* new_mass, void* stream) {
+                       float local_steps, int vec4, const float* mass, TS* mixed,
+                       TS* d_out, TS* est_out, float* new_mass, void* stream) {
   if (num_peers <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
   const bool has_q = q != nullptr;
   if (num_peers > kTileMaxPeers || d_slots < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -305,12 +314,12 @@ int launch_column_tile(const float* x, const float* est, const int8_t* q, const 
   const int ds = static_cast<int>(d_slots);
   const size_t smem = tile_smem_bytes(k, has_q, kMass);
   const cudaError_t err =
-      vec4 ? launch_tile<true, false, kMass>(has_q, smem, s, x, est, q, scale, leaves, nl, n,
-                                             k, self_w, nbr_idx, nbr_w, beta, ds, local_steps,
-                                             mass, mixed, d_out, est_out, new_mass)
-           : launch_tile<false, false, kMass>(has_q, smem, s, x, est, q, scale, leaves, nl, n,
-                                              k, self_w, nbr_idx, nbr_w, beta, ds, local_steps,
-                                              mass, mixed, d_out, est_out, new_mass);
+      vec4 ? launch_tile<true, false, kMass, false, TS>(
+                 has_q, smem, s, x, est, q, scale, leaves, nl, n, k, self_w, nbr_idx, nbr_w,
+                 beta, ds, local_steps, mass, mixed, d_out, est_out, new_mass)
+           : launch_tile<false, false, kMass, false, TS>(
+                 has_q, smem, s, x, est, q, scale, leaves, nl, n, k, self_w, nbr_idx, nbr_w,
+                 beta, ds, local_steps, mass, mixed, d_out, est_out, new_mass);
   return static_cast<int>(err);
 }
 
@@ -379,6 +388,63 @@ extern "C" int dequant_mix_push_sum_tile_f32(const float* x, const float* est, c
                                              int64_t d_slots, float local_steps, int vec4,
                                              const float* mass, float* mixed, float* d_out,
                                              float* est_out, float* new_mass, void* stream) {
+  return launch_column_tile<true>(x, est, q, scale, leaf_start, num_leaves, num_peers, n,
+                                  self_w, nbr_idx, nbr_w, beta, d_slots, local_steps, vec4, mass,
+                                  mixed, d_out, est_out, new_mass, stream);
+}
+
+// The bf16 storage mode of the four entry points above: their arguments and
+// contracts, with x, est, mixed, d_out and est_out (num_peers, n) row-major
+// bf16; q int8, scale, the weights, mass and new_mass as they were.
+extern "C" int dequant_mix_bf16(const __nv_bfloat16* x, const __nv_bfloat16* est,
+                                const int8_t* q, const float* scale, const int64_t* leaf_start,
+                                int64_t num_leaves, int64_t num_peers, int64_t n,
+                                const float* self_w, const int32_t* nbr_idx, const float* nbr_w,
+                                const float* beta, int64_t d_slots, float local_steps, int vec4,
+                                __nv_bfloat16* mixed, __nv_bfloat16* d_out,
+                                __nv_bfloat16* est_out, void* stream) {
+  return launch_gather<false>(x, est, q, scale, leaf_start, num_leaves, num_peers, n, self_w,
+                              nbr_idx, nbr_w, beta, d_slots, local_steps, vec4, nullptr, mixed,
+                              d_out, est_out, nullptr, stream);
+}
+
+extern "C" int dequant_mix_tile_bf16(const __nv_bfloat16* x, const __nv_bfloat16* est,
+                                     const int8_t* q, const float* scale,
+                                     const int64_t* leaf_start, int64_t num_leaves,
+                                     int64_t num_peers, int64_t n, const float* self_w,
+                                     const int32_t* nbr_idx, const float* nbr_w,
+                                     const float* beta, int64_t d_slots, float local_steps,
+                                     int vec4, __nv_bfloat16* mixed, __nv_bfloat16* d_out,
+                                     __nv_bfloat16* est_out, void* stream) {
+  return launch_column_tile<false>(x, est, q, scale, leaf_start, num_leaves, num_peers, n,
+                                   self_w, nbr_idx, nbr_w, beta, d_slots, local_steps, vec4,
+                                   nullptr, mixed, d_out, est_out, nullptr, stream);
+}
+
+extern "C" int dequant_mix_push_sum_bf16(const __nv_bfloat16* x, const __nv_bfloat16* est,
+                                         const int8_t* q, const float* scale,
+                                         const int64_t* leaf_start, int64_t num_leaves,
+                                         int64_t num_peers, int64_t n, const float* self_w,
+                                         const int32_t* nbr_idx, const float* nbr_w,
+                                         const float* beta, int64_t d_slots, float local_steps,
+                                         int vec4, const float* mass, __nv_bfloat16* mixed,
+                                         __nv_bfloat16* d_out, __nv_bfloat16* est_out,
+                                         float* new_mass, void* stream) {
+  return launch_gather<true>(x, est, q, scale, leaf_start, num_leaves, num_peers, n, self_w,
+                             nbr_idx, nbr_w, beta, d_slots, local_steps, vec4, mass, mixed,
+                             d_out, est_out, new_mass, stream);
+}
+
+extern "C" int dequant_mix_push_sum_tile_bf16(const __nv_bfloat16* x, const __nv_bfloat16* est,
+                                              const int8_t* q, const float* scale,
+                                              const int64_t* leaf_start, int64_t num_leaves,
+                                              int64_t num_peers, int64_t n, const float* self_w,
+                                              const int32_t* nbr_idx, const float* nbr_w,
+                                              const float* beta, int64_t d_slots,
+                                              float local_steps, int vec4, const float* mass,
+                                              __nv_bfloat16* mixed, __nv_bfloat16* d_out,
+                                              __nv_bfloat16* est_out, float* new_mass,
+                                              void* stream) {
   return launch_column_tile<true>(x, est, q, scale, leaf_start, num_leaves, num_peers, n,
                                   self_w, nbr_idx, nbr_w, beta, d_slots, local_steps, vec4, mass,
                                   mixed, d_out, est_out, new_mass, stream);

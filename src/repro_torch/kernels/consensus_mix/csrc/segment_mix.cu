@@ -84,6 +84,15 @@
 // consensus_mix.cu).  y' is written to new_mass once a peer: by the tile's
 // block 0, by the gather's item of the peer's run at span 0.
 //
+// bf16 storage mode (`segment_mix_bf16` and `segment_mix_push_sum_bf16`, on
+// both routes; the storage type TS): x, mixed and d are bf16 in device
+// memory, each value widened to float32 as it is read, every sum float32,
+// mixed and d rounded to bf16 as they are stored; the weights, the mass and
+// y' stay float32.  The column tile is tile_mix.cuh's bf16 tile (its vector
+// path at rows of a multiple of 8 elements), the gather reads 4 bf16 (8
+// bytes) where the float32 one reads a float4 and stores them with the same
+// evict-first hint.
+//
 // Bound on an H100 SXM: at the large-K shape (K = 4096 on a ring, D = 2,
 // N = 199,212) one call must read x once (3.26 GB) and write mixed and d
 // (6.53 GB): 9.8 GB, 2.9 ms at 3.35 TB/s, against 9.0 GFLOP (0.13 ms at
@@ -92,6 +101,7 @@
 // on the complete graph (D = 99) it is bound by float32 FMA throughput:
 // 7.9 GFLOP, 0.119 ms, against 0.072 ms of bytes.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -133,15 +143,38 @@ __device__ __forceinline__ void stage_slot(const int32_t* __restrict__ nbr_idx,
   s_b[to] = beta[from];
 }
 
+// Element i of a row seen as T (float or float4) of the storage type TS,
+// through the read-only cache, as float32; and the evict-first store back.
+template <typename T, typename TS>
+__device__ __forceinline__ T load_nc(const TS* __restrict__ p, int64_t i) {
+  if constexpr (std::is_same<TS, float>::value) {
+    return __ldg(reinterpret_cast<const T*>(p) + i);
+  } else if constexpr (std::is_same<T, float>::value) {
+    return __bfloat162float(p[i]);
+  } else {
+    return bf16x4_to_float4(__ldg(reinterpret_cast<const uint2*>(p) + i));
+  }
+}
+template <typename T, typename TS>
+__device__ __forceinline__ void store_cs(TS* __restrict__ p, int64_t i, T v) {
+  if constexpr (std::is_same<TS, float>::value) {
+    __stcs(reinterpret_cast<T*>(p) + i, v);
+  } else if constexpr (std::is_same<T, float>::value) {
+    p[i] = __float2bfloat16_rn(v);
+  } else {
+    __stcs(reinterpret_cast<uint2*>(p) + i, float4_to_bf16x4(v));
+  }
+}
+
 // Adds `count` staged slots to the accumulators of element e, in slot
 // order; unrolled by two, so two slots' 16-byte loads are in flight.
-template <typename T>
-__device__ __forceinline__ void add_slots(const T* __restrict__ xv, int64_t n_vec, int64_t e,
+template <typename T, typename TS>
+__device__ __forceinline__ void add_slots(const TS* __restrict__ x, int64_t n_vec, int64_t e,
                                           const int32_t* s_idx, const float* s_w,
                                           const float* s_b, int count, T& acc_mix, T& acc_beta) {
 #pragma unroll 2
   for (int s = 0; s < count; ++s) {
-    const T v = __ldg(xv + static_cast<int64_t>(s_idx[s]) * n_vec + e);
+    const T v = load_nc<T>(x, static_cast<int64_t>(s_idx[s]) * n_vec + e);
     acc_mix = vfma(s_w[s], v, acc_mix);
     acc_beta = vfma(s_b[s], v, acc_beta);
   }
@@ -156,13 +189,13 @@ __device__ __forceinline__ void add_slots(const T* __restrict__ xv, int64_t n_ve
 // elements; group g walks the run of peers g x run, ..., g x run + run - 1 of
 // the item in turn.  chunk >= d_slots: every slot row of the item is staged
 // at its start; else each group's peer is staged chunk slots at a time.
-template <typename T, bool kMass>
+template <typename T, bool kMass, typename TS = float>
 __global__ void __launch_bounds__(kThreads)
-segment_gather_kernel(const float* __restrict__ x, int64_t n_vec, int k_peers,
+segment_gather_kernel(const TS* __restrict__ x, int64_t n_vec, int k_peers,
                       const float* __restrict__ self_w, const int32_t* __restrict__ nbr_idx,
                       const float* __restrict__ nbr_w, const float* __restrict__ beta,
                       int d_slots, float local_steps, const float* __restrict__ mass,
-                      float* __restrict__ mixed, float* __restrict__ d_out,
+                      TS* __restrict__ mixed, TS* __restrict__ d_out,
                       float* __restrict__ new_mass, int lanes, int run, int chunk,
                       int64_t n_runs, int64_t n_items) {
   __shared__ int32_t s_idx[kChunk];
@@ -172,9 +205,6 @@ segment_gather_kernel(const float* __restrict__ x, int64_t n_vec, int k_peers,
   __shared__ float s_inv_y[kItemPeers];  // kMass: 1 / y'
   __shared__ int s_has[kItemPeers];      // the raw beta row sums to more than 0
 
-  const T* xv = reinterpret_cast<const T*>(x);
-  T* mv = reinterpret_cast<T*>(mixed);
-  T* dv = reinterpret_cast<T*>(d_out);
   const int groups = kThreads / lanes, g = threadIdx.x / lanes, t = threadIdx.x % lanes;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const bool staged_once = chunk >= d_slots;
@@ -221,12 +251,12 @@ segment_gather_kernel(const float* __restrict__ x, int64_t n_vec, int k_peers,
       T self, acc_mix, acc_beta;
       vzero(self);
       vzero(acc_beta);
-      if (live) self = __ldg(xv + own + e);
+      if (live) self = load_nc<T>(x, own + e);
       acc_mix = vscale(live ? s_sw[p] : 0.0f, self);
       if (staged_once) {
         if (live) {
           const int at = p * d_slots;
-          add_slots<T>(xv, n_vec, e, s_idx + at, s_w + at, s_b + at, d_slots, acc_mix, acc_beta);
+          add_slots<T>(x, n_vec, e, s_idx + at, s_w + at, s_b + at, d_slots, acc_mix, acc_beta);
         }
       } else {
         for (int c0 = 0; c0 < d_slots; c0 += chunk) {
@@ -240,14 +270,14 @@ segment_gather_kernel(const float* __restrict__ x, int64_t n_vec, int k_peers,
           }
           __syncthreads();
           if (live)
-            add_slots<T>(xv, n_vec, e, s_idx + g * chunk, s_w + g * chunk, s_b + g * chunk, cn,
+            add_slots<T>(x, n_vec, e, s_idx + g * chunk, s_w + g * chunk, s_b + g * chunk, cn,
                          acc_mix, acc_beta);
         }
       }
       if (!live) continue;
       const bool has = s_has[p] != 0;
-      __stcs(mv + own + e, kMass ? vscale(s_inv_y[p], acc_mix) : acc_mix);
-      __stcs(dv + own + e, vbias(acc_beta, self, local_steps, has));
+      store_cs(mixed, own + e, kMass ? vscale(s_inv_y[p], acc_mix) : acc_mix);
+      store_cs(d_out, own + e, vbias(acc_beta, self, local_steps, has));
     }
   }
 }
@@ -259,12 +289,12 @@ segment_gather_kernel(const float* __restrict__ x, int64_t n_vec, int k_peers,
 // slots hold, at most kRunPeers, halved while that leaves fewer than two
 // items a block; past kChunk / groups slots a peer, its slots are staged
 // in chunks of that many, one peer a group.
-template <typename T, bool kMass>
-cudaError_t launch_gather(cudaStream_t s, const float* x, int64_t num_peers, int64_t n_vec,
+template <typename T, bool kMass, typename TS>
+cudaError_t launch_gather(cudaStream_t s, const TS* x, int64_t num_peers, int64_t n_vec,
                           const float* self_w, const int32_t* nbr_idx, const float* nbr_w,
                           const float* beta, int64_t d_slots, float local_steps,
-                          const float* mass, float* mixed, float* d_out, float* new_mass) {
-  auto kernel = segment_gather_kernel<T, kMass>;
+                          const float* mass, TS* mixed, TS* d_out, float* new_mass) {
+  auto kernel = segment_gather_kernel<T, kMass, TS>;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -299,11 +329,11 @@ cudaError_t launch_gather(cudaStream_t s, const float* x, int64_t num_peers, int
   return cudaGetLastError();
 }
 
-template <bool kMass>
-int launch_segment(const float* x, int64_t num_peers, int64_t n,
+template <bool kMass, typename TS = float>
+int launch_segment(const TS* x, int64_t num_peers, int64_t n,
                    const float* self_w, const int32_t* nbr_idx, const float* nbr_w,
                    const float* beta, int64_t rounds, int64_t round_idx, int64_t d_slots,
-                   float local_steps, const float* mass, float* mixed, float* d_out,
+                   float local_steps, const float* mass, TS* mixed, TS* d_out,
                    float* new_mass, void* stream) {
   if (num_peers <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
   if (rounds <= 0 || d_slots <= 0 || d_slots > INT32_MAX || num_peers > INT32_MAX) {
@@ -318,25 +348,29 @@ int launch_segment(const float* x, int64_t num_peers, int64_t n,
   nbr_w += slot_off;
   beta += slot_off;
   const bool vec4 = n % 4 == 0 && aligned16(x) && aligned16(mixed) && aligned16(d_out);
+  // the bf16 tile's vector path wants rows of a multiple of 8 (as consensus_mix's)
+  const bool tile_vec = vec4 && (std::is_same<TS, float>::value || n % 8 == 0);
   cudaError_t err;
   if (route(num_peers, d_slots) == kRouteTile) {
     const int k = static_cast<int>(num_peers), ds = static_cast<int>(d_slots);
     const LeafStarts leaves = {};  // no payload: one leaf, unused
     const size_t smem = tile_smem_bytes(k, false, kMass);
     // x is the staged tile (kSelfStaged): the self term is read from it
-    err = vec4 ? launch_tile<true, true, kMass>(false, smem, s, x, x, nullptr, nullptr, leaves, 1,
-                                                n, k, self_w, nbr_idx, nbr_w, beta, ds,
-                                                local_steps, mass, mixed, d_out, nullptr, new_mass)
-               : launch_tile<false, true, kMass>(false, smem, s, x, x, nullptr, nullptr, leaves,
-                                                 1, n, k, self_w, nbr_idx, nbr_w, beta, ds,
-                                                 local_steps, mass, mixed, d_out, nullptr,
-                                                 new_mass);
+    err = tile_vec ? launch_tile<true, true, kMass, false, TS>(
+                         false, smem, s, x, x, nullptr, nullptr, leaves, 1, n, k, self_w,
+                         nbr_idx, nbr_w, beta, ds, local_steps, mass, mixed, d_out, nullptr,
+                         new_mass)
+                   : launch_tile<false, true, kMass, false, TS>(
+                         false, smem, s, x, x, nullptr, nullptr, leaves, 1, n, k, self_w,
+                         nbr_idx, nbr_w, beta, ds, local_steps, mass, mixed, d_out, nullptr,
+                         new_mass);
   } else {
-    err = vec4 ? launch_gather<float4, kMass>(s, x, num_peers, n / 4, self_w, nbr_idx, nbr_w,
-                                              beta, d_slots, local_steps, mass, mixed, d_out,
-                                              new_mass)
-               : launch_gather<float, kMass>(s, x, num_peers, n, self_w, nbr_idx, nbr_w, beta,
-                                             d_slots, local_steps, mass, mixed, d_out, new_mass);
+    err = vec4 ? launch_gather<float4, kMass, TS>(s, x, num_peers, n / 4, self_w, nbr_idx,
+                                                  nbr_w, beta, d_slots, local_steps, mass, mixed,
+                                                  d_out, new_mass)
+               : launch_gather<float, kMass, TS>(s, x, num_peers, n, self_w, nbr_idx, nbr_w,
+                                                 beta, d_slots, local_steps, mass, mixed, d_out,
+                                                 new_mass);
   }
   return static_cast<int>(err);
 }
@@ -373,6 +407,28 @@ extern "C" int segment_mix_push_sum_f32(const float* x, int64_t num_peers, int64
                                         int64_t round_idx, int64_t d_slots, float local_steps,
                                         const float* mass, float* mixed, float* d_out,
                                         float* new_mass, void* stream) {
+  return launch_segment<true>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, rounds, round_idx,
+                              d_slots, local_steps, mass, mixed, d_out, new_mass, stream);
+}
+
+// The bf16 storage mode of the two entry points above: their arguments and
+// contracts, with x, mixed and d_out (num_peers, n) row-major bf16; the
+// weights, mass and new_mass stay float32.
+extern "C" int segment_mix_bf16(const __nv_bfloat16* x, int64_t num_peers, int64_t n,
+                                const float* self_w, const int32_t* nbr_idx,
+                                const float* nbr_w, const float* beta, int64_t rounds,
+                                int64_t round_idx, int64_t d_slots, float local_steps,
+                                __nv_bfloat16* mixed, __nv_bfloat16* d_out, void* stream) {
+  return launch_segment<false>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, rounds, round_idx,
+                               d_slots, local_steps, nullptr, mixed, d_out, nullptr, stream);
+}
+
+extern "C" int segment_mix_push_sum_bf16(const __nv_bfloat16* x, int64_t num_peers, int64_t n,
+                                         const float* self_w, const int32_t* nbr_idx,
+                                         const float* nbr_w, const float* beta, int64_t rounds,
+                                         int64_t round_idx, int64_t d_slots, float local_steps,
+                                         const float* mass, __nv_bfloat16* mixed,
+                                         __nv_bfloat16* d_out, float* new_mass, void* stream) {
   return launch_segment<true>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, rounds, round_idx,
                               d_slots, local_steps, mass, mixed, d_out, new_mass, stream);
 }

@@ -21,11 +21,15 @@
 // and d's own term is the live x_k, not v_k, so the threads of the d rows
 // load x as those of the mix rows do:
 // d[k] = (sum_j Beta[k, j] P_j - x_k) / T).  A fifth, the storage type TS
-// (float, or __nv_bfloat16 for consensus_mix's bf16 gossip mode), names the
-// type of x, est, mixed and d in device memory: a bf16 tile is widened to
-// float32 as it is staged (plain loads, 8 bytes a 4-column chunk on the
-// vector path, which needs rows of a multiple of 8 elements), every sum is
-// float32, and mixed and d are rounded to bf16 as they are stored.
+// (float, or __nv_bfloat16 for the bf16 storage modes of all three kernels),
+// names the type of x, est, est', mixed and d in device memory: a bf16 tile
+// is widened to float32 as it is staged (plain loads, 8 bytes a 4-column
+// chunk on the vector path; q still by cp.async), every sum is float32, and
+// mixed and d are rounded to bf16 as they are stored.  A bf16 estimate is
+// advanced where the reference rounds it (compression/compressors.py: the
+// payload's value D = q * scale formed in float32 and cast to bf16, then
+// est + D in bf16): v = bf16(est + bf16(scale * q)), two roundings, where
+// the float32 form is one fmaf.
 //
 // - a block owns a tile of TN columns of ALL K peers; a persistent grid of
 //   as many blocks as fit on the SMs walks the tiles.  Every sender's tile is
@@ -136,6 +140,51 @@ __device__ __forceinline__ TS from_float(float v) {
   }
 }
 
+// Element i of a row seen as T (float: one element, float4: four) of the
+// storage type TS, as float32, and back: a float4 of bf16 is 8 bytes.  The
+// gather designs' loads and stores in either storage type; for TS = float
+// they are the plain loads and stores of T.
+template <typename T, typename TS>
+__device__ __forceinline__ T vload(const TS* __restrict__ p, int64_t i) {
+  if constexpr (std::is_same<TS, float>::value) {
+    return reinterpret_cast<const T*>(p)[i];
+  } else if constexpr (std::is_same<T, float>::value) {
+    return __bfloat162float(p[i]);
+  } else {
+    return bf16x4_to_float4(reinterpret_cast<const uint2*>(p)[i]);
+  }
+}
+template <typename T, typename TS>
+__device__ __forceinline__ void vstore(TS* __restrict__ p, int64_t i, T v) {
+  if constexpr (std::is_same<TS, float>::value) {
+    reinterpret_cast<T*>(p)[i] = v;
+  } else if constexpr (std::is_same<T, float>::value) {
+    p[i] = __float2bfloat16_rn(v);
+  } else {
+    reinterpret_cast<uint2*>(p)[i] = float4_to_bf16x4(v);
+  }
+}
+
+// The advance of an estimate by its payload, v = est + scale * q: one fmaf
+// in float32 storage; in bf16 storage the reference's two roundings,
+// bf16(est + bf16(scale * q)).
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+template <typename TS>
+__device__ __forceinline__ float vadvance(float scale, float q, float est) {
+  if constexpr (std::is_same<TS, float>::value) {
+    return fmaf(scale, q, est);
+  } else {
+    return bf16_round(__fadd_rn(est, bf16_round(__fmul_rn(scale, q))));
+  }
+}
+template <typename TS>
+__device__ __forceinline__ float4 vadvance(float scale, float4 q, float4 est) {
+  return make_float4(vadvance<TS>(scale, q.x, est.x), vadvance<TS>(scale, q.y, est.y),
+                     vadvance<TS>(scale, q.z, est.z), vadvance<TS>(scale, q.w, est.w));
+}
+
 __device__ __forceinline__ int leaf_of(int64_t col, const int64_t* starts, int num_leaves) {
   int l = 0;
   while (l + 1 < num_leaves && col >= starts[l + 1]) ++l;
@@ -146,7 +195,7 @@ __device__ __forceinline__ int leaf_of(int64_t col, const int64_t* starts, int n
 // and sq ([K][TN] int8): thread tid takes the 4-column chunks tid, tid +
 // blockDim, ...; columns past n are zero.  kVec: cp.async (asynchronous);
 // else plain loads (synchronous).  A bf16 est is widened with plain loads
-// (8 bytes a chunk where kVec), synchronously; it has no payload.
+// (8 bytes a chunk where kVec), synchronously; its q as a float32 est's.
 template <bool kVec, bool kHasQ, typename TS = float>
 __device__ __forceinline__ void stage_tile(float* sv, int8_t* sq, const TS* __restrict__ est,
                                            const int8_t* __restrict__ q, int64_t col0, int64_t n,
@@ -159,14 +208,19 @@ __device__ __forceinline__ void stage_tile(float* sv, int8_t* sq, const TS* __re
     float* dv = sv + j * tn + 4 * c;
     int8_t* dq = sq + j * tn + 4 * c;
     if constexpr (!std::is_same<TS, float>::value) {
-      static_assert(!kHasQ, "a bf16 tile has no payload");
       if (kVec) {
+        const bool ok = col < n;
         *reinterpret_cast<float4*>(dv) =
-            col < n ? bf16x4_to_float4(__ldg(reinterpret_cast<const uint2*>(est + src)))
-                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            ok ? bf16x4_to_float4(__ldg(reinterpret_cast<const uint2*>(est + src)))
+               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (kHasQ) cp_async4(dq, ok ? q + src : q, ok);
       } else {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) dv[i] = col + i < n ? to_float(est[src + i]) : 0.0f;
+        for (int i = 0; i < 4; ++i) {
+          const bool ok = col + i < n;
+          dv[i] = ok ? to_float(est[src + i]) : 0.0f;
+          if (kHasQ) dq[i] = ok ? q[src + i] : static_cast<int8_t>(0);
+        }
       }
     } else if (kVec) {
       const bool ok = col < n;
@@ -179,49 +233,6 @@ __device__ __forceinline__ void stage_tile(float* sv, int8_t* sq, const TS* __re
         dv[i] = ok ? est[src + i] : 0.0f;
         if (kHasQ) dq[i] = ok ? q[src + i] : static_cast<int8_t>(0);
       }
-    }
-  }
-}
-
-// Advance the chunks this thread staged, in place (v = fmaf(scale, q, est),
-// one rounding), and write them to est'.  The chunk assignment is
-// stage_tile's, so each thread reads only its own copies, visible to it
-// after its cp.async wait.
-template <bool kVec>
-__device__ __forceinline__ void advance_tile(float* sv, const int8_t* sq,
-                                             const float* __restrict__ scale,
-                                             const int64_t* starts, int num_leaves,
-                                             float* __restrict__ est_out, int64_t col0,
-                                             int64_t n, int k_peers, int tn) {
-  const int c4 = tn / 4;
-  for (int e = threadIdx.x; e < k_peers * c4; e += blockDim.x) {
-    const int j = e / c4, c = e - j * c4;
-    const int64_t col = col0 + 4 * c;
-    float4 v = *reinterpret_cast<float4*>(sv + j * tn + 4 * c);
-    const char4 qq = *reinterpret_cast<const char4*>(sq + j * tn + 4 * c);
-    const float* sc = scale + static_cast<int64_t>(j) * num_leaves;
-    float s0, s1, s2, s3;
-    if (kVec) {  // every leaf start is a multiple of 4: one leaf a chunk
-      s0 = s1 = s2 = s3 = __ldg(sc + leaf_of(col, starts, num_leaves));
-    } else {
-      s0 = __ldg(sc + leaf_of(col, starts, num_leaves));
-      s1 = __ldg(sc + leaf_of(col + 1, starts, num_leaves));
-      s2 = __ldg(sc + leaf_of(col + 2, starts, num_leaves));
-      s3 = __ldg(sc + leaf_of(col + 3, starts, num_leaves));
-    }
-    v.x = fmaf(s0, static_cast<float>(qq.x), v.x);
-    v.y = fmaf(s1, static_cast<float>(qq.y), v.y);
-    v.z = fmaf(s2, static_cast<float>(qq.z), v.z);
-    v.w = fmaf(s3, static_cast<float>(qq.w), v.w);
-    *reinterpret_cast<float4*>(sv + j * tn + 4 * c) = v;
-    float* dst = est_out + static_cast<int64_t>(j) * n + col;
-    if (kVec) {
-      if (col < n) *reinterpret_cast<float4*>(dst) = v;
-    } else {
-      const float vv[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (col + i < n) dst[i] = vv[i];
     }
   }
 }
@@ -269,6 +280,41 @@ __device__ __forceinline__ void store4(TS* __restrict__ p, int64_t row, int64_t 
 #pragma unroll
   for (int i = 0; i < 4; ++i)
     if (col + i < n) p[row * n + col + i] = from_float<TS>(vv[i]);
+}
+
+// Advance the chunks this thread staged, in place (``vadvance``: v =
+// fmaf(scale, q, est), one rounding, in float32 storage), and write them to
+// est'.  The chunk assignment is stage_tile's, so each thread reads only its
+// own copies, visible to it after its cp.async wait.
+template <bool kVec, typename TS = float>
+__device__ __forceinline__ void advance_tile(float* sv, const int8_t* sq,
+                                             const float* __restrict__ scale,
+                                             const int64_t* starts, int num_leaves,
+                                             TS* __restrict__ est_out, int64_t col0,
+                                             int64_t n, int k_peers, int tn) {
+  const int c4 = tn / 4;
+  for (int e = threadIdx.x; e < k_peers * c4; e += blockDim.x) {
+    const int j = e / c4, c = e - j * c4;
+    const int64_t col = col0 + 4 * c;
+    float4 v = *reinterpret_cast<float4*>(sv + j * tn + 4 * c);
+    const char4 qq = *reinterpret_cast<const char4*>(sq + j * tn + 4 * c);
+    const float* sc = scale + static_cast<int64_t>(j) * num_leaves;
+    float s0, s1, s2, s3;
+    if (kVec) {  // every leaf start is a multiple of 4: one leaf a chunk
+      s0 = s1 = s2 = s3 = __ldg(sc + leaf_of(col, starts, num_leaves));
+    } else {
+      s0 = __ldg(sc + leaf_of(col, starts, num_leaves));
+      s1 = __ldg(sc + leaf_of(col + 1, starts, num_leaves));
+      s2 = __ldg(sc + leaf_of(col + 2, starts, num_leaves));
+      s3 = __ldg(sc + leaf_of(col + 3, starts, num_leaves));
+    }
+    v.x = vadvance<TS>(s0, static_cast<float>(qq.x), v.x);
+    v.y = vadvance<TS>(s1, static_cast<float>(qq.y), v.y);
+    v.z = vadvance<TS>(s2, static_cast<float>(qq.z), v.z);
+    v.w = vadvance<TS>(s3, static_cast<float>(qq.w), v.w);
+    *reinterpret_cast<float4*>(sv + j * tn + 4 * c) = v;
+    store4<kVec, TS>(est_out, j, col, n, v);
+  }
 }
 
 // Dynamic shared memory: [K][RP] table | K4 self_w | K4 has-neighbor flags |
@@ -333,7 +379,7 @@ mix_tile_kernel(const TS* __restrict__ x, const TS* __restrict__ est,
                         const float* __restrict__ nbr_w, const float* __restrict__ beta,
                         int d_slots, float local_steps, const float* __restrict__ mass,
                         TS* __restrict__ mixed, TS* __restrict__ d_out,
-                        float* __restrict__ est_out, float* __restrict__ new_mass) {
+                        TS* __restrict__ est_out, float* __restrict__ new_mass) {
   const TileShape ts = tile_shape(k_peers);
   const int rp = ts.rp, tn = ts.tn;
   const int k4 = (k_peers + 3) & ~3;
@@ -395,7 +441,7 @@ mix_tile_kernel(const TS* __restrict__ x, const TS* __restrict__ est,
     cp_async_commit();
     cp_async_wait<1>();  // this tile's copies (all but the newest group) have landed
     if (kHasQ)
-      advance_tile<kVec>(sv, sq, scale, s_start, num_leaves, est_out, col0, n, k_peers, tn);
+      advance_tile<kVec, TS>(sv, sq, scale, s_start, num_leaves, est_out, col0, n, k_peers, tn);
     __syncthreads();
     if (computes) {
       // x of this thread's mix rows (kSnap: and of its d rows' peers), loads
@@ -462,17 +508,14 @@ cudaError_t launch_tile(bool has_q, size_t smem, cudaStream_t s, const TS* x,
                         const LeafStarts& leaves, int num_leaves, int64_t n, int k_peers,
                         const float* self_w, const int32_t* nbr_idx, const float* nbr_w,
                         const float* beta, int d_slots, float local_steps, const float* mass,
-                        TS* mixed, TS* d_out, float* est_out, float* new_mass) {
+                        TS* mixed, TS* d_out,
+                        typename std::remove_const<TS>::type* est_out,  // not deduced: may be null
+                        float* new_mass) {
   void (*kernel)(const TS*, const TS*, const int8_t*, const float*, LeafStarts, int, int64_t,
                  int, const float*, const int32_t*, const float*, const float*, int, float,
-                 const float*, TS*, TS*, float*, float*);
-  if constexpr (std::is_same<TS, float>::value) {
-    kernel = has_q ? mix_tile_kernel<kVec, true, kSelfStaged, kMass, kSnap, TS>
-                   : mix_tile_kernel<kVec, false, kSelfStaged, kMass, kSnap, TS>;
-  } else {  // a bf16 tile has no payload
-    if (has_q) return cudaErrorInvalidValue;
-    kernel = mix_tile_kernel<kVec, false, kSelfStaged, kMass, kSnap, TS>;
-  }
+                 const float*, TS*, TS*, TS*, float*) =
+      has_q ? mix_tile_kernel<kVec, true, kSelfStaged, kMass, kSnap, TS>
+            : mix_tile_kernel<kVec, false, kSelfStaged, kMass, kSnap, TS>;
   const TileShape ts = tile_shape(k_peers);
   const int64_t n_tiles = (n + ts.tn - 1) / ts.tn;
   // the persistent grid: as many blocks as fit on the SMs, at most one a

@@ -2,7 +2,8 @@
 ``repro.kernels.consensus_mix.dequant``).
 
 ``dequant_mix_stacked`` runs one compressed-gossip step plus the affinity-d
-update for all K peers of a (K, N) float32 flat parameter buffer: it advances
+update for all K peers of a (K, N) float32 or bf16 flat parameter buffer and
+its estimate stack of the same type: it advances
 every peer's public estimate by its int8 payload (one float32 scale per peer
 and leaf of the row) and mixes the advanced estimates of the neighbors, in one
 pass.  It replaces the Pallas TPU kernel
@@ -24,6 +25,10 @@ function's; the runtime keeps one a peer and leaf), ``dequant_mix_flat``
 that may be a 0-d tensor on the device).  Their d follows the port's
 runtime: the own estimate in it is advanced by the own payload (the
 reference's wrapper takes it before the advance; ROADMAP.md section 3).
+
+A bf16 buffer and estimate take the kernel's bf16 storage mode, which
+rounds the advance where the reference rounds it, ``bf16(est + bf16(scale *
+q))``, and sums in float32 (``ref.advance_estimates``).
 
 Dispatch is by the device of the buffer, and only by it:
 
@@ -85,14 +90,16 @@ def load_kernel() -> build.KernelLibrary:
     """Build (first call) and load the kernel library; declares its C signature."""
     kl = build.load_library("dequant_mix", SOURCES)
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    for fn in (kl.lib.dequant_mix_f32, kl.lib.dequant_mix_tile_f32):
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, ptr, ptr, ptr, ptr, i64,
-                       ctypes.c_float, ctypes.c_int, ptr, ptr, ptr, ptr]
-        fn.restype = ctypes.c_int
-    for fn in (kl.lib.dequant_mix_push_sum_f32, kl.lib.dequant_mix_push_sum_tile_f32):
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, ptr, ptr, ptr, ptr, i64,
-                       ctypes.c_float, ctypes.c_int, ptr, ptr, ptr, ptr, ptr, ptr]
-        fn.restype = ctypes.c_int
+    for dtype in ("f32", "bf16"):
+        for tile in ("", "_tile"):
+            fn = getattr(kl.lib, f"dequant_mix{tile}_{dtype}")
+            fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, ptr, ptr, ptr, ptr, i64,
+                           ctypes.c_float, ctypes.c_int, ptr, ptr, ptr, ptr]
+            fn.restype = ctypes.c_int
+            fn = getattr(kl.lib, f"dequant_mix_push_sum{tile}_{dtype}")
+            fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, ptr, ptr, ptr, ptr, i64,
+                           ctypes.c_float, ctypes.c_int, ptr, ptr, ptr, ptr, ptr, ptr]
+            fn.restype = ctypes.c_int
     kl.lib.dequant_mix_tile_columns.argtypes = [i64]
     kl.lib.dequant_mix_tile_columns.restype = i64
     return kl
@@ -112,7 +119,7 @@ def _check(flat, est, q, scale, ops, leaf_offsets, local_steps) -> None:
     if offs[0] != 0 or any(b <= a for a, b in zip(offs, offs[1:])) or offs[-1] > flat.shape[-1]:
         raise ValueError(f"leaf_offsets {offs} must rise from 0 to at most N={flat.shape[-1]}")
     check_operands(flat, ops, local_steps, max_slots(num_leaves, q is not None), "dequant_mix")
-    tensors = {"est": (est, torch.float32, tuple(flat.shape))}
+    tensors = {"est": (est, flat.dtype, tuple(flat.shape))}
     if (q is None) != (scale is None):
         raise ValueError("q and scale come together, or both are None")
     if q is not None:
@@ -128,9 +135,10 @@ def _check(flat, est, q, scale, ops, leaf_offsets, local_steps) -> None:
 
 
 def takes_vector_path(leaf_offsets, *tensors: torch.Tensor) -> bool:
-    """Whether a launch on these tensors runs the float4 path: N and every
-    leaf start a multiple of 4, float32 buffers 16-byte aligned, int8 ones
-    4-byte aligned.  Otherwise the kernel runs its scalar path."""
+    """Whether a launch on these tensors runs the vector path (4 elements a
+    load: a float4, or 8 bytes of bf16): N and every leaf start a multiple
+    of 4, float32 and bf16 buffers 16-byte aligned, int8 ones 4-byte
+    aligned.  Otherwise the kernel runs its scalar path."""
     n = tensors[0].shape[-1]
     aligned = all(
         t.data_ptr() % (4 if t.dtype == torch.int8 else 16) == 0 for t in tensors if t is not None
@@ -161,11 +169,9 @@ def launch(
     raises if CUDA refused it.
     """
     lib = load_kernel().lib
-    tile = takes_tile_path(flat.shape[0])
-    if mass is None:
-        fn = lib.dequant_mix_tile_f32 if tile else lib.dequant_mix_f32
-    else:
-        fn = lib.dequant_mix_push_sum_tile_f32 if tile else lib.dequant_mix_push_sum_f32
+    tile = "_tile" if takes_tile_path(flat.shape[0]) else ""
+    dtype = "bf16" if flat.dtype == torch.bfloat16 else "f32"
+    fn = getattr(lib, f"dequant_mix{'' if mass is None else '_push_sum'}{tile}_{dtype}")
     starts = [int(o) for o in leaf_offsets[:-1]] if q is not None else [0]
     vec4 = takes_vector_path(leaf_offsets if q is not None else (0, 0),
                              flat, est, q, mixed, d_bias, est_out)
@@ -189,8 +195,8 @@ def launch(
 
 
 def dequant_mix_stacked(
-    flat: torch.Tensor,  # (K, N) float32 — every peer's TRUE parameters
-    est: torch.Tensor,  # (K, N) float32 — public estimates
+    flat: torch.Tensor,  # (K, N) float32 or bf16 — every peer's TRUE parameters
+    est: torch.Tensor,  # (K, N) of flat's type — public estimates
     q: torch.Tensor | None,  # (K, N) int8 payloads, or None
     scale: torch.Tensor | None,  # (K, L) float32 per-leaf scales, or None
     ops: SparseOperands,
@@ -217,8 +223,8 @@ def dequant_mix_stacked(
 
 
 def dequant_mix_push_sum_stacked(
-    flat: torch.Tensor,  # (K, N) float32 — every peer's TRUE (de-biased) parameters
-    est: torch.Tensor,  # (K, N) float32 — public estimates
+    flat: torch.Tensor,  # (K, N) float32 or bf16 — every peer's TRUE (de-biased) parameters
+    est: torch.Tensor,  # (K, N) of flat's type — public estimates
     q: torch.Tensor | None,  # (K, N) int8 payloads, or None
     scale: torch.Tensor | None,  # (K, L) float32 per-leaf scales, or None
     mass: torch.Tensor,  # (K,) float32 push-sum mass y

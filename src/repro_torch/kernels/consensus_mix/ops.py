@@ -31,12 +31,11 @@ which may be a 0-d tensor on the device (the round is then selected there,
 with no read back, so a call can be captured in a CUDA graph);
 ``consensus_mix_flat`` takes one peer's row and its neighbors' rows.
 
-The gossip step also takes a bfloat16 buffer (a bf16 model's parameters):
-the kernel's bf16 storage mode reads x as bf16, sums in float32 and writes
-mixed and d as bf16, as the reference mixes a bf16 leaf in float32 and casts
-back; the weights stay float32.  The mass, snapshot and dense-operand modes
-take float32 only and raise ``TypeError`` on bf16 (ROADMAP.md queue 1 item
-18 ports them).
+Every mode also takes a bfloat16 buffer (a bf16 model's parameters): the
+kernel's bf16 storage mode reads x (and the published snapshots P) as bf16,
+sums in float32 and writes mixed and d as bf16, as the reference mixes a
+bf16 leaf in float32 and casts back; the weights, push-sum's mass and y'
+stay float32.
 
 Dispatch is by the device of the buffer, and only by it:
 
@@ -202,20 +201,21 @@ def load_kernel() -> build.KernelLibrary:
                kl.lib.consensus_mix_bf16, kl.lib.consensus_mix_tile_bf16):
         fn.argtypes = [ptr, i64, i64, ptr, ptr, ptr, ptr, i64, ctypes.c_float, ptr, ptr, ptr]
         fn.restype = ctypes.c_int
-    for fn in (kl.lib.consensus_mix_push_sum_f32, kl.lib.consensus_mix_push_sum_tile_f32):
-        fn.argtypes = [ptr, i64, i64, ptr, ptr, ptr, ptr, i64, ctypes.c_float, ptr, ptr, ptr,
-                       ptr, ptr]
-        fn.restype = ctypes.c_int
-    # the snapshot mode: the published buffer after x
-    for fn in (kl.lib.consensus_mix_snapshot_f32, kl.lib.consensus_mix_snapshot_tile_f32):
-        fn.argtypes = [ptr, ptr, i64, i64, ptr, ptr, ptr, ptr, i64, ctypes.c_float, ptr, ptr,
-                       ptr]
-        fn.restype = ctypes.c_int
-    for fn in (kl.lib.consensus_mix_push_sum_snapshot_f32,
-               kl.lib.consensus_mix_push_sum_snapshot_tile_f32):
-        fn.argtypes = [ptr, ptr, i64, i64, ptr, ptr, ptr, ptr, i64, ctypes.c_float, ptr, ptr,
-                       ptr, ptr, ptr]
-        fn.restype = ctypes.c_int
+    for dtype in ("f32", "bf16"):
+        for tile in ("", "_tile"):
+            fn = getattr(kl.lib, f"consensus_mix_push_sum{tile}_{dtype}")
+            fn.argtypes = [ptr, i64, i64, ptr, ptr, ptr, ptr, i64, ctypes.c_float, ptr, ptr,
+                           ptr, ptr, ptr]
+            fn.restype = ctypes.c_int
+            # the snapshot mode: the published buffer after x
+            fn = getattr(kl.lib, f"consensus_mix_snapshot{tile}_{dtype}")
+            fn.argtypes = [ptr, ptr, i64, i64, ptr, ptr, ptr, ptr, i64, ctypes.c_float, ptr,
+                           ptr, ptr]
+            fn.restype = ctypes.c_int
+            fn = getattr(kl.lib, f"consensus_mix_push_sum_snapshot{tile}_{dtype}")
+            fn.argtypes = [ptr, ptr, i64, i64, ptr, ptr, ptr, ptr, i64, ctypes.c_float, ptr,
+                           ptr, ptr, ptr, ptr]
+            fn.restype = ctypes.c_int
     return kl
 
 
@@ -226,7 +226,7 @@ def takes_tile_path(num_peers: int) -> bool:
     return TILE_MIN_PEERS <= num_peers <= TILE_MAX_PEERS
 
 
-GOSSIP_DTYPES = (torch.float32, torch.bfloat16)  # the gossip step's buffer types
+STORAGE_DTYPES = (torch.float32, torch.bfloat16)  # the buffer types every mode takes
 
 
 def vector_width(flat: torch.Tensor) -> int:
@@ -240,12 +240,10 @@ def vector_width(flat: torch.Tensor) -> int:
 
 
 def check_operands(flat: torch.Tensor, ops: SparseOperands, local_steps: int,
-                   max_slots: int, what: str = "consensus_mix",
-                   dtypes: tuple[torch.dtype, ...] = (torch.float32,)) -> None:
-    """Validate a (K, N) buffer of one of ``dtypes`` and its float32 sparse
-    operands for a kernel that stages up to ``max_slots`` slots per peer.
-    A bf16 buffer where only float32 is taken raises ``TypeError`` naming
-    the ROADMAP.md entry that ports it.
+                   max_slots: int, what: str = "consensus_mix") -> None:
+    """Validate a (K, N) float32 or bf16 buffer (``STORAGE_DTYPES``) and its
+    float32 sparse operands for a kernel that stages up to ``max_slots``
+    slots per peer.
 
     The range of ``nbr_idx`` is checked here for CPU tensors only: for CUDA
     tensors ``SparseSchedule`` checked it once, from numpy, and reading it
@@ -253,13 +251,8 @@ def check_operands(flat: torch.Tensor, ops: SparseOperands, local_steps: int,
     """
     if flat.dim() != 2:
         raise ValueError(f"flat must be (K, N), got shape {tuple(flat.shape)}")
-    if flat.dtype not in dtypes:
-        if flat.dtype == torch.bfloat16:
-            raise TypeError(
-                f"{what}: this mode takes float32 only; bf16 parameters mix through "
-                "consensus_mix's gossip step (the other modes' bf16 form is ROADMAP.md "
-                "queue 1 item 18)")
-        raise TypeError(f"{what} takes {', '.join(map(str, dtypes))}, got {flat.dtype}")
+    if flat.dtype not in STORAGE_DTYPES:
+        raise TypeError(f"{what} takes {', '.join(map(str, STORAGE_DTYPES))}, got {flat.dtype}")
     k = flat.shape[0]
     d = ops.nbr_idx.shape[-1]
     want = {"self_w": ((k,), torch.float32), "nbr_idx": ((k, d), torch.int32),
@@ -345,7 +338,7 @@ def launch(
 
 
 def consensus_mix_stacked(
-    flat: torch.Tensor,  # (K, N) float32
+    flat: torch.Tensor,  # (K, N) float32 or bf16
     ops: SparseOperands,
     local_steps: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -353,7 +346,7 @@ def consensus_mix_stacked(
     both (K, N) in fresh buffers of the buffer's type (float32 or bf16)."""
     if flat.device.type not in ("cpu", "cuda"):
         raise ValueError(f"consensus_mix runs on cpu or cuda tensors, got {flat.device}")
-    check_operands(flat, ops, local_steps, MAX_SLOTS, dtypes=GOSSIP_DTYPES)
+    check_operands(flat, ops, local_steps, MAX_SLOTS)
     if flat.device.type == "cpu":
         return ref.consensus_mix_stacked_ref(flat, *ops, local_steps)
     mixed = torch.empty_like(flat)
@@ -363,7 +356,7 @@ def consensus_mix_stacked(
 
 
 def consensus_mix_push_sum_stacked(
-    flat: torch.Tensor,  # (K, N) float32 — the de-biased parameters
+    flat: torch.Tensor,  # (K, N) float32 or bf16 — the de-biased parameters
     mass: torch.Tensor,  # (K,) float32 push-sum mass y
     ops: SparseOperands,  # column-stochastic push weights
     local_steps: int,
@@ -409,30 +402,21 @@ def dense_operands(w_mat: torch.Tensor, beta_mat: torch.Tensor,
                           beta_mat.gather(1, cols).to(torch.float32))
 
 
-def check_dense_dtype(flat: torch.Tensor) -> None:
-    """The dense-operand mode takes a float32 buffer only."""
-    if flat.dtype == torch.bfloat16:
-        raise TypeError("consensus_mix's dense-operand mode is float32 only (its bf16 form is "
-                        "ROADMAP.md queue 1 item 18)")
-
-
 def consensus_mix_dense(
-    flat: torch.Tensor,  # (K, N) float32
+    flat: torch.Tensor,  # (K, N) float32 or bf16
     w_mat: torch.Tensor,  # (K, K) row-stochastic mixing matrix, computed on the device
     beta_mat: torch.Tensor,  # (K, K) affinity matrix
     local_steps: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One gossip step + affinity d from dense (K, K) matrices computed on
     the device (the reference's ``ops.consensus_mix_dense``): the kernel on
-    ``dense_operands``, every j != k a slot.  Returns (mixed, d_bias).
-    float32 only."""
-    check_dense_dtype(flat)
+    ``dense_operands``, every j != k a slot.  Returns (mixed, d_bias)."""
     ops = dense_operands(w_mat, beta_mat, complete_candidates(w_mat.shape[0], w_mat.device))
     return consensus_mix_stacked(flat, ops, local_steps)
 
 
 def consensus_mix_push_sum_dense(
-    flat: torch.Tensor,  # (K, N) float32 — the de-biased parameters
+    flat: torch.Tensor,  # (K, N) float32 or bf16 — the de-biased parameters
     mass: torch.Tensor,  # (K,) float32 push-sum mass y
     w_mat: torch.Tensor,  # (K, K) column-stochastic push matrix, computed on the device
     beta_mat: torch.Tensor,  # (K, K) affinity matrix
@@ -447,8 +431,8 @@ def consensus_mix_push_sum_dense(
 
 
 def consensus_mix_snapshot_stacked(
-    flat: torch.Tensor,  # (K, N) float32 — the live parameters
-    published: torch.Tensor,  # (K, N) float32 — each sender's last published snapshot
+    flat: torch.Tensor,  # (K, N) float32 or bf16 — the live parameters
+    published: torch.Tensor,  # (K, N) of flat's type — each sender's last published snapshot
     ops: SparseOperands,  # the round's age-decayed weights
     local_steps: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -469,8 +453,8 @@ def consensus_mix_snapshot_stacked(
 
 
 def consensus_mix_push_sum_snapshot_stacked(
-    flat: torch.Tensor,  # (K, N) float32 — the live de-biased parameters
-    published: torch.Tensor,  # (K, N) float32 — each sender's last published snapshot
+    flat: torch.Tensor,  # (K, N) float32 or bf16 — the live de-biased parameters
+    published: torch.Tensor,  # (K, N) of flat's type — each sender's last published snapshot
     mass: torch.Tensor,  # (K,) float32 push-sum mass y
     ops: SparseOperands,  # the round's age-decayed column-stochastic weights
     local_steps: int,

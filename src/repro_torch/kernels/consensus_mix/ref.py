@@ -40,6 +40,12 @@ def consensus_mix_stacked_ref(
     *,
     published: torch.Tensor | None = None,  # (K, N): the senders' snapshots
 ) -> tuple[torch.Tensor, torch.Tensor]:
+    mixed, d = _mix_f32(flat, self_w, nbr_idx, nbr_w, beta, local_steps, published=published)
+    return mixed.to(flat.dtype), d.to(flat.dtype)
+
+
+def _mix_f32(flat, self_w, nbr_idx, nbr_w, beta, local_steps: int, *, published=None):
+    """``consensus_mix_stacked_ref``'s (mixed, d) before the cast back: float32."""
     xf = flat.to(torch.float32)
     src = xf if published is None else published.to(torch.float32)
     nbr_idx = nbr_idx.long()
@@ -53,7 +59,7 @@ def consensus_mix_stacked_ref(
         nbr_sum = nbr_sum + beta[:, slot, None] * nbr
     has_nbrs = beta.sum(dim=1) > 0.0
     d = torch.where(has_nbrs[:, None], (nbr_sum - xf) / local_steps, torch.zeros_like(xf))
-    return mixed.to(flat.dtype), d.to(flat.dtype)
+    return mixed, d
 
 
 def one_peer_stack(x, nbrs, w_self, w_nbr, beta):
@@ -155,12 +161,13 @@ def consensus_mix_push_sum_stacked_ref(
     Returns (mixed, d, y').  With ``published`` the neighbor terms read the
     snapshots P (the reference's ``mix_compressed`` with P for the
     estimates): ``mixed = (diag(A) y x + A_off y P) / y'``, ``d = (Beta P -
-    x) / T``.  This is the CPU path of ``ops.consensus_mix_push_sum_stacked``
-    (and of its snapshot mode) and the oracle its kernel modes are held to."""
+    x) / T``.  A bf16 buffer is rounded once, after the division, as the
+    kernel rounds it.  This is the CPU path of
+    ``ops.consensus_mix_push_sum_stacked`` (and of its snapshot mode) and the
+    oracle its kernel modes are held to."""
     self_w_y, nbr_w_y, y_new = push_sum_weights(mass, self_w, nbr_idx, nbr_w)
-    num, d = consensus_mix_stacked_ref(flat, self_w_y, nbr_idx, nbr_w_y, beta, local_steps,
-                                       published=published)
-    return (num / y_new[:, None]).to(flat.dtype), d, y_new
+    num, d = _mix_f32(flat, self_w_y, nbr_idx, nbr_w_y, beta, local_steps, published=published)
+    return (num / y_new[:, None]).to(flat.dtype), d.to(flat.dtype), y_new
 
 
 def leaf_scale_columns(
@@ -174,9 +181,20 @@ def leaf_scale_columns(
     return scale.to(torch.float32)[:, leaf]
 
 
+def advance_estimates(est: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                      leaf_offsets: tuple[int, ...]) -> torch.Tensor:
+    """The estimates advanced by their payloads, ``est + q * scale`` in
+    est's type, rounded where the reference's compressed path rounds them
+    (``ef_compress_leaf``, ``QInt8.decompress``): float32, a multiply then
+    an add; bf16, the payload's value formed in float32 and cast to bf16,
+    then added to the bf16 estimate, ``bf16(est + bf16(q * scale))``."""
+    value = q.to(torch.float32) * leaf_scale_columns(scale, leaf_offsets, est.shape[1])
+    return est + value.to(est.dtype)
+
+
 def dequant_mix_stacked_ref(
-    flat: torch.Tensor,  # (K, N) float32 — every peer's TRUE parameters
-    est: torch.Tensor,  # (K, N) float32 — public estimates before this step's advance
+    flat: torch.Tensor,  # (K, N) float32 or bf16 — every peer's TRUE parameters
+    est: torch.Tensor,  # (K, N) of flat's type — public estimates before this step's advance
     q: torch.Tensor | None,  # (K, N) int8 payloads, or None (estimates already advanced)
     scale: torch.Tensor | None,  # (K, L) float32 per-leaf payload scales
     leaf_offsets: tuple[int, ...],  # L + 1 leaf boundaries of the row
@@ -196,30 +214,40 @@ def dequant_mix_stacked_ref(
         d_k     = (sum_d beta[k, d] * v[nbr_idx[k, d]] - v_k) / T
 
     with d_k = 0 when sum_d beta[k, d] == 0.  Returns (mixed, d, v); with no
-    payload v is ``est`` itself.  This is the CPU path of
-    ``dequant.dequant_mix_stacked`` and the oracle the CUDA kernel is held to.
+    payload v is ``est`` itself.  In bf16 v is rounded as
+    ``advance_estimates`` rounds it, the sums are float32 and mixed and d are
+    rounded once.  This is the CPU path of ``dequant.dequant_mix_stacked``
+    and the oracle the CUDA kernel is held to.
     """
+    mixed, d, adv = _dequant_mix_f32(flat, est, q, scale, leaf_offsets, self_w, nbr_idx, nbr_w,
+                                     beta, local_steps)
+    return mixed.to(flat.dtype), d.to(flat.dtype), adv
+
+
+def _dequant_mix_f32(flat, est, q, scale, leaf_offsets, self_w, nbr_idx, nbr_w, beta,
+                     local_steps: int):
+    """``dequant_mix_stacked_ref``'s (mixed, d) before the cast back
+    (float32), and v in est's type."""
     xf = flat.to(torch.float32)
-    adv = est.to(torch.float32)
-    if q is not None:
-        adv = adv + q.to(torch.float32) * leaf_scale_columns(scale, leaf_offsets, xf.shape[1])
+    adv = est if q is None else advance_estimates(est, q, scale, leaf_offsets)
+    advf = adv.to(torch.float32)
     nbr_idx = nbr_idx.long()
     nbr_w = nbr_w.to(torch.float32)
     beta = beta.to(torch.float32)
     mixed = self_w.to(torch.float32)[:, None] * xf
     nbr_sum = torch.zeros_like(xf)
     for slot in range(nbr_idx.shape[1]):
-        nbr = adv[nbr_idx[:, slot]]  # (K, N): every peer's slot-th advanced neighbor
+        nbr = advf[nbr_idx[:, slot]]  # (K, N): every peer's slot-th advanced neighbor
         mixed = mixed + nbr_w[:, slot, None] * nbr
         nbr_sum = nbr_sum + beta[:, slot, None] * nbr
     has_nbrs = beta.sum(dim=1) > 0.0
-    d = torch.where(has_nbrs[:, None], (nbr_sum - adv) / local_steps, torch.zeros_like(xf))
-    return mixed.to(flat.dtype), d.to(flat.dtype), adv if q is not None else est
+    d = torch.where(has_nbrs[:, None], (nbr_sum - advf) / local_steps, torch.zeros_like(xf))
+    return mixed, d, adv
 
 
 def dequant_mix_push_sum_stacked_ref(
-    flat: torch.Tensor,  # (K, N) float32 — every peer's TRUE (de-biased) parameters
-    est: torch.Tensor,  # (K, N) float32 — public estimates before this step's advance
+    flat: torch.Tensor,  # (K, N) float32 or bf16 — every peer's TRUE (de-biased) parameters
+    est: torch.Tensor,  # (K, N) of flat's type — public estimates before this step's advance
     q: torch.Tensor | None,  # (K, N) int8 payloads, or None
     scale: torch.Tensor | None,  # (K, L) float32 per-leaf payload scales
     leaf_offsets: tuple[int, ...],
@@ -241,9 +269,9 @@ def dequant_mix_push_sum_stacked_ref(
     CPU path of ``dequant.dequant_mix_push_sum_stacked`` and the oracle its
     kernel mode is held to."""
     self_w_y, nbr_w_y, y_new = push_sum_weights(mass, self_w, nbr_idx, nbr_w)
-    num, d, adv = dequant_mix_stacked_ref(flat, est, q, scale, leaf_offsets, self_w_y,
-                                          nbr_idx, nbr_w_y, beta, local_steps)
-    return (num / y_new[:, None]).to(flat.dtype), d, adv, y_new
+    num, d, adv = _dequant_mix_f32(flat, est, q, scale, leaf_offsets, self_w_y, nbr_idx,
+                                   nbr_w_y, beta, local_steps)
+    return (num / y_new[:, None]).to(flat.dtype), d.to(flat.dtype), adv, y_new
 
 
 def dense_mix_operator(
@@ -313,18 +341,25 @@ def segment_mix_stacked_ref(
     beta: torch.Tensor,  # (K, D)
     local_steps: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the ``segment_mix`` kernel, float32: the one-device
-    slot forms of ``core.consensus`` (a (K, D, N) gather, then slot sums in
-    slot order, the mix from ``self_w * x``, as the Pallas grid's innermost
-    slot axis accumulates), and ``d = (slot_sum(beta) - x) / T``, 0 where
-    the raw beta row sums to 0.  This is the CPU path of
-    ``segment.segment_mix_stacked`` and the oracle the CUDA kernel is held
-    to."""
-    gathered = consensus_lib.ring_gather_slots(flat, nbr_idx)
-    mixed = consensus_lib.mix_slots(self_w, nbr_w, flat, gathered)
+    """Plain version of the ``segment_mix`` kernel: the one-device slot
+    forms of ``core.consensus`` in float32 (a (K, D, N) gather, then slot
+    sums in slot order, the mix from ``self_w * x``, as the Pallas grid's
+    innermost slot axis accumulates), and ``d = (slot_sum(beta) - x) / T``,
+    0 where the raw beta row sums to 0, cast back to the buffer's type.
+    This is the CPU path of ``segment.segment_mix_stacked`` and the oracle
+    the CUDA kernel is held to."""
+    mixed, d = _segment_mix_f32(flat, self_w, nbr_idx, nbr_w, beta, local_steps)
+    return mixed.to(flat.dtype), d.to(flat.dtype)
+
+
+def _segment_mix_f32(flat, self_w, nbr_idx, nbr_w, beta, local_steps: int):
+    """``segment_mix_stacked_ref``'s (mixed, d) before the cast back: float32."""
+    xf = flat.to(torch.float32)
+    gathered = consensus_lib.ring_gather_slots(xf, nbr_idx)
+    mixed = consensus_lib.mix_slots(self_w, nbr_w, xf, gathered)
     nbr_sum = consensus_lib.slot_sum(beta, gathered)
     has_nbrs = beta.sum(dim=1) > 0.0
-    d = torch.where(has_nbrs[:, None], (nbr_sum - flat) / local_steps, torch.zeros_like(flat))
+    d = torch.where(has_nbrs[:, None], (nbr_sum - xf) / local_steps, torch.zeros_like(xf))
     return mixed, d
 
 
@@ -343,5 +378,5 @@ def segment_mix_push_sum_stacked_ref(
     ``segment.segment_mix_push_sum_schedule`` and the oracle its kernel mode
     is held to."""
     self_w_y, nbr_w_y, y_new = push_sum_weights(mass, self_w, nbr_idx, nbr_w)
-    num, d = segment_mix_stacked_ref(flat, self_w_y, nbr_idx, nbr_w_y, beta, local_steps)
-    return num / y_new[:, None], d, y_new
+    num, d = _segment_mix_f32(flat, self_w_y, nbr_idx, nbr_w_y, beta, local_steps)
+    return (num / y_new[:, None]).to(flat.dtype), d.to(flat.dtype), y_new

@@ -2,7 +2,8 @@
 ``repro.kernels.consensus_mix.segment``).
 
 ``segment_mix_schedule`` runs one gossip step plus the affinity-d update for
-all K peers of a (K, N) float32 flat parameter buffer over round
+all K peers of a (K, N) float32 or bf16 flat parameter buffer (bf16: the
+kernel's bf16 storage mode, float32 sums, on both routes) over round
 ``round_idx % R`` of a stacked sparse schedule (``ops.upload_schedule``:
 (R, K) and (R, K, D) operands, uploaded once per run); the kernel selects
 the round by offsetting its operand pointers.  ``segment_mix_stacked`` is the
@@ -81,14 +82,15 @@ def load_kernel() -> build.KernelLibrary:
     """Build (first call) and load the kernel library; declares its C signature."""
     kl = build.load_library("segment_mix", SOURCES)
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    fn = kl.lib.segment_mix_f32
-    fn.argtypes = [ptr, i64, i64, ptr, ptr, ptr, ptr, i64, i64, i64, ctypes.c_float,
-                   ptr, ptr, ptr]
-    fn.restype = ctypes.c_int
-    fn = kl.lib.segment_mix_push_sum_f32
-    fn.argtypes = [ptr, i64, i64, ptr, ptr, ptr, ptr, i64, i64, i64, ctypes.c_float,
-                   ptr, ptr, ptr, ptr, ptr]
-    fn.restype = ctypes.c_int
+    for dtype in ("f32", "bf16"):
+        fn = getattr(kl.lib, f"segment_mix_{dtype}")
+        fn.argtypes = [ptr, i64, i64, ptr, ptr, ptr, ptr, i64, i64, i64, ctypes.c_float,
+                       ptr, ptr, ptr]
+        fn.restype = ctypes.c_int
+        fn = getattr(kl.lib, f"segment_mix_push_sum_{dtype}")
+        fn.argtypes = [ptr, i64, i64, ptr, ptr, ptr, ptr, i64, i64, i64, ctypes.c_float,
+                       ptr, ptr, ptr, ptr, ptr]
+        fn.restype = ctypes.c_int
     kl.lib.segment_mix_route.argtypes = [i64, i64]
     kl.lib.segment_mix_route.restype = i64
     return kl
@@ -105,7 +107,7 @@ def kernel_route(k: int, d: int) -> str:
 
 
 def check_schedule(flat: torch.Tensor, ops_s: SparseOperands, local_steps: int) -> None:
-    """Validate a (K, N) float32 buffer and stacked (R, K) / (R, K, D)
+    """Validate a (K, N) float32 or bf16 buffer and stacked (R, K) / (R, K, D)
     operands: shapes, types, device and contiguity of every round, and for
     CPU tensors the index range (see ``ops.check_operands``)."""
     if ops_s.self_w.dim() != 2 or any(t.dim() != 3 for t in ops_s[1:]):
@@ -141,11 +143,12 @@ def launch(
             ops_s.self_w.data_ptr(), ops_s.nbr_idx.data_ptr(), ops_s.nbr_w.data_ptr(),
             ops_s.beta.data_ptr(), ops_s.self_w.shape[0], int(round_idx),
             ops_s.nbr_idx.shape[2], float(local_steps)]
+    dtype = "bf16" if flat.dtype == torch.bfloat16 else "f32"
     if mass is None:
-        fn = lib.segment_mix_f32
+        fn = getattr(lib, f"segment_mix_{dtype}")
         args += [mixed.data_ptr(), d_bias.data_ptr()]
     else:
-        fn = lib.segment_mix_push_sum_f32
+        fn = getattr(lib, f"segment_mix_push_sum_{dtype}")
         args += [mass.data_ptr(), mixed.data_ptr(), d_bias.data_ptr(), new_mass.data_ptr()]
     err = fn(*args, torch.cuda.current_stream(flat.device).cuda_stream)
     if err != 0:
@@ -154,7 +157,7 @@ def launch(
 
 
 def segment_mix_schedule(
-    flat: torch.Tensor,  # (K, N) float32
+    flat: torch.Tensor,  # (K, N) float32 or bf16
     round_idx: int,
     ops_s: SparseOperands,  # stacked (R, K) / (R, K, D)
     local_steps: int,
@@ -182,7 +185,7 @@ def segment_mix_stacked(
 
 
 def segment_mix_push_sum_schedule(
-    flat: torch.Tensor,  # (K, N) float32 — the de-biased parameters
+    flat: torch.Tensor,  # (K, N) float32 or bf16 — the de-biased parameters
     mass: torch.Tensor,  # (K,) float32 push-sum mass y
     round_idx: int,
     ops_s: SparseOperands,  # stacked (R, K) / (R, K, D) push weights

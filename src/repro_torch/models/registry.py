@@ -4,10 +4,8 @@
 
 Every family exposes:
     init(generator) -> params                 (drawn on the generator's device)
-    loss_fn(params, batch) -> scalar          (training: the dense, MoE and
-                                               vlm decoders, rwkv6 and the
-                                               hybrid; encdec is ROADMAP.md
-                                               queue 1 item 18)
+    loss_fn(params, batch) -> scalar          (training, every family: the
+                                               batch is ``make_batch``'s dict)
     init_cache(batch, seq_len, device) -> cache
     prefill(params, batch, cache) -> (logits, cache)
     decode_step(params, token, pos, cache, *, inplace=False) -> (logits, cache)

@@ -46,8 +46,10 @@ kernel on the card) serve training, ``decoder_loss_fn`` trains the dense,
 MoE and vlm decoders (its attention through ``flash_attention`` and its
 backward kernel on the card) and ``hybrid_loss_fn`` the zamba2 hybrid (its
 SSD through ``ssd`` and its backward kernel, the shared block's attention
-through ``flash_attention``'s); the encoder-decoder's loss is ROADMAP.md
-queue 1 item 18.
+through ``flash_attention``'s) and ``encdec_loss_fn`` the encoder-decoder
+(the encoder's non-causal and the decoder's causal self-attention through
+``flash_attention`` and its backward, the cross-attention plain PyTorch, as
+in the reference).
 
 Caches are updated functionally (each layer's new cache, then the stack of
 them), as in the reference.  The decode steps also take ``inplace=True``
@@ -219,22 +221,26 @@ def _decoder_trunk(params, cfg: ModelConfig, x, positions, caches, *, prefill=Fa
     return x, new_caches, aux
 
 
+def _block_shapes(cfg: ModelConfig, use_moe: bool = False,
+                  dense_ff: int | None = None) -> dict[str, tuple[int, ...]]:
+    """The shapes of ``_block_init``'s leaves, in its order."""
+    d = cfg.d_model
+    shapes = {"ln1.scale": (d,)}
+    shapes.update({f"attn.{k}": s for k, s in attention.param_shapes(d, cfg.attention).items()})
+    shapes["ln2.scale"] = (d,)
+    if use_moe:
+        shapes.update({f"moe.{k}": s for k, s in moe.param_shapes(d, cfg.moe).items()})
+    else:
+        shapes.update({f"mlp.{k}": s for k, s in common.mlp_shapes(
+            d, dense_ff or cfg.d_ff).items()})
+    return shapes
+
+
 def decoder_param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     """The shapes of ``decoder_init``'s leaves, in its order, without drawing."""
     d = cfg.d_model
     n_first = _num_first_layers(cfg)
-
-    def block(use_moe: bool, dense_ff: int | None = None) -> dict[str, tuple[int, ...]]:
-        shapes = {"ln1.scale": (d,)}
-        shapes.update({f"attn.{k}": s for k, s in attention.param_shapes(d, cfg.attention).items()})
-        shapes["ln2.scale"] = (d,)
-        if use_moe:
-            shapes.update({f"moe.{k}": s for k, s in moe.param_shapes(d, cfg.moe).items()})
-        else:
-            shapes.update({f"mlp.{k}": s for k, s in common.mlp_shapes(
-                d, dense_ff or cfg.d_ff).items()})
-        return shapes
-
+    block = functools.partial(_block_shapes, cfg)
     shapes = {"embed": (cfg.vocab_size, d)}
     if n_first:
         shapes.update({FIRST_LAYERS + k: (n_first, *s) for k, s in block(
@@ -644,28 +650,54 @@ def _encdec_dec_block(p, cfg: ModelConfig, x, positions, cache, enc_kv, *, prefi
 
 def _encdec_dec_trunk(params, cfg: ModelConfig, x, positions, caches, cross_kv, *,
                       prefill=False, inplace=False):
-    """caches: the self-attention caches stacked over the layers;
-    cross_kv: (cross_k, cross_v) stacked.  Returns (x after the final norm,
-    the new caches stacked; ``inplace``: ``caches``, written)."""
+    """caches: the self-attention caches stacked over the layers, or None
+    (no cache: the training loss); cross_kv: (cross_k, cross_v) stacked.
+    Returns (x after the final norm, the new caches stacked; ``inplace`` or
+    no cache: ``caches``, written)."""
     layers = common.sub(params, DEC_LAYERS)
     cross_k, cross_v = cross_kv
     new = []
     for i in range(cfg.num_layers):
         x, c = _encdec_dec_block(common.row(layers, i), cfg, x, positions,
-                                 common.row(caches, i), (cross_k[i], cross_v[i]),
-                                 prefill=prefill, inplace=inplace)
+                                 None if caches is None else common.row(caches, i),
+                                 (cross_k[i], cross_v[i]), prefill=prefill, inplace=inplace)
         new.append(c)
     x = common.rmsnorm(common.sub(params, "final_norm."), x, cfg.norm_eps)
-    if inplace:
+    if inplace or caches is None:
         return x, caches
     return x, {name: torch.stack([c[name] for c in new]) for name in caches}
 
 
+def encdec_param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    """The shapes of ``encdec_init``'s leaves, in its order, without drawing."""
+    d = cfg.d_model
+    shapes = {"frontend_proj": (cfg.frontend_dim, d)}
+    shapes.update({ENC_LAYERS + k: (cfg.encoder_layers, *s)
+                   for k, s in _block_shapes(cfg).items()})
+    shapes["enc_norm.scale"] = (d,)
+    shapes["embed"] = (cfg.vocab_size, d)
+    dec = _block_shapes(cfg)
+    dec["ln_cross.scale"] = (d,)
+    dec.update({f"cross.{k}": s for k, s in attention.param_shapes(d, cfg.attention).items()})
+    shapes.update({DEC_LAYERS + k: (cfg.num_layers, *s) for k, s in dec.items()})
+    shapes["final_norm.scale"] = (d,)
+    return shapes
+
+
 def encdec_loss_fn(params, cfg: ModelConfig, batch):
-    raise NotImplementedError(
-        "training the encoder-decoder language model is not ported yet: ROADMAP.md queue 1 "
-        "item 18"
-    )
+    """Mean next-token cross entropy of the decoder over ``batch`` =
+    {"frames" (B, S_enc, F), "tokens", "labels" (B, S)} (the reference's
+    ``encdec_loss_fn``): the frames encoded (non-causal self-attention
+    through ``flash_attention``), every decoder layer's cross k and v of
+    the encoder's output, the decoder trunk with no cache (causal
+    self-attention through ``flash_attention``, the cross-attention plain),
+    the logits and the loss."""
+    cross_kv = encdec_cross_kv(params, cfg, encdec_encode(params, cfg, batch["frames"]))
+    x = common.embed_lookup(params["embed"], batch["tokens"], compute_dtype(cfg))
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    x, _ = _encdec_dec_trunk(params, cfg, x, positions, None, cross_kv)
+    return common.cross_entropy_loss(decoder_logits(params, cfg, x), batch["labels"])
 
 
 def encdec_init_cache(cfg: ModelConfig, batch: int, max_seq: int, enc_len: int,

@@ -213,7 +213,7 @@ def test_dense_operator_product_matches_plain(topology, k, dmax, self_only_w):
 
 
 # ---------------------------------------------------------------------------
-# bf16 parameters (a bf16 language model's consensus), gossip only
+# bf16 parameters (a bf16 language model's consensus)
 # ---------------------------------------------------------------------------
 
 BF16_TOL = dict(atol=5e-2, rtol=5e-2)  # tests/test_kernels.py's bf16 tolerance
@@ -242,24 +242,41 @@ def test_bf16_plain_matches_reference_pallas_interpret(n, d):
         assert torch.equal(g, w.to(torch.bfloat16))
 
 
-def test_bf16_only_in_the_gossip_step():
-    """The gossip step takes bf16; the mass, snapshot and dense-operand
-    modes raise ``TypeError`` naming the ROADMAP.md entry that ports them."""
+BF16_MODES = {
+    "mass": lambda x, pub, mass, ops, w, beta: tops.consensus_mix_push_sum_stacked(
+        x, mass, ops, T),
+    "snapshot": lambda x, pub, mass, ops, w, beta: tops.consensus_mix_snapshot_stacked(
+        x, pub, ops, T),
+    "mass_snapshot": lambda x, pub, mass, ops, w, beta:
+        tops.consensus_mix_push_sum_snapshot_stacked(x, pub, mass, ops, T),
+    "dense": lambda x, pub, mass, ops, w, beta: tops.consensus_mix_dense(x, w, beta, T),
+}
+
+
+@pytest.mark.parametrize("mode", list(BF16_MODES))
+def test_bf16_in_every_mode(mode):
+    """Every mode takes a bf16 buffer (a bf16 model's parameters under
+    push-sum, bounded staleness and adaptive selection): its outputs bf16
+    (the new mass float32), each the float32 sums of the bf16 values rounded
+    once; a float16 buffer is refused.  Each mode is held to the reference
+    in tests/test_torch_bf16_modes.py."""
     g = tgraph.build_graph("complete", 4)
     w, beta = tgraph.mixing_matrix(g), tgraph.affinity_matrix(g)
     ops = tops.sparse_from_matrices(w, beta)
-    x = torch.zeros(4, 16, dtype=torch.bfloat16)
-    mass = torch.ones(4)
-    assert tops.consensus_mix_stacked(x, ops, T)[0].dtype == torch.bfloat16
-    for call in (lambda: tops.consensus_mix_push_sum_stacked(x, mass, ops, T),
-                 lambda: tops.consensus_mix_snapshot_stacked(x, x.clone(), ops, T),
-                 lambda: tops.consensus_mix_push_sum_snapshot_stacked(x, x.clone(), mass, ops, T),
-                 lambda: tops.consensus_mix_dense(x, torch.as_tensor(w, dtype=torch.float32),
-                                                  torch.as_tensor(beta, dtype=torch.float32), T)):
-        with pytest.raises(TypeError, match="ROADMAP.md queue 1 item 18"):
-            call()
+    rng = np.random.default_rng(4)
+    x = torch.as_tensor(rng.normal(size=(4, 24)).astype(np.float32)).to(torch.bfloat16)
+    pub = (x.float() + 0.1).to(torch.bfloat16)
+    mass = torch.as_tensor([0.5, 1.0, 1.5, 1.0])
+    wt, bt = (torch.as_tensor(m, dtype=torch.float32) for m in (w, beta))
+    got = BF16_MODES[mode](x, pub, mass, ops, wt, bt)
+    want = BF16_MODES[mode](x.float(), pub.float(), mass, ops, wt, bt)
+    for g_out, w_out in zip(got, want):
+        if g_out.dtype == torch.float32:  # the new mass
+            assert torch.equal(g_out, w_out)
+        else:
+            assert g_out.dtype == torch.bfloat16 and torch.equal(g_out, w_out.to(torch.bfloat16))
     with pytest.raises(TypeError, match="float32"):
-        tops.consensus_mix_stacked(x.half(), ops, T)
+        BF16_MODES[mode](x.half(), pub.half(), mass, ops, wt, bt)
 
 
 def test_vector_path_rule_sees_bf16_rows():

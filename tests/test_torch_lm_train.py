@@ -166,8 +166,10 @@ def test_ssm_loss_and_grads_match_reference(arch):
 
 def test_model_loss_fn_reaches_decoder_loss():
     """The registry's dense, MoE and vlm ``Model.loss_fn`` is
-    ``decoder_loss_fn``, rwkv6's ``rwkv6_loss_fn`` and the hybrid's
-    ``hybrid_loss_fn``; the encoder-decoder's still raises."""
+    ``decoder_loss_fn``, rwkv6's ``rwkv6_loss_fn``, the hybrid's
+    ``hybrid_loss_fn`` and the encoder-decoder's ``encdec_loss_fn``, which
+    ``from_model`` trains on its batch tree (held to the reference in
+    tests/test_torch_vlm_encdec.py)."""
     for arch in ("smollm-135m", "qwen3-moe-235b-a22b", "internvl2-2b"):
         _, jparams, batch = _decoder_case(arch, seed=1)
         cfg = reduced(get_config(arch))
@@ -182,11 +184,17 @@ def test_model_loss_fn_reaches_decoder_loss():
         params = interop.params_from_jax(jax.tree.map(np.asarray, jparams))
         tbatch = {k: torch.as_tensor(v, dtype=torch.int64) for k, v in batch.items()}
         assert torch.equal(build_model(cfg).loss_fn(params, tbatch), loss_fn(params, cfg, tbatch))
-    arch = "seamless-m4t-medium"
-    with pytest.raises(NotImplementedError, match="item 18"):
-        build_model(reduced(get_config(arch))).loss_fn({}, {"tokens": None, "labels": None})
-    with pytest.raises(NotImplementedError, match="item 18"):
-        task_lib.from_model(build_model(reduced(get_config(arch))))
+    model = build_model(reduced(get_config("seamless-m4t-medium")))
+    gen = torch.Generator().manual_seed(1)
+    params, batch = model.init(gen), model.make_batch(gen, 2, 16)
+    assert torch.equal(model.loss_fn(params, batch), tf.encdec_loss_fn(params, model.cfg, batch))
+    task = task_lib.from_model(model)
+    assert task.param_shapes == tf.encdec_param_shapes(model.cfg)
+    assert task.param_shapes == {name: tuple(v.shape) for name, v in params.items()}
+    stacked = {name: torch.stack([v, v]) for name, v in params.items()}
+    losses = task.loss_fn(stacked, {name: torch.stack([v, v]) for name, v in batch.items()})
+    assert losses.shape == (2,) and torch.equal(losses[0], losses[1])
+    torch.testing.assert_close(losses[0], model.loss_fn(params, batch))
 
 
 def test_from_model_task_and_bf16_layout():
@@ -454,20 +462,44 @@ def test_one_type_task_keeps_one_buffer(arch, dtype):
 
 
 @pytest.mark.parametrize("field,value", [("protocol", "push_sum"), ("compressor", "qint8"),
-                                         ("staleness_bound", 2), ("schedule", "adaptive")])
-def test_mixed_task_refuses_what_it_cannot_run_yet(field, value):
-    """A task of mixed leaf types mixes through ``consensus_mix``'s gossip
-    step only: push-sum's mass mode, a compressed wire, bounded staleness
-    and adaptive selection raise, naming the ROADMAP.md item, and so does
-    the scan driver."""
-    _, task = _bf16_task("rwkv6-7b")
+                                         ("compressor", "topk"), ("staleness_bound", 2),
+                                         ("schedule", "adaptive")])
+def test_mixed_task_runs_every_mode(field, value):
+    """A task of mixed leaf types runs push-sum's mass mode, a compressed
+    wire, bounded staleness and adaptive selection, and the scan driver:
+    the float32 block carries the mode's buffers (its estimates, its
+    published snapshots) beside the bf16 block's, the protocol state and
+    the snapshot ages are shared, each float32 leaf stays float32, and the
+    scan driver's state carries every leaf of both blocks (``state_leaves``
+    round-trips through ``with_leaves``).  Each mode is held to the
+    reference in tests/test_torch_lm_modes.py."""
+    cfg, task = _bf16_task("rwkv6-7b")
     pcfg = dataclasses.replace(ttrain.lm_config(
         num_peers=2, local_steps=1, algorithm="p2pl_affinity", lr=1e-2, momentum=0.5,
         eta_d=0.25), **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 18b"):
-        tp2p.init_state(task, pcfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="scan driver.*ROADMAP.md queue 1 item 18b"):
-        tp2p.make_scan_driver(task, pcfg, device="cpu")
+    state = tp2p.init_state(task, pcfg, seed=0, device="cpu")
+    wide = state.wide
+    assert wide.params.dtype == torch.float32
+    assert isinstance(wide.compression, torch.Tensor) == (field == "compressor")
+    assert isinstance(wide.published, torch.Tensor) == (field == "staleness_bound")
+    for extra in (wide.compression, wide.published):
+        if isinstance(extra, torch.Tensor):
+            assert torch.equal(extra, wide.params) and extra.data_ptr() != wide.params.data_ptr()
+    leaves = tp2p.state_leaves(state)
+    again = tp2p.with_leaves(state, leaves, 0)
+    assert [t.data_ptr() for t in tp2p.state_leaves(again)] == [t.data_ptr() for t in leaves]
+    tokens, labels = ttrain.lm_token_batches(np.random.default_rng(0), cfg.vocab_size,
+                                             num_peers=2, local_steps=1, batch=2, seq=16)
+    batches = tuple(torch.as_tensor(a, dtype=torch.int64) for a in (tokens, labels))
+    _, after, _ = tp2p.make_round_fn(task, pcfg, device="cpu")(state, batches)
+    for block in tp2p.param_blocks(after):
+        assert bool(torch.isfinite(block.float()).all())
+    assert after.wide.params.dtype == torch.float32
+    assert not torch.equal(after.wide.params, state.wide.params)
+    _, scan, _ = tp2p.make_scan_driver(task, pcfg, device="cpu", donate=False)(
+        state, tuple(b[None] for b in batches))
+    for a, b in zip(tp2p.state_leaves(after), tp2p.state_leaves(scan)):
+        assert torch.equal(a, b)
 
 
 def test_resolve_loss_and_init_fns():

@@ -23,8 +23,9 @@ the CPU.
   (ROADMAP.md section 3): its cache is sized by ``split_encdec_seq(prompt +
   gen)``, so at prompt 16 and 8 tokens decode position 18 lands in slot 0 in
   both packages.
-- ``loss_fn`` of the encoder-decoder raises, naming ROADMAP.md item 18;
-  the vlm's is ``decoder_loss_fn`` (tests/test_torch_lm_train.py).
+- ``encdec_loss_fn`` and its gradients against the reference's, float32
+  and bf16; the vlm's loss is ``decoder_loss_fn``
+  (tests/test_torch_lm_train.py).
 
 Tolerances: float32 atol 5e-5 / rtol 1e-4 (the same arithmetic summed in
 another order); bf16 5e-2, the repository's bf16 tolerance, with every
@@ -433,14 +434,34 @@ def test_cli_serves_the_family(arch, capsys):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_loss_raises_naming_item_18(arch):
-    """The encoder-decoder's loss is still ROADMAP.md item 18; the vlm's is
-    ``decoder_loss_fn`` now (held to the reference in
-    tests/test_torch_lm_train.py), finite on a batch of its own."""
+    """Named for the item-18 raise it held until the encoder-decoder's loss
+    was ported; it now holds the loss.  Both families' losses are ported:
+    the vlm's is ``decoder_loss_fn`` (held to the reference in
+    tests/test_torch_lm_train.py), finite on a batch of its own; the encoder-decoder's ``encdec_loss_fn`` (the frames
+    encoded, the decoder over the tokens with the cross k and v, no cache)
+    and its gradients equal the reference's ``jax.value_and_grad``, float32
+    (the loss at 5e-5 / 1e-4, each gradient at 1e-5 / 1e-3, as
+    tests/test_torch_lm_train.py holds the decoders') and bf16 (5e-2, every
+    gradient in its leaf's type)."""
     model = build_model(tconfigs.reduced(tconfigs.get_config(arch)))
     if model.cfg.family == "vlm":
         gen = torch.Generator().manual_seed(0)
         loss = model.loss_fn(model.init(gen), model.make_batch(gen, 2, 12))
         assert loss.dim() == 0 and bool(torch.isfinite(loss))
         return
-    with pytest.raises(NotImplementedError, match="item 18"):
-        model.loss_fn({}, {})
+    for dtype, loss_tol, grad_tol in (("float32", F32_TOL, dict(atol=1e-5, rtol=1e-3)),
+                                      ("bfloat16", BF16_TOL, BF16_TOL)):
+        jmodel, jparams, tmodel, params = _models(arch, dtype)
+        jbatch = jmodel.make_batch(jax.random.PRNGKey(5), 2, 24)
+        jloss, jgrads = jax.jit(jax.value_and_grad(jmodel.loss_fn))(jparams, jbatch)
+        leaves = {name: v.clone().requires_grad_(True) for name, v in params.items()}
+        loss = ttf.encdec_loss_fn(leaves, tmodel.cfg, _batch_to_torch(jbatch))
+        assert loss.dtype == torch.float32
+        np.testing.assert_allclose(float(loss.detach()), float(jloss), **loss_tol, err_msg=dtype)
+        grads = torch.autograd.grad(loss, list(leaves.values()), materialize_grads=True)
+        want = _export(jgrads)
+        assert set(want) == set(leaves)
+        for name, g in zip(leaves, grads):
+            assert g.dtype == want[name].dtype, name
+            np.testing.assert_allclose(g.float().numpy(), want[name].float().numpy(),
+                                       **grad_tol, err_msg=f"{dtype} {name}")
