@@ -180,6 +180,29 @@ In order:
    against its plain version (bf16 5e-2), ``make_consensus_step_psum``
    against ``make_consensus_step`` on the complete graph, and a checkpoint
    of the parameters and one peer's AdamW state restored bit for bit;
+   ``consensus_mix``'s row range (run with 3a: a launch that computes the
+   rows of some peers only, reading every peer's: how a rank of the sharded runtime
+   mixes its own row) in every mode (gossip, mass, snapshot, both, dense
+   operands and their mass mode; float32 and bf16; the gather at K = 8 and
+   the column tile at K = 100), four ranges each held to the full launch's
+   rows bit for bit and to the plain version, timed at ``sharded_k8``'s
+   K = 8 row, K = 100 and smollm-135m's bf16 row at K = 2;
+3a. runs the sharded runtime, one process per peer (last, after step 9,
+   each earlier phase having freed what it held): ``sharded_k8`` as 8
+   ranks on the one card through
+   the ``cuda_ipc`` group (one spawn): gossip and push-sum on the
+   reference's eight schedule entries, qint8 and staleness 2 each, two
+   rounds a case, every rank's rows after both phases and its losses equal
+   to the vmap runtime's run here first, bit for bit (qint8: allclose),
+   the pod scan driver's chunk too, and two cases at local width 1 with
+   their distance from the vmap rows; each case's time a round against the
+   vmap round's, the exchange time a call, the communication share and
+   each rank's peak memory; then ``run_paper_experiment(sharded_k8(),
+   peer_axis="pod")`` 10 rounds, its accuracies, losses and drift equal to
+   the vmap run's; then smollm-135m at full width, bf16, as K = 2 ranks,
+   one round against the vmap round run first and freed (its rows within
+   the bf16 tolerance, and the sharded consensus from its post-local rows
+   bit for bit);
 4. serves RWKV6-7B at full width and depth (bf16, random init on the card)
    through ``serve_batch``: batch 4, prompt 1024, first prefill only, then
    prefill and 15 decode steps, asserting ``wkv6`` launched once per layer
@@ -321,7 +344,8 @@ In order:
    ``segment_mix`` at K = 100 beside K = 4096 in both modes and with its
    routes' edges, ``consensus_mix`` also with its snapshot mode,
    ``consensus_mix`` and ``dequant_mix`` with their dense-operand
-   cases and the adaptive paths' launches) and, last, the contract line
+   cases and the adaptive paths' launches, ``consensus_mix`` with its row
+   range and the sharded paths' launches) and, last, the contract line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result;
@@ -331,6 +355,7 @@ so does a run without a CUDA device or outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -4075,9 +4100,10 @@ def step_api_smollm(card: Card) -> dict:
     consensus synchronized and timed; then, outside the count, one more
     consensus step against its plain version (bf16 5e-2),
     ``make_consensus_step_psum`` against ``make_consensus_step`` on the
-    complete graph with uniform weights, and a checkpoint of the stacked
-    parameters and peer 0's AdamW state saved to a temporary directory and
-    restored onto the card bit for bit."""
+    complete graph with uniform weights, ``make_multipod_train_step`` on
+    peers 0 and 1 against each one's ``make_train_step`` (bf16 5e-2), and a
+    checkpoint of the stacked parameters and peer 0's AdamW state saved to a
+    temporary directory and restored onto the card bit for bit."""
     import tempfile
 
     from repro_torch import checkpoint, optim, pytree
@@ -4212,6 +4238,33 @@ def step_api_smollm(card: Card) -> dict:
     psum_err = {"mixed": compare_tree(f"{name} psum mixed", psum[0], kern[0], tol),
                 "d": compare_tree(f"{name} psum d", psum[1], kern[1], tol)}
     del psum, kern
+    # make_multipod_train_step on peers 0 and 1 (the kernels' Functions under
+    # torch.func.vmap: their vmap rules fold the peers into the batch)
+    # against each peer's make_train_step, one step at the schedule's peak
+    def stack(trees):
+        return pytree.tree_map(lambda *xs: torch.stack(xs), *trees)
+
+    two = [{leaf: v[i] for leaf, v in tree.items()} for tree in (stacked, d_bias) for i in (0, 1)]
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    got = steps.make_multipod_train_step(model, opt, eta_d=0.25)(
+        stack(two[:2]), stack(opt_states[:2]), stack(two[2:]), stack([batch(0), batch(1)]), 1)
+    torch.cuda.synchronize()
+    multipod_s = time.perf_counter() - start
+    multipod_err = {}
+
+    def flat(tree):
+        return torch.cat([tree[leaf].reshape(-1) for leaf in sorted(tree)])
+
+    for i in (0, 1):
+        want = train_step(two[i], opt_states[i], two[2 + i], batch(i), 1)
+        multipod_err[f"peer {i} loss"] = compare_tree(f"{name} multipod peer {i} loss",
+                                                      got[2][i], want[2], tol)
+        multipod_err[f"peer {i} params"] = compare_tree(
+            f"{name} multipod peer {i} params",
+            flat({leaf: v[i] for leaf, v in got[0].items()}), flat(want[0]), tol)
+        del want
+    del got, two
     # a checkpoint of the stacked parameters and peer 0's AdamW state
     tree = {"params": stacked, "opt0": opt_states[0]}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
@@ -4240,7 +4293,9 @@ def step_api_smollm(card: Card) -> dict:
           f"{consensus_s}; peak memory {peak_gb:.3f} GB; losses {losses}; launches "
           f"{ {key: v for key, v in launches.items() if v} }; consensus against its plain "
           f"version, max abs error {json.dumps(consensus_err)}; psum against the kernel step "
-          f"on the complete graph {json.dumps(psum_err)}; checkpoint {ckpt_gb:.3f} GB "
+          f"on the complete graph {json.dumps(psum_err)}; make_multipod_train_step on 2 peers "
+          f"{multipod_s:.3f} s, against make_train_step {json.dumps(multipod_err)}; "
+          f"checkpoint {ckpt_gb:.3f} GB "
           f"({len(leaves)} leaves) saved in {save_s:.2f} s, restored bit for bit in "
           f"{restore_s:.2f} s", flush=True)
     del stacked, d_bias, opt_states
@@ -4250,6 +4305,7 @@ def step_api_smollm(card: Card) -> dict:
             "setup_s": setup_s, "grad_check": {key: v for key, v in grad_check.items()
                                                if key != "leaf_rel_norm_err"},
             "consensus_max_abs_err": consensus_err, "psum_max_abs_err": psum_err,
+            "multipod_s": multipod_s, "multipod_max_abs_err": multipod_err,
             "checkpoint": {"gb": ckpt_gb, "save_s": save_s, "restore_s": restore_s}}
 
 
@@ -4357,13 +4413,86 @@ def check_seqmnist_wkv6(card: Card) -> dict:
     return {"features_max_abs_diff": features_err, "cases": cases}
 
 
+def captured_kernel_names(fn) -> list[str]:
+    """The kernels that a CUDA graph of one call of ``fn`` holds, by their
+    (mangled) names, read from the graph's nodes with the CUDA driver
+    (``cuGraphGetNodes``, ``cuFuncGetName``): a count that no profiler
+    buffer can drop.  ``fn`` is warmed up once on a side stream and captured
+    into a graph of its own, which is kept for reading and never replayed;
+    the launch counters keep the counts they had."""
+    import ctypes
+    import gc
+
+    from repro_torch.kernels.build import LaunchCounter
+
+    drv = ctypes.CDLL("libcuda.so.1")
+
+    class KernelNodeParams(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p),
+                    *((f, ctypes.c_uint) for f in ("grid_x", "grid_y", "grid_z", "block_x",
+                                                    "block_y", "block_z", "shared_bytes")),
+                    ("kernel_params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                    ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+    def call(name, *args):
+        rc = getattr(drv, name)(*args)
+        if rc != 0:
+            raise RuntimeError(f"{name} failed: CUresult {rc}")
+
+    def names_of(graph) -> list[str]:
+        n = ctypes.c_size_t(0)
+        call("cuGraphGetNodes", ctypes.c_void_p(graph), None, ctypes.byref(n))
+        nodes = (ctypes.c_void_p * n.value)()
+        call("cuGraphGetNodes", ctypes.c_void_p(graph), nodes, ctypes.byref(n))
+        out = []
+        for node in nodes:
+            kind = ctypes.c_int(-1)
+            call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
+            if kind.value == 4:  # CU_GRAPH_NODE_TYPE_GRAPH: a child graph
+                child = ctypes.c_void_p()
+                call("cuGraphChildGraphNodeGetGraph", ctypes.c_void_p(node), ctypes.byref(child))
+                out += names_of(child.value)
+            elif kind.value == 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+                params, name = KernelNodeParams(), ctypes.c_char_p()
+                call("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node), ctypes.byref(params))
+                if params.func:
+                    call("cuFuncGetName", ctypes.byref(name), ctypes.c_void_p(params.func))
+                else:
+                    call("cuKernelGetName", ctypes.byref(name), ctypes.c_void_p(params.kern))
+                out.append(name.value.decode())
+        return out
+
+    counts = [c.count for c in LaunchCounter.instances]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    gc.disable()  # as capture.Captured: no collection of another graph mid-capture
+    try:
+        with torch.cuda.graph(graph, stream=stream):
+            fn()
+    finally:
+        gc.enable()
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    for counter, count in zip(LaunchCounter.instances, counts):
+        counter.count = count
+    names = names_of(graph.raw_cuda_graph())
+    del graph
+    return names
+
+
 def profile_seqmnist_round(card: Card, exp, data) -> dict:
     """One ``exp`` round both ways under torch.profiler: an eager round of
     the python driver's round function, and a replay of the scan driver's
     captured round (``ScanDriver.captured``, after one chunk of 2 rounds):
     kernels, device time, wall seconds, and the graph's capture seconds
     (warm-up round included).  A replay launches only what the capture
-    recorded: the eager round's matmuls, one for one.  The total counts
+    recorded, which must be the eager round's matmuls, one for one: the
+    graph's are counted from its nodes (``captured_kernel_names``), the
+    eager round's from its profile.  The total counts
     differ by a few tens either way (the graph's static-buffer copies, the
     eager round's batch upload and the one-time work of its first calls,
     whose count falls from call to call), so they are reported, not
@@ -4387,17 +4516,29 @@ def profile_seqmnist_round(card: Card, exp, data) -> dict:
     drive_fn(state, batcher.chunk_batches_on(cfg.local_steps, 2, dev))
     replay = profile_once(drive_fn.captured.replay)
     replay_ms = cuda_ms(drive_fn.captured.replay, target_s=0.5)
+    # the graph's kernels from its nodes, not from a profile: profiles of one
+    # replay counted 58022-58061 kernels and 4994-4996 matmuls (the
+    # profiler's buffers can drop records when some 58k kernels arrive at once)
+    graph_kernels = captured_kernel_names(drive_fn.captured.fn)
+    matmuls = {"eager": eager["by_category_launches_ms"].get("matmul", [0])[0],
+               "graph": sum(kernel_category(name) == "matmul" for name in graph_kernels)}
     out = {"card": card.line, "capture_s": drive_fn.capture_seconds,
            "eager_round": {key: eager[key] for key in ("wall_s", "device_busy_s", "kernels")},
            "replay": {key: replay[key] for key in ("wall_s", "device_busy_s", "kernels")},
+           "graph_kernel_nodes": len(graph_kernels), "matmuls": matmuls,
            "replay_ms_cuda_events": replay_ms,
            "replay_by_category": replay["by_category_launches_ms"],
            "replay_top_kernels_ms": replay["top_kernels_ms"]}
     print(f"seqmnist round profile ({card.line}): {json.dumps(out)}", flush=True)
-    matmuls = {name: p["by_category_launches_ms"].get("matmul", [0])[0]
-               for name, p in (("eager", eager), ("replay", replay))}
-    check(matmuls["replay"] == matmuls["eager"] > 0,
-          f"a replay ran {matmuls['replay']} matmuls, the eager round {matmuls['eager']}")
+    if matmuls["graph"] != matmuls["eager"]:  # which matmul kernels differ, by name
+        graph_names = collections.Counter(n for n in graph_kernels
+                                          if kernel_category(n) == "matmul")
+        names = {"eager": {k: n for k, n, _ in eager["matmul_kernels"]},
+                 "graph": dict(graph_names)}
+        print(f"seqmnist round profile: matmul kernels by name {json.dumps(names)}", flush=True)
+    check(matmuls["graph"] == matmuls["eager"] > 0,
+          f"the captured round holds {matmuls['graph']} matmuls, the eager round ran "
+          f"{matmuls['eager']}")
     return out
 
 
@@ -5044,6 +5185,8 @@ def profile_once(fn, category=kernel_category, n_top: int = 8) -> dict:
             "device_busy_share": device_s / wall_s if device_s > 0 else None,
             "kernels": sum(e.count for e in kernels),
             "by_category_launches_ms": by_category,
+            "matmul_kernels": [(e.key[:120], e.count, e.self_device_time_total / 1e3)
+                               for e in kernels if category(e.key) == "matmul"],
             "top_kernels_ms": [(e.key[:70], e.count, e.self_device_time_total / 1e3)
                                for e in top[:n_top]]}
 
@@ -5127,6 +5270,427 @@ def fleet_both_ways(fleet_tokens: torch.Tensor, seed: int = 0) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The sharded runtime: one process per peer, K ranks on the one card
+# ---------------------------------------------------------------------------
+
+SHARDED_K = 8
+SHARDED_STEPS = 10  # sharded_k8's T
+SHARDED_ROUNDS = 2  # a grid case's rounds (its schedule's period is 2)
+SHARDED_EXPERIMENT_ROUNDS = 10
+# a pod run's rows are within TOL of the vmap run's (local phase at width 1:
+# another GEMM), so a test image whose top two logits lie that close may flip
+SHARDED_ACC_ATOL = 0.01
+# smollm-135m at full width, bf16: K = 2 ranks, batch 4 x 1024 tokens, T = 4
+SHARDED_LM = dict(arch=LM_ARCH, layers=None, peers=2, batch=4, seq=1024, steps=4)
+ROW_RANGE_MODES = ("gossip", "mass", "snapshot", "mass snapshot", "dense", "dense mass")
+
+
+def row_range_case(card, name, k, n, *, mode="gossip", dtype=torch.float32, graph=None,
+                   want_path="gather", timed=False, seed=0) -> dict:
+    """``consensus_mix``'s row range in one mode (``ROW_RANGE_MODES``): the
+    launches of the middle peer alone, of the first, of the last and of all
+    but the first, each against the full launch's rows bit for bit and
+    against the plain version's rows (float32 ``TOL``, bf16
+    ``CONSENSUS_BF16_TOL``).  ``timed``: the middle peer's launch (a rank's
+    launch in the sharded runtime) beside the full launch, its plain version
+    and the library's one-row product ``[W_off; Beta][k] X``."""
+    from repro_torch.core import graph as graph_lib
+    from repro_torch.kernels.consensus_mix import ops, ref
+
+    dev = torch.device("cuda")
+    local_steps = 10
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if mode.startswith("dense"):
+        w, beta, sparse = matching_operands(k, mass="mass" in mode, seed=seed)
+        w, beta = w.float(), beta.float()
+    else:
+        graph = graph or graph_lib.build_graph("ring", k)
+        w = graph_lib.mixing_matrix(graph, "data_weighted", data_sizes=np.arange(1, k + 1))
+        beta = graph_lib.affinity_matrix(graph, data_sizes=np.arange(1, k + 1))
+        sparse = ops.sparse_from_matrices(w, beta, device=dev)
+        w, beta = (torch.as_tensor(m, dtype=torch.float32, device=dev) for m in (w, beta))
+    d = sparse.nbr_idx.shape[1]
+    path = "tile" if ops.takes_tile_path(k) else "gather"
+    check(path == want_path, f"row range {name}: {path} design, want {want_path}")
+    x = torch.randn(k, n, generator=gen, device=dev).to(dtype)
+    pub = (x.float() + 0.05 * torch.randn(k, n, generator=gen, device=dev)).to(dtype)
+    mass = 0.5 + torch.rand(k, generator=gen, device=dev)
+    snap, push = "snapshot" in mode, "mass" in mode
+
+    def kernel(rows):
+        if push and snap:
+            return ops.consensus_mix_push_sum_snapshot_stacked(x, pub, mass, sparse, local_steps,
+                                                               rows=rows)
+        if push:
+            return ops.consensus_mix_push_sum_stacked(x, mass, sparse, local_steps, rows=rows)
+        if snap:
+            return ops.consensus_mix_snapshot_stacked(x, pub, sparse, local_steps, rows=rows)
+        return ops.consensus_mix_stacked(x, sparse, local_steps, rows=rows)
+
+    def plain(rows):
+        extra = dict(published=pub) if snap else {}
+        if push:
+            return ref.consensus_mix_push_sum_stacked_ref(x, mass, *sparse, local_steps,
+                                                          rows=rows, **extra)
+        return ref.consensus_mix_stacked_ref(x, *sparse, local_steps, rows=rows, **extra)
+
+    full = kernel(None)
+    tol = TOL if dtype == torch.float32 else CONSENSUS_BF16_TOL
+    err, mid = 0.0, k // 2
+    for row0, count in ((mid, 1), (0, 1), (k - 1, 1), (1, k - 1)):
+        got, want = kernel((row0, count)), plain((row0, count))
+        for g, f, r, what in zip(got, full, want, ("mixed", "d", "new mass")):
+            check(bool(torch.equal(g, f[row0:row0 + count])),
+                  f"row range {name} ({row0}, {count}) {what}: the full launch's rows")
+            torch.testing.assert_close(g.float(), r.float(), **tol,
+                                       msg=lambda m: f"row range {name} {what}: {m}")
+            err = max(err, float((g.float() - r.float()).abs().max()))
+    out = {"case": name, "mode": mode, "dtype": str(dtype).removeprefix("torch."), "K": k,
+           "D": d, "N": n, "path": path, "rows_equal_full_launch": True, "max_abs_err": err}
+    if not timed:
+        return out
+    row_out = [t[mid:mid + 1].clone() for t in full[:2]]
+    row_mass = mass[:1].clone()
+    kern = lambda: ops.launch(x, sparse, local_steps, *row_out,  # noqa: E731
+                              *((mass, row_mass) if push else ()),
+                              published=pub if snap else None, rows=(mid, 1))
+    full_out = [torch.empty_like(x), torch.empty_like(x)]
+    full_ms = cuda_ms(lambda: ops.launch(x, sparse, local_steps, *full_out,
+                                         *((mass, mass.clone()) if push else ()),
+                                         published=pub if snap else None))
+    w_off = w - torch.diag(torch.diagonal(w))
+    dense_row = torch.stack([w_off[mid], beta[mid]]).to(dtype)
+    lib_out = torch.empty((2, n), dtype=dtype, device=dev)
+    times = in_turns(lambda: plain((mid, 1)), kern,
+                     lambda: torch.matmul(dense_row, pub if snap else x, out=lib_out))
+    # one row's work: its real slots' rows and its own row read, two rows written
+    real = int((sparse.nbr_idx[mid] != mid).sum())
+    elem = x.element_size()
+    nbytes = (real + 1) * n * elem + 2 * n * elem + 3 * d * 4 + 4 * k
+    flops = n * (4 * real + 3)
+    return out | {**times, "full_launch_ms": full_ms, "row": mid,
+                  **card.bound(nbytes, flops)}
+
+
+def row_range_cases(card: Card) -> list[dict]:
+    """The row range in every mode it gained (gossip, mass, snapshot and
+    both, dense operands and their mass mode; float32 and bf16; the gather
+    design at K = 8 and the column tile at K = 100), timed at the sharded
+    runtime's shapes: ``sharded_k8``'s K = 8 ring at the 2NN's row (its main
+    path), K = 100 complete (the tile) and smollm-135m's bf16 row at K = 2
+    (the LM's sharded round)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import graph as graph_lib
+    from repro_torch.core.p2p import layout_of, row_align
+    from repro_torch.models import transformer as tf
+
+    row = layout_of("mnist_mlp").row
+    lm_size = sum(math.prod(s) for s in tf.decoder_param_shapes(get_config(LM_ARCH)).values())
+    align = row_align(torch.bfloat16)
+    out = [
+        row_range_case(card, "sharded_k8", SHARDED_K, row, timed=True),
+        row_range_case(card, "k100_complete_tile", 100, row,
+                       graph=graph_lib.build_graph("complete", 100), want_path="tile",
+                       timed=True, seed=1),
+        row_range_case(card, "smollm_k2_bf16", 2, -(-lm_size // align) * align,
+                       dtype=torch.bfloat16, graph=graph_lib.build_graph("complete", 2),
+                       timed=True, seed=2),
+    ]
+    seed = 3
+    for mode in ROW_RANGE_MODES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for k, path in ((SHARDED_K, "gather"), (100, "tile")):
+                graph = None if k == SHARDED_K else graph_lib.build_graph("erdos_renyi", k,
+                                                                           p=0.3, seed=seed)
+                out.append(row_range_case(
+                    card, f"{mode.replace(' ', '_')}_k{k}_{str(dtype)[6:]}", k, 50000,
+                    mode=mode, dtype=dtype, graph=graph, want_path=path, seed=seed))
+                seed += 1
+    out.append(row_range_case(card, "gossip_k100_scalar_path", 100, 5003, graph=graph_lib
+                              .build_graph("complete", 100), want_path="tile", seed=seed))
+    return out
+
+
+def _print_row_range_case(c: dict) -> None:
+    timed = (f" row={c['ms']:.4f} ms full launch={c['full_launch_ms']:.4f} ms "
+             f"plain={c['plain_ms']:.4f} ms library={c['library_ms']:.4f} ms "
+             f"bound={c['bound_ms']:.4f} ms ({c['bound_by']}; {c['bound_card']})"
+             if "ms" in c else "")
+    print(f"consensus_mix row range {c['case']}: mode={c['mode']} {c['dtype']} K={c['K']} "
+          f"D={c['D']} N={c['N']} path={c['path']} rows equal the full launch's: "
+          f"{c['rows_equal_full_launch']} max_abs_err={c['max_abs_err']:.3g}{timed}", flush=True)
+
+
+def sharded_cases(sizes: tuple):
+    """``sharded_k8``'s configurations on the reference's grid
+    (tests/test_mesh_runtime.py:56): gossip and push-sum on the eight
+    schedule entries, a qint8 wire each, bounded staleness (bound 2) each,
+    ``SHARDED_ROUNDS`` rounds a case; the scan driver's case; and the cases
+    also run at local width 1."""
+    from repro_torch.configs.p2pl_mnist import sharded_k8
+    from repro_torch.launch import pod
+
+    grid = [("static", {}), ("link_dropout", {}), ("round_robin", {}),
+            ("one_way_matching", {}), ("random_matching", {}), ("peer_churn", {}),
+            ("adaptive", {"partner_rule": "loss_proximity"}),
+            ("adaptive", {"partner_rule": "eps_greedy"})]
+
+    def case(name, protocol, schedule, **fields):
+        extra = {k: fields.pop(k) for k in ("partner_rule",) if k in fields}
+        cfg = sharded_k8(schedule=schedule, protocol=protocol, local_steps=SHARDED_STEPS,
+                         schedule_rounds=2, **extra).p2p
+        return pod.RoundCase(name, dataclasses.replace(cfg, **fields), SHARDED_ROUNDS, sizes)
+
+    cases = [case(f"{proto}_{sched}{'_' + ex['partner_rule'] if ex else ''}", proto, sched, **ex)
+             for proto in ("gossip", "push_sum") for sched, ex in grid]
+    cases += [case("gossip_qint8", "gossip", "static", compressor="qint8"),
+              case("push_sum_qint8", "push_sum", "one_way_matching", compressor="qint8"),
+              case("gossip_staleness_b2", "gossip", "round_robin", staleness_bound=2,
+                   steps_profile="straggler"),
+              case("push_sum_staleness_b2", "push_sum", "round_robin", staleness_bound=2,
+                   steps_profile="straggler")]
+    scan = [case("scan_gossip_static", "gossip", "static")]
+    width = [case("width1_gossip_link_dropout", "gossip", "link_dropout"),
+             case("width1_push_sum_static", "push_sum", "static")]
+    return cases, scan, width
+
+
+def drive_sharded_k8(card: Card, data) -> dict:
+    """``sharded_k8`` on the sharded runtime: 8 ranks on the one card, one
+    spawn through the ``cuda_ipc`` group (``launch.pod.grid_rank``), the
+    grid of ``sharded_cases`` at local width K (each rank's local phase on K
+    copies of its row: cuBLAS then picks the vmap round's GEMMs) held to the
+    vmap runtime's rounds run here first: every uncompressed case's rows
+    after both phases and its losses equal bit for bit (state digests), the
+    qint8 cases allclose with every rank's estimate stack the same, the scan
+    driver's chunk the python loop's bits; the width cases again at local
+    width 1, the runtime's default, within ``TOL`` of the vmap rows.
+    Prints each case's time a round against the vmap round's, the exchange
+    time a consensus step, each rank's peak memory and launches."""
+    from repro_torch.configs.p2pl_mnist import sharded_k8
+    from repro_torch.core import p2p, peer_group, task as task_lib
+    from repro_torch.data import partition
+    from repro_torch.launch import pod, train
+
+    start = time.perf_counter()
+    exp = sharded_k8()
+    sizes = tuple(int(v) for v in partition.data_sizes(train.mnist_parts(exp, *data[:2])))
+    cases, scan, width = sharded_cases(sizes)
+    task = task_lib.get_task("mnist_mlp")
+    want, vmap_s = {}, {}
+    for case in [*cases, *scan, *width]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rounds = pod.vmap_rounds(case, "cuda")
+        torch.cuda.synchronize()
+        vmap_s[case.name] = (time.perf_counter() - t0) / case.rounds
+        want[case.name] = {
+            "digests": [[(pod.state_digest(p2p.shard_state(local, r)),
+                          pod.state_digest(p2p.shard_state(cons, r)), losses.cpu())
+                         for r in range(SHARDED_K)] for local, cons, losses in rounds],
+            "params": rounds[-1][1].params.cpu(),
+            "losses": torch.stack([losses for _, _, losses in rounds]).cpu()}
+        del rounds
+    torch.cuda.empty_cache()
+    spawn_start = time.perf_counter()
+    ranks = peer_group.spawn_peers(pod.grid_rank, SHARDED_K, "cuda",
+                                   args=(cases, scan, width, SHARDED_K),
+                                   inbox_bytes=p2p.inbox_bytes(task, cases[0].cfg), deadline=300)
+    spawn_s = time.perf_counter() - spawn_start
+    report, launches = {}, {"consensus_mix": 0, "dequant_mix": 0}
+    for case in [*cases, *width]:
+        stats = [r["stats"][case.name] for r in ranks]
+        for key in launches:
+            launches[key] += sum(s["launches"][key] for s in stats)
+        kernel = "dequant_mix" if case.cfg.compressor != "none" else "consensus_mix"
+        blocks = case.rounds * case.cfg.consensus_steps
+        check(all(s["launches"][kernel] == blocks for s in stats),
+              f"sharded {case.name}: {kernel} launched {[s['launches'] for s in stats]}, want "
+              f"{blocks} a rank")
+        if case.cfg.compressor == "none":
+            for r, per_rank in enumerate(want[case.name]["digests"]):
+                for k, (local, cons, losses) in enumerate(per_rank):
+                    got = ranks[k][case.name][r]
+                    check(got.local == local and got.consensus == cons,
+                          f"sharded {case.name} round {r} rank {k}: rows equal the vmap "
+                          "runtime's bit for bit")
+                    check(bool(torch.equal(got.losses, losses)),
+                          f"sharded {case.name} round {r} rank {k}: losses equal")
+            equal = True
+        else:
+            got = torch.cat([ranks[k][case.name][-1].params for k in range(SHARDED_K)])
+            torch.testing.assert_close(got, want[case.name]["params"], **TOL,
+                                       msg=lambda m: f"sharded {case.name}: {m}")
+            equal = bool(torch.equal(got, want[case.name]["params"]))
+        exchange = sum(s["exchange_seconds"] for s in stats) / max(
+            sum(s["exchanges"] for s in stats), 1)
+        # the rank's host seconds in exchanges and all-gathers, of its round's
+        comm = sum(s["exchange_seconds"] + s["gather_seconds"] for s in stats) / sum(
+            s["seconds_per_round"] * case.rounds for s in stats)
+        report[case.name] = {
+            "equal_bits": equal, "pod_s_per_round": stats[0]["seconds_per_round"],
+            "vmap_s_per_round": vmap_s[case.name], "exchange_ms_per_call": exchange * 1e3,
+            "exchanges_per_round_a_rank": stats[0]["exchanges"] / case.rounds,
+            "gathers_per_round_a_rank": stats[0]["gathers"] / case.rounds,
+            "communication_share": comm, "launches_a_rank": stats[0]["launches"]}
+        print(f"sharded_k8 {case.name} ({card.line}): rows {'equal' if equal else 'allclose'} "
+              f"to the vmap runtime's; {stats[0]['seconds_per_round'] * 1e3:.2f} ms a round "
+              f"on 8 ranks against {vmap_s[case.name] * 1e3:.2f} ms vmap; exchange "
+              f"{exchange * 1e3:.3f} ms a call; exchanges and gathers {comm:.1%} of the "
+              "round", flush=True)
+    for case in scan:
+        for k in range(SHARDED_K):
+            got = ranks[k]["scan"][case.name]
+            local, cons, _ = want[case.name]["digests"][-1][k]
+            check(got.local == local and got.consensus == cons
+                  and bool(torch.equal(got.losses, want[case.name]["losses"])),
+                  f"sharded {case.name} rank {k}: the pod scan driver's bits")
+    widths = {}
+    for case in width:
+        got = torch.cat([ranks[k]["width"][case.name][-1].params for k in range(SHARDED_K)])
+        ref_params = want[case.name]["params"]
+        torch.testing.assert_close(got, ref_params, **TOL,
+                                   msg=lambda m, name=case.name: f"sharded {name} width 1: {m}")
+        widths[case.name] = {"equal_bits": bool(torch.equal(got, ref_params)),
+                             "max_abs_diff": float((got - ref_params).abs().max()),
+                             "s_per_round": ranks[0]["stats"][f"width {case.name}"]
+                             ["seconds_per_round"]}
+        print(f"sharded_k8 {case.name} at local width 1 ({card.line}): rows equal the vmap "
+              f"runtime's: {widths[case.name]['equal_bits']}, max |diff| "
+              f"{widths[case.name]['max_abs_diff']:.3e} after {case.rounds} rounds; "
+              f"{widths[case.name]['s_per_round'] * 1e3:.2f} ms a round", flush=True)
+    peaks = [r["stats"]["peak_bytes"] / 1e9 for r in ranks]
+    seconds = time.perf_counter() - start
+    print(f"sharded_k8 ({card.line}): {len(cases)} cases, 8 ranks, spawn and grid "
+          f"{spawn_s:.1f} s, phase {seconds:.1f} s; peak memory a rank (GB) "
+          f"{[round(p, 3) for p in peaks]}; launches {launches}", flush=True)
+    return {"launches": launches, "mode": "row_range", "cases": report, "local_width_1": widths,
+            "peak_gb_by_rank": peaks, "spawn_s": spawn_s, "seconds": seconds}
+
+
+def drive_sharded_experiment(card: Card, data) -> dict:
+    """``run_paper_experiment(sharded_k8(), peer_axis="pod")``, 10 rounds on
+    8 ranks, each rank's local phase on its own row (the runtime's default
+    width), against the vmap run of the same seed: the final state's params
+    within ``TOL``, the losses and the drift within its rtol, every accuracy
+    within ``SHARDED_ACC_ATOL``; how many accuracies came out equal is
+    reported.  (The consensus phase's bits are ``drive_sharded_k8``'s
+    check.)"""
+    from repro_torch.configs.p2pl_mnist import sharded_k8
+    from repro_torch.launch import train
+
+    exp = sharded_k8()
+    start = time.perf_counter()
+    log_v, state_v = train.run_paper_experiment(exp, rounds=SHARDED_EXPERIMENT_ROUNDS, data=data,
+                                                device="cuda", return_state=True)
+    vmap_s = time.perf_counter() - start
+    start = time.perf_counter()
+    log_p, state_p = train.run_paper_experiment(exp, rounds=SHARDED_EXPERIMENT_ROUNDS, data=data,
+                                                device="cuda", peer_axis="pod", verbose=True,
+                                                return_state=True)
+    pod_s = time.perf_counter() - start
+    params_diff = float((state_p.params.to(state_v.params.device) - state_v.params).abs().max())
+    torch.testing.assert_close(state_p.params.to(state_v.params.device), state_v.params, **TOL,
+                               msg=lambda m: f"sharded_k8 run_paper_experiment params: {m}")
+    accs, acc_diff = [], 0.0
+    for attr in ("after_local", "after_consensus"):
+        want, got = getattr(log_v, attr), getattr(log_p, attr)
+        check(want.keys() == got.keys(), f"sharded_k8 run_paper_experiment: {attr} groups")
+        for g in want:
+            w, p = np.stack(want[g]), np.stack(got[g])
+            accs.append(np.array_equal(w, p))
+            acc_diff = max(acc_diff, float(np.abs(w - p).max()))
+    check(acc_diff <= SHARDED_ACC_ATOL,
+          f"sharded_k8 run_paper_experiment: accuracies within {SHARDED_ACC_ATOL} of the vmap "
+          f"run's (max |diff| {acc_diff})")
+    for what in ("train_loss", "drift"):
+        check(np.allclose(getattr(log_p, what), getattr(log_v, what), rtol=TOL["rtol"], atol=0),
+              f"sharded_k8 run_paper_experiment: {what} within rtol {TOL['rtol']} of the vmap "
+              "run's")
+    launches = {key: sum(r["launches"][key] for r in log_p.ranks)
+                for key in ("consensus_mix", "dequant_mix")}
+    want_launches = SHARDED_EXPERIMENT_ROUNDS * exp.p2p.consensus_steps * exp.p2p.num_peers
+    check(launches == {"consensus_mix": want_launches, "dequant_mix": 0},
+          f"sharded_k8 run_paper_experiment launched {launches}")
+    exchange = [r["exchange"] for r in log_p.ranks]
+    per_call = sum(e["exchange_seconds"] for e in exchange) / sum(e["exchanges"] for e in exchange)
+    print(f"sharded_k8 run_paper_experiment ({card.line}): {SHARDED_EXPERIMENT_ROUNDS} rounds, "
+          f"{sum(accs)} of {len(accs)} accuracy groups equal the vmap run's (max |diff| "
+          f"{acc_diff:.3g}), params max |diff| {params_diff:.3g}; "
+          f"{np.mean(log_p.seconds) * 1e3:.2f} ms a round on 8 ranks against "
+          f"{np.mean(log_v.seconds) * 1e3:.2f} ms vmap; exchange {per_call * 1e3:.3f} ms a "
+          f"call; whole runs {pod_s:.1f} s pod, {vmap_s:.1f} s vmap", flush=True)
+    return {"launches": launches, "mode": "row_range", "pod_s_per_round": log_p.seconds,
+            "vmap_s_per_round": log_v.seconds, "exchange_ms_per_call": per_call * 1e3,
+            "accuracy_groups_equal": [sum(accs), len(accs)], "accuracy_max_abs_diff": acc_diff,
+            "params_max_abs_diff": params_diff, "seconds": pod_s}
+
+
+def drive_sharded_lm(card: Card) -> dict:
+    """smollm-135m at full width, bf16, on the sharded runtime: K = 2 ranks
+    on the one card, one round of ``run_p2p_lm``'s configuration (batch 4 x
+    1024 tokens, T = 4).  The vmap round runs first, here, and is freed
+    before the spawn but for its rows after each phase (a shareable copy,
+    ``peer_group.shared_copy``); each rank's round (its local phase on its
+    own row, ``local_width=1``) is held to them within the bf16 tolerance,
+    and the sharded consensus from the vmap round's post-local rows must
+    give its rows bit for bit."""
+    from repro_torch.core import p2p, peer_group
+    from repro_torch.launch import pod, train
+
+    run = SHARDED_LM
+    start = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg, task, pcfg, _ = lm_setup(run["arch"], run["layers"], run["peers"], run["steps"])
+    state = p2p.init_state(task, pcfg, seed=0, device="cuda")
+    tokens, labels = train.lm_token_batches(np.random.default_rng(0), cfg.vocab_size,
+                                            num_peers=run["peers"], local_steps=run["steps"],
+                                            batch=run["batch"], seq=run["seq"])
+    batches = tuple(torch.as_tensor(a, dtype=torch.int64, device="cuda") for a in (tokens, labels))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    after_local, after_cons, _ = p2p.make_round_fn(task, pcfg, device="cuda")(state, batches)
+    torch.cuda.synchronize()
+    vmap_s = time.perf_counter() - t0
+    rows = peer_group.shared_copy(torch.stack([after_local.params, after_cons.params,
+                                               after_cons.d_bias]))
+    del state, after_local, after_cons, batches
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = peer_group.spawn_peers(
+        pod.lm_round_rank, run["peers"], "cuda",
+        args=(run["arch"], run["layers"], run["batch"], run["seq"], run["steps"], rows),
+        inbox_bytes=p2p.inbox_bytes(task, pcfg), deadline=300)
+    spawn_s = time.perf_counter() - t0
+    del rows
+    torch.cuda.empty_cache()
+    for k, r in enumerate(ranks):
+        check(r["consensus_from_vmap_equal"],
+              f"sharded {run['arch']} rank {k}: the consensus from the vmap round's post-local "
+              "rows equals its rows bit for bit")
+        for what in ("local", "consensus", "d"):
+            check(r[f"{what}_allclose"],
+                  f"sharded {run['arch']} rank {k}: {what} rows within the bf16 tolerance "
+                  f"(max |diff| {r[f'{what}_max_abs_diff']})")
+        check(r["launches"] == pcfg.consensus_steps * len(p2p.ParamLayout.of(task).blocks),
+              f"sharded {run['arch']} rank {k}: consensus_mix launched {r['launches']}")
+    seconds = time.perf_counter() - start
+    summary = {key: [r[key] for r in ranks] for key in (
+        "local_equal", "consensus_equal", "consensus_from_vmap_equal", "local_max_abs_diff",
+        "consensus_max_abs_diff", "d_max_abs_diff", "seconds")}
+    summary["exchange_ms_per_call"] = [1e3 * r["stats"]["exchange_seconds"]
+                                       / max(r["stats"]["exchanges"], 1) for r in ranks]
+    peaks = [r["peak_bytes"] / 1e9 for r in ranks]
+    print(f"sharded {run['arch']} ({card.line}): K = {run['peers']} ranks, one round: "
+          f"{json.dumps(summary)}; vmap round {vmap_s:.2f} s; peak memory a rank (GB) "
+          f"{[round(p, 3) for p in peaks]}; spawn and round {spawn_s:.1f} s, phase "
+          f"{seconds:.1f} s", flush=True)
+    return {"launches": {"consensus_mix": sum(r["launches"] for r in ranks)},
+            "mode": "row_range", **summary, "vmap_round_s": vmap_s, "peak_gb_by_rank": peaks,
+            "seconds": seconds}
+
+
 def main() -> int:
     # the full-width LM rounds hold about nine parameter-sized buffers; with
     # fixed segments the allocator left 9.5 GiB of them unusable (rwkv6-7b)
@@ -5148,14 +5712,20 @@ def main() -> int:
           f"{torch.backends.cuda.matmul.allow_tf32} cudnn={torch.backends.cudnn.allow_tf32}",
           flush=True)
 
+    def elapsed(what: str) -> None:
+        print(f"chip_smoke: {time.perf_counter() - started:.1f} s before {what}", flush=True)
+
     cases = check_kernels(card)
-    # the slices' paths first, on a card with nothing else held: P2P training
+    data = synthetic.mnist_like()
+    paths = {}
+    # the slices' paths, on a card with nothing else held: P2P training
     # of smollm-135m at full width (flash_attention forward and backward,
     # consensus_mix in bf16), of rwkv6-7b (wkv6 and its backward) and of
     # zamba2-2.7b (ssd and its backward, the shared block's flash_attention)
     # at their published widths, then the reference's run_p2p_lm of each
     # (reduced, float32)
-    paths = {run.label: drive_p2p_lm(card, run) for run in LM_RUNS}
+    elapsed("the LM rounds")
+    paths |= {run.label: drive_p2p_lm(card, run) for run in LM_RUNS}
     for arch in (LM_ARCH, *(run.arch for run in LM_RUNS[1:])):
         label = "run_p2p_lm_reduced" if arch == LM_ARCH else f"run_p2p_lm_reduced_{arch}"
         paths[label] = drive_run_p2p_lm_reduced(card, arch)
@@ -5163,10 +5733,13 @@ def main() -> int:
     # this slice: the LM round as one CUDA graph (the scan driver on token
     # batch trees), bf16 and mixed-type LMs in every consensus mode, the
     # encoder-decoder's and the vlm's training on their batch trees
+    elapsed("the LM trees and modes")
     paths |= drive_lm_trees_and_modes(card)
     # the reference's public API: the consensus wrappers on the 2NN, then
     # smollm-135m at full width through make_train_step / make_consensus_step
+    elapsed("the step API")
     paths["drive_step_api"] = drive_step_api(card)
+    elapsed("serving")
     matching = check_matching_on_card()
     paths["serve_batch"] = drive_serve_batch(card, SERVE_ARCH, {"wkv6": 32})
     serving = {SERVE_ARCH: recheck_and_break_down(card, SERVE_ARCH, {"wkv6": (0, 31)},
@@ -5211,7 +5784,7 @@ def main() -> int:
         paths[f"serve_batch_{arch}"] = drive_serve_batch(card, arch, per_prefill, layers=layers)
         serving[arch] = recheck_and_break_down(card, arch, picks, per_prefill, layers=layers,
                                                extra=moe_checks)
-    data = synthetic.mnist_like()
+    elapsed("the 2NN training paths")
     noniid = noniid_k2(algorithm="p2pl_affinity", local_steps=10)
     iid = iid_k100()
     iid_qint8 = dataclasses.replace(iid, p2p=dataclasses.replace(iid.p2p, compressor="qint8"))
@@ -5299,7 +5872,9 @@ def main() -> int:
         paths[label]["mode"] = "dense"
     # RWKV6 on sequential MNIST: 31 leaves, N = 100,236, through consensus_mix
     # (gossip and mass mode) and dequant_mix (qint8)
+    elapsed("seqmnist")
     seqmnist = seqmnist_phase(card, data, cases, paths)
+    elapsed("both drivers")
     # both round drivers from the same seed and rounds, bit for bit
     pod = dict(peer_axis="pod", peers_per_device=iid.p2p.num_peers, mix_mode="segment")
     for label, exp, rounds, every, kernel, run_kw in (
@@ -5326,10 +5901,24 @@ def main() -> int:
                        ("iid_k100_qint8", iid_qint8), ("directed_k8", directed)):
         print(f"breakdown {label} ({card.line}): {json.dumps(phase_breakdown(exp, data))}",
               flush=True)
+    elapsed("the selection profile and K = 4096")
     selection = selection_profile(card, tv_adaptive, data)
     ring = iid_k100(topology="ring")
     large_k = dataclasses.replace(ring, p2p=dataclasses.replace(ring.p2p, num_peers=LARGE_K))
     paths[f"ring_k{LARGE_K}"] = drive_large_k(large_k, LARGE_K_ROUNDS, data)
+    # this slice's paths, last: the sharded runtime, one process per peer
+    # (8 ranks on the card through the cuda_ipc group, each mixing its own
+    # row through consensus_mix's row range): sharded_k8's grid against the
+    # vmap runtime, its run_paper_experiment, and smollm-135m's round at K = 2
+    # ranks (each frees what it held; the LM phase empties the cache first)
+    elapsed("the sharded runtime")
+    cases["consensus_mix row range"] = row_range_cases(card)
+    for c in cases["consensus_mix row range"]:
+        _print_row_range_case(c)
+    paths |= {"sharded_k8": drive_sharded_k8(card, data),
+              "sharded_k8_run_paper_experiment": drive_sharded_experiment(card, data),
+              "sharded_lm_smollm": drive_sharded_lm(card)}
+    elapsed("the kernels line")
 
     entries = []
     for kernel, source, replaces, main_case in (
@@ -5403,6 +5992,19 @@ def main() -> int:
             mass_entry["k100_shape"] = at_k100(cases[kernel], "iid_k100, one-slice segment runtime")
             mass_entry["mass_mode"]["k100_shape"] = at_k100(
                 cases[f"{kernel} mass"], "iid_k100 --protocol push_sum, one-slice segment runtime")
+        if f"{kernel} row range" in cases:  # a rank's own row of the launch (sharded runtime)
+            rr = cases[f"{kernel} row range"]
+            rr_main = rr[0]  # sharded_k8's K = 8 ring at the 2NN's row
+            rr_paths = {name: n for name, n in by_path.items()
+                        if paths[name].get("mode") == "row_range"}
+            mass_entry["row_range"] = {
+                "launches": sum(rr_paths.values()), "launches_by_path": rr_paths,
+                "max_abs_err": max(c["max_abs_err"] for c in rr),
+                **{key: rr_main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                 "library_ms", "bound_card", "full_launch_ms")},
+                "shape": f"{rr_main['case']}: K={rr_main['K']} D={rr_main['D']} "
+                         f"N={rr_main['N']}, one row of the launch",
+                "shapes": rr}
         if f"{kernel} bf16 modes" in cases:  # bf16 storage in every other mode
             modes = cases[f"{kernel} bf16 modes"]
             mode_paths = {name: n for name, n in by_path.items() if paths[name].get("bf16_mode")}

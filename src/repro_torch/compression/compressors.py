@@ -103,7 +103,19 @@ class Compressor:
 
     def ef_flat(self, x: torch.Tensor, est: torch.Tensor, layout) -> FlatPayload:
         """Compress ``x - est`` over flat (K, row) stacks, leaf by leaf through
-        ``layout.views`` (a ``core.p2p.ParamLayout``)."""
+        ``layout.views`` (a ``core.p2p.ParamLayout``): ``receive`` of
+        ``wire``."""
+        return self.receive(est, self.wire(x, est, layout), layout)
+
+    def wire(self, x: torch.Tensor, est: torch.Tensor, layout) -> list[torch.Tensor]:
+        """What the rows of (K', row) stacks ship: the payload's tensors, each
+        with a leading row axis (the sharded runtime all-gathers a rank's
+        one row of each)."""
+        raise NotImplementedError
+
+    def receive(self, est: torch.Tensor, shipped: list[torch.Tensor], layout) -> FlatPayload:
+        """The ``FlatPayload`` of the estimate stack ``est`` and the rows'
+        shipped tensors (``wire``'s, one row a peer of ``est``)."""
         raise NotImplementedError
 
 
@@ -155,19 +167,25 @@ class TopKCompressor(Compressor):
         out = payload.values.new_zeros(k, n).scatter_(1, payload.indices, payload.values)
         return out.reshape((k,) + tuple(like.shape[1:])).to(like.dtype)
 
-    def ef_flat(self, x: torch.Tensor, est: torch.Tensor, layout) -> FlatPayload:
+    def wire(self, x: torch.Tensor, est: torch.Tensor, layout) -> list[torch.Tensor]:
+        """Each leaf's kept values and their indices, in the layout's order:
+        [values_0, indices_0, values_1, ...]."""
+        out = []
+        for diff in layout.views(x - est).values():
+            payload = self.compress(diff)
+            out += [payload.values, payload.indices]
+        return out
+
+    def receive(self, est: torch.Tensor, shipped: list[torch.Tensor], layout) -> FlatPayload:
         """Advance a copy of ``est`` by each leaf's payload: ``est + D(C(x - est))``,
         with the top-k indices distinct per row so the scatter-add adds each
         kept value once.  A bf16 stack takes the difference and the sum in
         bf16, as the reference's ``ef_compress_leaf`` does (the kept values
         are the bf16 difference's own, so the cast back is exact)."""
         new = est.clone()
-        new_leaves = layout.views(new)
-        for name, diff in layout.views(x - est).items():
-            payload = self.compress(diff)
-            new_leaves[name].view(x.shape[0], -1).scatter_add_(
-                1, payload.indices, payload.values.to(new.dtype)
-            )
+        for i, leaf in enumerate(layout.views(new).values()):
+            values, indices = shipped[2 * i], shipped[2 * i + 1]
+            leaf.view(est.shape[0], -1).scatter_add_(1, indices, values.to(new.dtype))
         return FlatPayload(est=new, q=None, scale=None)
 
 
@@ -192,10 +210,10 @@ class QInt8Compressor(Compressor):
         out = payload.q.to(torch.float32) * payload.scale
         return out.reshape((k,) + tuple(like.shape[1:])).to(like.dtype)
 
-    def ef_flat(self, x: torch.Tensor, est: torch.Tensor, layout) -> FlatPayload:
+    def wire(self, x: torch.Tensor, est: torch.Tensor, layout) -> list[torch.Tensor]:
         """Each leaf's (q, scale) in one (K, row) int8 buffer and a (K, L)
-        scale table; ``est`` is returned as it is (the consumer advances it).
-        ``q`` is allocated zeroed, so the row's padding columns carry q = 0."""
+        scale table.  ``q`` is allocated zeroed, so the row's padding
+        columns carry q = 0."""
         q = torch.zeros(x.shape, dtype=torch.int8, device=x.device)
         q_leaves = layout.views(q)
         scales = []
@@ -203,7 +221,12 @@ class QInt8Compressor(Compressor):
             payload = self.compress(diff)
             q_leaves[name].view(x.shape[0], -1).copy_(payload.q)
             scales.append(payload.scale)
-        return FlatPayload(est=est, q=q, scale=torch.cat(scales, dim=1).contiguous())
+        return [q, torch.cat(scales, dim=1).contiguous()]
+
+    def receive(self, est: torch.Tensor, shipped: list[torch.Tensor], layout) -> FlatPayload:
+        """``est`` as it is (the consumer advances it by ``q * scale``)."""
+        q, scale = shipped
+        return FlatPayload(est=est, q=q, scale=scale)
 
 
 # ---------------------------------------------------------------------------

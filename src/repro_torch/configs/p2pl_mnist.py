@@ -1,7 +1,7 @@
 """The paper's own workload: 2NN MLP on (synthetic-)MNIST under P2PL (the
 port's ``repro.configs.p2pl_mnist``: the paper's two experiments, the two
-time-varying ones, the directed push-sum one, the straggler one and the
-first real model, RWKV6 on sequential MNIST).
+time-varying ones, the directed push-sum one, the sharded runtime's one,
+the straggler one and the first real model, RWKV6 on sequential MNIST).
 
 Sec. V hyperparameters: B=10, eta=0.01, mu=0.5 (IID) / 0 (non-IID),
 T=60 gradient steps per round (IID, n_k=600) — one epoch per round,
@@ -234,6 +234,61 @@ def directed_k8(
             link_survival_prob=link_survival_prob,
             schedule_seed=schedule_seed,
             protocol=protocol,
+            partner_rule=partner_rule,
+            adaptive_eps=adaptive_eps,
+            adaptive_seed=adaptive_seed,
+        ),
+        batch_size=10,
+        samples_per_class=50,
+        rounds=60,
+        peer_classes=peer_classes,
+    )
+
+
+def sharded_k8(
+    *,
+    schedule: str = "static",
+    protocol: str = "gossip",
+    algorithm: str = "p2pl_affinity",
+    local_steps: int = 10,
+    topology: str = "ring",
+    schedule_rounds: int = 16,
+    link_survival_prob: float = 0.7,
+    schedule_seed: int = 0,
+    round_robin_topologies: tuple = ("ring", "star"),
+    partner_rule: str = "loss_proximity",
+    adaptive_eps: float = 0.1,
+    adaptive_seed: int = 0,
+) -> PaperExperiment:
+    """The sharded runtime's workload: 8 non-IID peers, one process each
+    (``--peer-axis pod``).
+
+    ``timevarying_k8``'s learning problem (2 classes per peer on a ring),
+    parameterized over protocol and schedule so that each parity axis of the
+    sharded runtime (gossip / push-sum x static / link dropout / round robin /
+    one-way matching / adaptive) has a named entry point:
+
+        python -m repro_torch.launch.train --experiment sharded_k8 --peer-axis pod
+    """
+    peer_classes = tuple(((2 * k) % 10, (2 * k + 1) % 10) for k in range(8))
+    return PaperExperiment(
+        name=f"sharded_k8_{schedule}_{protocol}_{algorithm}_T{local_steps}",
+        p2p=P2PConfig(
+            algorithm=algorithm,
+            num_peers=8,
+            local_steps=local_steps,
+            consensus_steps=1,
+            lr=0.01,
+            momentum=0.0,
+            eta_d=0.5,
+            topology=topology,
+            mixing="data_weighted",
+            schedule=schedule,
+            schedule_rounds=schedule_rounds,
+            link_survival_prob=link_survival_prob,
+            schedule_seed=schedule_seed,
+            protocol=protocol,
+            round_robin_topologies=round_robin_topologies,
             partner_rule=partner_rule,
             adaptive_eps=adaptive_eps,
             adaptive_seed=adaptive_seed,

@@ -14,12 +14,23 @@ Three forms of the same op out_k = sum_j W[k, j] x_j on a (K, N) flat buffer:
    degree-bounded form of the hierarchical runtime's "segment" mode, the
    plain version of the ``segment_mix`` kernel.  Each sums the D slots in
    slot order, in float32, as the kernel does.  ``scatter_rows`` turns
-   padded slot rows back into a dense block.
+   padded slot rows back into a dense block.  ``mix_sparse`` is the padded
+   form's plain mix.
+
+The collective forms (``gather_peer_leaf``, ``gather_peer_rows``,
+``mix_psum``, ``mix_ring``, ``mix_collective``) run in one rank of the
+sharded runtime, with a ``core.peer_group.PeerGroup`` in place of the
+reference's ``axis_name``: each takes the rank's (1, ...) block (or a tree
+of them) and returns the rank's block of the stacked result, which equals
+its row of ``mix_stacked``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch import pytree
+from repro_torch.core.graph import PermLane
 
 
 def mix_leaf(w_mat: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
@@ -64,6 +75,86 @@ def sparse_mixing(
         nbr_w[i, : len(nbrs)] = off_diag[i, nbrs]
     self_w = np.diag(w_mat).astype(np.float32)
     return self_w, nbr_idx, nbr_w
+
+
+def mix_sparse(self_w: torch.Tensor, nbr_idx: torch.Tensor, nbr_w: torch.Tensor,
+               stacked) -> object:
+    """out_k = self_w[k] x_k + sum_d nbr_w[k, d] x[nbr_idx[k, d]] on every
+    (K, ...) leaf of ``stacked`` (a tensor or a tree), float32, cast back."""
+
+    def leaf(x):
+        xf = x.to(torch.float32)
+        feat = (1,) * (x.dim() - 1)
+        gathered = xf[nbr_idx.long()]  # (K, D, ...)
+        out = self_w.to(torch.float32).reshape(-1, *feat) * xf + torch.sum(
+            nbr_w.to(torch.float32).reshape(*nbr_w.shape, *feat) * gathered, dim=1)
+        return out.to(x.dtype)
+
+    return pytree.tree_map(leaf, stacked)
+
+
+def gather_peer_leaf(v: torch.Tensor, group, lanes) -> torch.Tensor:
+    """One leaf of ``gather_peer_rows``: the rank's (1, ...) block -> the
+    stacked (K, ...) leaf, its own row and every in-neighbor's (one
+    ``group.exchange`` over ``lanes``), zeros for the peers it never hears
+    from."""
+    return group.exchange(v, lanes)
+
+
+def gather_peer_rows(block, group, lanes):
+    """``gather_peer_leaf`` on every (1, ...) leaf of a tree (or a tensor):
+    the stacked rows the rank's mix reads.  The zero rows meet zero mixing
+    weights, so a mix of the result equals the dense stacked form's row."""
+    return pytree.tree_map(lambda v: gather_peer_leaf(v, group, lanes), block)
+
+
+def mix_psum(x, group, *, self_weight: float, peer_weight: float):
+    """Complete-graph gossip with uniform weights as one sum over the ranks:
+    out_k = (self_weight - peer_weight) x_k + peer_weight sum_j x_j, float32."""
+
+    def leaf(v):
+        vf = v.to(torch.float32)
+        total = group.all_reduce(vf)
+        return ((self_weight - peer_weight) * vf + peer_weight * total).to(v.dtype)
+
+    return pytree.tree_map(leaf, x)
+
+
+def _ring_lane(n: int, shift: int):
+    """The lane that sends every rank's row to rank + shift (mod n)."""
+    return PermLane(perm=tuple(sorted((i, (i + shift) % n) for i in range(n))),
+                    src_for_dst=tuple((d - shift) % n for d in range(n)))
+
+
+def mix_ring(x, group, *, self_weight: float, left_weight: float, right_weight: float):
+    """Ring gossip, two exchanges (from the left, from the right) and a
+    weighted sum in float32: out_k = self x_k + left x_{k-1} + right x_{k+1}."""
+    n, me = group.size, group.rank
+
+    def leaf(v):
+        vf = v.to(torch.float32)
+        from_left = group.exchange(vf, [_ring_lane(n, 1)])[(me - 1) % n][None]
+        from_right = group.exchange(vf, [_ring_lane(n, -1)])[(me + 1) % n][None]
+        out = self_weight * vf + left_weight * from_left + right_weight * from_right
+        return out.to(v.dtype)
+
+    return pytree.tree_map(leaf, x)
+
+
+def mix_collective(x, group, w_row: torch.Tensor, *, topology: str = "complete"):
+    """A row of a mixing matrix across the ranks: ``w_row`` (K,) is this
+    rank's row; the complete topology all-gathers every block and sums
+    ``w_row[j] x_j`` in float32.  Sparse topologies take ``mix_ring`` /
+    ``mix_psum`` or the runtime's lanes."""
+    if topology != "complete":
+        raise ValueError(f"mix_collective only supports complete topology, got {topology!r}")
+
+    def leaf(v):
+        allv = group.all_gather(v[0].to(torch.float32))  # (K, ...)
+        w = w_row.to(torch.float32).reshape(-1, *(1,) * (allv.dim() - 1))
+        return torch.sum(w * allv, dim=0, keepdim=True).to(v.dtype)
+
+    return pytree.tree_map(leaf, x)
 
 
 def scatter_rows(

@@ -516,6 +516,59 @@ def round_robin_schedule(graphs: Sequence[CommGraph]) -> GraphSchedule:
     return GraphSchedule(tuple(graphs), name="round_robin")
 
 
+# ---------------------------------------------------------------------------
+# Permutation lanes (the sharded runtime, one process per peer)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PermLane:
+    """One exchange's worth of edges: every peer sends at most once and
+    receives at most once along a lane (``core.peer_group.PeerGroup.exchange``
+    makes one send and one receive a lane per rank).
+
+    perm:         ((src, dst), ...) pairs, sorted.
+    src_for_dst:  (K,) — src_for_dst[k] is the peer whose row k receives in
+                  this lane, or the sentinel K when k receives nothing.
+    """
+
+    perm: tuple[tuple[int, int], ...]
+    src_for_dst: tuple[int, ...]
+
+
+def edge_color_lanes(adjacency: np.ndarray) -> tuple[PermLane, ...]:
+    """Partition ``adjacency[src, dst]`` edges into lanes: a greedy
+    bipartite edge coloring in row-major edge order (each lane uses every
+    peer at most once as a source and once as a destination), equal to the
+    reference's lane for lane."""
+    adjacency = np.asarray(adjacency, dtype=bool)
+    k = adjacency.shape[0]
+    lanes: list[dict[int, int]] = []  # per lane: dst -> src
+    for src, dst in zip(*np.nonzero(adjacency)):
+        src, dst = int(src), int(dst)
+        for lane in lanes:
+            if dst not in lane and src not in lane.values():
+                lane[dst] = src
+                break
+        else:
+            lanes.append({dst: src})
+    out = []
+    for lane in lanes:
+        src_for_dst = np.full((k,), k, dtype=np.int32)
+        for dst, src in lane.items():
+            src_for_dst[dst] = src
+        out.append(PermLane(perm=tuple(sorted((src, dst) for dst, src in lane.items())),
+                            src_for_dst=tuple(int(s) for s in src_for_dst)))
+    return tuple(out)
+
+
+def schedule_lanes(schedule: GraphSchedule) -> tuple[PermLane, ...]:
+    """The lanes of the union of the schedule's edge sets: one lane set
+    serves every round, and a round's weights are zero on every lane edge
+    absent from its graph."""
+    return edge_color_lanes(schedule.union_graph().adjacency)
+
+
 def schedule_matrices(
     schedule: GraphSchedule,
     mixing: str = "data_weighted",

@@ -3,8 +3,9 @@
 
 The paper's central instrument is test accuracy evaluated at *both* phase
 boundaries of every round (after local training, after consensus).  The
-port's log also keeps each eval period's wall seconds per round, and the
-scan driver's capture time.
+port's log also keeps each eval period's wall seconds per round, the
+scan driver's capture time and, for a sharded run (one process per peer),
+each rank's exchange statistics and kernel launches.
 """
 from __future__ import annotations
 
@@ -26,6 +27,8 @@ class RoundLog:
     seconds: list = dataclasses.field(default_factory=list)  # wall time per round
     # the scan driver's warm-up round and capture (in the first period's seconds too)
     capture_seconds: float = 0.0
+    # a sharded run's ranks: {"exchange": PeerGroup.stats, "launches": {kernel: n}} each
+    ranks: list = dataclasses.field(default_factory=list)
 
     def record(
         self,

@@ -77,9 +77,18 @@ as in the reference) and a registry language model's task
 and a vlm's ``patches`` or an encoder-decoder's ``frames``; in float32 or
 bf16, with a bf16 model's float32 leaves in their float32 block, under every
 protocol, wire, delivery rule and schedule above and through both round
-drivers), the vmap and one-slice hierarchical runtimes.  Any
-other configuration raises ``NotImplementedError`` naming the ROADMAP.md
-item that ports it.
+drivers), the vmap and one-slice hierarchical runtimes, and the sharded
+runtime with one process per peer.  Any other configuration raises
+``NotImplementedError`` naming the ROADMAP.md item that ports it.
+
+The sharded runtime (``make_sharded_round_fn``, the reference's
+``peer_axis="pod"`` with one peer a device) runs each peer in its own
+process (``core.peer_group``: gloo on the CPU, CUDA IPC inboxes for K ranks
+on one card): a rank holds its (1, row) block of the state, runs the local
+phase on it, exchanges its row with its neighbors over the schedule's lanes
+and launches the stacked step's kernel on its row alone (the kernels' row
+range), so every row equals the vmap runtime's bit for bit; a compressed
+wire all-gathers the payloads (allclose, as in the reference).
 """
 from __future__ import annotations
 
@@ -104,6 +113,7 @@ from repro_torch.core import task as task_lib
 from repro_torch.data import pipeline
 from repro_torch.device import resolve_device
 from repro_torch.core.protocols import SparseRoundOps
+from repro_torch.kernels.consensus_mix import ops as cm_ops
 from repro_torch.kernels.consensus_mix.ops import (complete_candidates, dense_operands,
                                                     select_round, upload_schedule)
 
@@ -810,7 +820,7 @@ def local_phase_stats(
     return state, torch.stack(step_losses)
 
 
-def _consensus_steps(state: P2PState, cfg: P2PConfig, mix) -> P2PState:
+def _consensus_steps(state: P2PState, cfg: P2PConfig, mix, begin=None) -> P2PState:
     """S consensus steps of ``mix(proto_state, params, i) -> (proto_state,
     mixed, d_step)`` on each parameter block i (``param_blocks``): d
     refreshed from each step's incoming neighbors (Eq. 3's bias, Sec.
@@ -818,11 +828,13 @@ def _consensus_steps(state: P2PState, cfg: P2PConfig, mix) -> P2PState:
     float32 block takes each step after the first block, from the same
     protocol state: push-sum's mass is a peer's, so it advances once a step
     (the first block's y'; the float32 block's launch computes the same y'
-    from the same mass and weights)."""
+    from the same mass and weights).  ``begin(proto_state)``, once a step
+    where given, is the protocol state the step's mixes read (the sharded
+    runtime's: push-sum's mass of every in-neighbor, exchanged once)."""
     params, d_bias, b_bias = (blocks(state, f) for f in ("params", "d_bias", "b_bias"))
     proto_state = state.protocol
     for _ in range(cfg.consensus_steps):
-        step_state = proto_state
+        step_state = proto_state if begin is None else begin(proto_state)
         for i, x in enumerate(params):
             new_state, mixed, d_step = mix(step_state, x, i)
             if i == 0:
@@ -1201,6 +1213,281 @@ def _hier_round_step(task: task_lib.TrainTask, cfg: P2PConfig, peers_per_device:
     return step
 
 
+# ---------------------------------------------------------------------------
+# The sharded runtime: one process per peer (peer_axis="pod", one peer a device)
+# ---------------------------------------------------------------------------
+
+
+def _map_per_peer(state: P2PState, fn) -> P2PState:
+    """``state`` with ``fn`` applied to every per-peer tensor (params .. b,
+    the protocol's, the adaptive key and losses, the published snapshots and
+    their ages, a mixed task's float32 block); a compressed wire's estimate
+    stacks, which every rank carries whole, are kept as they are."""
+    wide = state.wide
+    if wide:
+        wide = WideState(*(fn(f) if isinstance(f, torch.Tensor) and name != "compression"
+                           else f for name, f in zip(WideState._fields, wide)))
+    return state._replace(
+        params=fn(state.params), momentum=fn(state.momentum), d_bias=fn(state.d_bias),
+        b_bias=fn(state.b_bias),
+        protocol=type(state.protocol)(*map(fn, state.protocol)) if state.protocol else (),
+        adaptive=AdaptiveState(*map(fn, state.adaptive)) if state.adaptive else (),
+        staleness=StalenessState(*map(fn, state.staleness)) if state.staleness else (),
+        wide=wide)
+
+
+def shard_state(state: P2PState, rank: int) -> P2PState:
+    """A rank's block of a stacked state: row ``rank`` of every per-peer
+    tensor, as (1, ...) copies (the compressed wire's estimate stacks stay
+    whole: every rank carries the replicated (K, row) stack, as the
+    reference's does).  Every rank draws the same stacked ``init_state`` and
+    keeps its row, so a sharded run starts where a vmap run starts."""
+    return _map_per_peer(state, lambda t: t[rank:rank + 1].clone())
+
+
+def unshard_state(group, state: P2PState) -> P2PState:
+    """The stacked state of a sharded run, on every rank: each per-peer
+    tensor's rows all-gathered in rank order (a collective: every rank
+    calls it)."""
+    return _map_per_peer(state, lambda t: group.all_gather(t[0]))
+
+
+def inbox_bytes(task: task_lib.TrainTask, cfg: P2PConfig) -> int:
+    """The largest row a rank of a sharded run ships: a parameter block's
+    (the compressed wire's payloads and the scalars are smaller)."""
+    rows = [blk.row * blk.dtype.itemsize for blk in ParamLayout.of(task).blocks]
+    return max(*rows, 4 * cfg.local_steps, 64)
+
+
+def _row_of(proto_state, row: int):
+    """A rank's protocol state from a mix over every row (push-sum's y')."""
+    return type(proto_state)(*(t[row:row + 1] for t in proto_state)) if proto_state else ()
+
+
+def _own_rows(x: torch.Tensor, k: int, row: int) -> torch.Tensor:
+    """A (K, N) buffer holding the rank's (1, N) row at its index, zeros
+    elsewhere (the kernels read the self term there and nothing else)."""
+    full = x.new_zeros((k, x.shape[1]))
+    full[row] = x[0]
+    return full
+
+
+def consensus_phase_sharded(
+    state: P2PState, cfg: P2PConfig, ops: SparseRoundOps | protocols_lib.StaleRoundOps,
+    *, group, lanes, layout: ParamLayout | None = None,
+) -> P2PState:
+    """``consensus_phase`` of one rank of the sharded runtime.
+
+    Every per-peer tensor of ``state`` is the rank's (1, ...) block; ``ops``
+    are the round's operands of all K peers (replicated: they are small next
+    to the parameters).  Each consensus step exchanges each parameter block's
+    row once over ``lanes`` (``group.exchange``: the reference's one
+    ``ppermute`` a lane; the flat layout makes its leaf pipelining moot) and
+    launches the stacked step's kernel on the (K, N) stack of the rank's row
+    and its in-neighbors' rows, the rank's row as the launch's row range:
+    the row equals the stacked step's bit for bit.  Push-sum's mass rides its
+    own lane once a step (``mix_sharded_begin``).  A protocol that overrides
+    only ``mix_sharded`` runs through it, d from the kernel.  A compressed
+    wire takes ``_consensus_phase_sharded_compressed``, bounded staleness
+    ``_consensus_phase_sharded_async``.
+    """
+    if cfg.consensus_steps == 0:
+        return state._replace(round_idx=state.round_idx + 1)
+    proto = protocols_lib.get_protocol(cfg.protocol)
+    comp = compression_lib.from_config(cfg)
+    if not comp.identity:
+        layout = layout or layout_of(cfg.model)
+        check_layout(layout, state)
+        return _consensus_phase_sharded_compressed(state, cfg, ops, proto, comp, layout,
+                                                   group=group, lanes=lanes)
+    if cfg.staleness_bound > 0:
+        return _consensus_phase_sharded_async(state, cfg, ops, proto, group=group, lanes=lanes)
+    me, t = group.rank, cfg.local_steps
+    if type(proto).mix_sharded_leaf is protocols_lib.ConsensusProtocol.mix_sharded_leaf:
+        def legacy(ps, x, _i):  # the whole-block override; d from the kernel's launch
+            x_full = group.exchange(x, lanes)
+            _, d_step = cm_ops.consensus_mix_stacked(x_full, ops, t, rows=(me, 1))
+            ps, mixed = proto.mix_sharded(ps, x, x_full, ops, group=group, lanes=lanes)
+            return ps, mixed, d_step
+
+        return _consensus_steps(state, cfg, legacy)
+    return _consensus_steps(
+        state, cfg,
+        lambda ps, x, _i: proto.mix_sharded_leaf(ps, group.exchange(x, lanes), ops, me, t),
+        begin=lambda ps: proto.mix_sharded_begin(ps, group=group, lanes=lanes))
+
+
+def _consensus_phase_sharded_compressed(
+    state: P2PState, cfg: P2PConfig, ops: SparseRoundOps, proto: protocols_lib.ConsensusProtocol,
+    comp: compression_lib.Compressor, layout: ParamLayout, *, group, lanes,
+) -> P2PState:
+    """``consensus_phase_sharded`` over a compressed wire (the reference's
+    ``_consensus_phase_sharded_compressed``): each step, each rank
+    compresses its own row's difference to its public estimate
+    (``comp.wire``), the payloads are all-gathered, and every rank advances
+    the replicated (K, row) estimate stack by all of them (the reference's
+    simulation: replicas stay equal because every rank advances every row
+    from the same payloads), mixing through the stacked step's
+    ``dequant_mix`` launch on a (K, row) buffer holding the rank's true row
+    (the kernel reads the other rows' estimates, not their parameters) and
+    keeping its row.  Push-sum's mass rides the lanes uncompressed."""
+    leaves = layout.blocks
+    ests = blocks(state, "compression")
+    me, k = group.rank, cfg.num_peers
+
+    def mix(ps_full, x, i):
+        shipped = [group.all_gather(part[0]) for part in comp.wire(x, ests[i][me:me + 1],
+                                                                   leaves[i])]
+        payload = comp.receive(ests[i], shipped, leaves[i])
+        ps, mixed, d_step, ests[i] = proto.mix_compressed(
+            ps_full, _own_rows(x, k, me), payload, ops, leaves[i].leaf_offsets, cfg.local_steps)
+        return _row_of(ps, me), mixed[me:me + 1].clone(), d_step[me:me + 1].clone()
+
+    state = _consensus_steps(state, cfg, mix,
+                             begin=lambda ps: proto.mix_sharded_begin(ps, group=group,
+                                                                      lanes=lanes))
+    return with_blocks(state, compression=ests)
+
+
+def _consensus_phase_sharded_async(
+    state: P2PState, cfg: P2PConfig, ops: protocols_lib.StaleRoundOps,
+    proto: protocols_lib.ConsensusProtocol, *, group, lanes,
+) -> P2PState:
+    """``consensus_phase_sharded`` under bounded staleness (the reference's
+    ``_consensus_phase_sharded_async``): the K snapshot ages are
+    all-gathered, so every rank decides the same delivery and decays the
+    same operands; the published rows travel over the lanes once a round
+    (delivery is per round), and each step launches the snapshot mode on
+    the rank's live row and the exchanged snapshots, its row only."""
+    st: StalenessState = state.staleness
+    me, k = group.rank, cfg.num_peers
+    delivered, age, decay = staleness_delivery(cfg, ops.scheduled, group.all_gather(st.age[0]))
+    published = [torch.where(delivered[me:me + 1, None], x, p)
+                 for x, p in zip(param_blocks(state), blocks(state, "published"))]
+    a_ops = protocols_lib.age_decayed_operands(ops, decay, proto.stochasticity)
+    pub_full = [group.exchange(p, lanes) for p in published]
+    state = _consensus_steps(
+        state, cfg,
+        lambda ps, x, i: proto.mix_stale_sharded(ps, _own_rows(x, k, me), pub_full[i], a_ops, me,
+                                                 cfg.local_steps),
+        begin=lambda ps: proto.mix_sharded_begin(ps, group=group, lanes=lanes))
+    state = state._replace(staleness=st._replace(age=age[me:me + 1]))
+    return with_blocks(state, published=published)
+
+
+def _local_phase_at_width(state: P2PState, task: task_lib.TrainTask, batches, cfg: P2PConfig,
+                          width: int, steps_k: np.ndarray | None
+                          ) -> tuple[P2PState, torch.Tensor]:
+    """A rank's local phase (``local_phase_stats`` on its (1, ...) block) run
+    on ``width`` copies of its row and its batch, row 0 kept: at the vmap
+    runtime's width the card's libraries take the vmap runtime's kernels
+    (cuBLAS picks a GEMM by its batch count), so the row comes out as the
+    vmap runtime's bit for bit.  Returns (state, losses (T, 1))."""
+    if width == 1:
+        return local_phase_stats(state, task, batches, cfg, steps_k=steps_k)
+    copies = lambda t: t.expand(width, *t.shape[1:]).contiguous()  # noqa: E731
+    fields = ("params", "momentum", "d_bias", "b_bias")
+    wide = with_blocks(state, **{f: [copies(b) for b in blocks(state, f)] for f in fields})
+    wide_batches = pytree.tree_map(
+        lambda leaf: leaf.expand(leaf.shape[0], width, *leaf.shape[2:]).contiguous(), batches)
+    out, losses = local_phase_stats(wide, task, wide_batches, cfg,
+                                    steps_k=None if steps_k is None else np.repeat(steps_k, width))
+    out = with_blocks(out, **{f: [b[:1].clone() for b in blocks(out, f)] for f in fields})
+    return out, losses[:, :1]
+
+
+def make_sharded_round_fn(
+    task: task_lib.TrainTask,
+    cfg: P2PConfig,
+    group,
+    data_sizes: np.ndarray | None = None,
+    *,
+    local_width: int = 1,
+) -> Callable[[P2PState, tuple], tuple[P2PState, P2PState, torch.Tensor]]:
+    """A rank's round in the sharded runtime, one process per peer (the
+    reference's ``make_sharded_round_fn`` with one peer a device): the same
+    ``(state, batches) -> (after_local, after_consensus, losses (T,))``
+    contract as ``make_round_fn``, on the rank's (1, ...) block of the state
+    (``shard_state``) and its (T, 1, ...) block of the batches, with the
+    per-step losses all-gathered to (T, K) and reduced as the vmap runtime
+    reduces them.  ``group`` is the rank's ``core.peer_group.PeerGroup``
+    (``group.size`` = K).
+
+    The schedule's operands of every period round (replicated), the lanes of
+    its union graph (``graph.schedule_lanes``; the complete graph's for an
+    adaptive schedule, whose matching every rank computes alike from the
+    all-gathered losses and the shared threefry key) and the profile's step
+    budgets are built once, here.  ``local_width``: the local phase runs on
+    that many copies of the rank's row (``_local_phase_at_width``), 1 (its
+    own row) by default.  A parity check on a card passes K: cuBLAS picks
+    the 2NN's GEMM by its batch count, so only at the vmap runtime's width
+    are a card's rows the vmap runtime's bit for bit (on the CPU one row
+    already gives them).
+    """
+    k = cfg.num_peers
+    if group.size != k:
+        raise ValueError(f"the sharded runtime runs one peer a rank: num_peers={k} needs "
+                         f"{k} ranks, the group has {group.size}")
+    features_lib.check_config(cfg)
+    device = group.device
+    me = group.rank
+    steps_k = steps_budget(cfg)
+    my_steps = None if steps_k is None else steps_k[me:me + 1]
+    pick, period = round_picker(cfg, data_sizes, device=device)
+    adaptive = cfg.schedule == "adaptive"
+    lanes = graph_lib.edge_color_lanes(~np.eye(k, dtype=bool)) if adaptive else \
+        graph_lib.schedule_lanes(build_schedule(cfg))
+    layout = ParamLayout.of(task)
+
+    def step(state: P2PState, batches):
+        ops = pick(state.round_idx % period)
+        if adaptive:  # the matching from every peer's last losses, as the vmap round's
+            ad = state.adaptive
+            ops, key_next = adaptive_operands(
+                AdaptiveState(ad.key, group.all_gather(ad.last_losses[0])), cfg, ops)
+        after_local, losses = _local_phase_at_width(state, task, batches, cfg, local_width,
+                                                    my_steps)
+        losses = group.all_gather(losses[:, 0]).t().contiguous()  # (T, K), the vmap layout
+        if adaptive:
+            after_local = after_local._replace(adaptive=AdaptiveState(
+                key=key_next.expand_as(ad.key).contiguous(),
+                last_losses=losses.mean(dim=0)[me:me + 1]))
+        after_cons = consensus_phase_sharded(after_local, cfg, ops, group=group, lanes=lanes,
+                                             layout=layout)
+        return after_local, after_cons, losses.mean(dim=1)
+
+    return step
+
+
+class PodScanDriver:
+    """``make_scan_driver(..., group=)``: C rounds a call of a rank's sharded
+    round (``make_sharded_round_fn``), driven eagerly: a rank's exchange
+    waits on a host barrier between kernel launches, which a CUDA graph
+    cannot hold, and the local phase alone is too short to gain from one.
+    The bits are the python loop's.  ``drive(state, batches) ->
+    (after_local, final_state, losses (C, T))``; ``batches`` a
+    ``data.pipeline.ChunkBatches`` of the rank's rows ((C, T, 1, B) indices)
+    or a tree of (C, T, 1, ...) tensors."""
+
+    capture_seconds = 0.0  # nothing is captured
+
+    def __init__(self, step):
+        self.step = step
+
+    def __call__(self, state: P2PState, batches) -> tuple[P2PState, P2PState, torch.Tensor]:
+        if isinstance(batches, pipeline.ChunkBatches):
+            x_all, y_all, idx = batches
+            chunk, round_batches = idx.shape[0], lambda c: (x_all[idx[c]], y_all[idx[c]])
+        else:
+            chunk = pytree.leaves(batches)[0].shape[0]
+            round_batches = lambda c: pytree.tree_map(lambda leaf: leaf[c], batches)  # noqa: E731
+        losses = []
+        for c in range(chunk):
+            after_local, state, round_losses = self.step(state, round_batches(c))
+            losses.append(round_losses)
+        return after_local, state, torch.stack(losses)
+
+
 def _tensors(*fields) -> list[torch.Tensor]:
     """The fields that are tensors (the others are ``()``: not carried)."""
     return [f for f in fields if isinstance(f, torch.Tensor)]
@@ -1410,7 +1697,8 @@ def make_scan_driver(
     mix_mode: str = "auto",
     donate: bool = True,
     device: torch.device | str | None = None,
-) -> ScanDriver:
+    group=None,
+) -> ScanDriver | PodScanDriver:
     """Fused multi-round driver (the reference's ``make_scan_driver``): C
     rounds a call, on the card each a replay of one CUDA graph of the round
     (``ScanDriver``), so the results equal C calls of ``make_round_fn`` (or
@@ -1418,8 +1706,12 @@ def make_scan_driver(
     schedule's operands (``round_picker``) and the step budgets are uploaded
     once, here.  The chunk length C is read from the batches (a
     ``ChunkBatches`` or a tree of (C, T, K, ...) tensors); one capture
-    serves every C.
+    serves every C.  With ``group`` (a rank's ``PeerGroup``) it drives the
+    rank's sharded round (``PodScanDriver`` of ``make_sharded_round_fn``) on
+    the group's device.
     """
+    if group is not None:
+        return PodScanDriver(make_sharded_round_fn(task, cfg, group, data_sizes))
     device = resolve_device(device)
     if peers_per_device is not None and peers_per_device > 1:
         step = _hier_round_step(task, cfg, peers_per_device, mix_mode)

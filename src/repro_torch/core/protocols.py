@@ -28,6 +28,16 @@ step of the one-slice hierarchical runtime ("bridge" or "segment"), and
 operands (``age_decayed_operands``, the slot-table form of
 ``age_decayed_constants``).  Push-sum's steps go through the same kernels in
 their mass mode.
+
+The sharded runtime (one process per peer, ``core.p2p.make_sharded_round_fn``)
+calls a protocol's rank forms: ``mix_sharded_begin`` once a consensus step
+(push-sum's mass exchanged over the lanes), then for each parameter block
+``mix_sharded_leaf`` or, under bounded staleness, ``mix_stale_sharded``: the
+same kernel launch as the stacked step on the (K, N) buffer of the rank's
+row and its in-neighbors' rows, with the rank's row as the launch's row
+range, so the row is the stacked step's bit for bit.  A protocol that
+overrides only the whole-block ``mix_sharded`` (the reference's interface
+before the begin / leaf split) runs through it instead.
 """
 from __future__ import annotations
 
@@ -256,6 +266,40 @@ class ConsensusProtocol:
         mixed, d_bias)."""
         raise NotImplementedError
 
+    def mix_sharded_begin(self, proto_state, *, group, lanes):
+        """A rank's per-step setup in the sharded runtime, once a consensus
+        step: the protocol state its mixes read (push-sum: the (K,) mass of
+        the rank and its in-neighbors, exchanged over ``lanes``)."""
+        raise NotImplementedError(
+            f"protocol {self.name!r} implements neither mix_sharded_begin / "
+            "mix_sharded_leaf nor a mix_sharded override")
+
+    def mix_sharded_leaf(self, proto_state, x_full: torch.Tensor, ops: SparseRoundOps, row: int,
+                         local_steps: int):
+        """One block of a sharded step: ``mix``'s launch on the (K, N) stack
+        ``x_full`` (the rank's row and its in-neighbors'), row ``row`` only.
+        Returns (the rank's protocol state, mixed (1, N), d (1, N))."""
+        raise NotImplementedError
+
+    def mix_stale_sharded(self, proto_state, x_full: torch.Tensor, pub_full: torch.Tensor,
+                          ops: SparseRoundOps, row: int, local_steps: int):
+        """One block of a sharded bounded-staleness step: ``mix_stale``'s
+        launch, row ``row`` only (``x_full``'s own row the live one,
+        ``pub_full`` the exchanged snapshots).  Returns (the rank's protocol
+        state, mixed (1, N), d (1, N))."""
+        raise NotImplementedError
+
+    def mix_sharded(self, proto_state, x_block: torch.Tensor, x_full: torch.Tensor,
+                    ops: SparseRoundOps, *, group, lanes):
+        """The whole-block form of a sharded step (the reference's interface
+        before the begin / leaf split): ``mix_sharded_begin`` then
+        ``mix_sharded_leaf``'s mix.  Returns (proto_state, mixed (1, N)); a
+        protocol that overrides only this runs through it, with d from the
+        kernel (``p2p.consensus_phase_sharded``)."""
+        state = self.mix_sharded_begin(proto_state, group=group, lanes=lanes)
+        state, mixed, _ = self.mix_sharded_leaf(state, x_full, ops, group.rank, 1)
+        return state, mixed
+
 
 class GossipProtocol(ConsensusProtocol):
     """The paper's protocol: row-stochastic averaging (Eq. 4), stateless."""
@@ -332,6 +376,27 @@ class GossipProtocol(ConsensusProtocol):
             mixed, d_bias = cm_segment.segment_mix_schedule(flat, round_idx, ops_s, local_steps)
             return proto_state, mixed, d_bias
         raise ValueError(f"unknown mix_mode {mode!r}; 'bridge' or 'segment'")
+
+    def mix_sharded_begin(self, proto_state, *, group, lanes):
+        """Gossip carries no state: ``proto_state`` as it is."""
+        return proto_state
+
+    def mix_sharded_leaf(
+        self, proto_state, x_full: torch.Tensor, ops: SparseRoundOps, row: int,
+        local_steps: int,
+    ) -> tuple[Any, torch.Tensor, torch.Tensor]:
+        """``mix``'s ``consensus_mix`` launch, row ``row`` only."""
+        mixed, d_bias = cm_ops.consensus_mix_stacked(x_full, ops, local_steps, rows=(row, 1))
+        return proto_state, mixed, d_bias
+
+    def mix_stale_sharded(
+        self, proto_state, x_full: torch.Tensor, pub_full: torch.Tensor, ops: SparseRoundOps,
+        row: int, local_steps: int,
+    ) -> tuple[Any, torch.Tensor, torch.Tensor]:
+        """``mix_stale``'s snapshot-mode launch, row ``row`` only."""
+        mixed, d_bias = cm_ops.consensus_mix_snapshot_stacked(x_full, pub_full, ops, local_steps,
+                                                              rows=(row, 1))
+        return proto_state, mixed, d_bias
 
 
 class PushSumProtocol(GossipProtocol):
@@ -418,6 +483,30 @@ class PushSumProtocol(GossipProtocol):
             return PushSumState(mass=mass), mixed, d_bias
         return super().mix_hier(proto_state, flat, ops_s, round_idx, local_steps, mode=mode)
 
+    def mix_sharded_begin(self, proto_state: PushSumState, *, group, lanes) -> PushSumState:
+        """The mass rides the parameters' lanes, once a step: the (K,) mass
+        of the rank and its in-neighbors (zeros elsewhere, never read)."""
+        return PushSumState(mass=group.exchange(proto_state.mass, lanes))
+
+    def mix_sharded_leaf(
+        self, proto_state: PushSumState, x_full: torch.Tensor, ops: SparseRoundOps, row: int,
+        local_steps: int,
+    ) -> tuple[PushSumState, torch.Tensor, torch.Tensor]:
+        """``mix``'s mass-mode launch, row ``row`` only: (the rank's y' (1,),
+        mixed, d)."""
+        mixed, d_bias, mass = cm_ops.consensus_mix_push_sum_stacked(
+            x_full, proto_state.mass, ops, local_steps, rows=(row, 1))
+        return PushSumState(mass=mass), mixed, d_bias
+
+    def mix_stale_sharded(
+        self, proto_state: PushSumState, x_full: torch.Tensor, pub_full: torch.Tensor,
+        ops: SparseRoundOps, row: int, local_steps: int,
+    ) -> tuple[PushSumState, torch.Tensor, torch.Tensor]:
+        """``mix_stale``'s mass-mode snapshot launch, row ``row`` only."""
+        mixed, d_bias, mass = cm_ops.consensus_mix_push_sum_snapshot_stacked(
+            x_full, pub_full, proto_state.mass, ops, local_steps, rows=(row, 1))
+        return PushSumState(mass=mass), mixed, d_bias
+
 
 _REGISTRY: dict[str, ConsensusProtocol] = {}
 
@@ -430,6 +519,12 @@ def register_protocol(protocol: ConsensusProtocol) -> ConsensusProtocol:
         raise ValueError(f"protocol {protocol.name!r} already registered")
     _REGISTRY[protocol.name] = protocol
     return protocol
+
+
+def unregister_protocol(name: str) -> None:
+    """Remove a registered protocol (the registry is the process's: a
+    protocol registered for one check is taken out after it)."""
+    _REGISTRY.pop(name, None)
 
 
 def get_protocol(name: str) -> ConsensusProtocol:

@@ -94,6 +94,15 @@
 // the candidate slots, so it takes bf16 too.  Bound: the same work on half
 // the bytes.
 //
+// Row range (every entry point's `row0`, `rows`): the launch computes the
+// mix and d rows of peers row0 .. row0 + rows - 1 only, into (rows, n)
+// outputs (and y' into (rows,) new_mass), reading x (and P) of all K peers:
+// a process that holds one peer's row and its in-neighbors' rows in a (K,
+// n) buffer computes its own row, not all K.  Each row's arithmetic is the
+// full launch's (the gather design's block is the same block; the column
+// tile's table column and sender order are the same), so the rows equal the
+// full launch's bit for bit.  row0 = 0, rows = num_peers is the full launch.
+//
 // Bound on an H100: at the iid_k100 shape (K = 100, D = 99, N = 199,212) one
 // call must read 80 MB and write 160 MB (72 us at 3.35 TB/s) but does
 // 4 D + 3 = 399 float32 operations per output element, 7.9 GFLOP (119 us at
@@ -126,7 +135,8 @@ consensus_mix_kernel(const float* __restrict__ x, int64_t n_vec,
                      const float* __restrict__ nbr_w, const float* __restrict__ beta,
                      int d_slots, float local_steps, const float* __restrict__ mass,
                      float* __restrict__ mixed, float* __restrict__ d_out,
-                     float* __restrict__ new_mass, const float* __restrict__ pub) {
+                     float* __restrict__ new_mass, const float* __restrict__ pub,
+                     int64_t row0) {
   extern __shared__ float smem[];  // [D] nbr_w (x sender mass) | [D] beta | [D] nbr_idx
   float* s_w = smem;
   float* s_b = smem + d_slots;
@@ -134,7 +144,8 @@ consensus_mix_kernel(const float* __restrict__ x, int64_t n_vec,
   __shared__ int s_has_nbrs;
   __shared__ float s_mass[2];  // kMass: self_w[k] y[k] and 1 / y'[k]
 
-  const int k = blockIdx.x;
+  // block x computes peer row0 + x into output row x
+  const int k = static_cast<int>(row0) + blockIdx.x;
   const int64_t slot_row = static_cast<int64_t>(k) * d_slots;
   for (int s = threadIdx.x; s < d_slots; s += blockDim.x) {
     if (kMass) {
@@ -159,7 +170,7 @@ consensus_mix_kernel(const float* __restrict__ x, int64_t n_vec,
       for (int s = 0; s < d_slots; ++s) y += s_w[s];
       s_mass[0] = sw_y;
       s_mass[1] = 1.0f / y;
-      if (blockIdx.y == 0) new_mass[k] = y;
+      if (blockIdx.y == 0) new_mass[blockIdx.x] = y;
     }
   }
   __syncthreads();
@@ -172,6 +183,7 @@ consensus_mix_kernel(const float* __restrict__ x, int64_t n_vec,
   T* mv = reinterpret_cast<T*>(mixed);
   T* dv = reinterpret_cast<T*>(d_out);
   const int64_t own = static_cast<int64_t>(k) * n_vec;
+  const int64_t out = static_cast<int64_t>(blockIdx.x) * n_vec;
   const int64_t stride = static_cast<int64_t>(gridDim.y) * blockDim.x;
   for (int64_t e = static_cast<int64_t>(blockIdx.y) * blockDim.x + threadIdx.x; e < n_vec;
        e += stride) {
@@ -185,18 +197,20 @@ consensus_mix_kernel(const float* __restrict__ x, int64_t n_vec,
       acc_mix = vfma(s_w[s], v, acc_mix);
       acc_beta = vfma(s_b[s], v, acc_beta);
     }
-    mv[own + e] = kMass ? vscale(inv_y, acc_mix) : acc_mix;
-    dv[own + e] = vbias(acc_beta, self, local_steps, has_nbrs);
+    mv[out + e] = kMass ? vscale(inv_y, acc_mix) : acc_mix;
+    dv[out + e] = vbias(acc_beta, self, local_steps, has_nbrs);
   }
 }
 
 // pub: the published snapshots (kSnap), else nullptr.
 template <bool kMass, bool kSnap = false>
-int launch_gather(const float* x, int64_t num_peers, int64_t n, const float* self_w,
-                  const int32_t* nbr_idx, const float* nbr_w, const float* beta,
-                  int64_t d_slots, float local_steps, const float* mass, float* mixed,
-                  float* d_out, float* new_mass, void* stream, const float* pub = nullptr) {
-  if (num_peers <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
+int launch_gather(const float* x, int64_t num_peers, int64_t n, int64_t row0, int64_t rows,
+                  const float* self_w, const int32_t* nbr_idx, const float* nbr_w,
+                  const float* beta, int64_t d_slots, float local_steps, const float* mass,
+                  float* mixed, float* d_out, float* new_mass, void* stream,
+                  const float* pub = nullptr) {
+  if (num_peers <= 0 || n <= 0 || rows <= 0) return static_cast<int>(cudaSuccess);
+  if (row0 < 0 || row0 + rows > num_peers) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = static_cast<size_t>(d_slots) * 3 * sizeof(float);
   const bool vec4 = n % 4 == 0 && aligned16(x) && aligned16(mixed) && aligned16(d_out) &&
@@ -205,15 +219,15 @@ int launch_gather(const float* x, int64_t num_peers, int64_t n, const float* sel
   int64_t tiles = (n_vec + kThreads - 1) / kThreads;
   if (kMass) tiles = mass_mode_tiles(tiles, d_slots);
   if (tiles > kMaxGridY) tiles = kMaxGridY;
-  const dim3 grid(static_cast<unsigned>(num_peers), static_cast<unsigned>(tiles));
+  const dim3 grid(static_cast<unsigned>(rows), static_cast<unsigned>(tiles));
   if (vec4) {
     consensus_mix_kernel<float4, kMass, kSnap><<<grid, kThreads, smem, s>>>(
         x, n_vec, self_w, nbr_idx, nbr_w, beta, static_cast<int>(d_slots), local_steps, mass,
-        mixed, d_out, new_mass, pub);
+        mixed, d_out, new_mass, pub, row0);
   } else {
     consensus_mix_kernel<float, kMass, kSnap><<<grid, kThreads, smem, s>>>(
         x, n_vec, self_w, nbr_idx, nbr_w, beta, static_cast<int>(d_slots), local_steps, mass,
-        mixed, d_out, new_mass, pub);
+        mixed, d_out, new_mass, pub, row0);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -263,7 +277,8 @@ consensus_mix_bf16_kernel(const __nv_bfloat16* __restrict__ x, int64_t n,
                           const float* __restrict__ nbr_w, const float* __restrict__ beta,
                           int d_slots, float local_steps, __nv_bfloat16* __restrict__ mixed,
                           __nv_bfloat16* __restrict__ d_out, const float* __restrict__ mass,
-                          float* __restrict__ new_mass, const __nv_bfloat16* __restrict__ pub) {
+                          float* __restrict__ new_mass, const __nv_bfloat16* __restrict__ pub,
+                          int64_t row0) {
   extern __shared__ float smem[];  // [D] nbr_w (x sender mass) | [D] beta | [D] nbr_idx
   float* s_w = smem;
   float* s_b = smem + d_slots;
@@ -271,7 +286,8 @@ consensus_mix_bf16_kernel(const __nv_bfloat16* __restrict__ x, int64_t n,
   __shared__ int s_has_nbrs;
   __shared__ float s_mass[2];  // kMass: self_w[k] y[k] and 1 / y'[k]
 
-  const int k = blockIdx.x;
+  // block x computes peer row0 + x into output row x
+  const int k = static_cast<int>(row0) + blockIdx.x;
   const int64_t slot_row = static_cast<int64_t>(k) * d_slots;
   for (int s = threadIdx.x; s < d_slots; s += blockDim.x) {
     const int32_t j = nbr_idx[slot_row + s];
@@ -290,7 +306,7 @@ consensus_mix_bf16_kernel(const __nv_bfloat16* __restrict__ x, int64_t n,
       for (int s = 0; s < d_slots; ++s) y += s_w[s];
       s_mass[0] = sw_y;
       s_mass[1] = 1.0f / y;
-      if (blockIdx.y == 0) new_mass[k] = y;
+      if (blockIdx.y == 0) new_mass[blockIdx.x] = y;
     }
   }
   __syncthreads();
@@ -300,6 +316,7 @@ consensus_mix_bf16_kernel(const __nv_bfloat16* __restrict__ x, int64_t n,
 
   const int64_t n_vec = n / V;
   const int64_t own = static_cast<int64_t>(k) * n;
+  const int64_t out = static_cast<int64_t>(blockIdx.x) * n;
   const int64_t stride = static_cast<int64_t>(gridDim.y) * blockDim.x;
   for (int64_t e = static_cast<int64_t>(blockIdx.y) * blockDim.x + threadIdx.x; e < n_vec;
        e += stride) {
@@ -325,18 +342,20 @@ consensus_mix_bf16_kernel(const __nv_bfloat16* __restrict__ x, int64_t n,
       if (kMass) acc_mix[i] *= s_mass[1];
       acc_beta[i] = vbias(acc_beta[i], self[i], local_steps, has_nbrs);
     }
-    store_bf16<V>(mixed + own + e * V, acc_mix);
-    store_bf16<V>(d_out + own + e * V, acc_beta);
+    store_bf16<V>(mixed + out + e * V, acc_mix);
+    store_bf16<V>(d_out + out + e * V, acc_beta);
   }
 }
 
 template <bool kMass = false, bool kSnap = false>
-int launch_gather_bf16(const __nv_bfloat16* x, int64_t num_peers, int64_t n, const float* self_w,
-                       const int32_t* nbr_idx, const float* nbr_w, const float* beta,
-                       int64_t d_slots, float local_steps, __nv_bfloat16* mixed,
-                       __nv_bfloat16* d_out, void* stream, const float* mass = nullptr,
-                       float* new_mass = nullptr, const __nv_bfloat16* pub = nullptr) {
-  if (num_peers <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
+int launch_gather_bf16(const __nv_bfloat16* x, int64_t num_peers, int64_t n, int64_t row0,
+                       int64_t rows, const float* self_w, const int32_t* nbr_idx,
+                       const float* nbr_w, const float* beta, int64_t d_slots,
+                       float local_steps, __nv_bfloat16* mixed, __nv_bfloat16* d_out,
+                       void* stream, const float* mass = nullptr, float* new_mass = nullptr,
+                       const __nv_bfloat16* pub = nullptr) {
+  if (num_peers <= 0 || n <= 0 || rows <= 0) return static_cast<int>(cudaSuccess);
+  if (row0 < 0 || row0 + rows > num_peers) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = static_cast<size_t>(d_slots) * 3 * sizeof(float);
   const bool vec8 = n % 8 == 0 && aligned16(x) && aligned16(mixed) && aligned16(d_out) &&
@@ -345,15 +364,15 @@ int launch_gather_bf16(const __nv_bfloat16* x, int64_t num_peers, int64_t n, con
   int64_t tiles = (n_vec + kThreads - 1) / kThreads;
   if (kMass) tiles = mass_mode_tiles(tiles, d_slots);
   if (tiles > kMaxGridY) tiles = kMaxGridY;
-  const dim3 grid(static_cast<unsigned>(num_peers), static_cast<unsigned>(tiles));
+  const dim3 grid(static_cast<unsigned>(rows), static_cast<unsigned>(tiles));
   if (vec8) {
     consensus_mix_bf16_kernel<8, kMass, kSnap><<<grid, kThreads, smem, s>>>(
         x, n, self_w, nbr_idx, nbr_w, beta, static_cast<int>(d_slots), local_steps, mixed, d_out,
-        mass, new_mass, pub);
+        mass, new_mass, pub, row0);
   } else {
     consensus_mix_bf16_kernel<1, kMass, kSnap><<<grid, kThreads, smem, s>>>(
         x, n, self_w, nbr_idx, nbr_w, beta, static_cast<int>(d_slots), local_steps, mixed, d_out,
-        mass, new_mass, pub);
+        mass, new_mass, pub, row0);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -361,45 +380,49 @@ int launch_gather_bf16(const __nv_bfloat16* x, int64_t num_peers, int64_t n, con
 // The column tile's bf16 storage mode: the tile widens x (kSnap: P) as it
 // stages it; the vector path needs rows of a multiple of 8 elements.
 template <bool kMass = false, bool kSnap = false>
-int launch_column_tile_bf16(const __nv_bfloat16* x, int64_t num_peers, int64_t n,
-                            const float* self_w, const int32_t* nbr_idx, const float* nbr_w,
-                            const float* beta, int64_t d_slots, float local_steps,
-                            __nv_bfloat16* mixed, __nv_bfloat16* d_out, void* stream,
-                            const float* mass = nullptr, float* new_mass = nullptr,
+int launch_column_tile_bf16(const __nv_bfloat16* x, int64_t num_peers, int64_t n, int64_t row0,
+                            int64_t rows, const float* self_w, const int32_t* nbr_idx,
+                            const float* nbr_w, const float* beta, int64_t d_slots,
+                            float local_steps, __nv_bfloat16* mixed, __nv_bfloat16* d_out,
+                            void* stream, const float* mass = nullptr, float* new_mass = nullptr,
                             const __nv_bfloat16* pub = nullptr) {
-  if (num_peers <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
-  if (num_peers > kTileMaxPeers || d_slots < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (num_peers <= 0 || n <= 0 || rows <= 0) return static_cast<int>(cudaSuccess);
+  if (num_peers > kTileMaxPeers || d_slots < 1 || row0 < 0 || row0 + rows > num_peers)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int k = static_cast<int>(num_peers), ds = static_cast<int>(d_slots);
+  const int r0 = static_cast<int>(row0), nr = static_cast<int>(rows);
   const LeafStarts leaves = {};
-  const size_t smem = tile_smem_bytes(k, false, kMass);
+  const size_t smem = tile_smem_bytes(k, false, kMass, nr);
   const __nv_bfloat16* staged = kSnap ? pub : x;
   const bool vec = n % 8 == 0 && aligned16(x) && aligned16(mixed) && aligned16(d_out) &&
                    aligned16(staged);
   const cudaError_t err =
       vec ? launch_tile<true, !kSnap, kMass, kSnap, __nv_bfloat16>(
                 false, smem, s, x, staged, nullptr, nullptr, leaves, 1, n, k, self_w, nbr_idx,
-                nbr_w, beta, ds, local_steps, mass, mixed, d_out, nullptr, new_mass)
+                nbr_w, beta, ds, local_steps, mass, mixed, d_out, nullptr, new_mass, r0, nr)
           : launch_tile<false, !kSnap, kMass, kSnap, __nv_bfloat16>(
                 false, smem, s, x, staged, nullptr, nullptr, leaves, 1, n, k, self_w, nbr_idx,
-                nbr_w, beta, ds, local_steps, mass, mixed, d_out, nullptr, new_mass);
+                nbr_w, beta, ds, local_steps, mass, mixed, d_out, nullptr, new_mass, r0, nr);
   return static_cast<int>(err);
 }
 
 // kSnap: the tile stages pub (the published snapshots) in place of x and
 // reads the self term, and d's own term, from x in device memory.
 template <bool kMass, bool kSnap = false>
-int launch_column_tile(const float* x, int64_t num_peers, int64_t n, const float* self_w,
-                       const int32_t* nbr_idx, const float* nbr_w, const float* beta,
-                       int64_t d_slots, float local_steps, const float* mass, float* mixed,
-                       float* d_out, float* new_mass, void* stream,
+int launch_column_tile(const float* x, int64_t num_peers, int64_t n, int64_t row0, int64_t rows,
+                       const float* self_w, const int32_t* nbr_idx, const float* nbr_w,
+                       const float* beta, int64_t d_slots, float local_steps, const float* mass,
+                       float* mixed, float* d_out, float* new_mass, void* stream,
                        const float* pub = nullptr) {
-  if (num_peers <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
-  if (num_peers > kTileMaxPeers || d_slots < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (num_peers <= 0 || n <= 0 || rows <= 0) return static_cast<int>(cudaSuccess);
+  if (num_peers > kTileMaxPeers || d_slots < 1 || row0 < 0 || row0 + rows > num_peers)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int k = static_cast<int>(num_peers), ds = static_cast<int>(d_slots);
+  const int r0 = static_cast<int>(row0), nr = static_cast<int>(rows);
   const LeafStarts leaves = {};  // no payload: one leaf, unused
-  const size_t smem = tile_smem_bytes(k, false, kMass);
+  const size_t smem = tile_smem_bytes(k, false, kMass, nr);
   const float* staged = kSnap ? pub : x;
   const bool vec4 = n % 4 == 0 && aligned16(x) && aligned16(mixed) && aligned16(d_out) &&
                     aligned16(staged);
@@ -407,27 +430,32 @@ int launch_column_tile(const float* x, int64_t num_peers, int64_t n, const float
       vec4 ? launch_tile<true, !kSnap, kMass, kSnap>(false, smem, s, x, staged, nullptr,
                                                       nullptr, leaves, 1, n, k, self_w, nbr_idx,
                                                       nbr_w, beta, ds, local_steps, mass, mixed,
-                                                      d_out, nullptr, new_mass)
+                                                      d_out, nullptr, new_mass, r0, nr)
            : launch_tile<false, !kSnap, kMass, kSnap>(false, smem, s, x, staged, nullptr,
                                                        nullptr, leaves, 1, n, k, self_w,
                                                        nbr_idx, nbr_w, beta, ds, local_steps,
-                                                       mass, mixed, d_out, nullptr, new_mass);
+                                                       mass, mixed, d_out, nullptr, new_mass, r0,
+                                                       nr);
   return static_cast<int>(err);
 }
 
 }  // namespace
 
-// x, mixed, d_out: (num_peers, n) row-major float32 on the device; self_w
-// (num_peers,); nbr_idx, nbr_w, beta (num_peers, d_slots).  Every nbr_idx
+// x: (num_peers, n) row-major float32 on the device; self_w (num_peers,);
+// nbr_idx, nbr_w, beta (num_peers, d_slots); mixed, d_out: (rows, n), the
+// rows of peers row0 .. row0 + rows - 1 (0 <= row0, row0 + rows <=
+// num_peers, else cudaErrorInvalidValue; rows = num_peers from row0 = 0 is
+// the full launch; a mass mode's new_mass is (rows,) the same way).  Every nbr_idx
 // entry must lie in [0, num_peers) and d_slots * 12 bytes must fit the
 // default 48 KB of shared memory; the Python wrapper checks both.  Launches on
 // `stream` and returns the launch's cudaError_t (0 on success).
 extern "C" int consensus_mix_f32(const float* x, int64_t num_peers, int64_t n,
+                                 int64_t row0, int64_t rows,
                                  const float* self_w, const int32_t* nbr_idx,
                                  const float* nbr_w, const float* beta, int64_t d_slots,
                                  float local_steps, float* mixed, float* d_out,
                                  void* stream) {
-  return launch_gather<false>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, d_slots,
+  return launch_gather<false>(x, num_peers, n, row0, rows, self_w, nbr_idx, nbr_w, beta, d_slots,
                               local_steps, nullptr, mixed, d_out, nullptr, stream);
 }
 
@@ -436,11 +464,13 @@ extern "C" int consensus_mix_f32(const float* x, int64_t num_peers, int64_t n,
 // cudaErrorInvalidValue).  Launches a persistent grid on `stream` and
 // returns a cudaError_t (0 on success).
 extern "C" int consensus_mix_tile_f32(const float* x, int64_t num_peers, int64_t n,
+                                      int64_t row0, int64_t rows,
                                       const float* self_w, const int32_t* nbr_idx,
                                       const float* nbr_w, const float* beta, int64_t d_slots,
                                       float local_steps, float* mixed, float* d_out,
                                       void* stream) {
-  return launch_column_tile<false>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, d_slots,
+  return launch_column_tile<false>(x, num_peers, n, row0, rows,
+                                   self_w, nbr_idx, nbr_w, beta, d_slots,
                                    local_steps, nullptr, mixed, d_out, nullptr, stream);
 }
 
@@ -450,22 +480,25 @@ extern "C" int consensus_mix_tile_f32(const float* x, int64_t num_peers, int64_t
 // a buffer other than mass, which receives y'.  x holds the de-biased
 // parameters and mixed receives them de-biased again.
 extern "C" int consensus_mix_push_sum_f32(const float* x, int64_t num_peers, int64_t n,
+                                          int64_t row0, int64_t rows,
                                           const float* self_w, const int32_t* nbr_idx,
                                           const float* nbr_w, const float* beta,
                                           int64_t d_slots, float local_steps, const float* mass,
                                           float* mixed, float* d_out, float* new_mass,
                                           void* stream) {
-  return launch_gather<true>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, d_slots,
+  return launch_gather<true>(x, num_peers, n, row0, rows, self_w, nbr_idx, nbr_w, beta, d_slots,
                              local_steps, mass, mixed, d_out, new_mass, stream);
 }
 
 extern "C" int consensus_mix_push_sum_tile_f32(const float* x, int64_t num_peers, int64_t n,
+                                               int64_t row0, int64_t rows,
                                                const float* self_w, const int32_t* nbr_idx,
                                                const float* nbr_w, const float* beta,
                                                int64_t d_slots, float local_steps,
                                                const float* mass, float* mixed, float* d_out,
                                                float* new_mass, void* stream) {
-  return launch_column_tile<true>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, d_slots,
+  return launch_column_tile<true>(x, num_peers, n, row0, rows,
+                                  self_w, nbr_idx, nbr_w, beta, d_slots,
                                   local_steps, mass, mixed, d_out, new_mass, stream);
 }
 
@@ -475,44 +508,51 @@ extern "C" int consensus_mix_push_sum_tile_f32(const float* x, int64_t num_peers
 // which every neighbor term reads; x, the live parameters, gives the self
 // term and d's own term.  The weights are the round's age-decayed ones.
 extern "C" int consensus_mix_snapshot_f32(const float* x, const float* published,
-                                          int64_t num_peers, int64_t n, const float* self_w,
+                                          int64_t num_peers, int64_t n,
+                                          int64_t row0, int64_t rows, const float* self_w,
                                           const int32_t* nbr_idx, const float* nbr_w,
                                           const float* beta, int64_t d_slots,
                                           float local_steps, float* mixed, float* d_out,
                                           void* stream) {
-  return launch_gather<false, true>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, d_slots,
+  return launch_gather<false, true>(x, num_peers, n, row0, rows,
+                                    self_w, nbr_idx, nbr_w, beta, d_slots,
                                     local_steps, nullptr, mixed, d_out, nullptr, stream,
                                     published);
 }
 
 extern "C" int consensus_mix_snapshot_tile_f32(const float* x, const float* published,
                                                int64_t num_peers, int64_t n,
+                                               int64_t row0, int64_t rows,
                                                const float* self_w, const int32_t* nbr_idx,
                                                const float* nbr_w, const float* beta,
                                                int64_t d_slots, float local_steps,
                                                float* mixed, float* d_out, void* stream) {
-  return launch_column_tile<false, true>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta,
+  return launch_column_tile<false, true>(x, num_peers, n, row0, rows, self_w, nbr_idx, nbr_w, beta,
                                          d_slots, local_steps, nullptr, mixed, d_out, nullptr,
                                          stream, published);
 }
 
 extern "C" int consensus_mix_push_sum_snapshot_f32(const float* x, const float* published,
                                                    int64_t num_peers, int64_t n,
+                                                   int64_t row0, int64_t rows,
                                                    const float* self_w, const int32_t* nbr_idx,
                                                    const float* nbr_w, const float* beta,
                                                    int64_t d_slots, float local_steps,
                                                    const float* mass, float* mixed,
                                                    float* d_out, float* new_mass, void* stream) {
-  return launch_gather<true, true>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, d_slots,
+  return launch_gather<true, true>(x, num_peers, n, row0, rows,
+                                   self_w, nbr_idx, nbr_w, beta, d_slots,
                                    local_steps, mass, mixed, d_out, new_mass, stream, published);
 }
 
 extern "C" int consensus_mix_push_sum_snapshot_tile_f32(
-    const float* x, const float* published, int64_t num_peers, int64_t n, const float* self_w,
+    const float* x, const float* published, int64_t num_peers, int64_t n,
+    int64_t row0, int64_t rows, const float* self_w,
     const int32_t* nbr_idx, const float* nbr_w, const float* beta, int64_t d_slots,
     float local_steps, const float* mass, float* mixed, float* d_out, float* new_mass,
     void* stream) {
-  return launch_column_tile<true, true>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, d_slots,
+  return launch_column_tile<true, true>(x, num_peers, n, row0, rows,
+                                        self_w, nbr_idx, nbr_w, beta, d_slots,
                                         local_steps, mass, mixed, d_out, new_mass, stream,
                                         published);
 }
@@ -521,20 +561,22 @@ extern "C" int consensus_mix_push_sum_snapshot_tile_f32(
 // consensus_mix_tile_f32's arguments and contracts, with x, mixed and d_out
 // (num_peers, n) row-major bf16; the weights stay float32.
 extern "C" int consensus_mix_bf16(const __nv_bfloat16* x, int64_t num_peers, int64_t n,
+                                  int64_t row0, int64_t rows,
                                   const float* self_w, const int32_t* nbr_idx,
                                   const float* nbr_w, const float* beta, int64_t d_slots,
                                   float local_steps, __nv_bfloat16* mixed,
                                   __nv_bfloat16* d_out, void* stream) {
-  return launch_gather_bf16(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, d_slots,
+  return launch_gather_bf16(x, num_peers, n, row0, rows, self_w, nbr_idx, nbr_w, beta, d_slots,
                             local_steps, mixed, d_out, stream);
 }
 
 extern "C" int consensus_mix_tile_bf16(const __nv_bfloat16* x, int64_t num_peers, int64_t n,
+                                       int64_t row0, int64_t rows,
                                        const float* self_w, const int32_t* nbr_idx,
                                        const float* nbr_w, const float* beta, int64_t d_slots,
                                        float local_steps, __nv_bfloat16* mixed,
                                        __nv_bfloat16* d_out, void* stream) {
-  return launch_column_tile_bf16(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, d_slots,
+  return launch_column_tile_bf16(x, num_peers, n, row0, rows, self_w, nbr_idx, nbr_w, beta, d_slots,
                                  local_steps, mixed, d_out, stream);
 }
 
@@ -544,35 +586,41 @@ extern "C" int consensus_mix_tile_bf16(const __nv_bfloat16* x, int64_t num_peers
 // published, mixed and d_out (num_peers, n) row-major bf16; the weights, the
 // mass and new_mass stay float32.
 extern "C" int consensus_mix_push_sum_bf16(const __nv_bfloat16* x, int64_t num_peers,
-                                           int64_t n, const float* self_w,
+                                           int64_t n,
+                                           int64_t row0, int64_t rows, const float* self_w,
                                            const int32_t* nbr_idx, const float* nbr_w,
                                            const float* beta, int64_t d_slots,
                                            float local_steps, const float* mass,
                                            __nv_bfloat16* mixed, __nv_bfloat16* d_out,
                                            float* new_mass, void* stream) {
-  return launch_gather_bf16<true>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, d_slots,
+  return launch_gather_bf16<true>(x, num_peers, n, row0, rows,
+                                  self_w, nbr_idx, nbr_w, beta, d_slots,
                                   local_steps, mixed, d_out, stream, mass, new_mass);
 }
 
 extern "C" int consensus_mix_push_sum_tile_bf16(const __nv_bfloat16* x, int64_t num_peers,
-                                                int64_t n, const float* self_w,
+                                                int64_t n,
+                                                int64_t row0, int64_t rows, const float* self_w,
                                                 const int32_t* nbr_idx, const float* nbr_w,
                                                 const float* beta, int64_t d_slots,
                                                 float local_steps, const float* mass,
                                                 __nv_bfloat16* mixed, __nv_bfloat16* d_out,
                                                 float* new_mass, void* stream) {
-  return launch_column_tile_bf16<true>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, d_slots,
+  return launch_column_tile_bf16<true>(x, num_peers, n, row0, rows,
+                                       self_w, nbr_idx, nbr_w, beta, d_slots,
                                        local_steps, mixed, d_out, stream, mass, new_mass);
 }
 
 extern "C" int consensus_mix_snapshot_bf16(const __nv_bfloat16* x,
                                            const __nv_bfloat16* published, int64_t num_peers,
-                                           int64_t n, const float* self_w,
+                                           int64_t n,
+                                           int64_t row0, int64_t rows, const float* self_w,
                                            const int32_t* nbr_idx, const float* nbr_w,
                                            const float* beta, int64_t d_slots,
                                            float local_steps, __nv_bfloat16* mixed,
                                            __nv_bfloat16* d_out, void* stream) {
-  return launch_gather_bf16<false, true>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, d_slots,
+  return launch_gather_bf16<false, true>(x, num_peers, n, row0, rows,
+                                         self_w, nbr_idx, nbr_w, beta, d_slots,
                                          local_steps, mixed, d_out, stream, nullptr, nullptr,
                                          published);
 }
@@ -580,32 +628,42 @@ extern "C" int consensus_mix_snapshot_bf16(const __nv_bfloat16* x,
 extern "C" int consensus_mix_snapshot_tile_bf16(const __nv_bfloat16* x,
                                                 const __nv_bfloat16* published,
                                                 int64_t num_peers, int64_t n,
+                                                int64_t row0, int64_t rows,
                                                 const float* self_w, const int32_t* nbr_idx,
                                                 const float* nbr_w, const float* beta,
                                                 int64_t d_slots, float local_steps,
                                                 __nv_bfloat16* mixed, __nv_bfloat16* d_out,
                                                 void* stream) {
-  return launch_column_tile_bf16<false, true>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta,
+  return launch_column_tile_bf16<false, true>(x, num_peers, n, row0, rows,
+                                              self_w, nbr_idx, nbr_w, beta,
                                               d_slots, local_steps, mixed, d_out, stream,
                                               nullptr, nullptr, published);
 }
 
 extern "C" int consensus_mix_push_sum_snapshot_bf16(
     const __nv_bfloat16* x, const __nv_bfloat16* published, int64_t num_peers, int64_t n,
+    int64_t row0, int64_t rows,
     const float* self_w, const int32_t* nbr_idx, const float* nbr_w, const float* beta,
     int64_t d_slots, float local_steps, const float* mass, __nv_bfloat16* mixed,
     __nv_bfloat16* d_out, float* new_mass, void* stream) {
-  return launch_gather_bf16<true, true>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, d_slots,
+  return launch_gather_bf16<true, true>(x, num_peers, n, row0, rows,
+                                        self_w, nbr_idx, nbr_w, beta, d_slots,
                                         local_steps, mixed, d_out, stream, mass, new_mass,
                                         published);
 }
 
 extern "C" int consensus_mix_push_sum_snapshot_tile_bf16(
     const __nv_bfloat16* x, const __nv_bfloat16* published, int64_t num_peers, int64_t n,
+    int64_t row0, int64_t rows,
     const float* self_w, const int32_t* nbr_idx, const float* nbr_w, const float* beta,
     int64_t d_slots, float local_steps, const float* mass, __nv_bfloat16* mixed,
     __nv_bfloat16* d_out, float* new_mass, void* stream) {
-  return launch_column_tile_bf16<true, true>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta,
+  return launch_column_tile_bf16<true, true>(x, num_peers, n, row0, rows,
+                                             self_w, nbr_idx, nbr_w, beta,
                                              d_slots, local_steps, mixed, d_out, stream, mass,
                                              new_mass, published);
 }
+
+// Present from the row range on: the entry points above take (row0, rows)
+// after n (tools/kernel_ab.py reads it to call libraries of either form).
+extern "C" int consensus_mix_row_range_abi() { return 1; }

@@ -38,6 +38,14 @@
 //   [W_off; Beta]^T table in shared memory (padding slots carry the row's
 //   own index with weight 0 and add +0.0), keeps self_w, and reduces the RAW
 //   beta row sums for the no-neighbor guard.
+// - a row range (row0, rows): the block computes the mix and d rows of
+//   peers row0 .. row0 + rows - 1 only, into (rows, N) outputs, from the
+//   tiles of ALL K senders (a process that holds one peer's row computes
+//   that row alone).  Each row's arithmetic is the full launch's: the same
+//   table column, summed over the senders j = 0 .. K-1 in the same order,
+//   so a row range gives the full launch's rows bit for bit.  The tile
+//   keeps the full launch's width TN (its stages of K senders fit shared
+//   memory) and holds 2 rows rounded up to 8 output rows.
 // - two stages of tiles in shared memory, filled by cp.async (16 bytes of
 //   est, 4 of q a copy) on the vector path while the previous tile is
 //   computed; the scalar path (N or a leaf start not a multiple of 4, or a
@@ -79,16 +87,19 @@ constexpr int kTileMaxGroups = 64;  // most column groups a tile: 256 columns
 // column group), TN = 4 CG columns a tile, and the block's threads, RG x CG
 // rounded up to a warp.  Few peers give narrow tiles and small blocks, so
 // there are tiles for every SM and several blocks on each (K = 8: TN = 256,
-// 128 threads); K = 100: TN = 80, 512 threads; K = 128: TN = 64.
+// 128 threads); K = 100: TN = 80, 512 threads; K = 128: TN = 64.  A row
+// range of `rows` peers (rows < K) keeps CG and TN of all K and takes RP =
+// 2 rows rounded up to 8: fewer threads a block, the same stages.
 struct TileShape {
   int rp, rg, cg, tn, threads, block;
 };
 
-__host__ __device__ __forceinline__ TileShape tile_shape(int k) {
+__host__ __device__ __forceinline__ TileShape tile_shape(int k, int rows = -1) {
   TileShape t;
-  t.rp = (2 * k + kTileRows - 1) / kTileRows * kTileRows;
+  const int rg_all = (2 * k + kTileRows - 1) / kTileRows;
+  t.rp = (2 * (rows < 0 ? k : rows) + kTileRows - 1) / kTileRows * kTileRows;
   t.rg = t.rp / kTileRows;
-  t.cg = min(kTileThreads / t.rg, kTileMaxGroups);
+  t.cg = min(kTileThreads / rg_all, kTileMaxGroups);
   t.tn = kTileCols * t.cg;
   t.threads = t.rg * t.cg;
   t.block = (t.threads + 31) / 32 * 32;
@@ -319,21 +330,23 @@ __device__ __forceinline__ void advance_tile(float* sv, const int8_t* sq,
 
 // Dynamic shared memory: [K][RP] table | K4 self_w | K4 has-neighbor flags |
 // K4 1 / y' (mass mode only) | 2 stages of [K][TN] float32 est (advanced in
-// place) | 2 of [K][TN] int8 q.
-size_t tile_smem_bytes(int k, bool has_q, bool mass) {
-  const TileShape t = tile_shape(k);
+// place) | 2 of [K][TN] int8 q.  `rows`: a row range's count (-1: all K).
+size_t tile_smem_bytes(int k, bool has_q, bool mass, int rows = -1) {
+  const TileShape t = tile_shape(k, rows);
   const size_t k4 = static_cast<size_t>((k + 3) & ~3);
   const size_t tile = static_cast<size_t>(k) * t.tn;
   return sizeof(float) * (static_cast<size_t>(k) * t.rp + (mass ? 3 : 2) * k4 + 2 * tile) +
          (has_q ? 2 * tile : 0);
 }
 
-// One warp a row of the slot table: the raw beta row sum (the no-neighbor
-// guard) and self_w; in the mass mode also y'_k = self_w[k] y_k +
-// sum_s nbr_w[k, s] y_j, kept as 1 / y'_k, self_w[k] y_k / y'_k in place of
-// self_w, and y' written to new_mass by block 0.
+// One warp a row of the slot table, for the rows row0 .. row0 + rows - 1
+// (each kept at its index in the range): the raw beta row sum (the
+// no-neighbor guard) and self_w; in the mass mode also y'_k = self_w[k] y_k
+// + sum_s nbr_w[k, s] y_j, kept as 1 / y'_k, self_w[k] y_k / y'_k in place
+// of self_w, and y' written to new_mass (one entry a row of the range) by
+// block 0.
 template <bool kMass>
-__device__ __forceinline__ void reduce_slot_rows(int k_peers, int d_slots,
+__device__ __forceinline__ void reduce_slot_rows(int row0, int rows, int d_slots,
                                                  const float* __restrict__ self_w,
                                                  const int32_t* __restrict__ nbr_idx,
                                                  const float* __restrict__ nbr_w,
@@ -342,7 +355,8 @@ __device__ __forceinline__ void reduce_slot_rows(int k_peers, int d_slots,
                                                  int* s_has, float* s_inv_y,
                                                  float* __restrict__ new_mass) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int k = warp; k < k_peers; k += blockDim.x / 32) {
+  for (int r = warp; r < rows; r += blockDim.x / 32) {
+    const int k = row0 + r;
     float sum = 0.0f, ysum = 0.0f;
     for (int s = lane; s < d_slots; s += 32) {
       const int64_t e = static_cast<int64_t>(k) * d_slots + s;
@@ -355,15 +369,15 @@ __device__ __forceinline__ void reduce_slot_rows(int k_peers, int d_slots,
       if (kMass) ysum += __shfl_xor_sync(0xffffffffu, ysum, off);
     }
     if (lane == 0) {
-      s_has[k] = sum > 0.0f;
+      s_has[r] = sum > 0.0f;
       if (kMass) {
         const float sw_y = self_w[k] * mass[k], y = sw_y + ysum;
         const float inv_y = 1.0f / y;
-        s_inv_y[k] = inv_y;
-        s_sw[k] = sw_y * inv_y;
-        if (blockIdx.x == 0) new_mass[k] = y;
+        s_inv_y[r] = inv_y;
+        s_sw[r] = sw_y * inv_y;
+        if (blockIdx.x == 0) new_mass[r] = y;
       } else {
-        s_sw[k] = self_w[k];
+        s_sw[r] = self_w[k];
       }
     }
   }
@@ -379,8 +393,12 @@ mix_tile_kernel(const TS* __restrict__ x, const TS* __restrict__ est,
                         const float* __restrict__ nbr_w, const float* __restrict__ beta,
                         int d_slots, float local_steps, const float* __restrict__ mass,
                         TS* __restrict__ mixed, TS* __restrict__ d_out,
-                        TS* __restrict__ est_out, float* __restrict__ new_mass) {
-  const TileShape ts = tile_shape(k_peers);
+                        TS* __restrict__ est_out, float* __restrict__ new_mass, int row0,
+                        int rows) {
+  // rows of the range: mix row r (< rows) is peer row0 + r, d row r (rows <=
+  // r < 2 rows) peer row0 + r - rows; mixed, d_out and new_mass hold the
+  // range's rows only, est_out (a payload's advance: the full range) all K
+  const TileShape ts = tile_shape(k_peers, rows);
   const int rp = ts.rp, tn = ts.tn;
   const int k4 = (k_peers + 3) & ~3;
   extern __shared__ __align__(16) float smem[];
@@ -395,6 +413,7 @@ mix_tile_kernel(const TS* __restrict__ x, const TS* __restrict__ est,
 
   const int64_t n_tiles = (n + tn - 1) / tn;
   for (int i = threadIdx.x; i < k_peers * rp; i += blockDim.x) table[i] = 0.0f;
+  const int64_t slot0 = static_cast<int64_t>(row0) * d_slots;
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int l = 0; l < kMaxLeaves; ++l) {
@@ -403,22 +422,23 @@ mix_tile_kernel(const TS* __restrict__ x, const TS* __restrict__ est,
   }
   __syncthreads();
   if (kMass) {  // the rows' 1 / y' first: the scatter scales by it
-    reduce_slot_rows<true>(k_peers, d_slots, self_w, nbr_idx, nbr_w, beta, mass, s_sw, s_has,
-                           s_inv_y, new_mass);
+    reduce_slot_rows<true>(row0, rows, d_slots, self_w, nbr_idx, nbr_w, beta, mass, s_sw,
+                           s_has, s_inv_y, new_mass);
     __syncthreads();
   }
   // scatter the slot table: a row's slots name distinct senders but for its
   // padding slots (its own index, weight 0), so each entry receives at most
   // one real weight onto +0.0, whatever the order of the atomics
-  for (int e = threadIdx.x; e < k_peers * d_slots; e += blockDim.x) {
-    const int k = e / d_slots;
-    const int j = nbr_idx[e];
-    atomicAdd(table + j * rp + k, kMass ? nbr_w[e] * mass[j] * s_inv_y[k] : nbr_w[e]);
-    atomicAdd(table + j * rp + k_peers + k, beta[e]);
+  for (int e = threadIdx.x; e < rows * d_slots; e += blockDim.x) {
+    const int r = e / d_slots;
+    const int64_t g = slot0 + e;
+    const int j = nbr_idx[g];
+    atomicAdd(table + j * rp + r, kMass ? nbr_w[g] * mass[j] * s_inv_y[r] : nbr_w[g]);
+    atomicAdd(table + j * rp + rows + r, beta[g]);
   }
   if (!kMass)
-    reduce_slot_rows<false>(k_peers, d_slots, self_w, nbr_idx, nbr_w, beta, mass, s_sw, s_has,
-                            s_inv_y, new_mass);
+    reduce_slot_rows<false>(row0, rows, d_slots, self_w, nbr_idx, nbr_w, beta, mass, s_sw,
+                            s_has, s_inv_y, new_mass);
   __syncthreads();
 
   const int tid = threadIdx.x;
@@ -451,8 +471,8 @@ mix_tile_kernel(const TS* __restrict__ x, const TS* __restrict__ est,
 #pragma unroll
       for (int i = 0; i < kTileRows; ++i) {
         const int r = r0 + i;
-        const bool live = kSnap ? r < 2 * k_peers : !kSelfStaged && r < k_peers;
-        const float4 xa = live ? load4<kVec, TS>(x, kSnap && r >= k_peers ? r - k_peers : r,
+        const bool live = kSnap ? r < 2 * rows : !kSelfStaged && r < rows;
+        const float4 xa = live ? load4<kVec, TS>(x, row0 + (r >= rows ? r - rows : r),
                                              col0 + ca, n)
                                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         xs[i][0] = xa.x, xs[i][1] = xa.y, xs[i][2] = xa.z, xs[i][3] = xa.w;
@@ -477,21 +497,21 @@ mix_tile_kernel(const TS* __restrict__ x, const TS* __restrict__ est,
 #pragma unroll
       for (int i = 0; i < kTileRows; ++i) {
         const int r = r0 + i;
-        if (r < k_peers) {
+        if (r < rows) {
           const float sw = s_sw[r];
           if (kSelfStaged) {
-            const float4 xa = *reinterpret_cast<const float4*>(sv + r * tn + ca);
+            const float4 xa = *reinterpret_cast<const float4*>(sv + (row0 + r) * tn + ca);
             xs[i][0] = xa.x, xs[i][1] = xa.y, xs[i][2] = xa.z, xs[i][3] = xa.w;
           }
 #pragma unroll
           for (int c = 0; c < kTileCols; ++c) acc[i][c] = fmaf(sw, xs[i][c], acc[i][c]);
           store4<kVec, TS>(mixed, r, col0 + ca, n,
                        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
-        } else if (r < 2 * k_peers) {
-          const int k = r - k_peers;
+        } else if (r < 2 * rows) {
+          const int k = r - rows;
           const bool has = s_has[k] != 0;
           const float4 va = kSnap ? make_float4(xs[i][0], xs[i][1], xs[i][2], xs[i][3])
-                                  : *reinterpret_cast<const float4*>(sv + k * tn + ca);
+                                  : *reinterpret_cast<const float4*>(sv + (row0 + k) * tn + ca);
           const float4 sa = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
           store4<kVec, TS>(d_out, k, col0 + ca, n, vbias(sa, va, local_steps, has));
         }
@@ -510,13 +530,15 @@ cudaError_t launch_tile(bool has_q, size_t smem, cudaStream_t s, const TS* x,
                         const float* beta, int d_slots, float local_steps, const float* mass,
                         TS* mixed, TS* d_out,
                         typename std::remove_const<TS>::type* est_out,  // not deduced: may be null
-                        float* new_mass) {
+                        float* new_mass, int row0 = 0, int rows = -1) {
+  // rows < 0: every peer (the full launch)
+  if (rows < 0) rows = k_peers;
   void (*kernel)(const TS*, const TS*, const int8_t*, const float*, LeafStarts, int, int64_t,
                  int, const float*, const int32_t*, const float*, const float*, int, float,
-                 const float*, TS*, TS*, TS*, float*) =
+                 const float*, TS*, TS*, TS*, float*, int, int) =
       has_q ? mix_tile_kernel<kVec, true, kSelfStaged, kMass, kSnap, TS>
             : mix_tile_kernel<kVec, false, kSelfStaged, kMass, kSnap, TS>;
-  const TileShape ts = tile_shape(k_peers);
+  const TileShape ts = tile_shape(k_peers, rows);
   const int64_t n_tiles = (n + ts.tn - 1) / ts.tn;
   // the persistent grid: as many blocks as fit on the SMs, at most one a
   // tile.  The shared-memory limit, the SM count and the occupancy are set
@@ -535,7 +557,9 @@ cudaError_t launch_tile(bool has_q, size_t smem, cudaStream_t s, const TS* x,
       return err;
     limit = static_cast<int>(smem);
   }
-  int& fit = per_sm[dev][kVec][has_q][k_peers];
+  // a row range's block is smaller: its occupancy is asked on every launch
+  int range_fit = 0;
+  int& fit = rows == k_peers ? per_sm[dev][kVec][has_q][k_peers] : range_fit;
   if (fit == 0) {
     if ((err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev)) !=
         cudaSuccess)
@@ -549,7 +573,7 @@ cudaError_t launch_tile(bool has_q, size_t smem, cudaStream_t s, const TS* x,
   const int grid = static_cast<int>(blocks < n_tiles ? blocks : n_tiles);
   kernel<<<grid, ts.block, smem, s>>>(x, est, q, scale, leaves, num_leaves, n, k_peers, self_w,
                                       nbr_idx, nbr_w, beta, d_slots, local_steps, mass, mixed,
-                                      d_out, est_out, new_mass);
+                                      d_out, est_out, new_mass, row0, rows);
   return cudaGetLastError();
 }
 

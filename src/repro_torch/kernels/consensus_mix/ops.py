@@ -58,6 +58,12 @@ complete graph one call reads 80 MB and writes 160 MB but does 7.9 GFLOP of
 float32 multiply-adds, so float32 FMA throughput (67 TFLOP/s, 119 us) bounds
 it, not memory (72 us).
 
+Every mode takes a row range (``rows`` = (row0, count)): the launch
+computes only those peers' rows, reading every row of the buffer, and they
+equal the full launch's rows bit for bit.  The sharded runtime
+(``core.p2p.make_sharded_round_fn``), where a process holds its own row and
+its in-neighbors' rows in a (K, N) buffer, computes its own row this way.
+
 ``launches.count`` counts kernel launches (never plain-version calls), so a
 run can show that its consensus went through the kernel.
 """
@@ -199,22 +205,23 @@ def load_kernel() -> build.KernelLibrary:
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
     for fn in (kl.lib.consensus_mix_f32, kl.lib.consensus_mix_tile_f32,
                kl.lib.consensus_mix_bf16, kl.lib.consensus_mix_tile_bf16):
-        fn.argtypes = [ptr, i64, i64, ptr, ptr, ptr, ptr, i64, ctypes.c_float, ptr, ptr, ptr]
+        fn.argtypes = [ptr, i64, i64, i64, i64, ptr, ptr, ptr, ptr, i64, ctypes.c_float, ptr,
+                       ptr, ptr]
         fn.restype = ctypes.c_int
     for dtype in ("f32", "bf16"):
         for tile in ("", "_tile"):
             fn = getattr(kl.lib, f"consensus_mix_push_sum{tile}_{dtype}")
-            fn.argtypes = [ptr, i64, i64, ptr, ptr, ptr, ptr, i64, ctypes.c_float, ptr, ptr,
-                           ptr, ptr, ptr]
+            fn.argtypes = [ptr, i64, i64, i64, i64, ptr, ptr, ptr, ptr, i64, ctypes.c_float,
+                           ptr, ptr, ptr, ptr, ptr]
             fn.restype = ctypes.c_int
             # the snapshot mode: the published buffer after x
             fn = getattr(kl.lib, f"consensus_mix_snapshot{tile}_{dtype}")
-            fn.argtypes = [ptr, ptr, i64, i64, ptr, ptr, ptr, ptr, i64, ctypes.c_float, ptr,
-                           ptr, ptr]
+            fn.argtypes = [ptr, ptr, i64, i64, i64, i64, ptr, ptr, ptr, ptr, i64,
+                           ctypes.c_float, ptr, ptr, ptr]
             fn.restype = ctypes.c_int
             fn = getattr(kl.lib, f"consensus_mix_push_sum_snapshot{tile}_{dtype}")
-            fn.argtypes = [ptr, ptr, i64, i64, ptr, ptr, ptr, ptr, i64, ctypes.c_float, ptr,
-                           ptr, ptr, ptr, ptr]
+            fn.argtypes = [ptr, ptr, i64, i64, i64, i64, ptr, ptr, ptr, ptr, i64,
+                           ctypes.c_float, ptr, ptr, ptr, ptr, ptr]
             fn.restype = ctypes.c_int
     return kl
 
@@ -298,6 +305,17 @@ def check_published(flat: torch.Tensor, published: torch.Tensor) -> None:
             f"{published.device}")
 
 
+def check_rows(flat: torch.Tensor, rows: tuple[int, int] | None) -> int:
+    """Validate a row range (row0, count) of a (K, N) buffer, 0 <= row0 and
+    row0 + count <= K with count >= 1; returns the output rows (K for None)."""
+    if rows is None:
+        return flat.shape[0]
+    row0, count = (int(v) for v in rows)
+    if count < 1 or row0 < 0 or row0 + count > flat.shape[0]:
+        raise ValueError(f"rows {tuple(rows)} is not a range of the {flat.shape[0]} peers")
+    return count
+
+
 def launch(
     flat: torch.Tensor,
     ops: SparseOperands,
@@ -307,20 +325,24 @@ def launch(
     mass: torch.Tensor | None = None,
     new_mass: torch.Tensor | None = None,
     published: torch.Tensor | None = None,
+    rows: tuple[int, int] | None = None,
 ) -> None:
     """Launch the kernel on the current stream into ``mixed`` / ``d_bias``;
     with ``mass`` (and ``new_mass`` for y') its mass mode; with
-    ``published`` its snapshot mode (in either weight mode).
+    ``published`` its snapshot mode (in either weight mode); with ``rows``
+    = (row0, count) the rows of peers row0 .. row0 + count - 1 only, into
+    (count, N) outputs (the full launch's rows, bit for bit).
 
     No checks: callers pass what ``check_operands`` (and ``check_mass``,
-    ``check_published``) validated.  Counts the launch and raises if CUDA
-    refused it.
+    ``check_published``, ``check_rows``) validated.  Counts the launch and
+    raises if CUDA refused it.
     """
     lib = load_kernel().lib
     tile = takes_tile_path(flat.shape[0])
     snap = published is not None
+    row0, count = (0, flat.shape[0]) if rows is None else rows
     args = [flat.data_ptr(), *((published.data_ptr(),) if snap else ()),
-            flat.shape[0], flat.shape[1],
+            flat.shape[0], flat.shape[1], row0, count,
             ops.self_w.data_ptr(), ops.nbr_idx.data_ptr(), ops.nbr_w.data_ptr(),
             ops.beta.data_ptr(), ops.nbr_idx.shape[1], float(local_steps)]
     mode = "_push_sum" if mass is not None else ""
@@ -337,21 +359,33 @@ def launch(
     launches.count += 1
 
 
+def _outputs(flat: torch.Tensor, count: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fresh (count, N) buffers of the buffer's type for mixed and d."""
+    shape = (count, flat.shape[1])
+    return (flat.new_empty(shape), flat.new_empty(shape))
+
+
 def consensus_mix_stacked(
     flat: torch.Tensor,  # (K, N) float32 or bf16
     ops: SparseOperands,
     local_steps: int,
+    *,
+    rows: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One gossip step + affinity d for all peers: returns (mixed, d_bias),
-    both (K, N) in fresh buffers of the buffer's type (float32 or bf16)."""
+    both (K, N) in fresh buffers of the buffer's type (float32 or bf16).
+    ``rows`` = (row0, count): the rows of peers row0 .. row0 + count - 1
+    only, (count, N) each, equal to the full call's rows bit for bit; every
+    row of ``flat`` is read (a process holding its own row and its
+    in-neighbors' rows computes its own)."""
     if flat.device.type not in ("cpu", "cuda"):
         raise ValueError(f"consensus_mix runs on cpu or cuda tensors, got {flat.device}")
     check_operands(flat, ops, local_steps, MAX_SLOTS)
+    count = check_rows(flat, rows)
     if flat.device.type == "cpu":
-        return ref.consensus_mix_stacked_ref(flat, *ops, local_steps)
-    mixed = torch.empty_like(flat)
-    d_bias = torch.empty_like(flat)
-    launch(flat, ops, local_steps, mixed, d_bias)
+        return ref.consensus_mix_stacked_ref(flat, *ops, local_steps, rows=rows)
+    mixed, d_bias = _outputs(flat, count)
+    launch(flat, ops, local_steps, mixed, d_bias, rows=rows)
     return mixed, d_bias
 
 
@@ -360,20 +394,23 @@ def consensus_mix_push_sum_stacked(
     mass: torch.Tensor,  # (K,) float32 push-sum mass y
     ops: SparseOperands,  # column-stochastic push weights
     local_steps: int,
+    *,
+    rows: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One push-sum step + affinity d for all peers, through the kernel's
     mass mode: returns (mixed, d_bias, new_mass), the de-biased
-    ``A (y x) / y'``, d from the raw x, and y' = A y, in fresh buffers."""
+    ``A (y x) / y'``, d from the raw x, and y' = A y, in fresh buffers.
+    ``rows`` as in ``consensus_mix_stacked`` (y' of those rows, (count,))."""
     if flat.device.type not in ("cpu", "cuda"):
         raise ValueError(f"consensus_mix runs on cpu or cuda tensors, got {flat.device}")
     check_operands(flat, ops, local_steps, MAX_SLOTS)
     check_mass(flat, mass, "consensus_mix")
+    count = check_rows(flat, rows)
     if flat.device.type == "cpu":
-        return ref.consensus_mix_push_sum_stacked_ref(flat, mass, *ops, local_steps)
-    mixed = torch.empty_like(flat)
-    d_bias = torch.empty_like(flat)
-    new_mass = torch.empty_like(mass)
-    launch(flat, ops, local_steps, mixed, d_bias, mass, new_mass)
+        return ref.consensus_mix_push_sum_stacked_ref(flat, mass, *ops, local_steps, rows=rows)
+    mixed, d_bias = _outputs(flat, count)
+    new_mass = mass.new_empty(count)
+    launch(flat, ops, local_steps, mixed, d_bias, mass, new_mass, rows=rows)
     return mixed, d_bias, new_mass
 
 
@@ -407,12 +444,15 @@ def consensus_mix_dense(
     w_mat: torch.Tensor,  # (K, K) row-stochastic mixing matrix, computed on the device
     beta_mat: torch.Tensor,  # (K, K) affinity matrix
     local_steps: int,
+    *,
+    rows: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One gossip step + affinity d from dense (K, K) matrices computed on
     the device (the reference's ``ops.consensus_mix_dense``): the kernel on
-    ``dense_operands``, every j != k a slot.  Returns (mixed, d_bias)."""
+    ``dense_operands``, every j != k a slot.  Returns (mixed, d_bias), of
+    ``rows`` only where given (``consensus_mix_stacked``)."""
     ops = dense_operands(w_mat, beta_mat, complete_candidates(w_mat.shape[0], w_mat.device))
-    return consensus_mix_stacked(flat, ops, local_steps)
+    return consensus_mix_stacked(flat, ops, local_steps, rows=rows)
 
 
 def consensus_mix_push_sum_dense(
@@ -421,13 +461,15 @@ def consensus_mix_push_sum_dense(
     w_mat: torch.Tensor,  # (K, K) column-stochastic push matrix, computed on the device
     beta_mat: torch.Tensor,  # (K, K) affinity matrix
     local_steps: int,
+    *,
+    rows: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One push-sum step + affinity d from dense (K, K) matrices computed on
     the device (the reference's ``ops.consensus_mix_push_sum_dense``): the
     kernel's mass mode on ``dense_operands``.  Returns (mixed, d_bias,
-    new_mass)."""
+    new_mass), of ``rows`` only where given."""
     ops = dense_operands(w_mat, beta_mat, complete_candidates(w_mat.shape[0], w_mat.device))
-    return consensus_mix_push_sum_stacked(flat, mass, ops, local_steps)
+    return consensus_mix_push_sum_stacked(flat, mass, ops, local_steps, rows=rows)
 
 
 def consensus_mix_snapshot_stacked(
@@ -435,20 +477,24 @@ def consensus_mix_snapshot_stacked(
     published: torch.Tensor,  # (K, N) of flat's type — each sender's last published snapshot
     ops: SparseOperands,  # the round's age-decayed weights
     local_steps: int,
+    *,
+    rows: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One bounded-staleness gossip step + affinity d, through the kernel's
     snapshot mode: ``mixed = self_w x + sum_s nbr_w P[j]`` and
     ``d = (sum_s beta P[j] - x) / T`` (0 for a zero beta row), in fresh
-    buffers."""
+    buffers; ``rows`` as in ``consensus_mix_stacked`` (only those rows of x
+    are read, every row of P)."""
     if flat.device.type not in ("cpu", "cuda"):
         raise ValueError(f"consensus_mix runs on cpu or cuda tensors, got {flat.device}")
     check_operands(flat, ops, local_steps, MAX_SLOTS)
     check_published(flat, published)
+    count = check_rows(flat, rows)
     if flat.device.type == "cpu":
-        return ref.consensus_mix_stacked_ref(flat, *ops, local_steps, published=published)
-    mixed = torch.empty_like(flat)
-    d_bias = torch.empty_like(flat)
-    launch(flat, ops, local_steps, mixed, d_bias, published=published)
+        return ref.consensus_mix_stacked_ref(flat, *ops, local_steps, published=published,
+                                             rows=rows)
+    mixed, d_bias = _outputs(flat, count)
+    launch(flat, ops, local_steps, mixed, d_bias, published=published, rows=rows)
     return mixed, d_bias
 
 
@@ -458,24 +504,27 @@ def consensus_mix_push_sum_snapshot_stacked(
     mass: torch.Tensor,  # (K,) float32 push-sum mass y
     ops: SparseOperands,  # the round's age-decayed column-stochastic weights
     local_steps: int,
+    *,
+    rows: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One bounded-staleness push-sum step + affinity d, through the kernel's
     snapshot mode in its mass mode: y' = A y, ``mixed = (self_w y x +
     sum_s nbr_w y_j P[j]) / y'``, d as in ``consensus_mix_snapshot_stacked``
     (beta not scaled by mass).  Returns (mixed, d_bias, new_mass) in fresh
-    buffers."""
+    buffers, of ``rows`` only where given (``consensus_mix_stacked``)."""
     if flat.device.type not in ("cpu", "cuda"):
         raise ValueError(f"consensus_mix runs on cpu or cuda tensors, got {flat.device}")
     check_operands(flat, ops, local_steps, MAX_SLOTS)
     check_mass(flat, mass, "consensus_mix")
     check_published(flat, published)
+    count = check_rows(flat, rows)
     if flat.device.type == "cpu":
         return ref.consensus_mix_push_sum_stacked_ref(flat, mass, *ops, local_steps,
-                                                      published=published)
-    mixed = torch.empty_like(flat)
-    d_bias = torch.empty_like(flat)
-    new_mass = torch.empty_like(mass)
-    launch(flat, ops, local_steps, mixed, d_bias, mass, new_mass, published=published)
+                                                      published=published, rows=rows)
+    mixed, d_bias = _outputs(flat, count)
+    new_mass = mass.new_empty(count)
+    launch(flat, ops, local_steps, mixed, d_bias, mass, new_mass, published=published,
+           rows=rows)
     return mixed, d_bias, new_mass
 
 

@@ -19,6 +19,10 @@ bounded-staleness consensus) every neighbor term reads
 ``published[nbr_idx[k, d]]`` in place of ``x[nbr_idx[k, d]]``; x_k, in the
 self term and in d, stays the live row.
 
+With ``rows`` = (row0, count) the consensus_mix forms compute the rows of
+peers row0 .. row0 + count - 1 only, reading every row of x (and P): each
+row elementwise as the full call computes it, so bit for bit its rows.
+
 ``consensus_mix_ref`` and ``dequant_mix_ref`` are the reference's one-peer
 oracles by name and call: one row x and its (D, N) neighbor rows, computed
 as row 0 of the stacked plain versions on ``one_peer_stack``.
@@ -39,15 +43,27 @@ def consensus_mix_stacked_ref(
     local_steps: int,
     *,
     published: torch.Tensor | None = None,  # (K, N): the senders' snapshots
+    rows: tuple[int, int] | None = None,  # (row0, count): those peers' rows only
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    mixed, d = _mix_f32(flat, self_w, nbr_idx, nbr_w, beta, local_steps, published=published)
+    own = row_slice(rows, flat.shape[0])
+    mixed, d = _mix_f32(flat, self_w[own], nbr_idx[own], nbr_w[own], beta[own], local_steps,
+                        published=published, own=own)
     return mixed.to(flat.dtype), d.to(flat.dtype)
 
 
-def _mix_f32(flat, self_w, nbr_idx, nbr_w, beta, local_steps: int, *, published=None):
-    """``consensus_mix_stacked_ref``'s (mixed, d) before the cast back: float32."""
-    xf = flat.to(torch.float32)
-    src = xf if published is None else published.to(torch.float32)
+def row_slice(rows: tuple[int, int] | None, k: int) -> slice:
+    """The peers of a row range (row0, count), or all ``k`` for None."""
+    return slice(0, k) if rows is None else slice(rows[0], rows[0] + rows[1])
+
+
+def _mix_f32(flat, self_w, nbr_idx, nbr_w, beta, local_steps: int, *, published=None,
+             own: slice):
+    """``consensus_mix_stacked_ref``'s (mixed, d) before the cast back,
+    float32, for the peers ``own`` (the weights given are theirs)."""
+    src = flat.to(torch.float32)
+    xf = src[own]
+    if published is not None:
+        src = published.to(torch.float32)
     nbr_idx = nbr_idx.long()
     nbr_w = nbr_w.to(torch.float32)
     beta = beta.to(torch.float32)
@@ -123,6 +139,7 @@ def push_sum_weights(
     self_w: torch.Tensor,  # (K,)
     nbr_idx: torch.Tensor,  # (K, D) int
     nbr_w: torch.Tensor,  # (K, D)
+    own: slice = slice(None),  # the peers whose weights are wanted
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Push-sum's weights, each scaled by its sender's mass, and the new mass:
 
@@ -132,8 +149,9 @@ def push_sum_weights(
 
     all float32.  With them the gossip forms compute push-sum's numerator."""
     y = mass.to(torch.float32)
-    self_w_y = self_w.to(torch.float32) * y
-    nbr_w_y = nbr_w.to(torch.float32) * y[nbr_idx.long()]
+    nbr_idx = nbr_idx[own]
+    self_w_y = self_w[own].to(torch.float32) * y[own]
+    nbr_w_y = nbr_w[own].to(torch.float32) * y[nbr_idx.long()]
     y_new = self_w_y
     for slot in range(nbr_idx.shape[1]):
         y_new = y_new + nbr_w_y[:, slot]
@@ -150,6 +168,7 @@ def consensus_mix_push_sum_stacked_ref(
     local_steps: int,
     *,
     published: torch.Tensor | None = None,  # (K, N): the senders' snapshots
+    rows: tuple[int, int] | None = None,  # (row0, count): those peers' rows only
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One push-sum step + affinity d (the reference's
     ``PushSumProtocol.mix`` plus the d update):
@@ -165,8 +184,10 @@ def consensus_mix_push_sum_stacked_ref(
     kernel rounds it.  This is the CPU path of
     ``ops.consensus_mix_push_sum_stacked`` (and of its snapshot mode) and the
     oracle its kernel modes are held to."""
-    self_w_y, nbr_w_y, y_new = push_sum_weights(mass, self_w, nbr_idx, nbr_w)
-    num, d = _mix_f32(flat, self_w_y, nbr_idx, nbr_w_y, beta, local_steps, published=published)
+    own = row_slice(rows, flat.shape[0])
+    self_w_y, nbr_w_y, y_new = push_sum_weights(mass, self_w, nbr_idx, nbr_w, own)
+    num, d = _mix_f32(flat, self_w_y, nbr_idx[own], nbr_w_y, beta[own], local_steps,
+                      published=published, own=own)
     return (num / y_new[:, None]).to(flat.dtype), d.to(flat.dtype), y_new
 
 

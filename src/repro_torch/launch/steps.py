@@ -5,8 +5,13 @@ Training: the paper's round at production scale is T calls of
 plus ``eta_d * d``), then one call of ``make_consensus_step``'s step on the
 peer-stacked trees (Eq. 4 and the affinity d, through the ``consensus_mix``
 kernel: one launch per leaf type).  ``make_consensus_step_psum`` is the
-reference's one-reduction form for a uniform complete graph.  The
-multi-pod steps are ROADMAP.md queue 1 item 15.
+reference's one-reduction form for a uniform complete graph.
+``make_multipod_train_step`` and ``make_multipod_serve_step`` are the
+single-peer steps over a leading peer axis: the loss, the update and the
+decode step under ``torch.func.vmap``, the gradient of the peers' summed
+loss by autograd (the reference vmaps its steps with
+``spmd_axis_name="pod"``, which only places the work; here the peers share
+a device).
 
 Serving: ``make_decode_scan`` is the counterpart of the reference's
 ``make_decode_scan``, which collapses the greedy decode into one
@@ -35,31 +40,72 @@ from repro_torch.models.registry import Model
 from repro_torch.optim import Optimizer
 
 
-def make_train_step(model: Model, opt: Optimizer, *, eta_d: float = 0.0) -> Callable:
-    """(params, opt_state, d_bias, batch, step) -> (params, opt_state, loss).
+def _grads_and_loss(loss_fn: Callable, params) -> tuple[dict, torch.Tensor]:
+    """``loss_fn(params)`` and the gradient of its sum by autograd: the
+    kernels' backwards on the card (a ``torch.func`` transform of the
+    gradient would hand their Functions' backwards tensors without storage,
+    which a kernel launch cannot read).  A loss of K peers' stacked params
+    (a vmapped loss) gives each peer its own gradient, as the peers share
+    no parameter; a leaf the loss does not read gets zeros, as jax.grad."""
+    live = {path: leaf.detach().requires_grad_(True)
+            for path, leaf in pytree.leaves_with_path(params)}
+    with torch.enable_grad():
+        loss = loss_fn(pytree.map_with_path(lambda p, _: live[p], params))
+        grads = dict(zip(live, torch.autograd.grad(loss.sum(), list(live.values()),
+                                                   materialize_grads=True)))
+    return pytree.map_with_path(lambda p, _: grads[p], params), loss.detach()
 
-    One peer's local step: the loss ``model.loss_fn(params, batch)`` and its
-    gradient by autograd (the kernels' backwards on the card), ``opt.update``,
-    then ``w + eta_d * d`` in float32, cast back to w's type.  ``params``
-    may be any tree of tensors (views of a stacked buffer too); the step
-    returns fresh tensors and leaves its inputs as they are."""
 
-    def train_step(params, opt_state, d_bias, batch, step):
-        live = {path: leaf.detach().requires_grad_(True)
-                for path, leaf in pytree.leaves_with_path(params)}
-        with torch.enable_grad():
-            loss = model.loss_fn(pytree.map_with_path(lambda p, _: live[p], params), batch)
-            grads = dict(zip(live, torch.autograd.grad(loss, list(live.values()),
-                                                       materialize_grads=True)))
-        params, opt_state = opt.update(pytree.map_with_path(lambda p, _: grads[p], params),
-                                       opt_state, params, step)
+def _update(opt: Optimizer, eta_d: float) -> Callable:
+    """(grads, opt_state, params, d_bias, step) -> (params, opt_state): one
+    peer's ``opt.update``, then ``w + eta_d * d`` in float32, cast back to
+    w's type (d not read when ``eta_d`` is 0)."""
+
+    def update(grads, opt_state, params, d_bias, step):
+        params, opt_state = opt.update(grads, opt_state, params, step)
         if eta_d:
             params = pytree.tree_map(
                 lambda w, d: (w.to(torch.float32) + eta_d * d.to(torch.float32)).to(w.dtype),
                 params, d_bias)
-        return params, opt_state, loss.detach()
+        return params, opt_state
+
+    return update
+
+
+def make_train_step(model: Model, opt: Optimizer, *, eta_d: float = 0.0) -> Callable:
+    """(params, opt_state, d_bias, batch, step) -> (params, opt_state, loss).
+
+    One peer's local step: the loss ``model.loss_fn(params, batch)`` and its
+    gradient (``_grads_and_loss``), then ``_update``: ``opt.update`` and
+    ``w + eta_d * d``.  ``params`` may be any tree of tensors (views of a
+    stacked buffer too); the step returns fresh tensors and leaves its
+    inputs as they are.  ``d_bias`` is not read when ``eta_d`` is 0."""
+    update = _update(opt, eta_d)
+
+    def train_step(params, opt_state, d_bias, batch, step):
+        grads, loss = _grads_and_loss(lambda p: model.loss_fn(p, batch), params)
+        params, opt_state = update(grads, opt_state, params, d_bias, step)
+        return params, opt_state, loss
 
     return train_step
+
+
+def make_multipod_train_step(model: Model, opt: Optimizer, *, eta_d: float = 0.0) -> Callable:
+    """(params, opt_state, d_bias, batch, step) -> (params, opt_state, loss
+    (K,)), every tree with a leading peer axis K (``step`` shared):
+    ``make_train_step``'s step over the peers, its loss and its ``_update``
+    under ``torch.func.vmap`` and the gradient of the K losses' sum by
+    autograd, as the reference's ``jax.vmap`` of the single-peer step
+    computes it.  ``d_bias`` is not read when ``eta_d`` is 0 (None will do)."""
+    loss_fn = torch.func.vmap(model.loss_fn)
+    update = torch.func.vmap(_update(opt, eta_d), in_dims=(0, 0, 0, 0 if eta_d else None, None))
+
+    def multipod_train_step(params, opt_state, d_bias, batch, step):
+        grads, losses = _grads_and_loss(lambda p: loss_fn(p, batch), params)
+        params, opt_state = update(grads, opt_state, params, d_bias, step)
+        return params, opt_state, losses
+
+    return multipod_train_step
 
 
 def make_consensus_step(
@@ -165,6 +211,13 @@ def make_serve_step(model: Model, *, inplace: bool = False) -> Callable:
         return torch.argmax(logits[:, -1], dim=-1), pos + 1, cache
 
     return serve_step
+
+
+def make_multipod_serve_step(model: Model) -> Callable:
+    """(params, cache, token, pos) -> (next token, pos + 1, cache), each
+    with a leading peer axis: ``make_serve_step``'s step (functional cache)
+    under ``torch.func.vmap``."""
+    return torch.func.vmap(make_serve_step(model), in_dims=(0, 0, 0, 0))
 
 
 def prompt_dec_len(batch: dict) -> int:

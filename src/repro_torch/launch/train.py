@@ -26,6 +26,8 @@ CLI:  python -m repro_torch.launch.train --experiment noniid_affinity --rounds 4
           --schedule round_robin --compressor qint8
       python -m repro_torch.launch.train --experiment timevarying_k8 \
           --peer-axis pod --peers-per-device 8 --mix-mode segment
+      python -m repro_torch.launch.train --experiment sharded_k8 --peer-axis pod \
+          (one process per peer)
       python -m repro_torch.launch.train --experiment directed_k8 \
           --schedule one_way_matching   (push-sum on one-way links)
       python -m repro_torch.launch.train --experiment straggler_k8 \
@@ -57,6 +59,7 @@ from repro_torch.configs.p2pl_mnist import (
     iid_k100,
     noniid_k2,
     seqmnist_k8,
+    sharded_k8,
     straggler_k8,
     timevarying_k2,
     timevarying_k8,
@@ -66,6 +69,7 @@ from repro_torch.core import features as features_lib
 from repro_torch.core import graph as graph_lib
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.core import p2p
+from repro_torch.core import peer_group
 from repro_torch.core import protocols as protocols_lib
 from repro_torch.core import task as task_lib
 from repro_torch.data import partition, synthetic
@@ -168,12 +172,19 @@ def run_paper_experiment(
     the two are float32 bit-identical).  Both evaluate at the same rounds.
 
     ``peer_axis="vmap"`` stacks the K peers on one device.  ``"pod"`` with
-    ``peers_per_device == K`` is the reference's hierarchical runtime on a
-    one-slice mesh: the same stacked peers, consensus over the
-    degree-bounded sparse schedule, ``mix_mode`` "bridge" (the vmap
-    runtime's mix, bit for bit), "segment" (the ``segment_mix`` kernel, the
-    large-K form) or "auto" (bridge iff K <= 64).  Other pod layouts need
-    several devices (ROADMAP.md queue 1 item 15).
+    one peer per device (``peers_per_device=1``) is the sharded runtime: K
+    processes, one peer each (``launch.pod.experiment_rank`` under
+    ``core.peer_group.spawn_peers``: gloo ranks on the CPU, CUDA IPC ranks
+    on one card), the same data, batches and initial state as the vmap run;
+    rank 0 evaluates both phases' gathered rows with the same ``eval_fn``,
+    so the log's accuracies are the vmap run's.  ``on_round`` is not called there (the
+    state lives in the ranks).  ``"pod"`` with ``peers_per_device == K`` is
+    the reference's hierarchical runtime on a one-slice mesh: the same
+    stacked peers, consensus over the degree-bounded sparse schedule,
+    ``mix_mode`` "bridge" (the vmap runtime's mix, bit for bit), "segment"
+    (the ``segment_mix`` kernel, the large-K form) or "auto" (bridge iff K
+    <= 64).  Other pod layouts need several slices (ROADMAP.md queue 1 item
+    15).
 
     Evaluation follows the task (``make_eval_fn``): the whole
     class-filtered test set in one apply, or, where the task sets them, a
@@ -204,15 +215,27 @@ def run_paper_experiment(
             "peer on one device)"
         )
     features_lib.check_config(exp.p2p, peers_per_device=peers_per_device)
-    if peer_axis == "pod":
-        if peers_per_device == 1:
-            raise NotImplementedError(
-                "peer_axis='pod' with one peer per device (the sharded runtime) is not "
-                "ported yet: ROADMAP.md queue 1 item 15"
-            )
+    if peer_axis == "pod" and peers_per_device > 1:
         p2p.check_hierarchical_layout(exp.p2p.num_peers, peers_per_device)
     device = resolve_device(device)
     rounds = rounds or exp.rounds
+    if peer_axis == "pod" and peers_per_device == 1:
+        if on_round is not None:
+            raise ValueError("on_round is not called by the sharded runtime (peers_per_device=1): "
+                             "its state lives in the ranks; use return_state")
+        from repro_torch.launch import pod  # noqa: PLC0415 (pod imports this module)
+
+        # drawn once, here; tensors reach the ranks in shared memory, arrays by pickle
+        data = tuple(torch.as_tensor(np.ascontiguousarray(a))
+                     for a in (synthetic.mnist_like() if data is None else data))
+        results = peer_group.spawn_peers(
+            pod.experiment_rank, exp.p2p.num_peers, device,
+            args=(exp, rounds, data, eval_every, seed, verbose, driver, return_state,
+                  torch.get_num_threads()),
+            inbox_bytes=p2p.inbox_bytes(task_lib.get_task(exp.p2p.model), exp.p2p))
+        log = results[0]["log"]
+        log.ranks = [{"exchange": r["exchange"], "launches": r["launches"]} for r in results]
+        return (log, pod.state_to(results[0]["state"], device)) if return_state else log
     task = task_lib.get_task(exp.p2p.model)
     cfg = exp.p2p
     if data is None:
@@ -420,6 +443,21 @@ def _seqmnist(args) -> PaperExperiment:
     )
 
 
+def _sharded(args) -> PaperExperiment:
+    return sharded_k8(
+        schedule=args.schedule or "static",
+        protocol=args.protocol or "gossip",
+        algorithm=args.algorithm,
+        local_steps=args.local_steps or 10,
+        schedule_rounds=args.schedule_rounds,
+        link_survival_prob=args.link_survival_prob,
+        round_robin_topologies=tuple(t for t in args.round_robin_topologies.split(",") if t),
+        partner_rule=args.partner_rule,
+        adaptive_eps=args.adaptive_eps,
+        adaptive_seed=args.adaptive_seed,
+    )
+
+
 # experiment name -> builder from the parsed CLI arguments (the reference
 # CLI's, src/repro/launch/train.py, for the experiments the port runs)
 EXPERIMENTS = {
@@ -434,6 +472,7 @@ EXPERIMENTS = {
     "directed_k8": _directed,
     "straggler_k8": _straggler,
     "seqmnist_k8": _seqmnist,
+    "sharded_k8": _sharded,
 }
 # every pretraced schedule, and the adaptive matchings chosen on the device
 SCHEDULE_CHOICES = ["static", "link_dropout", "random_matching", "peer_churn", "round_robin",
@@ -517,12 +556,13 @@ def main(argv=None):
                          "stochasticity); in (0, 1], default 0.5")
     ap.add_argument("--peer-axis", default="vmap", choices=["vmap", "pod"],
                     help="how the K peer axis executes: 'vmap' (stacked runtime) or 'pod' "
-                         "(the hierarchical runtime; the port runs it on one slice, "
-                         "--peers-per-device = K)")
+                         "(one process per peer with --peers-per-device 1, K processes on "
+                         "the one card or on the CPU; the one-slice hierarchical runtime "
+                         "with --peers-per-device = K)")
     ap.add_argument("--peers-per-device", type=int, default=1,
-                    help="with --peer-axis pod: peers per device; K runs the one-slice "
-                         "hierarchical runtime, consensus over the degree-bounded sparse "
-                         "schedule")
+                    help="with --peer-axis pod: peers per device; 1 runs the sharded runtime "
+                         "(a process a peer), K the one-slice hierarchical runtime, "
+                         "consensus over the degree-bounded sparse schedule")
     ap.add_argument("--mix-mode", default="auto", choices=sorted(p2p.MIX_MODES),
                     help="hierarchical consensus form (only with --peers-per-device > 1): "
                          "'bridge' is the vmap runtime's mix (bit-identical, K <= 64), "

@@ -72,7 +72,6 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 # The name-parity walk
 # ---------------------------------------------------------------------------
 
-ITEM_15 = "ROADMAP.md queue 1 item 15 (the multi-process peer axis)"
 ITEM_18C = "ROADMAP.md queue 1 item 18c (the tooling)"
 ALIAS = "no counterpart needed: a type alias"
 PALLAS = "no counterpart needed here: the Pallas kernel, ported by hand as {}"
@@ -99,21 +98,9 @@ LEFT_MODULES = {
 # public names of ported modules that the port's module lacks
 LEFT_NAMES = {
     ("compression/compressors.py", "PyTree"): ALIAS,
-    ("configs/p2pl_mnist.py", "sharded_k8"): ITEM_15,
     ("core/consensus.py", "PyTree"): ALIAS,
-    ("core/consensus.py", "gather_peer_leaf"): ITEM_15,
-    ("core/consensus.py", "gather_peer_rows"): ITEM_15,
-    ("core/consensus.py", "mix_collective"): ITEM_15,
-    ("core/consensus.py", "mix_psum"): ITEM_15,
-    ("core/consensus.py", "mix_ring"): ITEM_15,
-    ("core/consensus.py", "mix_sparse"): ITEM_15,
-    ("core/graph.py", "PermLane"): ITEM_15,
-    ("core/graph.py", "edge_color_lanes"): ITEM_15,
-    ("core/graph.py", "schedule_lanes"): ITEM_15,
     ("core/p2p.py", "LossFn"): ALIAS,
     ("core/p2p.py", "PyTree"): ALIAS,
-    ("core/p2p.py", "consensus_phase_sharded"): ITEM_15,
-    ("core/p2p.py", "make_sharded_round_fn"): ITEM_15,
     ("core/protocols.py", "PyTree"): ALIAS,
     ("core/task.py", "PyTree"): ALIAS,
     ("kernels/consensus_mix/dequant.py", "PyTree"): ALIAS,
@@ -124,8 +111,6 @@ LEFT_NAMES = {
         "consensus_mix/csrc/segment_mix.cu (segment.segment_mix_stacked)"),
     ("launch/serve.py", "PyTree"): ALIAS,
     ("launch/steps.py", "PyTree"): ALIAS,
-    ("launch/steps.py", "make_multipod_serve_step"): ITEM_15,
-    ("launch/steps.py", "make_multipod_train_step"): ITEM_15,
     ("models/registry.py", "PyTree"): ALIAS,
     ("models/transformer.py", "PyTree"): ALIAS,
 }

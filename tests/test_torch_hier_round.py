@@ -288,7 +288,6 @@ def test_layout_and_mix_mode_errors_read_as_the_reference():
     (dict(peers_per_device=8), ValueError),  # peer_axis "vmap"
     (dict(peer_axis="pod", peers_per_device=3), ValueError),
     (dict(peer_axis="pod", peers_per_device=4), NotImplementedError),
-    (dict(peer_axis="pod"), NotImplementedError),  # one device per peer
 ])
 def test_run_paper_experiment_rejects_other_layouts(kw, err, mnist_small):
     with pytest.raises(err) as got:
@@ -296,6 +295,19 @@ def test_run_paper_experiment_rejects_other_layouts(kw, err, mnist_small):
                                    device="cpu", **kw)
     if err is NotImplementedError:
         assert str(got.value).endswith("ROADMAP.md queue 1 item 15")
+
+
+def test_run_paper_experiment_one_peer_per_device_runs(mnist_small):
+    """``peer_axis="pod"`` with one peer per device: the sharded runtime, one
+    process per peer (gloo ranks on the CPU), the vmap run's accuracies."""
+    exp = tconfigs.timevarying_k8(local_steps=1)
+    log_p = train.run_paper_experiment(exp, rounds=1, data=mnist_small, device="cpu",
+                                       peer_axis="pod")
+    log_v = train.run_paper_experiment(exp, rounds=1, data=mnist_small, device="cpu")
+    assert np.isfinite(log_p.train_loss).all() and len(log_p.ranks) == K
+    for group in log_v.after_consensus:
+        assert np.array_equal(np.stack(log_p.after_consensus[group]),
+                              np.stack(log_v.after_consensus[group]))
 
 
 def test_one_slice_run_on_cpu_launches_no_kernel(mnist_small):

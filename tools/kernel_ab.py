@@ -230,7 +230,8 @@ def consensus_fns(lib: ctypes.CDLL) -> dict:
     version), ``tile`` (from the column-tile design on), their mass modes
     ``mass_gather`` / ``mass_tile`` (from push-sum on) and the snapshot
     modes ``snap_*`` / ``mass_snap_*`` (from bounded staleness on, the
-    published buffer after x)."""
+    published buffer after x), each called with the full launch's
+    arguments (a library with row ranges gets the full range)."""
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
     names = {"gather": "consensus_mix_f32", "tile": "consensus_mix_tile_f32",
              "mass_gather": "consensus_mix_push_sum_f32",
@@ -240,10 +241,19 @@ def consensus_fns(lib: ctypes.CDLL) -> dict:
              "mass_snap_gather": "consensus_mix_push_sum_snapshot_f32",
              "mass_snap_tile": "consensus_mix_push_sum_snapshot_tile_f32"}
     fns = {key: getattr(lib, name) for key, name in names.items() if hasattr(lib, name)}
+    # from the sharded runtime on, every entry point takes a row range
+    # (row0, rows) after n; the full launch is (0, num_peers)
+    rows = hasattr(lib, "consensus_mix_row_range_abi")
     for key, fn in fns.items():
-        fn.argtypes = [ptr, *([ptr] if "snap" in key else []), i64, i64, ptr, ptr, ptr, ptr,
+        fn.argtypes = [ptr, *([ptr] if "snap" in key else []), i64, i64,
+                       *([i64, i64] if rows else []), ptr, ptr, ptr, ptr,
                        i64, ctypes.c_float, *([ptr] * (5 if key.startswith("mass") else 3))]
         fn.restype = ctypes.c_int
+    if rows:
+        def full_launch(fn, lead):
+            return lambda *args: fn(*args[:lead + 2], 0, args[lead], *args[lead + 2:])
+
+        fns = {key: full_launch(fn, 2 if "snap" in key else 1) for key, fn in fns.items()}
     return fns
 
 
