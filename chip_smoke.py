@@ -146,7 +146,7 @@ In order:
    batch 4, seq 1024, T = 4, S = 1, p2pl_affinity, seed 0; the first local
    step's stacked losses (equal) and gradients against the same step with
    the plain attention backward (atol = rtol = 5e-2, relative norm error
-   under 5e-2); 3 rounds, each launching ``flash_attention`` and
+   under 5e-2); 2 rounds, each launching ``flash_attention`` and
    ``flash_attention_bwd`` 120 times and ``consensus_mix`` once (bf16 mode,
    the gather), no plain version; losses, drift and state finite; then one
    more round through its two phases, timed apart; s/round and peak memory;
@@ -203,6 +203,24 @@ In order:
    one round against the vmap round run first and freed (its rows within
    the bf16 tolerance, and the sharded consensus from its post-local rows
    bit for bit);
+3c. holds the slot form of ``segment_mix`` (a rank's block and its
+   ring-gathered slots: the hierarchical runtime's segment mix) against its
+   plain version at five cases, gossip and mass, its rows equal to the
+   one-device call's where that takes the gather route: the K = 4096 ring's
+   block of 512 at the 2NN's row (timed, with ``torch.matmul`` of the
+   block's dense [W; Beta] rows), a ragged star at a scalar row, the
+   complete K = 2048 graph's staged chunks; and runs the hierarchical
+   runtime over several slices (after step 9, whose fleet it reuses):
+   bridge at K = 64 over 8 ranks of 8 (``iid_k100``'s ring, gossip and
+   push-sum, 2 rounds; each rank's consensus from the vmap run's post-local
+   rows, and its whole rounds at the vmap width, equal to the vmap run's
+   bit for bit, the default width's distance reported), segment at K =
+   4096 over 8 ranks of 512 (each rank's consensus from step 9's last
+   post-local params equal to that round's one-device ``segment_mix``
+   result, gossip and push-sum, then a whole round each; every rank's peak
+   memory and what its consensus phase adds, under one (K, N) buffer), and
+   ``run_paper_experiment(iid_k100(), peer_axis="pod",
+   peers_per_device=25)`` 5 rounds against the vmap run;
 4. serves RWKV6-7B at full width and depth (bf16, random init on the card)
    through ``serve_batch``: batch 4, prompt 1024, first prefill only, then
    prefill and 15 decode steps, asserting ``wkv6`` launched once per layer
@@ -211,7 +229,9 @@ In order:
    through the plain version, and compares (``recheck_calls``); times a
    warm prefill and decode step and profiles each; then serves the K = 2
    fleet through ``serve_fleet`` (two stacked models, one request group
-   each), asserting 2 x 32 launches;
+   each), asserting 2 x 32 launches, and the same fleet with
+   ``peer_axis="pod"`` (a process a peer), its tokens equal to the stacked
+   fleet's and 32 launches a rank;
 5. serves minitron-8b (9.88 B parameters) at full width and depth the same
    way, asserting ``flash_attention`` launched once per layer in each
    prefill and never in the decode; reruns the attention calls of layers 0
@@ -296,9 +316,9 @@ In order:
    at B = 256, ``wkv6`` at B 256, T 196, H 4, dk 16, chunk 49 against its
    plain version (timed) and from a random state, ``consensus_mix`` (gossip
    and mass mode) and ``dequant_mix`` held and timed at the task's row,
-   gossip static, push-sum static and gossip round robin over qint8 (3
-   rounds each), both drivers on gossip and push-sum (6 rounds, eval every
-   3), and one round's kernels eager and on replay (torch.profiler),
+   gossip static, push-sum static and gossip round robin over qint8 (2
+   rounds each), both drivers on gossip and push-sum (4 rounds, eval every
+   2), and one round's kernels eager and on replay (torch.profiler),
    printing the phase's seconds; with
    every kernel's launch count reset just before and read just after each
    run, and every plain version's calls counted (none allowed); after each
@@ -309,16 +329,16 @@ In order:
    replay of one captured CUDA graph of the round, launches counted on
    replay), evaluating every round, so ``on_round`` still sees every
    round; then runs both drivers from the same seed and rounds
-   (``compare_drivers``): ``noniid_affinity`` (K = 2, the gather design; 15
+   (``compare_drivers``): ``noniid_affinity`` (K = 2, the gather design; 10
    rounds, eval every 5), ``iid_k100`` (tile; 10, 5), ``iid_k100`` qint8
    (``dequant_mix``; 10, 5), ``timevarying_k8`` round robin with qint8 (R =
    2 operands refreshed per round; 9, 3), ``directed_k8`` (push-sum, mass
-   mode; 15, 5), ``iid_k100`` on the one-slice segment runtime
+   mode; 10, 5), ``iid_k100`` on the one-slice segment runtime
    (``segment_mix``; 10, 5), ``straggler_k8`` gossip static and push-sum
-   round robin (the snapshot mode's gather; 15, 5) and ``iid_k100
+   round robin (the snapshot mode's gather; 10, 5) and ``iid_k100
    --steps-profile straggler --staleness-bound 3`` (its tile; 10, 5), and
    the adaptive ``timevarying_k8`` loss-proximity and eps-greedy runs and
-   ``directed_k8`` (15, 5 each): final params, momentum, d, b, mass, the
+   ``directed_k8`` (10, 5 each): final params, momentum, d, b, mass, the
    selection key and last losses, estimate, published snapshots and ages,
    the logged losses and accuracies equal bit for bit, ages within the
    bound and the mass summing to K, the same
@@ -345,7 +365,8 @@ In order:
    routes' edges, ``consensus_mix`` also with its snapshot mode,
    ``consensus_mix`` and ``dequant_mix`` with their dense-operand
    cases and the adaptive paths' launches, ``consensus_mix`` with its row
-   range and the sharded paths' launches) and, last, the contract line
+   range and the sharded paths' launches, ``segment_mix`` with its slot
+   form and the hierarchical paths' launches) and, last, the contract line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result;
@@ -358,6 +379,7 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import contextlib
+import gc
 import dataclasses
 import itertools
 import json
@@ -439,9 +461,10 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, target_s: float = 0.25) -> float:
+def cuda_ms(fn, target_s: float = 0.05) -> float:
     """Mean milliseconds per call of ``fn``, from CUDA events around a run of
-    calls sized to take about ``target_s``, after a warm-up call."""
+    calls sized to take about ``target_s``, after a warm-up call; a call
+    that alone takes longer (a plain version's token loop) is timed once."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -450,6 +473,8 @@ def cuda_ms(fn, target_s: float = 0.25) -> float:
     end.record()
     torch.cuda.synchronize()
     once_ms = max(start.elapsed_time(end), 1e-3)
+    if once_ms >= target_s * 1e3:
+        return once_ms
     iters = int(min(max(target_s * 1e3 / once_ms, 3), 500))
     start.record()
     for _ in range(iters):
@@ -636,7 +661,8 @@ def consensus_bf16_cases(card: Card, lm_row: int, mlp_row: int) -> list[dict]:
 
 
 def bf16_mode_case(card, kernel: str, mode: str, name: str, graph, n: int, *, want: str,
-                   sizes=None, leaves: int = 6, scalar: bool = False, seed: int = 0) -> dict:
+                   sizes=None, leaves: int = 6, scalar: bool = False, seed: int = 0,
+                   timed: bool = True) -> dict:
     """One of the bf16 storage modes that extend the consensus kernels against
     its plain version on the card (``CONSENSUS_BF16_TOL``; a dequant_mix
     estimate's advance, ``ref.advance_estimates``, bit for bit; the new mass
@@ -649,7 +675,7 @@ def bf16_mode_case(card, kernel: str, mode: str, name: str, graph, n: int, *, wa
     a compressed wire's estimates) are x perturbed; the int8 payload is the
     qint8 compressor's of ``leaves`` equal leaves (``ef_flat``), with
     ``scalar`` leaves that start off whole vectors (dequant_mix's scalar
-    path, asserted)."""
+    path, asserted).  ``timed=False`` skips the timing (the check stays)."""
     from repro_torch import compression
     from repro_torch.core import graph as graph_lib
     from repro_torch.core import p2p, protocols
@@ -769,7 +795,7 @@ def bf16_mode_case(card, kernel: str, mode: str, name: str, graph, n: int, *, wa
         err = max(err, float((g.float() - r.float()).abs().max()))
     del got, want_out
     lib_out = torch.empty((2 * k, n), dtype=torch.bfloat16, device=dev)
-    times = in_turns(plain, kern, lambda: torch.matmul(dense, x, out=lib_out))
+    times = in_turns(plain, kern, lambda: torch.matmul(dense, x, out=lib_out)) if timed else {}
     real = int((one.nbr_idx != torch.arange(k, device=dev)[:, None]).sum())
     # gossip's 4 D + 3 a column, a scale a mixed element (push-sum), the
     # advance's multiply and add (an int8 payload)
@@ -782,14 +808,16 @@ def bf16_mode_case(card, kernel: str, mode: str, name: str, graph, n: int, *, wa
             ("route" if kernel == "segment_mix" else "path"): design,
             "vector_path": vector, "dtype": "bfloat16", "max_abs_err": err, **times,
             "library": "torch.matmul of the dense bf16 (2K, K) operator",
-            **card.bound(nbytes, flops, bf16=True)}
+            **(card.bound(nbytes, flops, bf16=True) if timed else {})}
     del x, other, outs, lib_out, dense
     torch.cuda.empty_cache()
     return case
 
 
 def bf16_mode_cases(card: Card, lm_row: int, mlp_row: int) -> dict[str, list[dict]]:
-    """The bf16 storage modes this slice adds, at the main paths' shapes:
+    """The bf16 storage modes this slice adds, at the main paths' shapes
+    (each kernel's first case at smollm-135m's row timed, the later ones at
+    that row checked untimed: their plain versions take seconds):
     ``consensus_mix`` mass (K = 8 directed ring at smollm-135m's row, the
     gather; K = 100 at the 2NN's, the tile), snapshot and the two together
     (the same two each), dense (an adaptive K = 8 matching at smollm's row);
@@ -815,21 +843,21 @@ def bf16_mode_cases(card: Card, lm_row: int, mlp_row: int) -> dict[str, list[dic
             bf16_mode_case(card, "consensus_mix", "mass", "k100_mlp_row", complete(100),
                            mlp_row, sizes=sizes100, want="tile", seed=1),
             bf16_mode_case(card, "consensus_mix", "snapshot", "k8_ring_lm_row", ring(8), lm8,
-                           want="gather", seed=2),
+                           want="gather", seed=2, timed=False),
             bf16_mode_case(card, "consensus_mix", "snapshot", "k100_mlp_row", complete(100),
                            mlp_row, sizes=sizes100, want="tile", seed=3),
             bf16_mode_case(card, "consensus_mix", "mass_snapshot", "k8_directed_ring_lm_row",
-                           directed, lm8, want="gather", seed=4),
+                           directed, lm8, want="gather", seed=4, timed=False),
             bf16_mode_case(card, "consensus_mix", "mass_snapshot", "k100_mlp_row",
                            complete(100), mlp_row, sizes=sizes100, want="tile", seed=17),
             bf16_mode_case(card, "consensus_mix", "dense", "k8_matching_lm_row", 8, lm8,
-                           want="gather", seed=5),
+                           want="gather", seed=5, timed=False),
         ],
         "dequant_mix": [
             bf16_mode_case(card, "dequant_mix", "gossip", "k8_ring_lm_row", ring(8), lm8,
                            want="tile", seed=6),
             bf16_mode_case(card, "dequant_mix", "mass", "k8_directed_ring_lm_row", directed,
-                           lm8, want="tile", seed=7),
+                           lm8, want="tile", seed=7, timed=False),
             bf16_mode_case(card, "dequant_mix", "gossip", "k100_mlp_row", complete(100),
                            mlp_row, sizes=sizes100, want="tile", seed=8),
             bf16_mode_case(card, "dequant_mix", "mass", "k100_mlp_row", complete(100),
@@ -1110,10 +1138,21 @@ def _print_case(kernel: str, c: dict) -> None:
     if "mode" in c:
         path = f"mode={c['mode']} {c.get('dtype', '')} " + path
     copy = f"copy of x={c['copy_ms']:.4f} ms " if "copy_ms" in c else ""
+    timed = (f" kernel={c['ms']:.4f} ms plain={c['plain_ms']:.4f} ms library="
+             f"{c['library_ms']:.4f} ms {copy}bound={c['bound_ms']:.4f} ms ({c['bound_by']}; "
+             f"{c['bound_card']})" if "ms" in c else " (untimed)")
     print(f"{kernel} {c['case']}: K={c['K']} D={c['D']} N={c['N']} {path}"
-          f"max_abs_err={c['max_abs_err']:.3g} kernel={c['ms']:.4f} ms "
-          f"plain={c['plain_ms']:.4f} ms library={c['library_ms']:.4f} ms {copy}"
-          f"bound={c['bound_ms']:.4f} ms ({c['bound_by']}; {c['bound_card']})", flush=True)
+          f"max_abs_err={c['max_abs_err']:.3g}{timed}", flush=True)
+
+
+def _print_slot_case(c: dict) -> None:
+    timed = (f"kernel={c['ms']:.4f} ms plain={c['plain_ms']:.4f} ms library="
+             f"{c['library_ms']:.4f} ms bound={c['bound_ms']:.4f} ms ({c['bound_by']}; "
+             f"{c['bound_card']})" if "ms" in c else "")
+    print(f"segment_mix slot form {c['case']}: mode={c['mode']} K={c['K']} p={c['p']} "
+          f"rank={c['rank']} D={c['D']} N={c['N']} vector={c['vector_path']} "
+          f"max_abs_err={c['max_abs_err']:.3g} rows equal the one-device call's "
+          f"({c['one_device_route']} route): {c['one_device_rows_equal']} {timed}", flush=True)
 
 
 # where segment_mix's two routes meet, at the 2NN's row: complete graphs
@@ -1185,6 +1224,137 @@ def segment_cases(card: Card) -> list[dict]:
             card, name, sparse_of(graph_lib.static_schedule(graph), np.arange(1, k + 1) * 10),
             layout.row, size=layout.size, want_vector=True, want_route=route, seed=7 + i))
     torch.cuda.empty_cache()
+    return cases
+
+
+HIER_RANKS = 8  # the hierarchical runtime's slices: ranks on the one card
+
+
+def slot_case(card, name, sparse, n, *, p, rank, mass=False, size=None, zero_beta_rows=(),
+              timed=False, seed=0):
+    """``segment_mix``'s slot form (a rank of the hierarchical runtime over
+    K / p ranks: its (p, N) block and its (p, D, N) ring-gathered slots)
+    against its plain version on the block of rank ``rank``; with ``mass``
+    its mass mode (the (p, D) sender masses).  Where the one-device call of
+    the same round takes the gather route its rows must equal the slot
+    form's bit for bit (both sum the slots in slot order).  ``timed``: the
+    kernel, its plain version and the library's product of the block's
+    dense [W; Beta] rows (``library_operator``'s, the self term included;
+    [A diag(y); Beta] in the mass mode) with the (K, N) buffer, in turns."""
+    from repro_torch.kernels.consensus_mix import ops, ref, segment
+
+    dev = torch.device("cuda")
+    t = 10
+    if zero_beta_rows:
+        beta = sparse.beta.copy()
+        beta[:, list(zero_beta_rows)] = 0.0
+        sparse = dataclasses.replace(sparse, beta=beta)
+    ops_s = ops.upload_schedule(sparse, dev)
+    k, d = sparse.num_peers, sparse.degree_bound
+    rows = slice(rank * p, (rank + 1) * p)
+    size = n if size is None else size
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.zeros(k, n, device=dev)
+    x[:, :size] = torch.randn(k, size, generator=gen, device=dev)
+    full_ops = ops.select_round(ops_s, 0)
+    blk_ops = ops.SparseOperands(*(o[rows].contiguous() for o in full_ops))
+    idx = blk_ops.nbr_idx.long()
+    block, slots = x[rows].contiguous(), x[idx]
+    y = push_sum_mass(k, seed, dev) if mass else None
+    if mass:
+        args = (block, slots, y[rows].contiguous(), y[idx].contiguous(), blk_ops, t)
+        got = segment.segment_mix_push_sum_slots(*args)
+        want = ref.segment_mix_push_sum_slots_ref(block, slots, y[rows], y[idx], blk_ops.self_w,
+                                                  blk_ops.nbr_w, blk_ops.beta, t)
+    else:
+        got = segment.segment_mix_slots(block, slots, blk_ops, t)
+        want = ref.segment_mix_slots_ref(block, slots, blk_ops.self_w, blk_ops.nbr_w,
+                                         blk_ops.beta, t)
+    torch.cuda.synchronize()
+    err = 0.0
+    for g, w, what in zip(got, want, ("mixed", "d", "y'")):
+        torch.testing.assert_close(g, w, **TOL, msg=lambda m: f"{name} {what}: {m}")
+        err = max(err, float((g - w).abs().max()))
+    for g, what in zip(got[:2], ("mixed", "d")):
+        check(bool((g[:, size:] == 0).all()), f"{name} {what}: row padding stays exactly 0")
+    for row in zero_beta_rows:
+        if rows.start <= row < rows.stop:
+            check(bool((got[1][row - rows.start] == 0).all()), f"{name}: zero beta row gives d = 0")
+    one_route = segment.kernel_route(k, d)
+    one = (segment.segment_mix_push_sum_schedule(x, y, 0, ops_s, t) if mass
+           else segment.segment_mix_schedule(x, 0, ops_s, t))
+    one_equal = all(bool(torch.equal(g, o[rows])) for g, o in zip(got, one))
+    if one_route == "gather":
+        check(one_equal, f"{name}: the slot form's rows equal the one-device gather's bit for bit")
+    del one, want
+    out = {"case": name, "mode": "mass" if mass else "gossip", "K": k, "p": p, "rank": rank,
+           "D": d, "N": n, "vector_path": n % 4 == 0, "one_device_route": one_route,
+           "one_device_rows_equal": one_equal, "max_abs_err": err}
+    if timed:
+        mixed, d_out = torch.empty_like(block), torch.empty_like(block)
+        new_mass = torch.empty(p, device=dev) if mass else None
+        op = (mass_library(sparse, y, dev, as_csr=False) if mass
+              else library_operator(sparse, 0, dev, as_csr=False))
+        lib_rows = torch.cat([op[rows], op[k + rows.start:k + rows.stop]]).contiguous()
+        del op
+        if mass:
+            kern = lambda: segment.launch_slots(block, slots, blk_ops, t, mixed, d_out,  # noqa
+                                                args[2], args[3], new_mass)
+            plain = lambda: ref.segment_mix_push_sum_slots_ref(  # noqa: E731
+                block, slots, args[2], args[3], blk_ops.self_w, blk_ops.nbr_w, blk_ops.beta, t)
+        else:
+            kern = lambda: segment.launch_slots(block, slots, blk_ops, t, mixed, d_out)  # noqa
+            plain = lambda: ref.segment_mix_slots_ref(  # noqa: E731
+                block, slots, blk_ops.self_w, blk_ops.nbr_w, blk_ops.beta, t)
+        times = in_turns(plain, kern, lambda: torch.matmul(lib_rows, x))
+        # work this run's data needs: the block's real (non-padding) slots;
+        # block and slots read once, mixed and d written once, the block's
+        # operands (and masses) read once
+        real = int((sparse.nbr_idx[0][rows] != np.arange(k)[rows, None]).sum())
+        flops = n * (4 * real + (4 if mass else 3) * p) + (2 * (real + p) if mass else 0)
+        nbytes = ((p + p * d) * n * 4 + 2 * p * n * 4 + (p + 2 * p * d) * 4
+                  + ((p + p * d + p) * 4 if mass else 0))
+        out |= {"library": "torch.matmul (the block's dense [W; Beta] rows x the (K, N) buffer)",
+                **times, **card.bound(nbytes, flops)}
+        del lib_rows, mixed, d_out
+    del x, slots, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def slot_cases(card: Card) -> list[dict]:
+    """The slot form of ``segment_mix``: the K = 4096 ring over 8 ranks
+    (p = 512, a middle rank, the 2NN's row; the main path, gossip and mass,
+    timed), a ragged star at a scalar row with a zero beta row (the rank of
+    the hub), and the complete K = 2048 graph's staged chunks, gossip and
+    mass."""
+    from repro_torch.core import graph as graph_lib
+    from repro_torch.core.p2p import layout_of
+
+    layout = layout_of("mnist_mlp")
+
+    def sparse_of(topology, k, sizes, stochasticity="row"):
+        return graph_lib.SparseSchedule.from_schedule(
+            graph_lib.static_schedule(graph_lib.build_graph(topology, k)), "data_weighted",
+            data_sizes=sizes, stochasticity=stochasticity)
+
+    large_k_sizes = np.where(np.arange(LARGE_K) < 60000 % LARGE_K, 15, 14)  # iid_partition's
+    p = LARGE_K // HIER_RANKS
+    cases = [
+        slot_case(card, "ring_k4096_rank3", sparse_of("ring", LARGE_K, large_k_sizes),
+                  layout.row, p=p, rank=3, size=layout.size, timed=True, seed=41),
+        slot_case(card, "ring_k4096_rank3_push_sum",
+                  sparse_of("ring", LARGE_K, large_k_sizes, "column"), layout.row, p=p, rank=3,
+                  mass=True, size=layout.size, timed=True, seed=42),
+        slot_case(card, "star_k64_rank0_ragged", sparse_of("star", 64, np.arange(1, 65) * 10),
+                  1001, p=8, rank=0, zero_beta_rows=(3,), seed=43),
+        slot_case(card, "star_k64_rank0_push_sum", sparse_of("star", 64, np.arange(1, 65) * 10,
+                                                             "column"),
+                  1001, p=8, rank=0, mass=True, seed=44),
+        slot_case(card, "complete_k2048_rank1_chunked",
+                  sparse_of("complete", 2048, np.arange(2048) % 7 + 5), 256, p=256, rank=1,
+                  seed=45),
+    ]
     return cases
 
 
@@ -2744,6 +2914,7 @@ def check_kernels(card: Card) -> dict[str, list[dict]]:
         cases[f"{kernel} dense"] = kcases
     for kernel, kcases in bf16_mode_cases(card, bf16_row(lm_size), bf16_row(layout.size)).items():
         cases[f"{kernel} bf16 modes"] = kcases
+    cases["segment_mix slots"] = slot_cases(card)
     for kernel, kcases in cases.items():
         for c in kcases:
             if kernel == "wkv6":
@@ -2758,6 +2929,8 @@ def check_kernels(card: Card) -> dict[str, list[dict]]:
                 _print_flash_bwd_case(c)
             elif kernel == "ssd":
                 _print_ssd_case(c)
+            elif kernel == "segment_mix slots":
+                _print_slot_case(c)
             else:
                 _print_case(kernel, c)
             if "sparse_d1_ms" in c:
@@ -3089,8 +3262,12 @@ def drive_large_k(exp, rounds: int, data) -> dict:
     no evaluation (as the reference's K = 4096 test drives its round step;
     the rounds are device-bound at about 2 s), launch counts
     reset just before and read just after, peak memory beside the size of
-    the four state buffers (params, momentum, d, b)."""
-    from repro_torch.core import p2p, task as task_lib
+    the four state buffers (params, momentum, d, b).  The initial params,
+    the last round's post-local params and its consensus's params and d are
+    kept under "_kept" (shareable copies, ``peer_group.shared_copy``), with
+    the peers' shards and data sizes, for the hierarchical runtime's ranks
+    to start from and to mix again."""
+    from repro_torch.core import p2p, peer_group, task as task_lib
     from repro_torch.data import partition
     from repro_torch.launch import train
 
@@ -3109,6 +3286,7 @@ def drive_large_k(exp, rounds: int, data) -> dict:
                                       device=dev)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - start
+    init = peer_group.shared_copy(state.params)  # the hierarchical rounds' start, kept
     counters = launch_counters()
     for counter in counters.values():
         counter.reset()
@@ -3118,7 +3296,7 @@ def drive_large_k(exp, rounds: int, data) -> dict:
     for _ in range(rounds):
         start = time.perf_counter()
         batches = batcher.round_batches_on(cfg.local_steps, dev)
-        _, state, loss = round_fn(state, batches)
+        after_local, state, loss = round_fn(state, batches)
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - start)
         losses.append(float(loss.mean()))
@@ -3134,8 +3312,16 @@ def drive_large_k(exp, rounds: int, data) -> dict:
     print(f"K={k}: launches {launches}, set-up {setup_s:.3f} s, seconds per round {seconds}, "
           f"losses {losses}, peak memory {peak_gb:.3f} GB against {state_gb:.3f} GB for the "
           f"four (K, {state.params.shape[1]}) state buffers", flush=True)
+    del batches
+    kept = {"init": init, "post_local": peer_group.shared_copy(after_local.params),
+            "parts": parts, "sizes": sizes, "round": rounds - 1}
+    del after_local
+    kept |= {"params": peer_group.shared_copy(state.params),
+             "d": peer_group.shared_copy(state.d_bias)}
+    del state, round_fn
+    torch.cuda.empty_cache()
     return {"launches": {"segment_mix": launches["segment_mix"]}, "peak_gb": peak_gb,
-            "state_gb": state_gb, "seconds": seconds, "setup_s": setup_s}
+            "state_gb": state_gb, "seconds": seconds, "setup_s": setup_s, "_kept": kept}
 
 
 LM_ARCH = "smollm-135m"
@@ -3161,7 +3347,7 @@ class LMRun:
     batch: int
     seq: int
     steps: int = 4
-    rounds: int = 3
+    rounds: int = 2
 
 
 LM_RUNS = (
@@ -4324,7 +4510,7 @@ def drive_step_api(card: Card) -> dict:
 
 
 SEQMNIST = "rwkv6_seqmnist"
-SEQMNIST_ROUNDS = 3
+SEQMNIST_ROUNDS = 2
 
 
 def seqmnist_params(k: int, seed: int = 0) -> dict[str, torch.Tensor]:
@@ -4514,7 +4700,7 @@ def profile_seqmnist_round(card: Card, exp, data) -> dict:
     eager = profile_once(lambda: round_fn(state, batches))
     drive_fn = p2p.make_scan_driver(task, cfg, sizes, device=dev, donate=False)
     drive_fn(state, batcher.chunk_batches_on(cfg.local_steps, 2, dev))
-    replay = profile_once(drive_fn.captured.replay)
+    replay = profile_once(drive_fn.captured.replay, cpu=False)
     replay_ms = cuda_ms(drive_fn.captured.replay, target_s=0.5)
     # the graph's kernels from its nodes, not from a profile: profiles of one
     # replay counted 58022-58061 kernels and 4994-4996 matmuls (the
@@ -4587,7 +4773,7 @@ def seqmnist_phase(card: Card, data, cases: dict, paths: dict) -> dict:
                                                SEQMNIST_ROUNDS, data, recheck=True),
     }
     for label, exp in (("seqmnist_k8", gossip), ("seqmnist_k8_push_sum", push)):
-        result = compare_drivers(card, label, exp, 6, 3, data, kernel="consensus_mix")
+        result = compare_drivers(card, label, exp, 4, 2, data, kernel="consensus_mix")
         result["mode"] = "mass" if exp.p2p.protocol == "push_sum" else "gossip"
         paths[f"{label}_both_drivers"] = result
     out["round_profile"] = profile_seqmnist_round(card, gossip, data)
@@ -5162,12 +5348,16 @@ def kernel_category(name: str) -> str:
     return "other elementwise and reductions"
 
 
-def profile_once(fn, category=kernel_category, n_top: int = 8) -> dict:
+def profile_once(fn, category=kernel_category, n_top: int = 8, *, cpu: bool = True) -> dict:
     """One call of ``fn`` under torch.profiler: wall seconds, device busy
     seconds and share, launches and device milliseconds by kernel category
     (``category`` of the kernel's name), and the ``n_top`` kernels that took
-    the most device time."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    the most device time.  ``cpu=False`` records the device's kernels alone,
+    which is faster to read but, for a burst of tens of thousands of eager
+    launches, drops some records (a graph's replay is one launch)."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if cpu:
+        acts.insert(0, torch.profiler.ProfilerActivity.CPU)
     with torch.profiler.profile(activities=acts) as prof:
         start = time.perf_counter()
         fn()
@@ -5220,7 +5410,7 @@ def drive_serve_fleet(card: Card) -> dict:
     run["groups_both_ways"] = fleet_both_ways(tokens)
     print(f"serve_fleet ({card.line}): {json.dumps(run)}", flush=True)
     torch.cuda.empty_cache()
-    return {"launches": {"wkv6": launches["wkv6"]}, **run}
+    return {"launches": {"wkv6": launches["wkv6"]}, **run, "_tokens": tokens.cpu()}
 
 
 def fleet_both_ways(fleet_tokens: torch.Tensor, seed: int = 0) -> dict:
@@ -5615,13 +5805,16 @@ def drive_sharded_experiment(card: Card, data) -> dict:
           f"sharded_k8 run_paper_experiment launched {launches}")
     exchange = [r["exchange"] for r in log_p.ranks]
     per_call = sum(e["exchange_seconds"] for e in exchange) / sum(e["exchanges"] for e in exchange)
+    peaks = [r["peak_bytes"] / GB for r in log_p.ranks]  # a width-1 rank's whole run
     print(f"sharded_k8 run_paper_experiment ({card.line}): {SHARDED_EXPERIMENT_ROUNDS} rounds, "
           f"{sum(accs)} of {len(accs)} accuracy groups equal the vmap run's (max |diff| "
           f"{acc_diff:.3g}), params max |diff| {params_diff:.3g}; "
           f"{np.mean(log_p.seconds) * 1e3:.2f} ms a round on 8 ranks against "
           f"{np.mean(log_v.seconds) * 1e3:.2f} ms vmap; exchange {per_call * 1e3:.3f} ms a "
-          f"call; whole runs {pod_s:.1f} s pod, {vmap_s:.1f} s vmap", flush=True)
-    return {"launches": launches, "mode": "row_range", "pod_s_per_round": log_p.seconds,
+          f"call; peak memory a rank at local width 1 (GB) {[round(v, 3) for v in peaks]}; "
+          f"whole runs {pod_s:.1f} s pod, {vmap_s:.1f} s vmap", flush=True)
+    return {"launches": launches, "mode": "row_range", "peak_gb_by_rank": peaks,
+            "pod_s_per_round": log_p.seconds,
             "vmap_s_per_round": log_v.seconds, "exchange_ms_per_call": per_call * 1e3,
             "accuracy_groups_equal": [sum(accs), len(accs)], "accuracy_max_abs_diff": acc_diff,
             "params_max_abs_diff": params_diff, "seconds": pod_s}
@@ -5691,6 +5884,337 @@ def drive_sharded_lm(card: Card) -> dict:
             "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# The hierarchical runtime over several slices: a block of p peers a rank
+# ---------------------------------------------------------------------------
+
+HIER_BRIDGE_K = 64  # the bridge mode's largest K ("auto" picks it up to here)
+HIER_BRIDGE_ROUNDS = 2
+HIER_POD_PPD = 25  # iid_k100 over 4 ranks: K = 100 > 64, so "auto" is segment
+HIER_POD_ROUNDS = 5
+GB = 1e9
+
+
+def free_shared() -> None:
+    """Free what this process shared with ranks that have exited: CUDA IPC
+    keeps a shared block until the producer collects it."""
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+
+
+def hier_bridge_cases() -> list:
+    """The bridge mode's cases: the 2NN at full width on ``iid_k100``'s ring
+    at K = 64 over ``HIER_RANKS`` ranks (p = 8), gossip and push-sum."""
+    from repro_torch.configs.p2pl_mnist import iid_k100
+    from repro_torch.launch import pod
+
+    cfg = dataclasses.replace(iid_k100(topology="ring").p2p, num_peers=HIER_BRIDGE_K)
+    sizes = tuple(int(v) for v in np.arange(HIER_BRIDGE_K) % 7 + 10)
+    p = HIER_BRIDGE_K // HIER_RANKS
+    return [pod.RoundCase(f"bridge_k{HIER_BRIDGE_K}_{proto}",
+                          dataclasses.replace(cfg, protocol=proto), HIER_BRIDGE_ROUNDS, sizes,
+                          peers_per_device=p, mix_mode="bridge")
+            for proto in ("gossip", "push_sum")]
+
+
+def drive_hier_bridge_and_consensus(card: Card, kept: dict) -> dict:
+    """One spawn of ``HIER_RANKS`` ranks (``launch.pod.hier_rank``) for two
+    checks of the hierarchical runtime over several slices.
+
+    Bridge (``hier_bridge_cases``): each rank's consensus from its block of
+    the vmap run's post-local state equals the vmap run's consensus bit for
+    bit; at the vmap runtime's local width (K rows) every rank's rows after
+    both phases and its losses equal the vmap run's (digests); at the
+    default width (its own p rows) its last params' distance from the vmap
+    run's is reported (relative norm under 1e-2).
+
+    Segment at K = ``LARGE_K`` (p = 512): each rank's consensus phase alone
+    from ``drive_large_k``'s last post-local params (``kept``) equals that
+    round's one-device ``segment_mix`` result on its rows, for gossip and
+    (from the same params, its initial mass) push-sum; each rank's peak
+    memory and what its consensus phase added."""
+    from repro_torch.configs.p2pl_mnist import iid_k100
+    from repro_torch.core import p2p, peer_group, protocols as protocols_lib
+    from repro_torch.core import task as task_lib
+    from repro_torch.kernels.consensus_mix import segment
+    from repro_torch.launch import pod
+
+    start = time.perf_counter()
+    task = task_lib.get_task("mnist_mlp")
+    cases = hier_bridge_cases()
+    want = {}
+    for case in cases:
+        rounds = pod.vmap_rounds(case, "cuda")
+        p = case.peers_per_device
+        want[case.name] = {
+            "digests": [[(pod.state_digest(p2p.shard_state(local, r, p)),
+                          pod.state_digest(p2p.shard_state(cons, r, p)), losses.cpu())
+                         for r in range(HIER_RANKS)] for local, cons, losses in rounds],
+            "params": rounds[-1][1].params.cpu()}
+        del rounds
+    # the one-device runtime's K = 4096 round: gossip is drive_large_k's, push-sum
+    # mixes the same post-local params from its initial mass
+    ring = iid_k100(topology="ring")
+    large = dataclasses.replace(ring.p2p, num_peers=LARGE_K)
+    push = dataclasses.replace(large, protocol="push_sum")
+    sizes = kept["sizes"]
+    ops_push = p2p.schedule_operands(push, sizes, device="cuda")
+    mass = protocols_lib.get_protocol("push_sum").init_state(kept["post_local"], sizes).mass
+    want_push = segment.segment_mix_push_sum_schedule(kept["post_local"], mass, kept["round"],
+                                                      ops_push, push.local_steps)
+    checks = [
+        {"cfg": large, "data_sizes": sizes, "params": kept["post_local"],
+         "round": kept["round"], "want_params": kept["params"], "want_d": kept["d"]},
+        # without the affinity bias the state's d is not the kernel's: it keeps its own (0)
+        {"cfg": push, "data_sizes": sizes, "params": kept["post_local"], "round": kept["round"],
+         "mass": peer_group.shared_copy(mass), "want_params": peer_group.shared_copy(want_push[0]),
+         "want_d": peer_group.shared_copy(want_push[1]) if push.use_affinity_d else kept["d"],
+         "want_mass": peer_group.shared_copy(want_push[2])}]
+    del want_push, ops_push
+    torch.cuda.empty_cache()
+    p_large = LARGE_K // HIER_RANKS
+    inbox = max(p2p.inbox_bytes(task, cases[0].cfg, peers_per_device=cases[0].peers_per_device,
+                                mix_mode="bridge"),
+                p2p.inbox_bytes(task, large, peers_per_device=p_large, mix_mode="segment"))
+    ring_bytes = p2p.ring_bytes(task, large, peers_per_device=p_large, mix_mode="segment")
+    spawn_start = time.perf_counter()
+    ranks = peer_group.spawn_peers(pod.hier_rank, HIER_RANKS, "cuda",
+                                   args=(cases, True, cases, (), checks, None, ()),
+                                   inbox_bytes=inbox, ring_bytes=ring_bytes, deadline=400)
+    spawn_s = time.perf_counter() - spawn_start
+    del checks, mass
+    for key in ("post_local", "params", "d"):
+        del kept[key]
+    free_shared()
+    bridge, launches = {}, 0
+    for case in cases:
+        p = case.peers_per_device
+        for k in range(HIER_RANKS):
+            check(all(ranks[k]["from_vmap"][case.name]),
+                  f"hier {case.name} rank {k}: the consensus from the vmap run's post-local "
+                  "rows equals the vmap run's consensus bit for bit")
+            for r, per_rank in enumerate(want[case.name]["digests"]):
+                local, cons, losses = per_rank[k]
+                got = ranks[k]["vmap_width"][case.name][r]
+                check(got.local == local and got.consensus == cons
+                      and bool(torch.equal(got.losses, losses)),
+                      f"hier {case.name} round {r} rank {k}: at local width K the rows and "
+                      "losses equal the vmap run's bit for bit")
+        stats = [r["cases"]["stats"][case.name] for r in ranks]
+        blocks = case.rounds * case.cfg.consensus_steps
+        for s_ in (stats, [r["vmap_width"]["stats"][case.name] for r in ranks]):
+            check(all(x["launches"]["consensus_mix"] == blocks and x["shifts"] == 0 for x in s_),
+                  f"hier {case.name}: one consensus_mix row-range launch a step and rank, no "
+                  f"ring shift ({[x['launches'] for x in s_]})")
+            launches += sum(x["launches"]["consensus_mix"] for x in s_)
+        # at the default width (the rank's own p rows) the local phase's GEMMs
+        # are others than the vmap round's K-row ones: their last-bit
+        # differences grow over the 2 x 60 SGD steps (the bits are held above,
+        # at width K and from the vmap run's post-local rows), so this width is
+        # reported, and held only to a relative norm of 1e-2 against a gross fault
+        got = torch.cat([ranks[k]["cases"][case.name][-1].params for k in range(HIER_RANKS)])
+        rel = rel_norm(got, want[case.name]["params"])
+        check(bool(torch.isfinite(got).all()) and rel < 1e-2,
+              f"hier {case.name} default width: params' relative norm error {rel}")
+        bridge[case.name] = {
+            "default_width_equal_bits": bool(torch.equal(got, want[case.name]["params"])),
+            "default_width_rel_norm_err": rel,
+            "default_width_max_abs_diff": float((got - want[case.name]["params"]).abs().max()),
+            "s_per_round": stats[0]["seconds_per_round"],
+            "gather_ms_per_call": 1e3 * sum(x["gather_seconds"] for x in stats)
+            / max(sum(x["gathers"] for x in stats), 1)}
+        print(f"hier {case.name} ({card.line}): 8 ranks of {p} peers, bridge; the consensus "
+              f"from the vmap post-local rows and the rounds at local width K equal the vmap "
+              f"run's bit for bit; at the default width max |diff| "
+              f"{bridge[case.name]['default_width_max_abs_diff']:.3e}, relative norm "
+              f"{rel:.3e}; "
+              f"{bridge[case.name]['s_per_round'] * 1e3:.2f} ms a round, all-gather "
+              f"{bridge[case.name]['gather_ms_per_call']:.3f} ms a call", flush=True)
+    consensus = []
+    seg_launches = 0
+    for i, proto in enumerate(("gossip", "push_sum")):
+        res = [r["checks"][i] for r in ranks]
+        for k, r in enumerate(res):
+            diffs = {key: r[key] for key in r if key.endswith("max_abs_diff")}
+            equal = r["params_equal"] and r["d_equal"] and r.get("mass_equal", True)
+            if not equal:  # held to 1e-5, the reference's segment tolerance
+                check(all(v <= 1e-5 for v in diffs.values()),
+                      f"hier K={LARGE_K} {proto} rank {k}: {diffs}")
+            check(r["launches"] == 1, f"hier K={LARGE_K} {proto} rank {k}: segment_mix slot "
+                  f"form launched {r['launches']} times, want 1")
+            check(r["consensus_added_peak_bytes"] < LARGE_K * 199212 * 4,
+                  f"hier K={LARGE_K} {proto} rank {k}: the consensus phase added "
+                  f"{r['consensus_added_peak_bytes'] / GB:.3f} GB, one (K, N) buffer or more")
+            seg_launches += r["launches"]
+        summary = {"equal_bits": [r["params_equal"] and r["d_equal"] and r.get("mass_equal", True)
+                                  for r in res],
+                   "params_max_abs_diff": max(r["params_max_abs_diff"] for r in res),
+                   "d_max_abs_diff": max(r["d_max_abs_diff"] for r in res),
+                   "peak_gb_by_rank": [r["peak_bytes"] / GB for r in res],
+                   "consensus_added_gb_by_rank": [r["consensus_added_peak_bytes"] / GB
+                                                  for r in res]}
+        consensus.append({"protocol": proto, **summary})
+        print(f"hier K={LARGE_K} {proto} consensus from the one-device post-local state "
+              f"({card.line}): 8 ranks of {p_large} peers, segment (slot form): {json.dumps(summary)}",
+              flush=True)
+    seconds = time.perf_counter() - start
+    print(f"hier bridge and K={LARGE_K} consensus ({card.line}): spawn and work {spawn_s:.1f} s, "
+          f"phase {seconds:.1f} s", flush=True)
+    return {"bridge": {"launches": {"consensus_mix": launches}, "mode": "row_range",
+                       "cases": bridge},
+            "consensus": {"launches": {"segment_mix": seg_launches}, "mode": "slots",
+                          "checks": consensus, "spawn_s": spawn_s, "seconds": seconds}}
+
+
+def drive_hier_large_k(card: Card, kept: dict) -> dict:
+    """One round of the 2NN at full width at K = ``LARGE_K`` on a ring over
+    ``HIER_RANKS`` ranks (p = 512, segment mode: the reference's K = 4096
+    round on 8 slices), gossip then push-sum, each from ``drive_large_k``'s
+    initial params (``kept``, shared by the launcher: no rank draws the
+    fleet) and the first round of batches of a batcher of seed 0 on its
+    shards: losses and state finite, one slot-form launch a rank and step,
+    each rank's peak memory and what its consensus phase added."""
+    from repro_torch.configs.p2pl_mnist import iid_k100
+    from repro_torch.core import p2p, peer_group, task as task_lib
+    from repro_torch.launch import pod
+
+    start = time.perf_counter()
+    ring = iid_k100(topology="ring")
+    exp = dataclasses.replace(ring, p2p=dataclasses.replace(ring.p2p, num_peers=LARGE_K))
+    cfgs = [exp.p2p, dataclasses.replace(exp.p2p, protocol="push_sum")]
+    task = task_lib.get_task("mnist_mlp")
+    sizes, init = kept["sizes"], kept.pop("init")
+    x_all, y_all, idx = task.make_peer_batches(kept["parts"], exp.batch_size,
+                                               seed=0).chunk_batches_on(
+        exp.p2p.local_steps, 1, torch.device("cpu"))
+    p = LARGE_K // HIER_RANKS
+    spawn_start = time.perf_counter()
+    ranks = peer_group.spawn_peers(
+        pod.hier_rank, HIER_RANKS, "cuda",
+        args=((), False, (), (), (), (cfgs, init, (x_all, y_all, idx), sizes), ()),
+        inbox_bytes=p2p.inbox_bytes(task, exp.p2p, peers_per_device=p, mix_mode="segment"),
+        ring_bytes=p2p.ring_bytes(task, exp.p2p, peers_per_device=p, mix_mode="segment"),
+        deadline=400)
+    spawn_s = time.perf_counter() - spawn_start
+    del init
+    free_shared()
+    out, launches = {}, 0
+    for i, cfg in enumerate(cfgs):
+        res = [r["large"][i] for r in ranks]
+        for k, r in enumerate(res):
+            check(r["finite"] and r["round_idx"] == 1,
+                  f"hier K={LARGE_K} {cfg.protocol} rank {k}: finite after one round")
+            check(r["launches"]["segment_mix"] == cfg.consensus_steps
+                  and r["launches"]["consensus_mix"] == 0,
+                  f"hier K={LARGE_K} {cfg.protocol} rank {k}: launched {r['launches']}")
+            check(r["consensus_added_peak_bytes"] < LARGE_K * 199212 * 4,
+                  f"hier K={LARGE_K} {cfg.protocol} rank {k}: the consensus phase added "
+                  f"{r['consensus_added_peak_bytes'] / GB:.3f} GB")
+            launches += r["launches"]["segment_mix"]
+        check(all(torch.equal(res[0]["losses"], r["losses"]) for r in res),
+              f"hier K={LARGE_K} {cfg.protocol}: every rank has the (T,) losses")
+        summary = {"loss": float(res[0]["losses"].mean()),
+                   "seconds_by_rank": [r["seconds"] for r in res],
+                   "peak_gb_by_rank": [r["peak_bytes"] / GB for r in res],
+                   "consensus_added_gb_by_rank": [r["consensus_added_peak_bytes"] / GB
+                                                  for r in res],
+                   "ring_shift_ms_per_call": 1e3 * res[0]["stats"]["shift_seconds"]
+                   / max(res[0]["stats"]["shifts"], 1)}
+        out[cfg.protocol] = summary
+        print(f"hier K={LARGE_K} {cfg.protocol} round ({card.line}): 8 ranks of {p} peers, "
+              f"segment: {json.dumps(summary)}", flush=True)
+    seconds = time.perf_counter() - start
+    print(f"hier K={LARGE_K} rounds ({card.line}): spawn and rounds {spawn_s:.1f} s, phase "
+          f"{seconds:.1f} s", flush=True)
+    return {"launches": {"segment_mix": launches}, "mode": "slots", "rounds": out,
+            "spawn_s": spawn_s, "seconds": seconds}
+
+
+def drive_hier_experiment(card: Card, data) -> dict:
+    """``run_paper_experiment(iid_k100(), peer_axis="pod",
+    peers_per_device=25)``, ``HIER_POD_ROUNDS`` rounds on 4 ranks ("auto":
+    segment, K = 100 > 64), against the vmap run of the same seed: every
+    accuracy within ``SHARDED_ACC_ATOL``, how many are equal, the params
+    within the segment tolerance's reach; one slot-form launch a rank and
+    round."""
+    from repro_torch.configs.p2pl_mnist import iid_k100
+    from repro_torch.launch import train
+
+    exp = iid_k100()
+    start = time.perf_counter()
+    log_v, state_v = train.run_paper_experiment(exp, rounds=HIER_POD_ROUNDS, data=data,
+                                                device="cuda", return_state=True)
+    vmap_s = time.perf_counter() - start
+    start = time.perf_counter()
+    log_p, state_p = train.run_paper_experiment(exp, rounds=HIER_POD_ROUNDS, data=data,
+                                                device="cuda", peer_axis="pod", verbose=True,
+                                                peers_per_device=HIER_POD_PPD, return_state=True)
+    pod_s = time.perf_counter() - start
+    params_diff = float((state_p.params.to(state_v.params.device) - state_v.params).abs().max())
+    accs, acc_diff = [], 0.0
+    for attr in ("after_local", "after_consensus"):
+        want, got = getattr(log_v, attr), getattr(log_p, attr)
+        check(want.keys() == got.keys(), f"hier run_paper_experiment: {attr} groups")
+        for g in want:
+            w, p = np.stack(want[g]), np.stack(got[g])
+            accs.append(np.array_equal(w, p))
+            acc_diff = max(acc_diff, float(np.abs(w - p).max()))
+    check(acc_diff <= SHARDED_ACC_ATOL,
+          f"hier run_paper_experiment: accuracies within {SHARDED_ACC_ATOL} of the vmap run's "
+          f"(max |diff| {acc_diff})")
+    ranks = exp.p2p.num_peers // HIER_POD_PPD
+    launches = {key: sum(r["launches"][key] for r in log_p.ranks)
+                for key in ("consensus_mix", "dequant_mix", "segment_mix")}
+    want_launches = HIER_POD_ROUNDS * exp.p2p.consensus_steps * ranks
+    check(launches == {"consensus_mix": 0, "dequant_mix": 0, "segment_mix": want_launches},
+          f"hier run_paper_experiment launched {launches}")
+    peaks = [r["peak_bytes"] / GB for r in log_p.ranks]
+    print(f"hier run_paper_experiment iid_k100 ({card.line}): {ranks} ranks of {HIER_POD_PPD} "
+          f"peers, segment, {HIER_POD_ROUNDS} rounds, {sum(accs)} of {len(accs)} accuracy "
+          f"groups equal the vmap run's (max |diff| {acc_diff:.3g}), params max |diff| "
+          f"{params_diff:.3g}; {np.mean(log_p.seconds) * 1e3:.2f} ms a round against "
+          f"{np.mean(log_v.seconds) * 1e3:.2f} ms vmap; peak memory a rank (GB) "
+          f"{[round(v, 3) for v in peaks]}; whole runs {pod_s:.1f} s pod, {vmap_s:.1f} s vmap",
+          flush=True)
+    return {"launches": {"segment_mix": launches["segment_mix"]}, "mode": "slots",
+            "accuracy_groups_equal": [sum(accs), len(accs)], "accuracy_max_abs_diff": acc_diff,
+            "params_max_abs_diff": params_diff, "pod_s_per_round": log_p.seconds,
+            "vmap_s_per_round": log_v.seconds, "peak_gb_by_rank": peaks, "seconds": pod_s}
+
+
+def drive_serve_fleet_pod(card: Card, stacked_tokens: torch.Tensor) -> dict:
+    """``serve_fleet`` of rwkv6-7b at full size with ``peer_axis="pod"``:
+    ``FLEET_PEERS`` ranks on the one card, each drawing its own peer's
+    parameters and serving its own request group; the tokens must equal the
+    stacked fleet's (``drive_serve_fleet``'s, ``stacked_tokens``), and each
+    rank launches ``wkv6`` once a layer in its prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    layers = get_config(SERVE_ARCH).num_layers
+    print(f"main path: serve_fleet {SERVE_ARCH} full, {FLEET_PEERS} peers, peer_axis=pod, batch "
+          f"{SERVE_BATCH}, prompt {SERVE_PROMPT}, gen {SERVE_GEN}", flush=True)
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    out = serve.serve_fleet(SERVE_ARCH, num_peers=FLEET_PEERS, batch=SERVE_BATCH,
+                            prompt_len=SERVE_PROMPT, gen_tokens=SERVE_GEN, use_reduced=False,
+                            seed=0, verbose=True, device="cuda", peer_axis="pod")
+    seconds = time.perf_counter() - start
+    check(torch.equal(out["tokens"].cpu(), stacked_tokens.cpu()),
+          "the pod fleet's tokens equal the stacked fleet's")
+    per_rank = [r["launches"] for r in out["ranks"]]
+    check(all(r == {"wkv6": layers, "flash_attention": 0, "ssd": 0} for r in per_rank),
+          f"pod fleet launches a rank {per_rank}, want {layers} wkv6")
+    run = {"serve_s": out["serve_s"], "tokens_per_s": out["tokens_per_s"],
+           "peak_gb_by_rank": [r["peak_memory_gb"] for r in out["ranks"]],
+           "params_gb_a_rank": out["params_gb"], "wkv6_launches_by_rank":
+           [r["wkv6"] for r in per_rank], "seconds": seconds}
+    print(f"serve_fleet pod ({card.line}): tokens equal the stacked fleet's; {json.dumps(run)}",
+          flush=True)
+    return {"launches": {"wkv6": sum(r["wkv6"] for r in per_rank)}, **run}
+
+
 def main() -> int:
     # the full-width LM rounds hold about nine parameter-sized buffers; with
     # fixed segments the allocator left 9.5 GiB of them unusable (rwkv6-7b)
@@ -5745,6 +6269,8 @@ def main() -> int:
     serving = {SERVE_ARCH: recheck_and_break_down(card, SERVE_ARCH, {"wkv6": (0, 31)},
                                                   {"wkv6": 32})}
     paths["serve_fleet_k2"] = drive_serve_fleet(card)
+    # the pod layout of the same fleet: a process a peer, the stacked fleet's tokens
+    paths["serve_fleet_pod_k2"] = drive_serve_fleet_pod(card, paths["serve_fleet_k2"].pop("_tokens"))
     paths["serve_batch_minitron"] = drive_serve_batch(card, DECODER_ARCH,
                                                       {"flash_attention": 32})
     serving[DECODER_ARCH] = recheck_and_break_down(card, DECODER_ARCH,
@@ -5878,19 +6404,19 @@ def main() -> int:
     # both round drivers from the same seed and rounds, bit for bit
     pod = dict(peer_axis="pod", peers_per_device=iid.p2p.num_peers, mix_mode="segment")
     for label, exp, rounds, every, kernel, run_kw in (
-        ("noniid_affinity", noniid, 15, 5, "consensus_mix", {}),
+        ("noniid_affinity", noniid, 10, 5, "consensus_mix", {}),
         ("iid_k100", iid, 10, 5, "consensus_mix", {}),
         ("iid_k100_qint8", iid_qint8, 10, 5, "dequant_mix", {}),
         ("timevarying_k8_round_robin_qint8",
          timevarying_k8(schedule="round_robin", compressor="qint8"), 9, 3, "dequant_mix", {}),
-        ("directed_k8", directed, 15, 5, "consensus_mix", {}),
+        ("directed_k8", directed, 10, 5, "consensus_mix", {}),
         ("iid_k100_pod_segment", iid, 10, 5, "segment_mix", pod),
-        ("straggler_k8", straggler_k8(), 15, 5, "consensus_mix", {}),
-        ("straggler_k8_round_robin_push_sum", straggler_push, 15, 5, "consensus_mix", {}),
+        ("straggler_k8", straggler_k8(), 10, 5, "consensus_mix", {}),
+        ("straggler_k8_round_robin_push_sum", straggler_push, 10, 5, "consensus_mix", {}),
         ("iid_k100_straggler_b3", iid_stale, 10, 5, "consensus_mix", {}),
-        ("timevarying_k8_adaptive", tv_adaptive, 15, 5, "consensus_mix", {}),
-        ("timevarying_k8_adaptive_eps_greedy", tv_eps_greedy, 15, 5, "consensus_mix", {}),
-        ("directed_k8_adaptive", directed_adaptive, 15, 5, "consensus_mix", {}),
+        ("timevarying_k8_adaptive", tv_adaptive, 10, 5, "consensus_mix", {}),
+        ("timevarying_k8_adaptive_eps_greedy", tv_eps_greedy, 10, 5, "consensus_mix", {}),
+        ("directed_k8_adaptive", directed_adaptive, 10, 5, "consensus_mix", {}),
     ):
         result = compare_drivers(card, label, exp, rounds, every, data, kernel=kernel, **run_kw)
         result["mode"] = ("dense" if exp.p2p.schedule == "adaptive" else
@@ -5906,6 +6432,18 @@ def main() -> int:
     ring = iid_k100(topology="ring")
     large_k = dataclasses.replace(ring, p2p=dataclasses.replace(ring.p2p, num_peers=LARGE_K))
     paths[f"ring_k{LARGE_K}"] = drive_large_k(large_k, LARGE_K_ROUNDS, data)
+    # this slice: the hierarchical runtime over 8 slices (ranks on the card),
+    # bridge at K = 64 and segment at K = 4096 (the consensus from the last
+    # round's one-device post-local state above, then whole rounds), and
+    # run_paper_experiment over 4 slices
+    elapsed("the hierarchical runtime")
+    kept = paths[f"ring_k{LARGE_K}"].pop("_kept")
+    hier = drive_hier_bridge_and_consensus(card, kept)
+    paths["hier_bridge_k64"] = hier["bridge"]
+    paths[f"hier_k{LARGE_K}_consensus"] = hier["consensus"]
+    paths[f"hier_k{LARGE_K}_rounds"] = drive_hier_large_k(card, kept)
+    del kept
+    paths["hier_iid_k100_run_paper_experiment"] = drive_hier_experiment(card, data)
     # this slice's paths, last: the sharded runtime, one process per peer
     # (8 ranks on the card through the cuda_ipc group, each mixing its own
     # row through consensus_mix's row range): sharded_k8's grid against the
@@ -5992,6 +6530,21 @@ def main() -> int:
             mass_entry["k100_shape"] = at_k100(cases[kernel], "iid_k100, one-slice segment runtime")
             mass_entry["mass_mode"]["k100_shape"] = at_k100(
                 cases[f"{kernel} mass"], "iid_k100 --protocol push_sum, one-slice segment runtime")
+        if f"{kernel} slots" in cases:  # the slot form: a rank's block of the segment mode
+            slot = cases[f"{kernel} slots"]
+            timed = [c for c in slot if "ms" in c]
+            slot_paths = {name: n for name, n in by_path.items()
+                          if paths[name].get("mode") == "slots"}
+            mass_entry["slot_form"] = {
+                "launches": sum(slot_paths.values()), "launches_by_path": slot_paths,
+                "max_abs_err": max(c["max_abs_err"] for c in slot),
+                **{key: timed[0][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                  "library_ms", "bound_card", "library")},
+                "shape": f"{timed[0]['case']}: K={timed[0]['K']} p={timed[0]['p']} "
+                         f"D={timed[0]['D']} N={timed[0]['N']}, a rank's block",
+                "mass_mode": {key: timed[1][key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")},
+                "shapes": slot}
         if f"{kernel} row range" in cases:  # a rank's own row of the launch (sharded runtime)
             rr = cases[f"{kernel} row range"]
             rr_main = rr[0]  # sharded_k8's K = 8 ring at the 2NN's row

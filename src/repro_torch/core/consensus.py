@@ -1,6 +1,6 @@
 """Distributed average-consensus (gossip) operators over stacked peers (the
-port's ``repro.core.consensus``: the vmap runtime's half, and the one-device
-case of the hierarchical runtime's slot forms).
+port's ``repro.core.consensus``: the vmap runtime's half, and the
+hierarchical runtime's slot forms).
 
 Three forms of the same op out_k = sum_j W[k, j] x_j on a (K, N) flat buffer:
 
@@ -13,7 +13,9 @@ Three forms of the same op out_k = sum_j W[k, j] x_j on a (K, N) flat buffer:
 3. **Slot sums** (``ring_gather_slots``, ``mix_slots``, ``slot_sum``): the
    degree-bounded form of the hierarchical runtime's "segment" mode, the
    plain version of the ``segment_mix`` kernel.  Each sums the D slots in
-   slot order, in float32, as the kernel does.  ``scatter_rows`` turns
+   slot order, in float32, as the kernel does.  ``ring_gather_slots``
+   gathers the neighbor rows of a block of peers, from the block alone on
+   one device or around the ring of a ``core.peer_group.PeerGroup``.  ``scatter_rows`` turns
    padded slot rows back into a dense block.  ``mix_sparse`` is the padded
    form's plain mix.
 
@@ -183,15 +185,40 @@ def scatter_rows(
                             accumulate=True)
 
 
-def ring_gather_slots(x_block: torch.Tensor, nbr_idx: torch.Tensor) -> torch.Tensor:
-    """Neighbor rows by global index: (p, D, ...) from a (p, ...) block and
-    (p, D) indices.
+_GATHER_ROWS = 64  # slots ring_gather_slots copies at a time
 
-    The one-device case of the reference's ring gather: the block is every
-    peer, so the gather is a local take ``x[nbr_idx]``.  Streaming the
-    blocks of several devices around a ring is ROADMAP.md queue 1 item 15.
+
+def ring_gather_slots(x_block: torch.Tensor, nbr_idx: torch.Tensor, group=None) -> torch.Tensor:
+    """Neighbor rows by global index across a block-sharded peer axis:
+    (p, D, ...) from the rank's (p, ...) block and its (p, D) GLOBAL indices
+    (the reference's ``ring_gather_slots``).
+
+    Peers are laid out block-major: global row g lives on rank g // p at
+    local row g % p.  The rank's block streams around the ring
+    (``group.ring_shift``): at step s the rank holds the block of rank
+    (me + s) mod n and fills the slots whose owner just arrived with a local
+    take.  Memory is the block, the visiting block and the (p, D, ...)
+    slots: never a (K, ...) tensor.  With no group, or a group of one rank,
+    the block is every peer and the gather is the local take
+    ``x[nbr_idx]``.
     """
-    return x_block[nbr_idx.long()]
+    idx = nbr_idx.long()
+    if group is None or group.size == 1:
+        return x_block[idx]
+    n, me, p = group.size, group.rank, x_block.shape[0]
+    owner, local = (idx // p).reshape(-1), (idx % p).reshape(-1)
+    out = x_block.new_zeros((*idx.shape, *x_block.shape[1:]))
+    flat_out = out.view(idx.numel(), -1)
+    visiting = x_block
+    for s in range(n):
+        filled = torch.nonzero(owner == (me + s) % n).reshape(-1)
+        # a few rows at a time: a take of every slot at once would hold a
+        # second (p, D, ...) buffer
+        for part in filled.split(_GATHER_ROWS):
+            flat_out.index_copy_(0, part, visiting.reshape(p, -1).index_select(0, local[part]))
+        if s + 1 < n:
+            visiting = group.ring_shift(visiting)
+    return out
 
 
 def mix_slots(

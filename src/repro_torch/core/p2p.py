@@ -77,9 +77,9 @@ as in the reference) and a registry language model's task
 and a vlm's ``patches`` or an encoder-decoder's ``frames``; in float32 or
 bf16, with a bf16 model's float32 leaves in their float32 block, under every
 protocol, wire, delivery rule and schedule above and through both round
-drivers), the vmap and one-slice hierarchical runtimes, and the sharded
-runtime with one process per peer.  Any other configuration raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it.
+drivers), the vmap and one-slice hierarchical runtimes, the sharded
+runtime with one process per peer and the hierarchical runtime over several
+processes.
 
 The sharded runtime (``make_sharded_round_fn``, the reference's
 ``peer_axis="pod"`` with one peer a device) runs each peer in its own
@@ -88,7 +88,15 @@ on one card): a rank holds its (1, row) block of the state, runs the local
 phase on it, exchanges its row with its neighbors over the schedule's lanes
 and launches the stacked step's kernel on its row alone (the kernels' row
 range), so every row equals the vmap runtime's bit for bit; a compressed
-wire all-gathers the payloads (allclose, as in the reference).
+wire all-gathers the payloads (allclose, as in the reference).  With
+``peers_per_device`` = p > 1 the same function builds a rank's round of the
+hierarchical runtime over K / p processes (the reference's
+``_make_hier_round_step``): a rank holds a block of p peers (peer g on rank
+g // p), runs the local phase over its p rows and mixes them in one of the
+reference's two modes (``consensus_phase_hier_sharded``): "bridge" all-gathers
+the (K, N) stack and launches the vmap runtime's kernel on the block's row
+range (bit for bit), "segment" ring-gathers the block's neighbor slots and
+launches the slot form of ``segment_mix`` (no (K, ...) tensor).
 """
 from __future__ import annotations
 
@@ -144,17 +152,11 @@ def resolve_init_fn(task_or_init) -> Callable:
     return task_or_init if init_fn is None else init_fn
 
 
-def _not_ported(what: str, item) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP.md queue 1 item {item}")
-
-
 @dataclasses.dataclass(frozen=True)
 class P2PConfig:
     """Hyperparameters of the P2PL-with-Affinity family.
 
-    Field names and defaults equal ``repro.core.p2p.P2PConfig``'s.  Values
-    that select machinery this port does not run yet raise
-    ``NotImplementedError`` naming the ROADMAP.md item that ports it.
+    Field names and defaults equal ``repro.core.p2p.P2PConfig``'s.
     """
 
     algorithm: str = "p2pl_affinity"
@@ -1126,11 +1128,13 @@ MIX_MODES = ("auto", "bridge", "segment")
 _BRIDGE_MAX_PEERS = 64  # "auto" uses the bit-parity bridge mix up to here
 
 
-def check_hierarchical_layout(num_peers: int, peers_per_device: int) -> None:
+def check_hierarchical_layout(num_peers: int, peers_per_device: int,
+                              num_ranks: int | None = None) -> int:
     """Validate a hierarchical layout of ``num_peers`` peers, block-major over
-    ``num_peers / peers_per_device`` devices (peer g on device g // p).  The
-    port runs one slice, all K peers on one GPU; more slices need the
-    multi-process runtime (ROADMAP.md queue 1 item 15)."""
+    ``num_peers / peers_per_device`` slices (peer g on slice g // p): one
+    device holding every peer, or one rank of a ``core.peer_group`` run a
+    slice (``num_ranks``, where given, must be K / p; the reference's
+    ``sharding.specs.hierarchical_layout``).  Returns the number of slices."""
     if peers_per_device < 2:
         raise ValueError(
             "peers_per_device must be >= 2 for the hierarchical runtime "
@@ -1140,11 +1144,12 @@ def check_hierarchical_layout(num_peers: int, peers_per_device: int) -> None:
         raise ValueError(
             f"peers_per_device={peers_per_device} does not divide num_peers={num_peers}"
         )
-    if num_peers != peers_per_device:
-        raise _not_ported(
-            f"the hierarchical runtime over {num_peers // peers_per_device} slices "
-            f"(num_peers={num_peers} / peers_per_device={peers_per_device})", 15,
+    if num_ranks is not None and num_peers != peers_per_device * num_ranks:
+        raise ValueError(
+            f"num_peers={num_peers} != peers_per_device={peers_per_device} "
+            f"x mesh axis 'pod'={num_ranks}"
         )
+    return num_peers // peers_per_device
 
 
 def resolve_mix_mode(mix_mode: str, num_peers: int) -> str:
@@ -1166,7 +1171,8 @@ def consensus_phase_hier(
     operands, bit for bit.  "segment": the ``segment_mix`` kernel, with
     ``d = where(has_nbrs, (sum_s beta x_nbr - x) / T, 0)`` and ``has_nbrs``
     from the raw beta row; its slot-ordered sums are allclose to the dense
-    mix, not bit-identical.  Several slices are queue 1 item 15.
+    mix, not bit-identical.  Several slices, one process each, are
+    ``consensus_phase_hier_sharded``.
     """
     if cfg.consensus_steps == 0:
         return state._replace(round_idx=state.round_idx + 1)
@@ -1190,7 +1196,9 @@ def make_hier_round_fn(
     degree-bounded schedule (the counterpart of the reference's
     ``make_sharded_round_fn(..., peers_per_device=K, mix_mode=...)`` on a
     one-device mesh).  The stacked (R, K, D) operands are uploaded once,
-    here; round ``r`` uses those of ``r % R``.
+    here; round ``r`` uses those of ``r % R``.  Fewer peers a device than K
+    need a process a slice: a rank's round is ``make_sharded_round_fn(...,
+    peers_per_device=p)``, and this raises ``ValueError``.
     """
     step = _hier_round_step(task, cfg, peers_per_device, mix_mode)
     ops_s = schedule_operands(cfg, data_sizes, device=device)
@@ -1203,7 +1211,13 @@ def _hier_round_step(task: task_lib.TrainTask, cfg: P2PConfig, peers_per_device:
     stacked (R, K) / (R, K, D) operands, after validating the layout."""
     features_lib.check_config(cfg, peers_per_device=peers_per_device)
     mode = resolve_mix_mode(mix_mode, cfg.num_peers)
-    check_hierarchical_layout(cfg.num_peers, peers_per_device)
+    if check_hierarchical_layout(cfg.num_peers, peers_per_device) > 1:
+        raise ValueError(
+            f"peers_per_device={peers_per_device} < num_peers={cfg.num_peers} needs a group "
+            "(hierarchical runtime over several slices): run a rank's round, "
+            "make_sharded_round_fn(task, cfg, group, peers_per_device=p), in each of the "
+            "K / p ranks of core.peer_group.spawn_peers"
+        )
 
     def step(state: P2PState, batches, ops_s: SparseRoundOps):
         after_local, losses = local_phase(state, task, batches, cfg)
@@ -1236,27 +1250,49 @@ def _map_per_peer(state: P2PState, fn) -> P2PState:
         wide=wide)
 
 
-def shard_state(state: P2PState, rank: int) -> P2PState:
-    """A rank's block of a stacked state: row ``rank`` of every per-peer
-    tensor, as (1, ...) copies (the compressed wire's estimate stacks stay
-    whole: every rank carries the replicated (K, row) stack, as the
-    reference's does).  Every rank draws the same stacked ``init_state`` and
-    keeps its row, so a sharded run starts where a vmap run starts."""
-    return _map_per_peer(state, lambda t: t[rank:rank + 1].clone())
+def shard_state(state: P2PState, rank: int, peers_per_device: int = 1) -> P2PState:
+    """A rank's block of a stacked state: rows ``rank * p`` .. ``rank * p +
+    p - 1`` (p = ``peers_per_device``) of every per-peer tensor, as (p, ...)
+    copies (the compressed wire's estimate stacks stay whole: every rank
+    carries the replicated (K, row) stack, as the reference's does).  Every
+    rank draws the same stacked ``init_state`` and keeps its block, so a
+    sharded run starts where a vmap run starts."""
+    row0 = rank * peers_per_device
+    return _map_per_peer(state, lambda t: t[row0:row0 + peers_per_device].clone())
 
 
 def unshard_state(group, state: P2PState) -> P2PState:
     """The stacked state of a sharded run, on every rank: each per-peer
-    tensor's rows all-gathered in rank order (a collective: every rank
+    tensor's blocks all-gathered in rank order (a collective: every rank
     calls it)."""
-    return _map_per_peer(state, lambda t: group.all_gather(t[0]))
+    return _map_per_peer(state, lambda t: group.all_gather(t).reshape(-1, *t.shape[1:]))
 
 
-def inbox_bytes(task: task_lib.TrainTask, cfg: P2PConfig) -> int:
-    """The largest row a rank of a sharded run ships: a parameter block's
-    (the compressed wire's payloads and the scalars are smaller)."""
-    rows = [blk.row * blk.dtype.itemsize for blk in ParamLayout.of(task).blocks]
-    return max(*rows, 4 * cfg.local_steps, 64)
+def inbox_bytes(task: task_lib.TrainTask, cfg: P2PConfig, *, peers_per_device: int = 1,
+                mix_mode: str = "auto", whole_blocks: bool = False) -> int:
+    """The largest tensor a rank of a sharded run all-gathers or exchanges:
+    with one peer a rank a parameter row (the compressed wire's payloads and
+    the scalars are smaller).  With a block of p peers a rank, the (T, p)
+    losses and the (p,) masses, and in "bridge" mode, or where the caller
+    gathers the state itself (``whole_blocks``, e.g. to evaluate it), the
+    (p, row) parameter blocks; "segment" mode streams its blocks through the
+    ring inboxes (``ring_bytes``)."""
+    p = peers_per_device
+    rows = [p * blk.row * blk.dtype.itemsize for blk in ParamLayout.of(task).blocks]
+    scalars = 4 * p * max(cfg.local_steps, 1)
+    if p > 1 and resolve_mix_mode(mix_mode, cfg.num_peers) == "segment" and not whole_blocks:
+        return max(scalars, 64)
+    return max(*rows, scalars, 64)
+
+
+def ring_bytes(task: task_lib.TrainTask, cfg: P2PConfig, *, peers_per_device: int = 1,
+               mix_mode: str = "auto") -> int:
+    """The largest block a rank ring-shifts: the (p, row) parameter block in
+    the hierarchical runtime's "segment" mode, else 0 (no ring)."""
+    p = peers_per_device
+    if p == 1 or resolve_mix_mode(mix_mode, cfg.num_peers) != "segment":
+        return 0
+    return max(p * blk.row * blk.dtype.itemsize for blk in ParamLayout.of(task).blocks)
 
 
 def _row_of(proto_state, row: int):
@@ -1378,22 +1414,94 @@ def _consensus_phase_sharded_async(
 def _local_phase_at_width(state: P2PState, task: task_lib.TrainTask, batches, cfg: P2PConfig,
                           width: int, steps_k: np.ndarray | None
                           ) -> tuple[P2PState, torch.Tensor]:
-    """A rank's local phase (``local_phase_stats`` on its (1, ...) block) run
-    on ``width`` copies of its row and its batch, row 0 kept: at the vmap
-    runtime's width the card's libraries take the vmap runtime's kernels
-    (cuBLAS picks a GEMM by its batch count), so the row comes out as the
-    vmap runtime's bit for bit.  Returns (state, losses (T, 1))."""
-    if width == 1:
+    """A rank's local phase (``local_phase_stats`` on its (p, ...) block) run
+    on ``width`` rows, copies of its block and its batches (a multiple of
+    p), the first p kept: at the vmap runtime's width the card's libraries
+    take the vmap runtime's kernels (cuBLAS picks a GEMM by its batch
+    count), so the rows come out as the vmap runtime's bit for bit.  Returns
+    (state, losses (T, p))."""
+    p = state.params.shape[0]
+    if width == p:
         return local_phase_stats(state, task, batches, cfg, steps_k=steps_k)
-    copies = lambda t: t.expand(width, *t.shape[1:]).contiguous()  # noqa: E731
+    if width % p:
+        raise ValueError(f"local_width={width} is not a multiple of the rank's {p} peers")
+    copies = width // p
+    tile = lambda t: t.repeat(copies, *(1,) * (t.dim() - 1))  # noqa: E731
     fields = ("params", "momentum", "d_bias", "b_bias")
-    wide = with_blocks(state, **{f: [copies(b) for b in blocks(state, f)] for f in fields})
+    wide = with_blocks(state, **{f: [tile(b) for b in blocks(state, f)] for f in fields})
     wide_batches = pytree.tree_map(
-        lambda leaf: leaf.expand(leaf.shape[0], width, *leaf.shape[2:]).contiguous(), batches)
+        lambda leaf: leaf.repeat(1, copies, *(1,) * (leaf.dim() - 2)), batches)
     out, losses = local_phase_stats(wide, task, wide_batches, cfg,
-                                    steps_k=None if steps_k is None else np.repeat(steps_k, width))
-    out = with_blocks(out, **{f: [b[:1].clone() for b in blocks(out, f)] for f in fields})
-    return out, losses[:, :1]
+                                    steps_k=None if steps_k is None else np.tile(steps_k, copies))
+    out = with_blocks(out, **{f: [b[:p].clone() for b in blocks(out, f)] for f in fields})
+    return out, losses[:, :p]
+
+
+def consensus_phase_hier_sharded(
+    state: P2PState, cfg: P2PConfig, ops: SparseRoundOps, *, group, mode: str, row0: int,
+) -> P2PState:
+    """``consensus_phase`` of a rank of the hierarchical runtime over
+    several ranks (the reference's ``consensus_phase_hier`` inside its
+    shard_map block): every per-peer tensor of ``state`` is the rank's
+    (p, ...) block, rows ``row0`` .. ``row0 + p - 1`` of the fleet.
+
+    "bridge": ``ops`` are the round's operands of all K peers; each step
+    all-gathers each parameter block into the (K, N) stack and launches the
+    vmap runtime's step on it with the block's rows as the row range, so
+    every row is the vmap runtime's bit for bit (push-sum all-gathers the
+    (K,) mass once a step).  "segment": ``ops`` are the block's (p,) /
+    (p, D) rows of the round; each step ring-gathers the block's (p, D, N)
+    neighbor slots (``consensus.ring_gather_slots``) and launches the slot
+    form of ``segment_mix`` (push-sum ring-gathers the (p, D) sender masses
+    once a step): no (K, ...) tensor, slot-ordered sums.  d comes from the
+    kernels, 0 for a peer whose raw beta row is 0.
+    """
+    if cfg.consensus_steps == 0:
+        return state._replace(round_idx=state.round_idx + 1)
+    proto = protocols_lib.get_protocol(cfg.protocol)
+    if mode == "bridge":
+        def view(x):
+            return group.all_gather(x).reshape(-1, *x.shape[1:])
+    elif mode == "segment":
+        def view(x):
+            return consensus_lib.ring_gather_slots(x, ops.nbr_idx, group)
+    else:
+        raise ValueError(f"unknown mix_mode {mode!r}; 'bridge' or 'segment'")
+    t = cfg.local_steps
+    return _consensus_steps(
+        state, cfg,
+        lambda ps, x, _i: proto.mix_hier_leaf(ps, x, view(x), ops, row0, t, mode=mode),
+        begin=lambda ps: proto.mix_hier_begin(ps, group=group, mode=mode, nbr_idx=ops.nbr_idx))
+
+
+def _make_hier_sharded_round_fn(task: task_lib.TrainTask, cfg: P2PConfig, group,
+                                data_sizes: np.ndarray | None, peers_per_device: int,
+                                mix_mode: str, local_width: int | None):
+    """``make_sharded_round_fn`` with a block of p = ``peers_per_device``
+    peers a rank (the reference's ``_make_hier_round_step``)."""
+    features_lib.check_config(cfg, peers_per_device=peers_per_device)
+    mode = resolve_mix_mode(mix_mode, cfg.num_peers)
+    check_hierarchical_layout(cfg.num_peers, peers_per_device, group.size)
+    p, k = peers_per_device, cfg.num_peers
+    row0 = group.rank * p
+    ops_s = schedule_operands(cfg, data_sizes, device=group.device)
+    period = ops_s.self_w.shape[0]
+    if mode == "segment":  # the block's rows of every round: (R, p) / (R, p, D)
+        ops_s = SparseRoundOps(*(t[:, row0:row0 + p].contiguous() for t in ops_s))
+    steps_k = steps_budget(cfg)
+    my_steps = None if steps_k is None else steps_k[row0:row0 + p]
+    width = p if local_width is None else local_width
+
+    def step(state: P2PState, batches):
+        ops = select_round(ops_s, state.round_idx % period)
+        after_local, losses = _local_phase_at_width(state, task, batches, cfg, width, my_steps)
+        # (ranks, T, p) -> the vmap layout (T, K), peers block-major
+        losses = group.all_gather(losses).permute(1, 0, 2).reshape(-1, k)
+        after_cons = consensus_phase_hier_sharded(after_local, cfg, ops, group=group, mode=mode,
+                                                  row0=row0)
+        return after_local, after_cons, losses.mean(dim=1)
+
+    return step
 
 
 def make_sharded_round_fn(
@@ -1402,7 +1510,9 @@ def make_sharded_round_fn(
     group,
     data_sizes: np.ndarray | None = None,
     *,
-    local_width: int = 1,
+    peers_per_device: int = 1,
+    mix_mode: str = "auto",
+    local_width: int | None = None,
 ) -> Callable[[P2PState, tuple], tuple[P2PState, P2PState, torch.Tensor]]:
     """A rank's round in the sharded runtime, one process per peer (the
     reference's ``make_sharded_round_fn`` with one peer a device): the same
@@ -1418,12 +1528,26 @@ def make_sharded_round_fn(
     adaptive schedule, whose matching every rank computes alike from the
     all-gathered losses and the shared threefry key) and the profile's step
     budgets are built once, here.  ``local_width``: the local phase runs on
-    that many copies of the rank's row (``_local_phase_at_width``), 1 (its
-    own row) by default.  A parity check on a card passes K: cuBLAS picks
-    the 2NN's GEMM by its batch count, so only at the vmap runtime's width
-    are a card's rows the vmap runtime's bit for bit (on the CPU one row
-    already gives them).
+    that many rows, copies of the rank's block (``_local_phase_at_width``),
+    its own rows by default.  A parity check on a card passes K: cuBLAS
+    picks the 2NN's GEMM by its batch count, so only at the vmap runtime's
+    width are a card's rows the vmap runtime's bit for bit (on the CPU the
+    rank's own rows already give them).
+
+    ``peers_per_device`` = p > 1: the hierarchical runtime over K / p ranks
+    (``group.size`` must be K / p), a block of p peers a rank, its state
+    ``shard_state(state, rank, p)`` and its batches (T, p, ...); ``mix_mode``
+    "bridge", "segment" or "auto" (bridge iff K <= 64), see
+    ``consensus_phase_hier_sharded``.  The schedule's (R, K, D) operands are
+    uploaded once (a segment rank keeps its block's rows); compression,
+    adaptive selection, async rounds and registry tasks are refused
+    (``features.check_config``), as in the reference.
     """
+    if peers_per_device != 1:
+        return _make_hier_sharded_round_fn(task, cfg, group, data_sizes, peers_per_device,
+                                           mix_mode, local_width)
+    if local_width is None:
+        local_width = 1
     k = cfg.num_peers
     if group.size != k:
         raise ValueError(f"the sharded runtime runs one peer a rank: num_peers={k} needs "
@@ -1461,13 +1585,13 @@ def make_sharded_round_fn(
 
 class PodScanDriver:
     """``make_scan_driver(..., group=)``: C rounds a call of a rank's sharded
-    round (``make_sharded_round_fn``), driven eagerly: a rank's exchange
-    waits on a host barrier between kernel launches, which a CUDA graph
-    cannot hold, and the local phase alone is too short to gain from one.
-    The bits are the python loop's.  ``drive(state, batches) ->
-    (after_local, final_state, losses (C, T))``; ``batches`` a
-    ``data.pipeline.ChunkBatches`` of the rank's rows ((C, T, 1, B) indices)
-    or a tree of (C, T, 1, ...) tensors."""
+    round (``make_sharded_round_fn``, one peer or a block of p peers a
+    rank), driven eagerly: a rank's exchange waits on a host barrier between
+    kernel launches, which a CUDA graph cannot hold, and the local phase
+    alone is too short to gain from one.  The bits are the python loop's.
+    ``drive(state, batches) -> (after_local, final_state, losses (C, T))``;
+    ``batches`` a ``data.pipeline.ChunkBatches`` of the rank's rows ((C, T,
+    p, B) indices) or a tree of (C, T, p, ...) tensors."""
 
     capture_seconds = 0.0  # nothing is captured
 
@@ -1707,11 +1831,14 @@ def make_scan_driver(
     once, here.  The chunk length C is read from the batches (a
     ``ChunkBatches`` or a tree of (C, T, K, ...) tensors); one capture
     serves every C.  With ``group`` (a rank's ``PeerGroup``) it drives the
-    rank's sharded round (``PodScanDriver`` of ``make_sharded_round_fn``) on
-    the group's device.
+    rank's sharded round (``PodScanDriver`` of ``make_sharded_round_fn``,
+    with ``peers_per_device`` peers a rank: 1 by default, p > 1 the
+    hierarchical runtime over K / p ranks) on the group's device.
     """
     if group is not None:
-        return PodScanDriver(make_sharded_round_fn(task, cfg, group, data_sizes))
+        return PodScanDriver(make_sharded_round_fn(
+            task, cfg, group, data_sizes, peers_per_device=peers_per_device or 1,
+            mix_mode=mix_mode))
     device = resolve_device(device)
     if peers_per_device is not None and peers_per_device > 1:
         step = _hier_round_step(task, cfg, peers_per_device, mix_mode)

@@ -9,7 +9,13 @@ the world ``size`` K and its ``device``, with
   returns the (K, ...) stack holding this rank's row, the rows it received,
   and zeros where it hears from no one;
 - ``all_gather(t)`` -> (K, ...) in rank order, ``all_reduce(t)`` (the sum in
-  rank order, the same bits on every rank) and ``barrier()``.
+  rank order, the same bits on every rank) and ``barrier()``;
+- ``ring_shift(t)``: the reference's ``ppermute`` around the ring, which the
+  hierarchical runtime's ring gather streams blocks with: every rank sends
+  its tensor to rank - 1 and receives rank + 1's (mod the size).
+
+A rank of the hierarchical runtime holds a block of p peers, so ``size`` is
+K / p there.
 
 Two transports, chosen by the caller (``spawn_peers`` takes the one of its
 device) and never by a fallback:
@@ -27,7 +33,12 @@ device) and never by a fallback:
   has passed the barrier of the next call, by which point every read of the
   previous use of that buffer has completed (each rank synchronizes its
   stream before that barrier).  ``all_gather`` is the same copy to every
-  rank.  Rows never leave the device.
+  rank.  A ring shift hears from one rank only, so it has inboxes of its
+  own, (2, 1, ring slot) bytes a rank and double-buffered the same way:
+  the slot holds a whole block of p rows (408 MB at K = 4096 over 8 ranks),
+  which the (2, K / p, slot) all-gather inbox would hold K / p times over.
+  Each inbox is sized by what goes through it (``spawn_peers``'
+  ``inbox_bytes`` and ``ring_bytes``).  Rows never leave the device.
 
 ``spawn_peers(fn, K, device, ...)`` starts the K ranks (``spawn``), gives each
 a ``PeerGroup`` and returns what each rank's ``fn(group, *args)`` returned.
@@ -42,6 +53,7 @@ consensus kernels first, so the ranks load them and none runs ``nvcc``.
 from __future__ import annotations
 
 import datetime
+import gc
 import os
 import pickle
 import shutil
@@ -69,7 +81,8 @@ class PeerGroup:
     """A rank of a run of K processes, one peer each (see the module)."""
 
     def __init__(self, rank: int, size: int, device: torch.device | str, backend: str,
-                 inboxes: Sequence[torch.Tensor] | None = None):
+                 inboxes: Sequence[torch.Tensor] | None = None,
+                 ring_inboxes: Sequence[torch.Tensor] | None = None):
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
         self.rank, self.size = int(rank), int(size)
@@ -83,12 +96,15 @@ class PeerGroup:
                 raise ValueError("the cuda_ipc transport carries CUDA tensors")
             if inboxes is None or len(inboxes) != self.size:
                 raise ValueError("cuda_ipc needs every rank's inbox")
-        self.inboxes = inboxes
+        self.inboxes, self.ring_inboxes = inboxes, ring_inboxes
         self._calls = 0  # cuda_ipc: the buffer of the next call is _calls % 2
-        # exchange() and all_gather() calls, their host seconds (copies, syncs
-        # and barriers) and the bytes this rank sent in exchanges
+        self._shifts = 0  # the same for the ring inboxes
+        # exchange(), all_gather() and ring_shift() calls, their host seconds
+        # (copies, syncs and barriers), the bytes this rank sent in exchanges
+        # and in shifts
         self.stats = {"exchanges": 0, "exchange_seconds": 0.0, "bytes_sent": 0,
-                      "gathers": 0, "gather_seconds": 0.0}
+                      "gathers": 0, "gather_seconds": 0.0, "shifts": 0, "shift_seconds": 0.0,
+                      "shift_bytes": 0}
 
     # -- the cuda_ipc transport ---------------------------------------------
 
@@ -166,6 +182,40 @@ class PeerGroup:
         """The sum over ranks, in rank order (the same bits on every rank)."""
         return self.all_gather(t).sum(dim=0)
 
+    def ring_shift(self, t: torch.Tensor) -> torch.Tensor:
+        """Send ``t`` to rank - 1 and return rank + 1's tensor of the same
+        shape and type (mod the size; the reference's ``ppermute`` with
+        ``perm = [(i, i - 1)]``).  A group of one rank returns a copy."""
+        start = time.perf_counter()
+        n = self.size
+        out = torch.empty_like(t)
+        if n == 1:
+            out.copy_(t)
+        elif self.backend == "cuda_ipc":
+            if self.ring_inboxes is None:
+                raise ValueError("this group has no ring inboxes (spawn_peers(ring_bytes=...))")
+            buf = self._shifts % 2
+            self._shifts += 1
+            raw = _as_bytes(t)
+            slot = self.ring_inboxes[0].shape[-1]
+            if raw.numel() > slot:
+                raise ValueError(f"a {raw.numel()}-byte block does not fit the {slot}-byte ring "
+                                 "inboxes (spawn_peers(ring_bytes=...))")
+            self.ring_inboxes[(self.rank - 1) % n][buf, 0, :raw.numel()].copy_(raw)
+            torch.cuda.current_stream(self.device).synchronize()
+            dist.barrier()
+            out.view(-1).view(torch.uint8).copy_(
+                self.ring_inboxes[self.rank][buf, 0, :raw.numel()])
+        else:
+            ops = [dist.P2POp(dist.isend, t.contiguous(), (self.rank - 1) % n),
+                   dist.P2POp(dist.irecv, out, (self.rank + 1) % n)]
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        self.stats["shifts"] += 1
+        self.stats["shift_seconds"] += time.perf_counter() - start
+        self.stats["shift_bytes"] += t.numel() * t.element_size() if n > 1 else 0
+        return out
+
     def barrier(self) -> None:
         """Wait until every rank (and, on a card, its stream) got here."""
         if self.device.type == "cuda":
@@ -191,10 +241,16 @@ def check_rank(group: PeerGroup, mode: str):
     group.barrier()
 
 
-def _rank_main(rank: int, fn: Callable, args: tuple, size: int, device: str, backend: str,
-               inboxes, rundir: str, timeout: float) -> None:
+def _rank_main(rank: int, fn: Callable, shared: list, size: int, device: str, backend: str,
+               rundir: str, timeout: float) -> None:
     """A spawned rank: per-process settings, the process group, ``fn``, its
-    result saved for the parent."""
+    result saved for the parent.  ``shared`` = [args, inboxes, ring
+    inboxes], emptied here: a spawned process ends without freeing what it
+    still holds, and a CUDA tensor it opened by IPC stays allocated in its
+    launcher until the rank frees it, so the rank drops every reference
+    before it returns."""
+    args, inboxes, ring_inboxes = shared
+    shared.clear()
     torch.set_num_threads(1)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -203,10 +259,17 @@ def _rank_main(rank: int, fn: Callable, args: tuple, size: int, device: str, bac
         torch.cuda.set_device(dev)
     dist.init_process_group("gloo", init_method=f"file://{rundir}/store", rank=rank,
                             world_size=size, timeout=datetime.timedelta(seconds=timeout))
+    group = PeerGroup(rank, size, dev, backend, inboxes, ring_inboxes)
+    del inboxes, ring_inboxes
     try:
-        out = fn(PeerGroup(rank, size, dev, backend, inboxes), *args)
+        out = fn(group, *args)
         torch.save(_to_cpu(out), os.path.join(rundir, f"rank{rank}.pt"))
+        del out
     finally:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        del group, args
+        gc.collect()  # the IPC tensors freed: the launcher's ipc_collect takes them back
         dist.destroy_process_group()
 
 
@@ -262,9 +325,10 @@ def _join(ctx, timeout: float) -> bool:
 
 def _build_kernels() -> None:
     """Build (or load) the consensus kernels once, before the ranks start."""
-    from repro_torch.kernels.consensus_mix import dequant, ops
+    from repro_torch.kernels.consensus_mix import dequant, ops, segment
     ops.load_kernel()
     dequant.load_kernel()
+    segment.load_kernel()
 
 
 def spawn_peers(
@@ -274,6 +338,7 @@ def spawn_peers(
     *,
     args: tuple = (),
     inbox_bytes: int = 0,
+    ring_bytes: int = 0,
     timeout: float = TIMEOUT_SECONDS,
     deadline: float | None = None,
 ) -> list:
@@ -284,7 +349,9 @@ def spawn_peers(
     ``args`` picklable (CPU tensors travel in shared memory, CUDA tensors by
     CUDA IPC: ``shared_copy``).  ``device`` "cpu" takes the gloo transport,
     a CUDA device the ``cuda_ipc`` one, whose inbox slots hold
-    ``inbox_bytes`` bytes (the largest row a rank exchanges or gathers).
+    ``inbox_bytes`` bytes (the largest row a rank exchanges or gathers) and
+    whose ring inboxes, where ``ring_bytes`` > 0, that many (the largest
+    block a rank ring-shifts).
     ``timeout`` is every process group's, and the seconds the parent waits
     for the other ranks once one has exited; ``deadline`` (seconds,
     optional) bounds the whole run.  A rank that raises makes this raise
@@ -297,20 +364,22 @@ def spawn_peers(
     if num_peers < 1:
         raise ValueError(f"need at least one peer, got {num_peers}")
     backend = "cuda_ipc" if device.type == "cuda" else "gloo"
-    inboxes = None
+    inboxes = ring_inboxes = None
     if backend == "cuda_ipc":
         _build_kernels()
         if inbox_bytes < 1:
             raise ValueError("cuda_ipc ranks need inbox_bytes >= 1 (their largest row)")
         slot = -(-int(inbox_bytes) // 16) * 16
         inboxes = _ipc_buffers(num_peers, (2, num_peers, slot), device)
+        if ring_bytes > 0:
+            ring_inboxes = _ipc_buffers(num_peers, (2, 1, -(-int(ring_bytes) // 16) * 16), device)
     rundir = tempfile.mkdtemp(prefix="repro-peers-")
     saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved or "expandable_segments:True"
     try:
         ctx = mp.start_processes(
-            _rank_main, args=(fn, tuple(args), num_peers, str(device), backend, inboxes, rundir,
-                              float(timeout)),
+            _rank_main, args=(fn, [tuple(args), inboxes, ring_inboxes], num_peers, str(device),
+                              backend, rundir, float(timeout)),
             nprocs=num_peers, join=False, start_method="spawn")
     finally:
         if saved is None:
@@ -340,4 +409,6 @@ def spawn_peers(
             if p.is_alive():
                 p.kill()
         shutil.rmtree(rundir, ignore_errors=True)
-        del inboxes
+        del inboxes, ring_inboxes
+        if device.type == "cuda":  # the blocks the ranks opened by CUDA IPC and freed
+            torch.cuda.ipc_collect()

@@ -38,6 +38,16 @@ row and its in-neighbors' rows, with the rank's row as the launch's row
 range, so the row is the stacked step's bit for bit.  A protocol that
 overrides only the whole-block ``mix_sharded`` (the reference's interface
 before the begin / leaf split) runs through it instead.
+
+The hierarchical runtime over several ranks (a block of p peers a rank,
+``core.p2p.make_sharded_round_fn`` with ``peers_per_device`` = p) calls
+``mix_hier_begin`` once a consensus step and ``mix_hier_leaf`` for each
+parameter block, in the reference's two modes: "bridge" launches the stacked
+step's ``consensus_mix`` on the all-gathered (K, N) stack with the rank's
+rows as the row range (push-sum's (K,) mass all-gathered once a step), so
+every row is the vmap runtime's bit for bit; "segment" launches the slot
+form of ``segment_mix`` on the block and its ring-gathered (p, D, N)
+neighbor slots (push-sum's (p, D) sender masses ring-gathered once a step).
 """
 from __future__ import annotations
 
@@ -47,6 +57,7 @@ import numpy as np
 import torch
 
 from repro_torch.compression import FlatPayload
+from repro_torch.core import consensus as consensus_lib
 from repro_torch.core import graph as graph_lib
 from repro_torch.kernels.consensus_mix import dequant as cm_dequant
 from repro_torch.kernels.consensus_mix import ops as cm_ops
@@ -171,6 +182,15 @@ class PushSumState(NamedTuple):
     mass: torch.Tensor
 
 
+class SlotMass(NamedTuple):
+    """What a rank's push-sum step reads in the hierarchical "segment" mode:
+    its block's (p,) masses and each neighbor slot's sender mass (p, D),
+    ring-gathered as the parameter slots are."""
+
+    mass: torch.Tensor
+    slot_mass: torch.Tensor
+
+
 class ConsensusProtocol:
     """The interface the port's runtime calls on a consensus protocol.
 
@@ -289,6 +309,27 @@ class ConsensusProtocol:
         state, mixed (1, N), d (1, N))."""
         raise NotImplementedError
 
+    def mix_hier_begin(self, proto_state, *, group, mode: str, nbr_idx: torch.Tensor):
+        """A rank's per-step setup in the hierarchical runtime over several
+        ranks, once a consensus step: the protocol state its leaf mixes read
+        (push-sum: the (K,) mass all-gathered in "bridge" mode, the block's
+        mass and its slots' sender masses, ring-gathered over the block's
+        (p, D) global ``nbr_idx``, in "segment" mode)."""
+        raise NotImplementedError(
+            f"protocol {self.name!r} does not implement the hierarchical "
+            "(peers_per_device > 1) mix")
+
+    def mix_hier_leaf(self, step_state, x_block: torch.Tensor, x_view: torch.Tensor,
+                      ops: SparseRoundOps, row0: int, local_steps: int, *, mode: str):
+        """One block of a rank's hierarchical step.  "bridge": ``x_view`` is
+        the all-gathered (K, N) stack and ``ops`` the round's operands of
+        every peer; the stacked step's launch on rows row0 .. row0 + p - 1.
+        "segment": ``x_view`` is the block's (p, D, N) ring-gathered slots
+        and ``ops`` the block's rows of the round; the slot form of
+        ``segment_mix``.  Returns (the rank's protocol state, mixed (p, N),
+        d (p, N))."""
+        raise NotImplementedError
+
     def mix_sharded(self, proto_state, x_block: torch.Tensor, x_full: torch.Tensor,
                     ops: SparseRoundOps, *, group, lanes):
         """The whole-block form of a sharded step (the reference's interface
@@ -399,6 +440,26 @@ class GossipProtocol(ConsensusProtocol):
         return proto_state, mixed, d_bias
 
 
+    def mix_hier_begin(self, proto_state, *, group, mode: str, nbr_idx: torch.Tensor):
+        """Gossip carries no state: ``proto_state`` as it is."""
+        return proto_state
+
+    def mix_hier_leaf(
+        self, step_state, x_block: torch.Tensor, x_view: torch.Tensor, ops: SparseRoundOps,
+        row0: int, local_steps: int, *, mode: str,
+    ) -> tuple[Any, torch.Tensor, torch.Tensor]:
+        """"bridge": ``mix``'s ``consensus_mix`` launch on the (K, N) stack,
+        the block's rows only; "segment": the slot form of ``segment_mix``."""
+        if mode == "bridge":
+            mixed, d_bias = cm_ops.consensus_mix_stacked(x_view, ops, local_steps,
+                                                         rows=(row0, x_block.shape[0]))
+        elif mode == "segment":
+            mixed, d_bias = cm_segment.segment_mix_slots(x_block, x_view, ops, local_steps)
+        else:
+            raise ValueError(f"unknown mix_mode {mode!r}; 'bridge' or 'segment'")
+        return step_state, mixed, d_bias
+
+
 class PushSumProtocol(GossipProtocol):
     """Directed push-sum: column-stochastic weights and a mass correction.
 
@@ -505,6 +566,35 @@ class PushSumProtocol(GossipProtocol):
         """``mix_stale``'s mass-mode snapshot launch, row ``row`` only."""
         mixed, d_bias, mass = cm_ops.consensus_mix_push_sum_snapshot_stacked(
             x_full, pub_full, proto_state.mass, ops, local_steps, rows=(row, 1))
+        return PushSumState(mass=mass), mixed, d_bias
+
+
+    def mix_hier_begin(self, proto_state: PushSumState, *, group, mode: str,
+                       nbr_idx: torch.Tensor) -> PushSumState | SlotMass:
+        """The mass, once a step: "bridge" all-gathers the (K,) mass (the
+        stacked matvec's operand); "segment" ring-gathers the (p, D) sender
+        masses with the parameter slots' indices."""
+        mass = proto_state.mass
+        if mode == "bridge":
+            return PushSumState(mass=group.all_gather(mass).reshape(-1))
+        return SlotMass(mass, consensus_lib.ring_gather_slots(mass, nbr_idx, group))
+
+    def mix_hier_leaf(
+        self, step_state, x_block: torch.Tensor, x_view: torch.Tensor, ops: SparseRoundOps,
+        row0: int, local_steps: int, *, mode: str,
+    ) -> tuple[PushSumState, torch.Tensor, torch.Tensor]:
+        """"bridge": ``mix``'s mass-mode launch on the (K, N) stack and the
+        (K,) mass, the block's rows only (the reference's full matvec, then
+        the slice); "segment": the slot form's mass mode.  Returns (the
+        block's y' (p,), mixed, d)."""
+        if mode == "bridge":
+            mixed, d_bias, mass = cm_ops.consensus_mix_push_sum_stacked(
+                x_view, step_state.mass, ops, local_steps, rows=(row0, x_block.shape[0]))
+        elif mode == "segment":
+            mixed, d_bias, mass = cm_segment.segment_mix_push_sum_slots(
+                x_block, x_view, step_state.mass, step_state.slot_mass, ops, local_steps)
+        else:
+            raise ValueError(f"unknown mix_mode {mode!r}; 'bridge' or 'segment'")
         return PushSumState(mass=mass), mixed, d_bias
 
 

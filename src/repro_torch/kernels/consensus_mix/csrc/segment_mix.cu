@@ -84,6 +84,20 @@
 // consensus_mix.cu).  y' is written to new_mass once a peer: by the tile's
 // block 0, by the gather's item of the peer's run at span 0.
 //
+// Slot form (`segment_mix_slots_f32` and `segment_mix_slots_push_sum_f32`,
+// the hierarchical runtime's "segment" mix in a process that holds a block
+// of p peers; the template switch kSlots): the process has its (p, N) block
+// and its peers' (p, D, N) neighbor rows gathered around the ring of
+// processes, not the (K, N) buffer, so slot s of peer k is read from row
+// k x D + s of the slot buffer rather than from row nbr_idx[k, s] of x, and
+// in the mass mode the sender's mass from a (p, D) table gathered the same
+// way.  The operands are the block's (p,) and (p, D) rows of one round.  It
+// takes the gather route (the column tile reads senders' columns of x) with
+// that route's arithmetic, so its rows equal the one-process call's gather
+// rows bit for bit.  float32 only.  It must read (D + 1) p N floats and
+// write 2 p N: at K = 4096 on a ring over 8 processes (p = 512, D = 2) one
+// call moves 2.04 GB, 0.61 ms at 3.35 TB/s.
+//
 // bf16 storage mode (`segment_mix_bf16` and `segment_mix_push_sum_bf16`, on
 // both routes; the storage type TS): x, mixed and d are bf16 in device
 // memory, each value widened to float32 as it is read, every sum float32,
@@ -130,16 +144,19 @@ int route(int64_t num_peers, int64_t d_slots) {
 }
 
 // Slot `from` of the round's slot table to slot `to` of the staged rows;
-// kMass: its weight scaled by its sender's mass.
-template <bool kMass>
+// kMass: its weight scaled by its sender's mass.  The staged index is the
+// row the slot reads: the sender's row of x, or (kSlots) the slot's own row
+// `from` of the gathered slot buffer, whose sender masses are slot_mass.
+template <bool kMass, bool kSlots>
 __device__ __forceinline__ void stage_slot(const int32_t* __restrict__ nbr_idx,
                                            const float* __restrict__ nbr_w,
                                            const float* __restrict__ beta,
-                                           const float* __restrict__ mass, int64_t from, int to,
-                                           int32_t* s_idx, float* s_w, float* s_b) {
-  const int32_t j = nbr_idx[from];
+                                           const float* __restrict__ mass,
+                                           const float* __restrict__ slot_mass, int64_t from,
+                                           int to, int32_t* s_idx, float* s_w, float* s_b) {
+  const int32_t j = kSlots ? static_cast<int32_t>(from) : nbr_idx[from];
   s_idx[to] = j;
-  s_w[to] = kMass ? nbr_w[from] * mass[j] : nbr_w[from];
+  s_w[to] = kMass ? nbr_w[from] * (kSlots ? slot_mass[from] : mass[j]) : nbr_w[from];
   s_b[to] = beta[from];
 }
 
@@ -181,7 +198,9 @@ __device__ __forceinline__ void add_slots(const TS* __restrict__ x, int64_t n_ve
 }
 
 // T is float (scalar path) or float4 (vector path); n_vec counts T elements
-// per row, and rows are n_vec T elements apart.  The operand pointers point
+// per row, and rows are n_vec T elements apart.  The slots read the rows of
+// `rows`: x itself, or (kSlots, the slot form) a (K, D, N) buffer whose row
+// k x D + s is peer k's slot s, with slot_mass (K, D) the senders' masses.  The operand pointers point
 // at the round's (K,) and (K, D) slices; mass and new_mass are (K,), used in
 // the mass mode only.  The block's threads form kThreads / lanes groups of
 // `lanes` threads.  Item i covers groups x run consecutive peers from
@@ -189,9 +208,10 @@ __device__ __forceinline__ void add_slots(const TS* __restrict__ x, int64_t n_ve
 // elements; group g walks the run of peers g x run, ..., g x run + run - 1 of
 // the item in turn.  chunk >= d_slots: every slot row of the item is staged
 // at its start; else each group's peer is staged chunk slots at a time.
-template <typename T, bool kMass, typename TS = float>
+template <typename T, bool kMass, typename TS = float, bool kSlots = false>
 __global__ void __launch_bounds__(kThreads)
-segment_gather_kernel(const TS* __restrict__ x, int64_t n_vec, int k_peers,
+segment_gather_kernel(const TS* __restrict__ x, const TS* __restrict__ rows,
+                      const float* __restrict__ slot_mass, int64_t n_vec, int k_peers,
                       const float* __restrict__ self_w, const int32_t* __restrict__ nbr_idx,
                       const float* __restrict__ nbr_w, const float* __restrict__ beta,
                       int d_slots, float local_steps, const float* __restrict__ mass,
@@ -217,14 +237,16 @@ segment_gather_kernel(const TS* __restrict__ x, int64_t n_vec, int k_peers,
     __syncthreads();  // every thread is done with the previous item's rows
     if (staged_once) {
       for (int s = threadIdx.x; s < np * d_slots; s += kThreads)
-        stage_slot<kMass>(nbr_idx, nbr_w, beta, mass, k0 * d_slots + s, s, s_idx, s_w, s_b);
+        stage_slot<kMass, kSlots>(nbr_idx, nbr_w, beta, mass, slot_mass, k0 * d_slots + s, s,
+                                  s_idx, s_w, s_b);
     }
     for (int p = warp; p < np; p += kWarps) {  // the guard and y' from the raw slot row
       const int64_t k = k0 + p, row = k * d_slots;
       float sum = 0.0f, ysum = 0.0f;
       for (int s = lane; s < d_slots; s += 32) {
         sum += beta[row + s];
-        if (kMass) ysum += __fmul_rn(nbr_w[row + s], mass[nbr_idx[row + s]]);
+        if (kMass)
+          ysum += __fmul_rn(nbr_w[row + s], kSlots ? slot_mass[row + s] : mass[nbr_idx[row + s]]);
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) {
@@ -256,7 +278,8 @@ segment_gather_kernel(const TS* __restrict__ x, int64_t n_vec, int k_peers,
       if (staged_once) {
         if (live) {
           const int at = p * d_slots;
-          add_slots<T>(x, n_vec, e, s_idx + at, s_w + at, s_b + at, d_slots, acc_mix, acc_beta);
+          add_slots<T>(rows, n_vec, e, s_idx + at, s_w + at, s_b + at, d_slots, acc_mix,
+                       acc_beta);
         }
       } else {
         for (int c0 = 0; c0 < d_slots; c0 += chunk) {
@@ -265,13 +288,14 @@ segment_gather_kernel(const TS* __restrict__ x, int64_t n_vec, int k_peers,
           for (int q = threadIdx.x; q < groups * cn; q += kThreads) {
             const int gg = q / cn, s = q - gg * cn, pp = gg * run + i;
             if (pp < np)
-              stage_slot<kMass>(nbr_idx, nbr_w, beta, mass, (k0 + pp) * d_slots + c0 + s,
-                                gg * chunk + s, s_idx, s_w, s_b);
+              stage_slot<kMass, kSlots>(nbr_idx, nbr_w, beta, mass, slot_mass,
+                                        (k0 + pp) * d_slots + c0 + s, gg * chunk + s, s_idx,
+                                        s_w, s_b);
           }
           __syncthreads();
           if (live)
-            add_slots<T>(x, n_vec, e, s_idx + g * chunk, s_w + g * chunk, s_b + g * chunk, cn,
-                         acc_mix, acc_beta);
+            add_slots<T>(rows, n_vec, e, s_idx + g * chunk, s_w + g * chunk, s_b + g * chunk,
+                         cn, acc_mix, acc_beta);
         }
       }
       if (!live) continue;
@@ -289,12 +313,13 @@ segment_gather_kernel(const TS* __restrict__ x, int64_t n_vec, int k_peers,
 // slots hold, at most kRunPeers, halved while that leaves fewer than two
 // items a block; past kChunk / groups slots a peer, its slots are staged
 // in chunks of that many, one peer a group.
-template <typename T, bool kMass, typename TS>
+template <typename T, bool kMass, typename TS, bool kSlots = false>
 cudaError_t launch_gather(cudaStream_t s, const TS* x, int64_t num_peers, int64_t n_vec,
                           const float* self_w, const int32_t* nbr_idx, const float* nbr_w,
                           const float* beta, int64_t d_slots, float local_steps,
-                          const float* mass, TS* mixed, TS* d_out, float* new_mass) {
-  auto kernel = segment_gather_kernel<T, kMass, TS>;
+                          const float* mass, TS* mixed, TS* d_out, float* new_mass,
+                          const TS* slots = nullptr, const float* slot_mass = nullptr) {
+  auto kernel = segment_gather_kernel<T, kMass, TS, kSlots>;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -322,7 +347,8 @@ cudaError_t launch_gather(cudaStream_t s, const TS* x, int64_t num_peers, int64_
   const int64_t n_runs = runs(run), n_items = n_runs * n_spans;
   const int chunk = staged_once ? static_cast<int>(d_slots) : static_cast<int>(kChunk / groups);
   const int grid = static_cast<int>(blocks < n_items ? blocks : n_items);
-  kernel<<<grid, kThreads, 0, s>>>(x, n_vec, static_cast<int>(num_peers), self_w, nbr_idx,
+  kernel<<<grid, kThreads, 0, s>>>(x, kSlots ? slots : x, slot_mass, n_vec,
+                                   static_cast<int>(num_peers), self_w, nbr_idx,
                                    nbr_w, beta, static_cast<int>(d_slots), local_steps, mass,
                                    mixed, d_out, new_mass, lanes, static_cast<int>(run), chunk,
                                    n_runs, n_items);
@@ -372,6 +398,33 @@ int launch_segment(const TS* x, int64_t num_peers, int64_t n,
                                                  beta, d_slots, local_steps, mass, mixed, d_out,
                                                  new_mass);
   }
+  return static_cast<int>(err);
+}
+
+// The slot form: the gather route on a (K, D, N) slot buffer (see
+// segment_mix_slots_f32).  The column tile reads each sender's column of x,
+// which a process holding only its own block and its gathered slots does
+// not have, so the slot form takes the gather route at every shape.
+template <bool kMass>
+int launch_slots(const float* x, const float* slots, int64_t num_peers, int64_t n,
+                 const float* self_w, const float* nbr_w, const float* beta, int64_t d_slots,
+                 float local_steps, const float* mass, const float* slot_mass, float* mixed,
+                 float* d_out, float* new_mass, void* stream) {
+  if (num_peers <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
+  // the staged index of a slot is its row of the slot buffer, an int32
+  if (d_slots <= 0 || num_peers > INT32_MAX / d_slots) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec4 = n % 4 == 0 && aligned16(x) && aligned16(slots) && aligned16(mixed) &&
+                    aligned16(d_out);
+  const cudaError_t err =
+      vec4 ? launch_gather<float4, kMass, float, true>(s, x, num_peers, n / 4, self_w, nullptr,
+                                                       nbr_w, beta, d_slots, local_steps, mass,
+                                                       mixed, d_out, new_mass, slots, slot_mass)
+           : launch_gather<float, kMass, float, true>(s, x, num_peers, n, self_w, nullptr, nbr_w,
+                                                      beta, d_slots, local_steps, mass, mixed,
+                                                      d_out, new_mass, slots, slot_mass);
   return static_cast<int>(err);
 }
 
@@ -431,4 +484,36 @@ extern "C" int segment_mix_push_sum_bf16(const __nv_bfloat16* x, int64_t num_pee
                                          __nv_bfloat16* d_out, float* new_mass, void* stream) {
   return launch_segment<true>(x, num_peers, n, self_w, nbr_idx, nbr_w, beta, rounds, round_idx,
                               d_slots, local_steps, mass, mixed, d_out, new_mass, stream);
+}
+
+// The slot form (a process of the hierarchical runtime, holding a block of
+// num_peers peers): x (num_peers, n) is the block, slots (num_peers, d_slots,
+// n) row-major its peers' gathered neighbor rows, slot s of peer k at row
+// k x d_slots + s; self_w (num_peers,), nbr_w and beta (num_peers, d_slots)
+// the block's rows of one round's operands, all float32 on the device.
+// mixed[k] = self_w[k] x[k] + sum_s nbr_w[k, s] slots[k, s] and d as in
+// segment_mix_f32, summed as its gather route sums them (the self term,
+// then the slots in slot order), so a row equals that route's row bit for
+// bit when its slots hold the rows nbr_idx names.  Launches on `stream`
+// and returns the launch's cudaError_t (0 on success).
+extern "C" int segment_mix_slots_f32(const float* x, const float* slots, int64_t num_peers,
+                                     int64_t n, const float* self_w, const float* nbr_w,
+                                     const float* beta, int64_t d_slots, float local_steps,
+                                     float* mixed, float* d_out, void* stream) {
+  return launch_slots<false>(x, slots, num_peers, n, self_w, nbr_w, beta, d_slots, local_steps,
+                             nullptr, nullptr, mixed, d_out, nullptr, stream);
+}
+
+// The slot form's mass mode: mass (num_peers,) the block's masses,
+// slot_mass (num_peers, d_slots) each slot's sender mass, new_mass
+// (num_peers,) receives y'.
+extern "C" int segment_mix_slots_push_sum_f32(const float* x, const float* slots,
+                                              int64_t num_peers, int64_t n, const float* self_w,
+                                              const float* nbr_w, const float* beta,
+                                              int64_t d_slots, float local_steps,
+                                              const float* mass, const float* slot_mass,
+                                              float* mixed, float* d_out, float* new_mass,
+                                              void* stream) {
+  return launch_slots<true>(x, slots, num_peers, n, self_w, nbr_w, beta, d_slots, local_steps,
+                            mass, slot_mass, mixed, d_out, new_mass, stream);
 }

@@ -376,7 +376,12 @@ def segment_mix_stacked_ref(
 def _segment_mix_f32(flat, self_w, nbr_idx, nbr_w, beta, local_steps: int):
     """``segment_mix_stacked_ref``'s (mixed, d) before the cast back: float32."""
     xf = flat.to(torch.float32)
-    gathered = consensus_lib.ring_gather_slots(xf, nbr_idx)
+    return _slots_mix_f32(xf, consensus_lib.ring_gather_slots(xf, nbr_idx), self_w, nbr_w, beta,
+                          local_steps)
+
+
+def _slots_mix_f32(xf, gathered, self_w, nbr_w, beta, local_steps: int):
+    """The slot sums of a float32 block and its (p, D, N) slots: (mixed, d)."""
     mixed = consensus_lib.mix_slots(self_w, nbr_w, xf, gathered)
     nbr_sum = consensus_lib.slot_sum(beta, gathered)
     has_nbrs = beta.sum(dim=1) > 0.0
@@ -401,3 +406,45 @@ def segment_mix_push_sum_stacked_ref(
     self_w_y, nbr_w_y, y_new = push_sum_weights(mass, self_w, nbr_idx, nbr_w)
     num, d = _segment_mix_f32(flat, self_w_y, nbr_idx, nbr_w_y, beta, local_steps)
     return (num / y_new[:, None]).to(flat.dtype), d.to(flat.dtype), y_new
+
+
+def segment_mix_slots_ref(
+    block: torch.Tensor,  # (p, N) float32
+    slots: torch.Tensor,  # (p, D, N) float32: slot s of peer k at [k, s]
+    self_w: torch.Tensor,  # (p,)
+    nbr_w: torch.Tensor,  # (p, D)
+    beta: torch.Tensor,  # (p, D)
+    local_steps: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the ``segment_mix`` kernel's slot form: the sums of
+    ``segment_mix_stacked_ref`` on a block and its gathered slots, the self
+    term, then slots 0 .. D-1, in float32.  On slots that hold the rows
+    ``nbr_idx`` names its rows equal that function's bit for bit.  This is
+    the CPU path of ``segment.segment_mix_slots`` and the oracle its kernel
+    is held to."""
+    return _slots_mix_f32(block.to(torch.float32), slots, self_w, nbr_w, beta, local_steps)
+
+
+def segment_mix_push_sum_slots_ref(
+    block: torch.Tensor,  # (p, N) float32 de-biased parameters
+    slots: torch.Tensor,  # (p, D, N) float32
+    mass: torch.Tensor,  # (p,) the block's masses
+    slot_mass: torch.Tensor,  # (p, D) each slot's sender mass
+    self_w: torch.Tensor,  # (p,)
+    nbr_w: torch.Tensor,  # (p, D)
+    beta: torch.Tensor,  # (p, D)
+    local_steps: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the slot form's mass mode: the weights scaled by the
+    senders' masses (``slot_mass``, the gathered form of ``push_sum_weights``'
+    ``y[nbr_idx]``), y' summed from the self term through the slots, the
+    numerator of ``segment_mix_slots_ref``, divided by y'.  Returns (mixed,
+    d, y')."""
+    self_w_y = self_w.to(torch.float32) * mass.to(torch.float32)
+    nbr_w_y = nbr_w.to(torch.float32) * slot_mass.to(torch.float32)
+    y_new = self_w_y
+    for slot in range(nbr_w_y.shape[1]):
+        y_new = y_new + nbr_w_y[:, slot]
+    num, d = _slots_mix_f32(block.to(torch.float32), slots, self_w_y, nbr_w_y, beta,
+                            local_steps)
+    return num / y_new[:, None], d, y_new

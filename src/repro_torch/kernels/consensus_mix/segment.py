@@ -41,7 +41,21 @@ a ring (D = 2) at the 2NN's width one call must move 9.8 GB (2.9 ms at
 3.35 TB/s) and is bound by bytes; at K = 100 on the complete graph it is
 bound by float32 FMA throughput, as ``consensus_mix`` is.
 
-``launches.count`` counts kernel launches (never plain-version calls).
+``segment_mix_slots`` and ``segment_mix_push_sum_slots`` are the slot
+form, the "segment" mix of a process of the hierarchical runtime over
+several processes (``core.p2p.make_sharded_round_fn`` with
+``peers_per_device`` > 1): the process holds its (p, N) block and the
+(p, D, N) neighbor rows ``core.consensus.ring_gather_slots`` streamed to it,
+not the (K, N) buffer, so the kernel reads slot s of peer k from
+``slots[k, s]`` (and in the mass mode the sender's mass from a (p, D)
+table), on the round's (p,) / (p, D) rows of the block.  It takes the
+gather route with that route's arithmetic, so a row equals the one-process
+call's gather row bit for bit; float32 only (the hierarchical runtime
+refuses the registry's bf16 models).  Its plain version is
+``ref.segment_mix_slots_ref``.
+
+``launches.count`` counts kernel launches (never plain-version calls), the
+slot form's too.
 """
 from __future__ import annotations
 
@@ -91,6 +105,13 @@ def load_kernel() -> build.KernelLibrary:
         fn.argtypes = [ptr, i64, i64, ptr, ptr, ptr, ptr, i64, i64, i64, ctypes.c_float,
                        ptr, ptr, ptr, ptr, ptr]
         fn.restype = ctypes.c_int
+    kl.lib.segment_mix_slots_f32.argtypes = [ptr, ptr, i64, i64, ptr, ptr, ptr, i64,
+                                             ctypes.c_float, ptr, ptr, ptr]
+    kl.lib.segment_mix_slots_f32.restype = ctypes.c_int
+    kl.lib.segment_mix_slots_push_sum_f32.argtypes = [ptr, ptr, i64, i64, ptr, ptr, ptr, i64,
+                                                      ctypes.c_float, ptr, ptr, ptr, ptr, ptr,
+                                                      ptr]
+    kl.lib.segment_mix_slots_push_sum_f32.restype = ctypes.c_int
     kl.lib.segment_mix_route.argtypes = [i64, i64]
     kl.lib.segment_mix_route.restype = i64
     return kl
@@ -217,3 +238,107 @@ def segment_mix_push_sum_stacked(
     """``segment_mix_push_sum_schedule`` over one round's operands."""
     return segment_mix_push_sum_schedule(flat, mass, 0, SparseOperands(*(t[None] for t in ops)),
                                          local_steps)
+
+
+def check_slots(block: torch.Tensor, slots: torch.Tensor, ops: SparseOperands,
+                local_steps: int) -> None:
+    """Validate the slot form's operands: a (p, N) float32 block, its
+    (p, D, N) float32 slots and the block's (p,) / (p, D) float32 weights,
+    contiguous, on one device."""
+    if block.dim() != 2 or block.dtype != torch.float32:
+        raise TypeError(f"the slot form takes a (p, N) float32 block, got "
+                        f"{tuple(block.shape)} {block.dtype}")
+    p, n = block.shape
+    d = ops.nbr_w.shape[-1] if ops.nbr_w.dim() == 2 else -1
+    if tuple(slots.shape) != (p, d, n) or slots.dtype != torch.float32:
+        raise ValueError(f"slots must be ({p}, {d}, {n}) float32, got "
+                         f"{tuple(slots.shape)} {slots.dtype}")
+    want = {"self_w": (p,), "nbr_w": (p, d), "beta": (p, d)}
+    for name, shape in want.items():
+        t = getattr(ops, name)
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be {shape} float32, got {tuple(t.shape)} {t.dtype}")
+    if any(t.device != block.device for t in (slots, ops.self_w, ops.nbr_w, ops.beta)):
+        raise ValueError(f"the slot form's operands must be on {block.device}")
+    if not all(t.is_contiguous() for t in (block, slots, ops.self_w, ops.nbr_w, ops.beta)):
+        raise ValueError("segment_mix needs contiguous tensors")
+    if not 1 <= d or p * d > MAX_SLOTS:
+        raise ValueError(f"the slot form takes 1 <= D and p x D <= {MAX_SLOTS}, got p={p} D={d}")
+    if int(local_steps) < 1:
+        raise ValueError(f"local_steps must be >= 1, got {local_steps}")
+
+
+def launch_slots(block: torch.Tensor, slots: torch.Tensor, ops: SparseOperands,
+                 local_steps: int, mixed: torch.Tensor, d_bias: torch.Tensor,
+                 mass: torch.Tensor | None = None, slot_mass: torch.Tensor | None = None,
+                 new_mass: torch.Tensor | None = None) -> None:
+    """Launch the slot form on the current stream into ``mixed`` / ``d_bias``;
+    with ``mass`` (and ``slot_mass``, ``new_mass``) its mass mode.  No
+    checks (``check_slots`` validated); counts the launch and raises if CUDA
+    refused it."""
+    lib = load_kernel().lib
+    args = [block.data_ptr(), slots.data_ptr(), block.shape[0], block.shape[1],
+            ops.self_w.data_ptr(), ops.nbr_w.data_ptr(), ops.beta.data_ptr(),
+            slots.shape[1], float(local_steps)]
+    if mass is None:
+        fn = lib.segment_mix_slots_f32
+        args += [mixed.data_ptr(), d_bias.data_ptr()]
+    else:
+        fn = lib.segment_mix_slots_push_sum_f32
+        args += [mass.data_ptr(), slot_mass.data_ptr(), mixed.data_ptr(), d_bias.data_ptr(),
+                 new_mass.data_ptr()]
+    err = fn(*args, torch.cuda.current_stream(block.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"segment_mix slot form launch failed with cudaError_t {err}")
+    launches.count += 1
+
+
+def segment_mix_slots(
+    block: torch.Tensor,  # (p, N) float32: the process's peers
+    slots: torch.Tensor,  # (p, D, N) float32: their neighbor rows, slot by slot
+    ops: SparseOperands,  # the block's rows of one round: (p,) / (p, D)
+    local_steps: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One gossip step + affinity d for the block's peers from their
+    gathered slots: returns (mixed, d_bias), both (p, N) in fresh buffers
+    (``nbr_idx`` of ``ops`` is not read: the slots hold its rows)."""
+    if block.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"segment_mix runs on cpu or cuda tensors, got {block.device}")
+    check_slots(block, slots, ops, local_steps)
+    if block.device.type == "cpu":
+        return ref.segment_mix_slots_ref(block, slots, ops.self_w, ops.nbr_w, ops.beta,
+                                         local_steps)
+    mixed = torch.empty_like(block)
+    d_bias = torch.empty_like(block)
+    launch_slots(block, slots, ops, local_steps, mixed, d_bias)
+    return mixed, d_bias
+
+
+def segment_mix_push_sum_slots(
+    block: torch.Tensor,  # (p, N) float32 — the de-biased parameters
+    slots: torch.Tensor,  # (p, D, N) float32
+    mass: torch.Tensor,  # (p,) float32: the block's masses
+    slot_mass: torch.Tensor,  # (p, D) float32: each slot's sender mass
+    ops: SparseOperands,  # the block's rows of one round's push weights
+    local_steps: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The slot form's mass mode, one push-sum step + affinity d for the
+    block's peers: returns (mixed, d_bias, new_mass) in fresh buffers."""
+    if block.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"segment_mix runs on cpu or cuda tensors, got {block.device}")
+    check_slots(block, slots, ops, local_steps)
+    p, d = ops.nbr_w.shape
+    for name, t, shape in (("mass", mass, (p,)), ("slot_mass", slot_mass, (p, d))):
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(f"segment_mix: {name} must be {shape} float32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        if t.device != block.device or not t.is_contiguous():
+            raise ValueError(f"segment_mix: {name} must be contiguous on {block.device}")
+    if block.device.type == "cpu":
+        return ref.segment_mix_push_sum_slots_ref(block, slots, mass, slot_mass, ops.self_w,
+                                                  ops.nbr_w, ops.beta, local_steps)
+    mixed = torch.empty_like(block)
+    d_bias = torch.empty_like(block)
+    new_mass = torch.empty_like(mass)
+    launch_slots(block, slots, ops, local_steps, mixed, d_bias, mass, slot_mass, new_mass)
+    return mixed, d_bias, new_mass

@@ -31,8 +31,12 @@ minitron-8b 19.8 GB, at zamba2-2.7b 4.7 GB); each group's decode is scanned
 (``steps.make_generate_fn``), with its own capture, since each group's
 parameter views sit at other addresses.  The
 result is the reference's invariant: the fleet is bit-identical to serving
-each peer's model separately.  The pod layout (one device per peer) is
-ROADMAP.md queue 1 item 15.
+each peer's model separately.  ``peer_axis="pod"`` is the reference's pod
+layout, one device per peer: K processes (``core.peer_group.spawn_peers``,
+on one card or on the CPU), rank k building peer k's parameters from the
+stacked fleet's seed and drawing the stacked fleet's prompts, keeping its
+own group's, and serving it through ``steps.make_generate_fn``
+(``fleet_rank``): the same tokens as the stacked fleet.
 
 Entry points run on ``cuda`` unless given ``device="cpu"``; times are taken
 after ``torch.cuda.synchronize()`` on the card.
@@ -40,6 +44,7 @@ after ``torch.cuda.synchronize()`` on the card.
 CLI:  python -m repro_torch.launch.serve --arch smollm-135m --batch 4 --gen 8
       python -m repro_torch.launch.serve --decode-impl python   # the eager loop
       python -m repro_torch.launch.serve --peers 2        # the stacked fleet
+      python -m repro_torch.launch.serve --peers 2 --peer-axis pod   # a process a peer
       python -m repro_torch.launch.serve --arch zamba2-2.7b --full --batch 4 \
           --prompt-len 1024 --gen 16                      # the hybrid, full size
       python -m repro_torch.launch.serve --arch internvl2-2b --full   # 256 patches + text
@@ -275,16 +280,17 @@ def serve_fleet(
     runs the whole fleet through ``make_fleet_generate_fn`` (each group's
     decode scanned; ``capture_s`` sums the groups' warm-up steps and
     captures, which ``serve_s`` includes).  ``peer_axis`` "vmap" is the
-    stacked layout on one device; "pod" (one device per peer) raises.
+    stacked layout on one device; "pod" runs one process a peer
+    (``fleet_rank``; ``serve_s`` is the slowest rank's, ``peak_memory_gb``
+    and ``params_gb`` are a rank's, the largest, and ``ranks`` holds each
+    rank's numbers and kernel launches).
     """
     if peer_axis not in ("vmap", "pod"):
         raise ValueError(f"peer_axis must be 'vmap' or 'pod', got {peer_axis!r}")
-    if peer_axis == "pod":
-        raise NotImplementedError(
-            "the fleet's pod layout (one device per peer) is not ported yet: "
-            "ROADMAP.md queue 1 item 15"
-        )
     dev = resolve_device(device)
+    if peer_axis == "pod":
+        return _serve_fleet_pod(arch, num_peers, batch, prompt_len, gen_tokens, use_reduced, seed,
+                                verbose, dev)
     model = _model_of(arch, use_reduced)
     stacked_params = tf.stacked_init(
         num_peers, lambda p: model.init(torch.Generator(device=dev).manual_seed(seed + 1 + p)))
@@ -322,6 +328,94 @@ def serve_fleet(
     return result
 
 
+def _launch_counts() -> dict[str, int]:
+    """The serving kernels' launch counts in this process."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: PLC0415
+    from repro_torch.kernels.mamba2 import ops as ssd_ops  # noqa: PLC0415
+    from repro_torch.kernels.rwkv6 import ops as wkv6_ops  # noqa: PLC0415
+
+    return {"wkv6": wkv6_ops.launches.count, "flash_attention": flash_ops.launches.count,
+            "ssd": ssd_ops.launches.count}
+
+
+def fleet_rank(group, arch: str, use_reduced: bool, batch: int, prompt_len: int,
+               gen_tokens: int, seed: int, stacked_params: dict | None = None,
+               prompts: dict | None = None) -> dict:
+    """A rank of ``serve_fleet(peer_axis="pod")``: peer ``group.rank``'s
+    model from ``seed + 1 + rank`` (the stacked fleet's draw), the stacked
+    fleet's K prompt groups drawn in peer order from ``seed`` and its own
+    kept, served through ``steps.make_generate_fn`` on the rank's device.
+    ``stacked_params`` / ``prompts`` (K, ...) leaves, where given, are
+    served in place of the draws (e.g. a trained fleet's
+    ``p2p.serving_params``), the rank's row of each.  Returns its (B, gen)
+    tokens, seconds from a common barrier, capture seconds, peak memory,
+    parameter size and kernel launches."""
+    dev, me = group.device, group.rank
+    model = _model_of(arch, use_reduced)
+    if stacked_params is None:
+        params = model.init(torch.Generator(device=dev).manual_seed(seed + 1 + me))
+    else:
+        params = {name: t[me].to(dev) for name, t in stacked_params.items()}
+    if prompts is None:
+        prompt_gen = torch.Generator(device=dev).manual_seed(seed)
+        prompts = tf.stacked_init(group.size,
+                                  lambda _p: model.make_batch(prompt_gen, batch, prompt_len))
+    prompt = {name: t[me].to(dev).clone() for name, t in prompts.items()}
+    del prompts
+    cache = model.init_cache(batch, prompt_len + gen_tokens, dev)
+    generate = steps_lib.make_generate_fn(model, gen_tokens)
+    counts = _launch_counts()
+    group.barrier()
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    tokens, _ = generate(params, prompt, cache)
+    _sync(dev)
+    serve_s = time.perf_counter() - t0
+    return {"tokens": tokens, "serve_s": serve_s,
+            "capture_s": None if generate.decode is None else generate.decode.capture_seconds,
+            "peak_memory_gb": _peak_gb(dev), "params_gb": _nbytes_gb(params),
+            "launches": {key: n - counts[key] for key, n in _launch_counts().items()}}
+
+
+def _serve_fleet_pod(arch, num_peers, batch, prompt_len, gen_tokens, use_reduced, seed,
+                     verbose, dev) -> dict:
+    """``serve_fleet(peer_axis="pod")``: ``num_peers`` ranks of
+    ``fleet_rank`` on ``dev`` (a card's ranks share it; they exchange
+    nothing)."""
+    from repro_torch.core import peer_group  # noqa: PLC0415
+
+    if dev.type == "cuda":  # built once, here, rather than by every rank
+        from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: PLC0415
+        from repro_torch.kernels.mamba2 import ops as ssd_ops  # noqa: PLC0415
+        from repro_torch.kernels.rwkv6 import ops as wkv6_ops  # noqa: PLC0415
+        for module in (wkv6_ops, flash_ops, ssd_ops):
+            module.load_kernel()
+    ranks = peer_group.spawn_peers(
+        fleet_rank, num_peers, dev, args=(arch, use_reduced, batch, prompt_len, gen_tokens, seed),
+        inbox_bytes=16)
+    tokens = torch.stack([r["tokens"] for r in ranks])
+    serve_s = max(r["serve_s"] for r in ranks)
+    peaks = [r["peak_memory_gb"] for r in ranks]
+    result = {
+        "tokens": tokens,  # (K, B, gen_tokens)
+        "serve_s": serve_s,
+        "capture_s": None if ranks[0]["capture_s"] is None else
+        sum(r["capture_s"] for r in ranks),
+        "tokens_per_s": tokens.numel() / serve_s,
+        "peak_memory_gb": None if peaks[0] is None else max(peaks),
+        "params_gb": max(r["params_gb"] for r in ranks),
+        "ranks": [{key: r[key] for key in ("serve_s", "capture_s", "peak_memory_gb", "launches")}
+                  for r in ranks],
+    }
+    if verbose:
+        print(f"arch={arch} fleet: {num_peers} personalized models x {batch} requests x "
+              f"{gen_tokens} tokens, peer_axis=pod ({num_peers} processes), device={dev}, "
+              f"params {result['params_gb']:.3f} GB a process")
+        print(f"fleet: {serve_s * 1e3:.1f} ms ({result['tokens_per_s']:.1f} tokens/s)")
+        print("peer 0 tokens:", tokens[0, 0].tolist())
+    return result
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m",
@@ -335,6 +429,10 @@ def main(argv=None):
     ap.add_argument("--peers", type=int, default=0,
                     help="serve this many personalized models from one "
                          "stacked process (0 = single-model serve_batch)")
+    ap.add_argument("--peer-axis", default="vmap", choices=["vmap", "pod"],
+                    help="with --peers: 'vmap' stacks the fleet on one device; 'pod' runs "
+                         "one process a peer, each serving its own request group (on one "
+                         "card, or on the CPU with --device cpu)")
     ap.add_argument("--decode-impl", default="scan", choices=["scan", "python"],
                     help="single-model decode driver: 'scan' replays one captured CUDA "
                          "graph of the decode step per token (the reference's fused "
@@ -351,6 +449,7 @@ def main(argv=None):
             prompt_len=args.prompt_len,
             gen_tokens=args.gen,
             use_reduced=not args.full,
+            peer_axis=args.peer_axis,
             verbose=True,
             device=args.device,
         )

@@ -183,8 +183,11 @@ def run_paper_experiment(
     stacked peers, consensus over the degree-bounded sparse schedule,
     ``mix_mode`` "bridge" (the vmap runtime's mix, bit for bit), "segment"
     (the ``segment_mix`` kernel, the large-K form) or "auto" (bridge iff K
-    <= 64).  Other pod layouts need several slices (ROADMAP.md queue 1 item
-    15).
+    <= 64).  ``"pod"`` with 1 < ``peers_per_device`` = p < K is the
+    hierarchical runtime over several slices: K / p ranks, a block of p
+    peers each (``launch.pod.experiment_rank`` with p), mixed in
+    ``mix_mode`` across the ranks (``p2p.make_sharded_round_fn``); rank 0
+    evaluates the gathered blocks as above.
 
     Evaluation follows the task (``make_eval_fn``): the whole
     class-filtered test set in one apply, or, where the task sets them, a
@@ -215,26 +218,33 @@ def run_paper_experiment(
             "peer on one device)"
         )
     features_lib.check_config(exp.p2p, peers_per_device=peers_per_device)
+    slices = 1
     if peer_axis == "pod" and peers_per_device > 1:
-        p2p.check_hierarchical_layout(exp.p2p.num_peers, peers_per_device)
+        slices = p2p.check_hierarchical_layout(exp.p2p.num_peers, peers_per_device)
+        p2p.resolve_mix_mode(mix_mode, exp.p2p.num_peers)
     device = resolve_device(device)
     rounds = rounds or exp.rounds
-    if peer_axis == "pod" and peers_per_device == 1:
+    if peer_axis == "pod" and (peers_per_device == 1 or slices > 1):
         if on_round is not None:
-            raise ValueError("on_round is not called by the sharded runtime (peers_per_device=1): "
-                             "its state lives in the ranks; use return_state")
+            raise ValueError("on_round is not called by the sharded runtime "
+                             f"(peers_per_device={peers_per_device}): its state lives in the "
+                             "ranks; use return_state")
         from repro_torch.launch import pod  # noqa: PLC0415 (pod imports this module)
 
         # drawn once, here; tensors reach the ranks in shared memory, arrays by pickle
         data = tuple(torch.as_tensor(np.ascontiguousarray(a))
                      for a in (synthetic.mnist_like() if data is None else data))
+        task = task_lib.get_task(exp.p2p.model)
+        hier = dict(peers_per_device=peers_per_device, mix_mode=mix_mode)
         results = peer_group.spawn_peers(
-            pod.experiment_rank, exp.p2p.num_peers, device,
+            pod.experiment_rank, exp.p2p.num_peers // peers_per_device, device,
             args=(exp, rounds, data, eval_every, seed, verbose, driver, return_state,
-                  torch.get_num_threads()),
-            inbox_bytes=p2p.inbox_bytes(task_lib.get_task(exp.p2p.model), exp.p2p))
+                  torch.get_num_threads(), peers_per_device, mix_mode),
+            inbox_bytes=p2p.inbox_bytes(task, exp.p2p, whole_blocks=True, **hier),
+            ring_bytes=p2p.ring_bytes(task, exp.p2p, **hier))
         log = results[0]["log"]
-        log.ranks = [{"exchange": r["exchange"], "launches": r["launches"]} for r in results]
+        log.ranks = [{key: r[key] for key in ("exchange", "launches", "peak_bytes")}
+                     for r in results]
         return (log, pod.state_to(results[0]["state"], device)) if return_state else log
     task = task_lib.get_task(exp.p2p.model)
     cfg = exp.p2p

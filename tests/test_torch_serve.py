@@ -151,8 +151,10 @@ def test_degenerate_lengths_rejected(models):
                                                          **kw)["tokens"])
     with pytest.raises(ValueError, match="peer_axis"):
         serve.serve_fleet(ARCH, peer_axis="mesh", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        serve.serve_fleet(ARCH, peer_axis="pod", device="cpu")
+    # the pod layout serves a process a peer, the stacked fleet's tokens
+    kw = dict(num_peers=2, batch=2, prompt_len=5, gen_tokens=3, device="cpu")
+    assert torch.equal(serve.serve_fleet(ARCH, peer_axis="pod", **kw)["tokens"],
+                       serve.serve_fleet(ARCH, **kw)["tokens"])
 
 
 def test_prefill_on_cpu_counts_no_kernel_launch():
