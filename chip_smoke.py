@@ -221,6 +221,16 @@ In order:
    memory and what its consensus phase adds, under one (K, N) buffer), and
    ``run_paper_experiment(iid_k100(), peer_axis="pod",
    peers_per_device=25)`` 5 rounds against the vmap run;
+3d. holds the dry run (``launch.dryrun_lib.run_case``: the step on fake
+   CUDA tensors, every hand kernel through its fake route, the roofline
+   against this card's peaks) against the same step on real tensors at
+   full width and depth: smollm-135m's training (B 1, T 1024) and
+   zamba2-2.7b's training and prefill (B 1, T 4096): the state's bytes
+   equal, the reckoned peak within ``DRYRUN_PEAK_BAND`` of
+   ``torch.cuda.max_memory_allocated`` (less what the card held beside the
+   state), each hand kernel's calls equal to its wrapper's launches and to
+   its device launches in ``torch.profiler``, the roofline's terms beside
+   the step's time;
 4. serves RWKV6-7B at full width and depth (bf16, random init on the card)
    through ``serve_batch``: batch 4, prompt 1024, first prefill only, then
    prefill and 15 decode steps, asserting ``wkv6`` launched once per layer
@@ -394,12 +404,13 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+# the card (the part nvidia-smi's name picks, its published peaks, and a piece
+# of work's least time on it) and each hand kernel's bytes and operations a
+# call, shared with the dry run
+from repro_torch.launch.mesh import Card, card_line  # noqa: E402
+from repro_torch.launch.roofline import kernel_work  # noqa: E402
 TOL = dict(atol=5e-5, rtol=1e-4)  # float32, as tests/test_kernels.py
-# (memory bytes/s, float32 FLOP/s outside the tensor cores, dense bf16 tensor
-# FLOP/s, dense TF32 tensor FLOP/s: half of bf16's) by card, from NVIDIA's
-# H100 data sheet; the card's name, as nvidia-smi prints it, picks one
-PEAKS = {"H100 SXM": (3.35e12, 67e12, 989e12, 495e12),
-         "H100 PCIe": (2.0e12, 51e12, 756e12, 378e12)}
 NONIID_ROUNDS = 5
 IID_ROUNDS = 2
 TV_QINT8_ROUNDS = 5
@@ -413,35 +424,6 @@ LARGE_K = 4096
 LARGE_K_ROUNDS = 2
 
 
-class Card:
-    """The card's name and power limit (``nvidia-smi``), and its peaks."""
-
-    def __init__(self, line: str):
-        self.line = line
-        name = line.split(",")[0]
-        if "H100" in name and ("HBM3" in name or "SXM" in name):
-            self.part = "H100 SXM"
-        elif "H100" in name and "PCIe" in name:
-            self.part = "H100 PCIe"
-        else:
-            raise RuntimeError(f"no peak rates known for the card {line!r}")
-        (self.bytes_per_s, self.flop_per_s, self.bf16_flop_per_s,
-         self.tf32_flop_per_s) = PEAKS[self.part]
-
-    def bound(self, nbytes: float, flops: float, *, bf16: bool = False,
-              tf32: bool = False) -> dict:
-        """The least time for ``nbytes`` and ``flops`` on this card, and which
-        bounds it; ``bf16`` / ``tf32`` take the dense bf16 / TF32 tensor
-        rate, else float32's."""
-        rate, kind = ((self.bf16_flop_per_s, "bf16") if bf16 else
-                      (self.tf32_flop_per_s, "TF32") if tf32 else (self.flop_per_s, "float32"))
-        t_bytes, t_flops = nbytes / self.bytes_per_s * 1e3, flops / rate * 1e3
-        return {"bound_ms": max(t_bytes, t_flops),
-                "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-                "bound_card": f"{self.line} ({self.part} peaks: {self.bytes_per_s / 1e12} TB/s, "
-                              f"{rate / 1e12} TFLOP/s {kind})"}
-
-
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
@@ -451,14 +433,6 @@ def rel_norm(got: torch.Tensor, want: torch.Tensor) -> float:
     """The relative norm error |got - want| / |want|, in float32."""
     return float(torch.linalg.vector_norm(got.float() - want.float())
                  / torch.linalg.vector_norm(want.float()))
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout
-    return out.strip().splitlines()[0]
 
 
 def cuda_ms(fn, target_s: float = 0.05) -> float:
@@ -542,10 +516,9 @@ def consensus_case(card, name, graph, sizes, n, *, dmax=None, zero_beta_rows=(),
 
     # work this run's data needs: real (non-padding) slots only
     real = (sparse.nbr_idx != torch.arange(k, device=dev)[:, None]).sum().item()
-    flops = n * (4 * real + 3 * k)  # 2 FMAs per real slot, self scale + d per row
-    nbytes = 3 * k * n * 4 + k * 4 + 3 * k * d * 4  # x once, mixed + d, operands
     return {"case": name, "K": k, "D": d, "N": n, "path": path, "vector_path": n % 4 == 0,
-            "max_abs_err": err, **times, **card.bound(nbytes, flops)}
+            "max_abs_err": err, **times,
+            **card.work_bound(kernel_work("consensus_mix", k=k, n=n, d=d, real=real))}
 
 
 def consensus_cases(card: Card, row: int) -> list[dict]:
@@ -627,13 +600,12 @@ def consensus_bf16_case(card, name, graph, sizes, n, *, zero_beta_rows=(), want_
     library = lambda: torch.matmul(dense, x, out=lib_out)  # noqa: E731
     times = in_turns(plain, kern, library)
     real = (sparse.nbr_idx != torch.arange(k, device=dev)[:, None]).sum().item()
-    flops = n * (4 * real + 3 * k)
-    nbytes = 3 * k * n * 2 + k * 4 + 3 * k * d * 4  # bf16 x once, mixed + d; operands
     # the same work's least time on bf16 operands: the dense bf16 tensor rate
     # (the library product's), so the (2K, K) operator times x is bound by bytes
     case = {"case": name, "K": k, "D": d, "N": n, "path": path, "vector_path": vector,
             "dtype": "bfloat16", "max_abs_err": err, "rel_norm_err": rel, **times,
-            **card.bound(nbytes, flops, bf16=True)}
+            **card.work_bound(kernel_work("consensus_mix", k=k, n=n, d=d, real=real,
+                                          elem_bytes=2))}
     del x, mixed, d_out, lib_out
     torch.cuda.empty_cache()
     return case
@@ -797,18 +769,16 @@ def bf16_mode_case(card, kernel: str, mode: str, name: str, graph, n: int, *, wa
     lib_out = torch.empty((2 * k, n), dtype=torch.bfloat16, device=dev)
     times = in_turns(plain, kern, lambda: torch.matmul(dense, x, out=lib_out)) if timed else {}
     real = int((one.nbr_idx != torch.arange(k, device=dev)[:, None]).sum())
-    # gossip's 4 D + 3 a column, a scale a mixed element (push-sum), the
-    # advance's multiply and add (an int8 payload)
-    flops = n * (4 * real + 3 * k + (k if mass else 0) + (2 * k if q is not None else 0))
-    reads = k * n * 2 * (2 if kernel == "dequant_mix" or "snapshot" in mode else 1)
-    writes = k * n * 2 * (3 if q is not None else 2)
-    nbytes = (reads + writes + (k * n if q is not None else 0) + 3 * k * d * 4 + k * 4
-              + (2 * k * 4 if mass else 0) + (k * len(offs) * 4 if offs else 0))
+    work = dict(k=k, n=n, d=d, real=real, elem_bytes=2, mass=mass)
+    if kernel == "dequant_mix":
+        work["leaves"] = len(offs) - 1 if q is not None else 0
+    elif kernel == "consensus_mix":
+        work["snapshot"] = "snapshot" in mode
     case = {"case": name, "mode": mode, "K": k, "D": d, "N": n,
             ("route" if kernel == "segment_mix" else "path"): design,
             "vector_path": vector, "dtype": "bfloat16", "max_abs_err": err, **times,
             "library": "torch.matmul of the dense bf16 (2K, K) operator",
-            **(card.bound(nbytes, flops, bf16=True) if timed else {})}
+            **(card.work_bound(kernel_work(kernel, **work)) if timed else {})}
     del x, other, outs, lib_out, dense
     torch.cuda.empty_cache()
     return case
@@ -958,14 +928,12 @@ def dequant_case(card, name, graph, sizes, leaf_offsets, n, *, dmax=None, zero_b
     # dense round's unselected edges weigh 0); the own estimate's advance (2
     # operations) only with a payload
     real = ((sparse.nbr_w != 0) | (sparse.beta != 0)).sum().item()
-    flops = n * (4 * real + (5 if payload else 3) * k)
-    nbytes = (2 * k * n * 4 + 2 * k * n * 4  # x, est in; mixed, d out
-              + (k * n + k * num_leaves * 4 + k * n * 4 if payload else 0)  # q, scales; est'
-              + k * 4 + 3 * k * d * 4)  # slot operands
+    work = kernel_work("dequant_mix", k=k, n=n, d=d, real=real,
+                       leaves=num_leaves if payload else 0)
     tile_cols = dequant.load_kernel().lib.dequant_mix_tile_columns(k) if path == "tile" else None
     return {"case": name, "K": k, "D": d, "N": n, "leaves": num_leaves, "payload": payload,
             "vector_path": vector, "path": path, "tile_columns": tile_cols, "max_abs_err": err,
-            **times, **card.bound(nbytes, flops)}
+            **times, **card.work_bound(work)}
 
 
 def dequant_cases(card: Card, layout) -> list[dict]:
@@ -1096,12 +1064,11 @@ def segment_case(card, name, sparse, n, *, round_idx=0, zero_beta_rows=(), size=
     # work this run's data needs: the round's real (non-padding) slots only;
     # x read once, mixed and d written once, the round's operands read once
     real = int((sparse.nbr_idx[r] != np.arange(k)[:, None]).sum())
-    flops = n * (4 * real + 3 * k)
-    nbytes = 3 * k * n * 4 + k * 4 + 3 * k * d * 4
     return {"case": name, "K": k, "D": d, "N": n, "round": r, "route": route,
             "vector_path": vector,
             "library": "torch.sparse.mm (CSR [W; Beta])" if as_csr else "torch.matmul",
-            "max_abs_err": err, **times, **card.bound(nbytes, flops)}
+            "max_abs_err": err, **times,
+            **card.work_bound(kernel_work("segment_mix", k=k, n=n, d=d, real=real))}
 
 
 def build_kernels() -> None:
@@ -1311,11 +1278,9 @@ def slot_case(card, name, sparse, n, *, p, rank, mass=False, size=None, zero_bet
         # block and slots read once, mixed and d written once, the block's
         # operands (and masses) read once
         real = int((sparse.nbr_idx[0][rows] != np.arange(k)[rows, None]).sum())
-        flops = n * (4 * real + (4 if mass else 3) * p) + (2 * (real + p) if mass else 0)
-        nbytes = ((p + p * d) * n * 4 + 2 * p * n * 4 + (p + 2 * p * d) * 4
-                  + ((p + p * d + p) * 4 if mass else 0))
         out |= {"library": "torch.matmul (the block's dense [W; Beta] rows x the (K, N) buffer)",
-                **times, **card.bound(nbytes, flops)}
+                **times, **card.work_bound(kernel_work("segment_mix", form="slots", p=p, n=n,
+                                                       d=d, real=real, mass=mass))}
         del lib_rows, mixed, d_out
     del x, slots, got
     torch.cuda.empty_cache()
@@ -1446,10 +1411,10 @@ def consensus_mass_case(card, name, graph, sizes, n, *, iso=None, want_path="til
                      lambda: ops.launch(x, one, t, mixed, d_out, mass, new_mass),
                      lambda: torch.matmul(lib_op, x, out=lib_out))
     real = int((sparse.nbr_idx[0] != np.arange(k)[:, None]).sum())
-    flops = n * (4 * real + 4 * k) + 2 * (real + k)  # gossip's, a divide a row, y'
-    nbytes = 3 * k * n * 4 + k * 4 + 3 * k * d * 4 + 2 * k * 4  # gossip's, mass in and out
     return {"case": name, "K": k, "D": d, "N": n, "path": path, "vector_path": n % 4 == 0,
-            "max_abs_err": err, **times, **card.bound(nbytes, flops)}
+            "max_abs_err": err, **times,
+            **card.work_bound(kernel_work("consensus_mix", k=k, n=n, d=d, real=real,
+                                          mass=True))}
 
 
 def dequant_mass_case(card, name, graph, sizes, layout, *, iso=None, want_path="tile", seed=0):
@@ -1495,11 +1460,10 @@ def dequant_mass_case(card, name, graph, sizes, layout, *, iso=None, want_path="
         lambda: dequant.launch(x, est, q, scale, one, leaves, t, *outs, mass, new_mass),
         lambda: torch.matmul(lib_op, adv, out=lib_out))
     real = int((sparse.nbr_idx[0] != np.arange(k)[:, None]).sum())
-    flops = n * (4 * real + 6 * k) + 2 * (real + k)
-    nbytes = (4 * k * n * 4 + k * n + k * (len(leaves) - 1) * 4 + k * n * 4 + k * 4
-              + 3 * k * d * 4 + 2 * k * 4)
     return {"case": name, "K": k, "D": d, "N": n, "path": path, "vector_path": True,
-            "max_abs_err": err, **times, **card.bound(nbytes, flops)}
+            "max_abs_err": err, **times,
+            **card.work_bound(kernel_work("dequant_mix", k=k, n=n, d=d, real=real,
+                                          leaves=len(leaves) - 1, mass=True))}
 
 
 def segment_mass_case(card, name, graph, sizes, n, *, size=None, iso=None, want_route,
@@ -1537,11 +1501,11 @@ def segment_mass_case(card, name, graph, sizes, n, *, size=None, iso=None, want_
         lambda: ref.segment_mix_push_sum_stacked_ref(x, mass, *(a[0] for a in ops_s), t),
         lambda: segment.launch(x, 0, ops_s, t, mixed, d_out, mass, new_mass), library)
     real = int((sparse.nbr_idx[0] != np.arange(k)[:, None]).sum())
-    flops = n * (4 * real + 4 * k) + 2 * (real + k)
-    nbytes = 3 * k * n * 4 + k * 4 + 3 * k * d * 4 + 2 * k * 4
     out = {"case": name, "K": k, "D": d, "N": n, "route": route, "vector_path": n % 4 == 0,
            "library": "torch.sparse.mm (CSR [A diag(y); Beta])" if as_csr else "torch.matmul",
-           "max_abs_err": err, **times, **card.bound(nbytes, flops)}
+           "max_abs_err": err, **times,
+           **card.work_bound(kernel_work("segment_mix", k=k, n=n, d=d, real=real,
+                                         mass=True))}
     del x, mixed, d_out, lib_op
     torch.cuda.empty_cache()
     return out
@@ -1697,12 +1661,10 @@ def snapshot_case(card, name, graph, sizes, n, *, mass=False, iso=None, want_pat
                      lambda: ops.launch(x, a_ops, t, *outs, *mass_args, published=pub),
                      lambda: torch.matmul(lib_op, pub, out=lib_out))
     real = int((sparse.nbr_idx[0] != np.arange(k)[:, None]).sum())
-    flops = n * (4 * real + (4 if mass else 3) * k) + (2 * (real + k) if mass else 0)
-    # x and P read once, mixed and d written once, the operands (and the mass)
-    nbytes = 4 * k * n * 4 + k * 4 + 3 * k * d * 4 + (2 * k * 4 if mass else 0)
     return {"case": name, "K": k, "D": d, "N": n, "path": path, "vector_path": n % 4 == 0,
             "weights": "mass" if mass else "gossip", "max_abs_err": err, **times,
-            **card.bound(nbytes, flops)}
+            **card.work_bound(kernel_work("consensus_mix", k=k, n=n, d=d, real=real, mass=mass,
+                                          snapshot=True))}
 
 
 def snapshot_cases(card: Card) -> list[dict]:
@@ -1819,11 +1781,11 @@ def dense_case(card, name, k, n, *, mass=False, want_path="tile", with_d1=False,
                  "dense_ms_same_call": cuda_ms(lambda: ops.launch(x, dense, t, *outs))}
     # work this run's data needs: the matched slots (nonzero weight) only
     real = int(((dense.nbr_w != 0) | (dense.beta != 0)).sum())
-    flops = n * (4 * real + (4 if mass else 3) * k) + (2 * (real + k) if mass else 0)
-    nbytes = 3 * k * n * 4 + k * 4 + 3 * k * d * 4 + (2 * k * 4 if mass else 0)
     return {"case": name, "K": k, "D": d, "N": n, "path": path, "vector_path": n % 4 == 0,
             "weights": "mass" if mass else "gossip", "matched_slots": real,
-            "max_abs_err": err, **times, **extra, **card.bound(nbytes, flops)}
+            "max_abs_err": err, **times, **extra,
+            **card.work_bound(kernel_work("consensus_mix", k=k, n=n, d=d, real=real,
+                                          mass=mass))}
 
 
 def dense_cases(card: Card) -> dict[str, list[dict]]:
@@ -1943,26 +1905,6 @@ WKV6_TOL = dict(atol=1e-3, rtol=1e-3)  # float32, the wkv6 tolerance of tests/te
 WKV6_BF16_TOL = dict(atol=1e-3, rtol=1e-3 + 2**-8)
 
 
-def wkv6_work(b: int, t: int, h: int, dk: int, q: int, *, state: bool, in_bytes: int = 4,
-              out_bytes: int = 4):
-    """(bytes, FLOP) one wkv6 call needs: r, k, v (``in_bytes`` each) and
-    the float32 log-decays, u and the state in (when given) read once, the
-    output and the final state written once; per (b, h) and chunk of n real
-    tokens the operations of the chunk form (an exp counts as one)."""
-    nbytes = (3 * in_bytes + 4) * b * t * h * dk + h * dk * 4 + b * t * h * dk * out_bytes
-    nbytes += (2 if state else 1) * b * h * dk * dk * 4
-    flops = 0
-    for start in range(0, t, q):
-        n = min(q, t - start)
-        flops += (5 * dk * n * (n - 1) // 2  # att below the diagonal: sub, exp, 3 FMA-ish
-                  + 3 * n * dk  # the bonus on the diagonal
-                  + 2 * n * dk + 5 * n * dk  # prefix sums; the decayed r and k
-                  + n * (n + 1) * dk  # sum_s att[t, s] v[s]
-                  + 2 * n * dk * dk  # (r * exp(cum_ex)) S
-                  + 2 * dk * dk + 2 * n * dk * dk)  # the state update
-    return nbytes, b * h * flops
-
-
 def wkv6_case(card, name, b, t, h, dk, chunk, *, state=False, ld=None, timed=False,
               dtype=torch.float32, seed=0):
     """wkv6 kernel vs its plain version on the card at one shape; ``ld`` is
@@ -2006,8 +1948,8 @@ def wkv6_case(card, name, b, t, h, dk, chunk, *, state=False, ld=None, timed=Fal
         plain = lambda: ref.wkv6_chunked_ref(r, k, v, logd, u, s0, chunk=q)  # noqa: E731
         case.update(in_turns(plain, kern, None))
         es = r.element_size()
-        case.update(card.bound(*wkv6_work(b, t, h, dk, q, state=state, in_bytes=es,
-                                          out_bytes=es)))
+        case.update(card.work_bound(kernel_work("wkv6", b=b, t=t, h=h, dk=dk, q=q, state=state,
+                                                in_bytes=es, out_bytes=es)))
     return case
 
 
@@ -2080,21 +2022,6 @@ def check_flash(got: torch.Tensor, want: torch.Tensor, what: str) -> dict:
             "max_abs": float(w.abs().max())}
 
 
-def flash_live_pairs(s: int, *, causal: bool, window: int | None) -> int:
-    """(q, k) pairs with key k visible to query q, for one (batch row, head)."""
-    q = np.arange(s)
-    lo = np.maximum(0, q - window + 1) if window else np.zeros(s, np.int64)
-    hi = q if causal else np.full(s, s - 1)
-    return int((hi - lo + 1).sum())
-
-
-def flash_work(b, s, h, kh, d, *, causal, window, elem_bytes):
-    """(bytes, FLOP) one flash call needs: q, k, v read once, o written once;
-    4 D operations (two multiply-adds of D) per live (q, k) pair."""
-    nbytes = (2 * b * s * h * d + 2 * b * s * kh * d) * elem_bytes
-    return nbytes, 4 * d * b * h * flash_live_pairs(s, causal=causal, window=window)
-
-
 def visible_mask(s: int, *, causal: bool, window: int | None, device) -> torch.Tensor:
     """(S, S) bool, True where the key is visible: SDPA's ``attn_mask``."""
     qi = torch.arange(s, device=device)[:, None]
@@ -2164,9 +2091,9 @@ def flash_case(card, name, b, s, h, kh, d, *, causal=True, window=None, dtype=to
             kern()
         case["host_us_per_launch"] = (time.perf_counter() - start) / reps * 1e6
         torch.cuda.synchronize()
-        case.update(card.bound(*flash_work(b, s, h, kh, d, causal=causal, window=window,
-                                           elem_bytes=q.element_size()),
-                               bf16=dtype == torch.bfloat16))
+        case.update(card.work_bound(kernel_work(
+            "flash_attention", b=b, s=s, h=h, kh=kh, d=d, causal=causal, window=window,
+            elem_bytes=q.element_size())))
     del q, k, v, got, want
     return case
 
@@ -2246,15 +2173,6 @@ def _print_flash_case(c: dict) -> None:
 FLASH_BWD_BF16_TOL = dict(atol=5e-2, rtol=5e-2)  # bf16 gradients, as tests/test_kernels.py
 FLASH_BWD_REL_NORM = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 FLASH_LSE_TOL = {torch.float32: TOL, torch.bfloat16: dict(atol=2e-3, rtol=1e-4)}
-
-
-def flash_bwd_work(b, s, h, kh, d, *, causal, window, elem_bytes):
-    """(bytes, FLOP) one backward call needs: q, k, v, o and do read once,
-    the float32 lse read once, dq, dk and dv written once; the five products
-    (s, dp, dv, dq, dk) are 10 D operations a live (q, k) pair, 2.5 times the
-    forward's."""
-    nbytes = (4 * b * s * h * d + 4 * b * s * kh * d) * elem_bytes + b * h * s * 4
-    return nbytes, 10 * d * b * h * flash_live_pairs(s, causal=causal, window=window)
 
 
 def flash_bwd_case(card, name, b, s, h, kh, d, *, causal=True, window=None,
@@ -2346,9 +2264,9 @@ def flash_bwd_case(card, name, b, s, h, kh, d, *, causal=True, window=None,
         plain = lambda: ref.gqa_attention_bwd_ref(q, k, v, out, dout, lse,  # noqa: E731
                                                   causal=causal, window=window, scale=scale)
         case.update(in_turns(plain, kern, library))
-        case.update(card.bound(*flash_bwd_work(b, s, h, kh, d, causal=causal, window=window,
-                                               elem_bytes=q.element_size()),
-                               bf16=dtype == torch.bfloat16))
+        case.update(card.work_bound(kernel_work(
+            "flash_attention_bwd", b=b, s=s, h=h, kh=kh, d=d, causal=causal, window=window,
+            elem_bytes=q.element_size())))
         del lib_out, qt, kt, vt
     del q, k, v, dout, out, lse
     torch.cuda.empty_cache()
@@ -2429,33 +2347,6 @@ def _print_flash_bwd_case(c: dict) -> None:
 SSD_REL_NORM = 1e-5
 
 
-def ssd_work(b, t, h, g, p, n, q, *, state: bool, in_bytes: int):
-    """(bytes, FLOP, TF32 FLOP) one ssd call needs: x, B and C (in their
-    type), dt, a and the state in (when given) read once, y (float32) and
-    the final state written once; per (b, h) and chunk of m real steps the
-    operations of the chunk form on the float32 pipes (an exp counts as
-    one): C B^T and att x below the diagonal, C S^T and the state update in
-    full; and the same four products as the kernel's TF32 passes make them
-    on the tensor cores: each float32 operand split in two parts, so C B^T
-    takes 1 pass with bf16 inputs and 3 with float32, the others 2 and 3
-    (the exps and scalings left on the float32 pipes are under 1% of it)."""
-    nbytes = (b * t * h * p + 2 * b * t * g * n) * in_bytes + b * t * h * 4 + h * 4
-    nbytes += b * t * h * p * 4 + (2 if state else 1) * b * h * p * n * 4
-    cbt_passes, passes = (1, 2) if in_bytes == 2 else (3, 3)
-    flops = tf32 = 0
-    for start in range(0, t, q):
-        m = min(q, t - start)
-        pairs = m * (m + 1) // 2
-        flops += (2 * m  # dt * a and the prefix sum
-                  + pairs * (2 * n + 4)  # C . B, exp(cum_t - cum_s) times it and dt
-                  + pairs * 2 * p  # att x
-                  + 2 * m * n * p + 2 * m * p + 2 * m  # C S^T, times exp(cum) and added
-                  + p * n + 2 * m * n * p + 3 * m + m * n)  # the state update
-        tf32 += (pairs * 2 * n * cbt_passes  # C B^T
-                 + (pairs * 2 * p + 2 * 2 * m * n * p) * passes)  # att x, C S^T, dS
-    return nbytes, b * h * flops, b * h * tf32
-
-
 def ssd_case(card, name, b, t, h, p, n, chunk, *, g=1, state=False, dt_range=(0.01, 1.0),
              dt_a=None, dtype=torch.float32, timed=False, want_split=None, seed=0):
     """ssd kernel vs its plain version on the card at one shape: x, B and C
@@ -2511,24 +2402,10 @@ def ssd_case(card, name, b, t, h, p, n, chunk, *, g=1, state=False, dt_range=(0.
         kern = lambda: ops.launch(x, bm, cm, dt, a, s0, q, y, final)  # noqa: E731
         plain = lambda: ref.ssd_chunked_ref(x, bm, cm, dt, a, state=s0, chunk=q)  # noqa: E731
         case.update(in_turns(plain, kern, None))
-        case.update(pipe_and_tensor_bounds(card, *ssd_work(b, t, h, g, p, n, q, state=state,
-                                                           in_bytes=x.element_size())))
+        case.update(card.work_bound(kernel_work("ssd", b=b, t=t, h=h, g=g, p=p, n=n, q=q,
+                                                state=state, in_bytes=x.element_size())))
     del x, bm, cm, dt, got, got_s, want, want_s
     return case
-
-
-def pipe_and_tensor_bounds(card: Card, nbytes: float, flops: float, tensor_flops: float, *,
-                           bf16: bool = False) -> dict:
-    """Both bounds of a scan kernel's call: its ``flops`` on the float32
-    pipes, and its ``tensor_flops`` on the tensor cores (the dense bf16 rate
-    for ``bf16`` operands, else TF32's); the headline (``bound_ms``) is the
-    smaller, the least time the card could take."""
-    fma = card.bound(nbytes, flops)
-    tensor = card.bound(nbytes, tensor_flops, bf16=bf16, tf32=not bf16)
-    return {**min(fma, tensor, key=lambda bd: bd["bound_ms"]),
-            **{f"{key}_{kind}": bd[key] for kind, bd in (("fma", fma), ("tensor", tensor))
-               for key in ("bound_ms", "bound_by")},
-            "bound_tensor_type": "bf16" if bf16 else "TF32"}
 
 
 def ssd_cases(card: Card) -> list[dict]:
@@ -2592,7 +2469,7 @@ def ssd_cases(card: Card) -> list[dict]:
 
 
 def _both_bounds(c: dict) -> str:
-    """The two bounds of ``pipe_and_tensor_bounds``, for a printed case."""
+    """The two bounds of a scan kernel's case (``Card.work_bound``), printed."""
     return (f"float32 pipes {c['bound_ms_fma']:.4f} ms by {c['bound_by_fma']}, "
             f"{c['bound_tensor_type']} tensor cores {c['bound_ms_tensor']:.4f} ms by "
             f"{c['bound_by_tensor']}")
@@ -2646,20 +2523,6 @@ def check_bwd(kernel: str, name: str, names, got, again, want, *, extreme: bool)
             "max_abs": scale, "max_abs_err_by_grad": errs, "rel_norm_err_by_grad": rels}
 
 
-def wkv6_bwd_work(b, t, h, dk, *, in_bytes: int, u_rows: int, state: bool, dstate: bool):
-    """(bytes, FLOP) one wkv6 backward call needs: r, k, v, the output's
-    gradient (``in_bytes`` each) and the float32 log-decays read once, u and
-    the states given read once; dr, dk, dv (``in_bytes``), dlogdecay and du
-    (float32) and the initial state's gradient written once.  Operations:
-    12 dk^2 a token and head (the forward pass's S do and state update, the
-    reverse pass's G v, G^T k and G update) and 34 dk for the per-token dots,
-    exps and epilogues (an exp counts as one)."""
-    n = b * t * h * dk
-    nbytes = n * (4 * in_bytes + 4) + n * (3 * in_bytes + 4) + 2 * u_rows * h * dk * 4
-    nbytes += (int(state) + int(dstate) + 1) * b * h * dk * dk * 4
-    return nbytes, b * t * h * (12 * dk * dk + 34 * dk)
-
-
 def wkv6_bwd_case(card, name, b, t, h, dk, *, u_rows=1, state=False, dstate=False, ld=None,
                   dtype=torch.float32, timed=False, seed=0):
     """The wkv6 backward kernel vs the plain backward on the card at one
@@ -2704,11 +2567,10 @@ def wkv6_bwd_case(card, name, b, t, h, dk, *, u_rows=1, state=False, dstate=Fals
                                       scratch, ds_in)
         plain = lambda: ref.wkv6_bwd_ref(*args)  # noqa: E731
         case.update(in_turns(plain, kern, None))
-        nbytes, flops = wkv6_bwd_work(b, t, h, dk, in_bytes=r.element_size(), u_rows=u_rows,
-                                      state=state, dstate=dstate)
         # the token-by-token count on the tensor cores too, at the operands' rate
-        case.update(pipe_and_tensor_bounds(card, nbytes, flops, flops,
-                                           bf16=dtype == torch.bfloat16))
+        case.update(card.work_bound(kernel_work(
+            "wkv6_bwd", b=b, t=t, h=h, dk=dk, in_bytes=r.element_size(), u_rows=u_rows,
+            state=state, dstate=dstate)))
     del r, k, v, dout, logd, u, s0, ds
     torch.cuda.empty_cache()
     return case
@@ -2757,20 +2619,6 @@ def _print_wkv6_bwd_case(c: dict) -> None:
           f"max_abs_err={c['max_abs_err']:.3g} rel_norm_err={c['rel_norm_err']:.3g} (max |grad| "
           f"{c['max_abs']:.4g}; by gradient {json.dumps(c['rel_norm_err_by_grad'])}){times}",
           flush=True)
-
-
-def ssd_bwd_work(b, t, h, g, p, n, *, in_bytes: int, a_rows: int, state: bool, dstate: bool):
-    """(bytes, FLOP) one ssd backward call needs: x, B and C (``in_bytes``
-    each), dt and the float32 output gradient read once, a and the states
-    given read once; dx, dB, dC (``in_bytes``), ddt and da (float32) and the
-    initial state's gradient written once.  Operations: 12 P N a token and
-    head (the forward pass's state update and S^T dy, the reverse pass's G
-    update, G B, G^T x and decay) and 20 (P + N) for the per-token sums,
-    scalings and epilogues (an exp counts as one)."""
-    nbytes = 2 * (b * t * h * p + 2 * b * t * g * n) * in_bytes + b * t * h * p * 4
-    nbytes += 2 * b * t * h * 4 + 2 * a_rows * h * 4
-    nbytes += (int(state) + int(dstate) + 1) * b * h * p * n * 4
-    return nbytes, b * t * h * (12 * p * n + 20 * (p + n))
 
 
 def ssd_bwd_case(card, name, b, t, h, p, n, *, g=1, a_rows=1, state=False, dstate=False,
@@ -2828,11 +2676,10 @@ def ssd_bwd_case(card, name, b, t, h, p, n, *, g=1, a_rows=1, state=False, dstat
                                       ddt, da, scratch, ds_in)
         plain = lambda: ref.ssd_bwd_ref(*args)  # noqa: E731
         case.update(in_turns(plain, kern, None))
-        nbytes, flops = ssd_bwd_work(b, t, h, g, p, n, in_bytes=x.element_size(),
-                                     a_rows=a_rows, state=state, dstate=dstate)
         # the token-by-token count on the tensor cores too, at the operands' rate
-        case.update(pipe_and_tensor_bounds(card, nbytes, flops, flops,
-                                           bf16=dtype == torch.bfloat16))
+        case.update(card.work_bound(kernel_work(
+            "ssd_bwd", b=b, t=t, h=h, g=g, p=p, n=n, in_bytes=x.element_size(), a_rows=a_rows,
+            state=state, dstate=dstate)))
     del x, bm, cm, dt, a, dy, s0, ds
     torch.cuda.empty_cache()
     return case
@@ -4670,6 +4517,9 @@ def captured_kernel_names(fn) -> list[str]:
     return names
 
 
+EAGER_PROFILE_TRIES = 3
+
+
 def profile_seqmnist_round(card: Card, exp, data) -> dict:
     """One ``exp`` round both ways under torch.profiler: an eager round of
     the python driver's round function, and a replay of the scan driver's
@@ -4678,7 +4528,11 @@ def profile_seqmnist_round(card: Card, exp, data) -> dict:
     (warm-up round included).  A replay launches only what the capture
     recorded, which must be the eager round's matmuls, one for one: the
     graph's are counted from its nodes (``captured_kernel_names``), the
-    eager round's from its profile.  The total counts
+    eager round's from its profile.  The profiler can drop kernel records
+    when tens of thousands arrive at once, and never adds one: an eager
+    profile that counts fewer matmuls than the graph's nodes is taken again,
+    up to ``EAGER_PROFILE_TRIES`` times, and each count is reported; one
+    count above the graph's fails at once.  The total counts
     differ by a few tens either way (the graph's static-buffer copies, the
     eager round's batch upload and the one-time work of its first calls,
     whose count falls from call to call), so they are reported, not
@@ -4706,8 +4560,13 @@ def profile_seqmnist_round(card: Card, exp, data) -> dict:
     # replay counted 58022-58061 kernels and 4994-4996 matmuls (the
     # profiler's buffers can drop records when some 58k kernels arrive at once)
     graph_kernels = captured_kernel_names(drive_fn.captured.fn)
-    matmuls = {"eager": eager["by_category_launches_ms"].get("matmul", [0])[0],
-               "graph": sum(kernel_category(name) == "matmul" for name in graph_kernels)}
+    graph_matmuls = sum(kernel_category(name) == "matmul" for name in graph_kernels)
+    eager_counts = [eager["by_category_launches_ms"].get("matmul", [0])[0]]
+    while eager_counts[-1] < graph_matmuls and len(eager_counts) < EAGER_PROFILE_TRIES:
+        eager = profile_once(lambda: round_fn(state, batches))
+        eager_counts.append(eager["by_category_launches_ms"].get("matmul", [0])[0])
+    matmuls = {"eager": eager_counts[-1], "graph": graph_matmuls,
+               "eager_profiles": eager_counts}
     out = {"card": card.line, "capture_s": drive_fn.capture_seconds,
            "eager_round": {key: eager[key] for key in ("wall_s", "device_busy_s", "kernels")},
            "replay": {key: replay[key] for key in ("wall_s", "device_busy_s", "kernels")},
@@ -5556,11 +5415,9 @@ def row_range_case(card, name, k, n, *, mode="gossip", dtype=torch.float32, grap
                      lambda: torch.matmul(dense_row, pub if snap else x, out=lib_out))
     # one row's work: its real slots' rows and its own row read, two rows written
     real = int((sparse.nbr_idx[mid] != mid).sum())
-    elem = x.element_size()
-    nbytes = (real + 1) * n * elem + 2 * n * elem + 3 * d * 4 + 4 * k
-    flops = n * (4 * real + 3)
-    return out | {**times, "full_launch_ms": full_ms, "row": mid,
-                  **card.bound(nbytes, flops)}
+    work = kernel_work("consensus_mix", k=k, n=n, d=d, real=real,
+                       elem_bytes=x.element_size(), rows=1)
+    return out | {**times, "full_launch_ms": full_ms, "row": mid, **card.work_bound(work)}
 
 
 def row_range_cases(card: Card) -> list[dict]:
@@ -6215,6 +6072,150 @@ def drive_serve_fleet_pod(card: Card, stacked_tokens: torch.Tensor) -> dict:
     return {"launches": {"wkv6": sum(r["wkv6"] for r in per_rank)}, **run}
 
 
+# the dry run held against a real step of the same code at shapes that fit
+# one card (not INPUT_SHAPES entries): smollm-135m's training (flash_attention
+# and its backward), zamba2-2.7b's training (ssd and flash_attention, each
+# with its backward) and prefill
+DRYRUN_CASES = ((LM_ARCH, ("train_b1_t1024", 1024, 1, "train")),
+                (HYBRID_ARCH, ("train_b1_t1024", 1024, 1, "train")),
+                (HYBRID_ARCH, ("prefill_b1_t4096", 4096, 1, "prefill")))
+# the dry run's peak of live bytes over torch.cuda.max_memory_allocated()
+# less what the card held beside the step's state when the step began (the
+# cuBLAS workspaces of the warm-up step: no count of the step can know them).
+# The dry run counts the state and every storage an op returns, each rounded
+# to the allocator's 512-byte blocks; what it cannot see is the scratch a
+# CUDA op allocates inside itself, small beside a step's activations
+DRYRUN_PEAK_BAND = (0.98, 1.02)
+# the one device kernel each wrapper call launches exactly once, by name in
+# torch.profiler (a backward launches several kernels, each once a call)
+LAUNCH_MARKERS = {"flash_attention": ("flash_wgmma_kernel", "flash_bf16_kernel",
+                                      "flash_f32_kernel"),
+                  "flash_attention_bwd": ("delta_bf16_kernel", "delta_f32_kernel"),
+                  "ssd": ("ssd_kernel",), "ssd_bwd": ("chunk_cums",),
+                  "wkv6": ("wkv6_kernel",), "wkv6_bwd": ("wkv6_bwd_du",)}
+
+
+def marker_launches(prof) -> dict[str, int]:
+    """Device launches of each hand kernel in a profile, by ``LAUNCH_MARKERS``."""
+    out = dict.fromkeys(LAUNCH_MARKERS, 0)
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for kernel, marks in LAUNCH_MARKERS.items():
+            if any(m in e.key for m in marks):
+                out[kernel] += e.count
+    return out
+
+
+def drive_dryrun_check(card: Card) -> dict:
+    """``launch.dryrun_lib.run_case`` on fake CUDA tensors, then the same
+    step (``make_state`` and ``make_step`` of the same module) on real
+    tensors drawn on the card, for each of ``DRYRUN_CASES``: the state's
+    bytes equal part by part, the dry run's peak within ``DRYRUN_PEAK_BAND``
+    of ``torch.cuda.max_memory_allocated`` after a reset (less what the card
+    held beside the state; the raw ratio printed too), each hand kernel's
+    calls in the dry run equal to its wrapper's launches and to its device
+    launches in ``torch.profiler``, and the roofline's terms beside one real
+    step's time (CUDA events)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun_lib
+    from repro_torch.models import build_model
+
+    start = time.perf_counter()
+    counters = launch_counters()
+    total = dict.fromkeys(counters, 0)
+    out = {}
+    for arch, shape in ((a, ShapeConfig(*s)) for a, s in DRYRUN_CASES):
+        label = f"{arch} {shape.name}"
+        t0 = time.perf_counter()
+        res = dryrun_lib.run_case(arch, shape, card=card)
+        check(res.ok, f"dry run {label}:\n{res.error}")
+        dry_s = time.perf_counter() - t0
+        rep = res.report
+        check(rep.extra["fake_device"] == "cuda", f"dry run {label} on fake CUDA tensors")
+        check(bool(res.kernel_calls), f"dry run {label}: the fake route of a hand kernel")
+
+        cfg, shape_cfg = dryrun_lib.prepare_case(arch, shape)
+        model = build_model(cfg)
+        opt = dryrun_lib.make_optimizer("sgdm")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        batch = model.make_batch(gen, dryrun_lib.per_peer_batch(shape_cfg, 1),
+                                 shape_cfg.seq_len)
+        state = dryrun_lib.make_state(model, shape_cfg, opt, peers=1, generator=gen,
+                                      batch=batch)
+        real_bytes = dryrun_lib.state_bytes(state)
+        check(real_bytes == res.state_bytes,
+              f"{label}: state bytes {real_bytes} real, {res.state_bytes} reckoned")
+        step = dryrun_lib.make_step(model, shape_cfg.kind, opt, peers=1, eta_d=1.0)
+        warm = step(state)  # lazy initializations (cuBLAS handles, workspaces)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(t).all()) for t in
+                  (warm[-1] if shape_cfg.kind == "train" else warm[0],)),
+              f"{label}: the step's loss / tokens are finite")
+        del warm
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        for counter in counters.values():
+            counter.reset()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            res_out = step(state)
+            torch.cuda.synchronize()
+        launches = {k: c.count for k, c in counters.items() if c.count}
+        stats = torch.cuda.memory_stats()
+        peak, requested = stats["allocated_bytes.all.peak"], stats["requested_bytes.all.peak"]
+        del res_out
+        on_device = {k: n for k, n in marker_launches(prof).items() if n}
+        for key, n in launches.items():
+            total[key] += n
+        resident = before - rep.extra["state_bytes_held"]  # beside the state
+        raw_ratio = rep.extra["peak_bytes"] / peak
+        ratio = rep.extra["peak_bytes"] / (peak - resident)
+        start_ev, end_ev = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start_ev.record()
+        step(state)
+        end_ev.record()
+        torch.cuda.synchronize()
+        step_ms = start_ev.elapsed_time(end_ev)
+        roof_ms = max(rep.compute_s, rep.memory_s, rep.collective_s) * 1e3
+        out[label] = {
+            "state_bytes": real_bytes, "peak_bytes_reckoned": rep.extra["peak_bytes"],
+            "max_memory_allocated": peak, "peak_requested_bytes": requested,
+            "allocated_before": before, "resident_beside_state": resident,
+            "peak_ratio_raw": raw_ratio, "peak_ratio": ratio,
+            "kernel_calls": res.kernel_calls, "wrapper_launches": launches,
+            "profiler_launches": on_device, "compute_ms": rep.compute_s * 1e3,
+            "memory_ms": rep.memory_s * 1e3, "dominant": rep.dominant,
+            "flops": rep.flops_per_chip, "bytes": rep.hbm_bytes_per_chip,
+            "step_ms": step_ms, "step_over_roofline": step_ms / roof_ms,
+            "dry_run_s": dry_s}
+        print(f"dryrun check {label} ({card.line}): state {sum(real_bytes.values())} B "
+              f"equal; peak reckoned {rep.extra['peak_bytes'] / 2**30:.3f} GiB, "
+              f"max_memory_allocated {peak / 2**30:.3f} GiB (requested "
+              f"{requested / 2**30:.3f}; before the step {before / 2**30:.3f}, of which "
+              f"{resident / 2**20:.1f} MiB beside the state), ratio {raw_ratio:.4f}, "
+              f"{ratio:.4f} less that; calls {res.kernel_calls}, wrapper launches {launches}, "
+              f"profiler launches {on_device}; roofline compute "
+              f"{rep.compute_s * 1e3:.3f} ms, memory {rep.memory_s * 1e3:.3f} ms "
+              f"({rep.dominant}), real step {step_ms:.3f} ms ({step_ms / roof_ms:.2f}x); "
+              f"dry run {dry_s:.1f} s", flush=True)
+        check(launches == res.kernel_calls,
+              f"{label}: wrapper launches {launches}, dry-run calls {res.kernel_calls}")
+        check(on_device == res.kernel_calls,
+              f"{label}: profiler launches {on_device}, dry-run calls {res.kernel_calls}")
+        check(DRYRUN_PEAK_BAND[0] <= ratio <= DRYRUN_PEAK_BAND[1],
+              f"{label}: dry-run peak {rep.extra['peak_bytes']} over the real {peak} less "
+              f"{resident} beside the state = {ratio:.4f}, outside {DRYRUN_PEAK_BAND}")
+        del state, step, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - start
+    print(f"dryrun check: {seconds:.1f} s ({card.line})", flush=True)
+    return {"launches": {k: n for k, n in total.items() if n}, "seconds": seconds,
+            "cases": out}
+
+
 def main() -> int:
     # the full-width LM rounds hold about nine parameter-sized buffers; with
     # fixed segments the allocator left 9.5 GiB of them unusable (rwkv6-7b)
@@ -6222,7 +6223,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs a GPU", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.p2pl_mnist import (directed_k8, iid_k100, noniid_k2, straggler_k8,
                                                 timevarying_k8)
     from repro_torch.data import synthetic
@@ -6242,6 +6242,9 @@ def main() -> int:
     cases = check_kernels(card)
     data = synthetic.mnist_like()
     paths = {}
+    # the dry run (fake tensors, reckoned) against the same steps on the card
+    elapsed("the dry-run check")
+    paths["dryrun_check"] = drive_dryrun_check(card)
     # the slices' paths, on a card with nothing else held: P2P training
     # of smollm-135m at full width (flash_attention forward and backward,
     # consensus_mix in bf16), of rwkv6-7b (wkv6 and its backward) and of

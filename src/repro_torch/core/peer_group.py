@@ -77,6 +77,12 @@ def _as_bytes(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().reshape(-1).view(torch.uint8)
 
 
+def exchange_destinations(lanes, rank: int) -> list[int]:
+    """The ranks ``rank`` sends its row to in an exchange along ``lanes``
+    (one send a lane that names it as a source)."""
+    return [dst for lane in lanes for src, dst in lane.perm if src == rank]
+
+
 class PeerGroup:
     """A rank of a run of K processes, one peer each (see the module)."""
 
@@ -141,7 +147,7 @@ class PeerGroup:
         k = self.size
         full = block.new_zeros((k, *block.shape[1:]))
         full[self.rank] = block[0]
-        dsts = [dst for lane in lanes for src, dst in lane.perm if src == self.rank]
+        dsts = exchange_destinations(lanes, self.rank)
         srcs = [lane.src_for_dst[self.rank] for lane in lanes
                 if lane.src_for_dst[self.rank] != k]
         if self.backend == "cuda_ipc":
@@ -331,6 +337,13 @@ def _build_kernels() -> None:
     segment.load_kernel()
 
 
+def check_num_peers(num_peers: int) -> None:
+    """The rule on a group's size K: at least one rank (``spawn_peers``'s,
+    and a peer layout's, ``repro_torch.launch.mesh.make_peer_mesh``)."""
+    if num_peers < 1:
+        raise ValueError(f"need at least one peer, got {num_peers}")
+
+
 def spawn_peers(
     fn: Callable[..., Any],
     num_peers: int,
@@ -361,8 +374,7 @@ def spawn_peers(
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:  # the ranks set this card
         device = torch.device("cuda", torch.cuda.current_device())
-    if num_peers < 1:
-        raise ValueError(f"need at least one peer, got {num_peers}")
+    check_num_peers(num_peers)
     backend = "cuda_ipc" if device.type == "cuda" else "gloo"
     inboxes = ring_inboxes = None
     if backend == "cuda_ipc":

@@ -36,7 +36,10 @@ Dispatch is by the device of the buffer, and only by it:
 - a CUDA tensor launches the hand-written kernel (``csrc/dequant_mix.cu``,
   built for sm_90a and loaded with ctypes on first use) or raises — there is
   no fallback;
-- any other device raises.
+- any other device raises;
+- fake tensors (the dry run's stand-ins, no data) follow the CUDA branch up
+  to the launch, which records the call's shapes instead
+  (``repro_torch.kernels.fake``): nothing is built or launched.
 
 The kernel has two designs, and the rule between them is on the number of
 peers K alone (``takes_tile_path``): up to ``TILE_MAX_PEERS`` (128, both
@@ -60,7 +63,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, fake
 from repro_torch.kernels.consensus_mix import ref
 from repro_torch.kernels.build import LaunchCounter
 from repro_torch.kernels.consensus_mix.ops import (SparseOperands, as_operands, check_mass,
@@ -166,8 +169,14 @@ def launch(
 
     No checks: callers pass what ``dequant_mix_stacked`` (or
     ``dequant_mix_push_sum_stacked``) validated.  Counts the launch and
-    raises if CUDA refused it.
+    raises if CUDA refused it.  Fake operands take the fake route: the call
+    is recorded (every slot counted as real), nothing built or launched.
     """
+    if fake.is_fake(mixed):
+        fake.record("dequant_mix", k=flat.shape[0], n=flat.shape[1], d=ops.nbr_idx.shape[1],
+                    elem_bytes=flat.element_size(), mass=mass is not None,
+                    leaves=len(leaf_offsets) - 1 if q is not None else 0)
+        return
     lib = load_kernel().lib
     tile = "_tile" if takes_tile_path(flat.shape[0]) else ""
     dtype = "bf16" if flat.dtype == torch.bfloat16 else "f32"
@@ -209,8 +218,7 @@ def dequant_mix_stacked(
     a fresh buffer holding ``est + scale * q`` (never ``est`` itself, which
     other peers' blocks still read); without one it is ``est``.
     """
-    if flat.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"dequant_mix runs on cpu or cuda tensors, got {flat.device}")
+    fake.check_device(flat, "dequant_mix")
     _check(flat, est, q, scale, ops, leaf_offsets, local_steps)
     if flat.device.type == "cpu":
         return ref.dequant_mix_stacked_ref(flat, est, q, scale, tuple(leaf_offsets), *ops,
@@ -235,8 +243,7 @@ def dequant_mix_push_sum_stacked(
     """One compressed push-sum step + affinity d for all peers, through the
     kernel's mass mode.  Returns (mixed, d_bias, est_new, new_mass); est_new
     as in ``dequant_mix_stacked``."""
-    if flat.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"dequant_mix runs on cpu or cuda tensors, got {flat.device}")
+    fake.check_device(flat, "dequant_mix")
     _check(flat, est, q, scale, ops, leaf_offsets, local_steps)
     check_mass(flat, mass, "dequant_mix")
     if flat.device.type == "cpu":

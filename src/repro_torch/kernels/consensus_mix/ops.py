@@ -43,7 +43,10 @@ Dispatch is by the device of the buffer, and only by it:
 - a CUDA tensor launches the hand-written kernel (``csrc/consensus_mix.cu``
   with ``csrc/tile_mix.cuh``, built for sm_90a and loaded with ctypes on
   first use) or raises — there is no fallback;
-- any other device raises.
+- any other device raises;
+- fake tensors (the dry run's stand-ins, no data) follow the CUDA branch up
+  to the launch, which records the call's shapes instead
+  (``repro_torch.kernels.fake``): nothing is built or launched.
 
 The kernel has two designs, and the rule between them is on the number of
 peers K alone (``takes_tile_path``): from ``TILE_MIN_PEERS`` up to
@@ -79,7 +82,7 @@ import torch
 
 from repro_torch import pytree
 from repro_torch.core import graph as graph_lib
-from repro_torch.kernels import build
+from repro_torch.kernels import build, fake
 from repro_torch.kernels.build import LaunchCounter
 from repro_torch.kernels.consensus_mix import ref
 
@@ -335,8 +338,16 @@ def launch(
 
     No checks: callers pass what ``check_operands`` (and ``check_mass``,
     ``check_published``, ``check_rows``) validated.  Counts the launch and
-    raises if CUDA refused it.
+    raises if CUDA refused it.  Fake operands take the fake route: the call
+    is recorded (every slot counted as real: its weights cannot be read),
+    nothing built or launched.
     """
+    if fake.is_fake(mixed):
+        fake.record("consensus_mix", k=flat.shape[0], n=flat.shape[1],
+                    d=ops.nbr_idx.shape[1], elem_bytes=flat.element_size(),
+                    mass=mass is not None, snapshot=published is not None,
+                    rows=None if rows is None else rows[1])
+        return
     lib = load_kernel().lib
     tile = takes_tile_path(flat.shape[0])
     snap = published is not None
@@ -378,8 +389,7 @@ def consensus_mix_stacked(
     only, (count, N) each, equal to the full call's rows bit for bit; every
     row of ``flat`` is read (a process holding its own row and its
     in-neighbors' rows computes its own)."""
-    if flat.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"consensus_mix runs on cpu or cuda tensors, got {flat.device}")
+    fake.check_device(flat, "consensus_mix")
     check_operands(flat, ops, local_steps, MAX_SLOTS)
     count = check_rows(flat, rows)
     if flat.device.type == "cpu":
@@ -401,8 +411,7 @@ def consensus_mix_push_sum_stacked(
     mass mode: returns (mixed, d_bias, new_mass), the de-biased
     ``A (y x) / y'``, d from the raw x, and y' = A y, in fresh buffers.
     ``rows`` as in ``consensus_mix_stacked`` (y' of those rows, (count,))."""
-    if flat.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"consensus_mix runs on cpu or cuda tensors, got {flat.device}")
+    fake.check_device(flat, "consensus_mix")
     check_operands(flat, ops, local_steps, MAX_SLOTS)
     check_mass(flat, mass, "consensus_mix")
     count = check_rows(flat, rows)
@@ -485,8 +494,7 @@ def consensus_mix_snapshot_stacked(
     ``d = (sum_s beta P[j] - x) / T`` (0 for a zero beta row), in fresh
     buffers; ``rows`` as in ``consensus_mix_stacked`` (only those rows of x
     are read, every row of P)."""
-    if flat.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"consensus_mix runs on cpu or cuda tensors, got {flat.device}")
+    fake.check_device(flat, "consensus_mix")
     check_operands(flat, ops, local_steps, MAX_SLOTS)
     check_published(flat, published)
     count = check_rows(flat, rows)
@@ -512,8 +520,7 @@ def consensus_mix_push_sum_snapshot_stacked(
     sum_s nbr_w y_j P[j]) / y'``, d as in ``consensus_mix_snapshot_stacked``
     (beta not scaled by mass).  Returns (mixed, d_bias, new_mass) in fresh
     buffers, of ``rows`` only where given (``consensus_mix_stacked``)."""
-    if flat.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"consensus_mix runs on cpu or cuda tensors, got {flat.device}")
+    fake.check_device(flat, "consensus_mix")
     check_operands(flat, ops, local_steps, MAX_SLOTS)
     check_mass(flat, mass, "consensus_mix")
     check_published(flat, published)

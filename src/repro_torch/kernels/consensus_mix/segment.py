@@ -25,7 +25,10 @@ Dispatch is by the device of the buffer, and only by it:
 - a CUDA tensor launches the hand-written kernel (``csrc/segment_mix.cu``,
   built for sm_90a and loaded with ctypes on first use) or raises — there is
   no fallback;
-- any other device raises.
+- any other device raises;
+- fake tensors (the dry run's stand-ins, no data) follow the CUDA branch up
+  to the launch, which records the call's shapes instead
+  (``repro_torch.kernels.fake``): nothing is built or launched.
 
 The kernel library chooses between two routes by (K, D) alone
 (``kernel_route`` is the same rule, and the library exports its own as
@@ -65,7 +68,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, fake
 from repro_torch.kernels.consensus_mix import ref
 from repro_torch.kernels.build import LaunchCounter
 from repro_torch.kernels.consensus_mix.ops import (
@@ -157,8 +160,14 @@ def launch(
     with ``mass`` (and ``new_mass`` for y') its mass mode.
 
     No checks: callers pass what ``check_schedule`` (and ``check_mass``)
-    validated.  Counts the launch and raises if CUDA refused it.
+    validated.  Counts the launch and raises if CUDA refused it.  Fake
+    operands take the fake route: the call is recorded (every slot counted
+    as real), nothing built or launched.
     """
+    if fake.is_fake(mixed):
+        fake.record("segment_mix", k=flat.shape[0], n=flat.shape[1], d=ops_s.nbr_idx.shape[2],
+                    elem_bytes=flat.element_size(), mass=mass is not None)
+        return
     lib = load_kernel().lib
     args = [flat.data_ptr(), flat.shape[0], flat.shape[1],
             ops_s.self_w.data_ptr(), ops_s.nbr_idx.data_ptr(), ops_s.nbr_w.data_ptr(),
@@ -185,8 +194,7 @@ def segment_mix_schedule(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One gossip step + affinity d for all peers over round ``round_idx % R``:
     returns (mixed, d_bias), both (K, N) in fresh buffers."""
-    if flat.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"segment_mix runs on cpu or cuda tensors, got {flat.device}")
+    fake.check_device(flat, "segment_mix")
     check_schedule(flat, ops_s, local_steps)
     if flat.device.type == "cpu":
         return ref.segment_mix_stacked_ref(flat, *select_round(ops_s, round_idx), local_steps)
@@ -215,8 +223,7 @@ def segment_mix_push_sum_schedule(
     """One push-sum step + affinity d for all peers over round
     ``round_idx % R``, through the kernel's mass mode: returns (mixed,
     d_bias, new_mass) in fresh buffers."""
-    if flat.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"segment_mix runs on cpu or cuda tensors, got {flat.device}")
+    fake.check_device(flat, "segment_mix")
     check_schedule(flat, ops_s, local_steps)
     check_mass(flat, mass, "segment_mix")
     if flat.device.type == "cpu":
@@ -275,7 +282,11 @@ def launch_slots(block: torch.Tensor, slots: torch.Tensor, ops: SparseOperands,
     """Launch the slot form on the current stream into ``mixed`` / ``d_bias``;
     with ``mass`` (and ``slot_mass``, ``new_mass``) its mass mode.  No
     checks (``check_slots`` validated); counts the launch and raises if CUDA
-    refused it."""
+    refused it; fake operands take the fake route, as ``launch``'s."""
+    if fake.is_fake(mixed):
+        fake.record("segment_mix", form="slots", p=block.shape[0], n=block.shape[1],
+                    d=slots.shape[1], mass=mass is not None)
+        return
     lib = load_kernel().lib
     args = [block.data_ptr(), slots.data_ptr(), block.shape[0], block.shape[1],
             ops.self_w.data_ptr(), ops.nbr_w.data_ptr(), ops.beta.data_ptr(),
@@ -302,8 +313,7 @@ def segment_mix_slots(
     """One gossip step + affinity d for the block's peers from their
     gathered slots: returns (mixed, d_bias), both (p, N) in fresh buffers
     (``nbr_idx`` of ``ops`` is not read: the slots hold its rows)."""
-    if block.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"segment_mix runs on cpu or cuda tensors, got {block.device}")
+    fake.check_device(block, "segment_mix")
     check_slots(block, slots, ops, local_steps)
     if block.device.type == "cpu":
         return ref.segment_mix_slots_ref(block, slots, ops.self_w, ops.nbr_w, ops.beta,
@@ -324,8 +334,7 @@ def segment_mix_push_sum_slots(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The slot form's mass mode, one push-sum step + affinity d for the
     block's peers: returns (mixed, d_bias, new_mass) in fresh buffers."""
-    if block.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"segment_mix runs on cpu or cuda tensors, got {block.device}")
+    fake.check_device(block, "segment_mix")
     check_slots(block, slots, ops, local_steps)
     p, d = ops.nbr_w.shape
     for name, t, shape in (("mass", mass, (p,)), ("slot_mass", slot_mass, (p, d))):

@@ -18,7 +18,10 @@ Dispatch is by the device of the operands, and only by it:
 - CUDA tensors launch the hand-written kernel (``csrc/flash_attention.cu``,
   built for sm_90a and loaded with ctypes on first use) or raise — there is
   no fallback;
-- any other device raises.
+- any other device raises;
+- fake tensors (the dry run's stand-ins, no data) follow the CUDA branch up
+  to the launch, which records the call's shapes instead
+  (``repro_torch.kernels.fake``): nothing is built or launched.
 
 Every call goes through ``FlashAttention``, a ``torch.autograd.Function``:
 where an operand requires grad the forward also writes the float32 row
@@ -64,7 +67,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, fake
 from repro_torch.kernels.build import LaunchCounter
 from repro_torch.kernels.flash_attention import ref
 
@@ -115,10 +118,16 @@ def load_bwd_kernel() -> build.KernelLibrary:
     return kl
 
 
-def bwd_scratch(b: int, h: int, s: int, device) -> torch.Tensor:
+BWD_ROW_PAD = 128  # csrc/flash_attention_bwd.cu's kRowPad: the scratch rows' multiple
+
+
+def bwd_scratch(b: int, h: int, s: int, device, *, fake_operands: bool = False) -> torch.Tensor:
     """The backward's float32 scratch for (B, H, S): rowsum(dO O) and the
-    lse times log2(e), each in rows of S padded to the source's multiple."""
-    n = load_bwd_kernel().lib.flash_attention_bwd_scratch(b, h, s)
+    lse times log2(e), each in rows of S padded to the source's multiple
+    (the library's ``flash_attention_bwd_scratch``; for ``fake_operands``,
+    the fake route's, the same rule here: nothing is built)."""
+    n = (2 * b * h * (-(-s // BWD_ROW_PAD) * BWD_ROW_PAD) if fake_operands
+         else load_bwd_kernel().lib.flash_attention_bwd_scratch(b, h, s))
     return torch.empty(n, dtype=torch.float32, device=device)
 
 
@@ -173,7 +182,7 @@ def _kernel_operand(x: torch.Tensor) -> torch.Tensor:
     aligned = x.stride(-1) == 1
     if x.dtype == torch.bfloat16:
         aligned = aligned and all(st % 8 == 0 for st in x.stride()[:-1]) \
-            and x.data_ptr() % 16 == 0
+            and fake.address(x) % 16 == 0
     # clone, not contiguous(): a contiguous view off alignment must be copied too
     return x if aligned else x.clone(memory_format=torch.contiguous_format)
 
@@ -185,10 +194,16 @@ def launch(q, k, v, out, *, causal: bool, window: int | None, scale: float,
 
     No checks: callers pass CUDA operands that ``check_inputs`` validated,
     with strides the kernel reads (``_kernel_operand``), and a contiguous
-    ``out``.  Counts the launch and raises if CUDA refused it.
+    ``out``.  Counts the launch and raises if CUDA refused it.  Fake
+    operands take the fake route: the call is recorded, nothing built or
+    launched.
     """
-    lib = load_kernel().lib
     b, s, h, d = q.shape
+    if fake.is_fake(out):
+        fake.record("flash_attention", b=b, s=s, h=h, kh=k.shape[2], d=d, causal=causal,
+                    window=window, elem_bytes=q.element_size())
+        return
+    lib = load_kernel().lib
     strides = (ctypes.c_int64 * 12)(*(st for x in (q, k, v, out) for st in x.stride()[:3]))
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     if lse is None:
@@ -216,9 +231,14 @@ def launch_bwd(q, k, v, out, dout, lse, dq, dk, dv, delta, *, causal: bool,
     ``out`` and ``dout`` of q's shape and type, all read through strides the
     kernel takes (``_kernel_operand``), and the forward's contiguous
     ``lse``.  Counts one backward launch and raises if CUDA refused one.
+    Fake operands take the fake route, as ``launch``'s.
     """
-    fn = load_bwd_kernel().lib.flash_attention_bwd
     b, s, h, d = q.shape
+    if fake.is_fake(dq):
+        fake.record("flash_attention_bwd", b=b, s=s, h=h, kh=k.shape[2], d=d, causal=causal,
+                    window=window, elem_bytes=q.element_size())
+        return
+    fn = load_bwd_kernel().lib.flash_attention_bwd
     strides = (ctypes.c_int64 * 15)(*(st for x in (q, k, v, out, dout) for st in x.stride()[:3]))
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
@@ -260,7 +280,8 @@ def attention_bwd(q, k, v, out, dout, lse, *, causal: bool, window: int | None,
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    delta = bwd_scratch(q.shape[0], q.shape[2], q.shape[1], q.device)
+    delta = bwd_scratch(q.shape[0], q.shape[2], q.shape[1], q.device,
+                        fake_operands=fake.is_fake(q))
     launch_bwd(q, k, v, out, dout, lse.contiguous(), dq, dk, dv, delta, causal=causal,
                window=window, scale=scale)
     return dq, dk, dv
@@ -323,11 +344,10 @@ def gqa_flash_attention(
 ) -> torch.Tensor:
     """Attention of q over grouped k, v: (B, S, H, D) in q's type; ``scale``
     defaults to D**-0.5."""
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"flash attention runs on cpu or cuda tensors, got {q.device}")
+    fake.check_device(q, "flash attention")
     check_inputs(q, k, v, window)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    if q.device.type == "cuda" and q.shape[-1] not in HEAD_DIMS:
+    if q.device.type != "cpu" and q.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"the flash attention kernel is built for head widths {HEAD_DIMS}, "
                          f"got D={q.shape[-1]}")
     # the row log-sum-exp only where a backward will read it

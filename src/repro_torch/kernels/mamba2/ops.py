@@ -19,7 +19,10 @@ Dispatch is by the device of the operands, and only by it:
 - CUDA tensors launch the hand-written kernel (``csrc/ssd.cu``, built for
   sm_90a and loaded with ctypes on first use) or raise — there is no
   fallback;
-- any other device raises.
+- any other device raises;
+- fake tensors (the dry run's stand-ins, no data) follow the CUDA branch up
+  to the launch, which records the call's shapes instead
+  (``repro_torch.kernels.fake``): nothing is built or launched.
 
 Every call goes through ``SSD``, a ``torch.autograd.Function``: its backward
 launches the backward kernels (``csrc/ssd_bwd.cu``, chunks of ``ref.BWD_Q``
@@ -64,7 +67,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, fake
 from repro_torch.kernels.build import LaunchCounter
 from repro_torch.kernels.mamba2 import ref
 
@@ -183,7 +186,7 @@ def _kernel_operand(m: torch.Tensor) -> torch.Tensor:
     anything else is copied to a contiguous tensor."""
     inner = m.stride(3) == 1 and (m.shape[2] == 1 or m.stride(2) == m.shape[3])
     es = m.element_size()
-    aligned = m.data_ptr() % 16 == 0 and all(st * es % 16 == 0 for st in m.stride()[:2])
+    aligned = fake.address(m) % 16 == 0 and all(st * es % 16 == 0 for st in m.stride()[:2])
     return m if inner and aligned else m.contiguous()
 
 
@@ -199,11 +202,16 @@ def launch(x, b, c, dt, a, state, q: int, y, state_out) -> None:
     No checks: callers pass CUDA operands that ``check_inputs`` validated,
     x, b and c as ``_kernel_operand`` leaves them, contiguous dt, a ((H,) or
     (G_a, H), ``a_batch``), state and outputs.  Counts the launch and raises
-    if CUDA refused it.
+    if CUDA refused it.  Fake operands take the fake route: the call is
+    recorded, nothing built or launched.
     """
-    fn = load_kernel().lib.ssd_fwd
     bs, t, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
+    if fake.is_fake(y):
+        fake.record("ssd", b=bs, t=t, h=h, g=g, p=p, n=n, q=q, state=state is not None,
+                    in_bytes=x.element_size())
+        return
+    fn = load_kernel().lib.ssd_fwd
     strides = (ctypes.c_int64 * 6)(*(st for m in (x, b, c) for st in m.stride()[:2]))
     err = fn(
         x.data_ptr(), b.data_ptr(), c.data_ptr(), dt.data_ptr(), a.data_ptr(),
@@ -239,10 +247,16 @@ def launch_bwd(x, b, c, dt, a, state, dy, dstate, dx, db, dc, ddt, da, scratch,
     x, b and c as ``_kernel_operand`` leaves them, the rest float32 and
     contiguous; ``state`` and ``dstate`` (the final state's gradient) may be
     None (zeros).  Counts one backward launch and raises if CUDA refused one.
+    Fake operands take the fake route, as ``launch``'s.
     """
-    fn = load_bwd_kernel().lib.ssd_bwd
     bs, t, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
+    if fake.is_fake(dx):
+        fake.record("ssd_bwd", b=bs, t=t, h=h, g=g, p=p, n=n, in_bytes=x.element_size(),
+                    a_rows=1 if a.dim() == 1 else a.shape[0], state=state is not None,
+                    dstate=dstate is not None, dstate_out=dstate_in is not None)
+        return
+    fn = load_bwd_kernel().lib.ssd_bwd
     strides = (ctypes.c_int64 * 6)(*(st for m in (x, b, c) for st in m.stride()[:2]))
     opt = lambda m: None if m is None else m.data_ptr()  # noqa: E731
     err = fn(
@@ -350,7 +364,6 @@ def ssd(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The chunked SSD: returns (y (B, T, H, P), final state (B, H, P, N)),
     both float32.  Differentiable in every operand (``SSD``)."""
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"ssd runs on cpu or cuda tensors, got {x.device}")
+    fake.check_device(x, "ssd")
     q = check_inputs(x, b, c, dt, a, state, chunk)
     return SSD.apply(x, b, c, dt, a, state, q)

@@ -15,7 +15,10 @@ Dispatch is by the device of the operands, and only by it:
 - CUDA tensors launch the hand-written kernel (``csrc/wkv6.cu``, built for
   sm_90a and loaded with ctypes on first use) or raise — there is no
   fallback;
-- any other device raises.
+- any other device raises;
+- fake tensors (the dry run's stand-ins, no data) follow the CUDA branch up
+  to the launch, which records the call's shapes instead
+  (``repro_torch.kernels.fake``): nothing is built or launched.
 
 Every call goes through ``WKV6``, a ``torch.autograd.Function``: its
 backward launches the backward kernels (``csrc/wkv6_bwd.cu``: the state at
@@ -56,7 +59,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, fake
 from repro_torch.kernels.build import LaunchCounter
 from repro_torch.kernels.rwkv6 import ref
 
@@ -131,7 +134,7 @@ def kernel_operand(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``x`` as the kernel reads it: ``dtype``, contiguous and 16-byte
     aligned (a misaligned view is copied; anything else is passed as it is)."""
     x = x.to(dtype).contiguous()
-    return x.clone() if x.data_ptr() % 16 else x
+    return x.clone() if fake.address(x) % 16 else x
 
 
 def u_batch(u: torch.Tensor, b: int) -> int:
@@ -146,10 +149,15 @@ def launch(r, k, v, logdecay, u, state, q: int, out, state_out) -> None:
     No checks: callers pass what ``kernel_operand`` gives for tensors that
     ``check_inputs`` validated: r, k, v and out of one type (float32 or
     bf16), the rest float32; u (H, dk) or (G, H, dk) (``u_batch``).  Counts
-    the launch and raises if CUDA refused it.
+    the launch and raises if CUDA refused it.  Fake operands take the fake
+    route: the call is recorded, nothing built or launched.
     """
-    fn = load_kernel().lib.wkv6_fwd
     b, t, h, dk = r.shape
+    if fake.is_fake(out):
+        fake.record("wkv6", b=b, t=t, h=h, dk=dk, q=q, state=state is not None,
+                    in_bytes=r.element_size(), out_bytes=out.element_size())
+        return
+    fn = load_kernel().lib.wkv6_fwd
     err = fn(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logdecay.data_ptr(), u.data_ptr(),
         None if state is None else state.data_ptr(), out.data_ptr(), state_out.data_ptr(),
@@ -181,10 +189,16 @@ def launch_bwd(r, k, v, logdecay, u, state, dout, dstate, dr, dk, dv, dld, du, s
     ``check_inputs`` validated: r, k, v, dout and the three outputs of one
     type, the rest float32 and contiguous; ``state`` and ``dstate`` (the
     final state's gradient) may be None (zeros).  Counts one backward launch
-    and raises if CUDA refused one.
+    and raises if CUDA refused one.  Fake operands take the fake route, as
+    ``launch``'s.
     """
-    fn = load_bwd_kernel().lib.wkv6_bwd
     b, t, h, dk_ = r.shape
+    if fake.is_fake(dr):
+        fake.record("wkv6_bwd", b=b, t=t, h=h, dk=dk_, in_bytes=r.element_size(),
+                    u_rows=1 if u.dim() == 2 else u.shape[0], state=state is not None,
+                    dstate=dstate is not None, dstate_out=dstate_in is not None)
+        return
+    fn = load_bwd_kernel().lib.wkv6_bwd
     opt = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     err = fn(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logdecay.data_ptr(), u.data_ptr(), opt(state),
@@ -305,7 +319,6 @@ def wkv6(
     """The chunked WKV: returns (out (B, T, H, dk) in r's type, final state
     (B, H, dk, dk) float32).  bf16 operands are computed in float32.
     Differentiable in every operand (``WKV6``)."""
-    if r.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"wkv6 runs on cpu or cuda tensors, got {r.device}")
+    fake.check_device(r, "wkv6")
     q = check_inputs(r, k, v, logdecay, u, state, chunk)
     return WKV6.apply(r, k, v, logdecay, u, state, q)

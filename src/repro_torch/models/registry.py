@@ -18,6 +18,10 @@ Every family exposes:
                                                ``frames`` (B, S//4, F), as
                                                ``split_vlm_seq`` and
                                                ``split_encdec_seq`` say)
+    batch_specs(batch, seq) -> make_batch's dict of ``meta`` tensors
+                                              (shape and type stand-ins, no
+                                               data: the dry run's,
+                                               ``launch.dryrun_lib``)
 
 The encoder-decoder's ``init_cache(b, s, device)`` splits ``s`` as its
 ``make_batch`` does, as the reference does: a cache for ``prompt_len +
@@ -25,11 +29,11 @@ gen_tokens`` has ``s - max(s//4, 1)`` decoder slots, fewer than the
 positions a decode reaches, so the last positions wrap onto the first
 slots through the ``pos % cache_len`` ring (ROADMAP.md section 3).
 
-The reference's ``batch_specs`` (shape stand-ins for its XLA dry run) has no
-counterpart here (ROADMAP.md queue 1 item 18).  ``build_sequence_classifier``
-gives one model's (init, apply, loss) for sequence classification
-(``core.task``'s ``rwkv6_seqmnist``).  Tokens are int64, torch's
-index type; the reference's are int32.
+``batch_specs`` is the counterpart of the reference's (its
+``ShapeDtypeStruct`` stand-ins): the same keys and shapes, as meta tensors.
+``build_sequence_classifier`` gives one model's (init, apply, loss) for
+sequence classification (``core.task``'s ``rwkv6_seqmnist``).  Tokens are
+int64, torch's index type; the reference's are int32.
 """
 from __future__ import annotations
 
@@ -52,6 +56,7 @@ class Model:
     prefill: Callable[[dict, dict, dict], tuple]
     decode_step: Callable[[dict, torch.Tensor, torch.Tensor, dict], tuple]
     make_batch: Callable[[torch.Generator, int, int], dict]
+    batch_specs: Callable[[int, int], dict]
 
 
 def _token_batch(generator: torch.Generator, cfg: ModelConfig, b: int, s: int) -> dict:
@@ -60,6 +65,25 @@ def _token_batch(generator: torch.Generator, cfg: ModelConfig, b: int, s: int) -
                              device=generator.device)
 
     return {"tokens": draw(), "labels": draw()}
+
+
+def _token_specs(b: int, s: int) -> dict:
+    def spec():
+        return torch.empty((b, s), dtype=torch.int64, device="meta")
+
+    return {"tokens": spec(), "labels": spec()}
+
+
+def _vlm_specs(cfg: ModelConfig, b: int, s: int) -> dict:
+    np_, st = split_vlm_seq(cfg, s)
+    return {**_token_specs(b, st),
+            "patches": torch.empty((b, np_, cfg.frontend_dim), device="meta")}
+
+
+def _encdec_specs(cfg: ModelConfig, b: int, s: int) -> dict:
+    enc, dec = split_encdec_seq(s)
+    return {**_token_specs(b, dec),
+            "frames": torch.empty((b, enc, cfg.frontend_dim), device="meta")}
 
 
 def split_vlm_seq(cfg: ModelConfig, s: int) -> tuple[int, int]:
@@ -152,6 +176,8 @@ def build_model(cfg: ModelConfig) -> Model:
             decode_step=lambda p, t, pos, c, inplace=False: tf.decoder_decode_step(
                 p, cfg, t, pos, c, inplace=inplace),
             make_batch=lambda g, b, s: make_batch(g, cfg, b, s),
+            batch_specs=lambda b, s: (_vlm_specs(cfg, b, s) if cfg.family == "vlm"
+                                      else _token_specs(b, s)),
         )
     if cfg.family == "hybrid":
         return Model(
@@ -163,6 +189,7 @@ def build_model(cfg: ModelConfig) -> Model:
             decode_step=lambda p, t, pos, c, inplace=False: tf.hybrid_decode_step(
                 p, cfg, t, pos, c, inplace=inplace),
             make_batch=lambda g, b, s: _token_batch(g, cfg, b, s),
+            batch_specs=_token_specs,
         )
     if cfg.family == "encdec":
         return Model(
@@ -174,6 +201,7 @@ def build_model(cfg: ModelConfig) -> Model:
             decode_step=lambda p, t, pos, c, inplace=False: tf.encdec_decode_step(
                 p, cfg, t, pos, c, inplace=inplace),
             make_batch=lambda g, b, s: _encdec_batch(g, cfg, b, s),
+            batch_specs=lambda b, s: _encdec_specs(cfg, b, s),
         )
     if cfg.family != "rwkv6":
         raise ValueError(f"unknown family {cfg.family!r}")
@@ -186,4 +214,5 @@ def build_model(cfg: ModelConfig) -> Model:
         decode_step=lambda p, t, pos, c, inplace=False: tf.rwkv6_decode_step(
             p, cfg, t, pos, c, inplace=inplace),
         make_batch=lambda g, b, s: _token_batch(g, cfg, b, s),
+        batch_specs=_token_specs,
     )

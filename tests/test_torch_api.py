@@ -72,9 +72,12 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 # The name-parity walk
 # ---------------------------------------------------------------------------
 
-ITEM_18C = "ROADMAP.md queue 1 item 18c (the tooling)"
+ITEM_18C = "ROADMAP.md queue 1 item 18c (the examples, the next slice)"
 ALIAS = "no counterpart needed: a type alias"
 PALLAS = "no counterpart needed here: the Pallas kernel, ported by hand as {}"
+SHARDING = ("not ported yet: places tensors over a data and model mesh within one peer; the "
+            "port does not split a peer over cards, which waits for a machine with several "
+            "cards and item 15b's NCCL transport (ROADMAP.md queue 1)")
 
 # reference modules with no module at the same path in the port
 LEFT_MODULES = {
@@ -84,16 +87,17 @@ LEFT_MODULES = {
         "flash_attention/csrc/flash_attention.cu (ops.gqa_flash_attention)"),
     "kernels/mamba2/mamba2.py": PALLAS.format("mamba2/csrc/ssd.cu (ops.ssd)"),
     "kernels/rwkv6/rwkv6.py": PALLAS.format("rwkv6/csrc/wkv6.cu (ops.wkv6)"),
-    "kernels/lowering.py": ITEM_18C,
-    "launch/dryrun.py": ITEM_18C,
-    "launch/dryrun_lib.py": ITEM_18C,
-    "launch/hlo_cost.py": ITEM_18C,
-    "launch/mesh.py": ITEM_18C,
-    "launch/report.py": ITEM_18C,
-    "launch/roofline.py": ITEM_18C,
-    "sharding/__init__.py": ITEM_18C,
-    "sharding/logical.py": ITEM_18C,
-    "sharding/specs.py": ITEM_18C,
+    "kernels/lowering.py": (
+        "no counterpart needed: the Pallas interpret policy; the port has no interpret mode, "
+        "its counterpart is the device dispatch of device.py:resolve_device and of each "
+        "kernel wrapper (a CPU tensor takes the plain version, a CUDA tensor the kernel)"),
+    "launch/hlo_cost.py": (
+        "ported as launch/op_cost.py: the port has no HLO, so its eager steps are counted op "
+        "by op as they are dispatched (each layer's ops once a layer: no trip counts)"),
+    "sharding/__init__.py": SHARDING,
+    "sharding/logical.py": SHARDING,
+    "sharding/specs.py": SHARDING + (
+        "; specs.hierarchical_layout's counterpart is core/p2p.py:check_hierarchical_layout"),
 }
 # public names of ported modules that the port's module lacks
 LEFT_NAMES = {
@@ -109,6 +113,15 @@ LEFT_NAMES = {
     ("kernels/consensus_mix/ops.py", "PyTree"): ALIAS,
     ("kernels/consensus_mix/segment.py", "segment_mix_2d"): PALLAS.format(
         "consensus_mix/csrc/segment_mix.cu (segment.segment_mix_stacked)"),
+    ("launch/dryrun_lib.py", "ACTIVATION_RULES"): SHARDING + (
+        ": the activations' logical axes over that mesh"),
+    ("launch/dryrun_lib.py", "PyTree"): ALIAS,
+    ("launch/mesh.py", "make_test_mesh"): SHARDING + (
+        ": a small data x model mesh for the sharding tests"),
+    ("launch/roofline.py", "parse_collectives"): (
+        "no counterpart needed: it reads collectives off HLO text; the port's collective term "
+        "counts the peer exchange's bytes (dryrun_lib.exchange_bytes, the sends of "
+        "core/peer_group.py:PeerGroup.exchange)"),
     ("launch/serve.py", "PyTree"): ALIAS,
     ("launch/steps.py", "PyTree"): ALIAS,
     ("models/registry.py", "PyTree"): ALIAS,
@@ -154,6 +167,18 @@ def test_every_reference_name_has_a_counterpart(rel):
     listed = {name for (path, name) in LEFT_NAMES if path == rel}
     assert missing == listed, (f"{rel}: missing {sorted(missing - listed)}, listed but "
                                f"present {sorted(listed - missing)}")
+
+
+# the reference's examples (thin drivers of ported entry points), still to port
+LEFT_EXAMPLES = dict.fromkeys(
+    ("p2p_adaptive.py", "p2p_async.py", "p2p_compressed.py", "p2p_noniid_affinity.py",
+     "p2p_pushsum.py", "p2p_realmodel.py", "p2p_serve.py", "p2p_sharded.py",
+     "p2p_timevarying.py", "quickstart.py", "serve_batch.py", "train_p2p_llm.py"), ITEM_18C)
+
+
+def test_left_examples_are_the_reference_examples():
+    examples = SRC.parent / "examples"
+    assert set(LEFT_EXAMPLES) == {p.name for p in examples.glob("*.py")}
 
 
 def test_left_names_are_reference_names():

@@ -10,7 +10,7 @@ into ``build/kernel_ab/``, called through the C entry points their wrappers
 call on the same inputs, held to the plain PyTorch versions at
 chip_smoke.py's tolerances, and timed with CUDA events in turns (old, new,
 ..., library, library, ..., new, old) at the main paths' shapes, beside the
-library call and the bound chip_smoke.py computes:
+library call and the bound ``launch/roofline.py:kernel_work`` counts:
 
 - ``consensus_mix`` at K = 2, 8 (a ring padded to 3 slots) and 100, and
   on complete graphs of 12 to 32 peers (where its designs cross), each of
@@ -54,14 +54,14 @@ library call and the bound chip_smoke.py computes:
   through ``ssd_bwd`` (the same C entry in both, each with its own scratch)
   held to the plain backward at chip_smoke.py's checks, each called twice
   (``repeat_identical_bits``: a version's two calls equal bit for bit),
-  with the bound chip_smoke.py computes for the function;
+  with the bound ``kernel_work`` counts for the function;
 - ``wkv6_bwd`` at rwkv6-7b's trained shape (B 4 = 2 peers x batch 2, T
   1024, H 64, dk 64, bf16 r, k, v and do, each peer's u a row, a state in,
   no final-state gradient) and in float32 with both states, both versions
   through ``wkv6_bwd`` (the same C entry in both, each with its own
   scratch) held to the plain backward at chip_smoke.py's checks, each
-  called twice (``repeat_identical_bits``), with the bound chip_smoke.py
-  computes for the function.
+  called twice (``repeat_identical_bits``), with the bound ``kernel_work``
+  counts for the function.
 
     git archive <commit> src/repro_torch/kernels | tar -x -C build/parent
     python3 tools/kernel_ab.py --old build/parent [--only ssd]
@@ -88,6 +88,7 @@ sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 import chip_smoke  # noqa: E402
 from repro_torch.core import graph as graph_lib  # noqa: E402
 from repro_torch.core.p2p import layout_of  # noqa: E402
+from repro_torch.launch.roofline import kernel_work  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.consensus_mix import dequant, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
@@ -218,11 +219,10 @@ def ab_dequant(card, libs: dict, name: str, graph, k: int, seed: int = 0) -> dic
     lib_out = torch.empty(2 * k, n, device=dev)
     times = in_turns(runs, lambda: torch.matmul(dense, want[2], out=lib_out))
     real = (sparse.nbr_idx != torch.arange(k, device=dev)[:, None]).sum().item()
-    flops = n * (4 * real + 5 * k)
-    nbytes = 4 * k * n * 4 + k * n + k * (len(leaves) - 1) * 4 + k * n * 4 + k * 4 + \
-        3 * k * sparse.nbr_idx.shape[1] * 4
+    work = kernel_work("dequant_mix", k=k, n=n, d=sparse.nbr_idx.shape[1], real=real,
+                       leaves=len(leaves) - 1)
     return {"kernel": "dequant_mix", "case": name, "K": k, "N": n, "paths": paths,
-            "gossip_identical_bits": identical, **stats, **times, **card.bound(nbytes, flops)}
+            "gossip_identical_bits": identical, **stats, **times, **card.work_bound(work)}
 
 
 def consensus_fns(lib: ctypes.CDLL) -> dict:
@@ -327,10 +327,9 @@ def ab_consensus(card, libs: dict, name: str, graph, sizes, n: int, *, dmax=None
     if f"old_{rule}_ms" in times:
         times["old_ms"] = times[f"old_{rule}_ms"]
     real = (sparse.nbr_idx != torch.arange(k, device=dev)[:, None]).sum().item()
-    flops = n * (4 * real + 3 * k)
-    nbytes = 3 * k * n * 4 + k * 4 + 3 * k * d * 4
+    work = kernel_work("consensus_mix", k=k, n=n, d=d, real=real)
     return {"kernel": "consensus_mix", "case": name, "K": k, "D": d, "N": n, "rule": rule,
-            "gossip_identical_bits": identical, **stats, **times, **card.bound(nbytes, flops)}
+            "gossip_identical_bits": identical, **stats, **times, **card.work_bound(work)}
 
 
 def segment_fns(lib: ctypes.CDLL) -> dict:
@@ -404,10 +403,9 @@ def ab_segment(card, libs: dict, name: str, topology: str, k: int, sizes, seed=0
                else (lambda: torch.matmul(lib_op, x)))
     times = in_turns(runs, library)
     real = int((sparse.nbr_idx[0] != np.arange(k)[:, None]).sum())
-    flops = n * (4 * real + 3 * k)
-    nbytes = 3 * k * n * 4 + k * 4 + 3 * k * sparse.degree_bound * 4
+    work = kernel_work("segment_mix", k=k, n=n, d=sparse.degree_bound, real=real)
     out = {"kernel": "segment_mix", "case": name, "K": k, "D": sparse.degree_bound, "N": n,
-           "gossip_identical_bits": identical, **stats, **times, **card.bound(nbytes, flops)}
+           "gossip_identical_bits": identical, **stats, **times, **card.work_bound(work)}
     del x, mass_outs, lib_op
     torch.cuda.empty_cache()
     return out
@@ -478,8 +476,8 @@ def ab_wkv6(card, libs: dict, name: str, b, t, h, dk, q, *, dtype=torch.float32,
     diff = float((outs["new"].float() - outs["old"].float()).abs().max())
     times = in_turns(runs, None)
     es = r.element_size()
-    bound = card.bound(*chip_smoke.wkv6_work(b, t, h, dk, q, state=False, in_bytes=es,
-                                             out_bytes=es))
+    bound = card.work_bound(kernel_work("wkv6", b=b, t=t, h=h, dk=dk, q=q, state=False,
+                                        in_bytes=es, out_bytes=es))
     return {"kernel": "wkv6", "case": name, "B": b, "T": t, "H": h, "dk": dk, "chunk": q,
             "dtype": str(dtype).removeprefix("torch."), "max_abs_err": errs,
             "max_abs_diff_old": diff, **times, **bound}
@@ -520,8 +518,8 @@ def ab_flash(card, libs: dict, name: str, b, s, h, kh, d, *, causal=True, window
         mask = chip_smoke.visible_mask(s, causal=causal, window=window, device=dev)
         library = lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
     times = in_turns(runs, library)
-    bound = card.bound(*chip_smoke.flash_work(b, s, h, kh, d, causal=causal, window=window,
-                                              elem_bytes=2), bf16=True)
+    bound = card.work_bound(kernel_work("flash_attention", b=b, s=s, h=h, kh=kh, d=d,
+                                        causal=causal, window=window, elem_bytes=2))
     return {"kernel": "flash_attention", "case": name, "B": b, "S": s, "H": h, "Kh": kh, "D": d,
             "causal": causal, "window": window,
             "route_new": flash_ops.kernel_route(torch.bfloat16, d),
@@ -584,8 +582,8 @@ def ab_flash_bwd(card, libs: dict, name: str, b, s, h, kh, d, *, seed=0) -> dict
     library = lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dout_t,  # noqa: E731
                                           retain_graph=True)
     times = in_turns(runs, library)
-    bound = card.bound(*chip_smoke.flash_bwd_work(b, s, h, kh, d, causal=True, window=None,
-                                                  elem_bytes=2), bf16=True)
+    bound = card.work_bound(kernel_work("flash_attention_bwd", b=b, s=s, h=h, kh=kh, d=d,
+                                        causal=True, window=None, elem_bytes=2))
     return {"kernel": "flash_attention_bwd", "case": name, "B": b, "S": s, "H": h, "Kh": kh,
             "D": d, "causal": True, "route_new": flash_ops.bwd_kernel_route(torch.bfloat16, d),
             "errors": errs, **times, **bound}
@@ -636,8 +634,8 @@ def ab_ssd(card, libs: dict, name: str, b, t, h, *, dtype=torch.float32, state=F
         runs[tag] = run
     diff = max(float((outs["new"][i] - outs["old"][i]).abs().max()) for i in range(2))
     times = in_turns(runs, None)
-    bounds = chip_smoke.pipe_and_tensor_bounds(card, *chip_smoke.ssd_work(
-        b, t, h, 1, p, n, q, state=state, in_bytes=x.element_size()))
+    bounds = card.work_bound(kernel_work("ssd", b=b, t=t, h=h, g=1, p=p, n=n, q=q, state=state,
+                                         in_bytes=x.element_size()))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return {"kernel": "ssd", "case": name, "B": b, "T": t, "H": h, "P": p, "N": n, "chunk": q,
             "dtype": str(dtype).removeprefix("torch."), "state": state,
@@ -712,9 +710,8 @@ def ab_ssd_bwd(card, libs: dict, name: str, b, t, h, *, a_rows=1, seed=0) -> dic
         runs[tag] = run
     identical = all(torch.equal(u, v) for u, v in zip(outs["old"], outs["new"]))
     times = in_turns(runs, None)
-    nbytes, flops = chip_smoke.ssd_bwd_work(b, t, h, 1, p, n, in_bytes=2, a_rows=a_rows,
-                                            state=True, dstate=False)
-    bounds = chip_smoke.pipe_and_tensor_bounds(card, nbytes, flops, flops, bf16=True)
+    bounds = card.work_bound(kernel_work("ssd_bwd", b=b, t=t, h=h, g=1, p=p, n=n, in_bytes=2,
+                                         a_rows=a_rows, state=True, dstate=False))
     return {"kernel": "ssd_bwd", "case": name, "B": b, "T": t, "H": h, "P": p, "N": n,
             "a_rows": a_rows, "dtype": "bfloat16", "repeat_identical_bits": True,
             "old_new_identical_bits": identical,
@@ -773,10 +770,9 @@ def ab_wkv6_bwd(card, libs: dict, name: str, b, t, h, dk, *, dtype=torch.bfloat1
     identical = all(torch.equal(x, y) for x, y in zip(outs["old"], outs["new"]))
     times = in_turns(runs, None)
     by_kernel = {tag: device_us_by_kernel(run) for tag, run in runs.items()}
-    nbytes, flops = chip_smoke.wkv6_bwd_work(b, t, h, dk, in_bytes=r.element_size(),
-                                             u_rows=u_rows, state=True, dstate=dstate)
-    bounds = chip_smoke.pipe_and_tensor_bounds(card, nbytes, flops, flops,
-                                               bf16=dtype == torch.bfloat16)
+    bounds = card.work_bound(kernel_work("wkv6_bwd", b=b, t=t, h=h, dk=dk,
+                                         in_bytes=r.element_size(), u_rows=u_rows, state=True,
+                                         dstate=dstate))
     return {"kernel": "wkv6_bwd", "case": name, "B": b, "T": t, "H": h, "dk": dk,
             "u_rows": u_rows, "dstate": dstate, "dtype": str(dtype).removeprefix("torch."),
             "repeat_identical_bits": True, "old_new_identical_bits": identical,
